@@ -1,0 +1,43 @@
+"""The port stands alone: no file of vlsa_tpu_torch/, nor chip_smoke.py,
+imports JAX, Flax, Optax or anything of vlsa_tpu, nor a module that the
+machine with the card lacks (transformers, ml_dtypes, regex)."""
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vlsa_tpu", "transformers", "ml_dtypes",
+             "regex")
+
+
+def _port_files():
+    root = os.path.join(REPO, "vlsa_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+             if f.endswith(".py")]
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_forbidden_matches_exactly_or_by_prefix():
+    assert _forbidden("vlsa_tpu") and _forbidden("vlsa_tpu.ops.coattn")
+    assert _forbidden("jax.numpy") and not _forbidden("vlsa_tpu_torch.ops")
+    assert not _forbidden("jaxtyping") and not _forbidden("regexp")
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_forbidden_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"

@@ -1,0 +1,1 @@
+"""Tokenizer, text tower, prompt learners, VLFAN and the assembled VLSA."""

@@ -1,0 +1,84 @@
+"""Serve synthetic requests with the VLSA model of an experiment config.
+
+    python -m vlsa_tpu_torch.runner.serve --config configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml \
+        --n_requests 4 [--bags_per_request 8] [--device cuda|cpu]
+
+The weights are random, from the config's seed (no checkpoint is loaded).
+Each request holds `bags_per_request` bags from the config's
+`path_patch: synthetic://...`, stored as its `feats_dtype`.  Prints one JSON
+line per request and a summary line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from ..config import load_config, serving_config
+from ..data.io import SYNTHETIC_PREFIX, synthetic_bag
+from ..models.vlsa_build import build_vlsa_from_config
+from ..ops import coattn
+from ..utils.device import resolve_device
+from .engine import InferEngine
+
+
+def make_engine(cfg: dict, device=None) -> InferEngine:
+    """The config's model and storage type behind an InferEngine."""
+    if cfg.get("net_output_converter", "softmax") != "softmax":
+        raise NotImplementedError("this port serves incidence models (softmax output)")
+    model, _tok = build_vlsa_from_config(cfg, device=device)
+    feats_dtype = cfg.get("feats_dtype", "float32")
+    precompute_inv = feats_dtype == "int8" and cfg.get("feats_precompute_inv", True)
+    return InferEngine(model, feats_dtype=feats_dtype, precompute_inv=precompute_inv)
+
+
+def request_bags(path_patch: str, request: int, n_bags: int):
+    return [synthetic_bag(f"request{request}_bag{j}", path_patch) for j in range(n_bags)]
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--n_requests", type=int, default=4)
+    ap.add_argument("--bags_per_request", type=int, default=8)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = serving_config(load_config(args.config))
+    path_patch = cfg["path_patch"]
+    if not str(path_patch).startswith(SYNTHETIC_PREFIX):
+        raise ValueError("the serving CLI answers synthetic:// requests only")
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, device)
+    engine.text_precompute()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    coattn.reset_launches()
+    times = []
+    for r in range(args.n_requests):
+        bags = request_bags(path_patch, r, args.bags_per_request)
+        t = time.perf_counter()
+        out = engine.predict(bags)
+        times.append(time.perf_counter() - t)
+        if not (np.isfinite(out["probs"]).all()
+                and np.allclose(out["probs"].sum(-1), 1.0, atol=1e-5)):
+            raise RuntimeError(f"request {r}: probabilities are not a distribution")
+        print(json.dumps({"request": r, "bags": len(bags),
+                          "max_patches": max(b.shape[0] for b in bags),
+                          "ms": 1e3 * times[-1],
+                          "risk": out["survival"].sum(-1).round(4).tolist()}))
+    summary = {"device": str(device), "feats_dtype": engine.feats_dtype,
+               "build_s": build_s, "requests": args.n_requests,
+               "median_request_ms": 1e3 * float(np.median(times)),
+               "coattn_launches": dict(coattn.LAUNCHES)}
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()
