@@ -7,19 +7,37 @@ Run from the root of the repository.  Phases, in order; any failure exits
 non-zero and prints no result:
 
   1. device: CUDA is required; prints the card's name and power limit;
-  2. kernel: builds csrc/coattn_fwd.cu with nvcc and holds each storage
-     variant of the co-attention kernel against the port's plain version on
-     the card (B=8, N=10240, C=512, P=12, scale 30, 10% of patches masked,
-     one empty bag), in f32; tolerances f32 1e-4, bf16 and int8 1e-3;
+  2. kernel: builds csrc/coattn_fwd.cu and csrc/coattn_bwd_dq.cu with nvcc
+     (one process each, started together) and holds each storage variant of
+     the co-attention forward kernel against the port's plain version on the
+     card (B=8, N=10240, C=512, P=12, scale 30, 10% of patches masked, one
+     empty bag), in f32; tolerances f32 1e-4, bf16 and int8 1e-3;
+  2b. backward kernel: holds each variant of the dQ kernel against its plain
+     version at the same shape, with (out, m, l) from the forward kernel;
+     tolerances (max|a-b| / max|b|) f32 1e-3, bf16 and int8 2e-3;
   3. serving: builds the flagship VLSA at the full CONCH width from a seed
      and answers requests of 8 synthetic bags (N~8192 jittered) in every
      storage variant -- 3 in bf16 and 3 in int8 with host 1/||x|| among
      them -- counting the kernel's launches, and holds the incidence
      probabilities against the same requests with the plain co-attention;
+  3b. training: builds the flagship trainer on TCGA-BLCA fold 0 (12 label
+     bins) and takes Adam steps of SurvIFMLE + SurvEMD on batches of 32
+     patients' synthetic bags: 3 in bf16, then one in each other variant,
+     counting both kernels' launches; every step has a finite loss, an
+     unchanged frozen tower and moved learnable parameters; on the main
+     path's last batch of each variant the gradients through the kernels and
+     through the plain co-attention agree within 2e-3 per parameter
+     (max|a-b| / max|b|, the text tower computing in f32 for this check: see
+     f32_text_tower); with the configured bf16 tower the kernel's gap stays
+     within 4x of the gap a 1e-7 relative change of the plain output makes;
+     one more bf16 step runs under torch.profiler for the kernels' share;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
-     before each, for the kernel, its plain version and one
-     scaled_dot_product_attention call (a yardstick the port never calls),
-     beside the least time the card could take (bound_ms).
+     before each, for each kernel, its plain version and a PyTorch
+     yardstick the port never calls (one scaled_dot_product_attention call;
+     for dQ its gradient with respect to q), beside the least time the card
+     could take (bound_ms); the forward also at B=64 and dQ at the training
+     shape B=32, N=16384; at every timed shape the kernels' results are
+     first held against their plain versions with the tolerances above.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}}.
@@ -38,6 +56,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPE = dict(B=8, N=10240, C=512, P=12)
 SCALE = 30.0
 TOL = {"f32": 1e-4, "bf16": 1e-3, "int8": 1e-3}
+# dq tolerances of scripts/validate_kernels_chip.py:87-95
+TOL_DQ = {"f32": 1e-3, "bf16": 2e-3, "int8": 2e-3}
+TOL_GRAD = 2e-3  # parameter gradients, kernel path vs plain path
 VARIANTS = ("f32", "f32_inv", "bf16", "bf16_inv", "int8", "int8_inv")
 # the TPU kernel each variant replaces (vlsa_tpu/ops/coattn.py)
 REPLACES = {
@@ -48,7 +69,17 @@ REPLACES = {
     "int8": "vlsa_tpu/ops/coattn.py:322 _coattn_fwd_kernel_q8",
     "int8_inv": "vlsa_tpu/ops/coattn.py:328 _coattn_fwd_kernel_q8i",
 }
+REPLACES_DQ = {
+    "f32": "vlsa_tpu/ops/coattn.py:458 _coattn_bwd_dq_kernel",
+    "bf16": "vlsa_tpu/ops/coattn.py:458 _coattn_bwd_dq_kernel",
+    "f32_inv": "vlsa_tpu/ops/coattn.py:480 _coattn_bwd_dq_kernel_i",
+    "bf16_inv": "vlsa_tpu/ops/coattn.py:480 _coattn_bwd_dq_kernel_i",
+    "int8": "vlsa_tpu/ops/coattn.py:464 _coattn_bwd_dq_kernel_q8",
+    "int8_inv": "vlsa_tpu/ops/coattn.py:472 _coattn_bwd_dq_kernel_q8i",
+}
 SOURCE = "vlsa_tpu_torch/ops/csrc/coattn_fwd.cu"
+SOURCE_DQ = "vlsa_tpu_torch/ops/csrc/coattn_bwd_dq.cu"
+TRAIN_SHAPE = dict(B=32, N=16384, C=512, P=12)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by
 # operand type (f32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -84,6 +115,24 @@ FLAGSHIP_CFG = {
     "vlsa_pmt_learner_coop_init_prompt_context_idx": 0,
     "vlsa_pmt_learner_coop_rank_specific_context": False,
 }
+# the flagship's training surface (configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml):
+# TCGA-BLCA labels and folds from the repository, synthetic CONCH-width bags
+TRAIN_CFG = dict(
+    FLAGSHIP_CFG, task="vlsa", data_mode="patch", feat_format="pt",
+    path_table=os.path.join(ROOT, "assets/data_split/5foldcv/{0}/mahmoodlab_{0}_survival.csv"),
+    data_split_path=os.path.join(ROOT, "assets/data_split/5foldcv/{0}/splits_{2}.csv"),
+    data_split_seed=[0, 1, 2, 3, 4], time_format="interval", time_bins=None,
+    vlsa_img_encoder_frozen=False, vlsa_pmt_learner_coop_num_ranks=None,
+    vlsa_pmt_learner_coop_frozen_context_embeds=False,
+    vlsa_pmt_learner_coop_frozen_rank_embeds=False,
+    loss_type="SurvIFMLE-SurvEMD", loss_survifmle_weight=1.0, loss_survemd_weight=1.0,
+    loss_survemd_p=2, opt_name="adam", opt_lr=2e-4, opt_weight_decay=1e-5,
+    bp_every_batch=32, feats_dtype="bfloat16")
+# the training steps: (feats_dtype, 1/||x|| shipped with the batch, steps)
+TRAIN_STEPS = (("bfloat16", False, 3), ("float32", False, 1), ("float32", True, 1),
+               ("bfloat16", True, 1), ("int8", False, 1), ("int8", True, 1))
+LEARNABLE = ("prompt_learner.", "query_adapter.residual_features",
+             "mil_encoder.visual_adapter.", "logit_scale")
 # the served requests: (feats_dtype, host 1/||x||, number of requests)
 SERVED = (("bfloat16", False, 3), ("int8", True, 3), ("float32", False, 1),
           ("float32", True, 1), ("bfloat16", True, 1), ("int8", False, 1))
@@ -105,6 +154,17 @@ def check(cond: bool, msg: str) -> None:
 
 def storage_of(variant: str) -> str:
     return variant.split("_")[0]
+
+
+def hold(what: str, got, ref, tol: float) -> dict:
+    """Hold a kernel's result against its plain version on the same inputs:
+    fails on a non-finite value or where max|a-b| / max|b| exceeds tol."""
+    diff = (got - ref).abs().max().item()
+    rel = diff / max(ref.abs().max().item(), 1e-30)
+    log(f"{what}: max|k-p| {diff:.3e}  rel {rel:.3e}  (tol {tol:g})")
+    check(bool(got.isfinite().all()), f"{what}: non-finite kernel result")
+    check(rel <= tol, f"{what}: the kernel deviates {rel:.3e} from its plain version")
+    return {"max_abs_err": diff, "rel_err": rel}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -138,11 +198,12 @@ def make_inputs(torch, B, N, C, P, variant, seed=0, device="cuda"):
 def phase_kernel(torch, co):
     from vlsa_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build("coattn_fwd")
-    log(f"built coattn_fwd in {time.perf_counter() - t0:.1f} s")
-    for line in _build.BUILD_LOGS.get("coattn_fwd", "").splitlines():
-        if "registers" in line or "spill stores" in line:
-            log("  ptxas: " + line.strip())
+    _build.build("coattn_fwd", "coattn_bwd_dq")
+    log(f"built coattn_fwd and coattn_bwd_dq in {time.perf_counter() - t0:.1f} s")
+    for name, build_log in _build.BUILD_LOGS.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill stores" in line:
+                log(f"  ptxas {name}: " + line.strip())
     errs = {}
     for v in VARIANTS:
         q, x, mask, xs, xi = make_inputs(torch, **SHAPE, variant=v)
@@ -162,16 +223,46 @@ def phase_kernel(torch, co):
     return errs
 
 
+# ---------------------------------------------------------------- phase 2b
+
+def make_cotangent(torch, B, P, C, seed=2, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(B, P, C, generator=g, device=device)
+
+
+def phase_backward_kernel(torch, co):
+    errs = {}
+    for v in VARIANTS:
+        q, x, mask, xs, xi = make_inputs(torch, **SHAPE, variant=v)
+        out, m, l = co.coattn_fwd(q, x, mask, SCALE, xs, xi)
+        g = make_cotangent(torch, SHAPE["B"], SHAPE["P"], SHAPE["C"])
+        errs[v] = hold(f"dq kernel {v}", co.coattn_bwd_dq(q, x, mask, SCALE, g, out, m, l, xs, xi),
+                       co.coattn_bwd_dq_reference(q, x, mask, SCALE, g, out, m, l, xs, xi),
+                       TOL_DQ[storage_of(v)])
+        del q, x, mask, xs, xi, out, m, l, g
+    return errs
+
+
 # ---------------------------------------------------------------- phase 3
 
 @contextlib.contextmanager
-def plain_coattention():
-    """Route VLFAN's pooling through the plain version, also on the card."""
+def plain_coattention(rel_noise: float = 0.0, seed: int = 0):
+    """Route VLFAN's pooling through the plain version, also on the card;
+    with `rel_noise`, its output times (1 + rel_noise * z), z ~ N(0, 1)
+    drawn from `seed`."""
+    import torch
     from vlsa_tpu_torch.models import mil
     from vlsa_tpu_torch.ops.coattn import coattn_pool_reference
+
+    def pool(q, x, mask, scale, x_scale=None, x_inv=None):
+        out = coattn_pool_reference(q, x, mask, scale, x_scale=x_scale)
+        if rel_noise:
+            gen = torch.Generator(device=out.device).manual_seed(seed)
+            out = out * (1 + rel_noise * torch.randn(out.shape, generator=gen,
+                                                     device=out.device))
+        return out
     kernel_pool = mil.coattn_pool
-    mil.coattn_pool = (lambda q, x, mask, scale, x_scale=None, x_inv=None:
-                       coattn_pool_reference(q, x, mask, scale, x_scale=x_scale))
+    mil.coattn_pool = pool
     try:
         yield
     finally:
@@ -268,6 +359,219 @@ def phase_serving(torch, co, device):
             "max_prob_dev": worst, "by_mode": by_mode, "max_patches": max_n}
 
 
+# ---------------------------------------------------------------- phase 3b
+
+def inv_norms(torch, feats):
+    """1/||x|| of the stored rows [B, N] f32 (0 for zero rows), bag by bag."""
+    rows = []
+    for f in feats:
+        sq = (f.float() ** 2).sum(-1)
+        rows.append(torch.where(sq > 0, sq.clamp_min(1e-30).rsqrt(), torch.zeros_like(sq)))
+    return torch.stack(rows).contiguous()
+
+
+@contextlib.contextmanager
+def f32_text_tower(torch, tower):
+    """Compute the frozen text tower in f32 (its bf16-stored weights upcast).
+    In bf16 compute every matmul operand of the backward is rounded to bf16,
+    so a change of the co-attention output at the size of f32 rounding moves
+    the prompt embeddings' gradient by bf16 rounding flips
+    (`phase_training` measures it); only an f32 tower lets the gradients
+    tell the kernel from the plain version at TOL_GRAD."""
+    mods = [m for m in tower.modules() if hasattr(m, "compute_dtype")]
+    saved = [m.compute_dtype for m in mods]
+    for m in mods:
+        m.compute_dtype = torch.float32
+    try:
+        yield
+    finally:
+        for m, dtype in zip(mods, saved):
+            m.compute_dtype = dtype
+
+
+def param_grads(torch, model, engine, batch):
+    model.zero_grad(set_to_none=True)
+    loss, _raw = engine.loss(batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def profile_step(torch, engine, batch):
+    """Wall time of one training step under torch.profiler, the device time of
+    all its kernels and of the co-attention kernels (None if the profiler
+    shows no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    total_us = coattn_us = 0.0
+    top = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        total_us += us
+        if "coattn" in evt.key:
+            coattn_us += us
+        top.append((us, evt.key[:80]))
+    top.sort(reverse=True)
+    if total_us == 0:
+        return {"wall_ms": wall_ms, "device_ms": None, "coattn_ms": None, "top": []}
+    return {"wall_ms": wall_ms, "device_ms": total_us / 1e3, "coattn_ms": coattn_us / 1e3,
+            "top": [{"kernel": k, "ms": us / 1e3} for us, k in top[:8]]}
+
+
+def phase_training(torch, co, device):
+    import numpy as np
+    from vlsa_tpu_torch.config import training_config
+    from vlsa_tpu_torch.runner.train import Trainer
+
+    cfg = training_config(TRAIN_CFG, fold=0)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device)
+    build_s = time.perf_counter() - t0
+    model, engine, batcher = trainer.model, trainer.engine, trainer.batcher
+    check(trainer.meta.num_bins == 12, f"fold 0 gives {trainer.meta.num_bins} bins, not 12")
+    tower = model.prompt_encoder
+    tower0 = {k: v.detach().clone() for k, v in tower.state_dict().items()}
+    learnable = [n for n, p in model.named_parameters() if p.requires_grad]
+    check(all(any(n.startswith(prefix) for n in learnable) for prefix in LEARNABLE)
+          and not any(n.startswith("prompt_encoder.") for n in learnable),
+          f"unexpected learnable parameters {learnable}")
+    log(f"trainer built in {build_s:.1f} s: {len(trainer.dataset)} training patients, "
+        f"{trainer.meta.num_bins} bins, {len(learnable)} learnable tensors, "
+        f"tower width {tower.width} ({next(iter(tower.resblocks)).c_fc_weight.dtype})")
+
+    # ---- the main path: every launch counter from 0 ----
+    batches = trainer.batches()
+    co.reset_launches()
+    steps, expected = [], {v: 0 for v in VARIANTS}
+    last_batch = {}  # variant -> its last batch on the main path
+    for feats_dtype, with_inv, count in TRAIN_STEPS:
+        batcher.feats_dtype = feats_dtype
+        batcher.precompute_inv = with_inv
+        for _ in range(count):
+            t = time.perf_counter()
+            batch = {k: v.to(device) for k, v in next(batches).items()}
+            if with_inv and feats_dtype != "int8":
+                batch["feats_inv"] = inv_norms(torch, batch["feats"])
+            torch.cuda.synchronize()
+            t_mid = time.perf_counter()
+            before = {n: p.detach().clone() for n, p in model.named_parameters()
+                      if p.requires_grad}
+            t_step = time.perf_counter()
+            loss, raw = engine.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t_step)
+            variant = co.variant_name(batch["feats"].dtype, "feats_inv" in batch)
+            expected[variant] += 1
+            last_batch[variant] = batch
+            rec = {"variant": variant, "loss": float(loss), "bags": int(batch["valid"].sum()),
+                   "bucket": int(batch["mask"].shape[1]),
+                   "patches": int(batch["mask"].sum()),
+                   "prep_ms": 1e3 * (t_mid - t), "step_ms": step_ms}
+            check(bool(np.isfinite(rec["loss"])) and bool(torch.isfinite(raw).all()),
+                  f"step {len(steps)} ({variant}): non-finite loss or logits")
+            check(all(torch.equal(v, tower0[k]) for k, v in tower.state_dict().items()),
+                  f"step {len(steps)} ({variant}): the frozen tower changed")
+            still = [n for n, p in model.named_parameters()
+                     if p.requires_grad and torch.equal(p.detach(), before[n])]
+            check(not still, f"step {len(steps)} ({variant}): {still} did not move")
+            steps.append(rec)
+            log(f"train step {len(steps) - 1} {variant:9s} loss {rec['loss']:.4f}  "
+                f"{rec['bags']} bags, bucket {rec['bucket']}, {rec['patches']} patches: "
+                f"host prep {rec['prep_ms']:.0f} ms + step {step_ms:.1f} ms")
+    launches = {"fwd": dict(co.LAUNCHES), "bwd": dict(co.LAUNCHES_BWD)}
+    log(f"main path: {len(steps)} training steps, launches {launches}")
+    check(launches["fwd"] == expected and launches["bwd"] == expected,
+          f"training launches {launches}, expected {expected} of each kernel")
+
+    # ---- the gradients through the kernels against the plain co-attention,
+    # on the main path's last batch of each variant (32 bags at its bucket) ----
+    def rel_dev(a, b):
+        check(set(a) == set(b) == set(learnable), "gradient leaves differ")
+        return {n: float((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30))
+                for n in b}
+
+    def kernel_and_plain(batch):
+        g_kernel = param_grads(torch, model, engine, batch)
+        with plain_coattention():
+            g_plain = param_grads(torch, model, engine, batch)
+        return rel_dev(g_kernel, g_plain), g_plain
+
+    # A patient censored in the last bin has 1 - CIF[K-1] = 0 up to f32
+    # rounding, so its SurvIFMLE term (vlsa_tpu/losses/surv.py:100 alike) is
+    # -log of rounding noise clamped at 1e-7, and its gradient that noise
+    # times up to 1e7: a 1e-6 change of the logits flips it.  The check
+    # leaves such patients out of `valid`.
+    K = trainer.meta.num_bins
+    for variant, b in last_batch.items():
+        ill = b["valid"] & (b["e"] == 0) & (b["t"] == K - 1)
+        last_batch[variant] = dict(b, valid=b["valid"] & ~ill)
+    grad_check = {}
+    with f32_text_tower(torch, tower):
+        for variant, b in last_batch.items():
+            dev, _g = kernel_and_plain(b)
+            worst = max(dev, key=dev.get)
+            grad_check[variant] = {"bucket": int(b["mask"].shape[1]),
+                                   "bags": int(b["valid"].sum()), "dev": dev}
+            log(f"gradients, kernel vs plain co-attention, {variant} batch: "
+                f"{int(b['valid'].sum())} bags (censored in the last bin left out), bucket "
+                f"{b['mask'].shape[1]}, text tower in f32: worst {worst} {dev[worst]:.2e} "
+                f"(tol {TOL_GRAD:g})")
+            check(dev[worst] <= TOL_GRAD, f"{variant}: gradient of {worst} deviates "
+                                          f"{dev[worst]:.3e}")
+    # with the configured bf16 tower the kernel's gap is held against the
+    # gap that a change of the plain output at the size of f32 rounding
+    # (1e-7 relative, three draws) makes on its own
+    b = last_batch["bf16"]
+    dev_bf16_tower, g_plain = kernel_and_plain(b)
+    noise = dict.fromkeys(g_plain, 0.0)
+    for seed in range(3):
+        with plain_coattention(rel_noise=1e-7, seed=seed):
+            g_noisy = param_grads(torch, model, engine, b)
+        for n, d in rel_dev(g_noisy, g_plain).items():
+            noise[n] = max(noise[n], d)
+    del last_batch, b, g_plain, g_noisy
+    torch.cuda.empty_cache()
+    log("gradients with the bf16 tower, bf16 batch: kernel vs plain | plain vs plain with "
+        "1e-7 noise: " + ", ".join(f"{n} {dev_bf16_tower[n]:.1e} | {noise[n]:.1e}"
+                                   for n in noise))
+    above = {n: d for n, d in dev_bf16_tower.items() if d > max(TOL_GRAD, 4 * noise[n])}
+    check(not above, f"with the bf16 tower the kernel's gradients deviate {above}, more "
+                     f"than 4x the plain path's own rounding gap {noise}")
+
+    # ---- the text tower's forward + backward, and one profiled step ----
+    def text_fb():
+        model.forward_text_only().float().sum().backward()
+    text_fb_ms = median_ms(torch, text_fb, runs=10)
+    model.zero_grad(set_to_none=True)
+    batcher.feats_dtype, batcher.precompute_inv = "bfloat16", False
+    batch = {k: v.to(device) for k, v in next(batches).items()}
+    prof = dict(profile_step(torch, engine, batch), bucket=int(batch["mask"].shape[1]),
+                patches=int(batch["mask"].sum()))
+    if prof["device_ms"] is None:
+        log("profiled step: the profiler shows no device time")
+    else:
+        log(f"profiled bf16 step (bucket {prof['bucket']}, {prof['patches']} patches): wall "
+            f"{prof['wall_ms']:.1f} ms, kernels on the card {prof['device_ms']:.2f} ms, of "
+            f"which co-attention {prof['coattn_ms']:.2f} ms")
+    log(f"text tower forward + backward: {text_fb_ms:.2f} ms")
+    bf16 = [r for r in steps if r["variant"] == "bf16"]
+    return {"build_s": build_s, "steps": steps, "launches": launches, "grad_check": grad_check,
+            "grad_dev_bf16_tower": dev_bf16_tower, "grad_noise_bf16_tower": noise,
+            "text_fb_ms": text_fb_ms, "profiled_step": prof,
+            "median_bf16_prep_ms": float(np.median([r["prep_ms"] for r in bf16])),
+            "median_bf16_step_ms": float(np.median([r["step_ms"] for r in bf16]))}
+
+
 # ---------------------------------------------------------------- phase 4
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -308,6 +612,8 @@ def bound(B, N, C, P, variant):
 def time_variant(torch, co, variant, B, N, C, P):
     import torch.nn.functional as F
     q, x, mask, xs, xi = make_inputs(torch, B, N, C, P, variant, seed=1)
+    fwd_err = hold(f"kernel {variant} at B={B} N={N}", co.coattn_fwd(q, x, mask, SCALE, xs, xi)[0],
+                   co.coattn_pool_reference(q, x, mask, SCALE, xs), TOL[storage_of(variant)])
     k_ms = median_ms(torch, lambda: co.coattn_fwd(q, x, mask, SCALE, xs, xi))
     p_ms = median_ms(torch, lambda: co.coattn_pool_reference(q, x, mask, SCALE, xs))
     # yardstick: one fused attention call on pre-normalised keys (values in
@@ -323,24 +629,78 @@ def time_variant(torch, co, variant, B, N, C, P):
         qq, kn, vv, attn_mask=am, scale=SCALE))
     b_ms, b_by = bound(B, N, C, P, variant)
     return {"B": B, "N": N, "C": C, "P": P, "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "fwd_err": fwd_err}
+
+
+def bound_dq(B, N, C, P, variant):
+    """Least time for the dQ work on an H100, as `bound` reckons it.  Bytes:
+    x, mask, the sidecar rows, g, out, the stats (m, l) and q read once; dq
+    written once (the kernel's partial-dq workspace is its own design, not
+    the function's work).  Operations: the q and g dots and the dq product,
+    2*P*C each per element, plus the row norm (2*C per element) where the
+    kernel computes it."""
+    storage = storage_of(variant)
+    item = {"f32": 4, "bf16": 2, "int8": 1}[storage]
+    rows = (1 if storage == "int8" else 0) + (1 if variant.endswith("_inv") else 0)
+    nbytes = (B * N * C * item + B * N + 4 * B * N * rows + 4 * 2 * B * P * C
+              + 4 * 2 * B * P + 4 * P * C + 4 * P * C)
+    ops = B * N * C * (6 * P + (0 if variant.endswith("_inv") else 2))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_dq_variant(torch, co, variant, B, N, C, P):
+    import torch.nn.functional as F
+    q, x, mask, xs, xi = make_inputs(torch, B, N, C, P, variant, seed=1)
+    out, m, l = co.coattn_fwd(q, x, mask, SCALE, xs, xi)
+    g = make_cotangent(torch, B, P, C)
+    shape = f"B={B} N={N}"
+    fwd_err = hold(f"kernel {variant} at {shape}", out,
+                   co.coattn_pool_reference(q, x, mask, SCALE, xs), TOL[storage_of(variant)])
+    dq_err = hold(f"dq kernel {variant} at {shape}",
+                  co.coattn_bwd_dq(q, x, mask, SCALE, g, out, m, l, xs, xi),
+                  co.coattn_bwd_dq_reference(q, x, mask, SCALE, g, out, m, l, xs, xi),
+                  TOL_DQ[storage_of(variant)])
+    k_ms = median_ms(torch, lambda: co.coattn_bwd_dq(q, x, mask, SCALE, g, out, m, l, xs, xi))
+    p_ms = median_ms(torch, lambda: co.coattn_bwd_dq_reference(
+        q, x, mask, SCALE, g, out, m, l, xs, xi))
+    # yardstick: the gradient with respect to q of one fused attention call
+    # (its forward included) on pre-normalised keys, as in `time_variant`
+    xf = co.dequantize_feats(x, xs).float()
+    lib_dtype = torch.float32 if storage_of(variant) == "f32" else torch.bfloat16
+    kn = torch.nn.functional.normalize(xf, dim=-1).to(lib_dtype)[:, None]
+    vv = xf.to(lib_dtype)[:, None]
+    del xf
+    qq = q.to(lib_dtype)[None, None].expand(B, 1, P, C).contiguous().requires_grad_(True)
+    gg = g.to(lib_dtype)[:, None]
+    am = mask[:, None, None, :]
+    lib_ms = median_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qq, kn, vv, attn_mask=am, scale=SCALE), qq, gg))
+    b_ms, b_by = bound_dq(B, N, C, P, variant)
+    return {"B": B, "N": N, "C": C, "P": P, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "fwd_err": fwd_err, "dq_err": dq_err}
 
 
 def phase_times(torch, co):
-    at_b8 = {}
+    times = {"fwd_b8": {}, "fwd_b64": {}, "dq_b8": {}, "dq_train": {}}
     for v in VARIANTS:
-        at_b8[v] = time_variant(torch, co, v, **SHAPE)
+        times["fwd_b8"][v] = time_variant(torch, co, v, **SHAPE)
         torch.cuda.empty_cache()
-    at_b64 = {}
+        times["dq_b8"][v] = time_dq_variant(torch, co, v, **SHAPE)
+        torch.cuda.empty_cache()
     for v in ("bf16", "int8_inv"):
-        at_b64[v] = time_variant(torch, co, v, **dict(SHAPE, B=64))
+        times["fwd_b64"][v] = time_variant(torch, co, v, **dict(SHAPE, B=64))
         torch.cuda.empty_cache()
-    for shape, recs in (("B=8", at_b8), ("B=64", at_b64)):
+        times["dq_train"][v] = time_dq_variant(torch, co, v, **TRAIN_SHAPE)
+        torch.cuda.empty_cache()
+    for key, recs in times.items():
         for v, t in recs.items():
-            log(f"time {shape:4s} {v:9s} kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms"
-                f"  sdpa {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms"
-                f" ({t['bound_by']})  kernel/bound {t['ms'] / t['bound_ms']:.1f}x")
-    return at_b8, at_b64
+            log(f"time {key:8s} B={t['B']:<3d} N={t['N']:<6d} {v:9s} kernel {t['ms']:.4f} ms"
+                f"  plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms"
+                f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+                f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x")
+    return times
 
 
 # ---------------------------------------------------------------- main
@@ -372,25 +732,37 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     try:
         errs = phase_kernel(torch, co)
+        errs_dq = phase_backward_kernel(torch, co)
         serving = phase_serving(torch, co, device)
-        at_b8, at_b64 = phase_times(torch, co)
+        training = phase_training(torch, co, device)
+        times = phase_times(torch, co)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
 
     kernels = []
-    for v in VARIANTS:
-        t = at_b8[v]
-        kernels.append({
-            "name": f"coattn_fwd[{v}]", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[v], "launches": serving["launches"][v],
-            "max_abs_err": errs[v]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+    fwd_launches = {v: serving["launches"][v] + training["launches"]["fwd"][v]
+                    for v in VARIANTS}
+    for name, source, replaces, err, t_by_variant, launches in (
+            ("coattn_fwd", SOURCE, REPLACES, errs, times["fwd_b8"], fwd_launches),
+            ("coattn_bwd_dq", SOURCE_DQ, REPLACES_DQ, errs_dq, times["dq_b8"],
+             training["launches"]["bwd"])):
+        for v in VARIANTS:
+            t = t_by_variant[v]
+            kernels.append({
+                "name": f"{name}[{v}]", "route": "cuda", "source": source,
+                "replaces": replaces[v], "launches": launches[v],
+                "max_abs_err": err[v]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
+    never = [k["name"] for k in kernels if k["launches"] <= 0]
+    if never:
+        log(f"FAIL: never launched on the main paths: {never}")
+        return 1
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "shape": SHAPE, "kernel_errors": errs, "serving": serving,
-              "times_b8": at_b8, "times_b64": at_b64, "kernels": kernels,
-              "seconds": time.perf_counter() - t_start}
+              "shape": SHAPE, "train_shape": TRAIN_SHAPE, "kernel_errors": errs,
+              "dq_errors": errs_dq, "serving": serving, "training": training,
+              "times": times, "kernels": kernels, "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,6 +1,6 @@
 """The port stands alone: no file of vlsa_tpu_torch/, nor chip_smoke.py,
 imports JAX, Flax, Optax or anything of vlsa_tpu, nor a module that the
-machine with the card lacks (transformers, ml_dtypes, regex)."""
+machine with the card lacks (transformers, ml_dtypes, regex, pandas)."""
 import ast
 import os
 
@@ -8,7 +8,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vlsa_tpu", "transformers", "ml_dtypes",
-             "regex")
+             "regex", "pandas")
 
 
 def _port_files():

@@ -45,7 +45,8 @@ def serving_config(cfg: dict) -> dict:
                 raise ValueError(f"{k} lists {len(v)} values; serve one configuration")
         out[k] = v
     name = out.get("dataset_name", "")
-    for key in ("path_patch", "vlsa_img_encoder_query_text_load_idx"):
+    for key in ("path_patch", "path_table", "data_split_path",
+                "vlsa_img_encoder_query_text_load_idx"):
         if isinstance(out.get(key), str):
             out[key] = out[key].replace("{0}", name)
     if out.get("vlsa_img_encoder_query") == "Text" \
@@ -56,4 +57,17 @@ def serving_config(cfg: dict) -> dict:
     key = "vlsa_pmt_learner_coop_num_ranks"
     if key in out and out[key] is None:
         out[key] = FLAGSHIP_NUM_RANKS
+    return out
+
+
+def training_config(cfg: dict, fold: int = 0) -> dict:
+    """`serving_config` for one fold of the cross-validation grid: the
+    fold is taken from the listed `data_split_seed` values and fills `{2}`
+    of `data_split_path`.  The rank count is set from the label bins once
+    they are known."""
+    seeds = cfg.get("data_split_seed", fold)
+    if fold not in (seeds if isinstance(seeds, list) else [seeds]):
+        raise ValueError(f"fold {fold} is not among data_split_seed {seeds}")
+    out = serving_config(dict(cfg, data_split_seed=fold))
+    out["data_split_path"] = str(out["data_split_path"]).replace("{2}", str(fold))
     return out

@@ -1,0 +1,109 @@
+"""Patient-level survival labels and discrete time bins (counterpart of
+vlsa_tpu/data/label_converter.py), with `csv` and numpy in place of pandas.
+
+Bins are inferred from the training split: uniform intervals or quantiles of
+the event times, by default ceil(sqrt(#events)) of them; the first edge is 0
+and the last the cohort's largest time plus 1e-5.  The few-shot sampler's
+Kaplan-Meier de-censoring is not ported yet.
+"""
+from __future__ import annotations
+
+import csv
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def calculate_discrete_time_bins(t: np.ndarray, e: np.ndarray,
+                                 num_bins: Optional[int] = None,
+                                 use_quantiles: bool = False,
+                                 max_time: Optional[float] = None) -> np.ndarray:
+    """Bin edges from the event times t[e == 1]: linear-interpolation
+    quantiles (pandas' qcut edges) or a uniform grid up to the last event."""
+    event_times = np.asarray(t, np.float64)[np.asarray(e) == 1]
+    if num_bins is None:
+        num_bins = math.ceil(math.sqrt(len(event_times)))
+    if use_quantiles:
+        qbins = np.quantile(event_times, np.linspace(0.0, 1.0, num_bins + 1))
+        if len(np.unique(qbins)) != len(qbins):
+            raise ValueError(f"quantile bin edges are not unique: {qbins}")
+    else:
+        qbins = np.linspace(0, event_times.max(), num_bins + 1)
+    if max_time is None:
+        max_time = float(np.max(t))
+    qbins[0] = 0
+    qbins[-1] = max_time + 1e-5
+    return qbins
+
+
+def cut(values: np.ndarray, bins: np.ndarray) -> np.ndarray:
+    """Bin ids of `values` for left-closed bins [bins[i], bins[i+1])."""
+    ids = np.searchsorted(bins, values, side="right") - 1
+    if np.any(ids < 0) or np.any(ids >= len(bins) - 1):
+        raise ValueError(f"times outside the bins [{bins[0]}, {bins[-1]})")
+    return ids
+
+
+class MetaSurvData:
+    """The label table (`pathology_id, patient_id, e, t`, one row per slide)
+    and its first row per patient."""
+
+    def __init__(self, path_label: str, column_t: str = "t", column_e: str = "e",
+                 data_split: Optional[Dict[str, List[str]]] = None):
+        self.column_t = column_t
+        self.column_e = column_e
+        with open(path_label, newline="") as f:
+            rows = list(csv.DictReader(f))
+        self.slide_ids = [r["pathology_id"] for r in rows]
+        self.slide_pids = [r["patient_id"] for r in rows]
+        # first row per patient, patients in sorted order (a pandas groupby)
+        first: Dict[str, dict] = {}
+        for r in rows:
+            first.setdefault(r["patient_id"], r)
+        self.pids = sorted(first)
+        self.t = np.array([float(first[p][column_t]) for p in self.pids])
+        self.e = np.array([int(float(first[p][column_e])) for p in self.pids])
+        self._row = {p: i for i, p in enumerate(self.pids)}
+        self.data_split = data_split
+        self.max_t = float(self.t.max())
+        self.time_bins: Optional[np.ndarray] = None
+        self.label_format: Optional[str] = None
+        self.y_t: Optional[np.ndarray] = None
+
+    @property
+    def num_bins(self) -> Optional[int]:
+        return None if self.time_bins is None else len(self.time_bins) - 1
+
+    def patient_rows(self, pids) -> np.ndarray:
+        """Row indices of the patients of `pids` that the table holds."""
+        return np.array([self._row[p] for p in pids if p in self._row], np.int64)
+
+    def generate_discrete_label(self, num_bins: Optional[int] = None,
+                                use_quantiles: bool = True) -> np.ndarray:
+        """Discrete time labels y_t of every patient, with bins inferred from
+        the training split where there is one."""
+        self.label_format = "discrete_quantile" if use_quantiles else "discrete_uniform"
+        rows = (self.patient_rows(self.data_split["train"]) if self.data_split is not None
+                else np.arange(len(self.pids)))
+        self.time_bins = calculate_discrete_time_bins(
+            self.t[rows], self.e[rows], num_bins=num_bins, use_quantiles=use_quantiles,
+            max_time=self.max_t)
+        self.y_t = cut(self.t, self.time_bins)
+        return self.y_t
+
+    def collect_info_by_pids(self, pids):
+        """(patient ids found, pid -> slide ids, pid -> [y_t, e])."""
+        if self.y_t is None:
+            raise ValueError("generate_discrete_label first")
+        sel_pids, pid2sids, pid2label = [], {}, {}
+        for pid in pids:
+            sids = [s for s, p in zip(self.slide_ids, self.slide_pids) if p == pid]
+            if not sids:
+                print(f"[label converter] warning: patient {pid} not found.")
+                continue
+            sel_pids.append(pid)
+            pid2sids[pid] = sids
+            row = self._row[pid]
+            pid2label[pid] = [int(self.y_t[row]), int(self.e[row])]
+        return sel_pids, pid2sids, pid2label

@@ -54,6 +54,10 @@ class VLSA(nn.Module):
     def get_query(self) -> Optional[torch.Tensor]:
         return self.query_adapter() if self.query_adapter is not None else None
 
+    def query_div_loss(self, **kws) -> torch.Tensor:
+        """The network's prompt-diversity regulariser (the QueryDiv loss)."""
+        return self.mil_encoder.query_div_loss(query=self.get_query(), **kws)
+
     def text_precompute(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(text_features, query) for fixed parameters: a serving pass
         computes them once, not once per request."""

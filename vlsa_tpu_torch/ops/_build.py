@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into `build/lib<name>-<hash>.so`, where the hash covers the
-source and the flags, so an edited source is never served a stale library.
+source, the shared `csrc/*.cuh` headers and the flags, so an edited source is
+never served a stale library.
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines with no `nvcc`.
 """
@@ -13,7 +14,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -39,38 +41,45 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its hash covers the source, the shared headers
+    of csrc/ and the flags."""
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless its library is already built."""
+def build_one(name: str) -> None:
+    """Compile `csrc/<name>.cu` unless its library is built already."""
     out = library_path(name)
     if out.exists():
-        return out
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to a private file, then rename: a concurrent build never sees
     # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}-{threading.get_ident()}.so")
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC_DIR / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    BUILD_LOGS[name] = proc.stdout
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)
+
+
+def build(*names: str) -> None:
+    """Compile several sources, one nvcc process each, all started together."""
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        list(pool.map(build_one, names))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built at first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        build_one(name)
+        lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib

@@ -5,9 +5,11 @@ A bag of N patch features x [B, N, C] is reduced against P <= 16 queries:
     xn = l2norm(x);  A = softmax_N(scale * q @ xn^T);  out = A @ x
 
 Counterpart of vlsa_tpu/ops/coattn.py.  `coattn_pool` is the entry point:
-a CPU tensor goes through the plain PyTorch version, a CUDA tensor through the
-hand-written Hopper kernel `csrc/coattn_fwd.cu` (forward only; the backward
-kernels come with the training slice).
+a CPU tensor goes through the plain PyTorch version under ordinary autograd,
+a CUDA tensor through the hand-written Hopper kernels: `csrc/coattn_fwd.cu`
+forward and, when the queries need a gradient, `csrc/coattn_bwd_dq.cu` for
+their backward (`CoattnPoolDQ`).  The patch features are constants there; a
+CUDA call whose x needs a gradient waits for the port of the dX backward.
 
 Storage types of x: f32, bf16, or int8 with per-patch dequant scales
 `x_scale` [B, N]; `x_inv` [B, N] optionally carries host-computed
@@ -28,14 +30,17 @@ _TILE = 32  # patches per kernel tile (kTile in csrc/coattn_fwd.cu)
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
-# Launches of the CUDA kernel, one per call of `coattn_fwd`, by variant
-# ("f32", "f32_inv", "bf16", "bf16_inv", "int8", "int8_inv").
+# Launches of the CUDA kernels by variant ("f32", "f32_inv", "bf16",
+# "bf16_inv", "int8", "int8_inv"): one per call of `coattn_fwd` in LAUNCHES,
+# one per call of `coattn_bwd_dq` in LAUNCHES_BWD.
 LAUNCHES = {f"{s}{i}": 0 for s in ("f32", "bf16", "int8") for i in ("", "_inv")}
+LAUNCHES_BWD = dict(LAUNCHES)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BWD):
+        for k in counts:
+            counts[k] = 0
 
 
 def variant_name(x_dtype: torch.dtype, host_inv: bool) -> str:
@@ -75,6 +80,54 @@ def coattn_attention_reference(q: torch.Tensor, x: torch.Tensor,
     return masked_softmax(logits, m, dim=-1)
 
 
+def _stored_logits(q, x, mask, scale, x_inv):
+    """(xf, inv, logits) as the kernels form them: on the stored values (raw
+    int8 for int8), logits = scale * inv[n] * (q . x[n]), -1e30 where
+    masked; inv = x_inv, else 1/max(|x[n]|, 1e-12)."""
+    xf = x.to(torch.float32)
+    if x_inv is None:
+        inv = torch.rsqrt(torch.clamp((xf * xf).sum(-1), min=1e-24))
+    else:
+        inv = x_inv.to(torch.float32)
+    logits = scale * torch.einsum("pc,bnc->bpn", q.to(torch.float32), xf) * inv[:, None, :]
+    return xf, inv, torch.where(mask[:, None, :], logits, -1e30)
+
+
+def coattn_fwd_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale,
+                         x_scale: Optional[torch.Tensor] = None,
+                         x_inv: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of `coattn_fwd`: (out [B, P, C], m [B, P], l [B, P]) f32
+    with the kernel's stats: m the masked max of the logits (-1e30 for an
+    empty bag), l the softmax normaliser clamped below at 1e-30."""
+    xf, _inv, logits = _stored_logits(q, x, mask, scale, x_inv)
+    m = logits.amax(-1)
+    p = torch.where(mask[:, None, :], torch.exp(logits - m[..., None]), 0.0)
+    l = torch.clamp(p.sum(-1), min=1e-30)
+    w = p if x_scale is None else p * x_scale[:, None, :]
+    return torch.einsum("bpn,bnc->bpc", w, xf) / l[..., None], m, l
+
+
+def coattn_bwd_dq_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                            scale, g: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
+                            l: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
+                            x_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of `coattn_bwd_dq` (vlsa_tpu/ops/coattn.py::
+    _coattn_bwd_dq_body in f32): the queries' gradient dq [P, C] f32 from the
+    output's cotangent g [B, P, C], the forward output and its stats."""
+    xf, inv, logits = _stored_logits(q, x, mask, scale, x_inv)
+    valid = mask[:, None, :]
+    # a is masked to 0 first: an empty bag has m = -1e30, l = 1e-30, where
+    # exp(0) / l = 1e30
+    a = torch.where(valid, torch.exp(logits - m[..., None]) / l[..., None], 0.0)
+    dA = torch.einsum("bpc,bnc->bpn", g, xf)
+    if x_scale is not None:
+        dA = dA * x_scale[:, None, :]
+    s_row = (g * out).sum(-1, keepdim=True)
+    dl_inv = a * (dA - s_row) * inv[:, None, :]
+    return scale * torch.einsum("bpn,bnc->pc", dl_inv, xf)
+
+
 def split_plan(B: int, N: int, n_sm: int) -> Tuple[int, int]:
     """(chunk, S): the patch axis of each bag is cut into S chunks of `chunk`
     patches (a multiple of the tile), one block each, so that B*S blocks
@@ -85,16 +138,24 @@ def split_plan(B: int, N: int, n_sm: int) -> Tuple[int, int]:
     return chunk, max(1, -(-N // chunk))
 
 
-def _library():
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the argument types of each library's entry point `<name>` (csrc/<name>.cu):
+# pointers to q, x, x_scale, x_inv and mask, the scale, [coattn_bwd_dq: g,
+# out, m, l], B, N, C, P, chunk, S, storage and device, then the workspace,
+# output and stream pointers
+_ARGTYPES = {
+    "coattn_fwd": [_P] * 5 + [_F] + [_I] * 8 + [_P] * 7,
+    "coattn_bwd_dq": [_P] * 5 + [_F] + [_P] * 4 + [_I] * 8 + [_P] * 3,
+}
+
+
+def _library(name: str):
     from ._build import load
-    lib = load("coattn_fwd")
+    lib = load(name)
     if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.coattn_fwd.argtypes = [p, p, p, p, p, ctypes.c_float, i, i, i, i,
-                                   i, i, i, i, p, p, p, p, p, p, p]
-        lib.coattn_fwd.restype = ctypes.c_int
-        lib.coattn_fwd_smem_bytes.argtypes = [i, i, i]
-        lib.coattn_fwd_smem_bytes.restype = ctypes.c_size_t
+        entry, smem = getattr(lib, name), getattr(lib, f"{name}_smem_bytes")
+        entry.argtypes, entry.restype = _ARGTYPES[name], _I
+        smem.argtypes, smem.restype = [_I, _I, _I], ctypes.c_size_t
         lib._argtypes_set = True
     return lib
 
@@ -108,15 +169,10 @@ def _check_row(name, t, B, N, device):
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: float,
-               x_scale: Optional[torch.Tensor] = None,
-               x_inv: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the Hopper kernel on CUDA tensors.  Returns (out [B, P, C],
-    m [B, P], l [B, P]) f32: the pooled features and the softmax stats
-    (running max and normaliser, l clamped below at 1e-30)."""
+def _check_inputs(q, x, mask, x_scale, x_inv, kernel: str) -> Tuple[int, int, int, int]:
+    """The argument checks both kernels share; returns (B, N, C, P)."""
     if x.device.type != "cuda":
-        raise ValueError(f"coattn_fwd launches a CUDA kernel; x is on {x.device}")
+        raise ValueError(f"{kernel} launches a CUDA kernel; x is on {x.device}")
     device = x.device
     if x.dtype not in _STORAGE:
         raise ValueError(f"x must be f32, bf16 or int8, got {x.dtype}")
@@ -128,9 +184,10 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
     if x.data_ptr() % 16 != 0:
         raise ValueError("x must be 16-byte aligned")
     if q.device != device or q.dtype != torch.float32 or q.dim() != 2 \
-            or q.shape[1] != C or not 1 <= q.shape[0] <= MAX_QUERIES:
-        raise ValueError(f"q must be an f32 [P<={MAX_QUERIES}, {C}] tensor on {device}, "
-                         f"got {q.dtype} {tuple(q.shape)} on {q.device}")
+            or q.shape[1] != C or not 1 <= q.shape[0] <= MAX_QUERIES \
+            or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous f32 [P<={MAX_QUERIES}, {C}] tensor on "
+                         f"{device}, got {q.dtype} {tuple(q.shape)} on {q.device}")
     if mask.device != device or mask.dtype != torch.bool \
             or tuple(mask.shape) != (B, N) or not mask.is_contiguous():
         raise ValueError(f"mask must be a contiguous bool [{B}, {N}] tensor on {device}")
@@ -138,17 +195,38 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
         raise ValueError("x_scale is required for int8 x and taken for no other type")
     _check_row("x_scale", x_scale, B, N, device)
     _check_row("x_inv", x_inv, B, N, device)
-    q = q.contiguous()
-    P = q.shape[0]
+    return B, N, C, q.shape[0]
 
-    lib = _library()
-    storage = _STORAGE[x.dtype]
+
+def _plan(lib, name: str, device, B, N, C, P, storage) -> Tuple[int, int]:
     props = torch.cuda.get_device_properties(device)
-    smem = lib.coattn_fwd_smem_bytes(P, C, storage)
+    smem = getattr(lib, f"{name}_smem_bytes")(P, C, storage)
     if smem > props.shared_memory_per_block_optin:
         raise ValueError(f"C={C}, P={P} needs {smem} bytes of shared memory per "
                          f"block, the card gives {props.shared_memory_per_block_optin}")
-    chunk, S = split_plan(B, N, props.multi_processor_count)
+    return split_plan(B, N, props.multi_processor_count)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _device_index(device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: float,
+               x_scale: Optional[torch.Tensor] = None,
+               x_inv: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the Hopper kernel on CUDA tensors.  Returns (out [B, P, C],
+    m [B, P], l [B, P]) f32: the pooled features and the softmax stats
+    (running max and normaliser, l clamped below at 1e-30)."""
+    B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_fwd")
+    device = x.device
+    lib = _library("coattn_fwd")
+    storage = _STORAGE[x.dtype]
+    chunk, S = _plan(lib, "coattn_fwd", device, B, N, C, P, storage)
 
     f32 = dict(dtype=torch.float32, device=device)
     out = torch.empty(B, P, C, **f32)
@@ -158,19 +236,68 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
     ws_l = torch.empty(B, S, P, **f32)
     ws_acc = torch.empty(B, S, P, C, **f32)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.coattn_fwd(ptr(q), ptr(x), ptr(x_scale), ptr(x_inv), ptr(mask),
+    err = lib.coattn_fwd(_ptr(q), _ptr(x), _ptr(x_scale), _ptr(x_inv), _ptr(mask),
                          float(scale), B, N, C, P, chunk, S, storage,
-                         device.index if device.index is not None else torch.cuda.current_device(),
-                         ptr(ws_m), ptr(ws_l), ptr(ws_acc), ptr(out), ptr(m), ptr(l),
-                         stream)
+                         _device_index(device), _ptr(ws_m), _ptr(ws_l), _ptr(ws_acc),
+                         _ptr(out), _ptr(m), _ptr(l), stream)
     if err != 0:
         raise RuntimeError(f"coattn_fwd kernel launch failed: cudaError {err}")
     LAUNCHES[variant_name(x.dtype, x_inv is not None)] += 1
     return out, m, l
+
+
+def coattn_bwd_dq(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: float,
+                  g: torch.Tensor, out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                  x_scale: Optional[torch.Tensor] = None,
+                  x_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the Hopper dQ kernel on CUDA tensors: the queries' gradient
+    dq [P, C] f32 from the output's cotangent g [B, P, C] and the forward's
+    (out, m, l) as `coattn_fwd` returns them."""
+    B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_bwd_dq")
+    device = x.device
+    for name, t, shape in (("g", g, (B, P, C)), ("out", out, (B, P, C)),
+                           ("m", m, (B, P)), ("l", l, (B, P))):
+        if t.device != device or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 {list(shape)} tensor on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = _library("coattn_bwd_dq")
+    storage = _STORAGE[x.dtype]
+    chunk, S = _plan(lib, "coattn_bwd_dq", device, B, N, C, P, storage)
+
+    dq = torch.empty(P, C, dtype=torch.float32, device=device)
+    ws_dq = torch.empty(B, S, P, C, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.coattn_bwd_dq(_ptr(q), _ptr(x), _ptr(x_scale), _ptr(x_inv), _ptr(mask),
+                            float(scale), _ptr(g), _ptr(out), _ptr(m), _ptr(l),
+                            B, N, C, P, chunk, S, storage, _device_index(device),
+                            _ptr(ws_dq), _ptr(dq), stream)
+    if err != 0:
+        raise RuntimeError(f"coattn_bwd_dq kernel launch failed: cudaError {err}")
+    LAUNCHES_BWD[variant_name(x.dtype, x_inv is not None)] += 1
+    return dq
+
+
+class CoattnPoolDQ(torch.autograd.Function):
+    """Co-attention pooling with constant patch features on CUDA: the forward
+    kernel, and the dQ kernel for the queries' gradient (the counterpart of
+    vlsa_tpu's `_coattn_pool_tpu_nodx` / `_nodx_q8` custom VJPs).  x, its
+    sidecars, the mask and the scale (a frozen buffer) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, x, mask, scale, x_scale, x_inv):
+        out, m, l = coattn_fwd(q, x, mask, scale, x_scale, x_inv)
+        ctx.save_for_backward(q, x, mask, x_scale, x_inv, out, m, l)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, x, mask, x_scale, x_inv, out, m, l = ctx.saved_tensors
+        dq = coattn_bwd_dq(q, x, mask, ctx.scale, g.contiguous(), out, m, l,
+                           x_scale=x_scale, x_inv=x_inv)
+        return dq, None, None, None, None, None
 
 
 def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -179,9 +306,10 @@ def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
     """Masked co-attention pooling: q [P, C] effective queries (normalised),
     x [B, N, C] raw patch features, mask [B, N] -> [B, P, C] f32.
 
-    CPU tensors take the plain version (which ignores `x_inv`: it normalises
-    the rows itself); CUDA tensors launch the kernel.  The kernel is a
-    forward only, so on CUDA a call that needs a gradient for q raises."""
+    CPU tensors take the plain version under ordinary autograd (it ignores
+    `x_inv`: it normalises the rows itself).  CUDA tensors launch the
+    forward kernel, through `CoattnPoolDQ` when q needs a gradient; a CUDA
+    call whose x (or x_scale) needs one raises."""
     if x.dtype == torch.int8 and x_scale is None:
         raise ValueError("int8 features need x_scale [B, N]")
     if mask is None:
@@ -190,11 +318,15 @@ def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
         return coattn_pool_reference(q, x, mask, scale, x_scale=x_scale)
     if x.device.type != "cuda":
         raise ValueError(f"coattn_pool runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and q.requires_grad:
-        raise NotImplementedError(
-            "coattn_pool on CUDA is forward-only: its gradient needs the port of "
-            "the dQ backward kernel (vlsa_tpu/ops/coattn.py::_coattn_bwd_dq_body), "
-            "which comes with the training slice; serve under torch.inference_mode()")
-    out, _m, _l = coattn_fwd(q, x, mask.contiguous(), float(scale),
+    mask = mask.contiguous()
+    if torch.is_grad_enabled():
+        if x.requires_grad or (x_scale is not None and x_scale.requires_grad):
+            raise NotImplementedError(
+                "coattn_pool on CUDA takes the patch features as constants: a "
+                "gradient for x needs the port of the full backward with dX "
+                "(kernel table row 5, vlsa_tpu/ops/coattn.py::_coattn_bwd_kernel)")
+        if q.requires_grad:
+            return CoattnPoolDQ.apply(q.contiguous(), x, mask, float(scale), x_scale, x_inv)
+    out, _m, _l = coattn_fwd(q.contiguous(), x, mask, float(scale),
                              x_scale=x_scale, x_inv=x_inv)
     return out

@@ -1,0 +1,2 @@
+"""Optimizers (counterpart of vlsa_tpu/optim)."""
+from .factory import create_optimizer, decay_mask, frozen_mask_from_cfg  # noqa: F401

@@ -1,0 +1,166 @@
+"""Train the VLSA model of an experiment config for a few steps.
+
+    python -m vlsa_tpu_torch.runner.train --config configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml \\
+        --steps 3 [--fold 0] [--device cuda|cpu]
+
+The counterpart of the training loop of vlsa_tpu/runner/base.py with the
+VLSA handler's label, model, loss and freezing rules: the fold's label bins
+set the rank count, the training split's bags (the config's `path_patch`,
+`synthetic://` included) go through the batcher `bp_every_batch` at a time,
+and each step is one Adam update of SurvIFMLE + SurvEMD (the config's
+losses).  The weights are random, from the config's seed.  Prints one JSON
+line per step and a summary line.  Evaluation (C-index, IBS), checkpoints,
+LR schedules and early stopping are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import fetch_kws, load_config, training_config
+from ..data.bags import SurvBagDataset
+from ..data.label_converter import MetaSurvData
+from ..data.pipeline import BagBatcher
+from ..data.splits import read_file_data_splitting
+from ..losses import load_loss
+from ..models.vlsa_build import build_vlsa_from_config
+from ..ops import coattn
+from ..optim import create_optimizer, frozen_mask_from_cfg
+from ..utils.device import resolve_device
+from .engine import TrainEngine, make_objective, make_output_converter
+
+
+def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
+    """The label table with discrete bins from the training split; the
+    prompt learner's rank count follows the bin count."""
+    time_format = cfg["time_format"]
+    if time_format not in ("interval", "quantile"):
+        raise NotImplementedError(f"time_format {time_format!r}: this port has "
+                                  f"discrete labels (interval, quantile) only")
+    meta = MetaSurvData(cfg["path_table"], data_split=data_split)
+    meta.generate_discrete_label(num_bins=cfg.get("time_bins"),
+                                 use_quantiles=time_format == "quantile")
+    cfg["time_bins"] = meta.num_bins
+    for learner in ("coop", "adapter"):
+        key = f"vlsa_pmt_learner_{learner}_num_ranks"
+        if key in cfg:
+            cfg[key] = meta.num_bins
+    return meta
+
+
+def frozen_paths(cfg: dict) -> List[str]:
+    """The config's freeze flags as parameter name prefixes."""
+    arch = cfg["arch"].lower()
+    paths = []
+    if fetch_kws(cfg, prefix=f"{arch}_txt_encoder").get("frozen", True):
+        paths.append("prompt_encoder")
+    if fetch_kws(cfg, prefix=f"{arch}_img_encoder").get("frozen", False):
+        paths.append("mil_encoder")
+    if cfg.get(f"{arch}_frozen_logit_scale", False):
+        paths.append("logit_scale")
+    coop = fetch_kws(cfg, prefix=f"{arch}_pmt_learner_coop")
+    if cfg.get(f"{arch}_pmt_learner_name") == "CoOp":
+        if coop.get("frozen_context_embeds"):
+            paths.append("prompt_learner/context_embeds")
+        if coop.get("frozen_rank_embeds"):
+            paths.append("prompt_learner/rank_embeds")
+    return paths
+
+
+def load_losses(cfg: dict):
+    """({name: loss fn}, {name: weight}) from `loss_type` ("A-B") and the
+    `loss_<name>_*` keys."""
+    names = cfg["loss_type"].split("-") if isinstance(cfg["loss_type"], str) \
+        else list(cfg["loss_type"])
+    kws = {"loss_type": names}
+    weights = {}
+    for name in names:
+        kws[name] = fetch_kws(cfg, prefix=f"loss_{name.lower()}")
+        weights[name] = cfg.get(f"loss_{name.lower()}_weight", 1)
+    return load_loss(cfg["task"], **kws), weights
+
+
+class Trainer:
+    """Data, model, losses, optimizer and engine of one training run, built
+    from a config that `training_config` has resolved."""
+
+    def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None):
+        if cfg.get("data_mode", "patch") != "patch":
+            raise NotImplementedError("this port trains on patch bags only")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        data_split = read_file_data_splitting(cfg["data_split_path"])
+        self.meta = build_surv_meta(cfg, data_split)
+        self.dataset = SurvBagDataset(data_split["train"], cfg["path_patch"], self.meta,
+                                      read_format=cfg.get("feat_format", "pt"))
+        self.batcher = BagBatcher(
+            self.dataset, batch_size=cfg.get("bp_every_batch", 32), shuffle=True,
+            seed=cfg["seed"], min_bucket=cfg.get("min_bucket", 256),
+            max_bucket=cfg.get("max_bucket"), fixed_bucket=cfg.get("fixed_bucket"),
+            feats_dtype=cfg.get("feats_dtype", "float32"),
+            precompute_inv=cfg.get("feats_precompute_inv", True),
+            overflow=cfg.get("bag_overflow", "error"))
+        self.model, _tok = build_vlsa_from_config(cfg, device=self.device,
+                                                  state_dict=state_dict)
+        self.model.train()
+        self.frozen = frozen_mask_from_cfg(self.model, frozen_paths(cfg))
+        loss_fns, weights = load_losses(cfg)
+        objective = make_objective(loss_fns, weights,
+                                   make_output_converter(cfg.get("net_output_converter")))
+        self.optimizer = create_optimizer(cfg["opt_name"], cfg["opt_lr"],
+                                          cfg.get("opt_weight_decay", 0.0), self.model)
+        self.engine = TrainEngine(self.model, self.optimizer, objective,
+                                  accum_steps=cfg.get("accum_steps", 1))
+
+    def batches(self) -> Iterator[dict]:
+        """Training batches, epoch after epoch."""
+        while True:
+            yield from self.batcher
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--fold", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = training_config(load_config(args.config), args.fold)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device)
+    build_s = time.perf_counter() - t0
+    coattn.reset_launches()
+    batches = trainer.batches()
+    records = []
+    for step in range(args.steps):
+        t = time.perf_counter()
+        batch = next(batches)
+        t_mid = time.perf_counter()
+        loss, _raw = trainer.engine.train_step(batch)
+        loss = float(loss)  # waits for the step's work on the device
+        rec = {"step": step, "loss": loss, "bags": int(batch["valid"].sum()),
+               "bucket": int(batch["mask"].shape[1]),
+               "prep_ms": 1e3 * (t_mid - t), "step_ms": 1e3 * (time.perf_counter() - t_mid)}
+        if not np.isfinite(loss):
+            raise RuntimeError(f"step {step}: the loss is not finite")
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+    summary = {"device": str(device), "fold": args.fold, "feats_dtype": trainer.batcher.feats_dtype,
+               "num_bins": trainer.meta.num_bins, "train_bags": len(trainer.dataset),
+               "build_s": build_s, "steps": args.steps,
+               "median_step_ms": float(np.median([r["step_ms"] for r in records])),
+               "coattn_launches": dict(coattn.LAUNCHES),
+               "coattn_bwd_launches": dict(coattn.LAUNCHES_BWD)}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()
