@@ -7,14 +7,21 @@ Run from the root of the repository.  Phases, in order; any failure exits
 non-zero and prints no result:
 
   1. device: CUDA is required; prints the card's name and power limit;
-  2. kernel: builds csrc/coattn_fwd.cu and csrc/coattn_bwd_dq.cu with nvcc
-     (one process each, started together) and holds each storage variant of
+  2. kernel: builds csrc/coattn_fwd.cu, csrc/coattn_bwd_dq.cu,
+     csrc/abmil_fwd.cu and csrc/abmil_bwd.cu with nvcc (one process each,
+     started together) and holds each storage variant of
      the co-attention forward kernel against the port's plain version on the
      card (B=8, N=10240, C=512, P=12, scale 30, 10% of patches masked, one
      empty bag), in f32; tolerances f32 1e-4, bf16 and int8 1e-3;
   2b. backward kernel: holds each variant of the dQ kernel against its plain
      version at the same shape, with (out, m, l) from the forward kernel;
      tolerances (max|a-b| / max|b|) f32 1e-3, bf16 and int8 2e-3;
+  2c. ABMIL kernels: holds each variant of csrc/abmil_fwd.cu and
+     csrc/abmil_bwd.cu against its plain version at B=8,
+     N=10240, D=512, hid=256 (10% of patches masked, one empty bag): the
+     forward (f32 1e-4, bf16 and int8 1e-3), the weights-only backward and,
+     for f32 and bf16, the backward with dX (dW1, db1, dw2: f32 1e-3, bf16
+     and int8 2e-3; dX: f32 1e-3, bf16 1e-2, one bf16 ulp);
   3. serving: builds the flagship VLSA at the full CONCH width from a seed
      and answers requests of 8 synthetic bags (N~8192 jittered) in every
      storage variant -- 3 in bf16 and 3 in int8 with host 1/||x|| among
@@ -31,13 +38,30 @@ non-zero and prints no result:
      f32_text_tower); with the configured bf16 tower the kernel's gap stays
      within 4x of the gap a 1e-7 relative change of the plain output makes;
      one more bf16 step runs under torch.profiler for the kernels' share;
+  3c. SA serving: builds the SA baseline (DeepMIL/ABMIL of
+     configs/IFMLE/tcga_blca/cfg_sa_base_conch.yaml, D=512, hid=256, fold 0's
+     12 bins) from a seed and answers requests of 8 synthetic bags: 3 in
+     bf16, 3 in int8, 1 in f32, counting the ABMIL kernels' launches, and
+     holds the incidence probabilities against the plain pooling (1e-3);
+  3d. SA training: Adam steps of SurvIFMLE on TCGA-BLCA fold 0 with 32
+     patients' bags a step: 3 in bf16, one in f32 and one in int8, then one
+     each in bf16 and f32 with `deepmil_use_feat_proj: True` (x needs a
+     gradient: the dX kernels); every step has a finite loss, moved
+     parameters and an unchanged fc2 bias; on each variant's last batch the
+     gradients through the kernels agree with those through the plain
+     versions within 2e-3 per parameter; one more bf16 step is profiled;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
      for dQ its gradient with respect to q), beside the least time the card
      could take (bound_ms); the forward also at B=64 and dQ at the training
      shape B=32, N=16384; at every timed shape the kernels' results are
-     first held against their plain versions with the tolerances above.
+     first held against their plain versions with the tolerances above;
+  4b. ABMIL times: the same for each ABMIL kernel and its plain version at
+     B=8, N=10240 and at the training shape B=32, N=16384, beside one cuBLAS
+     x @ W1^T in the storage type (`gemm_ms`, a partial yardstick the port
+     never calls: no single PyTorch call computes ABMIL pooling, so
+     library_ms is null).
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}}.
@@ -48,6 +72,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +104,23 @@ REPLACES_DQ = {
 }
 SOURCE = "vlsa_tpu_torch/ops/csrc/coattn_fwd.cu"
 SOURCE_DQ = "vlsa_tpu_torch/ops/csrc/coattn_bwd_dq.cu"
+# ABMIL (vlsa_tpu/ops/abmil.py): shapes, tolerances (max|a-b| / max|b|; f32
+# and int8 those of scripts/validate_kernels_chip.py:93-94), sources and the
+# TPU kernel each variant replaces
+ABMIL_SHAPE = dict(B=8, N=10240)
+ABMIL_TRAIN_SHAPE = dict(B=32, N=16384)
+ABMIL_STORAGES = ("f32", "bf16", "int8")
+TOL_ABMIL = {"f32": 1e-4, "bf16": 1e-3, "int8": 1e-3}
+TOL_ABMIL_DW = {"f32": 1e-3, "bf16": 2e-3, "int8": 2e-3}
+TOL_ABMIL_DX = {"f32": 1e-3, "bf16": 1e-2}
+SOURCE_ABMIL = "vlsa_tpu_torch/ops/csrc/abmil_fwd.cu"
+SOURCE_ABMIL_BWD = "vlsa_tpu_torch/ops/csrc/abmil_bwd.cu"
+REPLACES_ABMIL = {"f32": "vlsa_tpu/ops/abmil.py:122 _abmil_kernel",
+                  "bf16": "vlsa_tpu/ops/abmil.py:122 _abmil_kernel",
+                  "int8": "vlsa_tpu/ops/abmil.py:334 _abmil_q8_kernel"}
+REPLACES_ABMIL_BWD = {"f32": "vlsa_tpu/ops/abmil.py:205 _abmil_bwd_kernel",
+                      "bf16": "vlsa_tpu/ops/abmil.py:205 _abmil_bwd_kernel",
+                      "int8": "vlsa_tpu/ops/abmil.py:419 _abmil_q8_bwd_kernel"}
 TRAIN_SHAPE = dict(B=32, N=16384, C=512, P=12)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by
 # operand type (f32 outside the tensor cores)
@@ -137,6 +179,26 @@ LEARNABLE = ("prompt_learner.", "query_adapter.residual_features",
 SERVED = (("bfloat16", False, 3), ("int8", True, 3), ("float32", False, 1),
           ("float32", True, 1), ("bfloat16", True, 1), ("int8", False, 1))
 BAGS_PER_REQUEST = 8
+# the SA baseline: configs/IFMLE/tcga_blca/cfg_sa_base_conch.yaml as a dict
+# (net_dims' last entry is corrected to the fold's bin count)
+SA_CFG = {
+    "task": "sa", "seed": 42, "dataset_name": "tcga_blca",
+    "path_patch": "synthetic://N=8192,D=512,seed=7", "data_mode": "patch",
+    "feat_format": "pt",
+    "path_table": os.path.join(ROOT, "assets/data_split/5foldcv/{0}/mahmoodlab_{0}_survival.csv"),
+    "data_split_path": os.path.join(ROOT, "assets/data_split/5foldcv/{0}/splits_{2}.csv"),
+    "data_split_seed": [0, 1, 2, 3, 4], "time_format": "interval", "time_bins": None,
+    "arch": "DeepMIL", "net_output_converter": "softmax", "net_dims": "512-256-4",
+    "deepmil_network": "ABMIL", "deepmil_pooling": "attention",
+    "deepmil_use_feat_proj": False, "deepmil_drop_rate": 0.25,
+    "loss_type": "SurvIFMLE", "loss_survifmle_weight": 1.0, "evaluator": "NLL-IF",
+    "opt_name": "adam", "opt_lr": 2e-4, "opt_weight_decay": 1e-5, "bp_every_batch": 32,
+}
+# SA requests (feats_dtype, number of requests) and training steps
+# (feats_dtype, deepmil_use_feat_proj, steps)
+SA_SERVED = (("bfloat16", 3), ("int8", 3), ("float32", 1))
+SA_TRAIN_STEPS = (("bfloat16", False, 3), ("float32", False, 1), ("int8", False, 1),
+                  ("bfloat16", True, 1), ("float32", True, 1))
 
 
 class SmokeFailure(Exception):
@@ -198,8 +260,9 @@ def make_inputs(torch, B, N, C, P, variant, seed=0, device="cuda"):
 def phase_kernel(torch, co):
     from vlsa_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build("coattn_fwd", "coattn_bwd_dq")
-    log(f"built coattn_fwd and coattn_bwd_dq in {time.perf_counter() - t0:.1f} s")
+    _build.build("coattn_fwd", "coattn_bwd_dq", "abmil_fwd", "abmil_bwd")
+    log(f"built coattn_fwd, coattn_bwd_dq, abmil_fwd and abmil_bwd in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, build_log in _build.BUILD_LOGS.items():
         for line in build_log.splitlines():
             if "registers" in line or "spill stores" in line:
@@ -240,6 +303,90 @@ def phase_backward_kernel(torch, co):
                        co.coattn_bwd_dq_reference(q, x, mask, SCALE, g, out, m, l, xs, xi),
                        TOL_DQ[storage_of(v)])
         del q, x, mask, xs, xi, out, m, l, g
+    return errs
+
+
+# ---------------------------------------------------------------- phase 2c
+
+def make_abmil_inputs(torch, B, N, storage, seed=0, device="cuda"):
+    """ABMIL inputs on the card at D=512, hid=256: 10% of patches masked and
+    the last bag empty, int8 quantized per patch; W1 and b1 at torch's
+    default Linear scale, w2 at 0.25 N(0, 1) so that the attention is
+    peaked (logit spread ~2), and an output cotangent g [B, 512]."""
+    from vlsa_tpu_torch.ops.abmil import D_KERNEL, HID_KERNEL
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, N, D_KERNEL, generator=gen, device=device)
+    mask = torch.rand(B, N, generator=gen, device=device) > 0.1
+    mask[-1] = False
+    x = x * mask[..., None]
+    x_scale = None
+    if storage == "int8":
+        amax = x.abs().amax(-1) / 127.0
+        x = torch.clamp(torch.round(x / torch.where(amax > 0, amax, 1.0)[..., None]),
+                        -127, 127).to(torch.int8)
+        x_scale = amax.contiguous()
+    elif storage == "bf16":
+        x = x.to(torch.bfloat16)
+    bound = D_KERNEL ** -0.5
+    w1 = (torch.rand(HID_KERNEL, D_KERNEL, generator=gen, device=device) * 2 - 1) * bound
+    b1 = (torch.rand(HID_KERNEL, generator=gen, device=device) * 2 - 1) * bound
+    w2 = 0.25 * torch.randn(HID_KERNEL, generator=gen, device=device)
+    g = torch.randn(B, D_KERNEL, generator=gen, device=device)
+    return x.contiguous(), x_scale, mask.contiguous(), w1, b1, w2, g
+
+
+def abmil_fwd_kernel(ab, x, xs, mask, w1, b1, w2):
+    if xs is None:
+        return ab.abmil_fwd(x, mask, w1, b1, w2)
+    return ab.abmil_q8_fwd(x, xs, mask, w1, b1, w2)
+
+
+def abmil_bwd_kernel(ab, x, xs, mask, w1, b1, w2, g, out, m, l, need_dx):
+    """(dX or None, dW1, db1, dw2) from the backward kernel."""
+    if xs is None:
+        return ab.abmil_bwd(x, mask, w1, b1, w2, g, out, m, l, need_dx=need_dx)
+    return (None,) + tuple(ab.abmil_q8_bwd(x, xs, mask, w1, b1, w2, g, out, m, l))
+
+
+def hold_abmil(torch, ab, x, xs, mask, w1, b1, w2, g, storage, where):
+    """Hold the forward, the weights-only backward and (f32, bf16) the
+    backward with dX against their plain versions on the same inputs.
+    Returns {kernel: {"max_abs_err", "rel_err"}}, the worst over its
+    outputs, and the forward's (out, m, l)."""
+    out, m, l = abmil_fwd_kernel(ab, x, xs, mask, w1, b1, w2)
+    torch.cuda.synchronize()
+    ref, m_ref, l_ref = ab.abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=xs)
+    errs = {"abmil_fwd": hold(f"abmil fwd {storage} {where}", out, ref, TOL_ABMIL[storage])}
+    check(float(out[-1].abs().max()) == 0.0 and float(m[-1]) == float(m_ref[-1]),
+          f"abmil fwd {storage}: the empty bag pooled to {float(out[-1].abs().max())}")
+    hold(f"abmil fwd {storage} {where} l", l, l_ref, TOL_ABMIL[storage])
+    del ref, m_ref, l_ref
+    for need_dx in ((False,) if storage == "int8" else (False, True)):
+        name = "abmil_bwd_dx" if need_dx else "abmil_bwd"
+        got = abmil_bwd_kernel(ab, x, xs, mask, w1, b1, w2, g, out, m, l, need_dx)
+        torch.cuda.synchronize()
+        want = ab.abmil_bwd_reference(x, mask, w1, b1, w2, g, out, m, l, x_scale=xs,
+                                      need_dx=need_dx)
+        worst = {"max_abs_err": 0.0, "rel_err": 0.0}
+        for leaf, a, b in zip(("dX", "dW1", "db1", "dw2"), got, want):
+            if b is None:
+                check(a is None, f"{name} {storage}: a dX nobody asked for")
+                continue
+            tol = TOL_ABMIL_DX[storage] if leaf == "dX" else TOL_ABMIL_DW[storage]
+            e = hold(f"{name} {storage} {where} {leaf}", a.float(), b.float(), tol)
+            worst = {k: max(worst[k], e[k]) for k in worst}
+        errs[name] = worst
+        del got, want
+    return errs, (out, m, l)
+
+
+def phase_abmil_kernels(torch, ab):
+    errs = {}
+    for s in ABMIL_STORAGES:
+        inputs = make_abmil_inputs(torch, **ABMIL_SHAPE, storage=s)
+        errs[s], _stats = hold_abmil(torch, ab, *inputs, s, "at B=8 N=10240")
+        del inputs, _stats
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -399,33 +546,41 @@ def param_grads(torch, model, engine, batch):
     return grads
 
 
-def profile_step(torch, engine, batch):
+def profile_step(torch, engine, batch, family="coattn"):
     """Wall time of one training step under torch.profiler, the device time of
-    all its kernels and of the co-attention kernels (None if the profiler
-    shows no device time)."""
+    all its kernels and of the kernels whose name holds `family`, each such
+    kernel by name (None if the profiler shows no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    warm = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a fresh trace can miss its first kernels (the SA forward went
+        # unrecorded so): a few tiny ones go first, ~2 us each
+        for _ in range(16):
+            warm.add_(1)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         engine.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    total_us = coattn_us = 0.0
-    top = []
+    total_us = 0.0
+    top, by_kernel = [], {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         us = evt.self_device_time_total
         total_us += us
-        if "coattn" in evt.key:
-            coattn_us += us
+        if family in evt.key:
+            name = re.search(rf"{family}\w*", evt.key).group(0)
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
         top.append((us, evt.key[:80]))
     top.sort(reverse=True)
+    key = f"{family}_ms"
     if total_us == 0:
-        return {"wall_ms": wall_ms, "device_ms": None, "coattn_ms": None, "top": []}
-    return {"wall_ms": wall_ms, "device_ms": total_us / 1e3, "coattn_ms": coattn_us / 1e3,
-            "top": [{"kernel": k, "ms": us / 1e3} for us, k in top[:8]]}
+        return {"wall_ms": wall_ms, "device_ms": None, key: None, "kernels": {}, "top": []}
+    return {"wall_ms": wall_ms, "device_ms": total_us / 1e3, key: sum(by_kernel.values()),
+            "kernels": by_kernel, "top": [{"kernel": k, "ms": us / 1e3} for us, k in top[:8]]}
 
 
 def phase_training(torch, co, device):
@@ -572,6 +727,232 @@ def phase_training(torch, co, device):
             "median_bf16_step_ms": float(np.median([r["step_ms"] for r in bf16]))}
 
 
+# ---------------------------------------------------------------- phase 3c
+
+@contextlib.contextmanager
+def plain_abmil():
+    """Route DeepMIL's ABMIL pooling through the plain versions of both
+    kernels (`abmil_fwd_reference`, and `abmil_bwd_reference` as the
+    backward), bag by bag to bound their memory, also on the card."""
+    import torch
+    from vlsa_tpu_torch.models import layers
+    from vlsa_tpu_torch.ops import abmil as ab
+
+    def rows(t, i):
+        return None if t is None else t[i:i + 1]
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, x_scale, mask, w1, b1, w2):
+            parts = [ab.abmil_fwd_reference(x[i:i + 1], mask[i:i + 1], w1, b1, w2,
+                                            x_scale=rows(x_scale, i))
+                     for i in range(x.shape[0])]
+            out, m, l = (torch.cat(t) for t in zip(*parts))
+            ctx.save_for_backward(x, x_scale, mask, w1, b1, w2, out, m, l)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            x, x_scale, mask, w1, b1, w2, out, m, l = ctx.saved_tensors
+            need_dx = ctx.needs_input_grad[0]
+            dxs, sums = [], None
+            for i in range(x.shape[0]):
+                dx, *dw = ab.abmil_bwd_reference(
+                    x[i:i + 1], mask[i:i + 1], w1, b1, w2, g[i:i + 1], out[i:i + 1],
+                    m[i:i + 1], l[i:i + 1], x_scale=rows(x_scale, i), need_dx=need_dx)
+                dxs.append(dx)
+                sums = dw if sums is None else [a + b for a, b in zip(sums, dw)]
+            return (torch.cat(dxs) if need_dx else None, None, None, *sums)
+
+    def pool(x, mask, w1, b1, w2, b2=None, x_scale=None):
+        return Plain.apply(x, x_scale, mask, w1, b1, w2)
+    kernel_pool = layers.abmil_pool
+    layers.abmil_pool = pool
+    try:
+        yield
+    finally:
+        layers.abmil_pool = kernel_pool
+
+
+def phase_sa_serving(torch, ab, co, device):
+    import numpy as np
+    from vlsa_tpu_torch.runner import sa
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_bags, sa_serving_config
+
+    cfg = sa_serving_config(SA_CFG)
+    check(cfg["net_dims"] == "512-256-12", f"SA net_dims {cfg['net_dims']}, not 512-256-12")
+    t0 = time.perf_counter()
+    model = sa.build_model(cfg, device=device)
+    build_s = time.perf_counter() - t0
+    log(f"SA model built in {build_s:.2f} s: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, net_dims {cfg['net_dims']}")
+    engines = {dt: InferEngine(model, feats_dtype=dt, precompute_inv=False)
+               for dt, _n in SA_SERVED}
+    requests, r = [], 0
+    for dt, count in SA_SERVED:
+        for _ in range(count):
+            requests.append((dt, request_bags(cfg["path_patch"], r, BAGS_PER_REQUEST)))
+            r += 1
+
+    # ---- the main path: every launch counter from 0 ----
+    ab.reset_launches()
+    co.reset_launches()
+    batches, outputs, prep_ms, forward_ms = [], [], [], []
+    for dt, bags in requests:
+        t = time.perf_counter()
+        batch = engines[dt].prepare(bags)
+        torch.cuda.synchronize()
+        t_mid = time.perf_counter()
+        out = engines[dt].forward(batch)
+        torch.cuda.synchronize()
+        prep_ms.append(1e3 * (t_mid - t))
+        forward_ms.append(1e3 * (time.perf_counter() - t_mid))
+        batches.append((dt, batch))
+        outputs.append(out)
+    launches = dict(ab.LAUNCHES)
+    log(f"SA main path: {len(batches)} requests, ABMIL launches {launches}")
+    expected = {"f32": 0, "bf16": 0, "int8": 0}
+    for dt, count in SA_SERVED:
+        expected[{"float32": "f32", "bfloat16": "bf16", "int8": "int8"}[dt]] += count
+    check(launches == expected, f"SA launch counts {launches}, expected {expected}")
+    check(sum(ab.LAUNCHES_BWD.values()) == 0 and sum(co.LAUNCHES.values()) == 0,
+          "SA serving launched a backward or a co-attention kernel")
+
+    worst, by_mode = 0.0, {}
+    with plain_abmil():
+        for (dt, batch), out, p_ms, f_ms in zip(batches, outputs, prep_ms, forward_ms):
+            probs = out["probs"]
+            check(tuple(probs.shape) == (BAGS_PER_REQUEST, 12), f"SA probs shape {probs.shape}")
+            check(bool(torch.isfinite(out["logits"]).all()), "SA: non-finite logits")
+            check(float((probs.sum(-1) - 1).abs().max()) <= 1e-5,
+                  "SA: probabilities do not sum to 1")
+            dev = float((probs - engines[dt].forward(batch)["probs"]).abs().max())
+            worst = max(worst, dev)
+            check(dev <= 1e-3, f"SA {dt}: kernel and plain probabilities differ by {dev:.3e}")
+            rec = by_mode.setdefault(dt, {"requests": 0, "prep": [], "forward": [],
+                                          "max_prob_dev": 0.0})
+            rec["requests"] += 1
+            rec["prep"].append(p_ms)
+            rec["forward"].append(f_ms)
+            rec["max_prob_dev"] = max(rec["max_prob_dev"], dev)
+    check(dict(ab.LAUNCHES) == launches, "the plain run launched an ABMIL kernel")
+    for dt, rec in by_mode.items():
+        rec["median_prep_ms"] = float(np.median(rec.pop("prep")))
+        rec["median_forward_ms"] = float(np.median(rec.pop("forward")))
+        log(f"SA served {dt:8s} {rec['requests']} requests of {BAGS_PER_REQUEST} bags: median "
+            f"host prep {rec['median_prep_ms']:.1f} ms + model {rec['median_forward_ms']:.2f} ms,"
+            f" max |p_kernel - p_plain| {rec['max_prob_dev']:.2e}")
+    return {"build_s": build_s, "launches": launches, "max_prob_dev": worst,
+            "by_mode": by_mode, "max_patches": max(int(b["mask"].shape[1]) for _d, b in batches)}
+
+
+# ---------------------------------------------------------------- phase 3d
+
+def phase_sa_training(torch, ab, co, device):
+    import numpy as np
+    from vlsa_tpu_torch.config import training_config
+    from vlsa_tpu_torch.runner.train import Trainer
+
+    trainers = {}
+    t0 = time.perf_counter()
+    for proj in (False, True):
+        cfg = training_config(dict(SA_CFG, deepmil_use_feat_proj=proj), fold=0)
+        trainers[proj] = Trainer(cfg, device)
+        check(trainers[proj].meta.num_bins == 12 and cfg["net_dims"] == "512-256-12",
+              f"SA fold 0: {trainers[proj].meta.num_bins} bins, net_dims {cfg['net_dims']}")
+    build_s = time.perf_counter() - t0
+    log(f"SA trainers built in {build_s:.1f} s: {len(trainers[False].dataset)} training "
+        f"patients; parameters {[n for n, _p in trainers[True].model.named_parameters()]}")
+    batches = {proj: tr.batches() for proj, tr in trainers.items()}
+
+    # ---- the main path: every launch counter from 0 ----
+    ab.reset_launches()
+    co.reset_launches()
+    steps, last_batch = [], {}
+    exp_fwd, exp_bwd = dict.fromkeys(ab.LAUNCHES, 0), dict.fromkeys(ab.LAUNCHES_BWD, 0)
+    for feats_dtype, proj, count in SA_TRAIN_STEPS:
+        tr = trainers[proj]
+        tr.batcher.feats_dtype = feats_dtype
+        for _ in range(count):
+            t = time.perf_counter()
+            batch = {k: v.to(device) for k, v in next(batches[proj]).items()}
+            torch.cuda.synchronize()
+            t_mid = time.perf_counter()
+            before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+            loss, raw = tr.engine.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t_mid)
+            dtype = batch["feats"].dtype
+            variant = ab.bwd_variant(dtype, proj)
+            exp_fwd[variant.split("_")[0]] += 1
+            exp_bwd[variant] += 1
+            last_batch[variant] = (proj, batch)
+            rec = {"variant": variant, "loss": float(loss), "bags": int(batch["valid"].sum()),
+                   "bucket": int(batch["mask"].shape[1]), "patches": int(batch["mask"].sum()),
+                   "prep_ms": 1e3 * (t_mid - t), "step_ms": step_ms}
+            check(bool(np.isfinite(rec["loss"])) and bool(torch.isfinite(raw).all()),
+                  f"SA step {len(steps)} ({variant}): non-finite loss or logits")
+            for n, p in tr.model.named_parameters():
+                moved = not torch.equal(p.detach(), before[n])
+                # fc2's bias cancels in the softmax: no gradient, no decay
+                check(moved != (n == "sigma.fc2_bias"), f"SA step {len(steps)} ({variant}): "
+                                                        f"{n} {'moved' if moved else 'stayed'}")
+            steps.append(rec)
+            log(f"SA train step {len(steps) - 1} {variant:8s} loss {rec['loss']:.4f}  "
+                f"{rec['bags']} bags, bucket {rec['bucket']}, {rec['patches']} patches: "
+                f"host prep {rec['prep_ms']:.0f} ms + step {step_ms:.1f} ms")
+    launches = {"fwd": dict(ab.LAUNCHES), "bwd": dict(ab.LAUNCHES_BWD)}
+    log(f"SA main path: {len(steps)} training steps, ABMIL launches {launches}")
+    check(launches == {"fwd": exp_fwd, "bwd": exp_bwd},
+          f"SA training launches {launches}, expected {exp_fwd} and {exp_bwd}")
+    check(sum(co.LAUNCHES.values()) + sum(co.LAUNCHES_BWD.values()) == 0,
+          "SA training launched a co-attention kernel")
+
+    # ---- gradients through the kernels against the plain versions, on the
+    # main path's last batch of each variant; the patients censored in the
+    # last bin are left out of `valid` (see phase_training) ----
+    grad_check, K = {}, trainers[False].meta.num_bins
+    for variant, (proj, b) in last_batch.items():
+        ill = b["valid"] & (b["e"] == 0) & (b["t"] == K - 1)
+        b = dict(b, valid=b["valid"] & ~ill)
+        tr = trainers[proj]
+        g_kernel = param_grads(torch, tr.model, tr.engine, b)
+        with plain_abmil():
+            g_plain = param_grads(torch, tr.model, tr.engine, b)
+        check(set(g_kernel) == set(g_plain) and "sigma.fc2_bias" not in g_plain,
+              f"SA {variant}: gradient leaves {sorted(g_kernel)} vs {sorted(g_plain)}")
+        dev = {n: float((g_kernel[n] - g_plain[n]).abs().max()
+                        / g_plain[n].abs().max().clamp_min(1e-30)) for n in g_plain}
+        worst = max(dev, key=dev.get)
+        grad_check[variant] = {"bucket": int(b["mask"].shape[1]), "bags": int(b["valid"].sum()),
+                               "dev": dev}
+        log(f"SA gradients, kernels vs plain, {variant} batch: {int(b['valid'].sum())} bags, "
+            f"bucket {b['mask'].shape[1]}: worst {worst} {dev[worst]:.2e} (tol {TOL_GRAD:g})")
+        check(dev[worst] <= TOL_GRAD, f"SA {variant}: gradient of {worst} deviates "
+                                      f"{dev[worst]:.3e}")
+        del g_kernel, g_plain
+    del last_batch
+    torch.cuda.empty_cache()
+
+    tr = trainers[False]
+    tr.batcher.feats_dtype = "bfloat16"
+    batch = {k: v.to(device) for k, v in next(batches[False]).items()}
+    prof = dict(profile_step(torch, tr.engine, batch, family="abmil"),
+                bucket=int(batch["mask"].shape[1]), patches=int(batch["mask"].sum()))
+    if prof["device_ms"] is None:
+        log("SA profiled step: the profiler shows no device time")
+    else:
+        log(f"SA profiled bf16 step (bucket {prof['bucket']}, {prof['patches']} patches): wall "
+            f"{prof['wall_ms']:.1f} ms, kernels on the card {prof['device_ms']:.2f} ms, of "
+            f"which ABMIL {prof['abmil_ms']:.2f} ms: {prof['kernels']}")
+    bf16 = [r for r in steps if r["variant"] == "bf16"]
+    return {"build_s": build_s, "steps": steps, "launches": launches,
+            "grad_check": grad_check, "profiled_step": prof,
+            "median_bf16_prep_ms": float(np.median([r["prep_ms"] for r in bf16])),
+            "median_bf16_step_ms": float(np.median([r["step_ms"] for r in bf16]))}
+
+
 # ---------------------------------------------------------------- phase 4
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -703,6 +1084,89 @@ def phase_times(torch, co):
     return times
 
 
+# ---------------------------------------------------------------- phase 4b
+
+def bound_abmil(name, B, N, storage):
+    """Least time for an ABMIL kernel's work on an H100, as `bound` reckons
+    it, every patch slot of the batch counted.  Bytes: x, the mask, the int8
+    scales, W1, b1 and w2 read once, and out, m, l written once (forward);
+    the backward reads g, out, m and l besides and writes dW1, db1, dw2 and,
+    with dX, dX in the storage type.  Operations: the forward's bottleneck
+    product 2*D*hid per patch plus the w2 dot and the PV sum (2*hid + 2*D);
+    the backward's 4*D*hid per patch for the weight gradients (the h and dW1
+    products), 6*D*hid with dX (vlsa_tpu/ops/abmil.py:307's count)."""
+    from vlsa_tpu_torch.ops.abmil import D_KERNEL as D, HID_KERNEL as H
+    item = {"f32": 4, "bf16": 2, "int8": 1}[storage]
+    rows = B * N
+    weights = 4 * (H * D + 2 * H)
+    nbytes = rows * D * item + rows + (4 * rows if storage == "int8" else 0) + weights
+    if name == "abmil_fwd":
+        nbytes += 4 * B * D + 8 * B
+        ops = rows * (2 * D * H + 2 * H + 2 * D)
+    else:
+        nbytes += 4 * 2 * B * D + 8 * B + weights
+        ops = rows * D * H * (6 if name == "abmil_bwd_dx" else 4)
+        if name == "abmil_bwd_dx":
+            nbytes += rows * D * item
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gemm_yardstick(torch, x, w1):
+    """One cuBLAS x @ W1^T [B*N, hid] in the storage type (int8: torch._int_mm
+    against W1 quantized to int8), which the port never calls."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.int8:
+        s = w1.abs().amax() / 127.0
+        wq = torch.round(w1 / s).to(torch.int8).T  # [D, hid], column-major
+        return lambda: torch._int_mm(x2, wq)
+    w = w1.to(x.dtype)
+    return lambda: x2 @ w.T
+
+
+def time_abmil(torch, ab, storage, B, N):
+    x, xs, mask, w1, b1, w2, g = inputs = make_abmil_inputs(torch, B, N, storage, seed=1)
+    errs, (out, m, l) = hold_abmil(torch, ab, *inputs, storage, f"at B={B} N={N}")
+    try:
+        gemm_ms = median_ms(torch, gemm_yardstick(torch, x, w1))
+    except RuntimeError as exc:  # the yardstick only: the port never calls it
+        log(f"gemm yardstick {storage} at B={B} N={N} unavailable: {exc}")
+        gemm_ms = None
+    recs = {"abmil_fwd": {
+        "ms": median_ms(torch, lambda: abmil_fwd_kernel(ab, x, xs, mask, w1, b1, w2)),
+        "plain_ms": median_ms(torch, lambda: ab.abmil_fwd_reference(x, mask, w1, b1, w2,
+                                                                    x_scale=xs))}}
+    for need_dx in ((False,) if storage == "int8" else (False, True)):
+        name = "abmil_bwd_dx" if need_dx else "abmil_bwd"
+        recs[name] = {
+            "ms": median_ms(torch, lambda: abmil_bwd_kernel(ab, x, xs, mask, w1, b1, w2, g,
+                                                            out, m, l, need_dx)),
+            "plain_ms": median_ms(torch, lambda: ab.abmil_bwd_reference(
+                x, mask, w1, b1, w2, g, out, m, l, x_scale=xs, need_dx=need_dx))}
+    for name, rec in recs.items():
+        b_ms, b_by = bound_abmil(name, B, N, storage)
+        rec.update(B=B, N=N, gemm_ms=gemm_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   err=errs[name])
+    return recs
+
+
+def phase_abmil_times(torch, ab):
+    times = {"b8": {}, "train": {}}
+    for key, shape in (("b8", ABMIL_SHAPE), ("train", ABMIL_TRAIN_SHAPE)):
+        for s in ABMIL_STORAGES:
+            for name, rec in time_abmil(torch, ab, s, **shape).items():
+                times[key][f"{name}[{s}]"] = rec
+            torch.cuda.empty_cache()
+    for key, recs in times.items():
+        for k, t in recs.items():
+            gemm = "n/a" if t["gemm_ms"] is None else f"{t['gemm_ms']:.4f} ms"
+            log(f"time {k:18s} B={t['B']:<3d} N={t['N']:<6d} kernel {t['ms']:.4f} ms"
+                f"  plain {t['plain_ms']:.4f} ms  gemm {gemm}"
+                f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+                f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x")
+    return times
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -716,6 +1180,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
+        from vlsa_tpu_torch.ops import abmil as ab
         from vlsa_tpu_torch.ops import coattn as co
     except ImportError as exc:
         log(f"FAIL: the port is not beside this script ({exc})")
@@ -733,9 +1198,13 @@ def main(argv=None) -> int:
     try:
         errs = phase_kernel(torch, co)
         errs_dq = phase_backward_kernel(torch, co)
+        errs_abmil = phase_abmil_kernels(torch, ab)
         serving = phase_serving(torch, co, device)
         training = phase_training(torch, co, device)
+        sa_serving = phase_sa_serving(torch, ab, co, device)
+        sa_training = phase_sa_training(torch, ab, co, device)
         times = phase_times(torch, co)
+        abmil_times = phase_abmil_times(torch, ab)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -755,6 +1224,24 @@ def main(argv=None) -> int:
                 "max_abs_err": err[v]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]})
+    abmil_launches = {"abmil_fwd": {s: sa_serving["launches"][s] + sa_training["launches"]["fwd"][s]
+                                    for s in ABMIL_STORAGES},
+                      "abmil_bwd": sa_training["launches"]["bwd"],
+                      "abmil_bwd_dx": {s: sa_training["launches"]["bwd"][f"{s}_dx"]
+                                       for s in ("f32", "bf16")}}
+    for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
+                           ("abmil_bwd_dx", ("f32", "bf16"))):
+        fwd = name == "abmil_fwd"
+        for s in storages:
+            t = abmil_times["b8"][f"{name}[{s}]"]
+            kernels.append({
+                "name": f"{name}[{s}]", "route": "cuda",
+                "source": SOURCE_ABMIL if fwd else SOURCE_ABMIL_BWD,
+                "replaces": (REPLACES_ABMIL if fwd else REPLACES_ABMIL_BWD)[s],
+                "launches": abmil_launches[name][s],
+                "max_abs_err": errs_abmil[s][name]["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None})
     never = [k["name"] for k in kernels if k["launches"] <= 0]
     if never:
         log(f"FAIL: never launched on the main paths: {never}")
@@ -762,7 +1249,10 @@ def main(argv=None) -> int:
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "shape": SHAPE, "train_shape": TRAIN_SHAPE, "kernel_errors": errs,
               "dq_errors": errs_dq, "serving": serving, "training": training,
-              "times": times, "kernels": kernels, "seconds": time.perf_counter() - t_start}
+              "times": times, "abmil_shape": ABMIL_SHAPE, "abmil_train_shape": ABMIL_TRAIN_SHAPE,
+              "abmil_errors": errs_abmil, "sa_serving": sa_serving, "sa_training": sa_training,
+              "abmil_times": abmil_times, "kernels": kernels,
+              "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

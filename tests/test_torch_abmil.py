@@ -1,0 +1,160 @@
+"""The port's plain ABMIL pooling (vlsa_tpu_torch.ops.abmil) against the
+vlsa_tpu Pallas kernels in interpret mode, set as tests/test_models.py and
+tests/test_int8.py set them (`ab.INTERPRET = True`, restored after).
+
+Shape B=3, N=512, D=64, hid=32, a ragged mask and one empty bag; the same
+numpy inputs go to both packages.  Tolerances (max|a-b| / max|b|):
+  - f32: 1e-5 -- both true f32, the differences are summation order;
+  - bf16: 1e-4 for out, dW1, db1, dw2 -- both round W1 and dz to bf16 as
+    the TPU kernels do and accumulate in f32; dX 1e-2, one bf16 ulp of the
+    written value (2^-8) where the f32 sums round to neighbouring bf16s;
+  - int8: 1e-3 forward, 2e-3 weight gradients, as tests/test_int8.py holds
+    the JAX kernels against f32: the JAX kernel splits W1 and s*dz into two
+    int8 parts (~15 bits), the port's plain version is f32.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vlsa_tpu.ops.abmil as ab
+from vlsa_tpu_torch.ops import abmil as pab
+
+B, N, D, HID = 3, 512, 64, 32
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"f32": 1e-5, "bf16": 1e-4}
+TOL_DX = {"f32": 1e-5, "bf16": 1e-2}
+
+
+@pytest.fixture
+def interpret():
+    old = ab.INTERPRET
+    ab.INTERPRET = True
+    yield
+    ab.INTERPRET = old
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, N, D)).astype(np.float32)
+    mask = np.zeros((B, N), bool)
+    mask[0, :N] = True
+    mask[1, :300] = True
+    mask[1, 40:60] = False
+    # bag 2 is empty
+    x = x * mask[..., None]
+    w1 = (rng.normal(size=(HID, D)) * 0.2).astype(np.float32)
+    b1 = (rng.normal(size=HID) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=HID) * 0.3).astype(np.float32)
+    g = rng.normal(size=(B, D)).astype(np.float32)
+    return x, mask, w1, b1, w2, g
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _quantize(x):
+    amax = np.abs(x).max(-1) / 127.0
+    q = np.clip(np.rint(x / np.where(amax > 0, amax, 1.0)[..., None]), -127, 127)
+    return q.astype(np.int8), amax.astype(np.float32)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_forward_and_backward_match_pallas(interpret, storage):
+    x, mask, w1, b1, w2, g = _inputs()
+    jdt, tdt = DTYPES[storage]
+    xj = jnp.asarray(x).astype(jdt)
+    out_j, stats = ab._abmil_pallas(xj, jnp.asarray(mask), jnp.asarray(w1), jnp.asarray(b1),
+                                    jnp.asarray(w2))
+    dx_j, dw1_j, db1_j, dw2_j = ab._abmil_pallas_bwd(
+        xj, jnp.asarray(mask), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2),
+        jnp.asarray(g), out_j, stats[:, 0, :])
+
+    xt = _t(x).to(tdt)
+    out, m, l = pab.abmil_fwd_reference(xt, _t(mask), _t(w1), _t(b1), _t(w2))
+    assert _rel(out, out_j) <= TOL[storage]
+    np.testing.assert_allclose(m.numpy(), np.asarray(stats[:, 0, 0]), rtol=1e-5)
+    np.testing.assert_allclose(l.numpy(), np.asarray(stats[:, 0, 1]), rtol=1e-5)
+    assert m[2] == torch.tensor(-1e30) and l[2] == torch.tensor(1e-30) and torch.all(out[2] == 0)
+
+    dx, dw1, db1, dw2 = pab.abmil_bwd_reference(xt, _t(mask), _t(w1), _t(b1), _t(w2), _t(g),
+                                                out, m, l)
+    assert dx.dtype == tdt
+    assert _rel(dx.float(), jnp.asarray(dx_j, jnp.float32)) <= TOL_DX[storage]
+    for name, got, want in (("dw1", dw1, dw1_j), ("db1", db1, db1_j), ("dw2", dw2, dw2_j)):
+        assert _rel(got, want) <= TOL[storage], name
+    assert torch.all(dx[2].float() == 0)
+
+
+def test_int8_matches_pallas(interpret):
+    x, mask, w1, b1, w2, g = _inputs(seed=1)
+    q, s = _quantize(x)
+    args = (jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2))
+    out_j, stats = ab._abmil_q8_pallas(jnp.asarray(q), jnp.asarray(s), jnp.asarray(mask), *args)
+    dw1_j, db1_j, dw2_j = ab._abmil_q8_pallas_bwd(
+        jnp.asarray(q), jnp.asarray(s), jnp.asarray(mask), *args, jnp.asarray(g), out_j,
+        stats)
+
+    out, m, l = pab.abmil_fwd_reference(_t(q), _t(mask), _t(w1), _t(b1), _t(w2), x_scale=_t(s))
+    assert _rel(out, out_j) <= 1e-3
+    assert torch.all(out[2] == 0) and m[2] == torch.tensor(-1e30)
+    dx, dw1, db1, dw2 = pab.abmil_bwd_reference(_t(q), _t(mask), _t(w1), _t(b1), _t(w2),
+                                                _t(g), out, m, l, x_scale=_t(s))
+    assert dx is None
+    for name, got, want in (("dw1", dw1, dw1_j), ("db1", db1, db1_j), ("dw2", dw2, dw2_j)):
+        assert _rel(got, want) <= 2e-3, name
+
+
+def test_pool_reference_matches_jax():
+    """The plain module path (b2 added, raw logits returned) against
+    vlsa_tpu's abmil_pool_reference in f32."""
+    x, mask, w1, b1, w2, _g = _inputs(seed=2)
+    out_j, raw_j = ab.abmil_pool_reference(jnp.asarray(x), jnp.asarray(mask), jnp.asarray(w1),
+                                           jnp.asarray(b1), jnp.asarray(w2), 0.3)
+    out, raw = pab.abmil_pool_reference(_t(x), _t(mask), _t(w1), _t(b1), _t(w2), 0.3)
+    assert _rel(out, out_j) <= 1e-5 and _rel(raw, raw_j) <= 1e-5
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_cpu_route_autograd_matches_bwd_reference(storage):
+    """Autograd through `abmil_pool`'s CPU route equals the plain backward.
+    f32 and int8: 1e-5 (same f32 math).  bf16: the plain backward rounds dz
+    to bf16 for dX and dW1 as the kernels do, autograd keeps dz in f32:
+    2e-2 for dX and dW1 (bf16 rounding of dz, 2^-9, summed), 1e-5 for db1
+    and dw2 (no rounding on either side)."""
+    x, mask, w1, b1, w2, g = _inputs(seed=3)
+    scale = None
+    if storage == "int8":
+        q, s = _quantize(x)
+        xt, scale = _t(q), _t(s)
+    else:
+        xt = _t(x).to(DTYPES[storage][1]).requires_grad_(True)
+    params = [_t(a).requires_grad_(True) for a in (w1, b1, w2)]
+    out = pab.abmil_pool(xt, _t(mask), *params, b2=0.7, x_scale=scale)
+    (out * _t(g)).sum().backward()
+    with torch.no_grad():
+        ref_out, m, l = pab.abmil_fwd_reference(xt, _t(mask), *params, x_scale=scale)
+    dx, dw1, db1, dw2 = pab.abmil_bwd_reference(xt.detach(), _t(mask), *params, _t(g),
+                                                ref_out, m, l, x_scale=scale)
+    loose = 2e-2 if storage == "bf16" else 1e-5
+    assert _rel(params[0].grad, dw1) <= loose
+    assert _rel(params[1].grad, db1) <= 1e-5 and _rel(params[2].grad, dw2) <= 1e-5
+    if storage == "int8":
+        assert dx is None
+    else:
+        assert _rel(xt.grad.float(), dx.float()) <= loose
+
+
+def test_cuda_route_needs_a_card():
+    """A wrapper launches its kernel or raises: a CPU tensor is refused."""
+    x, mask, w1, b1, w2, _g = _inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        pab.abmil_fwd(_t(x), _t(mask), _t(w1), _t(b1), _t(w2))
+    assert sum(pab.LAUNCHES.values()) == 0

@@ -1,5 +1,5 @@
-"""The Hopper co-attention kernels (forward and dQ backward) against their
-plain versions, on the card.
+"""The Hopper kernels -- co-attention forward and dQ backward, ABMIL
+forward and backward -- against their plain versions, on the card.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip without
 one.  They import nothing of JAX, so on the machine with the card they run
@@ -10,6 +10,7 @@ without the repository's conftest (which imports JAX):
 import pytest
 import torch
 
+from vlsa_tpu_torch.ops import abmil as ab
 from vlsa_tpu_torch.ops import coattn as co
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +76,100 @@ def test_dq_kernel_matches_plain(device, dtype, host_inv, shape):
     ref = co.coattn_bwd_dq_reference(q, x, mask, 30.0, g, out, m, l, xs, xi)
     assert torch.isfinite(dq).all()
     assert float((dq - ref).abs().max() / ref.abs().max().clamp_min(1e-30)) <= TOL_DQ[dtype]
+
+
+def _abmil_inputs(B, N, dtype, device, seed=0):
+    """ABMIL inputs at the kernels' widths (D=512, hid=256): 20% of patches
+    masked, the last bag empty, int8 quantized per patch."""
+    g = torch.Generator().manual_seed(seed)
+    D, H = ab.D_KERNEL, ab.HID_KERNEL
+    x = torch.randn(B, N, D, generator=g)
+    mask = torch.rand(B, N, generator=g) > 0.2
+    mask[-1] = False
+    x = x * mask[..., None]
+    x_scale = None
+    if dtype == torch.int8:
+        amax = x.abs().amax(-1) / 127.0
+        x = torch.round(x / torch.where(amax > 0, amax, 1.0)[..., None]).to(torch.int8)
+        x_scale = amax
+    else:
+        x = x.to(dtype)
+    w1 = torch.randn(H, D, generator=g) / D ** 0.5
+    b1 = torch.randn(H, generator=g) * 0.1
+    w2 = torch.randn(H, generator=g) / H ** 0.5
+    gout = torch.randn(B, D, generator=g)
+    to = (lambda t: None if t is None else t.to(device).contiguous())
+    return to(x), to(x_scale), to(mask), to(w1), to(b1), to(w2), to(gout)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+# tolerances of chip_smoke.py phase 2c (max|a-b| / max|b|)
+TOL_ABMIL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.int8: 1e-3}
+TOL_ABMIL_DW = {torch.float32: 1e-3, torch.bfloat16: 2e-3, torch.int8: 2e-3}
+TOL_ABMIL_DX = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", [(3, 1000), (2, 33), (1, 5)])
+def test_abmil_kernels_match_plain(device, dtype, shape):
+    """Forward and backward (weights only, and with dX for f32/bf16) at a
+    ragged N that is no multiple of the tile, with an empty bag."""
+    x, xs, mask, w1, b1, w2, g = _abmil_inputs(*shape, dtype, device)
+    v = ab._STORAGE_NAME[dtype]
+    before = ab.LAUNCHES[v]
+    if dtype == torch.int8:
+        out, m, l = ab.abmil_q8_fwd(x, xs, mask, w1, b1, w2)
+    else:
+        out, m, l = ab.abmil_fwd(x, mask, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES[v] == before + 1
+    ref, m_ref, l_ref = ab.abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=xs)
+    assert _rel(out, ref) <= TOL_ABMIL[dtype]
+    assert torch.all(out[-1] == 0) and float(m[-1]) == float(m_ref[-1])
+    torch.testing.assert_close(l, l_ref, rtol=1e-3, atol=0)
+
+    for need_dx in ((False,) if dtype == torch.int8 else (False, True)):
+        key = ab.bwd_variant(dtype, need_dx)
+        before = ab.LAUNCHES_BWD[key]
+        if dtype == torch.int8:
+            dx, (dw1, db1, dw2) = None, ab.abmil_q8_bwd(x, xs, mask, w1, b1, w2, g, out, m, l)
+        else:
+            dx, dw1, db1, dw2 = ab.abmil_bwd(x, mask, w1, b1, w2, g, out, m, l, need_dx=need_dx)
+        torch.cuda.synchronize()
+        assert ab.LAUNCHES_BWD[key] == before + 1
+        rdx, rdw1, rdb1, rdw2 = ab.abmil_bwd_reference(x, mask, w1, b1, w2, g, out, m, l,
+                                                       x_scale=xs, need_dx=need_dx)
+        for got, want in ((dw1, rdw1), (db1, rdb1), (dw2, rdw2)):
+            assert torch.isfinite(got).all() and _rel(got, want) <= TOL_ABMIL_DW[dtype]
+        if need_dx:
+            assert dx.dtype == dtype and _rel(dx, rdx) <= TOL_ABMIL_DX[dtype]
+            assert torch.all(dx[-1] == 0)
+        else:
+            assert dx is None
+
+
+def test_abmil_pool_routes_through_the_kernels(device):
+    """abmil_pool on CUDA: the forward kernel without a gradient, the
+    backward kernel for the weights, with dX when x needs a gradient; the
+    gradients match autograd through the plain version; fc2's bias is not
+    an input."""
+    x, _s, mask, w1, b1, w2, g = _abmil_inputs(2, 300, torch.float32, device)
+    ab.reset_launches()
+    with torch.no_grad():
+        ab.abmil_pool(x, mask, w1, b1, w2, 0.5)
+    assert ab.LAUNCHES["f32"] == 1 and sum(ab.LAUNCHES_BWD.values()) == 0
+    grads = []
+    for pool in (ab.abmil_pool, lambda *a, **k: ab.abmil_fwd_reference(*a[:5])[0]):
+        xp = x.clone().requires_grad_(True)
+        ps = [t.clone().requires_grad_(True) for t in (w1, b1, w2)]
+        (pool(xp, mask, *ps, 0.5) * g).sum().backward()
+        grads.append([xp.grad] + [p.grad for p in ps])
+    assert ab.LAUNCHES_BWD["f32_dx"] == 1
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-3
 
 
 def test_gradient_request_raises(device):

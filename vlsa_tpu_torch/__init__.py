@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of vlsa_tpu: VLSA serving on an NVIDIA Hopper card.
+"""PyTorch/CUDA port of vlsa_tpu on an NVIDIA Hopper card: the flagship VLSA and
+the SA baseline (DeepMIL/ABMIL) serve and train.
 
 The JAX package `vlsa_tpu` is the reference this package is held against;
 nothing here imports it.  Entry points run on CUDA unless the caller passes

@@ -7,8 +7,8 @@ from .data.io import load_init_text
 FLAGSHIP_NUM_RANKS = 12  # the flagship's rank bins (12 ranks from 4 base ranks)
 # keys that decide the served model; the training grid's other lists
 # (folds, shot counts) do not matter to serving
-_SERVING_KEYS = ("vlsa_", "feats_", "arch", "dataset_name", "path_patch", "seed",
-                 "net_output_converter")
+_SERVING_KEYS = ("vlsa_", "deepmil_", "net_dims", "feats_", "arch", "dataset_name",
+                 "path_patch", "seed", "net_output_converter")
 
 
 def load_config(path: str) -> dict:
@@ -29,6 +29,13 @@ def fetch_kws(d: dict, prefix: str = "") -> dict:
                 continue
             ret[new_key[1:]] = d[k]
     return ret
+
+
+def parse_str_dims(s, sep: str = "-", dtype=int) -> list:
+    """'512-256-4' -> [512, 256, 4]."""
+    if not isinstance(s, str):
+        return [s]
+    return [dtype(x) for x in s.split(sep)]
 
 
 def serving_config(cfg: dict) -> dict:

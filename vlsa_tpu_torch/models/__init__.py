@@ -1,1 +1,2 @@
-"""Tokenizer, text tower, prompt learners, VLFAN and the assembled VLSA."""
+"""Tokenizer, text tower, prompt learners, VLFAN and the assembled VLSA;
+DeepMIL and its registry."""

@@ -7,6 +7,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.abmil import abmil_pool
+
 
 class TorchLinear(nn.Linear):
     """nn.Linear with torch's default initialisation drawn from an explicit
@@ -49,3 +51,34 @@ class FeatProjecter(nn.Module):
 
     def forward(self, x):
         return self.norm(self.linear(x))
+
+
+class AttentionPooling(nn.Module):
+    """ABMIL global attention pooling: x [B, N, D], mask [B, N] -> pooled
+    [B, D] f32 through `ops.abmil.abmil_pool` (the Hopper kernels for CUDA
+    tensors).
+
+    The parameters keep the vlsa_tpu tree's names and layouts, fc1_kernel
+    [D, hid], fc1_bias [hid], fc2_kernel [hid, 1] and fc2_bias [1], so the
+    weight bridge maps them one to one and the decay split (ndim != 1)
+    decays the same leaves, fc2_kernel included.  Torch's default Linear
+    initialisation, U(+-1/sqrt(fan_in)), from `generator`.  fc2_bias cancels
+    in the softmax and gets no gradient.  The attention map itself (the
+    interpretation route) is not ported yet."""
+
+    def __init__(self, dim: int, hid_dim: int = 512,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        b_in, b_hid = 1.0 / math.sqrt(dim), 1.0 / math.sqrt(hid_dim)
+        self.fc1_kernel = nn.Parameter(torch.empty(dim, hid_dim).uniform_(
+            -b_in, b_in, generator=generator))
+        self.fc1_bias = nn.Parameter(torch.empty(hid_dim).uniform_(
+            -b_in, b_in, generator=generator))
+        self.fc2_kernel = nn.Parameter(torch.empty(hid_dim, 1).uniform_(
+            -b_hid, b_hid, generator=generator))
+        self.fc2_bias = nn.Parameter(torch.empty(1).uniform_(-b_hid, b_hid, generator=generator))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return abmil_pool(x, mask, self.fc1_kernel.T, self.fc1_bias, self.fc2_kernel[:, 0],
+                          self.fc2_bias[0], x_scale=x_scale)

@@ -22,6 +22,9 @@ CLIP_LOGIT_SCALE_INIT = float(np.log(1.0 / 0.07))
 
 
 class VLSA(nn.Module):
+    accepts_x_scale = True  # VLFAN takes the int8 scales and host 1/||x|| rows
+    uses_vl = True
+
     def __init__(self, mil_encoder: VLFAN, prompt_encoder: Optional[TextTower] = None,
                  prompt_learner: Optional[PlainPromptLearner] = None,
                  query_adapter: Optional[PromptAdapter] = None,

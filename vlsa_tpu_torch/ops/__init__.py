@@ -1,1 +1,1 @@
-"""Masked pooling primitives and the co-attention kernel."""
+"""Masked pooling primitives and the co-attention and ABMIL kernels."""

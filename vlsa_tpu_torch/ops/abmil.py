@@ -1,0 +1,393 @@
+"""ABMIL attention pooling -- the hot op of the SA baseline (DeepMIL/ABMIL).
+
+A bag of N patch features x [B, N, D] is pooled through a tanh bottleneck:
+
+    h = tanh(x @ W1^T + b1);  a = softmax_N(h @ w2 + b2);  out = a @ x
+
+Counterpart of vlsa_tpu/ops/abmil.py.  `abmil_pool` is the entry point: a
+CPU tensor goes through the plain PyTorch version under ordinary autograd, a
+CUDA tensor through the hand-written Hopper kernels: `csrc/abmil_fwd.cu`
+forward and, when a gradient is wanted, `csrc/abmil_bwd.cu` for the backward
+(`AbmilPool`, `AbmilPoolQ8`).  b2 shifts every logit alike and cancels in
+the softmax: no route uses it, so `fc2_bias` gets no gradient, as under the
+JAX custom VJPs.
+
+Storage types of x: f32, bf16, or int8 with per-patch dequant scales
+`x_scale` [B, N].  The plain versions follow the TPU kernels' rounding, not a
+higher precision: bf16 storage multiplies x by W1 rounded to bf16 and, in
+the backward, rounds dz (and W1) to bf16 for dX and dW1; int8 computes
+s[n] * (x_i . W1^T) in f32 on the raw int8 values; f32 is true f32 (TF32 off,
+`utils.device.disable_tf32`).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .coattn import _device_index, _ptr
+
+D_KERNEL, HID_KERNEL = 512, 256  # the widths the kernels are built for
+# patches per kernel tile (Tile<T>::M in csrc/abmil_common.cuh) and hid
+# columns per block of the weight-gradient pass (kSlice in csrc/abmil_bwd.cu)
+_TILE = {torch.float32: 32, torch.bfloat16: 64, torch.int8: 64}
+_SLICE = 32
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+
+# Launches of the CUDA kernels by variant: one per call of `abmil_fwd` /
+# `abmil_q8_fwd` in LAUNCHES ("f32", "bf16", "int8"), one per call of
+# `abmil_bwd` / `abmil_q8_bwd` in LAUNCHES_BWD (those, and "f32_dx",
+# "bf16_dx" for a backward that writes dX).
+LAUNCHES = {s: 0 for s in ("f32", "bf16", "int8")}
+LAUNCHES_BWD = dict(LAUNCHES, f32_dx=0, bf16_dx=0)
+
+
+def reset_launches() -> None:
+    for counts in (LAUNCHES, LAUNCHES_BWD):
+        for k in counts:
+            counts[k] = 0
+
+
+def bwd_variant(x_dtype: torch.dtype, with_dx: bool) -> str:
+    return _STORAGE_NAME[x_dtype] + ("_dx" if with_dx else "")
+
+
+# ---------------------------------------------------------------- plain versions
+
+def _bf16_rounded(w: torch.Tensor) -> torch.Tensor:
+    """w rounded to bf16 in value, with the identity as its gradient."""
+    return w + (w.to(torch.bfloat16).float() - w).detach()
+
+
+def _h_pre(x, w1, x_scale):
+    """x . W1^T [B, N, hid] f32 as the kernels form it for x's storage type."""
+    if x.dtype == torch.int8:
+        return (x.float() @ w1.T) * x_scale[..., None]
+    if x.dtype == torch.bfloat16:
+        return x.float() @ _bf16_rounded(w1).T
+    return x @ w1.T
+
+
+def _logits(x, mask, w1, b1, w2, x_scale):
+    h = torch.tanh(_h_pre(x, w1, x_scale) + b1)
+    return h, torch.where(mask, h @ w2, -1e30)
+
+
+def abmil_fwd_reference(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
+                        b1: torch.Tensor, w2: torch.Tensor,
+                        x_scale: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernels: x [B, N, D], mask [B, N] bool,
+    w1 [hid, D], b1 [hid], w2 [hid] -> (out [B, D], m [B], l [B]) f32 with the
+    kernels' stats: m the masked max logit (-1e30 for an empty bag), l the
+    softmax normaliser clamped below at 1e-30.  Differentiable in x, w1, b1
+    and w2 (the max is a constant shift)."""
+    _h, logits = _logits(x, mask, w1, b1, w2, x_scale)
+    m = logits.amax(-1).detach()
+    p = torch.where(mask, torch.exp(logits - m[:, None]), 0.0)
+    l = torch.clamp(p.sum(-1), min=1e-30)
+    w = p if x_scale is None else p * x_scale
+    return torch.einsum("bn,bnd->bd", w, x.float()) / l[:, None], m, l
+
+
+def abmil_bwd_reference(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
+                        b1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor,
+                        out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                        x_scale: Optional[torch.Tensor] = None, need_dx: bool = True):
+    """Plain version of the backward kernels (vlsa_tpu/ops/abmil.py::
+    _abmil_bwd_kernel, _abmil_q8_bwd_kernel): from the output's cotangent
+    g [B, D], the forward output and its stats -> (dX or None, dW1 [hid, D],
+    db1 [hid], dw2 [hid]), all f32 except dX in the storage type.  int8 has
+    no dX: stored features are data."""
+    with torch.no_grad():
+        xf = x.float()
+        h, logits = _logits(x, mask, w1, b1, w2, x_scale)
+        # a is masked to 0 first: an empty bag has m = -1e30, l = 1e-30
+        a = torch.where(mask, torch.exp(logits - m[:, None]) / l[:, None], 0.0)
+        gx = torch.einsum("bd,bnd->bn", g, xf)
+        if x_scale is not None:
+            gx = gx * x_scale
+        ds = a * (gx - (g * out).sum(-1, keepdim=True))
+        dz = ds[..., None] * w2 * (1.0 - h * h)
+        db1, dw2 = dz.sum((0, 1)), torch.einsum("bn,bnh->h", ds, h)
+        if x.dtype == torch.int8:
+            return None, torch.einsum("bnh,bnd->hd", dz * x_scale[..., None], xf), db1, dw2
+        if x.dtype == torch.bfloat16:
+            dz = dz.to(torch.bfloat16).float()
+        dw1 = torch.einsum("bnh,bnd->hd", dz, xf)
+        dx = None
+        if need_dx:
+            w = w1.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else w1
+            dx = (a[..., None] * g[:, None, :] + dz @ w).to(x.dtype)
+        return dx, dw1, db1, dw2
+
+
+def abmil_pool_reference(x: torch.Tensor, mask: Optional[torch.Tensor], w1: torch.Tensor,
+                         b1: torch.Tensor, w2: torch.Tensor, b2,
+                         x_scale: Optional[torch.Tensor] = None):
+    """The plain module path in f32: (out [B, D], raw attention logits
+    [B, N]) with b2 added, on dequantized features for int8."""
+    xf = x.float() if x_scale is None else x.float() * x_scale[..., None]
+    h = torch.tanh(xf @ w1.T + b1)
+    raw = h @ w2 + b2
+    if mask is None:
+        attn = torch.softmax(raw, dim=-1)
+    else:
+        attn = torch.where(mask, torch.softmax(torch.where(mask, raw, -1e30), dim=-1), 0.0)
+    return torch.einsum("bn,bnd->bd", attn, xf), raw
+
+
+# ---------------------------------------------------------------- launch wrappers
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the argument types of each library's entry point `<name>` (csrc/<name>.cu)
+_ARGTYPES = {
+    # x, x_scale, mask, w1, b1, w2; B, N, chunk, S, storage, device; w1_bf16,
+    # ws_m, ws_l, ws_acc, out, m, l, stream
+    "abmil_fwd": [_P] * 6 + [_I] * 6 + [_P] * 8,
+    # x, x_scale, mask, w1, b1, w2, g, out, m, l; B, N, chunk1, S1, chunk2,
+    # S2, storage, with_dx, device; w1_bf16, ds, ws_dw1, ws_db1, ws_dw2, dx,
+    # dw1, db1, dw2, stream
+    "abmil_bwd": [_P] * 10 + [_I] * 9 + [_P] * 10,
+}
+_SMEM_ARGTYPES = {"abmil_fwd": [_I], "abmil_bwd": [_I, _I, _I]}
+
+
+def _library(name: str):
+    from ._build import load
+    lib = load(name)
+    if not getattr(lib, "_argtypes_set", False):
+        entry, smem = getattr(lib, name), getattr(lib, f"{name}_smem_bytes")
+        entry.argtypes, entry.restype = _ARGTYPES[name], _I
+        smem.argtypes, smem.restype = _SMEM_ARGTYPES[name], ctypes.c_size_t
+        lib._argtypes_set = True
+    return lib
+
+
+def _split(B: int, N: int, tile: int, target_blocks: int) -> Tuple[int, int]:
+    """(chunk, S): each bag's patches are cut into S chunks of `chunk`
+    patches (a multiple of the tile), one block each, so that about
+    `target_blocks` blocks run even when B is small."""
+    tiles = max(1, -(-N // tile))
+    S = max(1, min(tiles, -(-target_blocks // B)))
+    chunk = -(-tiles // S) * tile
+    return chunk, max(1, -(-N // chunk))
+
+
+def _tensor(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} tensor on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_inputs(x, x_scale, mask, w1, b1, w2, kernel: str) -> Tuple[int, int]:
+    """The argument checks every wrapper shares; returns (B, N)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel} launches a CUDA kernel; x is on {x.device}")
+    device = x.device
+    if x.dtype not in _STORAGE:
+        raise ValueError(f"x must be f32, bf16 or int8, got {x.dtype}")
+    if x.dim() != 3 or not x.is_contiguous() or x.shape[2] != D_KERNEL or x.shape[1] < 1:
+        raise ValueError(f"x must be a contiguous [B, N>=1, {D_KERNEL}] tensor, got "
+                         f"{tuple(x.shape)}: the kernels are built for D={D_KERNEL}, "
+                         f"hid={HID_KERNEL} (net_dims 512-256-K)")
+    if x.data_ptr() % 16 != 0:
+        raise ValueError("x must be 16-byte aligned")
+    B, N, _ = x.shape
+    _tensor("mask", mask, (B, N), torch.bool, device)
+    _tensor("w1", w1, (HID_KERNEL, D_KERNEL), torch.float32, device)
+    _tensor("b1", b1, (HID_KERNEL,), torch.float32, device)
+    _tensor("w2", w2, (HID_KERNEL,), torch.float32, device)
+    if (x.dtype == torch.int8) != (x_scale is not None):
+        raise ValueError("x_scale is required for int8 x and taken for no other type")
+    if x_scale is not None:
+        _tensor("x_scale", x_scale, (B, N), torch.float32, device)
+    return B, N
+
+
+def _check_smem(lib, name, device, *args) -> None:
+    smem = getattr(lib, f"{name}_smem_bytes")(*args)
+    optin = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if smem > optin:
+        raise ValueError(f"{name} needs {smem} bytes of shared memory per block, the "
+                         f"card gives {optin}")
+
+
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _w1_bf16(x, device):
+    """The kernels' bf16 copy of W1 (hi and, for int8, lo), or None for f32."""
+    if x.dtype == torch.float32:
+        return None
+    return torch.empty(2, HID_KERNEL, D_KERNEL, dtype=torch.bfloat16, device=device)
+
+
+def _fwd(x, x_scale, mask, w1, b1, w2, kernel):
+    B, N = _check_inputs(x, x_scale, mask, w1, b1, w2, kernel)
+    device = x.device
+    lib = _library("abmil_fwd")
+    storage = _STORAGE[x.dtype]
+    _check_smem(lib, "abmil_fwd", device, storage)
+    chunk, S = _split(B, N, _TILE[x.dtype], 2 * _n_sm(device))
+    f32 = dict(dtype=torch.float32, device=device)
+    out, m, l = torch.empty(B, D_KERNEL, **f32), torch.empty(B, **f32), torch.empty(B, **f32)
+    ws_m, ws_l = torch.empty(B, S, **f32), torch.empty(B, S, **f32)
+    ws_acc = torch.empty(B, S, D_KERNEL, **f32)
+    w1b = _w1_bf16(x, device)
+    err = lib.abmil_fwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
+                        B, N, chunk, S, storage, _device_index(device), _ptr(w1b),
+                        _ptr(ws_m), _ptr(ws_l), _ptr(ws_acc), _ptr(out), _ptr(m), _ptr(l),
+                        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+    LAUNCHES[_STORAGE_NAME[x.dtype]] += 1
+    return out, m, l
+
+
+def abmil_fwd(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the Hopper forward on CUDA tensors, f32 or bf16 x [B, N, 512]:
+    (out [B, 512], m [B], l [B]) f32, the pooled features and the softmax
+    stats (running max and normaliser, l clamped below at 1e-30)."""
+    if x.dtype == torch.int8:
+        raise ValueError("int8 features go through abmil_q8_fwd")
+    return _fwd(x, None, mask, w1, b1, w2, "abmil_fwd")
+
+
+def abmil_q8_fwd(x: torch.Tensor, x_scale: torch.Tensor, mask: torch.Tensor,
+                 w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor):
+    """`abmil_fwd` on raw int8 features with per-patch scales x_scale [B, N]."""
+    if x.dtype != torch.int8:
+        raise ValueError(f"abmil_q8_fwd takes int8 features, got {x.dtype}")
+    return _fwd(x, x_scale, mask, w1, b1, w2, "abmil_q8_fwd")
+
+
+def _bwd(x, x_scale, mask, w1, b1, w2, g, out, m, l, need_dx, kernel):
+    B, N = _check_inputs(x, x_scale, mask, w1, b1, w2, kernel)
+    device = x.device
+    _tensor("g", g, (B, D_KERNEL), torch.float32, device)
+    _tensor("out", out, (B, D_KERNEL), torch.float32, device)
+    _tensor("m", m, (B,), torch.float32, device)
+    _tensor("l", l, (B,), torch.float32, device)
+    lib = _library("abmil_bwd")
+    storage = _STORAGE[x.dtype]
+    _check_smem(lib, "abmil_bwd", device, storage, 1, int(need_dx))
+    _check_smem(lib, "abmil_bwd", device, storage, 2, 0)
+    n_sm, tile = _n_sm(device), _TILE[x.dtype]
+    chunk1, S1 = _split(B, N, tile, 2 * n_sm)
+    # pass 2 runs one block per hid slice for each chunk
+    chunk2, S2 = _split(B, N, tile, -(-2 * n_sm // (HID_KERNEL // _SLICE)))
+    f32 = dict(dtype=torch.float32, device=device)
+    dw1, db1, dw2 = (torch.empty(HID_KERNEL, D_KERNEL, **f32), torch.empty(HID_KERNEL, **f32),
+                     torch.empty(HID_KERNEL, **f32))
+    ds = torch.empty(B, N, **f32)
+    ws_dw1 = torch.empty(B * S2, HID_KERNEL, D_KERNEL, **f32)
+    ws_db1, ws_dw2 = torch.empty(B * S2, HID_KERNEL, **f32), torch.empty(B * S2, HID_KERNEL, **f32)
+    dx = torch.empty_like(x) if need_dx else None
+    w1b = _w1_bf16(x, device)
+    err = lib.abmil_bwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
+                        _ptr(g), _ptr(out), _ptr(m), _ptr(l), B, N, chunk1, S1, chunk2, S2,
+                        storage, int(need_dx), _device_index(device), _ptr(w1b), _ptr(ds),
+                        _ptr(ws_dw1), _ptr(ws_db1), _ptr(ws_dw2), _ptr(dx), _ptr(dw1),
+                        _ptr(db1), _ptr(dw2), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+    LAUNCHES_BWD[bwd_variant(x.dtype, need_dx)] += 1
+    return dx, dw1, db1, dw2
+
+
+def abmil_bwd(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, g: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
+              l: torch.Tensor, need_dx: bool = False):
+    """Launch the Hopper backward on CUDA tensors, f32 or bf16 x: from the
+    output's cotangent g [B, 512] and the forward's (out, m, l) ->
+    (dX [B, N, 512] in x's type or None, dW1 [256, 512], db1, dw2 [256] f32).
+    dX is written only when `need_dx`."""
+    if x.dtype == torch.int8:
+        raise ValueError("int8 features go through abmil_q8_bwd")
+    return _bwd(x, None, mask, w1, b1, w2, g, out, m, l, need_dx, "abmil_bwd")
+
+
+def abmil_q8_bwd(x: torch.Tensor, x_scale: torch.Tensor, mask: torch.Tensor,
+                 w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor,
+                 out: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
+    """The weights-only backward on raw int8 features: (dW1, db1, dw2)."""
+    if x.dtype != torch.int8:
+        raise ValueError(f"abmil_q8_bwd takes int8 features, got {x.dtype}")
+    return _bwd(x, x_scale, mask, w1, b1, w2, g, out, m, l, False, "abmil_q8_bwd")[1:]
+
+
+# ---------------------------------------------------------------- autograd and entry
+
+class AbmilPool(torch.autograd.Function):
+    """ABMIL pooling of f32 or bf16 x on CUDA: the forward kernel, and the
+    backward kernel for W1, b1, w2 and, when x needs one, x's gradient (the
+    counterpart of vlsa_tpu's `_abmil_pool_tpu` custom VJP, whose backward
+    writes dX always)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w1, b1, w2):
+        out, m, l = abmil_fwd(x, mask, w1, b1, w2)
+        ctx.save_for_backward(x, mask, w1, b1, w2, out, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, w1, b1, w2, out, m, l = ctx.saved_tensors
+        dx, dw1, db1, dw2 = abmil_bwd(x, mask, w1, b1, w2, g.contiguous(), out, m, l,
+                                      need_dx=ctx.needs_input_grad[0])
+        return dx, None, dw1, db1, dw2
+
+
+class AbmilPoolQ8(torch.autograd.Function):
+    """ABMIL pooling of raw int8 x on CUDA (`_abmil_pool_tpu_q8`): the
+    features and their scales are data and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, x_scale, mask, w1, b1, w2):
+        out, m, l = abmil_q8_fwd(x, x_scale, mask, w1, b1, w2)
+        ctx.save_for_backward(x, x_scale, mask, w1, b1, w2, out, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x_scale, mask, w1, b1, w2, out, m, l = ctx.saved_tensors
+        dw1, db1, dw2 = abmil_q8_bwd(x, x_scale, mask, w1, b1, w2, g.contiguous(), out, m, l)
+        return None, None, None, dw1, db1, dw2
+
+
+def abmil_pool(x: torch.Tensor, mask: Optional[torch.Tensor], w1: torch.Tensor,
+               b1: torch.Tensor, w2: torch.Tensor, b2=None,
+               x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ABMIL attention pooling: x [B, N, D] (f32, bf16, or int8 with x_scale
+    [B, N]), mask [B, N], w1 [hid, D], b1 [hid], w2 [hid] -> out [B, D] f32.
+    b2 cancels in the softmax and is not used.
+
+    CPU tensors take the plain version under ordinary autograd.  CUDA tensors
+    launch the forward kernel, through `AbmilPool` / `AbmilPoolQ8` when a
+    gradient is wanted.  The JAX route takes its kernel only for N >= 256
+    with a 128-aligned tile (vlsa_tpu/models/layers.py:103-105); these kernels
+    take any N, so the CUDA route has no such guard."""
+    if x.dtype == torch.int8 and x_scale is None:
+        raise ValueError("int8 features need x_scale [B, N]")
+    if mask is None:
+        mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+    if x.device.type == "cpu":
+        return abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=x_scale)[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"abmil_pool runs on cpu or cuda, not {x.device}")
+    mask, w1, b1, w2 = (t.contiguous() for t in (mask, w1, b1, w2))
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w1, b1, w2))
+    if x.dtype == torch.int8:
+        if wants_grad:
+            return AbmilPoolQ8.apply(x, x_scale, mask, w1, b1, w2)
+        return abmil_q8_fwd(x, x_scale, mask, w1, b1, w2)[0]
+    if wants_grad:
+        return AbmilPool.apply(x, mask, w1, b1, w2)
+    return abmil_fwd(x, mask, w1, b1, w2)[0]

@@ -4,12 +4,15 @@ A bag of N patch features x [B, N, C] is reduced against P <= 16 queries:
 
     xn = l2norm(x);  A = softmax_N(scale * q @ xn^T);  out = A @ x
 
-Counterpart of vlsa_tpu/ops/coattn.py.  `coattn_pool` is the entry point:
+Counterpart of vlsa_tpu/ops/coattn.py: the pooling of the VLSA model (the
+SA baseline pools through ops/abmil.py).  `coattn_pool` is the entry point:
 a CPU tensor goes through the plain PyTorch version under ordinary autograd,
 a CUDA tensor through the hand-written Hopper kernels: `csrc/coattn_fwd.cu`
 forward and, when the queries need a gradient, `csrc/coattn_bwd_dq.cu` for
-their backward (`CoattnPoolDQ`).  The patch features are constants there; a
-CUDA call whose x needs a gradient waits for the port of the dX backward.
+their backward (`CoattnPoolDQ`).  The patch features are constants there, as
+in every shipped VLSA config; a CUDA call whose x needs a gradient (VLFAN
+with a feature projecter) raises until the dX backward (kernel table row 5)
+is ported.
 
 Storage types of x: f32, bf16, or int8 with per-patch dequant scales
 `x_scale` [B, N]; `x_inv` [B, N] optionally carries host-computed

@@ -1,13 +1,21 @@
 """Train and serving steps (counterpart of vlsa_tpu/runner/engine.py).
 
+Both take any model: the flagship VLSA or the SA baseline's DeepMIL.
 `TrainEngine` takes one optimizer step on a whole padded batch of bags:
-every configured loss on the valid rows, one backward, one update.  The
-text path runs in every step, since the prompt learner and the TaskRes
-residuals train.
+every configured loss on the valid rows, one backward, one update.  For
+VLSA the text path runs in every step, since the prompt learner and the
+TaskRes residuals train.
 
-`InferEngine`, the evaluation half, computes the text prototypes and the
-VLFAN queries once per pass (`text_precompute`), then answers each request
--- a list of bags -- with one padded batch through the model.
+`InferEngine`, the evaluation half, computes VLSA's text prototypes and
+VLFAN queries once per pass (`text_precompute`; nothing for a model without
+a text branch), then answers each request -- a list of bags -- with one
+padded batch through the model.
+
+Two rules of vlsa_tpu's engine hold for both: the storage sidecars
+(`feats_scale`, `feats_inv`) go only to a model that accepts them
+(`accepts_x_scale`), any other sees bf16-dequantized features
+(`feats_inputs`); and the logit scale and the query-diversity term exist
+only for a vision-language model (`uses_vl`).
 """
 from __future__ import annotations
 
@@ -16,8 +24,32 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from torch import nn
+
 from ..data.quant import Bag, pad_request
-from ..models.vlsa import VLSA
+from ..ops.coattn import dequantize_feats
+
+
+def feats_inputs(model: nn.Module, batch: dict) -> Tuple[torch.Tensor, dict]:
+    """(features, keyword arguments) of a model call (vlsa_tpu/runner/
+    engine.py::_feats_inputs): a model that accepts the storage sidecars
+    gets them (x_scale for int8, x_inv for host 1/||x||); any other model
+    gets int8 features dequantized to bf16 and no sidecars."""
+    accepts = getattr(model, "accepts_x_scale", False)
+    if "feats_scale" in batch and not accepts:
+        return dequantize_feats(batch["feats"], batch["feats_scale"]).to(torch.bfloat16), {}
+    kws = {}
+    if accepts:
+        kws = {"x_scale": batch.get("feats_scale"), "x_inv": batch.get("feats_inv")}
+    return batch["feats"], kws
+
+
+def _logits(out) -> torch.Tensor:
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
 
 
 def make_output_converter(name: Optional[str]) -> Callable:
@@ -64,23 +96,24 @@ class TrainEngine:
     which reproduces the whole batch's loss and gradient for per-bag-mean
     objectives, a ragged tail batch included."""
 
-    def __init__(self, model: VLSA, optimizer: torch.optim.Optimizer, objective: Callable,
-                 accum_steps: int = 1):
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 objective: Callable, accum_steps: int = 1):
         self.model = model
         self.optimizer = optimizer
         self.objective = objective
         self.accum_steps = accum_steps
-        self.device = model.logit_scale.device
+        self.uses_vl = getattr(model, "uses_vl", False)
+        self.device = _device(model)
 
     def loss(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, raw logits [B, K]) of one batch on the device; the storage
-        sidecars (int8 scales, host 1/||x||) go to the co-attention."""
-        raw, _img, _txt = self.model(batch["feats"], batch["mask"],
-                                     x_scale=batch.get("feats_scale"),
-                                     x_inv=batch.get("feats_inv"))
-        loss = self.objective(raw, batch["t"], batch["e"], batch["valid"].to(raw.dtype),
-                              logit_scale=self.model.get_logit_scale(),
-                              query_div_fn=self.model.query_div_loss)
+        """(loss, raw logits [B, K]) of one batch on the device."""
+        feats, kws = feats_inputs(self.model, batch)
+        raw = _logits(self.model(feats, batch["mask"], **kws))
+        vl = {}
+        if self.uses_vl:
+            vl = {"logit_scale": self.model.get_logit_scale(),
+                  "query_div_fn": self.model.query_div_loss}
+        loss = self.objective(raw, batch["t"], batch["e"], batch["valid"].to(raw.dtype), **vl)
         return loss, raw
 
     def train_step(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,24 +157,26 @@ def incidence_outputs(logits: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 class InferEngine:
-    """Answers requests with a fixed VLSA model.
+    """Answers requests with a fixed model (VLSA or DeepMIL).
 
     `feats_dtype` is the storage type of the patch features on the device
     (float32, bfloat16 or int8); `precompute_inv` ships host-computed 1/||x||
     rows with them (default: for int8 only, as the JAX pipeline does)."""
 
-    def __init__(self, model: VLSA, feats_dtype: str = "float32",
+    def __init__(self, model: nn.Module, feats_dtype: str = "float32",
                  precompute_inv: Optional[bool] = None):
         self.model = model.eval()
-        self.device = model.logit_scale.device
+        self.device = _device(model)
         self.feats_dtype = feats_dtype
         self.precompute_inv = precompute_inv
         self._text = None
 
     def text_precompute(self):
-        """Encode the prompts and the queries once for this pass."""
-        with torch.inference_mode():
-            self._text = self.model.text_precompute()
+        """Encode the prompts and the queries once for this pass (a no-op
+        for a model without a text branch)."""
+        if hasattr(self.model, "text_precompute"):
+            with torch.inference_mode():
+                self._text = self.model.text_precompute()
         return self._text
 
     def prepare(self, bags: Sequence[Bag]) -> dict:
@@ -151,12 +186,11 @@ class InferEngine:
         """Device tensors in, device tensors out (no host synchronisation)."""
         if self._text is None:
             self.text_precompute()
-        text_features, query = self._text
+        feats, kws = feats_inputs(self.model, batch)
+        if self._text is not None:
+            kws["text_features"], kws["query"] = self._text
         with torch.inference_mode():
-            logits, _img, _txt = self.model(
-                batch["feats"], batch["mask"], text_features=text_features, query=query,
-                x_scale=batch.get("feats_scale"), x_inv=batch.get("feats_inv"))
-            return incidence_outputs(logits)
+            return incidence_outputs(_logits(self.model(feats, batch["mask"], **kws)))
 
     def predict(self, bags: Sequence[Bag]) -> Dict[str, np.ndarray]:
         """One request: bags as f32 [n_i, D] arrays or QuantizedBags ->

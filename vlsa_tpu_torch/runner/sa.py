@@ -1,0 +1,67 @@
+"""The SA handler's rules as plain functions (counterpart of
+vlsa_tpu/runner/sa.py): labels, the head's width, the loss/converter pairing
+and the DeepMIL model of a `task: sa` config
+(configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml).
+"""
+from __future__ import annotations
+
+from ..config import fetch_kws, parse_str_dims
+from ..data.label_converter import MetaSurvData
+from ..models.mil import DeepMIL
+from ..models.registry import load_model
+
+# loss -> (net_output_converter, evaluator) it needs (vlsa_tpu/runner/sa.py:42-51)
+_LOSS_PAIRING = {"SurvMLE": ("sigmoid", "NLL"), "SurvIFMLE": ("softmax", "NLL-IF"),
+                 "SurvPLE": (None, "Cox")}
+
+
+def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
+    """The label table with discrete bins from the training split; sets
+    `time_bins` to the bin count."""
+    time_format = cfg["time_format"]
+    if time_format not in ("interval", "quantile"):
+        raise NotImplementedError(f"time_format {time_format!r}: this port has "
+                                  f"discrete labels (interval, quantile) only")
+    meta = MetaSurvData(cfg["path_table"], data_split=data_split)
+    meta.generate_discrete_label(num_bins=cfg.get("time_bins"),
+                                 use_quantiles=time_format == "quantile")
+    if cfg.get("time_bins") not in (None, meta.num_bins):
+        raise ValueError(f"time_bins {cfg['time_bins']} != the {meta.num_bins} bins made")
+    cfg["time_bins"] = meta.num_bins
+    return meta
+
+
+def check_arguments(cfg: dict) -> None:
+    """Each survival loss pins its output converter and evaluator."""
+    for loss, (converter, evaluator) in _LOSS_PAIRING.items():
+        if loss in cfg["loss_type"]:
+            if cfg.get("net_output_converter") != converter or cfg.get("evaluator") != evaluator:
+                raise ValueError(f"{loss} needs net_output_converter={converter} and "
+                                 f"evaluator={evaluator}")
+            return
+
+
+def correct_net_dims(cfg: dict, num_bins: int) -> None:
+    """The head's width is the bin count: `net_dims` "512-256-4" becomes
+    "512-256-<num_bins>"."""
+    dims = parse_str_dims(cfg["net_dims"])
+    if dims[-1] != num_bins:
+        cfg["net_dims"] = "-".join(str(d) for d in dims[:-1]) + f"-{num_bins}"
+
+
+def load_meta(cfg: dict, data_split: dict) -> MetaSurvData:
+    """The fold's labels, with `net_dims` corrected to their bin count."""
+    check_arguments(cfg)
+    meta = build_surv_meta(cfg, data_split)
+    correct_net_dims(cfg, meta.num_bins)
+    return meta
+
+
+def build_model(cfg: dict, device=None, state_dict=None) -> DeepMIL:
+    """The config's DeepMIL (`arch: DeepMIL`, the `deepmil_*` keys, `net_dims`)
+    with random weights from its seed, on `device`."""
+    if cfg["arch"] != "DeepMIL":
+        raise NotImplementedError(f"arch {cfg['arch']!r}: the SA path builds DeepMIL")
+    arch_cfg = fetch_kws(cfg, prefix=cfg["arch"].lower())
+    return load_model(cfg["arch"], parse_str_dims(cfg["net_dims"]), seed=cfg.get("seed", 0),
+                      device=device, state_dict=state_dict, **arch_cfg)

@@ -1,8 +1,11 @@
-"""Serve synthetic requests with the VLSA model of an experiment config.
+"""Serve synthetic requests with the model of an experiment config.
 
     python -m vlsa_tpu_torch.runner.serve --config configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml \
         --n_requests 4 [--bags_per_request 8] [--device cuda|cpu]
 
+`task: vlsa` serves the flagship VLSA; `task: sa` the SA baseline's
+DeepMIL/ABMIL (configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml), whose head
+gets the bin count of fold 0's label table, as the SA handler would give it.
 The weights are random, from the config's seed (no checkpoint is loaded).
 Each request holds `bags_per_request` bags from the config's
 `path_patch: synthetic://...`, stored as its `feats_dtype`.  Prints one JSON
@@ -17,20 +20,34 @@ import time
 import numpy as np
 import torch
 
-from ..config import load_config, serving_config
+from ..config import load_config, serving_config, training_config
 from ..data.io import SYNTHETIC_PREFIX, synthetic_bag
+from ..data.splits import read_file_data_splitting
 from ..models.vlsa_build import build_vlsa_from_config
-from ..ops import coattn
+from ..ops import abmil, coattn
 from ..utils.device import resolve_device
+from . import sa
 from .engine import InferEngine
+
+
+def sa_serving_config(cfg: dict) -> dict:
+    """An SA config ready to serve: fold 0's split resolved and `net_dims`
+    corrected to the bin count of its label table."""
+    cfg = training_config(cfg, fold=0)
+    sa.load_meta(cfg, read_file_data_splitting(cfg["data_split_path"]))
+    return cfg
 
 
 def make_engine(cfg: dict, device=None) -> InferEngine:
     """The config's model and storage type behind an InferEngine."""
     if cfg.get("net_output_converter", "softmax") != "softmax":
         raise NotImplementedError("this port serves incidence models (softmax output)")
-    model, _tok = build_vlsa_from_config(cfg, device=device)
     feats_dtype = cfg.get("feats_dtype", "float32")
+    if cfg.get("task") == "sa":
+        # DeepMIL's pooling is unnormalised: no 1/||x|| rows
+        return InferEngine(sa.build_model(cfg, device=device), feats_dtype=feats_dtype,
+                           precompute_inv=False)
+    model, _tok = build_vlsa_from_config(cfg, device=device)
     precompute_inv = feats_dtype == "int8" and cfg.get("feats_precompute_inv", True)
     return InferEngine(model, feats_dtype=feats_dtype, precompute_inv=precompute_inv)
 
@@ -48,7 +65,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = serving_config(load_config(args.config))
+    raw = load_config(args.config)
+    cfg = sa_serving_config(raw) if raw.get("task") == "sa" else serving_config(raw)
     path_patch = cfg["path_patch"]
     if not str(path_patch).startswith(SYNTHETIC_PREFIX):
         raise ValueError("the serving CLI answers synthetic:// requests only")
@@ -59,6 +77,7 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     coattn.reset_launches()
+    abmil.reset_launches()
     times = []
     for r in range(args.n_requests):
         bags = request_bags(path_patch, r, args.bags_per_request)
@@ -75,7 +94,8 @@ def main(argv=None) -> dict:
     summary = {"device": str(device), "feats_dtype": engine.feats_dtype,
                "build_s": build_s, "requests": args.n_requests,
                "median_request_ms": 1e3 * float(np.median(times)),
-               "coattn_launches": dict(coattn.LAUNCHES)}
+               "coattn_launches": dict(coattn.LAUNCHES),
+               "abmil_launches": dict(abmil.LAUNCHES)}
     print(json.dumps(summary))
     return summary
 

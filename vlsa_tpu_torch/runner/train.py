@@ -1,16 +1,20 @@
-"""Train the VLSA model of an experiment config for a few steps.
+"""Train the model of an experiment config for a few steps.
 
     python -m vlsa_tpu_torch.runner.train --config configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml \\
         --steps 3 [--fold 0] [--device cuda|cpu]
 
-The counterpart of the training loop of vlsa_tpu/runner/base.py with the
-VLSA handler's label, model, loss and freezing rules: the fold's label bins
-set the rank count, the training split's bags (the config's `path_patch`,
-`synthetic://` included) go through the batcher `bp_every_batch` at a time,
-and each step is one Adam update of SurvIFMLE + SurvEMD (the config's
-losses).  The weights are random, from the config's seed.  Prints one JSON
-line per step and a summary line.  Evaluation (C-index, IBS), checkpoints,
-LR schedules and early stopping are not ported yet.
+The counterpart of the training loop of vlsa_tpu/runner/base.py with its
+handlers' label, model, loss and freezing rules.  `task: vlsa` trains the
+flagship VLSA (the fold's label bins set the rank count; SurvIFMLE +
+SurvEMD); `task: sa` the SA baseline's DeepMIL/ABMIL
+(configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml: the bins set the head's
+width; SurvIFMLE), through `runner.sa`.  The training split's bags (the
+config's `path_patch`, `synthetic://` included) go through the batcher
+`bp_every_batch` at a time, and each step is one update of the config's
+losses with its optimizer.  The weights are random, from the config's seed.
+Prints one JSON line per step and a summary line with the kernels' launch
+counts.  Evaluation (C-index, IBS), checkpoints, LR schedules and early
+stopping are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,23 +33,17 @@ from ..data.pipeline import BagBatcher
 from ..data.splits import read_file_data_splitting
 from ..losses import load_loss
 from ..models.vlsa_build import build_vlsa_from_config
-from ..ops import coattn
+from ..ops import abmil, coattn
 from ..optim import create_optimizer, frozen_mask_from_cfg
 from ..utils.device import resolve_device
+from . import sa
 from .engine import TrainEngine, make_objective, make_output_converter
 
 
 def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
-    """The label table with discrete bins from the training split; the
-    prompt learner's rank count follows the bin count."""
-    time_format = cfg["time_format"]
-    if time_format not in ("interval", "quantile"):
-        raise NotImplementedError(f"time_format {time_format!r}: this port has "
-                                  f"discrete labels (interval, quantile) only")
-    meta = MetaSurvData(cfg["path_table"], data_split=data_split)
-    meta.generate_discrete_label(num_bins=cfg.get("time_bins"),
-                                 use_quantiles=time_format == "quantile")
-    cfg["time_bins"] = meta.num_bins
+    """VLSA's labels: the label table with discrete bins from the training
+    split; the prompt learner's rank count follows the bin count."""
+    meta = sa.build_surv_meta(cfg, data_split)
     for learner in ("coop", "adapter"):
         key = f"vlsa_pmt_learner_{learner}_num_ranks"
         if key in cfg:
@@ -54,7 +52,9 @@ def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
 
 
 def frozen_paths(cfg: dict) -> List[str]:
-    """The config's freeze flags as parameter name prefixes."""
+    """The config's freeze flags as parameter name prefixes (none for SA)."""
+    if cfg["task"] == "sa":
+        return []
     arch = cfg["arch"].lower()
     paths = []
     if fetch_kws(cfg, prefix=f"{arch}_txt_encoder").get("frozen", True):
@@ -92,10 +92,15 @@ class Trainer:
     def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None):
         if cfg.get("data_mode", "patch") != "patch":
             raise NotImplementedError("this port trains on patch bags only")
+        if cfg["task"] not in ("vlsa", "sa"):
+            raise NotImplementedError(f"task {cfg['task']!r}: this port trains vlsa and sa")
         self.cfg = cfg
         self.device = resolve_device(device)
         data_split = read_file_data_splitting(cfg["data_split_path"])
-        self.meta = build_surv_meta(cfg, data_split)
+        if cfg["task"] == "sa":
+            self.meta = sa.load_meta(cfg, data_split)
+        else:
+            self.meta = build_surv_meta(cfg, data_split)
         self.dataset = SurvBagDataset(data_split["train"], cfg["path_patch"], self.meta,
                                       read_format=cfg.get("feat_format", "pt"))
         self.batcher = BagBatcher(
@@ -103,10 +108,14 @@ class Trainer:
             seed=cfg["seed"], min_bucket=cfg.get("min_bucket", 256),
             max_bucket=cfg.get("max_bucket"), fixed_bucket=cfg.get("fixed_bucket"),
             feats_dtype=cfg.get("feats_dtype", "float32"),
-            precompute_inv=cfg.get("feats_precompute_inv", True),
+            # DeepMIL's pooling is unnormalised: SA needs no 1/||x|| rows
+            precompute_inv=cfg.get("feats_precompute_inv", True) and cfg["task"] != "sa",
             overflow=cfg.get("bag_overflow", "error"))
-        self.model, _tok = build_vlsa_from_config(cfg, device=self.device,
-                                                  state_dict=state_dict)
+        if cfg["task"] == "sa":
+            self.model = sa.build_model(cfg, device=self.device, state_dict=state_dict)
+        else:
+            self.model, _tok = build_vlsa_from_config(cfg, device=self.device,
+                                                      state_dict=state_dict)
         self.model.train()
         self.frozen = frozen_mask_from_cfg(self.model, frozen_paths(cfg))
         loss_fns, weights = load_losses(cfg)
@@ -137,6 +146,7 @@ def main(argv=None) -> dict:
     trainer = Trainer(cfg, device)
     build_s = time.perf_counter() - t0
     coattn.reset_launches()
+    abmil.reset_launches()
     batches = trainer.batches()
     records = []
     for step in range(args.steps):
@@ -157,7 +167,9 @@ def main(argv=None) -> dict:
                "build_s": build_s, "steps": args.steps,
                "median_step_ms": float(np.median([r["step_ms"] for r in records])),
                "coattn_launches": dict(coattn.LAUNCHES),
-               "coattn_bwd_launches": dict(coattn.LAUNCHES_BWD)}
+               "coattn_bwd_launches": dict(coattn.LAUNCHES_BWD),
+               "abmil_launches": dict(abmil.LAUNCHES),
+               "abmil_bwd_launches": dict(abmil.LAUNCHES_BWD)}
     print(json.dumps(summary), flush=True)
     return summary
 

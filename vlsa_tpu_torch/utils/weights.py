@@ -1,5 +1,5 @@
-"""The weight bridge: a vlsa_tpu VLSA parameter tree -> this package's
-state dict (the inverse of vlsa_tpu/utils/torch_import.py).
+"""The weight bridge: a vlsa_tpu VLSA or DeepMIL parameter tree -> this
+package's state dict (the inverse of vlsa_tpu/utils/torch_import.py).
 
 The tree is given as nested dicts of numpy arrays (`jax.tree.map(np.asarray,
 params)`), so nothing here imports JAX.  Names map as follows:
@@ -8,6 +8,10 @@ params)`), so nothing here imports JAX.  Names map as follows:
     <LayerNorm>/scale        -> <LayerNorm>.weight
     <Dense>/kernel [in, out] -> <Linear>.weight [out, in]
     anything else            -> the same path joined by "."
+
+so a DeepMIL tree's `sigma/fc1_kernel` [D, hid] (the ABMIL pooling keeps
+the tree's names and layouts) becomes `sigma.fc1_kernel`, `g/kernel`
+`g.weight`, `feat_proj/norm/scale` `feat_proj.norm.weight`.
 
 Every leaf maps to exactly one tensor; a duplicate raises.  Loading the
 result with `strict=True` then proves that no tensor was left out.
