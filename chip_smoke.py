@@ -8,8 +8,8 @@ non-zero and prints no result:
 
   1. device: CUDA is required; prints the card's name and power limit;
   2. kernel: builds csrc/coattn_fwd.cu, csrc/coattn_bwd_dq.cu,
-     csrc/abmil_fwd.cu and csrc/abmil_bwd.cu with nvcc (one process each,
-     started together) and holds each storage variant of
+     csrc/abmil_fwd.cu, csrc/abmil_bwd.cu and csrc/flash_attn_fwd.cu with
+     nvcc (one process each, started together) and holds each storage variant of
      the co-attention forward kernel against the port's plain version on the
      card (B=8, N=10240, C=512, P=12, scale 30, 10% of patches masked, one
      empty bag), in f32; tolerances f32 1e-4, bf16 and int8 1e-3;
@@ -22,6 +22,9 @@ non-zero and prints no result:
      forward (f32 1e-4, bf16 and int8 1e-3), the weights-only backward and,
      for f32 and bf16, the backward with dX (dW1, db1, dw2: f32 1e-3, bf16
      and int8 2e-3; dX: f32 1e-3, bf16 1e-2, one bf16 ulp);
+  2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
+     the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
+     197 and 1 (f32 1e-4, bf16 2e-3, f32 output);
   3. serving: builds the flagship VLSA at the full CONCH width from a seed
      and answers requests of 8 synthetic bags (N~8192 jittered) in every
      storage variant -- 3 in bf16 and 3 in int8 with host 1/||x|| among
@@ -50,6 +53,17 @@ non-zero and prints no result:
      parameters and an unchanged fc2 bias; on each variant's last batch the
      gradients through the kernels agree with those through the plain
      versions within 2e-3 per parameter; one more bf16 step is profiled;
+  3e. extraction: `FeatureExtractor` with CONCH at full width (448 px, batch
+     64, bf16, device preprocessing, seeded weights) runs `extract_to_store`
+     over two synthetic slides of 130 and 140 512x512 u8 tiles (ragged last
+     batches) into .npy and then .q8npz stores, and a float32 extractor one
+     batch, counting the flash kernel's launches (12 a batch); the stores
+     read back through SurvBagDataset (.npy exact, .q8npz within one int8
+     step of the quantized .npy features); the features agree with the same
+     run through the plain attention (bf16 2e-2, f32 1e-4); device
+     preprocessing of 4 tiles equals the host stack (u8 byte-exact, the
+     normalize within 1 ulp); the tower's time per batch (CUDA events,
+     median of 10) and one profiled batch;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
@@ -61,7 +75,10 @@ non-zero and prints no result:
      B=8, N=10240 and at the training shape B=32, N=16384, beside one cuBLAS
      x @ W1^T in the storage type (`gemm_ms`, a partial yardstick the port
      never calls: no single PyTorch call computes ABMIL pooling, so
-     library_ms is null).
+     library_ms is null);
+  4c. flash times: each variant at B=64, H=12, L=785 beside its plain
+     version, one scaled_dot_product_attention call (library_ms, never
+     called by the port) and the bound (`bound_flash`).
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}}.
@@ -122,6 +139,23 @@ REPLACES_ABMIL_BWD = {"f32": "vlsa_tpu/ops/abmil.py:205 _abmil_bwd_kernel",
                       "bf16": "vlsa_tpu/ops/abmil.py:205 _abmil_bwd_kernel",
                       "int8": "vlsa_tpu/ops/abmil.py:419 _abmil_q8_bwd_kernel"}
 TRAIN_SHAPE = dict(B=32, N=16384, C=512, P=12)
+# flash self-attention (vlsa_tpu/models/vision_tower.py:312): the CONCH trunk's
+# attention at extraction, 448-px input, patch 16, so L = 1 + 28^2; hd = 64
+FLASH_SHAPE = dict(B=64, H=12, L=785)
+FLASH_LENGTHS = (785, 197, 1)
+FLASH_VARIANTS = ("bf16", "f32")
+TOL_FLASH = {"f32": 1e-4, "bf16": 2e-3}
+SOURCE_FLASH = "vlsa_tpu_torch/ops/csrc/flash_attn_fwd.cu"
+REPLACES_FLASH = "vlsa_tpu/models/vision_tower.py:312 _flash_self_attention"
+# extraction: CONCH at full width, 448 px, batch 64, over synthetic slides of
+# 512x512 u8 tiles whose tile counts leave a ragged last batch
+EXTRACT_TILES = (130, 140)
+EXTRACT_TILE_PX = 512
+TOL_FEATS = {"bf16": 2e-2, "f32": 1e-4}  # features, flash kernel vs plain attention
+# the extraction batch's kernels by kind, for the profile (first match wins)
+PROFILE_GROUPS = {"flash": r"flash_fwd", "gemm": r"nvjet|gemm|xmma|cutlass|sm90_",
+                  "layer_norm": r"layer_norm", "gelu": r"Gelu",
+                  "copy_cast": r"copy|index|cat|Cat", "elementwise": r"elementwise"}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by
 # operand type (f32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -260,8 +294,8 @@ def make_inputs(torch, B, N, C, P, variant, seed=0, device="cuda"):
 def phase_kernel(torch, co):
     from vlsa_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build("coattn_fwd", "coattn_bwd_dq", "abmil_fwd", "abmil_bwd")
-    log(f"built coattn_fwd, coattn_bwd_dq, abmil_fwd and abmil_bwd in "
+    _build.build("coattn_fwd", "coattn_bwd_dq", "abmil_fwd", "abmil_bwd", "flash_attn_fwd")
+    log(f"built coattn_fwd, coattn_bwd_dq, abmil_fwd, abmil_bwd and flash_attn_fwd in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, build_log in _build.BUILD_LOGS.items():
         for line in build_log.splitlines():
@@ -387,6 +421,32 @@ def phase_abmil_kernels(torch, ab):
         errs[s], _stats = hold_abmil(torch, ab, *inputs, s, "at B=8 N=10240")
         del inputs, _stats
         torch.cuda.empty_cache()
+    return errs
+
+
+# ---------------------------------------------------------------- phase 2d
+
+def make_qkv(torch, B, H, L, variant, seed=0, device="cuda"):
+    """q, k, v [B, H, L, 64] ~ N(0, 1) in the variant's type."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dtype = torch.bfloat16 if variant == "bf16" else torch.float32
+    return [torch.randn(B, H, L, 64, generator=g, device=device).to(dtype) for _ in range(3)]
+
+
+def phase_flash_kernel(torch, fa):
+    """Each variant of csrc/flash_attn_fwd.cu against its plain version at
+    B=64, H=12 and L = 785 (the extraction shape), 197 and 1."""
+    errs = {}
+    for v in FLASH_VARIANTS:
+        for L in FLASH_LENGTHS:
+            q, k, vv = make_qkv(torch, FLASH_SHAPE["B"], FLASH_SHAPE["H"], L, v)
+            out = fa.flash_attn_fwd(q, k, vv)
+            torch.cuda.synchronize()
+            errs.setdefault(v, {})[L] = hold(f"flash {v} at B=64 H=12 L={L}", out,
+                                             fa.flash_self_attention_reference(q, k, vv),
+                                             TOL_FLASH[v])
+            del q, k, vv, out
+            torch.cuda.empty_cache()
     return errs
 
 
@@ -546,10 +606,12 @@ def param_grads(torch, model, engine, batch):
     return grads
 
 
-def profile_step(torch, engine, batch, family="coattn"):
+def profile_step(torch, engine, batch, family="coattn", groups=None):
     """Wall time of one training step under torch.profiler, the device time of
     all its kernels and of the kernels whose name holds `family`, each such
-    kernel by name (None if the profiler shows no device time)."""
+    kernel by name (None if the profiler shows no device time); with
+    `groups` ({name: regex}), the device time of each group's kernels (the
+    first group whose regex a kernel's name matches; "other" the rest)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     warm = torch.zeros(1, device="cuda")
@@ -566,6 +628,7 @@ def profile_step(torch, engine, batch, family="coattn"):
         wall_ms = 1e3 * (time.perf_counter() - t)
     total_us = 0.0
     top, by_kernel = [], {}
+    by_group = dict.fromkeys([*groups, "other"], 0.0) if groups else {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -574,13 +637,18 @@ def profile_step(torch, engine, batch, family="coattn"):
         if family in evt.key:
             name = re.search(rf"{family}\w*", evt.key).group(0)
             by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
+        if groups:
+            g = next((g for g, rx in groups.items() if re.search(rx, evt.key)), "other")
+            by_group[g] += us / 1e3
         top.append((us, evt.key[:80]))
     top.sort(reverse=True)
     key = f"{family}_ms"
     if total_us == 0:
-        return {"wall_ms": wall_ms, "device_ms": None, key: None, "kernels": {}, "top": []}
+        return {"wall_ms": wall_ms, "device_ms": None, key: None, "kernels": {}, "top": [],
+                "groups": {}}
     return {"wall_ms": wall_ms, "device_ms": total_us / 1e3, key: sum(by_kernel.values()),
-            "kernels": by_kernel, "top": [{"kernel": k, "ms": us / 1e3} for us, k in top[:8]]}
+            "kernels": by_kernel, "groups": by_group,
+            "top": [{"kernel": k, "ms": us / 1e3} for us, k in top[:8]]}
 
 
 def phase_training(torch, co, device):
@@ -953,6 +1021,165 @@ def phase_sa_training(torch, ab, co, device):
             "median_bf16_step_ms": float(np.median([r["step_ms"] for r in bf16]))}
 
 
+# ---------------------------------------------------------------- phase 3e
+
+@contextlib.contextmanager
+def plain_flash():
+    """Route the ViT trunk's attention through the plain version, also on
+    the card."""
+    from vlsa_tpu_torch.models import vision_tower
+    from vlsa_tpu_torch.ops.flash_attn import flash_self_attention_reference
+    kernel_attention = vision_tower.flash_self_attention
+    vision_tower.flash_self_attention = flash_self_attention_reference
+    try:
+        yield
+    finally:
+        vision_tower.flash_self_attention = kernel_attention
+
+
+class OnePatient:
+    """A label table of one patient "p0" holding `sids` (what SurvBagDataset
+    asks of MetaSurvData)."""
+
+    def __init__(self, sids):
+        self.sids = list(sids)
+
+    def collect_info_by_pids(self, pids):
+        return list(pids), {"p0": self.sids}, {"p0": [0, 1]}
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_extraction(torch, fa, ab, co, device):
+    """CONCH feature extraction at full width through the port's entry
+    points: two synthetic slides of 512x512 u8 tiles to .npy and .q8npz
+    stores (bf16, device preprocessing, batch 64), one batch in f32, then
+    the checks, the tower's time per batch and one profiled batch."""
+    import tempfile
+    import types
+    import numpy as np
+    from vlsa_tpu_torch.data.bags import SurvBagDataset, read_patch_data
+    from vlsa_tpu_torch.data.extract import FeatureExtractor, extract_to_store
+    from vlsa_tpu_torch.data.quant import quantize_feats_int8
+    from vlsa_tpu_torch.data.transforms import center_crop, preprocess_tile, resize_shortest_edge
+    from vlsa_tpu_torch.data.transforms_device import build_device_preprocess
+
+    t0 = time.perf_counter()
+    ex = FeatureExtractor(image_size=448, batch_size=64, compute_dtype="bfloat16", seed=0,
+                          device=device)
+    ex32 = FeatureExtractor(image_size=448, batch_size=64, compute_dtype="float32", seed=0,
+                            device=device)
+    build_s = time.perf_counter() - t0
+    layers = ex.model.trunk.layers
+    check(ex._device_preprocess and ex.feat_dim == 512 and layers == 12,
+          "the extractor is not CONCH at full width with device preprocessing")
+    log(f"extractors built in {build_s:.1f} s: {sum(p.numel() for p in ex.model.parameters())} "
+        f"parameters, {layers} layers, image 448, batch 64")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_extract_") as tmp:
+        src = os.path.join(tmp, "tiles")
+        os.makedirs(src)
+        rng = np.random.default_rng(0)
+        sids = []
+        for i, n in enumerate(EXTRACT_TILES):
+            sids.append(f"slide{i}")
+            np.save(os.path.join(src, f"slide{i}.npy"), rng.integers(
+                0, 256, size=(n, EXTRACT_TILE_PX, EXTRACT_TILE_PX, 3), dtype=np.uint8))
+        tiles0 = np.load(os.path.join(src, "slide0.npy"))
+        batch = tiles0[:64]
+
+        # ---- the main path: every launch counter from 0 ----
+        for kernels in (fa, ab, co):
+            kernels.reset_launches()
+        runs = {}
+        for fmt in ("npy", "q8npz"):
+            runs[fmt] = extract_to_store(src, os.path.join(tmp, fmt), ex, fmt=fmt, verbose=False)
+        feats32 = ex32.extract(batch)  # one batch of the --dtype float32 path
+        launches = dict(fa.LAUNCHES)
+        n_batches = sum(-(-n // 64) for n in EXTRACT_TILES)
+        expected = {"bf16": 2 * layers * n_batches, "f32": layers}
+        log(f"extraction main path: {sum(EXTRACT_TILES)} tiles of {EXTRACT_TILE_PX} px to .npy "
+            f"({runs['npy']['tiles_per_sec']:.1f} tiles/s, the first run) and .q8npz "
+            f"({runs['q8npz']['tiles_per_sec']:.1f} tiles/s), one f32 batch; flash launches "
+            f"{launches}")
+        check(launches == expected, f"flash launches {launches}, expected {expected}")
+        check(sum(ab.LAUNCHES.values()) + sum(ab.LAUNCHES_BWD.values())
+              + sum(co.LAUNCHES.values()) + sum(co.LAUNCHES_BWD.values()) == 0,
+              "extraction launched an ABMIL or co-attention kernel")
+        for fmt, stats in runs.items():
+            check(stats["slides"] == 2 and stats["tiles"] == sum(EXTRACT_TILES)
+                  and stats["empty"] == 0, f"{fmt} run: {stats}")
+
+        # ---- the stores, read back as training reads them ----
+        feats = {s: read_patch_data(os.path.join(tmp, "npy", f"{s}.npy")) for s in sids}
+        for s, n in zip(sids, EXTRACT_TILES):
+            check(feats[s].shape == (n, 512) and bool(np.isfinite(feats[s]).all()),
+                  f"{s}: features {feats[s].shape}, finite {np.isfinite(feats[s]).all()}")
+        every = np.concatenate([feats[s] for s in sids])
+        bag, _label = SurvBagDataset(["p0"], os.path.join(tmp, "npy"), OnePatient(sids),
+                                     read_format="npy")[0]
+        check(np.array_equal(bag, every), "the .npy bag differs from the stores")
+        bag8, _label = SurvBagDataset(["p0"], os.path.join(tmp, "q8npz"), OnePatient(sids),
+                                      read_format="q8npz")[0]
+        q, scale = quantize_feats_int8(every)
+        q8_dev = float(np.abs(bag8 - q.astype(np.float32) * scale[:, None]).max())
+        log(f"stores read back through SurvBagDataset: .npy {bag.shape} exact; .q8npz "
+            f"{bag8.shape}, max |stored - quantized .npy features| {q8_dev:.3e}")
+        check(q8_dev <= float(scale.max()), f".q8npz bag deviates {q8_dev} from the .npy one")
+
+        # ---- features against the same run with the plain attention ----
+        with plain_flash():
+            plain = ex.extract(tiles0)
+            plain32 = ex32.extract(batch)
+        check(dict(fa.LAUNCHES) == launches, "the plain run launched the flash kernel")
+        feat_err = {"bf16": rel_err(torch.from_numpy(feats["slide0"]), torch.from_numpy(plain)),
+                    "f32": rel_err(torch.from_numpy(feats32), torch.from_numpy(plain32))}
+        bf16_vs_f32 = rel_err(torch.from_numpy(feats["slide0"][:64]), torch.from_numpy(feats32))
+        log(f"features, flash kernel vs plain attention (max|a-b| / max|b|): bf16 "
+            f"{feat_err['bf16']:.3e} (tol {TOL_FEATS['bf16']:g}), f32 {feat_err['f32']:.3e} "
+            f"(tol {TOL_FEATS['f32']:g}); bf16 vs f32 compute {bf16_vs_f32:.3e}")
+        for v, e in feat_err.items():
+            check(e <= TOL_FEATS[v], f"{v} features deviate {e:.3e} from the plain attention's")
+
+    # ---- device preprocessing against the host stack ----
+    few = tiles0[:4]
+    got_u8 = build_device_preprocess((EXTRACT_TILE_PX,) * 2, 448, normalize=False)(
+        torch.from_numpy(few).to(device)).cpu().numpy()
+    want_u8 = np.stack([center_crop(resize_shortest_edge(t, 448), 448) for t in few])
+    got = build_device_preprocess((EXTRACT_TILE_PX,) * 2, 448)(
+        torch.from_numpy(few).to(device)).cpu().numpy()
+    want = np.stack([preprocess_tile(t, 448) for t in few])
+    u8_exact, norm_dev = bool(np.array_equal(got_u8, want_u8)), float(np.abs(got - want).max())
+    norm_ulp = float((np.abs(got - want) / np.spacing(np.abs(want))).max())
+    log(f"device preprocessing of {len(few)} tiles 512 -> 448 vs the host stack: u8 byte-exact "
+        f"{u8_exact}, normalize within {norm_ulp:g} ulp, max|dev| {norm_dev:.3e}")
+    check(u8_exact and got.shape == want.shape and norm_ulp <= 1,
+          f"device preprocessing: u8 exact {u8_exact}, normalize off by {norm_ulp:g} ulp")
+
+    # ---- the tower's time per batch, and one profiled batch ----
+    x = build_device_preprocess((EXTRACT_TILE_PX,) * 2, 448)(torch.from_numpy(batch).to(device))
+
+    def tower():
+        with torch.inference_mode():
+            return ex.model.forward_no_head(x)
+    tower_ms = median_ms(torch, tower, runs=10, warmup=2)
+    prof = profile_step(torch, types.SimpleNamespace(train_step=ex.extract), batch,
+                        family="flash_fwd", groups=PROFILE_GROUPS)
+    if prof["device_ms"] is None:
+        log("profiled batch: the profiler shows no device time")
+    else:
+        log(f"profiled batch of 64 tiles (u8 copy, preprocessing, tower, read-back): wall "
+            f"{prof['wall_ms']:.1f} ms, kernels on the card {prof['device_ms']:.2f} ms: "
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in prof["groups"].items())
+            + f" ms; top {prof['top']}")
+    log(f"tower forward, batch 64 bf16 (CUDA events, median of 10): {tower_ms:.2f} ms, "
+        f"{64e3 / tower_ms:.0f} tiles/s")
+    return {"build_s": build_s, "launches": launches, "runs": runs, "q8_dev": q8_dev,
+            "feat_err": feat_err, "bf16_vs_f32": bf16_vs_f32, "preprocess_u8_exact": u8_exact,
+            "preprocess_norm_dev": norm_dev, "preprocess_norm_ulp": norm_ulp, "tower_ms": tower_ms, "profiled_batch": prof}
+
+
 # ---------------------------------------------------------------- phase 4
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -1167,6 +1394,46 @@ def phase_abmil_times(torch, ab):
     return times
 
 
+# ---------------------------------------------------------------- phase 4c
+
+def bound_flash(B, H, L, variant, hd=64):
+    """Least time for the attention on an H100, as `bound` reckons it.
+    Bytes: q, k, v read once in the variant's type, the f32 output written
+    once.  Operations: Q K^T and P V, 2*L*hd each per query row (the
+    softmax's exponentials are not counted)."""
+    item = 2 if variant == "bf16" else 4
+    nbytes = 3 * B * H * L * hd * item + 4 * B * H * L * hd
+    ops = 4 * B * H * L * L * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[variant]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash_times(torch, fa):
+    """Each flash variant at the extraction shape: the kernel, its plain
+    version and one scaled_dot_product_attention call on the same inputs
+    (the yardstick; the port never calls it), beside the bound."""
+    import torch.nn.functional as F
+    times = {}
+    for v in FLASH_VARIANTS:
+        q, k, vv = make_qkv(torch, **FLASH_SHAPE, variant=v, seed=1)
+        err = hold(f"flash {v} at the timed shape", fa.flash_attn_fwd(q, k, vv),
+                   fa.flash_self_attention_reference(q, k, vv), TOL_FLASH[v])
+        b_ms, b_by = bound_flash(**FLASH_SHAPE, variant=v)
+        times[v] = dict(FLASH_SHAPE, err=err, bound_ms=b_ms, bound_by=b_by,
+                        ms=median_ms(torch, lambda: fa.flash_attn_fwd(q, k, vv)),
+                        plain_ms=median_ms(torch, lambda: fa.flash_self_attention_reference(
+                            q, k, vv)),
+                        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+                            q, k, vv)))
+        t = times[v]
+        log(f"time flash_attn_fwd[{v}] B=64 H=12 L=785 kernel {t['ms']:.4f} ms  plain "
+            f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by})  kernel/bound {t['ms'] / b_ms:.1f}x")
+        del q, k, vv
+        torch.cuda.empty_cache()
+    return times
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1182,6 +1449,7 @@ def main(argv=None) -> int:
     try:
         from vlsa_tpu_torch.ops import abmil as ab
         from vlsa_tpu_torch.ops import coattn as co
+        from vlsa_tpu_torch.ops import flash_attn as fa
     except ImportError as exc:
         log(f"FAIL: the port is not beside this script ({exc})")
         return 1
@@ -1199,12 +1467,15 @@ def main(argv=None) -> int:
         errs = phase_kernel(torch, co)
         errs_dq = phase_backward_kernel(torch, co)
         errs_abmil = phase_abmil_kernels(torch, ab)
+        errs_flash = phase_flash_kernel(torch, fa)
         serving = phase_serving(torch, co, device)
         training = phase_training(torch, co, device)
         sa_serving = phase_sa_serving(torch, ab, co, device)
         sa_training = phase_sa_training(torch, ab, co, device)
+        extraction = phase_extraction(torch, fa, ab, co, device)
         times = phase_times(torch, co)
         abmil_times = phase_abmil_times(torch, ab)
+        flash_times = phase_flash_times(torch, fa)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -1242,6 +1513,14 @@ def main(argv=None) -> int:
                 "max_abs_err": errs_abmil[s][name]["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": None})
+    for v in FLASH_VARIANTS:
+        t = flash_times[v]
+        kernels.append({
+            "name": f"flash_attn_fwd[{v}]", "route": "cuda", "source": SOURCE_FLASH,
+            "replaces": REPLACES_FLASH, "launches": extraction["launches"][v],
+            "max_abs_err": errs_flash[v][FLASH_SHAPE["L"]]["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     never = [k["name"] for k in kernels if k["launches"] <= 0]
     if never:
         log(f"FAIL: never launched on the main paths: {never}")
@@ -1251,7 +1530,8 @@ def main(argv=None) -> int:
               "dq_errors": errs_dq, "serving": serving, "training": training,
               "times": times, "abmil_shape": ABMIL_SHAPE, "abmil_train_shape": ABMIL_TRAIN_SHAPE,
               "abmil_errors": errs_abmil, "sa_serving": sa_serving, "sa_training": sa_training,
-              "abmil_times": abmil_times, "kernels": kernels,
+              "abmil_times": abmil_times, "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
+              "extraction": extraction, "flash_times": flash_times, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,8 +1,11 @@
 """The port stands alone: no file of vlsa_tpu_torch/, nor chip_smoke.py,
 imports JAX, Flax, Optax or anything of vlsa_tpu, nor a module that the
-machine with the card lacks (transformers, ml_dtypes, regex, pandas)."""
+machine with the card lacks (transformers, ml_dtypes, regex, pandas); PIL
+and h5py only when a file needs them."""
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -41,3 +44,19 @@ def test_forbidden_matches_exactly_or_by_prefix():
 def test_no_forbidden_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+LAZY = ("PIL", "h5py")  # the card's machine has neither: imported only to read such files
+
+
+@pytest.mark.parametrize("module", ["vlsa_tpu_torch.data.extract", "vlsa_tpu_torch.runner.extract",
+                                    "vlsa_tpu_torch.data.bags",
+                                    "vlsa_tpu_torch.models.vision_tower"])
+def test_extraction_imports_no_pil_or_h5py(module):
+    """Importing the extraction path loads neither PIL nor h5py, nor JAX."""
+    code = (f"import sys; import {module}; "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {LAZY + ('jax',)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", f"{module} loads {out.stdout.strip()}"

@@ -1,5 +1,6 @@
 """The Hopper kernels -- co-attention forward and dQ backward, ABMIL
-forward and backward -- against their plain versions, on the card.
+forward and backward, flash self-attention -- against their plain versions,
+on the card.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip without
 one.  They import nothing of JAX, so on the machine with the card they run
@@ -12,6 +13,7 @@ import torch
 
 from vlsa_tpu_torch.ops import abmil as ab
 from vlsa_tpu_torch.ops import coattn as co
+from vlsa_tpu_torch.ops import flash_attn as fa
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.int8: 1e-3}
@@ -186,3 +188,48 @@ def test_gradient_request_raises(device):
         co.coattn_pool(q, x.clone().requires_grad_(True), mask, 30.0)
     with torch.inference_mode():
         assert co.coattn_pool(q, x, mask, 30.0).shape == (2, 4, 64)
+
+
+# flash self-attention (row 11): max|a-b| / max|b| against the plain version,
+# chip_smoke.py phase 2d's tolerances
+TOL_FLASH = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 12, 197), (3, 2, 130), (1, 3, 64), (2, 2, 37), (2, 1, 1)])
+def test_flash_kernel_matches_plain(device, dtype, shape):
+    """Ragged key and query tiles (L no multiple of 64), L = 1, a whole tile."""
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(*shape, 64, generator=g).to(dtype).to(device) for _ in range(3))
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    before = fa.LAUNCHES[name]
+    out = fa.flash_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[name] == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert _rel(out, fa.flash_self_attention_reference(q, k, v)) <= TOL_FLASH[dtype]
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(device):
+    q = torch.randn(1, 2, 9, 32, device=device)
+    with pytest.raises(ValueError, match="hd=64"):
+        fa.flash_self_attention(q, q, q)
+    q = torch.randn(1, 2, 9, 64, device=device)
+    with pytest.raises(ValueError, match="k must be"):
+        fa.flash_self_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        fa.flash_self_attention(*(q.half(),) * 3)
+
+
+def test_vision_block_routes_through_the_flash_kernel(device):
+    """A CONCH block on the card launches the kernel once and agrees with
+    the same block on the CPU (plain attention): f32 1e-4."""
+    from vlsa_tpu_torch.models.vision_tower import TimmViTBlock
+    blk = TimmViTBlock(128, 2, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(2, 37, 128, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = blk(x)
+        before = fa.LAUNCHES["f32"]
+        got = blk.to(device)(x.to(device))
+    assert fa.LAUNCHES["f32"] == before + 1
+    assert _rel(got.cpu(), want) <= 1e-4

@@ -1,1 +1,2 @@
-"""Host-side IO, feature storage types and request padding."""
+"""Host-side IO, feature storage types and request padding; tile
+preprocessing and feature extraction."""

@@ -1,7 +1,8 @@
 """Patient-level bag dataset (counterpart of vlsa_tpu/data/bags.py, `patch`
 mode): each item concatenates the patch features of every slide of a
-patient into one [N, D] bag, with its label (y_t, e).  The few-shot wrapper
-is not ported yet."""
+patient into one [N, D] bag, with its label (y_t, e).  Stores are read as
+vlsa_tpu/data/io.py:81-99 reads them.  The few-shot wrapper is not ported
+yet."""
 from __future__ import annotations
 
 import os.path as osp
@@ -14,15 +15,30 @@ from .label_converter import MetaSurvData
 
 
 def read_patch_data(path: str, key: str = "features") -> np.ndarray:
-    """One slide's patch features from a `.pt` store: a tensor or
-    {key: tensor}."""
-    if osp.splitext(path)[1] != ".pt":
-        raise ValueError(f"unsupported patch store {path}: this port reads .pt")
-    import torch
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(data, dict):
-        data = data[key]
-    return data.numpy()
+    """One slide's patch features [N, D] from a store: `.pt` (a tensor or
+    {key: tensor}), `.npy`, `.q8npz` (int8 `q` and per-patch `scale`,
+    dequantized to f32 as q * scale) or `.h5` (dataset `key`; h5py is
+    imported only here)."""
+    ext = osp.splitext(path)[1]
+    if ext == ".pt":
+        import torch
+        data = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(data, dict):
+            data = data[key]
+        return data.numpy()
+    if ext == ".npy":
+        return np.load(path)
+    if ext == ".q8npz":
+        with np.load(path) as z:
+            return z["q"].astype(np.float32) * z["scale"][..., None]
+    if ext == ".h5":
+        try:
+            import h5py
+        except ImportError as exc:
+            raise ImportError(f"reading {path} needs the 'h5py' package") from exc
+        with h5py.File(path, "r") as hf:
+            return np.asarray(hf[key][:])
+    raise ValueError(f"unsupported patch store {path}: this port reads .pt, .npy, .q8npz, .h5")
 
 
 class SurvBagDataset:

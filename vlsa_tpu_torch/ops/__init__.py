@@ -1,1 +1,2 @@
-"""Masked pooling primitives and the co-attention and ABMIL kernels."""
+"""Masked pooling primitives and the co-attention, ABMIL and flash
+self-attention kernels."""

@@ -1,1 +1,1 @@
-"""The serving engine and its command line."""
+"""The engines and the serving, training and extraction command lines."""
