@@ -8,8 +8,9 @@ non-zero and prints no result:
 
   1. device: CUDA is required; prints the card's name and power limit;
   2. kernel: builds csrc/coattn_fwd.cu, csrc/coattn_bwd_dq.cu,
-     csrc/abmil_fwd.cu, csrc/abmil_bwd.cu and csrc/flash_attn_fwd.cu with
-     nvcc (one process each, started together) and holds each storage variant of
+     csrc/coattn_bwd_dx.cu, csrc/abmil_fwd.cu, csrc/abmil_bwd.cu and
+     csrc/flash_attn_fwd.cu with nvcc (one process each, started together)
+     and holds each storage variant of
      the co-attention forward kernel against the port's plain version on the
      card (B=8, N=10240, C=512, P=12, scale 30, 10% of patches masked, one
      empty bag), in f32; tolerances f32 1e-4, bf16 and int8 1e-3;
@@ -25,6 +26,12 @@ non-zero and prints no result:
   2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
      the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
      197 and 1 (f32 1e-4, bf16 2e-3, f32 output);
+  2e. full (dX) backward kernel: holds both variants of csrc/coattn_bwd_dx.cu
+     against its plain version at the shape of phase 2 (the masked rows
+     holding features), with (out, m, l) from the forward kernel: dq f32
+     1e-3, bf16 2e-3, dX f32 1e-3, bf16 dX within one bf16 ulp at the scale
+     of its largest element; dX is exactly 0 on masked rows and the empty
+     bag, and within 2e-2 of a true-f32 autograd of the plain pooling;
   3. serving: builds the flagship VLSA at the full CONCH width from a seed
      and answers requests of 8 synthetic bags (N~8192 jittered) in every
      storage variant -- 3 in bf16 and 3 in int8 with host 1/||x|| among
@@ -64,6 +71,21 @@ non-zero and prints no result:
      preprocessing of 4 tiles equals the host stack (u8 byte-exact, the
      normalize within 1 ulp); the tower's time per batch (CUDA events,
      median of 10) and one profiled batch;
+  3f. training with the feature projecter: the flagship trainer with
+     `vlsa_img_encoder_use_feat_proj: True` (the patch features then need a
+     gradient: the dX kernel) takes Adam steps on TCGA-BLCA fold 0: 2 in
+     bf16, 1 in f32, 1 in int8 (dequantized to bf16 by VLFAN) and 1 in bf16
+     with host 1/||x|| (dropped by VLFAN), counting the forward and dX
+     launches (the dQ-only kernel launches none) and the peak device memory
+     of each step; every step has a finite loss, an unchanged frozen tower
+     and moved learnable parameters, the projecter's included; on each
+     storage's last batch (text tower in f32, patients censored in the last
+     bin left out) the gradients through the kernels agree within 2e-3 per
+     parameter with CoattnPoolFull run on the plain versions of both
+     kernels and, for f32, with autograd through the plain pooling (for the
+     bf16 storages that gap is logged); one request of 8 bf16 bags is served
+     by the trained model (1e-3 of the plain co-attention) and one more bf16
+     step is profiled, with the projecter's GEMM and LayerNorm as groups;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
@@ -78,7 +100,11 @@ non-zero and prints no result:
      library_ms is null);
   4c. flash times: each variant at B=64, H=12, L=785 beside its plain
      version, one scaled_dot_product_attention call (library_ms, never
-     called by the port) and the bound (`bound_flash`).
+     called by the port) and the bound (`bound_flash`);
+  4d. dX times: both variants of the full backward at B=8, N=10240 and bf16
+     at the training shape B=32, N=16384, beside the plain version, the
+     gradient of one scaled_dot_product_attention call with respect to q, k
+     and v (library_ms, never called by the port) and the bound (`bound_dx`).
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}}.
@@ -88,6 +114,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -139,6 +166,19 @@ REPLACES_ABMIL_BWD = {"f32": "vlsa_tpu/ops/abmil.py:205 _abmil_bwd_kernel",
                       "bf16": "vlsa_tpu/ops/abmil.py:205 _abmil_bwd_kernel",
                       "int8": "vlsa_tpu/ops/abmil.py:419 _abmil_q8_bwd_kernel"}
 TRAIN_SHAPE = dict(B=32, N=16384, C=512, P=12)
+# the full (dX) backward (vlsa_tpu/ops/coattn.py:345): its storages, source and
+# tolerances (max|a-b| / max|b|; bf16 dX within one bf16 ulp at the scale of
+# its largest element; the gap to true f32 that of
+# scripts/validate_kernels_chip.py:91, coattn_bf16_dx)
+DX_STORAGES = ("f32", "bf16")
+SOURCE_DX = "vlsa_tpu_torch/ops/csrc/coattn_bwd_dx.cu"
+REPLACES_DX = "vlsa_tpu/ops/coattn.py:345 _coattn_bwd_kernel"
+TOL_DX_DQ = {"f32": 1e-3, "bf16": 2e-3}
+TOL_DX_F32 = 1e-3
+TOL_DX_TRUE_F32 = 2e-2
+# the feature-projecter training steps: (feats_dtype, 1/||x|| shipped, steps)
+FEAT_PROJ_STEPS = (("bfloat16", False, 2), ("float32", False, 1), ("int8", False, 1),
+                   ("bfloat16", True, 1))
 # flash self-attention (vlsa_tpu/models/vision_tower.py:312): the CONCH trunk's
 # attention at extraction, 448-px input, patch 16, so L = 1 + 28^2; hd = 64
 FLASH_SHAPE = dict(B=64, H=12, L=785)
@@ -152,10 +192,15 @@ REPLACES_FLASH = "vlsa_tpu/models/vision_tower.py:312 _flash_self_attention"
 EXTRACT_TILES = (130, 140)
 EXTRACT_TILE_PX = 512
 TOL_FEATS = {"bf16": 2e-2, "f32": 1e-4}  # features, flash kernel vs plain attention
-# the extraction batch's kernels by kind, for the profile (first match wins)
-PROFILE_GROUPS = {"flash": r"flash_fwd", "gemm": r"nvjet|gemm|xmma|cutlass|sm90_",
+# the kernels of a profiled extraction batch and of a feature-projecter step
+# by kind (first match wins); GEMM_KERNELS names cuBLAS's and CUTLASS's GEMMs
+GEMM_KERNELS = r"nvjet|gemm|xmma|cutlass|sm90_"
+PROFILE_GROUPS = {"flash": r"flash_fwd", "gemm": GEMM_KERNELS,
                   "layer_norm": r"layer_norm", "gelu": r"Gelu",
                   "copy_cast": r"copy|index|cat|Cat", "elementwise": r"elementwise"}
+FEAT_PROJ_GROUPS = {"coattn": r"coattn", "gemm": GEMM_KERNELS,
+                    "layer_norm": r"layer_norm|LayerNorm|GammaBeta",
+                    "copy_cast": r"copy|index|cat|Cat", "elementwise": r"elementwise|reduce"}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by
 # operand type (f32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -265,17 +310,19 @@ def hold(what: str, got, ref, tol: float) -> dict:
 
 # ---------------------------------------------------------------- phase 2
 
-def make_inputs(torch, B, N, C, P, variant, seed=0, device="cuda"):
+def make_inputs(torch, B, N, C, P, variant, seed=0, device="cuda", keep_masked=False):
     """Random queries and bags on the card: 10% of patches masked and the
-    last bag empty; int8 is quantized per patch, and `_inv` variants carry
-    1/||x|| of the stored rows."""
+    last bag empty, their rows zero unless `keep_masked` (a feature
+    projecter's output has features there); int8 is quantized per patch,
+    and `_inv` variants carry 1/||x|| of the stored rows."""
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn(P, C, generator=g, device=device)
     q = q / q.norm(dim=-1, keepdim=True)
     x = torch.randn(B, N, C, generator=g, device=device)
     mask = torch.rand(B, N, generator=g, device=device) > 0.1
     mask[-1] = False
-    x = x * mask[..., None]
+    if not keep_masked:
+        x = x * mask[..., None]
     x_scale = x_inv = None
     storage = storage_of(variant)
     if storage == "int8":
@@ -294,9 +341,10 @@ def make_inputs(torch, B, N, C, P, variant, seed=0, device="cuda"):
 def phase_kernel(torch, co):
     from vlsa_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build("coattn_fwd", "coattn_bwd_dq", "abmil_fwd", "abmil_bwd", "flash_attn_fwd")
-    log(f"built coattn_fwd, coattn_bwd_dq, abmil_fwd, abmil_bwd and flash_attn_fwd in "
-        f"{time.perf_counter() - t0:.1f} s")
+    _build.build("coattn_fwd", "coattn_bwd_dq", "coattn_bwd_dx", "abmil_fwd", "abmil_bwd",
+                 "flash_attn_fwd")
+    log(f"built coattn_fwd, coattn_bwd_dq, coattn_bwd_dx, abmil_fwd, abmil_bwd and "
+        f"flash_attn_fwd in {time.perf_counter() - t0:.1f} s")
     for name, build_log in _build.BUILD_LOGS.items():
         for line in build_log.splitlines():
             if "registers" in line or "spill stores" in line:
@@ -450,19 +498,84 @@ def phase_flash_kernel(torch, fa):
     return errs
 
 
+# ---------------------------------------------------------------- phase 2e
+
+def bf16_ulp_of_max(ref) -> float:
+    """One bf16 ulp at the scale of ref's largest element."""
+    return 2.0 ** (math.floor(math.log2(max(ref.float().abs().max().item(), 1e-30))) - 7)
+
+
+def hold_dx(torch, co, storage, q, x, mask, g, where):
+    """Hold the full backward kernel's (dq, dX) against its plain version
+    on the same inputs, with (out, m, l) from the forward kernel; dX must be
+    exactly 0 on masked rows and the empty bag.  Returns the errors (the
+    worst absolute error over both outputs as max_abs_err) and dX."""
+    out, m, l = co.coattn_fwd(q, x, mask, SCALE)
+    dq, dx = co.coattn_bwd_dx(q, x, mask, SCALE, g, out, m, l)
+    torch.cuda.synchronize()
+    rdq, rdx = co.coattn_bwd_dx_reference(q, x, mask, SCALE, g, out, m, l)
+    e_dq = hold(f"dx kernel {storage} {where} dq", dq, rdq, TOL_DX_DQ[storage])
+    check(dx.dtype == x.dtype and dx.shape == x.shape, f"dX {dx.dtype} {tuple(dx.shape)}")
+    if storage == "f32":
+        e_dx = hold(f"dx kernel {storage} {where} dX", dx, rdx, TOL_DX_F32)
+    else:
+        ulp = bf16_ulp_of_max(rdx)
+        diff = (dx.float() - rdx.float()).abs().max().item()
+        e_dx = {"max_abs_err": diff, "ulp_of_max": ulp,
+                "rel_err": diff / max(rdx.float().abs().max().item(), 1e-30)}
+        log(f"dx kernel {storage} {where} dX: max|k-p| {diff:.3e}  rel {e_dx['rel_err']:.3e}"
+            f"  (tol one bf16 ulp of the largest element, {ulp:.3e})")
+        check(bool(dx.isfinite().all()), f"dx kernel {storage}: non-finite dX")
+        check(diff <= ulp, f"bf16 dX deviates {diff:.3e}, more than one bf16 ulp ({ulp:.3e}) "
+                           f"of its plain version")
+    zero = float(dx[~mask].float().abs().max()) if bool((~mask).any()) else 0.0
+    check(zero == 0.0 and float(dx[-1].float().abs().max()) == 0.0,
+          f"dX {storage}: {zero} on masked rows, {float(dx[-1].float().abs().max())} "
+          f"on the empty bag")
+    return {"dq": e_dq, "dx": e_dx,
+            "max_abs_err": max(e_dq["max_abs_err"], e_dx["max_abs_err"])}, dx
+
+
+def phase_dx_kernel(torch, co):
+    """Both variants of csrc/coattn_bwd_dx.cu against the plain version at
+    SHAPE, and the bf16 dX against a true-f32 autograd of the plain pooling
+    on the same stored values."""
+    errs = {}
+    for s in DX_STORAGES:
+        q, x, mask, _xs, _xi = make_inputs(torch, **SHAPE, variant=s, keep_masked=True)
+        g = make_cotangent(torch, SHAPE["B"], SHAPE["P"], SHAPE["C"])
+        errs[s], dx = hold_dx(torch, co, s, q, x, mask, g,
+                              f"at B={SHAPE['B']} N={SHAPE['N']}")
+        xf = x.float().requires_grad_(True)
+        co.coattn_pool_reference(q, xf, mask, SCALE).backward(g)
+        gap = rel_err(dx.float(), xf.grad)
+        errs[s]["true_f32_rel"] = gap
+        log(f"dx kernel {s} dX vs a true-f32 autograd of the plain pooling: {gap:.3e} "
+            f"(tol {TOL_DX_TRUE_F32:g})")
+        check(gap <= TOL_DX_TRUE_F32, f"{s} dX deviates {gap:.3e} from true f32")
+        del q, x, mask, g, xf, dx
+        torch.cuda.empty_cache()
+    return errs
+
+
 # ---------------------------------------------------------------- phase 3
 
 @contextlib.contextmanager
 def plain_coattention(rel_noise: float = 0.0, seed: int = 0):
-    """Route VLFAN's pooling through the plain version, also on the card;
-    with `rel_noise`, its output times (1 + rel_noise * z), z ~ N(0, 1)
-    drawn from `seed`."""
+    """Route VLFAN's pooling through the plain version under autograd, also
+    on the card, bag by bag under activation checkpointing (one bag's
+    intermediates at a time: with a feature projecter the features need a
+    gradient at the training bucket); with `rel_noise`, its output times
+    (1 + rel_noise * z), z ~ N(0, 1) drawn from `seed`."""
     import torch
+    from torch.utils.checkpoint import checkpoint
     from vlsa_tpu_torch.models import mil
     from vlsa_tpu_torch.ops.coattn import coattn_pool_reference
 
     def pool(q, x, mask, scale, x_scale=None, x_inv=None):
-        out = coattn_pool_reference(q, x, mask, scale, x_scale=x_scale)
+        out = torch.cat([checkpoint(coattn_pool_reference, q, x[i:i + 1], mask[i:i + 1], scale,
+                                    None if x_scale is None else x_scale[i:i + 1],
+                                    use_reentrant=False) for i in range(x.shape[0])])
         if rel_noise:
             gen = torch.Generator(device=out.device).manual_seed(seed)
             out = out * (1 + rel_noise * torch.randn(out.shape, generator=gen,
@@ -606,6 +719,13 @@ def param_grads(torch, model, engine, batch):
     return grads
 
 
+def grad_devs(a: dict, b: dict, leaves) -> dict:
+    """max|a-b| / max|b| per gradient leaf; both must hold exactly `leaves`."""
+    check(set(a) == set(b) == set(leaves),
+          f"gradient leaves {sorted(a)} and {sorted(b)}, expected {sorted(leaves)}")
+    return {n: float((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)) for n in b}
+
+
 def profile_step(torch, engine, batch, family="coattn", groups=None):
     """Wall time of one training step under torch.profiler, the device time of
     all its kernels and of the kernels whose name holds `family`, each such
@@ -718,16 +838,11 @@ def phase_training(torch, co, device):
 
     # ---- the gradients through the kernels against the plain co-attention,
     # on the main path's last batch of each variant (32 bags at its bucket) ----
-    def rel_dev(a, b):
-        check(set(a) == set(b) == set(learnable), "gradient leaves differ")
-        return {n: float((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30))
-                for n in b}
-
     def kernel_and_plain(batch):
         g_kernel = param_grads(torch, model, engine, batch)
         with plain_coattention():
             g_plain = param_grads(torch, model, engine, batch)
-        return rel_dev(g_kernel, g_plain), g_plain
+        return grad_devs(g_kernel, g_plain, learnable), g_plain
 
     # A patient censored in the last bin has 1 - CIF[K-1] = 0 up to f32
     # rounding, so its SurvIFMLE term (vlsa_tpu/losses/surv.py:100 alike) is
@@ -760,7 +875,7 @@ def phase_training(torch, co, device):
     for seed in range(3):
         with plain_coattention(rel_noise=1e-7, seed=seed):
             g_noisy = param_grads(torch, model, engine, b)
-        for n, d in rel_dev(g_noisy, g_plain).items():
+        for n, d in grad_devs(g_noisy, g_plain, learnable).items():
             noise[n] = max(noise[n], d)
     del last_batch, b, g_plain, g_noisy
     torch.cuda.empty_cache()
@@ -988,10 +1103,9 @@ def phase_sa_training(torch, ab, co, device):
         g_kernel = param_grads(torch, tr.model, tr.engine, b)
         with plain_abmil():
             g_plain = param_grads(torch, tr.model, tr.engine, b)
-        check(set(g_kernel) == set(g_plain) and "sigma.fc2_bias" not in g_plain,
-              f"SA {variant}: gradient leaves {sorted(g_kernel)} vs {sorted(g_plain)}")
-        dev = {n: float((g_kernel[n] - g_plain[n]).abs().max()
-                        / g_plain[n].abs().max().clamp_min(1e-30)) for n in g_plain}
+        # fc2's bias cancels in the softmax: every other parameter has a gradient
+        dev = grad_devs(g_kernel, g_plain, [n for n, _p in tr.model.named_parameters()
+                                            if n != "sigma.fc2_bias"])
         worst = max(dev, key=dev.get)
         grad_check[variant] = {"bucket": int(b["mask"].shape[1]), "bags": int(b["valid"].sum()),
                                "dev": dev}
@@ -1178,6 +1292,189 @@ def phase_extraction(torch, fa, ab, co, device):
     return {"build_s": build_s, "launches": launches, "runs": runs, "q8_dev": q8_dev,
             "feat_err": feat_err, "bf16_vs_f32": bf16_vs_f32, "preprocess_u8_exact": u8_exact,
             "preprocess_norm_dev": norm_dev, "preprocess_norm_ulp": norm_ulp, "tower_ms": tower_ms, "profiled_batch": prof}
+
+
+# ---------------------------------------------------------------- phase 3f
+
+@contextlib.contextmanager
+def plain_full_backward(torch, co):
+    """Run `CoattnPoolFull` on the plain versions of both of its kernels
+    (`coattn_fwd_reference`, `coattn_bwd_dx_reference`), bag by bag to bound
+    their memory, also on the card."""
+    def fwd(q, x, mask, scale, x_scale=None, x_inv=None):
+        parts = [co.coattn_fwd_reference(q, x[i:i + 1], mask[i:i + 1], scale)
+                 for i in range(x.shape[0])]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    def bwd(q, x, mask, scale, g, out, m, l):
+        dq, dxs = 0.0, []
+        for i in range(x.shape[0]):
+            b = slice(i, i + 1)
+            dq_b, dx_b = co.coattn_bwd_dx_reference(q, x[b], mask[b], scale, g[b], out[b],
+                                                    m[b], l[b])
+            dq = dq + dq_b
+            dxs.append(dx_b)
+        return dq, torch.cat(dxs)
+    kernels = co.coattn_fwd, co.coattn_bwd_dx
+    co.coattn_fwd, co.coattn_bwd_dx = fwd, bwd
+    try:
+        yield
+    finally:
+        co.coattn_fwd, co.coattn_bwd_dx = kernels
+
+
+def phase_feat_proj_training(torch, co, device):
+    """The flagship trainer with `vlsa_img_encoder_use_feat_proj: True`:
+    Adam steps in every storage through the forward and dX kernels, the
+    gradient checks, one served request and one profiled step."""
+    import numpy as np
+    from vlsa_tpu_torch.config import training_config
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_bags
+    from vlsa_tpu_torch.runner.train import Trainer
+
+    cfg = training_config(dict(TRAIN_CFG, vlsa_img_encoder_use_feat_proj=True), fold=0)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device)
+    build_s = time.perf_counter() - t0
+    model, engine, batcher = trainer.model, trainer.engine, trainer.batcher
+    check(trainer.meta.num_bins == 12 and model.mil_encoder.use_feat_proj,
+          f"fold 0 gives {trainer.meta.num_bins} bins; projecter {model.mil_encoder.use_feat_proj}")
+    tower = model.prompt_encoder
+    tower0 = {k: v.detach().clone() for k, v in tower.state_dict().items()}
+    learnable = [n for n, p in model.named_parameters() if p.requires_grad]
+    prefixes = LEARNABLE + ("mil_encoder.feat_proj.",)
+    check(all(any(n.startswith(prefix) for n in learnable) for prefix in prefixes)
+          and not any(n.startswith("prompt_encoder.") for n in learnable),
+          f"unexpected learnable parameters {learnable}")
+    log(f"feature-projecter trainer built in {build_s:.1f} s: {len(learnable)} learnable "
+        f"tensors, {[n for n in learnable if 'feat_proj' in n]} among them")
+
+    def on_card(host, with_inv):
+        batch = {k: v.to(device) for k, v in host.items()}
+        if with_inv and "feats_scale" not in batch:
+            batch["feats_inv"] = inv_norms(torch, batch["feats"])
+        return batch
+
+    # ---- the main path: every launch counter from 0 ----
+    batches = trainer.batches()
+    torch.cuda.empty_cache()
+    co.reset_launches()
+    steps, last_batch = [], {}  # storage mode -> (its last host batch, 1/||x|| shipped)
+    exp_fwd, exp_dx = dict.fromkeys(co.LAUNCHES, 0), dict.fromkeys(co.LAUNCHES_DX, 0)
+    for feats_dtype, with_inv, count in FEAT_PROJ_STEPS:
+        batcher.feats_dtype, batcher.precompute_inv = feats_dtype, with_inv
+        for _ in range(count):
+            t = time.perf_counter()
+            host = next(batches)
+            batch = on_card(host, with_inv)
+            torch.cuda.synchronize()
+            t_mid = time.perf_counter()
+            before = {n: p.detach().clone() for n, p in model.named_parameters()
+                      if p.requires_grad}
+            torch.cuda.reset_peak_memory_stats()
+            t_step = time.perf_counter()
+            loss, raw = engine.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t_step)
+            mode = co.variant_name(batch["feats"].dtype, "feats_inv" in batch)
+            # VLFAN drops the sidecars and pools the projected features in
+            # f32 for f32 storage, else in bf16
+            kernel = "f32" if batch["feats"].dtype == torch.float32 else "bf16"
+            exp_fwd[kernel] += 1
+            exp_dx[kernel] += 1
+            last_batch[mode] = (host, with_inv)
+            rec = {"mode": mode, "kernel": kernel, "loss": float(loss),
+                   "bags": int(batch["valid"].sum()), "bucket": int(batch["mask"].shape[1]),
+                   "patches": int(batch["mask"].sum()), "prep_ms": 1e3 * (t_mid - t),
+                   "step_ms": step_ms, "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            check(bool(np.isfinite(rec["loss"])) and bool(torch.isfinite(raw).all()),
+                  f"feat-proj step {len(steps)} ({mode}): non-finite loss or logits")
+            check(all(torch.equal(v, tower0[k]) for k, v in tower.state_dict().items()),
+                  f"feat-proj step {len(steps)} ({mode}): the frozen tower changed")
+            still = [n for n, p in model.named_parameters()
+                     if p.requires_grad and torch.equal(p.detach(), before[n])]
+            check(not still, f"feat-proj step {len(steps)} ({mode}): {still} did not move")
+            steps.append(rec)
+            log(f"feat-proj train step {len(steps) - 1} {mode:9s} loss {rec['loss']:.4f}  "
+                f"{rec['bags']} bags, bucket {rec['bucket']}, {rec['patches']} patches: host "
+                f"prep {rec['prep_ms']:.0f} ms + step {step_ms:.1f} ms, peak device memory "
+                f"{rec['max_memory_gb']:.2f} GB")
+            del batch, before, loss, raw
+    launches = {"fwd": dict(co.LAUNCHES), "bwd": dict(co.LAUNCHES_BWD),
+                "dx": dict(co.LAUNCHES_DX)}
+    log(f"feat-proj main path: {len(steps)} training steps, launches {launches}")
+    check(launches["fwd"] == exp_fwd and launches["dx"] == exp_dx,
+          f"feat-proj launches {launches}, expected forward {exp_fwd} and dX {exp_dx}")
+    check(sum(launches["bwd"].values()) == 0, "feat-proj training launched the dQ-only kernel")
+
+    # ---- the gradients through the kernels against CoattnPoolFull on the
+    # plain versions and against autograd through the plain pooling, on the
+    # main path's last batch of each storage (see phase_training for the
+    # text tower in f32 and the patients censored in the last bin) ----
+    K = trainer.meta.num_bins
+    grad_check = {}
+    with f32_text_tower(torch, tower):
+        for mode, (host, with_inv) in last_batch.items():
+            b = on_card(host, with_inv)
+            ill = b["valid"] & (b["e"] == 0) & (b["t"] == K - 1)
+            b = dict(b, valid=b["valid"] & ~ill)
+            torch.cuda.reset_peak_memory_stats()
+            g_kernel = param_grads(torch, model, engine, b)
+            with plain_full_backward(torch, co):
+                dev = grad_devs(g_kernel, param_grads(torch, model, engine, b), learnable)
+            with plain_coattention():
+                dev_auto = grad_devs(g_kernel, param_grads(torch, model, engine, b), learnable)
+            worst, worst_auto = max(dev, key=dev.get), max(dev_auto, key=dev_auto.get)
+            grad_check[mode] = {"bucket": int(b["mask"].shape[1]), "bags": int(b["valid"].sum()),
+                                "dev_plain_kernels": dev, "dev_autograd": dev_auto,
+                                "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            log(f"feat-proj gradients, {mode} batch: {grad_check[mode]['bags']} bags, bucket "
+                f"{grad_check[mode]['bucket']}, text tower in f32: kernels vs plain kernels worst "
+                f"{worst} {dev[worst]:.2e} (tol {TOL_GRAD:g}); vs autograd of the plain pooling "
+                f"worst {worst_auto} {dev_auto[worst_auto]:.2e}"
+                + (f" (tol {TOL_GRAD:g})" if mode == "f32" else " (logged: autograd does not "
+                   "round a, g and dl)") + f"; peak {grad_check[mode]['max_memory_gb']:.2f} GB")
+            check(dev[worst] <= TOL_GRAD, f"feat-proj {mode}: gradient of {worst} deviates "
+                                          f"{dev[worst]:.3e} from the plain kernels'")
+            if mode == "f32":
+                check(dev_auto[worst_auto] <= TOL_GRAD, f"feat-proj f32: gradient of "
+                      f"{worst_auto} deviates {dev_auto[worst_auto]:.3e} from autograd's")
+            del b, g_kernel
+            torch.cuda.empty_cache()
+
+    # ---- one request of 8 bf16 bags served by the trained model ----
+    infer = InferEngine(model, feats_dtype="bfloat16", precompute_inv=False)
+    req = infer.prepare(request_bags(cfg["path_patch"], 0, BAGS_PER_REQUEST))
+    fwd_before = dict(co.LAUNCHES)
+    probs = infer.forward(req)["probs"]
+    torch.cuda.synchronize()
+    check(co.LAUNCHES["bf16"] == fwd_before["bf16"] + 1, "the served request missed the kernel")
+    with plain_coattention():
+        serve_dev = float((probs - infer.forward(req)["probs"]).abs().max())
+    log(f"feat-proj model served {BAGS_PER_REQUEST} bf16 bags: max |p_kernel - p_plain| "
+        f"{serve_dev:.2e} (tol 1e-3)")
+    check(tuple(probs.shape) == (BAGS_PER_REQUEST, 12)
+          and float((probs.sum(-1) - 1).abs().max()) <= 1e-5, "feat-proj probabilities")
+    check(serve_dev <= 1e-3, f"feat-proj kernel and plain probabilities differ by {serve_dev:.3e}")
+
+    # ---- one profiled bf16 step ----
+    batcher.feats_dtype, batcher.precompute_inv = "bfloat16", False
+    batch = on_card(next(batches), False)
+    prof = dict(profile_step(torch, engine, batch, family="coattn", groups=FEAT_PROJ_GROUPS),
+                bucket=int(batch["mask"].shape[1]), patches=int(batch["mask"].sum()))
+    if prof["device_ms"] is None:
+        log("feat-proj profiled step: the profiler shows no device time")
+    else:
+        log(f"feat-proj profiled bf16 step (bucket {prof['bucket']}, {prof['patches']} patches): "
+            f"wall {prof['wall_ms']:.1f} ms, kernels on the card {prof['device_ms']:.2f} ms: "
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in prof["groups"].items())
+            + f" ms; co-attention kernels {prof['kernels']}; top {prof['top']}")
+    bf16 = [r for r in steps if r["mode"] == "bf16"]
+    return {"build_s": build_s, "steps": steps, "launches": launches, "grad_check": grad_check,
+            "serve_max_prob_dev": serve_dev, "profiled_step": prof,
+            "median_bf16_prep_ms": float(np.median([r["prep_ms"] for r in bf16])),
+            "median_bf16_step_ms": float(np.median([r["step_ms"] for r in bf16]))}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1434,6 +1731,63 @@ def phase_flash_times(torch, fa):
     return times
 
 
+# ---------------------------------------------------------------- phase 4d
+
+def bound_dx(B, N, C, P, storage):
+    """Least time for the full backward's work on an H100, as `bound`
+    reckons it.  Bytes: x read and dX written once in the storage type, the
+    mask, and q, g, out, the stats (m, l) and dq in f32 (the partial-dq
+    workspace is the kernel's design, not the function's work).
+    Operations: the q and g dots, the dxhat and a^T g products and the dq
+    product, 2*P*C each per element, plus the row norm, the projection and
+    the combine, 6 per element."""
+    item = {"f32": 4, "bf16": 2}[storage]
+    nbytes = 2 * B * N * C * item + B * N + 4 * (2 * P * C + 2 * B * P * C + 2 * B * P)
+    ops = B * N * C * (10 * P + 6)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_dx(torch, co, storage, B, N, C, P):
+    import torch.nn.functional as F
+    q, x, mask, _xs, _xi = make_inputs(torch, B, N, C, P, storage, seed=1, keep_masked=True)
+    g = make_cotangent(torch, B, P, C)
+    err, dx = hold_dx(torch, co, storage, q, x, mask, g, f"at B={B} N={N}")
+    del dx
+    out, m, l = co.coattn_fwd(q, x, mask, SCALE)
+    k_ms = median_ms(torch, lambda: co.coattn_bwd_dx(q, x, mask, SCALE, g, out, m, l))
+    p_ms = median_ms(torch, lambda: co.coattn_bwd_dx_reference(q, x, mask, SCALE, g, out, m, l))
+    # yardstick: the gradient with respect to q, k and v of one fused
+    # attention call (its forward included) on pre-normalised keys, as in
+    # `time_dq_variant`
+    xf = x.float()
+    lib_dtype = torch.float32 if storage == "f32" else torch.bfloat16
+    kn = F.normalize(xf, dim=-1).to(lib_dtype)[:, None].requires_grad_(True)
+    vv = xf.to(lib_dtype)[:, None].requires_grad_(True)
+    del xf
+    qq = q.to(lib_dtype)[None, None].expand(B, 1, P, C).contiguous().requires_grad_(True)
+    gg = g.to(lib_dtype)[:, None]
+    am = mask[:, None, None, :]
+    lib_ms = median_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qq, kn, vv, attn_mask=am, scale=SCALE), (qq, kn, vv), gg))
+    b_ms, b_by = bound_dx(B, N, C, P, storage)
+    return {"B": B, "N": N, "C": C, "P": P, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "err": err}
+
+
+def phase_dx_times(torch, co):
+    times = {"b8": {}, "train": {}}
+    for key, storage, shape in (("b8", "f32", SHAPE), ("b8", "bf16", SHAPE),
+                                ("train", "bf16", TRAIN_SHAPE)):
+        times[key][storage] = t = time_dx(torch, co, storage, **shape)
+        torch.cuda.empty_cache()
+        log(f"time coattn_bwd_dx[{storage}] B={t['B']:<3d} N={t['N']:<6d} kernel {t['ms']:.4f} ms"
+            f"  plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms"
+            f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+            f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x")
+    return times
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1468,21 +1822,24 @@ def main(argv=None) -> int:
         errs_dq = phase_backward_kernel(torch, co)
         errs_abmil = phase_abmil_kernels(torch, ab)
         errs_flash = phase_flash_kernel(torch, fa)
+        errs_dx = phase_dx_kernel(torch, co)
         serving = phase_serving(torch, co, device)
         training = phase_training(torch, co, device)
         sa_serving = phase_sa_serving(torch, ab, co, device)
         sa_training = phase_sa_training(torch, ab, co, device)
         extraction = phase_extraction(torch, fa, ab, co, device)
+        feat_proj = phase_feat_proj_training(torch, co, device)
         times = phase_times(torch, co)
         abmil_times = phase_abmil_times(torch, ab)
         flash_times = phase_flash_times(torch, fa)
+        dx_times = phase_dx_times(torch, co)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
 
     kernels = []
     fwd_launches = {v: serving["launches"][v] + training["launches"]["fwd"][v]
-                    for v in VARIANTS}
+                    + feat_proj["launches"]["fwd"][v] for v in VARIANTS}
     for name, source, replaces, err, t_by_variant, launches in (
             ("coattn_fwd", SOURCE, REPLACES, errs, times["fwd_b8"], fwd_launches),
             ("coattn_bwd_dq", SOURCE_DQ, REPLACES_DQ, errs_dq, times["dq_b8"],
@@ -1495,6 +1852,13 @@ def main(argv=None) -> int:
                 "max_abs_err": err[v]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]})
+    for s in DX_STORAGES:
+        t = dx_times["b8"][s]
+        kernels.append({
+            "name": f"coattn_bwd_dx[{s}]", "route": "cuda", "source": SOURCE_DX,
+            "replaces": REPLACES_DX, "launches": feat_proj["launches"]["dx"][s],
+            "max_abs_err": errs_dx[s]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     abmil_launches = {"abmil_fwd": {s: sa_serving["launches"][s] + sa_training["launches"]["fwd"][s]
                                     for s in ABMIL_STORAGES},
                       "abmil_bwd": sa_training["launches"]["bwd"],
@@ -1531,7 +1895,8 @@ def main(argv=None) -> int:
               "times": times, "abmil_shape": ABMIL_SHAPE, "abmil_train_shape": ABMIL_TRAIN_SHAPE,
               "abmil_errors": errs_abmil, "sa_serving": sa_serving, "sa_training": sa_training,
               "abmil_times": abmil_times, "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
-              "extraction": extraction, "flash_times": flash_times, "kernels": kernels,
+              "extraction": extraction, "flash_times": flash_times, "dx_errors": errs_dx,
+              "feat_proj_training": feat_proj, "dx_times": dx_times, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,6 +1,6 @@
-"""The Hopper kernels -- co-attention forward and dQ backward, ABMIL
-forward and backward, flash self-attention -- against their plain versions,
-on the card.
+"""The Hopper kernels -- co-attention forward, dQ and full (dX) backward,
+ABMIL forward and backward, flash self-attention -- against their plain
+versions, on the card.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip without
 one.  They import nothing of JAX, so on the machine with the card they run
@@ -174,8 +174,58 @@ def test_abmil_pool_routes_through_the_kernels(device):
         assert _rel(got, want) <= 1e-3
 
 
+# the full backward (row 5): chip_smoke.py phase 2e's tolerances, max|a-b| /
+# max|b| for dq and f32 dX; bf16 dX within one bf16 ulp at the scale of its
+# largest element (both sides round a, g and dl to bf16 at the same places)
+TOL_DX_DQ = {torch.float32: 1e-3, torch.bfloat16: 2e-3}
+
+
+def _bf16_ulp_of_max(t) -> float:
+    return float(2.0 ** (torch.floor(torch.log2(t.float().abs().max())) - 7))
+
+
+def _dx_inputs(B, N, C, P, dtype, device, seed=0):
+    """Queries, features, mask and cotangent; 20% of patches and the last
+    bag masked, the masked rows holding features (as a projecter's output
+    does)."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn(P, C, generator=g), dim=-1)
+    x = torch.randn(B, N, C, generator=g).to(dtype)
+    mask = torch.rand(B, N, generator=g) > 0.2
+    mask[-1] = False
+    gout = torch.randn(B, P, C, generator=g)
+    return [t.to(device).contiguous() for t in (q, x, mask, gout)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 1000, 512, 12), (2, 33, 64, 16), (1, 5, 8, 1),
+                                   (4, 777, 256, 16), (2, 64, 512, 1)])
+def test_dx_kernel_matches_plain(device, dtype, shape):
+    """Ragged N (no multiple of the 32-patch tile), an empty bag, P = 1, 12
+    and 16; every row of dX is written, zeros where masked."""
+    q, x, mask, gout = _dx_inputs(*shape, dtype, device)
+    out, m, l = co.coattn_fwd(q, x, mask, 30.0)
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    before = co.LAUNCHES_DX[name]
+    dq, dx = co.coattn_bwd_dx(q, x, mask, 30.0, gout, out, m, l)
+    torch.cuda.synchronize()
+    assert co.LAUNCHES_DX[name] == before + 1
+    rdq, rdx = co.coattn_bwd_dx_reference(q, x, mask, 30.0, gout, out, m, l)
+    assert dq.dtype == torch.float32 and torch.isfinite(dq).all()
+    assert _rel(dq, rdq) <= TOL_DX_DQ[dtype]
+    assert dx.dtype == dtype and dx.shape == x.shape and torch.isfinite(dx).all()
+    if dtype == torch.float32:
+        assert _rel(dx, rdx) <= 1e-3
+    else:
+        assert float((dx.float() - rdx.float()).abs().max()) <= _bf16_ulp_of_max(rdx)
+    assert torch.all(dx[~mask] == 0) and torch.all(dx[-1] == 0)
+
+
 def test_gradient_request_raises(device):
-    """q's gradient goes through the dQ kernel; a gradient for x raises."""
+    """q's gradient goes through the dQ kernel; a gradient for x through the
+    dX kernel, with q's or without, and never the dQ-only kernel; the
+    gradients match autograd through the plain version.  Quantized features
+    whose scales need a gradient raise."""
     q, x, mask, _s, _i = _inputs(2, 64, 64, 4, torch.float32, False, device)
     q.requires_grad_(True)
     fwd, bwd = co.LAUNCHES["f32"], co.LAUNCHES_BWD["f32"]
@@ -184,10 +234,47 @@ def test_gradient_request_raises(device):
     q_plain = q.detach().clone().requires_grad_(True)
     co.coattn_pool_reference(q_plain, x, mask, 30.0).square().sum().backward()
     assert float((q.grad - q_plain.grad).abs().max() / q_plain.grad.abs().max()) <= 1e-3
-    with pytest.raises(NotImplementedError, match="_coattn_bwd_kernel"):
-        co.coattn_pool(q, x.clone().requires_grad_(True), mask, 30.0)
+    for q_grad in (True, False):
+        grads = []
+        for pool, launched in ((co.coattn_pool, 1), (co.coattn_pool_reference, 0)):
+            qq = q.detach().clone().requires_grad_(q_grad)
+            xx = x.clone().requires_grad_(True)
+            fwd, bwd, dx = co.LAUNCHES["f32"], dict(co.LAUNCHES_BWD), co.LAUNCHES_DX["f32"]
+            pool(qq, xx, mask, 30.0).square().sum().backward()
+            grads.append((qq.grad, xx.grad))
+            assert co.LAUNCHES["f32"] == fwd + launched and co.LAUNCHES_BWD == bwd
+            assert co.LAUNCHES_DX["f32"] == dx + launched
+        (kq, kx), (pq, px) = grads
+        assert _rel(kx, px) <= 1e-3
+        assert (kq is None and pq is None) if not q_grad else _rel(kq, pq) <= 1e-3
+    _q, xi, _m, xs, _i = _inputs(2, 64, 64, 4, torch.int8, False, device)
+    with pytest.raises(ValueError, match="constants"):
+        co.coattn_pool(q, xi, mask, 30.0, x_scale=xs.clone().requires_grad_(True))
     with torch.inference_mode():
         assert co.coattn_pool(q, x, mask, 30.0).shape == (2, 4, 64)
+
+
+def test_vlfan_feat_proj_routes_through_the_dx_kernel(device):
+    """A VLFAN with a feature projecter on the card: one forward and one dX
+    launch a step, no dQ-only launch; its gradients match the same module
+    on the CPU (plain autograd) within 1e-3 for f32 features."""
+    from vlsa_tpu_torch.models.mil import VLFAN
+    cpu = VLFAN(dim_in=64, use_feat_proj=True, query="Parameter", num_query=4,
+                generator=torch.Generator().manual_seed(0))
+    card = VLFAN(dim_in=64, use_feat_proj=True, query="Parameter", num_query=4,
+                 generator=torch.Generator().manual_seed(0)).to(device)
+    x = torch.randn(3, 100, 64, generator=torch.Generator().manual_seed(1))
+    mask = torch.rand(3, 100, generator=torch.Generator().manual_seed(2)) > 0.2
+    mask[-1] = False
+    cpu(x, mask).square().sum().backward()
+    before = (dict(co.LAUNCHES), dict(co.LAUNCHES_BWD), dict(co.LAUNCHES_DX))
+    card(x.to(device), mask.to(device)).square().sum().backward()
+    assert co.LAUNCHES["f32"] == before[0]["f32"] + 1 and co.LAUNCHES_BWD == before[1]
+    assert co.LAUNCHES_DX["f32"] == before[2]["f32"] + 1
+    for (n, pc), (_n, pk) in zip(cpu.named_parameters(), card.named_parameters()):
+        assert _rel(pk.grad.cpu(), pc.grad) <= 1e-3, n
+    card(x.to(device).to(torch.bfloat16), mask.to(device)).square().sum().backward()
+    assert co.LAUNCHES_DX["bf16"] == before[2]["bf16"] + 1
 
 
 # flash self-attention (row 11): max|a-b| / max|b| against the plain version,

@@ -1,5 +1,7 @@
 """The training slice as a whole: the small flagship VLSA trained for 5
-steps in both packages on the same batches.
+steps in both packages on the same batches, without and with VLFAN's
+feature projecter (`use_feat_proj`: the patch features then need a
+gradient, which on the card is the co-attention's dX kernel).
 
 vlsa_tpu builds the model and initialises its parameters; the bridge
 (vlsa_tpu_torch.utils.weights) carries them into the port.  Both take 5 Adam
@@ -10,13 +12,15 @@ and the port its plain version under autograd; the text tower runs in f32.
 
 Tolerances: per-step loss 1e-4 relative; final learnable parameters
 |a-b| <= 1e-5 + 1e-4 |b| (f32 on both sides; the differences are summation
-order, carried through 5 Adam steps).  One leaf has an exception, named in
+order, carried through 5 Adam steps).  Two leaves have an exception, named in
 NEAR_ZERO_GRADIENT: Adam's first step moves each element by lr * g/|g|, so
 an element whose true first gradient is ~0 steps by +-lr with the sign of
 float noise, on each side independently (as tests/test_train_trajectory.py
 :168-172 finds for a softmax gauge direction).  Those elements -- a first
-gradient below 1e-4 of the leaf's largest; 4 of them deviate here -- may differ
-by up to 2 lr; every other element keeps the tolerance above.
+gradient below 1e-4 of the leaf's largest; 4 of them deviate here without the
+projecter, one in each leaf with it -- may differ by up to 2 lr; every other
+element keeps the tolerance above.  Each check runs without and with the
+projecter (`_five_steps`, `_accumulation`), the first under its original name.
 """
 import io
 import json
@@ -55,6 +59,10 @@ NEAR_ZERO_GRADIENT = {
         "the adapter's output is l2-normalised before the logits, so each row's "
         "gradient is orthogonal to the image feature and single elements can "
         "cancel to ~1e-7 of the leaf's scale at the first step",
+    "mil_encoder.feat_proj.linear.weight":
+        "each element's gradient is a sum over the batch's patches of products of "
+        "zero-mean factors (a N(0, 1) feature and the LayerNorm's input cotangent), "
+        "so single elements cancel to ~1e-5 of the leaf's scale at the first step",
 }
 
 
@@ -78,10 +86,15 @@ def _batches(n=STEPS, B=4, N=256, D=512, seed=0):
     return out
 
 
-def _jax_train():
+def _cfgs(asset_root: str, use_feat_proj: bool):
+    text, image, prompt = flagship_cfgs(asset_root)
+    return text, dict(image, use_feat_proj=use_feat_proj), prompt
+
+
+def _jax_train(use_feat_proj: bool):
     """(initial state dict, per-step losses, final state dict) of vlsa_tpu's
     TrainEngine, bridged into the port's names."""
-    text, image, prompt = flagship_cfgs(os.path.join(REPO, "vlsa_tpu", "assets"))
+    text, image, prompt = _cfgs(os.path.join(REPO, "vlsa_tpu", "assets"), use_feat_proj)
     jmodel, params, _tok = jax_build_vlsa(
         vlsa_api="CONCH", text_encoder_cfg=text, image_encoder_cfg=image,
         prompt_learner_cfg=prompt, rng=jax.random.PRNGKey(0), tower_overrides=TOWER)
@@ -103,11 +116,16 @@ def _jax_train():
 
 @pytest.fixture(scope="module")
 def jax_run():
-    return _jax_train()
+    return False, *_jax_train(False)
 
 
-def _port(init, accum_steps=1):
-    text, image, prompt = flagship_cfgs("vlsa_tpu/assets")
+@pytest.fixture(scope="module")
+def jax_run_feat_proj():
+    return True, *_jax_train(True)
+
+
+def _port(init, use_feat_proj, accum_steps=1):
+    text, image, prompt = _cfgs("vlsa_tpu/assets", use_feat_proj)
     model, _tok = build_vlsa(text, image, prompt, tower_overrides=TOWER, device="cpu",
                              state_dict=init)
     model.train()
@@ -122,16 +140,18 @@ def _tensors(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-def test_five_steps_match_jax_train_engine(jax_run):
-    init, jax_losses, jax_final = jax_run
-    model, engine = _port(init)
+def _five_steps(jax_run):
+    use_feat_proj, init, jax_losses, jax_final = jax_run
+    model, engine = _port(init, use_feat_proj)
+    assert any(n.startswith("mil_encoder.feat_proj.") for n in init) == use_feat_proj
     coattn.reset_launches()
     losses, first_grad = [], {}
     for b in _batches():
         losses.append(float(engine.train_step(_tensors(b))[0]))
         first_grad = first_grad or {n: p.grad.abs().numpy() for n, p in
                                     model.named_parameters() if p.grad is not None}
-    assert sum(coattn.LAUNCHES.values()) + sum(coattn.LAUNCHES_BWD.values()) == 0
+    assert sum(coattn.LAUNCHES.values()) + sum(coattn.LAUNCHES_BWD.values()) \
+        + sum(coattn.LAUNCHES_DX.values()) == 0
     np.testing.assert_allclose(losses, jax_losses, rtol=1e-4)
     final = model.state_dict()
     assert set(final) == set(jax_final)
@@ -147,21 +167,32 @@ def test_five_steps_match_jax_train_engine(jax_run):
             assert near_zero.mean() < 1e-2, name  # the exception stays narrow
             ok |= near_zero & (np.abs(got - want) <= 2 * LR)
         assert np.all(ok), f"{name}: max |a-b| {np.abs(got - want)[~ok].max():.3e}"
-    for name in ("prompt_learner.context_embeds", "prompt_learner.rank_embeds",
+    learnable = ["prompt_learner.context_embeds", "prompt_learner.rank_embeds",
                  "query_adapter.residual_features", "mil_encoder.visual_adapter.weight",
-                 "logit_scale"):
+                 "logit_scale"]
+    if use_feat_proj:
+        learnable += [n for n in init if n.startswith("mil_encoder.feat_proj.")]
+    for name in learnable:
         assert not np.array_equal(final[name].numpy(), init[name].numpy()), name
 
 
-def test_accumulation_matches_one_pass(jax_run):
+def test_five_steps_match_jax_train_engine(jax_run):
+    _five_steps(jax_run)
+
+
+def test_five_steps_with_feat_proj_match_jax_train_engine(jax_run_feat_proj):
+    _five_steps(jax_run_feat_proj)
+
+
+def _accumulation(jax_run):
     """accum_steps=2 gives the whole batch's loss, logits and gradients on a
     ragged tail batch (valid counts 2 and 1), to 1e-5 of each leaf's largest
     gradient (f32 sums in another order; measured at most 3.2e-6)."""
-    init, _l, _f = jax_run
+    use_feat_proj, init, _l, _f = jax_run
     batch = _tensors(_batches()[-1])
     runs = []
     for accum in (1, 2):
-        model, engine = _port(init, accum_steps=accum)
+        model, engine = _port(init, use_feat_proj, accum_steps=accum)
         loss, raw = engine.train_step(batch)
         grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
         runs.append((float(loss), raw, grads))
@@ -173,13 +204,23 @@ def test_accumulation_matches_one_pass(jax_run):
         assert float((g2[n] - g1[n]).abs().max() / g1[n].abs().max()) <= 1e-5, n
 
 
-def test_cli_trains_on_the_cpu(tmp_path):
+def test_accumulation_matches_one_pass(jax_run):
+    _accumulation(jax_run)
+
+
+def test_accumulation_with_feat_proj_matches_one_pass(jax_run_feat_proj):
+    _accumulation(jax_run_feat_proj)
+
+
+def _cli_summary(tmp_path, **overrides):
+    """The train CLI's summary of 2 CPU steps on a small copy of the flagship
+    YAML, after checking its per-step lines."""
     with open(os.path.join(REPO, "configs", "IFMLE", "tcga_blca", "cfg_vlsa_conch.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg.update(path_patch="synthetic://N=48,D=512,seed=7", bp_every_batch=4,
                _test_tower_overrides={"width": 32, "heads": 4, "layers": 2},
                path_table=os.path.join(REPO, cfg["path_table"]),
-               data_split_path=os.path.join(REPO, cfg["data_split_path"]))
+               data_split_path=os.path.join(REPO, cfg["data_split_path"]), **overrides)
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(cfg))
     buf = io.StringIO()
@@ -191,4 +232,19 @@ def test_cli_trains_on_the_cpu(tmp_path):
                for r in lines[:2])
     assert summary["num_bins"] == 12 and summary["train_bags"] == 298
     assert summary["feats_dtype"] == "bfloat16"
+    return summary
+
+
+def test_cli_trains_on_the_cpu(tmp_path):
+    summary = _cli_summary(tmp_path)
     assert sum(summary["coattn_launches"].values()) == 0  # the CPU path launches nothing
+
+
+def test_cli_trains_with_feat_proj_on_the_cpu(tmp_path):
+    """`vlsa_img_encoder_use_feat_proj: True`: the projecter's bf16 output
+    needs a gradient; on the CPU no kernel of either backward launches."""
+    summary = _cli_summary(tmp_path, vlsa_img_encoder_use_feat_proj=True)
+    assert summary["steps"] == 2
+    assert set(summary["coattn_bwd_dx_launches"]) == {"f32", "bf16"}
+    for key in ("coattn_launches", "coattn_bwd_launches", "coattn_bwd_dx_launches"):
+        assert sum(summary[key].values()) == 0, key

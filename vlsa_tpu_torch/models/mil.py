@@ -6,6 +6,8 @@ queries cross-attend the patch bag,
     A = softmax_N(coattn_scale * norm(Q) @ norm(X)^T);  out = A @ X,
 then query pooling and a linear visual adapter.  The attention and PV sum
 run through `ops.coattn.coattn_pool`: the Hopper kernels for CUDA tensors.
+With the feature projecter (`use_feat_proj`) the pooled features need a
+gradient, so the pooling's backward there is the dX kernel.
 
 DeepMIL, the vision-only bag classifier of the SA baseline: attention
 (ABMIL, through `ops.abmil.abmil_pool` and its Hopper kernels), mean or max

@@ -8,16 +8,16 @@ Counterpart of vlsa_tpu/ops/coattn.py: the pooling of the VLSA model (the
 SA baseline pools through ops/abmil.py).  `coattn_pool` is the entry point:
 a CPU tensor goes through the plain PyTorch version under ordinary autograd,
 a CUDA tensor through the hand-written Hopper kernels: `csrc/coattn_fwd.cu`
-forward and, when the queries need a gradient, `csrc/coattn_bwd_dq.cu` for
-their backward (`CoattnPoolDQ`).  The patch features are constants there, as
-in every shipped VLSA config; a CUDA call whose x needs a gradient (VLFAN
-with a feature projecter) raises until the dX backward (kernel table row 5)
-is ported.
+forward and, for the backward, `csrc/coattn_bwd_dq.cu` when only the queries
+need a gradient (`CoattnPoolDQ`: the patch features are constants, as in
+every shipped VLSA config) or `csrc/coattn_bwd_dx.cu` when the patch
+features need one too (`CoattnPoolFull`: VLFAN with a feature projecter).
 
 Storage types of x: f32, bf16, or int8 with per-patch dequant scales
 `x_scale` [B, N]; `x_inv` [B, N] optionally carries host-computed
-1/||x_stored|| rows.  The plain version computes in f32 on the stored values,
-as the kernel does.
+1/||x_stored|| rows.  Features that need a gradient are f32 or bf16 with no
+sidecars.  The plain version computes in f32 on the stored values, as the
+kernel does.
 """
 from __future__ import annotations
 
@@ -35,13 +35,15 @@ _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8
 
 # Launches of the CUDA kernels by variant ("f32", "f32_inv", "bf16",
 # "bf16_inv", "int8", "int8_inv"): one per call of `coattn_fwd` in LAUNCHES,
-# one per call of `coattn_bwd_dq` in LAUNCHES_BWD.
+# one per call of `coattn_bwd_dq` in LAUNCHES_BWD; one per call of
+# `coattn_bwd_dx` in LAUNCHES_DX, by storage ("f32", "bf16").
 LAUNCHES = {f"{s}{i}": 0 for s in ("f32", "bf16", "int8") for i in ("", "_inv")}
 LAUNCHES_BWD = dict(LAUNCHES)
+LAUNCHES_DX = {"f32": 0, "bf16": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BWD):
+    for counts in (LAUNCHES, LAUNCHES_BWD, LAUNCHES_DX):
         for k in counts:
             counts[k] = 0
 
@@ -111,13 +113,11 @@ def coattn_fwd_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, s
     return torch.einsum("bpn,bnc->bpc", w, xf) / l[..., None], m, l
 
 
-def coattn_bwd_dq_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
-                            scale, g: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
-                            l: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
-                            x_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of `coattn_bwd_dq` (vlsa_tpu/ops/coattn.py::
-    _coattn_bwd_dq_body in f32): the queries' gradient dq [P, C] f32 from the
-    output's cotangent g [B, P, C], the forward output and its stats."""
+def _weights_and_cotangent(q, x, mask, scale, g, out, m, l, x_scale=None, x_inv=None):
+    """(xf, inv, a, dl_inv) as the backward kernels form them from the
+    output's cotangent g and the forward's (out, m, l): the attention
+    weights a and the logit cotangent with the norm folded in,
+    dl_inv[p, n] = a * (g[p] . x[n] - g[p] . out[p]) * inv[n]."""
     xf, inv, logits = _stored_logits(q, x, mask, scale, x_inv)
     valid = mask[:, None, :]
     # a is masked to 0 first: an empty bag has m = -1e30, l = 1e-30, where
@@ -127,8 +127,40 @@ def coattn_bwd_dq_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor
     if x_scale is not None:
         dA = dA * x_scale[:, None, :]
     s_row = (g * out).sum(-1, keepdim=True)
-    dl_inv = a * (dA - s_row) * inv[:, None, :]
+    return xf, inv, a, a * (dA - s_row) * inv[:, None, :]
+
+
+def coattn_bwd_dq_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                            scale, g: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
+                            l: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
+                            x_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of `coattn_bwd_dq` (vlsa_tpu/ops/coattn.py::
+    _coattn_bwd_dq_body in f32): the queries' gradient dq [P, C] f32 from the
+    output's cotangent g [B, P, C], the forward output and its stats."""
+    xf, _inv, _a, dl_inv = _weights_and_cotangent(q, x, mask, scale, g, out, m, l,
+                                                  x_scale, x_inv)
     return scale * torch.einsum("bpn,bnc->pc", dl_inv, xf)
+
+
+def coattn_bwd_dx_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                            scale, g: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
+                            l: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `coattn_bwd_dx` (vlsa_tpu/ops/coattn.py::
+    _coattn_bwd_kernel): (dq [P, C] f32, dX [B, N, C] in x's type) from the
+    output's cotangent g [B, P, C] and the forward's (out, m, l), for f32 or
+    bf16 x.  For bf16 it rounds where the TPU kernel does: the logit
+    cotangent dl and the weights a go into the dX products as bf16 (q
+    stays f32, its :386-387), and so does g (:392); dX is rounded once at
+    the end (:395); dq and everything else is f32."""
+    xf, inv, a, dl_inv = _weights_and_cotangent(q, x, mask, scale, g, out, m, l)
+    dq = scale * torch.einsum("bpn,bnc->pc", dl_inv, xf)
+
+    def stored(t):  # t as the dX products take it: rounded to x's type
+        return t.to(x.dtype).to(torch.float32)
+    dxn_hat = scale * torch.einsum("bpn,pc->bnc", stored(dl_inv), q.to(torch.float32))
+    proj = (xf * dxn_hat).sum(-1, keepdim=True) * (inv * inv)[..., None]
+    dx = torch.einsum("bpn,bpc->bnc", stored(a), stored(g)) + (dxn_hat - xf * proj)
+    return dq, dx.to(x.dtype)
 
 
 def split_plan(B: int, N: int, n_sm: int) -> Tuple[int, int]:
@@ -143,12 +175,13 @@ def split_plan(B: int, N: int, n_sm: int) -> Tuple[int, int]:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the argument types of each library's entry point `<name>` (csrc/<name>.cu):
-# pointers to q, x, x_scale, x_inv and mask, the scale, [coattn_bwd_dq: g,
-# out, m, l], B, N, C, P, chunk, S, storage and device, then the workspace,
-# output and stream pointers
+# pointers to q, x, [x_scale, x_inv: not coattn_bwd_dx] and mask, the scale,
+# [the backward kernels: g, out, m, l], B, N, C, P, chunk, S, storage and
+# device, then the workspace, output and stream pointers
 _ARGTYPES = {
     "coattn_fwd": [_P] * 5 + [_F] + [_I] * 8 + [_P] * 7,
     "coattn_bwd_dq": [_P] * 5 + [_F] + [_P] * 4 + [_I] * 8 + [_P] * 3,
+    "coattn_bwd_dx": [_P] * 3 + [_F] + [_P] * 4 + [_I] * 8 + [_P] * 4,
 }
 
 
@@ -199,6 +232,16 @@ def _check_inputs(q, x, mask, x_scale, x_inv, kernel: str) -> Tuple[int, int, in
     _check_row("x_scale", x_scale, B, N, device)
     _check_row("x_inv", x_inv, B, N, device)
     return B, N, C, q.shape[0]
+
+
+def _check_forward_outputs(g, out, m, l, B, P, C, device) -> None:
+    """The backward kernels' checks of the cotangent and the forward's outputs."""
+    for name, t, shape in (("g", g, (B, P, C)), ("out", out, (B, P, C)),
+                           ("m", m, (B, P)), ("l", l, (B, P))):
+        if t.device != device or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 {list(shape)} tensor on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _plan(lib, name: str, device, B, N, C, P, storage) -> Tuple[int, int]:
@@ -259,12 +302,7 @@ def coattn_bwd_dq(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
     (out, m, l) as `coattn_fwd` returns them."""
     B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_bwd_dq")
     device = x.device
-    for name, t, shape in (("g", g, (B, P, C)), ("out", out, (B, P, C)),
-                           ("m", m, (B, P)), ("l", l, (B, P))):
-        if t.device != device or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous f32 {list(shape)} tensor on "
-                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_forward_outputs(g, out, m, l, B, P, C, device)
     lib = _library("coattn_bwd_dq")
     storage = _STORAGE[x.dtype]
     chunk, S = _plan(lib, "coattn_bwd_dq", device, B, N, C, P, storage)
@@ -280,6 +318,37 @@ def coattn_bwd_dq(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
         raise RuntimeError(f"coattn_bwd_dq kernel launch failed: cudaError {err}")
     LAUNCHES_BWD[variant_name(x.dtype, x_inv is not None)] += 1
     return dq
+
+
+def coattn_bwd_dx(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: float,
+                  g: torch.Tensor, out: torch.Tensor, m: torch.Tensor, l: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper full-backward kernel on CUDA tensors: (dq [P, C]
+    f32, dX [B, N, C] in x's type) from the output's cotangent g [B, P, C]
+    and the forward's (out, m, l) as `coattn_fwd` returns them.  x is f32 or
+    bf16 (int8 features are constants) and its norms are computed in the
+    kernel: there are no sidecars."""
+    B, N, C, P = _check_inputs(q, x, mask, None, None, "coattn_bwd_dx")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"coattn_bwd_dx takes f32 or bf16 x (int8 features are "
+                         f"constants), got {x.dtype}")
+    device = x.device
+    _check_forward_outputs(g, out, m, l, B, P, C, device)
+    lib = _library("coattn_bwd_dx")
+    storage = _STORAGE[x.dtype]
+    chunk, S = _plan(lib, "coattn_bwd_dx", device, B, N, C, P, storage)
+
+    dq = torch.empty(P, C, dtype=torch.float32, device=device)
+    dx = torch.empty_like(x)
+    ws_dq = torch.empty(B, S, P, C, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.coattn_bwd_dx(_ptr(q), _ptr(x), _ptr(mask), float(scale), _ptr(g), _ptr(out),
+                            _ptr(m), _ptr(l), B, N, C, P, chunk, S, storage,
+                            _device_index(device), _ptr(ws_dq), _ptr(dq), _ptr(dx), stream)
+    if err != 0:
+        raise RuntimeError(f"coattn_bwd_dx kernel launch failed: cudaError {err}")
+    LAUNCHES_DX[_STORAGE_NAME[x.dtype]] += 1
+    return dq, dx
 
 
 class CoattnPoolDQ(torch.autograd.Function):
@@ -303,6 +372,27 @@ class CoattnPoolDQ(torch.autograd.Function):
         return dq, None, None, None, None, None
 
 
+class CoattnPoolFull(torch.autograd.Function):
+    """Co-attention pooling on CUDA whose patch features need a gradient:
+    the forward kernel, and the full-backward kernel for dX and dq (the
+    counterpart of vlsa_tpu's `_coattn_pool_tpu` and its VJP
+    `_coattn_bwd_rule`).  dq is returned only where q needs it; the mask and
+    the scale (a frozen buffer) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, x, mask, scale):
+        out, m, l = coattn_fwd(q, x, mask, scale)
+        ctx.save_for_backward(q, x, mask, out, m, l)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, x, mask, out, m, l = ctx.saved_tensors
+        dq, dx = coattn_bwd_dx(q, x, mask, ctx.scale, g.contiguous(), out, m, l)
+        return (dq if ctx.needs_input_grad[0] else None), dx, None, None
+
+
 def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
                 scale, x_scale: Optional[torch.Tensor] = None,
                 x_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -311,10 +401,18 @@ def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
 
     CPU tensors take the plain version under ordinary autograd (it ignores
     `x_inv`: it normalises the rows itself).  CUDA tensors launch the
-    forward kernel, through `CoattnPoolDQ` when q needs a gradient; a CUDA
-    call whose x (or x_scale) needs one raises."""
+    forward kernel; for a gradient, `CoattnPoolFull` (the dX kernel) when x
+    needs one, whether q does or not (`x_inv` is ignored there, as the JAX
+    package ignores it), else `CoattnPoolDQ` (the dQ kernel) when q does.
+    Features with a gradient must be f32 or bf16 with no `x_scale`: int8
+    features are constants (ValueError, as vlsa_tpu's assert)."""
     if x.dtype == torch.int8 and x_scale is None:
         raise ValueError("int8 features need x_scale [B, N]")
+    needs_dx = torch.is_grad_enabled() and (
+        x.requires_grad or (x_scale is not None and x_scale.requires_grad))
+    if needs_dx and x_scale is not None:
+        raise ValueError("quantized (int8 + x_scale) features are constants: they "
+                         "cannot back-propagate into a feature projecter")
     if mask is None:
         mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
     if x.device.type == "cpu":
@@ -322,14 +420,10 @@ def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(f"coattn_pool runs on cpu or cuda, not {x.device}")
     mask = mask.contiguous()
-    if torch.is_grad_enabled():
-        if x.requires_grad or (x_scale is not None and x_scale.requires_grad):
-            raise NotImplementedError(
-                "coattn_pool on CUDA takes the patch features as constants: a "
-                "gradient for x needs the port of the full backward with dX "
-                "(kernel table row 5, vlsa_tpu/ops/coattn.py::_coattn_bwd_kernel)")
-        if q.requires_grad:
-            return CoattnPoolDQ.apply(q.contiguous(), x, mask, float(scale), x_scale, x_inv)
+    if needs_dx:
+        return CoattnPoolFull.apply(q.contiguous(), x, mask, float(scale))
+    if torch.is_grad_enabled() and q.requires_grad:
+        return CoattnPoolDQ.apply(q.contiguous(), x, mask, float(scale), x_scale, x_inv)
     out, _m, _l = coattn_fwd(q.contiguous(), x, mask, float(scale),
                              x_scale=x_scale, x_inv=x_inv)
     return out

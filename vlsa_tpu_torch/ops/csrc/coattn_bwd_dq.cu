@@ -196,17 +196,6 @@ coattn_bwd_dq_partial(const float* __restrict__ q, const T* __restrict__ x,
     for (int i = tid; i < P * C; i += kThreads) dst[i] = acc_s[i];
 }
 
-// dq[i] = scale * sum_k ws_dq[k][i] over the K = B*S partials, k in order.
-__global__ void __launch_bounds__(kThreads)
-coattn_bwd_dq_reduce(const float* __restrict__ ws_dq, int K, int PC, float scale,
-                     float* __restrict__ dq) {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i >= PC) return;
-    float s = 0.f;
-    for (int k = 0; k < K; ++k) s += ws_dq[(size_t)k * PC + i];
-    dq[i] = scale * s;
-}
-
 template <typename T, bool HOST_INV, bool HAS_SCALE>
 cudaError_t launch_partial(const float* q, const void* x, const float* x_scale,
                            const float* x_inv, const uint8_t* mask, float scale,
@@ -295,10 +284,7 @@ int coattn_bwd_dq(const void* q, const void* x, const void* x_scale,
         return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
-    const int PC = P * C;
-    coattn_bwd_dq_reduce<<<(PC + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        ws, B * S, PC, scale, static_cast<float*>(dq));
-    return (int)cudaGetLastError();
+    return (int)launch_dq_reduce(ws, B * S, P * C, scale, static_cast<float*>(dq), st);
 }
 
 }  // extern "C"

@@ -168,6 +168,7 @@ def main(argv=None) -> dict:
                "median_step_ms": float(np.median([r["step_ms"] for r in records])),
                "coattn_launches": dict(coattn.LAUNCHES),
                "coattn_bwd_launches": dict(coattn.LAUNCHES_BWD),
+               "coattn_bwd_dx_launches": dict(coattn.LAUNCHES_DX),
                "abmil_launches": dict(abmil.LAUNCHES),
                "abmil_bwd_launches": dict(abmil.LAUNCHES_BWD)}
     print(json.dumps(summary), flush=True)
