@@ -25,7 +25,12 @@ non-zero and prints no result:
      and int8 2e-3; dX: f32 1e-3, bf16 1e-2, one bf16 ulp);
   2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
      the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
-     197 and 1 (f32 1e-4, bf16 2e-3, f32 output);
+     197, 1 and 1025 (CONCH at 512 px, beyond the resident capacity): bf16
+     on the path `flash_plan` gives (resident up to 800 keys, streamed
+     above), checked by the path counters, and the streamed path forced at
+     785 (f32 1e-4, bf16 2e-3, f32 output); the resident kernel's ptxas
+     lines (registers, static shared memory, spills) go to the record and
+     must show no spills;
   2e. full (dX) backward kernel: holds both variants of csrc/coattn_bwd_dx.cu
      against its plain version at the shape of phase 2 (the masked rows
      holding features), with (out, m, l) from the forward kernel: dq f32
@@ -64,7 +69,8 @@ non-zero and prints no result:
      64, bf16, device preprocessing, seeded weights) runs `extract_to_store`
      over two synthetic slides of 130 and 140 512x512 u8 tiles (ragged last
      batches) into .npy and then .q8npz stores, and a float32 extractor one
-     batch, counting the flash kernel's launches (12 a batch); the stores
+     batch, counting the flash kernel's launches (12 a batch, every bf16
+     one on the resident path); the stores
      read back through SurvBagDataset (.npy exact, .q8npz within one int8
      step of the quantized .npy features); the features agree with the same
      run through the plain attention (bf16 2e-2, f32 1e-4); device
@@ -98,9 +104,11 @@ non-zero and prints no result:
      x @ W1^T in the storage type (`gemm_ms`, a partial yardstick the port
      never calls: no single PyTorch call computes ABMIL pooling, so
      library_ms is null);
-  4c. flash times: each variant at B=64, H=12, L=785 beside its plain
-     version, one scaled_dot_product_attention call (library_ms, never
-     called by the port) and the bound (`bound_flash`);
+  4c. flash times: at B=64, H=12, L=785, bf16 resident and bf16 streamed
+     in turns (resident, streamed, streamed, resident) and f32, each beside
+     the plain version, one scaled_dot_product_attention call (library_ms,
+     never called by the port) and the bound (`bound_flash`, exponentials
+     counted);
   4d. dX times: both variants of the full backward at B=8, N=10240 and bf16
      at the training shape B=32, N=16384, beside the plain version, the
      gradient of one scaled_dot_product_attention call with respect to q, k
@@ -182,7 +190,7 @@ FEAT_PROJ_STEPS = (("bfloat16", False, 2), ("float32", False, 1), ("int8", False
 # flash self-attention (vlsa_tpu/models/vision_tower.py:312): the CONCH trunk's
 # attention at extraction, 448-px input, patch 16, so L = 1 + 28^2; hd = 64
 FLASH_SHAPE = dict(B=64, H=12, L=785)
-FLASH_LENGTHS = (785, 197, 1)
+FLASH_LENGTHS = (785, 197, 1, 1025)  # 1025: CONCH at 512 px, above the resident capacity
 FLASH_VARIANTS = ("bf16", "f32")
 TOL_FLASH = {"f32": 1e-4, "bf16": 2e-3}
 SOURCE_FLASH = "vlsa_tpu_torch/ops/csrc/flash_attn_fwd.cu"
@@ -205,6 +213,11 @@ FEAT_PROJ_GROUPS = {"coattn": r"coattn", "gemm": GEMM_KERNELS,
 # operand type (f32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# the SFU's exponentials: 16 a clock per SM on 132 SMs, at the clock the f32
+# peak implies (128 FMA lanes per SM: 67e12 / (132 * 256) = 1.98 GHz)
+SM_COUNT = 132
+SFU_PER_CLOCK_PER_SM = 16
+EXP_PER_S = SFU_PER_CLOCK_PER_SM * SM_COUNT * PEAK_OPS["f32"] / (SM_COUNT * 256)
 # the flagship served configuration: configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml
 # with its grid lists resolved and the flagship's 12 ranks and 12 queries
 FLAGSHIP_CFG = {
@@ -481,21 +494,49 @@ def make_qkv(torch, B, H, L, variant, seed=0, device="cuda"):
     return [torch.randn(B, H, L, 64, generator=g, device=device).to(dtype) for _ in range(3)]
 
 
+def flash_ptxas() -> list:
+    """ptxas's lines for csrc/flash_attn_fwd.cu's kernels; fails if the
+    resident kernel spills."""
+    from vlsa_tpu_torch.ops import _build
+    check("flash_attn_fwd" in _build.BUILD_LOGS, "no nvcc output for flash_attn_fwd.cu")
+    report = _build.ptxas_report(_build.BUILD_LOGS["flash_attn_fwd"])
+    for r in report:
+        log(f"  ptxas flash_attn_fwd {r['function']}: {r['registers']} registers, "
+            f"{r['smem']} bytes static smem, spill stores {r['spill_stores']}, "
+            f"loads {r['spill_loads']}")
+    resident = [r for r in report if "flash_fwd_bf16_resident" in r["function"]]
+    check(len(resident) > 0, "ptxas shows no resident flash kernel")
+    for r in resident:
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"the resident flash kernel spills: {r}")
+    return report
+
+
 def phase_flash_kernel(torch, fa):
     """Each variant of csrc/flash_attn_fwd.cu against its plain version at
-    B=64, H=12 and L = 785 (the extraction shape), 197 and 1."""
+    B=64, H=12 and L = 785 (the extraction shape), 197, 1 and 1025; bf16 on
+    the path of `flash_plan(L)`, and on the streamed path forced at 785."""
+    ptxas = flash_ptxas()
     errs = {}
-    for v in FLASH_VARIANTS:
-        for L in FLASH_LENGTHS:
-            q, k, vv = make_qkv(torch, FLASH_SHAPE["B"], FLASH_SHAPE["H"], L, v)
-            out = fa.flash_attn_fwd(q, k, vv)
-            torch.cuda.synchronize()
-            errs.setdefault(v, {})[L] = hold(f"flash {v} at B=64 H=12 L={L}", out,
-                                             fa.flash_self_attention_reference(q, k, vv),
-                                             TOL_FLASH[v])
-            del q, k, vv, out
-            torch.cuda.empty_cache()
-    return errs
+    cases = [(v, L, None) for v in FLASH_VARIANTS for L in FLASH_LENGTHS]
+    cases.append(("bf16", FLASH_SHAPE["L"], "streamed"))
+    for v, L, force in cases:
+        q, k, vv = make_qkv(torch, FLASH_SHAPE["B"], FLASH_SHAPE["H"], L, v)
+        before = dict(fa.LAUNCHES_PATH)
+        out = fa.flash_attn_fwd(q, k, vv, _force_path=force)
+        torch.cuda.synchronize()
+        path = force or (fa.flash_plan(L)[0] if v == "bf16" else None)
+        if path is not None:
+            check(fa.LAUNCHES_PATH == dict(before, **{path: before[path] + 1}),
+                  f"flash {v} at L={L}: expected one {path} launch, counts {before} -> "
+                  f"{fa.LAUNCHES_PATH}")
+        what = f"flash {v}{'' if path is None else ' ' + path}{' (forced)' if force else ''}"
+        errs.setdefault(v if force is None else f"{v}_{force}", {})[L] = hold(
+            f"{what} at B=64 H=12 L={L}", out, fa.flash_self_attention_reference(q, k, vv),
+            TOL_FLASH[v])
+        del q, k, vv, out
+        torch.cuda.empty_cache()
+    return errs, ptxas
 
 
 # ---------------------------------------------------------------- phase 2e
@@ -1210,14 +1251,17 @@ def phase_extraction(torch, fa, ab, co, device):
         for fmt in ("npy", "q8npz"):
             runs[fmt] = extract_to_store(src, os.path.join(tmp, fmt), ex, fmt=fmt, verbose=False)
         feats32 = ex32.extract(batch)  # one batch of the --dtype float32 path
-        launches = dict(fa.LAUNCHES)
+        launches, path_launches = dict(fa.LAUNCHES), dict(fa.LAUNCHES_PATH)
         n_batches = sum(-(-n // 64) for n in EXTRACT_TILES)
         expected = {"bf16": 2 * layers * n_batches, "f32": layers}
         log(f"extraction main path: {sum(EXTRACT_TILES)} tiles of {EXTRACT_TILE_PX} px to .npy "
             f"({runs['npy']['tiles_per_sec']:.1f} tiles/s, the first run) and .q8npz "
             f"({runs['q8npz']['tiles_per_sec']:.1f} tiles/s), one f32 batch; flash launches "
-            f"{launches}")
+            f"{launches}, bf16 by path {path_launches}")
         check(launches == expected, f"flash launches {launches}, expected {expected}")
+        check(path_launches == {"resident": expected["bf16"], "streamed": 0},
+              f"bf16 flash launches by path {path_launches}: all {expected['bf16']} should be "
+              f"resident")
         check(sum(ab.LAUNCHES.values()) + sum(ab.LAUNCHES_BWD.values())
               + sum(co.LAUNCHES.values()) + sum(co.LAUNCHES_BWD.values()) == 0,
               "extraction launched an ABMIL or co-attention kernel")
@@ -1246,7 +1290,8 @@ def phase_extraction(torch, fa, ab, co, device):
         with plain_flash():
             plain = ex.extract(tiles0)
             plain32 = ex32.extract(batch)
-        check(dict(fa.LAUNCHES) == launches, "the plain run launched the flash kernel")
+        check(dict(fa.LAUNCHES) == launches and dict(fa.LAUNCHES_PATH) == path_launches,
+              "the plain run launched the flash kernel")
         feat_err = {"bf16": rel_err(torch.from_numpy(feats["slide0"]), torch.from_numpy(plain)),
                     "f32": rel_err(torch.from_numpy(feats32), torch.from_numpy(plain32))}
         bf16_vs_f32 = rel_err(torch.from_numpy(feats["slide0"][:64]), torch.from_numpy(feats32))
@@ -1289,7 +1334,8 @@ def phase_extraction(torch, fa, ab, co, device):
             + f" ms; top {prof['top']}")
     log(f"tower forward, batch 64 bf16 (CUDA events, median of 10): {tower_ms:.2f} ms, "
         f"{64e3 / tower_ms:.0f} tiles/s")
-    return {"build_s": build_s, "launches": launches, "runs": runs, "q8_dev": q8_dev,
+    return {"build_s": build_s, "launches": launches, "path_launches": path_launches,
+            "runs": runs, "q8_dev": q8_dev,
             "feat_err": feat_err, "bf16_vs_f32": bf16_vs_f32, "preprocess_u8_exact": u8_exact,
             "preprocess_norm_dev": norm_dev, "preprocess_norm_ulp": norm_ulp, "tower_ms": tower_ms, "profiled_batch": prof}
 
@@ -1694,38 +1740,52 @@ def phase_abmil_times(torch, ab):
 # ---------------------------------------------------------------- phase 4c
 
 def bound_flash(B, H, L, variant, hd=64):
-    """Least time for the attention on an H100, as `bound` reckons it.
-    Bytes: q, k, v read once in the variant's type, the f32 output written
-    once.  Operations: Q K^T and P V, 2*L*hd each per query row (the
-    softmax's exponentials are not counted)."""
+    """Least time for the attention on an H100: max(bytes / HBM rate,
+    products / peak of the type, exponentials / SFU rate).  Bytes: q, k, v
+    read once in the variant's type, the f32 output written once.
+    Operations: Q K^T and P V, 2*L*hd each per query row; one exponential
+    per score, B*H*L^2, at EXP_PER_S."""
     item = 2 if variant == "bf16" else 4
     nbytes = 3 * B * H * L * hd * item + 4 * B * H * L * hd
     ops = 4 * B * H * L * L * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[variant]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_exp = B * H * L * L / EXP_PER_S
+    return 1e3 * max(t_bytes, t_ops, t_exp), ("bytes" if t_bytes >= max(t_ops, t_exp)
+                                              else "operations")
 
 
 def phase_flash_times(torch, fa):
-    """Each flash variant at the extraction shape: the kernel, its plain
-    version and one scaled_dot_product_attention call on the same inputs
-    (the yardstick; the port never calls it), beside the bound."""
+    """Each flash variant at the extraction shape: the kernel (bf16 on both
+    paths, in turns), its plain version and one scaled_dot_product_attention
+    call on the same inputs (the yardstick; the port never calls it), beside
+    the bound."""
     import torch.nn.functional as F
     times = {}
     for v in FLASH_VARIANTS:
         q, k, vv = make_qkv(torch, **FLASH_SHAPE, variant=v, seed=1)
-        err = hold(f"flash {v} at the timed shape", fa.flash_attn_fwd(q, k, vv),
-                   fa.flash_self_attention_reference(q, k, vv), TOL_FLASH[v])
+        paths = ("resident", "streamed") if v == "bf16" else (None,)
+        ref = fa.flash_self_attention_reference(q, k, vv)
+        errs = {p: hold(f"flash {v}{'' if p is None else ' ' + p} at the timed shape",
+                        fa.flash_attn_fwd(q, k, vv, _force_path=p), ref, TOL_FLASH[v])
+                for p in paths}
+        del ref
+        runs = {p: [] for p in paths}
+        for p in paths + paths[::-1]:
+            runs[p].append(median_ms(torch, lambda: fa.flash_attn_fwd(q, k, vv, _force_path=p)))
         b_ms, b_by = bound_flash(**FLASH_SHAPE, variant=v)
-        times[v] = dict(FLASH_SHAPE, err=err, bound_ms=b_ms, bound_by=b_by,
-                        ms=median_ms(torch, lambda: fa.flash_attn_fwd(q, k, vv)),
-                        plain_ms=median_ms(torch, lambda: fa.flash_self_attention_reference(
-                            q, k, vv)),
-                        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
-                            q, k, vv)))
-        t = times[v]
-        log(f"time flash_attn_fwd[{v}] B=64 H=12 L=785 kernel {t['ms']:.4f} ms  plain "
-            f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
-            f"({b_by})  kernel/bound {t['ms'] / b_ms:.1f}x")
+        common = dict(FLASH_SHAPE, bound_ms=b_ms, bound_by=b_by,
+                      plain_ms=median_ms(torch, lambda: fa.flash_self_attention_reference(
+                          q, k, vv)),
+                      library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+                          q, k, vv)))
+        for p in paths:
+            name = v if p in (None, "resident") else f"{v}_{p}"
+            times[name] = t = dict(common, path=p, err=errs[p], ms=runs[p][0], ms_runs=runs[p])
+            log(f"time flash_attn_fwd[{name}] B=64 H=12 L=785 kernel "
+                + " / ".join(f"{ms:.4f}" for ms in t["ms_runs"]) + f" ms  plain "
+                f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
+                f"({b_by})  kernel/bound {t['ms'] / b_ms:.1f}x  kernel/library "
+                f"{t['ms'] / t['library_ms']:.2f}x")
         del q, k, vv
         torch.cuda.empty_cache()
     return times
@@ -1821,7 +1881,7 @@ def main(argv=None) -> int:
         errs = phase_kernel(torch, co)
         errs_dq = phase_backward_kernel(torch, co)
         errs_abmil = phase_abmil_kernels(torch, ab)
-        errs_flash = phase_flash_kernel(torch, fa)
+        errs_flash, flash_ptxas_lines = phase_flash_kernel(torch, fa)
         errs_dx = phase_dx_kernel(torch, co)
         serving = phase_serving(torch, co, device)
         training = phase_training(torch, co, device)
@@ -1895,6 +1955,8 @@ def main(argv=None) -> int:
               "times": times, "abmil_shape": ABMIL_SHAPE, "abmil_train_shape": ABMIL_TRAIN_SHAPE,
               "abmil_errors": errs_abmil, "sa_serving": sa_serving, "sa_training": sa_training,
               "abmil_times": abmil_times, "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
+              "flash_ptxas": flash_ptxas_lines,
+              "flash_plan": {L: list(fa.flash_plan(L)) for L in FLASH_LENGTHS},
               "extraction": extraction, "flash_times": flash_times, "dx_errors": errs_dx,
               "feat_proj_training": feat_proj, "dx_times": dx_times, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}

@@ -82,3 +82,57 @@ def test_cpu_entry_takes_the_plain_version():
     assert sum(fa.LAUNCHES.values()) == 0
     with pytest.raises(ValueError, match="CUDA kernel"):
         fa.flash_attn_fwd(q, k, v)
+
+
+# ---- the bf16 path plan (csrc/flash_attn_fwd.cu: resident or streamed) ----
+
+@pytest.mark.parametrize("L, path", [(785, "resident"), (197, "resident"), (1025, "streamed"),
+                                     (1, "resident"), (37, "resident"),
+                                     (fa.RESIDENT_CAPACITY, "resident"),
+                                     (fa.RESIDENT_CAPACITY + 1, "streamed")])
+def test_flash_plan_path(L, path):
+    """CONCH at 448 px (785) and ViT-B/16 at 224 px (197) run resident, CONCH
+    at 512 px (1025) streamed; the capacity itself is resident."""
+    assert fa.flash_plan(L)[0] == path
+
+
+@pytest.mark.parametrize("L", [1, 16, 17, 64, 65, 128, 129, 197, 256, 257, 448, 449, 640, 641,
+                               785, 800, 801, 1025, 4096])
+def test_flash_plan_fits_the_block(L):
+    """The resident plan's chunks (of 16 keys, per warp, RESIDENT_WARPS
+    warps a stripe) are a template instance and cover L, its shared memory
+    fits an H100 block, and it is the smallest instance that covers L."""
+    path, chunks, smem = fa.flash_plan(L)
+    assert smem <= fa.SMEM_PER_BLOCK
+    if path == "streamed":
+        assert L > fa.RESIDENT_CAPACITY and chunks == 0
+        return
+    keys_per_chunk = 16 * fa.RESIDENT_WARPS
+    assert L <= fa.RESIDENT_CAPACITY and chunks in fa.RESIDENT_CHUNKS
+    assert keys_per_chunk * chunks >= L
+    assert all(keys_per_chunk * c < L for c in fa.RESIDENT_CHUNKS if c < chunks)
+    w = fa.RESIDENT_WARPS
+    assert smem == -(-L // 16) * 16 * 256 + 4 * (2 * (w - 1) * 16 * 64 + 2 * 2 * w * 16)
+
+
+def test_flash_plan_mirrors_the_kernel_source():
+    """The Python plan's constants are the kernel's: the warps per stripe,
+    the template instances, the capacity and the shared memory at capacity
+    (the header note's sum)."""
+    import re
+    from pathlib import Path
+    src = (Path(fa.__file__).parent / "csrc" / "flash_attn_fwd.cu").read_text()
+    chunks = re.search(r"kResChunks\[\] = \{([0-9, ]+)\}", src).group(1)
+    assert tuple(int(c) for c in chunks.split(",")) == fa.RESIDENT_CHUNKS
+    assert re.search(rf"kResCapacity = {fa.RESIDENT_CAPACITY};", src)
+    assert re.search(rf"kResW = {fa.RESIDENT_WARPS};", src)
+    smem = fa.flash_plan(fa.RESIDENT_CAPACITY)[2]
+    assert f"= {smem:,} of the 232,448 B" in src
+    with pytest.raises(ValueError):
+        fa.flash_plan(0)
+
+
+def test_reset_launches_clears_the_path_counts():
+    fa.LAUNCHES_PATH["resident"] += 3
+    fa.reset_launches()
+    assert fa.LAUNCHES_PATH == {"resident": 0, "streamed": 0} and sum(fa.LAUNCHES.values()) == 0

@@ -283,18 +283,64 @@ TOL_FLASH = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 12, 197), (3, 2, 130), (1, 3, 64), (2, 2, 37), (2, 1, 1)])
+@pytest.mark.parametrize("shape", [(2, 12, 197), (3, 2, 130), (1, 3, 64), (2, 2, 37), (2, 1, 1),
+                                   (2, 2, fa.RESIDENT_CAPACITY), (2, 2, fa.RESIDENT_CAPACITY + 1),
+                                   (1, 2, 1025)])
 def test_flash_kernel_matches_plain(device, dtype, shape):
-    """Ragged key and query tiles (L no multiple of 64), L = 1, a whole tile."""
+    """Ragged key and query tiles (L no multiple of 64), L = 1, a whole tile,
+    and lengths that straddle the resident path's capacity: bf16 takes the
+    path `flash_plan` names, and only that path's counter moves."""
     g = torch.Generator().manual_seed(sum(shape))
     q, k, v = (torch.randn(*shape, 64, generator=g).to(dtype).to(device) for _ in range(3))
     name = "bf16" if dtype == torch.bfloat16 else "f32"
-    before = fa.LAUNCHES[name]
+    before, paths = fa.LAUNCHES[name], dict(fa.LAUNCHES_PATH)
     out = fa.flash_self_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.LAUNCHES[name] == before + 1
+    want_paths = dict(paths)
+    if dtype == torch.bfloat16:
+        want_paths[fa.flash_plan(shape[-1])[0]] += 1
+    assert fa.LAUNCHES_PATH == want_paths
     assert out.dtype == torch.float32 and out.shape == q.shape
     assert _rel(out, fa.flash_self_attention_reference(q, k, v)) <= TOL_FLASH[dtype]
+
+
+def test_flash_streamed_path_forced_matches_plain(device):
+    """The streamed path, forced at the extraction length the plan gives the
+    resident one, holds the same tolerance."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 2, 785, 64, generator=g).to(torch.bfloat16).to(device)
+               for _ in range(3))
+    before = dict(fa.LAUNCHES_PATH)
+    out = fa.flash_attn_fwd(q, k, v, _force_path="streamed")
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_PATH == dict(before, streamed=before["streamed"] + 1)
+    assert _rel(out, fa.flash_self_attention_reference(q, k, v)) <= TOL_FLASH[torch.bfloat16]
+
+
+def test_flash_resident_launch_error_raises(device, monkeypatch):
+    """A resident launch that fails raises FlashKernelError and launches no
+    other path: a length beyond the capacity forced onto the resident path,
+    and a launch whose C call reports an error."""
+    q = torch.randn(1, 1, 1025, 64, device=device).to(torch.bfloat16)
+    before = (dict(fa.LAUNCHES), dict(fa.LAUNCHES_PATH))
+    with pytest.raises(fa.FlashKernelError):
+        fa.flash_attn_fwd(q, q, q, _force_path="resident")
+    q = q[:, :, :785].contiguous()
+    lib = fa._library()
+
+    class Failing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def flash_attn_fwd(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(fa, "_library", lambda: Failing())
+    with pytest.raises(fa.FlashKernelError, match="resident"):
+        fa.flash_self_attention(q, q, q)
+    assert (fa.LAUNCHES, fa.LAUNCHES_PATH) == before
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(device):

@@ -6,7 +6,11 @@ extraction (counterpart of vlsa_tpu/models/vision_tower.py:312
 `flash_self_attention` is the entry point, in the JAX layout [B, H, L, hd]:
 a CPU tensor goes through the plain version, a CUDA tensor through the
 hand-written Hopper kernel `csrc/flash_attn_fwd.cu` (bf16 on the tensor
-cores, f32 on the CUDA cores) or raises; there is no fallback.
+cores, f32 on the CUDA cores) or raises `FlashKernelError`; there is no
+fallback.  bf16 has two paths, chosen by L alone (`flash_plan`): `resident`
+(K and V of a head held in shared memory, one sweep; L <= 800, which covers
+CONCH at 448 px, L = 785, and ViT-B/16 at 224 px, L = 197) and `streamed`
+(two sweeps over key tiles; any L, taken above 800).
 
 Rounding follows the TPU kernel at the trunk's block sizes (the whole padded
 sequence in one key block, so `_flash_attention_kernel_single_batch_single_
@@ -28,13 +32,48 @@ HD_KERNEL = 64  # the head dimension the kernels are built for (CONCH, CLIP ViT-
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-# Launches of the CUDA kernel by variant, one per call of `flash_attn_fwd`.
+# Launches of the CUDA kernel by variant, one per call of `flash_attn_fwd`,
+# and the bf16 launches by path.
 LAUNCHES = {"f32": 0, "bf16": 0}
+LAUNCHES_PATH = {"resident": 0, "streamed": 0}
+
+# The resident bf16 kernel (csrc/flash_attn_fwd.cu): the warps that share a
+# query stripe's keys, its template instances (16-key chunks per warp, so an
+# instance covers L <= 16 * RESIDENT_WARPS * chunks) and its capacity, set
+# by shared memory: K and V of 800 keys (800 * 256 B) + 24,576 B of partial
+# O + 1,024 B of row statistics = 230,400 of the 232,448 B a block may use
+# on an H100.
+RESIDENT_WARPS = 4
+RESIDENT_CHUNKS = (2, 4, 7, 10, 13)
+RESIDENT_CAPACITY = 800
+SMEM_PER_BLOCK = 232448
+_RESIDENT_FIXED_SMEM = 4 * (2 * (RESIDENT_WARPS - 1) * 16 * 64 + 2 * 2 * RESIDENT_WARPS * 16)
+_STREAMED_SMEM = 2 * 3 * 64 * 72  # static: Q, K and V^T tiles of 64 x 72 bf16
+_PATH = {"resident": 0, "streamed": 1}
+
+
+class FlashKernelError(RuntimeError):
+    """The flash kernel did not launch (a refused configuration, a failed
+    build or launch); the call never falls back to another path."""
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_PATH):
+        for k in counts:
+            counts[k] = 0
+
+
+def flash_plan(L: int) -> tuple:
+    """The bf16 path for length L, from L alone: ("resident", chunks per
+    warp, shared bytes per block) for L <= RESIDENT_CAPACITY, else
+    ("streamed", 0, its static shared bytes)."""
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    keys = -(-L // 16) * 16
+    if keys > RESIDENT_CAPACITY:
+        return "streamed", 0, _STREAMED_SMEM
+    chunks = next(c for c in RESIDENT_CHUNKS if 16 * RESIDENT_WARPS * c >= L)
+    return "resident", chunks, keys * 2 * 64 * 2 + _RESIDENT_FIXED_SMEM
 
 
 def flash_self_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -53,18 +92,22 @@ def _library():
     lib = load("flash_attn_fwd")
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        # q, k, v, out; BH, L; scale; dtype, device; stream
-        lib.flash_attn_fwd.argtypes = [P] * 4 + [I, I, ctypes.c_float, I, I, P]
+        # q, k, v, out; BH, L; scale; dtype, path, chunks, device; stream
+        lib.flash_attn_fwd.argtypes = [P] * 4 + [I, I, ctypes.c_float, I, I, I, I, P]
         lib.flash_attn_fwd.restype = I
-        lib.flash_attn_fwd_smem_bytes.argtypes = [I]
+        lib.flash_attn_fwd_smem_bytes.argtypes = [I, I, I]
         lib.flash_attn_fwd_smem_bytes.restype = ctypes.c_size_t
         lib._argtypes_set = True
     return lib
 
 
-def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   _force_path: str | None = None) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors q, k, v [B, H, L, 64], all
-    f32 or all bf16, contiguous -> f32 [B, H, L, 64]."""
+    f32 or all bf16, contiguous -> f32 [B, H, L, 64].  bf16 takes the path
+    of `flash_plan(L)`; `_force_path` is a private hook for the checks that
+    hold one path at a length the plan gives the other (no entry point
+    passes it).  Raises FlashKernelError when the kernel does not launch."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd launches a CUDA kernel; q is on {q.device}")
     if q.dtype not in _DTYPE:
@@ -79,19 +122,33 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
                              f"{list(q.shape)} tensor on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     B, H, L, hd = q.shape
-    lib = _library()
-    smem = lib.flash_attn_fwd_smem_bytes(_DTYPE[q.dtype])
+    path, chunks = None, 0
+    if q.dtype == torch.bfloat16:
+        path, chunks, _smem = flash_plan(L)
+        if _force_path is not None:
+            path = _force_path
+    try:
+        lib = _library()
+    except RuntimeError as exc:  # nvcc failed: raised as the kernel's error, no other path
+        raise FlashKernelError(f"flash_attn_fwd.cu did not build: {exc}") from exc
+    dtype = _DTYPE[q.dtype]
+    path_id = _PATH.get(path, -1) if path is not None else 0
+    smem = lib.flash_attn_fwd_smem_bytes(dtype, path_id, L)
     optin = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
     if smem > optin:
-        raise ValueError(f"flash_attn_fwd needs {smem} bytes of shared memory per block, "
-                         f"the card gives {optin}")
+        raise FlashKernelError(f"flash_attn_fwd needs {smem} bytes of shared memory per block, "
+                               f"the card gives {optin}")
     out = torch.empty(B, H, L, hd, dtype=torch.float32, device=q.device)
     err = lib.flash_attn_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(out), B * H, L, 1.0 / hd ** 0.5,
-                             _DTYPE[q.dtype], _device_index(q.device),
+                             dtype, path_id, chunks, _device_index(q.device),
                              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd kernel launch failed: cudaError {err}")
+        raise FlashKernelError(f"flash_attn_fwd[{_DTYPE_NAME[q.dtype]}"
+                               f"{'' if path is None else ', ' + path}] at L={L} did not "
+                               f"launch: cudaError {err}")
     LAUNCHES[_DTYPE_NAME[q.dtype]] += 1
+    if path is not None:
+        LAUNCHES_PATH[path] += 1
     return out
 
 

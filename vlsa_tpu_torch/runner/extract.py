@@ -83,7 +83,8 @@ def main(argv=None) -> dict:
     stats.update(model="conch", format=args.format, image_size=args.image_size,
                  feat_dim=extractor.feat_dim, device=str(extractor.device),
                  weights="imported" if args.ckpt else "random-init",
-                 flash_launches=dict(flash_attn.LAUNCHES))
+                 flash_launches=dict(flash_attn.LAUNCHES),
+                 flash_path_launches=dict(flash_attn.LAUNCHES_PATH))
     print(json.dumps(stats), flush=True)
     return stats
 
