@@ -22,7 +22,11 @@ non-zero and prints no result:
      N=10240, D=512, hid=256 (10% of patches masked, one empty bag): the
      forward (f32 1e-4, bf16 and int8 1e-3), the weights-only backward and,
      for f32 and bf16, the backward with dX (dW1, db1, dw2: f32 1e-3, bf16
-     and int8 2e-3; dX: f32 1e-3, bf16 1e-2, one bf16 ulp);
+     and int8 2e-3; dX: f32 1e-3, bf16 1e-2, one bf16 ulp); f32 also at
+     B=5, N=12291, which ends in a partial 64-patch tile and a partial chunk
+     of the launch plan; the kernels' ptxas lines (registers, static shared
+     memory, spills) and dynamic shared memory go to the record, and an f32
+     instance that spills fails the run;
   2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
      the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
      197, 1 and 1025 (CONCH at 512 px, beyond the resident capacity): bf16
@@ -64,7 +68,9 @@ non-zero and prints no result:
      gradient: the dX kernels); every step has a finite loss, moved
      parameters and an unchanged fc2 bias; on each variant's last batch the
      gradients through the kernels agree with those through the plain
-     versions within 2e-3 per parameter; one more bf16 step is profiled;
+     versions within 2e-3 per parameter; one more step each in bf16 and in
+     f32 (the shipped config's storage) is profiled, with its peak device
+     memory;
   3e. extraction: `FeatureExtractor` with CONCH at full width (448 px, batch
      64, bf16, device preprocessing, seeded weights) runs `extract_to_store`
      over two synthetic slides of 130 and 140 512x512 u8 tiles (ragged last
@@ -103,7 +109,8 @@ non-zero and prints no result:
      B=8, N=10240 and at the training shape B=32, N=16384, beside one cuBLAS
      x @ W1^T in the storage type (`gemm_ms`, a partial yardstick the port
      never calls: no single PyTorch call computes ABMIL pooling, so
-     library_ms is null);
+     library_ms is null); f32's bound takes the lesser of its two routes to
+     f32-accurate products, the CUDA cores or 3 TF32 tensor-core products;
   4c. flash times: at B=64, H=12, L=785, bf16 resident and bf16 streamed
      in turns (resident, streamed, streamed, resident) and f32, each beside
      the plain version, one scaled_dot_product_attention call (library_ms,
@@ -161,6 +168,9 @@ SOURCE_DQ = "vlsa_tpu_torch/ops/csrc/coattn_bwd_dq.cu"
 # TPU kernel each variant replaces
 ABMIL_SHAPE = dict(B=8, N=10240)
 ABMIL_TRAIN_SHAPE = dict(B=32, N=16384)
+# f32 at an N that ends in a partial tile and, on the plan of any card of
+# tens of SMs, a partial chunk (both checked at run time)
+ABMIL_RAGGED = dict(B=5, N=12291)
 ABMIL_STORAGES = ("f32", "bf16", "int8")
 TOL_ABMIL = {"f32": 1e-4, "bf16": 1e-3, "int8": 1e-3}
 TOL_ABMIL_DW = {"f32": 1e-3, "bf16": 2e-3, "int8": 2e-3}
@@ -210,9 +220,9 @@ FEAT_PROJ_GROUPS = {"coattn": r"coattn", "gemm": GEMM_KERNELS,
                     "layer_norm": r"layer_norm|LayerNorm|GammaBeta",
                     "copy_cast": r"copy|index|cat|Cat", "elementwise": r"elementwise|reduce"}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by
-# operand type (f32 outside the tensor cores)
+# operand type (f32 outside the tensor cores, tf32 on them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "tf32": 495e12}
 # the SFU's exponentials: 16 a clock per SM on 132 SMs, at the clock the f32
 # peak implies (128 FMA lanes per SM: 67e12 / (132 * 256) = 1.98 GHz)
 SM_COUNT = 132
@@ -475,6 +485,32 @@ def hold_abmil(torch, ab, x, xs, mask, w1, b1, w2, g, storage, where):
     return errs, (out, m, l)
 
 
+def abmil_ptxas(ab) -> dict:
+    """ptxas's lines for csrc/abmil_fwd.cu's and csrc/abmil_bwd.cu's kernels
+    and the f32 kernels' dynamic shared memory; fails if an f32 instance
+    spills or a block's shared memory exceeds what the card gives."""
+    import torch
+    from vlsa_tpu_torch.ops import _build
+    report = {}
+    for name in ("abmil_fwd", "abmil_bwd"):
+        check(name in _build.BUILD_LOGS, f"no nvcc output for {name}.cu")
+        report[name] = _build.ptxas_report(_build.BUILD_LOGS[name])
+        for r in report[name]:
+            log(f"  ptxas {name} {r['function']}: {r['registers']} registers, {r['smem']} "
+                f"bytes static smem, spill stores {r['spill_stores']}, loads {r['spill_loads']}")
+    f32 = [r for rs in report.values() for r in rs if "_f32" in r["function"]]
+    check(len(f32) == 4, f"ptxas shows {len(f32)} f32 ABMIL kernels, not 4")
+    for r in f32:
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"an f32 ABMIL kernel spills: {r}")
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    smem = {"fwd": ab._library("abmil_fwd").abmil_fwd_smem_bytes(0),
+            "bwd_pass1": ab._library("abmil_bwd").abmil_bwd_smem_bytes(0, 1, 1),
+            "bwd_pass2": ab._library("abmil_bwd").abmil_bwd_smem_bytes(0, 2, 0)}
+    log(f"  f32 ABMIL dynamic shared memory {smem} bytes a block (the card gives {optin})")
+    check(max(smem.values()) <= optin, f"f32 ABMIL shared memory {smem} above {optin}")
+    return {"kernels": report, "f32_dynamic_smem": smem}
+
+
 def phase_abmil_kernels(torch, ab):
     errs = {}
     for s in ABMIL_STORAGES:
@@ -482,6 +518,18 @@ def phase_abmil_kernels(torch, ab):
         errs[s], _stats = hold_abmil(torch, ab, *inputs, s, "at B=8 N=10240")
         del inputs, _stats
         torch.cuda.empty_cache()
+    B, N = ABMIL_RAGGED["B"], ABMIL_RAGGED["N"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {"fwd": ab.fwd_plan(torch.float32, B, N, n_sm),
+             "bwd": ab.bwd_plan(torch.float32, B, N, n_sm)}
+    chunks = (plans["fwd"]["chunk"], plans["bwd"]["chunk1"])
+    check(N % ab._TILE[torch.float32] != 0 and all(N % c != 0 and N > c for c in chunks),
+          f"f32 at B={B} N={N}: no partial tile and chunk to hold (plans {plans})")
+    inputs = make_abmil_inputs(torch, **ABMIL_RAGGED, storage="f32")
+    errs["f32_ragged"], _stats = hold_abmil(torch, ab, *inputs, "f32", f"at B={B} N={N}")
+    errs["f32_ragged"]["chunks"] = chunks
+    del inputs, _stats
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -1158,20 +1206,31 @@ def phase_sa_training(torch, ab, co, device):
     del last_batch
     torch.cuda.empty_cache()
 
-    tr = trainers[False]
-    tr.batcher.feats_dtype = "bfloat16"
-    batch = {k: v.to(device) for k, v in next(batches[False]).items()}
-    prof = dict(profile_step(torch, tr.engine, batch, family="abmil"),
-                bucket=int(batch["mask"].shape[1]), patches=int(batch["mask"].sum()))
-    if prof["device_ms"] is None:
-        log("SA profiled step: the profiler shows no device time")
-    else:
-        log(f"SA profiled bf16 step (bucket {prof['bucket']}, {prof['patches']} patches): wall "
-            f"{prof['wall_ms']:.1f} ms, kernels on the card {prof['device_ms']:.2f} ms, of "
-            f"which ABMIL {prof['abmil_ms']:.2f} ms: {prof['kernels']}")
+    # one profiled step each in bf16 and in f32 (the shipped config's
+    # storage), with the step's peak device memory
+    tr, profiled = trainers[False], {}
+    for feats_dtype in ("bfloat16", "float32"):
+        tr.batcher.feats_dtype = feats_dtype
+        batch = {k: v.to(device) for k, v in next(batches[False]).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = dict(profile_step(torch, tr.engine, batch, family="abmil"),
+                    bucket=int(batch["mask"].shape[1]), patches=int(batch["mask"].sum()),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        profiled[feats_dtype] = prof
+        del batch
+        if prof["device_ms"] is None:
+            log(f"SA profiled {feats_dtype} step: the profiler shows no device time")
+        else:
+            log(f"SA profiled {feats_dtype} step (bucket {prof['bucket']}, {prof['patches']} "
+                f"patches): wall {prof['wall_ms']:.1f} ms, kernels on the card "
+                f"{prof['device_ms']:.2f} ms, of which ABMIL {prof['abmil_ms']:.2f} ms "
+                f"({100 * prof['abmil_ms'] / prof['device_ms']:.0f}%): {prof['kernels']}; "
+                f"peak device memory {prof['peak_gb']:.2f} GB")
     bf16 = [r for r in steps if r["variant"] == "bf16"]
     return {"build_s": build_s, "steps": steps, "launches": launches,
-            "grad_check": grad_check, "profiled_step": prof,
+            "grad_check": grad_check, "profiled_step": profiled["bfloat16"],
+            "profiled_step_f32": profiled["float32"],
             "median_bf16_prep_ms": float(np.median([r["prep_ms"] for r in bf16])),
             "median_bf16_step_ms": float(np.median([r["step_ms"] for r in bf16]))}
 
@@ -1658,13 +1717,16 @@ def phase_times(torch, co):
 
 def bound_abmil(name, B, N, storage):
     """Least time for an ABMIL kernel's work on an H100, as `bound` reckons
-    it, every patch slot of the batch counted.  Bytes: x, the mask, the int8
+    it, every patch slot of the batch counted, and what bounds it.  Bytes: x, the mask, the int8
     scales, W1, b1 and w2 read once, and out, m, l written once (forward);
     the backward reads g, out, m and l besides and writes dW1, db1, dw2 and,
     with dX, dX in the storage type.  Operations: the forward's bottleneck
     product 2*D*hid per patch plus the w2 dot and the PV sum (2*hid + 2*D);
     the backward's 4*D*hid per patch for the weight gradients (the h and dW1
-    products), 6*D*hid with dX (vlsa_tpu/ops/abmil.py:307's count)."""
+    products), 6*D*hid with dX (vlsa_tpu/ops/abmil.py:307's count).  f32
+    products take the card's faster route to f32 accuracy: the CUDA cores
+    (67 TFLOP/s) or 3 TF32 products each on the tensor cores (495 TFLOP/s),
+    "operations (3xTF32)" when that route bounds."""
     from vlsa_tpu_torch.ops.abmil import D_KERNEL as D, HID_KERNEL as H
     item = {"f32": 4, "bf16": 2, "int8": 1}[storage]
     rows = B * N
@@ -1678,8 +1740,10 @@ def bound_abmil(name, B, N, storage):
         ops = rows * D * H * (6 if name == "abmil_bwd_dx" else 4)
         if name == "abmil_bwd_dx":
             nbytes += rows * D * item
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes, t_ops, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage], "operations"
+    if storage == "f32" and 3 * ops / PEAK_OPS["tf32"] < t_ops:
+        t_ops, by_ops = 3 * ops / PEAK_OPS["tf32"], "operations (3xTF32)"
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else by_ops)
 
 
 def gemm_yardstick(torch, x, w1):
@@ -1881,6 +1945,7 @@ def main(argv=None) -> int:
         errs = phase_kernel(torch, co)
         errs_dq = phase_backward_kernel(torch, co)
         errs_abmil = phase_abmil_kernels(torch, ab)
+        abmil_ptxas_lines = abmil_ptxas(ab)
         errs_flash, flash_ptxas_lines = phase_flash_kernel(torch, fa)
         errs_dx = phase_dx_kernel(torch, co)
         serving = phase_serving(torch, co, device)
@@ -1935,8 +2000,8 @@ def main(argv=None) -> int:
                 "replaces": (REPLACES_ABMIL if fwd else REPLACES_ABMIL_BWD)[s],
                 "launches": abmil_launches[name][s],
                 "max_abs_err": errs_abmil[s][name]["max_abs_err"], "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None})
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"].split()[0], "library_ms": None})
     for v in FLASH_VARIANTS:
         t = flash_times[v]
         kernels.append({
@@ -1954,7 +2019,8 @@ def main(argv=None) -> int:
               "dq_errors": errs_dq, "serving": serving, "training": training,
               "times": times, "abmil_shape": ABMIL_SHAPE, "abmil_train_shape": ABMIL_TRAIN_SHAPE,
               "abmil_errors": errs_abmil, "sa_serving": sa_serving, "sa_training": sa_training,
-              "abmil_times": abmil_times, "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
+              "abmil_times": abmil_times, "abmil_ptxas": abmil_ptxas_lines,
+              "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
               "flash_ptxas": flash_ptxas_lines,
               "flash_plan": {L: list(fa.flash_plan(L)) for L in FLASH_LENGTHS},
               "extraction": extraction, "flash_times": flash_times, "dx_errors": errs_dx,

@@ -158,3 +158,82 @@ def test_cuda_route_needs_a_card():
     with pytest.raises(ValueError, match="CUDA"):
         pab.abmil_fwd(_t(x), _t(mask), _t(w1), _t(b1), _t(w2))
     assert sum(pab.LAUNCHES.values()) == 0
+
+
+# ---- the kernels' launch plans (csrc/abmil_fwd.cu, csrc/abmil_bwd.cu) ----
+
+def test_f32_plan_mirrors_the_kernel_source():
+    """ops/abmil.py's tile and weight-gradient tiling are the kernel
+    source's: Tile<float>::M, the widths, and f32 pass 2's dW1 tiles and
+    rows a slice."""
+    import re
+    from pathlib import Path
+    csrc = Path(pab.__file__).parent / "csrc"
+    common = (csrc / "abmil_common.cuh").read_text()
+    bwd = (csrc / "abmil_bwd.cu").read_text()
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    m = re.search(r"template <> struct Tile<float> \{ static constexpr int M = (\d+); \};", common)
+    assert int(m.group(1)) == pab._TILE[torch.float32]
+    assert const(common, "kD") == pab.D_KERNEL and const(common, "kHid") == pab.HID_KERNEL
+    tiles = (pab.HID_KERNEL // const(bwd, "kDwM")) * (pab.D_KERNEL // const(bwd, "kDwN"))
+    assert tiles == pab._DW_TILES and const(bwd, "kRowsDw") == pab._DW_ROWS
+    assert const(bwd, "kSlice") == pab._SLICE
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n_sm", [132, 7])
+def test_plans_cover_every_n(dtype, n_sm):
+    """For a sweep of B and N: every chunk is a multiple of the tile and the
+    chunks cover N exactly (the last one non-empty); f32's weight-gradient
+    chunks cover the B*N patch rows; the workspaces have the shapes the
+    kernels index."""
+    tile = pab._TILE[dtype]
+    for B in (1, 3, 8, 32):
+        for N in (1, 5, 63, 64, 65, 127, 1000, 4097, 12291, 16384):
+            f = pab.fwd_plan(dtype, B, N, n_sm)
+            assert f["chunk"] % tile == 0 and (f["S"] - 1) * f["chunk"] < N <= f["S"] * f["chunk"]
+            assert f["ws_m"] == f["ws_l"] == (B, f["S"]) and f["ws_acc"] == (B, f["S"], 512)
+            b = pab.bwd_plan(dtype, B, N, n_sm)
+            assert b["chunk1"] % tile == 0 and (b["S1"] - 1) * b["chunk1"] < N <= b["S1"] * b["chunk1"]
+            if dtype == torch.float32:
+                assert f["w1_bf16"] is None and b["w1_bf16"] is None
+                K = B * N
+                assert b["chunk2"] % pab._DW_ROWS == 0
+                assert (b["S2"] - 1) * b["chunk2"] < K <= b["S2"] * b["chunk2"]
+                assert b["S2"] * pab._DW_TILES <= max(n_sm, pab._DW_TILES)
+                assert b["ds"] == (B, N, 256) and b["ws_dw1"] == (b["S2"], 256, 512)
+                assert b["ws_b"] == (B * b["S1"], 256)
+            else:
+                assert f["w1_bf16"] == b["w1_bf16"] == (2, 256, 512)
+                assert b["chunk2"] % tile == 0
+                assert (b["S2"] - 1) * b["chunk2"] < N <= b["S2"] * b["chunk2"]
+                assert b["ds"] == (B, N) and b["ws_dw1"] == (B * b["S2"], 256, 512)
+                assert b["ws_b"] == (B * b["S2"], 256)
+
+
+@pytest.mark.parametrize("B, N", [(8, 10240), (32, 16384), (32, 65536), (1, 5)])
+def test_f32_plan_fills_the_waves(B, N):
+    """f32 blocks run one per SM: the plan's waves of chunk/tile tiles end
+    within one chunk of the even share of the tiles; both kernels take the
+    same chunks."""
+    n_sm, tile = 132, pab._TILE[torch.float32]
+    f = pab.fwd_plan(torch.float32, B, N, n_sm)
+    tiles = -(-N // tile)
+    waves = -(-B * f["S"] // n_sm)
+    assert waves * (f["chunk"] // tile) <= -(-B * tiles // n_sm) + f["chunk"] // tile
+    assert pab.bwd_plan(torch.float32, B, N, n_sm)["chunk1"] == f["chunk"]
+
+
+@pytest.mark.parametrize("name", ["cvt", "one_chain", "chains", "volatile"])
+def test_variants_edit_the_kernel_source(name):
+    """Each design alternative of ops/abmil_variants.py is an edit that
+    applies once to the kernel source as it stands."""
+    from pathlib import Path
+    from vlsa_tpu_torch.ops import abmil_variants as av
+    csrc = Path(pab.__file__).parent / "csrc"
+    assert av.VARIANTS[name]
+    for file, old, new in av.VARIANTS[name]:
+        assert (csrc / file).read_text().count(old) == 1 and old != new

@@ -80,15 +80,21 @@ def test_dq_kernel_matches_plain(device, dtype, host_inv, shape):
     assert float((dq - ref).abs().max() / ref.abs().max().clamp_min(1e-30)) <= TOL_DQ[dtype]
 
 
-def _abmil_inputs(B, N, dtype, device, seed=0):
+def _abmil_inputs(B, N, dtype, device, seed=0, masked_value=None):
     """ABMIL inputs at the kernels' widths (D=512, hid=256): 20% of patches
-    masked, the last bag empty, int8 quantized per patch."""
+    masked, the last bag empty and, with B >= 3, the first holding a single
+    valid patch; int8 quantized per patch.  Masked rows are zero, or hold
+    `masked_value` (as a projecter's output holds features there)."""
     g = torch.Generator().manual_seed(seed)
     D, H = ab.D_KERNEL, ab.HID_KERNEL
     x = torch.randn(B, N, D, generator=g)
     mask = torch.rand(B, N, generator=g) > 0.2
     mask[-1] = False
-    x = x * mask[..., None]
+    if B >= 3:
+        mask[0] = False
+        mask[0, N // 2] = True
+    x = x * mask[..., None] if masked_value is None else torch.where(mask[..., None], x,
+                                                                      masked_value)
     x_scale = None
     if dtype == torch.int8:
         amax = x.abs().amax(-1) / 127.0
@@ -115,10 +121,13 @@ TOL_ABMIL_DX = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("shape", [(3, 1000), (2, 33), (1, 5)])
+@pytest.mark.parametrize("shape", [(3, 1000), (2, 33), (1, 5), (3, 63), (3, 64), (3, 65),
+                                   (3, 3 * 4097)])
 def test_abmil_kernels_match_plain(device, dtype, shape):
     """Forward and backward (weights only, and with dX for f32/bf16) at a
-    ragged N that is no multiple of the tile, with an empty bag."""
+    ragged N that is no multiple of the tile, at N = tile - 1, tile, tile + 1
+    and at an N of several chunks with a ragged last one, with an empty bag
+    and a bag of one valid patch."""
     x, xs, mask, w1, b1, w2, g = _abmil_inputs(*shape, dtype, device)
     v = ab._STORAGE_NAME[dtype]
     before = ab.LAUNCHES[v]
@@ -151,6 +160,28 @@ def test_abmil_kernels_match_plain(device, dtype, shape):
             assert torch.all(dx[-1] == 0)
         else:
             assert dx is None
+
+
+def test_abmil_f32_masked_rows_add_nothing(device):
+    """f32 with masked rows holding large features: dz is 0 there, so they
+    add nothing to dW1 (against the plain version, same tolerance); dX is
+    exactly 0 on every masked row and on the empty bag."""
+    N = 3 * 4097
+    plan = ab.bwd_plan(torch.float32, 3, N, torch.cuda.get_device_properties(device)
+                       .multi_processor_count)
+    assert plan["S1"] > 1 and N % plan["chunk1"] != 0
+    x, _s, mask, w1, b1, w2, g = _abmil_inputs(3, N, torch.float32, device, seed=3,
+                                               masked_value=1e4)
+    out, m, l = ab.abmil_fwd(x, mask, w1, b1, w2)
+    ref = ab.abmil_fwd_reference(x, mask, w1, b1, w2)[0]
+    assert _rel(out, ref) <= TOL_ABMIL[torch.float32] and torch.all(out[-1] == 0)
+    dx, dw1, db1, dw2 = ab.abmil_bwd(x, mask, w1, b1, w2, g, out, m, l, need_dx=True)
+    torch.cuda.synchronize()
+    rdx, rdw1, rdb1, rdw2 = ab.abmil_bwd_reference(x, mask, w1, b1, w2, g, out, m, l)
+    for got, want in ((dw1, rdw1), (db1, rdb1), (dw2, rdw2)):
+        assert torch.isfinite(got).all() and _rel(got, want) <= TOL_ABMIL_DW[torch.float32]
+    assert _rel(dx, rdx) <= TOL_ABMIL_DX[torch.float32]
+    assert torch.all(dx[~mask] == 0) and torch.all(dx[-1] == 0)
 
 
 def test_abmil_pool_routes_through_the_kernels(device):

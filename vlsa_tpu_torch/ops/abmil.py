@@ -17,11 +17,16 @@ Storage types of x: f32, bf16, or int8 with per-patch dequant scales
 higher precision: bf16 storage multiplies x by W1 rounded to bf16 and, in
 the backward, rounds dz (and W1) to bf16 for dX and dW1; int8 computes
 s[n] * (x_i . W1^T) in f32 on the raw int8 values; f32 is true f32 (TF32 off,
-`utils.device.disable_tf32`).
+`utils.device.disable_tf32`).  The f32 kernels form their products (x . W1^T,
+dz . W1, dz^T x) as split TF32 on the tensor cores: each f32 operand is a TF32
+hi plus a TF32 lo, and a product is lo.hi + hi.lo + hi.hi in f32, ~2^-21
+relative against true f32's 2^-24 (as the TPU kernels' own f32 is the MXU's
+multi-pass bf16), held against the true-f32 plain versions on the card.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -30,9 +35,15 @@ from .coattn import _device_index, _ptr
 
 D_KERNEL, HID_KERNEL = 512, 256  # the widths the kernels are built for
 # patches per kernel tile (Tile<T>::M in csrc/abmil_common.cuh) and hid
-# columns per block of the weight-gradient pass (kSlice in csrc/abmil_bwd.cu)
-_TILE = {torch.float32: 32, torch.bfloat16: 64, torch.int8: 64}
+# columns per block of the bf16 and int8 weight-gradient pass (kSlice in
+# csrc/abmil_bwd.cu)
+_TILE = {torch.float32: 64, torch.bfloat16: 64, torch.int8: 64}
 _SLICE = 32
+# f32's weight-gradient pass (csrc/abmil_bwd.cu): kDwTiles blocks of a
+# [128, 128] tile of dW1 on each chunk of the B*N patch rows, chunks a
+# multiple of kRowsDw rows
+_DW_TILES = 8
+_DW_ROWS = 32
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
@@ -176,6 +187,73 @@ def _split(B: int, N: int, tile: int, target_blocks: int) -> Tuple[int, int]:
     return chunk, max(1, -(-N // chunk))
 
 
+# a block's fixed cost in tiles of work: its first slices' latency, the
+# partial it writes and the merge (forward) or reduce (backward) that reads it
+_BLOCK_COST_TILES = 0.25
+
+
+@functools.lru_cache(maxsize=256)
+def _split_waves(B: int, N: int, tile: int, n_sm: int) -> Tuple[int, int]:
+    """(chunk, S) for kernels whose block fills an SM (f32: its x tile and W1
+    stages take ~209 KB of shared memory): the chunk (a multiple of the tile)
+    that ends soonest, ceil(B*S / n_sm) waves of chunk/tile tiles and a
+    block's fixed cost each, and the fewest blocks among equals."""
+    tiles = max(1, -(-N // tile))
+    best = None
+    for S in range(1, tiles + 1):
+        per = -(-tiles // S)
+        S = -(-tiles // per)
+        key = (-(-B * S // n_sm) * (per + _BLOCK_COST_TILES), B * S)
+        if best is None or key < best[0]:
+            best = (key, per * tile, S)
+    return best[1], best[2]
+
+
+def _split_rows(K: int, n_sm: int) -> Tuple[int, int]:
+    """(chunk2, S2) of f32's weight-gradient pass: the K = B*N patch rows in
+    S2 chunks of chunk2 rows (a multiple of _DW_ROWS), so that the _DW_TILES
+    tiles of each chunk fill about one wave of the card."""
+    S2 = max(1, n_sm // _DW_TILES)
+    chunk = -(-(-(-K // S2)) // _DW_ROWS) * _DW_ROWS
+    return chunk, -(-K // chunk)
+
+
+def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int) -> dict:
+    """The forward's launch plan for x of `dtype` [B, N, 512] on a card of
+    n_sm SMs: the chunk of patches a block takes, the blocks S a bag, and
+    the workspace shapes the wrapper allocates."""
+    if dtype == torch.float32:
+        chunk, S = _split_waves(B, N, _TILE[dtype], n_sm)
+    else:
+        chunk, S = _split(B, N, _TILE[dtype], 2 * n_sm)
+    return {"chunk": chunk, "S": S, "ws_m": (B, S), "ws_l": (B, S),
+            "ws_acc": (B, S, D_KERNEL),
+            "w1_bf16": None if dtype == torch.float32 else (2, HID_KERNEL, D_KERNEL)}
+
+
+def bwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int) -> dict:
+    """The backward's launch plan: pass 1 over chunks of chunk1 patches of
+    each bag (S1 a bag), pass 2 over S2 chunks of chunk2 (bf16, int8: of each
+    bag, for every hid slice; f32: of the B*N patch rows, for each of its
+    _DW_TILES tiles of dW1), and the workspace shapes: "ds" is ds [B, N]
+    (bf16, int8) or dz [B, N, 256] (f32); the partials of dW1 ("ws_dw1") and
+    of db1 and dw2 ("ws_b", each) come from pass 2, or for f32 dW1's from pass
+    2 and the others' from pass 1."""
+    tile = _TILE[dtype]
+    if dtype == torch.float32:
+        chunk1, S1 = _split_waves(B, N, tile, n_sm)
+        chunk2, S2 = _split_rows(B * N, n_sm)
+        return {"chunk1": chunk1, "S1": S1, "chunk2": chunk2, "S2": S2,
+                "ds": (B, N, HID_KERNEL), "ws_dw1": (S2, HID_KERNEL, D_KERNEL),
+                "ws_b": (B * S1, HID_KERNEL), "w1_bf16": None}
+    chunk1, S1 = _split(B, N, tile, 2 * n_sm)
+    # pass 2 runs one block per hid slice for each chunk
+    chunk2, S2 = _split(B, N, tile, -(-2 * n_sm // (HID_KERNEL // _SLICE)))
+    return {"chunk1": chunk1, "S1": S1, "chunk2": chunk2, "S2": S2, "ds": (B, N),
+            "ws_dw1": (B * S2, HID_KERNEL, D_KERNEL), "ws_b": (B * S2, HID_KERNEL),
+            "w1_bf16": (2, HID_KERNEL, D_KERNEL)}
+
+
 def _tensor(name, t, shape, dtype, device):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
@@ -220,11 +298,9 @@ def _n_sm(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _w1_bf16(x, device):
+def _w1_bf16(shape, device):
     """The kernels' bf16 copy of W1 (hi and, for int8, lo), or None for f32."""
-    if x.dtype == torch.float32:
-        return None
-    return torch.empty(2, HID_KERNEL, D_KERNEL, dtype=torch.bfloat16, device=device)
+    return None if shape is None else torch.empty(shape, dtype=torch.bfloat16, device=device)
 
 
 def _fwd(x, x_scale, mask, w1, b1, w2, kernel):
@@ -233,12 +309,13 @@ def _fwd(x, x_scale, mask, w1, b1, w2, kernel):
     lib = _library("abmil_fwd")
     storage = _STORAGE[x.dtype]
     _check_smem(lib, "abmil_fwd", device, storage)
-    chunk, S = _split(B, N, _TILE[x.dtype], 2 * _n_sm(device))
+    plan = fwd_plan(x.dtype, B, N, _n_sm(device))
+    chunk, S = plan["chunk"], plan["S"]
     f32 = dict(dtype=torch.float32, device=device)
     out, m, l = torch.empty(B, D_KERNEL, **f32), torch.empty(B, **f32), torch.empty(B, **f32)
-    ws_m, ws_l = torch.empty(B, S, **f32), torch.empty(B, S, **f32)
-    ws_acc = torch.empty(B, S, D_KERNEL, **f32)
-    w1b = _w1_bf16(x, device)
+    ws_m, ws_l = torch.empty(plan["ws_m"], **f32), torch.empty(plan["ws_l"], **f32)
+    ws_acc = torch.empty(plan["ws_acc"], **f32)
+    w1b = _w1_bf16(plan["w1_bf16"], device)
     err = lib.abmil_fwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
                         B, N, chunk, S, storage, _device_index(device), _ptr(w1b),
                         _ptr(ws_m), _ptr(ws_l), _ptr(ws_acc), _ptr(out), _ptr(m), _ptr(l),
@@ -278,18 +355,16 @@ def _bwd(x, x_scale, mask, w1, b1, w2, g, out, m, l, need_dx, kernel):
     storage = _STORAGE[x.dtype]
     _check_smem(lib, "abmil_bwd", device, storage, 1, int(need_dx))
     _check_smem(lib, "abmil_bwd", device, storage, 2, 0)
-    n_sm, tile = _n_sm(device), _TILE[x.dtype]
-    chunk1, S1 = _split(B, N, tile, 2 * n_sm)
-    # pass 2 runs one block per hid slice for each chunk
-    chunk2, S2 = _split(B, N, tile, -(-2 * n_sm // (HID_KERNEL // _SLICE)))
+    plan = bwd_plan(x.dtype, B, N, _n_sm(device))
+    chunk1, S1, chunk2, S2 = plan["chunk1"], plan["S1"], plan["chunk2"], plan["S2"]
     f32 = dict(dtype=torch.float32, device=device)
     dw1, db1, dw2 = (torch.empty(HID_KERNEL, D_KERNEL, **f32), torch.empty(HID_KERNEL, **f32),
                      torch.empty(HID_KERNEL, **f32))
-    ds = torch.empty(B, N, **f32)
-    ws_dw1 = torch.empty(B * S2, HID_KERNEL, D_KERNEL, **f32)
-    ws_db1, ws_dw2 = torch.empty(B * S2, HID_KERNEL, **f32), torch.empty(B * S2, HID_KERNEL, **f32)
+    ds = torch.empty(plan["ds"], **f32)
+    ws_dw1 = torch.empty(plan["ws_dw1"], **f32)
+    ws_db1, ws_dw2 = torch.empty(plan["ws_b"], **f32), torch.empty(plan["ws_b"], **f32)
     dx = torch.empty_like(x) if need_dx else None
-    w1b = _w1_bf16(x, device)
+    w1b = _w1_bf16(plan["w1_bf16"], device)
     err = lib.abmil_bwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
                         _ptr(g), _ptr(out), _ptr(m), _ptr(l), B, N, chunk1, S1, chunk2, S2,
                         storage, int(need_dx), _device_index(device), _ptr(w1b), _ptr(ds),

@@ -1,0 +1,183 @@
+"""The f32 ABMIL kernels against the design alternatives they were chosen over.
+
+    python -m vlsa_tpu_torch.ops.abmil_variants [--B 8 --N 10240] [--variants base,cvt]
+
+Builds `csrc/abmil_fwd.cu` and `csrc/abmil_bwd.cu` as they are ("base") and,
+as text edits of those sources, one alternative each:
+
+  - cvt: the TF32 split by `cvt.rna.tf32.f32` for hi and for lo (the kernels
+    round hi with an integer add and mask, and pass lo's f32 bits, which the
+    tensor cores read as TF32 by dropping 13 bits);
+  - one_chain: each product accumulated in one chain of mma.sync, without the
+    fresh accumulator a 32-deep slice starts and the CUDA cores' add of it;
+  - chains: a tile's three products (lo.hi, hi.lo, hi.hi) back to back,
+    where the kernels run three waves of the warp's 16 tiles;
+  - volatile: the mma.sync statements `asm volatile`.
+
+For each, in one process on the same inputs (B bags of N patches, D=512,
+hid=256, 10% of patches masked, the last bag empty): the f32 forward, the
+backward and the backward with dX against the plain versions (max|a-b| /
+max|b|, the worst over each call's outputs), ptxas's registers and spills
+of the f32 kernels, and each call's time (CUDA events, median of 25, the L2
+flushed before each), the variants timed in turns (a, b, ..., b, a).  One
+JSON line per variant.  Needs a CUDA card and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+_COMMON = "abmil_common.cuh"
+_SPLIT = ("    hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
+          "    lo = __float_as_uint(v - __uint_as_float(hi));")
+_SPLIT_CVT = ('    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(v));\n'
+              '    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));')
+_SLICE = ("    float part[kMT][kNT][4];\n"
+          "    zero_acc(part);\n"
+          "#pragma unroll\n"
+          "    for (int kk = 0; kk < 32; kk += 8) kstep_3xtf32<A_KMAJOR, B_KMAJOR>(part, a, lda, b, ldb, kk);\n"
+          "#pragma unroll\n"
+          "    for (int mt = 0; mt < kMT; ++mt)\n"
+          "#pragma unroll\n"
+          "        for (int nt = 0; nt < kNT; ++nt)\n"
+          "#pragma unroll\n"
+          "            for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];")
+_ONE_CHAIN = ("#pragma unroll\n"
+              "    for (int kk = 0; kk < 32; kk += 8) kstep_3xtf32<A_KMAJOR, B_KMAJOR>(acc, a, lda, b, ldb, kk);")
+
+
+def _wave(a: str, b: str) -> str:
+    return ("#pragma unroll\n"
+            "    for (int nt = 0; nt < kNT; ++nt)\n"
+            "#pragma unroll\n"
+            f"        for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[mt][nt], {a}[mt], {b}[nt]);")
+
+
+_WAVES = "\n".join(_wave(a, b) for a, b in (("al", "bh"), ("ah", "bl"), ("ah", "bh")))
+_CHAINS = ("#pragma unroll\n"
+           "    for (int nt = 0; nt < kNT; ++nt)\n"
+           "#pragma unroll\n"
+           "        for (int mt = 0; mt < kMT; ++mt) {\n"
+           "            mma_tf32(acc[mt][nt], al[mt], bh[nt]);\n"
+           "            mma_tf32(acc[mt][nt], ah[mt], bl[nt]);\n"
+           "            mma_tf32(acc[mt][nt], ah[mt], bh[nt]);\n"
+           "        }")
+# name -> [(file in csrc/, text, its replacement)]; each text must occur once
+VARIANTS = {
+    "base": [],
+    "cvt": [(_COMMON, _SPLIT, _SPLIT_CVT)],
+    "one_chain": [(_COMMON, _SLICE, _ONE_CHAIN)],
+    "chains": [(_COMMON, _WAVES, _CHAINS)],
+    "volatile": [(_COMMON, 'asm("mma.sync', 'asm volatile("mma.sync')],
+}
+LIBS = ("abmil_fwd", "abmil_bwd")
+
+
+def build_variant(name: str):
+    """The variant's csrc/ copy under build/variants/<name>/, compiled:
+    ({library: ctypes.CDLL}, [ptxas lines of its f32 kernels])."""
+    from . import _build
+    from .abmil import _ARGTYPES, _SMEM_ARGTYPES
+    src = _build.BUILD_DIR / "variants" / name
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, src)
+    for file, old, new in VARIANTS[name]:
+        text = (src / file).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: its edit of {file} matches {text.count(old)} times")
+        (src / file).write_text(text.replace(old, new))
+    libs, ptxas = {}, []
+    for lib in LIBS:
+        so = src / f"lib{lib}.so"
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+                               str(src / f"{lib}.cu")], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}, {lib}.cu:\n{proc.stdout}")
+        ptxas += [r for r in _build.ptxas_report(proc.stdout) if "_f32" in r["function"]]
+        cdll = ctypes.CDLL(str(so))
+        entry, smem = getattr(cdll, lib), getattr(cdll, f"{lib}_smem_bytes")
+        entry.argtypes, entry.restype = _ARGTYPES[lib], ctypes.c_int
+        smem.argtypes, smem.restype = _SMEM_ARGTYPES[lib], ctypes.c_size_t
+        libs[lib] = cdll
+    return libs, ptxas
+
+
+def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
+    """Median of `runs` calls of fn, CUDA events, a 256 MiB write flushing
+    the L2 before each."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sorted(times)[runs // 2]
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def compare(B: int = 8, N: int = 10240, names=tuple(VARIANTS), seed: int = 1) -> list:
+    from . import abmil as ab
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build_variant, names)))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D, H = ab.D_KERNEL, ab.HID_KERNEL
+    mask = torch.rand(B, N, generator=g, device="cuda") > 0.1
+    mask[-1] = False
+    x = (torch.randn(B, N, D, generator=g, device="cuda") * mask[..., None]).contiguous()
+    w1 = (torch.rand(H, D, generator=g, device="cuda") * 2 - 1) * D ** -0.5
+    b1 = (torch.rand(H, generator=g, device="cuda") * 2 - 1) * D ** -0.5
+    w2 = 0.25 * torch.randn(H, generator=g, device="cuda")
+    gout = torch.randn(B, D, generator=g, device="cuda")
+    ref, m, l = ab.abmil_fwd_reference(x, mask, w1, b1, w2)
+    want = {dx: ab.abmil_bwd_reference(x, mask, w1, b1, w2, gout, ref, m, l, need_dx=dx)
+            for dx in (False, True)}
+    shipped, recs = ab._library, {}
+    try:
+        for turn, name in enumerate(list(names) + list(names)[::-1]):
+            libs, ptxas = built[name]
+            ab._library = libs.__getitem__
+            out, m_k, l_k = ab.abmil_fwd(x, mask, w1, b1, w2)
+            rec = recs.setdefault(name, {"variant": name, "B": B, "N": N, "ptxas": ptxas,
+                                         "fwd_ms": [], "bwd_ms": [], "bwd_dx_ms": []})
+            if turn < len(names):
+                rec["fwd_rel_err"] = _rel(out, ref)
+                for dx, key in ((False, "bwd_rel_err"), (True, "bwd_dx_rel_err")):
+                    got = ab.abmil_bwd(x, mask, w1, b1, w2, gout, out, m_k, l_k, need_dx=dx)
+                    rec[key] = max(_rel(a, b) for a, b in zip(got, want[dx]) if b is not None)
+            rec["fwd_ms"].append(median_ms(lambda: ab.abmil_fwd(x, mask, w1, b1, w2)))
+            for dx, key in ((False, "bwd_ms"), (True, "bwd_dx_ms")):
+                rec[key].append(median_ms(lambda: ab.abmil_bwd(x, mask, w1, b1, w2, gout, out,
+                                                               m_k, l_k, need_dx=dx)))
+    finally:
+        ab._library = shipped
+    return list(recs.values())
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--B", type=int, default=8)
+    ap.add_argument("--N", type=int, default=10240)
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    args = ap.parse_args(argv)
+    for rec in compare(args.B, args.N, tuple(args.variants.split(","))):
+        print(json.dumps(rec), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -12,26 +12,43 @@
 // Rounding follows the TPU kernels: bf16 storage multiplies x by W1 rounded
 // to bf16 (f32 accumulation); int8 multiplies the raw int8 values by W1 split
 // into bf16 hi + lo (~16 bits; the TPU splits it into two int8 parts, ~15
-// bits); f32 computes in true f32.
+// bits); f32 forms x . W1^T in split TF32 on the tensor cores (~2^-21
+// relative per product; the plain version ops/abmil.py::abmil_fwd_reference
+// stays true f32, and the TPU kernel's own f32 is the MXU's multi-pass bf16).
 //
 // What bounds it on an H100: the product is 2*D*hid operations per patch, 256
 // per bf16 byte of x at D=512, hid=256 -- at the card's bf16 ridge (~295), so
 // bytes (x read once) and tensor-core operations bound it about equally; int8
-// halves the bytes; f32 has no tensor-core path and is bound by its 67
-// TFLOP/s of CUDA-core FMA.  This first version is written to be right, not
-// fast (PERF.md holds its times beside the bound):
-//   - bf16 and int8 use the tensor cores through nvcuda::wmma (bf16 operands,
-//     f32 accumulation), 16x16x16 fragments; int8 pays two products (hi, lo);
-//   - W1 [256, 512] does not fit in shared memory with a tile (256 KB in
-//     bf16), so it is streamed through shared memory in slices of 64 columns
-//     of D for every tile of 64 patches: W1 is re-read from L2 once per tile,
-//     4x the tile's own bytes (bf16), which the 50 MB L2 serves;
-//   - f32 runs on CUDA cores, tiles of 32 patches, W1 in slices of 16 columns.
-//   wgmma, TMA and a pipelined W1 stream are later work.
+// halves the bytes.  f32 is bound by its products: 3 TF32 products each
+// (495 TFLOP/s dense) beat one f32 FMA on the CUDA cores (67 TFLOP/s) 2.5x.
+// PERF.md holds the times beside the bound.
+//   - bf16 and int8 (written to be right, not fast) use the tensor cores
+//     through nvcuda::wmma (bf16 operands, f32 accumulation), 16x16x16
+//     fragments; int8 pays two products (hi, lo).  W1 [256, 512] does not fit
+//     in shared memory with a tile (256 KB in bf16), so it is streamed
+//     through shared memory in slices of 64 columns of D for every tile of 64
+//     patches, synchronously: re-read from L2 once per tile, 4x the tile's
+//     own bytes (bf16), which the 50 MB L2 serves.
+//   - f32 (abmil_fwd_partial_f32): mma.sync m16n8k8 with TF32 operands, each
+//     f32 operand split into hi + lo as its fragment is loaded from shared
+//     memory, lo.hi + hi.lo + hi.hi into f32 accumulators (abmil_common.cuh).
+//     The tile of 64 patches stays resident in shared memory (132 KB, rows
+//     padded to 516 floats): it is the A operand of the h product and then
+//     the PV sum's rows, so x is read from device memory once.  W1 f32
+//     streams through 2 cp.async stages of 32 columns of D (36 KB each), x's
+//     own 32-column slices beside it, so the product waits on no synchronous
+//     restage and the x tile arrives while the first slices multiply; the
+//     next tile's first W1 slice is in flight during this tile's epilogue.
+//     W1 is split at fragment load (not pre-split by a prep kernel: that
+//     doubles its L2 -> SM bytes), 512 KB from L2 per tile of 64: 4x x's own
+//     bytes, 0.67 GB a call at B=8, N=10240.  h [64, 256] never leaves the
+//     registers: 8 warps of 32 rows x 64 hid columns, 64 accumulators a
+//     thread; tanh, the w2 dot and the quad and warp sums of the logit run
+//     on the fragments.  209 KB of shared memory: one block per SM.
 //
 // Design.  The TPU grid walks N in order and carries (m, l, acc) in VMEM.
 // Hopper runs blocks in parallel, so each bag's patches are split over S
-// blocks (the chunk plan of ops/abmil.py::_split): block (s, b) runs the
+// blocks (the chunk plan of ops/abmil.py::fwd_plan): block (s, b) runs the
 // online softmax over its chunk and writes its partial (m, l, acc[D]); a
 // second kernel merges the partials of each bag in a fixed order.
 // Deterministic, no atomics.  Any N: the ragged edge of the last tile is
@@ -39,11 +56,13 @@
 // before anything is multiplied; an empty bag gives out = 0, m = -1e30 and
 // l = 1e-30.
 //
-// Per tile: (1) stage the x tile in shared memory (int8 as exact bf16);
-// (2) h_pre = x . W1^T into a [tile, hid] f32 tile (abmil_common.cuh);
-// (3) one warp per patch: tanh, the w2 dot and the mask give the logit;
-// (4) warp 0 updates the online softmax; (5) each thread folds the tile's
-// weighted rows into its two channels of acc, held in registers.
+// Per tile (bf16, int8): (1) stage the x tile in shared memory (int8 as
+// exact bf16); (2) h_pre = x . W1^T into a [tile, hid] f32 tile
+// (abmil_common.cuh); (3) one warp per patch: tanh, the w2 dot and the mask
+// give the logit; (4) warp 0 updates the online softmax; (5) each thread
+// folds the tile's weighted rows into its two channels of acc, held in
+// registers.  f32: (1)-(2) are h_product_f32, (3) tanh_logit_f32 on the
+// accumulators, then (4) and (5) as above.
 #include "abmil_common.cuh"
 
 using namespace abmil;
@@ -63,8 +82,7 @@ struct FwdSmem {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 abmil_fwd_partial(const T* __restrict__ x, const float* __restrict__ x_scale,
-                  const uint8_t* __restrict__ mask, const float* __restrict__ w1,
-                  const __nv_bfloat16* __restrict__ w1h, const __nv_bfloat16* __restrict__ w1l,
+                  const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ w1h, const __nv_bfloat16* __restrict__ w1l,
                   const float* __restrict__ b1, const float* __restrict__ w2, int N,
                   int chunk, int S, float* __restrict__ ws_m, float* __restrict__ ws_l,
                   float* __restrict__ ws_acc) {
@@ -109,7 +127,7 @@ abmil_fwd_partial(const T* __restrict__ x, const float* __restrict__ x_scale,
             valid_s[r] = valid ? 1.f : 0.f;
             scale_s[r] = (valid && x_scale != nullptr) ? x_scale[(size_t)b * N + n] : 1.f;
         }
-        h_gemm<T>(xs, w1, w1h, w1l, wst, hs);  // synchronises before and after
+        h_gemm<T>(xs, w1h, w1l, wst, hs);  // synchronises before and after
 
         for (int r = warp; r < M; r += kWarps) {
             const float sr = scale_s[r];
@@ -166,6 +184,115 @@ abmil_fwd_partial(const T* __restrict__ x, const float* __restrict__ x_scale,
     ws_acc[part * kD + tid + kThreads] = acc1;
 }
 
+// The same partial for f32 storage: x . W1^T in split TF32 on the tensor
+// cores, the x tile resident, W1 streamed by cp.async (see the note above).
+struct FwdSmemF {
+    static constexpr size_t x = 0;                                      // [kMF][kLdXF]
+    static constexpr size_t w = x + round128((size_t)kMF * kLdXF * 4);  // 2 stages
+    static constexpr size_t cols = w + 2 * kStageF;                     // b1, w2 [kHid]
+    static constexpr size_t red = cols + round128(2 * (size_t)kHid * 4);  // [4][kMF]
+    static constexpr size_t rows = red + round128(4 * (size_t)kMF * 4);   // p [kMF] + 4 stats
+    static constexpr size_t total = rows + round128(((size_t)kMF + 4) * 4);
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+abmil_fwd_partial_f32(const float* __restrict__ x, const uint8_t* __restrict__ mask,
+                      const float* __restrict__ w1, const float* __restrict__ b1,
+                      const float* __restrict__ w2, int N, int chunk, int S,
+                      float* __restrict__ ws_m, float* __restrict__ ws_l,
+                      float* __restrict__ ws_acc) {
+    using L = FwdSmemF;
+    extern __shared__ __align__(128) unsigned char smem[];
+    float* xs = reinterpret_cast<float*>(smem + L::x);
+    float* stage0 = reinterpret_cast<float*>(smem + L::w);
+    float* b1s = reinterpret_cast<float*>(smem + L::cols);
+    float* w2s = b1s + kHid;
+    float* red = reinterpret_cast<float*>(smem + L::red);
+    float* p_s = reinterpret_cast<float*>(smem + L::rows);
+    float* stat_s = p_s + kMF;  // m, l, correction
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int split = blockIdx.x, b = blockIdx.y;
+    const int n_begin = split * chunk;
+    const int n_end = min(N, n_begin + chunk);
+    const float* xb = x + (size_t)b * N * kD;
+    const uint8_t* mb = mask + (size_t)b * N;
+
+    load_w1_cols(w1, stage0, 0);  // the first tile's first W1 slice
+    cp_async_commit();
+    for (int j = tid; j < kHid; j += kThreads) {
+        b1s[j] = b1[j];
+        w2s[j] = w2[j];
+    }
+    if (tid == 0) {
+        stat_s[0] = kNegInf;
+        stat_s[1] = 0.f;
+    }
+    float acc0 = 0.f, acc1 = 0.f;  // channels tid and tid + kThreads
+    float acc[kMT][kNT][4];
+
+    for (int t0 = n_begin; t0 < n_end; t0 += kMF) {
+        const bool more = t0 + kMF < n_end;
+        h_product_f32(acc, xb, t0, n_end, w1, xs, stage0, [&](float* st) {
+            if (more) load_w1_cols(w1, st, 0);  // the next tile's first slice
+        });
+        tanh_logit_f32(acc, b1s, w2s, red);
+        __syncthreads();
+
+        if (warp == 0) {
+            float lg[kMF / 32];
+            bool valid[kMF / 32];
+            float mx = kNegInf;
+#pragma unroll
+            for (int i = 0; i < kMF / 32; ++i) {
+                const int r = lane + 32 * i, n = t0 + r;
+                valid[i] = n < n_end && mb[n] != 0;
+                lg[i] = valid[i] ? (red[r] + red[kMF + r]) + (red[2 * kMF + r] + red[3 * kMF + r])
+                                 : kNegInf;
+                mx = fmaxf(mx, lg[i]);
+            }
+            mx = warp_max(mx);
+            const float m_prev = stat_s[0];
+            const float m_new = fmaxf(m_prev, mx);
+            float psum = 0.f;
+#pragma unroll
+            for (int i = 0; i < kMF / 32; ++i) {
+                const float p = valid[i] ? expf(lg[i] - m_new) : 0.f;
+                p_s[lane + 32 * i] = p;
+                psum += p;
+            }
+            psum = warp_sum(psum);
+            if (lane == 0) {
+                const float corr = expf(m_prev - m_new);
+                stat_s[2] = corr;
+                stat_s[1] = stat_s[1] * corr + psum;
+                stat_s[0] = m_new;
+            }
+        }
+        __syncthreads();
+
+        const float corr = stat_s[2];
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll 8
+        for (int r = 0; r < kMF; ++r) {
+            const float p = p_s[r];
+            s0 = fmaf(p, xs[r * kLdXF + tid], s0);
+            s1 = fmaf(p, xs[r * kLdXF + tid + kThreads], s1);
+        }
+        acc0 = acc0 * corr + s0;
+        acc1 = acc1 * corr + s1;
+        __syncthreads();  // xs, p and the stats are rewritten by the next tile
+    }
+
+    const size_t part = (size_t)b * S + split;
+    if (tid == 0) {
+        ws_m[part] = stat_s[0];
+        ws_l[part] = stat_s[1];
+    }
+    ws_acc[part * kD + tid] = acc0;
+    ws_acc[part * kD + tid + kThreads] = acc1;
+}
+
 // Merge the S partials of each bag: m = max_s m_s, l = sum_s l_s e^(m_s - m),
 // out = sum_s acc_s e^(m_s - m) / max(l, 1e-30).  Grid (B).
 __global__ void __launch_bounds__(kThreads)
@@ -203,9 +330,9 @@ abmil_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
 
 template <typename T>
 cudaError_t launch_partial(const void* x, const float* x_scale, const uint8_t* mask,
-                           const float* w1, const __nv_bfloat16* w1_bf16, const float* b1,
-                           const float* w2, int B, int N, int chunk, int S, float* ws_m,
-                           float* ws_l, float* ws_acc, cudaStream_t stream) {
+                           const __nv_bfloat16* w1_bf16, const float* b1, const float* w2,
+                           int B, int N, int chunk, int S, float* ws_m, float* ws_l,
+                           float* ws_acc, cudaStream_t stream) {
     auto kernel = abmil_fwd_partial<T>;
     const size_t smem = FwdSmem<T>::total;
     cudaError_t err = cudaFuncSetAttribute(
@@ -213,8 +340,21 @@ cudaError_t launch_partial(const void* x, const float* x_scale, const uint8_t* m
     if (err != cudaSuccess) return err;
     const __nv_bfloat16* w1l = w1_bf16 == nullptr ? nullptr : w1_bf16 + kHid * kD;
     kernel<<<dim3(S, B), kThreads, smem, stream>>>(
-        static_cast<const T*>(x), x_scale, mask, w1, w1_bf16, w1l, b1, w2, N, chunk, S,
+        static_cast<const T*>(x), x_scale, mask, w1_bf16, w1l, b1, w2, N, chunk, S,
         ws_m, ws_l, ws_acc);
+    return cudaGetLastError();
+}
+
+cudaError_t launch_partial_f32(const float* x, const uint8_t* mask, const float* w1,
+                               const float* b1, const float* w2, int B, int N, int chunk,
+                               int S, float* ws_m, float* ws_l, float* ws_acc,
+                               cudaStream_t stream) {
+    const size_t smem = FwdSmemF::total;
+    cudaError_t err = cudaFuncSetAttribute(
+        abmil_fwd_partial_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    abmil_fwd_partial_f32<<<dim3(S, B), kThreads, smem, stream>>>(x, mask, w1, b1, w2, N, chunk,
+                                                                   S, ws_m, ws_l, ws_acc);
     return cudaGetLastError();
 }
 
@@ -224,7 +364,7 @@ extern "C" {
 
 // Bytes of dynamic shared memory one partial block needs.
 size_t abmil_fwd_smem_bytes(int storage) {
-    if (storage == kF32) return FwdSmem<float>::total;
+    if (storage == kF32) return FwdSmemF::total;
     if (storage == kBF16) return FwdSmem<__nv_bfloat16>::total;
     return FwdSmem<int8_t>::total;
 }
@@ -256,16 +396,15 @@ int abmil_fwd(const void* x, const void* x_scale, const void* mask, const void* 
     float* wl = static_cast<float*>(ws_l);
     float* wa = static_cast<float*>(ws_acc);
     if (storage == kF32) {
-        err = launch_partial<float>(x, xs, mk, w1f, nullptr, b1f, w2f, B, N, chunk, S, wm,
-                                    wl, wa, st);
+        err = launch_partial_f32(static_cast<const float*>(x), mk, w1f, b1f, w2f, B, N, chunk,
+                                 S, wm, wl, wa, st);
     } else if (storage == kBF16 || storage == kI8) {
         err = launch_prep_w1(w1f, wb, storage == kI8, st);
         if (err != cudaSuccess) return (int)err;
         err = storage == kBF16
-            ? launch_partial<__nv_bfloat16>(x, xs, mk, w1f, wb, b1f, w2f, B, N, chunk, S, wm,
-                                            wl, wa, st)
-            : launch_partial<int8_t>(x, xs, mk, w1f, wb, b1f, w2f, B, N, chunk, S, wm, wl,
-                                     wa, st);
+            ? launch_partial<__nv_bfloat16>(x, xs, mk, wb, b1f, w2f, B, N, chunk, S, wm, wl,
+                                            wa, st)
+            : launch_partial<int8_t>(x, xs, mk, wb, b1f, w2f, B, N, chunk, S, wm, wl, wa, st);
     } else {
         return (int)cudaErrorInvalidValue;
     }
