@@ -13,7 +13,14 @@ non-zero and prints no result:
      and holds each storage variant of
      the co-attention forward kernel against the port's plain version on the
      card (B=8, N=10240, C=512, P=12, scale 30, 10% of patches masked, one
-     empty bag), in f32; tolerances f32 1e-4, bf16 and int8 1e-3;
+     empty bag; B=5, N=12291, a partial last tile; and B=4, N=3000 at
+     C=1024, the kernel's wide instance, checked by its path counter
+     `LAUNCHES_FWD_PATH`), in f32; tolerances f32 2e-6 (its split-TF32
+     products; the timed phases hold it at 1e-4), bf16 and int8 1e-3;
+     beside that gap it prints the gap to the plain model of the kernel's
+     rounding (`coattn_fwd_rounded`); the empty bag gives out = 0,
+     m = -1e30, l = 1e-30; the streaming kernel's ptxas lines go to the
+     record, and an instance that spills fails the run;
   2b. backward kernel: holds each variant of the dQ kernel against its plain
      version at the same shape, with (out, m, l) from the forward kernel;
      tolerances (max|a-b| / max|b|) f32 1e-3, bf16 and int8 2e-3;
@@ -26,7 +33,7 @@ non-zero and prints no result:
      B=5, N=12291, which ends in a partial 64-patch tile and a partial chunk
      of the launch plan; the kernels' ptxas lines (registers, static shared
      memory, spills) and dynamic shared memory go to the record, and an f32
-     instance that spills fails the run;
+     instance or a backward pass of any storage that spills fails the run;
   2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
      the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
      197, 1 and 1025 (CONCH at 512 px, beyond the resident capacity): bf16
@@ -102,15 +109,20 @@ non-zero and prints no result:
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
      for dQ its gradient with respect to q), beside the least time the card
-     could take (bound_ms); the forward also at B=64 and dQ at the training
-     shape B=32, N=16384; at every timed shape the kernels' results are
-     first held against their plain versions with the tolerances above;
+     could take (bound_ms); every forward variant also at B=64, one a
+     storage at C=1024 (the wide instance), and dQ at the training shape
+     B=32, N=16384, with kernel/bound and kernel/library; at
+     every timed shape the kernels' results are first held against their
+     plain versions with the tolerances above;
   4b. ABMIL times: the same for each ABMIL kernel and its plain version at
      B=8, N=10240 and at the training shape B=32, N=16384, beside one cuBLAS
      x @ W1^T in the storage type (`gemm_ms`, a partial yardstick the port
      never calls: no single PyTorch call computes ABMIL pooling, so
      library_ms is null); f32's bound takes the lesser of its two routes to
      f32-accurate products, the CUDA cores or 3 TF32 tensor-core products;
+     beside the bf16 and int8 backward, their design's byte floor (x read
+     twice, the bf16 dz workspace -- int8: two planes -- written and read
+     once);
   4c. flash times: at B=64, H=12, L=785, bf16 resident and bf16 streamed
      in turns (resident, streamed, streamed, resident) and f32, each beside
      the plain version, one scaled_dot_product_attention call (library_ms,
@@ -140,6 +152,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPE = dict(B=8, N=10240, C=512, P=12)
 SCALE = 30.0
 TOL = {"f32": 1e-4, "bf16": 1e-3, "int8": 1e-3}
+# phase 2 also holds the f32 forward within 2e-6 of the plain version: its
+# split-TF32 products (~2^-21) meet that; bf16 hi + lo operands (~2^-16,
+# 5.2e-6 on the card) would not
+TOL_F32_FWD = 2e-6
+# the forward's wide instance (C > 512, blocks by channel group) at VLFAN's
+# default width
+FWD_WIDE = dict(B=4, N=3000, C=1024)
 # dq tolerances of scripts/validate_kernels_chip.py:87-95
 TOL_DQ = {"f32": 1e-3, "bf16": 2e-3, "int8": 2e-3}
 TOL_GRAD = 2e-3  # parameter gradients, kernel path vs plain path
@@ -184,6 +203,9 @@ REPLACES_ABMIL_BWD = {"f32": "vlsa_tpu/ops/abmil.py:205 _abmil_bwd_kernel",
                       "bf16": "vlsa_tpu/ops/abmil.py:205 _abmil_bwd_kernel",
                       "int8": "vlsa_tpu/ops/abmil.py:419 _abmil_q8_bwd_kernel"}
 TRAIN_SHAPE = dict(B=32, N=16384, C=512, P=12)
+# the co-attention forward also at an N that ends in a partial tile, whose
+# bags' tile ranges start and end inside the blocks' flat ranges
+FWD_RAGGED = dict(B=5, N=12291)
 # the full (dX) backward (vlsa_tpu/ops/coattn.py:345): its storages, source and
 # tolerances (max|a-b| / max|b|; bf16 dX within one bf16 ulp at the scale of
 # its largest element; the gap to true f32 that of
@@ -373,21 +395,37 @@ def phase_kernel(torch, co):
             if "registers" in line or "spill stores" in line:
                 log(f"  ptxas {name}: " + line.strip())
     errs = {}
-    for v in VARIANTS:
-        q, x, mask, xs, xi = make_inputs(torch, **SHAPE, variant=v)
+    shapes = [(SHAPE["B"], SHAPE["N"], SHAPE["C"], "")] * len(VARIANTS) \
+        + [(FWD_RAGGED["B"], FWD_RAGGED["N"], SHAPE["C"], "_ragged")] * len(VARIANTS) \
+        + [(FWD_WIDE["B"], FWD_WIDE["N"], FWD_WIDE["C"], "_wide")] * len(VARIANTS)
+    for (B, N, C, suffix), v in zip(shapes, VARIANTS * 3):
+        q, x, mask, xs, xi = make_inputs(torch, B, N, C, SHAPE["P"], variant=v)
+        paths = dict(co.LAUNCHES_FWD_PATH)
         out, m, l = co.coattn_fwd(q, x, mask, SCALE, xs, xi)
         torch.cuda.synchronize()
+        path = "wide" if C > 512 else "group"
+        check(co.LAUNCHES_FWD_PATH == dict(paths, **{path: paths[path] + 1}),
+              f"{v} at C={C}: the forward's instance counts {co.LAUNCHES_FWD_PATH}, not one "
+              f"more {path} launch than {paths}")
         ref = co.coattn_pool_reference(q, x, mask, SCALE, xs)
         diff = (out - ref).abs().max().item()
         rel = diff / max(ref.abs().max().item(), 1e-30)
+        # the kernel against the plain model of its own rounding (q and the
+        # weights as bf16 hi + lo; f32 in split TF32), beside its gap to true f32
+        model = co.coattn_fwd_rounded(q, x, mask, SCALE, xs, xi)[0]
+        rel_model = rel_err(out, model)
         empty = out[-1].abs().max().item()
-        log(f"kernel {v:9s} max|k-p| {diff:.3e}  rel {rel:.3e}  (tol {TOL[storage_of(v)]:g})"
-            f"  empty bag {empty:g}  finite m,l {bool(torch.isfinite(m).all())}")
+        empty_stats = bool(torch.all(m[-1] == -1e30)) and bool(torch.all(l[-1] == 1e-30))
+        tol = TOL_F32_FWD if storage_of(v) == "f32" else TOL[storage_of(v)]
+        log(f"kernel {v:9s} B={B} N={N} C={C} ({path}) max|k-p| {diff:.3e}  rel {rel:.3e}  "
+            f"(tol {tol:g})  vs its rounding model {rel_model:.3e}  empty bag {empty:g}"
+            f"  finite m,l {bool(torch.isfinite(m).all())}")
         check(bool(torch.isfinite(out).all()), f"{v}: non-finite kernel output")
-        check(rel <= TOL[storage_of(v)], f"{v}: kernel deviates {rel:.3e} from its plain version")
-        check(empty == 0.0, f"{v}: the empty bag pooled to {empty}")
-        errs[v] = {"max_abs_err": diff, "rel_err": rel}
-        del q, x, mask, xs, xi, out, ref
+        check(rel <= tol, f"{v} at C={C}: kernel deviates {rel:.3e} from its plain version")
+        check(empty == 0.0 and empty_stats, f"{v}: the empty bag pooled to {empty}, stats "
+                                            f"{m[-1].tolist()}, {l[-1].tolist()}")
+        errs[v + suffix] = {"max_abs_err": diff, "rel_err": rel, "model_rel_err": rel_model}
+        del q, x, mask, xs, xi, out, ref, model
     return errs
 
 
@@ -485,30 +523,66 @@ def hold_abmil(torch, ab, x, xs, mask, w1, b1, w2, g, storage, where):
     return errs, (out, m, l)
 
 
+def ptxas_lines(name: str) -> list:
+    """ptxas's lines for csrc/<name>.cu's kernels (registers, static shared
+    memory, spills), logged."""
+    from vlsa_tpu_torch.ops import _build
+    check(name in _build.BUILD_LOGS, f"no nvcc output for {name}.cu")
+    report = _build.ptxas_report(_build.BUILD_LOGS[name])
+    for r in report:
+        log(f"  ptxas {name} {r['function']}: {r['registers']} registers, {r['smem']} bytes "
+            f"static smem, spill stores {r['spill_stores']}, loads {r['spill_loads']}")
+    return report
+
+
 def abmil_ptxas(ab) -> dict:
     """ptxas's lines for csrc/abmil_fwd.cu's and csrc/abmil_bwd.cu's kernels
-    and the f32 kernels' dynamic shared memory; fails if an f32 instance
+    and the f32 kernels' and every backward pass's dynamic shared memory;
+    fails if an f32 instance or a backward pass (abmil_bwd_dz_*,
+    abmil_bwd_dw_*: 2 f32, 3 bf16-operand pass-1 instances, 3 pass-2 ones)
     spills or a block's shared memory exceeds what the card gives."""
     import torch
-    from vlsa_tpu_torch.ops import _build
-    report = {}
-    for name in ("abmil_fwd", "abmil_bwd"):
-        check(name in _build.BUILD_LOGS, f"no nvcc output for {name}.cu")
-        report[name] = _build.ptxas_report(_build.BUILD_LOGS[name])
-        for r in report[name]:
-            log(f"  ptxas {name} {r['function']}: {r['registers']} registers, {r['smem']} "
-                f"bytes static smem, spill stores {r['spill_stores']}, loads {r['spill_loads']}")
+    report = {name: ptxas_lines(name) for name in ("abmil_fwd", "abmil_bwd")}
     f32 = [r for rs in report.values() for r in rs if "_f32" in r["function"]]
     check(len(f32) == 4, f"ptxas shows {len(f32)} f32 ABMIL kernels, not 4")
-    for r in f32:
-        check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"an f32 ABMIL kernel spills: {r}")
+    passes = [r for r in report["abmil_bwd"] if "abmil_bwd_d" in r["function"]]
+    check(len(passes) == 8, f"ptxas shows {len(passes)} ABMIL backward passes, not 8")
+    for r in f32 + passes:
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"an ABMIL kernel spills: {r}")
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    smem = {"fwd": ab._library("abmil_fwd").abmil_fwd_smem_bytes(0),
-            "bwd_pass1": ab._library("abmil_bwd").abmil_bwd_smem_bytes(0, 1, 1),
-            "bwd_pass2": ab._library("abmil_bwd").abmil_bwd_smem_bytes(0, 2, 0)}
-    log(f"  f32 ABMIL dynamic shared memory {smem} bytes a block (the card gives {optin})")
-    check(max(smem.values()) <= optin, f"f32 ABMIL shared memory {smem} above {optin}")
-    return {"kernels": report, "f32_dynamic_smem": smem}
+    fwd, bwd = ab._library("abmil_fwd"), ab._library("abmil_bwd")
+    smem = {"fwd": fwd.abmil_fwd_smem_bytes(0), "bwd_pass1": bwd.abmil_bwd_smem_bytes(0, 1),
+            "bwd_pass2": bwd.abmil_bwd_smem_bytes(0, 2),
+            "bf16_bwd_pass1": bwd.abmil_bwd_smem_bytes(1, 1),
+            "bf16_bwd_pass2": bwd.abmil_bwd_smem_bytes(1, 2),
+            "int8_bwd_pass1": bwd.abmil_bwd_smem_bytes(2, 1),
+            "int8_bwd_pass2": bwd.abmil_bwd_smem_bytes(2, 2)}
+    log(f"  ABMIL dynamic shared memory {smem} bytes a block (the card gives {optin})")
+    check(max(smem.values()) <= optin, f"ABMIL shared memory {smem} above {optin}")
+    return {"kernels": report, "dynamic_smem": smem}
+
+
+def coattn_fwd_ptxas(co) -> dict:
+    """ptxas's lines for csrc/coattn_fwd.cu's kernels and the streaming
+    kernel's dynamic shared memory at C=512 for each storage; fails if a
+    streaming instance spills or its shared memory exceeds the card's."""
+    import torch
+    report = ptxas_lines("coattn_fwd")
+    stream = [r for r in report if "coattn_fwd_stream" in r["function"]]
+    check(len(stream) == 12, f"ptxas shows {len(stream)} streaming instances, not 12 "
+                             "(3 storages, host norms or not, C <= 512 or wide)")
+    for r in stream:
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"a co-attention forward instance spills: {r}")
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = co._library("coattn_fwd")
+    smem = {s: lib.coattn_fwd_smem_bytes(SHAPE["P"], SHAPE["C"], i)
+            for i, s in enumerate(("f32", "bf16", "int8"))}
+    log(f"  co-attention forward dynamic shared memory {smem} bytes a block at C=512 "
+        f"(the card gives {optin})")
+    check(0 < min(smem.values()) and max(smem.values()) <= optin,
+          f"co-attention forward shared memory {smem} against {optin}")
+    return {"kernels": report, "dynamic_smem": smem}
 
 
 def phase_abmil_kernels(torch, ab):
@@ -545,13 +619,7 @@ def make_qkv(torch, B, H, L, variant, seed=0, device="cuda"):
 def flash_ptxas() -> list:
     """ptxas's lines for csrc/flash_attn_fwd.cu's kernels; fails if the
     resident kernel spills."""
-    from vlsa_tpu_torch.ops import _build
-    check("flash_attn_fwd" in _build.BUILD_LOGS, "no nvcc output for flash_attn_fwd.cu")
-    report = _build.ptxas_report(_build.BUILD_LOGS["flash_attn_fwd"])
-    for r in report:
-        log(f"  ptxas flash_attn_fwd {r['function']}: {r['registers']} registers, "
-            f"{r['smem']} bytes static smem, spill stores {r['spill_stores']}, "
-            f"loads {r['spill_loads']}")
+    report = ptxas_lines("flash_attn_fwd")
     resident = [r for r in report if "flash_fwd_bf16_resident" in r["function"]]
     check(len(resident) > 0, "ptxas shows no resident flash kernel")
     for r in resident:
@@ -989,7 +1057,8 @@ def phase_training(torch, co, device):
     else:
         log(f"profiled bf16 step (bucket {prof['bucket']}, {prof['patches']} patches): wall "
             f"{prof['wall_ms']:.1f} ms, kernels on the card {prof['device_ms']:.2f} ms, of "
-            f"which co-attention {prof['coattn_ms']:.2f} ms")
+            f"which co-attention {prof['coattn_ms']:.2f} ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(prof["kernels"].items())))
     log(f"text tower forward + backward: {text_fb_ms:.2f} ms")
     bf16 = [r for r in steps if r["variant"] == "bf16"]
     return {"build_s": build_s, "steps": steps, "launches": launches, "grad_check": grad_check,
@@ -1693,23 +1762,29 @@ def time_dq_variant(torch, co, variant, B, N, C, P):
 
 
 def phase_times(torch, co):
-    times = {"fwd_b8": {}, "fwd_b64": {}, "dq_b8": {}, "dq_train": {}}
+    times = {"fwd_b8": {}, "fwd_b64": {}, "fwd_wide": {}, "dq_b8": {}, "dq_train": {}}
     for v in VARIANTS:
         times["fwd_b8"][v] = time_variant(torch, co, v, **SHAPE)
         torch.cuda.empty_cache()
         times["dq_b8"][v] = time_dq_variant(torch, co, v, **SHAPE)
         torch.cuda.empty_cache()
-    for v in ("bf16", "int8_inv"):
+    for v in VARIANTS:
         times["fwd_b64"][v] = time_variant(torch, co, v, **dict(SHAPE, B=64))
         torch.cuda.empty_cache()
+    for v in ("f32", "bf16", "int8_inv"):  # the wide instance, one variant a storage
+        times["fwd_wide"][v] = time_variant(torch, co, v, **dict(SHAPE, C=FWD_WIDE["C"]))
+        torch.cuda.empty_cache()
+    for v in ("bf16", "int8_inv"):
         times["dq_train"][v] = time_dq_variant(torch, co, v, **TRAIN_SHAPE)
         torch.cuda.empty_cache()
     for key, recs in times.items():
         for v, t in recs.items():
-            log(f"time {key:8s} B={t['B']:<3d} N={t['N']:<6d} {v:9s} kernel {t['ms']:.4f} ms"
+            log(f"time {key:8s} B={t['B']:<3d} N={t['N']:<6d} C={t['C']:<4d} {v:9s} "
+                f"kernel {t['ms']:.4f} ms"
                 f"  plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms"
                 f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
-                f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x")
+                f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x"
+                f"  kernel/library {t['ms'] / t['library_ms']:.2f}x")
     return times
 
 
@@ -1744,6 +1819,18 @@ def bound_abmil(name, B, N, storage):
     if storage == "f32" and 3 * ops / PEAK_OPS["tf32"] < t_ops:
         t_ops, by_ops = 3 * ops / PEAK_OPS["tf32"], "operations (3xTF32)"
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else by_ops)
+
+
+def floor_abmil_bf16_bwd(name, B, N, storage="bf16"):
+    """The bf16-operand backward design's byte floor in ms (not a bound of
+    the function): x read twice (passes 1 and 2) and the bf16 dz workspace
+    [B, N, 256] (int8: two planes, s dz's hi and lo) written and read once,
+    plus dX written (with dX)."""
+    from vlsa_tpu_torch.ops.abmil import D_KERNEL as D, HID_KERNEL as H
+    item, planes = (1, 2) if storage == "int8" else (2, 1)
+    nbytes = (2 * B * N * D * item + 2 * planes * B * N * H * 2
+              + (B * N * D * 2 if name == "abmil_bwd_dx" else 0))
+    return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def gemm_yardstick(torch, x, w1):
@@ -1781,6 +1868,8 @@ def time_abmil(torch, ab, storage, B, N):
         b_ms, b_by = bound_abmil(name, B, N, storage)
         rec.update(B=B, N=N, gemm_ms=gemm_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                    err=errs[name])
+        if storage != "f32" and name != "abmil_fwd":
+            rec["design_floor_ms"] = floor_abmil_bf16_bwd(name, B, N, storage)
     return recs
 
 
@@ -1794,9 +1883,11 @@ def phase_abmil_times(torch, ab):
     for key, recs in times.items():
         for k, t in recs.items():
             gemm = "n/a" if t["gemm_ms"] is None else f"{t['gemm_ms']:.4f} ms"
+            floor = (f"  design byte floor {t['design_floor_ms']:.4f} ms"
+                     if "design_floor_ms" in t else "")
             log(f"time {k:18s} B={t['B']:<3d} N={t['N']:<6d} kernel {t['ms']:.4f} ms"
                 f"  plain {t['plain_ms']:.4f} ms  gemm {gemm}"
-                f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+                f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']}){floor}"
                 f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x")
     return times
 
@@ -1943,6 +2034,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     try:
         errs = phase_kernel(torch, co)
+        coattn_ptxas_lines = coattn_fwd_ptxas(co)
         errs_dq = phase_backward_kernel(torch, co)
         errs_abmil = phase_abmil_kernels(torch, ab)
         abmil_ptxas_lines = abmil_ptxas(ab)
@@ -2020,6 +2112,7 @@ def main(argv=None) -> int:
               "times": times, "abmil_shape": ABMIL_SHAPE, "abmil_train_shape": ABMIL_TRAIN_SHAPE,
               "abmil_errors": errs_abmil, "sa_serving": sa_serving, "sa_training": sa_training,
               "abmil_times": abmil_times, "abmil_ptxas": abmil_ptxas_lines,
+              "coattn_fwd_ptxas": coattn_ptxas_lines,
               "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
               "flash_ptxas": flash_ptxas_lines,
               "flash_plan": {L: list(fa.flash_plan(L)) for L in FLASH_LENGTHS},

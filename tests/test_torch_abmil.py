@@ -164,8 +164,8 @@ def test_cuda_route_needs_a_card():
 
 def test_f32_plan_mirrors_the_kernel_source():
     """ops/abmil.py's tile and weight-gradient tiling are the kernel
-    source's: Tile<float>::M, the widths, and f32 pass 2's dW1 tiles and
-    rows a slice."""
+    source's: Tile<float>::M, the widths, and pass 2's dW1 tiles and rows a
+    stage (f32; bf16 and int8)."""
     import re
     from pathlib import Path
     csrc = Path(pab.__file__).parent / "csrc"
@@ -179,17 +179,17 @@ def test_f32_plan_mirrors_the_kernel_source():
     assert int(m.group(1)) == pab._TILE[torch.float32]
     assert const(common, "kD") == pab.D_KERNEL and const(common, "kHid") == pab.HID_KERNEL
     tiles = (pab.HID_KERNEL // const(bwd, "kDwM")) * (pab.D_KERNEL // const(bwd, "kDwN"))
-    assert tiles == pab._DW_TILES and const(bwd, "kRowsDw") == pab._DW_ROWS
-    assert const(bwd, "kSlice") == pab._SLICE
+    assert tiles == pab._DW_TILES and const(bwd, "kRowsDw") == pab._DW_ROWS[torch.float32]
+    assert const(bwd, "kRowsDwB") == pab._DW_ROWS[torch.bfloat16] == pab._DW_ROWS[torch.int8]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("n_sm", [132, 7])
 def test_plans_cover_every_n(dtype, n_sm):
     """For a sweep of B and N: every chunk is a multiple of the tile and the
-    chunks cover N exactly (the last one non-empty); f32's weight-gradient
-    chunks cover the B*N patch rows; the workspaces have the shapes the
-    kernels index."""
+    chunks cover N exactly (the last one non-empty); the weight-gradient
+    chunks cover the B*N patch rows; the workspaces have the shapes and types
+    the kernels index (bf16's dz in bf16, int8's s dz as bf16 hi and lo)."""
     tile = pab._TILE[dtype]
     for B in (1, 3, 8, 32):
         for N in (1, 5, 63, 64, 65, 127, 1000, 4097, 12291, 16384):
@@ -200,18 +200,17 @@ def test_plans_cover_every_n(dtype, n_sm):
             assert b["chunk1"] % tile == 0 and (b["S1"] - 1) * b["chunk1"] < N <= b["S1"] * b["chunk1"]
             if dtype == torch.float32:
                 assert f["w1_bf16"] is None and b["w1_bf16"] is None
-                K = B * N
-                assert b["chunk2"] % pab._DW_ROWS == 0
-                assert (b["S2"] - 1) * b["chunk2"] < K <= b["S2"] * b["chunk2"]
-                assert b["S2"] * pab._DW_TILES <= max(n_sm, pab._DW_TILES)
-                assert b["ds"] == (B, N, 256) and b["ws_dw1"] == (b["S2"], 256, 512)
-                assert b["ws_b"] == (B * b["S1"], 256)
             else:
                 assert f["w1_bf16"] == b["w1_bf16"] == (2, 256, 512)
-                assert b["chunk2"] % tile == 0
-                assert (b["S2"] - 1) * b["chunk2"] < N <= b["S2"] * b["chunk2"]
-                assert b["ds"] == (B, N) and b["ws_dw1"] == (B * b["S2"], 256, 512)
-                assert b["ws_b"] == (B * b["S2"], 256)
+            K = B * N
+            assert b["chunk2"] % pab._DW_ROWS[dtype] == 0
+            assert (b["S2"] - 1) * b["chunk2"] < K <= b["S2"] * b["chunk2"]
+            assert b["S2"] * pab._DW_TILES <= max(n_sm, pab._DW_TILES)
+            if dtype == torch.int8:
+                assert b["ds"] == (2, B, N, 256) and b["ds_dtype"] == torch.bfloat16
+            else:
+                assert b["ds"] == (B, N, 256) and b["ds_dtype"] == dtype
+            assert b["ws_dw1"] == (b["S2"], 256, 512) and b["ws_b"] == (B * b["S1"], 256)
 
 
 @pytest.mark.parametrize("B, N", [(8, 10240), (32, 16384), (32, 65536), (1, 5)])
@@ -225,6 +224,22 @@ def test_f32_plan_fills_the_waves(B, N):
     waves = -(-B * f["S"] // n_sm)
     assert waves * (f["chunk"] // tile) <= -(-B * tiles // n_sm) + f["chunk"] // tile
     assert pab.bwd_plan(torch.float32, B, N, n_sm)["chunk1"] == f["chunk"]
+
+
+@pytest.mark.parametrize("B, N", [(8, 10240), (32, 16384), (32, 65536), (32, 131072), (1, 5)])
+def test_bf16_bwd_plan_fills_the_waves(B, N):
+    """bf16's and int8's pass 1 runs one block per SM as f32's does: its
+    waves of chunk/tile tiles end within one chunk of the even share of the
+    tiles; pass 2's _DW_TILES blocks a chunk fill at most one wave, and its
+    chunks are within one stage of rows of the even share of the B*N rows."""
+    for dtype in (torch.bfloat16, torch.int8):
+        n_sm, tile = 132, pab._TILE[dtype]
+        b = pab.bwd_plan(dtype, B, N, n_sm)
+        tiles = -(-N // tile)
+        waves = -(-B * b["S1"] // n_sm)
+        assert waves * (b["chunk1"] // tile) <= -(-B * tiles // n_sm) + b["chunk1"] // tile
+        assert b["S2"] * pab._DW_TILES <= n_sm
+        assert b["chunk2"] < -(-B * N // b["S2"]) + pab._DW_ROWS[dtype]
 
 
 @pytest.mark.parametrize("name", ["cvt", "one_chain", "chains", "volatile"])

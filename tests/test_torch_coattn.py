@@ -117,6 +117,102 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("B_,N_", [(8, 10240), (64, 10240), (1, 5), (2, 0)])
 def test_split_plan_covers_every_patch(B_, N_):
+    """The forward's plan, for each storage's tile: the blocks' flat ranges
+    of L tiles cover every tile of every bag once, and each bag's partial
+    slots k - first(b) stay below Smax; the backward kernels' split_plan
+    covers N."""
+    for dtype, tile in tco._FWD_TILE.items():
+        plan = tco.fwd_plan(dtype, B_, N_, n_sm=132)
+        tiles, L, blocks = plan["tiles_per_bag"], plan["L"], plan["blocks"]
+        assert tiles * tile >= N_ > (tiles - 1) * tile
+        covered = [f for k in range(blocks) for f in range(k * L, min(B_ * tiles, (k + 1) * L))]
+        assert covered == list(range(B_ * tiles))
+        for b in range(B_ if tiles else 0):
+            slots = {f // L - (b * tiles) // L for f in range(b * tiles, (b + 1) * tiles)}
+            assert slots == set(range(len(slots))) and len(slots) <= plan["Smax"]
     chunk, S = tco.split_plan(B_, N_, n_sm=132)
     assert chunk % 32 == 0 and S >= 1
     assert (S - 1) * chunk < max(N_, 1) <= S * chunk
+
+
+@pytest.mark.parametrize("B_,N_", [(8, 10240), (64, 10240), (32, 8192), (32, 65536),
+                                   (32, 131072), (1, 5)])
+def test_fwd_plan_fills_one_wave(B_, N_):
+    """One block per SM: at C=512 at most n_sm blocks, each of the even
+    share of the tiles rounded up, so the busiest block has at most one tile
+    more than the average; at B=8 the partials (P=12, C=512, f32) stay within
+    5% of x's bf16 bytes.  Above 512 channels the blocks of the G channel
+    groups share the wave: L is the even share of G times the tiles."""
+    n_sm = 132
+    for dtype in tco._FWD_TILE:
+        for C in (512, 1024, 1536):
+            plan = tco.fwd_plan(dtype, B_, N_, n_sm, C)
+            total, G = B_ * plan["tiles_per_bag"], plan["groups"]
+            assert G == -(-C // 512)
+            assert plan["L"] == -(-G * total // n_sm) and plan["blocks"] * G <= n_sm + G - 1
+            if C == 512:
+                assert plan["blocks"] <= n_sm and plan["L"] <= total / min(n_sm, total) + 1
+            if (B_, N_, C) == (8, 10240, 512):
+                segments = plan["blocks"] + B_  # a range holds at most one bag boundary here
+                assert segments * 12 * 512 * 4 <= 0.05 * B_ * N_ * 512 * 2
+
+
+def test_fwd_plan_mirrors_the_kernel_source():
+    """ops/coattn.py's tiles and warp widths are csrc/'s: kTile (the
+    backward kernels'), the forward's tile_of, kWarpCh, kMaxWarps and the
+    channel group kGroupCh."""
+    import re
+    from pathlib import Path
+    csrc = Path(tco.__file__).parent / "csrc"
+
+    def const(name, file):
+        src = (csrc / file).read_text()
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kTile", "coattn_common.cuh") == tco._TILE
+    src = (csrc / "coattn_fwd.cu").read_text()
+    m = re.search(r"constexpr int tile_of\(int storage\) \{ return storage == kF32 \? (\d+) : (\d+); \}",
+                  src)
+    assert (int(m.group(1)), int(m.group(2))) == (tco._FWD_TILE[torch.float32],
+                                                  tco._FWD_TILE[torch.bfloat16])
+    assert tco._FWD_TILE[torch.int8] == tco._FWD_TILE[torch.bfloat16]
+    assert const("kWarpCh", "coattn_fwd.cu") == tco._FWD_WARP_CH
+    assert const("kMaxWarps", "coattn_fwd.cu") == tco._FWD_MAX_WARPS
+    assert "constexpr int kGroupCh = kWarpCh * kMaxWarps;" in src
+    assert tco._FWD_GROUP_CH == 512
+
+
+# the rounding model against the Pallas body in interpret mode, max|a-b| /
+# max|b|: bf16 rounds q and the weights as the TPU kernel does, so the model
+# sits closer to it than the true-f32 plain version (~1e-6 against ~5e-6;
+# the sums' order differs); int8's TPU route rounds them to int8 hi + lo
+# (~15 bits) where the model takes bf16 hi + lo (~16 bits): ~2.7e-4; f32,
+# which the TPU takes at HIGHEST precision, the model in split TF32 (~2^-21)
+TOL_ROUNDED = {"f32": 2e-6, "bf16": 1e-5, "int8": 5e-4}
+
+
+@pytest.mark.parametrize("variant", list(TOL_ROUNDED))
+def test_rounded_model_matches_pallas_body(variant):
+    q, x, mask, x_scale, x_inv, _stored = _inputs(variant, seed=3)
+    args = (_torch(q), _torch(x), _torch(mask), SCALE)
+    out, m, l = tco.coattn_fwd_rounded(*args, x_scale=_torch(x_scale))
+    ref = _jax_kernel(q, x, mask, x_scale, x_inv)
+    assert _rel(out.numpy(), ref) <= TOL_ROUNDED[variant]
+    assert np.all(out[-1].numpy() == 0.0) and bool(torch.all(m[-1] == -1e30))
+    plain, _m, l_plain = tco.coattn_fwd_reference(*args, x_scale=_torch(x_scale))
+    if variant == "bf16":
+        assert _rel(out.numpy(), ref) < _rel(plain.numpy(), ref)
+    np.testing.assert_allclose(l.numpy(), l_plain.numpy(), rtol=1e-4)
+
+
+def test_split_tf32_model():
+    """The rounding model's TF32 split: hi has the 13 low mantissa bits
+    clear and is within half a TF32 step of t, lo within a TF32 step of the
+    residual t - hi, and hi + lo within 2^-21 of t (relative)."""
+    t = torch.randn(4096, generator=torch.Generator().manual_seed(0)) * 1e3
+    hi, lo = tco._split_tf32(t)
+    assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all(lo.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all((t - hi).abs() <= t.abs() * 2.0 ** -11)
+    assert torch.all((t - hi - lo).abs() <= (t - hi).abs() * 2.0 ** -10)
+    assert float(((t - hi - lo).abs() / t.abs()).max()) <= 2.0 ** -21

@@ -64,6 +64,51 @@ def test_kernel_matches_plain(device, dtype, host_inv, shape):
     assert torch.all(out[-1] == 0) and torch.isfinite(m).all() and torch.isfinite(l).all()
 
 
+# the forward's pipeline (csrc/coattn_fwd.cu): (B, N, C, P, masked stretch)
+# -- a bag over many blocks' ranges with an all-masked stretch of several
+# blocks, N below one tile, B=64 at small N, a block range that wraps every
+# storage's ring of stages, P = 1 and 16, C = 8, 64 and 200 (fewer warps than
+# 8, the last one partly past C; int8 rows only 8-byte aligned), and the
+# wide instance at C = 1024 (VLFAN's default width) and 1000 (its last
+# channel group partly past C)
+FWD_PIPELINE = [(2, 5000, 512, 12, (1000, 3000)), (3, 17, 512, 12, None),
+                (64, 40, 512, 16, None), (1, 132 * 32 * 10 + 7, 512, 1, None),
+                (3, 700, 8, 16, (0, 300)), (2, 1000, 64, 5, None), (2, 1000, 200, 12, None),
+                (2, 5000, 1024, 12, (1000, 3000)), (3, 300, 1000, 16, None)]
+# the f32 forward against true f32: split TF32 (~2^-21 a product) stays
+# within 2e-6, which bf16 hi + lo operands (~2^-16; 5.2e-6 on the card) fail
+TOL_F32_FWD = 2e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("host_inv", [False, True])
+@pytest.mark.parametrize("case", FWD_PIPELINE)
+def test_fwd_kernel_pipeline_shapes(device, dtype, host_inv, case):
+    """out within TOL of the plain version (f32 within TOL_F32_FWD), and the
+    stats the dQ and dX kernels consume: l within 1e-3 relative, m within
+    1e-3 (the kernel's logits take q as hi + lo), an empty bag m = -1e30,
+    l = 1e-30; C > 512 runs the wide instance."""
+    B, N, C, P, stretch = case
+    q, x, mask, xs, xi = _inputs(B, N, C, P, dtype, host_inv, device, seed=4)
+    if stretch is not None:
+        mask[0, stretch[0]:stretch[1]] = False
+    plan = co.fwd_plan(dtype, B, N, torch.cuda.get_device_properties(device).multi_processor_count,
+                       C)
+    paths = dict(co.LAUNCHES_FWD_PATH)
+    out, m, l = co.coattn_fwd(q, x, mask, 30.0, xs, xi)
+    torch.cuda.synchronize()
+    path = "wide" if C > 512 else "group"
+    assert co.LAUNCHES_FWD_PATH == dict(paths, **{path: paths[path] + 1})
+    ref, m_ref, l_ref = co.coattn_fwd_reference(q, x, mask, 30.0, xs, xi)
+    rel = float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    assert rel <= (TOL_F32_FWD if dtype == torch.float32 else TOL[dtype])
+    assert torch.all(out[-1] == 0) and torch.all(m[-1] == -1e30) and torch.all(l[-1] == 1e-30)
+    torch.testing.assert_close(l, l_ref, rtol=1e-3, atol=0)
+    assert float((m - m_ref).abs().max()) <= 1e-3
+    if N > 1000:
+        assert plan["Smax"] > 1  # bag 0 spans several blocks' ranges
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("host_inv", [False, True])
 @pytest.mark.parametrize("shape", [(3, 1000, 512, 12), (2, 33, 64, 16), (1, 5, 8, 1)])
@@ -182,6 +227,37 @@ def test_abmil_f32_masked_rows_add_nothing(device):
         assert torch.isfinite(got).all() and _rel(got, want) <= TOL_ABMIL_DW[torch.float32]
     assert _rel(dx, rdx) <= TOL_ABMIL_DX[torch.float32]
     assert torch.all(dx[~mask] == 0) and torch.all(dx[-1] == 0)
+
+
+@pytest.mark.parametrize("dtype, need_dx", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                           (torch.int8, False)])
+def test_abmil_pass2_chunks_cross_bags(device, dtype, need_dx):
+    """The bf16-operand backward's weight-gradient pass runs over the B*N
+    rows in chunks that start inside bags: several chunks, a masked stretch,
+    an empty bag (int8: s dz as bf16 hi + lo against the plain version's
+    f32); dX is exactly 0 on masked rows and the empty bag."""
+    B, N = 4, 5000
+    plan = ab.bwd_plan(dtype, B, N, torch.cuda.get_device_properties(device).multi_processor_count)
+    assert plan["S2"] > 1 and plan["chunk2"] % N != 0 and plan["S1"] > 1
+    x, xs, mask, w1, b1, w2, g = _abmil_inputs(B, N, dtype, device, seed=5)
+    mask[1, 700:3100] = False
+    x[1, 700:3100] = 0
+    if dtype == torch.int8:
+        out, m, l = ab.abmil_q8_fwd(x, xs, mask, w1, b1, w2)
+        dx, (dw1, db1, dw2) = None, ab.abmil_q8_bwd(x, xs, mask, w1, b1, w2, g, out, m, l)
+    else:
+        out, m, l = ab.abmil_fwd(x, mask, w1, b1, w2)
+        dx, dw1, db1, dw2 = ab.abmil_bwd(x, mask, w1, b1, w2, g, out, m, l, need_dx=need_dx)
+    torch.cuda.synchronize()
+    rdx, rdw1, rdb1, rdw2 = ab.abmil_bwd_reference(x, mask, w1, b1, w2, g, out, m, l,
+                                                   x_scale=xs, need_dx=need_dx)
+    for got, want in ((dw1, rdw1), (db1, rdb1), (dw2, rdw2)):
+        assert torch.isfinite(got).all() and _rel(got, want) <= TOL_ABMIL_DW[dtype]
+    if need_dx:
+        assert _rel(dx, rdx) <= TOL_ABMIL_DX[dtype]
+        assert torch.all(dx[~mask] == 0) and torch.all(dx[-1] == 0)
+    else:
+        assert dx is None
 
 
 def test_abmil_pool_routes_through_the_kernels(device):

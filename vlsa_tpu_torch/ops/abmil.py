@@ -34,16 +34,13 @@ import torch
 from .coattn import _device_index, _ptr
 
 D_KERNEL, HID_KERNEL = 512, 256  # the widths the kernels are built for
-# patches per kernel tile (Tile<T>::M in csrc/abmil_common.cuh) and hid
-# columns per block of the bf16 and int8 weight-gradient pass (kSlice in
-# csrc/abmil_bwd.cu)
+# patches per kernel tile (Tile<T>::M in csrc/abmil_common.cuh)
 _TILE = {torch.float32: 64, torch.bfloat16: 64, torch.int8: 64}
-_SLICE = 32
-# f32's weight-gradient pass (csrc/abmil_bwd.cu): kDwTiles blocks of a
-# [128, 128] tile of dW1 on each chunk of the B*N patch rows, chunks a
-# multiple of kRowsDw rows
+# the backward's weight-gradient pass (csrc/abmil_bwd.cu): kDwTiles blocks of
+# a [128, 128] tile of dW1 on each chunk of the B*N patch rows, chunks a
+# multiple of the rows a stage holds (f32 kRowsDw, bf16 and int8 kRowsDwB)
 _DW_TILES = 8
-_DW_ROWS = 32
+_DW_ROWS = {torch.float32: 32, torch.bfloat16: 64, torch.int8: 64}
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
@@ -163,7 +160,7 @@ _ARGTYPES = {
     # dw1, db1, dw2, stream
     "abmil_bwd": [_P] * 10 + [_I] * 9 + [_P] * 10,
 }
-_SMEM_ARGTYPES = {"abmil_fwd": [_I], "abmil_bwd": [_I, _I, _I]}
+_SMEM_ARGTYPES = {"abmil_fwd": [_I], "abmil_bwd": [_I, _I]}
 
 
 def _library(name: str):
@@ -194,8 +191,9 @@ _BLOCK_COST_TILES = 0.25
 
 @functools.lru_cache(maxsize=256)
 def _split_waves(B: int, N: int, tile: int, n_sm: int) -> Tuple[int, int]:
-    """(chunk, S) for kernels whose block fills an SM (f32: its x tile and W1
-    stages take ~209 KB of shared memory): the chunk (a multiple of the tile)
+    """(chunk, S) for kernels whose block fills an SM (the f32 forward's x
+    tile and W1 stages take ~209 KB of shared memory; the backward's pass 1
+    runs one block an SM for every storage): the chunk (a multiple of the tile)
     that ends soonest, ceil(B*S / n_sm) waves of chunk/tile tiles and a
     block's fixed cost each, and the fewest blocks among equals."""
     tiles = max(1, -(-N // tile))
@@ -209,12 +207,12 @@ def _split_waves(B: int, N: int, tile: int, n_sm: int) -> Tuple[int, int]:
     return best[1], best[2]
 
 
-def _split_rows(K: int, n_sm: int) -> Tuple[int, int]:
-    """(chunk2, S2) of f32's weight-gradient pass: the K = B*N patch rows in
-    S2 chunks of chunk2 rows (a multiple of _DW_ROWS), so that the _DW_TILES
-    tiles of each chunk fill about one wave of the card."""
+def _split_rows(K: int, n_sm: int, rows: int) -> Tuple[int, int]:
+    """(chunk2, S2) of the backward's weight-gradient pass: the K = B*N
+    patch rows in S2 chunks of chunk2 rows (a multiple of `rows`), so that
+    the _DW_TILES tiles of each chunk fill about one wave of the card."""
     S2 = max(1, n_sm // _DW_TILES)
-    chunk = -(-(-(-K // S2)) // _DW_ROWS) * _DW_ROWS
+    chunk = -(-(-(-K // S2)) // rows) * rows
     return chunk, -(-K // chunk)
 
 
@@ -233,25 +231,21 @@ def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int) -> dict:
 
 def bwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int) -> dict:
     """The backward's launch plan: pass 1 over chunks of chunk1 patches of
-    each bag (S1 a bag), pass 2 over S2 chunks of chunk2 (bf16, int8: of each
-    bag, for every hid slice; f32: of the B*N patch rows, for each of its
-    _DW_TILES tiles of dW1), and the workspace shapes: "ds" is ds [B, N]
-    (bf16, int8) or dz [B, N, 256] (f32); the partials of dW1 ("ws_dw1") and
-    of db1 and dw2 ("ws_b", each) come from pass 2, or for f32 dW1's from pass
-    2 and the others' from pass 1."""
-    tile = _TILE[dtype]
-    if dtype == torch.float32:
-        chunk1, S1 = _split_waves(B, N, tile, n_sm)
-        chunk2, S2 = _split_rows(B * N, n_sm)
-        return {"chunk1": chunk1, "S1": S1, "chunk2": chunk2, "S2": S2,
-                "ds": (B, N, HID_KERNEL), "ws_dw1": (S2, HID_KERNEL, D_KERNEL),
-                "ws_b": (B * S1, HID_KERNEL), "w1_bf16": None}
-    chunk1, S1 = _split(B, N, tile, 2 * n_sm)
-    # pass 2 runs one block per hid slice for each chunk
-    chunk2, S2 = _split(B, N, tile, -(-2 * n_sm // (HID_KERNEL // _SLICE)))
-    return {"chunk1": chunk1, "S1": S1, "chunk2": chunk2, "S2": S2, "ds": (B, N),
-            "ws_dw1": (B * S2, HID_KERNEL, D_KERNEL), "ws_b": (B * S2, HID_KERNEL),
-            "w1_bf16": (2, HID_KERNEL, D_KERNEL)}
+    each bag (S1 a bag; its block fills an SM), pass 2 over S2 chunks of
+    chunk2 of the B*N patch rows, for each of its _DW_TILES tiles of dW1, and
+    the workspace shapes: "ds" is the dz workspace [B, N, 256] of type
+    "ds_dtype" (f32 for f32; bf16 for bf16, the TPU kernel's rounding of dz
+    for dW1), for int8 [2, B, N, 256] bf16 (s dz's hi and lo); the partials
+    of dW1 ("ws_dw1") come from pass 2, those of db1 and dw2 ("ws_b", each)
+    from pass 1."""
+    chunk1, S1 = _split_waves(B, N, _TILE[dtype], n_sm)
+    chunk2, S2 = _split_rows(B * N, n_sm, _DW_ROWS[dtype])
+    f32 = dtype == torch.float32
+    return {"chunk1": chunk1, "S1": S1, "chunk2": chunk2, "S2": S2,
+            "ds": (B, N, HID_KERNEL) if dtype != torch.int8 else (2, B, N, HID_KERNEL),
+            "ds_dtype": torch.float32 if f32 else torch.bfloat16,
+            "ws_dw1": (S2, HID_KERNEL, D_KERNEL), "ws_b": (B * S1, HID_KERNEL),
+            "w1_bf16": None if f32 else (2, HID_KERNEL, D_KERNEL)}
 
 
 def _tensor(name, t, shape, dtype, device):
@@ -353,14 +347,14 @@ def _bwd(x, x_scale, mask, w1, b1, w2, g, out, m, l, need_dx, kernel):
     _tensor("l", l, (B,), torch.float32, device)
     lib = _library("abmil_bwd")
     storage = _STORAGE[x.dtype]
-    _check_smem(lib, "abmil_bwd", device, storage, 1, int(need_dx))
-    _check_smem(lib, "abmil_bwd", device, storage, 2, 0)
+    _check_smem(lib, "abmil_bwd", device, storage, 1)
+    _check_smem(lib, "abmil_bwd", device, storage, 2)
     plan = bwd_plan(x.dtype, B, N, _n_sm(device))
     chunk1, S1, chunk2, S2 = plan["chunk1"], plan["S1"], plan["chunk2"], plan["S2"]
     f32 = dict(dtype=torch.float32, device=device)
     dw1, db1, dw2 = (torch.empty(HID_KERNEL, D_KERNEL, **f32), torch.empty(HID_KERNEL, **f32),
                      torch.empty(HID_KERNEL, **f32))
-    ds = torch.empty(plan["ds"], **f32)
+    ds = torch.empty(plan["ds"], dtype=plan["ds_dtype"], device=device)
     ws_dw1 = torch.empty(plan["ws_dw1"], **f32)
     ws_db1, ws_dw2 = torch.empty(plan["ws_b"], **f32), torch.empty(plan["ws_b"], **f32)
     dx = torch.empty_like(x) if need_dx else None

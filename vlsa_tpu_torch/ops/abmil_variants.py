@@ -34,6 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 _COMMON = "abmil_common.cuh"
+_TF32 = "coattn_common.cuh"  # split_tf32 and mma_tf32
 _SPLIT = ("    hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
           "    lo = __float_as_uint(v - __uint_as_float(hi));")
 _SPLIT_CVT = ('    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(v));\n'
@@ -71,10 +72,10 @@ _CHAINS = ("#pragma unroll\n"
 # name -> [(file in csrc/, text, its replacement)]; each text must occur once
 VARIANTS = {
     "base": [],
-    "cvt": [(_COMMON, _SPLIT, _SPLIT_CVT)],
+    "cvt": [(_TF32, _SPLIT, _SPLIT_CVT)],
     "one_chain": [(_COMMON, _SLICE, _ONE_CHAIN)],
     "chains": [(_COMMON, _WAVES, _CHAINS)],
-    "volatile": [(_COMMON, 'asm("mma.sync', 'asm volatile("mma.sync')],
+    "volatile": [(_TF32, 'asm("mma.sync', 'asm volatile("mma.sync')],
 }
 LIBS = ("abmil_fwd", "abmil_bwd")
 

@@ -16,12 +16,15 @@ features need one too (`CoattnPoolFull`: VLFAN with a feature projecter).
 Storage types of x: f32, bf16, or int8 with per-patch dequant scales
 `x_scale` [B, N]; `x_inv` [B, N] optionally carries host-computed
 1/||x_stored|| rows.  Features that need a gradient are f32 or bf16 with no
-sidecars.  The plain version computes in f32 on the stored values, as the
-kernel does.
+sidecars.  The plain versions compute in f32 on the stored values; the
+forward kernel takes q and its softmax weights as bf16 hi + lo on the tensor
+cores, as the TPU kernel does (f32 storage: q, x and the weights in split
+TF32), and `coattn_fwd_rounded` models that rounding.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,21 +32,31 @@ import torch
 from .masked import l2_normalize, masked_softmax
 
 MAX_QUERIES = 16
-_TILE = 32  # patches per kernel tile (kTile in csrc/coattn_fwd.cu)
+_TILE = 32  # patches per kernel tile (kTile in csrc/coattn_common.cuh)
+# the forward kernel's warps each own _FWD_WARP_CH channels, at most
+# _FWD_MAX_WARPS of them (a block's channel group of _FWD_GROUP_CH), and its
+# tiles hold _FWD_TILE patches by storage (kWarpCh, kMaxWarps, tile_of in
+# csrc/coattn_fwd.cu)
+_FWD_WARP_CH, _FWD_MAX_WARPS = 64, 8
+_FWD_GROUP_CH = _FWD_WARP_CH * _FWD_MAX_WARPS
+_FWD_TILE = {torch.float32: 32, torch.bfloat16: 64, torch.int8: 64}
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 # Launches of the CUDA kernels by variant ("f32", "f32_inv", "bf16",
 # "bf16_inv", "int8", "int8_inv"): one per call of `coattn_fwd` in LAUNCHES,
 # one per call of `coattn_bwd_dq` in LAUNCHES_BWD; one per call of
-# `coattn_bwd_dx` in LAUNCHES_DX, by storage ("f32", "bf16").
+# `coattn_bwd_dx` in LAUNCHES_DX, by storage ("f32", "bf16").  The forward's
+# calls also count by instance in LAUNCHES_FWD_PATH: "group" for C <= 512
+# (one channel group a block), "wide" for C > 512 (blocks by channel group).
 LAUNCHES = {f"{s}{i}": 0 for s in ("f32", "bf16", "int8") for i in ("", "_inv")}
 LAUNCHES_BWD = dict(LAUNCHES)
 LAUNCHES_DX = {"f32": 0, "bf16": 0}
+LAUNCHES_FWD_PATH = {"group": 0, "wide": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BWD, LAUNCHES_DX):
+    for counts in (LAUNCHES, LAUNCHES_BWD, LAUNCHES_DX, LAUNCHES_FWD_PATH):
         for k in counts:
             counts[k] = 0
 
@@ -113,6 +126,59 @@ def coattn_fwd_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, s
     return torch.einsum("bpn,bnc->bpc", w, xf) / l[..., None], m, l
 
 
+def _split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t = hi + lo as vlsa_tpu/ops/coattn.py::_mm_rows splits it: hi the bf16
+    rounding of t, lo that of the residual (both returned in f32)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t = hi + lo as csrc/coattn_common.cuh::split_tf32 splits it and the
+    tensor cores read it: hi t rounded to TF32 (the 13 low bits rounded off,
+    ties away), lo the residual truncated to TF32 (both returned in f32)."""
+    bits = t.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, ((t - hi).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def coattn_fwd_rounded(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale,
+                       x_scale: Optional[torch.Tensor] = None,
+                       x_inv: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain model of the forward kernel's rounding, (out, m, l) as
+    `coattn_fwd_reference` returns them.  bf16 and int8 storage: q and the PV
+    weights p * s enter the products as bf16 hi + lo, as the TPU kernel's
+    `_stream_matmul` takes them for bf16 storage, and x multiplies as stored
+    (int8 values are exact in bf16).  f32 storage: q, x and the weights in
+    split TF32, three products lo.hi + hi.lo + hi.hi.  The sums are f32.  The
+    kernel splits the weights of each tile relative to the running max, this
+    model relative to the bag's max: the two differ by the split's own
+    rounding (~2^-17 for bf16)."""
+    xf = x.to(torch.float32)
+    split = _split_tf32 if x.dtype == torch.float32 else _split_bf16
+    qh, ql = split(q.to(torch.float32))
+
+    def product(eq, a_hi, a_lo):  # a . x as the kernel's tensor cores form it
+        if x.dtype != torch.float32:
+            return torch.einsum(eq, a_hi + a_lo, xf)
+        xh, xl = _split_tf32(xf)
+        return (torch.einsum(eq, a_lo, xh) + torch.einsum(eq, a_hi, xl)
+                + torch.einsum(eq, a_hi, xh))
+
+    if x_inv is None:
+        inv = torch.rsqrt(torch.clamp((xf * xf).sum(-1), min=1e-24))
+    else:
+        inv = x_inv.to(torch.float32)
+    raw = product("pc,bnc->bpn", qh, ql)
+    logits = torch.where(mask[:, None, :], scale * raw * inv[:, None, :], -1e30)
+    m = logits.amax(-1)
+    p = torch.where(mask[:, None, :], torch.exp(logits - m[..., None]), 0.0)
+    l = torch.clamp(p.sum(-1), min=1e-30)
+    w = p if x_scale is None else p * x_scale[:, None, :]
+    return product("bpn,bnc->bpc", *split(w)) / l[..., None], m, l
+
+
 def _weights_and_cotangent(q, x, mask, scale, g, out, m, l, x_scale=None, x_inv=None):
     """(xf, inv, a, dl_inv) as the backward kernels form them from the
     output's cotangent g and the forward's (out, m, l): the attention
@@ -164,20 +230,42 @@ def coattn_bwd_dx_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor
 
 
 def split_plan(B: int, N: int, n_sm: int) -> Tuple[int, int]:
-    """(chunk, S): the patch axis of each bag is cut into S chunks of `chunk`
-    patches (a multiple of the tile), one block each, so that B*S blocks
-    fill about two waves of the card's SMs even when B is small."""
+    """(chunk, S) of the backward kernels: the patch axis of each bag is cut
+    into S chunks of `chunk` patches (a multiple of the tile), one block
+    each, so that B*S blocks fill about two waves of the card's SMs even when
+    B is small."""
     tiles = max(1, -(-N // _TILE))
     S = max(1, min(tiles, -(-2 * n_sm // B)))
     chunk = -(-tiles // S) * _TILE
     return chunk, max(1, -(-N // chunk))
 
 
+@functools.lru_cache(maxsize=256)
+def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, C: int = _FWD_GROUP_CH) -> dict:
+    """The forward kernel's launch plan for x of `dtype` and width C: its
+    B * Tb tiles (Tb = ceil(N / tile) a bag, tile = _FWD_TILE[dtype]) are cut
+    into `blocks` flat ranges of L tiles, one persistent block each (one
+    block fills an SM) for each of the `groups` = ceil(C / 512) channel
+    groups, L = ceil(groups * B * Tb / n_sm), so every block but the last of
+    a group takes the same number of tiles in one wave.  A range may cross
+    bags; block k writes its partial of bag b to slot k - floor(b * Tb / L)
+    of that bag, and `Smax` is the most slots a bag uses."""
+    tiles = -(-N // _FWD_TILE[dtype])
+    total, groups = B * tiles, -(-C // _FWD_GROUP_CH)
+    if total == 0:
+        return {"tiles_per_bag": 0, "L": 1, "blocks": 0, "Smax": 0, "groups": groups}
+    L = -(-groups * total // n_sm)
+    smax = max(((b + 1) * tiles - 1) // L - (b * tiles) // L + 1 for b in range(B))
+    return {"tiles_per_bag": tiles, "L": L, "blocks": -(-total // L), "Smax": smax,
+            "groups": groups}
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the argument types of each library's entry point `<name>` (csrc/<name>.cu):
 # pointers to q, x, [x_scale, x_inv: not coattn_bwd_dx] and mask, the scale,
-# [the backward kernels: g, out, m, l], B, N, C, P, chunk, S, storage and
-# device, then the workspace, output and stream pointers
+# [the backward kernels: g, out, m, l], B, N, C, P, then chunk and S (the
+# backward kernels) or L and Smax (the forward), storage and device, then the
+# workspace, output and stream pointers
 _ARGTYPES = {
     "coattn_fwd": [_P] * 5 + [_F] + [_I] * 8 + [_P] * 7,
     "coattn_bwd_dq": [_P] * 5 + [_F] + [_P] * 4 + [_I] * 8 + [_P] * 3,
@@ -267,12 +355,19 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the Hopper kernel on CUDA tensors.  Returns (out [B, P, C],
     m [B, P], l [B, P]) f32: the pooled features and the softmax stats
-    (running max and normaliser, l clamped below at 1e-30)."""
+    (running max and normaliser, l clamped below at 1e-30).  Any C (a
+    multiple of 8): above 512 the kernel's wide instance runs."""
     B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_fwd")
     device = x.device
     lib = _library("coattn_fwd")
     storage = _STORAGE[x.dtype]
-    chunk, S = _plan(lib, "coattn_fwd", device, B, N, C, P, storage)
+    props = torch.cuda.get_device_properties(device)
+    smem = lib.coattn_fwd_smem_bytes(P, C, storage)
+    if smem > props.shared_memory_per_block_optin:
+        raise ValueError(f"C={C} needs {smem} bytes of shared memory per block, the card "
+                         f"gives {props.shared_memory_per_block_optin}")
+    plan = fwd_plan(x.dtype, B, N, props.multi_processor_count, C)
+    S = plan["Smax"]
 
     f32 = dict(dtype=torch.float32, device=device)
     out = torch.empty(B, P, C, **f32)
@@ -284,12 +379,13 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
 
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.coattn_fwd(_ptr(q), _ptr(x), _ptr(x_scale), _ptr(x_inv), _ptr(mask),
-                         float(scale), B, N, C, P, chunk, S, storage,
+                         float(scale), B, N, C, P, plan["L"], S, storage,
                          _device_index(device), _ptr(ws_m), _ptr(ws_l), _ptr(ws_acc),
                          _ptr(out), _ptr(m), _ptr(l), stream)
     if err != 0:
         raise RuntimeError(f"coattn_fwd kernel launch failed: cudaError {err}")
     LAUNCHES[variant_name(x.dtype, x_inv is not None)] += 1
+    LAUNCHES_FWD_PATH["wide" if plan["groups"] > 1 else "group"] += 1
     return out, m, l
 
 

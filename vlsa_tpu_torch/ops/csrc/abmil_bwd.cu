@@ -30,21 +30,35 @@
 // Design.  The TPU kernel sums dW1 [256, 512] in VMEM across its whole
 // sequential grid.  That is 512 KB of f32: no block's shared memory or
 // registers hold it, and ds[n] needs the logit over the full hid before any
-// dz exists.  So, deterministic and without atomics, in three passes.
+// dz exists.  So, deterministic and without atomics, in three passes, one
+// structure for every storage type (h once, x read twice, the function's 4
+// (6 with dX) D*hid operations per patch; dz through a workspace).
 //
-// bf16 and int8 (written to be right, not fast; nvcuda::wmma bf16 fragments,
-// two products for int8's hi + lo, W1 streamed through shared memory as in
-// abmil_fwd.cu).  They recompute h in both passes, so they do 6 (8 with dX)
-// instead of 4 (6) D*hid operations per patch:
-//   pass 1, blocks (chunk, bag), tiles of patches at full hid: h, the logit,
-//     a, g . x[n] and ds[n], written to a [B, N] workspace; with dX, also dz
-//     and the dX tile dz . W1 + a g, written in the storage type;
-//   pass 2, blocks (hid slice of 32, chunk, bag): the slice of W1 stays in
-//     shared memory; per tile, that slice of h is recomputed, dz formed from
-//     ds, and the block's partials of dW1 [32, 512] (in tensor-core
-//     accumulators), db1 and dw2 accumulated over its chunk, then written to
-//     a workspace [B * S2, 256, 512];
-//   pass 3 sums the B * S2 partials in a fixed order.
+// bf16 and int8 (bf16 operands on the tensor cores, mma.sync m16n8k16
+// through ldmatrix):
+//   pass 1 (abmil_bwd_dz_bf16<T>), blocks (chunk, bag), tiles of 64 patches:
+//     h once, x resident (66.5 KB) -- bf16: x's and W1's column slices of 32
+//     stream through 2 cp.async stages; int8: the tile is staged as bf16
+//     (exact) by plain loads while W1's hi and lo slices stream, two
+//     products, and h_pre is scaled by s; tanh, the logit, a, g . x and ds;
+//     once x is dead its space holds dz in bf16 -- the TPU kernel's own
+//     rounding of dz for dW1 (vlsa_tpu/ops/abmil.py:254-256); int8: s dz as
+//     bf16 hi + lo, two tiles -- written to a [B, N, 256] workspace (int8:
+//     two planes) by 16-byte stores; each thread keeps its 16 hid columns'
+//     db1 and dw2 sums in registers over the chunk.  With dX (bf16), dz . W1
+//     (W1 rows streamed in slices of 32) in two halves of 256 columns, each
+//     half plus a g staged in bf16 (16-byte chunks XOR-swizzled by the row)
+//     for 16-byte stores.  113,792 bytes of shared memory (int8 155,776),
+//     one block an SM.
+//   pass 2 (abmil_bwd_dw_bf16, abmil_bwd_dw_i8): dW1 = sum dz^T x over all
+//     B * N rows as one split-K GEMM, blocks (128 x 128 tile of dW1, chunk of
+//     rows), dz and x rows through 3 cp.async stages of 64 (104,448 bytes; int8:
+//     dz's hi and lo planes and x's raw rows, converted to bf16 in one tile
+//     after each stage lands, 146,432 bytes); both operands are k-major, so A
+//     (dz^T) and B (x) come by ldmatrix.trans.
+//   pass 3 as f32's.  bf16's byte floor: x read twice and dz written and
+//     read once, ~0.25 GB at B=8, N=10240 (~0.075 ms at 3.35 TB/s), beside
+//     chip_smoke.py::bound_abmil's operations bound.
 //
 // f32 (split TF32 through mma.sync m16n8k8, abmil_common.cuh): h once, x
 // read twice, the function's 4 (6) D*hid operations per patch:
@@ -74,367 +88,413 @@ using namespace abmil;
 
 namespace {
 
-constexpr int kSlice = 32;      // hid columns of one pass-2 block
-constexpr int kJs = 32;         // W1 rows per shared-memory slice of the dX product
-constexpr int kHalf = kD / 2;   // dX columns per half of the tensor-core dX product
+// ------------------------------------------------ bf16 and int8 storage: bf16 operands
+//
+// The f32 design below with bf16 operands on the bf16 tensor cores (mma.sync
+// m16n8k16 through ldmatrix): pass 1 forms h once a tile of 64 patches,
+// writes dz to a [B, N, 256] bf16 workspace and, with dX (bf16 only), forms
+// dz . W1 + a g; pass 2 is one split-K GEMM dW1 = dz^T x over the B * N
+// patch rows.  bf16: x's and W1's column slices stream through 2 cp.async
+// stages; dz is rounded to bf16, the TPU kernel's own rounding of dz for dW1
+// (vlsa_tpu/ops/abmil.py:254-256).  int8 (the TPU's _abmil_q8_bwd_kernel,
+// :419): the tile is staged as bf16 (exact) by plain loads while W1's hi and
+// lo slices stream (two products, W1 to ~16 bits), h_pre is scaled by the
+// patch's dequant scale s, and s dz goes to two bf16 planes, hi and lo, which
+// pass 2 takes as two products, x's rows converted to bf16 in shared memory.
 
-// Shared-memory carve-up of pass 1 (bf16 and int8 storage).
-template <typename T, bool WITH_DX>
-struct DsSmem {
-    static constexpr int M = Tile<T>::M;
-    // the dX product's W1 slice: [kJs][kHalf + pad] bf16
-    static constexpr size_t w_dx = round128((size_t)kJs * (kHalf + kPadB) * 2);
-    static constexpr size_t w_bytes =
-        WITH_DX && w_dx > w_stage_bytes<T>() ? w_dx : w_stage_bytes<T>();
-    static constexpr int ldz = kHid + kPadB;  // dz row stride
-    static constexpr size_t x = 0;
-    static constexpr size_t h = x + x_tile_bytes<T>();
-    static constexpr size_t w = h + round128((size_t)M * kLdH * 4);
-    static constexpr size_t dz = w + w_bytes;
-    static constexpr size_t rows = dz + (WITH_DX ? round128((size_t)M * ldz * 2) : 0);
-    // valid, scale, a [M] + g . out
-    static constexpr size_t total = rows + round128((3 * (size_t)M + 4) * 4);
-};
+constexpr int kKB = 32;                    // D columns a slice of the h product
+constexpr int kLdXB = kD + 8;              // 520: the x tile's rows (8 rows hit 8 bank groups)
+constexpr int kLdWB = kKB + 8;             // 40: W1 column slice rows
+constexpr int kSlicesHB = kD / kKB;        // 16
+constexpr int kJB = 32;                    // hid rows a slice of the dX product
+constexpr int kHalfB = kD / 2;             // dX columns a half
+constexpr int kLdWJB = kHalfB + 8;         // 264: W1 row slice rows
+constexpr int kLdZB = kHid + 8;            // 264: dz rows
+constexpr size_t kStageB = round128((size_t)kHid * kLdWB * 2) > round128((size_t)kJB * kLdWJB * 2)
+                               ? round128((size_t)kHid * kLdWB * 2)
+                               : round128((size_t)kJB * kLdWJB * 2);  // 20,480: one copy of W1's slice
+static_assert(kStageB == (size_t)kHid * kLdWB * 2, "W1's lo slice follows its hi slice");
 
-// Shared-memory carve-up of pass 2 (bf16 and int8 storage).
+// Shared-memory carve-up of pass 1 (T: bf16 or int8 storage).  The x tile's
+// space holds, once h and g . x are formed, dz [64][kLdZB] and, with dX, the
+// product's half tile [64][256] bf16 (16-byte chunks XOR-swizzled by the
+// row) for 16-byte stores; int8's s dz lo tile takes the half tile's place.
+// A stage holds W1's slice, hi and (int8) lo.
 template <typename T>
-struct DwSmem {
-    static constexpr int M = Tile<T>::M;
-    static constexpr int ldw = kD + kPadB;  // resident W1 slice rows
-    static constexpr int ldh = kSlice + kPadF;
-    static constexpr int ldt = M + kPadB;  // dz^T rows
-    static constexpr int parts = sizeof(T) == 1 ? 2 : 1;   // int8: hi and lo
+struct DzSmemB {
+    static constexpr bool I8 = sizeof(T) == 1;
     static constexpr size_t x = 0;
-    static constexpr size_t w = x + x_tile_bytes<T>();
-    static constexpr size_t h = w + round128((size_t)parts * kSlice * ldw * 2);
-    static constexpr size_t dzt = h + round128((size_t)M * ldh * 4);
-    static constexpr size_t rows = dzt + round128((size_t)parts * kSlice * ldt * 2);
-    // ds, scale [M]; the two end-of-block reduction buffers [kWarps][kSlice]
-    // reuse the h tile, which keeps bf16 within the 115,712 bytes that let
-    // two blocks share an SM
-    static constexpr size_t total = rows + round128(2 * (size_t)M * 4);
-    static_assert(M * ldh >= 2 * kWarps * kSlice, "the reduction buffers fit in the h tile");
+    static constexpr size_t half = round128((size_t)kMF * kLdZB * 2);      // 33,792
+    // int8 67,584 (dz's hi and lo tiles); bf16 66,560 (the x tile)
+    static constexpr size_t w = I8 ? 2 * half : round128((size_t)kMF * kLdXB * 2);
+    static constexpr size_t stage = (I8 ? 2 : 1) * kStageB;
+    static constexpr size_t cols = w + 2 * stage;                          // b1, w2 [kHid], g [kD]
+    static constexpr size_t red = cols + round128((2 * (size_t)kHid + kD) * 4);  // [4][64]
+    static constexpr size_t rows = red + round128(4 * (size_t)kMF * 4);    // g.x, a, ds, s [64], g.out
+    static constexpr size_t total = rows + round128((4 * (size_t)kMF + 4) * 4);
+    static_assert(half + (size_t)kMF * (I8 ? kLdZB : kHalfB) * 2 <= w,
+                  "dz and the dX half tile (int8: s dz's lo tile) fit in x's space");
+    static_assert(round128((size_t)kMF * kLdXB * 2) <= w, "the x tile fits");
+    static_assert(4 * (size_t)kHid * 4 <= w, "the column sums' reduction fits in x's space");
 };
 
-// dX = dz . W1 + a g for the 64 rows of a tile on the bf16 tensor cores, in
-// two halves of 256 columns; the f32 result goes through `hs` (free by then)
-// and is written in bf16.  Warp w owns the columns [32w, 32w + 32) of a half.
-__device__ void dx_tile_tc(const __nv_bfloat16* dzs, const __nv_bfloat16* __restrict__ w1h,
-                           __nv_bfloat16* ws, float* hs, const float* a_s,
-                           const float* __restrict__ gb, int t0, int n_end,
-                           __nv_bfloat16* __restrict__ dxb) {
-    using namespace nvcuda;
-    constexpr int ldz = kHid + kPadB;
-    constexpr int ldw = kHalf + kPadB;
-    constexpr int kVec = kHalf / 8;
-    const int warp = threadIdx.x >> 5;
-    for (int half = 0; half < 2; ++half) {
-        const int c0 = half * kHalf;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+// cp.async of the columns [k0, k0 + kKB) of the tile's x rows [t0, t0 + 64)
+// of one bag into xs [64][kLdXB] (one 16-byte chunk a thread); rows at or
+// past n_end are zero-filled.  Not committed.
+__device__ __forceinline__ void load_x_cols_b(const __nv_bfloat16* __restrict__ xb, int t0,
+                                              int n_end, __nv_bfloat16* xs, int k0) {
+    const int r = threadIdx.x >> 2, c = 8 * (threadIdx.x & 3);
+    const bool ok = t0 + r < n_end;
+    cp_async16(xs + r * kLdXB + k0 + c, ok ? xb + (size_t)(t0 + r) * kD + k0 + c : xb, ok);
+}
+
+// cp.async of W1's columns [k0, k0 + kKB), all kHid rows, into a stage
+// [kHid][kLdWB]; with SPLIT (int8) also W1's lo into the stage's second half.
+template <bool SPLIT>
+__device__ __forceinline__ void load_w1_cols_b(const __nv_bfloat16* __restrict__ w1h,
+                                               const __nv_bfloat16* __restrict__ w1l,
+                                               __nv_bfloat16* ws, int k0) {
+    for (int i = threadIdx.x; i < kHid * (kKB / 8); i += kThreads) {
+        const int j = i / (kKB / 8), c = 8 * (i % (kKB / 8));
+        cp_async16(ws + j * kLdWB + c, w1h + (size_t)j * kD + k0 + c, true);
+        if (SPLIT) cp_async16(ws + kHid * kLdWB + j * kLdWB + c, w1l + (size_t)j * kD + k0 + c, true);
+    }
+}
+
+// cp.async of slice s < 16 of the dX product's W1 stream into a stage
+// [kJB][kLdWJB]: the hid rows [kJB (s % 8), +kJB) by the columns of half s / 8.
+__device__ __forceinline__ void load_w1_rows_b(const __nv_bfloat16* __restrict__ w1h,
+                                               __nv_bfloat16* ws, int s) {
+    constexpr int kVec = kHalfB / 8;
+    const __nv_bfloat16* src =
+        w1h + (size_t)(kJB * (s % (kHid / kJB))) * kD + kHalfB * (s / (kHid / kJB));
+    for (int i = threadIdx.x; i < kJB * kVec; i += kThreads) {
+        const int j = i / kVec, c = 8 * (i % kVec);
+        cp_async16(ws + j * kLdWJB + c, src + (size_t)j * kD + c, true);
+    }
+}
+
+// acc = x . W1^T for the tile [t0, t0 + 64) of one bag on the bf16 tensor
+// cores, warp (wm = warp % 2, wn = warp / 2) owning rows [32 wm, +32) and
+// hid columns [64 wn, +64), as h_product_f32 streams it: bf16 x's and W1's
+// column slices land in xs and in stage s % 2 (int8: the tile is staged in
+// xs first, by plain loads, and W1 is hi + lo, two products); W1's slice 0
+// must be committed into stage 0 on entry; at the last slice
+// `prefetch(stage0)` issues what the caller streams next.  On return all of
+// xs has landed.
+template <typename T, typename Prefetch>
+__device__ __forceinline__ void h_product_bf16(float (&acc)[kMT][kNT][4], const T* __restrict__ xb,
+                                               int t0, int n_end,
+                                               const __nv_bfloat16* __restrict__ w1h,
+                                               const __nv_bfloat16* __restrict__ w1l,
+                                               __nv_bfloat16* xs, __nv_bfloat16* stage0,
+                                               Prefetch prefetch) {
+    constexpr bool I8 = sizeof(T) == 1;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
+    __nv_bfloat16* stage1 = stage0 + DzSmemB<T>::stage / 2;
+    zero_acc(acc);
+    if constexpr (I8) {
+        stage_x(xb, t0, n_end, xs, kMF);
+    } else {
+        load_x_cols_b(xb, t0, n_end, xs, 0);
+        cp_async_commit();
+    }
+    // ldmatrix row addresses: A (x rows) and B (W1 rows = hid columns)
+    const __nv_bfloat16* xa = xs + (32 * wm + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLdXB + 8 * (lane >> 4);
+    const int bo = (64 * wn + (lane & 7) + 8 * (lane >> 4)) * kLdWB + 8 * ((lane >> 3) & 1);
+#pragma unroll 1
+    for (int s = 0; s < kSlicesHB; ++s) {
+        cp_async_wait<0>();
+        __syncthreads();  // slice s landed for all; stage (s + 1) % 2 is consumed
+        __nv_bfloat16* next = (s & 1) ? stage0 : stage1;
+        if (s + 1 < kSlicesHB) {
+            if constexpr (!I8) load_x_cols_b(xb, t0, n_end, xs, kKB * (s + 1));
+            load_w1_cols_b<I8>(w1h, w1l, next, kKB * (s + 1));
+        } else {
+            prefetch(stage0);
+        }
+        cp_async_commit();
+        const __nv_bfloat16* wb = ((s & 1) ? stage1 : stage0) + bo;
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
+        for (int ks = 0; ks < kKB / 16; ++ks) {
+            uint32_t a[kMT][4];
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt) wmma::fill_fragment(acc[mt][nt], 0.f);
-        for (int j0 = 0; j0 < kHid; j0 += kJs) {
-            __syncthreads();
-            for (int i = threadIdx.x; i < kJs * kVec; i += kThreads) {
-                const int j = i / kVec, c = i % kVec;
-                reinterpret_cast<uint4*>(ws + j * ldw)[c] =
-                    reinterpret_cast<const uint4*>(w1h + (size_t)(j0 + j) * kD + c0)[c];
-            }
-            __syncthreads();
+            for (int mt = 0; mt < kMT; ++mt) ldsm_x4(a[mt], xa + 16 * mt * kLdXB + kKB * s + 16 * ks);
 #pragma unroll
-            for (int kk = 0; kk < kJs; kk += 16) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bw[2];
+            for (int part = 0; part < (I8 ? 2 : 1); ++part) {  // W1's hi, then (int8) lo
 #pragma unroll
-                for (int nt = 0; nt < 2; ++nt)
-                    wmma::load_matrix_sync(bw[nt], ws + kk * ldw + warp * 32 + nt * 16, ldw);
+                for (int np = 0; np < kNT / 2; ++np) {
+                    uint32_t bw[4];
+                    ldsm_x4(bw, wb + part * kHid * kLdWB + 16 * np * kLdWB + 16 * ks);
 #pragma unroll
-                for (int mt = 0; mt < 4; ++mt) {
-                    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                    wmma::load_matrix_sync(a, dzs + mt * 16 * ldz + j0 + kk, ldz);
-#pragma unroll
-                    for (int nt = 0; nt < 2; ++nt)
-                        wmma::mma_sync(acc[mt][nt], a, bw[nt], acc[mt][nt]);
+                    for (int mt = 0; mt < kMT; ++mt) {
+                        mma_bf16(acc[mt][2 * np], a[mt], bw[0], bw[1]);
+                        mma_bf16(acc[mt][2 * np + 1], a[mt], bw[2], bw[3]);
+                    }
                 }
             }
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt)
-                wmma::store_matrix_sync(hs + mt * 16 * kLdH + warp * 32 + nt * 16, acc[mt][nt],
-                                        kLdH, wmma::mem_row_major);
-        __syncthreads();
-        // rows of 256 values as 32 groups of 8 bf16
-        for (int i = threadIdx.x; i < 64 * (kHalf / 8); i += kThreads) {
-            const int r = i / (kHalf / 8), c = 8 * (i % (kHalf / 8));
-            if (t0 + r >= n_end) continue;
-            const float a = a_s[r];
-            __align__(16) __nv_bfloat162 v[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                v[k] = __floats2bfloat162_rn(
-                    fmaf(a, gb[c0 + c + 2 * k], hs[r * kLdH + c + 2 * k]),
-                    fmaf(a, gb[c0 + c + 2 * k + 1], hs[r * kLdH + c + 2 * k + 1]));
-            }
-            *reinterpret_cast<uint4*>(dxb + (size_t)(t0 + r) * kD + c0 + c) =
-                *reinterpret_cast<const uint4*>(v);
         }
     }
 }
 
-// Pass 1 (bf16, int8): ds [B, N] and, WITH_DX, dX.  Grid (S1, B).
+// Pass 1 (bf16, int8): per tile of 64 patches, h (once), tanh, the logit, a,
+// g . x and ds; dz = ds w2 (1 - h^2) written in bf16 to the workspace dz
+// [B, N, kHid] (zeros on masked rows: a = 0 there; int8: s dz as hi in dz
+// and lo in dz_lo); the block's partial db1 = sum dz and dw2 = sum ds h (f32)
+// over its chunk into ws_db1 / ws_dw2 [B * S1, kHid]; WITH_DX (bf16), the dX
+// tile dz . W1 + a g, W1 streamed in slices of 32 hid rows by 256 columns,
+// written in bf16.  Grid (S1, B).
 template <typename T, bool WITH_DX>
-__global__ void __launch_bounds__(kThreads)
-abmil_bwd_ds(const T* __restrict__ x, const float* __restrict__ x_scale,
-             const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ w1h, const __nv_bfloat16* __restrict__ w1l,
-             const float* __restrict__ b1, const float* __restrict__ w2,
-             const float* __restrict__ g, const float* __restrict__ out,
-             const float* __restrict__ m, const float* __restrict__ l, int N, int chunk,
-             float* __restrict__ ds, T* __restrict__ dx) {
-    using L = DsSmem<T, WITH_DX>;
-    using XS = typename Staged<T>::type;
-    using DZ = typename Staged<T>::type;  // dz in the dX product's operand type
-    constexpr int M = L::M;
-    constexpr int ldx = XLd<T>::value;
+__global__ void __launch_bounds__(kThreads, 1)
+abmil_bwd_dz_bf16(const T* __restrict__ x, const float* __restrict__ x_scale,
+                  const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ w1h,
+                  const __nv_bfloat16* __restrict__ w1l, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ g,
+                  const float* __restrict__ out, const float* __restrict__ m,
+                  const float* __restrict__ l, int N, int chunk, int S,
+                  __nv_bfloat16* __restrict__ dz, __nv_bfloat16* __restrict__ dz_lo,
+                  float* __restrict__ ws_db1, float* __restrict__ ws_dw2,
+                  __nv_bfloat16* __restrict__ dx) {
+    using L = DzSmemB<T>;
+    constexpr bool I8 = L::I8;
+    static_assert(!(I8 && WITH_DX), "int8 features are data: no dX");
     extern __shared__ __align__(128) unsigned char smem[];
-    XS* xs = reinterpret_cast<XS*>(smem + L::x);
-    float* hs = reinterpret_cast<float*>(smem + L::h);
-    void* wst = smem + L::w;
-    DZ* dzs = reinterpret_cast<DZ*>(smem + L::dz);
-    float* valid_s = reinterpret_cast<float*>(smem + L::rows);
-    float* scale_s = valid_s + M;
-    float* a_s = scale_s + M;
-    float* gout_s = a_s + M;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L::x);
+    __nv_bfloat16* dzs = xs;  // after the h product and g . x
+    unsigned char* half_s = smem + L::half;
+    __nv_bfloat16* dzs_lo = reinterpret_cast<__nv_bfloat16*>(half_s);  // int8
+    __nv_bfloat16* stage0 = reinterpret_cast<__nv_bfloat16*>(smem + L::w);
+    __nv_bfloat16* stage1 = stage0 + L::stage / 2;
+    float* b1s = reinterpret_cast<float*>(smem + L::cols);
+    float* w2s = b1s + kHid;
+    float* gs = w2s + kHid;
+    float* red = reinterpret_cast<float*>(smem + L::red);
+    float* gx_s = reinterpret_cast<float*>(smem + L::rows);
+    float* a_s = gx_s + kMF;
+    float* ds_s = a_s + kMF;
+    float* sc_s = ds_s + kMF;  // int8: the rows' dequant scales
+    float* gout_s = sc_s + kMF;
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int b = blockIdx.y;
-    const int n_begin = blockIdx.x * chunk;
+    const int gq = lane >> 2, tq = lane & 3, wm = warp & 1, wn = warp >> 1;
+    const int split = blockIdx.x, b = blockIdx.y;
+    const int n_begin = split * chunk;
     const int n_end = min(N, n_begin + chunk);
     const T* xb = x + (size_t)b * N * kD;
     const uint8_t* mb = mask + (size_t)b * N;
     const float* gb = g + (size_t)b * kD;
     const float m_b = m[b], l_b = l[b];
 
-    float b1r[kHid / 32], w2r[kHid / 32], gr[kD / 32];
-#pragma unroll
-    for (int c = 0; c < kHid / 32; ++c) {
-        b1r[c] = b1[lane + 32 * c];
-        w2r[c] = w2[lane + 32 * c];
+    load_w1_cols_b<I8>(w1h, w1l, stage0, 0);  // the first tile's first W1 slice
+    cp_async_commit();
+    for (int j = tid; j < kHid; j += kThreads) {
+        b1s[j] = b1[j];
+        w2s[j] = w2[j];
     }
-#pragma unroll
-    for (int c = 0; c < kD / 32; ++c) gr[c] = gb[lane + 32 * c];
+    for (int k = tid; k < kD; k += kThreads) gs[k] = gb[k];
     if (warp == 0) {
         float s = 0.f;
 #pragma unroll
-        for (int c = 0; c < kD / 32; ++c) s += gr[c] * out[(size_t)b * kD + lane + 32 * c];
+        for (int c = 0; c < kD / 32; ++c) s += gb[lane + 32 * c] * out[(size_t)b * kD + lane + 32 * c];
         s = warp_sum(s);
         if (lane == 0) gout_s[0] = s;
     }
-
-    for (int t0 = n_begin; t0 < n_end; t0 += M) {
-        stage_x(xb, t0, n_end, xs, M);
-        for (int r = tid; r < M; r += kThreads) {
-            const int n = t0 + r;
-            const bool valid = n < n_end && mb[n] != 0;
-            valid_s[r] = valid ? 1.f : 0.f;
-            scale_s[r] = (valid && x_scale != nullptr) ? x_scale[(size_t)b * N + n] : 1.f;
-        }
-        h_gemm<T>(xs, w1h, w1l, wst, hs);  // synchronises before and after
-        const float gout = gout_s[0];
-
-        for (int r = warp; r < M; r += kWarps) {
-            const float sr = scale_s[r];
-            float hv[kHid / 32];
-            float s = 0.f, gx = 0.f;
+    // this thread's partial db1, dw2 of its columns 64 wn + 8 nt + 2 tq (+1)
+    float db[kNT][2], dw[kNT][2];
 #pragma unroll
-            for (int c = 0; c < kHid / 32; ++c) {
-                hv[c] = tanhf(fmaf(hs[r * kLdH + lane + 32 * c], sr, b1r[c]));
-                s += hv[c] * w2r[c];
+    for (int nt = 0; nt < kNT; ++nt) db[nt][0] = db[nt][1] = dw[nt][0] = dw[nt][1] = 0.f;
+    float acc[kMT][kNT][4];
+
+    for (int t0 = n_begin; t0 < n_end; t0 += kMF) {
+        const bool more = t0 + kMF < n_end;
+        if (I8 && tid < kMF) sc_s[tid] = t0 + tid < n_end ? x_scale[(size_t)b * N + t0 + tid] : 0.f;
+        h_product_bf16<T>(acc, xb, t0, n_end, w1h, w1l, xs, stage0, [&](__nv_bfloat16* st) {
+            if (WITH_DX) {
+                load_w1_rows_b(w1h, st, 0);  // the dX product's first slice
+            } else if (more) {
+                load_w1_cols_b<I8>(w1h, w1l, st, 0);  // the next tile's first slice
             }
+        });
+        if constexpr (I8) {  // h_pre = s x . W1^T
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float sr = sc_s[32 * wm + 16 * mt + 8 * h + gq];
+#pragma unroll
+                    for (int nt = 0; nt < kNT; ++nt) {
+                        acc[mt][nt][2 * h] *= sr;
+                        acc[mt][nt][2 * h + 1] *= sr;
+                    }
+                }
+        }
+        tanh_logit_f32(acc, b1s, w2s, red);
+        // g . x of the warp's rows
+#pragma unroll 1
+        for (int r = warp * (kMF / kWarps); r < (warp + 1) * (kMF / kWarps); ++r) {
+            float s = 0.f;
 #pragma unroll
             for (int c = 0; c < kD / 32; ++c)
-                gx = fmaf(gr[c], to_float(xs[r * ldx + lane + 32 * c]), gx);
+                s = fmaf(gs[lane + 32 * c], __bfloat162float(xs[r * kLdXB + lane + 32 * c]), s);
             s = warp_sum(s);
-            gx = warp_sum(gx);
-            const bool valid = valid_s[r] != 0.f;
-            const float a = valid ? expf(s - m_b) / l_b : 0.f;  // 0 first: see the top
-            const float d = a * (gx * sr - gout);
-            const int n = t0 + r;
-            if (lane == 0 && n < n_end) ds[(size_t)b * N + n] = d;
-            if constexpr (WITH_DX) {
-                if (lane == 0) a_s[r] = a;
-#pragma unroll
-                for (int c = 0; c < kHid / 32; ++c) {
-                    const float dz = d * w2r[c] * (1.f - hv[c] * hv[c]);
-                    dzs[r * L::ldz + lane + 32 * c] = __float2bfloat16(dz);
-                }
-            }
-        }
-        if constexpr (WITH_DX) {
-            __syncthreads();
-            dx_tile_tc(dzs, w1h, static_cast<__nv_bfloat16*>(wst), hs, a_s, gb, t0, n_end,
-                       dx + (size_t)b * N * kD);
-        }
-        __syncthreads();  // xs, hs and the rows are rewritten by the next tile
-    }
-}
-
-// Pass 2 (bf16, int8): partial dW1, db1, dw2 of hid slice blockIdx.x over
-// chunk blockIdx.y of bag blockIdx.z.  Grid (kHid / kSlice, S2, B).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-abmil_bwd_dw(const T* __restrict__ x, const float* __restrict__ x_scale,
-             const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ w1h, const __nv_bfloat16* __restrict__ w1l,
-             const float* __restrict__ b1, const float* __restrict__ w2,
-             const float* __restrict__ ds, int N, int chunk, int S,
-             float* __restrict__ ws_dw1, float* __restrict__ ws_db1,
-             float* __restrict__ ws_dw2) {
-    using L = DwSmem<T>;
-    using XS = typename Staged<T>::type;
-    constexpr int M = L::M;
-    constexpr int ldx = XLd<T>::value;
-    constexpr bool kSplit = sizeof(T) == 1;
-    extern __shared__ __align__(128) unsigned char smem[];
-    XS* xs = reinterpret_cast<XS*>(smem + L::x);
-    XS* w1s = reinterpret_cast<XS*>(smem + L::w);        // [parts][kSlice][ldw]
-    float* hs = reinterpret_cast<float*>(smem + L::h);   // [M][ldh]
-    XS* dzt = reinterpret_cast<XS*>(smem + L::dzt);      // [parts][kSlice][ldt]
-    float* ds_s = reinterpret_cast<float*>(smem + L::rows);
-    float* scale_s = ds_s + M;
-    float* red_b = hs;                                   // [kWarps][kSlice], after the loop
-    float* red_w = red_b + kWarps * kSlice;
-
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int j0 = blockIdx.x * kSlice;
-    const int split = blockIdx.y, b = blockIdx.z;
-    const int n_begin = split * chunk;
-    const int n_end = min(N, n_begin + chunk);
-    const T* xb = x + (size_t)b * N * kD;
-    const uint8_t* mb = mask + (size_t)b * N;
-
-    // the slice's rows of W1, resident for the whole chunk
-    constexpr int kVec = kD / 8;
-    for (int i = tid; i < kSlice * kVec; i += kThreads) {
-        const int j = i / kVec, c = i % kVec;
-        reinterpret_cast<uint4*>(w1s + j * L::ldw)[c] =
-            reinterpret_cast<const uint4*>(w1h + (size_t)(j0 + j) * kD)[c];
-        if (kSplit) {
-            reinterpret_cast<uint4*>(w1s + (kSlice + j) * L::ldw)[c] =
-                reinterpret_cast<const uint4*>(w1l + (size_t)(j0 + j) * kD)[c];
-        }
-    }
-    const int jj = tid & (kSlice - 1);  // this thread's slice column in the elementwise step
-    const float b1j = b1[j0 + jj], w2j = w2[j0 + jj];
-    float db_acc = 0.f, dw_acc = 0.f;
-
-    using namespace nvcuda;
-    // dW1 partial: tensor cores, 2 x 4 accumulator tiles per warp (columns
-    // [64w, 64w + 64))
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_tc[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) wmma::fill_fragment(acc_tc[mt][nt], 0.f);
-
-    for (int t0 = n_begin; t0 < n_end; t0 += M) {
-        stage_x(xb, t0, n_end, xs, M);
-        for (int r = tid; r < M; r += kThreads) {
-            const int n = t0 + r;
-            const bool in_range = n < n_end;
-            // pass 1 wrote ds = 0 for masked patches
-            ds_s[r] = in_range ? ds[(size_t)b * N + n] : 0.f;
-            scale_s[r] = (in_range && x_scale != nullptr && mb[n] != 0)
-                ? x_scale[(size_t)b * N + n] : 1.f;
+            if (lane == 0) gx_s[r] = I8 ? s * sc_s[r] : s;
         }
         __syncthreads();
-
-        // the slice of h_pre: [M, kSlice]
-        {
-            // warp w: row tile w & 3, column tile w >> 2
-            const int mt = warp & 3, nt = warp >> 2;
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> h;
-            wmma::fill_fragment(h, 0.f);
-            for (int k = 0; k < kD; k += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bw;
-                wmma::load_matrix_sync(a, xs + mt * 16 * ldx + k, ldx);
-                wmma::load_matrix_sync(bw, w1s + nt * 16 * L::ldw + k, L::ldw);
-                wmma::mma_sync(h, a, bw, h);
-                if (kSplit) {
-                    wmma::load_matrix_sync(bw, w1s + (kSlice + nt * 16) * L::ldw + k, L::ldw);
-                    wmma::mma_sync(h, a, bw, h);
-                }
-            }
-            wmma::store_matrix_sync(hs + mt * 16 * L::ldh + nt * 16, h, L::ldh,
-                                    wmma::mem_row_major);
+        if (tid < kMF) {
+            const int r = tid, n = t0 + r;
+            const bool valid = n < n_end && mb[n] != 0;
+            const float logit = (red[r] + red[kMF + r]) + (red[2 * kMF + r] + red[3 * kMF + r]);
+            const float a = valid ? expf(logit - m_b) / l_b : 0.f;  // 0 first: see the top
+            a_s[r] = a;
+            ds_s[r] = a * (gx_s[r] - gout_s[0]);
         }
-        __syncthreads();
+        __syncthreads();  // x is dead: dz takes its space
 
-        // dz = ds w2 (1 - h^2); db1, dw2 in registers; s dz as the dW1 operand
-        for (int r = tid >> 5; r < M; r += kWarps) {
-            const float sr = scale_s[r], d = ds_s[r];
-            const float hv = tanhf(fmaf(hs[r * L::ldh + jj], sr, b1j));
-            const float dz = d * w2j * (1.f - hv * hv);
-            db_acc += dz;
-            dw_acc += d * hv;
-            const float v = dz * sr;
-            const __nv_bfloat16 hi = __float2bfloat16(v);
-            dzt[jj * L::ldt + r] = hi;
-            if (kSplit) {
-                dzt[(kSlice + jj) * L::ldt + r] = __float2bfloat16(v - __bfloat162float(hi));
-            }
-        }
-        __syncthreads();
-
-        // dW1 partial += (s dz)^T [kSlice, M] . x [M, kD]
-        {
 #pragma unroll
-            for (int kk = 0; kk < M; kk += 16) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bx[4];
+        for (int nt = 0; nt < kNT; ++nt) {
+            const int j = 64 * wn + 8 * nt + 2 * tq;
+            const float u0 = w2s[j], u1 = w2s[j + 1];
 #pragma unroll
-                for (int nt = 0; nt < 4; ++nt)
-                    wmma::load_matrix_sync(bx[nt], xs + kk * ldx + warp * 64 + nt * 16, ldx);
+            for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-                for (int mt = 0; mt < 2; ++mt) {
-                    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                    wmma::load_matrix_sync(a, dzt + mt * 16 * L::ldt + kk, L::ldt);
-#pragma unroll
-                    for (int nt = 0; nt < 4; ++nt)
-                        wmma::mma_sync(acc_tc[mt][nt], a, bx[nt], acc_tc[mt][nt]);
-                    if (kSplit) {
-                        wmma::load_matrix_sync(a, dzt + (kSlice + mt * 16) * L::ldt + kk, L::ldt);
-#pragma unroll
-                        for (int nt = 0; nt < 4; ++nt)
-                            wmma::mma_sync(acc_tc[mt][nt], a, bx[nt], acc_tc[mt][nt]);
+                for (int h = 0; h < 2; ++h) {
+                    const int r = 32 * wm + 16 * mt + 8 * h + gq;
+                    const float d = ds_s[r];
+                    const float h0 = acc[mt][nt][2 * h], h1 = acc[mt][nt][2 * h + 1];
+                    const float z0 = d * u0 * (1.f - h0 * h0), z1 = d * u1 * (1.f - h1 * h1);
+                    db[nt][0] += z0;
+                    db[nt][1] += z1;
+                    dw[nt][0] = fmaf(d, h0, dw[nt][0]);
+                    dw[nt][1] = fmaf(d, h1, dw[nt][1]);
+                    if constexpr (I8) {  // s dz as bf16 hi + lo
+                        const float sr = sc_s[r], v0 = sr * z0, v1 = sr * z1;
+                        const uint32_t hi = pack_bf16(v0, v1);
+                        const float2 hv = unpack_bf16(hi);
+                        *reinterpret_cast<uint32_t*>(dzs + r * kLdZB + j) = hi;
+                        *reinterpret_cast<uint32_t*>(dzs_lo + r * kLdZB + j) =
+                            pack_bf16(v0 - hv.x, v1 - hv.y);
+                    } else {
+                        *reinterpret_cast<uint32_t*>(dzs + r * kLdZB + j) = pack_bf16(z0, z1);
                     }
                 }
             }
         }
-        __syncthreads();  // xs, hs, dz^T and the rows are rewritten by the next tile
-    }
-
-    const size_t part = (size_t)b * S + split;
-    float* dst = ws_dw1 + part * kHid * kD + (size_t)j0 * kD;
+        __syncthreads();
+        {
+            constexpr int kVec = kHid / 8;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-            wmma::store_matrix_sync(dst + (size_t)mt * 16 * kD + warp * 64 + nt * 16,
-                                    acc_tc[mt][nt], kD, wmma::mem_row_major);
-    red_b[warp * kSlice + jj] = db_acc;  // lanes 0-31 of each warp: jj = lane
-    red_w[warp * kSlice + jj] = dw_acc;
-    __syncthreads();
-    if (tid < kSlice) {
-        float sb = 0.f, sw = 0.f;
-        for (int w = 0; w < kWarps; ++w) {
-            sb += red_b[w * kSlice + tid];
-            sw += red_w[w * kSlice + tid];
+            for (int part = 0; part < (I8 ? 2 : 1); ++part) {
+                __nv_bfloat16* dzb = (part ? dz_lo : dz) + ((size_t)b * N + t0) * kHid;
+                const __nv_bfloat16* src = part ? dzs_lo : dzs;
+                for (int i = tid; i < kMF * kVec; i += kThreads) {
+                    const int r = i / kVec, c = 8 * (i % kVec);
+                    if (t0 + r < n_end) {
+                        *reinterpret_cast<uint4*>(dzb + (size_t)r * kHid + c) =
+                            *reinterpret_cast<const uint4*>(src + r * kLdZB + c);
+                    }
+                }
+            }
         }
-        ws_db1[part * kHid + j0 + tid] = sb;
-        ws_dw2[part * kHid + j0 + tid] = sw;
+
+        if constexpr (WITH_DX) {
+            __nv_bfloat16* dxb = dx + (size_t)b * N * kD;
+            const __nv_bfloat16* za =
+                dzs + (32 * wm + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLdZB + 8 * (lane >> 4);
+            const int bo = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdWJB + 64 * wn + 8 * (lane >> 4);
+            constexpr int kSlicesJ = kHid / kJB;  // slices a half
+#pragma unroll 1
+            for (int half = 0; half < 2; ++half) {
+                zero_acc(acc);
+#pragma unroll 1
+                for (int q = 0; q < kSlicesJ; ++q) {
+                    const int s = half * kSlicesJ + q;
+                    cp_async_wait<0>();
+                    __syncthreads();  // slice s landed; stage (s + 1) % 2 is consumed
+                    __nv_bfloat16* next = (s & 1) ? stage0 : stage1;
+                    if (s + 1 < 2 * kSlicesJ) {
+                        load_w1_rows_b(w1h, next, s + 1);
+                    } else if (more) {
+                        load_w1_cols_b<false>(w1h, w1l, next, 0);  // stage 0: the next tile's first slice
+                    }
+                    cp_async_commit();
+                    const __nv_bfloat16* wb = ((s & 1) ? stage1 : stage0) + bo;
+#pragma unroll
+                    for (int ks = 0; ks < kJB / 16; ++ks) {
+                        uint32_t a[kMT][4];
+#pragma unroll
+                        for (int mt = 0; mt < kMT; ++mt)
+                            ldsm_x4(a[mt], za + 16 * mt * kLdZB + kJB * q + 16 * ks);
+#pragma unroll
+                        for (int np = 0; np < kNT / 2; ++np) {
+                            uint32_t bw[4];
+                            ldsm_x4_t(bw, wb + 16 * ks * kLdWJB + 16 * np);
+#pragma unroll
+                            for (int mt = 0; mt < kMT; ++mt) {
+                                mma_bf16(acc[mt][2 * np], a[mt], bw[0], bw[1]);
+                                mma_bf16(acc[mt][2 * np + 1], a[mt], bw[2], bw[3]);
+                            }
+                        }
+                    }
+                }
+                // a g + dz . W1 of the half tile, in bf16, through the
+                // swizzled half-tile space, then 16-byte stores
+#pragma unroll
+                for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            const int r = 32 * wm + 16 * mt + 8 * h + gq;
+                            const int c = 64 * wn + 8 * nt + 2 * tq;
+                            const float a = a_s[r];
+                            const float* gh = gs + kHalfB * half + c;
+                            *reinterpret_cast<uint32_t*>(
+                                half_s + r * (kHalfB * 2) + (((c >> 3) ^ (r & 7)) << 4) + 4 * tq) =
+                                pack_bf16(fmaf(a, gh[0], acc[mt][nt][2 * h]),
+                                          fmaf(a, gh[1], acc[mt][nt][2 * h + 1]));
+                        }
+                __syncthreads();
+                constexpr int kVec = kHalfB / 8;
+                for (int i = tid; i < kMF * kVec; i += kThreads) {
+                    const int r = i / kVec, c = i % kVec;
+                    if (t0 + r < n_end) {
+                        *reinterpret_cast<uint4*>(dxb + (size_t)(t0 + r) * kD + kHalfB * half + 8 * c) =
+                            *reinterpret_cast<const uint4*>(half_s + r * (kHalfB * 2) +
+                                                            ((c ^ (r & 7)) << 4));
+                    }
+                }
+            }
+        }
+        __syncthreads();  // xs (dz, the dX half tile) and the rows are rewritten by the next tile
     }
+    cp_async_wait<0>();
+
+    // the block's db1, dw2: over the 8 row groups of a warp (lanes gq), then
+    // the two row halves (wm) through x's space, in a fixed order
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) {
+                db[nt][k] += __shfl_xor_sync(0xffffffffu, db[nt][k], o);
+                dw[nt][k] += __shfl_xor_sync(0xffffffffu, dw[nt][k], o);
+            }
+    float* sums = reinterpret_cast<float*>(smem + L::x);  // [2: db, dw][2: wm][kHid]
+    if (gq == 0) {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                const int j = 64 * wn + 8 * nt + 2 * tq + k;
+                sums[wm * kHid + j] = db[nt][k];
+                sums[(2 + wm) * kHid + j] = dw[nt][k];
+            }
+    }
+    __syncthreads();
+    const size_t part = (size_t)b * S + split;
+    ws_db1[part * kHid + tid] = sums[tid] + sums[kHid + tid];
+    ws_dw2[part * kHid + tid] = sums[2 * kHid + tid] + sums[3 * kHid + tid];
 }
 
 // ------------------------------------------------ f32 storage: split TF32
@@ -643,64 +703,149 @@ abmil_bwd_dz_f32(const float* __restrict__ x, const uint8_t* __restrict__ mask,
     ws_dw2[part * kHid + tid] = dw;
 }
 
-// f32 pass 2: dW1 = sum_k dz[k]^T x[k] over the K = B * N patch rows of the
-// batch (dz and x as [K, kHid] and [K, kD]; dz is 0 on masked rows), a
-// split-K GEMM in split TF32.  Block (tile, split) owns the dW1 tile
-// [kDwM, kDwN] number `tile` over the rows [split * chunk, +chunk) and
-// writes it to ws_dw1[split]; the tiles of one split run side by side, so
-// their dz and x rows come from device memory about once and from L2 for
-// the rest.  Rows stream through kStagesDw cp.async stages of kRowsDw.
-// Grid (kDwTiles, S2).
+// Pass 2: dW1 = sum_k dz[k]^T x[k] over the K = B * N patch rows of the
+// batch (dz [K, kHid] in f32 for f32, else bf16 -- int8: s dz as hi and lo
+// planes; x [K, kD] in the storage type; dz is 0 on masked rows), one
+// split-K GEMM.  Block (tile, split) owns the dW1 tile [kDwM, kDwN] number
+// `tile` over the rows [split * chunk, +chunk) and writes it to
+// ws_dw1[split]; the tiles of one split run side by side, so their dz and x
+// rows come from device memory about once and from L2 for the rest.  Rows
+// stream through DwTiling<T>::stages cp.async stages of ::rows (dz's and
+// x's rows a stage, [rows][kLdDw] each; int8: dz hi and lo, and x's raw
+// rows, converted to bf16 in one tile after each stage lands); both
+// operands are k-major.  f32: split TF32 (slice_3xtf32, 32 rows a slice);
+// bf16 and int8: A (dz^T) and B (x) by ldmatrix.trans into mma.sync
+// m16n8k16 (int8: dz's hi and lo, two products).  Grid (kDwTiles, S2).
 constexpr int kDwM = 128;                                 // hid rows of a dW1 tile
 constexpr int kDwN = 128;                                 // D columns of a dW1 tile
 constexpr int kDwTiles = (kHid / kDwM) * (kD / kDwN);     // 8
-constexpr int kRowsDw = 32;                               // patch rows a slice (slice_3xtf32's depth)
-constexpr int kLdDw = 128 + 8;                            // 136: k-major fragments (8t + g)
-constexpr int kStagesDw = 4;
-constexpr size_t kStageDw = 2 * (size_t)kRowsDw * kLdDw * 4;  // dz and x rows: 34,816
-struct DwSmemF { static constexpr size_t total = kStagesDw * kStageDw; };
+constexpr int kRowsDw = 32;                               // f32 patch rows a stage (slice_3xtf32's depth)
+constexpr int kRowsDwB = 64;                              // bf16 and int8 patch rows a stage
+// 136: f32's k-major fragments hit 32 banks (8t + g), bf16's 8 rows 8 bank groups
+constexpr int kLdDw = 128 + 8;
+template <typename T> struct DwTiling {                   // bf16, int8
+    using Op = __nv_bfloat16;                             // the operands' type in shared memory
+    static constexpr int rows = kRowsDwB, stages = 3;
+};
+template <> struct DwTiling<float> {
+    using Op = float;
+    static constexpr int rows = kRowsDw, stages = 4;
+};
+// bytes: a stage (dz rows, then x rows; int8: dz hi, dz lo, raw x rows), and
+// the block's (int8: the stages and the converted x tile)
+template <typename T>
+__host__ __device__ constexpr size_t dw_stage_bytes() {
+    using D = DwTiling<T>;
+    return sizeof(T) == 1 ? 2 * (size_t)D::rows * kLdDw * 2 + (size_t)D::rows * kDwN
+                          : 2 * (size_t)D::rows * kLdDw * sizeof(typename D::Op);
+}
+template <typename T>
+__host__ __device__ constexpr size_t dw_smem_bytes() {
+    using D = DwTiling<T>;
+    return D::stages * dw_stage_bytes<T>() + (sizeof(T) == 1 ? (size_t)D::rows * kLdDw * 2 : 0);
+}
 
-__global__ void __launch_bounds__(kThreads, 1)
-abmil_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ dz, int K, int chunk,
-                 float* __restrict__ ws_dw1) {
+template <typename T>
+__device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
+                                        const typename DwTiling<T>::Op* __restrict__ dz,
+                                        const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk,
+                                        float* __restrict__ ws_dw1) {
+    using Op = typename DwTiling<T>::Op;
+    constexpr bool I8 = sizeof(T) == 1;
+    constexpr int kRows = DwTiling<T>::rows, kStages = DwTiling<T>::stages;
+    constexpr int kVec = 16 / sizeof(Op);      // elements of a 16-byte chunk
     extern __shared__ __align__(128) unsigned char smem[];
-    float* stages = reinterpret_cast<float*>(smem);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gq = lane >> 2, tq = lane & 3, wm = warp & 3, wn = warp >> 2;
     const int m0 = (blockIdx.x / (kD / kDwN)) * kDwM, n0 = (blockIdx.x % (kD / kDwN)) * kDwN;
     const int split = blockIdx.y;
     const int k_begin = split * chunk;
     const int k_end = min(K, k_begin + chunk);
-    const int slices = (k_end - k_begin + kRowsDw - 1) / kRowsDw;
+    const int slices = (k_end - k_begin + kRows - 1) / kRows;
+    // a stage: dz rows [kRows][kLdDw], then x rows (int8: dz lo rows, then
+    // the raw x rows [kRows][kDwN] bytes)
+    auto stage = [&](int s) { return smem + (size_t)(s % kStages) * dw_stage_bytes<T>(); };
+    __nv_bfloat16* xcv = reinterpret_cast<__nv_bfloat16*>(smem + kStages * dw_stage_bytes<T>());
 
     auto load = [&](int s) {
-        float* zs = stages + (s % kStagesDw) * (kStageDw / 4);
-        float* xs = zs + kRowsDw * kLdDw;
-        const int k = k_begin + s * kRowsDw;
-        constexpr int kVec = 128 / 4;
-        for (int i = tid; i < kRowsDw * kVec; i += kThreads) {
-            const int r = i / kVec, c = 4 * (i % kVec);
+        Op* zs = reinterpret_cast<Op*>(stage(s));
+        Op* xs = zs + kRows * kLdDw;  // int8: dz lo
+        const int k = k_begin + s * kRows;
+        for (int i = tid; i < kRows * (128 / kVec); i += kThreads) {
+            const int r = i / (128 / kVec), c = kVec * (i % (128 / kVec));
             const bool ok = k + r < k_end;
-            cp_async16(zs + r * kLdDw + c, ok ? dz + (size_t)(k + r) * kHid + m0 + c : dz, ok);
-            cp_async16(xs + r * kLdDw + c, ok ? x + (size_t)(k + r) * kD + n0 + c : x, ok);
+            const size_t zo = (size_t)(k + r) * kHid + m0 + c;
+            cp_async16(zs + r * kLdDw + c, ok ? dz + zo : dz, ok);
+            if constexpr (I8) cp_async16(xs + r * kLdDw + c, ok ? dz_lo + zo : dz_lo, ok);
+            else cp_async16(xs + r * kLdDw + c, ok ? x + (size_t)(k + r) * kD + n0 + c : x, ok);
+        }
+        if constexpr (I8) {
+            unsigned char* x8 = reinterpret_cast<unsigned char*>(xs + kRows * kLdDw);
+            for (int i = tid; i < kRows * (kDwN / 16); i += kThreads) {
+                const int r = i / (kDwN / 16), c = 16 * (i % (kDwN / 16));
+                const bool ok = k + r < k_end;
+                cp_async16(x8 + r * kDwN + c, ok ? x + (size_t)(k + r) * kD + n0 + c : x, ok);
+            }
         }
     };
 #pragma unroll
-    for (int s = 0; s < kStagesDw - 1; ++s) {
+    for (int s = 0; s < kStages - 1; ++s) {
         if (s < slices) load(s);
         cp_async_commit();
     }
     float acc[kMT][kNT][4];
     zero_acc(acc);
+    // the ldmatrix.trans row addresses (rows are patches, k): A = dz^T, B = x
+    const int ao = ((lane & 7) + 8 * (lane >> 4)) * kLdDw + 32 * wm + 8 * ((lane >> 3) & 1);
+    const int bo = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdDw + 64 * wn + 8 * (lane >> 4);
 #pragma unroll 1
     for (int s = 0; s < slices; ++s) {
-        cp_async_wait<kStagesDw - 2>();
-        __syncthreads();  // slice s landed; stage (s - 1) % kStagesDw is consumed
-        if (s + kStagesDw - 1 < slices) load(s + kStagesDw - 1);
+        cp_async_wait<kStages - 2>();
+        __syncthreads();  // slice s landed; stage (s - 1) % kStages and xcv are consumed
+        if (s + kStages - 1 < slices) load(s + kStages - 1);
         cp_async_commit();
-        const float* zs = stages + (s % kStagesDw) * (kStageDw / 4);
-        const float* xs = zs + kRowsDw * kLdDw;
-        slice_3xtf32<true, true>(acc, zs + 32 * wm, kLdDw, xs + 64 * wn, kLdDw);
+        const Op* zs = reinterpret_cast<const Op*>(stage(s));
+        const Op* xs = zs + kRows * kLdDw;
+        if constexpr (sizeof(T) == 4) {
+            slice_3xtf32<true, true>(acc, zs + 32 * wm, kLdDw, xs + 64 * wn, kLdDw);
+        } else {
+            if constexpr (I8) {  // the raw x rows -> bf16 (exact), then B from there
+                const unsigned char* x8 = reinterpret_cast<const unsigned char*>(xs + kRows * kLdDw);
+                for (int i = tid; i < kRows * (kDwN / 16); i += kThreads) {
+                    const int r = i / (kDwN / 16), c = 16 * (i % (kDwN / 16));
+                    const int4 raw = *reinterpret_cast<const int4*>(x8 + r * kDwN + c);
+                    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+                    uint4 o[2];
+                    uint32_t* ow = &o[0].x;
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) ow[e] = pack_bf16(v[2 * e], v[2 * e + 1]);
+                    *reinterpret_cast<uint4*>(xcv + r * kLdDw + c) = o[0];
+                    *reinterpret_cast<uint4*>(xcv + r * kLdDw + c + 8) = o[1];
+                }
+                __syncthreads();
+            }
+            const __nv_bfloat16* xb = I8 ? xcv : reinterpret_cast<const __nv_bfloat16*>(xs);
+#pragma unroll
+            for (int ks = 0; ks < kRows / 16; ++ks) {
+                uint32_t bx[kNT / 2][4];
+#pragma unroll
+                for (int np = 0; np < kNT / 2; ++np) ldsm_x4_t(bx[np], xb + 16 * ks * kLdDw + bo + 16 * np);
+#pragma unroll
+                for (int part = 0; part < (I8 ? 2 : 1); ++part) {  // dz (int8: its hi, then lo)
+                    const Op* za = part ? xs : zs;
+                    uint32_t a[kMT][4];
+#pragma unroll
+                    for (int mt = 0; mt < kMT; ++mt) ldsm_x4_t(a[mt], za + 16 * ks * kLdDw + ao + 16 * mt);
+#pragma unroll
+                    for (int np = 0; np < kNT / 2; ++np)
+#pragma unroll
+                        for (int mt = 0; mt < kMT; ++mt) {
+                            mma_bf16(acc[mt][2 * np], a[mt], bx[np][0], bx[np][1]);
+                            mma_bf16(acc[mt][2 * np + 1], a[mt], bx[np][2], bx[np][3]);
+                        }
+                }
+            }
+        }
     }
     cp_async_wait<0>();
 
@@ -716,6 +861,25 @@ abmil_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ dz, int 
                 *reinterpret_cast<float2*>(dst + (size_t)r * kD + c) =
                     make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
             }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+abmil_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ dz, int K, int chunk,
+                 float* __restrict__ ws_dw1) {
+    dw_gemm(x, dz, nullptr, K, chunk, ws_dw1);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+abmil_bwd_dw_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dz,
+                  int K, int chunk, float* __restrict__ ws_dw1) {
+    dw_gemm(x, dz, nullptr, K, chunk, ws_dw1);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+abmil_bwd_dw_i8(const int8_t* __restrict__ x, const __nv_bfloat16* __restrict__ dz_hi,
+                const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk,
+                float* __restrict__ ws_dw1) {
+    dw_gemm(x, dz_hi, dz_lo, K, chunk, ws_dw1);
 }
 
 // Pass 3: dw1 = the sum of the K_w partials ws_dw1, db1 and dw2 those of
@@ -746,41 +910,39 @@ cudaError_t set_smem(K kernel, size_t smem) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// bf16 and int8: pass 1 over chunks of chunk1 patches of each bag (S1 a
+// bag), pass 2 over chunks of chunk2 of the B * N patch rows (S2 in all).
+// w1h, w1l: W1's bf16 hi and (int8) lo; dz, dz_lo: the workspace planes (lo:
+// int8 only).
 template <typename T>
-cudaError_t launch_passes(const void* xv, const float* x_scale, const uint8_t* mask,
-                          const __nv_bfloat16* w1_bf16, const float* b1,
-                          const float* w2, const float* g, const float* out, const float* m,
-                          const float* l, int B, int N, int chunk1, int S1, int chunk2,
-                          int S2, bool with_dx, float* ds, void* dx, float* ws_dw1,
-                          float* ws_db1, float* ws_dw2, cudaStream_t stream) {
-    const T* x = static_cast<const T*>(xv);
-    const __nv_bfloat16* w1l = w1_bf16 == nullptr ? nullptr : w1_bf16 + kHid * kD;
+cudaError_t launch_passes_bf16(const T* x, const float* x_scale, const uint8_t* mask,
+                               const __nv_bfloat16* w1h, const __nv_bfloat16* w1l,
+                               const float* b1, const float* w2, const float* g,
+                               const float* out, const float* m, const float* l, int B, int N,
+                               int chunk1, int S1, int chunk2, int S2, bool with_dx,
+                               __nv_bfloat16* dz, __nv_bfloat16* dz_lo, __nv_bfloat16* dx,
+                               float* ws_dw1, float* ws_db1, float* ws_dw2,
+                               cudaStream_t stream) {
     cudaError_t err;
-    if (with_dx) {
-        if constexpr (sizeof(T) == 1) {
-            return cudaErrorInvalidValue;  // int8 storage is data: no dX
-        } else {
-            auto k1 = abmil_bwd_ds<T, true>;
-            const size_t smem = DsSmem<T, true>::total;
-            if ((err = set_smem(k1, smem)) != cudaSuccess) return err;
-            k1<<<dim3(S1, B), kThreads, smem, stream>>>(x, x_scale, mask, w1_bf16, w1l,
-                                                        b1, w2, g, out, m, l, N, chunk1, ds,
-                                                        static_cast<T*>(dx));
-        }
-    } else {
-        auto k1 = abmil_bwd_ds<T, false>;
-        const size_t smem = DsSmem<T, false>::total;
-        if ((err = set_smem(k1, smem)) != cudaSuccess) return err;
-        k1<<<dim3(S1, B), kThreads, smem, stream>>>(x, x_scale, mask, w1_bf16, w1l, b1,
-                                                    w2, g, out, m, l, N, chunk1, ds, nullptr);
+    const size_t smem1 = DzSmemB<T>::total, smem2 = dw_smem_bytes<T>();
+    auto k1 = abmil_bwd_dz_bf16<T, false>;
+    if constexpr (sizeof(T) == 2) {
+        if (with_dx) k1 = abmil_bwd_dz_bf16<T, true>;
     }
+    if ((err = set_smem(k1, smem1)) != cudaSuccess) return err;
+    k1<<<dim3(S1, B), kThreads, smem1, stream>>>(x, x_scale, mask, w1h, w1l, b1, w2, g, out, m,
+                                                 l, N, chunk1, S1, dz, dz_lo, ws_db1, ws_dw2,
+                                                 dx);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    auto k2 = abmil_bwd_dw<T>;
-    const size_t smem2 = DwSmem<T>::total;
-    if ((err = set_smem(k2, smem2)) != cudaSuccess) return err;
-    k2<<<dim3(kHid / kSlice, S2, B), kThreads, smem2, stream>>>(
-        x, x_scale, mask, w1_bf16, w1l, b1, w2, ds, N, chunk2, S2, ws_dw1, ws_db1,
-        ws_dw2);
+    if constexpr (sizeof(T) == 1) {
+        if ((err = set_smem(abmil_bwd_dw_i8, smem2)) != cudaSuccess) return err;
+        abmil_bwd_dw_i8<<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(x, dz, dz_lo, B * N,
+                                                                         chunk2, ws_dw1);
+    } else {
+        if ((err = set_smem(abmil_bwd_dw_bf16, smem2)) != cudaSuccess) return err;
+        abmil_bwd_dw_bf16<<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(x, dz, B * N, chunk2,
+                                                                           ws_dw1);
+    }
     return cudaGetLastError();
 }
 
@@ -804,8 +966,8 @@ cudaError_t launch_passes_f32(const float* x, const uint8_t* mask, const float* 
             x, mask, w1, b1, w2, g, out, m, l, N, chunk1, S1, dz, ws_db1, ws_dw2, nullptr);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = set_smem(abmil_bwd_dw_f32, DwSmemF::total)) != cudaSuccess) return err;
-    abmil_bwd_dw_f32<<<dim3(kDwTiles, S2), kThreads, DwSmemF::total, stream>>>(
+    if ((err = set_smem(abmil_bwd_dw_f32, dw_smem_bytes<float>())) != cudaSuccess) return err;
+    abmil_bwd_dw_f32<<<dim3(kDwTiles, S2), kThreads, dw_smem_bytes<float>(), stream>>>(
         x, dz, B * N, chunk2, ws_dw1);
     return cudaGetLastError();
 }
@@ -815,30 +977,26 @@ cudaError_t launch_passes_f32(const float* x, const uint8_t* mask, const float* 
 extern "C" {
 
 // Bytes of dynamic shared memory of pass 1 (with or without dX) and pass 2.
-size_t abmil_bwd_smem_bytes(int storage, int pass, int with_dx) {
-    if (storage == kF32) return pass == 2 ? DwSmemF::total : DsSmemF::total;
+size_t abmil_bwd_smem_bytes(int storage, int pass) {
+    if (storage == kF32) return pass == 2 ? dw_smem_bytes<float>() : DsSmemF::total;
     if (storage == kBF16) {
-        return pass == 2 ? DwSmem<__nv_bfloat16>::total
-                         : with_dx ? DsSmem<__nv_bfloat16, true>::total
-                                   : DsSmem<__nv_bfloat16, false>::total;
+        return pass == 2 ? dw_smem_bytes<__nv_bfloat16>() : DzSmemB<__nv_bfloat16>::total;
     }
-    return pass == 2 ? DwSmem<int8_t>::total : DsSmem<int8_t, false>::total;
+    return pass == 2 ? dw_smem_bytes<int8_t>() : DzSmemB<int8_t>::total;
 }
 
 // x [B, N, 512] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N] f32 for
 // int8, else null; mask [B, N] bool; w1 [256, 512], b1 and w2 [256] f32;
 // g and out [B, 512], m and l [B] f32 (the output's cotangent, the forward
-// output and its stats).  Pass 1 runs S1 blocks of chunk1 patches a bag.
-// bf16 and int8: pass 2 runs S2 blocks of chunk2 patches a bag for each hid
-// slice; workspace w1_bf16 [2, 256, 512] bf16, ds [B, N], ws_dw1
-// [B * S2, 256, 512], ws_db1 and ws_dw2 [B * S2, 256] f32.  f32: pass 2
-// runs 8 dW1 tiles on each of S2 chunks of chunk2 of the B * N patch rows;
-// workspace w1_bf16 null, ds the dz workspace [B, N, 256], ws_dw1
-// [S2, 256, 512], ws_db1 and ws_dw2 [B * S1, 256] f32.
-// Outputs: dx [B, N, 512] in the storage type when with_dx (f32 and bf16
-// only; else null), dw1 [256, 512], db1 and dw2 [256] f32.  All on CUDA
-// device `device`; the kernels go to `stream`.  Returns the launches'
-// cudaError_t (0 on success).
+// output and its stats).  Pass 1 runs S1 blocks of chunk1 patches a bag,
+// pass 2 the 8 dW1 tiles on each of S2 chunks of chunk2 of the B * N patch
+// rows.  Workspace: w1_bf16 null (f32) or [2, 256, 512] bf16 (W1's hi and,
+// int8, lo); ds the dz workspace, [B, N, 256] f32 (f32) or bf16 (bf16), or
+// [2, B, N, 256] bf16 (int8: s dz's hi and lo); ws_dw1 [S2, 256, 512],
+// ws_db1 and ws_dw2 [B * S1, 256] f32.  Outputs: dx [B, N, 512] in the
+// storage type when with_dx (f32 and bf16 only; else null), dw1 [256, 512],
+// db1 and dw2 [256] f32.  All on CUDA device `device`; the kernels go to
+// `stream`.  Returns the launches' cudaError_t (0 on success).
 int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* w1,
               const void* b1, const void* w2, const void* g, const void* out, const void* m,
               const void* l, int B, int N, int chunk1, int S1, int chunk2, int S2,
@@ -864,7 +1022,7 @@ int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* 
     const float* mf = static_cast<const float*>(m);
     const float* lf = static_cast<const float*>(l);
     __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(w1_bf16);
-    float* dsf = static_cast<float*>(ds);
+    __nv_bfloat16* dzb = static_cast<__nv_bfloat16*>(ds);
     float* w_dw1 = static_cast<float*>(ws_dw1);
     float* w_db1 = static_cast<float*>(ws_db1);
     float* w_dw2 = static_cast<float*>(ws_dw2);
@@ -874,24 +1032,25 @@ int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* 
     }
     if (storage == kF32) {
         err = launch_passes_f32(static_cast<const float*>(x), mk, w1f, b1f, w2f, gf, of, mf,
-                                lf, B, N, chunk1, S1, chunk2, S2, with_dx != 0, dsf,
-                                static_cast<float*>(dx), w_dw1, w_db1, w_dw2, st);
+                                lf, B, N, chunk1, S1, chunk2, S2, with_dx != 0,
+                                static_cast<float*>(ds), static_cast<float*>(dx), w_dw1, w_db1,
+                                w_dw2, st);
     } else if (storage == kBF16) {
-        err = launch_passes<__nv_bfloat16>(x, xs, mk, wb, b1f, w2f, gf, of, mf, lf, B,
-                                           N, chunk1, S1, chunk2, S2, with_dx != 0, dsf, dx,
-                                           w_dw1, w_db1, w_dw2, st);
+        err = launch_passes_bf16(static_cast<const __nv_bfloat16*>(x), nullptr, mk, wb, nullptr,
+                                 b1f, w2f, gf, of, mf, lf, B, N, chunk1, S1, chunk2, S2,
+                                 with_dx != 0, dzb, nullptr, static_cast<__nv_bfloat16*>(dx),
+                                 w_dw1, w_db1, w_dw2, st);
     } else if (storage == kI8) {
-        err = launch_passes<int8_t>(x, xs, mk, wb, b1f, w2f, gf, of, mf, lf, B, N,
-                                    chunk1, S1, chunk2, S2, false, dsf, nullptr, w_dw1,
-                                    w_db1, w_dw2, st);
+        err = launch_passes_bf16(static_cast<const int8_t*>(x), xs, mk, wb, wb + kHid * kD, b1f,
+                                 w2f, gf, of, mf, lf, B, N, chunk1, S1, chunk2, S2, false, dzb,
+                                 dzb + (size_t)B * N * kHid, nullptr, w_dw1, w_db1, w_dw2, st);
     } else {
         return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
     const int total = kHid * kD + 2 * kHid;
-    const int k_w = storage == kF32 ? S2 : B * S2, k_b = storage == kF32 ? B * S1 : B * S2;
     abmil_bwd_reduce<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        w_dw1, w_db1, w_dw2, k_w, k_b, static_cast<float*>(dw1), static_cast<float*>(db1),
+        w_dw1, w_db1, w_dw2, S2, B * S1, static_cast<float*>(dw1), static_cast<float*>(db1),
         static_cast<float*>(dw2));
     return (int)cudaGetLastError();
 }

@@ -13,12 +13,22 @@
 
 namespace abmil {
 
+using coattn::cp_async16;
+using coattn::cp_async_commit;
+using coattn::cp_async_wait;
 using coattn::kBF16;
 using coattn::kF32;
 using coattn::kI8;
 using coattn::kNegInf;
+using coattn::ldsm_x4;
+using coattn::ldsm_x4_t;
+using coattn::mma_bf16;
+using coattn::mma_tf32;
+using coattn::pack_bf16;
+using coattn::split_tf32;
 using coattn::storage_itemsize;
 using coattn::to_float;
+using coattn::unpack_bf16;
 using coattn::warp_max;
 using coattn::warp_sum;
 
@@ -188,41 +198,6 @@ constexpr size_t kStageF = round128((size_t)kHid * kLdWF * 4) > round128((size_t
 // tile): 2 x 4 (or 4 x 2) warps of 32 rows x 64 columns, MT x NT mma tiles
 constexpr int kMT = 2;
 constexpr int kNT = 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
-// then not read, but must be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v = hi + lo: hi is v rounded to TF32 (to nearest, ties away: the 13 low
-// bits of the f32 rounded off, as cvt.rna.tf32.f32 does), lo = v - hi
-// exactly, |lo| <= 2^-11 |v|.  lo goes to the tensor cores as its f32 bits,
-// which they read as TF32 by ignoring the 13 low bits: lo is truncated there,
-// ~2^-21 of v.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-    hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-    lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // One k-step of 8 of a warp's [16 kMT, 8 kNT] f32 product in split TF32:
 // acc += A[0, 16 kMT)[k0, k0 + 8) . B[k0, k0 + 8)[0, 8 kNT), in three waves

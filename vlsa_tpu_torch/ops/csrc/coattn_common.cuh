@@ -1,6 +1,8 @@
 // Device helpers shared by the co-attention kernels (coattn_fwd.cu,
-// coattn_bwd_dq.cu, coattn_bwd_dx.cu): block shape, storage types, vector
-// loads of x, warp reductions and the backward kernels' dq reduction.
+// coattn_bwd_dq.cu, coattn_bwd_dx.cu) and, through abmil_common.cuh, the
+// ABMIL kernels: block shape, storage types, vector loads of x, warp
+// reductions, the backward kernels' dq reduction, cp.async, ldmatrix, the
+// bf16 mma.sync m16n8k16 and the split-TF32 mma.sync m16n8k8.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,6 +93,99 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
+// then not read, but must be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0));
+}
+// The first `bytes` (0..16) of 16 bytes global -> shared, the rest zero-filled.
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(bytes));
+}
+// The first `bytes` (0..8) of 8 bytes global -> shared (8-byte aligned src).
+__device__ __forceinline__ void cp_async8_n(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory (lane l gives the address of row
+// l % 8 of matrix l / 8); .trans delivers each transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+}
+
+// c += a . b on the bf16 tensor cores, f32 accumulation.  Fragments of
+// m16n8k16 (g = lane / 4, t = lane % 4; two bf16 a register, the lower
+// index in the low half): A a0..a3 = (g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..); B b0, b1 = (k 2t.., n g), (k 2t + 8.., n g); C c0..c3 =
+// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as one bf16x2 register (round to nearest even; lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+// The two bf16 of a register as floats.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+// v = hi + lo to ~16 bits: hi its bf16 rounding, lo that of the residual
+// (vlsa_tpu/ops/coattn.py::_mm_rows's split).
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi, __nv_bfloat16& lo) {
+    hi = __float2bfloat16_rn(v);
+    lo = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+// Split TF32 (f32 operands on the tensor cores): v = hi + lo, hi v rounded to
+// TF32 (to nearest, ties away: the 13 low bits of the f32 rounded off, as
+// cvt.rna.tf32.f32 does), lo = v - hi exactly, |lo| <= 2^-11 |v|.  lo goes to
+// the tensor cores as its f32 bits, which they read as TF32 by ignoring the
+// 13 low bits: lo is truncated there, ~2^-21 of v.  A product is then
+// lo.hi + hi.lo + hi.hi, ~2^-21 relative against f32's 2^-24.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+    hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// c += a . b on the TF32 tensor cores, f32 accumulation.  Fragments of
+// m16n8k8 .tf32 (g = lane / 4, t = lane % 4): A a0..a3 = (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); B b0, b1 = (k t, n g), (k t + 4, n g); C as
+// m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // dq[i] = scale * sum_k ws_dq[k][i] over the K = B*S per-block partials of a

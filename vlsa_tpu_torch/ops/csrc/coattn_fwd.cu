@@ -1,213 +1,648 @@
 // Masked co-attention pooling forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel body vlsa_tpu/ops/coattn.py::_coattn_fwd_body and
-// its four launch variants (_coattn_fwd_kernel, _coattn_fwd_kernel_i,
-// _coattn_fwd_kernel_q8, _coattn_fwd_kernel_q8i).  For each bag b and query p:
+// Replaces the TPU kernel body vlsa_tpu/ops/coattn.py:254 _coattn_fwd_body
+// and its four launch variants (_coattn_fwd_kernel :316, _coattn_fwd_kernel_q8
+// :322, _coattn_fwd_kernel_q8i :328, _coattn_fwd_kernel_i :336).  For each
+// bag b and query p:
 //
 //     logits[p,n] = scale * inv[n] * (q[p] . x[n])      (-1e30 where masked)
 //     out[b,p]    = sum_n softmax_n(logits)[p,n] * s[n] * x[n]
 //
-// with inv[n] = rsqrt(max(|x[n]|^2, 1e-24)) computed here or read from the
-// host, and s[n] the per-patch int8 dequant scale (1 for float storage).
-// The softmax of int8 rows uses the raw int8 values: the normalised logits do
-// not depend on the per-patch scale, which only weights the PV sum.
+// with inv[n] = rsqrt(max(|x[n]|^2, 1e-24)) computed here (an f32 sum of
+// squares of the stored values) or read from the host, and s[n] the
+// per-patch int8 dequant scale (1 for float storage).  The softmax of int8
+// rows uses the raw int8 values: the normalised logits do not depend on the
+// per-patch scale, which only weights the PV sum.  Returned: out and the
+// softmax stats m (the running max, -1e30 for an empty bag) and l (clamped
+// below at 1e-30) that the dQ and dX kernels consume.
 //
-// What bounds it on an H100: it reads B*N*C*itemsize bytes of x once and does
-// 4*P*C floating-point operations per element (the logit dot and the PV
-// product), about 24 FLOP/byte for bf16 at P=12 -- far below the tensor-core
-// ridge, so the byte stream is the floor; on CUDA cores in f32 the arithmetic
-// sits close to that floor too.  This first version runs on CUDA cores in
-// f32 and is written to be right, not fast (PERF.md holds its times beside
-// that bound): tensor-core mma with P padded to 16, TMA staging and int8 MMA
-// are later work.
+// Rounding (the TPU kernel's _stream_matmul, vlsa_tpu/ops/coattn.py:207-237).
+// bf16 and int8: both products on the bf16 tensor cores (mma.sync m16n8k16,
+// f32 accumulation) with q and the PV weights split into bf16 hi + lo (~16
+// bits) as _mm_rows splits them; bf16 x multiplies as stored, int8 x as its
+// exact bf16 value (the TPU's int8 route rounds q and the weights to int8 hi
+// + lo, ~15 bits: this is a little more exact).  f32, which the TPU takes at
+// HIGHEST precision: split TF32 (mma.sync m16n8k8) with q, x and the weights
+// each hi + lo and three products lo.hi + hi.lo + hi.hi (~2^-21 relative, the
+// split of ABMIL's f32 kernels), in chains of at most 12 products into a
+// fresh accumulator (the tensor cores' f32 accumulation truncates).  The
+// plain model of both roundings is ops/coattn.py::coattn_fwd_rounded.
 //
-// Design.  The TPU grid walks N tile after tile and carries (m, l, acc) in
-// VMEM scratch.  Hopper runs blocks in parallel with nothing carried between
-// them, so the patch axis is split across blocks instead: block (s, b) runs
-// an online softmax over its chunk of bag b and writes its partial (m, l,
-// acc) to a workspace; a second small kernel merges the partials of each bag.
-// The merge is deterministic and uses no atomics.  Any N is taken: the ragged
-// edge of the last tile is masked here, so no bag needs a 128-aligned length.
+// What bounds it on an H100: x is read once (B*N*C*itemsize bytes) and every
+// element takes 4*16 operations (P padded to the mma's 16 rows), twice that
+// for the bf16 hi + lo split (32 a byte of bf16) and three times for split
+// TF32 at half bf16's rate (48 a byte of f32): far below the ~295 a byte at
+// which the bf16 tensor cores become the limit.  The byte stream is the floor
+// (chip_smoke.py::bound), and the design below keeps loads in flight, the
+// products on the tensor cores and the SMs in one wave to approach it.
+// What is left above it is the fixed cost of a tile -- two block barriers, the cross-warp sum of the
+// logits and the softmax's warp reductions -- which the products and the
+// loads in flight do not hide: bf16 and int8 take 64-patch tiles (one such
+// cost per 64 KB of bf16), f32 32-patch ones (its ring fills the shared
+// memory at 32).
 //
-// Per tile of 32 patches, with 8 warps:
-//   A. each warp takes 4 patches; its lanes read the row 4 values at a time,
-//      form the P dot products and the sum of squares, and reduce them across
-//      the warp; the tile is staged in shared memory in its storage type.
-//   B. warp w updates the online softmax of queries w and w+8, one lane per
-//      patch of the tile.
-//   C. each thread owns channels c = tid, tid+256, ...: it folds the tile's
-//      PV product into acc[p][c] in shared memory, rescaled by the softmax
-//      correction.
+// Design.
+// - Grid: one block of ceil(C/64) warps (at most 8) per SM (its shared memory
+//   fills the SM), persistent over the flat range [k*L, (k+1)*L) of the B*Tb
+//   tiles (Tb = ceil(N / tile) a bag, L = ceil(B*Tb / SMs): every block takes
+//   the same number of tiles, one wave).  A range can cross bag boundaries:
+//   at the end of each bag's stretch the block writes that stretch's partial
+//   (m, l, acc) to slot k - first_block(b) of the bag, and coattn_fwd_merge
+//   combines each bag's partials in slot order: deterministic, no atomics.
+//   At B=8, N=10240, P=12 the 128 blocks' ranges end on bag boundaries: 128
+//   partials of 24 KB, 3.7% of bf16 x's 84 MB, written once and read once.
+// - Warp w owns the channels [64w, 64w + 64): it streams that column slice of
+//   every tile into its own ring of shared-memory stages with cp.async (16
+//   bytes a lane; bf16 2 stages of 8 KB a warp, int8 3 of 4 KB, f32 3 of
+//   8 KB: 64-192 KB an SM in flight while the block computes), waits for it
+//   with its own wait_group and __syncwarp: the x ring needs no block
+//   barrier.  Rows are 16-byte chunks XOR-swizzled by the row (slice_off),
+//   so that every fragment load and the cp.async stores hit distinct banks.
+// - Logits: q's slice is held in registers as hi + lo A fragments for the
+//   whole kernel; the warp's partial q . x [16, tile] over its 64 channels
+//   (ldmatrix B fragments) goes to shared memory with the slice's partial
+//   sums of squares; after a barrier each warp takes query rows r = w + nw k,
+//   two side by side, sums the partials (lane = patches lane + 32 u), applies
+//   scale, inv and the mask, and updates the rows' online softmax (m, l in
+//   shared memory); the weights p * s go to shared memory (bf16 hi + lo, or
+//   f32 for split TF32), the correction e^(m_old - m_new) beside them.
+// - PV: after a second barrier every warp forms the tile's [16, 64] product
+//   of the weights and its slice (bf16: ldmatrix A and ldmatrix.trans B;
+//   f32: 32-bit loads) into a fresh accumulator, and adds it to the running
+//   [16, 64] f32 accumulator in registers, rescaled by the correction (the
+//   tensor cores' f32 accumulation truncates low bits at every product: a
+//   chain of thousands of tiles would drift).
+// - int8 slices are first converted, lane = row, into a bf16 plane (exact),
+//   which also gives the row's f32 sum of squares; bf16 and f32 take their
+//   squares from the logits' B fragments.
+// - Width.  Any C that is a multiple of 8 up to 512 runs the instance above:
+//   channels past C are zero-filled (C < 512 runs fewer warps, C=8 one warp
+//   whose slice is mostly zeros).  C > 512 runs the wide instance of the same
+//   kernel: G = ceil(C/512) channel groups, blocks (range, group) of 8 warps,
+//   L chosen so that the G * ranges blocks make one wave.  Block group g
+//   streams a tile's G slices of warp w (channels 512 m + 64 w, m = 0..G-1,
+//   in that order, so every group sums the logits alike) through the same
+//   ring, accumulating the partial logits, with q's fragments of each group
+//   loaded from global memory; then its own group's slice once more for PV,
+//   writing the channels [512 g, 512 g + 512) of the partials (group 0 also
+//   m and l).  x is read G + 1 times, the last from L2 as a rule.  Any N: the
+//   ragged last tile is masked here.
 #include "coattn_common.cuh"
 
 using namespace coattn;
 
 namespace {
 
-// Shared-memory bytes of one partial block (must match the carve-up below).
-__host__ __device__ inline size_t partial_smem_bytes(int P, int C, int itemsize) {
-    return sizeof(float) * (2 * (size_t)P * C          // q, acc
-                            + 2 * kMaxP * kTile        // logits, weights
-                            + 3 * kMaxP                // m, l, correction
-                            + 2 * kTile)               // pv scale, valid flag
-           + (size_t)kTile * C * itemsize;             // the x tile
+constexpr int kWarpCh = 64;                    // channels a warp owns
+constexpr int kMaxWarps = 8;                   // warps a block
+constexpr int kGroupCh = kWarpCh * kMaxWarps;  // 512: channels a block pools
+constexpr int kRows = 16;                      // query rows of an mma tile: P <= 16, zero-padded
+constexpr int kPlaneRow = kWarpCh * 2;         // bytes a row of a warp's bf16 plane
+
+template <int ST> struct Store;
+template <> struct Store<kF32> { using T = float; };
+template <> struct Store<kBF16> { using T = __nv_bfloat16; };
+template <> struct Store<kI8> { using T = int8_t; };
+
+// Patches a tile: 64 for bf16 and int8; 32 for f32, whose slices are twice
+// as large.  The ring's stages, and the bf16 planes a slice is converted to
+// (int8: its exact values; bf16 and f32: none, the products read the ring).
+__host__ __device__ constexpr int tile_of(int storage) { return storage == kF32 ? 32 : 64; }
+__host__ __device__ constexpr int stages_of(int storage) { return storage == kBF16 ? 2 : 3; }
+__host__ __device__ constexpr int planes_of(int storage) { return storage == kI8 ? 1 : 0; }
+// Row stride of the logit partials (floats) and of the bf16 PV weights; the
+// f32 weights take tile + 4 (A fragment rows g at 4g + t: 32 distinct banks).
+__host__ __device__ constexpr int ld_of(int tile) { return tile + 8; }
+// k-steps of q's A fragments over a warp's 64 channels: 8 of m16n8k8 (split
+// TF32, f32 storage) or 4 of m16n8k16 (bf16 hi + lo).
+__host__ __device__ constexpr int qsteps_of(int storage) { return storage == kF32 ? 8 : 4; }
+
+// Shared-memory carve-up of a block of nw warps (byte offsets).
+struct FwdSmem {
+    size_t ring, conv, red, w, rows, total;
+    __host__ __device__ FwdSmem(int nw, int storage) {
+        const int tile = tile_of(storage);
+        const size_t slice = (size_t)tile * kWarpCh * storage_itemsize(storage);
+        ring = 0;                                                         // [nw][stages] slices
+        conv = ring + (size_t)nw * stages_of(storage) * slice;            // [nw][planes] bf16 slices
+        red = conv + (size_t)nw * planes_of(storage) * tile * kPlaneRow;  // [nw][17][ld] f32
+        // the PV weights: [2][16][ld] bf16 (hi, lo) or [16][tile + 4] f32
+        w = red + (size_t)nw * (kRows + 1) * ld_of(tile) * 4;
+        rows = w + 2 * (size_t)kRows * ld_of(tile) * 2;                  // corr, m, l [16] f32
+        total = rows + 3 * kRows * 4;
+    }
+};
+
+// Kernel arguments (see coattn_fwd below).
+struct FwdArgs {
+    const float* q;
+    const void* x;
+    const float* x_scale;
+    const float* x_inv;
+    const uint8_t* mask;
+    float scale;
+    int N, C, P, Tb, total, L, Smax;
+    float* ws_m;
+    float* ws_l;
+    float* ws_acc;
+};
+
+// Byte offset of 16-byte chunk c of row r of a slice: the chunk index is
+// XORed with a function of the row, so that 8 rows at one chunk (ldmatrix,
+// the int8 conversion) and 8 chunks of one row (cp.async) hit 8 distinct
+// bank groups.  Rows are 256 (f32), 128 (bf16 and the planes) or 64 (int8)
+// bytes.  f32's XOR, 2 (r % 4) + (r / 4) % 2, also makes the PV's B fragment
+// loads (rows 4h + t, 8 columns g over two chunks) hit 32 distinct banks.
+template <int ST>
+__device__ __forceinline__ uint32_t slice_off(int r, int c) {
+    if constexpr (ST == kF32) return r * 256 + ((c ^ (((r & 3) << 1) | ((r >> 2) & 1))) << 4);
+    else if constexpr (ST == kBF16) return r * 128 + ((c ^ (r & 7)) << 4);
+    else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+__device__ __forceinline__ uint32_t plane_off(int r, int c) { return slice_off<kBF16>(r, c); }
+
+// cp.async of the warp's slice (channels [ch0, ch0 + 64)) of flat tile f
+// into a ring slot; rows past N and channels past C are zero-filled.  Not
+// committed.
+template <int ST>
+__device__ __forceinline__ void issue_tile(const void* x, int N, int C, int Tb, int f,
+                                           unsigned char* slot, int ch0, int lane) {
+    using T = typename Store<ST>::T;
+    constexpr int kItem = sizeof(T);
+    constexpr int kChunks = kWarpCh * kItem / 16;  // a row: f32 16, bf16 8, int8 4
+    constexpr int TT = tile_of(ST);
+    const int b = f / Tb, n0 = (f - b * Tb) * TT;
+    const T* xb = static_cast<const T*>(x) + (size_t)b * N * C;
+    const bool rows8 = kItem == 1 && (C & 15) != 0;  // int8 rows only 8-byte aligned
+#pragma unroll 4
+    for (int i = lane; i < TT * kChunks; i += 32) {
+        const int r = i / kChunks, c = i % kChunks, n = n0 + r;
+        const int ch = ch0 + c * (16 / kItem);
+        const int bytes = n < N ? min(16, max(0, (C - ch) * kItem)) : 0;
+        const T* src = bytes > 0 ? xb + (size_t)n * C + ch : static_cast<const T*>(x);
+        unsigned char* dst = slot + slice_off<ST>(r, c);
+        if (rows8) {
+            cp_async8_n(dst, src, min(bytes, 8));
+            cp_async8_n(dst + 8, bytes > 8 ? src + 8 : src, max(bytes - 8, 0));
+        } else {
+            cp_async16_n(dst, src, bytes);
+        }
+    }
 }
 
-template <typename T, bool HOST_INV, bool HAS_SCALE>
-__global__ void __launch_bounds__(kThreads)
-coattn_fwd_partial(const float* __restrict__ q, const T* __restrict__ x,
-                   const float* __restrict__ x_scale,
-                   const float* __restrict__ x_inv,
-                   const uint8_t* __restrict__ mask, float scale,
-                   int N, int C, int P, int chunk, int S,
-                   float* __restrict__ ws_m, float* __restrict__ ws_l,
-                   float* __restrict__ ws_acc) {
-    extern __shared__ float4 smem_f4[];
-    float* smem = reinterpret_cast<float*>(smem_f4);
-    float* q_s = smem;                          // [P, C]
-    float* acc_s = q_s + P * C;                 // [P, C]
-    float* logit_s = acc_s + P * C;             // [kMaxP, kTile]
-    float* w_s = logit_s + kMaxP * kTile;       // [kMaxP, kTile]
-    float* m_s = w_s + kMaxP * kTile;           // [kMaxP]
-    float* l_s = m_s + kMaxP;                   // [kMaxP]
-    float* corr_s = l_s + kMaxP;                // [kMaxP]
-    float* pvs_s = corr_s + kMaxP;              // [kTile] PV scale of each patch
-    float* valid_s = pvs_s + kTile;             // [kTile] 1 for a valid patch
-    T* x_s = reinterpret_cast<T*>(valid_s + kTile);  // [kTile, C]
-
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int split = blockIdx.x;
-    const int b = blockIdx.y;
-    const int n_begin = split * chunk;
-    const int n_end = min(N, n_begin + chunk);
-
-    const T* xb = x + (size_t)b * N * C;
-    const uint8_t* mb = mask + (size_t)b * N;
-
-    for (int i = tid; i < P * C; i += kThreads) {
-        q_s[i] = q[i];
-        acc_s[i] = 0.f;
+// Row r of an int8 slice -> the bf16 plane (its exact values); returns the
+// row's f32 sum of squares.
+__device__ __forceinline__ float convert_row(const unsigned char* slot, unsigned char* plane,
+                                             int r) {
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const int4 raw = *reinterpret_cast<const int4*>(slot + slice_off<kI8>(r, c));
+        const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+        uint4 out[2];
+        uint32_t* o = &out[0].x;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const float v0 = v[2 * k], v1 = v[2 * k + 1];
+            sq = fmaf(v0, v0, fmaf(v1, v1, sq));
+            o[k] = pack_bf16(v0, v1);
+        }
+        *reinterpret_cast<uint4*>(plane + plane_off(r, 2 * c)) = out[0];
+        *reinterpret_cast<uint4*>(plane + plane_off(r, 2 * c + 1)) = out[1];
     }
-    if (tid < kMaxP) {
+    return sq;
+}
+
+// q's rows [0, 16) (zero past P) at the channels [ch0, ch0 + 64) (zero past
+// C) as hi + lo A fragments: TF32 for m16n8k8 (f32 storage) or bf16 pairs
+// for m16n8k16.
+template <int ST>
+__device__ __forceinline__ void load_q(const float* __restrict__ q, int P, int C, int ch0,
+                                       int lane, uint32_t (&qh)[qsteps_of(ST)][4],
+                                       uint32_t (&ql)[qsteps_of(ST)][4]) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int ks = 0; ks < qsteps_of(ST); ++ks) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int p = g + 8 * (i & 1);
+            if constexpr (ST == kF32) {
+                const int c = ch0 + 8 * ks + t + 4 * (i >> 1);
+                split_tf32(p < P && c < C ? q[(size_t)p * C + c] : 0.f, qh[ks][i], ql[ks][i]);
+            } else {
+                const int c = ch0 + 16 * ks + 2 * t + 8 * (i >> 1);
+                float v0 = 0.f, v1 = 0.f;
+                if (p < P && c < C) {  // C is a multiple of 8: so is c + 1 < C
+                    v0 = q[(size_t)p * C + c];
+                    v1 = q[(size_t)p * C + c + 1];
+                }
+                qh[ks][i] = pack_bf16(v0, v1);
+                const float2 h = unpack_bf16(qh[ks][i]);
+                ql[ks][i] = pack_bf16(v0 - h.x, v1 - h.y);
+            }
+        }
+    }
+}
+
+// c += the three split-TF32 products of one m16n8k8 step, small ones first.
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                           const uint32_t bh[2], const uint32_t bl[2]) {
+    mma_tf32(c, al, bh);
+    mma_tf32(c, ah, bl);
+    mma_tf32(c, ah, bh);
+}
+
+// The warp's partial logits q . x [16, tile] over its 64 channels of the
+// slice xh (f32 and bf16: the ring slot; int8: its bf16 plane) to red_w
+// [16][ld] and, for bf16 and f32 unless HOST_INV, the tile rows' partial sums
+// of squares to red_w[16][.]; `add` adds both to what is there (the wide
+// instance's later channel groups).
+template <int ST, bool HOST_INV>
+__device__ __forceinline__ void slice_logits(const unsigned char* xh,
+                                             const uint32_t (&qh)[qsteps_of(ST)][4],
+                                             const uint32_t (&ql)[qsteps_of(ST)][4],
+                                             float* red_w, bool add, int lane) {
+    constexpr int TT = tile_of(ST), kLd = ld_of(TT);
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < TT / 8; ++j) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        float sq = 0.f;
+        if constexpr (ST == kF32) {
+            // two chains of 12 products (channels [0, 32) and [32, 64))
+            float s2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                // b[u] = x[8j + g][16 kk + 4u + t]: k-step 2 kk in b[0], b[1],
+                // k-step 2 kk + 1 in b[2], b[3]
+                uint32_t b[4], bh[4], bl[4];
+                ldsm_x4(b, xh + slice_off<kF32>(8 * j + (lane & 7), 4 * kk + (lane >> 3)));
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const float v = __uint_as_float(b[u]);
+                    sq = fmaf(v, v, sq);
+                    split_tf32(v, bh[u], bl[u]);
+                }
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    if (kk < 2) mma_3xtf32(s, qh[2 * kk + h], ql[2 * kk + h], bh + 2 * h, bl + 2 * h);
+                    else mma_3xtf32(s2, qh[2 * kk + h], ql[2 * kk + h], bh + 2 * h, bl + 2 * h);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[i] += s2[i];
+        } else {
+            uint32_t b[8];
+            ldsm_x4(b, xh + plane_off(8 * j + (lane & 7), lane >> 3));
+            ldsm_x4(b + 4, xh + plane_off(8 * j + (lane & 7), 4 + (lane >> 3)));
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+                mma_bf16(s, qh[ks], b[2 * ks], b[2 * ks + 1]);
+                mma_bf16(s, ql[ks], b[2 * ks], b[2 * ks + 1]);
+            }
+            if constexpr (ST == kBF16) {
+                // b holds x[8j + g][16 ks + 2t + {0, 1, 8, 9}]
+#pragma unroll
+                for (int k = 0; k < 8; ++k) {
+                    const float2 v = unpack_bf16(b[k]);
+                    sq = fmaf(v.x, v.x, fmaf(v.y, v.y, sq));
+                }
+            }
+        }
+        if constexpr (ST != kI8 && !HOST_INV) {
+            // this lane's squares of row 8j + g, summed over the quad
+            sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+            sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+            float* d = red_w + kRows * kLd + 8 * j + g;
+            if (t == 0) *d = (add ? *d : 0.f) + sq;
+        }
+        float2* d0 = reinterpret_cast<float2*>(red_w + g * kLd + 8 * j + 2 * t);
+        float2* d1 = reinterpret_cast<float2*>(red_w + (g + 8) * kLd + 8 * j + 2 * t);
+        const float2 o0 = add ? *d0 : make_float2(0.f, 0.f), o1 = add ? *d1 : make_float2(0.f, 0.f);
+        *d0 = make_float2(o0.x + s[0], o0.y + s[1]);
+        *d1 = make_float2(o1.x + s[2], o1.y + s[3]);
+    }
+}
+
+// Per-patch sidecars of patch n0 + i of tile f: the mask, the dequant scale
+// (0 where invalid) and the host 1/||x||.
+struct PatchRow {
+    bool valid;
+    float sc, inv;
+};
+
+template <int TT, bool HOST_INV, bool HAS_SCALE>
+__device__ __forceinline__ PatchRow patch_row(const FwdArgs& a, int f, int i) {
+    const int b = f / a.Tb, n = (f - b * a.Tb) * TT + i;
+    const size_t k = (size_t)b * a.N + n;
+    PatchRow row;
+    row.valid = n < a.N && a.mask[k] != 0;
+    row.sc = HAS_SCALE ? (row.valid ? a.x_scale[k] : 0.f) : 1.f;
+    row.inv = HOST_INV && row.valid ? a.x_inv[k] : 0.f;
+    return row;
+}
+
+template <int ST, bool HOST_INV, bool WIDE>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const FwdArgs a) {
+    constexpr bool HAS_SCALE = ST == kI8;
+    constexpr int R = stages_of(ST);
+    constexpr int TT = tile_of(ST), kU = TT / 32;  // patches a tile, a lane
+    constexpr int kLd = ld_of(TT), kLdWF = TT + 4;
+    constexpr int kPB = TT * kPlaneRow;            // bytes a plane
+    constexpr int kSlice = TT * kWarpCh * (ST == kF32 ? 4 : ST == kBF16 ? 2 : 1);
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int nw = blockDim.x >> 5;
+    const FwdSmem lay(nw, ST);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int ch0 = warp * kWarpCh;                // within a channel group
+    // the wide instance: G channel groups, this block pools group grp; a
+    // tile is G logit items and one PV item of the ring
+    const int G = WIDE ? (int)gridDim.y : 1, grp = WIDE ? (int)blockIdx.y : 0;
+    const int nI = WIDE ? G + 1 : 1;
+    unsigned char* ring = smem + lay.ring + (size_t)warp * R * kSlice;
+    unsigned char* plane = smem + lay.conv + (size_t)warp * planes_of(ST) * kPB;
+    float* red = reinterpret_cast<float*>(smem + lay.red);
+    float* red_w = red + warp * (kRows + 1) * kLd;
+    __nv_bfloat16* w_hi = reinterpret_cast<__nv_bfloat16*>(smem + lay.w);
+    __nv_bfloat16* w_lo = w_hi + kRows * kLd;
+    float* w_f = reinterpret_cast<float*>(smem + lay.w);
+    float* corr_s = reinterpret_cast<float*>(smem + lay.rows);
+    float* m_s = corr_s + kRows;
+    float* l_s = m_s + kRows;
+
+    const int f0 = blockIdx.x * a.L;
+    const int ntiles = min(a.total, f0 + a.L) - f0;
+    const int nitems = ntiles * nI;
+    // item k: tile f0 + k / nI; its channel group k % nI, or grp for the PV
+    // item; into slot k % R
+    const void* x = a.x;
+    const int N = a.N, C = a.C, Tb = a.Tb;
+    auto issue = [=](int k) {
+        const int m = k % nI;
+        const int cg = WIDE ? (m < G ? m : grp) * kGroupCh : 0;
+        issue_tile<ST>(x, N, C, Tb, f0 + k / nI, ring + (k % R) * kSlice, cg + ch0, lane);
+    };
+
+    // the first R - 1 items of the block's range, one commit group each
+#pragma unroll
+    for (int s = 0; s < R - 1; ++s) {
+        if (s < nitems) issue(s);
+        cp_async_commit();
+    }
+
+    uint32_t qh[qsteps_of(ST)][4], ql[qsteps_of(ST)][4];
+    if constexpr (!WIDE) load_q<ST>(a.q, a.P, a.C, ch0, lane, qh, ql);
+    for (int i = tid; i < 2 * kRows * kLd; i += blockDim.x) w_hi[i] = __float2bfloat16(0.f);
+    if (tid < kRows) {
         m_s[tid] = kNegInf;
         l_s[tid] = 0.f;
     }
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    // lane's patches lane + 32 u of the next tile
+    PatchRow next[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+        next[u] = ntiles > 0 ? patch_row<TT, HOST_INV, HAS_SCALE>(a, f0, lane + 32 * u)
+                             : PatchRow{false, 0.f, 0.f};
     __syncthreads();
 
-    const int c4 = C / 4;  // groups of four channels
-    for (int t0 = n_begin; t0 < n_end; t0 += kTile) {
-        // ---- A: logits of the tile, one warp per patch ----
-        for (int j = warp; j < kTile; j += kWarps) {
-            const int n = t0 + j;
-            const bool in_range = n < n_end;
-            float dot[kMaxP];
+#pragma unroll 1
+    for (int i = 0; i < ntiles; ++i) {
+        const int f = f0 + i;
+        PatchRow cur[kU];
 #pragma unroll
-            for (int p = 0; p < kMaxP; ++p) dot[p] = 0.f;
-            float sq = 0.f;
-            typename Raw4<T>::type* xrow =
-                reinterpret_cast<typename Raw4<T>::type*>(x_s + (size_t)j * C);
-            if (in_range) {
-                const T* src = xb + (size_t)n * C;
-                for (int g = lane; g < c4; g += 32) {
-                    const typename Raw4<T>::type raw =
-                        *reinterpret_cast<const typename Raw4<T>::type*>(src + 4 * g);
-                    xrow[g] = raw;
-                    float v[4];
-                    load4(reinterpret_cast<const T*>(&raw), v);
-                    sq += v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3];
+        for (int u = 0; u < kU; ++u) cur[u] = next[u];
+        const unsigned char* xh = nullptr;  // the slice the products read
+        // item m of the tile: its slice lands, then (logit items) its logits
+        auto item = [&](int m) {
+            const int k = i * nI + m;
+            __syncwarp();  // every lane is done with the slot refilled below
+            if (k + R - 1 < nitems) issue(k + R - 1);
+            cp_async_commit();
+            if (m == 0 && i + 1 < ntiles) {
 #pragma unroll
-                    for (int p = 0; p < kMaxP; ++p) {
-                        if (p < P) {
-                            const float4 qv = *reinterpret_cast<const float4*>(q_s + p * C + 4 * g);
-                            dot[p] += qv.x * v[0] + qv.y * v[1] + qv.z * v[2] + qv.w * v[3];
-                        }
+                for (int u = 0; u < kU; ++u)
+                    next[u] = patch_row<TT, HOST_INV, HAS_SCALE>(a, f + 1, lane + 32 * u);
+            }
+            cp_async_wait<R - 1>();
+            __syncwarp();  // item k landed for every lane
+            const bool logits = !WIDE || m < G;
+            xh = ring + (k % R) * kSlice;
+            if constexpr (ST == kI8) {
+#pragma unroll
+                for (int u = 0; u < kU; ++u) {
+                    const float sq = convert_row(xh, plane, lane + 32 * u);
+                    float* d = red_w + kRows * kLd + lane + 32 * u;
+                    if (!HOST_INV && logits) *d = (m > 0 ? *d : 0.f) + sq;
+                }
+                __syncwarp();
+                xh = plane;
+            }
+            if (logits) {
+                if constexpr (WIDE) load_q<ST>(a.q, a.P, C, m * kGroupCh + ch0, lane, qh, ql);
+                slice_logits<ST, HOST_INV>(xh, qh, ql, red_w, m > 0, lane);
+            }
+        };
+        if constexpr (WIDE) {
+#pragma unroll 1
+            for (int m = 0; m < nI; ++m) item(m);
+        } else {
+            item(0);
+        }
+        __syncthreads();  // every warp's partials are in
+
+        // ---- online softmax of query rows r = warp + nw k; lane = patches
+        // lane + 32 u.  A warp takes its rows two at a time (r0 and r0 + nw),
+        // side by side, so that their sums and warp reductions overlap ----
+        float sinv[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+            float inv = cur[u].inv;
+            if (!HOST_INV) {
+                float sq = 0.f;
+#pragma unroll
+                for (int w = 0; w < kMaxWarps; ++w)
+                    if (w < nw) sq += red[(w * (kRows + 1) + kRows) * kLd + lane + 32 * u];
+                inv = rsqrtf(fmaxf(sq, 1e-24f));
+            }
+            sinv[u] = a.scale * inv;
+        }
+        for (int r0 = warp; r0 < a.P; r0 += 2 * nw) {
+            const bool two = r0 + nw < a.P;
+            const int r1 = two ? r0 + nw : r0;  // the second row, or r0 again (not written)
+            float lg0[kU], lg1[kU];
+            float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+                float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+                for (int w = 0; w < kMaxWarps; ++w) {
+                    if (w < nw) {
+                        dot0 += red[(w * (kRows + 1) + r0) * kLd + lane + 32 * u];
+                        dot1 += red[(w * (kRows + 1) + r1) * kLd + lane + 32 * u];
                     }
                 }
-            } else {
-                for (int g = lane; g < c4; g += 32) {
-                    xrow[g] = typename Raw4<T>::type{};
+                lg0[u] = cur[u].valid ? sinv[u] * dot0 : kNegInf;
+                lg1[u] = cur[u].valid ? sinv[u] * dot1 : kNegInf;
+                mx0 = fmaxf(mx0, lg0[u]);
+                mx1 = fmaxf(mx1, lg1[u]);
+            }
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+                mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+                mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+            }
+            const float mp0 = m_s[r0], mp1 = m_s[r1];
+            const float mn0 = fmaxf(mp0, mx0), mn1 = fmaxf(mp1, mx1);
+            float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+                const float p0 = cur[u].valid ? __expf(lg0[u] - mn0) : 0.f;
+                const float p1 = cur[u].valid ? __expf(lg1[u] - mn1) : 0.f;
+                s0 += p0;
+                s1 += p1;
+                const int n = lane + 32 * u;
+                if constexpr (ST == kF32) {
+                    w_f[r0 * kLdWF + n] = p0;
+                    if (two) w_f[r1 * kLdWF + n] = p1;
+                } else {
+                    __nv_bfloat16 hi, lo;
+                    split_bf16(p0 * cur[u].sc, hi, lo);
+                    w_hi[r0 * kLd + n] = hi;
+                    w_lo[r0 * kLd + n] = lo;
+                    if (two) {
+                        split_bf16(p1 * cur[u].sc, hi, lo);
+                        w_hi[r1 * kLd + n] = hi;
+                        w_lo[r1 * kLd + n] = lo;
+                    }
                 }
             }
 #pragma unroll
-            for (int p = 0; p < kMaxP; ++p) {
-                if (p < P) dot[p] = warp_sum(dot[p]);
+            for (int o = 16; o > 0; o >>= 1) {
+                s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+                s1 += __shfl_xor_sync(0xffffffffu, s1, o);
             }
-            if (!HOST_INV) sq = warp_sum(sq);
             if (lane == 0) {
-                const bool valid = in_range && mb[n] != 0;
-                float inv = 0.f;
-                if (valid) {
-                    inv = HOST_INV ? x_inv[(size_t)b * N + n] : rsqrtf(fmaxf(sq, 1e-24f));
+                const float c0 = expf(mp0 - mn0);
+                corr_s[r0] = c0;
+                l_s[r0] = l_s[r0] * c0 + s0;
+                m_s[r0] = mn0;
+                if (two) {
+                    const float c1 = expf(mp1 - mn1);
+                    corr_s[r1] = c1;
+                    l_s[r1] = l_s[r1] * c1 + s1;
+                    m_s[r1] = mn1;
                 }
-#pragma unroll
-                for (int p = 0; p < kMaxP; ++p) {
-                    if (p < P) logit_s[p * kTile + j] = valid ? scale * dot[p] * inv : kNegInf;
-                }
-                valid_s[j] = valid ? 1.f : 0.f;
-                pvs_s[j] = (valid && HAS_SCALE) ? x_scale[(size_t)b * N + n] : 1.f;
             }
         }
-        __syncthreads();
+        __syncthreads();  // the weights and corrections are in
 
-        // ---- B: online softmax update, one warp per query, one lane per patch ----
-        for (int p = warp; p < P; p += kWarps) {
-            const float lg = logit_s[p * kTile + lane];
-            const bool valid = valid_s[lane] != 0.f;
-            const float m_prev = m_s[p];
-            const float m_new = fmaxf(m_prev, warp_max(lg));
-            const float pw = valid ? expf(lg - m_new) : 0.f;
-            const float psum = warp_sum(pw);
-            w_s[p * kTile + lane] = pw * pvs_s[lane];
-            if (lane == 0) {
-                const float corr = expf(m_prev - m_new);
-                corr_s[p] = corr;
-                l_s[p] = l_s[p] * corr + psum;
-                m_s[p] = m_new;
-            }
-        }
-        __syncthreads();
-
-        // ---- C: acc[p][c] = acc[p][c] * corr[p] + sum_j w[p][j] * x[j][c] ----
-        for (int c = tid; c < C; c += kThreads) {
-            float xv[kTile];
+        // ---- PV: acc = acc * corr + W [16, TT] . x [TT, 64] ----
+        const float c_lo = corr_s[g], c_hi = corr_s[g + 8];
+        if constexpr (ST == kF32) {
+            // split TF32, 4 k-steps of 8 patches: 12 products a chain
+            uint32_t ah[TT / 8][4], al[TT / 8][4];
 #pragma unroll
-            for (int j = 0; j < kTile; ++j) xv[j] = to_float(x_s[(size_t)j * C + c]);
-            for (int p = 0; p < P; ++p) {
-                const float4* wp = reinterpret_cast<const float4*>(w_s + p * kTile);
-                float s = 0.f;
+            for (int ks = 0; ks < TT / 8; ++ks)
 #pragma unroll
-                for (int j4 = 0; j4 < kTile / 4; ++j4) {
-                    const float4 w = wp[j4];
-                    s += w.x * xv[4 * j4] + w.y * xv[4 * j4 + 1]
-                       + w.z * xv[4 * j4 + 2] + w.w * xv[4 * j4 + 3];
+                for (int e = 0; e < 4; ++e)
+                    split_tf32(w_f[(g + 8 * (e & 1)) * kLdWF + 8 * ks + t + 4 * (e >> 1)],
+                               ah[ks][e], al[ks][e]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                // B fragments: x[8 ks + t (+4)][8j + g] of the slice
+                const int col = 8 * j + g;
+                const unsigned char* xc = xh + 4 * (col & 3);
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+                for (int ks = 0; ks < TT / 8; ++ks) {
+                    uint32_t bh[2], bl[2];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float v = *reinterpret_cast<const float*>(
+                            xc + slice_off<kF32>(8 * ks + t + 4 * h, col >> 2));
+                        split_tf32(v, bh[h], bl[h]);
+                    }
+                    mma_3xtf32(part, ah[ks], al[ks], bh, bl);
                 }
-                acc_s[p * C + c] = acc_s[p * C + c] * corr_s[p] + s;
+                acc[j][0] = fmaf(acc[j][0], c_lo, part[0]);
+                acc[j][1] = fmaf(acc[j][1], c_lo, part[1]);
+                acc[j][2] = fmaf(acc[j][2], c_hi, part[2]);
+                acc[j][3] = fmaf(acc[j][3], c_hi, part[3]);
+            }
+        } else {
+            uint32_t ah[TT / 16][4], al[TT / 16][4];
+            const int wr = (lane & 7) + 8 * ((lane >> 3) & 1), wc = 8 * (lane >> 4);
+#pragma unroll
+            for (int ks = 0; ks < TT / 16; ++ks) {
+                ldsm_x4(ah[ks], w_hi + wr * kLd + 16 * ks + wc);
+                ldsm_x4(al[ks], w_lo + wr * kLd + 16 * ks + wc);
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+                for (int h = 0; h < kU; ++h) {
+                    // patches [32 h, 32 h + 32) of the slice, k-steps 2h and 2h + 1
+                    uint32_t bx[4];
+                    ldsm_x4_t(bx, xh + plane_off(32 * h + lane, j));
+                    mma_bf16(part, ah[2 * h], bx[0], bx[1]);
+                    mma_bf16(part, al[2 * h], bx[0], bx[1]);
+                    mma_bf16(part, ah[2 * h + 1], bx[2], bx[3]);
+                    mma_bf16(part, al[2 * h + 1], bx[2], bx[3]);
+                }
+                acc[j][0] = fmaf(acc[j][0], c_lo, part[0]);
+                acc[j][1] = fmaf(acc[j][1], c_lo, part[1]);
+                acc[j][2] = fmaf(acc[j][2], c_hi, part[2]);
+                acc[j][3] = fmaf(acc[j][3], c_hi, part[3]);
             }
         }
-        __syncthreads();
+
+        // ---- the end of a bag's stretch: its partial (m, l, acc) ----
+        const int b = f / a.Tb;
+        if (f - b * a.Tb == a.Tb - 1 || i == ntiles - 1) {
+            const size_t part = (size_t)b * a.Smax + (blockIdx.x - (b * a.Tb) / a.L);
+            float* dst = a.ws_acc + part * a.P * a.C;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int c = grp * kGroupCh + ch0 + 8 * j + 2 * t;
+                if (c < a.C) {
+                    if (g < a.P) *reinterpret_cast<float2*>(dst + (size_t)g * a.C + c) =
+                        make_float2(acc[j][0], acc[j][1]);
+                    if (g + 8 < a.P) *reinterpret_cast<float2*>(dst + (size_t)(g + 8) * a.C + c) =
+                        make_float2(acc[j][2], acc[j][3]);
+                }
+#pragma unroll
+                for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+            }
+            if (tid < a.P) {
+                if (grp == 0) {
+                    a.ws_m[part * a.P + tid] = m_s[tid];
+                    a.ws_l[part * a.P + tid] = l_s[tid];
+                }
+                m_s[tid] = kNegInf;
+                l_s[tid] = 0.f;
+            }
+        }
     }
-
-    // ---- partial (m, l, acc) of this chunk ----
-    const size_t part = (size_t)b * S + split;
-    if (tid < P) {
-        ws_m[part * P + tid] = m_s[tid];
-        ws_l[part * P + tid] = l_s[tid];
-    }
-    float* acc_out = ws_acc + part * P * C;
-    for (int i = tid; i < P * C; i += kThreads) acc_out[i] = acc_s[i];
+    cp_async_wait<0>();
 }
 
-// Merge the S partials of each bag: m = max_s m_s, l = sum_s l_s e^(m_s - m),
-// out = sum_s acc_s e^(m_s - m) / max(l, 1e-30).  Grid (P, B).
+// Merge each bag's partials: m = max_s m_s, l = sum_s l_s e^(m_s - m),
+// out = sum_s acc_s e^(m_s - m) / max(l, 1e-30), s in slot order over the
+// blocks whose ranges touch the bag.  Grid (P, B).
 __global__ void __launch_bounds__(kThreads)
 coattn_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
-                 const float* __restrict__ ws_acc, int C, int P, int S,
+                 const float* __restrict__ ws_acc, int C, int P, int Tb, int L, int Smax,
                  float* __restrict__ out, float* __restrict__ m_out,
                  float* __restrict__ l_out) {
     extern __shared__ float4 smem_f4[];
-    float* e_s = reinterpret_cast<float*>(smem_f4);  // [S]
+    float* e_s = reinterpret_cast<float*>(smem_f4);  // [Smax]
     __shared__ float red_s[kWarps];
     __shared__ float m_all, l_all;
 
@@ -216,8 +651,9 @@ coattn_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const float* mb = ws_m + (size_t)b * S * P;
-    const float* lb = ws_l + (size_t)b * S * P;
+    const int S = Tb > 0 ? ((b + 1) * Tb - 1) / L - (b * Tb) / L + 1 : 0;
+    const float* mb = ws_m + (size_t)b * Smax * P;
+    const float* lb = ws_l + (size_t)b * Smax * P;
 
     float mx = kNegInf;
     for (int s = tid; s < S; s += kThreads) mx = fmaxf(mx, mb[s * P + p]);
@@ -252,7 +688,7 @@ coattn_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
     __syncthreads();
     const float inv_l = 1.f / l_all;
 
-    const float* ab = ws_acc + (size_t)b * S * P * C + (size_t)p * C;
+    const float* ab = ws_acc + (size_t)b * Smax * P * C + (size_t)p * C;
     float* ob = out + ((size_t)b * P + p) * C;
     for (int c = tid; c < C; c += kThreads) {
         float v = 0.f;
@@ -261,95 +697,78 @@ coattn_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
     }
 }
 
-template <typename T, bool HOST_INV, bool HAS_SCALE>
-cudaError_t launch_partial(const float* q, const void* x, const float* x_scale,
-                           const float* x_inv, const uint8_t* mask, float scale,
-                           int B, int N, int C, int P, int chunk, int S,
-                           float* ws_m, float* ws_l, float* ws_acc,
-                           cudaStream_t stream) {
-    auto kernel = coattn_fwd_partial<T, HOST_INV, HAS_SCALE>;
-    const size_t smem = partial_smem_bytes(P, C, sizeof(T));
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__host__ __device__ constexpr int groups_of(int C) { return (C + kGroupCh - 1) / kGroupCh; }
+__host__ __device__ constexpr int warps_of(int C) {
+    return C > kGroupCh ? kMaxWarps : (C + kWarpCh - 1) / kWarpCh;
+}
+
+template <int ST, bool HOST_INV, bool WIDE>
+cudaError_t launch_stream(const FwdArgs& a, cudaStream_t stream) {
+    auto kernel = coattn_fwd_stream<ST, HOST_INV, WIDE>;
+    const int nw = warps_of(a.C);
+    const size_t smem = FwdSmem(nw, ST).total;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(S, B), kThreads, smem, stream>>>(
-        q, static_cast<const T*>(x), x_scale, x_inv, mask, scale, N, C, P,
-        chunk, S, ws_m, ws_l, ws_acc);
+    kernel<<<dim3((a.total + a.L - 1) / a.L, groups_of(a.C)), 32 * nw, smem, stream>>>(a);
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_inv(bool host_inv, bool has_scale, const float* q,
-                         const void* x, const float* x_scale, const float* x_inv,
-                         const uint8_t* mask, float scale, int B, int N, int C,
-                         int P, int chunk, int S, float* ws_m, float* ws_l,
-                         float* ws_acc, cudaStream_t stream) {
-#define COATTN_LAUNCH(HI, HS)                                                  \
-    return launch_partial<T, HI, HS>(q, x, x_scale, x_inv, mask, scale, B, N, \
-                                     C, P, chunk, S, ws_m, ws_l, ws_acc,      \
-                                     stream)
-    if (host_inv) {
-        if (has_scale) { COATTN_LAUNCH(true, true); }
-        COATTN_LAUNCH(true, false);
-    }
-    if (has_scale) { COATTN_LAUNCH(false, true); }
-    COATTN_LAUNCH(false, false);
-#undef COATTN_LAUNCH
+template <int ST>
+cudaError_t launch_storage(const FwdArgs& a, cudaStream_t stream) {
+    const bool inv = a.x_inv != nullptr, wide = a.C > kGroupCh;
+    if (wide) return inv ? launch_stream<ST, true, true>(a, stream)
+                         : launch_stream<ST, false, true>(a, stream);
+    return inv ? launch_stream<ST, true, false>(a, stream) : launch_stream<ST, false, false>(a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one partial block needs (0 = too large).
+// Bytes of dynamic shared memory of a streaming block for width C (0: C is
+// not taken, it must be a positive multiple of 8).  P is not needed.
 size_t coattn_fwd_smem_bytes(int P, int C, int storage) {
-    return partial_smem_bytes(P, C, storage_itemsize(storage));
+    (void)P;
+    if (C < 8 || C % 8 != 0) return 0;
+    return FwdSmem(warps_of(C), storage).total;
 }
 
-// q [P, C] f32; x [B, N, C] (storage: 0 f32, 1 bf16, 2 int8); x_scale and
-// x_inv [B, N] f32 or null; mask [B, N] bool.  Workspace: ws_m, ws_l
-// [B, S, P] and ws_acc [B, S, P, C] f32.  Outputs: out [B, P, C], m and l
-// [B, P] f32.  All on CUDA device `device`; the kernels go to `stream`.
-// Returns the launch's cudaError_t (0 on success).
-int coattn_fwd(const void* q, const void* x, const void* x_scale,
-               const void* x_inv, const void* mask, float scale, int B, int N,
-               int C, int P, int chunk, int S, int storage, int device,
-               void* ws_m, void* ws_l, void* ws_acc, void* out, void* m_out,
-               void* l_out, void* stream) {
-    if (P < 1 || P > kMaxP || C % 8 != 0 || S < 1 || B < 1) {
+// q [P, C] f32; x [B, N, C] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N]
+// f32 for int8, else null; x_inv [B, N] f32 or null; mask [B, N] bool.  The
+// streaming kernel runs ceil(B*Tb / L) blocks of L tiles (Tb = ceil(N /
+// tile) a bag) for each of the ceil(C / 512) channel groups; workspace ws_m,
+// ws_l [B, Smax, P] and ws_acc [B, Smax, P, C] f32, Smax the most blocks a
+// bag's tiles span.  Outputs: out [B, P, C], m and l [B, P] f32.  All on
+// CUDA device `device`; the kernels go to `stream`.  Returns the launches'
+// cudaError_t (0 on success).
+int coattn_fwd(const void* q, const void* x, const void* x_scale, const void* x_inv,
+               const void* mask, float scale, int B, int N, int C, int P, int L, int Smax,
+               int storage, int device, void* ws_m, void* ws_l, void* ws_acc, void* out,
+               void* m_out, void* l_out, void* stream) {
+    if (P < 1 || P > kMaxP || coattn_fwd_smem_bytes(P, C, storage) == 0 || B < 1 || N < 0
+        || L < 1 || Smax < 0 || (storage == kI8) != (x_scale != nullptr)
+        || (storage != kF32 && storage != kBF16 && storage != kI8)) {
         return (int)cudaErrorInvalidValue;
     }
-    cudaError_t dev_err = cudaSetDevice(device);
-    if (dev_err != cudaSuccess) return (int)dev_err;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float* qf = static_cast<const float*>(q);
-    const float* xs = static_cast<const float*>(x_scale);
-    const float* xi = static_cast<const float*>(x_inv);
-    const uint8_t* mk = static_cast<const uint8_t*>(mask);
-    float* wm = static_cast<float*>(ws_m);
-    float* wl = static_cast<float*>(ws_l);
-    float* wa = static_cast<float*>(ws_acc);
-    const bool host_inv = xi != nullptr;
-    const bool has_scale = xs != nullptr;
-    cudaError_t err;
-    if (storage == kF32) {
-        err = dispatch_inv<float>(host_inv, has_scale, qf, x, xs, xi, mk, scale,
-                                  B, N, C, P, chunk, S, wm, wl, wa, st);
-    } else if (storage == kBF16) {
-        err = dispatch_inv<__nv_bfloat16>(host_inv, has_scale, qf, x, xs, xi, mk,
-                                          scale, B, N, C, P, chunk, S, wm, wl,
-                                          wa, st);
-    } else if (storage == kI8) {
-        err = dispatch_inv<int8_t>(host_inv, has_scale, qf, x, xs, xi, mk, scale,
-                                   B, N, C, P, chunk, S, wm, wl, wa, st);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
+    cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const size_t merge_smem = sizeof(float) * (size_t)S;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int Tb = (N + tile_of(storage) - 1) / tile_of(storage);
+    const FwdArgs a{static_cast<const float*>(q), x, static_cast<const float*>(x_scale),
+                    static_cast<const float*>(x_inv), static_cast<const uint8_t*>(mask), scale,
+                    N, C, P, Tb, B * Tb, L, Smax, static_cast<float*>(ws_m),
+                    static_cast<float*>(ws_l), static_cast<float*>(ws_acc)};
+    if (a.total > 0) {
+        if (Smax < 1) return (int)cudaErrorInvalidValue;
+        err = storage == kF32 ? launch_storage<kF32>(a, st)
+              : storage == kBF16 ? launch_storage<kBF16>(a, st) : launch_storage<kI8>(a, st);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const size_t merge_smem = sizeof(float) * (size_t)Smax;
     if (merge_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
     coattn_fwd_merge<<<dim3(P, B), kThreads, merge_smem, st>>>(
-        wm, wl, wa, C, P, S, static_cast<float*>(out),
+        a.ws_m, a.ws_l, a.ws_acc, C, P, Tb, L, Smax, static_cast<float*>(out),
         static_cast<float*>(m_out), static_cast<float*>(l_out));
     return (int)cudaGetLastError();
 }
