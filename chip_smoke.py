@@ -22,8 +22,12 @@ non-zero and prints no result:
      m = -1e30, l = 1e-30; the streaming kernel's ptxas lines go to the
      record, and an instance that spills fails the run;
   2b. backward kernel: holds each variant of the dQ kernel against its plain
-     version at the same shape, with (out, m, l) from the forward kernel;
-     tolerances (max|a-b| / max|b|) f32 1e-3, bf16 and int8 2e-3;
+     version at the same shape and at B=4, N=3000, C=1024 (the wide
+     instance, checked by `LAUNCHES_BWD_PATH`), with (out, m, l) from the
+     forward kernel; tolerances (max|a-b| / max|b|) f32 2.5e-6 (its split-TF32
+     products; the timed phases hold it at 1e-3), bf16 and int8 2e-3; the
+     backward kernels' ptxas lines go to the record, and an instance that
+     spills fails the run;
   2c. ABMIL kernels: holds each variant of csrc/abmil_fwd.cu and
      csrc/abmil_bwd.cu against its plain version at B=8,
      N=10240, D=512, hid=256 (10% of patches masked, one empty bag): the
@@ -43,11 +47,13 @@ non-zero and prints no result:
      lines (registers, static shared memory, spills) go to the record and
      must show no spills;
   2e. full (dX) backward kernel: holds both variants of csrc/coattn_bwd_dx.cu
-     against its plain version at the shape of phase 2 (the masked rows
-     holding features), with (out, m, l) from the forward kernel: dq f32
-     1e-3, bf16 2e-3, dX f32 1e-3, bf16 dX within one bf16 ulp at the scale
-     of its largest element; dX is exactly 0 on masked rows and the empty
-     bag, and within 2e-2 of a true-f32 autograd of the plain pooling;
+     against its plain version at the shape of phase 2 and at B=4, N=3000,
+     C=1024 (the wide instance; the masked rows holding features), with
+     (out, m, l) from the forward kernel: dq f32 2.5e-6, bf16 2e-3, dX f32
+     4e-6 (the timed phase 4d holds f32 at 1e-3), bf16 dX within one bf16
+     ulp at the scale of its largest element; dX is exactly 0 on masked rows
+     and the empty bag, and within 2e-2 of a true-f32 autograd of the plain
+     pooling;
   3. serving: builds the flagship VLSA at the full CONCH width from a seed
      and answers requests of 8 synthetic bags (N~8192 jittered) in every
      storage variant -- 3 in bf16 and 3 in int8 with host 1/||x|| among
@@ -111,7 +117,8 @@ non-zero and prints no result:
      for dQ its gradient with respect to q), beside the least time the card
      could take (bound_ms); every forward variant also at B=64, one a
      storage at C=1024 (the wide instance), and dQ at the training shape
-     B=32, N=16384, with kernel/bound and kernel/library; at
+     B=32, N=16384, with kernel/bound, kernel/library and the backward's
+     block count (`fwd_plan`); at
      every timed shape the kernels' results are first held against their
      plain versions with the tolerances above;
   4b. ABMIL times: the same for each ABMIL kernel and its plain version at
@@ -129,7 +136,8 @@ non-zero and prints no result:
      never called by the port) and the bound (`bound_flash`, exponentials
      counted);
   4d. dX times: both variants of the full backward at B=8, N=10240 and bf16
-     at the training shape B=32, N=16384, beside the plain version, the
+     at the training shape B=32, N=16384, with its block count, beside the
+     plain version, the
      gradient of one scaled_dot_product_attention call with respect to q, k
      and v (library_ms, never called by the port) and the bound (`bound_dx`).
 
@@ -161,6 +169,10 @@ TOL_F32_FWD = 2e-6
 FWD_WIDE = dict(B=4, N=3000, C=1024)
 # dq tolerances of scripts/validate_kernels_chip.py:87-95
 TOL_DQ = {"f32": 1e-3, "bf16": 2e-3, "int8": 2e-3}
+# phases 2b and 2e also hold the f32 backward (dq, dX) within these of the
+# plain version: split TF32 (~2^-21 a product) meets them, bf16 hi + lo
+# operands (~2^-16) would not
+TOL_F32_BWD = {"dq": 2.5e-6, "dx": 4e-6}
 TOL_GRAD = 2e-3  # parameter gradients, kernel path vs plain path
 VARIANTS = ("f32", "f32_inv", "bf16", "bf16_inv", "int8", "int8_inv")
 # the TPU kernel each variant replaces (vlsa_tpu/ops/coattn.py)
@@ -437,15 +449,27 @@ def make_cotangent(torch, B, P, C, seed=2, device="cuda"):
 
 
 def phase_backward_kernel(torch, co):
+    """Each dQ variant at SHAPE and, for the wide instance, at C=1024; f32
+    within TOL_F32_BWD."""
     errs = {}
-    for v in VARIANTS:
-        q, x, mask, xs, xi = make_inputs(torch, **SHAPE, variant=v)
-        out, m, l = co.coattn_fwd(q, x, mask, SCALE, xs, xi)
-        g = make_cotangent(torch, SHAPE["B"], SHAPE["P"], SHAPE["C"])
-        errs[v] = hold(f"dq kernel {v}", co.coattn_bwd_dq(q, x, mask, SCALE, g, out, m, l, xs, xi),
-                       co.coattn_bwd_dq_reference(q, x, mask, SCALE, g, out, m, l, xs, xi),
-                       TOL_DQ[storage_of(v)])
-        del q, x, mask, xs, xi, out, m, l, g
+    for (B, N, C), suffix in (((SHAPE["B"], SHAPE["N"], SHAPE["C"]), ""),
+                              ((FWD_WIDE["B"], FWD_WIDE["N"], FWD_WIDE["C"]), "_wide")):
+        for v in VARIANTS:
+            q, x, mask, xs, xi = make_inputs(torch, B, N, C, SHAPE["P"], variant=v)
+            out, m, l = co.coattn_fwd(q, x, mask, SCALE, xs, xi)
+            g = make_cotangent(torch, B, SHAPE["P"], C)
+            paths = dict(co.LAUNCHES_BWD_PATH)
+            dq = co.coattn_bwd_dq(q, x, mask, SCALE, g, out, m, l, xs, xi)
+            torch.cuda.synchronize()
+            path = "wide" if C > 512 else "group"
+            check(co.LAUNCHES_BWD_PATH == dict(paths, **{path: paths[path] + 1}),
+                  f"dq {v} at C={C}: the backward's instance counts {co.LAUNCHES_BWD_PATH}, "
+                  f"not one more {path} launch than {paths}")
+            tol = TOL_F32_BWD["dq"] if storage_of(v) == "f32" else TOL_DQ[storage_of(v)]
+            errs[v + suffix] = hold(f"dq kernel {v} B={B} N={N} C={C} ({path})", dq,
+                                    co.coattn_bwd_dq_reference(q, x, mask, SCALE, g, out, m, l,
+                                                               xs, xi), tol)
+            del q, x, mask, xs, xi, out, m, l, g, dq
     return errs
 
 
@@ -531,7 +555,8 @@ def ptxas_lines(name: str) -> list:
     report = _build.ptxas_report(_build.BUILD_LOGS[name])
     for r in report:
         log(f"  ptxas {name} {r['function']}: {r['registers']} registers, {r['smem']} bytes "
-            f"static smem, spill stores {r['spill_stores']}, loads {r['spill_loads']}")
+            f"static smem, stack {r['stack']}, spill stores {r['spill_stores']}, "
+            f"loads {r['spill_loads']}")
     return report
 
 
@@ -559,6 +584,34 @@ def abmil_ptxas(ab) -> dict:
             "int8_bwd_pass2": bwd.abmil_bwd_smem_bytes(2, 2)}
     log(f"  ABMIL dynamic shared memory {smem} bytes a block (the card gives {optin})")
     check(max(smem.values()) <= optin, f"ABMIL shared memory {smem} above {optin}")
+    return {"kernels": report, "dynamic_smem": smem}
+
+
+def coattn_bwd_ptxas(co) -> dict:
+    """ptxas's lines for csrc/coattn_bwd_dq.cu's and csrc/coattn_bwd_dx.cu's
+    kernels and the streaming kernel's dynamic shared memory at C=512, P=16
+    for each storage; fails if a streaming instance spills, keeps arrays in
+    local memory (a stack frame) or its shared memory exceeds the card's."""
+    import torch
+    report = {name: ptxas_lines(name) for name in ("coattn_bwd_dq", "coattn_bwd_dx")}
+    for name, count in (("coattn_bwd_dq", 12), ("coattn_bwd_dx", 4)):
+        stream = [r for r in report[name] if "coattn_bwd_stream" in r["function"]]
+        check(len(stream) == count, f"ptxas shows {len(stream)} {name} streaming instances, "
+                                    f"not {count} (storages, host norms or not, C <= 512 or wide)")
+        for r in stream:
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0 and r["stack"] == 0,
+                  f"a co-attention backward instance spills or keeps a stack frame: {r}")
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    smem = {}
+    for name, storages in (("coattn_bwd_dq", ("f32", "bf16", "int8")),
+                           ("coattn_bwd_dx", ("f32", "bf16"))):
+        lib = co._library(name)
+        for i, s_ in enumerate(storages):
+            smem[f"{name}[{s_}]"] = getattr(lib, f"{name}_smem_bytes")(16, SHAPE["C"], i)
+    log(f"  co-attention backward dynamic shared memory {smem} bytes a block at C=512, P=16 "
+        f"(the card gives {optin})")
+    check(0 < min(smem.values()) and max(smem.values()) <= optin,
+          f"co-attention backward shared memory {smem} against {optin}")
     return {"kernels": report, "dynamic_smem": smem}
 
 
@@ -662,19 +715,23 @@ def bf16_ulp_of_max(ref) -> float:
     return 2.0 ** (math.floor(math.log2(max(ref.float().abs().max().item(), 1e-30))) - 7)
 
 
-def hold_dx(torch, co, storage, q, x, mask, g, where):
+def hold_dx(torch, co, storage, q, x, mask, g, where, tight=False):
     """Hold the full backward kernel's (dq, dX) against its plain version
-    on the same inputs, with (out, m, l) from the forward kernel; dX must be
-    exactly 0 on masked rows and the empty bag.  Returns the errors (the
-    worst absolute error over both outputs as max_abs_err) and dX."""
+    on the same inputs, with (out, m, l) from the forward kernel (f32 within
+    TOL_F32_BWD where `tight`); dX must be exactly 0 on masked rows and the
+    empty bag.  Returns the errors (the worst absolute error over both
+    outputs as max_abs_err) and dX."""
     out, m, l = co.coattn_fwd(q, x, mask, SCALE)
     dq, dx = co.coattn_bwd_dx(q, x, mask, SCALE, g, out, m, l)
     torch.cuda.synchronize()
     rdq, rdx = co.coattn_bwd_dx_reference(q, x, mask, SCALE, g, out, m, l)
-    e_dq = hold(f"dx kernel {storage} {where} dq", dq, rdq, TOL_DX_DQ[storage])
+    f32_tight = tight and storage == "f32"
+    e_dq = hold(f"dx kernel {storage} {where} dq", dq, rdq,
+                TOL_F32_BWD["dq"] if f32_tight else TOL_DX_DQ[storage])
     check(dx.dtype == x.dtype and dx.shape == x.shape, f"dX {dx.dtype} {tuple(dx.shape)}")
     if storage == "f32":
-        e_dx = hold(f"dx kernel {storage} {where} dX", dx, rdx, TOL_DX_F32)
+        e_dx = hold(f"dx kernel {storage} {where} dX", dx, rdx,
+                    TOL_F32_BWD["dx"] if f32_tight else TOL_DX_F32)
     else:
         ulp = bf16_ulp_of_max(rdx)
         diff = (dx.float() - rdx.float()).abs().max().item()
@@ -696,13 +753,24 @@ def hold_dx(torch, co, storage, q, x, mask, g, where):
 def phase_dx_kernel(torch, co):
     """Both variants of csrc/coattn_bwd_dx.cu against the plain version at
     SHAPE, and the bf16 dX against a true-f32 autograd of the plain pooling
-    on the same stored values."""
+    on the same stored values; then both at C=1024, the wide instance."""
     errs = {}
+    for s in DX_STORAGES:
+        B, N, C = FWD_WIDE["B"], FWD_WIDE["N"], FWD_WIDE["C"]
+        q, x, mask, _xs, _xi = make_inputs(torch, B, N, C, SHAPE["P"], variant=s, keep_masked=True)
+        g = make_cotangent(torch, B, SHAPE["P"], C)
+        paths = dict(co.LAUNCHES_BWD_PATH)
+        errs[s + "_wide"], _dx = hold_dx(torch, co, s, q, x, mask, g,
+                                         f"at B={B} N={N} C={C} (wide)", tight=True)
+        check(co.LAUNCHES_BWD_PATH == dict(paths, wide=paths["wide"] + 1),
+              f"dx {s} at C={C}: the backward's instance counts {co.LAUNCHES_BWD_PATH}, "
+              f"not one more wide launch than {paths}")
+        del q, x, mask, g, _dx
     for s in DX_STORAGES:
         q, x, mask, _xs, _xi = make_inputs(torch, **SHAPE, variant=s, keep_masked=True)
         g = make_cotangent(torch, SHAPE["B"], SHAPE["P"], SHAPE["C"])
         errs[s], dx = hold_dx(torch, co, s, q, x, mask, g,
-                              f"at B={SHAPE['B']} N={SHAPE['N']}")
+                              f"at B={SHAPE['B']} N={SHAPE['N']}", tight=True)
         xf = x.float().requires_grad_(True)
         co.coattn_pool_reference(q, xf, mask, SCALE).backward(g)
         gap = rel_err(dx.float(), xf.grad)
@@ -911,8 +979,8 @@ def profile_step(torch, engine, batch, family="coattn", groups=None):
             continue
         us = evt.self_device_time_total
         total_us += us
-        if family in evt.key:
-            name = re.search(rf"{family}\w*", evt.key).group(0)
+        if family in evt.key:  # the longest name, past a namespace of the family's name
+            name = max(re.findall(rf"{family}\w*", evt.key), key=len)
             by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
         if groups:
             g = next((g for g, rx in groups.items() if re.search(rx, evt.key)), "other")
@@ -1756,8 +1824,10 @@ def time_dq_variant(torch, co, variant, B, N, C, P):
     lib_ms = median_ms(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qq, kn, vv, attn_mask=am, scale=SCALE), qq, gg))
     b_ms, b_by = bound_dq(B, N, C, P, variant)
+    plan = co.fwd_plan(x.dtype, B, N, torch.cuda.get_device_properties(0).multi_processor_count, C)
     return {"B": B, "N": N, "C": C, "P": P, "ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "blocks": plan["blocks"] * plan["groups"], "L": plan["L"],
             "fwd_err": fwd_err, "dq_err": dq_err}
 
 
@@ -1784,7 +1854,8 @@ def phase_times(torch, co):
                 f"  plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms"
                 f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
                 f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x"
-                f"  kernel/library {t['ms'] / t['library_ms']:.2f}x")
+                f"  kernel/library {t['ms'] / t['library_ms']:.2f}x"
+                + (f"  blocks {t['blocks']} of L={t['L']} tiles" if "blocks" in t else ""))
     return times
 
 
@@ -1986,8 +2057,10 @@ def time_dx(torch, co, storage, B, N, C, P):
     lib_ms = median_ms(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qq, kn, vv, attn_mask=am, scale=SCALE), (qq, kn, vv), gg))
     b_ms, b_by = bound_dx(B, N, C, P, storage)
+    plan = co.fwd_plan(x.dtype, B, N, torch.cuda.get_device_properties(0).multi_processor_count, C)
     return {"B": B, "N": N, "C": C, "P": P, "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "err": err}
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "blocks": plan["blocks"] * plan["groups"], "L": plan["L"], "err": err}
 
 
 def phase_dx_times(torch, co):
@@ -1999,7 +2072,8 @@ def phase_dx_times(torch, co):
         log(f"time coattn_bwd_dx[{storage}] B={t['B']:<3d} N={t['N']:<6d} kernel {t['ms']:.4f} ms"
             f"  plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms"
             f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
-            f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x")
+            f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x"
+            f"  blocks {t['blocks']} of L={t['L']} tiles")
     return times
 
 
@@ -2036,6 +2110,7 @@ def main(argv=None) -> int:
         errs = phase_kernel(torch, co)
         coattn_ptxas_lines = coattn_fwd_ptxas(co)
         errs_dq = phase_backward_kernel(torch, co)
+        coattn_bwd_ptxas_lines = coattn_bwd_ptxas(co)
         errs_abmil = phase_abmil_kernels(torch, ab)
         abmil_ptxas_lines = abmil_ptxas(ab)
         errs_flash, flash_ptxas_lines = phase_flash_kernel(torch, fa)
@@ -2112,7 +2187,7 @@ def main(argv=None) -> int:
               "times": times, "abmil_shape": ABMIL_SHAPE, "abmil_train_shape": ABMIL_TRAIN_SHAPE,
               "abmil_errors": errs_abmil, "sa_serving": sa_serving, "sa_training": sa_training,
               "abmil_times": abmil_times, "abmil_ptxas": abmil_ptxas_lines,
-              "coattn_fwd_ptxas": coattn_ptxas_lines,
+              "coattn_fwd_ptxas": coattn_ptxas_lines, "coattn_bwd_ptxas": coattn_bwd_ptxas_lines,
               "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
               "flash_ptxas": flash_ptxas_lines,
               "flash_plan": {L: list(fa.flash_plan(L)) for L in FLASH_LENGTHS},

@@ -117,10 +117,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("B_,N_", [(8, 10240), (64, 10240), (1, 5), (2, 0)])
 def test_split_plan_covers_every_patch(B_, N_):
-    """The forward's plan, for each storage's tile: the blocks' flat ranges
+    """The kernels' plan, for each storage's tile: the blocks' flat ranges
     of L tiles cover every tile of every bag once, and each bag's partial
-    slots k - first(b) stay below Smax; the backward kernels' split_plan
-    covers N."""
+    slots k - first(b) stay below Smax (the forward); the backward's blocks
+    each write one dq partial over their range, ranges crossing bags, and
+    dq is the sum of those partials in block order."""
     for dtype, tile in tco._FWD_TILE.items():
         plan = tco.fwd_plan(dtype, B_, N_, n_sm=132)
         tiles, L, blocks = plan["tiles_per_bag"], plan["L"], plan["blocks"]
@@ -130,9 +131,28 @@ def test_split_plan_covers_every_patch(B_, N_):
         for b in range(B_ if tiles else 0):
             slots = {f // L - (b * tiles) // L for f in range(b * tiles, (b + 1) * tiles)}
             assert slots == set(range(len(slots))) and len(slots) <= plan["Smax"]
-    chunk, S = tco.split_plan(B_, N_, n_sm=132)
-    assert chunk % 32 == 0 and S >= 1
-    assert (S - 1) * chunk < max(N_, 1) <= S * chunk
+        if N_ == 0:
+            assert blocks == 0  # dq is then the reduction of no partials: 0
+            continue
+        # the backward at P=2, C=8: block k's partial is the sum over its
+        # tiles of dl_tile . x_tile; dq = scale * the partials summed in order
+        gen = torch.Generator().manual_seed(B_)
+        q = torch.nn.functional.normalize(torch.randn(2, 8, generator=gen), dim=-1)
+        x = torch.randn(B_, N_, 8, generator=gen)
+        mask = torch.rand(B_, N_, generator=gen) > 0.1
+        gout = torch.randn(B_, 2, 8, generator=gen)
+        out, m, l = tco.coattn_fwd_reference(q, x, mask, SCALE)
+        xf, _inv, _a, dl = tco._weights_and_cotangent(q, x, mask, SCALE, gout, out, m, l)
+        pad = tiles * tile - N_
+        dl_t = torch.nn.functional.pad(dl, (0, pad)).reshape(B_, 2, tiles, tile) \
+            .permute(0, 2, 1, 3).reshape(B_ * tiles, 2, tile)
+        x_t = torch.nn.functional.pad(xf, (0, 0, 0, pad)).reshape(B_ * tiles, tile, 8)
+        per_tile = torch.bmm(dl_t, x_t)
+        dq = torch.zeros(2, 8)
+        for k in range(blocks):
+            dq += per_tile[k * L:(k + 1) * L].sum(0)
+        ref = tco.coattn_bwd_dq_reference(q, x, mask, SCALE, gout, out, m, l)
+        torch.testing.assert_close(SCALE * dq, ref, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("B_,N_", [(8, 10240), (64, 10240), (32, 8192), (32, 65536),
@@ -158,26 +178,23 @@ def test_fwd_plan_fills_one_wave(B_, N_):
 
 
 def test_fwd_plan_mirrors_the_kernel_source():
-    """ops/coattn.py's tiles and warp widths are csrc/'s: kTile (the
-    backward kernels'), the forward's tile_of, kWarpCh, kMaxWarps and the
-    channel group kGroupCh."""
+    """ops/coattn.py's tiles and warp widths are csrc/'s, which the forward
+    and backward kernels share (coattn_common.cuh): tile_of, kWarpCh,
+    kMaxWarps and the channel group kGroupCh."""
     import re
     from pathlib import Path
-    csrc = Path(tco.__file__).parent / "csrc"
+    src = (Path(tco.__file__).parent / "csrc" / "coattn_common.cuh").read_text()
 
-    def const(name, file):
-        src = (csrc / file).read_text()
+    def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert const("kTile", "coattn_common.cuh") == tco._TILE
-    src = (csrc / "coattn_fwd.cu").read_text()
     m = re.search(r"constexpr int tile_of\(int storage\) \{ return storage == kF32 \? (\d+) : (\d+); \}",
                   src)
     assert (int(m.group(1)), int(m.group(2))) == (tco._FWD_TILE[torch.float32],
                                                   tco._FWD_TILE[torch.bfloat16])
     assert tco._FWD_TILE[torch.int8] == tco._FWD_TILE[torch.bfloat16]
-    assert const("kWarpCh", "coattn_fwd.cu") == tco._FWD_WARP_CH
-    assert const("kMaxWarps", "coattn_fwd.cu") == tco._FWD_MAX_WARPS
+    assert const("kWarpCh") == tco._FWD_WARP_CH
+    assert const("kMaxWarps") == tco._FWD_MAX_WARPS
     assert "constexpr int kGroupCh = kWarpCh * kMaxWarps;" in src
     assert tco._FWD_GROUP_CH == 512
 
@@ -216,3 +233,24 @@ def test_split_tf32_model():
     assert torch.all((t - hi).abs() <= t.abs() * 2.0 ** -11)
     assert torch.all((t - hi - lo).abs() <= (t - hi).abs() * 2.0 ** -10)
     assert float(((t - hi - lo).abs() / t.abs()).max()) <= 2.0 ** -21
+
+
+def test_ptxas_report_reads_stack_frames_and_spills():
+    """`_build.ptxas_report` reads each kernel's registers, local-memory
+    stack frame and spills from nvcc's -Xptxas -v output, which chip_smoke.py
+    holds the co-attention backward to (no spill, no stack frame)."""
+    from vlsa_tpu_torch.ops import _build
+    log = """ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    192 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 242 registers, used 1 barriers, 192 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    16 bytes stack frame, 48 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 16 bytes cumulative stack size, 40 bytes smem
+"""
+    a, b = _build.ptxas_report(log)
+    assert a == {"function": "_Z1av", "registers": 242, "stack": 192, "spill_stores": 0,
+                 "spill_loads": 0, "smem": 0}
+    assert b == {"function": "_Z1bv", "registers": 255, "stack": 16, "spill_stores": 48,
+                 "spill_loads": 32, "smem": 40}

@@ -328,6 +328,74 @@ def test_dx_kernel_matches_plain(device, dtype, shape):
     assert torch.all(dx[~mask] == 0) and torch.all(dx[-1] == 0)
 
 
+# the backward kernels' pipeline (csrc/coattn_bwd.cuh): (B, N, C, P) -- a
+# partial last tile with bag boundaries inside the blocks' ranges, the wide
+# instance at C = 1024 (VLFAN's default width) and 1000 (its last channel
+# group partly past C), P = 1 and 16
+BWD_PIPELINE = [(5, 12291, 512, 12), (2, 3000, 1024, 12), (3, 2000, 1000, 16),
+                (2, 5000, 512, 1), (2, 4000, 512, 16)]
+# f32 against the plain version (true f32) at those shapes: split TF32 (~2^-21
+# a product) stays within these, which bf16 hi + lo operands (~2^-16) fail
+TOL_F32_BWD = {"dq": 2.5e-6, "dx": 4e-6}
+
+
+def _crosses_bags(dtype, B, N, C, device) -> bool:
+    plan = co.fwd_plan(dtype, B, N, torch.cuda.get_device_properties(device)
+                       .multi_processor_count, C)
+    return any(b * plan["tiles_per_bag"] % plan["L"] for b in range(1, B))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("host_inv", [False, True])
+@pytest.mark.parametrize("case", BWD_PIPELINE)
+def test_dq_kernel_pipeline_shapes(device, dtype, host_inv, case):
+    """dq within TOL_DQ of the plain version (f32 within TOL_F32_BWD); the
+    instance's path counter moves (wide above C=512); a second call gives
+    the same bits (the partials are summed in block order)."""
+    B, N, C, P = case
+    q, x, mask, xs, xi = _inputs(B, N, C, P, dtype, host_inv, device, seed=6)
+    out, m, l = co.coattn_fwd(q, x, mask, 30.0, xs, xi)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(device)
+    paths = dict(co.LAUNCHES_BWD_PATH)
+    dq = co.coattn_bwd_dq(q, x, mask, 30.0, g, out, m, l, xs, xi)
+    torch.cuda.synchronize()
+    path = "wide" if C > 512 else "group"
+    assert co.LAUNCHES_BWD_PATH == dict(paths, **{path: paths[path] + 1})
+    ref = co.coattn_bwd_dq_reference(q, x, mask, 30.0, g, out, m, l, xs, xi)
+    assert torch.isfinite(dq).all()
+    assert _rel(dq, ref) <= (TOL_F32_BWD["dq"] if dtype == torch.float32 else TOL_DQ[dtype])
+    assert torch.equal(co.coattn_bwd_dq(q, x, mask, 30.0, g, out, m, l, xs, xi), dq)
+    if N > 10000:
+        assert _crosses_bags(dtype, B, N, C, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_PIPELINE)
+def test_dx_kernel_pipeline_shapes(device, dtype, case):
+    """dq and dX against the plain version (f32 within TOL_F32_BWD, bf16 dX
+    within one bf16 ulp of its largest element), masked rows holding
+    features: dX exactly 0 there and on the empty bag; the path counter; a
+    second call gives the same bits."""
+    B, N, C, P = case
+    q, x, mask, gout = _dx_inputs(B, N, C, P, dtype, device, seed=6)
+    out, m, l = co.coattn_fwd(q, x, mask, 30.0)
+    paths = dict(co.LAUNCHES_BWD_PATH)
+    dq, dx = co.coattn_bwd_dx(q, x, mask, 30.0, gout, out, m, l)
+    torch.cuda.synchronize()
+    path = "wide" if C > 512 else "group"
+    assert co.LAUNCHES_BWD_PATH == dict(paths, **{path: paths[path] + 1})
+    rdq, rdx = co.coattn_bwd_dx_reference(q, x, mask, 30.0, gout, out, m, l)
+    assert torch.isfinite(dq).all() and torch.isfinite(dx).all()
+    if dtype == torch.float32:
+        assert _rel(dq, rdq) <= TOL_F32_BWD["dq"] and _rel(dx, rdx) <= TOL_F32_BWD["dx"]
+    else:
+        assert _rel(dq, rdq) <= TOL_DX_DQ[dtype]
+        assert float((dx.float() - rdx.float()).abs().max()) <= _bf16_ulp_of_max(rdx)
+    assert torch.all(dx[~mask] == 0) and torch.all(dx[-1] == 0)
+    dq2, dx2 = co.coattn_bwd_dx(q, x, mask, 30.0, gout, out, m, l)
+    assert torch.equal(dq2, dq) and torch.equal(dx2, dx)
+
+
 def test_gradient_request_raises(device):
     """q's gradient goes through the dQ kernel; a gradient for x through the
     dX kernel, with q's or without, and never the dQ-only kernel; the

@@ -29,22 +29,25 @@ BUILD_LOGS: dict = {}  # name -> nvcc's output (registers, shared memory, spills
 
 def ptxas_report(build_log: str) -> list:
     """Each kernel's `-Xptxas -v` lines from a build log: [{"function":
-    mangled name, "registers", "spill_stores", "spill_loads", "smem" (static
-    bytes)}], in the order ptxas compiled them."""
+    mangled name, "registers", "stack" (bytes of local memory a thread: arrays
+    the registers do not hold, spills included), "spill_stores",
+    "spill_loads", "smem" (static bytes)}], in the order ptxas compiled
+    them."""
     import re
     report, cur = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = {"function": m.group(1), "registers": None, "spill_stores": None,
-                   "spill_loads": None, "smem": 0}
+            cur = {"function": m.group(1), "registers": None, "stack": None,
+                   "spill_stores": None, "spill_loads": None, "smem": 0}
             report.append(cur)
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m:
-            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))

@@ -16,10 +16,13 @@ features need one too (`CoattnPoolFull`: VLFAN with a feature projecter).
 Storage types of x: f32, bf16, or int8 with per-patch dequant scales
 `x_scale` [B, N]; `x_inv` [B, N] optionally carries host-computed
 1/||x_stored|| rows.  Features that need a gradient are f32 or bf16 with no
-sidecars.  The plain versions compute in f32 on the stored values; the
-forward kernel takes q and its softmax weights as bf16 hi + lo on the tensor
-cores, as the TPU kernel does (f32 storage: q, x and the weights in split
-TF32), and `coattn_fwd_rounded` models that rounding.
+sidecars.  The plain versions compute in f32 on the stored values.  The
+kernels run their products on the tensor cores with the TPU kernels'
+rounding: q, the softmax weights, g and the logit cotangent as bf16 hi + lo
+(f32 storage: every operand in split TF32); `coattn_fwd_rounded` models the
+forward's.  Forward and backward share one launch plan (`fwd_plan`): one
+persistent block per SM over flat ranges of tiles, by channel group of 512
+above C=512.
 """
 from __future__ import annotations
 
@@ -32,11 +35,10 @@ import torch
 from .masked import l2_normalize, masked_softmax
 
 MAX_QUERIES = 16
-_TILE = 32  # patches per kernel tile (kTile in csrc/coattn_common.cuh)
-# the forward kernel's warps each own _FWD_WARP_CH channels, at most
-# _FWD_MAX_WARPS of them (a block's channel group of _FWD_GROUP_CH), and its
-# tiles hold _FWD_TILE patches by storage (kWarpCh, kMaxWarps, tile_of in
-# csrc/coattn_fwd.cu)
+# the kernels' warps each own _FWD_WARP_CH channels, at most _FWD_MAX_WARPS of
+# them (a block's channel group of _FWD_GROUP_CH), and their tiles hold
+# _FWD_TILE patches by storage (kWarpCh, kMaxWarps, tile_of in
+# csrc/coattn_common.cuh)
 _FWD_WARP_CH, _FWD_MAX_WARPS = 64, 8
 _FWD_GROUP_CH = _FWD_WARP_CH * _FWD_MAX_WARPS
 _FWD_TILE = {torch.float32: 32, torch.bfloat16: 64, torch.int8: 64}
@@ -47,16 +49,19 @@ _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8
 # "bf16_inv", "int8", "int8_inv"): one per call of `coattn_fwd` in LAUNCHES,
 # one per call of `coattn_bwd_dq` in LAUNCHES_BWD; one per call of
 # `coattn_bwd_dx` in LAUNCHES_DX, by storage ("f32", "bf16").  The forward's
-# calls also count by instance in LAUNCHES_FWD_PATH: "group" for C <= 512
-# (one channel group a block), "wide" for C > 512 (blocks by channel group).
+# calls also count by instance in LAUNCHES_FWD_PATH, and both backward
+# kernels' in LAUNCHES_BWD_PATH: "group" for C <= 512 (one channel group a
+# block), "wide" for C > 512 (blocks by channel group).
 LAUNCHES = {f"{s}{i}": 0 for s in ("f32", "bf16", "int8") for i in ("", "_inv")}
 LAUNCHES_BWD = dict(LAUNCHES)
 LAUNCHES_DX = {"f32": 0, "bf16": 0}
 LAUNCHES_FWD_PATH = {"group": 0, "wide": 0}
+LAUNCHES_BWD_PATH = {"group": 0, "wide": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BWD, LAUNCHES_DX, LAUNCHES_FWD_PATH):
+    for counts in (LAUNCHES, LAUNCHES_BWD, LAUNCHES_DX, LAUNCHES_FWD_PATH,
+                   LAUNCHES_BWD_PATH):
         for k in counts:
             counts[k] = 0
 
@@ -229,27 +234,18 @@ def coattn_bwd_dx_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor
     return dq, dx.to(x.dtype)
 
 
-def split_plan(B: int, N: int, n_sm: int) -> Tuple[int, int]:
-    """(chunk, S) of the backward kernels: the patch axis of each bag is cut
-    into S chunks of `chunk` patches (a multiple of the tile), one block
-    each, so that B*S blocks fill about two waves of the card's SMs even when
-    B is small."""
-    tiles = max(1, -(-N // _TILE))
-    S = max(1, min(tiles, -(-2 * n_sm // B)))
-    chunk = -(-tiles // S) * _TILE
-    return chunk, max(1, -(-N // chunk))
-
-
 @functools.lru_cache(maxsize=256)
 def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, C: int = _FWD_GROUP_CH) -> dict:
-    """The forward kernel's launch plan for x of `dtype` and width C: its
-    B * Tb tiles (Tb = ceil(N / tile) a bag, tile = _FWD_TILE[dtype]) are cut
-    into `blocks` flat ranges of L tiles, one persistent block each (one
+    """The co-attention kernels' launch plan for x of `dtype` and width C:
+    the B * Tb tiles (Tb = ceil(N / tile) a bag, tile = _FWD_TILE[dtype]) are
+    cut into `blocks` flat ranges of L tiles, one persistent block each (one
     block fills an SM) for each of the `groups` = ceil(C / 512) channel
     groups, L = ceil(groups * B * Tb / n_sm), so every block but the last of
     a group takes the same number of tiles in one wave.  A range may cross
-    bags; block k writes its partial of bag b to slot k - floor(b * Tb / L)
-    of that bag, and `Smax` is the most slots a bag uses."""
+    bags.  The forward's block k writes its partial of bag b to slot
+    k - floor(b * Tb / L) of that bag, and `Smax` is the most slots a bag
+    uses; the backward's block k writes one dq partial, row k of a
+    [blocks, P, C] workspace, summed in block order."""
     tiles = -(-N // _FWD_TILE[dtype])
     total, groups = B * tiles, -(-C // _FWD_GROUP_CH)
     if total == 0:
@@ -263,13 +259,12 @@ def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, C: int = _FWD_GROUP_
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the argument types of each library's entry point `<name>` (csrc/<name>.cu):
 # pointers to q, x, [x_scale, x_inv: not coattn_bwd_dx] and mask, the scale,
-# [the backward kernels: g, out, m, l], B, N, C, P, then chunk and S (the
-# backward kernels) or L and Smax (the forward), storage and device, then the
-# workspace, output and stream pointers
+# [the backward kernels: g, out, m, l], B, N, C, P, L, [the forward: Smax],
+# storage and device, then the workspace, output and stream pointers
 _ARGTYPES = {
     "coattn_fwd": [_P] * 5 + [_F] + [_I] * 8 + [_P] * 7,
-    "coattn_bwd_dq": [_P] * 5 + [_F] + [_P] * 4 + [_I] * 8 + [_P] * 3,
-    "coattn_bwd_dx": [_P] * 3 + [_F] + [_P] * 4 + [_I] * 8 + [_P] * 4,
+    "coattn_bwd_dq": [_P] * 5 + [_F] + [_P] * 4 + [_I] * 7 + [_P] * 3,
+    "coattn_bwd_dx": [_P] * 3 + [_F] + [_P] * 4 + [_I] * 7 + [_P] * 4,
 }
 
 
@@ -332,13 +327,15 @@ def _check_forward_outputs(g, out, m, l, B, P, C, device) -> None:
                              f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _plan(lib, name: str, device, B, N, C, P, storage) -> Tuple[int, int]:
+def _plan(lib, name: str, device, dtype, B, N, C, P) -> dict:
+    """`fwd_plan` for one kernel's launch, after checking that its block's
+    shared memory fits the card."""
     props = torch.cuda.get_device_properties(device)
-    smem = getattr(lib, f"{name}_smem_bytes")(P, C, storage)
-    if smem > props.shared_memory_per_block_optin:
-        raise ValueError(f"C={C}, P={P} needs {smem} bytes of shared memory per "
-                         f"block, the card gives {props.shared_memory_per_block_optin}")
-    return split_plan(B, N, props.multi_processor_count)
+    smem = getattr(lib, f"{name}_smem_bytes")(P, C, _STORAGE[dtype])
+    if not 0 < smem <= props.shared_memory_per_block_optin:
+        raise ValueError(f"C={C}, P={P} needs {smem} bytes of shared memory per block, "
+                         f"the card gives {props.shared_memory_per_block_optin}")
+    return fwd_plan(dtype, B, N, props.multi_processor_count, C)
 
 
 def _ptr(t):
@@ -361,12 +358,7 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
     device = x.device
     lib = _library("coattn_fwd")
     storage = _STORAGE[x.dtype]
-    props = torch.cuda.get_device_properties(device)
-    smem = lib.coattn_fwd_smem_bytes(P, C, storage)
-    if smem > props.shared_memory_per_block_optin:
-        raise ValueError(f"C={C} needs {smem} bytes of shared memory per block, the card "
-                         f"gives {props.shared_memory_per_block_optin}")
-    plan = fwd_plan(x.dtype, B, N, props.multi_processor_count, C)
+    plan = _plan(lib, "coattn_fwd", device, x.dtype, B, N, C, P)
     S = plan["Smax"]
 
     f32 = dict(dtype=torch.float32, device=device)
@@ -395,24 +387,26 @@ def coattn_bwd_dq(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
                   x_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the Hopper dQ kernel on CUDA tensors: the queries' gradient
     dq [P, C] f32 from the output's cotangent g [B, P, C] and the forward's
-    (out, m, l) as `coattn_fwd` returns them."""
+    (out, m, l) as `coattn_fwd` returns them.  One partial a block of
+    `fwd_plan`, summed in block order: repeated calls give the same bits.
+    Any C (a multiple of 8): above 512 the kernel's wide instance runs."""
     B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_bwd_dq")
     device = x.device
     _check_forward_outputs(g, out, m, l, B, P, C, device)
     lib = _library("coattn_bwd_dq")
-    storage = _STORAGE[x.dtype]
-    chunk, S = _plan(lib, "coattn_bwd_dq", device, B, N, C, P, storage)
+    plan = _plan(lib, "coattn_bwd_dq", device, x.dtype, B, N, C, P)
 
     dq = torch.empty(P, C, dtype=torch.float32, device=device)
-    ws_dq = torch.empty(B, S, P, C, dtype=torch.float32, device=device)
+    ws_dq = torch.empty(max(plan["blocks"], 1), P, C, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.coattn_bwd_dq(_ptr(q), _ptr(x), _ptr(x_scale), _ptr(x_inv), _ptr(mask),
                             float(scale), _ptr(g), _ptr(out), _ptr(m), _ptr(l),
-                            B, N, C, P, chunk, S, storage, _device_index(device),
+                            B, N, C, P, plan["L"], _STORAGE[x.dtype], _device_index(device),
                             _ptr(ws_dq), _ptr(dq), stream)
     if err != 0:
         raise RuntimeError(f"coattn_bwd_dq kernel launch failed: cudaError {err}")
     LAUNCHES_BWD[variant_name(x.dtype, x_inv is not None)] += 1
+    LAUNCHES_BWD_PATH["wide" if plan["groups"] > 1 else "group"] += 1
     return dq
 
 
@@ -423,7 +417,8 @@ def coattn_bwd_dx(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
     f32, dX [B, N, C] in x's type) from the output's cotangent g [B, P, C]
     and the forward's (out, m, l) as `coattn_fwd` returns them.  x is f32 or
     bf16 (int8 features are constants) and its norms are computed in the
-    kernel: there are no sidecars."""
+    kernel: there are no sidecars.  The plan and the dq reduction are
+    `coattn_bwd_dq`'s; any C (a multiple of 8)."""
     B, N, C, P = _check_inputs(q, x, mask, None, None, "coattn_bwd_dx")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"coattn_bwd_dx takes f32 or bf16 x (int8 features are "
@@ -431,19 +426,19 @@ def coattn_bwd_dx(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
     device = x.device
     _check_forward_outputs(g, out, m, l, B, P, C, device)
     lib = _library("coattn_bwd_dx")
-    storage = _STORAGE[x.dtype]
-    chunk, S = _plan(lib, "coattn_bwd_dx", device, B, N, C, P, storage)
+    plan = _plan(lib, "coattn_bwd_dx", device, x.dtype, B, N, C, P)
 
     dq = torch.empty(P, C, dtype=torch.float32, device=device)
     dx = torch.empty_like(x)
-    ws_dq = torch.empty(B, S, P, C, dtype=torch.float32, device=device)
+    ws_dq = torch.empty(max(plan["blocks"], 1), P, C, dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.coattn_bwd_dx(_ptr(q), _ptr(x), _ptr(mask), float(scale), _ptr(g), _ptr(out),
-                            _ptr(m), _ptr(l), B, N, C, P, chunk, S, storage,
+                            _ptr(m), _ptr(l), B, N, C, P, plan["L"], _STORAGE[x.dtype],
                             _device_index(device), _ptr(ws_dq), _ptr(dq), _ptr(dx), stream)
     if err != 0:
         raise RuntimeError(f"coattn_bwd_dx kernel launch failed: cudaError {err}")
     LAUNCHES_DX[_STORAGE_NAME[x.dtype]] += 1
+    LAUNCHES_BWD_PATH["wide" if plan["groups"] > 1 else "group"] += 1
     return dq, dx
 
 

@@ -1,8 +1,10 @@
-// Device helpers shared by the co-attention kernels (coattn_fwd.cu,
-// coattn_bwd_dq.cu, coattn_bwd_dx.cu) and, through abmil_common.cuh, the
-// ABMIL kernels: block shape, storage types, vector loads of x, warp
-// reductions, the backward kernels' dq reduction, cp.async, ldmatrix, the
-// bf16 mma.sync m16n8k16 and the split-TF32 mma.sync m16n8k8.
+// Device helpers shared by the co-attention kernels (coattn_fwd.cu and,
+// through coattn_bwd.cuh, coattn_bwd_dq.cu and coattn_bwd_dx.cu) and,
+// through abmil_common.cuh, the ABMIL kernels: block shape, storage types,
+// warp reductions, cp.async, ldmatrix, the bf16 mma.sync m16n8k16 and the
+// split-TF32 mma.sync m16n8k8; the per-warp x stream of the co-attention
+// kernels (slice layout, cp.async staging, int8 planes, hi + lo fragments);
+
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,7 +15,6 @@ namespace coattn {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;     // patches per tile: one lane per patch
 constexpr int kMaxP = 16;     // queries a launch takes
 constexpr float kNegInf = -1e30f;
 
@@ -23,66 +24,9 @@ __host__ __device__ inline int storage_itemsize(int storage) {
     return storage == kF32 ? 4 : storage == kBF16 ? 2 : 1;
 }
 
-// Four consecutive storage values -> float.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-    float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-    uint2 t = *reinterpret_cast<const uint2*>(p);
-    __nv_bfloat162 a = *reinterpret_cast<__nv_bfloat162*>(&t.x);
-    __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&t.y);
-    float2 fa = __bfloat1622float2(a);
-    float2 fb = __bfloat1622float2(b);
-    v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
-}
-__device__ __forceinline__ void load4(const int8_t* p, float v[4]) {
-    char4 t = *reinterpret_cast<const char4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-// Four raw storage values in one load (for the shared-memory tile).
-template <typename T> struct Raw4;
-template <> struct Raw4<float> { using type = float4; };
-template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
-template <> struct Raw4<int8_t> { using type = char4; };
-
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(int8_t v) { return static_cast<float>(v); }
-
-// Sixteen bytes of float storage values in one load or store: 4 f32 or 8 bf16.
-template <typename T> struct Vec16;
-template <> struct Vec16<float> { using raw = float4; static constexpr int n = 4; };
-template <> struct Vec16<__nv_bfloat16> { using raw = uint4; static constexpr int n = 8; };
-
-__device__ __forceinline__ void unpack(const float4& r, float v[4]) {
-    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-__device__ __forceinline__ void unpack(const uint4& r, float v[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-    }
-}
-__device__ __forceinline__ void pack(const float v[4], float4& r) {
-    r = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void pack(const float v[8], uint4& r) {
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-}
-
-// v rounded to the storage type T and back (round to nearest even).
-template <typename T> __device__ __forceinline__ float round_as(float v);
-template <> __device__ __forceinline__ float round_as<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_as<__nv_bfloat16>(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -188,23 +132,138 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// dq[i] = scale * sum_k ws_dq[k][i] over the K = B*S per-block partials of a
-// backward kernel, k in order: deterministic, no atomics.
-__global__ void __launch_bounds__(kThreads)
-dq_reduce(const float* __restrict__ ws_dq, int K, int PC, float scale,
-          float* __restrict__ dq) {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i >= PC) return;
-    float s = 0.f;
-    for (int k = 0; k < K; ++k) s += ws_dq[(size_t)k * PC + i];
-    dq[i] = scale * s;
+// ---- the per-warp x stream of the forward and backward kernels ----
+
+constexpr int kWarpCh = 64;                    // channels a warp owns
+constexpr int kMaxWarps = 8;                   // warps a block
+constexpr int kGroupCh = kWarpCh * kMaxWarps;  // 512: channels a block pools
+constexpr int kRows = 16;                      // query rows of an mma tile: P <= 16, zero-padded
+constexpr int kPlaneRow = kWarpCh * 2;         // bytes a row of a warp's bf16 plane
+
+template <int ST> struct Store;
+template <> struct Store<kF32> { using T = float; };
+template <> struct Store<kBF16> { using T = __nv_bfloat16; };
+template <> struct Store<kI8> { using T = int8_t; };
+
+// Patches a tile: 64 for bf16 and int8; 32 for f32, whose slices are twice
+// as large.
+__host__ __device__ constexpr int tile_of(int storage) { return storage == kF32 ? 32 : 64; }
+// Row stride (floats) of a block's [rows][tile] dot partials and of the bf16
+// weights; f32 weights take tile + 4 (A fragment rows g at 4g + t: 32
+// distinct banks).
+__host__ __device__ constexpr int ld_of(int tile) { return tile + 8; }
+// k-steps of q's A fragments over a warp's 64 channels: 8 of m16n8k8 (split
+// TF32, f32 storage) or 4 of m16n8k16 (bf16 hi + lo).
+__host__ __device__ constexpr int qsteps_of(int storage) { return storage == kF32 ? 8 : 4; }
+
+__host__ __device__ constexpr int groups_of(int C) { return (C + kGroupCh - 1) / kGroupCh; }
+__host__ __device__ constexpr int warps_of(int C) {
+    return C > kGroupCh ? kMaxWarps : (C + kWarpCh - 1) / kWarpCh;
 }
 
-inline cudaError_t launch_dq_reduce(const float* ws_dq, int K, int PC, float scale,
-                                    float* dq, cudaStream_t stream) {
-    dq_reduce<<<(PC + kThreads - 1) / kThreads, kThreads, 0, stream>>>(ws_dq, K, PC,
-                                                                       scale, dq);
-    return cudaGetLastError();
+// Byte offset of 16-byte chunk c of row r of a slice: the chunk index is
+// XORed with a function of the row, so that 8 rows at one chunk (ldmatrix,
+// the int8 conversion) and 8 chunks of one row (cp.async) hit 8 distinct
+// bank groups.  Rows are 256 (f32), 128 (bf16 and the planes) or 64 (int8)
+// bytes.  f32's XOR, 2 (r % 4) + (r / 4) % 2, also makes the PV's B fragment
+// loads (rows 4h + t, 8 columns g over two chunks) hit 32 distinct banks.
+template <int ST>
+__device__ __forceinline__ uint32_t slice_off(int r, int c) {
+    if constexpr (ST == kF32) return r * 256 + ((c ^ (((r & 3) << 1) | ((r >> 2) & 1))) << 4);
+    else if constexpr (ST == kBF16) return r * 128 + ((c ^ (r & 7)) << 4);
+    else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+__device__ __forceinline__ uint32_t plane_off(int r, int c) { return slice_off<kBF16>(r, c); }
+
+// cp.async of the warp's slice (channels [ch0, ch0 + 64)) of flat tile f
+// into a ring slot; rows past N and channels past C are zero-filled.  Not
+// committed.
+template <int ST>
+__device__ __forceinline__ void issue_tile(const void* x, int N, int C, int Tb, int f,
+                                           unsigned char* slot, int ch0, int lane) {
+    using T = typename Store<ST>::T;
+    constexpr int kItem = sizeof(T);
+    constexpr int kChunks = kWarpCh * kItem / 16;  // a row: f32 16, bf16 8, int8 4
+    constexpr int TT = tile_of(ST);
+    const int b = f / Tb, n0 = (f - b * Tb) * TT;
+    const T* xb = static_cast<const T*>(x) + (size_t)b * N * C;
+    const bool rows8 = kItem == 1 && (C & 15) != 0;  // int8 rows only 8-byte aligned
+#pragma unroll 4
+    for (int i = lane; i < TT * kChunks; i += 32) {
+        const int r = i / kChunks, c = i % kChunks, n = n0 + r;
+        const int ch = ch0 + c * (16 / kItem);
+        const int bytes = n < N ? min(16, max(0, (C - ch) * kItem)) : 0;
+        const T* src = bytes > 0 ? xb + (size_t)n * C + ch : static_cast<const T*>(x);
+        unsigned char* dst = slot + slice_off<ST>(r, c);
+        if (rows8) {
+            cp_async8_n(dst, src, min(bytes, 8));
+            cp_async8_n(dst + 8, bytes > 8 ? src + 8 : src, max(bytes - 8, 0));
+        } else {
+            cp_async16_n(dst, src, bytes);
+        }
+    }
+}
+
+// Row r of an int8 slice -> the bf16 plane (its exact values); returns the
+// row's f32 sum of squares.
+__device__ __forceinline__ float convert_row(const unsigned char* slot, unsigned char* plane,
+                                             int r) {
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const int4 raw = *reinterpret_cast<const int4*>(slot + slice_off<kI8>(r, c));
+        const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+        uint4 out[2];
+        uint32_t* o = &out[0].x;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const float v0 = v[2 * k], v1 = v[2 * k + 1];
+            sq = fmaf(v0, v0, fmaf(v1, v1, sq));
+            o[k] = pack_bf16(v0, v1);
+        }
+        *reinterpret_cast<uint4*>(plane + plane_off(r, 2 * c)) = out[0];
+        *reinterpret_cast<uint4*>(plane + plane_off(r, 2 * c + 1)) = out[1];
+    }
+    return sq;
+}
+
+// Rows [0, 16) (zero past P) of an f32 [P, C] matrix (q, or a bag's g) at
+// the channels [ch0, ch0 + 64) (zero past C) as hi + lo A fragments: TF32
+// for m16n8k8 (f32 storage) or bf16 pairs for m16n8k16.
+template <int ST>
+__device__ __forceinline__ void load_frags(const float* __restrict__ q, int P, int C, int ch0,
+                                       int lane, uint32_t (&qh)[qsteps_of(ST)][4],
+                                       uint32_t (&ql)[qsteps_of(ST)][4]) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int ks = 0; ks < qsteps_of(ST); ++ks) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int p = g + 8 * (i & 1);
+            if constexpr (ST == kF32) {
+                const int c = ch0 + 8 * ks + t + 4 * (i >> 1);
+                split_tf32(p < P && c < C ? q[(size_t)p * C + c] : 0.f, qh[ks][i], ql[ks][i]);
+            } else {
+                const int c = ch0 + 16 * ks + 2 * t + 8 * (i >> 1);
+                float v0 = 0.f, v1 = 0.f;
+                if (p < P && c < C) {  // C is a multiple of 8: so is c + 1 < C
+                    v0 = q[(size_t)p * C + c];
+                    v1 = q[(size_t)p * C + c + 1];
+                }
+                qh[ks][i] = pack_bf16(v0, v1);
+                const float2 h = unpack_bf16(qh[ks][i]);
+                ql[ks][i] = pack_bf16(v0 - h.x, v1 - h.y);
+            }
+        }
+    }
+}
+
+// c += the three split-TF32 products of one m16n8k8 step, small ones first.
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                           const uint32_t bh[2], const uint32_t bl[2]) {
+    mma_tf32(c, al, bh);
+    mma_tf32(c, ah, bl);
+    mma_tf32(c, ah, bh);
 }
 
 }  // namespace coattn

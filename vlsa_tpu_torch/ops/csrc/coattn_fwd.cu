@@ -93,29 +93,10 @@ using namespace coattn;
 
 namespace {
 
-constexpr int kWarpCh = 64;                    // channels a warp owns
-constexpr int kMaxWarps = 8;                   // warps a block
-constexpr int kGroupCh = kWarpCh * kMaxWarps;  // 512: channels a block pools
-constexpr int kRows = 16;                      // query rows of an mma tile: P <= 16, zero-padded
-constexpr int kPlaneRow = kWarpCh * 2;         // bytes a row of a warp's bf16 plane
-
-template <int ST> struct Store;
-template <> struct Store<kF32> { using T = float; };
-template <> struct Store<kBF16> { using T = __nv_bfloat16; };
-template <> struct Store<kI8> { using T = int8_t; };
-
-// Patches a tile: 64 for bf16 and int8; 32 for f32, whose slices are twice
-// as large.  The ring's stages, and the bf16 planes a slice is converted to
-// (int8: its exact values; bf16 and f32: none, the products read the ring).
-__host__ __device__ constexpr int tile_of(int storage) { return storage == kF32 ? 32 : 64; }
+// The ring's stages, and the bf16 planes a slice is converted to (int8: its
+// exact values; bf16 and f32: none, the products read the ring).
 __host__ __device__ constexpr int stages_of(int storage) { return storage == kBF16 ? 2 : 3; }
 __host__ __device__ constexpr int planes_of(int storage) { return storage == kI8 ? 1 : 0; }
-// Row stride of the logit partials (floats) and of the bf16 PV weights; the
-// f32 weights take tile + 4 (A fragment rows g at 4g + t: 32 distinct banks).
-__host__ __device__ constexpr int ld_of(int tile) { return tile + 8; }
-// k-steps of q's A fragments over a warp's 64 channels: 8 of m16n8k8 (split
-// TF32, f32 storage) or 4 of m16n8k16 (bf16 hi + lo).
-__host__ __device__ constexpr int qsteps_of(int storage) { return storage == kF32 ? 8 : 4; }
 
 // Shared-memory carve-up of a block of nw warps (byte offsets).
 struct FwdSmem {
@@ -146,111 +127,6 @@ struct FwdArgs {
     float* ws_l;
     float* ws_acc;
 };
-
-// Byte offset of 16-byte chunk c of row r of a slice: the chunk index is
-// XORed with a function of the row, so that 8 rows at one chunk (ldmatrix,
-// the int8 conversion) and 8 chunks of one row (cp.async) hit 8 distinct
-// bank groups.  Rows are 256 (f32), 128 (bf16 and the planes) or 64 (int8)
-// bytes.  f32's XOR, 2 (r % 4) + (r / 4) % 2, also makes the PV's B fragment
-// loads (rows 4h + t, 8 columns g over two chunks) hit 32 distinct banks.
-template <int ST>
-__device__ __forceinline__ uint32_t slice_off(int r, int c) {
-    if constexpr (ST == kF32) return r * 256 + ((c ^ (((r & 3) << 1) | ((r >> 2) & 1))) << 4);
-    else if constexpr (ST == kBF16) return r * 128 + ((c ^ (r & 7)) << 4);
-    else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-__device__ __forceinline__ uint32_t plane_off(int r, int c) { return slice_off<kBF16>(r, c); }
-
-// cp.async of the warp's slice (channels [ch0, ch0 + 64)) of flat tile f
-// into a ring slot; rows past N and channels past C are zero-filled.  Not
-// committed.
-template <int ST>
-__device__ __forceinline__ void issue_tile(const void* x, int N, int C, int Tb, int f,
-                                           unsigned char* slot, int ch0, int lane) {
-    using T = typename Store<ST>::T;
-    constexpr int kItem = sizeof(T);
-    constexpr int kChunks = kWarpCh * kItem / 16;  // a row: f32 16, bf16 8, int8 4
-    constexpr int TT = tile_of(ST);
-    const int b = f / Tb, n0 = (f - b * Tb) * TT;
-    const T* xb = static_cast<const T*>(x) + (size_t)b * N * C;
-    const bool rows8 = kItem == 1 && (C & 15) != 0;  // int8 rows only 8-byte aligned
-#pragma unroll 4
-    for (int i = lane; i < TT * kChunks; i += 32) {
-        const int r = i / kChunks, c = i % kChunks, n = n0 + r;
-        const int ch = ch0 + c * (16 / kItem);
-        const int bytes = n < N ? min(16, max(0, (C - ch) * kItem)) : 0;
-        const T* src = bytes > 0 ? xb + (size_t)n * C + ch : static_cast<const T*>(x);
-        unsigned char* dst = slot + slice_off<ST>(r, c);
-        if (rows8) {
-            cp_async8_n(dst, src, min(bytes, 8));
-            cp_async8_n(dst + 8, bytes > 8 ? src + 8 : src, max(bytes - 8, 0));
-        } else {
-            cp_async16_n(dst, src, bytes);
-        }
-    }
-}
-
-// Row r of an int8 slice -> the bf16 plane (its exact values); returns the
-// row's f32 sum of squares.
-__device__ __forceinline__ float convert_row(const unsigned char* slot, unsigned char* plane,
-                                             int r) {
-    float sq = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        const int4 raw = *reinterpret_cast<const int4*>(slot + slice_off<kI8>(r, c));
-        const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-        uint4 out[2];
-        uint32_t* o = &out[0].x;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            const float v0 = v[2 * k], v1 = v[2 * k + 1];
-            sq = fmaf(v0, v0, fmaf(v1, v1, sq));
-            o[k] = pack_bf16(v0, v1);
-        }
-        *reinterpret_cast<uint4*>(plane + plane_off(r, 2 * c)) = out[0];
-        *reinterpret_cast<uint4*>(plane + plane_off(r, 2 * c + 1)) = out[1];
-    }
-    return sq;
-}
-
-// q's rows [0, 16) (zero past P) at the channels [ch0, ch0 + 64) (zero past
-// C) as hi + lo A fragments: TF32 for m16n8k8 (f32 storage) or bf16 pairs
-// for m16n8k16.
-template <int ST>
-__device__ __forceinline__ void load_q(const float* __restrict__ q, int P, int C, int ch0,
-                                       int lane, uint32_t (&qh)[qsteps_of(ST)][4],
-                                       uint32_t (&ql)[qsteps_of(ST)][4]) {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int ks = 0; ks < qsteps_of(ST); ++ks) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int p = g + 8 * (i & 1);
-            if constexpr (ST == kF32) {
-                const int c = ch0 + 8 * ks + t + 4 * (i >> 1);
-                split_tf32(p < P && c < C ? q[(size_t)p * C + c] : 0.f, qh[ks][i], ql[ks][i]);
-            } else {
-                const int c = ch0 + 16 * ks + 2 * t + 8 * (i >> 1);
-                float v0 = 0.f, v1 = 0.f;
-                if (p < P && c < C) {  // C is a multiple of 8: so is c + 1 < C
-                    v0 = q[(size_t)p * C + c];
-                    v1 = q[(size_t)p * C + c + 1];
-                }
-                qh[ks][i] = pack_bf16(v0, v1);
-                const float2 h = unpack_bf16(qh[ks][i]);
-                ql[ks][i] = pack_bf16(v0 - h.x, v1 - h.y);
-            }
-        }
-    }
-}
-
-// c += the three split-TF32 products of one m16n8k8 step, small ones first.
-__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4], const uint32_t al[4],
-                                           const uint32_t bh[2], const uint32_t bl[2]) {
-    mma_tf32(c, al, bh);
-    mma_tf32(c, ah, bl);
-    mma_tf32(c, ah, bh);
-}
 
 // The warp's partial logits q . x [16, tile] over its 64 channels of the
 // slice xh (f32 and bf16: the ring slot; int8: its bf16 plane) to red_w
@@ -392,7 +268,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const Fwd
     }
 
     uint32_t qh[qsteps_of(ST)][4], ql[qsteps_of(ST)][4];
-    if constexpr (!WIDE) load_q<ST>(a.q, a.P, a.C, ch0, lane, qh, ql);
+    if constexpr (!WIDE) load_frags<ST>(a.q, a.P, a.C, ch0, lane, qh, ql);
     for (int i = tid; i < 2 * kRows * kLd; i += blockDim.x) w_hi[i] = __float2bfloat16(0.f);
     if (tid < kRows) {
         m_s[tid] = kNegInf;
@@ -444,7 +320,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const Fwd
                 xh = plane;
             }
             if (logits) {
-                if constexpr (WIDE) load_q<ST>(a.q, a.P, C, m * kGroupCh + ch0, lane, qh, ql);
+                if constexpr (WIDE) load_frags<ST>(a.q, a.P, C, m * kGroupCh + ch0, lane, qh, ql);
                 slice_logits<ST, HOST_INV>(xh, qh, ql, red_w, m > 0, lane);
             }
         };
@@ -695,11 +571,6 @@ coattn_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
         for (int s = 0; s < S; ++s) v += ab[(size_t)s * P * C + c] * e_s[s];
         ob[c] = v * inv_l;
     }
-}
-
-__host__ __device__ constexpr int groups_of(int C) { return (C + kGroupCh - 1) / kGroupCh; }
-__host__ __device__ constexpr int warps_of(int C) {
-    return C > kGroupCh ? kMaxWarps : (C + kWarpCh - 1) / kWarpCh;
 }
 
 template <int ST, bool HOST_INV, bool WIDE>
