@@ -33,11 +33,15 @@ non-zero and prints no result:
      N=10240, D=512, hid=256 (10% of patches masked, one empty bag): the
      forward (f32 1e-4, bf16 and int8 1e-3), the weights-only backward and,
      for f32 and bf16, the backward with dX (dW1, db1, dw2: f32 1e-3, bf16
-     and int8 2e-3; dX: f32 1e-3, bf16 1e-2, one bf16 ulp); f32 also at
-     B=5, N=12291, which ends in a partial 64-patch tile and a partial chunk
-     of the launch plan; the kernels' ptxas lines (registers, static shared
+     and int8 2e-3; dX: f32 1e-3, bf16 1e-2, one bf16 ulp); every storage
+     also at B=5, N=12291, which ends in a partial tile (64 patches f32, 128
+     bf16 and int8) and a partial chunk of the launch plans; beside the int8
+     forward's gap it prints the gap to `abmil_fwd_rounded`, the plain model
+     of its W1 split; the kernels' ptxas lines (registers, static shared
      memory, spills) and dynamic shared memory go to the record, and an f32
-     instance or a backward pass of any storage that spills fails the run;
+     instance, a bf16 or int8 forward instance or a backward pass of any
+     storage that spills fails the run, as does a forward instance or a
+     backward pass with a stack frame;
   2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
      the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
      197, 1 and 1025 (CONCH at 512 px, beyond the resident capacity): bf16
@@ -131,7 +135,8 @@ non-zero and prints no result:
      twice, the bf16 dz workspace -- int8: two planes -- written and read
      once);
   4c. flash times: at B=64, H=12, L=785, bf16 resident and bf16 streamed
-     in turns (resident, streamed, streamed, resident) and f32, each beside
+     in turns (resident, streamed, streamed, resident) and f32, and bf16 at
+     L=1025 (the streamed path, which flash_plan takes there), each beside
      the plain version, one scaled_dot_product_attention call (library_ms,
      never called by the port) and the bound (`bound_flash`, exponentials
      counted);
@@ -524,10 +529,21 @@ def hold_abmil(torch, ab, x, xs, mask, w1, b1, w2, g, storage, where):
     torch.cuda.synchronize()
     ref, m_ref, l_ref = ab.abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=xs)
     errs = {"abmil_fwd": hold(f"abmil fwd {storage} {where}", out, ref, TOL_ABMIL[storage])}
-    check(float(out[-1].abs().max()) == 0.0 and float(m[-1]) == float(m_ref[-1]),
-          f"abmil fwd {storage}: the empty bag pooled to {float(out[-1].abs().max())}")
+    check(float(out[-1].abs().max()) == 0.0 and float(m[-1]) == float(m_ref[-1])
+          and float(l[-1]) == float(l_ref[-1]),
+          f"abmil fwd {storage}: the empty bag pooled to {float(out[-1].abs().max())}, "
+          f"m {float(m[-1])}, l {float(l[-1])}")
     hold(f"abmil fwd {storage} {where} l", l, l_ref, TOL_ABMIL[storage])
     del ref, m_ref, l_ref
+    if storage == "int8":  # the gap to the plain model of the kernel's W1 split
+        rnd, m_rnd, l_rnd = ab.abmil_fwd_rounded(x, mask, w1, b1, w2, x_scale=xs)
+        live = mask.any(-1)
+        gap = {"out": rel_err(out, rnd), "m": float((m - m_rnd)[live].abs().max()),
+               "l": rel_err(l, l_rnd)}
+        log(f"  abmil fwd int8 {where}: gap to abmil_fwd_rounded out {gap['out']:.3e}, "
+            f"m {gap['m']:.3e}, l {gap['l']:.3e}")
+        errs["abmil_fwd"]["rounded_gap"] = gap
+        del rnd, m_rnd, l_rnd
     for need_dx in ((False,) if storage == "int8" else (False, True)):
         name = "abmil_bwd_dx" if need_dx else "abmil_bwd"
         got = abmil_bwd_kernel(ab, x, xs, mask, w1, b1, w2, g, out, m, l, need_dx)
@@ -562,21 +578,29 @@ def ptxas_lines(name: str) -> list:
 
 def abmil_ptxas(ab) -> dict:
     """ptxas's lines for csrc/abmil_fwd.cu's and csrc/abmil_bwd.cu's kernels
-    and the f32 kernels' and every backward pass's dynamic shared memory;
-    fails if an f32 instance or a backward pass (abmil_bwd_dz_*,
-    abmil_bwd_dw_*: 2 f32, 3 bf16-operand pass-1 instances, 3 pass-2 ones)
-    spills or a block's shared memory exceeds what the card gives."""
+    and every forward's and backward pass's dynamic shared memory; fails if
+    an f32 instance, a bf16 or int8 forward instance (abmil_fwd_partial<T>,
+    2) or a backward pass (abmil_bwd_dz_*, abmil_bwd_dw_*: 2 f32, 3
+    bf16-operand pass-1 instances, 3 pass-2 ones) spills, if a forward
+    instance or a backward pass keeps a stack frame, or if a block's shared
+    memory exceeds what the card gives."""
     import torch
     report = {name: ptxas_lines(name) for name in ("abmil_fwd", "abmil_bwd")}
     f32 = [r for rs in report.values() for r in rs if "_f32" in r["function"]]
     check(len(f32) == 4, f"ptxas shows {len(f32)} f32 ABMIL kernels, not 4")
+    fwd_q = [r for r in report["abmil_fwd"]
+             if "abmil_fwd_partial" in r["function"] and "_f32" not in r["function"]]
+    check(len(fwd_q) == 2, f"ptxas shows {len(fwd_q)} bf16 and int8 forward instances, not 2")
     passes = [r for r in report["abmil_bwd"] if "abmil_bwd_d" in r["function"]]
     check(len(passes) == 8, f"ptxas shows {len(passes)} ABMIL backward passes, not 8")
-    for r in f32 + passes:
+    for r in f32 + fwd_q + passes:
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"an ABMIL kernel spills: {r}")
+    for r in fwd_q + passes:
+        check(r["stack"] == 0, f"an ABMIL kernel keeps a stack frame: {r}")
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     fwd, bwd = ab._library("abmil_fwd"), ab._library("abmil_bwd")
-    smem = {"fwd": fwd.abmil_fwd_smem_bytes(0), "bwd_pass1": bwd.abmil_bwd_smem_bytes(0, 1),
+    smem = {"fwd": fwd.abmil_fwd_smem_bytes(0), "bf16_fwd": fwd.abmil_fwd_smem_bytes(1),
+            "int8_fwd": fwd.abmil_fwd_smem_bytes(2), "bwd_pass1": bwd.abmil_bwd_smem_bytes(0, 1),
             "bwd_pass2": bwd.abmil_bwd_smem_bytes(0, 2),
             "bf16_bwd_pass1": bwd.abmil_bwd_smem_bytes(1, 1),
             "bf16_bwd_pass2": bwd.abmil_bwd_smem_bytes(1, 2),
@@ -647,16 +671,18 @@ def phase_abmil_kernels(torch, ab):
         torch.cuda.empty_cache()
     B, N = ABMIL_RAGGED["B"], ABMIL_RAGGED["N"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    plans = {"fwd": ab.fwd_plan(torch.float32, B, N, n_sm),
-             "bwd": ab.bwd_plan(torch.float32, B, N, n_sm)}
-    chunks = (plans["fwd"]["chunk"], plans["bwd"]["chunk1"])
-    check(N % ab._TILE[torch.float32] != 0 and all(N % c != 0 and N > c for c in chunks),
-          f"f32 at B={B} N={N}: no partial tile and chunk to hold (plans {plans})")
-    inputs = make_abmil_inputs(torch, **ABMIL_RAGGED, storage="f32")
-    errs["f32_ragged"], _stats = hold_abmil(torch, ab, *inputs, "f32", f"at B={B} N={N}")
-    errs["f32_ragged"]["chunks"] = chunks
-    del inputs, _stats
-    torch.cuda.empty_cache()
+    for s in ABMIL_STORAGES:
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[s]
+        plans = {"fwd": ab.fwd_plan(dtype, B, N, n_sm), "bwd": ab.bwd_plan(dtype, B, N, n_sm)}
+        chunks = (plans["fwd"]["chunk"], plans["bwd"]["chunk1"])
+        check(N % ab._FWD_TILE[dtype] != 0 and N % ab._TILE[dtype] != 0
+              and all(N % c != 0 and N > c for c in chunks),
+              f"{s} at B={B} N={N}: no partial tile and chunk to hold (plans {plans})")
+        inputs = make_abmil_inputs(torch, **ABMIL_RAGGED, storage=s)
+        errs[f"{s}_ragged"], _stats = hold_abmil(torch, ab, *inputs, s, f"at B={B} N={N}")
+        errs[f"{s}_ragged"]["chunks"] = chunks
+        del inputs, _stats
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -2014,6 +2040,25 @@ def phase_flash_times(torch, fa):
                 f"{t['ms'] / t['library_ms']:.2f}x")
         del q, k, vv
         torch.cuda.empty_cache()
+    # bf16 at L=1025 (CONCH at 512 px), above the resident capacity: the
+    # streamed path, the one flash_plan takes there
+    shape = dict(FLASH_SHAPE, L=FLASH_LENGTHS[-1])
+    check(fa.flash_plan(shape["L"])[0] == "streamed", f"flash_plan({shape['L']}) is not streamed")
+    q, k, vv = make_qkv(torch, **shape, variant="bf16", seed=1)
+    err = hold(f"flash bf16 at L={shape['L']}", fa.flash_attn_fwd(q, k, vv),
+               fa.flash_self_attention_reference(q, k, vv), TOL_FLASH["bf16"])
+    b_ms, b_by = bound_flash(**shape, variant="bf16")
+    times["bf16_L1025"] = t = dict(
+        shape, path="streamed", err=err, bound_ms=b_ms, bound_by=b_by,
+        ms=median_ms(torch, lambda: fa.flash_attn_fwd(q, k, vv)),
+        plain_ms=median_ms(torch, lambda: fa.flash_self_attention_reference(q, k, vv)),
+        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, vv)))
+    log(f"time flash_attn_fwd[bf16] B=64 H=12 L={shape['L']} (streamed) kernel {t['ms']:.4f} ms"
+        f"  plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
+        f"({b_by})  kernel/bound {t['ms'] / b_ms:.1f}x  kernel/library "
+        f"{t['ms'] / t['library_ms']:.2f}x")
+    del q, k, vv
+    torch.cuda.empty_cache()
     return times
 
 

@@ -10,7 +10,9 @@ numpy inputs go to both packages.  Tolerances (max|a-b| / max|b|):
     written value (2^-8) where the f32 sums round to neighbouring bf16s;
   - int8: 1e-3 forward, 2e-3 weight gradients, as tests/test_int8.py holds
     the JAX kernels against f32: the JAX kernel splits W1 and s*dz into two
-    int8 parts (~15 bits), the port's plain version is f32.
+    int8 parts (~15 bits), the port's plain version is f32.  The plain model
+    of the int8 forward kernel's rounding (`abmil_fwd_rounded`, W1 split as
+    the JAX kernel splits it) is held tighter: see its test.
 """
 import jax
 import jax.numpy as jnp
@@ -112,6 +114,56 @@ def test_int8_matches_pallas(interpret):
         assert _rel(got, want) <= 2e-3, name
 
 
+def test_int8_split_matches_the_jax_split():
+    """The port's int8 split of W1 (the int8 forward kernel's prep_w1_i8
+    mirrors it) equals vlsa_tpu's _mm_rows_i8 bit for bit: hi, lo and s_w,
+    for W1 of several scales, a W1 with exact ties (v - hi = 0.5 after the
+    scale) and an all-zero W1."""
+    from vlsa_tpu.ops.coattn import _mm_rows_i8
+    rng = np.random.default_rng(7)
+    mats = [(rng.normal(size=(HID, D)) * scale).astype(np.float32)
+            for scale in (1e-3, 0.05, 1.0, 40.0)]
+    ties = np.full((HID, D), 0.5, np.float32)
+    ties[0, 0] = 127.0  # s_w = 1: every other entry sits on a tie
+    mats += [ties, np.zeros((HID, D), np.float32)]
+    for w in mats:
+        stacked, (s_j,) = _mm_rows_i8(jnp.asarray(w))
+        stacked = np.asarray(stacked)
+        hi, lo, s = pab.split_w1_i8(_t(w))
+        assert hi.dtype == lo.dtype == torch.int8 and s.dtype == torch.float32
+        assert np.array_equal(hi.numpy(), stacked[:HID])
+        assert np.array_equal(lo.numpy(), stacked[HID:])
+        assert np.asarray(s_j, np.float32).tobytes() == s.numpy().tobytes()
+
+
+def test_int8_rounded_model_matches_pallas(interpret):
+    """`abmil_fwd_rounded`, the plain model of the int8 forward kernel's
+    rounding, against vlsa_tpu's _abmil_q8_pallas in interpret mode: both
+    split W1 into int8 hi + lo alike, so the stats (m, l) agree within 2e-6
+    (relative for l, absolute for m), where the unsplit f32 plain version
+    misses them by 1e-5 or more; out within 2e-4, since the JAX kernel also
+    splits its PV weights p*s into int8 hi + lo (~2^-15 of the largest
+    weight) and the model, like the port's kernel, keeps them in f32."""
+    for seed in (1, 4):
+        x, mask, w1, b1, w2, _g = _inputs(seed=seed)
+        q, s = _quantize(x)
+        out_j, stats = ab._abmil_q8_pallas(jnp.asarray(q), jnp.asarray(s), jnp.asarray(mask),
+                                           jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2))
+        m_j, l_j = np.asarray(stats[:2, 0, 0]), np.asarray(stats[:2, 0, 1])
+        args = (_t(q), _t(mask), _t(w1), _t(b1), _t(w2))
+        out, m, l = pab.abmil_fwd_rounded(*args, x_scale=_t(s))
+        assert _rel(out, out_j) <= 2e-4
+        assert np.abs(m.numpy()[:2] - m_j).max() <= 2e-6
+        assert np.abs(l.numpy()[:2] / l_j - 1).max() <= 2e-6
+        assert torch.all(out[2] == 0)
+        assert m[2] == torch.tensor(-1e30) and l[2] == torch.tensor(1e-30)
+        _o, m_f, l_f = pab.abmil_fwd_reference(*args, x_scale=_t(s))
+        gap_f = max(np.abs(m_f.numpy()[:2] - m_j).max(), np.abs(l_f.numpy()[:2] / l_j - 1).max())
+        assert gap_f > 1e-5
+    assert pab.abmil_fwd_rounded(_t(x).to(torch.bfloat16), *args[1:])[0].equal(
+        pab.abmil_fwd_reference(_t(x).to(torch.bfloat16), *args[1:])[0])
+
+
 def test_pool_reference_matches_jax():
     """The plain module path (b2 added, raw logits returned) against
     vlsa_tpu's abmil_pool_reference in f32."""
@@ -164,8 +216,8 @@ def test_cuda_route_needs_a_card():
 
 def test_f32_plan_mirrors_the_kernel_source():
     """ops/abmil.py's tile and weight-gradient tiling are the kernel
-    source's: Tile<float>::M, the widths, and pass 2's dW1 tiles and rows a
-    stage (f32; bf16 and int8)."""
+    source's: kMF (the f32 tile, and every storage's backward pass 1), the
+    widths, and pass 2's dW1 tiles and rows a stage (f32; bf16 and int8)."""
     import re
     from pathlib import Path
     csrc = Path(pab.__file__).parent / "csrc"
@@ -175,33 +227,61 @@ def test_f32_plan_mirrors_the_kernel_source():
     def const(src, name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    m = re.search(r"template <> struct Tile<float> \{ static constexpr int M = (\d+); \};", common)
-    assert int(m.group(1)) == pab._TILE[torch.float32]
+    assert const(common, "kMF") == pab._TILE[torch.float32] == pab._FWD_TILE[torch.float32]
     assert const(common, "kD") == pab.D_KERNEL and const(common, "kHid") == pab.HID_KERNEL
     tiles = (pab.HID_KERNEL // const(bwd, "kDwM")) * (pab.D_KERNEL // const(bwd, "kDwN"))
     assert tiles == pab._DW_TILES and const(bwd, "kRowsDw") == pab._DW_ROWS[torch.float32]
     assert const(bwd, "kRowsDwB") == pab._DW_ROWS[torch.bfloat16] == pab._DW_ROWS[torch.int8]
 
 
+def test_fwd_tiles_mirror_the_kernel_source():
+    """The forward's tiles and W1 workspace in ops/abmil.py are the kernel
+    source's: the bf16 and int8 tile kMQ, 64 rows for each of the block's
+    warpgroups (kThreads / 128), the tile of every backward's pass 1 kMF,
+    and the int8 scale workspace's partial maxima kAmaxBlocks."""
+    import re
+    from pathlib import Path
+    csrc = Path(pab.__file__).parent / "csrc"
+    common = (csrc / "abmil_common.cuh").read_text()
+    fwd = (csrc / "abmil_fwd.cu").read_text()
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const(fwd, "kMQ") == pab._FWD_TILE[torch.bfloat16] == pab._FWD_TILE[torch.int8]
+    assert 64 * (const(common, "kThreads") // 128) == const(fwd, "kMQ")
+    assert all(pab._TILE[d] == const(common, "kMF") for d in pab._TILE)
+    assert const(fwd, "kAmaxBlocks") == pab._AMAX_BLOCKS
+    assert pab.fwd_plan(torch.int8, 1, 1, 132)["w1_scale"] == (1 + const(fwd, "kAmaxBlocks"),)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("n_sm", [132, 7])
 def test_plans_cover_every_n(dtype, n_sm):
-    """For a sweep of B and N: every chunk is a multiple of the tile and the
-    chunks cover N exactly (the last one non-empty); the weight-gradient
-    chunks cover the B*N patch rows; the workspaces have the shapes and types
-    the kernels index (bf16's dz in bf16, int8's s dz as bf16 hi and lo)."""
-    tile = pab._TILE[dtype]
+    """For a sweep of B and N: every chunk is a multiple of its kernel's tile
+    (the forward's _FWD_TILE, the backward's pass-1 _TILE) and the chunks
+    cover N exactly (the last one non-empty); the weight-gradient chunks
+    cover the B*N patch rows; the workspaces have the shapes and types the
+    kernels index (the forward's W1 in bf16, or int8 hi and lo with s_w and
+    the partial maxima; the backward's W1 as bf16 hi and lo, bf16's dz in
+    bf16, int8's s dz as bf16 hi and lo)."""
+    tile, tile_f = pab._TILE[dtype], pab._FWD_TILE[dtype]
     for B in (1, 3, 8, 32):
-        for N in (1, 5, 63, 64, 65, 127, 1000, 4097, 12291, 16384):
+        for N in (1, 5, 63, 64, 65, 127, 128, 129, 1000, 4097, 12291, 16384):
             f = pab.fwd_plan(dtype, B, N, n_sm)
-            assert f["chunk"] % tile == 0 and (f["S"] - 1) * f["chunk"] < N <= f["S"] * f["chunk"]
+            assert f["chunk"] % tile_f == 0
+            assert (f["S"] - 1) * f["chunk"] < N <= f["S"] * f["chunk"]
             assert f["ws_m"] == f["ws_l"] == (B, f["S"]) and f["ws_acc"] == (B, f["S"], 512)
             b = pab.bwd_plan(dtype, B, N, n_sm)
             assert b["chunk1"] % tile == 0 and (b["S1"] - 1) * b["chunk1"] < N <= b["S1"] * b["chunk1"]
             if dtype == torch.float32:
-                assert f["w1_bf16"] is None and b["w1_bf16"] is None
+                assert f["w1_ws"] is None and f["w1_scale"] is None and b["w1_bf16"] is None
             else:
-                assert f["w1_bf16"] == b["w1_bf16"] == (2, 256, 512)
+                assert b["w1_bf16"] == (2, 256, 512)
+            if dtype == torch.bfloat16:
+                assert f["w1_ws"] == (256, 512) and f["w1_scale"] is None
+            if dtype == torch.int8:
+                assert f["w1_ws"] == (2, 256, 512) and f["w1_scale"] == (65,)
             K = B * N
             assert b["chunk2"] % pab._DW_ROWS[dtype] == 0
             assert (b["S2"] - 1) * b["chunk2"] < K <= b["S2"] * b["chunk2"]
@@ -226,6 +306,23 @@ def test_f32_plan_fills_the_waves(B, N):
     assert pab.bwd_plan(torch.float32, B, N, n_sm)["chunk1"] == f["chunk"]
 
 
+@pytest.mark.parametrize("B, N", [(8, 10240), (32, 16384), (32, 65536), (32, 131072), (1, 5),
+                                  (5, 12291)])
+def test_bf16_int8_fwd_plan_fills_the_waves(B, N):
+    """The bf16 and int8 forward blocks run one per SM, as f32's do, over
+    tiles of 128 patches: the waves of chunk/tile tiles end within one chunk
+    of the even share of the tiles, and a wave holds at most n_sm blocks
+    when one wave does the work."""
+    for dtype in (torch.bfloat16, torch.int8):
+        n_sm, tile = 132, pab._FWD_TILE[dtype]
+        f = pab.fwd_plan(dtype, B, N, n_sm)
+        tiles = -(-N // tile)
+        waves = -(-B * f["S"] // n_sm)
+        assert waves * (f["chunk"] // tile) <= -(-B * tiles // n_sm) + f["chunk"] // tile
+        if B * tiles <= n_sm:
+            assert f["chunk"] == tile and waves == 1
+
+
 @pytest.mark.parametrize("B, N", [(8, 10240), (32, 16384), (32, 65536), (32, 131072), (1, 5)])
 def test_bf16_bwd_plan_fills_the_waves(B, N):
     """bf16's and int8's pass 1 runs one block per SM as f32's does: its
@@ -242,13 +339,17 @@ def test_bf16_bwd_plan_fills_the_waves(B, N):
         assert b["chunk2"] < -(-B * N // b["S2"]) + pab._DW_ROWS[dtype]
 
 
-@pytest.mark.parametrize("name", ["cvt", "one_chain", "chains", "volatile"])
+@pytest.mark.parametrize("name", ["cvt", "one_chain", "chains", "volatile", "fast_tanh",
+                                  "sync_wgmma", "no_tanh", "no_wgmma", "no_pv", "no_w1", "no_x",
+                                  "no_sync"])
 def test_variants_edit_the_kernel_source(name):
-    """Each design alternative of ops/abmil_variants.py is an edit that
-    applies once to the kernel source as it stands."""
+    """Each design alternative of ops/abmil_variants.py (f32; the bf16 and
+    int8 forward's) is an edit that applies once to the kernel source as it
+    stands."""
     from pathlib import Path
     from vlsa_tpu_torch.ops import abmil_variants as av
     csrc = Path(pab.__file__).parent / "csrc"
-    assert av.VARIANTS[name]
-    for file, old, new in av.VARIANTS[name]:
+    edits = av.VARIANTS.get(name) or av.FWD_VARIANTS[name]
+    assert edits
+    for file, old, new in edits:
         assert (csrc / file).read_text().count(old) == 1 and old != new

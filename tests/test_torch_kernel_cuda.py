@@ -167,12 +167,13 @@ TOL_ABMIL_DX = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("shape", [(3, 1000), (2, 33), (1, 5), (3, 63), (3, 64), (3, 65),
-                                   (3, 3 * 4097)])
+                                   (3, 127), (3, 128), (3, 129), (3, 3 * 4097)])
 def test_abmil_kernels_match_plain(device, dtype, shape):
     """Forward and backward (weights only, and with dX for f32/bf16) at a
     ragged N that is no multiple of the tile, at N = tile - 1, tile, tile + 1
-    and at an N of several chunks with a ragged last one, with an empty bag
-    and a bag of one valid patch."""
+    (64: the f32 forward's and every backward's pass 1; 128: the bf16 and
+    int8 forward's) and at an N of several chunks with a ragged last one,
+    with an empty bag and a bag of one valid patch."""
     x, xs, mask, w1, b1, w2, g = _abmil_inputs(*shape, dtype, device)
     v = ab._STORAGE_NAME[dtype]
     before = ab.LAUNCHES[v]
@@ -205,6 +206,31 @@ def test_abmil_kernels_match_plain(device, dtype, shape):
             assert torch.all(dx[-1] == 0)
         else:
             assert dx is None
+
+
+@pytest.mark.parametrize("shape", [(3, 129), (3, 3 * 4097), (8, 10240)])
+def test_abmil_int8_fwd_matches_its_rounding_model(device, shape):
+    """The int8 forward kernel against `abmil_fwd_rounded`, the plain model of
+    its W1 split (int8 hi + lo, exact int32 products): out within 2e-5
+    (max|a-b| / max|b|), m within 2e-5 absolutely and l within 2e-5
+    relatively -- what is left is f32 summation order and the rounding of
+    s_w (254 P_hi + P_lo) / 254 -- where the unsplit f32 plain version is
+    held at 1e-3.  The plan's chunks at
+    (3, 12291) and (8, 10240) span several tiles, the first ragged."""
+    B, N = shape
+    plan = ab.fwd_plan(torch.int8, B, N, torch.cuda.get_device_properties(device)
+                       .multi_processor_count)
+    assert N % ab._FWD_TILE[torch.int8] != 0 or plan["chunk"] > ab._FWD_TILE[torch.int8]
+    x, xs, mask, w1, b1, w2, _g = _abmil_inputs(B, N, torch.int8, device, seed=7)
+    out, m, l = ab.abmil_q8_fwd(x, xs, mask, w1, b1, w2)
+    torch.cuda.synchronize()
+    ref, m_ref, l_ref = ab.abmil_fwd_rounded(x, mask, w1, b1, w2, x_scale=xs)
+    assert _rel(out, ref) <= 2e-5
+    live = mask.any(-1)
+    assert float((m - m_ref)[live].abs().max()) <= 2e-5
+    torch.testing.assert_close(l, l_ref, rtol=2e-5, atol=0)
+    empty = torch.tensor([-1e30, 1e-30], device=device)  # the f32 stats of an empty bag
+    assert torch.all(out[-1] == 0) and m[-1] == empty[0] and l[-1] == empty[1]
 
 
 def test_abmil_f32_masked_rows_add_nothing(device):

@@ -17,9 +17,12 @@ Storage types of x: f32, bf16, or int8 with per-patch dequant scales
 higher precision: bf16 storage multiplies x by W1 rounded to bf16 and, in
 the backward, rounds dz (and W1) to bf16 for dX and dW1; int8 computes
 s[n] * (x_i . W1^T) in f32 on the raw int8 values; f32 is true f32 (TF32 off,
-`utils.device.disable_tf32`).  The f32 kernels form their products (x . W1^T,
-dz . W1, dz^T x) as split TF32 on the tensor cores: each f32 operand is a TF32
-hi plus a TF32 lo, and a product is lo.hi + hi.lo + hi.hi in f32, ~2^-21
+`utils.device.disable_tf32`).  The int8 forward kernel multiplies the raw
+int8 values by W1 split into two int8 parts, as the TPU kernel does
+(`split_w1_i8`, ~15 bits); `abmil_fwd_rounded` is the plain model of that
+split, `abmil_fwd_reference` the plain version both are held against.  The
+f32 kernels form their products (x . W1^T, dz . W1, dz^T x) as split TF32 on
+the tensor cores: each f32 operand is a TF32 hi plus a TF32 lo, and a product is lo.hi + hi.lo + hi.hi in f32, ~2^-21
 relative against true f32's 2^-24 (as the TPU kernels' own f32 is the MXU's
 multi-pass bf16), held against the true-f32 plain versions on the card.
 """
@@ -34,8 +37,15 @@ import torch
 from .coattn import _device_index, _ptr
 
 D_KERNEL, HID_KERNEL = 512, 256  # the widths the kernels are built for
-# patches per kernel tile (Tile<T>::M in csrc/abmil_common.cuh)
+# patches a tile of the backward's pass 1, every storage, and of the f32
+# forward (kMF in csrc/abmil_common.cuh)
 _TILE = {torch.float32: 64, torch.bfloat16: 64, torch.int8: 64}
+# patches a tile of the forward (kMF; the bf16 and int8 kernel's kMQ in
+# csrc/abmil_fwd.cu)
+_FWD_TILE = {torch.float32: 64, torch.bfloat16: 128, torch.int8: 128}
+# the int8 forward's W1 scale workspace: s_w and the partial maxima of |W1|
+# (kAmaxBlocks in csrc/abmil_fwd.cu)
+_AMAX_BLOCKS = 64
 # the backward's weight-gradient pass (csrc/abmil_bwd.cu): kDwTiles blocks of
 # a [128, 128] tile of dW1 on each chunk of the B*N patch rows, chunks a
 # multiple of the rows a stage holds (f32 kRowsDw, bf16 and int8 kRowsDwB)
@@ -83,6 +93,16 @@ def _logits(x, mask, w1, b1, w2, x_scale):
     return h, torch.where(mask, h @ w2, -1e30)
 
 
+def _pool(x, mask, h_pre, b1, w2, x_scale):
+    """(out, m, l) of the forward from the bottleneck's h_pre [B, N, hid]."""
+    logits = torch.where(mask, torch.tanh(h_pre + b1) @ w2, -1e30)
+    m = logits.amax(-1).detach()
+    p = torch.where(mask, torch.exp(logits - m[:, None]), 0.0)
+    l = torch.clamp(p.sum(-1), min=1e-30)
+    w = p if x_scale is None else p * x_scale
+    return torch.einsum("bn,bnd->bd", w, x.float()) / l[:, None], m, l
+
+
 def abmil_fwd_reference(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
                         b1: torch.Tensor, w2: torch.Tensor,
                         x_scale: Optional[torch.Tensor] = None
@@ -92,12 +112,40 @@ def abmil_fwd_reference(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
     kernels' stats: m the masked max logit (-1e30 for an empty bag), l the
     softmax normaliser clamped below at 1e-30.  Differentiable in x, w1, b1
     and w2 (the max is a constant shift)."""
-    _h, logits = _logits(x, mask, w1, b1, w2, x_scale)
-    m = logits.amax(-1).detach()
-    p = torch.where(mask, torch.exp(logits - m[:, None]), 0.0)
-    l = torch.clamp(p.sum(-1), min=1e-30)
-    w = p if x_scale is None else p * x_scale
-    return torch.einsum("bn,bnd->bd", w, x.float()) / l[:, None], m, l
+    return _pool(x, mask, _h_pre(x, w1, x_scale), b1, w2, x_scale)
+
+
+def split_w1_i8(w1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """W1 [hid, D] f32 split as the int8 forward kernel (csrc/abmil_fwd.cu::
+    prep_w1_i8) and the TPU kernel (vlsa_tpu/ops/coattn.py::_mm_rows_i8)
+    split it: s_w = max(max|W1|, 1e-30) / 127, v = W1 * (1 / s_w), hi =
+    round(v), lo = round(254 (v - hi)), ties to even, in f32 ->
+    (hi, lo int8 [hid, D], s_w f32 []).  W1 ~ s_w (hi + lo / 254)."""
+    w = w1.detach().float()
+    s = torch.clamp(w.abs().max(), min=1e-30) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    v = w * (1.0 / s)
+    hi = torch.round(v)
+    lo = torch.round((v - hi) * 254.0)
+    return hi.to(torch.int8), lo.to(torch.int8), s
+
+
+def abmil_fwd_rounded(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor,
+                      x_scale: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain model of the int8 forward kernel's rounding: `abmil_fwd_reference`
+    with x_i . W1^T taken against W1 split by `split_w1_i8`, h_unit = s_w
+    (P_hi + P_lo / 254) from the exact integer products; the PV sum keeps f32
+    weights.  Other storage types: `abmil_fwd_reference` (the bf16 kernel
+    rounds as it does).  No gradient."""
+    if x.dtype != torch.int8:
+        return abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=x_scale)
+    with torch.no_grad():
+        hi, lo, s = split_w1_i8(w1)
+        xd = x.double()
+        p_hi, p_lo = (xd @ part.double().T for part in (hi, lo))  # exact: |P| < 2^24
+        h_unit = s * (p_hi.float() + p_lo.float() * (1.0 / 254.0))
+        return _pool(x, mask, h_unit * x_scale[..., None], b1, w2, x_scale)
 
 
 def abmil_bwd_reference(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
@@ -152,9 +200,9 @@ def abmil_pool_reference(x: torch.Tensor, mask: Optional[torch.Tensor], w1: torc
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the argument types of each library's entry point `<name>` (csrc/<name>.cu)
 _ARGTYPES = {
-    # x, x_scale, mask, w1, b1, w2; B, N, chunk, S, storage, device; w1_bf16,
-    # ws_m, ws_l, ws_acc, out, m, l, stream
-    "abmil_fwd": [_P] * 6 + [_I] * 6 + [_P] * 8,
+    # x, x_scale, mask, w1, b1, w2; B, N, chunk, S, storage, device; w1_ws,
+    # w1_scale, ws_m, ws_l, ws_acc, out, m, l, stream
+    "abmil_fwd": [_P] * 6 + [_I] * 6 + [_P] * 9,
     # x, x_scale, mask, w1, b1, w2, g, out, m, l; B, N, chunk1, S1, chunk2,
     # S2, storage, with_dx, device; w1_bf16, ds, ws_dw1, ws_db1, ws_dw2, dx,
     # dw1, db1, dw2, stream
@@ -174,16 +222,6 @@ def _library(name: str):
     return lib
 
 
-def _split(B: int, N: int, tile: int, target_blocks: int) -> Tuple[int, int]:
-    """(chunk, S): each bag's patches are cut into S chunks of `chunk`
-    patches (a multiple of the tile), one block each, so that about
-    `target_blocks` blocks run even when B is small."""
-    tiles = max(1, -(-N // tile))
-    S = max(1, min(tiles, -(-target_blocks // B)))
-    chunk = -(-tiles // S) * tile
-    return chunk, max(1, -(-N // chunk))
-
-
 # a block's fixed cost in tiles of work: its first slices' latency, the
 # partial it writes and the merge (forward) or reduce (backward) that reads it
 _BLOCK_COST_TILES = 0.25
@@ -191,9 +229,10 @@ _BLOCK_COST_TILES = 0.25
 
 @functools.lru_cache(maxsize=256)
 def _split_waves(B: int, N: int, tile: int, n_sm: int) -> Tuple[int, int]:
-    """(chunk, S) for kernels whose block fills an SM (the f32 forward's x
-    tile and W1 stages take ~209 KB of shared memory; the backward's pass 1
-    runs one block an SM for every storage): the chunk (a multiple of the tile)
+    """(chunk, S): each bag's patches cut into S chunks of `chunk` patches
+    (a multiple of the tile), one block each, for kernels whose block fills
+    an SM (the forward's x tile and W1 stages take 197-209 KB of shared
+    memory; the backward's pass 1 runs one block an SM): the chunk
     that ends soonest, ceil(B*S / n_sm) waves of chunk/tile tiles and a
     block's fixed cost each, and the fewest blocks among equals."""
     tiles = max(1, -(-N // tile))
@@ -219,14 +258,16 @@ def _split_rows(K: int, n_sm: int, rows: int) -> Tuple[int, int]:
 def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int) -> dict:
     """The forward's launch plan for x of `dtype` [B, N, 512] on a card of
     n_sm SMs: the chunk of patches a block takes, the blocks S a bag, and
-    the workspace shapes the wrapper allocates."""
-    if dtype == torch.float32:
-        chunk, S = _split_waves(B, N, _TILE[dtype], n_sm)
-    else:
-        chunk, S = _split(B, N, _TILE[dtype], 2 * n_sm)
+    the workspace shapes the wrapper allocates: W1 for the kernel ("w1_ws",
+    in x's type: bf16 [256, 512] for bf16, hi and lo [2, 256, 512] for int8,
+    none for f32) and, for int8, "w1_scale" f32 (s_w and the partial maxima
+    of |W1|)."""
+    chunk, S = _split_waves(B, N, _FWD_TILE[dtype], n_sm)
+    w1_ws = {torch.float32: None, torch.bfloat16: (HID_KERNEL, D_KERNEL),
+             torch.int8: (2, HID_KERNEL, D_KERNEL)}[dtype]
     return {"chunk": chunk, "S": S, "ws_m": (B, S), "ws_l": (B, S),
-            "ws_acc": (B, S, D_KERNEL),
-            "w1_bf16": None if dtype == torch.float32 else (2, HID_KERNEL, D_KERNEL)}
+            "ws_acc": (B, S, D_KERNEL), "w1_ws": w1_ws,
+            "w1_scale": (1 + _AMAX_BLOCKS,) if dtype == torch.int8 else None}
 
 
 def bwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int) -> dict:
@@ -293,7 +334,7 @@ def _n_sm(device) -> int:
 
 
 def _w1_bf16(shape, device):
-    """The kernels' bf16 copy of W1 (hi and, for int8, lo), or None for f32."""
+    """The backward's bf16 copy of W1 (hi and, for int8, lo), or None for f32."""
     return None if shape is None else torch.empty(shape, dtype=torch.bfloat16, device=device)
 
 
@@ -309,11 +350,13 @@ def _fwd(x, x_scale, mask, w1, b1, w2, kernel):
     out, m, l = torch.empty(B, D_KERNEL, **f32), torch.empty(B, **f32), torch.empty(B, **f32)
     ws_m, ws_l = torch.empty(plan["ws_m"], **f32), torch.empty(plan["ws_l"], **f32)
     ws_acc = torch.empty(plan["ws_acc"], **f32)
-    w1b = _w1_bf16(plan["w1_bf16"], device)
+    w1_ws = None if plan["w1_ws"] is None else torch.empty(plan["w1_ws"], dtype=x.dtype,
+                                                           device=device)
+    w1_scale = None if plan["w1_scale"] is None else torch.empty(plan["w1_scale"], **f32)
     err = lib.abmil_fwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
-                        B, N, chunk, S, storage, _device_index(device), _ptr(w1b),
-                        _ptr(ws_m), _ptr(ws_l), _ptr(ws_acc), _ptr(out), _ptr(m), _ptr(l),
-                        torch.cuda.current_stream(device).cuda_stream)
+                        B, N, chunk, S, storage, _device_index(device), _ptr(w1_ws),
+                        _ptr(w1_scale), _ptr(ws_m), _ptr(ws_l), _ptr(ws_acc), _ptr(out),
+                        _ptr(m), _ptr(l), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     LAUNCHES[_STORAGE_NAME[x.dtype]] += 1

@@ -1,9 +1,11 @@
-"""The f32 ABMIL kernels against the design alternatives they were chosen over.
+"""The ABMIL kernels against the design alternatives they were chosen over.
 
     python -m vlsa_tpu_torch.ops.abmil_variants [--B 8 --N 10240] [--variants base,cvt]
+    python -m vlsa_tpu_torch.ops.abmil_variants --storage bf16 [--variants base,fast_tanh]
 
 Builds `csrc/abmil_fwd.cu` and `csrc/abmil_bwd.cu` as they are ("base") and,
-as text edits of those sources, one alternative each:
+as text edits of those sources, one alternative each.  f32 (the forward and
+both backwards):
 
   - cvt: the TF32 split by `cvt.rna.tf32.f32` for hi and for lo (the kernels
     round hi with an integer add and mask, and pass lo's f32 bits, which the
@@ -14,13 +16,24 @@ as text edits of those sources, one alternative each:
     where the kernels run three waves of the warp's 16 tiles;
   - volatile: the mma.sync statements `asm volatile`.
 
+bf16 and int8 (`--storage`; the forward, abmil_fwd_partial<T>):
+
+  - fast_tanh: tanh as 1 - 2 / (e^2x + 1) with the fast exponential and
+    division, where the kernel takes the library's tanhf;
+  - sync_wgmma: int8 waits for each slice's products (2 stages), where the
+    kernel keeps one slice of them in flight (3 stages);
+  - and some that compute something else, to split the time by part:
+    no_tanh (h = h_pre), no_wgmma (no tensor-core product: h = 0), no_pv
+    (no PV sum: out = 0), no_w1 and no_x (W1's or x's k-blocks not
+    copied), no_sync (no barrier a slice: a race).
+
 For each, in one process on the same inputs (B bags of N patches, D=512,
-hid=256, 10% of patches masked, the last bag empty): the f32 forward, the
-backward and the backward with dX against the plain versions (max|a-b| /
-max|b|, the worst over each call's outputs), ptxas's registers and spills
-of the f32 kernels, and each call's time (CUDA events, median of 25, the L2
-flushed before each), the variants timed in turns (a, b, ..., b, a).  One
-JSON line per variant.  Needs a CUDA card and nvcc.
+hid=256, 10% of patches masked, the last bag empty): each kernel against
+its plain version (max|a-b| / max|b|, the worst over each call's outputs),
+ptxas's registers and spills of the kernels that differ, and each call's
+time (CUDA events, median of 25, the L2 flushed before each), the variants
+timed in turns (a, b, ..., b, a).  One JSON line per variant.  Needs a CUDA
+card and nvcc.
 """
 from __future__ import annotations
 
@@ -69,6 +82,14 @@ _CHAINS = ("#pragma unroll\n"
            "            mma_tf32(acc[mt][nt], ah[mt], bl[nt]);\n"
            "            mma_tf32(acc[mt][nt], ah[mt], bh[nt]);\n"
            "        }")
+_FWD = "abmil_fwd.cu"
+_TANH = "    return tanhf(v);"
+_PV = "            for (int r = 0; r < kMQ; ++r) {\n                const float p = p_s[r];"
+_WGMMA = "                wgmma_op(acc, desc_sw128(xa + 32 * ks), desc_sw128(wb + 32 * ks));\n"
+_W1_COPY = "        cp_async16(st + sw128(j, c), src + (size_t)j * kRow + kb * kKB + 16 * c, true);\n"
+_SYNC = "            __syncthreads();\n            const int q = s + L::LEAD;"
+_X_COPY = ("        cp_async16(dst + sw128(r, c), ok ? src + (size_t)(t0 + r) * kRow + kb * kKB + 16 * c : src,\n"
+           "                   ok);\n")
 # name -> [(file in csrc/, text, its replacement)]; each text must occur once
 VARIANTS = {
     "base": [],
@@ -77,31 +98,45 @@ VARIANTS = {
     "chains": [(_COMMON, _WAVES, _CHAINS)],
     "volatile": [(_TF32, 'asm("mma.sync', 'asm volatile("mma.sync')],
 }
+# the bf16 and int8 forward's alternatives
+FWD_VARIANTS = {
+    "base": [],
+    "fast_tanh": [(_FWD, _TANH, "    return 1.f - __fdividef(2.f, __expf(2.f * v) + 1.f);")],
+    "sync_wgmma": [(_FWD, "static constexpr int DEPTH = I8 ? 1 : 0;",
+                    "static constexpr int DEPTH = 0;")],
+    "no_tanh": [(_FWD, _TANH, "    return v;")],
+    "no_wgmma": [(_FWD, _WGMMA, "                (void)ks;\n")],
+    "no_pv": [(_FWD, _PV, _PV.replace("r < kMQ", "r < 0"))],
+    "no_w1": [(_FWD, _W1_COPY, "        (void)src;\n")],
+    "no_x": [(_FWD, _X_COPY, "        (void)ok;\n")],
+    "no_sync": [(_FWD, _SYNC, "            const int q = s + L::LEAD;")],
+}
 LIBS = ("abmil_fwd", "abmil_bwd")
 
 
-def build_variant(name: str):
-    """The variant's csrc/ copy under build/variants/<name>/, compiled:
-    ({library: ctypes.CDLL}, [ptxas lines of its f32 kernels])."""
+def build_variant(name: str, table: dict = VARIANTS, libs_built=LIBS, key: str = "_f32"):
+    """The variant of `table` in a csrc/ copy under build/variants/<name>/,
+    compiled: ({library: ctypes.CDLL}, [ptxas lines of its kernels whose
+    names hold `key`])."""
     from . import _build
     from .abmil import _ARGTYPES, _SMEM_ARGTYPES
     src = _build.BUILD_DIR / "variants" / name
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, src)
-    for file, old, new in VARIANTS[name]:
+    for file, old, new in table[name]:
         text = (src / file).read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"variant {name}: its edit of {file} matches {text.count(old)} times")
         (src / file).write_text(text.replace(old, new))
     libs, ptxas = {}, []
-    for lib in LIBS:
+    for lib in libs_built:
         so = src / f"lib{lib}.so"
         proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
                                str(src / f"{lib}.cu")], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}, {lib}.cu:\n{proc.stdout}")
-        ptxas += [r for r in _build.ptxas_report(proc.stdout) if "_f32" in r["function"]]
+        ptxas += [r for r in _build.ptxas_report(proc.stdout) if key in r["function"]]
         cdll = ctypes.CDLL(str(so))
         entry, smem = getattr(cdll, lib), getattr(cdll, f"{lib}_smem_bytes")
         entry.argtypes, entry.restype = _ARGTYPES[lib], ctypes.c_int
@@ -132,12 +167,11 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def compare(B: int = 8, N: int = 10240, names=tuple(VARIANTS), seed: int = 1) -> list:
-    from . import abmil as ab
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(build_variant, names)))
+def _inputs(B: int, N: int, seed: int):
+    """x [B, N, 512] f32 (10% of patches masked and zero, the last bag
+    empty), the mask, w1, b1, w2 and an output cotangent, on the card."""
+    from .abmil import D_KERNEL as D, HID_KERNEL as H
     g = torch.Generator(device="cuda").manual_seed(seed)
-    D, H = ab.D_KERNEL, ab.HID_KERNEL
     mask = torch.rand(B, N, generator=g, device="cuda") > 0.1
     mask[-1] = False
     x = (torch.randn(B, N, D, generator=g, device="cuda") * mask[..., None]).contiguous()
@@ -145,6 +179,14 @@ def compare(B: int = 8, N: int = 10240, names=tuple(VARIANTS), seed: int = 1) ->
     b1 = (torch.rand(H, generator=g, device="cuda") * 2 - 1) * D ** -0.5
     w2 = 0.25 * torch.randn(H, generator=g, device="cuda")
     gout = torch.randn(B, D, generator=g, device="cuda")
+    return x, mask, w1, b1, w2, gout
+
+
+def compare(B: int = 8, N: int = 10240, names=tuple(VARIANTS), seed: int = 1) -> list:
+    from . import abmil as ab
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build_variant, names)))
+    x, mask, w1, b1, w2, gout = _inputs(B, N, seed)
     ref, m, l = ab.abmil_fwd_reference(x, mask, w1, b1, w2)
     want = {dx: ab.abmil_bwd_reference(x, mask, w1, b1, w2, gout, ref, m, l, need_dx=dx)
             for dx in (False, True)}
@@ -170,13 +212,60 @@ def compare(B: int = 8, N: int = 10240, names=tuple(VARIANTS), seed: int = 1) ->
     return list(recs.values())
 
 
+def compare_fwd(storage: str, B: int = 8, N: int = 10240, names=tuple(FWD_VARIANTS),
+                seed: int = 1) -> list:
+    """The bf16 or int8 forward's variants: error against the plain version
+    (int8 also against abmil_fwd_rounded, the model of its W1 split), ptxas
+    of abmil_fwd_partial, time in turns."""
+    from . import abmil as ab
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(
+            lambda n: build_variant(n, FWD_VARIANTS, ("abmil_fwd",), "abmil_fwd_partialI"), names)))
+    x, mask, w1, b1, w2, _g = _inputs(B, N, seed)
+    xs = None
+    if storage == "int8":
+        amax = x.abs().amax(-1) / 127.0
+        x = torch.round(x / torch.where(amax > 0, amax, 1.0)[..., None]).to(torch.int8)
+        xs = amax.contiguous()
+    else:
+        x = x.to(torch.bfloat16)
+    x = x.contiguous()
+    fwd = ((lambda: ab.abmil_q8_fwd(x, xs, mask, w1, b1, w2)) if xs is not None
+           else (lambda: ab.abmil_fwd(x, mask, w1, b1, w2)))
+    ref = ab.abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=xs)[0]
+    rounded = ab.abmil_fwd_rounded(x, mask, w1, b1, w2, x_scale=xs)[0]
+    shipped, recs = ab._library, {}
+    try:
+        for turn, name in enumerate(list(names) + list(names)[::-1]):
+            libs, ptxas = built[name]
+            ab._library = libs.__getitem__
+            rec = recs.setdefault(name, {"variant": name, "storage": storage, "B": B, "N": N,
+                                         "ptxas": ptxas, "fwd_ms": []})
+            if turn < len(names):
+                out = fwd()[0]
+                rec["fwd_rel_err"] = _rel(out, ref)
+                rec["fwd_rounded_rel_err"] = _rel(out, rounded)
+            rec["fwd_ms"].append(median_ms(fwd))
+    finally:
+        ab._library = shipped
+    return list(recs.values())
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--B", type=int, default=8)
     ap.add_argument("--N", type=int, default=10240)
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--storage", choices=("f32", "bf16", "int8"), default="f32")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated names (default: all of the storage's)")
     args = ap.parse_args(argv)
-    for rec in compare(args.B, args.N, tuple(args.variants.split(","))):
+    if args.storage == "f32":
+        names = tuple((args.variants or ",".join(VARIANTS)).split(","))
+        recs = compare(args.B, args.N, names)
+    else:
+        names = tuple((args.variants or ",".join(FWD_VARIANTS)).split(","))
+        recs = compare_fwd(args.storage, args.B, args.N, names)
+    for rec in recs:
         print(json.dumps(rec), flush=True)
 
 

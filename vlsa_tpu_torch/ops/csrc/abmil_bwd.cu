@@ -37,10 +37,11 @@
 // bf16 and int8 (bf16 operands on the tensor cores, mma.sync m16n8k16
 // through ldmatrix):
 //   pass 1 (abmil_bwd_dz_bf16<T>), blocks (chunk, bag), tiles of 64 patches:
-//     h once, x resident (66.5 KB) -- bf16: x's and W1's column slices of 32
-//     stream through 2 cp.async stages; int8: the tile is staged as bf16
-//     (exact) by plain loads while W1's hi and lo slices stream, two
-//     products, and h_pre is scaled by s; tanh, the logit, a, g . x and ds;
+//     h once by the forward's h_product (abmil_common.cuh), x resident
+//     (66.5 KB) -- bf16: x's and W1's column slices of 64 stream through 4
+//     cp.async stages; int8: the tile is staged as bf16 (exact) by plain
+//     loads while W1's hi and lo slices stream through 2, two products, and
+//     h_pre is scaled by s; tanh, the logit, a, g . x and ds;
 //     once x is dead its space holds dz in bf16 -- the TPU kernel's own
 //     rounding of dz for dW1 (vlsa_tpu/ops/abmil.py:254-256); int8: s dz as
 //     bf16 hi + lo, two tiles -- written to a [B, N, 256] workspace (int8:
@@ -48,7 +49,7 @@
 //     db1 and dw2 sums in registers over the chunk.  With dX (bf16), dz . W1
 //     (W1 rows streamed in slices of 32) in two halves of 256 columns, each
 //     half plus a g staged in bf16 (16-byte chunks XOR-swizzled by the row)
-//     for 16-byte stores.  113,792 bytes of shared memory (int8 155,776),
+//     for 16-byte stores.  220,288 bytes of shared memory (int8 221,312),
 //     one block an SM.
 //   pass 2 (abmil_bwd_dw_bf16, abmil_bwd_dw_i8): dW1 = sum dz^T x over all
 //     B * N rows as one split-K GEMM, blocks (128 x 128 tile of dW1, chunk of
@@ -94,41 +95,39 @@ namespace {
 // m16n8k16 through ldmatrix): pass 1 forms h once a tile of 64 patches,
 // writes dz to a [B, N, 256] bf16 workspace and, with dX (bf16 only), forms
 // dz . W1 + a g; pass 2 is one split-K GEMM dW1 = dz^T x over the B * N
-// patch rows.  bf16: x's and W1's column slices stream through 2 cp.async
+// patch rows.  The h product is abmil_common.cuh's h_product, the bf16 and
+// int8 forward's: bf16 x's and W1's column slices stream through 4 cp.async
 // stages; dz is rounded to bf16, the TPU kernel's own rounding of dz for dW1
 // (vlsa_tpu/ops/abmil.py:254-256).  int8 (the TPU's _abmil_q8_bwd_kernel,
 // :419): the tile is staged as bf16 (exact) by plain loads while W1's hi and
-// lo slices stream (two products, W1 to ~16 bits), h_pre is scaled by the
+// lo slices stream through 2 stages (two products, W1 to ~16 bits), h_pre is scaled by the
 // patch's dequant scale s, and s dz goes to two bf16 planes, hi and lo, which
 // pass 2 takes as two products, x's rows converted to bf16 in shared memory.
 
-constexpr int kKB = 32;                    // D columns a slice of the h product
-constexpr int kLdXB = kD + 8;              // 520: the x tile's rows (8 rows hit 8 bank groups)
-constexpr int kLdWB = kKB + 8;             // 40: W1 column slice rows
-constexpr int kSlicesHB = kD / kKB;        // 16
+constexpr int kLdXB = kLdX16 / 2;         // 520: the x tile's rows in bf16 (h_product's kLdX16 bytes)
 constexpr int kJB = 32;                    // hid rows a slice of the dX product
 constexpr int kHalfB = kD / 2;             // dX columns a half
 constexpr int kLdWJB = kHalfB + 8;         // 264: W1 row slice rows
 constexpr int kLdZB = kHid + 8;            // 264: dz rows
-constexpr size_t kStageB = round128((size_t)kHid * kLdWB * 2) > round128((size_t)kJB * kLdWJB * 2)
-                               ? round128((size_t)kHid * kLdWB * 2)
-                               : round128((size_t)kJB * kLdWJB * 2);  // 20,480: one copy of W1's slice
-static_assert(kStageB == (size_t)kHid * kLdWB * 2, "W1's lo slice follows its hi slice");
+static_assert((size_t)kJB * kLdWJB * 2 <= kStageS, "a dX slice fits in an h product stage");
 
 // Shared-memory carve-up of pass 1 (T: bf16 or int8 storage).  The x tile's
 // space holds, once h and g . x are formed, dz [64][kLdZB] and, with dX, the
 // product's half tile [64][256] bf16 (16-byte chunks XOR-swizzled by the
 // row) for 16-byte stores; int8's s dz lo tile takes the half tile's place.
-// A stage holds W1's slice, hi and (int8) lo.
+// A stage holds W1's slice, hi and (int8) lo; bf16 streams through 4
+// stages, int8, whose stage holds both, through 2.
 template <typename T>
 struct DzSmemB {
     static constexpr bool I8 = sizeof(T) == 1;
+    static constexpr HOp OP = I8 ? HOp::kBf16Split : HOp::kBf16;
+    static constexpr int NS = I8 ? 2 : 4;
     static constexpr size_t x = 0;
     static constexpr size_t half = round128((size_t)kMF * kLdZB * 2);      // 33,792
     // int8 67,584 (dz's hi and lo tiles); bf16 66,560 (the x tile)
     static constexpr size_t w = I8 ? 2 * half : round128((size_t)kMF * kLdXB * 2);
-    static constexpr size_t stage = (I8 ? 2 : 1) * kStageB;
-    static constexpr size_t cols = w + 2 * stage;                          // b1, w2 [kHid], g [kD]
+    static constexpr size_t stage = stage_bytes<OP>();
+    static constexpr size_t cols = w + NS * stage;                         // b1, w2 [kHid], g [kD]
     static constexpr size_t red = cols + round128((2 * (size_t)kHid + kD) * 4);  // [4][64]
     static constexpr size_t rows = red + round128(4 * (size_t)kMF * 4);    // g.x, a, ds, s [64], g.out
     static constexpr size_t total = rows + round128((4 * (size_t)kMF + 4) * 4);
@@ -137,29 +136,6 @@ struct DzSmemB {
     static_assert(round128((size_t)kMF * kLdXB * 2) <= w, "the x tile fits");
     static_assert(4 * (size_t)kHid * 4 <= w, "the column sums' reduction fits in x's space");
 };
-
-// cp.async of the columns [k0, k0 + kKB) of the tile's x rows [t0, t0 + 64)
-// of one bag into xs [64][kLdXB] (one 16-byte chunk a thread); rows at or
-// past n_end are zero-filled.  Not committed.
-__device__ __forceinline__ void load_x_cols_b(const __nv_bfloat16* __restrict__ xb, int t0,
-                                              int n_end, __nv_bfloat16* xs, int k0) {
-    const int r = threadIdx.x >> 2, c = 8 * (threadIdx.x & 3);
-    const bool ok = t0 + r < n_end;
-    cp_async16(xs + r * kLdXB + k0 + c, ok ? xb + (size_t)(t0 + r) * kD + k0 + c : xb, ok);
-}
-
-// cp.async of W1's columns [k0, k0 + kKB), all kHid rows, into a stage
-// [kHid][kLdWB]; with SPLIT (int8) also W1's lo into the stage's second half.
-template <bool SPLIT>
-__device__ __forceinline__ void load_w1_cols_b(const __nv_bfloat16* __restrict__ w1h,
-                                               const __nv_bfloat16* __restrict__ w1l,
-                                               __nv_bfloat16* ws, int k0) {
-    for (int i = threadIdx.x; i < kHid * (kKB / 8); i += kThreads) {
-        const int j = i / (kKB / 8), c = 8 * (i % (kKB / 8));
-        cp_async16(ws + j * kLdWB + c, w1h + (size_t)j * kD + k0 + c, true);
-        if (SPLIT) cp_async16(ws + kHid * kLdWB + j * kLdWB + c, w1l + (size_t)j * kD + k0 + c, true);
-    }
-}
 
 // cp.async of slice s < 16 of the dX product's W1 stream into a stage
 // [kJB][kLdWJB]: the hid rows [kJB (s % 8), +kJB) by the columns of half s / 8.
@@ -171,69 +147,6 @@ __device__ __forceinline__ void load_w1_rows_b(const __nv_bfloat16* __restrict__
     for (int i = threadIdx.x; i < kJB * kVec; i += kThreads) {
         const int j = i / kVec, c = 8 * (i % kVec);
         cp_async16(ws + j * kLdWJB + c, src + (size_t)j * kD + c, true);
-    }
-}
-
-// acc = x . W1^T for the tile [t0, t0 + 64) of one bag on the bf16 tensor
-// cores, warp (wm = warp % 2, wn = warp / 2) owning rows [32 wm, +32) and
-// hid columns [64 wn, +64), as h_product_f32 streams it: bf16 x's and W1's
-// column slices land in xs and in stage s % 2 (int8: the tile is staged in
-// xs first, by plain loads, and W1 is hi + lo, two products); W1's slice 0
-// must be committed into stage 0 on entry; at the last slice
-// `prefetch(stage0)` issues what the caller streams next.  On return all of
-// xs has landed.
-template <typename T, typename Prefetch>
-__device__ __forceinline__ void h_product_bf16(float (&acc)[kMT][kNT][4], const T* __restrict__ xb,
-                                               int t0, int n_end,
-                                               const __nv_bfloat16* __restrict__ w1h,
-                                               const __nv_bfloat16* __restrict__ w1l,
-                                               __nv_bfloat16* xs, __nv_bfloat16* stage0,
-                                               Prefetch prefetch) {
-    constexpr bool I8 = sizeof(T) == 1;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
-    __nv_bfloat16* stage1 = stage0 + DzSmemB<T>::stage / 2;
-    zero_acc(acc);
-    if constexpr (I8) {
-        stage_x(xb, t0, n_end, xs, kMF);
-    } else {
-        load_x_cols_b(xb, t0, n_end, xs, 0);
-        cp_async_commit();
-    }
-    // ldmatrix row addresses: A (x rows) and B (W1 rows = hid columns)
-    const __nv_bfloat16* xa = xs + (32 * wm + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLdXB + 8 * (lane >> 4);
-    const int bo = (64 * wn + (lane & 7) + 8 * (lane >> 4)) * kLdWB + 8 * ((lane >> 3) & 1);
-#pragma unroll 1
-    for (int s = 0; s < kSlicesHB; ++s) {
-        cp_async_wait<0>();
-        __syncthreads();  // slice s landed for all; stage (s + 1) % 2 is consumed
-        __nv_bfloat16* next = (s & 1) ? stage0 : stage1;
-        if (s + 1 < kSlicesHB) {
-            if constexpr (!I8) load_x_cols_b(xb, t0, n_end, xs, kKB * (s + 1));
-            load_w1_cols_b<I8>(w1h, w1l, next, kKB * (s + 1));
-        } else {
-            prefetch(stage0);
-        }
-        cp_async_commit();
-        const __nv_bfloat16* wb = ((s & 1) ? stage1 : stage0) + bo;
-#pragma unroll
-        for (int ks = 0; ks < kKB / 16; ++ks) {
-            uint32_t a[kMT][4];
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) ldsm_x4(a[mt], xa + 16 * mt * kLdXB + kKB * s + 16 * ks);
-#pragma unroll
-            for (int part = 0; part < (I8 ? 2 : 1); ++part) {  // W1's hi, then (int8) lo
-#pragma unroll
-                for (int np = 0; np < kNT / 2; ++np) {
-                    uint32_t bw[4];
-                    ldsm_x4(bw, wb + part * kHid * kLdWB + 16 * np * kLdWB + 16 * ks);
-#pragma unroll
-                    for (int mt = 0; mt < kMT; ++mt) {
-                        mma_bf16(acc[mt][2 * np], a[mt], bw[0], bw[1]);
-                        mma_bf16(acc[mt][2 * np + 1], a[mt], bw[2], bw[3]);
-                    }
-                }
-            }
-        }
     }
 }
 
@@ -285,7 +198,13 @@ abmil_bwd_dz_bf16(const T* __restrict__ x, const float* __restrict__ x_scale,
     const float* gb = g + (size_t)b * kD;
     const float m_b = m[b], l_b = l[b];
 
-    load_w1_cols_b<I8>(w1h, w1l, stage0, 0);  // the first tile's first W1 slice
+    // the first tile's first W1 slices: with dX the previous tile's dX
+    // product hands over only the next tile's first
+    constexpr int kPre = WITH_DX ? 1 : L::NS - 1;
+#pragma unroll
+    for (int q = 0; q < kPre; ++q) {
+        load_w1_slice<L::OP>(w1h, w1l, smem + L::w + q * L::stage, q);
+    }
     cp_async_commit();
     for (int j = tid; j < kHid; j += kThreads) {
         b1s[j] = b1[j];
@@ -308,13 +227,14 @@ abmil_bwd_dz_bf16(const T* __restrict__ x, const float* __restrict__ x_scale,
     for (int t0 = n_begin; t0 < n_end; t0 += kMF) {
         const bool more = t0 + kMF < n_end;
         if (I8 && tid < kMF) sc_s[tid] = t0 + tid < n_end ? x_scale[(size_t)b * N + t0 + tid] : 0.f;
-        h_product_bf16<T>(acc, xb, t0, n_end, w1h, w1l, xs, stage0, [&](__nv_bfloat16* st) {
-            if (WITH_DX) {
-                load_w1_rows_b(w1h, st, 0);  // the dX product's first slice
-            } else if (more) {
-                load_w1_cols_b<I8>(w1h, w1l, st, 0);  // the next tile's first slice
-            }
-        });
+        h_product<L::OP, kMT, L::NS, kPre>(
+            acc, xb, t0, n_end, w1h, w1l, smem + L::x, smem + L::w, [&](int q, unsigned char* st) {
+                if (WITH_DX) {
+                    if (q == 0) load_w1_rows_b(w1h, reinterpret_cast<__nv_bfloat16*>(st), 0);
+                } else if (more) {
+                    load_w1_slice<L::OP>(w1h, w1l, st, q);  // the next tile's first slices
+                }
+            });
         if constexpr (I8) {  // h_pre = s x . W1^T
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
@@ -413,8 +333,9 @@ abmil_bwd_dz_bf16(const T* __restrict__ x, const float* __restrict__ x_scale,
                     __nv_bfloat16* next = (s & 1) ? stage0 : stage1;
                     if (s + 1 < 2 * kSlicesJ) {
                         load_w1_rows_b(w1h, next, s + 1);
-                    } else if (more) {
-                        load_w1_cols_b<false>(w1h, w1l, next, 0);  // stage 0: the next tile's first slice
+                    } else if (more) {  // stage 0: the next tile's first slice
+                        load_w1_slice<HOp::kBf16>(w1h, nullptr,
+                                                  reinterpret_cast<unsigned char*>(next), 0);
                     }
                     cp_async_commit();
                     const __nv_bfloat16* wb = ((s & 1) ? stage1 : stage0) + bo;

@@ -1,13 +1,14 @@
 // Device helpers shared by the ABMIL pooling kernels (abmil_fwd.cu,
-// abmil_bwd.cu): widths, tile shapes, staging of a patch tile in shared
-// memory, and the bottleneck product h_pre = x . W1^T of a tile on the
-// tensor cores: bf16 operands through nvcuda::wmma (bf16 and int8 storage),
-// or split TF32 through mma.sync m16n8k8 (f32 storage: each f32 operand a is
-// a_hi + a_lo, both TF32, and a product is lo.hi + hi.lo + hi.hi, ~2^-21
-// relative per product against f32's 2^-24; cp.async streams the operands).
+// abmil_bwd.cu): widths, tile shapes, and the bottleneck product h_pre =
+// x . W1^T of a tile on the tensor cores through mma.sync, the product's
+// accumulators held in registers: bf16 operands (m16n8k16; the backward's
+// bf16 and int8 storage, int8 as an exact bf16 plane against W1's bf16 hi
+// and lo), or split TF32 (m16n8k8; f32 storage: each f32 operand a is a_hi
+// + a_lo, both TF32, and a product is lo.hi + hi.lo + hi.hi, ~2^-21
+// relative per product against f32's 2^-24).  cp.async streams the
+// operands.  (The bf16 and int8 forward runs its product on wgmma:
+// abmil_fwd.cu.)
 #pragma once
-
-#include <mma.h>
 
 #include "coattn_common.cuh"
 
@@ -38,47 +39,11 @@ constexpr int kD = 512;     // feature width D (net_dims 512-256-K)
 constexpr int kHid = 256;   // bottleneck width hid
 constexpr int kPadB = 8;    // bf16 row padding: rows stay 16-byte aligned, banks shift
 constexpr int kPadF = 4;    // f32 row padding
-constexpr int kLdH = kHid + kPadF;  // row stride of the f32 h tile
-constexpr int kKs = 64;     // D columns of W1 per shared-memory slice (tensor cores)
 
 __host__ __device__ constexpr size_t round128(size_t n) { return (n + 127) / 128 * 128; }
 
-// Patches per tile: 64 for every storage type (f32: the x tile resident in
-// shared memory, 64 x 516 x 4 = 132,096 bytes).
-template <typename T> struct Tile { static constexpr int M = 64; };
-template <> struct Tile<float> { static constexpr int M = 64; };
-
-// The tile's type in shared memory (bf16 and int8 storage): int8 values are
-// exact in bf16, so int8 storage is staged as bf16 and multiplies on the
-// bf16 tensor cores.
-template <typename T> struct Staged { using type = __nv_bfloat16; };
-
-template <typename T> struct XLd { static constexpr int value = kD + kPadB; };
-
-template <typename T>
-__host__ __device__ constexpr size_t x_tile_bytes() {
-    return round128((size_t)Tile<T>::M * XLd<T>::value * sizeof(typename Staged<T>::type));
-}
-
-// Shared-memory bytes of the W1 staging buffer of `h_gemm_tc`.
-template <typename T>
-__host__ __device__ constexpr size_t w_stage_bytes() {
-    return round128((size_t)(sizeof(T) == 1 ? 2 : 1) * kHid * (kKs + kPadB) * 2);
-}
-
-// Copy the patches [t0, t0 + M) of one bag (x rows of kD values) into xs,
-// zeroing the rows at or past n_end.  16-byte loads; int8 becomes bf16.
-__device__ __forceinline__ void stage_x(const __nv_bfloat16* xb, int t0, int n_end,
-                                        __nv_bfloat16* xs, int tile_m) {
-    constexpr int kVec = kD / 8;
-    constexpr int ld = kD + kPadB;
-    for (int i = threadIdx.x; i < tile_m * kVec; i += kThreads) {
-        const int r = i / kVec, c = i % kVec;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (t0 + r < n_end) v = reinterpret_cast<const uint4*>(xb + (size_t)(t0 + r) * kD)[c];
-        reinterpret_cast<uint4*>(xs + (size_t)r * ld)[c] = v;
-    }
-}
+// Copy the patches [t0, t0 + M) of one bag of int8 rows (kD values) into xs
+// as bf16 (exact), zeroing the rows at or past n_end.  16-byte loads.
 __device__ __forceinline__ void stage_x(const int8_t* xb, int t0, int n_end,
                                         __nv_bfloat16* xs, int tile_m) {
     constexpr int kVec = kD / 16;
@@ -100,79 +65,6 @@ __device__ __forceinline__ void stage_x(const int8_t* xb, int t0, int n_end,
     }
 }
 
-// hs[r][j] = sum_k xs[r][k] * W1[j][k] for the 64 rows of a tile and all kHid
-// columns, f32 (row stride kLdH), on the bf16 tensor cores.  W1 comes as its
-// bf16 rounding w1h [kHid, kD] and, with SPLIT (int8 storage), the bf16
-// rounding of the residual w1l, so that w1h + w1l holds ~16 bits of W1.  It
-// is streamed through `ws` in slices of kKs columns of D.  Warp w owns the
-// hid columns [32w, 32w + 32) of all 64 rows: 4 x 2 accumulator tiles.
-// Starts and ends with __syncthreads().
-template <bool SPLIT>
-__device__ void h_gemm_tc(const __nv_bfloat16* xs, const __nv_bfloat16* __restrict__ w1h,
-                          const __nv_bfloat16* __restrict__ w1l, __nv_bfloat16* ws,
-                          float* hs) {
-    using namespace nvcuda;
-    constexpr int ldx = kD + kPadB;
-    constexpr int ldw = kKs + kPadB;
-    constexpr int kVec = kKs / 8;  // 16-byte groups per W1 slice row
-    const int warp = threadIdx.x >> 5;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) wmma::fill_fragment(acc[mt][nt], 0.f);
-    __nv_bfloat16* wsl = ws + kHid * ldw;
-    for (int k0 = 0; k0 < kD; k0 += kKs) {
-        __syncthreads();  // the previous slice is consumed
-        for (int i = threadIdx.x; i < kHid * kVec; i += kThreads) {
-            const int j = i / kVec, c = i % kVec;
-            reinterpret_cast<uint4*>(ws + j * ldw)[c] =
-                reinterpret_cast<const uint4*>(w1h + (size_t)j * kD + k0)[c];
-            if (SPLIT) {
-                reinterpret_cast<uint4*>(wsl + j * ldw)[c] =
-                    reinterpret_cast<const uint4*>(w1l + (size_t)j * kD + k0)[c];
-            }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kKs; kk += 16) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bh[2], bl[2];
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-                wmma::load_matrix_sync(bh[nt], ws + (warp * 32 + nt * 16) * ldw + kk, ldw);
-                if (SPLIT) {
-                    wmma::load_matrix_sync(bl[nt], wsl + (warp * 32 + nt * 16) * ldw + kk, ldw);
-                }
-            }
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                wmma::load_matrix_sync(a, xs + mt * 16 * ldx + k0 + kk, ldx);
-#pragma unroll
-                for (int nt = 0; nt < 2; ++nt) {
-                    wmma::mma_sync(acc[mt][nt], a, bh[nt], acc[mt][nt]);
-                    if (SPLIT) wmma::mma_sync(acc[mt][nt], a, bl[nt], acc[mt][nt]);
-                }
-            }
-        }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-            wmma::store_matrix_sync(hs + mt * 16 * kLdH + warp * 32 + nt * 16, acc[mt][nt],
-                                    kLdH, wmma::mem_row_major);
-    __syncthreads();
-}
-
-// The tile's h_pre for storage T (bf16 or int8; see the function above).
-template <typename T>
-__device__ __forceinline__ void h_gemm(const typename Staged<T>::type* xs,
-                                       const __nv_bfloat16* w1h, const __nv_bfloat16* w1l,
-                                       void* ws, float* hs) {
-    h_gemm_tc<sizeof(T) == 1>(xs, w1h, w1l, static_cast<__nv_bfloat16*>(ws), hs);
-}
-
 // ------------------------------------------------ f32 storage: split TF32
 
 // The f32 kernels' tile and staging.  x [kMF][kLdXF] stays resident in
@@ -182,7 +74,7 @@ __device__ __forceinline__ void h_gemm(const typename Staged<T>::type* xs,
 // the dX product's hold kJF rows of hid by kD/2 columns ([kJF][kLdWJ]).
 // Every stride below makes the 8 x 4 lanes of a fragment load hit 32
 // distinct banks.
-constexpr int kMF = Tile<float>::M;
+constexpr int kMF = 64;                // patches a tile (f32; every storage's backward pass 1)
 constexpr int kLdXF = kD + kPadF;      // 516: A fragment rows g (4g + t)
 constexpr int kKF = 32;                // D columns a slice of the h product (slice_3xtf32's depth)
 constexpr int kLdWF = kKF + 4;         // 36: B fragment rows g (4g + t)
@@ -383,6 +275,157 @@ __device__ __forceinline__ void tanh_logit_f32(float (&acc)[kMT][kNT][4], const 
             v += __shfl_xor_sync(0xffffffffu, v, 1);
             v += __shfl_xor_sync(0xffffffffu, v, 2);
             if (t == 0) red[wn * kMF + 32 * wm + 16 * mt + 8 * h + g] = v;
+        }
+    }
+}
+
+// ------------------------------------------------ bf16 and int8 storage: the backward's h product
+//
+// acc = x . W1^T for a tile of 32 MT patches of one bag (the backward's pass
+// 1: 64) on mma.sync, 8 warps: warp (wm = warp % 2, wn = warp / 2) owns
+// rows [16 MT wm, +16 MT) and hid columns [64 wn, +64), MT x kNT
+// accumulator tiles of m16n8 in registers.  The x tile stays
+// resident in shared memory (the A operand, then the PV sum's or g . x's
+// rows); W1 streams through a ring of NS cp.async stages, one slice a
+// stage, kSlicesQ = 8 slices a tile, one barrier a slice.  A slice is
+// kSliceB = 128 bytes of every row: bf16 x's and W1's columns [64 s, +64),
+// which land side by side.  (64-byte slices, twice the barriers, measured
+// slower in a forward on this product: PERF.md.)  The operations (HOp):
+//   kBf16:      bf16 x and W1 (bf16 storage), one product;
+//   kBf16Split: int8 x staged as bf16 (exact) by plain loads before the
+//               first slice, W1 as bf16 hi and lo in one stage, two products
+//               into one f32 accumulator (W1 to ~16 bits).
+enum class HOp { kBf16, kBf16Split };
+
+constexpr int kSliceB = 128;                // bytes of a row a slice holds
+constexpr int kSlicesQ = 2 * kD / kSliceB;  // 8: slices of a tile's h product
+constexpr int kLdWS = kSliceB + 16;         // 144: a W1 slice row's bytes (8 rows, 8 bank groups)
+constexpr size_t kStageS = (size_t)kHid * kLdWS;  // 36,864: a W1 slice (one plane)
+constexpr int kLdX16 = (kD + kPadB) * 2;    // 1040: a bf16 x tile row's bytes
+
+template <HOp OP> __host__ __device__ constexpr size_t stage_bytes() {
+    return (OP == HOp::kBf16Split ? 2 : 1) * kStageS;
+}
+
+// cp.async of x's slice s (kSliceB bytes of each of the tile's 32 MT rows
+// [t0, t0 + 32 MT) of one bag) into xs; rows at or past n_end are zero-filled.
+// Not committed.
+template <int MT>
+__device__ __forceinline__ void load_x_slice(const __nv_bfloat16* __restrict__ xb, int t0,
+                                             int n_end, unsigned char* xs, int s) {
+    constexpr int kRow = 2 * kD;  // a row's bytes in device memory
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(xb);
+    for (int i = threadIdx.x; i < 32 * MT * (kSliceB / 16); i += kThreads) {
+        const int r = i / (kSliceB / 16), c = kSliceB * s + 16 * (i % (kSliceB / 16));
+        const bool ok = t0 + r < n_end;
+        cp_async16(xs + r * kLdX16 + c, ok ? src + (size_t)(t0 + r) * kRow + c : src, ok);
+    }
+}
+
+// cp.async of W1's slice s, all kHid rows, into a stage [kHid][kLdWS bytes]:
+// the bf16 columns [64 s, +64) of w1h and (kBf16Split), kStageS bytes on,
+// of w1l.  Not committed.
+template <HOp OP>
+__device__ __forceinline__ void load_w1_slice(const __nv_bfloat16* __restrict__ w1h,
+                                              const __nv_bfloat16* __restrict__ w1l,
+                                              unsigned char* st, int s) {
+    constexpr int kRow = 2 * kD;
+    const unsigned char* hi = reinterpret_cast<const unsigned char*>(w1h);
+    const unsigned char* lo = reinterpret_cast<const unsigned char*>(w1l);
+    const int c0 = kSliceB * s;
+    for (int i = threadIdx.x; i < kHid * (kSliceB / 16); i += kThreads) {
+        const int j = i / (kSliceB / 16), c = 16 * (i % (kSliceB / 16));
+        cp_async16(st + j * kLdWS + c, hi + (size_t)j * kRow + c0 + c, true);
+        if (OP == HOp::kBf16Split) {
+            cp_async16(st + kStageS + j * kLdWS + c, lo + (size_t)j * kRow + c0 + c, true);
+        }
+    }
+}
+
+// acc = x . W1^T of the tile [t0, t0 + 32 MT) of one bag (see above).  W1's
+// slice s lands in stage s % NS of `stages` (stage_bytes<OP>() apart), x's
+// in xs (row stride kLdX16 bytes).  On entry W1's slices [0, PRE) must be
+// committed into their stages (the previous tile's `next`, or the caller
+// before the first tile), and xs and the other stages free: the caller
+// synchronises after its last read of them.  The last NS - 1 iterations
+// each call `next(q, stage)`, q = 0 .. NS - 2, with the stage that slice
+// kSlicesQ + q would take, to issue what the caller streams next (the next
+// tile's slice q, say); this function commits it.  On return all of xs has
+// landed and is visible to every thread; other warps may still be in their
+// last products, so a caller synchronises before it overwrites xs or the
+// last slice's stage.
+template <HOp OP, int MT, int NS, int PRE, typename T, typename Next>
+__device__ __forceinline__ void h_product(float (&acc)[MT][kNT][4], const T* __restrict__ xb,
+                                          int t0, int n_end,
+                                          const __nv_bfloat16* __restrict__ w1h,
+                                          const __nv_bfloat16* __restrict__ w1l,
+                                          unsigned char* xs, unsigned char* stages, Next next) {
+    static_assert(kSlicesQ % NS == 0 && 0 <= PRE && PRE < NS, "slice s lives in stage s % NS");
+    constexpr int kLdX = kLdX16;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    // the first NS - 1 slices: W1's not yet issued and x's (kBf16Split: the
+    // whole tile, as bf16), one group
+#pragma unroll
+    for (int q = PRE; q < NS - 1; ++q) {
+        load_w1_slice<OP>(w1h, w1l, stages + q * stage_bytes<OP>(), q);
+    }
+    if constexpr (OP == HOp::kBf16Split) {
+        stage_x(xb, t0, n_end, reinterpret_cast<__nv_bfloat16*>(xs), 32 * MT);
+    } else {
+#pragma unroll
+        for (int q = 0; q < NS - 1; ++q) load_x_slice<MT>(xb, t0, n_end, xs, q);
+    }
+    cp_async_commit();
+    // ldmatrix row addresses: A (x rows) and B (W1 rows = hid columns)
+    const unsigned char* xa =
+        xs + (16 * MT * wm + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLdX + 16 * (lane >> 4);
+    const int bo = (64 * wn + (lane & 7) + 8 * (lane >> 4)) * kLdWS + 16 * ((lane >> 3) & 1);
+#pragma unroll 1
+    for (int s = 0; s < kSlicesQ; ++s) {
+        // slice s landed (at s = 0 all that the prologue and PRE issued);
+        // after the barrier, for all threads, and the stage of slice s - 1
+        // is consumed
+        if (s == 0) {
+            cp_async_wait<0>();
+        } else {
+            cp_async_wait<NS - 2>();
+        }
+        __syncthreads();
+        const int q = s + NS - 1;  // the slice this iteration issues
+        unsigned char* st = stages + (q % NS) * stage_bytes<OP>();
+        if (q < kSlicesQ) {
+            load_w1_slice<OP>(w1h, w1l, st, q);
+            if constexpr (OP == HOp::kBf16) load_x_slice<MT>(xb, t0, n_end, xs, q);
+        } else {
+            next(q - kSlicesQ, st);
+        }
+        cp_async_commit();
+        const unsigned char* wb = stages + (s % NS) * stage_bytes<OP>() + bo;
+        const unsigned char* xk = xa + kSliceB * s;
+#pragma unroll
+        for (int ks = 0; ks < kSliceB / 32; ++ks) {  // k-steps of 32 bytes
+            uint32_t a[MT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], xk + 16 * mt * kLdX + 32 * ks);
+#pragma unroll
+            for (int part = 0; part < (OP == HOp::kBf16Split ? 2 : 1); ++part) {  // hi, (lo)
+#pragma unroll
+                for (int np = 0; np < kNT / 2; ++np) {
+                    uint32_t bw[4];
+                    ldsm_x4(bw, wb + part * kStageS + 16 * np * kLdWS + 32 * ks);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt) {
+                        mma_bf16(acc[mt][2 * np], a[mt], bw[0], bw[1]);
+                        mma_bf16(acc[mt][2 * np + 1], a[mt], bw[2], bw[3]);
+                    }
+                }
+            }
         }
     }
 }

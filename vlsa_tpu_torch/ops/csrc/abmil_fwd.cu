@@ -10,25 +10,49 @@
 // with s[n] the per-patch int8 dequant scale (1 for float storage).  b2
 // shifts every logit alike and cancels in the softmax, so it is not an input.
 // Rounding follows the TPU kernels: bf16 storage multiplies x by W1 rounded
-// to bf16 (f32 accumulation); int8 multiplies the raw int8 values by W1 split
-// into bf16 hi + lo (~16 bits; the TPU splits it into two int8 parts, ~15
-// bits); f32 forms x . W1^T in split TF32 on the tensor cores (~2^-21
-// relative per product; the plain version ops/abmil.py::abmil_fwd_reference
-// stays true f32, and the TPU kernel's own f32 is the MXU's multi-pass bf16).
+// to bf16 (f32 accumulation, f32 softmax weights in the PV sum); int8
+// multiplies the raw int8 values by W1 split as the TPU kernel splits it
+// (vlsa_tpu/ops/coattn.py::_mm_rows_i8: s_w = max|W1| / 127, hi = round(W1 /
+// s_w), lo = round(254 (W1 / s_w - hi)), ~15 bits), exact in int32, h_unit =
+// s_w (254 P_hi + P_lo) / 254 (the plain model of that split is
+// ops/abmil.py::abmil_fwd_rounded); f32 forms x . W1^T in split TF32 on the
+// tensor cores (~2^-21 relative per product; the plain version
+// ops/abmil.py::abmil_fwd_reference stays true f32, and the TPU kernel's own
+// f32 is the MXU's multi-pass bf16).  The int8 backward recomputes the logit
+// from W1's bf16 hi + lo (~2^-16 relative), so the forward's (m, l) come from
+// a logit that differs by ~2^-15 max|W1| in h_pre: the gradients are held
+// against the plain path's (chip_smoke.py phases 2c and 3d).
 //
 // What bounds it on an H100: the product is 2*D*hid operations per patch, 256
 // per bf16 byte of x at D=512, hid=256 -- at the card's bf16 ridge (~295), so
 // bytes (x read once) and tensor-core operations bound it about equally; int8
-// halves the bytes.  f32 is bound by its products: 3 TF32 products each
+// halves the bytes, and its two products at the int8 rate take one bf16
+// product's tensor time.  f32 is bound by its products: 3 TF32 products each
 // (495 TFLOP/s dense) beat one f32 FMA on the CUDA cores (67 TFLOP/s) 2.5x.
 // PERF.md holds the times beside the bound.
-//   - bf16 and int8 (written to be right, not fast) use the tensor cores
-//     through nvcuda::wmma (bf16 operands, f32 accumulation), 16x16x16
-//     fragments; int8 pays two products (hi, lo).  W1 [256, 512] does not fit
-//     in shared memory with a tile (256 KB in bf16), so it is streamed
-//     through shared memory in slices of 64 columns of D for every tile of 64
-//     patches, synchronously: re-read from L2 once per tile, 4x the tile's
-//     own bytes (bf16), which the 50 MB L2 serves.
+//   - bf16 and int8 (abmil_fwd_partial<T>): tiles of 128 patches, two
+//     warpgroups of 64 rows each, h_pre [128, 256] formed in registers by
+//     wgmma m64n256 (k16 bf16 into f32; k32 int8 into s32), 128 accumulators
+//     a thread, both operands read by the tensor cores from shared memory in
+//     the 128-byte swizzled layout.  x and W1 go in k-blocks of 128 bytes a
+//     row; x's stay resident (the A operand, then the PV sum's rows), so x
+//     is read from device memory once.  W1's k-blocks stream through
+//     cp.async stages of 32 KB, one slice ahead, x's beside them; x's
+//     k-blocks live in a ring of slots one longer than a tile's, so the next
+//     tile's first k-block and W1 slice arrive during this tile's epilogue.
+//     int8 keeps one slice of products in flight (3 stages; bf16's x tile
+//     leaves room for 2 and none in flight).  Each W1 slice feeds
+//     128 rows: W1 comes from L2 once a tile, 2x x's bytes in bf16 (int8 hi
+//     + lo 4x), ~0.17 GB a call at B=8, N=10240.  int8 runs on the int8
+//     tensor cores: P_hi over slices 0-3 (with x), acc *= 254, P_lo over
+//     slices 4-7.  A warp holds whole rows, so tanh, the w2 dot and each
+//     row's logit take only a quad's sum.  218,128 bytes of
+//     shared memory (int8 185,360): one block per SM.  Measured (PERF.md):
+//     the products, the W1 and x streams and the epilogue's tanh and PV each
+//     take 10-20% of the time and overlap only in part; mma.sync on
+//     ldmatrix fragments (the backward's h_product) took 1.2-1.4x as long, and
+//     a cluster of 2 blocks sharing W1's slices by multicast bulk copies
+//     (half W1's L2 bytes) 1.0-1.4x as long, its blocks stepping together.
 //   - f32 (abmil_fwd_partial_f32): mma.sync m16n8k8 with TF32 operands, each
 //     f32 operand split into hi + lo as its fragment is loaded from shared
 //     memory, lo.hi + hi.lo + hi.hi into f32 accumulators (abmil_common.cuh).
@@ -48,109 +72,402 @@
 //
 // Design.  The TPU grid walks N in order and carries (m, l, acc) in VMEM.
 // Hopper runs blocks in parallel, so each bag's patches are split over S
-// blocks (the chunk plan of ops/abmil.py::fwd_plan): block (s, b) runs the
-// online softmax over its chunk and writes its partial (m, l, acc[D]); a
-// second kernel merges the partials of each bag in a fixed order.
-// Deterministic, no atomics.  Any N: the ragged edge of the last tile is
-// masked here.  A masked or out-of-range patch gets logit -1e30 and weight 0
-// before anything is multiplied; an empty bag gives out = 0, m = -1e30 and
-// l = 1e-30.
+// blocks (the chunk plan of ops/abmil.py::fwd_plan, one block an SM): block
+// (s, b) runs the online softmax over its chunk and writes its partial (m,
+// l, acc[D]); a second kernel merges the partials of each bag in a fixed
+// order.  Deterministic, no atomics.  Any N: the ragged edge of the last
+// tile is masked here.  A masked or out-of-range patch gets logit -1e30 and
+// weight 0 before anything is multiplied; an empty bag gives out = 0, m =
+// -1e30 and l = 1e-30.
 //
-// Per tile (bf16, int8): (1) stage the x tile in shared memory (int8 as
-// exact bf16); (2) h_pre = x . W1^T into a [tile, hid] f32 tile
-// (abmil_common.cuh); (3) one warp per patch: tanh, the w2 dot and the mask
-// give the logit; (4) warp 0 updates the online softmax; (5) each thread
+// Per tile: (1)-(2) the h product with x's slices streaming in; (3) tanh and
+// the logit on the accumulators (bf16, int8: a quad's sum; f32: partial sums
+// over 4 warps); (4) warp 0 updates the online softmax; (5) each thread
 // folds the tile's weighted rows into its two channels of acc, held in
-// registers.  f32: (1)-(2) are h_product_f32, (3) tanh_logit_f32 on the
-// accumulators, then (4) and (5) as above.
+// registers.  bf16 and int8 ahead of the first tile: W1 to bf16 (prep_w1),
+// or max|W1| (w1_absmax, 64 partial maxima) and the int8 split
+// (prep_w1_i8).
+#include <type_traits>
+
 #include "abmil_common.cuh"
 
 using namespace abmil;
 
 namespace {
 
+constexpr int kMQ = 128;        // patches a tile (bf16, int8)
+constexpr int kKB = 128;        // bytes of a row a k-block holds: one 128-byte swizzle span
+constexpr int kAtom = 8 * kKB;  // 1024: 8 rows of a k-block, the swizzle's period
+constexpr int kSlicesW = 8;     // W1 slices a tile: bf16 its 8 k-blocks, int8 hi's 4 then lo's 4
+constexpr int kAmaxBlocks = 64;
+
+// h = tanh(h_pre), by the library's tanhf (1 - 2 / (e^2v + 1) with the
+// fast exponential and division measured no faster: python -m
+// vlsa_tpu_torch.ops.abmil_variants --storage bf16, `fast_tanh`).
+__device__ __forceinline__ float tanh_h(float v) {
+    return tanhf(v);
+}
+
+// ---- wgmma m64n256 on operands in shared memory (K-major, 128-byte swizzle)
+//
+// A k-block [rows][128 B] stores 16-byte chunk c of row r at r * 128 +
+// ((c ^ (r % 8)) << 4), from a 1024-byte aligned base: the layout the
+// tensor cores read with a 128-byte swizzle descriptor (8-row groups 1024
+// bytes apart).  A k-step of 32 bytes (16 bf16 or 32 int8 values) is the
+// descriptor's start advanced by 32 bytes within the span.
+
+__device__ __forceinline__ int sw128(int r, int c) { return r * kKB + ((c ^ (r & 7)) << 4); }
+
+__device__ __forceinline__ uint64_t desc_sw128(const unsigned char* p) {
+    return (uint64_t)((coattn::smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16)
+           | ((uint64_t)(kAtom >> 4) << 32) | (1ull << 62);
+}
+
+// d += A . B^T for a warpgroup: A [64 rows][k-step] and B [256 rows][k-step]
+// by descriptor; d is m64n256's accumulator fragment (warp w of the group
+// holds rows 16 w + g and 16 w + g + 8, g = lane / 4; d[4 j .. 4 j + 3] are
+// columns 8 j + 2 t, 8 j + 2 t + 1 of the first row, then of the second,
+// t = lane % 4).  bf16: m64n256k16 into f32; int8: m64n256k32 into s32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,\n"
+        " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,\n"
+        " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,\n"
+        " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,\n"
+        " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,\n"
+        " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,\n"
+        " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,\n"
+        " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,\n"
+        " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,\n"
+        " %120, %121, %122, %123, %124, %125, %126, %127},\n"
+        " %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,\n"
+        " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,\n"
+        " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,\n"
+        " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,\n"
+        " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,\n"
+        " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,\n"
+        " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,\n"
+        " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,\n"
+        " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,\n"
+        " %120, %121, %122, %123, %124, %125, %126, %127},\n"
+        " %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+          "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+          "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+          "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+          "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+template <typename Acc>
+__device__ __forceinline__ void wgmma_op(Acc (&d)[128], uint64_t da, uint64_t db) {
+    if constexpr (std::is_same<Acc, int>::value) {
+        wgmma_s8(d, da, db);
+    } else {
+        wgmma_bf16(d, da, db);
+    }
+}
+
+// Pin the accumulators' registers across the asynchronous wgmma (the
+// compiler does not know that the instruction writes them later).
+template <typename Acc>
+__device__ __forceinline__ void fence_acc(Acc (&d)[128]) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) {
+        if constexpr (std::is_same<Acc, int>::value) {
+            asm volatile("" : "+r"(d[i])::"memory");
+        } else {
+            asm volatile("" : "+f"(d[i])::"memory");
+        }
+    }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async's writes (the generic proxy) made visible to wgmma's reads (the
+// async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory carve-up of the bf16 and int8 partial kernel, from a
+// 1024-byte aligned base (`total` holds the slack to align it).
 template <typename T>
-struct FwdSmem {
-    static constexpr int M = Tile<T>::M;
-    static constexpr size_t x = 0;
-    static constexpr size_t h = x + x_tile_bytes<T>();
-    static constexpr size_t w = h + round128((size_t)M * kLdH * 4);
-    static constexpr size_t rows = w + w_stage_bytes<T>();  // logit, p, valid, scale [M] + 4 stats
-    static constexpr size_t total = rows + round128((4 * (size_t)M + 4) * 4);
+struct FwdSmemQ {
+    static constexpr bool I8 = sizeof(T) == 1;
+    static constexpr int KB = kD * sizeof(T) / kKB;      // k-blocks of a row: 8 bf16, 4 int8
+    static constexpr int LEAD = 1;                       // slices issued ahead of the products
+    static constexpr int DEPTH = I8 ? 1 : 0;             // slices of products left in flight
+    static constexpr int NS = LEAD + DEPTH + 1;          // W1 stages of the ring
+    static constexpr int XS = KB + LEAD;  // x k-block slots: a tile's, and the next tile's first
+    static constexpr size_t x = 0;                       // [XS][kMQ][128 B]
+    static constexpr size_t stage = (size_t)kHid * kKB;  // 32,768: [kHid][128 B]
+    static constexpr size_t w = (size_t)XS * kMQ * kKB;  // NS stages
+    static constexpr size_t cols = w + NS * stage;       // b1, w2 [kHid]
+    static constexpr size_t logit = cols + 2 * (size_t)kHid * 4;  // [kMQ]
+    static constexpr size_t rows = logit + (size_t)kMQ * 4;       // p, valid, s [kMQ], 4 stats
+    static constexpr size_t total = rows + (3 * (size_t)kMQ + 4) * 4 + kAtom;
 };
 
+// cp.async of x's k-block kb (128 bytes of each of the tile's kMQ rows [t0,
+// t0 + kMQ) of one bag) into the slot dst, swizzled; rows at or past n_end
+// are zero-filled.  Not committed.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void load_x_kblock(const T* __restrict__ xb, int t0, int n_end,
+                                              unsigned char* dst, int kb) {
+    constexpr int kRow = kD * sizeof(T);
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(xb);
+    for (int i = threadIdx.x; i < kMQ * 8; i += kThreads) {
+        const int r = i >> 3, c = i & 7;
+        const bool ok = t0 + r < n_end;
+        cp_async16(dst + sw128(r, c), ok ? src + (size_t)(t0 + r) * kRow + kb * kKB + 16 * c : src,
+                   ok);
+    }
+}
+
+// cp.async of W1's slice s, all kHid rows, into a stage, swizzled: bf16 the
+// k-block s of W1 [kHid][kD] bf16; int8 the k-block s % 4 of hi (s < 4) or
+// lo [kHid][kD] int8.  Not committed.
+template <typename T>
+__device__ __forceinline__ void load_w1_kblock(const unsigned char* __restrict__ w1h,
+                                               const unsigned char* __restrict__ w1l,
+                                               unsigned char* st, int s) {
+    constexpr int kRow = kD * sizeof(T);
+    constexpr int KB = kRow / kKB;
+    const unsigned char* src = s >= KB ? w1l : w1h;
+    const int kb = s % KB;
+    for (int i = threadIdx.x; i < kHid * 8; i += kThreads) {
+        const int j = i >> 3, c = i & 7;
+        cp_async16(st + sw128(j, c), src + (size_t)j * kRow + kb * kKB + 16 * c, true);
+    }
+}
+
+// The partial of block (split, b) for bf16 or int8 storage (see the note
+// above).  Two warpgroups, each the 64 rows [64 wg, +64) of a tile against
+// all kHid columns (wgmma m64n256: 128 accumulators a thread).  Each warp
+// holds whole rows, so a row's logit needs only a quad's sum.  w1h: W1 in
+// bf16 [kHid][kD] (bf16), or W1's int8 hi and w1l its lo [kHid][kD] (int8);
+// w1_scale: s_w (int8; else null).  Grid (S, B).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
 abmil_fwd_partial(const T* __restrict__ x, const float* __restrict__ x_scale,
-                  const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ w1h, const __nv_bfloat16* __restrict__ w1l,
-                  const float* __restrict__ b1, const float* __restrict__ w2, int N,
-                  int chunk, int S, float* __restrict__ ws_m, float* __restrict__ ws_l,
+                  const uint8_t* __restrict__ mask, const void* __restrict__ w1h_,
+                  const void* __restrict__ w1l_, const float* __restrict__ w1_scale,
+                  const float* __restrict__ b1, const float* __restrict__ w2, int N, int chunk,
+                  int S, float* __restrict__ ws_m, float* __restrict__ ws_l,
                   float* __restrict__ ws_acc) {
-    using L = FwdSmem<T>;
-    using XS = typename Staged<T>::type;
-    constexpr int M = L::M;
-    constexpr int ldx = XLd<T>::value;
-    extern __shared__ __align__(128) unsigned char smem[];
-    XS* xs = reinterpret_cast<XS*>(smem + L::x);
-    float* hs = reinterpret_cast<float*>(smem + L::h);
-    void* wst = smem + L::w;
-    float* logit_s = reinterpret_cast<float*>(smem + L::rows);
-    float* p_s = logit_s + M;
-    float* valid_s = p_s + M;
-    float* scale_s = valid_s + M;
-    float* stat_s = scale_s + M;  // m, l, correction
+    using L = FwdSmemQ<T>;
+    constexpr bool I8 = L::I8;
+    using Acc = typename std::conditional<I8, int, float>::type;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem =
+        smem_raw + ((kAtom - (coattn::smem_u32(smem_raw) & (kAtom - 1))) & (kAtom - 1));
+    unsigned char* xs = smem + L::x;
+    unsigned char* stages = smem + L::w;
+    float* b1s = reinterpret_cast<float*>(smem + L::cols);
+    float* w2s = b1s + kHid;
+    float* logit_s = reinterpret_cast<float*>(smem + L::logit);
+    float* p_s = reinterpret_cast<float*>(smem + L::rows);
+    float* valid_s = p_s + kMQ;
+    float* sc_s = valid_s + kMQ;  // int8: the rows' dequant scales
+    float* stat_s = sc_s + kMQ;   // m, l, correction
+    const unsigned char* w1h = static_cast<const unsigned char*>(w1h_);
+    const unsigned char* w1l = static_cast<const unsigned char*>(w1l_);
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wg = warp >> 2, gq = lane >> 2, tq = lane & 3;
+    const int row0 = 64 * wg + 16 * (warp & 3) + gq;  // this thread's rows: row0, row0 + 8
     const int split = blockIdx.x, b = blockIdx.y;
     const int n_begin = split * chunk;
     const int n_end = min(N, n_begin + chunk);
     const T* xb = x + (size_t)b * N * kD;
     const uint8_t* mb = mask + (size_t)b * N;
+    const float unit = I8 ? *w1_scale / 254.f : 1.f;  // h_unit = unit (254 P_hi + P_lo)
 
-    float b1r[kHid / 32], w2r[kHid / 32];  // this lane's columns j = lane + 32c
+    // k-block kb of the block's tile `it` lives in x slot (it KB + kb) % XS:
+    // a tile's KB slots and the next tile's first NS - 1 are distinct, so
+    // those stream in during this tile's epilogue
+    auto slot = [&](int it, int kb) {
+        return xs + (size_t)((it * L::KB + kb) % L::XS) * kMQ * kKB;
+    };
 #pragma unroll
-    for (int c = 0; c < kHid / 32; ++c) {
-        b1r[c] = b1[lane + 32 * c];
-        w2r[c] = w2[lane + 32 * c];
+    for (int q = 0; q < L::LEAD; ++q) {  // the first tile's first slices, a group each
+        load_w1_kblock<T>(w1h, w1l, stages + (q % L::NS) * L::stage, q);
+        load_x_kblock(xb, n_begin, n_end, slot(0, q), q);
+        cp_async_commit();
+    }
+    for (int j = tid; j < kHid; j += kThreads) {
+        b1s[j] = b1[j];
+        w2s[j] = w2[j];
     }
     if (tid == 0) {
         stat_s[0] = kNegInf;
         stat_s[1] = 0.f;
     }
-    float acc0 = 0.f, acc1 = 0.f;  // channels tid and tid + kThreads
+    float acc0 = 0.f, acc1 = 0.f;  // channels 2 tid and 2 tid + 1
+    Acc acc[128];
 
-    for (int t0 = n_begin; t0 < n_end; t0 += M) {
-        stage_x(xb, t0, n_end, xs, M);
-        for (int r = tid; r < M; r += kThreads) {
-            const int n = t0 + r;
-            const bool valid = n < n_end && mb[n] != 0;
-            valid_s[r] = valid ? 1.f : 0.f;
-            scale_s[r] = (valid && x_scale != nullptr) ? x_scale[(size_t)b * N + n] : 1.f;
+#pragma unroll 1
+    for (int it = 0, t0 = n_begin; t0 < n_end; ++it, t0 += kMQ) {
+        const bool more = t0 + kMQ < n_end;
+        if (tid < kMQ) {
+            const int n = t0 + tid;
+            valid_s[tid] = n < n_end && mb[n] != 0 ? 1.f : 0.f;
+            if (I8) sc_s[tid] = n < n_end ? x_scale[(size_t)b * N + n] : 0.f;
         }
-        h_gemm<T>(xs, w1h, w1l, wst, hs);  // synchronises before and after
-
-        for (int r = warp; r < M; r += kWarps) {
-            const float sr = scale_s[r];
-            float s = 0.f;
 #pragma unroll
-            for (int c = 0; c < kHid / 32; ++c) {
-                s += tanhf(fmaf(hs[r * kLdH + lane + 32 * c], sr, b1r[c])) * w2r[c];
+        for (int i = 0; i < 128; ++i) acc[i] = 0;
+        // h_pre = x . W1^T: the block's slice g = 8 it + s (W1's k-block s
+        // in stage g % NS, x's k-block s % KB), issued LEAD slices ahead
+        // (the first ones during the previous tile), one group a slice, its
+        // products left in flight for DEPTH slices; bf16 one product over 8
+        // slices, int8 P_hi over slices 0-3, acc *= 254, P_lo over 4-7
+#pragma unroll 1
+        for (int s = 0; s < kSlicesW; ++s) {
+            const int g = it * kSlicesW + s;
+            cp_async_wait<L::LEAD - 1>();
+            fence_proxy_async();
+            // slice s landed for all; every warp is done with slice s - 1 -
+            // DEPTH and with the previous tile's epilogue (its x slots)
+            __syncthreads();
+            const int q = s + L::LEAD;
+            unsigned char* st = stages + ((g + L::LEAD) % L::NS) * L::stage;
+            if (q < kSlicesW) {
+                load_w1_kblock<T>(w1h, w1l, st, q);
+                if (q < L::KB) load_x_kblock(xb, t0, n_end, slot(it, q), q);
+            } else if (more) {  // the next tile's
+                load_w1_kblock<T>(w1h, w1l, st, q - kSlicesW);
+                if (q - kSlicesW < L::KB) {
+                    load_x_kblock(xb, t0 + kMQ, n_end, slot(it + 1, q - kSlicesW), q - kSlicesW);
+                }
             }
-            s = warp_sum(s);
-            if (lane == 0) logit_s[r] = valid_s[r] != 0.f ? s : kNegInf;
+            cp_async_commit();
+            if (I8 && s == L::KB) {  // P_hi is complete: acc = 254 P_hi, then + P_lo
+                wgmma_wait<0>();
+                fence_acc(acc);
+#pragma unroll
+                for (int i = 0; i < 128; ++i) acc[i] *= 254;
+            }
+            const unsigned char* xa = slot(it, s % L::KB) + 64 * wg * kKB;
+            const unsigned char* wb = stages + (g % L::NS) * L::stage;
+            fence_acc(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < kKB / 32; ++ks) {
+                wgmma_op(acc, desc_sw128(xa + 32 * ks), desc_sw128(wb + 32 * ks));
+            }
+            wgmma_commit();
+            wgmma_wait<L::DEPTH>();
+            fence_acc(acc);
+        }
+        wgmma_wait<0>();
+        fence_acc(acc);
+
+        // tanh and the w2 dot on the accumulators: each warp holds whole rows
+        {
+            const float f0 = I8 ? sc_s[row0] * unit : 1.f, f1 = I8 ? sc_s[row0 + 8] * unit : 1.f;
+            float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+            for (int j = 0; j < kHid / 8; ++j) {
+                const int c = 8 * j + 2 * tq;
+                const float c0 = b1s[c], c1 = b1s[c + 1], u0 = w2s[c], u1 = w2s[c + 1];
+                const float v0 = static_cast<float>(acc[4 * j]);
+                const float v1 = static_cast<float>(acc[4 * j + 1]);
+                const float v2 = static_cast<float>(acc[4 * j + 2]);
+                const float v3 = static_cast<float>(acc[4 * j + 3]);
+                p0 = fmaf(tanh_h(I8 ? fmaf(v0, f0, c0) : v0 + c0), u0,
+                          fmaf(tanh_h(I8 ? fmaf(v1, f0, c1) : v1 + c1), u1, p0));
+                p1 = fmaf(tanh_h(I8 ? fmaf(v2, f1, c0) : v2 + c0), u0,
+                          fmaf(tanh_h(I8 ? fmaf(v3, f1, c1) : v3 + c1), u1, p1));
+            }
+            p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+            p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+            p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+            p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+            if (tq == 0) {
+                logit_s[row0] = p0;
+                logit_s[row0 + 8] = p1;
+            }
         }
         __syncthreads();
 
         if (warp == 0) {
+            float lg[kMQ / 32];
             float mx = kNegInf;
-            for (int r = lane; r < M; r += 32) mx = fmaxf(mx, logit_s[r]);
+#pragma unroll
+            for (int i = 0; i < kMQ / 32; ++i) {
+                const int r = lane + 32 * i;
+                lg[i] = valid_s[r] != 0.f ? logit_s[r] : kNegInf;
+                mx = fmaxf(mx, lg[i]);
+            }
             mx = warp_max(mx);
             const float m_prev = stat_s[0];
             const float m_new = fmaxf(m_prev, mx);
             float psum = 0.f;
-            for (int r = lane; r < M; r += 32) {
-                const float p = valid_s[r] != 0.f ? expf(logit_s[r] - m_new) : 0.f;
-                p_s[r] = p * scale_s[r];
+#pragma unroll
+            for (int i = 0; i < kMQ / 32; ++i) {
+                const int r = lane + 32 * i;
+                const float p = valid_s[r] != 0.f ? expf(lg[i] - m_new) : 0.f;
+                p_s[r] = I8 ? p * sc_s[r] : p;  // the PV weight folds in s[n]
                 psum += p;
             }
             psum = warp_sum(psum);
@@ -163,25 +480,42 @@ abmil_fwd_partial(const T* __restrict__ x, const float* __restrict__ x_scale,
         }
         __syncthreads();
 
+        // PV: this thread's channels 2 tid, 2 tid + 1 are bytes [e, e + 4)
+        // (bf16) or [e, e + 2) (int8) of every row, e = tid * (4 or 2): in
+        // k-block e / 128, chunk (e % 128) / 16
         const float corr = stat_s[2];
         float s0 = 0.f, s1 = 0.f;
-        for (int r = 0; r < M; ++r) {
-            const float p = p_s[r];
-            s0 = fmaf(p, to_float(xs[r * ldx + tid]), s0);
-            s1 = fmaf(p, to_float(xs[r * ldx + tid + kThreads]), s1);
+        {
+            constexpr int kE = I8 ? 2 : 4;
+            const int e = kE * tid;
+            const unsigned char* xk = slot(it, e / kKB) + (e % 16);
+            const int c = (e % kKB) / 16;
+#pragma unroll 8
+            for (int r = 0; r < kMQ; ++r) {
+                const float p = p_s[r];
+                const unsigned char* px = xk + sw128(r, c);
+                float2 v;
+                if constexpr (I8) {
+                    const char2 cv = *reinterpret_cast<const char2*>(px);
+                    v = make_float2(static_cast<float>(cv.x), static_cast<float>(cv.y));
+                } else {
+                    v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(px));
+                }
+                s0 = fmaf(p, v.x, s0);
+                s1 = fmaf(p, v.y, s1);
+            }
         }
         acc0 = acc0 * corr + s0;
         acc1 = acc1 * corr + s1;
-        __syncthreads();  // xs and the rows are rewritten by the next tile
     }
+    cp_async_wait<0>();
 
     const size_t part = (size_t)b * S + split;
-    if (tid == 0) {
+    if (tid == 0) {  // after the last tile's barriers: its softmax wrote these
         ws_m[part] = stat_s[0];
         ws_l[part] = stat_s[1];
     }
-    ws_acc[part * kD + tid] = acc0;
-    ws_acc[part * kD + tid + kThreads] = acc1;
+    *reinterpret_cast<float2*>(ws_acc + part * kD + 2 * tid) = make_float2(acc0, acc1);
 }
 
 // The same partial for f32 storage: x . W1^T in split TF32 on the tensor
@@ -328,20 +662,89 @@ abmil_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
     }
 }
 
+// Partial maxima of |W1|: block k of kAmaxBlocks writes the max over its
+// kHid * kD / kAmaxBlocks entries to part[k].  A max is exact in any order.
+__global__ void __launch_bounds__(kThreads) w1_absmax(const float* __restrict__ w1,
+                                                      float* __restrict__ part) {
+    constexpr int kPer = kHid * kD / kAmaxBlocks;
+    __shared__ float warp_m[kWarps];
+    const float4* src = reinterpret_cast<const float4*>(w1 + (size_t)blockIdx.x * kPer);
+    float m = 0.f;
+    for (int i = threadIdx.x; i < kPer / 4; i += kThreads) {
+        const float4 v = src[i];
+        m = fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+    }
+    m = warp_max(m);
+    if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x >> 5] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_m[w]);
+        part[blockIdx.x] = m;
+    }
+}
+
+// W1 split into int8 hi and lo as vlsa_tpu/ops/coattn.py::_mm_rows_i8 splits
+// it (and ops/abmil.py::split_w1_i8): s_w = max(max|W1|, 1e-30) * (1/127),
+// v = W1 * (1 / s_w), hi = round(v), lo = round((v - hi) * 254), ties to
+// even, each operation rounded on its own (no fused multiply-add).  Every
+// block takes the max of the partial maxima; block 0 writes s_w to
+// scale[0].  One thread an entry.
+__global__ void __launch_bounds__(kThreads) prep_w1_i8(const float* __restrict__ w1,
+                                                       const float* __restrict__ part,
+                                                       int8_t* __restrict__ hi,
+                                                       int8_t* __restrict__ lo,
+                                                       float* __restrict__ scale) {
+    static_assert(kAmaxBlocks == 64, "two partial maxima a lane");
+    __shared__ float inv_s;
+    if (threadIdx.x < 32) {
+        const float m = warp_max(fmaxf(part[threadIdx.x], part[threadIdx.x + 32]));
+        if (threadIdx.x == 0) {
+            const float s = __fmul_rn(fmaxf(m, 1e-30f), (float)(1.0 / 127.0));
+            inv_s = __fdiv_rn(1.f, s);
+            if (blockIdx.x == 0) scale[0] = s;
+        }
+    }
+    __syncthreads();
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    const float v = __fmul_rn(w1[i], inv_s);
+    const float h = rintf(v);
+    hi[i] = static_cast<int8_t>(h);
+    lo[i] = static_cast<int8_t>(rintf(__fmul_rn(__fsub_rn(v, h), 254.f)));
+}
+
+// W1 for the bf16 (W1 in bf16, w1_ws [kHid, kD]) or int8 (hi and lo, w1_ws
+// [2, kHid, kD] int8; w1_scale [1 + kAmaxBlocks]: s_w, then the partial
+// maxima) partial kernel, then the partials.
 template <typename T>
 cudaError_t launch_partial(const void* x, const float* x_scale, const uint8_t* mask,
-                           const __nv_bfloat16* w1_bf16, const float* b1, const float* w2,
-                           int B, int N, int chunk, int S, float* ws_m, float* ws_l,
-                           float* ws_acc, cudaStream_t stream) {
+                           const float* w1, void* w1_ws, float* w1_scale, const float* b1,
+                           const float* w2, int B, int N, int chunk, int S, float* ws_m,
+                           float* ws_l, float* ws_acc, cudaStream_t stream) {
+    constexpr int kW = kHid * kD;
+    const void* w1h = w1_ws;
+    const void* w1l = nullptr;
+    cudaError_t err;
+    if constexpr (sizeof(T) == 1) {
+        int8_t* hi = static_cast<int8_t*>(w1_ws);
+        w1_absmax<<<kAmaxBlocks, kThreads, 0, stream>>>(w1, w1_scale + 1);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        prep_w1_i8<<<kW / kThreads, kThreads, 0, stream>>>(w1, w1_scale + 1, hi, hi + kW,
+                                                          w1_scale);
+        w1l = hi + kW;
+    } else {
+        err = launch_prep_w1(w1, static_cast<__nv_bfloat16*>(w1_ws), false, stream);
+        if (err != cudaSuccess) return err;
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     auto kernel = abmil_fwd_partial<T>;
-    const size_t smem = FwdSmem<T>::total;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const __nv_bfloat16* w1l = w1_bf16 == nullptr ? nullptr : w1_bf16 + kHid * kD;
+    const size_t smem = FwdSmemQ<T>::total;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess) {
+        return err;
+    }
     kernel<<<dim3(S, B), kThreads, smem, stream>>>(
-        static_cast<const T*>(x), x_scale, mask, w1_bf16, w1l, b1, w2, N, chunk, S,
-        ws_m, ws_l, ws_acc);
+        static_cast<const T*>(x), x_scale, mask, w1h, w1l, w1_scale, b1, w2, N, chunk, S, ws_m,
+        ws_l, ws_acc);
     return cudaGetLastError();
 }
 
@@ -365,21 +768,24 @@ extern "C" {
 // Bytes of dynamic shared memory one partial block needs.
 size_t abmil_fwd_smem_bytes(int storage) {
     if (storage == kF32) return FwdSmemF::total;
-    if (storage == kBF16) return FwdSmem<__nv_bfloat16>::total;
-    return FwdSmem<int8_t>::total;
+    if (storage == kBF16) return FwdSmemQ<__nv_bfloat16>::total;
+    return FwdSmemQ<int8_t>::total;
 }
 
 // x [B, N, 512] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N] f32 for int8,
 // else null; mask [B, N] bool; w1 [256, 512], b1 and w2 [256] f32.
-// Workspace: w1_bf16 [2, 256, 512] bf16 (bf16 and int8 storage; null for
-// f32), ws_m and ws_l [B, S], ws_acc [B, S, 512] f32.  Outputs: out [B, 512],
-// m and l [B] f32.  All on CUDA device `device`; the kernels go to `stream`.
-// Returns the launches' cudaError_t (0 on success).
+// Workspace: w1_ws W1 for the kernel, null (f32), [256, 512] bf16 (bf16) or
+// [2, 256, 512] int8 (int8: hi, lo); w1_scale f32 [65] (int8: s_w and 64
+// partial maxima of |W1|; else null); ws_m and ws_l [B, S], ws_acc
+// [B, S, 512] f32.  Outputs: out [B, 512], m and l [B] f32.  All on CUDA
+// device `device`; the kernels go to `stream`.  Returns the launches'
+// cudaError_t (0 on success).
 int abmil_fwd(const void* x, const void* x_scale, const void* mask, const void* w1,
               const void* b1, const void* w2, int B, int N, int chunk, int S, int storage,
-              int device, void* w1_bf16, void* ws_m, void* ws_l, void* ws_acc, void* out,
-              void* m_out, void* l_out, void* stream) {
-    if (B < 1 || N < 1 || S < 1 || chunk < 1 || (storage != kF32 && w1_bf16 == nullptr)
+              int device, void* w1_ws, void* w1_scale, void* ws_m, void* ws_l, void* ws_acc,
+              void* out, void* m_out, void* l_out, void* stream) {
+    if (B < 1 || N < 1 || S < 1 || chunk < 1 || (storage != kF32) != (w1_ws != nullptr)
+        || (storage == kI8) != (w1_scale != nullptr)
         || (storage == kI8) != (x_scale != nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
@@ -391,20 +797,19 @@ int abmil_fwd(const void* x, const void* x_scale, const void* mask, const void* 
     const float* w1f = static_cast<const float*>(w1);
     const float* b1f = static_cast<const float*>(b1);
     const float* w2f = static_cast<const float*>(w2);
-    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(w1_bf16);
+    float* wsc = static_cast<float*>(w1_scale);
     float* wm = static_cast<float*>(ws_m);
     float* wl = static_cast<float*>(ws_l);
     float* wa = static_cast<float*>(ws_acc);
     if (storage == kF32) {
         err = launch_partial_f32(static_cast<const float*>(x), mk, w1f, b1f, w2f, B, N, chunk,
                                  S, wm, wl, wa, st);
-    } else if (storage == kBF16 || storage == kI8) {
-        err = launch_prep_w1(w1f, wb, storage == kI8, st);
-        if (err != cudaSuccess) return (int)err;
-        err = storage == kBF16
-            ? launch_partial<__nv_bfloat16>(x, xs, mk, wb, b1f, w2f, B, N, chunk, S, wm, wl,
-                                            wa, st)
-            : launch_partial<int8_t>(x, xs, mk, wb, b1f, w2f, B, N, chunk, S, wm, wl, wa, st);
+    } else if (storage == kBF16) {
+        err = launch_partial<__nv_bfloat16>(x, xs, mk, w1f, w1_ws, wsc, b1f, w2f, B, N, chunk,
+                                            S, wm, wl, wa, st);
+    } else if (storage == kI8) {
+        err = launch_partial<int8_t>(x, xs, mk, w1f, w1_ws, wsc, b1f, w2f, B, N, chunk, S, wm,
+                                     wl, wa, st);
     } else {
         return (int)cudaErrorInvalidValue;
     }
