@@ -44,12 +44,15 @@ non-zero and prints no result:
      backward pass with a stack frame;
   2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
      the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
-     197, 1 and 1025 (CONCH at 512 px, beyond the resident capacity): bf16
-     on the path `flash_plan` gives (resident up to 800 keys, streamed
-     above), checked by the path counters, and the streamed path forced at
-     785 (f32 1e-4, bf16 2e-3, f32 output); the resident kernel's ptxas
-     lines (registers, static shared memory, spills) go to the record and
-     must show no spills;
+     197, 1, 801 and 1025 (CONCH at 512 px): bf16 on the path `flash_plan`
+     gives (the streamed kernel for every L), checked by the path counters,
+     and the resident kernel forced at 785 and 197 (f32 1e-4, bf16 2e-3,
+     f32 output); then the zero-query probe (q = 0, v = 1: every output
+     exactly L * bf16(1/L), within 1e-6, the mark of P normalised before it
+     is rounded) on every bf16 path at L = 197, 785, 801 and 1025; ptxas's
+     lines (registers, static shared memory, spills) go to the record, and a
+     resident instance or the streamed kernel that spills, or a stack frame
+     in the streamed kernel, fails the run;
   2e. full (dX) backward kernel: holds both variants of csrc/coattn_bwd_dx.cu
      against its plain version at the shape of phase 2 and at B=4, N=3000,
      C=1024 (the wide instance; the masked rows holding features), with
@@ -93,13 +96,18 @@ non-zero and prints no result:
      over two synthetic slides of 130 and 140 512x512 u8 tiles (ragged last
      batches) into .npy and then .q8npz stores, and a float32 extractor one
      batch, counting the flash kernel's launches (12 a batch, every bf16
-     one on the resident path); the stores
+     one on the path of flash_plan(785)); the stores
      read back through SurvBagDataset (.npy exact, .q8npz within one int8
      step of the quantized .npy features); the features agree with the same
      run through the plain attention (bf16 2e-2, f32 1e-4); device
      preprocessing of 4 tiles equals the host stack (u8 byte-exact, the
      normalize within 1 ulp); the tower's time per batch (CUDA events,
-     median of 10) and one profiled batch;
+     median of 10) and one profiled batch; then the same extractor at 512
+     px (L = 1025, the path of `runner.extract --image_size 512`) over one
+     slide of 100 tiles (batches of 64 and 36) to .npy, its counters from 0:
+     12 bf16 flash launches a batch, all on the path of flash_plan(1025),
+     the features within 2e-2 of the plain attention's, tiles/s and the
+     tower's time per batch;
   3f. training with the feature projecter: the flagship trainer with
      `vlsa_img_encoder_use_feat_proj: True` (the patch features then need a
      gradient: the dX kernel) takes Adam steps on TCGA-BLCA fold 0: 2 in
@@ -134,12 +142,13 @@ non-zero and prints no result:
      beside the bf16 and int8 backward, their design's byte floor (x read
      twice, the bf16 dz workspace -- int8: two planes -- written and read
      once);
-  4c. flash times: at B=64, H=12, L=785, bf16 resident and bf16 streamed
-     in turns (resident, streamed, streamed, resident) and f32, and bf16 at
-     L=1025 (the streamed path, which flash_plan takes there), each beside
-     the plain version, one scaled_dot_product_attention call (library_ms,
-     never called by the port) and the bound (`bound_flash`, exponentials
-     counted);
+  4c. flash times: at B=64, H=12, bf16 at L = 197 and 785 on the resident
+     and the streamed path in turns (resident, streamed, streamed,
+     resident), bf16 at L = 1025 (streamed) and f32 at 785, each beside the
+     plain version, one scaled_dot_product_attention call (library_ms,
+     never called by the port), the bound (`bound_flash`, exponentials
+     counted) and, for the streamed kernel, its design's floor
+     (`floor_flash_streamed`: two sweeps over 64-row and 64-key tiles);
   4d. dX times: both variants of the full backward at B=8, N=10240 and bf16
      at the training shape B=32, N=16384, with its block count, beside the
      plain version, the
@@ -239,7 +248,14 @@ FEAT_PROJ_STEPS = (("bfloat16", False, 2), ("float32", False, 1), ("int8", False
 # flash self-attention (vlsa_tpu/models/vision_tower.py:312): the CONCH trunk's
 # attention at extraction, 448-px input, patch 16, so L = 1 + 28^2; hd = 64
 FLASH_SHAPE = dict(B=64, H=12, L=785)
-FLASH_LENGTHS = (785, 197, 1, 1025)  # 1025: CONCH at 512 px, above the resident capacity
+# 801: just past the resident kernel's capacity; 1025: CONCH at 512 px
+FLASH_LENGTHS = (785, 197, 1, 801, 1025)
+FLASH_RESIDENT_LENGTHS = (785, 197)  # the resident kernel, forced (flash_plan takes streamed)
+# the zero-query probe: q = 0, v = 1 gives exactly L * bf16(1/L) when P is
+# normalised before it is rounded (an online softmax gives 1)
+FLASH_PROBE_LENGTHS = (197, 785, 801, 1025)
+TOL_FLASH_PROBE = 1e-6
+FLASH_TIMED_LENGTHS = (197, 785, 1025)
 FLASH_VARIANTS = ("bf16", "f32")
 TOL_FLASH = {"f32": 1e-4, "bf16": 2e-3}
 SOURCE_FLASH = "vlsa_tpu_torch/ops/csrc/flash_attn_fwd.cu"
@@ -248,6 +264,9 @@ REPLACES_FLASH = "vlsa_tpu/models/vision_tower.py:312 _flash_self_attention"
 # 512x512 u8 tiles whose tile counts leave a ragged last batch
 EXTRACT_TILES = (130, 140)
 EXTRACT_TILE_PX = 512
+# and at 512 px (L = 1 + 32^2 = 1025): one slide whose 100 tiles leave a
+# ragged last batch (64 + 36)
+EXTRACT_512_TILES = 100
 TOL_FEATS = {"bf16": 2e-2, "f32": 1e-4}  # features, flash kernel vs plain attention
 # the kernels of a profiled extraction batch and of a feature-projecter step
 # by kind (first match wins); GEMM_KERNELS names cuBLAS's and CUTLASS's GEMMs
@@ -696,25 +715,43 @@ def make_qkv(torch, B, H, L, variant, seed=0, device="cuda"):
 
 
 def flash_ptxas() -> list:
-    """ptxas's lines for csrc/flash_attn_fwd.cu's kernels; fails if the
-    resident kernel spills."""
+    """ptxas's lines for csrc/flash_attn_fwd.cu's kernels; fails if a
+    resident instance or the streamed kernel spills, or the streamed kernel
+    keeps a stack frame."""
     report = ptxas_lines("flash_attn_fwd")
     resident = [r for r in report if "flash_fwd_bf16_resident" in r["function"]]
-    check(len(resident) > 0, "ptxas shows no resident flash kernel")
-    for r in resident:
-        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
-              f"the resident flash kernel spills: {r}")
+    streamed = [r for r in report if "flash_fwd_bf16_streamed" in r["function"]]
+    check(len(resident) > 0 and len(streamed) == 1,
+          f"ptxas shows {len(resident)} resident and {len(streamed)} streamed flash kernels")
+    for r in resident + streamed:
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"a flash kernel spills: {r}")
+    check(streamed[0]["stack"] == 0, f"the streamed flash kernel keeps a stack frame: {streamed[0]}")
     return report
+
+
+def flash_probe(torch, fa, L, path, B=64, H=12):
+    """The zero-query probe on one bf16 path: q = 0, k ~ N(0, 1), v = 1.
+    Every score is 0, so P = 1/L rounded to bf16 and each output is L *
+    bf16(1/L) exactly; its worst relative deviation is returned."""
+    g = torch.Generator(device="cuda").manual_seed(L)
+    q = torch.zeros(B, H, L, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(B, H, L, 64, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.ones_like(q)
+    want = L * torch.tensor(1.0 / L).to(torch.bfloat16).double().item()
+    out = fa.flash_attn_fwd(q, k, v, _force_path=path)
+    torch.cuda.synchronize()
+    return float((out.double() - want).abs().max() / want), want
 
 
 def phase_flash_kernel(torch, fa):
     """Each variant of csrc/flash_attn_fwd.cu against its plain version at
-    B=64, H=12 and L = 785 (the extraction shape), 197, 1 and 1025; bf16 on
-    the path of `flash_plan(L)`, and on the streamed path forced at 785."""
+    B=64, H=12 and L = 785 (the extraction shape), 197, 1, 801 and 1025;
+    bf16 on the path of `flash_plan(L)`, and the resident kernel forced at
+    785 and 197; then the zero-query probe on every bf16 path."""
     ptxas = flash_ptxas()
     errs = {}
     cases = [(v, L, None) for v in FLASH_VARIANTS for L in FLASH_LENGTHS]
-    cases.append(("bf16", FLASH_SHAPE["L"], "streamed"))
+    cases += [("bf16", L, "resident") for L in FLASH_RESIDENT_LENGTHS]
     for v, L, force in cases:
         q, k, vv = make_qkv(torch, FLASH_SHAPE["B"], FLASH_SHAPE["H"], L, v)
         before = dict(fa.LAUNCHES_PATH)
@@ -731,6 +768,19 @@ def phase_flash_kernel(torch, fa):
             TOL_FLASH[v])
         del q, k, vv, out
         torch.cuda.empty_cache()
+    probe = {}
+    for L in FLASH_PROBE_LENGTHS:
+        paths = [None] + (["resident"] if L <= fa.RESIDENT_CAPACITY else [])
+        for path in paths:
+            dev, want = flash_probe(torch, fa, L, path)
+            name = path or fa.flash_plan(L)[0]
+            log(f"zero-query probe, bf16 {name}{' (forced)' if path else ''} at L={L}: every "
+                f"output {want!r} = L * bf16(1/L) within {dev:.3e} (tol {TOL_FLASH_PROBE:g})")
+            check(dev <= TOL_FLASH_PROBE, f"zero-query probe, bf16 {name} at L={L}: deviates "
+                                          f"{dev:.3e} from L * bf16(1/L) = {want!r}")
+            probe[f"{name}_L{L}"] = dev
+        torch.cuda.empty_cache()
+    errs["probe"] = probe
     return errs, ptxas
 
 
@@ -1481,9 +1531,11 @@ def phase_extraction(torch, fa, ab, co, device):
             f"({runs['q8npz']['tiles_per_sec']:.1f} tiles/s), one f32 batch; flash launches "
             f"{launches}, bf16 by path {path_launches}")
         check(launches == expected, f"flash launches {launches}, expected {expected}")
-        check(path_launches == {"resident": expected["bf16"], "streamed": 0},
-              f"bf16 flash launches by path {path_launches}: all {expected['bf16']} should be "
-              f"resident")
+        L = 1 + (448 // ex.model.trunk.patch_size) ** 2
+        plan = fa.flash_plan(L)[0]
+        check(path_launches == {p: expected["bf16"] if p == plan else 0 for p in path_launches},
+              f"bf16 flash launches by path {path_launches}: all {expected['bf16']} should take "
+              f"{plan}, the path of flash_plan({L})")
         check(sum(ab.LAUNCHES.values()) + sum(ab.LAUNCHES_BWD.values())
               + sum(co.LAUNCHES.values()) + sum(co.LAUNCHES_BWD.values()) == 0,
               "extraction launched an ABMIL or co-attention kernel")
@@ -1560,6 +1612,79 @@ def phase_extraction(torch, fa, ab, co, device):
             "runs": runs, "q8_dev": q8_dev,
             "feat_err": feat_err, "bf16_vs_f32": bf16_vs_f32, "preprocess_u8_exact": u8_exact,
             "preprocess_norm_dev": norm_dev, "preprocess_norm_ulp": norm_ulp, "tower_ms": tower_ms, "profiled_batch": prof}
+
+
+def phase_extraction_512(torch, fa, ab, co, device):
+    """CONCH at full width at 512 px (L = 1025), the path of `python -m
+    vlsa_tpu_torch.runner.extract --image_size 512`: one synthetic slide of
+    EXTRACT_512_TILES 512x512 u8 tiles (a ragged last batch) through
+    `extract_to_store` in bf16, batch 64, device preprocessing; the flash
+    launches by path (12 a batch, on the path of flash_plan(1025)); the
+    features against the same run through the plain attention; tiles/s and
+    the tower's time per batch."""
+    import tempfile
+    import numpy as np
+    from vlsa_tpu_torch.data.bags import read_patch_data
+    from vlsa_tpu_torch.data.extract import FeatureExtractor, extract_to_store
+    from vlsa_tpu_torch.data.transforms_device import build_device_preprocess
+
+    ex = FeatureExtractor(image_size=512, batch_size=64, compute_dtype="bfloat16", seed=0,
+                          device=device)
+    layers = ex.model.trunk.layers
+    L = 1 + (512 // ex.model.trunk.patch_size) ** 2
+    check(ex._device_preprocess and ex.feat_dim == 512 and layers == 12 and L == 1025,
+          f"the 512-px extractor is not CONCH at full width (L={L}, {layers} layers)")
+    plan = fa.flash_plan(L)[0]
+    n_batches = -(-EXTRACT_512_TILES // 64)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_extract512_") as tmp:
+        src = os.path.join(tmp, "tiles")
+        os.makedirs(src)
+        rng = np.random.default_rng(1)
+        tiles = rng.integers(0, 256, size=(EXTRACT_512_TILES, EXTRACT_TILE_PX, EXTRACT_TILE_PX, 3),
+                             dtype=np.uint8)
+        np.save(os.path.join(src, "slide512.npy"), tiles)
+
+        # ---- the main path: every launch counter from 0 ----
+        for kernels in (fa, ab, co):
+            kernels.reset_launches()
+        stats = extract_to_store(src, os.path.join(tmp, "npy"), ex, fmt="npy", verbose=False)
+        launches, path_launches = dict(fa.LAUNCHES), dict(fa.LAUNCHES_PATH)
+        expected = layers * n_batches
+        log(f"extraction at 512 px (L={L}): {EXTRACT_512_TILES} tiles to .npy in {n_batches} "
+            f"batches ({stats['tiles_per_sec']:.1f} tiles/s); flash launches {launches}, bf16 by "
+            f"path {path_launches}")
+        check(launches == {"bf16": expected, "f32": 0}, f"flash launches {launches}, expected "
+                                                        f"{expected} bf16")
+        check(path_launches == {p: expected if p == plan else 0 for p in path_launches},
+              f"bf16 flash launches by path {path_launches}: all {expected} should take {plan}, "
+              f"the path of flash_plan({L})")
+        check(sum(ab.LAUNCHES.values()) + sum(ab.LAUNCHES_BWD.values())
+              + sum(co.LAUNCHES.values()) + sum(co.LAUNCHES_BWD.values()) == 0,
+              "extraction launched an ABMIL or co-attention kernel")
+        check(stats["slides"] == 1 and stats["tiles"] == EXTRACT_512_TILES and stats["empty"] == 0,
+              f"512-px run: {stats}")
+        feats = read_patch_data(os.path.join(tmp, "npy", "slide512.npy"))
+        check(feats.shape == (EXTRACT_512_TILES, 512) and bool(np.isfinite(feats).all()),
+              f"512-px features {feats.shape}, finite {np.isfinite(feats).all()}")
+        with plain_flash():
+            plain = ex.extract(tiles)
+        feat_err = rel_err(torch.from_numpy(feats), torch.from_numpy(plain))
+        log(f"512-px features, flash kernel vs plain attention (max|a-b| / max|b|): "
+            f"{feat_err:.3e} (tol {TOL_FEATS['bf16']:g})")
+        check(feat_err <= TOL_FEATS["bf16"], f"512-px features deviate {feat_err:.3e} from the "
+                                             f"plain attention's")
+
+    x = build_device_preprocess((EXTRACT_TILE_PX,) * 2, 512)(
+        torch.from_numpy(tiles[:64]).to(device))
+
+    def tower():
+        with torch.inference_mode():
+            return ex.model.forward_no_head(x)
+    tower_ms = median_ms(torch, tower, runs=10, warmup=2)
+    log(f"tower forward at 512 px, batch 64 bf16 (CUDA events, median of 10): {tower_ms:.2f} ms, "
+        f"{64e3 / tower_ms:.0f} tiles/s")
+    return {"L": L, "launches": launches, "path_launches": path_launches, "run": stats,
+            "feat_err": feat_err, "tower_ms": tower_ms}
 
 
 # ---------------------------------------------------------------- phase 3f
@@ -2006,59 +2131,70 @@ def bound_flash(B, H, L, variant, hd=64):
                                               else "operations")
 
 
+def floor_flash_streamed(B, H, L, hd=64):
+    """The streamed bf16 design's own floor in ms (not a bound of the
+    function), and what sets it: its two sweeps over query and key tiles of
+    64 (L padded to Lp = 64 ceil(L / 64)) do 6 * hd products per padded
+    score (Q K^T twice, P V once: 1.5x the function's) and 2 exponentials
+    per padded score, at the card's bf16 and SFU peaks, beside the
+    function's bytes."""
+    from vlsa_tpu_torch.ops.flash_attn import STREAMED_ROWS, STREAMED_TILE_K
+    lq = -(-L // STREAMED_ROWS) * STREAMED_ROWS
+    lk = -(-L // STREAMED_TILE_K) * STREAMED_TILE_K
+    t_bytes = (3 * B * H * L * hd * 2 + 4 * B * H * L * hd) / HBM_BYTES_PER_S
+    t_ops = 6 * B * H * lq * lk * hd / PEAK_OPS["bf16"]
+    t_exp = 2 * B * H * lq * lk / EXP_PER_S
+    by = max((t_bytes, "bytes"), (t_ops, "operations"), (t_exp, "exponentials"))[1]
+    return 1e3 * max(t_bytes, t_ops, t_exp), by
+
+
 def phase_flash_times(torch, fa):
-    """Each flash variant at the extraction shape: the kernel (bf16 on both
-    paths, in turns), its plain version and one scaled_dot_product_attention
-    call on the same inputs (the yardstick; the port never calls it), beside
-    the bound."""
+    """The flash kernels at B=64, H=12: bf16 at L = 197 and 785 on both
+    paths, in turns (resident, streamed, streamed, resident), and at L =
+    1025 on the streamed path, f32 at 785; each beside its plain version and
+    one scaled_dot_product_attention call on the same inputs (the yardstick;
+    the port never calls it), the bound and, for the streamed path, the
+    design's floor."""
     import torch.nn.functional as F
     times = {}
-    for v in FLASH_VARIANTS:
-        q, k, vv = make_qkv(torch, **FLASH_SHAPE, variant=v, seed=1)
-        paths = ("resident", "streamed") if v == "bf16" else (None,)
+    B, H = FLASH_SHAPE["B"], FLASH_SHAPE["H"]
+    cases = [("bf16", L) for L in FLASH_TIMED_LENGTHS] + [("f32", FLASH_SHAPE["L"])]
+    for v, L in cases:
+        q, k, vv = make_qkv(torch, B, H, L, variant=v, seed=1)
+        if v == "f32":
+            paths = (None,)
+        else:
+            paths = ("resident", "streamed") if L <= fa.RESIDENT_CAPACITY else ("streamed",)
         ref = fa.flash_self_attention_reference(q, k, vv)
-        errs = {p: hold(f"flash {v}{'' if p is None else ' ' + p} at the timed shape",
+        errs = {p: hold(f"flash {v}{'' if p is None else ' ' + p} at the timed shape L={L}",
                         fa.flash_attn_fwd(q, k, vv, _force_path=p), ref, TOL_FLASH[v])
                 for p in paths}
         del ref
         runs = {p: [] for p in paths}
         for p in paths + paths[::-1]:
             runs[p].append(median_ms(torch, lambda: fa.flash_attn_fwd(q, k, vv, _force_path=p)))
-        b_ms, b_by = bound_flash(**FLASH_SHAPE, variant=v)
-        common = dict(FLASH_SHAPE, bound_ms=b_ms, bound_by=b_by,
+        b_ms, b_by = bound_flash(B, H, L, variant=v)
+        common = dict(B=B, H=H, L=L, bound_ms=b_ms, bound_by=b_by,
                       plain_ms=median_ms(torch, lambda: fa.flash_self_attention_reference(
                           q, k, vv)),
                       library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
                           q, k, vv)))
         for p in paths:
-            name = v if p in (None, "resident") else f"{v}_{p}"
-            times[name] = t = dict(common, path=p, err=errs[p], ms=runs[p][0], ms_runs=runs[p])
-            log(f"time flash_attn_fwd[{name}] B=64 H=12 L=785 kernel "
+            name = v if p is None else f"{v}_{p}"
+            t = times[f"{name}_L{L}"] = dict(common, path=p, err=errs[p], ms=runs[p][0],
+                                              ms_runs=runs[p])
+            extra = ""
+            if p == "streamed":
+                t["floor_ms"], t["floor_by"] = floor_flash_streamed(B, H, L)
+                extra = (f"  design floor {t['floor_ms']:.4f} ms ({t['floor_by']})  "
+                         f"kernel/floor {t['ms'] / t['floor_ms']:.2f}x")
+            log(f"time flash_attn_fwd[{name}] B=64 H=12 L={L} kernel "
                 + " / ".join(f"{ms:.4f}" for ms in t["ms_runs"]) + f" ms  plain "
                 f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
                 f"({b_by})  kernel/bound {t['ms'] / b_ms:.1f}x  kernel/library "
-                f"{t['ms'] / t['library_ms']:.2f}x")
+                f"{t['ms'] / t['library_ms']:.2f}x" + extra)
         del q, k, vv
         torch.cuda.empty_cache()
-    # bf16 at L=1025 (CONCH at 512 px), above the resident capacity: the
-    # streamed path, the one flash_plan takes there
-    shape = dict(FLASH_SHAPE, L=FLASH_LENGTHS[-1])
-    check(fa.flash_plan(shape["L"])[0] == "streamed", f"flash_plan({shape['L']}) is not streamed")
-    q, k, vv = make_qkv(torch, **shape, variant="bf16", seed=1)
-    err = hold(f"flash bf16 at L={shape['L']}", fa.flash_attn_fwd(q, k, vv),
-               fa.flash_self_attention_reference(q, k, vv), TOL_FLASH["bf16"])
-    b_ms, b_by = bound_flash(**shape, variant="bf16")
-    times["bf16_L1025"] = t = dict(
-        shape, path="streamed", err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=median_ms(torch, lambda: fa.flash_attn_fwd(q, k, vv)),
-        plain_ms=median_ms(torch, lambda: fa.flash_self_attention_reference(q, k, vv)),
-        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, vv)))
-    log(f"time flash_attn_fwd[bf16] B=64 H=12 L={shape['L']} (streamed) kernel {t['ms']:.4f} ms"
-        f"  plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms  bound {b_ms:.4f} ms "
-        f"({b_by})  kernel/bound {t['ms'] / b_ms:.1f}x  kernel/library "
-        f"{t['ms'] / t['library_ms']:.2f}x")
-    del q, k, vv
-    torch.cuda.empty_cache()
     return times
 
 
@@ -2165,6 +2301,7 @@ def main(argv=None) -> int:
         sa_serving = phase_sa_serving(torch, ab, co, device)
         sa_training = phase_sa_training(torch, ab, co, device)
         extraction = phase_extraction(torch, fa, ab, co, device)
+        extraction_512 = phase_extraction_512(torch, fa, ab, co, device)
         feat_proj = phase_feat_proj_training(torch, co, device)
         times = phase_times(torch, co)
         abmil_times = phase_abmil_times(torch, ab)
@@ -2214,11 +2351,15 @@ def main(argv=None) -> int:
                 "max_abs_err": errs_abmil[s][name]["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"].split()[0], "library_ms": None})
+    # bf16 on the path flash_plan names (the streamed kernel), timed at the
+    # extraction shape; its launches those of both extraction runs
     for v in FLASH_VARIANTS:
-        t = flash_times[v]
+        t = flash_times[f"{v}_{fa.flash_plan(FLASH_SHAPE['L'])[0]}_L{FLASH_SHAPE['L']}"
+                        if v == "bf16" else f"{v}_L{FLASH_SHAPE['L']}"]
         kernels.append({
             "name": f"flash_attn_fwd[{v}]", "route": "cuda", "source": SOURCE_FLASH,
-            "replaces": REPLACES_FLASH, "launches": extraction["launches"][v],
+            "replaces": REPLACES_FLASH,
+            "launches": extraction["launches"][v] + extraction_512["launches"][v],
             "max_abs_err": errs_flash[v][FLASH_SHAPE["L"]]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
@@ -2236,7 +2377,7 @@ def main(argv=None) -> int:
               "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
               "flash_ptxas": flash_ptxas_lines,
               "flash_plan": {L: list(fa.flash_plan(L)) for L in FLASH_LENGTHS},
-              "extraction": extraction, "flash_times": flash_times, "dx_errors": errs_dx,
+              "extraction": extraction, "extraction_512": extraction_512, "flash_times": flash_times, "dx_errors": errs_dx,
               "feat_proj_training": feat_proj, "dx_times": dx_times, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     if args.out:

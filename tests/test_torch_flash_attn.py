@@ -1,7 +1,8 @@
 """The port's plain flash self-attention against vlsa_tpu's
 `_flash_self_attention` (JAX's library Pallas TPU flash kernel, run in
 interpret mode on the CPU) and against the dense attention of its
-TimmViTBlock, at L = 1, 37 and 785 (the extraction length), hd = 64.
+TimmViTBlock, at L = 1, 37, 785 (CONCH at 448 px), 801 (just past the
+resident capacity) and 1025 (CONCH at 512 px), hd = 64.
 
 Tolerances (max|a-b| / max|b|):
   * vs the Pallas kernel, f32: 1e-5 (both f32 up to summation order);
@@ -42,7 +43,7 @@ def _plain(arrays, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L", [1, 37, 785])
+@pytest.mark.parametrize("L", [1, 37, 785, 801, 1025])
 def test_plain_matches_pallas_flash(L, dtype):
     arrays = _inputs(L)
     with pltpu.force_tpu_interpret_mode():
@@ -66,11 +67,28 @@ def _dense(arrays, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L", [1, 37, 785])
+@pytest.mark.parametrize("L", [1, 37, 785, 801, 1025])
 def test_plain_matches_dense_block_attention(L, dtype):
     arrays = _inputs(L, seed=1, B=2)
     got = _plain(arrays, dtype).numpy()
     assert _rel(got, _dense(arrays, dtype)) <= (1e-5 if dtype == "float32" else 2e-3)
+
+
+@pytest.mark.parametrize("L", [197, 785, 801, 1025])
+def test_zero_query_probe_matches_dense_block_attention(L):
+    """q = 0, v = 1 in bf16: every score is 0, so P = 1/L normalised and then
+    rounded gives exactly L * bf16(1/L) (1.0009765625 at L = 1025), where an
+    online softmax, rounding before it knows l, would give 1.  The plain
+    version equals the block's dense path bit for bit (the Pallas kernel's
+    bf16 output rounding would hide the gap)."""
+    rng = np.random.default_rng(L)
+    q = np.zeros((1, 2, L, 64), np.float32)
+    k = rng.normal(size=(1, 2, L, 64)).astype(np.float32)
+    v = np.ones((1, 2, L, 64), np.float32)
+    got = _plain((q, k, v), "bfloat16").numpy()
+    want = L * float(torch.tensor(1.0 / L).to(torch.bfloat16))
+    assert got.min() == got.max() == np.float32(want)
+    assert np.array_equal(got, _dense((q, k, v), "bfloat16"))
 
 
 def test_cpu_entry_takes_the_plain_version():
@@ -84,52 +102,75 @@ def test_cpu_entry_takes_the_plain_version():
         fa.flash_attn_fwd(q, k, v)
 
 
-# ---- the bf16 path plan (csrc/flash_attn_fwd.cu: resident or streamed) ----
+# ---- the bf16 path plan (csrc/flash_attn_fwd.cu: streamed for every L;
+# the resident kernel only when forced) ----
 
-@pytest.mark.parametrize("L, path", [(785, "resident"), (197, "resident"), (1025, "streamed"),
-                                     (1, "resident"), (37, "resident"),
-                                     (fa.RESIDENT_CAPACITY, "resident"),
-                                     (fa.RESIDENT_CAPACITY + 1, "streamed")])
-def test_flash_plan_path(L, path):
-    """CONCH at 448 px (785) and ViT-B/16 at 224 px (197) run resident, CONCH
-    at 512 px (1025) streamed; the capacity itself is resident."""
-    assert fa.flash_plan(L)[0] == path
+@pytest.mark.parametrize("L", [785, 197, 1025, 1, 37, fa.RESIDENT_CAPACITY,
+                               fa.RESIDENT_CAPACITY + 1])
+def test_flash_plan_path(L):
+    """Every bf16 length takes the streamed path, L alone deciding: it beat
+    the resident one at CONCH's 448 px (785) and ViT-B/16's 224 px (197) on
+    the card, and it alone takes CONCH at 512 px (1025)."""
+    assert fa.flash_plan(L) == ("streamed", 0, fa.STREAMED_SMEM)
 
 
 @pytest.mark.parametrize("L", [1, 16, 17, 64, 65, 128, 129, 197, 256, 257, 448, 449, 640, 641,
                                785, 800, 801, 1025, 4096])
 def test_flash_plan_fits_the_block(L):
-    """The resident plan's chunks (of 16 keys, per warp, RESIDENT_WARPS
-    warps a stripe) are a template instance and cover L, its shared memory
-    fits an H100 block, and it is the smallest instance that covers L."""
+    """The streamed plan's shared memory fits an H100 block four times over
+    (four blocks an SM); the resident plan, which `_force_path` takes, is
+    the smallest template instance (chunks of 16 keys per warp,
+    RESIDENT_WARPS warps a stripe) that covers L up to the capacity, fits a
+    block, and has no instance above it."""
     path, chunks, smem = fa.flash_plan(L)
-    assert smem <= fa.SMEM_PER_BLOCK
-    if path == "streamed":
-        assert L > fa.RESIDENT_CAPACITY and chunks == 0
+    assert path == "streamed" and chunks == 0 and 4 * (smem + 1024) <= 233472
+    path, chunks, smem = fa.resident_plan(L)
+    w = fa.RESIDENT_WARPS
+    assert path == "resident"
+    assert smem == -(-L // 16) * 16 * 256 + 4 * (2 * (w - 1) * 16 * 64 + 2 * 2 * w * 16)
+    if L > fa.RESIDENT_CAPACITY:
+        assert chunks == 0
         return
-    keys_per_chunk = 16 * fa.RESIDENT_WARPS
-    assert L <= fa.RESIDENT_CAPACITY and chunks in fa.RESIDENT_CHUNKS
+    keys_per_chunk = 16 * w
+    assert smem <= fa.SMEM_PER_BLOCK and chunks in fa.RESIDENT_CHUNKS
     assert keys_per_chunk * chunks >= L
     assert all(keys_per_chunk * c < L for c in fa.RESIDENT_CHUNKS if c < chunks)
-    w = fa.RESIDENT_WARPS
-    assert smem == -(-L // 16) * 16 * 256 + 4 * (2 * (w - 1) * 16 * 64 + 2 * 2 * w * 16)
 
 
 def test_flash_plan_mirrors_the_kernel_source():
-    """The Python plan's constants are the kernel's: the warps per stripe,
-    the template instances, the capacity and the shared memory at capacity
-    (the header note's sum)."""
+    """The Python plans' constants are the kernel's: the streamed kernel's
+    rows a block, keys and stages of its ring and its shared memory (the
+    comment's sum), and the resident kernel's warps per stripe, template
+    instances, capacity and shared memory at capacity (the header note's
+    sum)."""
     import re
     from pathlib import Path
     src = (Path(fa.__file__).parent / "csrc" / "flash_attn_fwd.cu").read_text()
+    assert re.search(rf"kStrRows = {fa.STREAMED_ROWS};", src)
+    assert re.search(rf"kStrTileK = {fa.STREAMED_TILE_K};", src)
+    assert re.search(rf"kStrStages = {fa.STREAMED_STAGES};", src)
+    assert f"alignment: {fa.STREAMED_SMEM:,}" in src
     chunks = re.search(r"kResChunks\[\] = \{([0-9, ]+)\}", src).group(1)
     assert tuple(int(c) for c in chunks.split(",")) == fa.RESIDENT_CHUNKS
     assert re.search(rf"kResCapacity = {fa.RESIDENT_CAPACITY};", src)
     assert re.search(rf"kResW = {fa.RESIDENT_WARPS};", src)
-    smem = fa.flash_plan(fa.RESIDENT_CAPACITY)[2]
+    smem = fa.resident_plan(fa.RESIDENT_CAPACITY)[2]
     assert f"= {smem:,} of the 232,448 B" in src
-    with pytest.raises(ValueError):
-        fa.flash_plan(0)
+    for plan in (fa.flash_plan, fa.resident_plan):
+        with pytest.raises(ValueError):
+            plan(0)
+
+
+@pytest.mark.parametrize("name", ["stages4", "lead1", "no_exp1", "no_exp2", "no_pv"])
+def test_flash_variants_edit_the_kernel_source(name):
+    """Each variant of ops/flash_variants.py is an edit that applies once to
+    the kernel source as it stands."""
+    from pathlib import Path
+    from vlsa_tpu_torch.ops import flash_variants as fv
+    src = (Path(fa.__file__).parent / "csrc" / "flash_attn_fwd.cu").read_text()
+    assert fv.VARIANTS[name]
+    for old, new in fv.VARIANTS[name]:
+        assert src.count(old) == 1 and old != new
 
 
 def test_reset_launches_clears_the_path_counts():

@@ -506,17 +506,41 @@ def test_flash_kernel_matches_plain(device, dtype, shape):
     assert _rel(out, fa.flash_self_attention_reference(q, k, v)) <= TOL_FLASH[dtype]
 
 
-def test_flash_streamed_path_forced_matches_plain(device):
-    """The streamed path, forced at the extraction length the plan gives the
-    resident one, holds the same tolerance."""
-    g = torch.Generator().manual_seed(5)
-    q, k, v = (torch.randn(1, 2, 785, 64, generator=g).to(torch.bfloat16).to(device)
+@pytest.mark.parametrize("shape", [(2, 1, 1), (3, 2, 63), (2, 3, 64), (5, 1, 65), (1, 4, 127),
+                                   (2, 2, 128), (3, 1, 129), (1, 2, 785), (2, 3, 801),
+                                   (1, 5, 1025), (1, 2, 2049)])
+def test_flash_streamed_path_forced_matches_plain(device, shape):
+    """The streamed kernel, called through the private hook, at its tile
+    edges (64 query rows a block, 64 keys a stage: L = 1, 63, 64, 65, 127,
+    128, 129), at CONCH's lengths (785, 1025), just past the resident
+    capacity (801) and at 2049, with several B*H, holds TOL_FLASH, and only
+    its counter moves."""
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(*shape, 64, generator=g).to(torch.bfloat16).to(device)
                for _ in range(3))
     before = dict(fa.LAUNCHES_PATH)
     out = fa.flash_attn_fwd(q, k, v, _force_path="streamed")
     torch.cuda.synchronize()
     assert fa.LAUNCHES_PATH == dict(before, streamed=before["streamed"] + 1)
+    assert out.dtype == torch.float32 and out.shape == q.shape
     assert _rel(out, fa.flash_self_attention_reference(q, k, v)) <= TOL_FLASH[torch.bfloat16]
+
+
+@pytest.mark.parametrize("L", [197, 785, 801, 1025])
+def test_flash_zero_query_probe(device, L):
+    """q = 0, v = 1: every score is 0, so P = 1/L normalised and then rounded
+    to bf16 makes every output exactly L * bf16(1/L) (1.0009765625 at L =
+    1025), where an online softmax, which rounds before it knows l, gives
+    1.  Every bf16 path, planned and forced, within 1e-6."""
+    g = torch.Generator().manual_seed(L)
+    q = torch.zeros(2, 3, L, 64, dtype=torch.bfloat16, device=device)
+    k = torch.randn(2, 3, L, 64, generator=g).to(torch.bfloat16).to(device)
+    v = torch.ones_like(q)
+    want = L * torch.tensor(1.0 / L).to(torch.bfloat16).double().item()
+    paths = [None, "streamed"] + (["resident"] if L <= fa.RESIDENT_CAPACITY else [])
+    for path in paths:
+        out = fa.flash_attn_fwd(q, k, v, _force_path=path).double()
+        assert float((out - want).abs().max()) <= 1e-6 * want, (path, want)
 
 
 def test_flash_resident_launch_error_raises(device, monkeypatch):
@@ -540,6 +564,31 @@ def test_flash_resident_launch_error_raises(device, monkeypatch):
 
     monkeypatch.setattr(fa, "_library", lambda: Failing())
     with pytest.raises(fa.FlashKernelError, match="resident"):
+        fa.flash_attn_fwd(q, q, q, _force_path="resident")
+    assert (fa.LAUNCHES, fa.LAUNCHES_PATH) == before
+
+
+def test_flash_streamed_launch_error_raises(device, monkeypatch):
+    """A streamed launch that fails raises FlashKernelError and launches no
+    other path: a grid the kernel refuses (B*H above 65,535) and a launch
+    whose C call reports an error, through the planned entry point."""
+    q = torch.randn(65536, 1, 1, 64, device=device).to(torch.bfloat16)
+    before = (dict(fa.LAUNCHES), dict(fa.LAUNCHES_PATH))
+    with pytest.raises(fa.FlashKernelError, match="streamed"):
+        fa.flash_self_attention(q, q, q)
+    q = torch.randn(1, 2, 1025, 64, device=device).to(torch.bfloat16)
+    lib = fa._library()
+
+    class Failing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def flash_attn_fwd(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(fa, "_library", lambda: Failing())
+    with pytest.raises(fa.FlashKernelError, match="streamed"):
         fa.flash_self_attention(q, q, q)
     assert (fa.LAUNCHES, fa.LAUNCHES_PATH) == before
 

@@ -40,7 +40,7 @@ from .transforms import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD, preprocess_batc
 from .transforms_device import build_device_preprocess
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp")
-_TODO = "not ported yet (ROADMAP.md §A.5)"
+_TODO = "not ported yet (ROADMAP.md §A.14)"
 
 
 def _lazy_import(name: str, what: str):

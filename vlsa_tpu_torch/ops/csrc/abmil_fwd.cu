@@ -90,14 +90,22 @@
 #include <type_traits>
 
 #include "abmil_common.cuh"
+#include "wgmma_common.cuh"
 
 using namespace abmil;
+using sm90::desc_sw128;
+using sm90::fence_acc;
+using sm90::fence_proxy_async;
+using sm90::sw128;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait;
 
 namespace {
 
 constexpr int kMQ = 128;        // patches a tile (bf16, int8)
-constexpr int kKB = 128;        // bytes of a row a k-block holds: one 128-byte swizzle span
-constexpr int kAtom = 8 * kKB;  // 1024: 8 rows of a k-block, the swizzle's period
+constexpr int kKB = sm90::kSpan;  // bytes of a row a k-block holds: one 128-byte swizzle span
+constexpr int kAtom = sm90::kAtom;  // 1024: 8 rows of a k-block, the swizzle's period
 constexpr int kSlicesW = 8;     // W1 slices a tile: bf16 its 8 k-blocks, int8 hi's 4 then lo's 4
 constexpr int kAmaxBlocks = 64;
 
@@ -108,20 +116,8 @@ __device__ __forceinline__ float tanh_h(float v) {
     return tanhf(v);
 }
 
-// ---- wgmma m64n256 on operands in shared memory (K-major, 128-byte swizzle)
-//
-// A k-block [rows][128 B] stores 16-byte chunk c of row r at r * 128 +
-// ((c ^ (r % 8)) << 4), from a 1024-byte aligned base: the layout the
-// tensor cores read with a 128-byte swizzle descriptor (8-row groups 1024
-// bytes apart).  A k-step of 32 bytes (16 bf16 or 32 int8 values) is the
-// descriptor's start advanced by 32 bytes within the span.
-
-__device__ __forceinline__ int sw128(int r, int c) { return r * kKB + ((c ^ (r & 7)) << 4); }
-
-__device__ __forceinline__ uint64_t desc_sw128(const unsigned char* p) {
-    return (uint64_t)((coattn::smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16)
-           | ((uint64_t)(kAtom >> 4) << 32) | (1ull << 62);
-}
+// ---- wgmma m64n256 on operands in shared memory (K-major, 128-byte swizzle:
+// wgmma_common.cuh)
 
 // d += A . B^T for a warpgroup: A [64 rows][k-step] and B [256 rows][k-step]
 // by descriptor; d is m64n256's accumulator fragment (warp w of the group
@@ -217,36 +213,6 @@ __device__ __forceinline__ void wgmma_op(Acc (&d)[128], uint64_t da, uint64_t db
     } else {
         wgmma_bf16(d, da, db);
     }
-}
-
-// Pin the accumulators' registers across the asynchronous wgmma (the
-// compiler does not know that the instruction writes them later).
-template <typename Acc>
-__device__ __forceinline__ void fence_acc(Acc (&d)[128]) {
-#pragma unroll
-    for (int i = 0; i < 128; ++i) {
-        if constexpr (std::is_same<Acc, int>::value) {
-            asm volatile("" : "+r"(d[i])::"memory");
-        } else {
-            asm volatile("" : "+f"(d[i])::"memory");
-        }
-    }
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// cp.async's writes (the generic proxy) made visible to wgmma's reads (the
-// async proxy).
-__device__ __forceinline__ void fence_proxy_async() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Shared-memory carve-up of the bf16 and int8 partial kernel, from a

@@ -27,7 +27,9 @@
 // about equally, f32 by the FMA pipe.
 //
 // Paths (the wrapper's `flash_plan(L)` chooses; L alone decides):
-//   - bf16 resident (L <= 800): K and V of one (b, h) stay in shared memory
+//   - bf16 resident (L <= 800; reached through the wrapper's `_force_path`
+//     only, held and timed beside the streamed path, which the card measured
+//     faster at L = 197 and 785): K and V of one (b, h) stay in shared memory
 //     (2 x keys x 128 B, XOR-swizzled 16-byte chunks, loaded once by
 //     cp.async: K first, V waited for only before the first P V).  A
 //     persistent block of 8 warps loops over (b, h) pairs and, within a pair,
@@ -55,13 +57,28 @@
 //     peak); with 2 warps per scheduler the products, the exponentials and
 //     the exchanges barely overlap.  `python -m vlsa_tpu_torch.ops.flash_clocks`
 //     times each phase (PERF.md has the reading).
-//   - bf16 streamed (L > 800, or forced by the wrapper's private hook): the
-//     two-sweep kernel of the first port.  One block per (b*h, 64-query
-//     tile), 4 warps of 16 query rows; sweep 1 runs the online (m, l) over
-//     64-key tiles, sweep 2 recomputes S and forms P = exp(S - m) / l
-//     rounded to bf16 for P V.  1.5x the function's products, two expf and a
-//     divide per score, synchronous staging: kept for lengths beyond the
-//     resident capacity (CONCH at 512 px, L = 1025).
+//   - bf16 streamed (any L; `flash_plan` sends every bf16 L here, the
+//     resident path is kept for `_force_path`): two sweeps on wgmma.  A
+//     block of one warpgroup takes 64 query rows of one (b, h), Q's A
+//     fragments in registers; K (sweep 1) and K and V (sweep 2) stream in
+//     tiles of 64 keys through a ring of 3 shared-memory stages in the
+//     128-byte swizzled layout (wgmma_common.cuh), loaded by TMA from a
+//     [B*H][L][64] tensor map (rows past L zero-filled), 2 steps ahead, one
+//     barrier and one mbarrier wait a step.  Sweep 1: S = Q K^T by wgmma
+//     m64n64k16 (A from registers, K K-major from shared memory), each
+//     thread's running (m, l) over its own columns in f32, the quad's
+//     combined once at the end.  Sweep 2 recomputes S and forms P = 2^(S c -
+//     m) * (1 / l), rounded to bf16 straight from S's accumulator into the A
+//     registers of the wgmma m64n64k16 P V, whose V is read MN-major from
+//     its [key][dim] tile by the transpose flag.  Each exponential is one
+//     FFMA and one ex2.approx in both sweeps, so l sums the very values
+//     sweep 2 normalises: P is normalised before it is rounded, as the TPU
+//     kernel rounds it (an online softmax rounds 2^(S c - m_running) before
+//     l is known, another function).  What bounds it: two sweeps are 1.5x
+//     the function's products and 2x its exponentials (at the data sheet's
+//     rates 0.313 ms of tensor work and 0.386 ms of SFU work at B=64, H=12,
+//     L=1025), and each step is a chain (S, its wait, the exponentials, P V,
+//     its wait) that four blocks an SM overlap only in part.
 //   - f32: true f32 FMAs on the CUDA cores (no TF32), a one-sweep online
 //     softmax.  A block of 256 threads owns 128 query rows, a head's tiles
 //     side by side; each thread a register tile of 8 rows x 2 keys of S and 8
@@ -71,19 +88,17 @@
 //     this one computes; 2 blocks per SM.  A head's last, partial tile
 //     computes only its live 16-row groups.  Bound by the FMA pipe's issue
 //     slots: the loads, the softmax and the barriers take ~20% of them.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma_common.cuh"
+
 namespace {
 
 constexpr int kHd = 64;       // head dimension the kernels take
-constexpr int kTileQ = 64;    // query rows per block (streamed)
-constexpr int kTileK = 64;    // keys per shared-memory tile (streamed)
-constexpr int kLdB = kHd + 8;  // bf16 row stride in shared memory: 144 B,
-                               // conflict-free 32-bit fragment loads
-constexpr int kThreadsB = 128;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 enum Path { kResident = 0, kStreamed = 1 };
@@ -102,10 +117,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -180,7 +191,7 @@ size_t resident_smem(int L) {
 }
 
 #ifdef FLASH_CLOCKS
-// Phase clocks of the resident kernel, for `python -m
+// Phase clocks of the bf16 kernels, for `python -m
 // vlsa_tpu_torch.ops.flash_clocks` (built with -DFLASH_CLOCKS; the shipped
 // library has none of this): SM clocks per phase, summed over warps.
 constexpr int kPhases = 9;
@@ -447,158 +458,264 @@ flash_fwd_bf16_resident(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
 // ============================================================ bf16 streamed
 
-// Rows row0 .. row0+63 of a [L, 64] bf16 matrix into dst[64][kLdB]; rows
-// past L are zero.  16-byte loads and stores, consecutive threads on
-// consecutive chunks of a row.
-__device__ __forceinline__ void stage_rows_bf16(const __nv_bfloat16* __restrict__ src, int row0,
-                                                int L, __nv_bfloat16* dst) {
-    for (int c = threadIdx.x; c < kTileK * (kHd / 8); c += kThreadsB) {
-        const int r = c >> 3, ch = c & 7;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + r < L) {
-            val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kHd + ch * 8);
-        }
-        *reinterpret_cast<uint4*>(dst + r * kLdB + ch * 8) = val;
-    }
+// A block is one warpgroup (4 warps) and takes 64 query rows of one (b, h),
+// 16 a warp, Q's A fragments in registers.  K and V stream through a ring of
+// kStrStages stages of 64 keys, each a K and a V tile [64 keys][128 B] in
+// the swizzled layout of wgmma_common.cuh, loaded by TMA kStrLead steps
+// ahead (one thread issues a step's copies; an mbarrier a stage says they
+// landed).  Four blocks an SM (106 registers, 50,200 bytes of shared memory
+// each).  Against the designs tried on the card (PERF.md §6): one
+// warpgroup a block beat two to four sharing a block's tiles (a block's
+// warpgroups step together behind its barriers; separate blocks drift
+// apart, one's exponentials beside another's products); TMA beat every
+// thread's cp.async (whose address arithmetic took a large share of a
+// step's instructions); 128-key tiles, and issuing the next tile's S or the
+// previous tile's P V ahead of the exponentials, gained nothing.
+constexpr int kStrRows = 64;                          // query rows a block
+constexpr int kStrThreads = 128;                      // one warpgroup
+constexpr int kStrTileK = 64;                         // keys a stage
+constexpr int kStrStages = 3;
+constexpr int kStrLead = kStrStages - 1;              // steps the copies run ahead
+constexpr size_t kStrKV = (size_t)kStrTileK * sm90::kSpan;  // 8,192: a K or V tile
+constexpr size_t kStrSmem =  // the stages, their barriers, alignment: 50,200
+    kStrStages * 2 * kStrKV + kStrStages * sizeof(uint64_t) + sm90::kAtom;
+
+// d (m64n64, f32) += A B over one k-step of 16: A's fragment in registers
+// (a[0..3]: rows g and g + 8 of the warp's 16, columns 2 t, 2 t + 1 and 2 t
+// + 8, 2 t + 9, the layout of mma.sync's A), B [64][16] in shared memory by
+// descriptor: K-major (TRANS_B = 0: S = Q K^T, K's rows are keys) or
+// MN-major (TRANS_B = 1: O += P V, V's rows are keys); scale_d = 0
+// overwrites d.  d's fragment: warp w of the group holds rows 16 w + g and
+// 16 w + g + 8; d[4 j .. 4 j + 3] are columns 8 j + 2 t, 8 j + 2 t + 1 of
+// the first row, then of the second (g = lane / 4, t = lane % 4).  S's
+// accumulator layout is P's A layout, so P goes from s to A registers
+// without a shuffle.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db,
+                                         int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,\n"
+        " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,\n"
+        " %24, %25, %26, %27, %28, %29, %30, %31},\n"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
-// The same rows transposed: dst[d][key] = V[row0 + key][d].  Consecutive
-// threads take consecutive keys, so the scalar stores of one warp fall in
-// distinct banks.
-__device__ __forceinline__ void stage_rows_bf16_t(const __nv_bfloat16* __restrict__ src, int row0,
-                                                  int L, __nv_bfloat16* dst) {
-    for (int c = threadIdx.x; c < kTileK * (kHd / 8); c += kThreadsB) {
-        const int r = c & (kTileK - 1), ch = c / kTileK;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + r < L) {
-            val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kHd + ch * 8);
-        }
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+// s = Q K^T over the K tile at ks (Q's fragments qf[kk] for k-step kk),
+// then o += P V over the V tile at vs (P's fragments p[4 kk ..] for k-step
+// kk): four k-steps each, issued and committed as one group.
+__device__ __forceinline__ void issue_qk(const uint32_t (&qf)[4][4], const unsigned char* ks,
+                                         float (&s)[32]) {
+    sm90::fence_acc(s);
+    sm90::wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 8; ++i) dst[(ch * 8 + i) * kLdB + r] = e[i];
+    for (int kk = 0; kk < kHd / 16; ++kk) {  // 32-byte k-steps of K's rows
+        wgmma_rs<0>(s, qf[kk], sm90::desc_sw128(ks + 32 * kk), kk);
     }
+    sm90::wgmma_commit();
+}
+__device__ __forceinline__ void issue_pv(const uint32_t (&p)[16], const unsigned char* vs,
+                                         float (&o)[32]) {
+    sm90::fence_acc(o);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStrTileK / 16; ++kk) {  // 16 of V's rows a k-step
+        wgmma_rs<1>(o, p + 4 * kk, sm90::desc_sw128_mn(vs + 16 * kk * sm90::kSpan), 1);
+    }
+    sm90::wgmma_commit();
 }
 
-// S for the warp's 16 query rows against the 64 staged keys: s[nt] is the
-// C fragment of keys nt*8 .. nt*8+7 (rows g and g+8, columns 2t and 2t+1),
-// scaled, with keys at or past L set to -inf.
-__device__ __forceinline__ void qk_tile(const uint32_t qf[4][4], const __nv_bfloat16* ks,
-                                        int g, int t, int k0, int L, float scale,
-                                        float s[8][4]) {
+// Keys >= L of the tile at k0 to -inf (only the last tile has any).
+__device__ __forceinline__ void mask_keys(float (&s)[32], int k0, int L, int t) {
+    if (k0 + kStrTileK <= L) return;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const __nv_bfloat16* krow = ks + (nt * 8 + g) * kLdB + 2 * t;
-#pragma unroll
-        for (int kc = 0; kc < 4; ++kc) {
-            mma_bf16(s[nt], qf[kc], ld32(krow + kc * 16), ld32(krow + kc * 16 + 8));
-        }
+    for (int j = 0; j < kStrTileK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const int key = k0 + nt * 8 + 2 * t + (e & 1);
-            s[nt][e] = key < L ? s[nt][e] * scale : -INFINITY;
+            if (k0 + 8 * j + 2 * t + (e & 1) >= L) s[4 * j + e] = -INFINITY;
         }
     }
 }
 
-__global__ void __launch_bounds__(kThreadsB)
-flash_fwd_bf16_streamed(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int L,
-                        float scale) {
-    __shared__ __align__(16) __nv_bfloat16 qs[kTileQ * kLdB];
-    __shared__ __align__(16) __nv_bfloat16 ks[kTileK * kLdB];
-    __shared__ __align__(16) __nv_bfloat16 vt[kHd * kLdB];
+// Row statistics of the warp's rows g (0) and g + 8 (1): m in log2 units
+// (the scaled max), l the row sum, inv 1 / l.
+struct RowStats {
+    float m0, m1, l0, l1, inv0, inv1;
+};
 
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3;
-    const int q0 = blockIdx.y * kTileQ;
-    const size_t base = (size_t)blockIdx.x * L * kHd;
-    const int n_tiles = (L + kTileK - 1) / kTileK;
-
-    stage_rows_bf16(q + base, q0, L, qs);
-    __syncthreads();
-    // A fragments of the warp's rows r0 = 16*warp + g and r1 = r0 + 8, for
-    // the four 16-wide chunks of hd
-    uint32_t qf[4][4];
-    const int r0 = warp * 16 + g, r1 = r0 + 8;
+// Sweep 1: folds a tile's s into this thread's running (m, l) of its rows g
+// and g + 8, over its own columns only: the quad's four shares are combined
+// once, after the sweep (combine_stats), not by shuffles every tile.  m is
+// the scaled max (scale > 0).  A thread that has seen only keys >= L (L <
+// 64) keeps m = -inf and l = 0: its exponentials subtract 0 instead.  Four
+// partial maxima and sums a row keep the dependency chains short.
+__device__ __forceinline__ void fold_stats(const float (&s)[32], float scale_log2, RowStats& st) {
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-        qf[kc][0] = ld32(qs + r0 * kLdB + kc * 16 + 2 * t);
-        qf[kc][1] = ld32(qs + r1 * kLdB + kc * 16 + 2 * t);
-        qf[kc][2] = ld32(qs + r0 * kLdB + kc * 16 + 2 * t + 8);
-        qf[kc][3] = ld32(qs + r1 * kLdB + kc * 16 + 2 * t + 8);
-    }
-
-    // sweep 1: row max m and normaliser l, online over the key tiles.  Every
-    // tile holds key k0 < L, so m is finite from the first tile on.
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's share
-    float s[8][4];
-    for (int kt = 0; kt < n_tiles; ++kt) {
-        const int k0 = kt * kTileK;
-        stage_rows_bf16(k + base, k0, L, ks);
-        __syncthreads();
-        qk_tile(qf, ks, g, t, k0, L, scale, s);
-        float mx0 = -INFINITY, mx1 = -INFINITY;
+    for (int h = 0; h < 2; ++h) {
+        float& m = h ? st.m1 : st.m0;
+        float& l = h ? st.l1 : st.l0;
+        float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-            mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-            mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-        }
-        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-        float ps0 = 0.f, ps1 = 0.f;
+        for (int j = 0; j < kStrTileK / 8; ++j) {
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-            ps0 += expf(s[nt][0] - mn0) + expf(s[nt][1] - mn0);
-            ps1 += expf(s[nt][2] - mn1) + expf(s[nt][3] - mn1);
-        }
-        l0 = l0 * expf(m0 - mn0) + ps0;
-        l1 = l1 * expf(m1 - mn1) + ps1;
-        m0 = mn0;
-        m1 = mn1;
-        __syncthreads();  // ks is restaged next
-    }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
-
-    // sweep 2: P = exp(S - m) / l rounded to bf16, O += P V
-    float o[8][4];
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-        const int k0 = kt * kTileK;
-        stage_rows_bf16(k + base, k0, L, ks);
-        stage_rows_bf16_t(v + base, k0, L, vt);
-        __syncthreads();
-        qk_tile(qf, ks, g, t, k0, L, scale, s);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {  // 16 keys: n-tiles 2kk and 2kk+1
-            uint32_t a[4];
-            a[0] = pack_bf16(expf(s[2 * kk][0] - m0) / l0, expf(s[2 * kk][1] - m0) / l0);
-            a[1] = pack_bf16(expf(s[2 * kk][2] - m1) / l1, expf(s[2 * kk][3] - m1) / l1);
-            a[2] = pack_bf16(expf(s[2 * kk + 1][0] - m0) / l0, expf(s[2 * kk + 1][1] - m0) / l0);
-            a[3] = pack_bf16(expf(s[2 * kk + 1][2] - m1) / l1, expf(s[2 * kk + 1][3] - m1) / l1);
-#pragma unroll
-            for (int dt = 0; dt < 8; ++dt) {
-                const __nv_bfloat16* vrow = vt + (dt * 8 + g) * kLdB + kk * 16 + 2 * t;
-                mma_bf16(o[dt], a, ld32(vrow), ld32(vrow + 8));
+            for (int c = 0; c < 2; ++c) {
+                mx[2 * (j & 1) + c] = fmaxf(mx[2 * (j & 1) + c], s[4 * j + 2 * h + c]);
             }
         }
-        __syncthreads();  // ks and vt are restaged next
-    }
-
-    const int row0 = q0 + r0, row1 = q0 + r1;
+        const float mn = fmaxf(m, scale_log2 * fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+        const float mu = mn == -INFINITY ? 0.f : mn;
+        float ps[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-        const int d = dt * 8 + 2 * t;
+        for (int j = 0; j < kStrTileK / 8; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                ps[2 * (j & 1) + c] += exp2_approx(fmaf(s[4 * j + 2 * h + c], scale_log2, -mu));
+            }
+        }
+        l = l * exp2_approx(m - mu) + ((ps[0] + ps[1]) + (ps[2] + ps[3]));
+        m = mn;
+    }
+}
+
+// After sweep 1: each row's max over the quad, its sum of the quad's shares
+// rescaled to that max (key 0 lies in lane t = 0's columns, so the max is
+// finite), and 1 / l.
+__device__ __forceinline__ void combine_stats(RowStats& st) {
+    const float m0 = quad_max(st.m0), m1 = quad_max(st.m1);
+    st.inv0 = 1.f / quad_sum(st.l0 * exp2_approx(st.m0 - m0));
+    st.inv1 = 1.f / quad_sum(st.l1 * exp2_approx(st.m1 - m1));
+    st.m0 = m0;
+    st.m1 = m1;
+}
+
+// Sweep 2: P = 2^(s c - m) * (1 / l), the exponential by fold_stats' FFMA
+// and ex2.approx, rounded to bf16 into the A fragments of P V: k-step kk,
+// p[4 kk .. 4 kk + 3], takes s's key chunks 2 kk and 2 kk + 1 as (row g,
+// keys 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8): s's own order, two
+// values a register.
+__device__ __forceinline__ void form_p(const float (&s)[32], float scale_log2, const RowStats& st,
+                                       uint32_t (&p)[16]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+        const float m = (i & 1) ? st.m1 : st.m0, inv = (i & 1) ? st.inv1 : st.inv0;
+        p[i] = pack_bf16(exp2_approx(fmaf(s[2 * i], scale_log2, -m)) * inv,
+                         exp2_approx(fmaf(s[2 * i + 1], scale_log2, -m)) * inv);
+    }
+}
+
+// Grid (query tiles of 64, B*H).  tmk, tmv: K's and V's tensor maps
+// (kv_tensor_map); scale_log2 = hd^-0.5 * log2(e).
+//
+// Step i < n of a block is sweep 1's key tile i, step n + i sweep 2's; its
+// copies were issued kStrLead steps ahead into stage i % kStrStages.  A
+// ragged last tile runs the full m64n64 products with its keys >= L at
+// -inf (at L = 1025, 63 wasted keys of 1088).  Rows past L read row L - 1's
+// Q (finite S) and store nothing.
+__global__ void __launch_bounds__(kStrThreads)
+flash_fwd_bf16_streamed(const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv,
+                        const __nv_bfloat16* __restrict__ q, float* __restrict__ out, int L,
+                        float scale_log2) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* stages =  // [stages][K, V][64][128 B]
+        smem_raw + ((sm90::kAtom - (smem_u32(smem_raw) & (sm90::kAtom - 1))) & (sm90::kAtom - 1));
+    uint64_t* full = reinterpret_cast<uint64_t*>(stages + kStrStages * 2 * kStrKV);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int q0 = blockIdx.x * kStrRows, bh = blockIdx.y;
+    const size_t base = (size_t)bh * L * kHd;
+    const int n = (L + kStrTileK - 1) / kStrTileK;  // key tiles
+
+    auto kstage = [&](int i) { return stages + (size_t)(i % kStrStages) * 2 * kStrKV; };
+    // step i's copies, by one thread: the K tile and, in sweep 2, the V tile
+    // (rows past L zero-filled by the copy engine), completing on the stage's
+    // barrier
+    auto issue = [&](int i) {
+        const bool sweep2 = i >= n;
+        const int k0 = (sweep2 ? i - n : i) * kStrTileK;
+        unsigned char* ks = kstage(i);
+        uint64_t* bar = &full[i % kStrStages];
+        sm90::mbar_arrive_expect_tx(bar, (sweep2 ? 2 : 1) * (uint32_t)kStrKV);
+        sm90::tma_load_3d(ks, &tmk, 0, k0, bh, bar);
+        if (sweep2) sm90::tma_load_3d(ks + kStrKV, &tmv, 0, k0, bh, bar);
+    };
+    if (tid == 0) {
+        for (int i = 0; i < kStrStages; ++i) sm90::mbar_init(&full[i], 1);
+        sm90::mbar_fence_init();
+        for (int i = 0; i < kStrLead && i < 2 * n; ++i) issue(i);
+    }
+    // every warp is done with step i - 1, whose stage takes step i +
+    // kStrLead's copies; then step i's copies have landed
+    auto advance = [&](int i) {
+        __syncthreads();
+        if (tid == 0 && i + kStrLead < 2 * n) issue(i + kStrLead);
+        sm90::mbar_wait(&full[i % kStrStages], (i / kStrStages) & 1);
+    };
+
+    uint32_t qf[4][4], p[16];
+    load_q_frags(q + base, q0 + 16 * warp, L, g, t, qf);
+    float s[32], o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = o[i] = 0.f;
+    RowStats st{-INFINITY, -INFINITY, 0.f, 0.f, 0.f, 0.f};
+
+    PHASE_INIT();
+
+    // ---- sweep 1: the exact (m, l) of every row
+    for (int j = 0; j < n; ++j) {
+        advance(j);
+        PHASE(0);
+        issue_qk(qf, kstage(j), s);
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(s);
+        PHASE(1);
+        mask_keys(s, j * kStrTileK, L, t);
+        fold_stats(s, scale_log2, st);
+        PHASE(2);
+    }
+    combine_stats(st);
+
+    // ---- sweep 2: O = P V
+    for (int j = 0; j < n; ++j) {
+        advance(n + j);
+        PHASE(3);
+        issue_qk(qf, kstage(n + j), s);
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(s);
+        PHASE(4);
+        mask_keys(s, j * kStrTileK, L, t);
+        form_p(s, scale_log2, st, p);
+        PHASE(5);
+        issue_pv(p, kstage(n + j) + kStrKV, o);
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(p);
+        PHASE(6);
+    }
+    sm90::fence_acc(o);
+
+    const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
+#pragma unroll
+    for (int j = 0; j < kHd / 8; ++j) {
+        const int d = 8 * j + 2 * t;
         if (row0 < L) {
             *reinterpret_cast<float2*>(out + base + (size_t)row0 * kHd + d) =
-                make_float2(o[dt][0], o[dt][1]);
+                make_float2(o[4 * j], o[4 * j + 1]);
         }
         if (row1 < L) {
             *reinterpret_cast<float2*>(out + base + (size_t)row1 * kHd + d) =
-                make_float2(o[dt][2], o[dt][3]);
+                make_float2(o[4 * j + 2], o[4 * j + 3]);
         }
     }
+    PHASE(7);
+    PHASE_FLUSH();
 }
 
 // ============================================================ f32
@@ -767,6 +884,63 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ============================================================ launch
 
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                                  &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+            fn = reinterpret_cast<EncodeTiled>(p);
+        }
+    }
+    return fn;
+}
+
+// The tensor map of a bf16 [BH][L][64] tensor in boxes of one head's 64
+// rows, 128-byte swizzled: a box's rows past L are zero-filled.
+cudaError_t kv_tensor_map(CUtensorMap* map, const void* x, int BH, int L) {
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {(cuuint64_t)kHd, (cuuint64_t)L, (cuuint64_t)BH};
+    const cuuint64_t strides[2] = {(cuuint64_t)kHd * 2, (cuuint64_t)L * kHd * 2};  // bytes
+    const cuuint32_t box[3] = {(cuuint32_t)kHd, (cuuint32_t)kStrTileK, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_streamed(const void* q, const void* k, const void* v, void* out, int BH, int L,
+                            float scale_log2, cudaStream_t st) {
+    CUtensorMap tmk, tmv;
+    cudaError_t err = kv_tensor_map(&tmk, k, BH, L);
+    if (err != cudaSuccess) return err;
+    err = kv_tensor_map(&tmv, v, BH, L);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_fwd_bf16_streamed, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kStrSmem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_bf16_streamed<<<dim3((L + kStrRows - 1) / kStrRows, BH), kStrThreads, kStrSmem, st>>>(
+        tmk, tmv, static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out), L, scale_log2);
+    return cudaGetLastError();
+}
+
+
 // The resident kernel's template instances: chunks of 16 keys per warp.
 constexpr int kResChunks[] = {2, 4, 7, 10, 13};
 
@@ -795,15 +969,14 @@ cudaError_t launch_resident(const void* q, const void* k, const void* v, void* o
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of (dtype, path) needs at length
-// L (the streamed kernel's 27,648 are static).
+// Bytes of dynamic shared memory one block of (dtype, path) needs at length L.
 size_t flash_attn_fwd_smem_bytes(int dtype, int path, int L) {
     if (dtype == kF32) return kSmemF32;
-    return path == kResident ? resident_smem(L) : 0;
+    return path == kResident ? resident_smem(L) : kStrSmem;
 }
 
 #ifdef FLASH_CLOCKS
-// Copies the resident kernel's phase clocks to host_out[kPhases] and zeroes them.
+// Copies the bf16 kernels' phase clocks to host_out[kPhases] and zeroes them.
 int flash_phase_clocks(unsigned long long* host_out) {
     cudaError_t err = cudaMemcpyFromSymbol(host_out, g_phase_clocks, sizeof(g_phase_clocks));
     if (err != cudaSuccess) return (int)err;
@@ -838,12 +1011,8 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, int B
         return (int)cudaGetLastError();
     }
     if (path == kStreamed) {
-        const int q_tiles = (L + kTileQ - 1) / kTileQ;
-        if (q_tiles > 65535) return (int)cudaErrorInvalidValue;
-        flash_fwd_bf16_streamed<<<dim3(BH, q_tiles), kThreadsB, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-            static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), L, scale);
-        return (int)cudaGetLastError();
+        if (BH > 65535) return (int)cudaErrorInvalidValue;
+        return (int)launch_streamed(q, k, v, out, BH, L, scale_log2, st);
     }
     if (path != kResident || L > kResCapacity || 16 * kResW * chunks < L) {
         return (int)cudaErrorInvalidValue;

@@ -7,10 +7,13 @@ extraction (counterpart of vlsa_tpu/models/vision_tower.py:312
 a CPU tensor goes through the plain version, a CUDA tensor through the
 hand-written Hopper kernel `csrc/flash_attn_fwd.cu` (bf16 on the tensor
 cores, f32 on the CUDA cores) or raises `FlashKernelError`; there is no
-fallback.  bf16 has two paths, chosen by L alone (`flash_plan`): `resident`
-(K and V of a head held in shared memory, one sweep; L <= 800, which covers
-CONCH at 448 px, L = 785, and ViT-B/16 at 224 px, L = 197) and `streamed`
-(two sweeps over key tiles; any L, taken above 800).
+fallback.  bf16 has two paths.  `flash_plan(L)` sends every L to `streamed`
+(two sweeps on wgmma over 64-key tiles that TMA streams through shared
+memory): on an H100 it beat `resident` (K and V of a head held in shared
+memory, one sweep, L <= 800) at CONCH's 448 px (L = 785) and ViT-B/16's
+224 px (L = 197) alike, and it alone takes CONCH at 512 px (L = 1025).  The
+resident path stays reachable through `flash_attn_fwd(..., _force_path=
+"resident")`, for the checks that hold and time it.
 
 Rounding follows the TPU kernel at the trunk's block sizes (the whole padded
 sequence in one key block, so `_flash_attention_kernel_single_batch_single_
@@ -23,6 +26,7 @@ block's result is the same.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,7 +52,13 @@ RESIDENT_CHUNKS = (2, 4, 7, 10, 13)
 RESIDENT_CAPACITY = 800
 SMEM_PER_BLOCK = 232448
 _RESIDENT_FIXED_SMEM = 4 * (2 * (RESIDENT_WARPS - 1) * 16 * 64 + 2 * 2 * RESIDENT_WARPS * 16)
-_STREAMED_SMEM = 2 * 3 * 64 * 72  # static: Q, K and V^T tiles of 64 x 72 bf16
+# The streamed bf16 kernel: query rows a block (one warpgroup), keys a
+# stage, the ring's stages and its shared memory (a K and a V tile of 64 x
+# 128 B a stage, an 8-byte mbarrier a stage, 1,024 B of alignment).
+STREAMED_ROWS = 64
+STREAMED_TILE_K = 64
+STREAMED_STAGES = 3
+STREAMED_SMEM = STREAMED_STAGES * (2 * STREAMED_TILE_K * 128 + 8) + 1024
 _PATH = {"resident": 0, "streamed": 1}
 
 
@@ -64,16 +74,24 @@ def reset_launches() -> None:
 
 
 def flash_plan(L: int) -> tuple:
-    """The bf16 path for length L, from L alone: ("resident", chunks per
-    warp, shared bytes per block) for L <= RESIDENT_CAPACITY, else
-    ("streamed", 0, its static shared bytes)."""
+    """The bf16 path for length L, from L alone: ("streamed", 0, its shared
+    bytes per block) for every L >= 1."""
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    return "streamed", 0, STREAMED_SMEM
+
+
+def resident_plan(L: int) -> tuple:
+    """The resident path at L <= RESIDENT_CAPACITY, which only
+    `_force_path` takes: ("resident", chunks per warp, shared bytes per
+    block); above the capacity ("resident", 0, the bytes it would need),
+    which the kernel refuses."""
     if L < 1:
         raise ValueError(f"L must be >= 1, got {L}")
     keys = -(-L // 16) * 16
-    if keys > RESIDENT_CAPACITY:
-        return "streamed", 0, _STREAMED_SMEM
-    chunks = next(c for c in RESIDENT_CHUNKS if 16 * RESIDENT_WARPS * c >= L)
-    return "resident", chunks, keys * 2 * 64 * 2 + _RESIDENT_FIXED_SMEM
+    chunks = next((c for c in RESIDENT_CHUNKS if 16 * RESIDENT_WARPS * c >= L), 0)
+    return "resident", chunks if keys <= RESIDENT_CAPACITY else 0, \
+        keys * 2 * 64 * 2 + _RESIDENT_FIXED_SMEM
 
 
 def flash_self_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -101,6 +119,13 @@ def _library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_optin(device: int) -> int:
+    """Shared memory a block may opt into on CUDA device `device` (asked
+    once: the query costs more host time than a short launch)."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    _force_path: str | None = None) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors q, k, v [B, H, L, 64], all
@@ -124,7 +149,7 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, L, hd = q.shape
     path, chunks = None, 0
     if q.dtype == torch.bfloat16:
-        path, chunks, _smem = flash_plan(L)
+        path, chunks, _smem = (resident_plan if _force_path == "resident" else flash_plan)(L)
         if _force_path is not None:
             path = _force_path
     try:
@@ -134,7 +159,7 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype = _DTYPE[q.dtype]
     path_id = _PATH.get(path, -1) if path is not None else 0
     smem = lib.flash_attn_fwd_smem_bytes(dtype, path_id, L)
-    optin = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
+    optin = _smem_optin(_device_index(q.device))
     if smem > optin:
         raise FlashKernelError(f"flash_attn_fwd needs {smem} bytes of shared memory per block, "
                                f"the card gives {optin}")
