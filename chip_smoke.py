@@ -68,14 +68,15 @@ non-zero and prints no result:
      probabilities against the same requests with the plain co-attention;
   3b. training: builds the flagship trainer on TCGA-BLCA fold 0 (12 label
      bins) and takes Adam steps of SurvIFMLE + SurvEMD on batches of 32
-     patients' synthetic bags: 3 in bf16, then one in each other variant,
-     counting both kernels' launches; every step has a finite loss, an
-     unchanged frozen tower and moved learnable parameters; on the main
-     path's last batch of each variant the gradients through the kernels and
-     through the plain co-attention agree within 2e-3 per parameter
-     (max|a-b| / max|b|, the text tower computing in f32 for this check: see
-     f32_text_tower); with the configured bf16 tower the kernel's gap stays
-     within 4x of the gap a 1e-7 relative change of the plain output makes;
+     patients' synthetic bags: one in each variant (phase 3g takes 20
+     bf16 steps in a row), counting both kernels' launches; every step has
+     a finite loss, an unchanged frozen tower and moved learnable
+     parameters; on the main path's last batch of each variant the
+     gradients through the kernels and through the plain co-attention
+     agree within 2e-3 per parameter (max|a-b| / max|b|, the text tower
+     computing in f32 for this check: see f32_text_tower); with the
+     configured bf16 tower the kernel's gap stays within 4x of the gap a
+     1e-7 relative change of the plain output makes;
      one more bf16 step runs under torch.profiler for the kernels' share;
   3c. SA serving: builds the SA baseline (DeepMIL/ABMIL of
      configs/IFMLE/tcga_blca/cfg_sa_base_conch.yaml, D=512, hid=256, fold 0's
@@ -123,6 +124,28 @@ non-zero and prints no result:
      bf16 storages that gap is logged); one request of 8 bf16 bags is served
      by the trained model (1e-3 of the plain co-attention) and one more bf16
      step is profiled, with the projecter's GEMM and LayerNorm as groups;
+  3g. the run lifecycle (`python -m vlsa_tpu_torch.main`'s handlers): the
+     flagship config (configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml, fold 0,
+     full CONCH width, bf16 storage, random weights from the seed) through
+     `VLSAHandler(cfg).exec()` for 2 epochs (cut from 10), then
+     cfg_sa_base_conch.yaml (f32 storage) through `SAHandler` for 1, on the
+     298 training and 75 test patients, save_path in a temporary
+     directory, every launch counter from 0 just before: each epoch trains
+     and evaluates the test split, then the last checkpoint is loaded and
+     both splits are evaluated again; the launches must be exactly those of
+     the path (VLSA: the bf16 co-attention forward and dQ kernels; SA: the
+     f32 ABMIL forward and backward); every epoch's and the final train and
+     test metrics are finite, each C-index in [0, 1]; the last checkpoint
+     holds no text-tower entry and loads back; the test probabilities after
+     the reload equal the last epoch's in-memory pass bit for bit; the
+     prediction CSVs have 298 and 75 rows of non-increasing curves; the
+     test probabilities are within 1e-3 of a pass of the same weights
+     through the plain pooling, and each C-index within the share of
+     comparable pairs that could change order (plain gap below
+     max(2e-3, twice the estimate's largest kernel-plain gap); the share
+     below 2e-3 is printed); prints each epoch's time, slides/s and host-prep
+     share, and each evaluation pass's time, beside the card's name and
+     power limit;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
@@ -155,7 +178,8 @@ non-zero and prints no result:
      gradient of one scaled_dot_product_attention call with respect to q, k
      and v (library_ms, never called by the port) and the bound (`bound_dx`).
 
-The last two lines are the kernels' JSON record and
+Each phase's seconds are printed and recorded (`phase_seconds`).  The last
+two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": <n>}}.
 """
 from __future__ import annotations
@@ -331,7 +355,7 @@ TRAIN_CFG = dict(
     loss_survemd_p=2, opt_name="adam", opt_lr=2e-4, opt_weight_decay=1e-5,
     bp_every_batch=32, feats_dtype="bfloat16")
 # the training steps: (feats_dtype, 1/||x|| shipped with the batch, steps)
-TRAIN_STEPS = (("bfloat16", False, 3), ("float32", False, 1), ("float32", True, 1),
+TRAIN_STEPS = (("bfloat16", False, 1), ("float32", False, 1), ("float32", True, 1),
                ("bfloat16", True, 1), ("int8", False, 1), ("int8", True, 1))
 LEARNABLE = ("prompt_learner.", "query_adapter.residual_features",
              "mil_encoder.visual_adapter.", "logit_scale")
@@ -359,6 +383,24 @@ SA_CFG = {
 SA_SERVED = (("bfloat16", 3), ("int8", 3), ("float32", 1))
 SA_TRAIN_STEPS = (("bfloat16", False, 3), ("float32", False, 1), ("int8", False, 1),
                   ("bfloat16", True, 1), ("float32", True, 1))
+# the run lifecycle (phase 3g): the shipped configs' run keys as scalars,
+# fold 0 (no grid), save_path a temporary directory; the epochs are the only
+# cut (the configs ask for 10)
+LIFECYCLE_RUN = dict(
+    save_prediction=True, eval_training_loader_per_epoch=False, ckpt_for_eval="last",
+    num_shot=-1, data_split_seed=0, path_coord=None, path_cluster=None, path_graph=None,
+    init_wt=False, batch_size=1, es=False, es_patience=20, es_warmup=0, es_verbose=True,
+    es_start_epoch=0, monitor_metrics="loss", lrs=False, lrs_factor=0.5, lrs_patience=10,
+    test=False)
+LIFECYCLE_VLSA_CFG = dict(TRAIN_CFG, **LIFECYCLE_RUN, evaluator="VL-IF",
+                          model_saver_module_filter="prompt_encoder", epochs=2)
+LIFECYCLE_SA_CFG = dict(SA_CFG, **LIFECYCLE_RUN, epochs=1)
+LIFECYCLE_REDUCED = {"vlsa": {"epochs": "10 -> 2"}, "sa": {"epochs": "10 -> 1"}}
+# the metrics each epoch's and the final evaluation must give, finite
+LIFECYCLE_METRICS = ("c_index", "loss", "loss_mle", "IBS", "MAE", "D_calibration", "c_index2",
+                     "loss_SurvIFMLE")
+TOL_LIFECYCLE_PROBS = 1e-3  # test probabilities, kernel path vs plain (phase 3's limit)
+PAIR_GAP = 2e-3  # comparable pairs closer than this in the plain path may change order
 
 
 class SmokeFailure(Exception):
@@ -1870,6 +1912,207 @@ def phase_feat_proj_training(torch, co, device):
             "median_bf16_step_ms": float(np.median([r["step_ms"] for r in bf16]))}
 
 
+# ---------------------------------------------------------------- phase 3g
+
+def read_prediction_csv(path):
+    """(patient ids, [n, 3 + K] values: t, e, risk, the survival curve)."""
+    import csv
+    import numpy as np
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return [r[0] for r in rows[1:]], np.array([[float(x) for x in r[1:]] for r in rows[1:]])
+
+
+def comparable_pair_gaps(t, e, estimate):
+    """|estimate_i - estimate_j| over the comparable pairs of the C-index
+    (an event at t_i, and t_j later or censored at t_i)."""
+    import numpy as np
+    t, e, estimate = np.asarray(t, float), np.asarray(e).astype(bool), np.asarray(estimate)
+    later = (t[None, :] > t[:, None]) | ((t[None, :] == t[:, None]) & ~e[None, :])
+    pairs = later & e[:, None]
+    return np.abs(estimate[:, None] - estimate[None, :])[pairs]
+
+
+def hold_c_index(name, c_kernel, c_plain, gaps, est_gap):
+    """The kernel path's C-index differs from the plain path's by at most the
+    share of comparable pairs that could change order: those whose plain
+    gap is below max(PAIR_GAP, 2 max|kernel - plain| of the estimate)."""
+    import numpy as np
+    limit = max(PAIR_GAP, 2 * est_gap)
+    share = float(np.mean(gaps < limit))
+    share_2e3 = float(np.mean(gaps < PAIR_GAP))
+    log(f"  {name}: kernels {c_kernel:.6f}, plain {c_plain:.6f}, |diff| "
+        f"{abs(c_kernel - c_plain):.2e}; {gaps.size} comparable pairs, share with a plain gap "
+        f"below {PAIR_GAP:g}: {share_2e3:.4f}, below {limit:.2e}: {share:.4f}")
+    check(abs(c_kernel - c_plain) <= share, f"{name}: the kernel path's C-index moved "
+                                            f"{abs(c_kernel - c_plain):.3e} > {share:.4f}")
+    return {"kernel": c_kernel, "plain": c_plain, "pairs": int(gaps.size),
+            "share_below_2e-3": share_2e3, "gap_limit": limit, "share_below_limit": share}
+
+
+def phase_lifecycle(torch, ab, co, device, kind, card):
+    """One run of `python -m vlsa_tpu_torch.main`'s handler on the card:
+    exec() of the shipped config's fold 0 (epochs cut), every launch
+    counter from 0 just before, then its files, the reload and the plain
+    path checked."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from vlsa_tpu_torch.eval import predict_mean_survival_time
+    from vlsa_tpu_torch.runner.ckpt import load_checkpoint, merge_state
+    from vlsa_tpu_torch.runner.sa import SAHandler
+    from vlsa_tpu_torch.runner.train import make_dataset
+    from vlsa_tpu_torch.runner.vlsa import VLSAHandler
+
+    vlsa = kind == "vlsa"
+    base_cfg = LIFECYCLE_VLSA_CFG if vlsa else LIFECYCLE_SA_CFG
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
+    try:
+        cfg = dict(base_cfg, save_path=os.path.join(tmp, "run"))
+        passes = {}  # split -> the collected predictions of each evaluation pass
+        families = {"coattn_fwd": co.LAUNCHES, "coattn_bwd_dq": co.LAUNCHES_BWD,
+                    "coattn_bwd_dx": co.LAUNCHES_DX, "abmil_fwd": ab.LAUNCHES,
+                    "abmil_bwd": ab.LAUNCHES_BWD}
+        # ---- the main path: every launch counter from 0 ----
+        co.reset_launches()
+        ab.reset_launches()
+        t0 = time.perf_counter()
+        handler = (VLSAHandler if vlsa else SAHandler)(cfg, device=device)
+        build_s = time.perf_counter() - t0
+        test_model = handler.test_model
+
+        def recording(dataset, name, ckpt_path=None):
+            out = test_model(dataset, name, ckpt_path=ckpt_path)
+            passes.setdefault(name, []).append(out["pred"])
+            return out
+        handler.test_model = recording
+        t0 = time.perf_counter()
+        metrics = handler.exec()
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        launches = {name: dict(counts) for name, counts in families.items()}
+        handler.test_model = test_model
+        eval_passes = list(handler.timings["eval"])
+
+        epochs = cfg["epochs"]
+        n_train = len(handler.trainer.batcher)
+        test_set = make_dataset(handler.cfg, handler.data_meta, handler.data_split["test"])
+        n_test = -(-len(test_set) // cfg["bp_every_batch"])
+        check(len(handler.trainer.dataset) == 298 and len(test_set) == 75
+              and "validation" not in handler.data_split,
+              f"fold 0: {len(handler.trainer.dataset)} training, {len(test_set)} test patients")
+        # each epoch trains n_train batches and evaluates the test split; the
+        # final pass evaluates the training and test splits
+        storage = "bf16" if vlsa else "f32"
+        fwd_name, bwd_name = ("coattn_fwd", "coattn_bwd_dq") if vlsa else ("abmil_fwd", "abmil_bwd")
+        expected = {name: dict.fromkeys(counts, 0) for name, counts in launches.items()}
+        expected[fwd_name][storage] = epochs * (n_train + n_test) + n_train + n_test
+        expected[bwd_name][storage] = epochs * n_train
+        log(f"{kind} lifecycle launches {launches}")
+        check(launches == expected, f"{kind} lifecycle launches {launches}, expected {expected}")
+
+        # ---- every epoch's and the final metrics ----
+        names = LIFECYCLE_METRICS + (("loss_SurvEMD",) if vlsa else ())
+        with open(os.path.join(cfg["save_path"], "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        evals = [e for e in events if e["event"] == "eval"]
+        groups = [f"{s}/pred" for s in ("train", "test")] + \
+            [f"lastckpt/train/{s}/pred" for s in ("train", "test")]
+        seen = 0
+        for e in evals:
+            for g in groups:
+                vals = {m: e.get(f"{g}/{m}") for m in names}
+                if vals[names[0]] is None:
+                    continue
+                seen += 1
+                check(all(v is not None and np.isfinite(v) for v in vals.values()),
+                      f"{kind} epoch {e['at']} {g}: a missing or non-finite metric {vals}")
+                check(0.0 <= vals["c_index"] <= 1.0 and 0.0 <= vals["c_index2"] <= 1.0,
+                      f"{kind} epoch {e['at']} {g}: a C-index outside [0, 1]")
+        check(seen == 2 * epochs + 2, f"{kind}: {seen} metric groups, expected {2 * epochs + 2}")
+        epoch_metrics = {e["at"]: {k: v for k, v in e.items() if k.endswith(names)}
+                         for e in evals}
+
+        # ---- the checkpoint, reload and files ----
+        ckpt_path = os.path.join(cfg["save_path"], "train_model-last.ckpt")
+        check(os.path.exists(ckpt_path), f"{kind}: no {ckpt_path}")
+        ckpt = load_checkpoint(ckpt_path)
+        check(ckpt["epoch"] == epochs and ckpt["optimizer"]["state"],
+              f"{kind}: checkpoint epoch {ckpt['epoch']}, optimizer state missing")
+        if vlsa:
+            check(not any(k.startswith("prompt_encoder.") for k in ckpt["model"])
+                  and any(k.startswith("prompt_learner.") for k in ckpt["model"]),
+                  "the checkpoint holds the frozen text tower, or no prompt learner")
+        merge_state(handler.model, ckpt["model"])
+        # the last epoch's test pass ran on the in-memory final weights, the
+        # final one after loading the checkpoint: bit for bit the same
+        in_memory, reloaded = passes["test"][-2], passes["test"][-1]
+        check(np.array_equal(in_memory["y_hat"], reloaded["y_hat"]),
+              f"{kind}: the reloaded checkpoint's test probabilities differ from the in-memory "
+              f"model's by {np.abs(in_memory['y_hat'] - reloaded['y_hat']).max():.3e}")
+        rows = {}
+        for split, n in (("train", 298), ("test", 75)):
+            ids, vals = read_prediction_csv(os.path.join(
+                cfg["save_path"], f"{cfg['task']}_train_last_pred_{split}.csv"))
+            rows[split] = len(ids)
+            check(len(ids) == n and vals.shape[1] == 3 + handler.data_meta.num_bins,
+                  f"{kind} {split} CSV: {len(ids)} rows, {vals.shape[1]} columns")
+            check(bool(np.all(np.diff(vals[:, 3:], axis=1) <= 0)),
+                  f"{kind} {split} CSV: a survival curve rises")
+
+        # ---- the same weights through the plain pooling ----
+        t0 = time.perf_counter()
+        with (plain_coattention() if vlsa else plain_abmil()):
+            plain = handler.test_model(test_set, "test")["pred"]
+        plain_s = time.perf_counter() - t0
+        prob_gap = float(np.abs(reloaded["y_hat"] - plain["y_hat"]).max())
+        log(f"{kind} test probabilities, kernels vs plain: max|k-p| {prob_gap:.3e} "
+            f"(tol {TOL_LIFECYCLE_PROBS:g})")
+        check(prob_gap <= TOL_LIFECYCLE_PROBS, f"{kind}: test probabilities deviate "
+                                               f"{prob_gap:.3e} from the plain path's")
+        c_kernel = handler.evaluator.compute(reloaded, ["c_index", "c_index2"])
+        c_plain = handler.evaluator.compute(plain, ["c_index", "c_index2"])
+        coords = handler.data_meta.time_coordinates
+        actual = handler.data_meta.get_patient_data(pids=plain["uid"], ret_columns=["t", "e"])
+
+        def risk(p):  # c_index2's risk: the sum of the survival curve
+            return np.sum(np.clip(1.0 - np.cumsum(p["y_hat"], axis=1), 0, None), axis=1)
+
+        def mean_time(p):  # c_index's estimate: the predicted mean survival time
+            return np.array([predict_mean_survival_time(s, coords) for s in
+                             np.clip(1.0 - np.cumsum(p["y_hat"], axis=1), 0, None)])
+        c_check = {
+            "c_index2": hold_c_index("c_index2 (risk = sum of the survival curve)",
+                                     c_kernel["c_index2"], c_plain["c_index2"],
+                                     comparable_pair_gaps(plain["y"][:, 0], plain["y"][:, 1],
+                                                          risk(plain)),
+                                     float(np.abs(risk(reloaded) - risk(plain)).max())),
+            "c_index": hold_c_index("c_index (predicted mean survival time)",
+                                    c_kernel["c_index"], c_plain["c_index"],
+                                    comparable_pair_gaps(actual["t"], actual["e"],
+                                                         mean_time(plain)),
+                                    float(np.abs(mean_time(reloaded) - mean_time(plain)).max()))}
+
+        ep = handler.timings["epochs"]
+        for r in ep:
+            log(f"{kind} epoch {r['epoch']}/{epochs} on {card}: {r['wall_s']:.1f} s, "
+                f"{r['slides_per_sec']:.2f} slides/s, host prep {r['prep_s']:.1f} s "
+                f"({100 * r['prep_s'] / r['wall_s']:.0f}% of the epoch)")
+        for r in eval_passes:
+            log(f"{kind} eval pass {r['split']:5s} ({r['bags']} bags): {r['seconds']:.1f} s")
+        log(f"{kind} lifecycle: build {build_s:.1f} s, exec {exec_s:.1f} s, plain test pass "
+            f"{plain_s:.1f} s; final metrics {metrics}")
+        return {"config": {k: v for k, v in cfg.items() if k != "save_path"},
+                "reduced": LIFECYCLE_REDUCED[kind], "card": card, "build_s": build_s,
+                "exec_s": exec_s, "metrics": metrics, "epoch_metrics": epoch_metrics,
+                "epochs": ep, "eval_passes": eval_passes, "plain_test_pass_s": plain_s,
+                "launches": launches,
+                "csv_rows": rows, "test_prob_gap_to_plain": prob_gap, "c_index_check": c_check,
+                "reload_bit_identical": True}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- phase 4
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -2287,37 +2530,49 @@ def main(argv=None) -> int:
     print(card, flush=True)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    phase_s = {}
+
+    def timed(name, fn, *fn_args):
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
     try:
-        errs = phase_kernel(torch, co)
+        errs = timed("2", phase_kernel, torch, co)
         coattn_ptxas_lines = coattn_fwd_ptxas(co)
-        errs_dq = phase_backward_kernel(torch, co)
+        errs_dq = timed("2b", phase_backward_kernel, torch, co)
         coattn_bwd_ptxas_lines = coattn_bwd_ptxas(co)
-        errs_abmil = phase_abmil_kernels(torch, ab)
+        errs_abmil = timed("2c", phase_abmil_kernels, torch, ab)
         abmil_ptxas_lines = abmil_ptxas(ab)
-        errs_flash, flash_ptxas_lines = phase_flash_kernel(torch, fa)
-        errs_dx = phase_dx_kernel(torch, co)
-        serving = phase_serving(torch, co, device)
-        training = phase_training(torch, co, device)
-        sa_serving = phase_sa_serving(torch, ab, co, device)
-        sa_training = phase_sa_training(torch, ab, co, device)
-        extraction = phase_extraction(torch, fa, ab, co, device)
-        extraction_512 = phase_extraction_512(torch, fa, ab, co, device)
-        feat_proj = phase_feat_proj_training(torch, co, device)
-        times = phase_times(torch, co)
-        abmil_times = phase_abmil_times(torch, ab)
-        flash_times = phase_flash_times(torch, fa)
-        dx_times = phase_dx_times(torch, co)
+        errs_flash, flash_ptxas_lines = timed("2d", phase_flash_kernel, torch, fa)
+        errs_dx = timed("2e", phase_dx_kernel, torch, co)
+        serving = timed("3", phase_serving, torch, co, device)
+        training = timed("3b", phase_training, torch, co, device)
+        sa_serving = timed("3c", phase_sa_serving, torch, ab, co, device)
+        sa_training = timed("3d", phase_sa_training, torch, ab, co, device)
+        extraction = timed("3e", phase_extraction, torch, fa, ab, co, device)
+        extraction_512 = timed("3e-512", phase_extraction_512, torch, fa, ab, co, device)
+        feat_proj = timed("3f", phase_feat_proj_training, torch, co, device)
+        lifecycle_vlsa = timed("3g-VLSA", phase_lifecycle, torch, ab, co, device, "vlsa", card)
+        lifecycle_sa = timed("3g-SA", phase_lifecycle, torch, ab, co, device, "sa", card)
+        times = timed("4", phase_times, torch, co)
+        abmil_times = timed("4b", phase_abmil_times, torch, ab)
+        flash_times = timed("4c", phase_flash_times, torch, fa)
+        dx_times = timed("4d", phase_dx_times, torch, co)
     except SmokeFailure as exc:
         log(f"FAIL: {exc}")
         return 1
 
     kernels = []
+    life = lifecycle_vlsa["launches"]
     fwd_launches = {v: serving["launches"][v] + training["launches"]["fwd"][v]
-                    + feat_proj["launches"]["fwd"][v] for v in VARIANTS}
+                    + feat_proj["launches"]["fwd"][v] + life["coattn_fwd"][v] for v in VARIANTS}
+    dq_launches = {v: training["launches"]["bwd"][v] + life["coattn_bwd_dq"][v]
+                   for v in VARIANTS}
     for name, source, replaces, err, t_by_variant, launches in (
             ("coattn_fwd", SOURCE, REPLACES, errs, times["fwd_b8"], fwd_launches),
-            ("coattn_bwd_dq", SOURCE_DQ, REPLACES_DQ, errs_dq, times["dq_b8"],
-             training["launches"]["bwd"])):
+            ("coattn_bwd_dq", SOURCE_DQ, REPLACES_DQ, errs_dq, times["dq_b8"], dq_launches)):
         for v in VARIANTS:
             t = t_by_variant[v]
             kernels.append({
@@ -2333,9 +2588,11 @@ def main(argv=None) -> int:
             "replaces": REPLACES_DX, "launches": feat_proj["launches"]["dx"][s],
             "max_abs_err": errs_dx[s]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    life = lifecycle_sa["launches"]
     abmil_launches = {"abmil_fwd": {s: sa_serving["launches"][s] + sa_training["launches"]["fwd"][s]
+                                    + life["abmil_fwd"][s] for s in ABMIL_STORAGES},
+                      "abmil_bwd": {s: sa_training["launches"]["bwd"][s] + life["abmil_bwd"][s]
                                     for s in ABMIL_STORAGES},
-                      "abmil_bwd": sa_training["launches"]["bwd"],
                       "abmil_bwd_dx": {s: sa_training["launches"]["bwd"][f"{s}_dx"]
                                        for s in ("f32", "bf16")}}
     for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
@@ -2378,8 +2635,9 @@ def main(argv=None) -> int:
               "flash_ptxas": flash_ptxas_lines,
               "flash_plan": {L: list(fa.flash_plan(L)) for L in FLASH_LENGTHS},
               "extraction": extraction, "extraction_512": extraction_512, "flash_times": flash_times, "dx_errors": errs_dx,
-              "feat_proj_training": feat_proj, "dx_times": dx_times, "kernels": kernels,
-              "seconds": time.perf_counter() - t_start}
+              "feat_proj_training": feat_proj, "dx_times": dx_times,
+              "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa, "kernels": kernels,
+              "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

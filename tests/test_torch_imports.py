@@ -1,7 +1,7 @@
 """The port stands alone: no file of vlsa_tpu_torch/, nor chip_smoke.py,
 imports JAX, Flax, Optax or anything of vlsa_tpu, nor a module that the
-machine with the card lacks (transformers, ml_dtypes, regex, pandas); PIL
-and h5py only when a file needs them."""
+machine with the card lacks (transformers, ml_dtypes, regex, pandas,
+sklearn, wandb); PIL and h5py only when a file needs them."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vlsa_tpu", "transformers", "ml_dtypes",
-             "regex", "pandas")
+             "regex", "pandas", "sklearn", "wandb")
 
 
 def _port_files():
@@ -56,6 +56,26 @@ def test_extraction_imports_no_pil_or_h5py(module):
     """Importing the extraction path loads neither PIL nor h5py, nor JAX."""
     code = (f"import sys; import {module}; "
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {LAZY + ('jax',)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", f"{module} loads {out.stdout.strip()}"
+
+
+LIFECYCLE = ("vlsa_tpu_torch.main", "vlsa_tpu_torch.eval", "vlsa_tpu_torch.runner.base",
+             "vlsa_tpu_torch.runner.ckpt", "vlsa_tpu_torch.runner.vlsa",
+             "vlsa_tpu_torch.runner.sa", "vlsa_tpu_torch.optim.schedulers",
+             "vlsa_tpu_torch.config_schema", "vlsa_tpu_torch.utils.observability",
+             "vlsa_tpu_torch.utils.seed")
+
+
+@pytest.mark.parametrize("module", LIFECYCLE)
+def test_lifecycle_imports_load_no_forbidden_module(module):
+    """Importing the run lifecycle loads nothing of FORBIDDEN, nor PyYAML
+    (imported only to read or write a config file)."""
+    code = (f"import sys; import {module}; "
+            f"print(sorted({{m.split('.')[0] for m in sys.modules}} & "
+            f"{set(FORBIDDEN + ('yaml',))!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -616,3 +616,79 @@ def test_vision_block_routes_through_the_flash_kernel(device):
         got = blk.to(device)(x.to(device))
     assert fa.LAUNCHES["f32"] == before + 1
     assert _rel(got.cpu(), want) <= 1e-4
+
+
+def _lifecycle_config(tmp_path, n=24, seed=5):
+    """A small flagship VLSA run (dim 512, a 2-layer text tower, bf16 bags
+    of ~300 patches) on a synthetic cohort of n patients."""
+    import csv
+    g = torch.Generator().manual_seed(seed)
+    pids = [f"P{i:03d}" for i in range(n)]
+    with open(tmp_path / "survival.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["pathology_id", "patient_id", "e", "t"])
+        for pid in pids:
+            w.writerow([pid + "-slide", pid, int(torch.rand(1, generator=g) < 0.7),
+                        round(2 + 88 * float(torch.rand(1, generator=g)), 2)])
+    with open(tmp_path / "splits_0.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["", "train", "val"])
+        n_train = 2 * n // 3
+        for i in range(n_train):
+            w.writerow([i, pids[i], pids[n_train + i] if n_train + i < n else ""])
+    assets = "vlsa_tpu/assets/tools/"
+    return {
+        "task": "vlsa", "seed": 42, "save_path": str(tmp_path / "run"), "save_prediction": True,
+        "ckpt_for_eval": "last", "num_shot": -1, "dataset_name": "tcga_test",
+        "path_patch": "synthetic://N=300,D=512,seed=3", "path_table": str(tmp_path / "survival.csv"),
+        "data_mode": "patch", "feat_format": "pt", "time_format": "interval", "time_bins": None,
+        "data_split_path": str(tmp_path / "splits_0.csv"), "data_split_seed": 0,
+        "arch": "VLSA", "net_output_converter": "softmax",
+        "model_saver_module_filter": "prompt_encoder", "vlsa_api": "CONCH",
+        "vlsa_img_encoder_name": "VLFAN", "vlsa_img_encoder_dim_in": 512,
+        "vlsa_img_encoder_use_feat_proj": False, "vlsa_img_encoder_query": "Text",
+        "vlsa_img_encoder_num_query": None, "vlsa_img_encoder_query_pooling": "mean",
+        "vlsa_img_encoder_query_text_method": "TaskRes",
+        "vlsa_img_encoder_query_text_res_ratio": 0.5,
+        "vlsa_img_encoder_query_text_load_path": assets + "survival_text_prototypes.json",
+        "vlsa_img_encoder_query_text_load_idx": "tcga_blca_0",
+        "vlsa_txt_encoder_name": "mahmoodlab/conch", "vlsa_txt_encoder_frozen": True,
+        "vlsa_pmt_learner_name": "CoOp", "vlsa_pmt_learner_coop_method": "rank",
+        "vlsa_pmt_learner_coop_num_ranks": None, "vlsa_pmt_learner_coop_num_base_ranks": 4,
+        "vlsa_pmt_learner_coop_num_tokens_per_rank": 4,
+        "vlsa_pmt_learner_coop_num_context_tokens": 8,
+        "vlsa_pmt_learner_coop_rank_tokens_position": "tail",
+        "vlsa_pmt_learner_coop_init_prompt_path": assets + "survival_prompts.json",
+        "loss_type": "SurvIFMLE-SurvEMD", "loss_survemd_p": 2, "evaluator": "VL-IF",
+        "opt_name": "adam", "opt_lr": 2e-4, "opt_weight_decay": 1e-5, "epochs": 2,
+        "bp_every_batch": 8, "feats_dtype": "bfloat16", "min_bucket": 64,
+        "_test_tower_overrides": {"width": 64, "heads": 4, "layers": 2, "output_dim": 512,
+                                  "dtype": "float32"},
+    }
+
+
+def test_lifecycle_reload_is_bit_identical_on_the_card(device, tmp_path):
+    """Two epochs of the handler on the card with the co-attention kernels
+    engaged: the test probabilities after the last checkpoint is loaded
+    (the final evaluation) equal those of the last epoch's pass of the
+    in-memory model bit for bit, and the kernels' merges are deterministic."""
+    import numpy as np
+    from vlsa_tpu_torch.runner.vlsa import VLSAHandler
+    handler = VLSAHandler(_lifecycle_config(tmp_path), device=device)
+    passes = []
+    test_model = handler.test_model
+
+    def recording(dataset, name, ckpt_path=None):
+        out = test_model(dataset, name, ckpt_path=ckpt_path)
+        if name == "test":
+            passes.append(out["pred"]["y_hat"])
+        return out
+    handler.test_model = recording
+    co.reset_launches()
+    handler.exec()
+    assert co.LAUNCHES["bf16"] > 0 and co.LAUNCHES_BWD["bf16"] > 0
+    assert sum(co.LAUNCHES.values()) == co.LAUNCHES["bf16"]
+    assert len(passes) == 3  # 2 epochs, then the final pass after the reload
+    assert np.isfinite(passes[-1]).all()
+    assert np.array_equal(passes[-2], passes[-1])
+    assert not np.array_equal(passes[0], passes[-1])  # the second epoch trained

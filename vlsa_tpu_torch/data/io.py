@@ -1,7 +1,9 @@
-"""Host-side IO: prompt assets and synthetic bags (counterpart of the parts
-of vlsa_tpu/data/io.py that serving reads)."""
+"""Host-side IO: prompt assets, synthetic bags and prediction CSVs
+(counterpart of the parts of vlsa_tpu/data/io.py that serving, training and
+evaluation read)."""
 from __future__ import annotations
 
+import csv
 import hashlib
 import json
 import os
@@ -63,3 +65,42 @@ def load_init_text(path, key=None):
     with open(resolve_asset(path), "r") as f:
         texts = json.load(f)
     return texts if key is None else texts[str(key)]
+
+
+def _csv_cell(v) -> str:
+    """A value as pandas' `to_csv` writes it: numpy's shortest repr of the
+    value in its own type ('0.9' for float32 0.9), nan as an empty cell."""
+    if isinstance(v, np.floating) and np.isnan(v):
+        return ""
+    return str(v)
+
+
+def save_prediction_surv(patient_id, y_true, y_pred, save_path, **kws):
+    """Survival prediction CSV (vlsa_tpu/data/io.py::save_prediction_surv,
+    written with `csv`, byte for byte as its pandas writes it): columns
+    patient_id, t, e, risk = sum of the survival curve, surf_1..surf_K; a
+    [B, 1] prediction writes patient_id, t, e, pred.  The curve is
+    1 - cumsum(y_pred) for incidence predictions (`type_pred` naming IF or
+    "incidence"), else cumprod(1 - y_pred)."""
+    y_true = np.asarray(y_true)
+    y_pred = np.asarray(y_pred)
+    assert len(patient_id) == len(y_true) == len(y_pred)
+    if y_pred.ndim == 2 and y_pred.shape[1] == 1:
+        header = ["patient_id", "t", "e", "pred"]
+        cols = [y_true[:, 0], y_true[:, 1], np.squeeze(y_pred, 1)]
+    else:
+        bins = y_pred.shape[1]
+        type_pred = str(kws.get("type_pred"))
+        if "IF" in type_pred or type_pred == "incidence":
+            survival = 1.0 - np.cumsum(y_pred, axis=1)
+        else:
+            survival = np.cumprod(1.0 - y_pred, axis=1)
+        risk = np.sum(survival, axis=1, keepdims=True)
+        arr = np.concatenate((y_true[:, [0]], y_true[:, [1]], risk, survival), axis=1)
+        header = ["patient_id", "t", "e", "risk"] + [f"surf_{i + 1}" for i in range(bins)]
+        cols = list(arr.T)
+    with open(save_path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(header)
+        for i, pid in enumerate(patient_id):
+            writer.writerow([pid] + [_csv_cell(c[i]) for c in cols])

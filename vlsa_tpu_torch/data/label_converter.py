@@ -75,6 +75,25 @@ class MetaSurvData:
     def num_bins(self) -> Optional[int]:
         return None if self.time_bins is None else len(self.time_bins) - 1
 
+    @property
+    def time_coordinates(self) -> Optional[np.ndarray]:
+        """The bins' left edges: the time grid of the predicted curves."""
+        return None if self.time_bins is None else self.time_bins[:-1]
+
+    def get_patient_data(self, pids=None, split=None, ret_columns=None) -> Dict[str, np.ndarray]:
+        """{column: values} of the first row of each patient of `pids` (or of
+        the split `split`; all patients when neither is given), in that
+        order; patients the table lacks are skipped.  Columns: patient_id,
+        t, e and, once labels are made, y_t and y_e."""
+        if pids is None and split is not None:
+            assert split in self.data_split, f"split ({split}) not in data_split."
+            pids = self.data_split[split]
+        rows = np.arange(len(self.pids)) if pids is None else self.patient_rows(pids)
+        columns = {"patient_id": np.array(self.pids, dtype=object), "t": self.t, "e": self.e}
+        if self.y_t is not None:
+            columns.update(y_t=self.y_t, y_e=self.e)
+        return {c: columns[c][rows] for c in (ret_columns or columns)}
+
     def patient_rows(self, pids) -> np.ndarray:
         """Row indices of the patients of `pids` that the table holds."""
         return np.array([self._row[p] for p in pids if p in self._row], np.int64)

@@ -1,14 +1,16 @@
-"""The SA handler's rules as plain functions (counterpart of
-vlsa_tpu/runner/sa.py): labels, the head's width, the loss/converter pairing
-and the DeepMIL model of a `task: sa` config
+"""The SA handler (counterpart of vlsa_tpu/runner/sa.py) and its rules as
+plain functions: labels, the head's width, the loss/converter pairing and
+the DeepMIL model of a `task: sa` config
 (configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml).
 """
 from __future__ import annotations
 
 from ..config import fetch_kws, parse_str_dims
 from ..data.label_converter import MetaSurvData
+from ..eval import load_evaluator
 from ..models.mil import DeepMIL
 from ..models.registry import load_model
+from .base import BaseHandler
 
 # loss -> (net_output_converter, evaluator) it needs (vlsa_tpu/runner/sa.py:42-51)
 _LOSS_PAIRING = {"SurvMLE": ("sigmoid", "NLL"), "SurvIFMLE": ("softmax", "NLL-IF"),
@@ -31,9 +33,9 @@ def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
     return meta
 
 
-def check_arguments(cfg: dict) -> None:
+def check_arguments(cfg: dict, pairing: dict = _LOSS_PAIRING) -> None:
     """Each survival loss pins its output converter and evaluator."""
-    for loss, (converter, evaluator) in _LOSS_PAIRING.items():
+    for loss, (converter, evaluator) in pairing.items():
         if loss in cfg["loss_type"]:
             if cfg.get("net_output_converter") != converter or cfg.get("evaluator") != evaluator:
                 raise ValueError(f"{loss} needs net_output_converter={converter} and "
@@ -65,3 +67,27 @@ def build_model(cfg: dict, device=None, state_dict=None) -> DeepMIL:
     arch_cfg = fetch_kws(cfg, prefix=cfg["arch"].lower())
     return load_model(cfg["arch"], parse_str_dims(cfg["net_dims"]), seed=cfg.get("seed", 0),
                       device=device, state_dict=state_dict, **arch_cfg)
+
+
+class SAHandler(BaseHandler):
+    """The SA baseline's run: DeepMIL with the NLL, NLL-IF, Cox or Reg
+    evaluator, each training loss also computed again on the predictions
+    (`load_meta` checks the loss/converter/evaluator pairing)."""
+
+    def __init__(self, cfg, device=None, state_dict=None):
+        if cfg["task"] != "sa":
+            raise ValueError(f"Expected task = `sa` but got {cfg['task']}.")
+        super().__init__(cfg, device=device, state_dict=state_dict)
+
+    def func_load_evaluator(self, cfg, meta_data=None):
+        assert cfg["evaluator"] in ("Reg", "NLL", "NLL-IF", "Cox")
+        kws = {"backend": "SurvivalEVAL", "meta_data": meta_data}
+        if cfg["evaluator"] == "Reg":
+            kws = {"end_time": meta_data.max_t}
+        evaluator = load_evaluator(cfg["task"], cfg["evaluator"], **kws)
+        return evaluator, evaluator.valid_metrics, ["c_index", "loss"]
+
+    def eval_kws(self) -> dict:
+        if hasattr(self.evaluator, "_eval_ext_loss"):
+            return {"kws_ext_loss": self.loss, "loss_weight": self.loss_weight}
+        return {}

@@ -13,8 +13,10 @@ config's `path_patch`, `synthetic://` included) go through the batcher
 `bp_every_batch` at a time, and each step is one update of the config's
 losses with its optimizer.  The weights are random, from the config's seed.
 Prints one JSON line per step and a summary line with the kernels' launch
-counts.  Evaluation (C-index, IBS), checkpoints, LR schedules and early
-stopping are not ported yet.
+counts.  No evaluation, checkpoint or LR schedule runs here: the whole run
+lifecycle (epochs, the survival evaluator, checkpoints, ReduceLROnPlateau,
+early stopping, prediction CSVs) is `python -m vlsa_tpu_torch.main`, whose
+handlers (runner/base.py) build on `Trainer`.
 """
 from __future__ import annotations
 
@@ -36,13 +38,13 @@ from ..models.vlsa_build import build_vlsa_from_config
 from ..ops import abmil, coattn
 from ..optim import create_optimizer, frozen_mask_from_cfg
 from ..utils.device import resolve_device
-from . import sa
 from .engine import TrainEngine, make_objective, make_output_converter
 
 
 def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
     """VLSA's labels: the label table with discrete bins from the training
     split; the prompt learner's rank count follows the bin count."""
+    from . import sa  # imported here: runner.sa's SAHandler builds on this module
     meta = sa.build_surv_meta(cfg, data_split)
     for learner in ("coop", "adapter"):
         key = f"vlsa_pmt_learner_{learner}_num_ranks"
@@ -85,32 +87,49 @@ def load_losses(cfg: dict):
     return load_loss(cfg["task"], **kws), weights
 
 
+def make_dataset(cfg: dict, meta: MetaSurvData, patient_ids) -> SurvBagDataset:
+    """The bags of `patient_ids` from the config's `path_patch`."""
+    return SurvBagDataset(patient_ids, cfg["path_patch"], meta,
+                          read_format=cfg.get("feat_format", "pt"))
+
+
+def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool) -> BagBatcher:
+    """The config's batcher: `bp_every_batch` bags a batch when training
+    (shuffled by the seed and the batcher's own epoch count), an evaluation
+    pass's `eval_batch_size` (default `bp_every_batch`) in order."""
+    batch_size = cfg.get("bp_every_batch", 32)
+    if not shuffle:
+        batch_size = cfg.get("eval_batch_size", batch_size)
+    return BagBatcher(
+        dataset, batch_size=batch_size, shuffle=shuffle,
+        seed=cfg["seed"], min_bucket=cfg.get("min_bucket", 256),
+        max_bucket=cfg.get("max_bucket"), fixed_bucket=cfg.get("fixed_bucket"),
+        feats_dtype=cfg.get("feats_dtype", "float32"),
+        # DeepMIL's pooling is unnormalised: SA needs no 1/||x|| rows
+        precompute_inv=cfg.get("feats_precompute_inv", True) and cfg["task"] != "sa",
+        overflow=cfg.get("bag_overflow", "error"))
+
+
 class Trainer:
     """Data, model, losses, optimizer and engine of one training run, built
-    from a config that `training_config` has resolved."""
+    from a config whose placeholders and grid lists are resolved
+    (`training_config`, or a handler's setup)."""
 
     def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None):
         if cfg.get("data_mode", "patch") != "patch":
             raise NotImplementedError("this port trains on patch bags only")
         if cfg["task"] not in ("vlsa", "sa"):
             raise NotImplementedError(f"task {cfg['task']!r}: this port trains vlsa and sa")
+        from . import sa  # see build_surv_meta
         self.cfg = cfg
         self.device = resolve_device(device)
-        data_split = read_file_data_splitting(cfg["data_split_path"])
+        self.data_split = read_file_data_splitting(cfg["data_split_path"])
         if cfg["task"] == "sa":
-            self.meta = sa.load_meta(cfg, data_split)
+            self.meta = sa.load_meta(cfg, self.data_split)
         else:
-            self.meta = build_surv_meta(cfg, data_split)
-        self.dataset = SurvBagDataset(data_split["train"], cfg["path_patch"], self.meta,
-                                      read_format=cfg.get("feat_format", "pt"))
-        self.batcher = BagBatcher(
-            self.dataset, batch_size=cfg.get("bp_every_batch", 32), shuffle=True,
-            seed=cfg["seed"], min_bucket=cfg.get("min_bucket", 256),
-            max_bucket=cfg.get("max_bucket"), fixed_bucket=cfg.get("fixed_bucket"),
-            feats_dtype=cfg.get("feats_dtype", "float32"),
-            # DeepMIL's pooling is unnormalised: SA needs no 1/||x|| rows
-            precompute_inv=cfg.get("feats_precompute_inv", True) and cfg["task"] != "sa",
-            overflow=cfg.get("bag_overflow", "error"))
+            self.meta = build_surv_meta(cfg, self.data_split)
+        self.dataset = make_dataset(cfg, self.meta, self.data_split["train"])
+        self.batcher = make_batcher(self.dataset, cfg, shuffle=True)
         if cfg["task"] == "sa":
             self.model = sa.build_model(cfg, device=self.device, state_dict=state_dict)
         else:
@@ -118,8 +137,8 @@ class Trainer:
                                                       state_dict=state_dict)
         self.model.train()
         self.frozen = frozen_mask_from_cfg(self.model, frozen_paths(cfg))
-        loss_fns, weights = load_losses(cfg)
-        objective = make_objective(loss_fns, weights,
+        self.loss_fns, self.loss_weights = load_losses(cfg)
+        objective = make_objective(self.loss_fns, self.loss_weights,
                                    make_output_converter(cfg.get("net_output_converter")))
         self.optimizer = create_optimizer(cfg["opt_name"], cfg["opt_lr"],
                                           cfg.get("opt_weight_decay", 0.0), self.model)

@@ -1,5 +1,6 @@
 """The weight bridge: a vlsa_tpu VLSA or DeepMIL parameter tree -> this
-package's state dict (the inverse of vlsa_tpu/utils/torch_import.py).
+package's state dict (the inverse of vlsa_tpu/utils/torch_import.py), and
+back (`jax_tree_from_state_dict`).
 
 The tree is given as nested dicts of numpy arrays (`jax.tree.map(np.asarray,
 params)`), so nothing here imports JAX.  Names map as follows:
@@ -14,7 +15,9 @@ the tree's names and layouts) becomes `sigma.fc1_kernel`, `g/kernel`
 `g.weight`, `feat_proj/norm/scale` `feat_proj.norm.weight`.
 
 Every leaf maps to exactly one tensor; a duplicate raises.  Loading the
-result with `strict=True` then proves that no tensor was left out.
+result with `strict=True` then proves that no tensor was left out.  No leaf
+of either tree is itself named "weight", so the way back is unique: a 1-D
+`.weight` was a LayerNorm's `scale`, a 2-D one a Dense `kernel`.
 """
 from __future__ import annotations
 
@@ -58,3 +61,38 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two leaves map to {name}")
         out[name] = _to_tensor(arr)
     return out
+
+
+def _jax_path(name: str, arr: np.ndarray):
+    parts = []
+    for p in name.split("."):
+        if parts and parts[-1] == "resblocks":
+            parts[-1] = f"resblock_{p}"
+        else:
+            parts.append(p)
+    if parts[-1] == "weight":
+        if arr.ndim == 1:
+            parts[-1] = "scale"
+        elif arr.ndim == 2:
+            parts[-1] = "kernel"
+            arr = arr.T
+        else:
+            raise ValueError(f"{name}: a {arr.ndim}-D weight has no vlsa_tpu counterpart")
+    return parts, arr
+
+
+def jax_tree_from_state_dict(state_dict: Mapping) -> dict:
+    """The inverse of `state_dict_from_jax`: nested dicts of numpy arrays
+    under vlsa_tpu's names (bf16 tensors become f32 arrays)."""
+    tree: dict = {}
+    for name, tensor in state_dict.items():
+        arr = tensor.detach().cpu()
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+        parts, arr = _jax_path(name, arr)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        if parts[-1] in node:
+            raise ValueError(f"two tensors map to {'/'.join(parts)}")
+        node[parts[-1]] = np.array(arr)
+    return tree
