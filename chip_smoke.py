@@ -143,9 +143,33 @@ non-zero and prints no result:
      through the plain pooling, and each C-index within the share of
      comparable pairs that could change order (plain gap below
      max(2e-3, twice the estimate's largest kernel-plain gap); the share
-     below 2e-3 is printed); prints each epoch's time, slides/s and host-prep
-     share, and each evaluation pass's time, beside the card's name and
-     power limit;
+     below 2e-3 is printed); prints each epoch's time, slides/s, the seconds
+     it waited for batches and the seconds the batcher's producer thread
+     spent building them (`prefetch: 2`, as shipped), and each evaluation
+     pass's time, beside the card's name and power limit;
+  3h. the run lifecycle from feature stores: checks the free disk, writes
+     fold 0's 437 slides (the bags of phase 3g) as a .npy f32 store (7.3
+     GB, 8 threads) in a temporary directory and converts it to .q8npz with
+     `python -m vlsa_tpu_torch.data.convert --dtype int8`, printing sizes
+     and seconds; holds one batch of 32 test patients of each store
+     (.npy in f32 and bf16, .q8npz in int8 with 1/||x||), built by the native
+     loader in page-locked memory, byte for byte against the numpy path's,
+     and times its features' copy to the card from page-locked and from
+     pageable memory (in turns, the least of two each);
+     then five 1-epoch `exec()`s from the stores, each with every launch
+     and batch counter from 0 just before: the flagship in bf16 from .npy,
+     in int8 with the store's 1/||x|| from .q8npz, SA in f32 from .npy, a
+     few-shot flagship (`num_shot: 4`, bf16, .npy; its training set exactly
+     `FewShotSurvBagDataset`'s sample) and SA with SurvPLE, the Cox
+     evaluator and `origin` labels (f32, .npy); each run builds every batch
+     natively (no numpy batch), launches exactly its path's kernels, gives
+     finite metrics and C-indices in [0, 1], and test predictions within
+     1e-3 of the plain pooling's; prints each run's epoch time, slides/s,
+     wait and build shares, evaluation passes and host memory (the resident
+     set's peak within the run and its rise over the run's start; torch's
+     page-locked pool, which the run releases at its end) beside the card's
+     name and power limit (every run reads a page cache that writing the
+     stores warmed); removes the stores;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
@@ -193,6 +217,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPE = dict(B=8, N=10240, C=512, P=12)
@@ -401,6 +426,30 @@ LIFECYCLE_METRICS = ("c_index", "loss", "loss_mle", "IBS", "MAE", "D_calibration
                      "loss_SurvIFMLE")
 TOL_LIFECYCLE_PROBS = 1e-3  # test probabilities, kernel path vs plain (phase 3's limit)
 PAIR_GAP = 2e-3  # comparable pairs closer than this in the plain path may change order
+# the run lifecycle from feature stores (phase 3h): fold 0's slides hold the
+# bags of phase 3g, written as a .npy f32 store and converted to .q8npz by
+# `python -m vlsa_tpu_torch.data.convert --dtype int8`; each run 1 epoch of
+# the shipped configs (as phase 3g) from a store: (name, config, store,
+# changes, the kernels' variant)
+STORE_BAGS = "synthetic://N=8192,D=512,seed=7"
+# a slide's bytes in both stores, at the mean bag (8192 patches of 512:
+# f32, and int8 with two f32 sidecars); the free disk needed is that times
+# the slides times STORE_MARGIN
+STORE_SLIDE_BYTES = 8192 * (512 * 4 + 512 + 8)
+STORE_MARGIN = 1.25
+STORE_RUNS = (
+    ("vlsa_bf16_npy", LIFECYCLE_VLSA_CFG, "npy", dict(feats_dtype="bfloat16"), "bf16"),
+    ("vlsa_int8_q8npz", LIFECYCLE_VLSA_CFG, "q8npz",
+     dict(feats_dtype="int8", feats_precompute_inv=True), "int8_inv"),
+    ("sa_f32_npy", LIFECYCLE_SA_CFG, "npy", {}, "f32"),
+    ("vlsa_fewshot_bf16_npy", LIFECYCLE_VLSA_CFG, "npy",
+     dict(feats_dtype="bfloat16", num_shot=4), "bf16"),
+    ("sa_cox_origin_f32_npy", LIFECYCLE_SA_CFG, "npy",
+     dict(loss_type="SurvPLE", time_format="origin", evaluator="Cox",
+          net_output_converter=None, net_dims="512-256-1"), "f32"),
+)
+STORE_REDUCED = {"epochs": "10 -> 1"}
+RSS_SAMPLE_S = 0.05  # the resident set's sampling period within a run
 
 
 class SmokeFailure(Exception):
@@ -1124,6 +1173,7 @@ def phase_training(torch, co, device):
     trainer = Trainer(cfg, device)
     build_s = time.perf_counter() - t0
     model, engine, batcher = trainer.model, trainer.engine, trainer.batcher
+    batcher.prefetch = 0  # the storage changes between steps: each batch built on demand
     check(trainer.meta.num_bins == 12, f"fold 0 gives {trainer.meta.num_bins} bins, not 12")
     tower = model.prompt_encoder
     tower0 = {k: v.detach().clone() for k, v in tower.state_dict().items()}
@@ -1386,6 +1436,8 @@ def phase_sa_training(torch, ab, co, device):
     for proj in (False, True):
         cfg = training_config(dict(SA_CFG, deepmil_use_feat_proj=proj), fold=0)
         trainers[proj] = Trainer(cfg, device)
+        # the storage changes between steps: each batch built on demand
+        trainers[proj].batcher.prefetch = 0
         check(trainers[proj].meta.num_bins == 12 and cfg["net_dims"] == "512-256-12",
               f"SA fold 0: {trainers[proj].meta.num_bins} bins, net_dims {cfg['net_dims']}")
     build_s = time.perf_counter() - t0
@@ -1597,7 +1649,7 @@ def phase_extraction(torch, fa, ab, co, device):
         bag8, _label = SurvBagDataset(["p0"], os.path.join(tmp, "q8npz"), OnePatient(sids),
                                       read_format="q8npz")[0]
         q, scale = quantize_feats_int8(every)
-        q8_dev = float(np.abs(bag8 - q.astype(np.float32) * scale[:, None]).max())
+        q8_dev = float(np.abs(bag8.dequantize() - q.astype(np.float32) * scale[:, None]).max())
         log(f"stores read back through SurvBagDataset: .npy {bag.shape} exact; .q8npz "
             f"{bag8.shape}, max |stored - quantized .npy features| {q8_dev:.3e}")
         check(q8_dev <= float(scale.max()), f".q8npz bag deviates {q8_dev} from the .npy one")
@@ -1773,6 +1825,7 @@ def phase_feat_proj_training(torch, co, device):
     trainer = Trainer(cfg, device)
     build_s = time.perf_counter() - t0
     model, engine, batcher = trainer.model, trainer.engine, trainer.batcher
+    batcher.prefetch = 0  # the storage changes between steps: each batch built on demand
     check(trainer.meta.num_bins == 12 and model.mil_encoder.use_feat_proj,
           f"fold 0 gives {trainer.meta.num_bins} bins; projecter {model.mil_encoder.use_feat_proj}")
     tower = model.prompt_encoder
@@ -1950,64 +2003,171 @@ def hold_c_index(name, c_kernel, c_plain, gaps, est_gap):
             "share_below_2e-3": share_2e3, "gap_limit": limit, "share_below_limit": share}
 
 
-def phase_lifecycle(torch, ab, co, device, kind, card):
+def exec_handler(torch, ab, co, device, cfg) -> dict:
+    """`exec()` of the handler of `cfg` (VLSA or SA, by its task) with every
+    launch counter and the batcher's batch counts from 0 just before the
+    handler is built: the handler, its metrics, the collected predictions of
+    each evaluation pass by split, the launches by kernel family and
+    variant, the batches by path, and the seconds of the build, exec() and
+    each evaluation pass."""
+    from vlsa_tpu_torch.data import pipeline
+    from vlsa_tpu_torch.runner.sa import SAHandler
+    from vlsa_tpu_torch.runner.vlsa import VLSAHandler
+
+    families = {"coattn_fwd": co.LAUNCHES, "coattn_bwd_dq": co.LAUNCHES_BWD,
+                "coattn_bwd_dx": co.LAUNCHES_DX, "abmil_fwd": ab.LAUNCHES,
+                "abmil_bwd": ab.LAUNCHES_BWD}
+    passes = {}  # split -> the collected predictions of each evaluation pass
+    co.reset_launches()
+    ab.reset_launches()
+    pipeline.reset_batch_counts()
+    t0 = time.perf_counter()
+    handler = (VLSAHandler if cfg["task"] == "vlsa" else SAHandler)(cfg, device=device)
+    build_s = time.perf_counter() - t0
+    test_model = handler.test_model
+
+    def recording(dataset, name, ckpt_path=None):
+        out = test_model(dataset, name, ckpt_path=ckpt_path)
+        passes.setdefault(name, []).append(out["pred"])
+        return out
+    handler.test_model = recording
+    window = HostMemoryWindow(torch)
+    t0 = time.perf_counter()
+    metrics = handler.exec()
+    torch.cuda.synchronize()
+    exec_s = time.perf_counter() - t0
+    handler.test_model = test_model
+    return {"handler": handler, "metrics": metrics, "passes": passes,
+            "launches": {name: dict(counts) for name, counts in families.items()},
+            "batches": dict(pipeline.BATCHES), "build_s": build_s, "exec_s": exec_s,
+            "eval_passes": list(handler.timings["eval"]), "host_memory": window.close()}
+
+
+def _proc_status_bytes(key: str) -> Optional[int]:
+    """A `kB` line of /proc/self/status in bytes (None off Linux)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+class HostMemoryWindow:
+    """The host memory of one stretch of the process: the resident set at
+    its start and its peak within the stretch (VmRSS read every
+    `RSS_SAMPLE_S` by a thread; None off Linux), and torch's page-locked
+    pool: the peak bytes of its blocks (active and cached, each a power of
+    two), the blocks it asked CUDA for and the seconds that took (None where
+    this torch has no host statistics)."""
+
+    def __init__(self, torch):
+        import threading
+        self.start = self.peak = _proc_status_bytes("VmRSS")
+        self.done = threading.Event()
+        self.sampler = threading.Thread(target=self._sample, daemon=True)
+        if self.start is not None:
+            self.sampler.start()
+        self.stats = getattr(torch.cuda, "host_memory_stats", None)
+        try:
+            torch.cuda.reset_peak_host_memory_stats()
+            self.before = self.stats()
+        except (AttributeError, RuntimeError, TypeError):
+            self.stats = None
+
+    def _sample(self) -> None:
+        while not self.done.wait(RSS_SAMPLE_S):
+            self.peak = max(self.peak, _proc_status_bytes("VmRSS") or 0)
+
+    def close(self) -> dict:
+        self.done.set()
+        if self.sampler.is_alive():
+            self.sampler.join()
+            self.peak = max(self.peak, _proc_status_bytes("VmRSS") or 0)
+        out = {"rss_start_bytes": self.start, "rss_peak_bytes": self.peak,
+               "rss_rise_bytes": None if self.start is None else self.peak - self.start}
+        if self.stats is not None:
+            after = self.stats()
+            out.update(pinned_peak_bytes=after.get("allocated_bytes.peak"),
+                       pinned_blocks_made=after.get("num_host_alloc", 0)
+                       - self.before.get("num_host_alloc", 0),
+                       pinned_alloc_s=(after.get("host_alloc_time.total", 0)
+                                       - self.before.get("host_alloc_time.total", 0)) / 1e6)
+        return out
+
+
+def describe_host_memory(m: dict) -> str:
+    gib = lambda b: "not measured" if b is None else f"{b / 2**30:.1f} GiB"  # noqa: E731
+    text = (f"host memory: resident {gib(m['rss_start_bytes'])} at the start, peak "
+            f"{gib(m['rss_peak_bytes'])} within the run ({gib(m['rss_rise_bytes'])} above "
+            f"its start)")
+    if "pinned_peak_bytes" in m:
+        text += (f"; page-locked pool peak {gib(m['pinned_peak_bytes'])}, "
+                 f"{m['pinned_blocks_made']} blocks made in {m['pinned_alloc_s']:.2f} s")
+    return text
+
+
+def expected_launches(handler, launches, variant) -> dict:
+    """The launches an `exec()` of fold 0 makes (no validation split): each
+    epoch trains the training split's batches and evaluates the test split;
+    the final passes evaluate both splits again.  All in `variant` of the
+    model's kernels (co-attention forward and dQ, or ABMIL forward and
+    backward); none of any other."""
+    from vlsa_tpu_torch.runner.train import make_dataset
+    cfg = handler.cfg
+    epochs = len(handler.timings["epochs"])
+    n_train = len(handler.trainer.batcher)
+    test_set = make_dataset(cfg, handler.data_meta, handler.data_split["test"])
+    n_test = -(-len(test_set) // cfg.get("eval_batch_size", cfg["bp_every_batch"]))
+    fwd, bwd = (("coattn_fwd", "coattn_bwd_dq") if cfg["task"] == "vlsa"
+                else ("abmil_fwd", "abmil_bwd"))
+    expected = {name: dict.fromkeys(counts, 0) for name, counts in launches.items()}
+    expected[fwd][variant] = epochs * (n_train + n_test) + n_train + n_test
+    expected[bwd][variant] = epochs * n_train
+    return expected
+
+
+def log_run_times(name, epochs, eval_passes, card) -> None:
+    for r in epochs:
+        log(f"{name} epoch {r['epoch']} on {card}: {r['wall_s']:.1f} s, "
+            f"{r['slides_per_sec']:.2f} slides/s; waiting for batches {r['prep_s']:.1f} s "
+            f"({100 * r['prep_s'] / r['wall_s']:.0f}% of the epoch), building them "
+            f"{r['build_s']:.1f} s ({100 * r['build_s'] / r['wall_s']:.0f}%)")
+    for r in eval_passes:
+        log(f"{name} eval pass {r['split']:5s} ({r['bags']} bags): {r['seconds']:.1f} s")
+
+
+def phase_lifecycle(torch, ab, co, device, kind, card, **changes):
     """One run of `python -m vlsa_tpu_torch.main`'s handler on the card:
-    exec() of the shipped config's fold 0 (epochs cut), every launch
-    counter from 0 just before, then its files, the reload and the plain
-    path checked."""
+    exec() of the shipped config's fold 0 (epochs cut; `changes` to the
+    config), every launch counter from 0 just before, then its files, the
+    reload and the plain path checked."""
     import shutil
     import tempfile
     import numpy as np
     from vlsa_tpu_torch.eval import predict_mean_survival_time
     from vlsa_tpu_torch.runner.ckpt import load_checkpoint, merge_state
-    from vlsa_tpu_torch.runner.sa import SAHandler
     from vlsa_tpu_torch.runner.train import make_dataset
-    from vlsa_tpu_torch.runner.vlsa import VLSAHandler
 
     vlsa = kind == "vlsa"
     base_cfg = LIFECYCLE_VLSA_CFG if vlsa else LIFECYCLE_SA_CFG
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
     try:
-        cfg = dict(base_cfg, save_path=os.path.join(tmp, "run"))
-        passes = {}  # split -> the collected predictions of each evaluation pass
-        families = {"coattn_fwd": co.LAUNCHES, "coattn_bwd_dq": co.LAUNCHES_BWD,
-                    "coattn_bwd_dx": co.LAUNCHES_DX, "abmil_fwd": ab.LAUNCHES,
-                    "abmil_bwd": ab.LAUNCHES_BWD}
+        cfg = dict(base_cfg, **changes, save_path=os.path.join(tmp, "run"))
         # ---- the main path: every launch counter from 0 ----
-        co.reset_launches()
-        ab.reset_launches()
-        t0 = time.perf_counter()
-        handler = (VLSAHandler if vlsa else SAHandler)(cfg, device=device)
-        build_s = time.perf_counter() - t0
-        test_model = handler.test_model
-
-        def recording(dataset, name, ckpt_path=None):
-            out = test_model(dataset, name, ckpt_path=ckpt_path)
-            passes.setdefault(name, []).append(out["pred"])
-            return out
-        handler.test_model = recording
-        t0 = time.perf_counter()
-        metrics = handler.exec()
-        torch.cuda.synchronize()
-        exec_s = time.perf_counter() - t0
-        launches = {name: dict(counts) for name, counts in families.items()}
-        handler.test_model = test_model
-        eval_passes = list(handler.timings["eval"])
+        run = exec_handler(torch, ab, co, device, cfg)
+        handler, metrics, passes, launches = (run[k] for k in ("handler", "metrics", "passes",
+                                                                "launches"))
+        build_s, exec_s, eval_passes = run["build_s"], run["exec_s"], run["eval_passes"]
 
         epochs = cfg["epochs"]
-        n_train = len(handler.trainer.batcher)
         test_set = make_dataset(handler.cfg, handler.data_meta, handler.data_split["test"])
-        n_test = -(-len(test_set) // cfg["bp_every_batch"])
         check(len(handler.trainer.dataset) == 298 and len(test_set) == 75
               and "validation" not in handler.data_split,
               f"fold 0: {len(handler.trainer.dataset)} training, {len(test_set)} test patients")
-        # each epoch trains n_train batches and evaluates the test split; the
-        # final pass evaluates the training and test splits
-        storage = "bf16" if vlsa else "f32"
-        fwd_name, bwd_name = ("coattn_fwd", "coattn_bwd_dq") if vlsa else ("abmil_fwd", "abmil_bwd")
-        expected = {name: dict.fromkeys(counts, 0) for name, counts in launches.items()}
-        expected[fwd_name][storage] = epochs * (n_train + n_test) + n_train + n_test
-        expected[bwd_name][storage] = epochs * n_train
+        expected = expected_launches(handler, launches, "bf16" if vlsa else "f32")
         log(f"{kind} lifecycle launches {launches}")
         check(launches == expected, f"{kind} lifecycle launches {launches}, expected {expected}")
 
@@ -2094,21 +2254,227 @@ def phase_lifecycle(torch, ab, co, device, kind, card):
                                     float(np.abs(mean_time(reloaded) - mean_time(plain)).max()))}
 
         ep = handler.timings["epochs"]
-        for r in ep:
-            log(f"{kind} epoch {r['epoch']}/{epochs} on {card}: {r['wall_s']:.1f} s, "
-                f"{r['slides_per_sec']:.2f} slides/s, host prep {r['prep_s']:.1f} s "
-                f"({100 * r['prep_s'] / r['wall_s']:.0f}% of the epoch)")
-        for r in eval_passes:
-            log(f"{kind} eval pass {r['split']:5s} ({r['bags']} bags): {r['seconds']:.1f} s")
+        log_run_times(kind, ep, eval_passes, card)
         log(f"{kind} lifecycle: build {build_s:.1f} s, exec {exec_s:.1f} s, plain test pass "
-            f"{plain_s:.1f} s; final metrics {metrics}")
+            f"{plain_s:.1f} s, {describe_host_memory(run['host_memory'])}, on {card}; final "
+            f"metrics {metrics}")
         return {"config": {k: v for k, v in cfg.items() if k != "save_path"},
                 "reduced": LIFECYCLE_REDUCED[kind], "card": card, "build_s": build_s,
                 "exec_s": exec_s, "metrics": metrics, "epoch_metrics": epoch_metrics,
                 "epochs": ep, "eval_passes": eval_passes, "plain_test_pass_s": plain_s,
-                "launches": launches,
+                "launches": launches, "host_memory": run["host_memory"],
                 "csv_rows": rows, "test_prob_gap_to_plain": prob_gap, "c_index_check": c_check,
                 "reload_bit_identical": True}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 3h
+
+def same_bytes(torch, a: dict, b: dict) -> bool:
+    """Two batches with the same keys, dtypes, shapes and bytes."""
+    def raw(t):
+        return t.contiguous().view(-1).view(torch.uint8)
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and raw(a[k]).equal(raw(b[k]))
+        for k in a)
+
+
+def write_stores(tmp, sids) -> dict:
+    """The .npy store of `sids` (their STORE_BAGS bags, 8 threads) and its
+    .q8npz conversion by the port's CLI: {store: (directory, bytes, s)}."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from vlsa_tpu_torch.data.io import synthetic_bag
+
+    need = int(STORE_MARGIN * len(sids) * STORE_SLIDE_BYTES)
+    free = shutil.disk_usage(tmp).free
+    log(f"stores: {free} bytes free under {tmp}, about {need} needed")
+    check(free >= need, f"the stores need about {need} bytes of disk, {free} are free")
+    npy, q8 = os.path.join(tmp, "npy"), os.path.join(tmp, "q8npz")
+    os.makedirs(npy)
+
+    def write(sid):
+        np.save(os.path.join(npy, sid + ".npy"), synthetic_bag(sid, STORE_BAGS))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, sids))
+    npy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vlsa_tpu_torch.data.convert", "--src", npy,
+                           "--dst", q8, "--dtype", "int8"], cwd=ROOT, capture_output=True,
+                          text=True)
+    q8_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the store conversion failed:\n{proc.stderr[-3000:]}")
+
+    def size(d):
+        return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    stores = {"npy": (npy, size(npy), npy_s), "q8npz": (q8, size(q8), q8_s)}
+    for name, (d, nbytes, sec) in stores.items():
+        n = len(os.listdir(d))
+        check(n == len(sids), f"the {name} store holds {n} files, not {len(sids)}")
+        log(f"{name} store: {n} slides, {nbytes} bytes ({nbytes / 1e9:.2f} GB), written in "
+            f"{sec:.1f} s")
+    return stores
+
+
+def hold_native_batches(torch, stores, meta, pids) -> dict:
+    """One batch of 32 test patients from each store, native (in pinned
+    memory) and numpy (the same dataset with `bag_paths` hidden): the same
+    bytes."""
+    from vlsa_tpu_torch.data import pipeline
+    from vlsa_tpu_torch.data.bags import SurvBagDataset
+    from vlsa_tpu_torch.data.pipeline import BagBatcher
+
+    out = {}
+    for store, feats_dtype in (("npy", "float32"), ("npy", "bfloat16"), ("q8npz", "int8")):
+        d = stores[store][0]
+        native_ds = SurvBagDataset(pids, d, meta, read_format=store)
+        plain_ds = SurvBagDataset(pids, d, meta, read_format=store)
+        plain_ds.bag_paths = lambda i: None
+        kw = dict(batch_size=32, feats_dtype=feats_dtype, precompute_inv=True, prefetch=0)
+        pipeline.reset_batch_counts()
+        t0 = time.perf_counter()
+        # the main path's batch: page-locked, as a run on the card makes it
+        native = BagBatcher(native_ds, pin_memory=True, **kw).make_batch(range(32))
+        check(native["feats"].is_pinned(), f"{store} {feats_dtype}: the batch is not pinned")
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = BagBatcher(plain_ds, **kw).make_batch(range(32))
+        plain_s = time.perf_counter() - t0
+        check(pipeline.BATCHES == {"native": 1, "numpy": 1},
+              f"{store} {feats_dtype}: batches by path {pipeline.BATCHES}")
+        same = same_bytes(torch, native, plain)
+        key = f"{store}_{feats_dtype}"
+        copy_s = copy_seconds(torch, native["feats"])
+        out[key] = {"bucket": int(native["mask"].shape[1]), "native_s": native_s,
+                    "numpy_s": plain_s, "identical": same, "feats_bytes":
+                    native["feats"].nbytes, "copy_s": copy_s}
+        log(f"{key}: one batch of 32 bags (bucket {out[key]['bucket']}, keys "
+            f"{sorted(native)}): native {native_s:.2f} s, numpy {plain_s:.2f} s, "
+            f"byte-identical {same}; its {native['feats'].nbytes} bytes of features to the "
+            f"card from page-locked memory {copy_s['pinned']:.3f} s, from pageable "
+            f"{copy_s['pageable']:.3f} s")
+        check(same, f"{key}: the native batch differs from the numpy path's")
+    return out
+
+
+def copy_seconds(torch, pinned) -> dict:
+    """Seconds of the copy of a host tensor to the card (host clock to a
+    synchronize), from page-locked memory and from a pageable copy of it,
+    in turns (pinned, pageable, pageable, pinned): the least of each."""
+    pageable = torch.empty_like(pinned, pin_memory=False).copy_(pinned)
+    check(pinned.is_pinned() and not pageable.is_pinned(), "the copies' memory kinds")
+    times = {"pinned": [], "pageable": []}
+    for kind in ("pinned", "pageable", "pageable", "pinned"):
+        src = pinned if kind == "pinned" else pageable
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst = src.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        times[kind].append(time.perf_counter() - t0)
+        del dst
+    return {k: min(v) for k, v in times.items()}
+
+
+def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, changes,
+              variant, epochs=1) -> dict:
+    """One run of STORE_RUNS (of `epochs` epochs): `exec()` of a fresh
+    handler from `store` with every launch and batch counter from 0 just
+    before, then its checks."""
+    import numpy as np
+    from vlsa_tpu_torch.data.bags import FewShotSurvBagDataset, SurvBagDataset
+    from vlsa_tpu_torch.data.pipeline import release_pinned_batches
+    from vlsa_tpu_torch.runner.train import make_dataset
+
+    cfg = dict(base_cfg, **changes, epochs=epochs, path_patch=stores[store][0], feat_format=store,
+               save_path=os.path.join(tmp, name))
+    run = exec_handler(torch, ab, co, device, cfg)
+    handler, launches = run["handler"], run["launches"]
+    check(run["batches"]["numpy"] == 0 and run["batches"]["native"] > 0,
+          f"{name}: batches by path {run['batches']}: every batch must be native")
+    expected = expected_launches(handler, launches, variant)
+    check(launches == expected, f"{name}: launches {launches}, expected {expected}")
+    # every metric of every evaluation finite, each C-index in [0, 1]
+    with open(os.path.join(cfg["save_path"], "metrics.jsonl")) as f:
+        evals = [e for e in map(json.loads, f) if e["event"] == "eval"]
+    values = {k: v for e in evals for k, v in e.items() if k not in ("event", "at", "ts")}
+    check(len(evals) == 2 * epochs + 2 and values
+          and all(np.isfinite(v) for v in values.values()),
+          f"{name}: {len(evals)} evaluations, a non-finite metric in {values}")
+    c_idx = {k: v for k, v in values.items() if k.endswith(("/c_index", "/c_index2"))}
+    check(c_idx and all(0.0 <= v <= 1.0 for v in c_idx.values()),
+          f"{name}: a C-index outside [0, 1]: {c_idx}")
+    n_train = len(handler.trainer.dataset)
+    if cfg.get("num_shot", -1) > 0:
+        plain_set = SurvBagDataset(handler.data_split["train"], stores[store][0],
+                                   handler.data_meta, read_format=store)
+        idx = FewShotSurvBagDataset(plain_set, cfg["num_shot"],
+                                    cfg.get("seed_shot", 42)).few_shot_idx
+        check(handler.trainer.dataset.few_shot_idx == idx and n_train == len(idx),
+              f"{name}: {n_train} training patients, the sample has {len(idx)}")
+    else:
+        check(n_train == 298, f"{name}: {n_train} training patients")
+    # the final test pass against the same weights through the plain pooling
+    test_set = make_dataset(handler.cfg, handler.data_meta, handler.data_split["test"])
+    with (plain_coattention() if cfg["task"] == "vlsa" else plain_abmil()):
+        plain = handler.test_model(test_set, "test")["pred"]
+    release_pinned_batches()  # the next run starts, as this one did, with none kept
+    gap = float(np.abs(run["passes"]["test"][-1]["y_hat"] - plain["y_hat"]).max())
+    check(gap <= TOL_LIFECYCLE_PROBS, f"{name}: test predictions deviate {gap:.3e} "
+                                      f"from the plain pooling's")
+    log_run_times(name, handler.timings["epochs"], run["eval_passes"], card)
+    log(f"{name}: {n_train} training patients, build {run['build_s']:.1f} s, exec "
+        f"{run['exec_s']:.1f} s, {run['batches']['native']} native batches, launches "
+        f"{ {k: {v: n for v, n in c.items() if n} for k, c in launches.items()} }, "
+        f"test predictions vs plain {gap:.3e} (tol {TOL_LIFECYCLE_PROBS:g}), "
+        f"{describe_host_memory(run['host_memory'])}, on {card}; the store read from a page "
+        f"cache its writing warmed; final metrics {run['metrics']}")
+    out = {"config": {k: v for k, v in cfg.items() if k != "save_path"},
+           "reduced": STORE_REDUCED, "card": card, "variant": variant,
+           "train_patients": n_train, "build_s": run["build_s"], "exec_s": run["exec_s"],
+           "epochs": handler.timings["epochs"], "eval_passes": run["eval_passes"],
+           "batches": run["batches"], "launches": launches, "metrics": run["metrics"],
+           "test_pred_gap_to_plain": gap, "host_memory": run["host_memory"]}
+    del handler, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def fold0_slides():
+    """(label table, split, the ids of fold 0's 437 slides)."""
+    from vlsa_tpu_torch.config import training_config
+    from vlsa_tpu_torch.data.label_converter import MetaSurvData
+    from vlsa_tpu_torch.data.splits import read_file_data_splitting
+
+    cfg = training_config(dict(LIFECYCLE_SA_CFG), 0)
+    split = read_file_data_splitting(cfg["data_split_path"])
+    meta = MetaSurvData(cfg["path_table"], data_split=split)
+    meta.generate_discrete_label(use_quantiles=False)
+    sids = sorted({s for p in split["train"] + split["test"]
+                   for s in meta.collect_info_by_pids([p])[1][p]})
+    check(len(sids) == 437, f"fold 0 has {len(sids)} slides, not 437")
+    return meta, split, sids
+
+
+def phase_store_runs(torch, ab, co, device, card):
+    """Phase 3h: the stores, one batch of each native against numpy, then
+    every run of STORE_RUNS; the stores are removed at the end."""
+    import shutil
+    import tempfile
+    from vlsa_tpu_torch.data.pipeline import release_pinned_batches
+
+    meta, split, sids = fold0_slides()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stores_")
+    try:
+        stores = write_stores(tmp, sids)
+        batches_check = hold_native_batches(torch, stores, meta, split["test"][:32])
+        release_pinned_batches()  # each run starts with no page-locked block kept
+        runs = {spec[0]: store_run(torch, ab, co, device, card, stores, tmp, *spec)
+                for spec in STORE_RUNS}
+        return {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
+                "native_vs_numpy": batches_check, "runs": runs}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2514,6 +2880,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
+        from vlsa_tpu_torch.data.pipeline import release_pinned_batches
         from vlsa_tpu_torch.ops import abmil as ab
         from vlsa_tpu_torch.ops import coattn as co
         from vlsa_tpu_torch.ops import flash_attn as fa
@@ -2537,6 +2904,7 @@ def main(argv=None) -> int:
         out = fn(*fn_args)
         phase_s[name] = time.perf_counter() - t
         log(f"phase {name}: {phase_s[name]:.1f} s")
+        release_pinned_batches()  # the batches a phase built outside a run
         return out
     try:
         errs = timed("2", phase_kernel, torch, co)
@@ -2556,6 +2924,7 @@ def main(argv=None) -> int:
         feat_proj = timed("3f", phase_feat_proj_training, torch, co, device)
         lifecycle_vlsa = timed("3g-VLSA", phase_lifecycle, torch, ab, co, device, "vlsa", card)
         lifecycle_sa = timed("3g-SA", phase_lifecycle, torch, ab, co, device, "sa", card)
+        store_runs = timed("3h", phase_store_runs, torch, ab, co, device, card)
         times = timed("4", phase_times, torch, co)
         abmil_times = timed("4b", phase_abmil_times, torch, ab)
         flash_times = timed("4c", phase_flash_times, torch, fa)
@@ -2565,10 +2934,15 @@ def main(argv=None) -> int:
         return 1
 
     kernels = []
-    life = lifecycle_vlsa["launches"]
+    # the whole runs' launches: phase 3g's and each of phase 3h's
+    runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values())
+
+    def run_launches(family, variant):
+        return sum(r["launches"][family][variant] for r in runs)
     fwd_launches = {v: serving["launches"][v] + training["launches"]["fwd"][v]
-                    + feat_proj["launches"]["fwd"][v] + life["coattn_fwd"][v] for v in VARIANTS}
-    dq_launches = {v: training["launches"]["bwd"][v] + life["coattn_bwd_dq"][v]
+                    + feat_proj["launches"]["fwd"][v] + run_launches("coattn_fwd", v)
+                    for v in VARIANTS}
+    dq_launches = {v: training["launches"]["bwd"][v] + run_launches("coattn_bwd_dq", v)
                    for v in VARIANTS}
     for name, source, replaces, err, t_by_variant, launches in (
             ("coattn_fwd", SOURCE, REPLACES, errs, times["fwd_b8"], fwd_launches),
@@ -2588,11 +2962,10 @@ def main(argv=None) -> int:
             "replaces": REPLACES_DX, "launches": feat_proj["launches"]["dx"][s],
             "max_abs_err": errs_dx[s]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    life = lifecycle_sa["launches"]
     abmil_launches = {"abmil_fwd": {s: sa_serving["launches"][s] + sa_training["launches"]["fwd"][s]
-                                    + life["abmil_fwd"][s] for s in ABMIL_STORAGES},
-                      "abmil_bwd": {s: sa_training["launches"]["bwd"][s] + life["abmil_bwd"][s]
-                                    for s in ABMIL_STORAGES},
+                                    + run_launches("abmil_fwd", s) for s in ABMIL_STORAGES},
+                      "abmil_bwd": {s: sa_training["launches"]["bwd"][s]
+                                    + run_launches("abmil_bwd", s) for s in ABMIL_STORAGES},
                       "abmil_bwd_dx": {s: sa_training["launches"]["bwd"][f"{s}_dx"]
                                        for s in ("f32", "bf16")}}
     for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
@@ -2636,7 +3009,8 @@ def main(argv=None) -> int:
               "flash_plan": {L: list(fa.flash_plan(L)) for L in FLASH_LENGTHS},
               "extraction": extraction, "extraction_512": extraction_512, "flash_times": flash_times, "dx_errors": errs_dx,
               "feat_proj_training": feat_proj, "dx_times": dx_times,
-              "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa, "kernels": kernels,
+              "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
+              "store_runs": store_runs, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -126,6 +126,8 @@ def test_extract_to_store(tmp_path, fmt):
         np.testing.assert_array_equal(jax_read_patch_data(path), want)
     bag, label = SurvBagDataset(["p0"], out, _Meta(), read_format=fmt)[0]
     assert bag.shape == (8, 64) and label.tolist() == [1.0, 0.0]
+    if fmt == "q8npz":  # the stored int8 bag, which batches take as it is
+        bag = bag.dequantize()
     np.testing.assert_array_equal(bag, np.concatenate([read_patch_data(
         os.path.join(out, f"{s}.{fmt}")) for s in ("slideA", "slideB")]))
 

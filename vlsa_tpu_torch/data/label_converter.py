@@ -1,10 +1,13 @@
 """Patient-level survival labels and discrete time bins (counterpart of
 vlsa_tpu/data/label_converter.py), with `csv` and numpy in place of pandas.
 
-Bins are inferred from the training split: uniform intervals or quantiles of
-the event times, by default ceil(sqrt(#events)) of them; the first edge is 0
-and the last the cohort's largest time plus 1e-5.  The few-shot sampler's
-Kaplan-Meier de-censoring is not ported yet.
+Labels are discrete time bins or continuous times.  Bins are inferred from
+the training split: uniform intervals or quantiles of the event times, by
+default ceil(sqrt(#events)) of them; the first edge is 0 and the last the
+cohort's largest time plus 1e-5.  Continuous labels are the times
+(`continuous_time`) or the times over the training split's largest, clipped
+at 1 (`continuous_ratio`).  The few-shot sampler bins each patient by a
+Kaplan-Meier best guess of the censored times (`calculate_uncensored_time_bins`).
 """
 from __future__ import annotations
 
@@ -13,6 +16,30 @@ import math
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from ..eval.km import KaplanMeierArea
+
+EPS = 1e-5
+
+
+def get_best_guess_from_training_data(train_t, train_e) -> np.ndarray:
+    """The cohort's times with each censored time replaced by its
+    Kaplan-Meier best guess (the residual mean survival time of the KM margin
+    method); censored times past the KM curve's linear zero stay as they are."""
+    train_t = np.asarray(train_t)
+    train_e = np.asarray(train_e).astype(bool)
+    km_model = KaplanMeierArea(train_t, train_e)
+    km_linear_zero = km_model.km_linear_zero
+    if np.isinf(km_linear_zero):
+        km_linear_zero = max(km_model.survival_times)
+    best = train_t.copy().astype(float)
+    censor_times = train_t[~train_e]
+    if censor_times.size:
+        guess = km_model.best_guess(censor_times.astype(float))
+        beyond = censor_times > km_linear_zero
+        guess[beyond] = censor_times[beyond]
+        best[~train_e] = guess
+    return best
 
 
 def calculate_discrete_time_bins(t: np.ndarray, e: np.ndarray,
@@ -43,6 +70,22 @@ def cut(values: np.ndarray, bins: np.ndarray) -> np.ndarray:
     if np.any(ids < 0) or np.any(ids >= len(bins) - 1):
         raise ValueError(f"times outside the bins [{bins[0]}, {bins[-1]})")
     return ids
+
+
+def calculate_uncensored_time_bins(patient_ids, meta_data: "MetaSurvData"):
+    """The bin of each patient's de-censored time (the few-shot sampler's
+    strata): the KM best guess, clipped EPS inside the label's bins (or, for
+    continuous labels, uniform bins of these patients' event times), then
+    binned."""
+    actual = meta_data.get_patient_data(patient_ids, ret_columns=["t", "e"])
+    uncensored_t = get_best_guess_from_training_data(actual["t"], actual["e"])
+    if meta_data.label_format is not None and "discrete" in meta_data.label_format:
+        time_bins = meta_data.time_bins
+    else:
+        time_bins = calculate_discrete_time_bins(actual["t"], actual["e"], num_bins=None,
+                                                 use_quantiles=False, max_time=meta_data.max_t)
+    uncensored_t = np.clip(uncensored_t, time_bins[0] + EPS, time_bins[-1] - EPS)
+    return cut(uncensored_t, np.asarray(time_bins))
 
 
 class MetaSurvData:
@@ -111,10 +154,27 @@ class MetaSurvData:
         self.y_t = cut(self.t, self.time_bins)
         return self.y_t
 
+    def generate_continuous_label(self, normalize: bool = False) -> np.ndarray:
+        """Continuous time labels y_t of every patient: the times, or with
+        `normalize` each time over the training split's largest (the
+        cohort's without a split), clipped at 1."""
+        if normalize:
+            max_time = (self.t[self.patient_rows(self.data_split["train"])].max()
+                        if self.data_split is not None else self.max_t)
+            self.y_t = np.minimum(1.0, self.t / max_time)
+            self.label_format = "continuous_ratio"
+        else:
+            self.y_t = self.t.copy()
+            self.label_format = "continuous_time"
+        return self.y_t
+
     def collect_info_by_pids(self, pids):
-        """(patient ids found, pid -> slide ids, pid -> [y_t, e])."""
+        """(patient ids found, pid -> slide ids, pid -> [y_t, e]); y_t is a
+        bin index (int) for discrete labels, a time or ratio (float) for
+        continuous ones."""
         if self.y_t is None:
-            raise ValueError("generate_discrete_label first")
+            raise ValueError("generate_discrete_label or generate_continuous_label first")
+        discrete = "discrete" in self.label_format
         sel_pids, pid2sids, pid2label = [], {}, {}
         for pid in pids:
             sids = [s for s, p in zip(self.slide_ids, self.slide_pids) if p == pid]
@@ -124,5 +184,6 @@ class MetaSurvData:
             sel_pids.append(pid)
             pid2sids[pid] = sids
             row = self._row[pid]
-            pid2label[pid] = [int(self.y_t[row]), int(self.e[row])]
+            y_t = self.y_t[row]
+            pid2label[pid] = [int(y_t) if discrete else float(y_t), int(self.e[row])]
         return sel_pids, pid2sids, pid2label

@@ -11,11 +11,33 @@ FEATS_DTYPES = ("float32", "bfloat16", "int8")
 
 
 class QuantizedBag(NamedTuple):
-    """An int8 bag: q [n, D] int8, scale [n] f32 (dequant), inv [n] f32
-    (1/||q||, 0 for a zero row)."""
+    """An int8 bag (vlsa_tpu/data/io.py::QuantizedFeats): q [n, D] int8,
+    scale [n] f32 (dequant), inv [n] f32 (1/||q||, 0 for a zero row).  A
+    `.q8npz` store holds one per slide; the batcher assembles them into int8
+    batches as stored, with no host quantization or norm pass."""
     q: np.ndarray
     scale: np.ndarray
     inv: np.ndarray
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def dequantize(self) -> np.ndarray:
+        """The f32 features q * scale."""
+        return self.q.astype(np.float32) * self.scale[..., None]
+
+    @staticmethod
+    def concatenate(parts: Sequence["QuantizedBag"]) -> "QuantizedBag":
+        """The slides of one patient as one bag, in order."""
+        return QuantizedBag(*(np.concatenate([getattr(p, k) for p in parts], axis=0)
+                              for k in QuantizedBag._fields))
+
+
+def read_quantized_feats(path: str) -> QuantizedBag:
+    """One slide of a `.q8npz` store, its 1/||q|| taken from the store."""
+    with np.load(path) as z:
+        return QuantizedBag(z["q"], z["scale"], z["inv"])
 
 
 def quantize_feats_int8(feats: np.ndarray):

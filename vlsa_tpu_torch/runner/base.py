@@ -14,14 +14,17 @@ evaluation pass runs the model in eval mode under `torch.inference_mode()`
 with VLSA's text prototypes and queries computed once from the current
 weights, and puts the model back in train mode after it.
 
-Not ported: wandb (vlsa_tpu leaves it off unless VLSA_TPU_DISABLE_WANDB=0;
-the card's machine has no wandb), zero-shot (`num_shot: 0`, ROADMAP.md
-§A.9), few-shot (`num_shot > 0`, §A.6), importing the released text tower
-(`path_clip_model`, §A.6), `mesh` and `distributed` (§A.17), and
-vlsa_tpu's checkpoint formats (`ckpt_backend`); each raises.
+Few-shot runs (`num_shot > 0`) train on the training split's few-shot
+sample (data/bags.py::FewShotSurvBagDataset) and evaluate it as the train
+split.  Not ported: wandb (vlsa_tpu leaves it off unless
+VLSA_TPU_DISABLE_WANDB=0; the card's machine has no wandb), zero-shot
+(`num_shot: 0`, ROADMAP.md §A.9), importing the released text tower
+(`path_clip_model`, §A.6), `mesh` and `distributed` (§A.17), and vlsa_tpu's
+checkpoint formats (`ckpt_backend`); each raises.
 """
 from __future__ import annotations
 
+import functools
 import os
 import os.path as osp
 import time
@@ -34,6 +37,7 @@ from ..config import (DATASET_CFG, fill_placeholder, print_config, print_metrics
                       rename_keys, save_config)
 from ..config_schema import validate_config
 from ..data.io import load_init_text, save_prediction_surv
+from ..data.pipeline import release_pinned_batches
 from ..optim import EarlyStopping, ReduceLROnPlateau
 from ..utils.device import resolve_device
 from ..utils.observability import JsonlLogger, configure_debug, maybe_profile
@@ -47,13 +51,9 @@ _MODEL_INPUTS = ("feats", "feats_scale", "feats_inv", "mask")
 
 
 def _refuse_unported(cfg: dict) -> None:
-    num_shot = cfg.get("num_shot", -1)
-    if num_shot == 0:
+    if cfg.get("num_shot", -1) == 0:
         raise NotImplementedError("zero-shot evaluation (num_shot: 0) is not ported yet "
                                   "(ROADMAP.md §A.9)")
-    if num_shot is not None and num_shot > 0:
-        raise NotImplementedError("few-shot training (num_shot > 0) is not ported yet "
-                                  "(ROADMAP.md §A.6)")
     for key in ("mesh", "distributed"):
         if cfg.get(key):
             raise NotImplementedError(f"`{key}`: multi-device runs are not ported yet "
@@ -91,6 +91,20 @@ def _fill_paths(cfg: dict) -> None:
         elif dataset_name in DATASET_CFG:
             cfg[key] = int(fill_placeholder(
                 cfg[key], DATASET_CFG[dataset_name]["num_query"], ind="{3}"))
+
+
+def _releases_pinned_batches(run):
+    """A run's entry point that, on the card, returns the page-locked blocks
+    of its batches to the system at its end (they serve every epoch of the
+    run; data/pipeline.py::release_pinned_batches)."""
+    @functools.wraps(run)
+    def wrapped(self, *args, **kws):
+        try:
+            return run(self, *args, **kws)
+        finally:
+            if self.device.type == "cuda":
+                release_pinned_batches()
+    return wrapped
 
 
 class BaseHandler:
@@ -142,7 +156,8 @@ class BaseHandler:
 
         self._check_arguments(cfg)
         self.uid: Dict[str, list] = {}
-        # seconds of each epoch (wall, batch prep) and evaluation pass
+        # seconds of each epoch (wall; waiting for batches, `prep_s`; the
+        # producer building them, `build_s`) and of each evaluation pass
         self.timings: Dict[str, list] = {"epochs": [], "eval": []}
         self.cfg = cfg
         print_config(cfg, print_to_path=self.config_path)
@@ -177,6 +192,7 @@ class BaseHandler:
         return float(torch.exp(self.model.logit_scale.detach()).cpu())
 
     # ------------------------------------------------------------------ exec
+    @_releases_pinned_batches
     def exec(self):
         cfg = self.cfg
         print(f"[exec] with task = {cfg['task']}, arch = {cfg['arch']}.")
@@ -204,11 +220,13 @@ class BaseHandler:
         return self._eval_all(evals, ckpt_type=cfg.get("ckpt_for_eval", "last"),
                               run_name=run_name)
 
+    @_releases_pinned_batches
     def exec_test(self):
         """Evaluate the split `test_path` with the checkpoint of `test_load_path`."""
         cfg = self.cfg
         pids = self.data_split[cfg["test_path"]]
-        test_set = make_dataset(cfg, self.data_meta, pids)
+        # as vlsa_tpu: the split named "train" is the few-shot sample in a few-shot run
+        test_set = make_dataset(cfg, self.data_meta, pids, train=cfg["test_path"] == "train")
         self.uid["exec-test"] = test_set.uid
         return self._eval_all({"exec-test": test_set},
                               ckpt_type=cfg.get("ckpt_for_eval", "last"), test_mode=True)
@@ -224,7 +242,8 @@ class BaseHandler:
         self.es = es
         # a new batcher, as vlsa_tpu makes one: its shuffle is keyed by its own
         # epoch count, so a resumed run's first epoch takes epoch 1's order
-        train_batcher = make_batcher(self.trainer.dataset, cfg, shuffle=True)
+        train_batcher = make_batcher(self.trainer.dataset, cfg, shuffle=True,
+                                     pin_memory=self.device.type == "cuda")
         n_train = len(train_batcher.dataset)
         last_epoch = -1
         start_epoch = 0
@@ -238,13 +257,14 @@ class BaseHandler:
             t0 = time.time()
             with maybe_profile(cfg.get("profile_dir") if epoch == 1 else None):
                 train_cltor, prep_s = self._train_each_epoch(train_batcher)
+            build_s = train_batcher.build_s
             dt = time.time() - t0
             sps = n_train / max(dt, 1e-9)
             print(f"[train] epoch {epoch+1}/{epochs}: {sps:.2f} slides/sec")
             self.jsonl.log({"event": "epoch", "epoch": epoch + 1,
                             "slides_per_sec": sps, "wall_sec": dt})
             self.timings["epochs"].append({"epoch": epoch + 1, "wall_s": dt, "prep_s": prep_s,
-                                           "slides_per_sec": sps})
+                                           "build_s": build_s, "slides_per_sec": sps})
             for k_c, v_c in train_cltor.items():
                 self._eval_and_print(v_c, name=f"{name_loader}/{k_c}", at_epoch=epoch + 1)
 
@@ -277,7 +297,9 @@ class BaseHandler:
 
     def _train_each_epoch(self, train_batcher):
         """One pass over the training split: (collected predictions, seconds
-        the batcher took)."""
+        the loop waited for a batch).  The batcher's producer builds batches
+        while the steps run, so the wait is the part of building that the
+        steps do not hide (`train_batcher.build_s` is all of it)."""
         all_raw, all_gt, all_idx = [], [], []
         prep_s = 0.0
         batches = iter(train_batcher)
@@ -313,7 +335,8 @@ class BaseHandler:
             merge_state(self.model, load_checkpoint(ckpt_path)["model"])
         t0 = time.perf_counter()
         model = self.model
-        batcher = make_batcher(dataset, self.cfg, shuffle=False)
+        batcher = make_batcher(dataset, self.cfg, shuffle=False,
+                               pin_memory=self.device.type == "cuda")
         all_raw, all_gt, all_idx = [], [], []
         model.eval()
         try:

@@ -18,13 +18,18 @@ _LOSS_PAIRING = {"SurvMLE": ("sigmoid", "NLL"), "SurvIFMLE": ("softmax", "NLL-IF
 
 
 def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
-    """The label table with discrete bins from the training split; sets
-    `time_bins` to the bin count."""
+    """The label table: `time_format` interval or quantile gives discrete
+    bins from the training split (and sets `time_bins` to their count),
+    origin the times and ratio the times over the training split's largest,
+    clipped at 1."""
     time_format = cfg["time_format"]
-    if time_format not in ("interval", "quantile"):
-        raise NotImplementedError(f"time_format {time_format!r}: this port has "
-                                  f"discrete labels (interval, quantile) only")
+    if time_format not in ("origin", "ratio", "interval", "quantile"):
+        raise ValueError(f"time_format must be origin, ratio, interval or quantile, "
+                         f"got {time_format!r}")
     meta = MetaSurvData(cfg["path_table"], data_split=data_split)
+    if time_format in ("origin", "ratio"):
+        meta.generate_continuous_label(normalize=time_format == "ratio")
+        return meta
     meta.generate_discrete_label(num_bins=cfg.get("time_bins"),
                                  use_quantiles=time_format == "quantile")
     if cfg.get("time_bins") not in (None, meta.num_bins):
@@ -52,10 +57,12 @@ def correct_net_dims(cfg: dict, num_bins: int) -> None:
 
 
 def load_meta(cfg: dict, data_split: dict) -> MetaSurvData:
-    """The fold's labels, with `net_dims` corrected to their bin count."""
+    """The fold's labels, with `net_dims` corrected to their bin count when
+    they are discrete."""
     check_arguments(cfg)
     meta = build_surv_meta(cfg, data_split)
-    correct_net_dims(cfg, meta.num_bins)
+    if "discrete" in meta.label_format:
+        correct_net_dims(cfg, meta.num_bins)
     return meta
 
 

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..config import fetch_kws, load_config, training_config
-from ..data.bags import SurvBagDataset
+from ..data.bags import SurvBagDataset, prepare_surv_dataset
 from ..data.label_converter import MetaSurvData
 from ..data.pipeline import BagBatcher
 from ..data.splits import read_file_data_splitting
@@ -87,16 +87,24 @@ def load_losses(cfg: dict):
     return load_loss(cfg["task"], **kws), weights
 
 
-def make_dataset(cfg: dict, meta: MetaSurvData, patient_ids) -> SurvBagDataset:
-    """The bags of `patient_ids` from the config's `path_patch`."""
-    return SurvBagDataset(patient_ids, cfg["path_patch"], meta,
-                          read_format=cfg.get("feat_format", "pt"))
+def make_dataset(cfg: dict, meta: MetaSurvData, patient_ids,
+                 train: bool = False) -> SurvBagDataset:
+    """The bags of `patient_ids` from the config's `path_patch`; for the
+    training split (`train`), the few-shot sample of `num_shot` patients a
+    time bin when that is > 0, drawn with `seed_shot` (default 42)."""
+    if not train:
+        return prepare_surv_dataset(patient_ids, cfg, meta)
+    return prepare_surv_dataset(patient_ids, cfg, meta, num_shot=cfg.get("num_shot", -1),
+                                seed_shot=cfg.get("seed_shot", 42))
 
 
-def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool) -> BagBatcher:
+def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool,
+                 pin_memory: bool = False) -> BagBatcher:
     """The config's batcher: `bp_every_batch` bags a batch when training
     (shuffled by the seed and the batcher's own epoch count), an evaluation
-    pass's `eval_batch_size` (default `bp_every_batch`) in order."""
+    pass's `eval_batch_size` (default `bp_every_batch`) in order; built
+    `prefetch` (default 2) batches ahead by a background thread, in
+    page-locked memory with `pin_memory` (for a model on the card)."""
     batch_size = cfg.get("bp_every_batch", 32)
     if not shuffle:
         batch_size = cfg.get("eval_batch_size", batch_size)
@@ -107,7 +115,8 @@ def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool) -> BagBatche
         feats_dtype=cfg.get("feats_dtype", "float32"),
         # DeepMIL's pooling is unnormalised: SA needs no 1/||x|| rows
         precompute_inv=cfg.get("feats_precompute_inv", True) and cfg["task"] != "sa",
-        overflow=cfg.get("bag_overflow", "error"))
+        overflow=cfg.get("bag_overflow", "error"), prefetch=cfg.get("prefetch", 2),
+        pin_memory=pin_memory)
 
 
 class Trainer:
@@ -128,8 +137,9 @@ class Trainer:
             self.meta = sa.load_meta(cfg, self.data_split)
         else:
             self.meta = build_surv_meta(cfg, self.data_split)
-        self.dataset = make_dataset(cfg, self.meta, self.data_split["train"])
-        self.batcher = make_batcher(self.dataset, cfg, shuffle=True)
+        self.dataset = make_dataset(cfg, self.meta, self.data_split["train"], train=True)
+        self.batcher = make_batcher(self.dataset, cfg, shuffle=True,
+                                    pin_memory=self.device.type == "cuda")
         if cfg["task"] == "sa":
             self.model = sa.build_model(cfg, device=self.device, state_dict=state_dict)
         else:

@@ -3,7 +3,9 @@ run with ordinal rank prompts, the VL or VL-IF evaluator, the QueryDiv loss
 bound to the live model, and the training losses computed again on the
 predictions with the live logit scale exp(logit_scale).  The config's
 freeze flags (the text tower, and optionally the MIL encoder, the logit
-scale, CoOp's embeddings) are applied by runner.train.frozen_paths."""
+scale, CoOp's embeddings) are applied by runner.train.frozen_paths.  With
+`num_shot` > 0 the run trains on the few-shot sample that runner.train's
+Trainer draws with `seed_shot` (vlsa_tpu/runner/vlsa.py:134-139)."""
 from __future__ import annotations
 
 from ..config import fetch_kws
