@@ -127,7 +127,8 @@ non-zero and prints no result:
   3g. the run lifecycle (`python -m vlsa_tpu_torch.main`'s handlers): the
      flagship config (configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml, fold 0,
      full CONCH width, bf16 storage, random weights from the seed) through
-     `VLSAHandler(cfg).exec()` for 2 epochs (cut from 10), then
+     `VLSAHandler(cfg).exec()` for 1 epoch (cut from 10; 2 until phase 3i
+     came), then
      cfg_sa_base_conch.yaml (f32 storage) through `SAHandler` for 1, on the
      298 training and 75 test patients, save_path in a temporary
      directory, every launch counter from 0 just before: each epoch trains
@@ -169,7 +170,29 @@ non-zero and prints no result:
      set's peak within the run and its rise over the run's start; torch's
      page-locked pool, which the run releases at its end) beside the card's
      name and power limit (every run reads a page cache that writing the
-     stores warmed); removes the stores;
+     stores warmed);
+  3i. the released CONCH weights and zero-shot: writes a CONCH-format
+     `pytorch_model.bin` beside the stores (the text tower under `text.*`
+     at its published width: 12 layers of 768, vocabulary 32007, context
+     128, output 512; `logit_scale` 4.0; `visual.*` and `text_decoder.*`
+     decoys; random from a seed) and runs configs/IFMLE/tcga_blca/
+     cfg_zero_shot_conch.yaml on fold 0 with `path_clip_model` naming its
+     directory, from phase 3h's stores (bf16 from .npy, int8 from .q8npz),
+     each with `logit_top10`, `logit_max` and `logit_mean`: every run
+     launches no kernel, trains nothing, gives finite metrics and C-indices
+     in [0, 1] on the 75 test patients, has the file's tower (bf16 where
+     the frozen tower stores it so) and logit scale exactly, text
+     prototypes of the tower computing in f32 within 1e-4 of the CPU's
+     (the bf16 tower's gap printed), and the first test batch's
+     probabilities within 1e-3 of the port's computation on the CPU from the
+     same text prototypes (the gap to a float64 computation printed); then
+     writes a
+     reference-format CoOp checkpoint and trains the flagship 1 epoch (bf16,
+     .npy) with that tower and the CoOp learner warm-started from it: both
+     as the files hold them before the run, exactly rows 1 and 6 (bf16)
+     launched, test predictions within 1e-3 of the plain pooling's; prints
+     each run's pass seconds and peak device memory beside the card's name
+     and power limit; removes the stores and checkpoints;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
@@ -210,12 +233,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -418,9 +444,9 @@ LIFECYCLE_RUN = dict(
     es_start_epoch=0, monitor_metrics="loss", lrs=False, lrs_factor=0.5, lrs_patience=10,
     test=False)
 LIFECYCLE_VLSA_CFG = dict(TRAIN_CFG, **LIFECYCLE_RUN, evaluator="VL-IF",
-                          model_saver_module_filter="prompt_encoder", epochs=2)
+                          model_saver_module_filter="prompt_encoder", epochs=1)
 LIFECYCLE_SA_CFG = dict(SA_CFG, **LIFECYCLE_RUN, epochs=1)
-LIFECYCLE_REDUCED = {"vlsa": {"epochs": "10 -> 2"}, "sa": {"epochs": "10 -> 1"}}
+LIFECYCLE_REDUCED = {"vlsa": {"epochs": "10 -> 1"}, "sa": {"epochs": "10 -> 1"}}
 # the metrics each epoch's and the final evaluation must give, finite
 LIFECYCLE_METRICS = ("c_index", "loss", "loss_mle", "IBS", "MAE", "D_calibration", "c_index2",
                      "loss_SurvIFMLE")
@@ -450,6 +476,27 @@ STORE_RUNS = (
 )
 STORE_REDUCED = {"epochs": "10 -> 1"}
 RSS_SAMPLE_S = 0.05  # the resident set's sampling period within a run
+# phase 3i: the released CONCH weights and zero-shot.  A CONCH-format
+# checkpoint (a CoCa state dict, the text tower under `text.*`) at the
+# published text tower's full width, random from ZS_SEED, with `visual.*`
+# and `text_decoder.*` decoys; its logit scale ZS_LOGIT_SCALE
+ZS_TOWER = dict(width=768, layers=12, vocab=32007, context=128, output=512)
+ZS_LOGIT_SCALE = 4.0
+ZS_SEED = 14
+# the shipped zero-shot config, fold 0 (its grid: the three poolings), run
+# from phase 3h's stores: (store, feats_dtype)
+ZS_CONFIG = "configs/IFMLE/tcga_blca/cfg_zero_shot_conch.yaml"
+ZS_POOLINGS = ("logit_top10", "logit_max", "logit_mean")
+ZS_STORES = (("npy", "bfloat16"), ("q8npz", "int8"))
+TOL_ZS_PROBS = 1e-3  # test probabilities, the card against the port on the CPU
+# the text prototypes of the tower computing in f32, card against CPU (the
+# same f32 arithmetic summed in another order; in bf16, where each
+# matmul's operands are rounded, such differences flip roundings layer
+# after layer: that gap is printed)
+TOL_ZS_TEXT_F32 = 1e-4
+# the flagship (phase 3h's bf16 .npy run) with that tower and a CoOp learner
+# warm-started from a reference-format checkpoint, `coop-fold{seed}-{method}`
+ZS_COOP_CKPT = "coop-fold{}-{}.pth"
 
 
 class SmokeFailure(Exception):
@@ -1578,7 +1625,6 @@ def phase_extraction(torch, fa, ab, co, device):
     points: two synthetic slides of 512x512 u8 tiles to .npy and .q8npz
     stores (bf16, device preprocessing, batch 64), one batch in f32, then
     the checks, the tower's time per batch and one profiled batch."""
-    import tempfile
     import types
     import numpy as np
     from vlsa_tpu_torch.data.bags import SurvBagDataset, read_patch_data
@@ -1716,7 +1762,6 @@ def phase_extraction_512(torch, fa, ab, co, device):
     launches by path (12 a batch, on the path of flash_plan(1025)); the
     features against the same run through the plain attention; tiles/s and
     the tower's time per batch."""
-    import tempfile
     import numpy as np
     from vlsa_tpu_torch.data.bags import read_patch_data
     from vlsa_tpu_torch.data.extract import FeatureExtractor, extract_to_store
@@ -2003,13 +2048,15 @@ def hold_c_index(name, c_kernel, c_plain, gaps, est_gap):
             "share_below_2e-3": share_2e3, "gap_limit": limit, "share_below_limit": share}
 
 
-def exec_handler(torch, ab, co, device, cfg) -> dict:
+def exec_handler(torch, ab, co, device, cfg, before_exec=None) -> dict:
     """`exec()` of the handler of `cfg` (VLSA or SA, by its task) with every
     launch counter and the batcher's batch counts from 0 just before the
     handler is built: the handler, its metrics, the collected predictions of
     each evaluation pass by split, the launches by kernel family and
-    variant, the batches by path, and the seconds of the build, exec() and
-    each evaluation pass."""
+    variant, the batches by path, the seconds of the build, exec() and
+    each evaluation pass, and the device memory allocated at the start and
+    at the peak of the build and exec().  `before_exec(handler)` runs
+    between the two (it launches no kernel)."""
     from vlsa_tpu_torch.data import pipeline
     from vlsa_tpu_torch.runner.sa import SAHandler
     from vlsa_tpu_torch.runner.vlsa import VLSAHandler
@@ -2021,9 +2068,14 @@ def exec_handler(torch, ab, co, device, cfg) -> dict:
     co.reset_launches()
     ab.reset_launches()
     pipeline.reset_batch_counts()
+    gc.collect()  # earlier handlers sit in reference cycles: free their tensors first
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     handler = (VLSAHandler if cfg["task"] == "vlsa" else SAHandler)(cfg, device=device)
     build_s = time.perf_counter() - t0
+    if before_exec is not None:
+        before_exec(handler)
     test_model = handler.test_model
 
     def recording(dataset, name, ckpt_path=None):
@@ -2040,7 +2092,9 @@ def exec_handler(torch, ab, co, device, cfg) -> dict:
     return {"handler": handler, "metrics": metrics, "passes": passes,
             "launches": {name: dict(counts) for name, counts in families.items()},
             "batches": dict(pipeline.BATCHES), "build_s": build_s, "exec_s": exec_s,
-            "eval_passes": list(handler.timings["eval"]), "host_memory": window.close()}
+            "eval_passes": list(handler.timings["eval"]), "host_memory": window.close(),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "device_bytes_at_start": start_bytes}
 
 
 def _proc_status_bytes(key: str) -> Optional[int]:
@@ -2144,8 +2198,6 @@ def phase_lifecycle(torch, ab, co, device, kind, card, **changes):
     exec() of the shipped config's fold 0 (epochs cut; `changes` to the
     config), every launch counter from 0 just before, then its files, the
     reload and the plain path checked."""
-    import shutil
-    import tempfile
     import numpy as np
     from vlsa_tpu_torch.eval import predict_mean_survival_time
     from vlsa_tpu_torch.runner.ckpt import load_checkpoint, merge_state
@@ -2283,7 +2335,6 @@ def same_bytes(torch, a: dict, b: dict) -> bool:
 def write_stores(tmp, sids) -> dict:
     """The .npy store of `sids` (their STORE_BAGS bags, 8 threads) and its
     .q8npz conversion by the port's CLI: {store: (directory, bytes, s)}."""
-    import shutil
     from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from vlsa_tpu_torch.data.io import synthetic_bag
@@ -2379,10 +2430,10 @@ def copy_seconds(torch, pinned) -> dict:
 
 
 def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, changes,
-              variant, epochs=1) -> dict:
+              variant, epochs=1, before_exec=None) -> dict:
     """One run of STORE_RUNS (of `epochs` epochs): `exec()` of a fresh
     handler from `store` with every launch and batch counter from 0 just
-    before, then its checks."""
+    before (`before_exec` as exec_handler's), then its checks."""
     import numpy as np
     from vlsa_tpu_torch.data.bags import FewShotSurvBagDataset, SurvBagDataset
     from vlsa_tpu_torch.data.pipeline import release_pinned_batches
@@ -2390,7 +2441,7 @@ def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, c
 
     cfg = dict(base_cfg, **changes, epochs=epochs, path_patch=stores[store][0], feat_format=store,
                save_path=os.path.join(tmp, name))
-    run = exec_handler(torch, ab, co, device, cfg)
+    run = exec_handler(torch, ab, co, device, cfg, before_exec=before_exec)
     handler, launches = run["handler"], run["launches"]
     check(run["batches"]["numpy"] == 0 and run["batches"]["native"] > 0,
           f"{name}: batches by path {run['batches']}: every batch must be native")
@@ -2429,14 +2480,16 @@ def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, c
         f"{run['exec_s']:.1f} s, {run['batches']['native']} native batches, launches "
         f"{ {k: {v: n for v, n in c.items() if n} for k, c in launches.items()} }, "
         f"test predictions vs plain {gap:.3e} (tol {TOL_LIFECYCLE_PROBS:g}), "
-        f"{describe_host_memory(run['host_memory'])}, on {card}; the store read from a page "
+        f"{describe_host_memory(run['host_memory'])}, peak device memory "
+        f"{run['peak_device_bytes'] / 2**30:.2f} GiB, on {card}; the store read from a page "
         f"cache its writing warmed; final metrics {run['metrics']}")
     out = {"config": {k: v for k, v in cfg.items() if k != "save_path"},
            "reduced": STORE_REDUCED, "card": card, "variant": variant,
            "train_patients": n_train, "build_s": run["build_s"], "exec_s": run["exec_s"],
            "epochs": handler.timings["epochs"], "eval_passes": run["eval_passes"],
            "batches": run["batches"], "launches": launches, "metrics": run["metrics"],
-           "test_pred_gap_to_plain": gap, "host_memory": run["host_memory"]}
+           "test_pred_gap_to_plain": gap, "host_memory": run["host_memory"],
+           "peak_device_bytes": run["peak_device_bytes"]}
     del handler, run
     torch.cuda.empty_cache()
     return out
@@ -2458,25 +2511,267 @@ def fold0_slides():
     return meta, split, sids
 
 
-def phase_store_runs(torch, ab, co, device, card):
-    """Phase 3h: the stores, one batch of each native against numpy, then
-    every run of STORE_RUNS; the stores are removed at the end."""
-    import shutil
-    import tempfile
+def phase_store_runs(torch, ab, co, device, card, tmp):
+    """Phase 3h: the stores in `tmp` (kept for phase 3i; the caller removes
+    them), one batch of each native against numpy, then every run of
+    STORE_RUNS."""
     from vlsa_tpu_torch.data.pipeline import release_pinned_batches
 
     meta, split, sids = fold0_slides()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_stores_")
-    try:
-        stores = write_stores(tmp, sids)
-        batches_check = hold_native_batches(torch, stores, meta, split["test"][:32])
-        release_pinned_batches()  # each run starts with no page-locked block kept
-        runs = {spec[0]: store_run(torch, ab, co, device, card, stores, tmp, *spec)
-                for spec in STORE_RUNS}
-        return {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
-                "native_vs_numpy": batches_check, "runs": runs}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    stores = write_stores(tmp, sids)
+    batches_check = hold_native_batches(torch, stores, meta, split["test"][:32])
+    release_pinned_batches()  # each run starts with no page-locked block kept
+    runs = {spec[0]: store_run(torch, ab, co, device, card, stores, tmp, *spec)
+            for spec in STORE_RUNS}
+    return {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
+            "native_vs_numpy": batches_check, "runs": runs}
+
+
+# ---------------------------------------------------------------- phase 3i
+
+def write_conch_checkpoint(path, torch) -> dict:
+    """A CONCH-format `pytorch_model.bin` at ZS_TOWER's width (the
+    reference's key names under `text.`, random from ZS_SEED; LayerNorms
+    near 1; a few `visual.*` and `text_decoder.*` decoys; `logit_scale`):
+    its tensors by name."""
+    g = torch.Generator().manual_seed(ZS_SEED)
+    W, out = ZS_TOWER["width"], ZS_TOWER["output"]
+
+    def r(*shape, std=0.02):
+        return torch.randn(*shape, generator=g) * std
+
+    state = {"text.token_embedding.weight": r(ZS_TOWER["vocab"], W),
+             "text.positional_embedding": r(ZS_TOWER["context"], W, std=0.01),
+             "text.text_projection": r(W, out, std=W ** -0.5), "text.cls_emb": r(W, std=0.01),
+             "text.ln_final.weight": 1 + r(W, std=0.1), "text.ln_final.bias": r(W, std=0.1)}
+    for i in range(ZS_TOWER["layers"]):
+        rb = f"text.transformer.resblocks.{i}."
+        state.update({
+            rb + "ln_1.weight": 1 + r(W, std=0.1), rb + "ln_1.bias": r(W, std=0.1),
+            rb + "ln_2.weight": 1 + r(W, std=0.1), rb + "ln_2.bias": r(W, std=0.1),
+            rb + "attn.in_proj_weight": r(3 * W, W, std=W ** -0.5),
+            rb + "attn.in_proj_bias": r(3 * W), rb + "attn.out_proj.weight": r(W, W, std=W ** -0.5),
+            rb + "attn.out_proj.bias": r(W), rb + "mlp.c_fc.weight": r(4 * W, W, std=(2 * W) ** -0.5),
+            rb + "mlp.c_fc.bias": r(4 * W), rb + "mlp.c_proj.weight": r(W, 4 * W, std=(4 * W) ** -0.5),
+            rb + "mlp.c_proj.bias": r(W)})
+    state.update({"visual.trunk.patch_embed.proj.weight": r(W, 3, 16, 16),
+                  "visual.proj_contrast": r(W, out), "text_decoder.ln_final.weight": r(W),
+                  "logit_scale": torch.tensor(ZS_LOGIT_SCALE)})
+    torch.save(state, path)
+    return state
+
+
+def conch_name(name: str) -> str:
+    """The reference's key of a TextTower state-dict entry (independent of
+    utils.torch_import's table)."""
+    if name == "token_embedding":
+        return "text.token_embedding.weight"
+    if not name.startswith("resblocks."):
+        return "text." + name
+    _, i, rest = name.split(".", 2)
+    rest = {"attn.out_proj_weight": "attn.out_proj.weight",
+            "attn.out_proj_bias": "attn.out_proj.bias",
+            "c_fc_weight": "mlp.c_fc.weight", "c_fc_bias": "mlp.c_fc.bias",
+            "c_proj_weight": "mlp.c_proj.weight", "c_proj_bias": "mlp.c_proj.bias"}.get(rest, rest)
+    return f"text.transformer.resblocks.{i}.{rest}"
+
+
+def hold_imported_tower(torch, model, written, what) -> None:
+    """The model's text tower is the file's, tensor for tensor (bf16 where
+    the frozen tower stores its matmul weights so), every file tensor
+    taken; its logit scale starts at the file's."""
+    tower = model.prompt_encoder.state_dict()
+    check(len(tower) == sum(k.startswith("text.") for k in written),
+          f"{what}: {len(tower)} tower tensors, the file has "
+          f"{sum(k.startswith('text.') for k in written)}")
+    for name, t in tower.items():
+        want = written[conch_name(name)].to(t.dtype)
+        check(torch.equal(t.cpu(), want), f"{what}: the tower's {name} is not the file's")
+    check(model.logit_scale.item() == ZS_LOGIT_SCALE,
+          f"{what}: logit scale {model.logit_scale.item()}, the file's is {ZS_LOGIT_SCALE}")
+
+
+def zero_shot_cfg(tmp, ckpt, store, feats_dtype, pooling) -> dict:
+    """ZS_CONFIG for fold 0 with one pooling, read from phase 3h's `store`."""
+    from vlsa_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(ROOT, ZS_CONFIG))
+    cfg.update(dataset_name="tcga_blca", data_split_seed=0, vlsa_img_encoder_pooling=pooling,
+               path_patch=os.path.join(tmp, store), feat_format=store, feats_dtype=feats_dtype,
+               path_clip_model=ckpt, save_path=os.path.join(tmp, f"zs_{store}_{pooling}"),
+               path_table=os.path.join(ROOT, cfg["path_table"]),
+               data_split_path=os.path.join(ROOT, cfg["data_split_path"]))
+    return cfg
+
+
+def zero_shot_reference(torch, model, batch, text):
+    """A batch's probabilities from the port on the CPU (`model` a CPU copy)
+    and in float64 (every step after the stored features in f64), from the
+    same text prototypes `text` (the card's)."""
+    from vlsa_tpu_torch.models.mil import logit_pooling
+    from vlsa_tpu_torch.ops.coattn import dequantize_feats
+    feats, mask = batch["feats"], batch["mask"]
+    kws = {"x_scale": batch["feats_scale"]} if "feats_scale" in batch else {}
+    with torch.inference_mode():
+        cpu = torch.softmax(model(feats, mask, text_features=text, **kws)[0], dim=-1)
+        x = (dequantize_feats(feats, kws["x_scale"]).to(torch.bfloat16) if kws else feats).double()
+        img = x / x.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        t = text.double() / text.double().norm(dim=-1, keepdim=True)
+        scale = torch.exp(model.logit_scale.detach().double())
+        _, pooled = logit_pooling(scale * torch.einsum("bne,ke->bnk", img, t), model.pooling, mask)
+        f64 = torch.softmax(pooled, dim=-1)
+    valid = batch["valid"]
+    return cpu[valid].numpy(), f64[valid].numpy()
+
+
+def text_prototypes(torch, model) -> dict:
+    """The model's text prototypes on the host: as it computes them (bf16
+    operands for a bf16 tower) and with its tower computing in f32."""
+    with torch.inference_mode():
+        out = {"as_run": model.forward_text_only().float().cpu()}
+        with f32_text_tower(torch, model.prompt_encoder):
+            out["f32"] = model.forward_text_only().float().cpu()
+    return out
+
+
+def zero_shot_run(torch, ab, co, device, card, tmp, ckpt, written, store, feats_dtype,
+                  pooling, cpu_ref) -> dict:
+    """One zero-shot `exec()` of ZS_CONFIG from `store` with one pooling,
+    every launch counter from 0 just before; then its checks against the
+    file and the port on the CPU."""
+    import copy
+    import numpy as np
+    from vlsa_tpu_torch.runner.train import make_batcher, make_dataset
+
+    name = f"zero-shot {store} {feats_dtype} {pooling}"
+    cfg = zero_shot_cfg(tmp, ckpt, store, feats_dtype, pooling)
+    run = exec_handler(torch, ab, co, device, cfg)
+    handler, launches = run["handler"], run["launches"]
+    check(all(n == 0 for counts in launches.values() for n in counts.values()),
+          f"{name}: launched kernels {launches}; zero-shot launches none")
+    check(handler.optimizer is None and handler.timings["epochs"] == [],
+          f"{name}: the run trained, or built an optimizer")
+    hold_imported_tower(torch, handler.model, written, name)
+    with open(os.path.join(cfg["save_path"], "metrics.jsonl")) as f:
+        evals = [e for e in map(json.loads, f) if e["event"] == "eval"]
+    values = {k: v for e in evals for k, v in e.items() if k not in ("event", "at", "ts")}
+    check(len(evals) == 1 and values and all(np.isfinite(v) for v in values.values()),
+          f"{name}: {len(evals)} evaluations, a non-finite metric in {values}")
+    c_idx = {k: v for k, v in values.items() if k.endswith(("/c_index", "/c_index2"))}
+    check(c_idx and all(0.0 <= v <= 1.0 for v in c_idx.values()),
+          f"{name}: a C-index outside [0, 1]: {c_idx}")
+    files = sorted(os.listdir(cfg["save_path"]))
+    check("vlsa_zero-shot_last_pred_test.csv" in files and "zero-shot_metrics-best.txt" in files,
+          f"{name}: the run wrote {files}")
+
+    # the first test batch: the card's probabilities against the port on the CPU
+    test_set = make_dataset(handler.cfg, handler.data_meta, handler.data_split["test"])
+    check(len(test_set) == 75, f"{name}: {len(test_set)} test patients")
+    batcher = make_batcher(test_set, handler.cfg, shuffle=False)
+    batch = batcher.make_batch(range(min(batcher.batch_size, len(test_set))))
+    card_probs = run["passes"]["test"][-1]["y_hat"][:int(batch["valid"].sum())]
+    if "model" not in cpu_ref:
+        cpu_ref["model"] = copy.deepcopy(handler.model).to("cpu")
+        t0 = time.perf_counter()
+        cpu_ref["text"] = text_prototypes(torch, cpu_ref["model"])
+        cpu_ref["text_s"] = time.perf_counter() - t0
+    model = cpu_ref["model"]
+    model.mil_encoder.pooling, model.pooling = handler.model.mil_encoder.pooling, pooling
+    card_text = text_prototypes(torch, handler.model)
+    text_gap = {k: float((card_text[k] - v).abs().max() / v.abs().max())
+                for k, v in cpu_ref["text"].items()}
+    check(text_gap["f32"] <= TOL_ZS_TEXT_F32,
+          f"{name}: the f32 tower's text prototypes {text_gap['f32']:.2e} from the CPU's "
+          f"(tol {TOL_ZS_TEXT_F32:g})")
+    t0 = time.perf_counter()
+    cpu_probs, f64_probs = zero_shot_reference(torch, model, batch, card_text["as_run"])
+    ref_s = time.perf_counter() - t0
+    gap = float(np.abs(card_probs - cpu_probs).max())
+    gap64 = float(np.abs(card_probs - f64_probs).max())
+    check(gap <= TOL_ZS_PROBS, f"{name}: test probabilities {gap:.3e} from the port's CPU "
+                               f"computation (tol {TOL_ZS_PROBS:g})")
+    passes = [f"{p['split']} {p['bags']} bags {p['seconds']:.2f} s" for p in run["eval_passes"]]
+    log(f"{name}: build {run['build_s']:.1f} s, exec {run['exec_s']:.1f} s (pass {passes}), "
+        f"peak device memory {run['peak_device_bytes'] / 2**30:.2f} GiB (at the start "
+        f"{run['device_bytes_at_start'] / 2**30:.2f}), no kernel launched; "
+        f"first test batch (bucket {int(batch['mask'].shape[1])}, {card_probs.shape[0]} "
+        f"patients): probabilities vs the port on the CPU {gap:.3e} (tol {TOL_ZS_PROBS:g}), "
+        f"vs float64 {gap64:.3e} (both from the card's text prototypes); text prototypes "
+        f"card vs CPU: the tower in f32 {text_gap['f32']:.2e} (tol {TOL_ZS_TEXT_F32:g}), in "
+        f"bf16 as run {text_gap['as_run']:.2e} (CPU reference {ref_s:.1f} s); metrics "
+        f"{run['metrics']}; on {card}")
+    out = {"config": {k: v for k, v in cfg.items() if k != "save_path"}, "store": store,
+           "feats_dtype": feats_dtype, "pooling": pooling, "build_s": run["build_s"],
+           "exec_s": run["exec_s"], "eval_passes": run["eval_passes"], "launches": launches,
+           "peak_device_bytes": run["peak_device_bytes"],
+           "device_bytes_at_start": run["device_bytes_at_start"], "metrics": run["metrics"],
+           "test_prob_gap_to_cpu": gap, "test_prob_gap_to_f64": gap64,
+           "text_gap_to_cpu": text_gap, "bucket": int(batch["mask"].shape[1]), "files": files}
+    del handler, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_coop_checkpoint(torch, path, cfg) -> dict:
+    """A reference-format training checkpoint ({"model": the learnable
+    tensors under the reference's names, "epoch"}) whose CoOp embeddings
+    have the shapes of `cfg`'s learner, random from ZS_SEED."""
+    import numpy as np
+    from vlsa_tpu_torch.config import fetch_kws
+    from vlsa_tpu_torch.models.prompt_build import build_prompt_learner
+    from vlsa_tpu_torch.models.tokenizer import Tokenizer
+
+    pl_cfg = dict(fetch_kws(cfg, prefix="vlsa_pmt_learner_coop"), num_ranks=12)
+    learner = build_prompt_learner(pl_cfg["method"], pl_cfg, Tokenizer(),
+                                   np.zeros((ZS_TOWER["vocab"], ZS_TOWER["width"]), np.float32),
+                                   ZS_TOWER["context"] - 1, ZS_TOWER["width"])
+    g = torch.Generator().manual_seed(ZS_SEED + 1)
+    model = {"prompt_learner.context_embeds":
+             torch.randn(learner.context_embeds.shape, generator=g) * 0.02,
+             "prompt_learner.rank_embeds": torch.randn(learner.rank_embeds.shape, generator=g) * 0.02,
+             "logit_scale": torch.tensor(4.6)}
+    torch.save({"model": model, "epoch": 10}, path)
+    return model
+
+
+def phase_zero_shot(torch, ab, co, device, card, tmp):
+    """Phase 3i: the CONCH checkpoint, then ZS_CONFIG's three poolings from
+    both of phase 3h's stores, then the flagship with the imported tower
+    and a warm-started CoOp learner (phase 3h's bf16 .npy run)."""
+    ckpt = os.path.join(tmp, "conch", "pytorch_model.bin")
+    os.makedirs(os.path.dirname(ckpt))
+    t0 = time.perf_counter()
+    written = write_conch_checkpoint(ckpt, torch)
+    log(f"CONCH-format checkpoint: {len(written)} tensors, {os.path.getsize(ckpt)} bytes, "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    cpu_ref = {}
+    runs = {f"{store}_{feats_dtype}_{pooling}": zero_shot_run(
+                torch, ab, co, device, card, tmp, os.path.dirname(ckpt), written, store,
+                feats_dtype, pooling, cpu_ref)
+            for store, feats_dtype in ZS_STORES for pooling in ZS_POOLINGS}
+    log(f"zero-shot: the CPU's text prototypes (bf16 and f32 tower) took "
+        f"{cpu_ref['text_s']:.1f} s")
+    del cpu_ref
+
+    coop = write_coop_checkpoint(torch, os.path.join(tmp, ZS_COOP_CKPT.format(0, "rank")),
+                                 LIFECYCLE_VLSA_CFG)
+
+    def warm_started(handler):
+        model = handler.model
+        hold_imported_tower(torch, model, written, "flagship")
+        for key in ("context_embeds", "rank_embeds"):
+            check(torch.equal(getattr(model.prompt_learner, key).detach().cpu(),
+                              coop[f"prompt_learner.{key}"]),
+                  f"flagship: the CoOp learner's {key} is not the checkpoint's")
+    stores = {store: (os.path.join(tmp, store),) for store, _ in ZS_STORES}
+    flagship = store_run(torch, ab, co, device, card, stores, tmp, "vlsa_imported_coop_bf16_npy",
+                         LIFECYCLE_VLSA_CFG, "npy",
+                         dict(feats_dtype="bfloat16", path_clip_model=ckpt,
+                              vlsa_pmt_learner_pretrained=True,
+                              vlsa_pmt_learner_coop_ckpt=os.path.join(tmp, ZS_COOP_CKPT)),
+                         "bf16", before_exec=warm_started)
+    return {"checkpoint": {"tensors": len(written), "bytes": os.path.getsize(ckpt),
+                           "tower": ZS_TOWER, "logit_scale": ZS_LOGIT_SCALE},
+            "runs": runs, "flagship": flagship}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2924,7 +3219,12 @@ def main(argv=None) -> int:
         feat_proj = timed("3f", phase_feat_proj_training, torch, co, device)
         lifecycle_vlsa = timed("3g-VLSA", phase_lifecycle, torch, ab, co, device, "vlsa", card)
         lifecycle_sa = timed("3g-SA", phase_lifecycle, torch, ab, co, device, "sa", card)
-        store_runs = timed("3h", phase_store_runs, torch, ab, co, device, card)
+        stores_tmp = tempfile.mkdtemp(prefix="chip_smoke_stores_")
+        try:
+            store_runs = timed("3h", phase_store_runs, torch, ab, co, device, card, stores_tmp)
+            zero_shot = timed("3i", phase_zero_shot, torch, ab, co, device, card, stores_tmp)
+        finally:
+            shutil.rmtree(stores_tmp, ignore_errors=True)
         times = timed("4", phase_times, torch, co)
         abmil_times = timed("4b", phase_abmil_times, torch, ab)
         flash_times = timed("4c", phase_flash_times, torch, fa)
@@ -2934,8 +3234,9 @@ def main(argv=None) -> int:
         return 1
 
     kernels = []
-    # the whole runs' launches: phase 3g's and each of phase 3h's
-    runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values())
+    # the whole runs' launches: phase 3g's, each of phase 3h's and phase 3i's
+    runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values()) \
+        + list(zero_shot["runs"].values()) + [zero_shot["flagship"]]
 
     def run_launches(family, variant):
         return sum(r["launches"][family][variant] for r in runs)
@@ -3010,7 +3311,7 @@ def main(argv=None) -> int:
               "extraction": extraction, "extraction_512": extraction_512, "flash_times": flash_times, "dx_errors": errs_dx,
               "feat_proj_training": feat_proj, "dx_times": dx_times,
               "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
-              "store_runs": store_runs, "kernels": kernels,
+              "store_runs": store_runs, "zero_shot": zero_shot, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -356,8 +356,8 @@ def test_main_runs_vlsa_and_refuses_clf(tmp_path):
         port_main.main(["--config", path, "--handler", "CLF", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("key,value,item", [("num_shot", 0, "A.9"),
-                                            ("path_clip_model", "/weights/conch", "A.6"),
+@pytest.mark.parametrize("key,value,item", [("vlsa_api", "CLIP", "A.15"),
+                                            ("vlsa_img_encoder_name", "TransMIL", "A.12"),
                                             ("mesh", {"data": 4}, "A.17")])
 def test_unported_settings_are_refused(tmp_path, key, value, item):
     _path, cfg = write_small_config(tmp_path, "vlsa", **{key: value})

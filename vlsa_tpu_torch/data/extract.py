@@ -32,9 +32,9 @@ import numpy as np
 import torch
 
 from ..models.precision import cast_vision_tower_weights
-from ..models.vision_tower import (ConchVisualModel, as_dtype, load_conch_visual_state,
-                                   load_torch_state_dict)
+from ..models.vision_tower import ConchVisualModel, as_dtype, load_conch_visual_state
 from ..utils.device import disable_tf32, resolve_device
+from ..utils.torch_import import load_torch_state_dict
 from .quant import feats_inv_norms, quantize_feats_int8
 from .transforms import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD, preprocess_batch
 from .transforms_device import build_device_preprocess

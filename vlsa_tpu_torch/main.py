@@ -6,7 +6,9 @@
 Trains and evaluates one run of a config, or with `--multi_run` every run
 of the grid of its list-valued keys, each with its save path suffixed by
 the abbreviated grid values (`-fold_0`, ...), as main.py names them.  A
-config with `test: True` evaluates `test_load_path`'s checkpoint instead.
+config with `test: True` evaluates `test_load_path`'s checkpoint instead, and
+one with `num_shot: 0` (configs/IFMLE/<cohort>/cfg_zero_shot_conch.yaml)
+evaluates zero-shot, over its grid of poolings and folds with `--multi_run`.
 Runs on CUDA unless `--device cpu` is given.  `--handler CLF` is refused:
 classification is not ported yet (ROADMAP.md §A.11).
 """

@@ -12,6 +12,12 @@ gradient, so the pooling's backward there is the dX kernel.
 DeepMIL, the vision-only bag classifier of the SA baseline: attention
 (ABMIL, through `ops.abmil.abmil_pool` and its Hopper kernels), mean or max
 pooling, then a linear head or an Adapter.
+
+FeatMIL and `logit_pooling`, the zero-shot (MI-Zero) path: FeatMIL has no
+parameters and returns the per-patch features (or their masked mean or
+max); VLSA scores every patch against the text prototypes and pools the
+per-patch logits by `logit_pooling`.  No kernel runs there, by vlsa_tpu's
+own design (plain XLA ops, vlsa_tpu/models/mil.py:35-65).
 """
 from __future__ import annotations
 
@@ -22,10 +28,42 @@ import torch
 from torch import nn
 
 from ..ops.coattn import coattn_pool, dequantize_feats
-from ..ops.masked import l2_normalize, masked_max, masked_mean
+from ..ops.masked import l2_normalize, masked_max, masked_mean, masked_topk_mean
 from .layers import Adapter, AttentionPooling, FeatProjecter, TorchLinear
 
 QUERY_POOLINGS = ("mean", "max", "weight")
+
+
+def logit_pooling(logits: torch.Tensor, method: str,
+                  mask: Optional[torch.Tensor] = None):
+    """MI-Zero aggregation of per-patch logits [N, C] or [B, N, C]:
+    `logit_max`, `logit_top<k>` (the mean of the top k) or `logit_mean`,
+    over the valid patches; returns (argmax class, pooled logits [.., C])."""
+    if method[:9] in ("logit_max", "logit_top"):
+        topk = 1 if method == "logit_max" else int(method.split("top")[-1])
+        pooled = masked_topk_mean(logits, mask, topk)
+    elif method == "logit_mean":
+        pooled = masked_mean(logits, mask, dim=-2)
+    else:
+        raise NotImplementedError(f"The pooling ({method}) is not implemented.")
+    return torch.argmax(pooled, dim=-1), pooled
+
+
+class FeatMIL(nn.Module):
+    """The zero-shot aggregator: no parameters; `mean` or `max` pooling
+    gives [B, D], anything else (`identity`) the per-patch features
+    [B, N, D], whose logits VLSA pools by `logit_pooling`."""
+
+    def __init__(self, pooling: str = "mean"):
+        super().__init__()
+        self.pooling = pooling
+
+    def forward(self, X: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.pooling == "mean":
+            return masked_mean(X, mask, dim=1)
+        if self.pooling == "max":
+            return masked_max(X, mask, dim=1)
+        return X
 
 
 class VLFAN(nn.Module):

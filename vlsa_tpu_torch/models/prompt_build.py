@@ -95,8 +95,13 @@ def create_sentence_embeds_template(tokenizer: Tokenizer, embedding_table, num_r
 
 def build_prompt_learner(method: str, cfg: dict, tokenizer: Tokenizer,
                          embedding_table: np.ndarray, max_num_tokens: int,
-                         embedding_dim: int, generator: Optional[torch.Generator] = None):
-    """A Plain or Rank CoOp prompt learner with its host-built constants."""
+                         embedding_dim: int, generator: Optional[torch.Generator] = None,
+                         context_init: Optional[np.ndarray] = None,
+                         rank_init: Optional[np.ndarray] = None):
+    """A Plain or Rank CoOp prompt learner with its host-built constants.
+    `context_init` / `rank_init` warm-start its embeddings (a CoOp-pretrained
+    checkpoint's) in place of the ones built from the init prompts; their
+    shapes must be the learner's."""
     num_ranks = cfg["num_ranks"]
     init_context, init_rank_names = load_init_prompt(
         cfg.get("init_prompt_path"), cfg.get("init_prompt_context_idx", 0),
@@ -107,7 +112,8 @@ def build_prompt_learner(method: str, cfg: dict, tokenizer: Tokenizer,
         init_context, rank_specific, embedding_dim)
     common = dict(rank_tokens_position=cfg.get("rank_tokens_position", "tail"),
                   rank_specific_context=rank_specific, embedding_dim=embedding_dim,
-                  context_init=ctx, generator=generator)
+                  context_init=ctx if context_init is None else context_init,
+                  generator=generator)
     if method == "plain":
         ranks, ntr = create_rank_embeds(
             tokenizer, embedding_table, num_ranks, cfg.get("num_tokens_per_rank", 4),
@@ -117,7 +123,8 @@ def build_prompt_learner(method: str, cfg: dict, tokenizer: Tokenizer,
         template = create_sentence_embeds_template(tokenizer, embedding_table, num_ranks,
                                                    pseudo, max_num_tokens)
         return PlainPromptLearner(num_ranks, num_context_tokens, ntr, template, pseudo,
-                                  rank_init=ranks, **common)
+                                  rank_init=ranks if rank_init is None else rank_init,
+                                  **common)
     if method == "rank":
         num_base_ranks = cfg.get("num_base_ranks", 4)
         ranks, base_ntr = create_rank_embeds(
@@ -131,7 +138,8 @@ def build_prompt_learner(method: str, cfg: dict, tokenizer: Tokenizer,
         interp = create_interpolation_weights(num_base_ranks, num_ranks,
                                               cfg.get("interpolation_type", "linear"))
         return RankPromptLearner(num_ranks, num_context_tokens, ntr, template, pseudo,
-                                 rank_init=ranks, num_base_ranks=num_base_ranks,
+                                 rank_init=ranks if rank_init is None else rank_init,
+                                 num_base_ranks=num_base_ranks,
                                  interpolation_weights=interp, **common)
     raise ValueError(f"unknown prompt learner method {method}")
 

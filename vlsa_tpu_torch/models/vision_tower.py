@@ -315,12 +315,3 @@ def load_conch_visual_state(state: dict, layers: int = 12, prefix: str = "visual
     sd["proj_contrast"] = g("proj_contrast")
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
-
-def load_torch_state_dict(path: str) -> dict:
-    """A torch checkpoint -> {name: tensor} (a `model` entry or a module's
-    state dict unwrapped), read on the CPU without unpickling code."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    state = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
-    if hasattr(state, "state_dict"):
-        state = state.state_dict()
-    return {k: v.detach().float() for k, v in state.items() if isinstance(v, torch.Tensor)}

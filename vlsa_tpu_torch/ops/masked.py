@@ -53,3 +53,26 @@ def masked_max(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int) -> torch
     m = _expand(mask.to(torch.bool), x.dim())
     return torch.amax(torch.where(m, x, torch.full((), NEG_INF, dtype=x.dtype,
                                                    device=x.device)), dim=dim)
+
+
+def masked_topk_mean(logits: torch.Tensor, mask: Optional[torch.Tensor],
+                     topk: int) -> torch.Tensor:
+    """Mean of the top-k per-class logits over a bag's valid patches (MI-Zero
+    pooling), as vlsa_tpu computes it: k is clamped to N, then to the bag's
+    valid count (at least 1); masked rows are NEG_INF, so an empty bag gives
+    NEG_INF.
+
+    logits [N, C] or [B, N, C]; mask [N] / [B, N] -> [C] / [B, C]."""
+    if logits.dim() == 2:
+        return masked_topk_mean(logits[None], None if mask is None else mask[None], topk)[0]
+    B, N, _C = logits.shape
+    if mask is None:
+        mask = torch.ones(B, N, dtype=torch.bool, device=logits.device)
+    mask = mask.to(torch.bool)
+    masked = torch.where(mask[..., None], logits,
+                         torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device))
+    k = min(topk, N)
+    vals = torch.topk(masked.transpose(1, 2), k, dim=-1).values  # [B, C, k], descending
+    take = torch.clamp(mask.sum(dim=1), min=1).clamp(max=k)  # [B]
+    w = (torch.arange(k, device=logits.device)[None, :] < take[:, None]).to(logits.dtype)
+    return torch.sum(vals * w[:, None, :], dim=-1) / torch.clamp(w.sum(-1), min=1.0)[:, None]

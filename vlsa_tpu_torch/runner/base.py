@@ -16,11 +16,14 @@ weights, and puts the model back in train mode after it.
 
 Few-shot runs (`num_shot > 0`) train on the training split's few-shot
 sample (data/bags.py::FewShotSurvBagDataset) and evaluate it as the train
-split.  Not ported: wandb (vlsa_tpu leaves it off unless
-VLSA_TPU_DISABLE_WANDB=0; the card's machine has no wandb), zero-shot
-(`num_shot: 0`, ROADMAP.md §A.9), importing the released text tower
-(`path_clip_model`, §A.6), `mesh` and `distributed` (§A.17), and vlsa_tpu's
-checkpoint formats (`ckpt_backend`); each raises.
+split.  Zero-shot runs (`num_shot: 0`) train nothing: they evaluate the
+test split once, `run_name` "zero-shot", and write
+`zero-shot_metrics-best.txt` and `<task>_zero-shot_last_pred_test.csv`
+(vlsa_tpu's names) and no checkpoint.  A model with every parameter
+frozen gets no optimizer.  Not ported: wandb (vlsa_tpu leaves it off
+unless VLSA_TPU_DISABLE_WANDB=0; the card's machine has no wandb), `mesh`
+and `distributed` (ROADMAP.md §A.17), and vlsa_tpu's checkpoint formats
+(`ckpt_backend`, §A.6); each raises.
 """
 from __future__ import annotations
 
@@ -51,19 +54,13 @@ _MODEL_INPUTS = ("feats", "feats_scale", "feats_inv", "mask")
 
 
 def _refuse_unported(cfg: dict) -> None:
-    if cfg.get("num_shot", -1) == 0:
-        raise NotImplementedError("zero-shot evaluation (num_shot: 0) is not ported yet "
-                                  "(ROADMAP.md §A.9)")
     for key in ("mesh", "distributed"):
         if cfg.get(key):
             raise NotImplementedError(f"`{key}`: multi-device runs are not ported yet "
                                       f"(ROADMAP.md §A.17)")
-    if cfg.get("path_clip_model"):
-        raise NotImplementedError("path_clip_model: importing the released text-tower "
-                                  "weights is not ported yet (ROADMAP.md §A.6)")
     if cfg.get("ckpt_backend", "msgpack") != "msgpack":
         raise NotImplementedError(f"ckpt_backend {cfg['ckpt_backend']!r}: this port "
-                                  f"writes torch checkpoints only")
+                                  f"writes torch checkpoints only (ROADMAP.md §A.6)")
 
 
 def _fill_paths(cfg: dict) -> None:
@@ -206,8 +203,13 @@ class BaseHandler:
             self.uid["validation"] = val_set.uid
 
         run_name = "train"
+        zero_shot = False
         if cfg.get("force_to_skip_training"):
             print("[exec] warning: your training is skipped...")
+        elif cfg.get("num_shot", -1) == 0:
+            zero_shot = True
+            run_name = "zero-shot"
+            print("[exec] warning: at zero-shot mode, your training is skipped...")
         else:
             val_loaders = {"validation": val_set, "test": test_set}
             if cfg.get("eval_training_loader_per_epoch"):
@@ -216,6 +218,9 @@ class BaseHandler:
             self._run_training(cfg["epochs"], "train", val_loaders=val_loaders,
                                val_name="validation", save_ckpt=True,
                                early_stop=bool(cfg.get("es")), run_name=run_name)
+        if zero_shot:
+            return self._eval_all({"test": test_set}, ckpt_type="zero-shot",
+                                  run_name=run_name)
         evals = {"train": train_set, "validation": val_set, "test": test_set}
         return self._eval_all(evals, ckpt_type=cfg.get("ckpt_for_eval", "last"),
                               run_name=run_name)
@@ -235,6 +240,9 @@ class BaseHandler:
     def _run_training(self, epochs, name_loader, val_loaders=None, val_name=None,
                       save_ckpt=True, early_stop=False, run_name="train"):
         cfg = self.cfg
+        if self.engine is None:
+            raise ValueError("every parameter of the model is frozen: there is nothing to "
+                             "train (num_shot: 0 evaluates zero-shot)")
         es = EarlyStopping(warmup=cfg.get("es_warmup", 0),
                            patience=cfg.get("es_patience", 20),
                            start_epoch=cfg.get("es_start_epoch", 0),
@@ -373,9 +381,13 @@ class BaseHandler:
             ckpt_path = add_prefix_to_filename(self.last_ckpt_path, ckpt_run_name)
             print_path = add_prefix_to_filename(self.last_metrics_path, group)
             name_group, csv_name = f"lastckpt/{group}", f"{cfg['task']}_{group}_last"
+        elif ckpt_type == "zero-shot":
+            ckpt_path = None
+            print_path = add_prefix_to_filename(self.best_metrics_path, group)
+            name_group, csv_name = f"lastckpt/{group}", f"{cfg['task']}_{group}_last"
         else:
             raise KeyError(f"Expected best or last for `ckpt_for_eval`, got {ckpt_type}.")
-        if not osp.exists(ckpt_path):
+        if ckpt_path is not None and not osp.exists(ckpt_path):
             ckpt_path = None
 
         metrics = {}
@@ -428,7 +440,7 @@ class BaseHandler:
             raise KeyError(f"Expected best or last for `ckpt_type`, got {ckpt_type}.")
         ckpt = load_checkpoint(path)
         merge_state(self.model, ckpt["model"])
-        if "optimizer" in ckpt:
+        if "optimizer" in ckpt and self.optimizer is not None:
             self.optimizer.load_state_dict(ckpt["optimizer"])
         print(f"[model] resume the network from {ckpt_type}_{run_name} "
               f"at epoch {ckpt['epoch']}...")

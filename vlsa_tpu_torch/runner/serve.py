@@ -3,10 +3,14 @@
     python -m vlsa_tpu_torch.runner.serve --config configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml \
         --n_requests 4 [--bags_per_request 8] [--device cuda|cpu]
 
-`task: vlsa` serves the flagship VLSA; `task: sa` the SA baseline's
-DeepMIL/ABMIL (configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml), whose head
-gets the bin count of fold 0's label table, as the SA handler would give it.
-The weights are random, from the config's seed (no checkpoint is loaded).
+`task: vlsa` serves the config's VLSA: the flagship, or a zero-shot
+config (configs/IFMLE/<cohort>/cfg_zero_shot_conch.yaml with one
+`vlsa_img_encoder_pooling`); `task: sa` the SA baseline's DeepMIL/ABMIL
+(configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml), whose head gets the bin
+count of fold 0's label table, as the SA handler would give it.  The
+weights are random, from the config's seed, but for the text tower of
+`path_clip_model` (a released checkpoint) and a `pretrained` CoOp
+learner's checkpoint, which are loaded when the config names them.
 Each request holds `bags_per_request` bags from the config's
 `path_patch: synthetic://...`, stored as its `feats_dtype`.  Prints one JSON
 line per request and a summary line.
@@ -23,10 +27,9 @@ import torch
 from ..config import load_config, serving_config, training_config
 from ..data.io import SYNTHETIC_PREFIX, synthetic_bag
 from ..data.splits import read_file_data_splitting
-from ..models.vlsa_build import build_vlsa_from_config
 from ..ops import abmil, coattn
 from ..utils.device import resolve_device
-from . import sa
+from . import sa, vlsa
 from .engine import InferEngine
 
 
@@ -47,7 +50,7 @@ def make_engine(cfg: dict, device=None) -> InferEngine:
         # DeepMIL's pooling is unnormalised: no 1/||x|| rows
         return InferEngine(sa.build_model(cfg, device=device), feats_dtype=feats_dtype,
                            precompute_inv=False)
-    model, _tok = build_vlsa_from_config(cfg, device=device)
+    model = vlsa.build_model(cfg, device=device)
     precompute_inv = feats_dtype == "int8" and cfg.get("feats_precompute_inv", True)
     return InferEngine(model, feats_dtype=feats_dtype, precompute_inv=precompute_inv)
 

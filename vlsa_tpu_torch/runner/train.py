@@ -34,7 +34,6 @@ from ..data.label_converter import MetaSurvData
 from ..data.pipeline import BagBatcher
 from ..data.splits import read_file_data_splitting
 from ..losses import load_loss
-from ..models.vlsa_build import build_vlsa_from_config
 from ..ops import abmil, coattn
 from ..optim import create_optimizer, frozen_mask_from_cfg
 from ..utils.device import resolve_device
@@ -143,17 +142,21 @@ class Trainer:
         if cfg["task"] == "sa":
             self.model = sa.build_model(cfg, device=self.device, state_dict=state_dict)
         else:
-            self.model, _tok = build_vlsa_from_config(cfg, device=self.device,
-                                                      state_dict=state_dict)
+            from . import vlsa  # runner.vlsa's handler builds on this module too
+            self.model = vlsa.build_model(cfg, device=self.device, state_dict=state_dict)
         self.model.train()
         self.frozen = frozen_mask_from_cfg(self.model, frozen_paths(cfg))
         self.loss_fns, self.loss_weights = load_losses(cfg)
         objective = make_objective(self.loss_fns, self.loss_weights,
                                    make_output_converter(cfg.get("net_output_converter")))
-        self.optimizer = create_optimizer(cfg["opt_name"], cfg["opt_lr"],
-                                          cfg.get("opt_weight_decay", 0.0), self.model)
-        self.engine = TrainEngine(self.model, self.optimizer, objective,
-                                  accum_steps=cfg.get("accum_steps", 1))
+        # a model with every parameter frozen (zero-shot) has nothing to
+        # optimize: no optimizer and no training engine
+        self.optimizer = self.engine = None
+        if any(p.requires_grad for p in self.model.parameters()):
+            self.optimizer = create_optimizer(cfg["opt_name"], cfg["opt_lr"],
+                                              cfg.get("opt_weight_decay", 0.0), self.model)
+            self.engine = TrainEngine(self.model, self.optimizer, objective,
+                                      accum_steps=cfg.get("accum_steps", 1))
 
     def batches(self) -> Iterator[dict]:
         """Training batches, epoch after epoch."""
@@ -174,6 +177,8 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device)
     build_s = time.perf_counter() - t0
+    if trainer.engine is None:
+        raise ValueError("every parameter of the model is frozen: there is nothing to train")
     coattn.reset_launches()
     abmil.reset_launches()
     batches = trainer.batches()

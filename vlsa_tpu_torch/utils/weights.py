@@ -14,6 +14,9 @@ so a DeepMIL tree's `sigma/fc1_kernel` [D, hid] (the ABMIL pooling keeps
 the tree's names and layouts) becomes `sigma.fc1_kernel`, `g/kernel`
 `g.weight`, `feat_proj/norm/scale` `feat_proj.norm.weight`.
 
+Trees of the Adapter and frozen-CoOp paths (no `prompt_encoder`; a
+`prompt_adapter/...` subtree, or neither learner) map the same way.
+
 Every leaf maps to exactly one tensor; a duplicate raises.  Loading the
 result with `strict=True` then proves that no tensor was left out.  No leaf
 of either tree is itself named "weight", so the way back is unique: a 1-D
