@@ -192,7 +192,32 @@ non-zero and prints no result:
      as the files hold them before the run, exactly rows 1 and 6 (bf16)
      launched, test predictions within 1e-3 of the plain pooling's; prints
      each run's pass seconds and peak device memory beside the card's name
-     and power limit; removes the stores and checkpoints;
+     and power limit;
+  3j. interpretation: reloads phase 3h's flagship run (bf16, .npy) with
+     `load_vlsa_from_run` (its logits on 16 test bags within 1e-6 of the
+     model 3h trained), then `interpret_cohort` over fold 0's 75 test
+     patients, batch 16, in f32 from the .npy store and from the .q8npz
+     store (dequantized on the host): exactly one f32 co-attention forward
+     a batch and no other kernel; the CSV's 75 rows and columns; every value
+     finite, probabilities summing to 1 within 1e-5; the efficiency axiom
+     per patient within 1e-4 (v in float64 from the returned similarities);
+     the .npy cohort within 1e-5 of the same cohort through the plain
+     pooling on the card, its first batch within 1e-4 of the port on the
+     CPU (from the card's text prototypes), and 4 patients' Shapley values
+     within 1e-5 of max|phi| of a float64 enumeration of the 2^12
+     coalitions in the reference's order; `calc_text_img_similarity` on a
+     stored bag padded by 1024 masked rows in f32 and bf16 (vlsa_tpu's keys
+     and shapes, one forward a call, attention rows summing to 1, 0 on the
+     padding) and `calc_abmil_text_img_similarity` with a full-width
+     DeepMIL-encoder VLSA (no kernel; the attention sums to 1, 0 on the
+     padding); then two 1-epoch runs from the stores as 3h's: SA with
+     `deepmil_pooling: gated_attention` (f32, no kernel launched) and the
+     flagship with `vlsa_img_encoder_query_pooling: attention` (bf16, rows
+     1 and 6), whose new poolings' parameters move; prints the cohort's
+     wall seconds and patients/s, its card time by part (CUDA events:
+     encode + decoupled product, Shapley), its peak device memory and the
+     single bags' times beside the card's name and power limit; the stores
+     and checkpoints are then removed;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
@@ -497,6 +522,39 @@ TOL_ZS_TEXT_F32 = 1e-4
 # the flagship (phase 3h's bf16 .npy run) with that tower and a CoOp learner
 # warm-started from a reference-format checkpoint, `coop-fold{seed}-{method}`
 ZS_COOP_CKPT = "coop-fold{}-{}.pth"
+
+
+# phase 3j: interpretation.  Phase 3h's flagship run (bf16 from .npy) is
+# reloaded from its directory; the cohort is fold 0's 75 test patients at
+# vlsa_tpu's interpret_cohort batch of 16, always in f32 (a .q8npz store
+# dequantized on the host); tolerances max|a-b| / max|b|
+INTERP_RUN = "vlsa_bf16_npy"
+INTERP_BATCH = 16
+INTERP_STORES = ("npy", "q8npz")
+INTERP_KEYS = ("decoupled_similarity", "shap_importance", "probs")
+TOL_INTERP_RELOAD = 1e-6  # logits, the reloaded model against the one 3h trained
+# the cohort, the f32 kernel against the plain pooling (phase 2 holds row 1
+# f32, split TF32, at 2e-6)
+TOL_INTERP_PLAIN = 1e-5
+# the first batch, card against the port on the CPU from the card's text
+# prototypes (the bf16 tower's card-CPU gap, 2.68e-3 in phase 3i, must not
+# decide it)
+TOL_INTERP_CPU = 1e-4
+TOL_INTERP_F64 = 1e-5  # Shapley values against a float64 enumeration, of max|phi|
+INTERP_F64_PATIENTS = 4
+TOL_INTERP_EFFICIENCY = 1e-4  # |sum phi - (v(all) - 1)| <= this * max(1, |v(all)|)
+TOL_INTERP_SUM = 1e-5  # probabilities and attention rows summing to 1
+INTERP_PAD = 1024  # the single bags: a stored bag padded by this many masked rows
+# the ROADMAP §A.10 modules at full width: 1-epoch runs from phase 3h's
+# stores (as STORE_RUNS), the kernels' variant (None: the pooling launches
+# none) and the parameters of the new pooling that must move
+A10_RUNS = (
+    ("sa_gated_f32_npy", LIFECYCLE_SA_CFG, "npy", dict(deepmil_pooling="gated_attention"),
+     None, ("sigma.fc1.weight", "sigma.score.weight", "sigma.fc2.weight")),
+    ("vlsa_attention_pool_bf16_npy", LIFECYCLE_VLSA_CFG, "npy",
+     dict(feats_dtype="bfloat16", vlsa_img_encoder_query_pooling="attention"), "bf16",
+     ("mil_encoder.query_pool.fc1_kernel", "mil_encoder.query_pool.fc2_kernel")),
+)
 
 
 class SmokeFailure(Exception):
@@ -2168,7 +2226,8 @@ def expected_launches(handler, launches, variant) -> dict:
     epoch trains the training split's batches and evaluates the test split;
     the final passes evaluate both splits again.  All in `variant` of the
     model's kernels (co-attention forward and dQ, or ABMIL forward and
-    backward); none of any other."""
+    backward); none of any other.  `variant` None: no kernel at all (a
+    model whose pooling is plain ops)."""
     from vlsa_tpu_torch.runner.train import make_dataset
     cfg = handler.cfg
     epochs = len(handler.timings["epochs"])
@@ -2178,6 +2237,8 @@ def expected_launches(handler, launches, variant) -> dict:
     fwd, bwd = (("coattn_fwd", "coattn_bwd_dq") if cfg["task"] == "vlsa"
                 else ("abmil_fwd", "abmil_bwd"))
     expected = {name: dict.fromkeys(counts, 0) for name, counts in launches.items()}
+    if variant is None:
+        return expected
     expected[fwd][variant] = epochs * (n_train + n_test) + n_train + n_test
     expected[bwd][variant] = epochs * n_train
     return expected
@@ -2430,10 +2491,11 @@ def copy_seconds(torch, pinned) -> dict:
 
 
 def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, changes,
-              variant, epochs=1, before_exec=None) -> dict:
+              variant, epochs=1, before_exec=None, after_exec=None, keep=None) -> dict:
     """One run of STORE_RUNS (of `epochs` epochs): `exec()` of a fresh
     handler from `store` with every launch and batch counter from 0 just
-    before (`before_exec` as exec_handler's), then its checks."""
+    before (`before_exec` as exec_handler's), then its checks and
+    `after_exec(handler)`; `keep[name]` is then the trained model."""
     import numpy as np
     from vlsa_tpu_torch.data.bags import FewShotSurvBagDataset, SurvBagDataset
     from vlsa_tpu_torch.data.pipeline import release_pinned_batches
@@ -2483,6 +2545,10 @@ def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, c
         f"{describe_host_memory(run['host_memory'])}, peak device memory "
         f"{run['peak_device_bytes'] / 2**30:.2f} GiB, on {card}; the store read from a page "
         f"cache its writing warmed; final metrics {run['metrics']}")
+    if after_exec is not None:
+        after_exec(handler)
+    if keep is not None:
+        keep[name] = handler.model
     out = {"config": {k: v for k, v in cfg.items() if k != "save_path"},
            "reduced": STORE_REDUCED, "card": card, "variant": variant,
            "train_patients": n_train, "build_s": run["build_s"], "exec_s": run["exec_s"],
@@ -2511,17 +2577,19 @@ def fold0_slides():
     return meta, split, sids
 
 
-def phase_store_runs(torch, ab, co, device, card, tmp):
-    """Phase 3h: the stores in `tmp` (kept for phase 3i; the caller removes
-    them), one batch of each native against numpy, then every run of
-    STORE_RUNS."""
+def phase_store_runs(torch, ab, co, device, card, tmp, keep):
+    """Phase 3h: the stores in `tmp` (kept for phases 3i and 3j, as is
+    INTERP_RUN's directory, whose trained model goes to `keep`; the caller
+    removes them), one batch of each native against numpy, then every run
+    of STORE_RUNS."""
     from vlsa_tpu_torch.data.pipeline import release_pinned_batches
 
     meta, split, sids = fold0_slides()
     stores = write_stores(tmp, sids)
     batches_check = hold_native_batches(torch, stores, meta, split["test"][:32])
     release_pinned_batches()  # each run starts with no page-locked block kept
-    runs = {spec[0]: store_run(torch, ab, co, device, card, stores, tmp, *spec)
+    runs = {spec[0]: store_run(torch, ab, co, device, card, stores, tmp, *spec,
+                               keep=keep if spec[0] == INTERP_RUN else None)
             for spec in STORE_RUNS}
     return {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
             "native_vs_numpy": batches_check, "runs": runs}
@@ -2772,6 +2840,374 @@ def phase_zero_shot(torch, ab, co, device, card, tmp):
     return {"checkpoint": {"tensors": len(written), "bytes": os.path.getsize(ckpt),
                            "tower": ZS_TOWER, "logit_scale": ZS_LOGIT_SCALE},
             "runs": runs, "flagship": flagship}
+
+
+# ---------------------------------------------------------------- phase 3j
+
+def interp_dataset(cfg, tmp, store):
+    """Fold 0's 75 test patients from phase 3h's `store`, as the run's
+    config names them."""
+    from vlsa_tpu_torch.data.splits import read_file_data_splitting
+    from vlsa_tpu_torch.runner.sa import build_surv_meta
+    from vlsa_tpu_torch.runner.train import make_dataset
+
+    split = read_file_data_splitting(cfg["data_split_path"])
+    meta = build_surv_meta(dict(cfg), split)
+    return make_dataset(dict(cfg, path_patch=os.path.join(tmp, store), feat_format=store),
+                        meta, split["test"])
+
+
+def all_launches(ab, co) -> dict:
+    return {"coattn_fwd": dict(co.LAUNCHES), "coattn_bwd_dq": dict(co.LAUNCHES_BWD),
+            "coattn_bwd_dx": dict(co.LAUNCHES_DX), "abmil_fwd": dict(ab.LAUNCHES),
+            "abmil_bwd": dict(ab.LAUNCHES_BWD)}
+
+
+def only_launches(launches: dict, family=None, variant=None, n=0) -> bool:
+    """Exactly `n` launches of `family[variant]` and none of any other."""
+    return all(c == (n if (f, v) == (family, variant) else 0)
+               for f, counts in launches.items() for v, c in counts.items())
+
+
+@contextlib.contextmanager
+def cohort_events(torch, events):
+    """CUDA event pairs around each batch's encode + decoupled product and
+    around its Shapley values in interpret_cohort, by part into `events`."""
+    from vlsa_tpu_torch.interpret import cohort
+
+    def timed(fn, key):
+        def run(*args, **kws):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kws)
+            end.record()
+            events.setdefault(key, []).append((start, end))
+            return out
+        return run
+    originals = cohort.batch_decoupled, cohort.batched_shapley
+    cohort.batch_decoupled = timed(originals[0], "encode_decoupled")
+    cohort.batched_shapley = timed(originals[1], "shapley")
+    try:
+        yield
+    finally:
+        cohort.batch_decoupled, cohort.batched_shapley = originals
+
+
+def cohort_pass(torch, ab, co, model, dataset, csv_path=None) -> tuple:
+    """interpret_cohort over `dataset`, every launch counter from 0 just
+    before: (its output, {wall seconds, patients/s, card ms by part, peak
+    device memory, launches})."""
+    from vlsa_tpu_torch.interpret import interpret_cohort
+
+    co.reset_launches()
+    ab.reset_launches()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = {}
+    t0 = time.perf_counter()
+    with cohort_events(torch, events):
+        out = interpret_cohort(model, dataset, batch_size=INTERP_BATCH, save_path=csv_path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {"wall_s": wall, "patients_per_s": len(out["uid"]) / wall,
+                 "card_ms": {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()},
+                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                 "launches": all_launches(ab, co)}
+
+
+def risk_values_f64(sims, ls):
+    """v(S) of every coalition in float64: the reference's enumeration
+    (ref utils/model_inference.py:23-79), coalition j holding prior i when
+    bit i of j is set, v(empty) = 1.  sims [P, K] -> (V [2^P], members
+    [2^P, P])."""
+    import numpy as np
+    sims = np.asarray(sims, np.float64)
+    P, K = sims.shape
+    members = (np.arange(2 ** P)[:, None] >> np.arange(P)) & 1
+    z = ls * (members @ sims) / np.maximum(members.sum(1, keepdims=True), 1)
+    p = np.exp(z - z.max(1, keepdims=True))
+    V = (p / p.sum(1, keepdims=True)) @ (K - np.arange(K))
+    V[0] = 1.0
+    return V, members
+
+
+def shapley_f64(sims, ls):
+    """The reference's Shapley sums over risk_values_f64, in float64."""
+    import numpy as np
+    V, members = risk_values_f64(sims, ls)
+    P = members.shape[1]
+    fac = [math.factorial(i) for i in range(P + 1)]
+    W = np.array([fac[s] * fac[P - s - 1] / fac[P] for s in range(P)])
+    size, j = members.sum(1), np.arange(len(V))
+    return np.array([np.sum(W[size[members[:, i] == 0]]
+                            * (V[j[members[:, i] == 0] + 2 ** i] - V[j[members[:, i] == 0]]))
+                     for i in range(P)])
+
+
+def check_cohort(name, out, uids, ls, csv_path) -> dict:
+    """The cohort's shapes, finite values, probabilities summing to 1, the
+    efficiency axiom per patient (v(all) in float64 from the returned
+    similarities) and its CSV; returns the largest gaps."""
+    import csv as csv_mod
+    import numpy as np
+    n = len(uids)
+    dec, shap, probs = (out[k] for k in INTERP_KEYS)
+    check(out["uid"] == list(uids), f"{name}: the patients are not the dataset's, in order")
+    check(dec.shape == (n, 12, 12) and shap.shape == (n, 12) and probs.shape == (n, 12),
+          f"{name}: shapes {dec.shape}, {shap.shape}, {probs.shape}")
+    check(all(np.isfinite(out[k]).all() for k in INTERP_KEYS), f"{name}: a value is not finite")
+    sum_gap = float(np.abs(probs.astype(np.float64).sum(-1) - 1).max())
+    check(sum_gap <= TOL_INTERP_SUM, f"{name}: probabilities sum to 1 within {sum_gap:.2e}")
+    eff = []
+    for b in range(n):
+        v_all = risk_values_f64(dec[b], ls)[0][-1]
+        eff.append(abs(float(shap[b].astype(np.float64).sum()) - (v_all - 1.0))
+                   / max(1.0, abs(v_all)))
+    check(max(eff) <= TOL_INTERP_EFFICIENCY,
+          f"{name}: the efficiency axiom holds within {max(eff):.2e} (tol "
+          f"{TOL_INTERP_EFFICIENCY:g})")
+    with open(csv_path, newline="") as f:
+        rows = list(csv_mod.reader(f))
+    header = (["patient_id"] + [f"shap_prior_{i}" for i in range(12)]
+              + [f"incidence_{k}" for k in range(12)])
+    check(rows[0] == header and len(rows) == n + 1 and [r[0] for r in rows[1:]] == list(uids),
+          f"{name}: the CSV has {len(rows) - 1} rows, header {rows[0][:3]}...")
+    values = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
+    check(np.array_equal(values, np.concatenate([shap, probs], 1).astype(np.float64)),
+          f"{name}: the CSV's values are not the cohort's")
+    return {"prob_sum_gap": sum_gap, "efficiency_gap": max(eff)}
+
+
+def rel_gaps(got: dict, want: dict, n=None) -> dict:
+    import numpy as np
+    return {k: float(np.abs(got[k][:n] - want[k][:n]).max() / np.abs(want[k][:n]).max())
+            for k in INTERP_KEYS}
+
+
+def cpu_first_batch(torch, model, dataset, text, query, ls) -> dict:
+    """The cohort's first batch through the port on the CPU from the card's
+    text prototypes and queries (the model's image side copied over)."""
+    import copy
+    from vlsa_tpu_torch.data.pipeline import BagBatcher
+    from vlsa_tpu_torch.interpret.cohort import batch_decoupled
+    from vlsa_tpu_torch.interpret.shapley import batched_shapley
+
+    batch = BagBatcher(dataset, batch_size=INTERP_BATCH, prefetch=0).make_batch(
+        range(INTERP_BATCH))
+    tower, model.prompt_encoder = model.prompt_encoder, None
+    try:
+        cpu = copy.deepcopy(model).to("cpu")
+    finally:
+        model.prompt_encoder = tower
+    with torch.inference_mode():
+        dec, probs = batch_decoupled(cpu, batch["feats"], batch["mask"], query.cpu(),
+                                     text.cpu(), ls)
+        shap = batched_shapley(dec, ls)
+    valid = batch["valid"].numpy()
+    return {"decoupled_similarity": dec.numpy()[valid], "shap_importance": shap.numpy()[valid],
+            "probs": probs.numpy()[valid]}
+
+
+def padded_bag(torch, dataset, device):
+    """Test patient 0's stored bag [1, n + INTERP_PAD, 512] f32 with
+    INTERP_PAD rows of noise after it, masked out."""
+    feats = torch.from_numpy(dataset[0][0])
+    g = torch.Generator().manual_seed(17)
+    x = torch.cat([feats, 5 * torch.randn(INTERP_PAD, feats.shape[1], generator=g)])[None]
+    mask = torch.zeros(x.shape[:2], dtype=torch.bool)
+    mask[0, :feats.shape[0]] = True
+    return x.to(device), mask.to(device), feats.shape[0]
+
+
+def timed_call(torch, fn, runs=3):
+    """(the first call's output, the least host-clock seconds of `runs`
+    calls, each ending with its numpy outputs on the host)."""
+    out, best = None, float("inf")
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        best = min(best, time.perf_counter() - t0)
+        out = res if out is None else out
+    return out, best
+
+
+def single_bags(torch, ab, co, model, cfg, dataset, device, card) -> dict:
+    """calc_text_img_similarity on a padded stored bag in f32 and in bf16,
+    and calc_abmil_text_img_similarity with a full-width DeepMIL-encoder
+    VLSA (D=512, hid=256, Adapter head) on it."""
+    from vlsa_tpu_torch.interpret import (calc_abmil_text_img_similarity,
+                                          calc_text_img_similarity)
+    from vlsa_tpu_torch.runner.vlsa import build_model
+
+    x, mask, n = padded_bag(torch, dataset, device)
+    N = x.shape[1]
+    shapes = {"attention": (12, N), "coattn_score": (12, N), "probs": (1, 12),
+              "probs_decoupled": (1, 12), "decoupled_similarity": (12, 12),
+              "decoupled_imp": (12, 12), "shap_importance": (12,)}
+    out = {"patches": n, "rows": N}
+    for dtype, variant in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        name = f"single bag {variant}"
+        co.reset_launches()
+        ab.reset_launches()
+        res, sec = timed_call(torch, lambda: calc_text_img_similarity(model, x.to(dtype), mask))
+        launches = all_launches(ab, co)
+        check(only_launches(launches, "coattn_fwd", variant, 3),
+              f"{name}: launches {launches}, expected one {variant} forward a call")
+        check(set(res) == set(shapes) | {"logit_scale"}
+              and all(res[k].shape == s for k, s in shapes.items()),
+              f"{name}: keys and shapes { {k: getattr(v, 'shape', v) for k, v in res.items()} }")
+        A = res["coattn_score"]
+        row_gap = float(abs(A[:, :n].astype("float64").sum(-1) - 1).max())
+        check(row_gap <= TOL_INTERP_SUM and float(abs(A[:, n:]).max()) == 0.0,
+              f"{name}: attention rows sum to 1 within {row_gap:.2e}, padding "
+              f"{float(abs(A[:, n:]).max()):.2e}")
+        check(all(bool((abs(res[k]) < float("inf")).all()) for k in shapes),
+              f"{name}: a value is not finite")
+        out[variant] = {"seconds": sec, "row_sum_gap": row_gap, "launches_per_call": 1}
+        log(f"{name}: {n} patches padded to {N}, calc_text_img_similarity {sec * 1e3:.1f} ms "
+            f"(least of 3, host clock), one {variant} co-attention forward a call, rows sum to "
+            f"1 within {row_gap:.1e}, padding 0, on {card}")
+
+    abmil_cfg = dict(cfg, vlsa_img_encoder_name="DeepMIL", vlsa_img_encoder_dim_hid=256,
+                     vlsa_img_encoder_pred_head="Adapter", vlsa_img_encoder_mil_pooling="attention")
+    abmil_model = build_model(abmil_cfg, device=device)
+    co.reset_launches()
+    ab.reset_launches()
+    res, sec = timed_call(torch, lambda: calc_abmil_text_img_similarity(abmil_model, x, mask))
+    launches = all_launches(ab, co)
+    check(only_launches(launches), f"abmil single bag: launches {launches}, expected none")
+    A = res["attention"]
+    gap = float(abs(A[0, :n].astype("float64").sum() - 1))
+    check(A.shape == (1, N) and res["probs"].shape == (1, 12) and gap <= TOL_INTERP_SUM
+          and float(abs(A[0, n:]).max()) == 0.0,
+          f"abmil single bag: attention {A.shape} sums to 1 within {gap:.2e}, padding "
+          f"{float(abs(A[0, n:]).max()):.2e}")
+    out["abmil"] = {"seconds": sec, "sum_gap": gap}
+    log(f"abmil single bag (DeepMIL D=512, hid=256, Adapter): "
+        f"calc_abmil_text_img_similarity {sec * 1e3:.1f} ms, no kernel launched, the "
+        f"attention sums to 1 within {gap:.1e}, padding 0, on {card}")
+    del abmil_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def a10_run(torch, ab, co, device, card, tmp, name, base_cfg, store, changes, variant, moved):
+    """One A10_RUNS run: store_run's checks, and the new pooling's
+    parameters moved by the epoch."""
+    before = {}
+
+    def snapshot(handler):
+        params = dict(handler.model.named_parameters())
+        before.update({k: params[k].detach().float().cpu().clone() for k in moved})
+
+    def has_moved(handler):
+        params = dict(handler.model.named_parameters())
+        still = [k for k in moved if torch.equal(params[k].detach().float().cpu(), before[k])]
+        check(not still, f"{name}: parameters that did not move: {still}")
+    stores = {s: (os.path.join(tmp, s),) for s in INTERP_STORES}
+    return store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, changes,
+                     variant, before_exec=snapshot, after_exec=has_moved)
+
+
+def phase_interpretation(torch, ab, co, device, card, tmp, keep):
+    """Phase 3j: phase 3h's flagship run reloaded; the cohort from both
+    stores, held against the plain pooling, the CPU and a float64
+    enumeration; single bags; the §A.10 runs."""
+    import numpy as np
+    from vlsa_tpu_torch.data.pipeline import BagBatcher
+    from vlsa_tpu_torch.interpret import load_vlsa_from_run
+    from vlsa_tpu_torch.ops.masked import l2_normalize
+
+    run_dir = os.path.join(tmp, INTERP_RUN)
+    t0 = time.perf_counter()
+    model, cfg = load_vlsa_from_run(run_dir, ckpt_type="last", return_cfg=True)
+    reload_s = time.perf_counter() - t0
+    trained = keep.pop(INTERP_RUN).eval()
+    npy_set = interp_dataset(cfg, tmp, "npy")
+    batch = BagBatcher(npy_set, batch_size=INTERP_BATCH, feats_dtype=cfg["feats_dtype"],
+                       prefetch=0).make_batch(range(INTERP_BATCH))
+    feats, mask = batch["feats"].to(device), batch["mask"].to(device)
+    with torch.inference_mode():
+        got, want = model(feats, mask)[0], trained(feats, mask)[0]
+    reload_gap = float((got - want).abs().max())
+    check(reload_gap <= TOL_INTERP_RELOAD, f"reload: logits {reload_gap:.2e} from the trained "
+                                           f"model's (tol {TOL_INTERP_RELOAD:g})")
+    log(f"reload: {run_dir} rebuilt in {reload_s:.1f} s, logits of {INTERP_BATCH} test bags "
+        f"({cfg['feats_dtype']}) {reload_gap:.2e} from the model phase 3h trained")
+    del trained, feats, mask, batch
+    keep.clear()
+
+    ls = float(torch.exp(model.logit_scale.detach().float()))
+    out = {"run": INTERP_RUN, "reload_s": reload_s, "reload_logit_gap": reload_gap,
+           "cohort": {}, "launches": {"coattn_fwd": dict.fromkeys(co.LAUNCHES, 0)}}
+    n_batches = -(-len(npy_set) // INTERP_BATCH)
+    cohorts = {}
+    for store in INTERP_STORES:
+        name = f"cohort {store}"
+        dataset = npy_set if store == "npy" else interp_dataset(cfg, tmp, store)
+        check(len(dataset) == 75, f"{name}: {len(dataset)} test patients, not 75")
+        csv_path = os.path.join(tmp, f"cohort_{store}.csv")
+        res, stats = cohort_pass(torch, ab, co, model, dataset, csv_path)
+        check(only_launches(stats["launches"], "coattn_fwd", "f32", n_batches),
+              f"{name}: launches {stats['launches']}, expected {n_batches} f32 forwards")
+        out["launches"]["coattn_fwd"]["f32"] += n_batches
+        stats.update(check_cohort(name, res, dataset.uid, ls, csv_path))
+        cohorts[store] = res
+        out["cohort"][store] = stats
+        ms = stats["card_ms"]
+        log(f"{name}: {len(dataset)} patients in {stats['wall_s']:.2f} s "
+            f"({stats['patients_per_s']:.1f} patients/s, host clock, batch {INTERP_BATCH}); "
+            f"card time encode + decoupled {ms['encode_decoupled']:.1f} ms, Shapley "
+            f"{ms['shapley']:.1f} ms (CUDA events); peak device memory "
+            f"{stats['peak_device_bytes'] / 2**30:.2f} GiB; {n_batches} f32 co-attention "
+            f"forwards, no other kernel; efficiency within {stats['efficiency_gap']:.1e}; "
+            f"on {card}")
+
+    # the references: the plain pooling on the card, the CPU, float64
+    npy = cohorts["npy"]
+    with plain_coattention():
+        plain, plain_stats = cohort_pass(torch, ab, co, model, npy_set)
+    check(only_launches(plain_stats["launches"]), "the plain cohort launched a kernel")
+    plain_gap = rel_gaps(npy, plain)
+    check(max(plain_gap.values()) <= TOL_INTERP_PLAIN,
+          f"cohort vs the plain pooling: {plain_gap} (tol {TOL_INTERP_PLAIN:g})")
+    with torch.inference_mode():
+        text = l2_normalize(model.forward_text_only().float(), dim=-1)
+        query = model.get_query()
+    t0 = time.perf_counter()
+    cpu = cpu_first_batch(torch, model, npy_set, text, query, ls)
+    cpu_s = time.perf_counter() - t0
+    cpu_gap = rel_gaps(npy, cpu, n=len(cpu["probs"]))
+    check(max(cpu_gap.values()) <= TOL_INTERP_CPU,
+          f"first batch, card vs CPU: {cpu_gap} (tol {TOL_INTERP_CPU:g})")
+    f64_gap = []
+    for b in range(INTERP_F64_PATIENTS):
+        ref = shapley_f64(npy["decoupled_similarity"][b], ls)
+        f64_gap.append(float(np.abs(npy["shap_importance"][b] - ref).max() / np.abs(ref).max()))
+    check(max(f64_gap) <= TOL_INTERP_F64,
+          f"Shapley values vs float64 enumeration: {f64_gap} (tol {TOL_INTERP_F64:g})")
+    q8_gap = rel_gaps(cohorts["q8npz"], npy)
+    out.update(plain_gap=plain_gap, plain=plain_stats, cpu_gap=cpu_gap, cpu_s=cpu_s,
+               f64_gap=f64_gap, q8npz_vs_npy=q8_gap, logit_scale=ls,
+               max_abs_shap=float(np.abs(npy["shap_importance"]).max()))
+    log(f"cohort references: kernel vs plain pooling {plain_gap} (tol {TOL_INTERP_PLAIN:g}; "
+        f"plain pass {plain_stats['wall_s']:.2f} s); first batch card vs CPU {cpu_gap} (tol "
+        f"{TOL_INTERP_CPU:g}, {cpu_s:.1f} s); Shapley vs float64 enumeration of "
+        f"{INTERP_F64_PATIENTS} patients {max(f64_gap):.2e} of max|phi| (tol "
+        f"{TOL_INTERP_F64:g}; max|phi| {out['max_abs_shap']:.3e}); .q8npz vs .npy {q8_gap} "
+        f"(int8 storage rounding)")
+
+    single = single_bags(torch, ab, co, model, cfg, npy_set, device, card)
+    for v in ("f32", "bf16"):
+        out["launches"]["coattn_fwd"][v] += 3
+    out["single"] = single
+    del model
+    torch.cuda.empty_cache()
+    out["runs"] = {spec[0]: a10_run(torch, ab, co, device, card, tmp, *spec)
+                   for spec in A10_RUNS}
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -3220,10 +3656,15 @@ def main(argv=None) -> int:
         lifecycle_vlsa = timed("3g-VLSA", phase_lifecycle, torch, ab, co, device, "vlsa", card)
         lifecycle_sa = timed("3g-SA", phase_lifecycle, torch, ab, co, device, "sa", card)
         stores_tmp = tempfile.mkdtemp(prefix="chip_smoke_stores_")
+        kept = {}  # phase 3h's flagship model, for phase 3j's reload
         try:
-            store_runs = timed("3h", phase_store_runs, torch, ab, co, device, card, stores_tmp)
+            store_runs = timed("3h", phase_store_runs, torch, ab, co, device, card, stores_tmp,
+                               kept)
             zero_shot = timed("3i", phase_zero_shot, torch, ab, co, device, card, stores_tmp)
+            interpretation = timed("3j", phase_interpretation, torch, ab, co, device, card,
+                                   stores_tmp, kept)
         finally:
+            kept.clear()
             shutil.rmtree(stores_tmp, ignore_errors=True)
         times = timed("4", phase_times, torch, co)
         abmil_times = timed("4b", phase_abmil_times, torch, ab)
@@ -3234,14 +3675,16 @@ def main(argv=None) -> int:
         return 1
 
     kernels = []
-    # the whole runs' launches: phase 3g's, each of phase 3h's and phase 3i's
+    # the whole runs' launches: phase 3g's, each of phase 3h's, 3i's and 3j's
     runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values()) \
-        + list(zero_shot["runs"].values()) + [zero_shot["flagship"]]
+        + list(zero_shot["runs"].values()) + [zero_shot["flagship"]] \
+        + list(interpretation["runs"].values())
 
     def run_launches(family, variant):
         return sum(r["launches"][family][variant] for r in runs)
     fwd_launches = {v: serving["launches"][v] + training["launches"]["fwd"][v]
                     + feat_proj["launches"]["fwd"][v] + run_launches("coattn_fwd", v)
+                    + interpretation["launches"]["coattn_fwd"][v]
                     for v in VARIANTS}
     dq_launches = {v: training["launches"]["bwd"][v] + run_launches("coattn_bwd_dq", v)
                    for v in VARIANTS}
@@ -3311,7 +3754,8 @@ def main(argv=None) -> int:
               "extraction": extraction, "extraction_512": extraction_512, "flash_times": flash_times, "dx_errors": errs_dx,
               "feat_proj_training": feat_proj, "dx_times": dx_times,
               "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
-              "store_runs": store_runs, "zero_shot": zero_shot, "kernels": kernels,
+              "store_runs": store_runs, "zero_shot": zero_shot,
+              "interpretation": interpretation, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -117,7 +117,6 @@ def test_registry_defaults_and_refusals():
     bound = 1 / np.sqrt(512)
     assert float(model.sigma.fc1_kernel.detach().abs().max()) <= bound
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model("DeepMIL", [512, 256, 4], device="cpu", network="ABMIL",
-                   pooling="gated_attention")
+        load_model("DeepMIL", [512, 256, 4], device="cpu", network="TransMIL")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model("DeepMIL", [512, 256, 4], device="cpu", network="DSMIL")
+        load_model("DeepMIL", [512, 256, 4], device="cpu", network="PatchGCN")

@@ -80,3 +80,22 @@ def test_lifecycle_imports_load_no_forbidden_module(module):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]", f"{module} loads {out.stdout.strip()}"
+
+
+INTERPRET = ("vlsa_tpu_torch.interpret", "vlsa_tpu_torch.interpret.shapley",
+             "vlsa_tpu_torch.interpret.similarity", "vlsa_tpu_torch.interpret.cohort",
+             "vlsa_tpu_torch.interpret.loader", "vlsa_tpu_torch.interpret.visualization")
+
+
+@pytest.mark.parametrize("module", INTERPRET)
+def test_interpret_imports_load_no_forbidden_module_nor_matplotlib(module):
+    """Importing the interpretation modules loads nothing of FORBIDDEN, nor
+    matplotlib or scipy (the plots import them inside their functions; the
+    card's machine may have no matplotlib), nor PyYAML."""
+    code = (f"import sys; import {module}; "
+            f"print(sorted({{m.split('.')[0] for m in sys.modules}} & "
+            f"{set(FORBIDDEN + ('yaml', 'matplotlib', 'scipy'))!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", f"{module} loads {out.stdout.strip()}"

@@ -692,3 +692,57 @@ def test_lifecycle_reload_is_bit_identical_on_the_card(device, tmp_path):
     assert np.isfinite(passes[-1]).all()
     assert np.array_equal(passes[-2], passes[-1])
     assert not np.array_equal(passes[0], passes[-1])  # the second epoch trained
+
+
+def test_interpret_cohort_kernel_matches_plain_on_the_card(device, tmp_path):
+    """The cohort attribution of a small synthetic split (the run config
+    above, its test patients) through the f32 co-attention forward
+    kernel, one launch a batch and no other kernel, equals the same cohort
+    through the plain pooling: similarities, Shapley importances and
+    probabilities within 1e-5 (the f32 kernel's split-TF32 products)."""
+    import numpy as np
+    from vlsa_tpu_torch.interpret import interpret_cohort
+    from vlsa_tpu_torch.models import mil
+    from vlsa_tpu_torch.runner.train import make_dataset
+    from vlsa_tpu_torch.runner.vlsa import VLSAHandler
+
+    handler = VLSAHandler(_lifecycle_config(tmp_path), device=device)
+    dataset = make_dataset(handler.cfg, handler.data_meta, handler.data_split["test"])
+    co.reset_launches()
+    ab.reset_launches()
+    got = interpret_cohort(handler.model, dataset, batch_size=4, min_bucket=64)
+    batches = -(-len(dataset) // 4)
+    assert co.LAUNCHES["f32"] == batches
+    assert sum(co.LAUNCHES.values()) == batches and sum(co.LAUNCHES_BWD.values()) == 0
+    assert sum(ab.LAUNCHES.values()) == 0 and sum(ab.LAUNCHES_BWD.values()) == 0
+    kernel_pool = mil.coattn_pool
+    mil.coattn_pool = (lambda q, x, mask, scale, x_scale=None, x_inv=None:
+                       co.coattn_pool_reference(q, x, mask, scale, x_scale))
+    try:
+        want = interpret_cohort(handler.model, dataset, batch_size=4, min_bucket=64)
+    finally:
+        mil.coattn_pool = kernel_pool
+    assert got["uid"] == want["uid"] == list(dataset.uid)
+    for k in ("decoupled_similarity", "shap_importance", "probs"):
+        gap = np.abs(got[k] - want[k]).max() / np.abs(want[k]).max()
+        assert gap <= 1e-5, (k, gap)
+
+
+def test_abmil_attention_map_launches_no_abmil_kernel(device):
+    """DeepMIL's `ret_with_attn` takes the explicit path on the card, as
+    vlsa_tpu's does: no ABMIL kernel launches, and the pooled logits agree
+    with the kernel path's."""
+    from vlsa_tpu_torch.models.registry import load_model
+    model = load_model("DeepMIL", [512, 256, 4], device=device, network="ABMIL",
+                       pooling="attention", use_feat_proj=False).eval()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 1000, 512, generator=g).to(device)
+    mask = torch.ones(2, 1000, dtype=torch.bool, device=device)
+    mask[1, 600:] = False
+    ab.reset_launches()
+    with torch.inference_mode():
+        logits, attn = model(x, mask, ret_with_attn=True)
+        assert sum(ab.LAUNCHES.values()) == 0
+        kernel = model(x, mask)
+    assert ab.LAUNCHES["f32"] == 1 and attn.shape == (2, 1000)
+    assert float((logits - kernel).abs().max() / kernel.abs().max()) <= TOL[torch.float32]

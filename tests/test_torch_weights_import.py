@@ -323,17 +323,53 @@ def test_deepmil_import_matches_jax(head):
     assert _rel(logits, jlogits) <= TOL_DEEPMIL
 
 
-@pytest.mark.parametrize("key,item", [("sigma.fc1.0.weight", "A.10"),
-                                      ("sigma.score.0.weight", "A.10"),
-                                      ("sigma.fc2.weight", "A.10"),
-                                      ("i_classifier.fc.weight", "A.10")])
-def test_keys_of_unported_modules_are_refused(key, item):
-    """vlsa_tpu prints a warning and drops such keys; the port refuses them
-    with the ROADMAP item that ports the module."""
+def reference_gated_deepmil_state(seed=5, D=64, hid=32, ncls=4):
+    """A reference DeepMIL checkpoint with the gated attention pooling
+    (ref model/layers.py:85-122: fc1 and score Sequentials, fc2 a Linear)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g) * 0.1
+
+    return {"sigma.fc1.0.weight": r(hid, D), "sigma.fc1.0.bias": r(hid),
+            "sigma.score.0.weight": r(hid, D), "sigma.score.0.bias": r(hid),
+            "sigma.fc2.weight": r(1, hid), "sigma.fc2.bias": r(1),
+            "g.weight": r(ncls, D), "g.bias": r(ncls)}
+
+
+@pytest.mark.parametrize("key", ["sigma.fc1.0.weight", "sigma.score.0.weight",
+                                 "sigma.fc2.weight"])
+def test_gated_pooling_keys_map_as_vlsa_tpu_maps_them(key):
+    """The gated pooling's reference keys map onto the port's DeepMIL as
+    vlsa_tpu's importer maps them onto its tree (through the bridge), and
+    the model loads them strictly and scores as vlsa_tpu's does."""
+    ref = reference_gated_deepmil_state()
+    kws = dict(network="ABMIL", pooling="gated_attention", use_feat_proj=False)
+    jmodel, _jparams = jax_load_model("DeepMIL", [64, 32, 4], rng=jax.random.PRNGKey(0), **kws)
+    jtree = jax_import.import_deepmil_state({k: v.numpy() for k, v in ref.items()})
+    want = state_dict_from_jax(jtree)
+    got = torch_import.import_deepmil_state(ref)
+    assert got.keys() == want.keys()
+    ours = key.replace(".0.", ".")
+    assert torch.equal(got[ours], want[ours]) and torch.equal(got[ours], ref[key])
+    model = load_model("DeepMIL", [64, 32, 4], device="cpu", state_dict=got, **kws)
+    x = np.random.default_rng(2).normal(size=(2, 50, 64)).astype(np.float32)
+    mask = np.ones((2, 50), bool)
+    mask[1, 20:] = False
+    jlogits = jmodel.apply({"params": jtree}, jnp.asarray(x), jnp.asarray(mask))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    assert _rel(logits, jlogits) <= TOL_DEEPMIL
+
+
+@pytest.mark.parametrize("key", ["i_classifier.fc.weight", "b_classifier.fcc.weight"])
+def test_keys_of_unported_modules_are_refused(key):
+    """DSMIL's reference keys: vlsa_tpu's importer maps none of them (it
+    prints a warning and drops them); the port refuses them, saying so."""
     state = dict(reference_deepmil_state("default"), **{key: torch.zeros(4, 4)})
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="vlsa_tpu maps no DSMIL key either"):
         torch_import.import_deepmil_state(state)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="vlsa_tpu maps no DSMIL key either"):
         torch_import.import_vlsa_learnable_state({}, {"mil_encoder." + key: torch.zeros(1)})
 
 

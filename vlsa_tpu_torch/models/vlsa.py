@@ -4,8 +4,9 @@
                      PromptAdapter's heads over frozen prompt features, or
                      prompts precomputed once (frozen CoOp)
     query          = the TaskRes query adapter over frozen prior sentences
-    image_features = VLFAN over the patch bag with those queries, or
-                     FeatMIL (zero-shot: per-patch features)
+    image_features = VLFAN over the patch bag with those queries,
+                     DeepMIL or DSMIL, or FeatMIL (zero-shot: per-patch
+                     features)
     logits         = logit_scale.exp() * norm(img) @ norm(text)^T
 
 In zero-shot mode (FeatMIL's identity pooling) every patch is scored and
@@ -21,7 +22,7 @@ from torch import nn
 
 from ..ops.coattn import dequantize_feats
 from ..ops.masked import l2_normalize
-from .mil import VLFAN, FeatMIL, logit_pooling
+from .mil import DSMIL, VLFAN, DeepMIL, FeatMIL, logit_pooling
 from .prompt_learners import PlainPromptLearner, PromptAdapter
 from .text_encoder import TextTower
 
@@ -32,7 +33,7 @@ class VLSA(nn.Module):
     accepts_x_scale = True  # VLFAN takes the int8 scales and host 1/||x|| rows
     uses_vl = True
 
-    def __init__(self, mil_encoder: Union[VLFAN, FeatMIL],
+    def __init__(self, mil_encoder: Union[VLFAN, DeepMIL, DSMIL, FeatMIL],
                  prompt_encoder: Optional[TextTower] = None,
                  prompt_learner: Optional[PlainPromptLearner] = None,
                  prompt_adapter: Optional[PromptAdapter] = None,
@@ -89,30 +90,42 @@ class VLSA(nn.Module):
         computes them once, not once per request."""
         return self.forward_text_only(), self.get_query()
 
-    def encode_instances(self, X, mask=None, query=None, x_scale=None, x_inv=None):
-        if isinstance(self.mil_encoder, FeatMIL):
-            # FeatMIL takes features: int8 dequantized to bf16, no sidecars
-            if X.dtype == torch.int8:
-                X = dequantize_feats(X, x_scale).to(torch.bfloat16)
-            return self.mil_encoder(X, mask)
-        if self.mil_encoder.query == "Text" and query is None:
+    def encode_instances(self, X, mask=None, query=None, x_scale=None, x_inv=None,
+                         ret_with_attn: bool = False, train: bool = False):
+        """The MIL encoder's image features; with `ret_with_attn` (VLFAN,
+        DeepMIL, DSMIL), (features, its attention), and `train` turns its
+        Dropout on."""
+        enc = self.mil_encoder
+        if isinstance(enc, (FeatMIL, DSMIL)) and X.dtype == torch.int8:
+            # these take features: int8 dequantized to bf16, no sidecars
+            X = dequantize_feats(X, x_scale).to(torch.bfloat16)
+        if isinstance(enc, FeatMIL):
+            return enc(X, mask)
+        if isinstance(enc, DSMIL):
+            return enc(X, mask, ret_with_attn=ret_with_attn, train=train)
+        if isinstance(enc, DeepMIL):
+            return enc(X, mask, x_scale=x_scale, ret_with_attn=ret_with_attn, train=train)
+        if enc.query == "Text" and query is None:
             query = self.get_query()
-        return self.mil_encoder(X, mask, query=query, x_scale=x_scale, x_inv=x_inv)
+        return enc(X, mask, query=query, x_scale=x_scale, x_inv=x_inv,
+                   ret_with_attn=ret_with_attn, train=train)
 
     def forward(self, X: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 text_features: Optional[torch.Tensor] = None,
                 query: Optional[torch.Tensor] = None,
                 x_scale: Optional[torch.Tensor] = None,
-                x_inv: Optional[torch.Tensor] = None):
+                x_inv: Optional[torch.Tensor] = None, train: bool = False):
         """X [B, N, D], mask [B, N] -> (logits [B, K], image features, text
-        features).  `text_features`/`query` take `text_precompute`'s values.
+        features).  `text_features`/`query` take `text_precompute`'s values;
+        `train` turns the MIL encoder's Dropout on.
 
         bf16 image features are normalised as vlsa_tpu's compiled program
         does (`normalize_rows`) and meet the f32 text side in f32."""
         if text_features is None:
             text_features = self.forward_text_only()
         text_n = l2_normalize(text_features, dim=-1)
-        image = self.encode_instances(X, mask, query=query, x_scale=x_scale, x_inv=x_inv)
+        image = self.encode_instances(X, mask, query=query, x_scale=x_scale, x_inv=x_inv,
+                                      train=train)
         img_n = normalize_rows(image)
         if image.dim() == 3:  # zero-shot: per-patch logits, MI-Zero pooling
             patch_logits = self.get_logit_scale() * torch.einsum("bne,ke->bnk", img_n, text_n)

@@ -24,7 +24,7 @@ import torch
 from ..config import fetch_kws
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.torch_import import load_torch_state_dict
-from .mil import VLFAN, FeatMIL
+from .mil import DSMIL, VLFAN, DeepMIL, FeatMIL
 from .precision import cast_frozen_tower_weights
 from .prompt_build import build_prompt_adapter, build_prompt_learner
 from .text_encoder import generate_pseudo_tokens, make_text_tower
@@ -39,24 +39,35 @@ def _prefixed(cfg: dict, prefix: str) -> dict:
     return {k[len(prefix) + 1:]: v for k, v in cfg.items() if k.startswith(prefix + "_")}
 
 
-def build_mil_encoder(image_encoder_cfg: dict,
-                      generator: Optional[torch.Generator] = None) -> Union[VLFAN, FeatMIL]:
+def build_mil_encoder(image_encoder_cfg: dict, generator: Optional[torch.Generator] = None,
+                      seed: int = 0) -> Union[VLFAN, DeepMIL, DSMIL, FeatMIL]:
+    """The MIL encoder of the image-encoder config; `seed` seeds its
+    Dropout."""
     name = image_encoder_cfg["name"]
     if name == "FeatMIL":
         return FeatMIL(pooling=image_encoder_cfg.get("feat_pooling", "identity"))
-    if name != "VLFAN":
-        raise NotImplementedError(f"MIL encoder {name!r}: this port's VLSA takes VLFAN and "
-                                  f"FeatMIL only (ROADMAP.md §A.12)")
-    # dim_hid and drop_rate configure the attention query poolings, which
-    # this port does not have yet
-    return VLFAN(dim_in=image_encoder_cfg.get("dim_in", 512),
-                 use_feat_proj=image_encoder_cfg.get("use_feat_proj", False),
-                 query=image_encoder_cfg.get("query", "Parameter"),
-                 num_query=int(image_encoder_cfg.get("num_query") or 10),
-                 gated_query=bool(image_encoder_cfg.get("gated_query", False)),
-                 query_pooling=image_encoder_cfg.get("query_pooling", "mean"),
-                 pred_head=image_encoder_cfg.get("pred_head", "default"),
-                 generator=generator)
+    common = dict(dim_in=image_encoder_cfg.get("dim_in", 512),
+                  dim_hid=image_encoder_cfg.get("dim_hid", 256),
+                  use_feat_proj=image_encoder_cfg.get("use_feat_proj", False),
+                  drop_rate=image_encoder_cfg.get("drop_rate", 0.25),
+                  generator=generator, dropout_seed=seed)
+    if name == "VLFAN":
+        return VLFAN(**common, query=image_encoder_cfg.get("query", "Parameter"),
+                     num_query=int(image_encoder_cfg.get("num_query") or 10),
+                     gated_query=bool(image_encoder_cfg.get("gated_query", False)),
+                     query_pooling=image_encoder_cfg.get("query_pooling", "mean"),
+                     pred_head=image_encoder_cfg.get("pred_head", "default"))
+    if name == "DeepMIL":
+        return DeepMIL(**common, num_cls=image_encoder_cfg.get("num_cls", 2),
+                       pooling=image_encoder_cfg.get("mil_pooling", "attention"),
+                       pred_head=image_encoder_cfg.get("pred_head", "default"),
+                       dim_reduction=image_encoder_cfg.get("dim_reduction", 4),
+                       keep_ratio=image_encoder_cfg.get("keep_ratio", 0.8))
+    if name == "DSMIL":
+        return DSMIL(**common, num_cls=image_encoder_cfg.get("num_cls", 2))
+    if name in ("TransMIL", "ILRA"):
+        raise NotImplementedError(f"MIL encoder {name!r} is not ported yet (ROADMAP.md §A.12)")
+    raise ValueError(f"Got an invalid MIL encoder name: {name}.")
 
 
 def build_vlsa(text_encoder_cfg: dict, image_encoder_cfg: dict, prompt_learner_cfg: dict,
@@ -132,7 +143,7 @@ def build_vlsa(text_encoder_cfg: dict, image_encoder_cfg: dict, prompt_learner_c
         prompt_adapter = build_prompt_adapter(adapter_cfg, tokenizer, encode_texts,
                                               generator=generator)
 
-    mil_encoder = build_mil_encoder(image_encoder_cfg, generator=generator)
+    mil_encoder = build_mil_encoder(image_encoder_cfg, generator=generator, seed=seed)
     query_adapter = None
     if isinstance(mil_encoder, VLFAN) and mil_encoder.query == "Text":
         q_cfg = _prefixed(image_encoder_cfg, "query_text")

@@ -11,7 +11,9 @@ VLFAN queries once per pass (`text_precompute`; nothing for a model without
 a text branch), then answers each request -- a list of bags -- with one
 padded batch through the model.
 
-Two rules of vlsa_tpu's engine hold for both: the storage sidecars
+A training step calls the model with `train=True` (its Dropout on, as
+vlsa_tpu's step does); every other call leaves it off.  Two rules of
+vlsa_tpu's engine hold for both: the storage sidecars
 (`feats_scale`, `feats_inv`) go only to a model that accepts them
 (`accepts_x_scale`), any other sees bf16-dequantized features
 (`feats_inputs`); and the logit scale and the query-diversity term exist
@@ -108,7 +110,7 @@ class TrainEngine:
     def loss(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """(loss, raw logits [B, K]) of one batch on the device."""
         feats, kws = feats_inputs(self.model, batch)
-        raw = _logits(self.model(feats, batch["mask"], **kws))
+        raw = _logits(self.model(feats, batch["mask"], train=True, **kws))
         vl = {}
         if self.uses_vl:
             vl = {"logit_scale": self.model.get_logit_scale(),

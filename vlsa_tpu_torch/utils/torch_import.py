@@ -16,10 +16,9 @@ vlsa_tpu/utils/torch_import.py, whose output is a Flax tree).
 
 The results load with `strict=True`, so a tower whose width or depth
 differs from the checkpoint's raises there (vlsa_tpu installs whatever
-shapes the file has).  Keys of modules this package does not have yet
-(DeepMIL's gated attention pooling, DSMIL; ROADMAP.md §A.10) raise, as
-does any other key with no counterpart; vlsa_tpu prints a warning and
-drops them.
+shapes the file has).  DSMIL's reference keys, which vlsa_tpu maps
+nowhere either, raise, as does any other key with no counterpart; vlsa_tpu
+prints a warning and drops them.
 """
 from __future__ import annotations
 
@@ -27,12 +26,9 @@ from typing import Dict, Mapping
 
 import torch
 
-# reference-name prefixes of modules not ported yet, and their ROADMAP item
-_UNPORTED = {"sigma.fc1.": "DeepMIL's gated attention pooling (ROADMAP.md §A.10)",
-             "sigma.score.": "DeepMIL's gated attention pooling (ROADMAP.md §A.10)",
-             "sigma.fc2.": "DeepMIL's gated attention pooling (ROADMAP.md §A.10)",
-             "i_classifier.": "DSMIL (ROADMAP.md §A.10)",
-             "b_classifier.": "DSMIL (ROADMAP.md §A.10)"}
+# reference-name prefixes of DSMIL's checkpoint keys: vlsa_tpu's importer
+# maps none of them (it warns and drops them), so neither does this one
+_UNMAPPED = ("i_classifier.", "b_classifier.")
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -51,10 +47,10 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def _refuse(key: str, what: str) -> None:
-    for prefix, module in _UNPORTED.items():
+    for prefix in _UNMAPPED:
         if key.startswith(prefix) or f".{prefix}" in key:
-            raise NotImplementedError(f"{what} key {key!r} belongs to {module}, which this "
-                                      f"package does not have yet")
+            raise NotImplementedError(f"{what} key {key!r} is a reference DSMIL key: vlsa_tpu "
+                                      f"maps no DSMIL key either (it warns and drops them)")
     raise ValueError(f"{what} key {key!r} has no counterpart in this package")
 
 
@@ -144,13 +140,17 @@ def import_vlsa_learnable_state(state_dict: Mapping[str, torch.Tensor],
 def import_deepmil_state(ref_state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A reference DeepMIL/ABMIL checkpoint -> the SA baseline's state dict
     (`models.mil.DeepMIL`; the ABMIL pooling keeps vlsa_tpu's [in, out]
-    kernels)."""
+    kernels, the gated pooling's Linears torch's [out, in])."""
     direct = {"feat_proj.projecter.0.weight": "feat_proj.linear.weight",
               "feat_proj.projecter.0.bias": "feat_proj.linear.bias",
               "feat_proj.projecter.1.weight": "feat_proj.norm.weight",
               "feat_proj.projecter.1.bias": "feat_proj.norm.bias",
               "sigma.attention.0.bias": "sigma.fc1_bias",
               "sigma.attention.2.bias": "sigma.fc2_bias",
+              "sigma.fc1.0.weight": "sigma.fc1.weight", "sigma.fc1.0.bias": "sigma.fc1.bias",
+              "sigma.score.0.weight": "sigma.score.weight",
+              "sigma.score.0.bias": "sigma.score.bias",
+              "sigma.fc2.weight": "sigma.fc2.weight", "sigma.fc2.bias": "sigma.fc2.bias",
               "g.weight": "g.weight", "g.bias": "g.bias",
               "visual_adapter.fc.0.weight": "visual_adapter.fc1.weight",
               "visual_adapter.fc.2.weight": "visual_adapter.fc2.weight"}

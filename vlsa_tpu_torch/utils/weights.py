@@ -12,7 +12,10 @@ params)`), so nothing here imports JAX.  Names map as follows:
 
 so a DeepMIL tree's `sigma/fc1_kernel` [D, hid] (the ABMIL pooling keeps
 the tree's names and layouts) becomes `sigma.fc1_kernel`, `g/kernel`
-`g.weight`, `feat_proj/norm/scale` `feat_proj.norm.weight`.
+`g.weight`, `feat_proj/norm/scale` `feat_proj.norm.weight`; the gated
+pooling's `sigma/fc1/kernel` `sigma.fc1.weight`; VLFAN's attention query
+pooling `query_pool/fc1_kernel` `query_pool.fc1_kernel`; DSMIL's
+`fcc_kernel` [C, C, Dv] and `fcc_bias` keep their names.
 
 Trees of the Adapter and frozen-CoOp paths (no `prompt_encoder`; a
 `prompt_adapter/...` subtree, or neither learner) map the same way.
