@@ -30,18 +30,28 @@ non-zero and prints no result:
      spills fails the run;
   2c. ABMIL kernels: holds each variant of csrc/abmil_fwd.cu and
      csrc/abmil_bwd.cu against its plain version at B=8,
-     N=10240, D=512, hid=256 (10% of patches masked, one empty bag): the
+     N=10240 and (D, hid) = (512, 256) (the resident instances), (1024,
+     256), (768, 128) and (1536, 512) (the general ones, counted by
+     `LAUNCHES_ROUTE`; 10% of patches masked, one empty bag): the
      forward (f32 1e-4, bf16 and int8 1e-3), the weights-only backward and,
      for f32 and bf16, the backward with dX (dW1, db1, dw2: f32 1e-3, bf16
      and int8 2e-3; dX: f32 1e-3, bf16 1e-2, one bf16 ulp); every storage
-     also at B=5, N=12291, which ends in a partial tile (64 patches f32, 128
-     bf16 and int8) and a partial chunk of the launch plans; beside the int8
+     also at B=5, N=12291, which ends in a partial tile (64 patches f32 and
+     general, 128 bf16 and int8) and a partial chunk of the launch plans, at
+     (512, 256) and (1024, 256); bf16 in vlsa_tpu's precise mode (W1 and dz
+     as bf16 hi + lo) at (512, 256) and (1024, 256) against the plain f32
+     version at the bf16 limits, its forward within 2e-5 of the plain model
+     of its rounding (`abmil_fwd_rounded`, precise=True), its backward
+     against the exact model of its rounding (`abmil_bwd_rounded`,
+     exact=True): dX beyond its rounding to bf16, db1 and dw2 over their
+     sums' scale within 2e-5, dW1 within 5e-5 of max|dW1|, limits the
+     single-rounded model must miss in dW1 and dX; beside the int8
      forward's gap it prints the gap to `abmil_fwd_rounded`, the plain model
      of its W1 split; the kernels' ptxas lines (registers, static shared
      memory, spills) and dynamic shared memory go to the record, and an f32
-     instance, a bf16 or int8 forward instance or a backward pass of any
-     storage that spills fails the run, as does a forward instance or a
-     backward pass with a stack frame;
+     instance, a bf16 or int8 forward instance, a general forward instance
+     (11) or a backward pass of any storage (20) that spills fails the run,
+     as does a forward instance or a backward pass with a stack frame;
   2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
      the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
      197, 1, 801 and 1025 (CONCH at 512 px): bf16 on the path `flash_plan`
@@ -218,6 +228,18 @@ non-zero and prints no result:
      encode + decoupled product, Shapley), its peak device memory and the
      single bags' times beside the card's name and power limit; the stores
      and checkpoints are then removed;
+  3k. the SA baseline at 1024-d features: fold 0's 437 slides as bags of
+     N~4096 jittered at D=1024 (buckets up to 16,384) written as a .npy f32 store
+     and converted to .q8npz, as phase 3h; cfg_sa_base_conch.yaml at
+     net_dims 1024-256-12 for one epoch from each (f32, int8 features)
+     through the command line's entry, `vlsa_tpu_torch.main.main(["--config",
+     <the config as YAML>, "--handler", "SA"])`, with 3h's checks (native batches, exact launches,
+     every one on the general instances, finite metrics, test predictions
+     within 1e-3 of the plain pooling's), the reloaded checkpoint's test
+     probabilities bit for bit those of the model in memory, a served
+     request of 8 bags within 1e-3 of the plain pooling and a training
+     batch's parameter gradients within 2e-3 of the plain path's; the
+     stores are removed at the end;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
@@ -229,7 +251,9 @@ non-zero and prints no result:
      every timed shape the kernels' results are first held against their
      plain versions with the tolerances above;
   4b. ABMIL times: the same for each ABMIL kernel and its plain version at
-     B=8, N=10240 and at the training shape B=32, N=16384, beside one cuBLAS
+     B=8, N=10240 and at the training shape B=32, N=16384, at B=8 also at
+     each other width of phase 2c and for precise bf16 (its plain version
+     the model of its rounding), beside one cuBLAS
      x @ W1^T in the storage type (`gemm_ms`, a partial yardstick the port
      never calls: no single PyTorch call computes ABMIL pooling, so
      library_ms is null); f32's bound takes the lesser of its two routes to
@@ -317,6 +341,27 @@ ABMIL_TRAIN_SHAPE = dict(B=32, N=16384)
 # tens of SMs, a partial chunk (both checked at run time)
 ABMIL_RAGGED = dict(B=5, N=12291)
 ABMIL_STORAGES = ("f32", "bf16", "int8")
+# the widths (D, hid) phases 2c and 4b hold and time: the resident
+# instances' 512, 256 (CONCH) and, on the general instances, UNI or
+# ResNet-50 at 1024 with the shipped 256, CTransPath at 768 with Ilse et
+# al.'s 128, Prov-GigaPath at 1536 with CLAM's 512; precise bf16 (vlsa_tpu's
+# VLSA_TPU_ABMIL_PRECISE=1) at ABMIL_PRECISE_WIDTHS, held against the plain
+# f32 version at the bf16 limits and against its plain model: the forward
+# (`abmil_fwd_rounded`, precise=True) within TOL_ABMIL_MODEL, the limit the
+# int8 forward's model is held at; the backward against its exact model
+# (`abmil_bwd_rounded`, exact=True: the kernel's operand roundings, then f64)
+# by `abmil.bwd_model_gaps`: dX beyond its one rounding to bf16, and db1 and
+# dw2 over the scale of their sums (`abmil_bwd_sum_scales`), within
+# TOL_ABMIL_MODEL; dW1 within TOL_ABMIL_PRECISE_DW1 of max|dW1|: its f32 sums
+# over the B*N = 81,920 rows on the tensor cores are themselves up to
+# 3.0e-5 from the exact sums at D=1024, hid=256 on an H100 (the
+# single-rounded model's 2.3e-3).  The single-rounded model must miss the
+# dW1 and dX limits, so that they tell the two roundings apart.
+ABMIL_WIDTHS = ((512, 256), (1024, 256), (768, 128), (1536, 512))
+ABMIL_RAGGED_WIDTHS = ((512, 256), (1024, 256))
+ABMIL_PRECISE_WIDTHS = ((512, 256), (1024, 256))
+TOL_ABMIL_MODEL = 2e-5
+TOL_ABMIL_PRECISE_DW1 = 5e-5
 TOL_ABMIL = {"f32": 1e-4, "bf16": 1e-3, "int8": 1e-3}
 TOL_ABMIL_DW = {"f32": 1e-3, "bf16": 2e-3, "int8": 2e-3}
 TOL_ABMIL_DX = {"f32": 1e-3, "bf16": 1e-2}
@@ -500,6 +545,22 @@ STORE_RUNS = (
           net_output_converter=None, net_dims="512-256-1"), "f32"),
 )
 STORE_REDUCED = {"epochs": "10 -> 1"}
+# phase 3k: the SA baseline at 1024-d features (UNI, ResNet-50 truncated,
+# CLIP-RN50): cfg_sa_base_conch.yaml with net_dims 1024-256-K (K corrected
+# to fold 0's 12 bins), fold 0's 437 slides as bags of N~4096 jittered at
+# D=1024 (a patient's slides together bucket at up to 16,384: an f32 batch
+# of 32 is up to 2.1 GB; N~8192, phase 3h's, buckets at 32,768, 4.3 GB a
+# batch, and took the host's resident set to 70.4 GiB), a .npy f32 store
+# converted to .q8npz as phase 3h's; one epoch from each, with 3h's checks,
+# the reload bit for bit, one served request and a step's gradients
+# against the plain path: the general ABMIL instances, rows 7-10
+SA1024_BAGS = "synthetic://N=4096,D=1024,seed=7"
+SA1024_SLIDE_BYTES = 4096 * (1024 * 4 + 1024 + 8)
+SA1024_CFG = dict(LIFECYCLE_SA_CFG, net_dims="1024-256-4")
+SA1024_RUNS = (
+    ("sa1024_f32_npy", SA1024_CFG, "npy", {}, "f32"),
+    ("sa1024_int8_q8npz", SA1024_CFG, "q8npz", dict(feats_dtype="int8"), "int8"),
+)
 RSS_SAMPLE_S = 0.05  # the resident set's sampling period within a run
 # phase 3i: the released CONCH weights and zero-shot.  A CONCH-format
 # checkpoint (a CoCa state dict, the text tower under `text.*`) at the
@@ -621,7 +682,8 @@ def phase_kernel(torch, co):
     _build.build("coattn_fwd", "coattn_bwd_dq", "coattn_bwd_dx", "abmil_fwd", "abmil_bwd",
                  "flash_attn_fwd")
     log(f"built coattn_fwd, coattn_bwd_dq, coattn_bwd_dx, abmil_fwd, abmil_bwd and "
-        f"flash_attn_fwd in {time.perf_counter() - t0:.1f} s")
+        f"flash_attn_fwd in {time.perf_counter() - t0:.1f} s; nvcc seconds each "
+        f"{ {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()} }")
     for name, build_log in _build.BUILD_LOGS.items():
         for line in build_log.splitlines():
             if "registers" in line or "spill stores" in line:
@@ -695,14 +757,13 @@ def phase_backward_kernel(torch, co):
 
 # ---------------------------------------------------------------- phase 2c
 
-def make_abmil_inputs(torch, B, N, storage, seed=0, device="cuda"):
-    """ABMIL inputs on the card at D=512, hid=256: 10% of patches masked and
-    the last bag empty, int8 quantized per patch; W1 and b1 at torch's
-    default Linear scale, w2 at 0.25 N(0, 1) so that the attention is
-    peaked (logit spread ~2), and an output cotangent g [B, 512]."""
-    from vlsa_tpu_torch.ops.abmil import D_KERNEL, HID_KERNEL
+def make_abmil_inputs(torch, B, N, storage, seed=0, device="cuda", D=512, H=256):
+    """ABMIL inputs on the card at D, hid=H: 10% of patches masked and the
+    last bag empty, int8 quantized per patch; W1 and b1 at torch's default
+    Linear scale, w2 at 0.25 N(0, 1) so that the attention is peaked (logit
+    spread ~2), and an output cotangent g [B, D]."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(B, N, D_KERNEL, generator=gen, device=device)
+    x = torch.randn(B, N, D, generator=gen, device=device)
     mask = torch.rand(B, N, generator=gen, device=device) > 0.1
     mask[-1] = False
     x = x * mask[..., None]
@@ -714,11 +775,11 @@ def make_abmil_inputs(torch, B, N, storage, seed=0, device="cuda"):
         x_scale = amax.contiguous()
     elif storage == "bf16":
         x = x.to(torch.bfloat16)
-    bound = D_KERNEL ** -0.5
-    w1 = (torch.rand(HID_KERNEL, D_KERNEL, generator=gen, device=device) * 2 - 1) * bound
-    b1 = (torch.rand(HID_KERNEL, generator=gen, device=device) * 2 - 1) * bound
-    w2 = 0.25 * torch.randn(HID_KERNEL, generator=gen, device=device)
-    g = torch.randn(B, D_KERNEL, generator=gen, device=device)
+    bound = D ** -0.5
+    w1 = (torch.rand(H, D, generator=gen, device=device) * 2 - 1) * bound
+    b1 = (torch.rand(H, generator=gen, device=device) * 2 - 1) * bound
+    w2 = 0.25 * torch.randn(H, generator=gen, device=device)
+    g = torch.randn(B, D, generator=gen, device=device)
     return x.contiguous(), x_scale, mask.contiguous(), w1, b1, w2, g
 
 
@@ -735,11 +796,38 @@ def abmil_bwd_kernel(ab, x, xs, mask, w1, b1, w2, g, out, m, l, need_dx):
     return (None,) + tuple(ab.abmil_q8_bwd(x, xs, mask, w1, b1, w2, g, out, m, l))
 
 
+@contextlib.contextmanager
+def abmil_precise(ab):
+    """vlsa_tpu's precise mode for the ABMIL kernels within the block (the
+    module reads VLSA_TPU_ABMIL_PRECISE once at import; its wrappers read
+    the attribute at each call)."""
+    old = ab._PRECISE
+    ab._PRECISE = True
+    try:
+        yield
+    finally:
+        ab._PRECISE = old
+
+
+def hold_routes(ab, before, fwd, bwd, route):
+    """The calls since `before` (LAUNCHES_ROUTE, LAUNCHES_BWD_ROUTE) ran
+    `fwd` forwards and `bwd` backwards, all on `route`'s instances."""
+    now = (dict(ab.LAUNCHES_ROUTE), dict(ab.LAUNCHES_BWD_ROUTE))
+    want = (dict(before[0], **{route: before[0][route] + fwd}),
+            dict(before[1], **{route: before[1][route] + bwd}))
+    check(now == want, f"ABMIL routes {now}, expected {want}")
+
+
 def hold_abmil(torch, ab, x, xs, mask, w1, b1, w2, g, storage, where):
     """Hold the forward, the weights-only backward and (f32, bf16) the
-    backward with dX against their plain versions on the same inputs.
-    Returns {kernel: {"max_abs_err", "rel_err"}}, the worst over its
-    outputs, and the forward's (out, m, l)."""
+    backward with dX against their plain versions on the same inputs, each
+    call on the instances of its width (`ab.route`).  Returns {kernel:
+    {"max_abs_err", "rel_err"}}, the worst over its outputs, and the
+    forward's (out, m, l)."""
+    D, H = x.shape[2], w1.shape[0]
+    rt = ab.route(x.dtype, D, H)
+    where = f"{where} D={D} hid={H} ({rt})"
+    routes = (dict(ab.LAUNCHES_ROUTE), dict(ab.LAUNCHES_BWD_ROUTE))
     out, m, l = abmil_fwd_kernel(ab, x, xs, mask, w1, b1, w2)
     torch.cuda.synchronize()
     ref, m_ref, l_ref = ab.abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=xs)
@@ -775,6 +863,67 @@ def hold_abmil(torch, ab, x, xs, mask, w1, b1, w2, g, storage, where):
             worst = {k: max(worst[k], e[k]) for k in worst}
         errs[name] = worst
         del got, want
+    hold_routes(ab, routes, 1, 1 if storage == "int8" else 2, rt)
+    return errs, (out, m, l)
+
+
+def hold_abmil_precise(torch, ab, x, mask, w1, b1, w2, g, where):
+    """bf16 in precise mode: the forward and both backwards against the
+    plain f32 version (x's bf16 values, W1 unrounded) at the bf16 limits,
+    and against the models of their rounding: the forward's out and l within
+    TOL_ABMIL_MODEL of `abmil_fwd_rounded`, the backward's leaves by
+    `ab.bwd_model_gaps` against `abmil_bwd_rounded(exact=True)` (dW1 within
+    TOL_ABMIL_PRECISE_DW1, dX, db1 and dw2 within TOL_ABMIL_MODEL), which
+    the single-rounded model must miss in dW1 and dX; each gap logged.
+    Returns {kernel: errors} and the forward's (out, m, l)."""
+    D, H = x.shape[2], w1.shape[0]
+    where = f"{where} D={D} hid={H} (precise)"
+    routes = (dict(ab.LAUNCHES_ROUTE), dict(ab.LAUNCHES_BWD_ROUTE))
+    tols = {"dX": TOL_ABMIL_MODEL, "dW1": TOL_ABMIL_PRECISE_DW1, "db1": TOL_ABMIL_MODEL,
+            "dw2": TOL_ABMIL_MODEL}
+    with abmil_precise(ab):
+        out, m, l = ab.abmil_fwd(x, mask, w1, b1, w2)
+        torch.cuda.synchronize()
+        xf = x.float()
+        ref, _m, l_ref = ab.abmil_fwd_reference(xf, mask, w1, b1, w2)
+        errs = {"abmil_fwd": hold(f"abmil fwd bf16 {where}", out, ref, TOL_ABMIL["bf16"])}
+        hold(f"abmil fwd bf16 {where} l", l, l_ref, TOL_ABMIL["bf16"])
+        mod, m_mod, l_mod = ab.abmil_fwd_rounded(x, mask, w1, b1, w2, precise=True)
+        errs["abmil_fwd"]["model"] = {
+            "out": hold(f"abmil fwd bf16 {where} vs its model", out, mod, TOL_ABMIL_MODEL),
+            "l": hold(f"abmil fwd bf16 {where} l vs its model", l, l_mod, TOL_ABMIL_MODEL)}
+        del ref, mod
+        args = (x, mask, w1, b1, w2, g, out, m, l)
+        exact = ab.abmil_bwd_rounded(*args, precise=True, exact=True)
+        scales = ab.abmil_bwd_sum_scales(*args, precise=True)
+        single = ab.abmil_bwd_rounded(*args, precise=False, exact=True)
+        single = ab.bwd_model_gaps((single[0].to(torch.bfloat16),) + single[1:], exact, scales)
+        log(f"  abmil_bwd bf16 {where}: the single-rounded model's gaps to the precise "
+            f"model {single}")
+        check(single["dW1"] > tols["dW1"] and single["dX"] > tols["dX"],
+              f"abmil_bwd bf16 {where}: the single-rounded model meets the precise limits "
+              f"{tols}: {single}")
+        for need_dx in (False, True):
+            name = "abmil_bwd_dx" if need_dx else "abmil_bwd"
+            got = ab.abmil_bwd(x, mask, w1, b1, w2, g, out, m, l, need_dx=need_dx)
+            torch.cuda.synchronize()
+            want = ab.abmil_bwd_reference(xf, mask, w1, b1, w2, g, out, m, l, need_dx=need_dx)
+            worst = {"max_abs_err": 0.0, "rel_err": 0.0}
+            for leaf, a, b in zip(("dX", "dW1", "db1", "dw2"), got, want):
+                if b is None:
+                    check(a is None, f"{name} precise: a dX nobody asked for")
+                    continue
+                tol = TOL_ABMIL_DX["bf16"] if leaf == "dX" else TOL_ABMIL_DW["bf16"]
+                e = hold(f"{name} bf16 {where} {leaf}", a.float(), b.float(), tol)
+                worst = {k: max(worst[k], e[k]) for k in worst}
+            gaps = ab.bwd_model_gaps(got, exact, scales)
+            log(f"{name} bf16 {where} vs its exact model {gaps} (limits {tols})")
+            bad = {k: v for k, v in gaps.items() if not v <= tols[k]}
+            check(not bad, f"{name} bf16 {where}: gaps to its exact model {bad} above {tols}")
+            errs[name] = dict(worst, model_gaps=gaps, single_rounded_gaps=single)
+            del got, want
+        del exact, scales
+    hold_routes(ab, routes, 1, 2, "precise")
     return errs, (out, m, l)
 
 
@@ -793,12 +942,13 @@ def ptxas_lines(name: str) -> list:
 
 def abmil_ptxas(ab) -> dict:
     """ptxas's lines for csrc/abmil_fwd.cu's and csrc/abmil_bwd.cu's kernels
-    and every forward's and backward pass's dynamic shared memory; fails if
-    an f32 instance, a bf16 or int8 forward instance (abmil_fwd_partial<T>,
-    2) or a backward pass (abmil_bwd_dz_*, abmil_bwd_dw_*: 2 f32, 3
-    bf16-operand pass-1 instances, 3 pass-2 ones) spills, if a forward
-    instance or a backward pass keeps a stack frame, or if a block's shared
-    memory exceeds what the card gives."""
+    and every forward's and backward pass's dynamic shared memory at each of
+    ABMIL_WIDTHS; fails if an f32 instance of the resident kind, a forward
+    instance (abmil_fwd_partial<T>, 2; abmil_fwd_general, 11) or a backward
+    pass (abmil_bwd_dz_*, abmil_bwd_dw_*: 2 f32, 3 bf16-operand pass-1
+    instances, 11 general ones, 4 pass-2 ones) spills, if a forward instance
+    or a backward pass keeps a stack frame, or if a block's shared memory
+    exceeds what the card gives."""
     import torch
     report = {name: ptxas_lines(name) for name in ("abmil_fwd", "abmil_bwd")}
     f32 = [r for rs in report.values() for r in rs if "_f32" in r["function"]]
@@ -806,23 +956,28 @@ def abmil_ptxas(ab) -> dict:
     fwd_q = [r for r in report["abmil_fwd"]
              if "abmil_fwd_partial" in r["function"] and "_f32" not in r["function"]]
     check(len(fwd_q) == 2, f"ptxas shows {len(fwd_q)} bf16 and int8 forward instances, not 2")
+    fwd_g = [r for r in report["abmil_fwd"] if "abmil_fwd_general" in r["function"]]
+    check(len(fwd_g) == 11, f"ptxas shows {len(fwd_g)} general forward instances, not 11 "
+                            "(f32, bf16, precise: 3 pass widths; int8: 2)")
     passes = [r for r in report["abmil_bwd"] if "abmil_bwd_d" in r["function"]]
-    check(len(passes) == 8, f"ptxas shows {len(passes)} ABMIL backward passes, not 8")
-    for r in f32 + fwd_q + passes:
+    check(len(passes) == 20, f"ptxas shows {len(passes)} ABMIL backward passes, not 20")
+    for r in f32 + fwd_q + fwd_g + passes:
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"an ABMIL kernel spills: {r}")
-    for r in fwd_q + passes:
+    for r in fwd_q + fwd_g + passes:
         check(r["stack"] == 0, f"an ABMIL kernel keeps a stack frame: {r}")
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     fwd, bwd = ab._library("abmil_fwd"), ab._library("abmil_bwd")
-    smem = {"fwd": fwd.abmil_fwd_smem_bytes(0), "bf16_fwd": fwd.abmil_fwd_smem_bytes(1),
-            "int8_fwd": fwd.abmil_fwd_smem_bytes(2), "bwd_pass1": bwd.abmil_bwd_smem_bytes(0, 1),
-            "bwd_pass2": bwd.abmil_bwd_smem_bytes(0, 2),
-            "bf16_bwd_pass1": bwd.abmil_bwd_smem_bytes(1, 1),
-            "bf16_bwd_pass2": bwd.abmil_bwd_smem_bytes(1, 2),
-            "int8_bwd_pass1": bwd.abmil_bwd_smem_bytes(2, 1),
-            "int8_bwd_pass2": bwd.abmil_bwd_smem_bytes(2, 2)}
-    log(f"  ABMIL dynamic shared memory {smem} bytes a block (the card gives {optin})")
-    check(max(smem.values()) <= optin, f"ABMIL shared memory {smem} above {optin}")
+    smem = {}
+    for D, H in ABMIL_WIDTHS + ((64, 64), (2048, 512)):
+        for i, s_ in enumerate(ABMIL_STORAGES):
+            for precise in ((0, 1) if s_ == "bf16" else (0,)):
+                key = f"{s_}{'_precise' if precise else ''}_D{D}_h{H}"
+                smem[key] = {"fwd": fwd.abmil_fwd_smem_bytes(i, D, H, precise),
+                             "bwd_pass1": bwd.abmil_bwd_smem_bytes(i, D, H, precise, 1),
+                             "bwd_pass2": bwd.abmil_bwd_smem_bytes(i, D, H, precise, 2)}
+    log(f"  ABMIL dynamic shared memory, bytes a block (the card gives {optin}): {smem}")
+    top = max(v for rec in smem.values() for v in rec.values())
+    check(top <= optin, f"ABMIL shared memory {top} above {optin}")
     return {"kernels": report, "dynamic_smem": smem}
 
 
@@ -878,30 +1033,42 @@ def coattn_fwd_ptxas(co) -> dict:
 
 
 def phase_abmil_kernels(torch, ab):
+    """Every storage at each of ABMIL_WIDTHS and, ragged, at
+    ABMIL_RAGGED_WIDTHS; precise bf16 at ABMIL_PRECISE_WIDTHS."""
     errs = {}
-    for s in ABMIL_STORAGES:
-        inputs = make_abmil_inputs(torch, **ABMIL_SHAPE, storage=s)
-        errs[s], _stats = hold_abmil(torch, ab, *inputs, s, "at B=8 N=10240")
-        del inputs, _stats
-        torch.cuda.empty_cache()
+    for D, H in ABMIL_WIDTHS:
+        for s in ABMIL_STORAGES:
+            inputs = make_abmil_inputs(torch, **ABMIL_SHAPE, storage=s, D=D, H=H)
+            key = s if (D, H) == (512, 256) else f"{s}_D{D}_h{H}"
+            errs[key], _stats = hold_abmil(torch, ab, *inputs, s, "at B=8 N=10240")
+            del inputs, _stats
+            torch.cuda.empty_cache()
     B, N = ABMIL_RAGGED["B"], ABMIL_RAGGED["N"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for s in ABMIL_STORAGES:
-        dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[s]
-        plans = {"fwd": ab.fwd_plan(dtype, B, N, n_sm), "bwd": ab.bwd_plan(dtype, B, N, n_sm)}
-        chunks = (plans["fwd"]["chunk"], plans["bwd"]["chunk1"])
-        check(N % ab._FWD_TILE[dtype] != 0 and N % ab._TILE[dtype] != 0
-              and all(N % c != 0 and N > c for c in chunks),
-              f"{s} at B={B} N={N}: no partial tile and chunk to hold (plans {plans})")
-        inputs = make_abmil_inputs(torch, **ABMIL_RAGGED, storage=s)
-        errs[f"{s}_ragged"], _stats = hold_abmil(torch, ab, *inputs, s, f"at B={B} N={N}")
-        errs[f"{s}_ragged"]["chunks"] = chunks
-        del inputs, _stats
+    for D, H in ABMIL_RAGGED_WIDTHS:
+        for s in ABMIL_STORAGES:
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[s]
+            plans = {"fwd": ab.fwd_plan(dtype, B, N, n_sm, D, H),
+                     "bwd": ab.bwd_plan(dtype, B, N, n_sm, D, H)}
+            chunks = (plans["fwd"]["chunk"], plans["bwd"]["chunk1"])
+            check(N % plans["fwd"]["tile"] != 0 and N % ab._TILE[dtype] != 0
+                  and all(N % c != 0 and N > c for c in chunks),
+                  f"{s} at B={B} N={N}: no partial tile and chunk to hold (plans {plans})")
+            inputs = make_abmil_inputs(torch, **ABMIL_RAGGED, storage=s, D=D, H=H)
+            key = f"{s}_ragged" + ("" if (D, H) == (512, 256) else f"_D{D}_h{H}")
+            errs[key], _stats = hold_abmil(torch, ab, *inputs, s, f"at B={B} N={N}")
+            errs[key]["chunks"] = chunks
+            del inputs, _stats
+            torch.cuda.empty_cache()
+    for D, H in ABMIL_PRECISE_WIDTHS:
+        x, _xs, mask, w1, b1, w2, g = make_abmil_inputs(torch, **ABMIL_SHAPE, storage="bf16",
+                                                        D=D, H=H)
+        errs[f"bf16_precise_D{D}_h{H}"], _stats = hold_abmil_precise(
+            torch, ab, x, mask, w1, b1, w2, g, "at B=8 N=10240")
+        del x, mask, w1, b1, w2, g, _stats
         torch.cuda.empty_cache()
     return errs
 
-
-# ---------------------------------------------------------------- phase 2d
 
 def make_qkv(torch, B, H, L, variant, seed=0, device="cuda"):
     """q, k, v [B, H, L, 64] ~ N(0, 1) in the variant's type."""
@@ -2106,7 +2273,7 @@ def hold_c_index(name, c_kernel, c_plain, gaps, est_gap):
             "share_below_2e-3": share_2e3, "gap_limit": limit, "share_below_limit": share}
 
 
-def exec_handler(torch, ab, co, device, cfg, before_exec=None) -> dict:
+def exec_handler(torch, ab, co, device, cfg, before_exec=None, via_main=False) -> dict:
     """`exec()` of the handler of `cfg` (VLSA or SA, by its task) with every
     launch counter and the batcher's batch counts from 0 just before the
     handler is built: the handler, its metrics, the collected predictions of
@@ -2114,14 +2281,19 @@ def exec_handler(torch, ab, co, device, cfg, before_exec=None) -> dict:
     variant, the batches by path, the seconds of the build, exec() and
     each evaluation pass, and the device memory allocated at the start and
     at the peak of the build and exec().  `before_exec(handler)` runs
-    between the two (it launches no kernel)."""
+    between the two (it launches no kernel).  With `via_main`, the run goes
+    through the command line's entry, `vlsa_tpu_torch.main.main(["--config",
+    <cfg as YAML beside its save path>, "--handler", "SA" or "VLSA"])`, whose
+    handler class is wrapped for these records."""
+    from vlsa_tpu_torch import main as port_main
     from vlsa_tpu_torch.data import pipeline
     from vlsa_tpu_torch.runner.sa import SAHandler
     from vlsa_tpu_torch.runner.vlsa import VLSAHandler
 
     families = {"coattn_fwd": co.LAUNCHES, "coattn_bwd_dq": co.LAUNCHES_BWD,
                 "coattn_bwd_dx": co.LAUNCHES_DX, "abmil_fwd": ab.LAUNCHES,
-                "abmil_bwd": ab.LAUNCHES_BWD}
+                "abmil_bwd": ab.LAUNCHES_BWD, "abmil_fwd_route": ab.LAUNCHES_ROUTE,
+                "abmil_bwd_route": ab.LAUNCHES_BWD_ROUTE}
     passes = {}  # split -> the collected predictions of each evaluation pass
     co.reset_launches()
     ab.reset_launches()
@@ -2129,24 +2301,51 @@ def exec_handler(torch, ab, co, device, cfg, before_exec=None) -> dict:
     gc.collect()  # earlier handlers sit in reference cycles: free their tensors first
     torch.cuda.reset_peak_memory_stats()
     start_bytes = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    handler = (VLSAHandler if cfg["task"] == "vlsa" else SAHandler)(cfg, device=device)
-    build_s = time.perf_counter() - t0
-    if before_exec is not None:
-        before_exec(handler)
-    test_model = handler.test_model
+    base = VLSAHandler if cfg["task"] == "vlsa" else SAHandler
+    made = {}  # the handler, its build's seconds and its exec()'s
 
-    def recording(dataset, name, ckpt_path=None):
-        out = test_model(dataset, name, ckpt_path=ckpt_path)
-        passes.setdefault(name, []).append(out["pred"])
-        return out
-    handler.test_model = recording
-    window = HostMemoryWindow(torch)
-    t0 = time.perf_counter()
-    metrics = handler.exec()
-    torch.cuda.synchronize()
-    exec_s = time.perf_counter() - t0
-    handler.test_model = test_model
+    class Recorded(base):
+        def __init__(self, *args, **kws):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kws)
+            made.update(handler=self, build_s=time.perf_counter() - t0)
+
+        def exec(self):
+            if before_exec is not None:
+                before_exec(self)
+            test_model = self.test_model
+
+            def recording(dataset, name, ckpt_path=None):
+                out = test_model(dataset, name, ckpt_path=ckpt_path)
+                passes.setdefault(name, []).append(out["pred"])
+                return out
+            self.test_model = recording
+            made["window"] = HostMemoryWindow(torch)
+            t0 = time.perf_counter()
+            try:
+                return super().exec()
+            finally:
+                torch.cuda.synchronize()
+                made["exec_s"] = time.perf_counter() - t0
+                self.test_model = test_model
+
+    if via_main:
+        import yaml
+        path = cfg["save_path"].rstrip("/") + ".yaml"  # the handler writes its own config.yaml
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        name = "VLSA" if cfg["task"] == "vlsa" else "SA"
+        shipped = port_main.HANDLERS[name]
+        port_main.HANDLERS[name] = Recorded
+        try:
+            metrics = port_main.main(["--config", path, "--handler", name,
+                                      "--device", str(device)])
+        finally:
+            port_main.HANDLERS[name] = shipped
+    else:
+        metrics = Recorded(cfg, device=device).exec()
+    handler, build_s, exec_s = made["handler"], made["build_s"], made["exec_s"]
+    window = made["window"]
     return {"handler": handler, "metrics": metrics, "passes": passes,
             "launches": {name: dict(counts) for name, counts in families.items()},
             "batches": dict(pipeline.BATCHES), "build_s": build_s, "exec_s": exec_s,
@@ -2241,6 +2440,14 @@ def expected_launches(handler, launches, variant) -> dict:
         return expected
     expected[fwd][variant] = epochs * (n_train + n_test) + n_train + n_test
     expected[bwd][variant] = epochs * n_train
+    if cfg["task"] != "vlsa":  # ABMIL: each call on the instances of the model's width
+        import torch
+        from vlsa_tpu_torch.ops import abmil as ab
+        D, H = (int(d) for d in str(cfg["net_dims"]).split("-")[:2])
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[variant]
+        rt = ab.route(dtype, D, H)
+        expected["abmil_fwd_route"][rt] = expected[fwd][variant]
+        expected["abmil_bwd_route"][rt] = expected[bwd][variant]
     return expected
 
 
@@ -2393,14 +2600,14 @@ def same_bytes(torch, a: dict, b: dict) -> bool:
         for k in a)
 
 
-def write_stores(tmp, sids) -> dict:
-    """The .npy store of `sids` (their STORE_BAGS bags, 8 threads) and its
-    .q8npz conversion by the port's CLI: {store: (directory, bytes, s)}."""
+def write_stores(tmp, sids, bags=STORE_BAGS, slide_bytes=STORE_SLIDE_BYTES) -> dict:
+    """The .npy store of `sids` (their `bags`, 8 threads) and its .q8npz
+    conversion by the port's CLI: {store: (directory, bytes, s)}."""
     from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from vlsa_tpu_torch.data.io import synthetic_bag
 
-    need = int(STORE_MARGIN * len(sids) * STORE_SLIDE_BYTES)
+    need = int(STORE_MARGIN * len(sids) * slide_bytes)
     free = shutil.disk_usage(tmp).free
     log(f"stores: {free} bytes free under {tmp}, about {need} needed")
     check(free >= need, f"the stores need about {need} bytes of disk, {free} are free")
@@ -2408,7 +2615,7 @@ def write_stores(tmp, sids) -> dict:
     os.makedirs(npy)
 
     def write(sid):
-        np.save(os.path.join(npy, sid + ".npy"), synthetic_bag(sid, STORE_BAGS))
+        np.save(os.path.join(npy, sid + ".npy"), synthetic_bag(sid, bags))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(write, sids))
@@ -2491,11 +2698,15 @@ def copy_seconds(torch, pinned) -> dict:
 
 
 def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, changes,
-              variant, epochs=1, before_exec=None, after_exec=None, keep=None) -> dict:
+              variant, epochs=1, before_exec=None, after_exec=None, keep=None,
+              hold_reload=False, via_main=False) -> dict:
     """One run of STORE_RUNS (of `epochs` epochs): `exec()` of a fresh
     handler from `store` with every launch and batch counter from 0 just
-    before (`before_exec` as exec_handler's), then its checks and
-    `after_exec(handler)`; `keep[name]` is then the trained model."""
+    before (`before_exec` as exec_handler's), then its checks (with
+    `hold_reload`, also the reloaded checkpoint's test probabilities equal
+    to the in-memory model's bit for bit) and `after_exec(handler)`, whose
+    result goes to the record's "after"; `keep[name]` is then the trained
+    model.  `via_main`: through the command line's entry (exec_handler)."""
     import numpy as np
     from vlsa_tpu_torch.data.bags import FewShotSurvBagDataset, SurvBagDataset
     from vlsa_tpu_torch.data.pipeline import release_pinned_batches
@@ -2503,7 +2714,7 @@ def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, c
 
     cfg = dict(base_cfg, **changes, epochs=epochs, path_patch=stores[store][0], feat_format=store,
                save_path=os.path.join(tmp, name))
-    run = exec_handler(torch, ab, co, device, cfg, before_exec=before_exec)
+    run = exec_handler(torch, ab, co, device, cfg, before_exec=before_exec, via_main=via_main)
     handler, launches = run["handler"], run["launches"]
     check(run["batches"]["numpy"] == 0 and run["batches"]["native"] > 0,
           f"{name}: batches by path {run['batches']}: every batch must be native")
@@ -2537,6 +2748,11 @@ def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, c
     gap = float(np.abs(run["passes"]["test"][-1]["y_hat"] - plain["y_hat"]).max())
     check(gap <= TOL_LIFECYCLE_PROBS, f"{name}: test predictions deviate {gap:.3e} "
                                       f"from the plain pooling's")
+    if hold_reload:  # the final pass after loading the checkpoint: bit for bit the same
+        in_memory, reloaded = run["passes"]["test"][-2], run["passes"]["test"][-1]
+        check(np.array_equal(in_memory["y_hat"], reloaded["y_hat"]),
+              f"{name}: the reloaded checkpoint's test probabilities differ from the in-memory "
+              f"model's by {np.abs(in_memory['y_hat'] - reloaded['y_hat']).max():.3e}")
     log_run_times(name, handler.timings["epochs"], run["eval_passes"], card)
     log(f"{name}: {n_train} training patients, build {run['build_s']:.1f} s, exec "
         f"{run['exec_s']:.1f} s, {run['batches']['native']} native batches, launches "
@@ -2545,8 +2761,7 @@ def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, c
         f"{describe_host_memory(run['host_memory'])}, peak device memory "
         f"{run['peak_device_bytes'] / 2**30:.2f} GiB, on {card}; the store read from a page "
         f"cache its writing warmed; final metrics {run['metrics']}")
-    if after_exec is not None:
-        after_exec(handler)
+    after = after_exec(handler) if after_exec is not None else None
     if keep is not None:
         keep[name] = handler.model
     out = {"config": {k: v for k, v in cfg.items() if k != "save_path"},
@@ -2556,6 +2771,10 @@ def store_run(torch, ab, co, device, card, stores, tmp, name, base_cfg, store, c
            "batches": run["batches"], "launches": launches, "metrics": run["metrics"],
            "test_pred_gap_to_plain": gap, "host_memory": run["host_memory"],
            "peak_device_bytes": run["peak_device_bytes"]}
+    if hold_reload:
+        out["reload_bit_identical"] = True
+    if after is not None:
+        out["after"] = after
     del handler, run
     torch.cuda.empty_cache()
     return out
@@ -2593,6 +2812,89 @@ def phase_store_runs(torch, ab, co, device, card, tmp, keep):
             for spec in STORE_RUNS}
     return {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
             "native_vs_numpy": batches_check, "runs": runs}
+
+
+# ---------------------------------------------------------------- phase 3k
+
+def sa1024_after(torch, ab, co, device, storage):
+    """After an SA1024_RUNS run: one request of BAGS_PER_REQUEST bags of
+    SA1024_BAGS served by the trained model in the run's storage type
+    (`InferEngine`, as `python -m vlsa_tpu_torch.runner.serve`), exactly one
+    general forward launched, probabilities within 1e-3 of the plain
+    pooling's; then one training batch's parameter gradients through the
+    kernels against the plain versions (TOL_GRAD; patients censored in the
+    last bin left out of `valid`, as phase 3d)."""
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_bags
+
+    feats_dtype = {"f32": "float32", "int8": "int8"}[storage]
+
+    def after(handler):
+        model = handler.model
+        model.eval()
+        engine = InferEngine(model, feats_dtype=feats_dtype, precompute_inv=False)
+        batch = engine.prepare(request_bags(SA1024_BAGS, 0, BAGS_PER_REQUEST))
+        ab.reset_launches()
+        co.reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = engine.forward(batch)
+        torch.cuda.synchronize()
+        serve_ms = 1e3 * (time.perf_counter() - t0)
+        check(dict(ab.LAUNCHES) == dict.fromkeys(ab.LAUNCHES, 0) | {storage: 1}
+              and ab.LAUNCHES_ROUTE["general"] == 1 and sum(ab.LAUNCHES_BWD.values()) == 0
+              and sum(co.LAUNCHES.values()) == 0,
+              f"SA 1024 served request launches {ab.LAUNCHES}, {ab.LAUNCHES_ROUTE}")
+        with plain_abmil(), torch.inference_mode():
+            plain = engine.forward(batch)
+        dev = float((out["probs"] - plain["probs"]).abs().max())
+        check(bool(torch.isfinite(out["logits"]).all()) and dev <= TOL_LIFECYCLE_PROBS,
+              f"SA 1024 {storage} request: probabilities {dev:.3e} from the plain pooling's")
+        check(handler.cfg["net_dims"] == "1024-256-12",
+              f"SA 1024: net_dims {handler.cfg['net_dims']}, not 1024-256-12")
+        batcher = handler.trainer.batcher  # the model stays in eval mode: no dropout draws
+        b = {k: v.to(device) for k, v in
+             batcher.make_batch(range(min(batcher.batch_size, len(batcher.dataset)))).items()}
+        K = handler.data_meta.num_bins
+        ill = b["valid"] & (b["e"] == 0) & (b["t"] == K - 1)
+        b = dict(b, valid=b["valid"] & ~ill)
+        g_kernel = param_grads(torch, model, handler.engine, b)
+        with plain_abmil():
+            g_plain = param_grads(torch, model, handler.engine, b)
+        devs = grad_devs(g_kernel, g_plain, [n for n, _p in model.named_parameters()
+                                             if n != "sigma.fc2_bias"])
+        worst = max(devs, key=devs.get)
+        log(f"SA 1024 {storage}: a request of {BAGS_PER_REQUEST} bags {serve_ms:.1f} ms, "
+            f"probabilities vs plain {dev:.2e}; gradients of a batch of "
+            f"{int(b['valid'].sum())} bags (bucket {b['mask'].shape[1]}) vs plain: worst "
+            f"{worst} {devs[worst]:.2e} (tol {TOL_GRAD:g})")
+        check(devs[worst] <= TOL_GRAD, f"SA 1024 {storage}: gradient of {worst} deviates "
+                                       f"{devs[worst]:.3e}")
+        del g_kernel, g_plain, b
+        return {"net_dims": handler.cfg["net_dims"], "serve_ms": serve_ms,
+                "served_prob_dev": dev, "grad_dev": devs}
+    return after
+
+
+def phase_sa_1024(torch, ab, co, device, card):
+    """Phase 3k: SA1024_RUNS from their own stores in a temporary directory,
+    removed at the end."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sa1024_")
+    try:
+        _meta, _split, sids = fold0_slides()
+        stores = write_stores(tmp, sids, SA1024_BAGS, SA1024_SLIDE_BYTES)
+        runs = {}
+        for spec in SA1024_RUNS:
+            run = store_run(torch, ab, co, device, card, stores, tmp, *spec, hold_reload=True,
+                            after_exec=sa1024_after(torch, ab, co, device, spec[4]),
+                            via_main=True)
+            check(run["launches"]["abmil_fwd_route"]["general"] > 0,
+                  f"{spec[0]}: routes {run['launches']['abmil_fwd_route']}")
+            runs[spec[0]] = run
+        return {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
+                "runs": runs}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- phase 3i
@@ -3352,29 +3654,31 @@ def phase_times(torch, co):
 
 # ---------------------------------------------------------------- phase 4b
 
-def bound_abmil(name, B, N, storage):
-    """Least time for an ABMIL kernel's work on an H100, as `bound` reckons
-    it, every patch slot of the batch counted, and what bounds it.  Bytes: x, the mask, the int8
-    scales, W1, b1 and w2 read once, and out, m, l written once (forward);
-    the backward reads g, out, m and l besides and writes dW1, db1, dw2 and,
-    with dX, dX in the storage type.  Operations: the forward's bottleneck
-    product 2*D*hid per patch plus the w2 dot and the PV sum (2*hid + 2*D);
-    the backward's 4*D*hid per patch for the weight gradients (the h and dW1
-    products), 6*D*hid with dX (vlsa_tpu/ops/abmil.py:307's count).  f32
+def bound_abmil(name, B, N, storage, D=512, H=256, precise=False):
+    """Least time for an ABMIL kernel's work on an H100 at x [B, N, D], W1
+    [H, D], as `bound` reckons it, every patch slot of the batch counted,
+    and what bounds it.  Bytes: x, the mask, the int8 scales, W1, b1 and w2
+    read once, and out, m, l written once (forward); the backward reads g,
+    out, m and l besides and writes dW1, db1, dw2 and, with dX, dX in the
+    storage type.  Operations: the forward's bottleneck product 2*D*hid per
+    patch plus the w2 dot and the PV sum (2*hid + 2*D); the backward's
+    4*D*hid per patch for the weight gradients (the h and dW1 products),
+    6*D*hid with dX (vlsa_tpu/ops/abmil.py:307's count); bf16 in precise
+    mode does each of those products twice (W1 or dz as hi + lo).  f32
     products take the card's faster route to f32 accuracy: the CUDA cores
     (67 TFLOP/s) or 3 TF32 products each on the tensor cores (495 TFLOP/s),
     "operations (3xTF32)" when that route bounds."""
-    from vlsa_tpu_torch.ops.abmil import D_KERNEL as D, HID_KERNEL as H
     item = {"f32": 4, "bf16": 2, "int8": 1}[storage]
+    parts = 2 if precise else 1
     rows = B * N
     weights = 4 * (H * D + 2 * H)
     nbytes = rows * D * item + rows + (4 * rows if storage == "int8" else 0) + weights
     if name == "abmil_fwd":
         nbytes += 4 * B * D + 8 * B
-        ops = rows * (2 * D * H + 2 * H + 2 * D)
+        ops = rows * (2 * D * H * parts + 2 * H + 2 * D)
     else:
         nbytes += 4 * 2 * B * D + 8 * B + weights
-        ops = rows * D * H * (6 if name == "abmil_bwd_dx" else 4)
+        ops = rows * D * H * (6 if name == "abmil_bwd_dx" else 4) * parts
         if name == "abmil_bwd_dx":
             nbytes += rows * D * item
     t_bytes, t_ops, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage], "operations"
@@ -3383,13 +3687,13 @@ def bound_abmil(name, B, N, storage):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else by_ops)
 
 
-def floor_abmil_bf16_bwd(name, B, N, storage="bf16"):
+def floor_abmil_bf16_bwd(name, B, N, storage="bf16", D=512, H=256, precise=False):
     """The bf16-operand backward design's byte floor in ms (not a bound of
     the function): x read twice (passes 1 and 2) and the bf16 dz workspace
-    [B, N, 256] (int8: two planes, s dz's hi and lo) written and read once,
-    plus dX written (with dX)."""
-    from vlsa_tpu_torch.ops.abmil import D_KERNEL as D, HID_KERNEL as H
-    item, planes = (1, 2) if storage == "int8" else (2, 1)
+    [B, N, H] (int8 and precise: two planes) written and read once, plus dX
+    written (with dX)."""
+    item = 1 if storage == "int8" else 2
+    planes = 2 if storage == "int8" or precise else 1
     nbytes = (2 * B * N * D * item + 2 * planes * B * N * H * 2
               + (B * N * D * 2 if name == "abmil_bwd_dx" else 0))
     return 1e3 * nbytes / HBM_BYTES_PER_S
@@ -3407,50 +3711,77 @@ def gemm_yardstick(torch, x, w1):
     return lambda: x2 @ w.T
 
 
-def time_abmil(torch, ab, storage, B, N):
-    x, xs, mask, w1, b1, w2, g = inputs = make_abmil_inputs(torch, B, N, storage, seed=1)
-    errs, (out, m, l) = hold_abmil(torch, ab, *inputs, storage, f"at B={B} N={N}")
-    try:
-        gemm_ms = median_ms(torch, gemm_yardstick(torch, x, w1))
-    except RuntimeError as exc:  # the yardstick only: the port never calls it
-        log(f"gemm yardstick {storage} at B={B} N={N} unavailable: {exc}")
-        gemm_ms = None
-    recs = {"abmil_fwd": {
-        "ms": median_ms(torch, lambda: abmil_fwd_kernel(ab, x, xs, mask, w1, b1, w2)),
-        "plain_ms": median_ms(torch, lambda: ab.abmil_fwd_reference(x, mask, w1, b1, w2,
-                                                                    x_scale=xs))}}
-    for need_dx in ((False,) if storage == "int8" else (False, True)):
-        name = "abmil_bwd_dx" if need_dx else "abmil_bwd"
-        recs[name] = {
-            "ms": median_ms(torch, lambda: abmil_bwd_kernel(ab, x, xs, mask, w1, b1, w2, g,
-                                                            out, m, l, need_dx)),
-            "plain_ms": median_ms(torch, lambda: ab.abmil_bwd_reference(
-                x, mask, w1, b1, w2, g, out, m, l, x_scale=xs, need_dx=need_dx))}
+def time_abmil(torch, ab, storage, B, N, D=512, H=256, precise=False):
+    """Each kernel's time (forward; backward weights only; with dX for f32
+    and bf16) beside its plain version's, the gemm yardstick and the bound,
+    at x [B, N, D], W1 [H, D]; bf16 in precise mode when `precise` (its
+    plain version then the model of its rounding)."""
+    x, xs, mask, w1, b1, w2, g = inputs = make_abmil_inputs(torch, B, N, storage, seed=1, D=D,
+                                                            H=H)
+    mode = abmil_precise(ab) if precise else contextlib.nullcontext()
+    with mode:
+        if precise:
+            errs, (out, m, l) = hold_abmil_precise(torch, ab, x, mask, w1, b1, w2, g,
+                                                   f"at B={B} N={N}")
+        else:
+            errs, (out, m, l) = hold_abmil(torch, ab, *inputs, storage, f"at B={B} N={N}")
+        try:
+            gemm_ms = median_ms(torch, gemm_yardstick(torch, x, w1))
+        except RuntimeError as exc:  # the yardstick only: the port never calls it
+            log(f"gemm yardstick {storage} at B={B} N={N} unavailable: {exc}")
+            gemm_ms = None
+        recs = {"abmil_fwd": {
+            "ms": median_ms(torch, lambda: abmil_fwd_kernel(ab, x, xs, mask, w1, b1, w2)),
+            "plain_ms": median_ms(torch, lambda: ab.abmil_fwd_rounded(
+                x, mask, w1, b1, w2, x_scale=xs, precise=True) if precise
+                else ab.abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=xs))}}
+        for need_dx in ((False,) if storage == "int8" else (False, True)):
+            name = "abmil_bwd_dx" if need_dx else "abmil_bwd"
+            recs[name] = {
+                "ms": median_ms(torch, lambda: abmil_bwd_kernel(ab, x, xs, mask, w1, b1, w2, g,
+                                                                out, m, l, need_dx)),
+                "plain_ms": median_ms(torch, lambda: ab.abmil_bwd_rounded(
+                    x, mask, w1, b1, w2, g, out, m, l, x_scale=xs, need_dx=need_dx,
+                    precise=precise))}
     for name, rec in recs.items():
-        b_ms, b_by = bound_abmil(name, B, N, storage)
-        rec.update(B=B, N=N, gemm_ms=gemm_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        b_ms, b_by = bound_abmil(name, B, N, storage, D, H, precise)
+        rec.update(B=B, N=N, D=D, hid=H, precise=precise, route=ab.route(x.dtype, D, H, precise),
+                   gemm_ms=gemm_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                    err=errs[name])
         if storage != "f32" and name != "abmil_fwd":
-            rec["design_floor_ms"] = floor_abmil_bf16_bwd(name, B, N, storage)
+            rec["design_floor_ms"] = floor_abmil_bf16_bwd(name, B, N, storage, D, H, precise)
     return recs
 
 
 def phase_abmil_times(torch, ab):
+    """Every storage at D=512, hid=256 at B=8, N=10240 and the training
+    shape; at the other ABMIL_WIDTHS at B=8, N=10240; precise bf16 at
+    ABMIL_PRECISE_WIDTHS."""
     times = {"b8": {}, "train": {}}
     for key, shape in (("b8", ABMIL_SHAPE), ("train", ABMIL_TRAIN_SHAPE)):
         for s in ABMIL_STORAGES:
             for name, rec in time_abmil(torch, ab, s, **shape).items():
                 times[key][f"{name}[{s}]"] = rec
             torch.cuda.empty_cache()
+    for D, H in ABMIL_WIDTHS[1:]:
+        for s in ABMIL_STORAGES:
+            for name, rec in time_abmil(torch, ab, s, **ABMIL_SHAPE, D=D, H=H).items():
+                times["b8"][f"{name}[{s},D={D},hid={H}]"] = rec
+            torch.cuda.empty_cache()
+    for D, H in ABMIL_PRECISE_WIDTHS:
+        for name, rec in time_abmil(torch, ab, "bf16", **ABMIL_SHAPE, D=D, H=H,
+                                    precise=True).items():
+            times["b8"][f"{name}[bf16_precise,D={D},hid={H}]"] = rec
+        torch.cuda.empty_cache()
     for key, recs in times.items():
         for k, t in recs.items():
             gemm = "n/a" if t["gemm_ms"] is None else f"{t['gemm_ms']:.4f} ms"
             floor = (f"  design byte floor {t['design_floor_ms']:.4f} ms"
                      if "design_floor_ms" in t else "")
-            log(f"time {k:18s} B={t['B']:<3d} N={t['N']:<6d} kernel {t['ms']:.4f} ms"
+            log(f"time {k:38s} B={t['B']:<3d} N={t['N']:<6d} kernel {t['ms']:.4f} ms"
                 f"  plain {t['plain_ms']:.4f} ms  gemm {gemm}"
                 f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']}){floor}"
-                f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x")
+                f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x  ({t['route']})")
     return times
 
 
@@ -3666,6 +3997,7 @@ def main(argv=None) -> int:
         finally:
             kept.clear()
             shutil.rmtree(stores_tmp, ignore_errors=True)
+        sa_1024 = timed("3k", phase_sa_1024, torch, ab, co, device, card)
         times = timed("4", phase_times, torch, co)
         abmil_times = timed("4b", phase_abmil_times, torch, ab)
         flash_times = timed("4c", phase_flash_times, torch, fa)
@@ -3678,7 +4010,7 @@ def main(argv=None) -> int:
     # the whole runs' launches: phase 3g's, each of phase 3h's, 3i's and 3j's
     runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values()) \
         + list(zero_shot["runs"].values()) + [zero_shot["flagship"]] \
-        + list(interpretation["runs"].values())
+        + list(interpretation["runs"].values()) + list(sa_1024["runs"].values())
 
     def run_launches(family, variant):
         return sum(r["launches"][family][variant] for r in runs)
@@ -3712,6 +4044,17 @@ def main(argv=None) -> int:
                                     + run_launches("abmil_bwd", s) for s in ABMIL_STORAGES},
                       "abmil_bwd_dx": {s: sa_training["launches"]["bwd"][f"{s}_dx"]
                                        for s in ("f32", "bf16")}}
+    # the D=512, hid=256 instances' launches come from the runs above but
+    # 3k's, the general instances' from 3k's SA runs at 1024-256-12 (its
+    # served requests and gradient checks besides)
+    general = {"abmil_fwd": {s: sum(r["launches"]["abmil_fwd"][s]
+                                    for r in sa_1024["runs"].values()) for s in ("f32", "int8")},
+               "abmil_bwd": {s: sum(r["launches"]["abmil_bwd"][s]
+                                    for r in sa_1024["runs"].values()) for s in ("f32", "int8")}}
+    for fam in ("abmil_fwd", "abmil_bwd"):
+        for s in ("f32", "int8"):
+            abmil_launches[fam][s] -= general[fam][s]
+    held = [list(w) for w in ABMIL_WIDTHS]
     for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
                            ("abmil_bwd_dx", ("f32", "bf16"))):
         fwd = name == "abmil_fwd"
@@ -3724,7 +4067,31 @@ def main(argv=None) -> int:
                 "launches": abmil_launches[name][s],
                 "max_abs_err": errs_abmil[s][name]["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"].split()[0], "library_ms": None})
+                "bound_by": t["bound_by"].split()[0], "library_ms": None,
+                "widths": [[512, 256]]})
+    # the general instances, timed at (1024, 256); bf16 in precise mode at
+    # (512, 256).  The main paths run the general f32 and int8 forward and
+    # weights-only backward (3k); the rest are held (2c) and timed (4b)
+    # here alone: "on_main_path" false, their launches 0
+    for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
+                           ("abmil_bwd_dx", ("f32", "bf16"))):
+        fwd = name == "abmil_fwd"
+        for s, precise in [(s, False) for s in storages] + [("bf16", True)]:
+            D, H = (512, 256) if precise else (1024, 256)
+            tag = f"{s}_precise" if precise else s
+            t = abmil_times["b8"][f"{name}[{tag},D={D},hid={H}]"]
+            on_path = not precise and general.get(name, {}).get(s, 0) > 0
+            kernels.append({
+                "name": f"{name}_{'precise' if precise else 'general'}[{s}]", "route": "cuda",
+                "source": SOURCE_ABMIL if fwd else SOURCE_ABMIL_BWD,
+                "replaces": (REPLACES_ABMIL if fwd else REPLACES_ABMIL_BWD)[s],
+                "launches": general[name][s] if on_path else 0,
+                "max_abs_err": errs_abmil[f"{tag}_D{D}_h{H}"][name]["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"].split()[0], "library_ms": None,
+                "widths": ([list(w) for w in ABMIL_PRECISE_WIDTHS] if precise
+                           else [w for w in held if w != [512, 256]]),
+                "timed_at": [D, H], "on_main_path": on_path})
     # bf16 on the path flash_plan names (the streamed kernel), timed at the
     # extraction shape; its launches those of both extraction runs
     for v in FLASH_VARIANTS:
@@ -3737,7 +4104,7 @@ def main(argv=None) -> int:
             "max_abs_err": errs_flash[v][FLASH_SHAPE["L"]]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
-    never = [k["name"] for k in kernels if k["launches"] <= 0]
+    never = [k["name"] for k in kernels if k["launches"] <= 0 and k.get("on_main_path", True)]
     if never:
         log(f"FAIL: never launched on the main paths: {never}")
         return 1
@@ -3755,7 +4122,7 @@ def main(argv=None) -> int:
               "feat_proj_training": feat_proj, "dx_times": dx_times,
               "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
               "store_runs": store_runs, "zero_shot": zero_shot,
-              "interpretation": interpretation, "kernels": kernels,
+              "interpretation": interpretation, "sa_1024": sa_1024, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -238,7 +238,8 @@ def test_fwd_tiles_mirror_the_kernel_source():
     """The forward's tiles and W1 workspace in ops/abmil.py are the kernel
     source's: the bf16 and int8 tile kMQ, 64 rows for each of the block's
     warpgroups (kThreads / 128), the tile of every backward's pass 1 kMF,
-    and the int8 scale workspace's partial maxima kAmaxBlocks."""
+    and the int8 scale workspace's partial maxima kAmaxBlocks (in the
+    common header since the backward's general instance splits W1 too)."""
     import re
     from pathlib import Path
     csrc = Path(pab.__file__).parent / "csrc"
@@ -251,8 +252,8 @@ def test_fwd_tiles_mirror_the_kernel_source():
     assert const(fwd, "kMQ") == pab._FWD_TILE[torch.bfloat16] == pab._FWD_TILE[torch.int8]
     assert 64 * (const(common, "kThreads") // 128) == const(fwd, "kMQ")
     assert all(pab._TILE[d] == const(common, "kMF") for d in pab._TILE)
-    assert const(fwd, "kAmaxBlocks") == pab._AMAX_BLOCKS
-    assert pab.fwd_plan(torch.int8, 1, 1, 132)["w1_scale"] == (1 + const(fwd, "kAmaxBlocks"),)
+    assert const(common, "kAmaxBlocks") == pab._AMAX_BLOCKS
+    assert pab.fwd_plan(torch.int8, 1, 1, 132)["w1_scale"] == (1 + const(common, "kAmaxBlocks"),)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -341,15 +342,15 @@ def test_bf16_bwd_plan_fills_the_waves(B, N):
 
 @pytest.mark.parametrize("name", ["cvt", "one_chain", "chains", "volatile", "fast_tanh",
                                   "sync_wgmma", "no_tanh", "no_wgmma", "no_pv", "no_w1", "no_x",
-                                  "no_sync"])
+                                  "no_sync", "general"])
 def test_variants_edit_the_kernel_source(name):
     """Each design alternative of ops/abmil_variants.py (f32; the bf16 and
-    int8 forward's) is an edit that applies once to the kernel source as it
-    stands."""
+    int8 forward's; every width on the general instances) is an edit that
+    applies once to the kernel source as it stands."""
     from pathlib import Path
     from vlsa_tpu_torch.ops import abmil_variants as av
     csrc = Path(pab.__file__).parent / "csrc"
-    edits = av.VARIANTS.get(name) or av.FWD_VARIANTS[name]
+    edits = av.VARIANTS.get(name) or av.FWD_VARIANTS.get(name) or av.GENERAL_VARIANTS[name]
     assert edits
     for file, old, new in edits:
         assert (csrc / file).read_text().count(old) == 1 and old != new

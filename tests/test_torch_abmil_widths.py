@@ -1,0 +1,296 @@
+"""The ABMIL pooling at the widths beside D=512, hid=256, and vlsa_tpu's
+precise mode, on the CPU: the port's plain versions against vlsa_tpu's
+Pallas kernels in interpret mode (`ab.INTERPRET = True`, as
+tests/test_torch_abmil.py sets it), the width domain against the kernel
+sources, the refusals outside it, and the launch plans at the new widths.
+
+Shapes B=3, N=256, a ragged mask and one empty bag, at (D, hid) = (128, 64),
+(192, 128) and (256, 512); the same numpy inputs go to both packages.
+Tolerances (max|a-b| / max|b|), those of tests/test_torch_abmil.py:
+  - f32 1e-5: both true f32, the differences are summation order;
+  - bf16 1e-4 for out, db1, dw2 (both round W1 to bf16 and accumulate in
+    f32); dX 1e-2, one bf16 ulp of the written value; dW1 5e-4: both round
+    dz to bf16, from f32 values that differ in their last bits (vlsa_tpu
+    forms g . x with g split into bf16 hi + lo, the port with f32 g), so
+    the dz that sit at a rounding boundary land on neighbouring bf16s, 2^-8
+    apart (1.6e-4 to 2.4e-4 at these widths; tests/test_torch_abmil.py's
+    D=64, hid=32 stays within 1e-4);
+  - int8 1e-3 forward, 2e-3 weight gradients against the port's f32 plain
+    version (the JAX kernel splits W1 and s*dz into int8 hi + lo);
+  - precise mode (both modules' `_PRECISE` set): the port's plain model of
+    its rounding (`abmil_fwd_rounded` / `abmil_bwd_rounded`, precise=True)
+    within 1e-5 of the interpret kernel in out, m, l, dW1, db1 and dw2 (both
+    split W1 and dz into bf16 hi + lo and sum in f32); dX 1e-2 (bf16), and
+    within 1e-5 of the exact model's (`abmil_bwd_rounded`, exact=True) f32
+    dX beyond the kernel's one rounding of it to bf16 (`bwd_model_gaps`).
+"""
+import re
+import types
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vlsa_tpu.ops.abmil as ab
+from vlsa_tpu_torch.ops import abmil as pab
+
+B, N = 3, 256
+WIDTHS = [(128, 64), (192, 128), (256, 512)]
+TOL_DW1_BF16 = 5e-4
+CSRC = Path(pab.__file__).parent / "csrc"
+
+
+@pytest.fixture
+def interpret():
+    old = ab.INTERPRET
+    ab.INTERPRET = True
+    yield
+    ab.INTERPRET = old
+
+
+def _inputs(D, hid, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, N, D)).astype(np.float32)
+    mask = np.zeros((B, N), bool)
+    mask[0, :N] = True
+    mask[1, :150] = True
+    mask[1, 40:60] = False
+    x = x * mask[..., None]  # bag 2 is empty
+    w1 = (rng.normal(size=(hid, D)) * D ** -0.5).astype(np.float32)
+    b1 = (rng.normal(size=hid) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=hid) * hid ** -0.5).astype(np.float32)
+    g = rng.normal(size=(B, D)).astype(np.float32)
+    return x, mask, w1, b1, w2, g
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _jax_run(x, mask, w1, b1, w2, g):
+    """vlsa_tpu's forward and backward kernels: (out, m, l), (dX, dW1, db1, dw2)."""
+    args = (jnp.asarray(mask), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2))
+    out, stats = ab._abmil_pallas(x, *args)
+    grads = ab._abmil_pallas_bwd(x, *args, jnp.asarray(g), out, stats[:, 0, :])
+    return (out, stats[:, 0, 0], stats[:, 0, 1]), grads
+
+
+@pytest.mark.parametrize("widths", WIDTHS)
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_plain_versions_match_pallas_at_other_widths(interpret, storage, widths):
+    D, hid = widths
+    x, mask, w1, b1, w2, g = _inputs(D, hid)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[
+        storage]
+    (out_j, m_j, l_j), (dx_j, dw1_j, db1_j, dw2_j) = _jax_run(jnp.asarray(x).astype(jdt), mask,
+                                                              w1, b1, w2, g)
+    xt = _t(x).to(tdt)
+    out, m, l = pab.abmil_fwd_reference(xt, _t(mask), _t(w1), _t(b1), _t(w2))
+    tol = {"f32": 1e-5, "bf16": 1e-4}[storage]
+    assert out.shape == (B, D) and _rel(out, out_j) <= tol
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_j), rtol=1e-5)
+    np.testing.assert_allclose(l.numpy(), np.asarray(l_j), rtol=1e-5)
+    assert torch.all(out[2] == 0)
+    dx, dw1, db1, dw2 = pab.abmil_bwd_reference(xt, _t(mask), _t(w1), _t(b1), _t(w2), _t(g),
+                                                out, m, l)
+    assert dw1.shape == (hid, D) and db1.shape == dw2.shape == (hid,)
+    assert _rel(dx.float(), jnp.asarray(dx_j, jnp.float32)) <= {"f32": 1e-5, "bf16": 1e-2}[
+        storage]
+    for name, got, want in (("dw1", dw1, dw1_j), ("db1", db1, db1_j), ("dw2", dw2, dw2_j)):
+        assert _rel(got, want) <= (TOL_DW1_BF16 if (storage, name) == ("bf16", "dw1") else tol), name
+
+
+@pytest.mark.parametrize("widths", WIDTHS)
+def test_int8_plain_version_matches_pallas_at_other_widths(interpret, widths):
+    D, hid = widths
+    x, mask, w1, b1, w2, g = _inputs(D, hid, seed=1)
+    amax = np.abs(x).max(-1) / 127.0
+    q = np.clip(np.rint(x / np.where(amax > 0, amax, 1.0)[..., None]), -127, 127).astype(np.int8)
+    s = amax.astype(np.float32)
+    args = (jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2))
+    out_j, stats = ab._abmil_q8_pallas(jnp.asarray(q), jnp.asarray(s), jnp.asarray(mask), *args)
+    dw1_j, db1_j, dw2_j = ab._abmil_q8_pallas_bwd(jnp.asarray(q), jnp.asarray(s),
+                                                  jnp.asarray(mask), *args, jnp.asarray(g),
+                                                  out_j, stats)
+    targs = (_t(q), _t(mask), _t(w1), _t(b1), _t(w2))
+    out, m, l = pab.abmil_fwd_reference(*targs, x_scale=_t(s))
+    assert _rel(out, out_j) <= 1e-3
+    _dx, dw1, db1, dw2 = pab.abmil_bwd_reference(*targs, _t(g), out, m, l, x_scale=_t(s))
+    for name, got, want in (("dw1", dw1, dw1_j), ("db1", db1, db1_j), ("dw2", dw2, dw2_j)):
+        assert _rel(got, want) <= 2e-3, name
+    # the model of the int8 W1 split meets the JAX kernel's stats at every width
+    _o, m_r, l_r = pab.abmil_fwd_rounded(*targs, x_scale=_t(s))
+    assert np.abs(m_r.numpy()[:2] - np.asarray(stats[:2, 0, 0])).max() <= 2e-6
+    assert np.abs(l_r.numpy()[:2] / np.asarray(stats[:2, 0, 1]) - 1).max() <= 2e-6
+
+
+@pytest.mark.parametrize("widths", [(64, 32), (192, 128), (256, 512)])
+def test_precise_model_matches_pallas_in_precise_mode(interpret, monkeypatch, widths):
+    """With VLSA_TPU_ABMIL_PRECISE's switch set in both packages (the module
+    attribute each reads), the port's plain model of the precise rounding
+    against the interpret-mode kernels; without precise=True the port's
+    model is the single-rounded one and misses the JAX kernel by more."""
+    monkeypatch.setattr(ab, "_PRECISE", True)
+    monkeypatch.setattr(pab, "_PRECISE", True)
+    D, hid = widths
+    x, mask, w1, b1, w2, g = _inputs(D, hid, seed=2)
+    (out_j, m_j, l_j), (dx_j, dw1_j, db1_j, dw2_j) = _jax_run(
+        jnp.asarray(x).astype(jnp.bfloat16), mask, w1, b1, w2, g)
+    xt = _t(x).to(torch.bfloat16)
+    args = (xt, _t(mask), _t(w1), _t(b1), _t(w2))
+    out, m, l = pab.abmil_fwd_rounded(*args, precise=True)
+    assert _rel(out, out_j) <= 1e-5
+    np.testing.assert_allclose(m.numpy()[:2], np.asarray(m_j)[:2], rtol=1e-5)
+    np.testing.assert_allclose(l.numpy()[:2], np.asarray(l_j)[:2], rtol=1e-5)
+    dx, dw1, db1, dw2 = pab.abmil_bwd_rounded(*args, _t(g), out, m, l, precise=True)
+    assert dx.dtype == torch.bfloat16
+    assert _rel(dx.float(), jnp.asarray(dx_j, jnp.float32)) <= 1e-2
+    for name, got, want in (("dw1", dw1, dw1_j), ("db1", db1, db1_j), ("dw2", dw2, dw2_j)):
+        assert _rel(got, want) <= 1e-5, name
+    # the JAX kernel's bf16 dX is its f32 dX rounded once: within 1e-5 of
+    # max|dX| of the exact model's f32 dX beyond that rounding (the
+    # single-rounded model's is 1e-3 off)
+    exact = pab.abmil_bwd_rounded(*args, _t(g), out, m, l, precise=True, exact=True)
+    scales = pab.abmil_bwd_sum_scales(*args, _t(g), out, m, l, precise=True)
+    got_j = tuple(torch.from_numpy(np.asarray(jnp.asarray(t, jnp.float32)))
+                  for t in (dx_j, dw1_j, db1_j, dw2_j))
+    assert pab.bwd_model_gaps(got_j, exact, scales)["dX"] <= 1e-5
+    # precise=None reads the module's switch: the same model
+    assert torch.equal(pab.abmil_fwd_rounded(*args, precise=None)[0], out)
+    # the single-rounded model (the default bf16 kernels') is farther off
+    single = pab.abmil_bwd_rounded(*args, _t(g), out, m, l, precise=False)[1]
+    assert _rel(single, dw1_j) > 1e-5
+
+
+def test_precise_mode_changes_only_bf16():
+    """precise=True leaves f32 and int8 to their own rounding (vlsa_tpu does
+    not route either through _PRECISE), and the route of a bf16 call at any
+    width goes to the general instances."""
+    x, mask, w1, b1, w2, g = _inputs(128, 64, seed=3)
+    for xt in (_t(x), _t(x).to(torch.int8)):
+        scale = torch.ones(B, N) if xt.dtype == torch.int8 else None
+        a = pab.abmil_fwd_rounded(xt, _t(mask), _t(w1), _t(b1), _t(w2), x_scale=scale,
+                                  precise=True)
+        b = pab.abmil_fwd_rounded(xt, _t(mask), _t(w1), _t(b1), _t(w2), x_scale=scale)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert pab.route(torch.bfloat16, 512, 256, precise=True) == "precise"
+    assert pab.route(torch.bfloat16, 512, 256, precise=False) == "special"
+    assert pab.route(torch.float32, 512, 256, precise=True) == "special"
+    assert pab.route(torch.int8, 1024, 256, precise=True) == "general"
+
+
+# ---- the width domain and the kernel sources ----
+
+def _const(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_domain_mirrors_the_kernel_source():
+    """`kernel_widths_ok` is the kernels' widths_ok (csrc/abmil_common.cuh):
+    D a multiple of 64 in [64, kGenMaxD], hid in its list; the general
+    tile is kGenM; every hid of the domain splits into passes the sources
+    instantiate (gen_pass_cols: 64, 128 or 256 columns, int8 at most 128,
+    in the forward and the backward alike)."""
+    common = (CSRC / "abmil_common.cuh").read_text()
+    fwd = (CSRC / "abmil_fwd.cu").read_text()
+    bwd = (CSRC / "abmil_bwd.cu").read_text()
+    body = re.search(r"inline bool widths_ok\(int D, int hid\) \{(.*?)\}", common, re.S).group(1)
+    hids = tuple(int(h) for h in re.findall(r"hid == (\d+)", body))
+    assert hids == pab._GEN_HIDS
+    assert "D % 64 == 0 && D >= 64 && D <= kGenMaxD" in body
+    assert _const(common, "kGenMaxD") == pab._GEN_MAX_D and _const(common, "kGenM") == pab._GEN_TILE
+    for D in range(0, 2200, 32):
+        for hid in (0, 32, 64, 96, 128, 192, 256, 384, 512, 1024):
+            want = D % 64 == 0 and 64 <= D <= 2048 and hid in hids
+            assert pab.kernel_widths_ok(D, hid) == want, (D, hid)
+    fwd_hp = {int(h) for h in re.findall(r"launch_general_hp<OP, (\d+)>", fwd)}
+    bwd_hp = {int(h) for h in re.findall(r"launch_dz_general_hp<OP, (\d+)>", bwd)}
+    assert fwd_hp == bwd_hp == {64, 128, 256}
+    cols = re.search(r"inline int gen_pass_cols\(int storage, int hid\) \{(.*?)\}", common,
+                     re.S).group(1)
+    assert "hid <= 128 ? hid : (storage == kI8 ? 128 : 256)" in cols
+    for hid in pab._GEN_HIDS:
+        for i8 in (False, True):
+            hp = hid if hid <= 128 else (128 if i8 else 256)
+            assert hid % hp == 0 and hp in fwd_hp and (hp <= 128 or not i8)
+
+
+def _cuda_like(shape, dtype=torch.float32, dim=None):
+    """A stand-in with a CUDA tensor's attributes, to reach the width check
+    on a machine with no card."""
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype, shape=shape,
+                                 dim=lambda: len(shape) if dim is None else dim,
+                                 is_contiguous=lambda: True, data_ptr=lambda: 0)
+
+
+@pytest.mark.parametrize("D, hid", [(96, 256), (2112, 256), (512, 32), (512, 384), (0, 256),
+                                    (1024, 1024)])
+def test_check_inputs_refuses_widths_outside_the_domain(D, hid):
+    """A CUDA tensor of a width the kernels do not take raises a ValueError
+    naming the domain, before anything is launched; a CPU tensor is refused
+    as before (the kernels need a card)."""
+    x = _cuda_like((2, 70, D))
+    with pytest.raises(ValueError, match=r"D a multiple of 64 in \[64, 2048\] and hid in"):
+        pab._check_inputs(x, None, None, _cuda_like((hid, D)), None, None, "abmil_fwd")
+    with pytest.raises(ValueError, match="CUDA"):
+        pab.abmil_fwd(torch.zeros(2, 70, D), torch.ones(2, 70, dtype=torch.bool),
+                      torch.zeros(hid, D), torch.zeros(hid), torch.zeros(hid))
+
+
+# ---- the launch plans at the new widths ----
+
+@pytest.mark.parametrize("widths", [(1024, 256), (768, 128), (1536, 512), (64, 64), (2048, 512),
+                                    (512, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("precise", [False, True])
+def test_plans_at_other_widths(widths, dtype, precise):
+    """The general instances' plans: tiles of 64, chunks covering N, and
+    workspaces of the widths: W1 for the forward (bf16 [hid, D]; int8 and
+    precise bf16 hi + lo), the dz workspace (int8 and precise: two bf16
+    planes), W1 for the backward's pass 1 (bf16 hi + lo; int8 at these
+    widths the forward's int8 split and its scales), pass 2's dW1 partials
+    [S2, hid, D] with S2 * dw_tiles about one wave of 132 SMs, under 9 MB."""
+    D, hid = widths
+    n_sm = 132
+    bf16p = precise and dtype == torch.bfloat16
+    for Bn, Nn in ((8, 10240), (5, 12291), (32, 16384), (1, 5)):
+        f = pab.fwd_plan(dtype, Bn, Nn, n_sm, D, hid, precise)
+        assert f["route"] == ("precise" if bf16p else "general") and f["tile"] == 64
+        assert f["chunk"] % 64 == 0 and (f["S"] - 1) * f["chunk"] < Nn <= f["S"] * f["chunk"]
+        assert f["ws_acc"] == (Bn, f["S"], D)
+        assert f["w1_ws"] == {torch.float32: None, torch.bfloat16: (2, hid, D) if bf16p
+                              else (hid, D), torch.int8: (2, hid, D)}[dtype]
+        assert f["w1_scale"] == ((65,) if dtype == torch.int8 else None)
+        b = pab.bwd_plan(dtype, Bn, Nn, n_sm, D, hid, precise)
+        assert b["route"] == f["route"]
+        assert b["chunk1"] % 64 == 0 and (b["S1"] - 1) * b["chunk1"] < Nn <= b["S1"] * b["chunk1"]
+        two = dtype == torch.int8 or bf16p
+        assert b["ds"] == ((2, Bn, Nn, hid) if two else (Bn, Nn, hid))
+        assert b["ds_dtype"] == (torch.float32 if dtype == torch.float32 else torch.bfloat16)
+        tiles = pab.dw_tiles(D, hid)
+        assert tiles == -(-hid // 128) * -(-D // 128)
+        assert b["ws_dw1"] == (b["S2"], hid, D) and b["ws_b"] == (Bn * b["S1"], hid)
+        assert b["S2"] * tiles <= max(n_sm, tiles) and 4 * b["S2"] * hid * D <= 9e6
+        assert (b["S2"] - 1) * b["chunk2"] < Bn * Nn <= b["S2"] * b["chunk2"]
+        assert b["w1_bf16"] == (None if dtype != torch.bfloat16 else (2, hid, D))
+        assert b["w1_i8"] == ((2, hid, D) if dtype == torch.int8 else None)
+        assert b["w1_scale"] == ((65,) if dtype == torch.int8 else None)
+
+
+def test_default_width_plans_are_unchanged():
+    """At D=512, hid=256 the plans keep the resident instances' tiles and
+    workspaces (bf16 precise excepted: the general instances)."""
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        f = pab.fwd_plan(dtype, 8, 10240, 132)
+        assert f["route"] == "special" and f["tile"] == pab._FWD_TILE[dtype]
+        b = pab.bwd_plan(dtype, 8, 10240, 132)
+        assert b["S2"] == 132 // pab._DW_TILES and b["w1_i8"] is None
+        assert b["w1_bf16"] == (None if dtype == torch.float32 else (2, 256, 512))
+    assert pab.fwd_plan(torch.bfloat16, 8, 10240, 132, precise=True)["route"] == "precise"

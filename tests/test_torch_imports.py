@@ -1,5 +1,5 @@
-"""The port stands alone: no file of vlsa_tpu_torch/, nor chip_smoke.py or
-host_ab.py, imports JAX, Flax, Optax or anything of vlsa_tpu, nor a module that the
+"""The port stands alone: no file of vlsa_tpu_torch/, nor chip_smoke.py,
+host_ab.py or abmil_ab.py, imports JAX, Flax, Optax or anything of vlsa_tpu, nor a module that the
 machine with the card lacks (transformers, ml_dtypes, regex, pandas,
 sklearn, wandb); PIL and h5py only when a file needs them."""
 import ast
@@ -18,7 +18,8 @@ def _port_files():
     root = os.path.join(REPO, "vlsa_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
              if f.endswith(".py")]
-    return sorted(files) + [os.path.join(REPO, f) for f in ("chip_smoke.py", "host_ab.py")]
+    return sorted(files) + [os.path.join(REPO, f)
+                            for f in ("chip_smoke.py", "host_ab.py", "abmil_ab.py")]
 
 
 def _imported_modules(path):

@@ -125,13 +125,14 @@ def test_dq_kernel_matches_plain(device, dtype, host_inv, shape):
     assert float((dq - ref).abs().max() / ref.abs().max().clamp_min(1e-30)) <= TOL_DQ[dtype]
 
 
-def _abmil_inputs(B, N, dtype, device, seed=0, masked_value=None):
-    """ABMIL inputs at the kernels' widths (D=512, hid=256): 20% of patches
-    masked, the last bag empty and, with B >= 3, the first holding a single
-    valid patch; int8 quantized per patch.  Masked rows are zero, or hold
-    `masked_value` (as a projecter's output holds features there)."""
+def _abmil_inputs(B, N, dtype, device, seed=0, masked_value=None, D=ab.D_KERNEL,
+                  H=ab.HID_KERNEL):
+    """ABMIL inputs at D, hid=H (the resident instances' 512, 256 unless
+    given): 20% of patches masked, the last bag empty and, with B >= 3, the
+    first holding a single valid patch; int8 quantized per patch.  Masked
+    rows are zero, or hold `masked_value` (as a projecter's output holds
+    features there)."""
     g = torch.Generator().manual_seed(seed)
-    D, H = ab.D_KERNEL, ab.HID_KERNEL
     x = torch.randn(B, N, D, generator=g)
     mask = torch.rand(B, N, generator=g) > 0.2
     mask[-1] = False
@@ -206,6 +207,125 @@ def test_abmil_kernels_match_plain(device, dtype, shape):
             assert torch.all(dx[-1] == 0)
         else:
             assert dx is None
+
+
+# widths of the general instances: the feature widths users run (ViT-S 384,
+# CTransPath 768, UNI 1024, Prov-GigaPath 1536) and the domain's corners
+ABMIL_WIDTHS = [(1024, 256), (768, 128), (1536, 512), (384, 64), (64, 64), (192, 512),
+                (2048, 128), (512, 128), (1024, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("widths", ABMIL_WIDTHS)
+@pytest.mark.parametrize("shape", [(3, 129), (2, 33)])
+def test_abmil_general_widths_match_plain(device, dtype, widths, shape):
+    """Every storage's forward and backward (weights only; with dX for f32
+    and bf16) at (D, hid) the resident instances do not take, on the general
+    instances (`LAUNCHES_ROUTE`), against the plain versions with the
+    tolerances of the D=512, hid=256 test; ragged N, an empty bag and a bag
+    of one patch."""
+    D, H = widths
+    x, xs, mask, w1, b1, w2, g = _abmil_inputs(*shape, dtype, device, seed=11, D=D, H=H)
+    routes = dict(ab.LAUNCHES_ROUTE)
+    out, m, l = (ab.abmil_q8_fwd(x, xs, mask, w1, b1, w2) if dtype == torch.int8
+                 else ab.abmil_fwd(x, mask, w1, b1, w2))
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES_ROUTE == dict(routes, general=routes["general"] + 1)
+    ref, m_ref, l_ref = ab.abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=xs)
+    assert out.shape == (shape[0], D) and _rel(out, ref) <= TOL_ABMIL[dtype]
+    assert torch.all(out[-1] == 0) and float(m[-1]) == float(m_ref[-1])
+    torch.testing.assert_close(l, l_ref, rtol=1e-3, atol=0)
+    for need_dx in ((False,) if dtype == torch.int8 else (False, True)):
+        if dtype == torch.int8:
+            dx, (dw1, db1, dw2) = None, ab.abmil_q8_bwd(x, xs, mask, w1, b1, w2, g, out, m, l)
+        else:
+            dx, dw1, db1, dw2 = ab.abmil_bwd(x, mask, w1, b1, w2, g, out, m, l, need_dx=need_dx)
+        torch.cuda.synchronize()
+        rdx, rdw1, rdb1, rdw2 = ab.abmil_bwd_reference(x, mask, w1, b1, w2, g, out, m, l,
+                                                       x_scale=xs, need_dx=need_dx)
+        assert dw1.shape == (H, D) and db1.shape == dw2.shape == (H,)
+        for got, want in ((dw1, rdw1), (db1, rdb1), (dw2, rdw2)):
+            assert torch.isfinite(got).all() and _rel(got, want) <= TOL_ABMIL_DW[dtype]
+        if need_dx:
+            assert dx.dtype == dtype and _rel(dx, rdx) <= TOL_ABMIL_DX[dtype]
+            assert torch.all(dx[-1] == 0)
+
+
+@pytest.mark.parametrize("widths", [(1024, 256), (768, 128), (1536, 512)])
+def test_abmil_general_int8_fwd_matches_its_rounding_model(device, widths):
+    """The general int8 forward splits W1 as the resident one does: within
+    2e-5 of `abmil_fwd_rounded` (out; l relatively; m absolutely)."""
+    D, H = widths
+    x, xs, mask, w1, b1, w2, _g = _abmil_inputs(3, 3 * 4097, torch.int8, device, seed=7, D=D,
+                                                H=H)
+    out, m, l = ab.abmil_q8_fwd(x, xs, mask, w1, b1, w2)
+    torch.cuda.synchronize()
+    ref, m_ref, l_ref = ab.abmil_fwd_rounded(x, mask, w1, b1, w2, x_scale=xs)
+    assert _rel(out, ref) <= 2e-5
+    live = mask.any(-1)
+    assert float((m - m_ref)[live].abs().max()) <= 2e-5
+    torch.testing.assert_close(l, l_ref, rtol=2e-5, atol=0)
+
+
+@pytest.mark.parametrize("widths", [(512, 256), (1024, 256), (768, 128)])
+def test_abmil_precise_mode_matches_its_model(device, monkeypatch, widths):
+    """bf16 in vlsa_tpu's precise mode (W1 and dz as bf16 hi + lo) runs the
+    general instances at every width (`LAUNCHES_ROUTE["precise"]`): against
+    the plain f32 version (x's bf16 values, W1 unrounded) within the bf16
+    limits; the forward's out and l within 2e-5 of its plain model
+    (`abmil_fwd_rounded`, precise=True), the limit of the int8 forward's
+    model; the backward against the exact model of its rounding
+    (`abmil_bwd_rounded`, exact=True) by `bwd_model_gaps`, chip_smoke.py's
+    limits: dX beyond its rounding to bf16, db1 and dw2 over their sums'
+    scale within 2e-5, dW1 within 5e-5 of max|dW1| (the kernel's f32 sums
+    over every patch on the tensor cores, up to 3.0e-5 from the exact sums
+    over 81,920 patches on an H100); the single-rounded model misses the dW1
+    and dX limits."""
+    monkeypatch.setattr(ab, "_PRECISE", True)
+    D, H = widths
+    x, _s, mask, w1, b1, w2, g = _abmil_inputs(3, 3 * 4097, torch.bfloat16, device, seed=9,
+                                               D=D, H=H)
+    routes = dict(ab.LAUNCHES_ROUTE)
+    out, m, l = ab.abmil_fwd(x, mask, w1, b1, w2)
+    dx, dw1, db1, dw2 = ab.abmil_bwd(x, mask, w1, b1, w2, g, out, m, l, need_dx=True)
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES_ROUTE == dict(routes, precise=routes["precise"] + 1)
+    xf = x.float()
+    ref, _m, l_ref = ab.abmil_fwd_reference(xf, mask, w1, b1, w2)
+    assert _rel(out, ref) <= TOL_ABMIL[torch.bfloat16]
+    model, m_mod, l_mod = ab.abmil_fwd_rounded(x, mask, w1, b1, w2, precise=True)
+    assert _rel(out, model) <= 2e-5 and _rel(l, l_mod) <= 2e-5
+    want = ab.abmil_bwd_reference(xf, mask, w1, b1, w2, g, out, m, l)
+    for got, w in zip((dw1, db1, dw2), want[1:]):
+        assert _rel(got, w) <= TOL_ABMIL_DW[torch.bfloat16]
+    args = (x, mask, w1, b1, w2, g, out, m, l)
+    exact = ab.abmil_bwd_rounded(*args, precise=True, exact=True)
+    scales = ab.abmil_bwd_sum_scales(*args, precise=True)
+    tols = {"dX": 2e-5, "dW1": 5e-5, "db1": 2e-5, "dw2": 2e-5}
+    gaps = ab.bwd_model_gaps((dx, dw1, db1, dw2), exact, scales)
+    assert all(gaps[k] <= tols[k] for k in tols), gaps
+    single = ab.abmil_bwd_rounded(*args, precise=False, exact=True)
+    single = ab.bwd_model_gaps((single[0].to(torch.bfloat16),) + single[1:], exact, scales)
+    assert single["dW1"] > tols["dW1"] and single["dX"] > tols["dX"], single
+    assert dx.dtype == torch.bfloat16
+    assert _rel(dx, want[0]) <= TOL_ABMIL_DX[torch.bfloat16] and torch.all(dx[-1] == 0)
+
+
+@pytest.mark.parametrize("widths", [(96, 256), (2112, 256), (512, 32), (512, 384), (0, 256)])
+def test_abmil_refuses_widths_outside_the_domain(device, widths):
+    """A width the kernels do not take raises a ValueError that names the
+    domain; nothing launches and nothing falls back to the plain version."""
+    D, H = widths
+    x = torch.zeros(2, 70, D, device=device)
+    mask = torch.ones(2, 70, dtype=torch.bool, device=device)
+    w1, b1, w2 = (torch.zeros(H, D, device=device), torch.zeros(H, device=device),
+                  torch.zeros(H, device=device))
+    before = dict(ab.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of 64 in \\[64, 2048\\]"):
+        ab.abmil_fwd(x, mask, w1, b1, w2)
+    with pytest.raises(ValueError, match="hid in"):
+        ab.abmil_pool(x, mask, w1, b1, w2)
+    assert ab.LAUNCHES == before
 
 
 @pytest.mark.parametrize("shape", [(3, 129), (3, 3 * 4097), (8, 10240)])

@@ -323,6 +323,35 @@ def test_deepmil_import_matches_jax(head):
     assert _rel(logits, jlogits) <= TOL_DEEPMIL
 
 
+@pytest.mark.parametrize("use_feat_proj", [False, True])
+def test_deepmil_bridge_at_1024_loads_strict(use_feat_proj):
+    """A vlsa_tpu DeepMIL parameter tree at 1024-256-12 (the SA baseline on
+    1024-d features; with the feature projecter, its 1024 x 1024 Linear)
+    carried by the bridge (`state_dict_from_jax`) into the port's
+    `state_dict`, loaded with strict=True: every tensor exactly, logits
+    within TOL_DEEPMIL of vlsa_tpu's."""
+    kws = dict(network="ABMIL", pooling="attention", use_feat_proj=use_feat_proj)
+    dims = [1024, 256, 12]
+    jmodel, jparams = jax_load_model("DeepMIL", dims, rng=jax.random.PRNGKey(3), **kws)
+    jparams = jax.tree.map(np.asarray, dict(jparams))
+    sd = state_dict_from_jax(jparams)
+    model = load_model("DeepMIL", dims, device="cpu", **kws)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    assert tuple(model.state_dict()["sigma.fc1_kernel"].shape) == (1024, 256)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 70, 1024)).astype(np.float32)
+    mask = np.ones((2, 70), bool)
+    mask[1, 33:] = False
+    jlogits = jmodel.apply({"params": jparams}, jnp.asarray(x), jnp.asarray(mask))
+    model.eval()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    assert logits.shape == (2, 12) and _rel(logits, jlogits) <= TOL_DEEPMIL
+
+
 def reference_gated_deepmil_state(seed=5, D=64, hid=32, ncls=4):
     """A reference DeepMIL checkpoint with the gated attention pooling
     (ref model/layers.py:85-122: fc1 and score Sequentials, fc2 a Linear)."""

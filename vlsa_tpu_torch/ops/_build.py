@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -25,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict = {}
 BUILD_LOGS: dict = {}  # name -> nvcc's output (registers, shared memory, spills)
+BUILD_SECONDS: dict = {}  # name -> seconds of its nvcc process, where this process built it
 
 
 def ptxas_report(build_log: str) -> list:
@@ -93,9 +95,11 @@ def build_one(name: str, extra_flags: tuple = ()) -> None:
     # compile to a private file, then rename: a concurrent build never sees
     # a half-written library
     tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}-{threading.get_ident()}.so")
+    t0 = time.perf_counter()
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
                            str(CSRC_DIR / f"{name}.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    BUILD_SECONDS[log_key] = time.perf_counter() - t0
     BUILD_LOGS[log_key] = proc.stdout
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -25,30 +25,54 @@ f32 kernels form their products (x . W1^T, dz . W1, dz^T x) as split TF32 on
 the tensor cores: each f32 operand is a TF32 hi plus a TF32 lo, and a product is lo.hi + hi.lo + hi.hi in f32, ~2^-21
 relative against true f32's 2^-24 (as the TPU kernels' own f32 is the MXU's
 multi-pass bf16), held against the true-f32 plain versions on the card.
+
+Widths: the kernels take any D a multiple of 64 in [64, 2048] and hid in
+{64, 128, 256, 512} (`kernel_widths_ok`), as the TPU kernels, which tile only
+N, take any; a CUDA tensor of another width raises.  D=512, hid=256 runs the
+instances that keep x resident ("special"); every other width, and bf16 in
+vlsa_tpu's precise mode (`VLSA_TPU_ABMIL_PRECISE=1`: W1 and dz as bf16 hi +
+lo, `abmil_fwd_rounded` / `abmil_bwd_rounded` with `precise=True` its plain
+model), the general instances, which stream x (`route`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from .coattn import _device_index, _ptr
 
-D_KERNEL, HID_KERNEL = 512, 256  # the widths the kernels are built for
+# vlsa_tpu's precise mode (vlsa_tpu/ops/abmil.py:74-80), read once at import:
+# bf16 storage forms x . W1^T against W1 as bf16 hi + lo, and the backward
+# splits dz into bf16 hi + lo for dX and dW1 (twice the products); f32 and
+# int8 do not change.  The CUDA kernels read it at each call from this
+# module, so a test may set it.
+_PRECISE = os.environ.get("VLSA_TPU_ABMIL_PRECISE", "0") == "1"
+
+D_KERNEL, HID_KERNEL = 512, 256  # the widths of the resident-x instances (kD, kHid)
+# The widths every kernel takes (csrc/abmil_common.cuh: widths_ok): D a
+# multiple of 64 up to kGenMaxD, hid one of these; every width but D_KERNEL,
+# HID_KERNEL (and bf16 in precise mode) runs the general instances.
+_GEN_MAX_D = 2048
+_GEN_HIDS = (64, 128, 256, 512)
+_GEN_TILE = 64  # patches a tile of the general instances (kGenM)
 # patches a tile of the backward's pass 1, every storage, and of the f32
 # forward (kMF in csrc/abmil_common.cuh)
 _TILE = {torch.float32: 64, torch.bfloat16: 64, torch.int8: 64}
 # patches a tile of the forward (kMF; the bf16 and int8 kernel's kMQ in
 # csrc/abmil_fwd.cu)
 _FWD_TILE = {torch.float32: 64, torch.bfloat16: 128, torch.int8: 128}
-# the int8 forward's W1 scale workspace: s_w and the partial maxima of |W1|
-# (kAmaxBlocks in csrc/abmil_fwd.cu)
+# the int8 W1 scale workspace: s_w and the partial maxima of |W1|
+# (kAmaxBlocks in csrc/abmil_common.cuh)
 _AMAX_BLOCKS = 64
-# the backward's weight-gradient pass (csrc/abmil_bwd.cu): kDwTiles blocks of
-# a [128, 128] tile of dW1 on each chunk of the B*N patch rows, chunks a
-# multiple of the rows a stage holds (f32 kRowsDw, bf16 and int8 kRowsDwB)
+# the backward's weight-gradient pass (csrc/abmil_bwd.cu): a block for each
+# [128, 128] tile of dW1 (kDwM, kDwN; _DW_TILES of them at D=512, hid=256)
+# on each chunk of the B*N patch rows, chunks a multiple of the rows a
+# stage holds (f32 kRowsDw, bf16 and int8 kRowsDwB)
+_DW_M = _DW_N = 128
 _DW_TILES = 8
 _DW_ROWS = {torch.float32: 32, torch.bfloat16: 64, torch.int8: 64}
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -57,15 +81,40 @@ _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8
 # Launches of the CUDA kernels by variant: one per call of `abmil_fwd` /
 # `abmil_q8_fwd` in LAUNCHES ("f32", "bf16", "int8"), one per call of
 # `abmil_bwd` / `abmil_q8_bwd` in LAUNCHES_BWD (those, and "f32_dx",
-# "bf16_dx" for a backward that writes dX).
+# "bf16_dx" for a backward that writes dX); and each call again by the
+# instances it ran, in LAUNCHES_ROUTE (forward) and LAUNCHES_BWD_ROUTE:
+# "special" (D=512, hid=256), "general" (any other width) and "precise"
+# (bf16 in precise mode, the general instances).
 LAUNCHES = {s: 0 for s in ("f32", "bf16", "int8")}
 LAUNCHES_BWD = dict(LAUNCHES, f32_dx=0, bf16_dx=0)
+LAUNCHES_ROUTE = {r: 0 for r in ("special", "general", "precise")}
+LAUNCHES_BWD_ROUTE = dict(LAUNCHES_ROUTE)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BWD):
+    for counts in (LAUNCHES, LAUNCHES_BWD, LAUNCHES_ROUTE, LAUNCHES_BWD_ROUTE):
         for k in counts:
             counts[k] = 0
+
+
+def kernel_widths_ok(D: int, hid: int) -> bool:
+    """True for the widths the CUDA kernels take: D a multiple of 64 in
+    [64, 2048] (ViT-S 384, CONCH 512, CTransPath 768, UNI and ResNet-50
+    1024, Prov-GigaPath 1536, ...) and hid in {64, 128, 256, 512}."""
+    return D % 64 == 0 and 64 <= D <= _GEN_MAX_D and hid in _GEN_HIDS
+
+
+def _precise_for(dtype: torch.dtype, precise: Optional[bool]) -> bool:
+    """Precise mode applies to bf16 storage only; None reads `_PRECISE`."""
+    return dtype == torch.bfloat16 and (_PRECISE if precise is None else precise)
+
+
+def route(dtype: torch.dtype, D: int, hid: int, precise: Optional[bool] = None) -> str:
+    """The instances a call runs: "special" (x resident, D=512, hid=256),
+    "precise" (bf16 in precise mode) or "general"."""
+    if _precise_for(dtype, precise):
+        return "precise"
+    return "special" if (D, hid) == (D_KERNEL, HID_KERNEL) else "general"
 
 
 def bwd_variant(x_dtype: torch.dtype, with_dx: bool) -> str:
@@ -75,21 +124,35 @@ def bwd_variant(x_dtype: torch.dtype, with_dx: bool) -> str:
 # ---------------------------------------------------------------- plain versions
 
 def _bf16_rounded(w: torch.Tensor) -> torch.Tensor:
-    """w rounded to bf16 in value, with the identity as its gradient."""
-    return w + (w.to(torch.bfloat16).float() - w).detach()
+    """w rounded to bf16 in value, in w's type, with the identity as its
+    gradient."""
+    return w + (w.to(torch.bfloat16).to(w.dtype) - w).detach()
 
 
-def _h_pre(x, w1, x_scale):
-    """x . W1^T [B, N, hid] f32 as the kernels form it for x's storage type."""
+def _bf16_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t as bf16 hi + lo in value, in t's type (vlsa_tpu/ops/coattn.py::
+    _mm_rows): hi its bf16 rounding, lo the bf16 rounding of t - hi."""
+    hi = t.to(torch.bfloat16).to(t.dtype)
+    return hi, (t - hi).to(torch.bfloat16).to(t.dtype)
+
+
+def _h_pre(x, w1, x_scale, precise=False):
+    """x . W1^T [B, N, hid] in W1's type (f32; f64 for the exact model) as
+    the kernels form it for x's storage type; bf16 in precise mode against
+    W1's hi and lo, two products summed."""
+    xf = x.to(w1.dtype)
     if x.dtype == torch.int8:
-        return (x.float() @ w1.T) * x_scale[..., None]
+        return (xf @ w1.T) * x_scale[..., None]
     if x.dtype == torch.bfloat16:
-        return x.float() @ _bf16_rounded(w1).T
-    return x @ w1.T
+        if precise:
+            hi, lo = _bf16_split(w1.detach())
+            return xf @ hi.T + xf @ lo.T
+        return xf @ _bf16_rounded(w1).T
+    return xf @ w1.T
 
 
-def _logits(x, mask, w1, b1, w2, x_scale):
-    h = torch.tanh(_h_pre(x, w1, x_scale) + b1)
+def _logits(x, mask, w1, b1, w2, x_scale, precise=False):
+    h = torch.tanh(_h_pre(x, w1, x_scale, precise) + b1)
     return h, torch.where(mask, h @ w2, -1e30)
 
 
@@ -131,15 +194,19 @@ def split_w1_i8(w1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
 
 def abmil_fwd_rounded(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
                       b1: torch.Tensor, w2: torch.Tensor,
-                      x_scale: Optional[torch.Tensor] = None
+                      x_scale: Optional[torch.Tensor] = None, precise: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain model of the int8 forward kernel's rounding: `abmil_fwd_reference`
+    """Plain model of the forward kernels' rounding.  int8: `abmil_fwd_reference`
     with x_i . W1^T taken against W1 split by `split_w1_i8`, h_unit = s_w
     (P_hi + P_lo / 254) from the exact integer products; the PV sum keeps f32
-    weights.  Other storage types: `abmil_fwd_reference` (the bf16 kernel
-    rounds as it does).  No gradient."""
+    weights.  bf16 with `precise` (vlsa_tpu's precise mode): x . W1_hi^T +
+    x . W1_lo^T, W1 split into bf16 hi + lo, as vlsa_tpu/ops/abmil.py::
+    _h_matmul forms it.  Other storage types: `abmil_fwd_reference` (the bf16
+    kernel rounds as it does).  No gradient."""
     if x.dtype != torch.int8:
-        return abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=x_scale)
+        with torch.no_grad():
+            return _pool(x, mask, _h_pre(x, w1, x_scale, _precise_for(x.dtype, precise)), b1,
+                         w2, x_scale)
     with torch.no_grad():
         hi, lo, s = split_w1_i8(w1)
         xd = x.double()
@@ -157,26 +224,93 @@ def abmil_bwd_reference(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
     g [B, D], the forward output and its stats -> (dX or None, dW1 [hid, D],
     db1 [hid], dw2 [hid]), all f32 except dX in the storage type.  int8 has
     no dX: stored features are data."""
+    return _bwd_plain(x, mask, w1, b1, w2, g, out, m, l, x_scale, need_dx, False)
+
+
+def abmil_bwd_rounded(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor,
+                      out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                      x_scale: Optional[torch.Tensor] = None, need_dx: bool = True,
+                      precise: bool = False, exact: bool = False):
+    """The backward counterpart of `abmil_fwd_rounded`: for bf16 with
+    `precise`, h from W1's hi + lo, and dz split into bf16 hi + lo for dX
+    (dz_hi . W1 + dz_lo . W1, W1 rounded to bf16 once) and dW1 (dz_hi^T x +
+    dz_lo^T x), as vlsa_tpu/ops/abmil.py:99-111 and :250-253 form them;
+    otherwise `abmil_bwd_reference`.  With `exact`, everything after those
+    operand roundings is computed in f64 and returned in f64, dX not rounded
+    to the storage type: no summation error of its own, what a kernel's f32
+    sums and its rounding of dX are held against."""
+    return _bwd_plain(x, mask, w1, b1, w2, g, out, m, l, x_scale, need_dx,
+                      _precise_for(x.dtype, precise), exact)
+
+
+def abmil_bwd_sum_scales(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor,
+                         b1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor,
+                         out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                         x_scale: Optional[torch.Tensor] = None, precise: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum_n |dz_n| [hid], sum_n |ds_n h_n| [hid]) in f64: the sizes the
+    error of db1's and dw2's f32 sums over every patch scales with, which
+    sum_n ds_n = 0 does not cancel."""
     with torch.no_grad():
-        xf = x.float()
-        h, logits = _logits(x, mask, w1, b1, w2, x_scale)
-        # a is masked to 0 first: an empty bag has m = -1e30, l = 1e-30
-        a = torch.where(mask, torch.exp(logits - m[:, None]) / l[:, None], 0.0)
-        gx = torch.einsum("bd,bnd->bn", g, xf)
-        if x_scale is not None:
-            gx = gx * x_scale
-        ds = a * (gx - (g * out).sum(-1, keepdim=True))
-        dz = ds[..., None] * w2 * (1.0 - h * h)
+        exact = (t.double() for t in (w1, b1, w2, g, out, m, l))
+        _xf, h, _a, ds, dz = _bwd_terms(x, mask, *exact,
+                                        None if x_scale is None else x_scale.double(),
+                                        _precise_for(x.dtype, precise))
+        return dz.abs().sum((0, 1)), (ds.abs()[..., None] * h.abs()).sum((0, 1))
+
+
+def bwd_model_gaps(got, exact, scales) -> dict:
+    """A backward kernel's (dX or None, dW1, db1, dw2) against its exact
+    model `exact` (`abmil_bwd_rounded(..., exact=True)`): dW1 by
+    max|k - e| / max|e|; db1 and dw2 by max|k - e| over the largest of
+    `scales` (`abmil_bwd_sum_scales`); bf16 dX by the part of |k - e| beyond
+    half a bf16 ulp of e (the kernel rounds its f32 dX to bf16 once) over
+    max|e|.  {leaf: gap}, dX only where there is one."""
+    dx, dw1, db1, dw2 = (None if t is None else t.double() for t in got)
+    gaps = {"dW1": float((dw1 - exact[1]).abs().max() / exact[1].abs().max().clamp_min(1e-300))}
+    for name, k, e, sc in (("db1", db1, exact[2], scales[0]), ("dw2", dw2, exact[3], scales[1])):
+        gaps[name] = float((k - e).abs().max() / sc.max().clamp_min(1e-300))
+    if dx is not None:
+        e = exact[0]
+        half_ulp = torch.ldexp(torch.ones_like(e), torch.frexp(e)[1] - 9)
+        gaps["dX"] = float(((dx - e).abs() - half_ulp).clamp_min(0).max()
+                           / e.abs().max().clamp_min(1e-300))
+    return gaps
+
+
+def _bwd_terms(x, mask, w1, b1, w2, g, out, m, l, x_scale, precise):
+    """(x, h, a, ds, dz) of the backward in W1's type."""
+    xf = x.to(w1.dtype)
+    h, logits = _logits(x, mask, w1, b1, w2, x_scale, precise)
+    # a is masked to 0 first: an empty bag has m = -1e30, l = 1e-30
+    a = torch.where(mask, torch.exp(logits - m[:, None]) / l[:, None], 0.0)
+    gx = torch.einsum("bd,bnd->bn", g, xf)
+    if x_scale is not None:
+        gx = gx * x_scale
+    ds = a * (gx - (g * out).sum(-1, keepdim=True))
+    return xf, h, a, ds, ds[..., None] * w2 * (1.0 - h * h)
+
+
+def _bwd_plain(x, mask, w1, b1, w2, g, out, m, l, x_scale, need_dx, precise, exact=False):
+    with torch.no_grad():
+        if exact:
+            w1, b1, w2, g, out, m, l = (t.double() for t in (w1, b1, w2, g, out, m, l))
+            x_scale = None if x_scale is None else x_scale.double()
+        xf, h, a, ds, dz = _bwd_terms(x, mask, w1, b1, w2, g, out, m, l, x_scale, precise)
         db1, dw2 = dz.sum((0, 1)), torch.einsum("bn,bnh->h", ds, h)
         if x.dtype == torch.int8:
             return None, torch.einsum("bnh,bnd->hd", dz * x_scale[..., None], xf), db1, dw2
+        # the parts dX and dW1 take dz in: bf16 rounds it, precise splits it
+        parts = [dz]
         if x.dtype == torch.bfloat16:
-            dz = dz.to(torch.bfloat16).float()
-        dw1 = torch.einsum("bnh,bnd->hd", dz, xf)
+            parts = list(_bf16_split(dz)) if precise else [_bf16_rounded(dz)]
+        dw1 = sum(torch.einsum("bnh,bnd->hd", z, xf) for z in parts)
         dx = None
         if need_dx:
-            w = w1.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else w1
-            dx = (a[..., None] * g[:, None, :] + dz @ w).to(x.dtype)
+            w = _bf16_rounded(w1) if x.dtype == torch.bfloat16 else w1
+            dx = a[..., None] * g[:, None, :] + sum(z @ w for z in parts)
+            dx = dx if exact else dx.to(x.dtype)
         return dx, dw1, db1, dw2
 
 
@@ -200,15 +334,16 @@ def abmil_pool_reference(x: torch.Tensor, mask: Optional[torch.Tensor], w1: torc
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the argument types of each library's entry point `<name>` (csrc/<name>.cu)
 _ARGTYPES = {
-    # x, x_scale, mask, w1, b1, w2; B, N, chunk, S, storage, device; w1_ws,
-    # w1_scale, ws_m, ws_l, ws_acc, out, m, l, stream
-    "abmil_fwd": [_P] * 6 + [_I] * 6 + [_P] * 9,
-    # x, x_scale, mask, w1, b1, w2, g, out, m, l; B, N, chunk1, S1, chunk2,
-    # S2, storage, with_dx, device; w1_bf16, ds, ws_dw1, ws_db1, ws_dw2, dx,
-    # dw1, db1, dw2, stream
-    "abmil_bwd": [_P] * 10 + [_I] * 9 + [_P] * 10,
+    # x, x_scale, mask, w1, b1, w2; B, N, D, hid, chunk, S, storage, precise,
+    # device; w1_ws, w1_scale, ws_m, ws_l, ws_acc, out, m, l, stream
+    "abmil_fwd": [_P] * 6 + [_I] * 9 + [_P] * 9,
+    # x, x_scale, mask, w1, b1, w2, g, out, m, l; B, N, D, hid, chunk1, S1,
+    # chunk2, S2, storage, precise, with_dx, device; w1_bf16, w1_i8,
+    # w1_scale, ds, ws_dw1, ws_db1, ws_dw2, dx, dw1, db1, dw2, stream
+    "abmil_bwd": [_P] * 10 + [_I] * 12 + [_P] * 12,
 }
-_SMEM_ARGTYPES = {"abmil_fwd": [_I], "abmil_bwd": [_I, _I]}
+# (storage, D, hid, precise) and, for the backward, the pass
+_SMEM_ARGTYPES = {"abmil_fwd": [_I] * 4, "abmil_bwd": [_I] * 5}
 
 
 def _library(name: str):
@@ -246,47 +381,69 @@ def _split_waves(B: int, N: int, tile: int, n_sm: int) -> Tuple[int, int]:
     return best[1], best[2]
 
 
-def _split_rows(K: int, n_sm: int, rows: int) -> Tuple[int, int]:
+def dw_tiles(D: int, hid: int) -> int:
+    """The weight-gradient pass's [128, 128] tiles of dW1 [hid, D] (the
+    kernel's dw_tiles; the edge tiles masked)."""
+    return -(-hid // _DW_M) * -(-D // _DW_N)
+
+
+def _split_rows(K: int, n_sm: int, rows: int, tiles: int = _DW_TILES) -> Tuple[int, int]:
     """(chunk2, S2) of the backward's weight-gradient pass: the K = B*N
     patch rows in S2 chunks of chunk2 rows (a multiple of `rows`), so that
-    the _DW_TILES tiles of each chunk fill about one wave of the card."""
-    S2 = max(1, n_sm // _DW_TILES)
+    the `tiles` tiles of each chunk fill about one wave of the card."""
+    S2 = max(1, n_sm // tiles)
     chunk = -(-(-(-K // S2)) // rows) * rows
     return chunk, -(-K // chunk)
 
 
-def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int) -> dict:
-    """The forward's launch plan for x of `dtype` [B, N, 512] on a card of
-    n_sm SMs: the chunk of patches a block takes, the blocks S a bag, and
+@functools.lru_cache(maxsize=256)
+def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, D: int = D_KERNEL,
+             hid: int = HID_KERNEL, precise: bool = False) -> dict:
+    """The forward's launch plan for x of `dtype` [B, N, D] and W1 [hid, D]
+    on a card of n_sm SMs: its instances ("route", `route`), the chunk of
+    patches a block takes (a multiple of "tile"), the blocks S a bag, and
     the workspace shapes the wrapper allocates: W1 for the kernel ("w1_ws",
-    in x's type: bf16 [256, 512] for bf16, hi and lo [2, 256, 512] for int8,
-    none for f32) and, for int8, "w1_scale" f32 (s_w and the partial maxima
-    of |W1|)."""
-    chunk, S = _split_waves(B, N, _FWD_TILE[dtype], n_sm)
-    w1_ws = {torch.float32: None, torch.bfloat16: (HID_KERNEL, D_KERNEL),
-             torch.int8: (2, HID_KERNEL, D_KERNEL)}[dtype]
-    return {"chunk": chunk, "S": S, "ws_m": (B, S), "ws_l": (B, S),
-            "ws_acc": (B, S, D_KERNEL), "w1_ws": w1_ws,
+    in x's type: bf16 [hid, D] for bf16, hi and lo [2, hid, D] for int8 and
+    for bf16 in precise mode, none for f32) and, for int8, "w1_scale" f32
+    (s_w and the partial maxima of |W1|)."""
+    rt = route(dtype, D, hid, precise)
+    tile = _FWD_TILE[dtype] if rt == "special" else _GEN_TILE
+    chunk, S = _split_waves(B, N, tile, n_sm)
+    two = dtype == torch.int8 or rt == "precise"
+    w1_ws = None if dtype == torch.float32 else ((2, hid, D) if two else (hid, D))
+    return {"route": rt, "tile": tile, "chunk": chunk, "S": S, "ws_m": (B, S), "ws_l": (B, S),
+            "ws_acc": (B, S, D), "w1_ws": w1_ws,
             "w1_scale": (1 + _AMAX_BLOCKS,) if dtype == torch.int8 else None}
 
 
-def bwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int) -> dict:
+@functools.lru_cache(maxsize=256)
+def bwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, D: int = D_KERNEL,
+             hid: int = HID_KERNEL, precise: bool = False) -> dict:
     """The backward's launch plan: pass 1 over chunks of chunk1 patches of
     each bag (S1 a bag; its block fills an SM), pass 2 over S2 chunks of
-    chunk2 of the B*N patch rows, for each of its _DW_TILES tiles of dW1, and
-    the workspace shapes: "ds" is the dz workspace [B, N, 256] of type
-    "ds_dtype" (f32 for f32; bf16 for bf16, the TPU kernel's rounding of dz
-    for dW1), for int8 [2, B, N, 256] bf16 (s dz's hi and lo); the partials
-    of dW1 ("ws_dw1") come from pass 2, those of db1 and dw2 ("ws_b", each)
-    from pass 1."""
+    chunk2 of the B*N patch rows, for each of its dw_tiles(D, hid) tiles of
+    dW1 (S2 * tiles about one wave: ws_dw1 stays under ~n_sm * 64 KB, 8.7 MB
+    on 132 SMs at any width), and the workspace shapes: "ds" is the dz
+    workspace [B, N, hid] of type "ds_dtype" (f32 for f32; bf16 for bf16,
+    the TPU kernel's rounding of dz for dW1), for int8 and bf16 in precise
+    mode [2, B, N, hid] bf16 (s dz's or dz's hi and lo); the partials of dW1
+    ("ws_dw1") come from pass 2, those of db1 and dw2 ("ws_b", each) from
+    pass 1; W1 for pass 1 is "w1_bf16" (bf16 and the special int8: bf16 hi
+    and lo) or, for int8 at other widths, the forward's int8 split "w1_i8"
+    with its scales "w1_scale"."""
+    rt = route(dtype, D, hid, precise)
     chunk1, S1 = _split_waves(B, N, _TILE[dtype], n_sm)
-    chunk2, S2 = _split_rows(B * N, n_sm, _DW_ROWS[dtype])
-    f32 = dtype == torch.float32
-    return {"chunk1": chunk1, "S1": S1, "chunk2": chunk2, "S2": S2,
-            "ds": (B, N, HID_KERNEL) if dtype != torch.int8 else (2, B, N, HID_KERNEL),
+    chunk2, S2 = _split_rows(B * N, n_sm, _DW_ROWS[dtype], dw_tiles(D, hid))
+    f32, i8 = dtype == torch.float32, dtype == torch.int8
+    gen_i8 = i8 and rt != "special"
+    two = i8 or rt == "precise"
+    return {"route": rt, "chunk1": chunk1, "S1": S1, "chunk2": chunk2, "S2": S2,
+            "ds": (2, B, N, hid) if two else (B, N, hid),
             "ds_dtype": torch.float32 if f32 else torch.bfloat16,
-            "ws_dw1": (S2, HID_KERNEL, D_KERNEL), "ws_b": (B * S1, HID_KERNEL),
-            "w1_bf16": None if f32 else (2, HID_KERNEL, D_KERNEL)}
+            "ws_dw1": (S2, hid, D), "ws_b": (B * S1, hid),
+            "w1_bf16": None if f32 or gen_i8 else (2, hid, D),
+            "w1_i8": (2, hid, D) if gen_i8 else None,
+            "w1_scale": (1 + _AMAX_BLOCKS,) if gen_i8 else None}
 
 
 def _tensor(name, t, shape, dtype, device):
@@ -296,78 +453,87 @@ def _tensor(name, t, shape, dtype, device):
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_inputs(x, x_scale, mask, w1, b1, w2, kernel: str) -> Tuple[int, int]:
-    """The argument checks every wrapper shares; returns (B, N)."""
+def _check_inputs(x, x_scale, mask, w1, b1, w2, kernel: str) -> Tuple[int, int, int, int]:
+    """The argument checks every wrapper shares; returns (B, N, D, hid)."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel} launches a CUDA kernel; x is on {x.device}")
     device = x.device
     if x.dtype not in _STORAGE:
         raise ValueError(f"x must be f32, bf16 or int8, got {x.dtype}")
-    if x.dim() != 3 or not x.is_contiguous() or x.shape[2] != D_KERNEL or x.shape[1] < 1:
-        raise ValueError(f"x must be a contiguous [B, N>=1, {D_KERNEL}] tensor, got "
-                         f"{tuple(x.shape)}: the kernels are built for D={D_KERNEL}, "
-                         f"hid={HID_KERNEL} (net_dims 512-256-K)")
+    if x.dim() != 3 or not x.is_contiguous() or x.shape[1] < 1:
+        raise ValueError(f"x must be a contiguous [B, N>=1, D] tensor, got {tuple(x.shape)}")
     if x.data_ptr() % 16 != 0:
         raise ValueError("x must be 16-byte aligned")
-    B, N, _ = x.shape
+    B, N, D = x.shape
+    hid = w1.shape[0] if w1.dim() == 2 else -1
+    if not kernel_widths_ok(D, hid):
+        raise ValueError(f"the ABMIL kernels take D a multiple of 64 in [64, {_GEN_MAX_D}] "
+                         f"and hid in {set(_GEN_HIDS)}; got D={D}, hid={hid} "
+                         f"(net_dims {D}-{hid}-K)")
     _tensor("mask", mask, (B, N), torch.bool, device)
-    _tensor("w1", w1, (HID_KERNEL, D_KERNEL), torch.float32, device)
-    _tensor("b1", b1, (HID_KERNEL,), torch.float32, device)
-    _tensor("w2", w2, (HID_KERNEL,), torch.float32, device)
+    _tensor("w1", w1, (hid, D), torch.float32, device)
+    _tensor("b1", b1, (hid,), torch.float32, device)
+    _tensor("w2", w2, (hid,), torch.float32, device)
     if (x.dtype == torch.int8) != (x_scale is not None):
         raise ValueError("x_scale is required for int8 x and taken for no other type")
     if x_scale is not None:
         _tensor("x_scale", x_scale, (B, N), torch.float32, device)
-    return B, N
+    return B, N, D, hid
 
 
-def _check_smem(lib, name, device, *args) -> None:
+@functools.lru_cache(maxsize=256)
+def _check_smem(lib, name, device_index, *args) -> None:
+    """Raises if a block of `name` at `args` needs more shared memory than
+    the card gives (checked once for each)."""
     smem = getattr(lib, f"{name}_smem_bytes")(*args)
-    optin = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    optin = torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
     if smem > optin:
         raise ValueError(f"{name} needs {smem} bytes of shared memory per block, the "
                          f"card gives {optin}")
 
 
-def _n_sm(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+@functools.lru_cache(maxsize=16)
+def _n_sm(device_index) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _w1_bf16(shape, device):
-    """The backward's bf16 copy of W1 (hi and, for int8, lo), or None for f32."""
-    return None if shape is None else torch.empty(shape, dtype=torch.bfloat16, device=device)
+def _empty(shape, dtype, device):
+    """A workspace of the plan, or None where the plan has none."""
+    return None if shape is None else torch.empty(shape, dtype=dtype, device=device)
 
 
 def _fwd(x, x_scale, mask, w1, b1, w2, kernel):
-    B, N = _check_inputs(x, x_scale, mask, w1, b1, w2, kernel)
+    B, N, D, hid = _check_inputs(x, x_scale, mask, w1, b1, w2, kernel)
     device = x.device
+    index = _device_index(device)
     lib = _library("abmil_fwd")
-    storage = _STORAGE[x.dtype]
-    _check_smem(lib, "abmil_fwd", device, storage)
-    plan = fwd_plan(x.dtype, B, N, _n_sm(device))
+    storage, precise = _STORAGE[x.dtype], _precise_for(x.dtype, None)
+    _check_smem(lib, "abmil_fwd", index, storage, D, hid, int(precise))
+    plan = fwd_plan(x.dtype, B, N, _n_sm(index), D, hid, precise)
     chunk, S = plan["chunk"], plan["S"]
     f32 = dict(dtype=torch.float32, device=device)
-    out, m, l = torch.empty(B, D_KERNEL, **f32), torch.empty(B, **f32), torch.empty(B, **f32)
+    out, m, l = torch.empty(B, D, **f32), torch.empty(B, **f32), torch.empty(B, **f32)
     ws_m, ws_l = torch.empty(plan["ws_m"], **f32), torch.empty(plan["ws_l"], **f32)
     ws_acc = torch.empty(plan["ws_acc"], **f32)
-    w1_ws = None if plan["w1_ws"] is None else torch.empty(plan["w1_ws"], dtype=x.dtype,
-                                                           device=device)
-    w1_scale = None if plan["w1_scale"] is None else torch.empty(plan["w1_scale"], **f32)
+    w1_ws = _empty(plan["w1_ws"], x.dtype, device)
+    w1_scale = _empty(plan["w1_scale"], torch.float32, device)
     err = lib.abmil_fwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
-                        B, N, chunk, S, storage, _device_index(device), _ptr(w1_ws),
-                        _ptr(w1_scale), _ptr(ws_m), _ptr(ws_l), _ptr(ws_acc), _ptr(out),
-                        _ptr(m), _ptr(l), torch.cuda.current_stream(device).cuda_stream)
+                        B, N, D, hid, chunk, S, storage, int(precise), index,
+                        _ptr(w1_ws), _ptr(w1_scale), _ptr(ws_m), _ptr(ws_l), _ptr(ws_acc),
+                        _ptr(out), _ptr(m), _ptr(l), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     LAUNCHES[_STORAGE_NAME[x.dtype]] += 1
+    LAUNCHES_ROUTE[plan["route"]] += 1
     return out, m, l
 
 
 def abmil_fwd(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the Hopper forward on CUDA tensors, f32 or bf16 x [B, N, 512]:
-    (out [B, 512], m [B], l [B]) f32, the pooled features and the softmax
-    stats (running max and normaliser, l clamped below at 1e-30)."""
+    """Launch the Hopper forward on CUDA tensors, f32 or bf16 x [B, N, D],
+    W1 [hid, D] (`kernel_widths_ok`): (out [B, D], m [B], l [B]) f32, the
+    pooled features and the softmax stats (running max and normaliser, l
+    clamped below at 1e-30).  bf16 follows `_PRECISE`."""
     if x.dtype == torch.int8:
         raise ValueError("int8 features go through abmil_q8_fwd")
     return _fwd(x, None, mask, w1, b1, w2, "abmil_fwd")
@@ -382,34 +548,38 @@ def abmil_q8_fwd(x: torch.Tensor, x_scale: torch.Tensor, mask: torch.Tensor,
 
 
 def _bwd(x, x_scale, mask, w1, b1, w2, g, out, m, l, need_dx, kernel):
-    B, N = _check_inputs(x, x_scale, mask, w1, b1, w2, kernel)
+    B, N, D, hid = _check_inputs(x, x_scale, mask, w1, b1, w2, kernel)
     device = x.device
-    _tensor("g", g, (B, D_KERNEL), torch.float32, device)
-    _tensor("out", out, (B, D_KERNEL), torch.float32, device)
+    _tensor("g", g, (B, D), torch.float32, device)
+    _tensor("out", out, (B, D), torch.float32, device)
     _tensor("m", m, (B,), torch.float32, device)
     _tensor("l", l, (B,), torch.float32, device)
+    index = _device_index(device)
     lib = _library("abmil_bwd")
-    storage = _STORAGE[x.dtype]
-    _check_smem(lib, "abmil_bwd", device, storage, 1)
-    _check_smem(lib, "abmil_bwd", device, storage, 2)
-    plan = bwd_plan(x.dtype, B, N, _n_sm(device))
+    storage, precise = _STORAGE[x.dtype], _precise_for(x.dtype, None)
+    for p in (1, 2):
+        _check_smem(lib, "abmil_bwd", index, storage, D, hid, int(precise), p)
+    plan = bwd_plan(x.dtype, B, N, _n_sm(index), D, hid, precise)
     chunk1, S1, chunk2, S2 = plan["chunk1"], plan["S1"], plan["chunk2"], plan["S2"]
     f32 = dict(dtype=torch.float32, device=device)
-    dw1, db1, dw2 = (torch.empty(HID_KERNEL, D_KERNEL, **f32), torch.empty(HID_KERNEL, **f32),
-                     torch.empty(HID_KERNEL, **f32))
+    dw1, db1, dw2 = torch.empty(hid, D, **f32), torch.empty(hid, **f32), torch.empty(hid, **f32)
     ds = torch.empty(plan["ds"], dtype=plan["ds_dtype"], device=device)
     ws_dw1 = torch.empty(plan["ws_dw1"], **f32)
     ws_db1, ws_dw2 = torch.empty(plan["ws_b"], **f32), torch.empty(plan["ws_b"], **f32)
     dx = torch.empty_like(x) if need_dx else None
-    w1b = _w1_bf16(plan["w1_bf16"], device)
+    w1b = _empty(plan["w1_bf16"], torch.bfloat16, device)
+    w1q = _empty(plan["w1_i8"], torch.int8, device)
+    w1s = _empty(plan["w1_scale"], torch.float32, device)
     err = lib.abmil_bwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
-                        _ptr(g), _ptr(out), _ptr(m), _ptr(l), B, N, chunk1, S1, chunk2, S2,
-                        storage, int(need_dx), _device_index(device), _ptr(w1b), _ptr(ds),
-                        _ptr(ws_dw1), _ptr(ws_db1), _ptr(ws_dw2), _ptr(dx), _ptr(dw1),
-                        _ptr(db1), _ptr(dw2), torch.cuda.current_stream(device).cuda_stream)
+                        _ptr(g), _ptr(out), _ptr(m), _ptr(l), B, N, D, hid, chunk1, S1, chunk2,
+                        S2, storage, int(precise), int(need_dx), index,
+                        _ptr(w1b), _ptr(w1q), _ptr(w1s), _ptr(ds), _ptr(ws_dw1), _ptr(ws_db1),
+                        _ptr(ws_dw2), _ptr(dx), _ptr(dw1), _ptr(db1), _ptr(dw2),
+                        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     LAUNCHES_BWD[bwd_variant(x.dtype, need_dx)] += 1
+    LAUNCHES_BWD_ROUTE[plan["route"]] += 1
     return dx, dw1, db1, dw2
 
 
@@ -417,9 +587,9 @@ def abmil_bwd(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, b1: torch.T
               w2: torch.Tensor, g: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
               l: torch.Tensor, need_dx: bool = False):
     """Launch the Hopper backward on CUDA tensors, f32 or bf16 x: from the
-    output's cotangent g [B, 512] and the forward's (out, m, l) ->
-    (dX [B, N, 512] in x's type or None, dW1 [256, 512], db1, dw2 [256] f32).
-    dX is written only when `need_dx`."""
+    output's cotangent g [B, D] and the forward's (out, m, l) ->
+    (dX [B, N, D] in x's type or None, dW1 [hid, D], db1, dw2 [hid] f32).
+    dX is written only when `need_dx`; bf16 follows `_PRECISE`."""
     if x.dtype == torch.int8:
         raise ValueError("int8 features go through abmil_q8_bwd")
     return _bwd(x, None, mask, w1, b1, w2, g, out, m, l, need_dx, "abmil_bwd")

@@ -2,6 +2,7 @@
 
     python -m vlsa_tpu_torch.ops.abmil_variants [--B 8 --N 10240] [--variants base,cvt]
     python -m vlsa_tpu_torch.ops.abmil_variants --storage bf16 [--variants base,fast_tanh]
+    python -m vlsa_tpu_torch.ops.abmil_variants --general [--B 8 --N 10240]
 
 Builds `csrc/abmil_fwd.cu` and `csrc/abmil_bwd.cu` as they are ("base") and,
 as text edits of those sources, one alternative each.  f32 (the forward and
@@ -26,6 +27,9 @@ bf16 and int8 (`--storage`; the forward, abmil_fwd_partial<T>):
     no_tanh (h = h_pre), no_wgmma (no tensor-core product: h = 0), no_pv
     (no PV sum: out = 0), no_w1 and no_x (W1's or x's k-blocks not
     copied), no_sync (no barrier a slice: a race).
+
+`--general`: every storage's resident instances at D=512, hid=256 against
+the general instances, which take every other width (`compare_general`).
 
 For each, in one process on the same inputs (B bags of N patches, D=512,
 hid=256, 10% of patches masked, the last bag empty): each kernel against
@@ -52,30 +56,30 @@ _SPLIT = ("    hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
           "    lo = __float_as_uint(v - __uint_as_float(hi));")
 _SPLIT_CVT = ('    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(v));\n'
               '    asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));')
-_SLICE = ("    float part[kMT][kNT][4];\n"
+_SLICE = ("    float part[kMT][NT][4];\n"
           "    zero_acc(part);\n"
           "#pragma unroll\n"
-          "    for (int kk = 0; kk < 32; kk += 8) kstep_3xtf32<A_KMAJOR, B_KMAJOR>(part, a, lda, b, ldb, kk);\n"
+          "    for (int kk = 0; kk < 32; kk += 8) kstep_3xtf32<A_KMAJOR, B_KMAJOR, NT>(part, a, lda, b, ldb, kk);\n"
           "#pragma unroll\n"
           "    for (int mt = 0; mt < kMT; ++mt)\n"
           "#pragma unroll\n"
-          "        for (int nt = 0; nt < kNT; ++nt)\n"
+          "        for (int nt = 0; nt < NT; ++nt)\n"
           "#pragma unroll\n"
           "            for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];")
 _ONE_CHAIN = ("#pragma unroll\n"
-              "    for (int kk = 0; kk < 32; kk += 8) kstep_3xtf32<A_KMAJOR, B_KMAJOR>(acc, a, lda, b, ldb, kk);")
+              "    for (int kk = 0; kk < 32; kk += 8) kstep_3xtf32<A_KMAJOR, B_KMAJOR, NT>(acc, a, lda, b, ldb, kk);")
 
 
 def _wave(a: str, b: str) -> str:
     return ("#pragma unroll\n"
-            "    for (int nt = 0; nt < kNT; ++nt)\n"
+            "    for (int nt = 0; nt < NT; ++nt)\n"
             "#pragma unroll\n"
             f"        for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[mt][nt], {a}[mt], {b}[nt]);")
 
 
 _WAVES = "\n".join(_wave(a, b) for a, b in (("al", "bh"), ("ah", "bl"), ("ah", "bh")))
 _CHAINS = ("#pragma unroll\n"
-           "    for (int nt = 0; nt < kNT; ++nt)\n"
+           "    for (int nt = 0; nt < NT; ++nt)\n"
            "#pragma unroll\n"
            "        for (int mt = 0; mt < kMT; ++mt) {\n"
            "            mma_tf32(acc[mt][nt], al[mt], bh[nt]);\n"
@@ -110,6 +114,13 @@ FWD_VARIANTS = {
     "no_w1": [(_FWD, _W1_COPY, "        (void)src;\n")],
     "no_x": [(_FWD, _X_COPY, "        (void)ok;\n")],
     "no_sync": [(_FWD, _SYNC, "            const int q = s + L::LEAD;")],
+}
+# every width on the general instances, D=512, hid=256 too (the kernels'
+# special_widths and, in `compare_general`, `abmil.route` send it there)
+GENERAL_VARIANTS = {
+    "base": [],
+    "general": [(_COMMON, "    return D == kD && hid == kHid && !(storage == kBF16 && precise);",
+                 "    return false;")],
 }
 LIBS = ("abmil_fwd", "abmil_bwd")
 
@@ -167,10 +178,10 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def _inputs(B: int, N: int, seed: int):
-    """x [B, N, 512] f32 (10% of patches masked and zero, the last bag
-    empty), the mask, w1, b1, w2 and an output cotangent, on the card."""
-    from .abmil import D_KERNEL as D, HID_KERNEL as H
+def _inputs(B: int, N: int, seed: int, D: int = 512, H: int = 256):
+    """x [B, N, D] f32 (10% of patches masked and zero, the last bag
+    empty), the mask, w1 [H, D], b1, w2 and an output cotangent, on the
+    card; the variants edit the D=512, hid=256 instances, the default."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     mask = torch.rand(B, N, generator=g, device="cuda") > 0.1
     mask[-1] = False
@@ -251,6 +262,72 @@ def compare_fwd(storage: str, B: int = 8, N: int = 10240, names=tuple(FWD_VARIAN
     return list(recs.values())
 
 
+def _general_route(dtype, D, hid, precise=None) -> str:
+    from . import abmil as ab
+    return "precise" if ab._precise_for(dtype, precise) else "general"
+
+
+def compare_general(B: int = 8, N: int = 10240, seed: int = 1) -> list:
+    """The resident instances ("base") against the general ones ("general")
+    at D=512, hid=256 for every storage: the forward, the weights-only
+    backward and (f32, bf16) the backward with dX, each against its plain
+    version, then timed in turns (base, general, general, base)."""
+    from . import abmil as ab
+    with ThreadPoolExecutor(2) as pool:
+        built = dict(zip(GENERAL_VARIANTS, pool.map(
+            lambda n: build_variant(n, GENERAL_VARIANTS, LIBS, "abmil_"), GENERAL_VARIANTS)))
+    x32, mask, w1, b1, w2, gout = _inputs(B, N, seed)
+    shipped, shipped_route, recs = ab._library, ab.route, []
+    try:
+        for storage in ("f32", "bf16", "int8"):
+            x, xs = x32, None
+            if storage == "int8":
+                amax = x32.abs().amax(-1) / 127.0
+                x = torch.round(x32 / torch.where(amax > 0, amax, 1.0)[..., None]).to(torch.int8)
+                xs = amax.contiguous()
+            elif storage == "bf16":
+                x = x32.to(torch.bfloat16)
+            x = x.contiguous()
+            if xs is None:
+                fwd = lambda: ab.abmil_fwd(x, mask, w1, b1, w2)  # noqa: E731
+                bwd = lambda o, dx: ab.abmil_bwd(x, mask, w1, b1, w2, gout, *o, need_dx=dx)  # noqa: E731
+            else:
+                fwd = lambda: ab.abmil_q8_fwd(x, xs, mask, w1, b1, w2)  # noqa: E731
+                bwd = lambda o, dx: (None,) + tuple(ab.abmil_q8_bwd(x, xs, mask, w1, b1, w2,  # noqa: E731
+                                                                    gout, *o))
+            ref = ab.abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=xs)
+            dxs = (False,) if storage == "int8" else (False, True)
+            want = {dx: ab.abmil_bwd_reference(x, mask, w1, b1, w2, gout, *ref, x_scale=xs,
+                                               need_dx=dx) for dx in dxs}
+            rec = {"storage": storage, "B": B, "N": N, "D": 512, "hid": 256}
+            for turn, name in enumerate(("base", "general", "general", "base")):
+                ab._library = built[name][0].__getitem__
+                ab.route = shipped_route if name == "base" else _general_route
+                ab.fwd_plan.cache_clear()
+                ab.bwd_plan.cache_clear()
+                before = dict(ab.LAUNCHES_ROUTE)
+                out = fwd()
+                torch.cuda.synchronize()
+                r = rec.setdefault(name, {"fwd_ms": [], "bwd_ms": [], "bwd_dx_ms": []})
+                r["route"] = next(k for k in before if ab.LAUNCHES_ROUTE[k] != before[k])
+                if turn < 2:
+                    r["fwd_rel_err"] = max(_rel(a, b) for a, b in zip(out, ref))
+                    for dx in dxs:
+                        got = bwd(out, dx)
+                        r["bwd_dx_rel_err" if dx else "bwd_rel_err"] = max(
+                            _rel(a.float(), b.float()) for a, b in zip(got, want[dx])
+                            if b is not None)
+                r["fwd_ms"].append(median_ms(fwd))
+                for dx in dxs:
+                    r["bwd_dx_ms" if dx else "bwd_ms"].append(median_ms(lambda: bwd(out, dx)))
+            recs.append(rec)
+    finally:
+        ab._library, ab.route = shipped, shipped_route
+        ab.fwd_plan.cache_clear()
+        ab.bwd_plan.cache_clear()
+    return recs
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--B", type=int, default=8)
@@ -258,8 +335,12 @@ def main(argv=None) -> None:
     ap.add_argument("--storage", choices=("f32", "bf16", "int8"), default="f32")
     ap.add_argument("--variants", default=None,
                     help="comma-separated names (default: all of the storage's)")
+    ap.add_argument("--general", action="store_true",
+                    help="the resident instances against the general ones, every storage")
     args = ap.parse_args(argv)
-    if args.storage == "f32":
+    if args.general:
+        recs = compare_general(args.B, args.N)
+    elif args.storage == "f32":
         names = tuple((args.variants or ",".join(VARIANTS)).split(","))
         recs = compare(args.B, args.N, names)
     else:

@@ -83,6 +83,13 @@
 //     costs less than recomputing h here (2 D hid x 3 TF32 operations a
 //     patch, ~2.6x the time of dz's bytes at the card's peaks).
 //   pass 3 sums the S2 partials of dW1 and the B * S1 of db1, dw2, in order.
+//
+// The pass-1 instances above are built for D = 512, hid = 256.  Every other
+// width (D a multiple of 64 up to 2048, hid in {64, 128, 256, 512}) and bf16
+// in vlsa_tpu's precise mode run abmil_bwd_dz_general (see the note above
+// it); passes 2 and 3 take the widths at run time for every call.
+#include <type_traits>
+
 #include "abmil_common.cuh"
 
 using namespace abmil;
@@ -625,21 +632,23 @@ abmil_bwd_dz_f32(const float* __restrict__ x, const uint8_t* __restrict__ mask,
 }
 
 // Pass 2: dW1 = sum_k dz[k]^T x[k] over the K = B * N patch rows of the
-// batch (dz [K, kHid] in f32 for f32, else bf16 -- int8: s dz as hi and lo
-// planes; x [K, kD] in the storage type; dz is 0 on masked rows), one
-// split-K GEMM.  Block (tile, split) owns the dW1 tile [kDwM, kDwN] number
-// `tile` over the rows [split * chunk, +chunk) and writes it to
-// ws_dw1[split]; the tiles of one split run side by side, so their dz and x
-// rows come from device memory about once and from L2 for the rest.  Rows
-// stream through DwTiling<T>::stages cp.async stages of ::rows (dz's and
-// x's rows a stage, [rows][kLdDw] each; int8: dz hi and lo, and x's raw
-// rows, converted to bf16 in one tile after each stage lands); both
-// operands are k-major.  f32: split TF32 (slice_3xtf32, 32 rows a slice);
-// bf16 and int8: A (dz^T) and B (x) by ldmatrix.trans into mma.sync
-// m16n8k16 (int8: dz's hi and lo, two products).  Grid (kDwTiles, S2).
+// batch (dz [K, hid] in f32 for f32, else bf16 -- int8: s dz as hi and lo
+// planes, bf16's precise mode: dz as hi and lo; x [K, D] in the storage
+// type; dz is 0 on masked rows), one split-K GEMM, any width.  Block (tile,
+// split) owns the dW1 tile [kDwM, kDwN] number `tile` (tiles_of(D) a row of
+// tiles; rows past hid and columns past D masked) over the rows [split *
+// chunk, +chunk) and writes it to ws_dw1[split]; the tiles of one split run
+// side by side, so their dz and x rows come from device memory about once
+// and from L2 for the rest.  Rows stream through DwTiling<T>::stages
+// cp.async stages of ::rows (dz's rows [rows][kLdDw], x's rows, and with
+// TWO planes dz's lo rows; int8 x's raw rows, converted to bf16 in one tile
+// after each stage lands); both operands are k-major.  f32: split TF32
+// (slice_3xtf32, 32 rows a slice); bf16 and int8: A (dz^T) and B (x) by
+// ldmatrix.trans into mma.sync m16n8k16 (TWO: dz's hi and lo, two
+// products).  Grid (tiles, S2).
 constexpr int kDwM = 128;                                 // hid rows of a dW1 tile
 constexpr int kDwN = 128;                                 // D columns of a dW1 tile
-constexpr int kDwTiles = (kHid / kDwM) * (kD / kDwN);     // 8
+constexpr int kDwTiles = (kHid / kDwM) * (kD / kDwN);     // 8 at D = 512, hid = 256
 constexpr int kRowsDw = 32;                               // f32 patch rows a stage (slice_3xtf32's depth)
 constexpr int kRowsDwB = 64;                              // bf16 and int8 patch rows a stage
 // 136: f32's k-major fragments hit 32 banks (8t + g), bf16's 8 rows 8 bank groups
@@ -652,60 +661,73 @@ template <> struct DwTiling<float> {
     using Op = float;
     static constexpr int rows = kRowsDw, stages = 4;
 };
-// bytes: a stage (dz rows, then x rows; int8: dz hi, dz lo, raw x rows), and
-// the block's (int8: the stages and the converted x tile)
-template <typename T>
-__host__ __device__ constexpr size_t dw_stage_bytes() {
-    using D = DwTiling<T>;
-    return sizeof(T) == 1 ? 2 * (size_t)D::rows * kLdDw * 2 + (size_t)D::rows * kDwN
-                          : 2 * (size_t)D::rows * kLdDw * sizeof(typename D::Op);
+__host__ __device__ constexpr int dw_tiles_n(int D) { return (D + kDwN - 1) / kDwN; }
+__host__ __device__ constexpr int dw_tiles(int D, int hid) {
+    return (hid + kDwM - 1) / kDwM * dw_tiles_n(D);
 }
-template <typename T>
+// the layout of a stage: dz rows, x rows (int8: raw), then (TWO) dz's lo rows
+template <typename T, bool TWO>
+struct DwStage {
+    using D_ = DwTiling<T>;
+    using Op = typename D_::Op;
+    static constexpr size_t z = (size_t)D_::rows * kLdDw * sizeof(Op);
+    static constexpr size_t x = z;
+    static constexpr size_t lo = x + (sizeof(T) == 1 ? (size_t)D_::rows * kDwN : z);
+    static constexpr size_t bytes = lo + (TWO ? z : 0);
+    // the block's: the stages and (int8) the converted x tile
+    static constexpr size_t smem = D_::stages * bytes + (sizeof(T) == 1 ? z : 0);
+};
+template <typename T, bool TWO>
 __host__ __device__ constexpr size_t dw_smem_bytes() {
-    using D = DwTiling<T>;
-    return D::stages * dw_stage_bytes<T>() + (sizeof(T) == 1 ? (size_t)D::rows * kLdDw * 2 : 0);
+    return DwStage<T, TWO>::smem;
 }
 
-template <typename T>
+template <typename T, bool TWO>
 __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
                                         const typename DwTiling<T>::Op* __restrict__ dz,
                                         const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk,
-                                        float* __restrict__ ws_dw1) {
+                                        int D, int hid, float* __restrict__ ws_dw1) {
     using Op = typename DwTiling<T>::Op;
+    using St = DwStage<T, TWO>;
     constexpr bool I8 = sizeof(T) == 1;
+    static_assert(!I8 || TWO, "int8's s dz comes as hi and lo");
     constexpr int kRows = DwTiling<T>::rows, kStages = DwTiling<T>::stages;
     constexpr int kVec = 16 / sizeof(Op);      // elements of a 16-byte chunk
     extern __shared__ __align__(128) unsigned char smem[];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gq = lane >> 2, tq = lane & 3, wm = warp & 3, wn = warp >> 2;
-    const int m0 = (blockIdx.x / (kD / kDwN)) * kDwM, n0 = (blockIdx.x % (kD / kDwN)) * kDwN;
+    const int tn = dw_tiles_n(D);
+    const int m0 = (blockIdx.x / tn) * kDwM, n0 = (blockIdx.x % tn) * kDwN;
     const int split = blockIdx.y;
     const int k_begin = split * chunk;
     const int k_end = min(K, k_begin + chunk);
     const int slices = (k_end - k_begin + kRows - 1) / kRows;
-    // a stage: dz rows [kRows][kLdDw], then x rows (int8: dz lo rows, then
-    // the raw x rows [kRows][kDwN] bytes)
-    auto stage = [&](int s) { return smem + (size_t)(s % kStages) * dw_stage_bytes<T>(); };
-    __nv_bfloat16* xcv = reinterpret_cast<__nv_bfloat16*>(smem + kStages * dw_stage_bytes<T>());
+    auto stage = [&](int s) { return smem + (size_t)(s % kStages) * St::bytes; };
+    __nv_bfloat16* xcv = reinterpret_cast<__nv_bfloat16*>(smem + kStages * St::bytes);
 
     auto load = [&](int s) {
-        Op* zs = reinterpret_cast<Op*>(stage(s));
-        Op* xs = zs + kRows * kLdDw;  // int8: dz lo
+        unsigned char* st = stage(s);
+        Op* zs = reinterpret_cast<Op*>(st);
+        Op* xs = reinterpret_cast<Op*>(st + St::x);
+        __nv_bfloat16* zl = reinterpret_cast<__nv_bfloat16*>(st + St::lo);
         const int k = k_begin + s * kRows;
         for (int i = tid; i < kRows * (128 / kVec); i += kThreads) {
             const int r = i / (128 / kVec), c = kVec * (i % (128 / kVec));
-            const bool ok = k + r < k_end;
-            const size_t zo = (size_t)(k + r) * kHid + m0 + c;
-            cp_async16(zs + r * kLdDw + c, ok ? dz + zo : dz, ok);
-            if constexpr (I8) cp_async16(xs + r * kLdDw + c, ok ? dz_lo + zo : dz_lo, ok);
-            else cp_async16(xs + r * kLdDw + c, ok ? x + (size_t)(k + r) * kD + n0 + c : x, ok);
+            const bool okz = k + r < k_end && m0 + c < hid;
+            const size_t zo = (size_t)(k + r) * hid + m0 + c;
+            cp_async16(zs + r * kLdDw + c, okz ? dz + zo : dz, okz);
+            if constexpr (TWO) cp_async16(zl + r * kLdDw + c, okz ? dz_lo + zo : dz_lo, okz);
+            if constexpr (!I8) {
+                const bool okx = k + r < k_end && n0 + c < D;
+                cp_async16(xs + r * kLdDw + c, okx ? x + (size_t)(k + r) * D + n0 + c : x, okx);
+            }
         }
         if constexpr (I8) {
-            unsigned char* x8 = reinterpret_cast<unsigned char*>(xs + kRows * kLdDw);
+            unsigned char* x8 = st + St::x;
             for (int i = tid; i < kRows * (kDwN / 16); i += kThreads) {
                 const int r = i / (kDwN / 16), c = 16 * (i % (kDwN / 16));
-                const bool ok = k + r < k_end;
-                cp_async16(x8 + r * kDwN + c, ok ? x + (size_t)(k + r) * kD + n0 + c : x, ok);
+                const bool ok = k + r < k_end && n0 + c < D;
+                cp_async16(x8 + r * kDwN + c, ok ? x + (size_t)(k + r) * D + n0 + c : x, ok);
             }
         }
     };
@@ -725,13 +747,14 @@ __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
         __syncthreads();  // slice s landed; stage (s - 1) % kStages and xcv are consumed
         if (s + kStages - 1 < slices) load(s + kStages - 1);
         cp_async_commit();
-        const Op* zs = reinterpret_cast<const Op*>(stage(s));
-        const Op* xs = zs + kRows * kLdDw;
+        const unsigned char* st = stage(s);
+        const Op* zs = reinterpret_cast<const Op*>(st);
+        const Op* xs = reinterpret_cast<const Op*>(st + St::x);
         if constexpr (sizeof(T) == 4) {
             slice_3xtf32<true, true>(acc, zs + 32 * wm, kLdDw, xs + 64 * wn, kLdDw);
         } else {
             if constexpr (I8) {  // the raw x rows -> bf16 (exact), then B from there
-                const unsigned char* x8 = reinterpret_cast<const unsigned char*>(xs + kRows * kLdDw);
+                const unsigned char* x8 = st + St::x;
                 for (int i = tid; i < kRows * (kDwN / 16); i += kThreads) {
                     const int r = i / (kDwN / 16), c = 16 * (i % (kDwN / 16));
                     const int4 raw = *reinterpret_cast<const int4*>(x8 + r * kDwN + c);
@@ -752,8 +775,8 @@ __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
 #pragma unroll
                 for (int np = 0; np < kNT / 2; ++np) ldsm_x4_t(bx[np], xb + 16 * ks * kLdDw + bo + 16 * np);
 #pragma unroll
-                for (int part = 0; part < (I8 ? 2 : 1); ++part) {  // dz (int8: its hi, then lo)
-                    const Op* za = part ? xs : zs;
+                for (int part = 0; part < (TWO ? 2 : 1); ++part) {  // dz (TWO: its hi, then lo)
+                    const Op* za = part ? reinterpret_cast<const Op*>(st + St::lo) : zs;
                     uint32_t a[kMT][4];
 #pragma unroll
                     for (int mt = 0; mt < kMT; ++mt) ldsm_x4_t(a[mt], za + 16 * ks * kLdDw + ao + 16 * mt);
@@ -770,7 +793,7 @@ __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
     }
     cp_async_wait<0>();
 
-    float* dst = ws_dw1 + (size_t)split * kHid * kD;
+    float* dst = ws_dw1 + (size_t)split * hid * D;
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -779,50 +802,395 @@ __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
             for (int h = 0; h < 2; ++h) {
                 const int r = m0 + 32 * wm + 16 * mt + 8 * h + gq;
                 const int c = n0 + 64 * wn + 8 * nt + 2 * tq;
-                *reinterpret_cast<float2*>(dst + (size_t)r * kD + c) =
-                    make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+                if (r < hid && c < D) {
+                    *reinterpret_cast<float2*>(dst + (size_t)r * D + c) =
+                        make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+                }
             }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ dz, int K, int chunk,
-                 float* __restrict__ ws_dw1) {
-    dw_gemm(x, dz, nullptr, K, chunk, ws_dw1);
+                 int D, int hid, float* __restrict__ ws_dw1) {
+    dw_gemm<float, false>(x, dz, nullptr, K, chunk, D, hid, ws_dw1);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_bwd_dw_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dz,
-                  int K, int chunk, float* __restrict__ ws_dw1) {
-    dw_gemm(x, dz, nullptr, K, chunk, ws_dw1);
+                  int K, int chunk, int D, int hid, float* __restrict__ ws_dw1) {
+    dw_gemm<__nv_bfloat16, false>(x, dz, nullptr, K, chunk, D, hid, ws_dw1);
+}
+
+// bf16's precise mode: dz as hi and lo (vlsa_tpu/ops/abmil.py:250-253)
+__global__ void __launch_bounds__(kThreads, 1)
+abmil_bwd_dw_bf16_split(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ dz_hi,
+                        const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk, int D, int hid,
+                        float* __restrict__ ws_dw1) {
+    dw_gemm<__nv_bfloat16, true>(x, dz_hi, dz_lo, K, chunk, D, hid, ws_dw1);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_bwd_dw_i8(const int8_t* __restrict__ x, const __nv_bfloat16* __restrict__ dz_hi,
-                const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk,
+                const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk, int D, int hid,
                 float* __restrict__ ws_dw1) {
-    dw_gemm(x, dz_hi, dz_lo, K, chunk, ws_dw1);
+    dw_gemm<int8_t, true>(x, dz_hi, dz_lo, K, chunk, D, hid, ws_dw1);
 }
 
-// Pass 3: dw1 = the sum of the K_w partials ws_dw1, db1 and dw2 those of
-// the K_b partials ws_db1, ws_dw2, k in order.
+// Pass 3: dw1 [hid * D] = the sum of the K_w partials ws_dw1, db1 and dw2
+// [hid] those of the K_b partials ws_db1, ws_dw2, k in order.
 __global__ void __launch_bounds__(kThreads)
 abmil_bwd_reduce(const float* __restrict__ ws_dw1, const float* __restrict__ ws_db1,
-                 const float* __restrict__ ws_dw2, int K_w, int K_b, float* __restrict__ dw1,
-                 float* __restrict__ db1, float* __restrict__ dw2) {
+                 const float* __restrict__ ws_dw2, int K_w, int K_b, int D, int hid,
+                 float* __restrict__ dw1, float* __restrict__ db1, float* __restrict__ dw2) {
     const int i = blockIdx.x * kThreads + threadIdx.x;
-    constexpr int kW = kHid * kD;
+    const int kW = hid * D;
     float s = 0.f;
     if (i < kW) {
         for (int k = 0; k < K_w; ++k) s += ws_dw1[(size_t)k * kW + i];
         dw1[i] = s;
-    } else if (i < kW + kHid) {
+    } else if (i < kW + hid) {
         const int j = i - kW;
-        for (int k = 0; k < K_b; ++k) s += ws_db1[(size_t)k * kHid + j];
+        for (int k = 0; k < K_b; ++k) s += ws_db1[(size_t)k * hid + j];
         db1[j] = s;
-    } else if (i < kW + 2 * kHid) {
-        const int j = i - kW - kHid;
-        for (int k = 0; k < K_b; ++k) s += ws_dw2[(size_t)k * kHid + j];
+    } else if (i < kW + 2 * hid) {
+        const int j = i - kW - hid;
+        for (int k = 0; k < K_b; ++k) s += ws_dw2[(size_t)k * hid + j];
         dw2[j] = s;
+    }
+}
+
+// ------------------------------------------------ any width: the general pass 1
+//
+// Every (D, hid) but 512, 256 and bf16's precise mode (abmil_common.cuh's
+// general instances), one body for every storage.  Per tile of kGenM = 64
+// patches: (a) the logits, pass by pass over hid (gen_h_product, as the
+// general forward forms them, so int8 takes the forward's int8 split of W1
+// and meets its (m, l) exactly); (b) g . x of each row, its x re-read from
+// L2, and a, ds; (c) pass by pass, h (kept from (a) when one pass holds
+// hid, else formed again), dz = ds w2 (1 - h^2), the column sums of dz and
+// ds h into shared memory (each column and row half owned by one thread:
+// deterministic) and dz through a tile in the stages' space to the
+// workspace: f32 in f32, bf16 rounded to bf16 (the TPU kernel's rounding of
+// dz), precise as bf16 hi + lo (vlsa_tpu/ops/abmil.py:99-111, :250-253),
+// int8 s dz as bf16 hi + lo; (d) with dX, a g + dz . W1 (precise: dz hi . W1
+// + dz lo . W1, W1 rounded to bf16 once, as vlsa_tpu's _dz_w1_matmul) in
+// blocks of kDxCols columns, dz's and W1's slices of kJG hid rows through
+// the same 2 stages (dz re-read from L2: this block just wrote it).  dX
+// blocks of 128 columns keep its registers within 255 without spills (256
+// columns, with 256-column passes, spilled 16-440 bytes: PERF.md).
+constexpr int kJG = 32;        // hid rows a slice of the general dX product
+constexpr int kDxCols = 128;   // dX columns a block of it: 8 warps, 2 x 4, of 32 x 32
+constexpr int kNTx = kDxCols / 32;  // n8 tiles of a warp's dX columns
+
+template <GOp OP, int HP>
+struct DzSmemG {
+    using G = Gen<OP, HP>;
+    static constexpr int kPlanes = (OP == GOp::kBf16P || OP == GOp::kI8) ? 2 : 1;  // dz's
+    static constexpr int kZ = G::F32 ? 4 : 2;                 // bytes a dz (and dX operand) value
+    static constexpr int kLdZ = G::F32 ? kJG + 4 : kJG + 8;   // values a dX slice's dz row
+    static constexpr int kLdW = kDxCols + 8;                  // values a dX slice's W1 row
+    static constexpr size_t kDxStage =
+        G::I8 ? 0 : round128((size_t)kPlanes * kGenM * kLdZ * kZ + (size_t)kJG * kLdW * kZ);
+    static constexpr size_t kStage = G::kStage > kDxStage ? G::kStage : kDxStage;
+    static constexpr int kLdT = G::F32 ? HP + 4 : HP + 8;     // values a dz tile row
+    static constexpr size_t kTile = (size_t)kGenM * kLdT * kZ;  // a plane of the tile
+    static constexpr size_t w = 0;                            // 2 stages; the dz tile
+    static constexpr size_t cols = round128(2 * kStage > kPlanes * kTile ? 2 * kStage
+                                                                          : kPlanes * kTile);
+    // b1, w2 [kGenMaxHid], g [kGenMaxD]; the column sums [4][kGenMaxHid]
+    static constexpr size_t sums = cols + (2 * (size_t)kGenMaxHid + kGenMaxD) * 4;
+    static constexpr size_t red = sums + 4 * (size_t)kGenMaxHid * 4;   // [4][kGenM]
+    static constexpr size_t rows = red + 4 * (size_t)kGenM * 4;  // logit, valid, s, g.x, a, ds; g.out
+    static constexpr size_t total = rows + (6 * (size_t)kGenM + 4) * 4;
+};
+
+// w1h, w1l: W1 as the h product takes it (gen_h_product; int8's s_w in
+// w1_scale[0]); w1dx: W1 of the dX product (f32: w1; bf16: its bf16
+// rounding).  dz, dz_lo: the workspace's planes [B, N, hid] (f32 or bf16;
+// lo: precise and int8).  Grid (S1, B).
+template <GOp OP, int HP>
+__global__ void __launch_bounds__(kThreads, 1)
+abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_scale,
+                     const uint8_t* __restrict__ mask, const void* __restrict__ w1h,
+                     const void* __restrict__ w1l, const float* __restrict__ w1_scale,
+                     const void* __restrict__ w1dx, const float* __restrict__ b1,
+                     const float* __restrict__ w2, const float* __restrict__ g,
+                     const float* __restrict__ out, const float* __restrict__ m,
+                     const float* __restrict__ l, int N, int D, int hid, int chunk, int S,
+                     int with_dx, void* __restrict__ dz, void* __restrict__ dz_lo,
+                     float* __restrict__ ws_db1, float* __restrict__ ws_dw2,
+                     void* __restrict__ dx) {
+    using G = Gen<OP, HP>;
+    using L = DzSmemG<OP, HP>;
+    using Z = typename std::conditional<G::F32, float, __nv_bfloat16>::type;  // dz's, dX's type
+    constexpr int NT = G::NT;
+    constexpr int kPlanes = L::kPlanes;
+    extern __shared__ __align__(128) unsigned char smem[];
+    unsigned char* stages = smem + L::w;
+    Z* tile = reinterpret_cast<Z*>(smem + L::w);
+    float* b1s = reinterpret_cast<float*>(smem + L::cols);
+    float* w2s = b1s + kGenMaxHid;
+    float* gs = w2s + kGenMaxHid;
+    float* sums = reinterpret_cast<float*>(smem + L::sums);  // db1 (wm 0, 1), dw2 (wm 0, 1)
+    float* red = reinterpret_cast<float*>(smem + L::red);
+    float* logit_s = reinterpret_cast<float*>(smem + L::rows);
+    float* valid_s = logit_s + kGenM;
+    float* sc_s = valid_s + kGenM;
+    float* gx_s = sc_s + kGenM;
+    float* a_s = gx_s + kGenM;
+    float* ds_s = a_s + kGenM;
+    float* gout_s = ds_s + kGenM;
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int gq = lane >> 2, tq = lane & 3, wm = warp & 1, wn = warp >> 1;
+    const int split = blockIdx.x, b = blockIdx.y;
+    const int n_begin = split * chunk;
+    const int n_end = min(N, n_begin + chunk);
+    const int row_bytes = D * G::kItem;
+    const unsigned char* xb = static_cast<const unsigned char*>(x) + (size_t)b * N * row_bytes;
+    const unsigned char* wh = static_cast<const unsigned char*>(w1h);
+    const unsigned char* wl = static_cast<const unsigned char*>(w1l);
+    const uint8_t* mb = mask + (size_t)b * N;
+    const float* gb = g + (size_t)b * D;
+    const float m_b = m[b], l_b = l[b];
+    const float sw = G::I8 ? *w1_scale : 1.f;
+    const int npass = hid / HP;
+
+    for (int j = tid; j < hid; j += kThreads) {
+        b1s[j] = b1[j];
+        w2s[j] = w2[j];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sums[q * kGenMaxHid + j] = 0.f;
+    }
+    for (int k = tid; k < D; k += kThreads) gs[k] = gb[k];
+    if (warp == 0) {
+        float s = 0.f;
+        for (int c = lane; c < D; c += 32) s += gb[c] * out[(size_t)b * D + c];
+        s = warp_sum(s);
+        if (lane == 0) gout_s[0] = s;
+    }
+    float acc[kMT][NT][4];
+
+#pragma unroll 1
+    for (int t0 = n_begin; t0 < n_end; t0 += kGenM) {
+        if (tid < kGenM) {
+            const int n = t0 + tid;
+            valid_s[tid] = n < n_end && mb[n] != 0 ? 1.f : 0.f;
+            sc_s[tid] = G::I8 && n < n_end ? x_scale[(size_t)b * N + n] : 1.f;
+            logit_s[tid] = 0.f;
+        }
+        // (a) the logits
+#pragma unroll 1
+        for (int j0 = 0; j0 < hid; j0 += HP) {
+            gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, wh, wl, j0, sw, stages);
+            gen_tanh_logit<NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
+            __syncthreads();
+            if (tid < kGenM) {
+                logit_s[tid] += (red[tid] + red[kGenM + tid]) +
+                                (red[2 * kGenM + tid] + red[3 * kGenM + tid]);
+            }
+        }
+        // (b) g . x of the warp's rows, then a and ds
+#pragma unroll 1
+        for (int r = warp * (kGenM / kWarps); r < (warp + 1) * (kGenM / kWarps); ++r) {
+            float s = 0.f;
+            if (t0 + r < n_end) {
+                const unsigned char* xr = xb + (size_t)(t0 + r) * row_bytes;
+                for (int c = 2 * lane; c < D; c += 64) {
+                    const float2 v = load_pair<OP>(xr + (size_t)c * G::kItem);
+                    s = fmaf(gs[c], v.x, fmaf(gs[c + 1], v.y, s));
+                }
+            }
+            s = warp_sum(s);
+            if (lane == 0) gx_s[r] = G::I8 ? s * sc_s[r] : s;
+        }
+        __syncthreads();
+        if (tid < kGenM) {
+            const int r = tid;
+            const float a = valid_s[r] != 0.f ? expf(logit_s[r] - m_b) / l_b : 0.f;  // 0 first
+            a_s[r] = a;
+            ds_s[r] = a * (gx_s[r] - gout_s[0]);
+        }
+        __syncthreads();
+
+        // (c) dz, pass by pass
+#pragma unroll 1
+        for (int j0 = 0; j0 < hid; j0 += HP) {
+            if (npass > 1) {
+                gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, wh, wl, j0, sw, stages);
+                gen_tanh_logit<NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+                const int jl = 8 * NT * wn + 8 * nt + 2 * tq, j = j0 + jl;
+                const float u0 = w2s[j], u1 = w2s[j + 1];
+                float db0 = 0.f, db1v = 0.f, dw0 = 0.f, dw1v = 0.f;
+#pragma unroll
+                for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int r = 32 * wm + 16 * mt + 8 * h + gq;
+                        const float d = ds_s[r];
+                        const float h0 = acc[mt][nt][2 * h], h1 = acc[mt][nt][2 * h + 1];
+                        const float z0 = d * u0 * (1.f - h0 * h0), z1 = d * u1 * (1.f - h1 * h1);
+                        db0 += z0;
+                        db1v += z1;
+                        dw0 = fmaf(d, h0, dw0);
+                        dw1v = fmaf(d, h1, dw1v);
+                        Z* dst = tile + r * L::kLdT + jl;
+                        if constexpr (G::F32) {
+                            *reinterpret_cast<float2*>(dst) = make_float2(z0, z1);
+                        } else {
+                            const float sr = G::I8 ? sc_s[r] : 1.f;
+                            const float v0 = sr * z0, v1 = sr * z1;
+                            const uint32_t hi = pack_bf16(v0, v1);
+                            *reinterpret_cast<uint32_t*>(dst) = hi;
+                            if constexpr (kPlanes == 2) {
+                                const float2 hv = unpack_bf16(hi);
+                                *reinterpret_cast<uint32_t*>(dst + kGenM * L::kLdT) =
+                                    pack_bf16(v0 - hv.x, v1 - hv.y);
+                            }
+                        }
+                    }
+#pragma unroll
+                for (int o = 4; o < 32; o <<= 1) {
+                    db0 += __shfl_xor_sync(0xffffffffu, db0, o);
+                    db1v += __shfl_xor_sync(0xffffffffu, db1v, o);
+                    dw0 += __shfl_xor_sync(0xffffffffu, dw0, o);
+                    dw1v += __shfl_xor_sync(0xffffffffu, dw1v, o);
+                }
+                if (gq == 0) {  // this thread owns columns j, j + 1 of row half wm
+                    sums[wm * kGenMaxHid + j] += db0;
+                    sums[wm * kGenMaxHid + j + 1] += db1v;
+                    sums[(2 + wm) * kGenMaxHid + j] += dw0;
+                    sums[(2 + wm) * kGenMaxHid + j + 1] += dw1v;
+                }
+            }
+            __syncthreads();  // the tile is whole
+            {
+                constexpr int kCh = HP * L::kZ / 16;  // 16-byte chunks a tile row
+                constexpr int kPer = 16 / L::kZ;
+#pragma unroll
+                for (int q = 0; q < kPlanes; ++q) {
+                    Z* dst = static_cast<Z*>(q ? dz_lo : dz) + ((size_t)b * N + t0) * hid + j0;
+                    const Z* src = tile + q * kGenM * L::kLdT;
+                    for (int i = tid; i < kGenM * kCh; i += kThreads) {
+                        const int r = i / kCh, c = kPer * (i % kCh);
+                        if (t0 + r < n_end) {
+                            *reinterpret_cast<uint4*>(dst + (size_t)r * hid + c) =
+                                *reinterpret_cast<const uint4*>(src + r * L::kLdT + c);
+                        }
+                    }
+                }
+            }
+            __syncthreads();  // the tile's space is the next pass's stages
+        }
+
+        // (d) dX = a g + dz . W1
+        if constexpr (!G::I8) {
+            if (with_dx) {
+                constexpr int kLdZ = L::kLdZ, kLdW = L::kLdW;
+                constexpr size_t kZp = (size_t)kGenM * kLdZ;  // values a dz plane of a slice
+                const Z* w1d = static_cast<const Z*>(w1dx);
+                Z* dxb = static_cast<Z*>(dx) + (size_t)b * N * D;
+                const Z* z_hi = static_cast<const Z*>(dz);
+                const Z* z_lo = static_cast<const Z*>(dz_lo);
+                auto load = [&](int q, int d0, unsigned char* st) {
+                    Z* zs = reinterpret_cast<Z*>(st);
+                    Z* ws = zs + kPlanes * kZp;
+                    constexpr int kCz = kJG * L::kZ / 16;       // chunks a dz row: f32 8, bf16 4
+                    constexpr int kCw = kDxCols * L::kZ / 16;   // chunks a W1 row: f32 64, bf16 32
+                    constexpr int kPer = 16 / L::kZ;
+                    for (int i = tid; i < kPlanes * kGenM * kCz; i += kThreads) {
+                        const int pl = i / (kGenM * kCz), rem = i % (kGenM * kCz);
+                        const int r = rem / kCz, c = kPer * (rem % kCz);
+                        const bool ok = t0 + r < n_end;
+                        const Z* src = (pl ? z_lo : z_hi) + ((size_t)b * N + t0 + r) * hid + kJG * q + c;
+                        cp_async16(zs + pl * kZp + r * kLdZ + c, ok ? src : z_hi, ok);
+                    }
+                    for (int i = tid; i < kJG * kCw; i += kThreads) {
+                        const int j = i / kCw, c = kPer * (i % kCw);
+                        const bool ok = d0 + c < D;
+                        cp_async16(ws + j * kLdW + c, ok ? w1d + (size_t)(kJG * q + j) * D + d0 + c
+                                                         : w1d, ok);
+                    }
+                };
+                const int nq = hid / kJG;
+                const int zo = (32 * wm + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLdZ + 8 * (lane >> 4);
+                const int bo = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdW + 32 * wn + 8 * (lane >> 4);
+#pragma unroll 1
+                for (int d0 = 0; d0 < D; d0 += kDxCols) {
+                    float dacc[kMT][kNTx][4];
+                    zero_acc(dacc);
+                    load(0, d0, stages);
+                    cp_async_commit();
+#pragma unroll 1
+                    for (int q = 0; q < nq; ++q) {
+                        cp_async_wait<0>();
+                        __syncthreads();  // slice q landed; the other stage is consumed
+                        if (q + 1 < nq) load(q + 1, d0, stages + ((q + 1) & 1) * L::kStage);
+                        cp_async_commit();
+                        const Z* zs = reinterpret_cast<const Z*>(stages + (q & 1) * L::kStage);
+                        const Z* wsl = zs + kPlanes * kZp;
+                        if constexpr (G::F32) {
+                            slice_3xtf32<false, true, kNTx>(dacc, zs + 32 * wm * kLdZ, kLdZ,
+                                                            wsl + 32 * wn, kLdW);
+                        } else {
+#pragma unroll
+                            for (int ks = 0; ks < kJG / 16; ++ks) {
+                                uint32_t bw[kNTx / 2][4];
+#pragma unroll
+                                for (int np = 0; np < kNTx / 2; ++np)
+                                    ldsm_x4_t(bw[np], wsl + bo + 16 * ks * kLdW + 16 * np);
+#pragma unroll
+                                for (int part = 0; part < kPlanes; ++part) {  // dz (precise: hi, lo)
+                                    uint32_t a[kMT][4];
+#pragma unroll
+                                    for (int mt = 0; mt < kMT; ++mt)
+                                        ldsm_x4(a[mt], zs + part * kZp + zo + 16 * mt * kLdZ + 16 * ks);
+#pragma unroll
+                                    for (int np = 0; np < kNTx / 2; ++np)
+#pragma unroll
+                                        for (int mt = 0; mt < kMT; ++mt) {
+                                            mma_bf16(dacc[mt][2 * np], a[mt], bw[np][0], bw[np][1]);
+                                            mma_bf16(dacc[mt][2 * np + 1], a[mt], bw[np][2], bw[np][3]);
+                                        }
+                                }
+                            }
+                        }
+                    }
+                    __syncthreads();  // both stages free for the next block's slices
+#pragma unroll
+                    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                        for (int nt = 0; nt < kNTx; ++nt)
+#pragma unroll
+                            for (int h = 0; h < 2; ++h) {
+                                const int r = 32 * wm + 16 * mt + 8 * h + gq;
+                                const int c = d0 + 32 * wn + 8 * nt + 2 * tq;
+                                if (t0 + r < n_end && c < D) {
+                                    const float a = a_s[r];
+                                    const float v0 = fmaf(a, gs[c], dacc[mt][nt][2 * h]);
+                                    const float v1 = fmaf(a, gs[c + 1], dacc[mt][nt][2 * h + 1]);
+                                    Z* dst = dxb + (size_t)(t0 + r) * D + c;
+                                    if constexpr (G::F32) {
+                                        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+                                    } else {
+                                        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+                                    }
+                                }
+                            }
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    const size_t part = (size_t)b * S + split;
+    for (int j = tid; j < hid; j += kThreads) {
+        ws_db1[part * hid + j] = sums[j] + sums[kGenMaxHid + j];
+        ws_dw2[part * hid + j] = sums[2 * kGenMaxHid + j] + sums[3 * kGenMaxHid + j];
     }
 }
 
@@ -831,10 +1199,62 @@ cudaError_t set_smem(K kernel, size_t smem) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// bf16 and int8: pass 1 over chunks of chunk1 patches of each bag (S1 a
-// bag), pass 2 over chunks of chunk2 of the B * N patch rows (S2 in all).
-// w1h, w1l: W1's bf16 hi and (int8) lo; dz, dz_lo: the workspace planes (lo:
-// int8 only).
+template <GOp OP, int HP>
+cudaError_t launch_dz_general_hp(const void* x, const float* x_scale, const uint8_t* mask,
+                                 const void* w1h, const void* w1l, const float* w1_scale,
+                                 const void* w1dx, const float* b1, const float* w2,
+                                 const float* g, const float* out, const float* m,
+                                 const float* l, int B, int N, int D, int hid, int chunk, int S,
+                                 bool with_dx, void* dz, void* dz_lo, float* ws_db1,
+                                 float* ws_dw2, void* dx, cudaStream_t stream) {
+    auto kernel = abmil_bwd_dz_general<OP, HP>;
+    const size_t smem = DzSmemG<OP, HP>::total;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(S, B), kThreads, smem, stream>>>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1,
+                                                   w2, g, out, m, l, N, D, hid, chunk, S,
+                                                   with_dx ? 1 : 0, dz, dz_lo, ws_db1, ws_dw2, dx);
+    return cudaGetLastError();
+}
+
+template <GOp OP>
+cudaError_t launch_dz_general(int hp, const void* x, const float* x_scale, const uint8_t* mask,
+                              const void* w1h, const void* w1l, const float* w1_scale,
+                              const void* w1dx, const float* b1, const float* w2, const float* g,
+                              const float* out, const float* m, const float* l, int B, int N,
+                              int D, int hid, int chunk, int S, bool with_dx, void* dz,
+                              void* dz_lo, float* ws_db1, float* ws_dw2, void* dx,
+                              cudaStream_t stream) {
+    if (hp == 64) {
+        return launch_dz_general_hp<OP, 64>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1, w2, g,
+                                            out, m, l, B, N, D, hid, chunk, S, with_dx, dz, dz_lo,
+                                            ws_db1, ws_dw2, dx, stream);
+    }
+    if constexpr (OP != GOp::kI8) {
+        if (hp == 256) {
+            return launch_dz_general_hp<OP, 256>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1,
+                                                 w2, g, out, m, l, B, N, D, hid, chunk, S, with_dx,
+                                                 dz, dz_lo, ws_db1, ws_dw2, dx, stream);
+        }
+    }
+    return launch_dz_general_hp<OP, 128>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1, w2, g,
+                                         out, m, l, B, N, D, hid, chunk, S, with_dx, dz, dz_lo,
+                                         ws_db1, ws_dw2, dx, stream);
+}
+
+template <GOp OP>
+size_t dz_general_smem(int hp) {
+    if (hp == 64) return DzSmemG<OP, 64>::total;
+    if constexpr (OP != GOp::kI8) {
+        if (hp == 256) return DzSmemG<OP, 256>::total;
+    }
+    return DzSmemG<OP, 128>::total;
+}
+
+// bf16 and int8 at D = 512, hid = 256: pass 1 over chunks of chunk1 patches
+// of each bag (S1 a bag), pass 2 over chunks of chunk2 of the B * N patch
+// rows (S2 in all).  w1h, w1l: W1's bf16 hi and (int8) lo; dz, dz_lo: the
+// workspace planes (lo: int8 only).
 template <typename T>
 cudaError_t launch_passes_bf16(const T* x, const float* x_scale, const uint8_t* mask,
                                const __nv_bfloat16* w1h, const __nv_bfloat16* w1l,
@@ -845,7 +1265,7 @@ cudaError_t launch_passes_bf16(const T* x, const float* x_scale, const uint8_t* 
                                float* ws_dw1, float* ws_db1, float* ws_dw2,
                                cudaStream_t stream) {
     cudaError_t err;
-    const size_t smem1 = DzSmemB<T>::total, smem2 = dw_smem_bytes<T>();
+    const size_t smem1 = DzSmemB<T>::total;
     auto k1 = abmil_bwd_dz_bf16<T, false>;
     if constexpr (sizeof(T) == 2) {
         if (with_dx) k1 = abmil_bwd_dz_bf16<T, true>;
@@ -856,19 +1276,22 @@ cudaError_t launch_passes_bf16(const T* x, const float* x_scale, const uint8_t* 
                                                  dx);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if constexpr (sizeof(T) == 1) {
+        const size_t smem2 = dw_smem_bytes<int8_t, true>();
         if ((err = set_smem(abmil_bwd_dw_i8, smem2)) != cudaSuccess) return err;
         abmil_bwd_dw_i8<<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(x, dz, dz_lo, B * N,
-                                                                         chunk2, ws_dw1);
+                                                                         chunk2, kD, kHid, ws_dw1);
     } else {
+        const size_t smem2 = dw_smem_bytes<__nv_bfloat16, false>();
         if ((err = set_smem(abmil_bwd_dw_bf16, smem2)) != cudaSuccess) return err;
         abmil_bwd_dw_bf16<<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(x, dz, B * N, chunk2,
-                                                                           ws_dw1);
+                                                                           kD, kHid, ws_dw1);
     }
     return cudaGetLastError();
 }
 
-// f32: pass 1 over chunks of chunk1 patches of each bag (S1 a bag), pass 2
-// over chunks of chunk2 of the B * N patch rows (S2 in all).
+// f32 at D = 512, hid = 256: pass 1 over chunks of chunk1 patches of each
+// bag (S1 a bag), pass 2 over chunks of chunk2 of the B * N patch rows (S2 in
+// all).
 cudaError_t launch_passes_f32(const float* x, const uint8_t* mask, const float* w1,
                               const float* b1, const float* w2, const float* g,
                               const float* out, const float* m, const float* l, int B, int N,
@@ -887,9 +1310,76 @@ cudaError_t launch_passes_f32(const float* x, const uint8_t* mask, const float* 
             x, mask, w1, b1, w2, g, out, m, l, N, chunk1, S1, dz, ws_db1, ws_dw2, nullptr);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = set_smem(abmil_bwd_dw_f32, dw_smem_bytes<float>())) != cudaSuccess) return err;
-    abmil_bwd_dw_f32<<<dim3(kDwTiles, S2), kThreads, dw_smem_bytes<float>(), stream>>>(
-        x, dz, B * N, chunk2, ws_dw1);
+    const size_t smem2 = dw_smem_bytes<float, false>();
+    if ((err = set_smem(abmil_bwd_dw_f32, smem2)) != cudaSuccess) return err;
+    abmil_bwd_dw_f32<<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(x, dz, B * N, chunk2, kD,
+                                                                       kHid, ws_dw1);
+    return cudaGetLastError();
+}
+
+// Any other width, or bf16's precise mode: W1 for the h product (bf16: its
+// rounding in w1_bf16, precise: hi and lo; int8: the forward's int8 split
+// in w1_i8 and w1_scale), the general pass 1, then pass 2 over the dz
+// planes (f32; bf16; precise and int8 two planes).
+cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* mask,
+                           const float* w1, const float* b1, const float* w2, const float* g,
+                           const float* out, const float* m, const float* l, int B, int N, int D,
+                           int hid, int chunk1, int S1, int chunk2, int S2, int storage,
+                           bool precise, bool with_dx, __nv_bfloat16* w1_bf16, int8_t* w1_i8,
+                           float* w1_scale, void* ds, void* dx, float* ws_dw1, float* ws_db1,
+                           float* ws_dw2, cudaStream_t stream) {
+    const int n = hid * D;
+    const int hp = gen_pass_cols(storage, hid);
+    const size_t plane = (size_t)B * N * hid;
+    const dim3 grid2(dw_tiles(D, hid), S2);
+    cudaError_t err;
+    if (storage == kF32) {
+        err = launch_dz_general<GOp::kF32>(hp, x, nullptr, mask, w1, nullptr, nullptr, w1, b1, w2,
+                                           g, out, m, l, B, N, D, hid, chunk1, S1, with_dx, ds,
+                                           nullptr, ws_db1, ws_dw2, dx, stream);
+        if (err != cudaSuccess) return err;
+        const size_t smem2 = dw_smem_bytes<float, false>();
+        if ((err = set_smem(abmil_bwd_dw_f32, smem2)) != cudaSuccess) return err;
+        abmil_bwd_dw_f32<<<grid2, kThreads, smem2, stream>>>(
+            static_cast<const float*>(x), static_cast<const float*>(ds), B * N, chunk2, D, hid,
+            ws_dw1);
+        return cudaGetLastError();
+    }
+    __nv_bfloat16* dzb = static_cast<__nv_bfloat16*>(ds);
+    if (storage == kI8) {
+        if ((err = launch_split_w1_i8(w1, n, w1_i8, w1_scale, stream)) != cudaSuccess) return err;
+        err = launch_dz_general<GOp::kI8>(hp, x, x_scale, mask, w1_i8, w1_i8 + n, w1_scale,
+                                          nullptr, b1, w2, g, out, m, l, B, N, D, hid, chunk1, S1,
+                                          false, dzb, dzb + plane, ws_db1, ws_dw2, nullptr, stream);
+        if (err != cudaSuccess) return err;
+        const size_t smem2 = dw_smem_bytes<int8_t, true>();
+        if ((err = set_smem(abmil_bwd_dw_i8, smem2)) != cudaSuccess) return err;
+        abmil_bwd_dw_i8<<<grid2, kThreads, smem2, stream>>>(static_cast<const int8_t*>(x), dzb,
+                                                            dzb + plane, B * N, chunk2, D, hid,
+                                                            ws_dw1);
+        return cudaGetLastError();
+    }
+    if ((err = launch_prep_w1(w1, w1_bf16, precise, n, stream)) != cudaSuccess) return err;
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    if (precise) {
+        err = launch_dz_general<GOp::kBf16P>(hp, x, nullptr, mask, w1_bf16, w1_bf16 + n, nullptr,
+                                             w1_bf16, b1, w2, g, out, m, l, B, N, D, hid, chunk1,
+                                             S1, with_dx, dzb, dzb + plane, ws_db1, ws_dw2, dx,
+                                             stream);
+        if (err != cudaSuccess) return err;
+        const size_t smem2 = dw_smem_bytes<__nv_bfloat16, true>();
+        if ((err = set_smem(abmil_bwd_dw_bf16_split, smem2)) != cudaSuccess) return err;
+        abmil_bwd_dw_bf16_split<<<grid2, kThreads, smem2, stream>>>(xb, dzb, dzb + plane, B * N,
+                                                                    chunk2, D, hid, ws_dw1);
+        return cudaGetLastError();
+    }
+    err = launch_dz_general<GOp::kBf16>(hp, x, nullptr, mask, w1_bf16, nullptr, nullptr, w1_bf16,
+                                        b1, w2, g, out, m, l, B, N, D, hid, chunk1, S1, with_dx,
+                                        dzb, nullptr, ws_db1, ws_dw2, dx, stream);
+    if (err != cudaSuccess) return err;
+    const size_t smem2 = dw_smem_bytes<__nv_bfloat16, false>();
+    if ((err = set_smem(abmil_bwd_dw_bf16, smem2)) != cudaSuccess) return err;
+    abmil_bwd_dw_bf16<<<grid2, kThreads, smem2, stream>>>(xb, dzb, B * N, chunk2, D, hid, ws_dw1);
     return cudaGetLastError();
 }
 
@@ -898,34 +1388,56 @@ cudaError_t launch_passes_f32(const float* x, const uint8_t* mask, const float* 
 extern "C" {
 
 // Bytes of dynamic shared memory of pass 1 (with or without dX) and pass 2.
-size_t abmil_bwd_smem_bytes(int storage, int pass) {
-    if (storage == kF32) return pass == 2 ? dw_smem_bytes<float>() : DsSmemF::total;
-    if (storage == kBF16) {
-        return pass == 2 ? dw_smem_bytes<__nv_bfloat16>() : DzSmemB<__nv_bfloat16>::total;
+size_t abmil_bwd_smem_bytes(int storage, int D, int hid, int precise, int pass) {
+    const bool bf16_precise = storage == kBF16 && precise;
+    if (pass == 2) {
+        if (storage == kF32) return dw_smem_bytes<float, false>();
+        if (storage == kI8) return dw_smem_bytes<int8_t, true>();
+        return bf16_precise ? dw_smem_bytes<__nv_bfloat16, true>()
+                            : dw_smem_bytes<__nv_bfloat16, false>();
     }
-    return pass == 2 ? dw_smem_bytes<int8_t>() : DzSmemB<int8_t>::total;
+    if (special_widths(storage, D, hid, precise != 0)) {
+        if (storage == kF32) return DsSmemF::total;
+        if (storage == kBF16) return DzSmemB<__nv_bfloat16>::total;
+        return DzSmemB<int8_t>::total;
+    }
+    const int hp = gen_pass_cols(storage, hid);
+    switch (gen_op(storage, precise != 0)) {
+        case GOp::kF32: return dz_general_smem<GOp::kF32>(hp);
+        case GOp::kBf16: return dz_general_smem<GOp::kBf16>(hp);
+        case GOp::kBf16P: return dz_general_smem<GOp::kBf16P>(hp);
+        default: return dz_general_smem<GOp::kI8>(hp);
+    }
 }
 
-// x [B, N, 512] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N] f32 for
-// int8, else null; mask [B, N] bool; w1 [256, 512], b1 and w2 [256] f32;
-// g and out [B, 512], m and l [B] f32 (the output's cotangent, the forward
-// output and its stats).  Pass 1 runs S1 blocks of chunk1 patches a bag,
-// pass 2 the 8 dW1 tiles on each of S2 chunks of chunk2 of the B * N patch
-// rows.  Workspace: w1_bf16 null (f32) or [2, 256, 512] bf16 (W1's hi and,
-// int8, lo); ds the dz workspace, [B, N, 256] f32 (f32) or bf16 (bf16), or
-// [2, B, N, 256] bf16 (int8: s dz's hi and lo); ws_dw1 [S2, 256, 512],
-// ws_db1 and ws_dw2 [B * S1, 256] f32.  Outputs: dx [B, N, 512] in the
-// storage type when with_dx (f32 and bf16 only; else null), dw1 [256, 512],
-// db1 and dw2 [256] f32.  All on CUDA device `device`; the kernels go to
-// `stream`.  Returns the launches' cudaError_t (0 on success).
+// x [B, N, D] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N] f32 for
+// int8, else null; mask [B, N] bool; w1 [hid, D], b1 and w2 [hid] f32; g
+// and out [B, D], m and l [B] f32 (the output's cotangent, the forward
+// output and its stats); precise: bf16's precise mode.  Pass 1 runs S1
+// blocks of chunk1 patches a bag, pass 2 the dW1 tiles on each of S2 chunks
+// of chunk2 of the B * N patch rows.  Workspace: w1_bf16 [2, hid, D] bf16
+// (W1's bf16 hi and, int8 at D = 512, hid = 256 or precise, lo; null for
+// f32 and for int8 at other widths); w1_i8 [2, hid, D] int8 and w1_scale
+// [65] f32 (int8 at other widths: the forward's split; else null); ds the dz
+// workspace, [B, N, hid] f32 (f32) or bf16 (bf16), or [2, B, N, hid] bf16
+// (int8: s dz's hi and lo; precise: dz's); ws_dw1 [S2, hid, D], ws_db1 and
+// ws_dw2 [B * S1, hid] f32.  Outputs: dx [B, N, D] in the storage type
+// when with_dx (f32 and bf16 only; else null), dw1 [hid, D], db1 and dw2
+// [hid] f32.  All on CUDA device `device`; the kernels go to `stream`.
+// Returns the launches' cudaError_t (0 on success).
 int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* w1,
               const void* b1, const void* w2, const void* g, const void* out, const void* m,
-              const void* l, int B, int N, int chunk1, int S1, int chunk2, int S2,
-              int storage, int with_dx, int device, void* w1_bf16, void* ds, void* ws_dw1,
-              void* ws_db1, void* ws_dw2, void* dx, void* dw1, void* db1, void* dw2,
-              void* stream) {
-    if (B < 1 || N < 1 || S1 < 1 || S2 < 1 || chunk1 < 1 || chunk2 < 1
-        || (storage != kF32 && w1_bf16 == nullptr)
+              const void* l, int B, int N, int D, int hid, int chunk1, int S1, int chunk2, int S2,
+              int storage, int precise, int with_dx, int device, void* w1_bf16, void* w1_i8,
+              void* w1_scale, void* ds, void* ws_dw1, void* ws_db1, void* ws_dw2, void* dx,
+              void* dw1, void* db1, void* dw2, void* stream) {
+    const bool is_precise = precise != 0 && storage == kBF16;
+    const bool special = special_widths(storage, D, hid, is_precise);
+    const bool gen_i8 = storage == kI8 && !special;
+    if (B < 1 || N < 1 || S1 < 1 || S2 < 1 || chunk1 < 1 || chunk2 < 1 || !widths_ok(D, hid)
+        || (storage != kF32 && storage != kBF16 && storage != kI8)
+        || (storage != kF32 && !gen_i8) != (w1_bf16 != nullptr)
+        || gen_i8 != (w1_i8 != nullptr) || gen_i8 != (w1_scale != nullptr)
         || (storage == kI8) != (x_scale != nullptr)
         || (with_dx != 0) != (dx != nullptr) || (with_dx && storage == kI8)) {
         return (int)cudaErrorInvalidValue;
@@ -947,32 +1459,36 @@ int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* 
     float* w_dw1 = static_cast<float*>(ws_dw1);
     float* w_db1 = static_cast<float*>(ws_db1);
     float* w_dw2 = static_cast<float*>(ws_dw2);
-    if (storage != kF32) {
-        err = launch_prep_w1(w1f, wb, storage == kI8, st);
-        if (err != cudaSuccess) return (int)err;
-    }
-    if (storage == kF32) {
+    if (!special) {
+        err = launch_general(x, xs, mk, w1f, b1f, w2f, gf, of, mf, lf, B, N, D, hid, chunk1, S1,
+                             chunk2, S2, storage, is_precise, with_dx != 0, wb,
+                             static_cast<int8_t*>(w1_i8), static_cast<float*>(w1_scale), ds, dx,
+                             w_dw1, w_db1, w_dw2, st);
+    } else if (storage == kF32) {
         err = launch_passes_f32(static_cast<const float*>(x), mk, w1f, b1f, w2f, gf, of, mf,
                                 lf, B, N, chunk1, S1, chunk2, S2, with_dx != 0,
                                 static_cast<float*>(ds), static_cast<float*>(dx), w_dw1, w_db1,
                                 w_dw2, st);
-    } else if (storage == kBF16) {
-        err = launch_passes_bf16(static_cast<const __nv_bfloat16*>(x), nullptr, mk, wb, nullptr,
-                                 b1f, w2f, gf, of, mf, lf, B, N, chunk1, S1, chunk2, S2,
-                                 with_dx != 0, dzb, nullptr, static_cast<__nv_bfloat16*>(dx),
-                                 w_dw1, w_db1, w_dw2, st);
-    } else if (storage == kI8) {
-        err = launch_passes_bf16(static_cast<const int8_t*>(x), xs, mk, wb, wb + kHid * kD, b1f,
-                                 w2f, gf, of, mf, lf, B, N, chunk1, S1, chunk2, S2, false, dzb,
-                                 dzb + (size_t)B * N * kHid, nullptr, w_dw1, w_db1, w_dw2, st);
     } else {
-        return (int)cudaErrorInvalidValue;
+        err = launch_prep_w1(w1f, wb, storage == kI8, kHid * kD, st);
+        if (err != cudaSuccess) return (int)err;
+        if (storage == kBF16) {
+            err = launch_passes_bf16(static_cast<const __nv_bfloat16*>(x), nullptr, mk, wb,
+                                     nullptr, b1f, w2f, gf, of, mf, lf, B, N, chunk1, S1, chunk2,
+                                     S2, with_dx != 0, dzb, nullptr,
+                                     static_cast<__nv_bfloat16*>(dx), w_dw1, w_db1, w_dw2, st);
+        } else {
+            err = launch_passes_bf16(static_cast<const int8_t*>(x), xs, mk, wb, wb + kHid * kD,
+                                     b1f, w2f, gf, of, mf, lf, B, N, chunk1, S1, chunk2, S2,
+                                     false, dzb, dzb + (size_t)B * N * kHid, nullptr, w_dw1,
+                                     w_db1, w_dw2, st);
+        }
     }
     if (err != cudaSuccess) return (int)err;
-    const int total = kHid * kD + 2 * kHid;
+    const int total = hid * D + 2 * hid;
     abmil_bwd_reduce<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        w_dw1, w_db1, w_dw2, S2, B * S1, static_cast<float*>(dw1), static_cast<float*>(db1),
-        static_cast<float*>(dw2));
+        w_dw1, w_db1, w_dw2, S2, B * S1, D, hid, static_cast<float*>(dw1),
+        static_cast<float*>(db1), static_cast<float*>(dw2));
     return (int)cudaGetLastError();
 }
 

@@ -91,7 +91,8 @@ constexpr size_t kStageF = round128((size_t)kHid * kLdWF * 4) > round128((size_t
 constexpr int kMT = 2;
 constexpr int kNT = 8;
 
-// One k-step of 8 of a warp's [16 kMT, 8 kNT] f32 product in split TF32:
+// One k-step of 8 of a warp's [16 kMT, 8 NT] f32 product in split TF32 (NT
+// n8 tiles: kNT for the D=512, hid=256 instances, fewer in the general ones):
 // acc += A[0, 16 kMT)[k0, k0 + 8) . B[k0, k0 + 8)[0, 8 kNT), in three waves
 // of kMT x kNT independent products, the small ones first: lo.hi, hi.lo,
 // then hi.hi (one product's accumulator is not read back until kMT x kNT
@@ -101,11 +102,11 @@ constexpr int kNT = 8;
 // Fragment layouts of m16n8k8 .tf32 (g = lane / 4, t = lane % 4): A a0..a3 =
 // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B b0, b1 = (k t, n g),
 // (k t + 4, n g); C c0..c3 = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-template <bool A_KMAJOR, bool B_KMAJOR>
-__device__ __forceinline__ void kstep_3xtf32(float (&acc)[kMT][kNT][4], const float* a,
+template <bool A_KMAJOR, bool B_KMAJOR, int NT = kNT>
+__device__ __forceinline__ void kstep_3xtf32(float (&acc)[kMT][NT][4], const float* a,
                                              int lda, const float* b, int ldb, int k0) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    uint32_t ah[kMT][4], al[kMT][4], bh[kNT][2], bl[kNT][2];
+    uint32_t ah[kMT][4], al[kMT][4], bh[NT][2], bl[NT][2];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
@@ -115,7 +116,7 @@ __device__ __forceinline__ void kstep_3xtf32(float (&acc)[kMT][kNT][4], const fl
         }
     }
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
             const int n = 8 * nt + g, k = k0 + t + 4 * i;
@@ -123,15 +124,15 @@ __device__ __forceinline__ void kstep_3xtf32(float (&acc)[kMT][kNT][4], const fl
         }
     }
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
 }
@@ -153,17 +154,17 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
 // keep it at ~12 ulp of a slice's sum, where one chain over a whole product
 // (x . W1^T's 192, dW1's thousands) drifted on an H100 to ~1e-5 and ~2e-4
 // relative (python -m vlsa_tpu_torch.ops.abmil_variants, `one_chain`).
-template <bool A_KMAJOR, bool B_KMAJOR>
-__device__ __forceinline__ void slice_3xtf32(float (&acc)[kMT][kNT][4], const float* a,
+template <bool A_KMAJOR, bool B_KMAJOR, int NT = kNT>
+__device__ __forceinline__ void slice_3xtf32(float (&acc)[kMT][NT][4], const float* a,
                                              int lda, const float* b, int ldb) {
-    float part[kMT][kNT][4];
+    float part[kMT][NT][4];
     zero_acc(part);
 #pragma unroll
-    for (int kk = 0; kk < 32; kk += 8) kstep_3xtf32<A_KMAJOR, B_KMAJOR>(part, a, lda, b, ldb, kk);
+    for (int kk = 0; kk < 32; kk += 8) kstep_3xtf32<A_KMAJOR, B_KMAJOR, NT>(part, a, lda, b, ldb, kk);
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
 }
@@ -442,12 +443,320 @@ __global__ void prep_w1(const float* __restrict__ w1, __nv_bfloat16* __restrict_
     if (lo != nullptr) lo[i] = __float2bfloat16(w - __bfloat162float(h));
 }
 
-inline cudaError_t launch_prep_w1(const float* w1, __nv_bfloat16* w1_bf16, bool split,
+// W1 [n = hid * D] to bf16 in w1_bf16 and, when split, the residual's bf16
+// rounding n entries on.
+inline cudaError_t launch_prep_w1(const float* w1, __nv_bfloat16* w1_bf16, bool split, int n,
                                   cudaStream_t stream) {
-    const int n = kHid * kD;
     prep_w1<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
         w1, w1_bf16, split ? w1_bf16 + n : nullptr, n);
     return cudaGetLastError();
+}
+
+// ------------------------------------------------ W1's int8 split (int8 storage)
+
+constexpr int kAmaxBlocks = 64;  // partial maxima of |W1|
+
+// Partial maxima of |W1| [n]: block k of kAmaxBlocks writes the max over its
+// n / kAmaxBlocks entries to part[k].  A max is exact in any order.
+__global__ void __launch_bounds__(kThreads) w1_absmax(const float* __restrict__ w1, int n,
+                                                      float* __restrict__ part) {
+    const int per = n / kAmaxBlocks;
+    __shared__ float warp_m[kWarps];
+    const float4* src = reinterpret_cast<const float4*>(w1 + (size_t)blockIdx.x * per);
+    float m = 0.f;
+    for (int i = threadIdx.x; i < per / 4; i += kThreads) {
+        const float4 v = src[i];
+        m = fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+    }
+    m = warp_max(m);
+    if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x >> 5] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_m[w]);
+        part[blockIdx.x] = m;
+    }
+}
+
+// W1 split into int8 hi and lo as vlsa_tpu/ops/coattn.py::_mm_rows_i8 splits
+// it (and ops/abmil.py::split_w1_i8): s_w = max(max|W1|, 1e-30) * (1/127),
+// v = W1 * (1 / s_w), hi = round(v), lo = round((v - hi) * 254), ties to
+// even, each operation rounded on its own (no fused multiply-add).  Every
+// block takes the max of the partial maxima; block 0 writes s_w to
+// scale[0].  One thread an entry.
+__global__ void __launch_bounds__(kThreads) prep_w1_i8(const float* __restrict__ w1,
+                                                       const float* __restrict__ part,
+                                                       int8_t* __restrict__ hi,
+                                                       int8_t* __restrict__ lo,
+                                                       float* __restrict__ scale) {
+    static_assert(kAmaxBlocks == 64, "two partial maxima a lane");
+    __shared__ float inv_s;
+    if (threadIdx.x < 32) {
+        const float m = warp_max(fmaxf(part[threadIdx.x], part[threadIdx.x + 32]));
+        if (threadIdx.x == 0) {
+            const float s = __fmul_rn(fmaxf(m, 1e-30f), (float)(1.0 / 127.0));
+            inv_s = __fdiv_rn(1.f, s);
+            if (blockIdx.x == 0) scale[0] = s;
+        }
+    }
+    __syncthreads();
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    const float v = __fmul_rn(w1[i], inv_s);
+    const float h = rintf(v);
+    hi[i] = static_cast<int8_t>(h);
+    lo[i] = static_cast<int8_t>(rintf(__fmul_rn(__fsub_rn(v, h), 254.f)));
+}
+
+// W1 [n = hid * D] f32 -> hi, lo int8 [n] each (hi, then lo at hi + n) and
+// scale [1 + kAmaxBlocks] f32: s_w, then the partial maxima.  n is a
+// multiple of kThreads and of 4 kAmaxBlocks (hid and D multiples of 64).
+inline cudaError_t launch_split_w1_i8(const float* w1, int n, int8_t* hi, float* scale,
+                                      cudaStream_t stream) {
+    w1_absmax<<<kAmaxBlocks, kThreads, 0, stream>>>(w1, n, scale + 1);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    prep_w1_i8<<<n / kThreads, kThreads, 0, stream>>>(w1, scale + 1, hi, hi + n, scale);
+    return cudaGetLastError();
+}
+
+// ------------------------------------------------ any width: the general instances
+//
+// The instances above are built for D = 512, hid = 256 (kD, kHid) and keep
+// the x tile resident.  Every other width the pooling takes -- D a multiple
+// of 64 in [64, kGenMaxD], hid in {64, 128, 256, 512}
+// (ops/abmil.py::kernel_widths_ok) -- and bf16's precise mode go to the
+// general instances: tiles of kGenM = 64 patches, x never resident.  The
+// h product streams x's and W1's slices of kSB bytes a row through 2
+// cp.async stages, in passes of HP hid columns (hid = npass HP): the logit
+// is separable over hid, sum_j tanh(h_pre_j + b1_j) w2_j, so each pass
+// folds its columns into the row's logit before the next re-streams the
+// tile's x slices (from L2: the tile was just read).  8 warps, 2 x 4: warp
+// (wm, wn) owns rows [32 wm, +32) and columns [HP/4 wn, +HP/4), NT = HP/32
+// n8 tiles of m16n8 accumulators a thread.  The products (GOp):
+//   kF32:   split TF32, mma.sync m16n8k8 (slice_3xtf32), slices of 32 columns;
+//   kBf16:  bf16 x by W1 rounded to bf16, mma.sync m16n8k16 by ldmatrix;
+//   kBf16P: precise mode (vlsa_tpu/ops/abmil.py:74-97): W1 as bf16 hi + lo,
+//           two products into one f32 accumulator;
+//   kI8:    raw int8 x by W1's int8 hi and lo (launch_split_w1_i8), mma.sync
+//           m16n8k32 into exact int32 P_hi and P_lo (|P| <= 2048 * 127^2 <
+//           2^31), then h_unit = s_w (P_hi + P_lo / 254), as
+//           ops/abmil.py::abmil_fwd_rounded; slices of 64 bytes, HP <= 128
+//           (two accumulators).
+constexpr int kGenM = 64;
+constexpr int kGenMaxD = 2048;
+constexpr int kGenMaxHid = 512;
+
+enum class GOp { kF32, kBf16, kBf16P, kI8 };
+
+// (D, hid) a width the kernels take (ops/abmil.py::kernel_widths_ok).
+inline bool widths_ok(int D, int hid) {
+    return D % 64 == 0 && D >= 64 && D <= kGenMaxD &&
+           (hid == 64 || hid == 128 || hid == 256 || hid == 512);
+}
+
+// The D = 512, hid = 256 instances take a call (every storage at that width
+// but bf16 in precise mode); else the general ones.
+inline bool special_widths(int storage, int D, int hid, bool precise) {
+    return D == kD && hid == kHid && !(storage == kBF16 && precise);
+}
+
+inline GOp gen_op(int storage, bool precise) {
+    if (storage == kF32) return GOp::kF32;
+    if (storage == kI8) return GOp::kI8;
+    return precise ? GOp::kBf16P : GOp::kBf16;
+}
+
+// The hid columns a pass of a general instance takes: all of hid up to 256
+// (128 for int8's two accumulators), else passes of that.
+inline int gen_pass_cols(int storage, int hid) {
+    return hid <= 128 ? hid : (storage == kI8 ? 128 : 256);
+}
+
+template <GOp OP, int HP>
+struct Gen {
+    static constexpr bool F32 = OP == GOp::kF32;
+    static constexpr bool I8 = OP == GOp::kI8;
+    static constexpr int kItem = F32 ? 4 : (I8 ? 1 : 2);                // bytes a value of x, W1
+    static constexpr int kParts = (OP == GOp::kBf16P || I8) ? 2 : 1;   // W1's planes
+    static constexpr int kSB = I8 ? 64 : 128;  // bytes of a row a slice
+    static constexpr int kLd = kSB + 16;       // a staged row's bytes: 8 rows, 8 bank groups
+    static constexpr int NT = HP / 32;
+    static constexpr size_t kX = (size_t)kGenM * kLd;  // the x rows of a stage
+    static constexpr size_t kStage = round128(kX + (size_t)kParts * HP * kLd);
+    static_assert(HP == 64 || HP == 128 || HP == 256, "a pass's columns");
+    static_assert(!I8 || HP <= 128, "int8 holds two accumulators");
+};
+
+// c += a . b on the int8 tensor cores (m16n8k32, s32 accumulation); the
+// fragments as m16n8k16's with four int8 a register: A a0..a3 = (g, 4t..),
+// (g + 8, 4t..), (g, 4t + 16..), (g + 8, 4t + 16..); B b0, b1 = (k 4t.., n
+// g), (k 4t + 16.., n g).
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two values of a row as floats (f32, bf16 or int8 storage).
+template <GOp OP>
+__device__ __forceinline__ float2 load_pair(const unsigned char* p) {
+    if constexpr (OP == GOp::kF32) {
+        return *reinterpret_cast<const float2*>(p);
+    } else if constexpr (OP == GOp::kI8) {
+        const char2 v = *reinterpret_cast<const char2*>(p);
+        return make_float2(static_cast<float>(v.x), static_cast<float>(v.y));
+    } else {
+        return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    }
+}
+
+// acc = x[t0, t0 + 64) . W1[j0, j0 + HP)^T of one bag (xb: its rows of
+// row_bytes = D * item), see the note above; sw: int8's s_w.  On entry both
+// stages are free; on return too (a barrier ends it), with acc in registers.
+template <GOp OP, int HP>
+__device__ __forceinline__ void gen_h_product(float (&acc)[kMT][HP / 32][4],
+                                              const unsigned char* __restrict__ xb, int t0,
+                                              int n_end, int row_bytes,
+                                              const unsigned char* __restrict__ w1h,
+                                              const unsigned char* __restrict__ w1l, int j0,
+                                              float sw, unsigned char* stages) {
+    using G = Gen<OP, HP>;
+    constexpr int NT = G::NT;
+    constexpr int kC = G::kSB / 16;  // 16-byte chunks of a row a slice
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
+    const int slices = row_bytes / G::kSB;
+    auto load = [&](int s, unsigned char* st) {
+        const int c0 = s * G::kSB;
+        for (int i = threadIdx.x; i < kGenM * kC; i += kThreads) {
+            const int r = i / kC, c = 16 * (i % kC);
+            const bool ok = t0 + r < n_end;
+            cp_async16(st + r * G::kLd + c, ok ? xb + (size_t)(t0 + r) * row_bytes + c0 + c : xb,
+                       ok);
+        }
+        for (int i = threadIdx.x; i < HP * kC; i += kThreads) {
+            const int j = i / kC, c = 16 * (i % kC);
+            const size_t off = (size_t)(j0 + j) * row_bytes + c0 + c;
+            unsigned char* dst = st + G::kX + j * G::kLd + c;
+            cp_async16(dst, w1h + off, true);
+            if constexpr (G::kParts == 2) cp_async16(dst + HP * G::kLd, w1l + off, true);
+        }
+    };
+    int ph[kMT][NT][4], pl[kMT][NT][4];  // int8: P_hi, P_lo
+    zero_acc(acc);
+    if constexpr (G::I8) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) ph[mt][nt][i] = pl[mt][nt][i] = 0;
+    }
+    load(0, stages);
+    cp_async_commit();
+    // ldmatrix row addresses (bf16, int8): A the x rows, B the W1 rows
+    const int xo = (32 * wm + (lane & 7) + 8 * ((lane >> 3) & 1)) * G::kLd + 16 * (lane >> 4);
+    const int wo = (int)G::kX + ((HP / 4) * wn + (lane & 7) + 8 * (lane >> 4)) * G::kLd +
+                   16 * ((lane >> 3) & 1);
+#pragma unroll 1
+    for (int s = 0; s < slices; ++s) {
+        cp_async_wait<0>();
+        __syncthreads();  // slice s landed for all; the other stage's slice s - 1 is consumed
+        if (s + 1 < slices) load(s + 1, stages + ((s + 1) & 1) * G::kStage);
+        cp_async_commit();
+        const unsigned char* st = stages + (s & 1) * G::kStage;
+        if constexpr (G::F32) {
+            slice_3xtf32<false, false, NT>(
+                acc, reinterpret_cast<const float*>(st + 32 * wm * G::kLd), G::kLd / 4,
+                reinterpret_cast<const float*>(st + G::kX + (HP / 4) * wn * G::kLd), G::kLd / 4);
+        } else {
+#pragma unroll
+            for (int ks = 0; ks < G::kSB / 32; ++ks) {  // k-steps of 32 bytes
+                uint32_t a[kMT][4];
+#pragma unroll
+                for (int mt = 0; mt < kMT; ++mt) ldsm_x4(a[mt], st + xo + 16 * mt * G::kLd + 32 * ks);
+#pragma unroll
+                for (int part = 0; part < G::kParts; ++part) {
+#pragma unroll
+                    for (int np = 0; np < NT / 2; ++np) {
+                        uint32_t bw[4];
+                        ldsm_x4(bw, st + wo + part * HP * G::kLd + 16 * np * G::kLd + 32 * ks);
+#pragma unroll
+                        for (int mt = 0; mt < kMT; ++mt) {
+                            if constexpr (G::I8) {
+                                if (part == 0) {
+                                    mma_s8(ph[mt][2 * np], a[mt], bw[0], bw[1]);
+                                    mma_s8(ph[mt][2 * np + 1], a[mt], bw[2], bw[3]);
+                                } else {
+                                    mma_s8(pl[mt][2 * np], a[mt], bw[0], bw[1]);
+                                    mma_s8(pl[mt][2 * np + 1], a[mt], bw[2], bw[3]);
+                                }
+                            } else {
+                                mma_bf16(acc[mt][2 * np], a[mt], bw[0], bw[1]);
+                                mma_bf16(acc[mt][2 * np + 1], a[mt], bw[2], bw[3]);
+                            }
+                        }
+                    }
+                }
+            }
+        }
+    }
+    __syncthreads();  // every warp is done with both stages
+    if constexpr (G::I8) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    acc[mt][nt][i] = sw * (static_cast<float>(ph[mt][nt][i]) +
+                                           static_cast<float>(pl[mt][nt][i]) * (1.f / 254.f));
+                }
+    }
+}
+
+// From gen_h_product's accumulators (pass columns from j0): acc becomes
+// tanh(s_r acc + b1) in place (s_r the row's dequant scale from rs, int8;
+// else 1), and each row's partial logit over the warp's columns goes to
+// red[wn][row] ([4][kGenM]).  b1s, w2s: b1 and w2 [hid] in shared memory.
+template <int NT, bool SCALED>
+__device__ __forceinline__ void gen_tanh_logit(float (&acc)[kMT][NT][4], const float* b1s,
+                                               const float* w2s, int j0, const float* rs,
+                                               float* red) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
+    float part[kMT][2];
+    float sr[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            part[mt][h] = 0.f;
+            sr[mt][h] = SCALED ? rs[32 * wm + 16 * mt + 8 * h + g] : 1.f;
+        }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+        const int j = j0 + 8 * NT * wn + 8 * nt + 2 * t;
+        const float c0 = b1s[j], c1 = b1s[j + 1], u0 = w2s[j], u1 = w2s[j + 1];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float* c = acc[mt][nt] + 2 * h;
+                c[0] = tanhf((SCALED ? c[0] * sr[mt][h] : c[0]) + c0);
+                c[1] = tanhf((SCALED ? c[1] * sr[mt][h] : c[1]) + c1);
+                part[mt][h] = fmaf(c[0], u0, fmaf(c[1], u1, part[mt][h]));
+            }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float v = part[mt][h];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (t == 0) red[wn * kGenM + 32 * wm + 16 * mt + 8 * h + g] = v;
+        }
 }
 
 }  // namespace abmil

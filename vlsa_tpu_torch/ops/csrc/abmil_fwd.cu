@@ -69,6 +69,10 @@
 //     registers: 8 warps of 32 rows x 64 hid columns, 64 accumulators a
 //     thread; tanh, the w2 dot and the quad and warp sums of the logit run
 //     on the fragments.  209 KB of shared memory: one block per SM.
+//   Both are built for D = 512, hid = 256.  Every other width (D a multiple
+//   of 64 up to 2048, hid in {64, 128, 256, 512}) and bf16 in vlsa_tpu's
+//   precise mode (W1 as bf16 hi + lo) run abmil_fwd_general: tiles of 64
+//   patches on mma.sync, x streamed (see the note above that kernel).
 //
 // Design.  The TPU grid walks N in order and carries (m, l, acc) in VMEM.
 // Hopper runs blocks in parallel, so each bag's patches are split over S
@@ -107,7 +111,6 @@ constexpr int kMQ = 128;        // patches a tile (bf16, int8)
 constexpr int kKB = sm90::kSpan;  // bytes of a row a k-block holds: one 128-byte swizzle span
 constexpr int kAtom = sm90::kAtom;  // 1024: 8 rows of a k-block, the swizzle's period
 constexpr int kSlicesW = 8;     // W1 slices a tile: bf16 its 8 k-blocks, int8 hi's 4 then lo's 4
-constexpr int kAmaxBlocks = 64;
 
 // h = tanh(h_pre), by the library's tanhf (1 - 2 / (e^2v + 1) with the
 // fast exponential and division measured no faster: python -m
@@ -594,10 +597,10 @@ abmil_fwd_partial_f32(const float* __restrict__ x, const uint8_t* __restrict__ m
 }
 
 // Merge the S partials of each bag: m = max_s m_s, l = sum_s l_s e^(m_s - m),
-// out = sum_s acc_s e^(m_s - m) / max(l, 1e-30).  Grid (B).
+// out = sum_s acc_s e^(m_s - m) / max(l, 1e-30).  Grid (B); rows of D.
 __global__ void __launch_bounds__(kThreads)
 abmil_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
-                const float* __restrict__ ws_acc, int S, float* __restrict__ out,
+                const float* __restrict__ ws_acc, int S, int D, float* __restrict__ out,
                 float* __restrict__ m_out, float* __restrict__ l_out) {
     extern __shared__ float e_s[];  // [S]
     __shared__ float m_all, l_all;
@@ -620,62 +623,12 @@ abmil_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
     }
     __syncthreads();
     const float inv_l = 1.f / l_all;
-    const float* ab = ws_acc + (size_t)b * S * kD;
-    for (int c = tid; c < kD; c += kThreads) {
+    const float* ab = ws_acc + (size_t)b * S * D;
+    for (int c = tid; c < D; c += kThreads) {
         float v = 0.f;
-        for (int s = 0; s < S; ++s) v += ab[(size_t)s * kD + c] * e_s[s];
-        out[(size_t)b * kD + c] = v * inv_l;
+        for (int s = 0; s < S; ++s) v += ab[(size_t)s * D + c] * e_s[s];
+        out[(size_t)b * D + c] = v * inv_l;
     }
-}
-
-// Partial maxima of |W1|: block k of kAmaxBlocks writes the max over its
-// kHid * kD / kAmaxBlocks entries to part[k].  A max is exact in any order.
-__global__ void __launch_bounds__(kThreads) w1_absmax(const float* __restrict__ w1,
-                                                      float* __restrict__ part) {
-    constexpr int kPer = kHid * kD / kAmaxBlocks;
-    __shared__ float warp_m[kWarps];
-    const float4* src = reinterpret_cast<const float4*>(w1 + (size_t)blockIdx.x * kPer);
-    float m = 0.f;
-    for (int i = threadIdx.x; i < kPer / 4; i += kThreads) {
-        const float4 v = src[i];
-        m = fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
-    }
-    m = warp_max(m);
-    if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x >> 5] = m;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_m[w]);
-        part[blockIdx.x] = m;
-    }
-}
-
-// W1 split into int8 hi and lo as vlsa_tpu/ops/coattn.py::_mm_rows_i8 splits
-// it (and ops/abmil.py::split_w1_i8): s_w = max(max|W1|, 1e-30) * (1/127),
-// v = W1 * (1 / s_w), hi = round(v), lo = round((v - hi) * 254), ties to
-// even, each operation rounded on its own (no fused multiply-add).  Every
-// block takes the max of the partial maxima; block 0 writes s_w to
-// scale[0].  One thread an entry.
-__global__ void __launch_bounds__(kThreads) prep_w1_i8(const float* __restrict__ w1,
-                                                       const float* __restrict__ part,
-                                                       int8_t* __restrict__ hi,
-                                                       int8_t* __restrict__ lo,
-                                                       float* __restrict__ scale) {
-    static_assert(kAmaxBlocks == 64, "two partial maxima a lane");
-    __shared__ float inv_s;
-    if (threadIdx.x < 32) {
-        const float m = warp_max(fmaxf(part[threadIdx.x], part[threadIdx.x + 32]));
-        if (threadIdx.x == 0) {
-            const float s = __fmul_rn(fmaxf(m, 1e-30f), (float)(1.0 / 127.0));
-            inv_s = __fdiv_rn(1.f, s);
-            if (blockIdx.x == 0) scale[0] = s;
-        }
-    }
-    __syncthreads();
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    const float v = __fmul_rn(w1[i], inv_s);
-    const float h = rintf(v);
-    hi[i] = static_cast<int8_t>(h);
-    lo[i] = static_cast<int8_t>(rintf(__fmul_rn(__fsub_rn(v, h), 254.f)));
 }
 
 // W1 for the bf16 (W1 in bf16, w1_ws [kHid, kD]) or int8 (hi and lo, w1_ws
@@ -692,16 +645,12 @@ cudaError_t launch_partial(const void* x, const float* x_scale, const uint8_t* m
     cudaError_t err;
     if constexpr (sizeof(T) == 1) {
         int8_t* hi = static_cast<int8_t*>(w1_ws);
-        w1_absmax<<<kAmaxBlocks, kThreads, 0, stream>>>(w1, w1_scale + 1);
-        if ((err = cudaGetLastError()) != cudaSuccess) return err;
-        prep_w1_i8<<<kW / kThreads, kThreads, 0, stream>>>(w1, w1_scale + 1, hi, hi + kW,
-                                                          w1_scale);
+        err = launch_split_w1_i8(w1, kW, hi, w1_scale, stream);
         w1l = hi + kW;
     } else {
-        err = launch_prep_w1(w1, static_cast<__nv_bfloat16*>(w1_ws), false, stream);
-        if (err != cudaSuccess) return err;
+        err = launch_prep_w1(w1, static_cast<__nv_bfloat16*>(w1_ws), false, kW, stream);
     }
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (err != cudaSuccess) return err;
     auto kernel = abmil_fwd_partial<T>;
     const size_t smem = FwdSmemQ<T>::total;
     if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -727,30 +676,279 @@ cudaError_t launch_partial_f32(const float* x, const uint8_t* mask, const float*
     return cudaGetLastError();
 }
 
+// ------------------------------------------------ any width: the general instance
+//
+// Every (D, hid) but 512, 256 and bf16's precise mode (abmil_common.cuh's
+// general instances): tiles of kGenM = 64 patches, the h product in passes
+// of HP hid columns streaming x's and W1's slices (gen_h_product), each
+// pass folding its columns into the rows' logits; then the online softmax,
+// and the PV sum re-reading the tile's rows, L2-hot, by plain loads: each
+// thread holds the channel pairs 2 (tid + 256 i), i < kPvPairs, in
+// registers.  x is read from device memory once, from L2 npass + 1 times.
+
+// Shared memory: 2 stages, b1 and w2 [kGenMaxHid], the logits' partials
+// [4][kGenM], then logit, p, valid, s [kGenM] and 4 stats.
+template <GOp OP, int HP>
+struct FwdSmemG {
+    static constexpr size_t w = 0;
+    static constexpr size_t cols = 2 * Gen<OP, HP>::kStage;
+    static constexpr size_t red = cols + 2 * (size_t)kGenMaxHid * 4;
+    static constexpr size_t rows = red + 4 * (size_t)kGenM * 4;
+    static constexpr size_t total = rows + (4 * (size_t)kGenM + 4) * 4;
+};
+
+constexpr int kPvPairs = kGenMaxD / (2 * kThreads);  // 4
+
+// The partial of block (split, b) at any width.  w1h, w1l: W1 as the product
+// takes it (f32: w1 itself; bf16: its bf16 rounding; precise: bf16 hi and
+// lo; int8: int8 hi and lo, s_w in w1_scale[0]).  Grid (S, B).
+template <GOp OP, int HP>
+__global__ void __launch_bounds__(kThreads, 1)
+abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
+                  const uint8_t* __restrict__ mask, const void* __restrict__ w1h,
+                  const void* __restrict__ w1l, const float* __restrict__ w1_scale,
+                  const float* __restrict__ b1, const float* __restrict__ w2, int N, int D,
+                  int hid, int chunk, int S, float* __restrict__ ws_m, float* __restrict__ ws_l,
+                  float* __restrict__ ws_acc) {
+    using G = Gen<OP, HP>;
+    using L = FwdSmemG<OP, HP>;
+    extern __shared__ __align__(128) unsigned char smem[];
+    float* b1s = reinterpret_cast<float*>(smem + L::cols);
+    float* w2s = b1s + kGenMaxHid;
+    float* red = reinterpret_cast<float*>(smem + L::red);
+    float* logit_s = reinterpret_cast<float*>(smem + L::rows);
+    float* p_s = logit_s + kGenM;
+    float* valid_s = p_s + kGenM;
+    float* sc_s = valid_s + kGenM;  // int8: the rows' dequant scales
+    float* stat_s = sc_s + kGenM;   // m, l, correction
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int split = blockIdx.x, b = blockIdx.y;
+    const int n_begin = split * chunk;
+    const int n_end = min(N, n_begin + chunk);
+    const int row_bytes = D * G::kItem;
+    const unsigned char* xb = static_cast<const unsigned char*>(x) + (size_t)b * N * row_bytes;
+    const unsigned char* wh = static_cast<const unsigned char*>(w1h);
+    const unsigned char* wl = static_cast<const unsigned char*>(w1l);
+    const uint8_t* mb = mask + (size_t)b * N;
+    const float sw = G::I8 ? *w1_scale : 1.f;
+
+    for (int j = tid; j < hid; j += kThreads) {
+        b1s[j] = b1[j];
+        w2s[j] = w2[j];
+    }
+    if (tid == 0) {
+        stat_s[0] = kNegInf;
+        stat_s[1] = 0.f;
+    }
+    float2 pv[kPvPairs];
+#pragma unroll
+    for (int i = 0; i < kPvPairs; ++i) pv[i] = make_float2(0.f, 0.f);
+    float acc[kMT][G::NT][4];
+
+#pragma unroll 1
+    for (int t0 = n_begin; t0 < n_end; t0 += kGenM) {
+        if (tid < kGenM) {
+            const int n = t0 + tid;
+            valid_s[tid] = n < n_end && mb[n] != 0 ? 1.f : 0.f;
+            sc_s[tid] = G::I8 && n < n_end ? x_scale[(size_t)b * N + n] : 1.f;
+            logit_s[tid] = 0.f;
+        }
+#pragma unroll 1
+        for (int j0 = 0; j0 < hid; j0 += HP) {
+            gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, wh, wl, j0, sw, smem + L::w);
+            gen_tanh_logit<G::NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
+            __syncthreads();
+            if (tid < kGenM) {
+                logit_s[tid] += (red[tid] + red[kGenM + tid]) +
+                                (red[2 * kGenM + tid] + red[3 * kGenM + tid]);
+            }
+        }
+        __syncthreads();
+
+        if (warp == 0) {
+            float lg[kGenM / 32];
+            float mx = kNegInf;
+#pragma unroll
+            for (int i = 0; i < kGenM / 32; ++i) {
+                const int r = lane + 32 * i;
+                lg[i] = valid_s[r] != 0.f ? logit_s[r] : kNegInf;
+                mx = fmaxf(mx, lg[i]);
+            }
+            mx = warp_max(mx);
+            const float m_prev = stat_s[0];
+            const float m_new = fmaxf(m_prev, mx);
+            float psum = 0.f;
+#pragma unroll
+            for (int i = 0; i < kGenM / 32; ++i) {
+                const int r = lane + 32 * i;
+                const float p = valid_s[r] != 0.f ? expf(lg[i] - m_new) : 0.f;
+                p_s[r] = G::I8 ? p * sc_s[r] : p;  // the PV weight folds in s[n]
+                psum += p;
+            }
+            psum = warp_sum(psum);
+            if (lane == 0) {
+                const float corr = expf(m_prev - m_new);
+                stat_s[2] = corr;
+                stat_s[1] = stat_s[1] * corr + psum;
+                stat_s[0] = m_new;
+            }
+        }
+        __syncthreads();
+
+        // PV over the tile's rows, re-read from L2
+        const float corr = stat_s[2];
+        const int rows = min(kGenM, n_end - t0);
+        const unsigned char* xt = xb + (size_t)t0 * row_bytes;
+        float2 sum[kPvPairs];
+#pragma unroll
+        for (int i = 0; i < kPvPairs; ++i) sum[i] = make_float2(0.f, 0.f);
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r) {
+            const float p = p_s[r];
+            const unsigned char* xr = xt + (size_t)r * row_bytes;
+#pragma unroll
+            for (int i = 0; i < kPvPairs; ++i) {
+                const int c = 2 * (tid + kThreads * i);
+                if (c < D) {
+                    const float2 v = load_pair<OP>(xr + (size_t)c * G::kItem);
+                    sum[i].x = fmaf(p, v.x, sum[i].x);
+                    sum[i].y = fmaf(p, v.y, sum[i].y);
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < kPvPairs; ++i) {
+            pv[i].x = pv[i].x * corr + sum[i].x;
+            pv[i].y = pv[i].y * corr + sum[i].y;
+        }
+    }
+    cp_async_wait<0>();
+
+    const size_t part = (size_t)b * S + split;
+    if (tid == 0) {
+        ws_m[part] = stat_s[0];
+        ws_l[part] = stat_s[1];
+    }
+#pragma unroll
+    for (int i = 0; i < kPvPairs; ++i) {
+        const int c = 2 * (tid + kThreads * i);
+        if (c < D) *reinterpret_cast<float2*>(ws_acc + part * D + c) = pv[i];
+    }
+}
+
+template <GOp OP, int HP>
+cudaError_t launch_general_hp(const void* x, const float* x_scale, const uint8_t* mask,
+                              const void* w1h, const void* w1l, const float* w1_scale,
+                              const float* b1, const float* w2, int B, int N, int D, int hid,
+                              int chunk, int S, float* ws_m, float* ws_l, float* ws_acc,
+                              cudaStream_t stream) {
+    auto kernel = abmil_fwd_general<OP, HP>;
+    const size_t smem = FwdSmemG<OP, HP>::total;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(S, B), kThreads, smem, stream>>>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2,
+                                                   N, D, hid, chunk, S, ws_m, ws_l, ws_acc);
+    return cudaGetLastError();
+}
+
+template <GOp OP>
+cudaError_t launch_general_op(int hp, const void* x, const float* x_scale, const uint8_t* mask,
+                              const void* w1h, const void* w1l, const float* w1_scale,
+                              const float* b1, const float* w2, int B, int N, int D, int hid,
+                              int chunk, int S, float* ws_m, float* ws_l, float* ws_acc,
+                              cudaStream_t stream) {
+    if (hp == 64) {
+        return launch_general_hp<OP, 64>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2, B, N, D,
+                                         hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+    }
+    if constexpr (OP != GOp::kI8) {
+        if (hp == 256) {
+            return launch_general_hp<OP, 256>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2, B, N,
+                                              D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+        }
+    }
+    return launch_general_hp<OP, 128>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2, B, N, D,
+                                      hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+}
+
+template <GOp OP>
+size_t general_smem(int hp) {
+    if (hp == 64) return FwdSmemG<OP, 64>::total;
+    if constexpr (OP != GOp::kI8) {
+        if (hp == 256) return FwdSmemG<OP, 256>::total;
+    }
+    return FwdSmemG<OP, 128>::total;
+}
+
+// W1 for the general instance (bf16: its rounding, precise: hi and lo, in
+// w1_ws; int8: hi and lo in w1_ws, s_w and the partial maxima in
+// w1_scale), then the partials.
+cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* mask,
+                           const float* w1, void* w1_ws, float* w1_scale, const float* b1,
+                           const float* w2, int B, int N, int D, int hid, int chunk, int S,
+                           int storage, bool precise, float* ws_m, float* ws_l, float* ws_acc,
+                           cudaStream_t stream) {
+    const int n = hid * D;
+    const int hp = gen_pass_cols(storage, hid);
+    cudaError_t err = cudaSuccess;
+    const GOp op = gen_op(storage, precise);
+    if (op == GOp::kI8) {
+        int8_t* hi = static_cast<int8_t*>(w1_ws);
+        if ((err = launch_split_w1_i8(w1, n, hi, w1_scale, stream)) != cudaSuccess) return err;
+        return launch_general_op<GOp::kI8>(hp, x, x_scale, mask, hi, hi + n, w1_scale, b1, w2, B,
+                                           N, D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+    }
+    if (op == GOp::kF32) {
+        return launch_general_op<GOp::kF32>(hp, x, nullptr, mask, w1, nullptr, nullptr, b1, w2,
+                                            B, N, D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+    }
+    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(w1_ws);
+    if ((err = launch_prep_w1(w1, wb, precise, n, stream)) != cudaSuccess) return err;
+    if (precise) {
+        return launch_general_op<GOp::kBf16P>(hp, x, nullptr, mask, wb, wb + n, nullptr, b1, w2,
+                                              B, N, D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+    }
+    return launch_general_op<GOp::kBf16>(hp, x, nullptr, mask, wb, nullptr, nullptr, b1, w2, B,
+                                         N, D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of dynamic shared memory one partial block needs.
-size_t abmil_fwd_smem_bytes(int storage) {
-    if (storage == kF32) return FwdSmemF::total;
-    if (storage == kBF16) return FwdSmemQ<__nv_bfloat16>::total;
-    return FwdSmemQ<int8_t>::total;
+size_t abmil_fwd_smem_bytes(int storage, int D, int hid, int precise) {
+    if (special_widths(storage, D, hid, precise != 0)) {
+        if (storage == kF32) return FwdSmemF::total;
+        if (storage == kBF16) return FwdSmemQ<__nv_bfloat16>::total;
+        return FwdSmemQ<int8_t>::total;
+    }
+    const int hp = gen_pass_cols(storage, hid);
+    switch (gen_op(storage, precise != 0)) {
+        case GOp::kF32: return general_smem<GOp::kF32>(hp);
+        case GOp::kBf16: return general_smem<GOp::kBf16>(hp);
+        case GOp::kBf16P: return general_smem<GOp::kBf16P>(hp);
+        default: return general_smem<GOp::kI8>(hp);
+    }
 }
 
-// x [B, N, 512] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N] f32 for int8,
-// else null; mask [B, N] bool; w1 [256, 512], b1 and w2 [256] f32.
-// Workspace: w1_ws W1 for the kernel, null (f32), [256, 512] bf16 (bf16) or
-// [2, 256, 512] int8 (int8: hi, lo); w1_scale f32 [65] (int8: s_w and 64
-// partial maxima of |W1|; else null); ws_m and ws_l [B, S], ws_acc
-// [B, S, 512] f32.  Outputs: out [B, 512], m and l [B] f32.  All on CUDA
-// device `device`; the kernels go to `stream`.  Returns the launches'
-// cudaError_t (0 on success).
+// x [B, N, D] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N] f32 for int8,
+// else null; mask [B, N] bool; w1 [hid, D], b1 and w2 [hid] f32; precise:
+// bf16's precise mode (W1 as bf16 hi + lo).  Workspace: w1_ws W1 for the
+// kernel, null (f32), [hid, D] bf16 (bf16), [2, hid, D] bf16 (bf16 precise,
+// hi and lo) or [2, hid, D] int8 (int8: hi, lo); w1_scale f32 [65] (int8: s_w
+// and 64 partial maxima of |W1|; else null); ws_m and ws_l [B, S], ws_acc
+// [B, S, D] f32.  Outputs: out [B, D], m and l [B] f32.  All on CUDA device
+// `device`; the kernels go to `stream`.  Returns the launches' cudaError_t
+// (0 on success).
 int abmil_fwd(const void* x, const void* x_scale, const void* mask, const void* w1,
-              const void* b1, const void* w2, int B, int N, int chunk, int S, int storage,
-              int device, void* w1_ws, void* w1_scale, void* ws_m, void* ws_l, void* ws_acc,
-              void* out, void* m_out, void* l_out, void* stream) {
-    if (B < 1 || N < 1 || S < 1 || chunk < 1 || (storage != kF32) != (w1_ws != nullptr)
+              const void* b1, const void* w2, int B, int N, int D, int hid, int chunk, int S,
+              int storage, int precise, int device, void* w1_ws, void* w1_scale, void* ws_m,
+              void* ws_l, void* ws_acc, void* out, void* m_out, void* l_out, void* stream) {
+    if (B < 1 || N < 1 || S < 1 || chunk < 1 || !widths_ok(D, hid)
+        || (storage != kF32) != (w1_ws != nullptr)
         || (storage == kI8) != (w1_scale != nullptr)
         || (storage == kI8) != (x_scale != nullptr)) {
         return (int)cudaErrorInvalidValue;
@@ -767,22 +965,24 @@ int abmil_fwd(const void* x, const void* x_scale, const void* mask, const void* 
     float* wm = static_cast<float*>(ws_m);
     float* wl = static_cast<float*>(ws_l);
     float* wa = static_cast<float*>(ws_acc);
-    if (storage == kF32) {
+    if (storage != kF32 && storage != kBF16 && storage != kI8) return (int)cudaErrorInvalidValue;
+    if (!special_widths(storage, D, hid, precise != 0)) {
+        err = launch_general(x, xs, mk, w1f, w1_ws, wsc, b1f, w2f, B, N, D, hid, chunk, S,
+                             storage, precise != 0 && storage == kBF16, wm, wl, wa, st);
+    } else if (storage == kF32) {
         err = launch_partial_f32(static_cast<const float*>(x), mk, w1f, b1f, w2f, B, N, chunk,
                                  S, wm, wl, wa, st);
     } else if (storage == kBF16) {
         err = launch_partial<__nv_bfloat16>(x, xs, mk, w1f, w1_ws, wsc, b1f, w2f, B, N, chunk,
                                             S, wm, wl, wa, st);
-    } else if (storage == kI8) {
+    } else {
         err = launch_partial<int8_t>(x, xs, mk, w1f, w1_ws, wsc, b1f, w2f, B, N, chunk, S, wm,
                                      wl, wa, st);
-    } else {
-        return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
     const size_t merge_smem = sizeof(float) * (size_t)S;
     if (merge_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    abmil_fwd_merge<<<B, kThreads, merge_smem, st>>>(wm, wl, wa, S, static_cast<float*>(out),
+    abmil_fwd_merge<<<B, kThreads, merge_smem, st>>>(wm, wl, wa, S, D, static_cast<float*>(out),
                                                      static_cast<float*>(m_out),
                                                      static_cast<float*>(l_out));
     return (int)cudaGetLastError();
