@@ -71,9 +71,20 @@ non-zero and prints no result:
      ulp at the scale of its largest element; dX is exactly 0 on masked rows
      and the empty bag, and within 2e-2 of a true-f32 autograd of the plain
      pooling;
+  2f. the co-attention kernels above 16 queries (ceil(P/16) query groups of
+     16 rows, the last zero-padded; the forward and dQ with the groups on
+     the grid, dX looping over them on each tile): every forward and dQ
+     variant and both dX storages at P = 17, 32, 64 and 128 (B=8, N=10240,
+     C=512) and at P=32, C=1024 (the wide instances) against their plain
+     versions (forward TOL, dq TOL_DQ, dX dq 1e-3, bf16 dX one ulp; f32
+     within TOL_F32_FWD and TOL_F32_BWD of the exact function, the plain
+     version in float64, whose f32 run is printed beside it; the forward's
+     gap to `coattn_fwd_rounded` printed), the empty bag
+     and masked rows as phases 2 and 2e, each call one launch on its query
+     route (`LAUNCHES_QUERY_PATH`: "grid", "loop");
   3. serving: builds the flagship VLSA at the full CONCH width from a seed
      and answers requests of 8 synthetic bags (N~8192 jittered) in every
-     storage variant -- 3 in bf16 and 3 in int8 with host 1/||x|| among
+     storage variant -- 2 in bf16 and 2 in int8 with host 1/||x|| among
      them -- counting the kernel's launches, and holds the incidence
      probabilities against the same requests with the plain co-attention;
   3b. training: builds the flagship trainer on TCGA-BLCA fold 0 (12 label
@@ -94,8 +105,8 @@ non-zero and prints no result:
      bf16, 3 in int8, 1 in f32, counting the ABMIL kernels' launches, and
      holds the incidence probabilities against the plain pooling (1e-3);
   3d. SA training: Adam steps of SurvIFMLE on TCGA-BLCA fold 0 with 32
-     patients' bags a step: 3 in bf16, one in f32 and one in int8, then one
-     each in bf16 and f32 with `deepmil_use_feat_proj: True` (x needs a
+     patients' bags a step: one in bf16, one in f32 and one in int8, then
+     one each in bf16 and f32 with `deepmil_use_feat_proj: True` (x needs a
      gradient: the dX kernels); every step has a finite loss, moved
      parameters and an unchanged fc2 bias; on each variant's last batch the
      gradients through the kernels agree with those through the plain
@@ -121,7 +132,7 @@ non-zero and prints no result:
      tower's time per batch;
   3f. training with the feature projecter: the flagship trainer with
      `vlsa_img_encoder_use_feat_proj: True` (the patch features then need a
-     gradient: the dX kernel) takes Adam steps on TCGA-BLCA fold 0: 2 in
+     gradient: the dX kernel) takes Adam steps on TCGA-BLCA fold 0: 1 in
      bf16, 1 in f32, 1 in int8 (dequantized to bf16 by VLFAN) and 1 in bf16
      with host 1/||x|| (dropped by VLFAN), counting the forward and dX
      launches (the dQ-only kernel launches none) and the peak device memory
@@ -228,6 +239,19 @@ non-zero and prints no result:
      encode + decoupled product, Shapley), its peak device memory and the
      single bags' times beside the card's name and power limit; the stores
      and checkpoints are then removed;
+  3l. the flagship with 32 learned, gated VLFAN queries (`vlsa_img_encoder_
+     query: Parameter`, `num_query: 32`, `gated_query: True`: 33 parameter
+     rows folded to P = 32), every counter from 0 before each path: 2 bf16
+     and 2 int8 (with 1/||x||) requests of 8 bags served (1e-3 of the plain
+     co-attention), 1 epoch from phase 3h's bf16 .npy store through
+     `vlsa_tpu_torch.main.main` with 3h's checks and the reloaded
+     checkpoint's test probabilities bit for bit, a store batch's gradients
+     (text tower in f32) within 2e-3 of the plain co-attention's, and with
+     `vlsa_img_encoder_use_feat_proj: True` 2 Adam steps from the store
+     (finite losses, a bit-identical tower, moved parameters) whose last
+     batch's gradients are within 2e-3 of CoattnPoolFull on the plain
+     kernels; every launch on the query routes (forward and dQ "grid", dX
+     "loop"); rows 1-6 at P=32 go to the kernels line with these launches;
   3k. the SA baseline at 1024-d features: fold 0's 437 slides as bags of
      N~4096 jittered at D=1024 (buckets up to 16,384) written as a .npy f32 store
      and converted to .q8npz, as phase 3h; cfg_sa_base_conch.yaml at
@@ -247,7 +271,9 @@ non-zero and prints no result:
      could take (bound_ms); every forward variant also at B=64, one a
      storage at C=1024 (the wide instance), and dQ at the training shape
      B=32, N=16384, with kernel/bound, kernel/library and the backward's
-     block count (`fwd_plan`); at
+     block count (`kernel_plan`); every forward and dQ variant also at P=32
+     and 64 (B=8, the query groups on the grid), and what bounds each row at
+     P=12 and at P=128 (printed); at
      every timed shape the kernels' results are first held against their
      plain versions with the tolerances above;
   4b. ABMIL times: the same for each ABMIL kernel and its plain version at
@@ -268,7 +294,8 @@ non-zero and prints no result:
      never called by the port), the bound (`bound_flash`, exponentials
      counted) and, for the streamed kernel, its design's floor
      (`floor_flash_streamed`: two sweeps over 64-row and 64-key tiles);
-  4d. dX times: both variants of the full backward at B=8, N=10240 and bf16
+  4d. dX times: both variants of the full backward at B=8, N=10240 (also at
+     P=32 and 64, the looped instance) and bf16
      at the training shape B=32, N=16384, with its block count, beside the
      plain version, the
      gradient of one scaled_dot_product_attention call with respect to q, k
@@ -388,7 +415,7 @@ TOL_DX_DQ = {"f32": 1e-3, "bf16": 2e-3}
 TOL_DX_F32 = 1e-3
 TOL_DX_TRUE_F32 = 2e-2
 # the feature-projecter training steps: (feats_dtype, 1/||x|| shipped, steps)
-FEAT_PROJ_STEPS = (("bfloat16", False, 2), ("float32", False, 1), ("int8", False, 1),
+FEAT_PROJ_STEPS = (("bfloat16", False, 1), ("float32", False, 1), ("int8", False, 1),
                    ("bfloat16", True, 1))
 # flash self-attention (vlsa_tpu/models/vision_tower.py:312): the CONCH trunk's
 # attention at extraction, 448-px input, patch 16, so L = 1 + 28^2; hd = 64
@@ -431,6 +458,18 @@ PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "tf32": 495e12}
 SM_COUNT = 132
 SFU_PER_CLOCK_PER_SM = 16
 EXP_PER_S = SFU_PER_CLOCK_PER_SM * SM_COUNT * PEAK_OPS["f32"] / (SM_COUNT * 256)
+
+
+def bound_ms(nbytes, ops, storage):
+    """(ms, what bounds) of work that moves `nbytes` and does `ops`
+    operations on `storage` operands: max(bytes / HBM rate, operations /
+    peak rate).  f32 products take the card's faster route to f32 accuracy:
+    the CUDA cores (67 TFLOP/s) or 3 TF32 products each on the tensor cores
+    (495 TFLOP/s), "operations (3xTF32)" when that route bounds."""
+    t_bytes, t_ops, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage], "operations"
+    if storage == "f32" and 3 * ops / PEAK_OPS["tf32"] < t_ops:
+        t_ops, by_ops = 3 * ops / PEAK_OPS["tf32"], "operations (3xTF32)"
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else by_ops)
 # the flagship served configuration: configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml
 # with its grid lists resolved and the flagship's 12 ranks and 12 queries
 FLAGSHIP_CFG = {
@@ -481,7 +520,7 @@ TRAIN_STEPS = (("bfloat16", False, 1), ("float32", False, 1), ("float32", True, 
 LEARNABLE = ("prompt_learner.", "query_adapter.residual_features",
              "mil_encoder.visual_adapter.", "logit_scale")
 # the served requests: (feats_dtype, host 1/||x||, number of requests)
-SERVED = (("bfloat16", False, 3), ("int8", True, 3), ("float32", False, 1),
+SERVED = (("bfloat16", False, 2), ("int8", True, 2), ("float32", False, 1),
           ("float32", True, 1), ("bfloat16", True, 1), ("int8", False, 1))
 BAGS_PER_REQUEST = 8
 # the SA baseline: configs/IFMLE/tcga_blca/cfg_sa_base_conch.yaml as a dict
@@ -502,7 +541,7 @@ SA_CFG = {
 # SA requests (feats_dtype, number of requests) and training steps
 # (feats_dtype, deepmil_use_feat_proj, steps)
 SA_SERVED = (("bfloat16", 3), ("int8", 3), ("float32", 1))
-SA_TRAIN_STEPS = (("bfloat16", False, 3), ("float32", False, 1), ("int8", False, 1),
+SA_TRAIN_STEPS = (("bfloat16", False, 1), ("float32", False, 1), ("int8", False, 1),
                   ("bfloat16", True, 1), ("float32", True, 1))
 # the run lifecycle (phase 3g): the shipped configs' run keys as scalars,
 # fold 0 (no grid), save_path a temporary directory; the epochs are the only
@@ -617,6 +656,34 @@ A10_RUNS = (
      ("mil_encoder.query_pool.fc1_kernel", "mil_encoder.query_pool.fc2_kernel")),
 )
 
+# the co-attention kernels above 16 queries (ceil(P / 16) query groups of 16
+# rows, the last zero-padded): phase 2f holds rows 1-6 at QUERY_COUNTS at
+# SHAPE's B, N and C and at QUERY_WIDE (the wide instances) against their
+# plain versions (forward TOL, dQ TOL_DQ, dX TOL_DX_DQ and one bf16 ulp; f32
+# at TOL_F32_FWD and TOL_F32_BWD against the exact function, the plain
+# version in float64: above 16 rows its f32 run is itself 2e-6-3.7e-6 from
+# exact), phases 4 and 4d time them at QUERY_TIMED, and phase 4 logs each
+# bound at QUERY_BOUND_P
+QUERY_COUNTS = (17, 32, 64, 128)
+QUERY_WIDE = dict(B=8, N=10240, C=1024, P=32)
+QUERY_TIMED = (32, 64)
+QUERY_BOUND_P = 128
+# phase 3l: the flagship (configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml) with
+# 32 learned, gated VLFAN queries (33 parameter rows, folded to P = 32 by
+# `effective_query`): served (requests as phase 3's: (feats_dtype, host
+# 1/||x||, count)), trained 1 epoch from phase 3h's bf16 .npy store through
+# `python -m vlsa_tpu_torch.main` (QUERIES_RUN, as STORE_RUNS), and with the
+# feature projecter QUERIES_FEAT_PROJ_STEPS steps from the same store.  The
+# kernels (and variants) those paths launch: the kernels line's P=32 rows
+# that must show launches
+GATED_QUERIES = dict(vlsa_img_encoder_query="Parameter", vlsa_img_encoder_num_query=32,
+                     vlsa_img_encoder_gated_query=True)
+QUERIES_SERVED = (("bfloat16", False, 2), ("int8", True, 2))
+QUERIES_RUN = ("vlsa_q32_bf16_npy", LIFECYCLE_VLSA_CFG, "npy",
+               dict(feats_dtype="bfloat16", **GATED_QUERIES), "bf16")
+QUERIES_FEAT_PROJ_STEPS = 2
+QUERIES_PATH_KERNELS = {("fwd", "bf16"), ("fwd", "int8_inv"), ("dq", "bf16"), ("dx", "bf16")}
+
 
 class SmokeFailure(Exception):
     pass
@@ -708,11 +775,17 @@ def phase_kernel(torch, co):
         # weights as bf16 hi + lo; f32 in split TF32), beside its gap to true f32
         model = co.coattn_fwd_rounded(q, x, mask, SCALE, xs, xi)[0]
         rel_model = rel_err(out, model)
+        # f32: also its gap to the exact function (the plain version in float64)
+        exact = ""
+        if storage_of(v) == "f32":
+            ref64 = co.coattn_pool_reference(q, x, mask, SCALE, xs, dtype=torch.float64)
+            exact = f"  vs exact {rel_err(out, ref64):.3e}"
+            del ref64
         empty = out[-1].abs().max().item()
         empty_stats = bool(torch.all(m[-1] == -1e30)) and bool(torch.all(l[-1] == 1e-30))
         tol = TOL_F32_FWD if storage_of(v) == "f32" else TOL[storage_of(v)]
         log(f"kernel {v:9s} B={B} N={N} C={C} ({path}) max|k-p| {diff:.3e}  rel {rel:.3e}  "
-            f"(tol {tol:g})  vs its rounding model {rel_model:.3e}  empty bag {empty:g}"
+            f"(tol {tol:g})  vs its rounding model {rel_model:.3e}{exact}  empty bag {empty:g}"
             f"  finite m,l {bool(torch.isfinite(m).all())}")
         check(bool(torch.isfinite(out).all()), f"{v}: non-finite kernel output")
         check(rel <= tol, f"{v} at C={C}: kernel deviates {rel:.3e} from its plain version")
@@ -988,10 +1061,11 @@ def coattn_bwd_ptxas(co) -> dict:
     local memory (a stack frame) or its shared memory exceeds the card's."""
     import torch
     report = {name: ptxas_lines(name) for name in ("coattn_bwd_dq", "coattn_bwd_dx")}
-    for name, count in (("coattn_bwd_dq", 12), ("coattn_bwd_dx", 4)):
+    for name, count in (("coattn_bwd_dq", 12), ("coattn_bwd_dx", 8)):
         stream = [r for r in report[name] if "coattn_bwd_stream" in r["function"]]
         check(len(stream) == count, f"ptxas shows {len(stream)} {name} streaming instances, "
-                                    f"not {count} (storages, host norms or not, C <= 512 or wide)")
+                                    f"not {count} (storages, host norms or not, C <= 512 or "
+                                    f"wide; dX: P <= 16 or looped)")
         for r in stream:
             check(r["spill_stores"] == 0 and r["spill_loads"] == 0 and r["stack"] == 0,
                   f"a co-attention backward instance spills or keeps a stack frame: {r}")
@@ -1001,9 +1075,10 @@ def coattn_bwd_ptxas(co) -> dict:
                            ("coattn_bwd_dx", ("f32", "bf16"))):
         lib = co._library(name)
         for i, s_ in enumerate(storages):
-            smem[f"{name}[{s_}]"] = getattr(lib, f"{name}_smem_bytes")(16, SHAPE["C"], i)
+            for P in (16, 256):
+                smem[f"{name}[{s_}] P={P}"] = getattr(lib, f"{name}_smem_bytes")(P, SHAPE["C"], i)
     log(f"  co-attention backward dynamic shared memory {smem} bytes a block at C=512, P=16 "
-        f"(the card gives {optin})")
+        f"and 256 (the card gives {optin})")
     check(0 < min(smem.values()) and max(smem.values()) <= optin,
           f"co-attention backward shared memory {smem} against {optin}")
     return {"kernels": report, "dynamic_smem": smem}
@@ -1154,16 +1229,21 @@ def bf16_ulp_of_max(ref) -> float:
     return 2.0 ** (math.floor(math.log2(max(ref.float().abs().max().item(), 1e-30))) - 7)
 
 
-def hold_dx(torch, co, storage, q, x, mask, g, where, tight=False):
+def hold_dx(torch, co, storage, q, x, mask, g, where, tight=False, exact=False):
     """Hold the full backward kernel's (dq, dX) against its plain version
     on the same inputs, with (out, m, l) from the forward kernel (f32 within
-    TOL_F32_BWD where `tight`); dX must be exactly 0 on masked rows and the
+    TOL_F32_BWD where `tight`, of the exact function, the plain version in
+    float64, where `exact`); dX must be exactly 0 on masked rows and the
     empty bag.  Returns the errors (the worst absolute error over both
     outputs as max_abs_err) and dX."""
     out, m, l = co.coattn_fwd(q, x, mask, SCALE)
     dq, dx = co.coattn_bwd_dx(q, x, mask, SCALE, g, out, m, l)
     torch.cuda.synchronize()
-    rdq, rdx = co.coattn_bwd_dx_reference(q, x, mask, SCALE, g, out, m, l)
+    rdq, rdx = co.coattn_bwd_dx_reference(
+        q, x, mask, SCALE, g, out, m, l,
+        dtype=torch.float64 if exact and storage == "f32" else torch.float32)
+    if exact and storage == "f32":
+        where += " (exact)"
     f32_tight = tight and storage == "f32"
     e_dq = hold(f"dx kernel {storage} {where} dq", dq, rdq,
                 TOL_F32_BWD["dq"] if f32_tight else TOL_DX_DQ[storage])
@@ -1218,6 +1298,65 @@ def phase_dx_kernel(torch, co):
             f"(tol {TOL_DX_TRUE_F32:g})")
         check(gap <= TOL_DX_TRUE_F32, f"{s} dX deviates {gap:.3e} from true f32")
         del q, x, mask, g, xf, dx
+        torch.cuda.empty_cache()
+    return errs
+
+
+# ---------------------------------------------------------------- phase 2f
+
+def phase_query_kernels(torch, co):
+    """Rows 1-6 above 16 queries: every forward and dQ variant and both dX
+    storages at each of QUERY_COUNTS (B=8, N=10240, C=512) and at QUERY_WIDE,
+    against their plain versions on the same inputs; each call one launch on
+    its query route ("grid": the forward and dQ, "loop": dX).  f32 is held
+    against the exact function (the plain version in float64) at
+    TOL_F32_FWD and TOL_F32_BWD; the f32 plain version's own gap to it is
+    logged, and beside the forward's gap its gap to `coattn_fwd_rounded`."""
+    exact = dict(dtype=torch.float64)
+    errs = {}
+    for sh in [dict(SHAPE, P=P) for P in QUERY_COUNTS] + [QUERY_WIDE]:
+        B, N, C, P = sh["B"], sh["N"], sh["C"], sh["P"]
+        tag = f"P={P}" + ("" if C == SHAPE["C"] else f" C={C}")
+        for v in VARIANTS:
+            q, x, mask, xs, xi = make_inputs(torch, B, N, C, P, variant=v)
+            paths = dict(co.LAUNCHES_QUERY_PATH)
+            out, m, l = co.coattn_fwd(q, x, mask, SCALE, xs, xi)
+            g = make_cotangent(torch, B, P, C)
+            dq = co.coattn_bwd_dq(q, x, mask, SCALE, g, out, m, l, xs, xi)
+            torch.cuda.synchronize()
+            check(co.LAUNCHES_QUERY_PATH == dict(paths, grid=paths["grid"] + 2),
+                  f"{v} {tag}: query routes {co.LAUNCHES_QUERY_PATH}, not two more grid "
+                  f"launches than {paths}")
+            f32 = storage_of(v) == "f32"
+            ref = co.coattn_pool_reference(q, x, mask, SCALE, xs)
+            if f32:
+                ref64 = co.coattn_pool_reference(q, x, mask, SCALE, xs, **exact)
+                log(f"  plain f32 {v} {tag} vs exact {rel_err(ref, ref64):.3e}")
+                ref = ref64
+            rec = {"fwd": hold(f"kernel {v} B={B} N={N} {tag}" + (" (exact)" if f32 else ""),
+                               out, ref, TOL_F32_FWD if f32 else TOL[storage_of(v)])}
+            rec["fwd"]["model_rel_err"] = rel_err(
+                out, co.coattn_fwd_rounded(q, x, mask, SCALE, xs, xi)[0])
+            log(f"  kernel {v} {tag} vs its rounding model {rec['fwd']['model_rel_err']:.3e}")
+            check(float(out[-1].abs().max()) == 0.0 and bool(torch.all(m[-1] == -1e30))
+                  and bool(torch.all(l[-1] == 1e-30)), f"{v} {tag}: the empty bag")
+            rec["dq"] = hold(f"dq kernel {v} B={B} N={N} {tag}" + (" (exact)" if f32 else ""),
+                             dq, co.coattn_bwd_dq_reference(q, x, mask, SCALE, g, out, m, l, xs,
+                                                            xi, **(exact if f32 else {})),
+                             TOL_F32_BWD["dq"] if f32 else TOL_DQ[storage_of(v)])
+            errs[f"{v} {tag}"] = rec
+            del q, x, mask, xs, xi, out, m, l, g, dq
+        for s_ in DX_STORAGES:
+            q, x, mask, _xs, _xi = make_inputs(torch, B, N, C, P, variant=s_, keep_masked=True)
+            g = make_cotangent(torch, B, P, C)
+            paths = dict(co.LAUNCHES_QUERY_PATH)
+            errs[f"dx[{s_}] {tag}"], _dx = hold_dx(torch, co, s_, q, x, mask, g,
+                                                   f"at B={B} N={N} {tag}", tight=True,
+                                                   exact=True)
+            check(co.LAUNCHES_QUERY_PATH == dict(paths, grid=paths["grid"] + 1,
+                                                 loop=paths["loop"] + 1),
+                  f"dx {s_} {tag}: query routes {co.LAUNCHES_QUERY_PATH} after {paths}")
+            del q, x, mask, g, _dx
         torch.cuda.empty_cache()
     return errs
 
@@ -3512,6 +3651,192 @@ def phase_interpretation(torch, ab, co, device, card, tmp, keep):
     return out
 
 
+# ---------------------------------------------------------------- phase 3l
+
+def queries_batch(torch, batches, device, K):
+    """The next of a trainer's `batches` on the card, patients censored in
+    the last of its K bins left out of `valid` (see phase_training)."""
+    b = {k: v.to(device) for k, v in next(batches).items()}
+    ill = b["valid"] & (b["e"] == 0) & (b["t"] == K - 1)
+    return dict(b, valid=b["valid"] & ~ill)
+
+
+def phase_queries(torch, ab, co, device, card, tmp):
+    """Phase 3l: the flagship with 32 learned, gated VLFAN queries (P = 32)
+    through the entry points, every launch counter from 0 before each path:
+    served (QUERIES_SERVED; probabilities within 1e-3 of the plain
+    co-attention), trained 1 epoch from phase 3h's bf16 .npy store through
+    `python -m vlsa_tpu_torch.main` (store_run's checks, the reload bit for
+    bit), a store batch's gradients through the kernels against the plain
+    co-attention (text tower in f32) within TOL_GRAD, and with the feature
+    projecter QUERIES_FEAT_PROJ_STEPS Adam steps from the store whose last
+    batch's gradients meet CoattnPoolFull on the plain kernels within
+    TOL_GRAD; every launch on the query routes ("grid", "loop")."""
+    import numpy as np
+    from vlsa_tpu_torch.config import serving_config, training_config
+    from vlsa_tpu_torch.models.vlsa_build import build_vlsa_from_config
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_bags
+    from vlsa_tpu_torch.runner.train import Trainer
+
+    # ---- serving ----
+    cfg = serving_config(dict(FLAGSHIP_CFG, **GATED_QUERIES))
+    model, _tok = build_vlsa_from_config(cfg, device=device)
+    enc = model.mil_encoder
+    check(tuple(enc.Q.shape) == (33, 512) and tuple(enc.effective_query().shape) == (32, 512),
+          f"the gated queries: Q {tuple(enc.Q.shape)}, P = {enc.effective_query().shape[0]}")
+    engines, requests = {}, []
+    for feats_dtype, inv, count in QUERIES_SERVED:
+        engines[(feats_dtype, inv)] = InferEngine(model, feats_dtype=feats_dtype,
+                                                  precompute_inv=inv)
+        requests += [((feats_dtype, inv), request_bags(cfg["path_patch"], len(requests) + i,
+                                                       BAGS_PER_REQUEST)) for i in range(count)]
+    for e in engines.values():
+        e.text_precompute()
+    co.reset_launches()
+    served = []
+    for key, bags in requests:
+        t = time.perf_counter()
+        batch = engines[key].prepare(bags)
+        torch.cuda.synchronize()
+        t_mid = time.perf_counter()
+        out = engines[key].forward(batch)
+        torch.cuda.synchronize()
+        served.append((key, batch, out, 1e3 * (t_mid - t), 1e3 * (time.perf_counter() - t_mid)))
+    serve_launches, serve_paths = dict(co.LAUNCHES), dict(co.LAUNCHES_QUERY_PATH)
+    expected = dict.fromkeys(VARIANTS, 0)
+    for (feats_dtype, inv), *_rest in served:
+        expected["int8_inv" if feats_dtype == "int8" else "bf16"] += 1
+    log(f"P=32 served {len(served)} requests: launches {serve_launches}, query routes "
+        f"{serve_paths}")
+    check(serve_launches == expected and serve_paths == {"single": 0, "grid": len(served),
+                                                         "loop": 0},
+          f"P=32 serving launches {serve_launches} {serve_paths}, expected {expected}")
+    serve_dev = 0.0
+    with plain_coattention():
+        for key, batch, out, prep_ms, fwd_ms in served:
+            probs = out["probs"]
+            check(tuple(probs.shape) == (BAGS_PER_REQUEST, 12)
+                  and float((probs.sum(-1) - 1).abs().max()) <= 1e-5, "P=32 probabilities")
+            dev = float((probs - engines[key].forward(batch)["probs"]).abs().max())
+            serve_dev = max(serve_dev, dev)
+            log(f"P=32 served {key[0]}{'_inv' if key[1] else ''}: host prep {prep_ms:.1f} ms + "
+                f"model {fwd_ms:.2f} ms, max |p_kernel - p_plain| {dev:.2e} (tol 1e-3)")
+    check(serve_dev <= 1e-3, f"P=32 served probabilities deviate {serve_dev:.3e} from plain")
+    check(co.LAUNCHES == serve_launches, "the plain serving pass launched a kernel")
+    del model, engines, served, requests
+    torch.cuda.empty_cache()
+
+    # ---- training: 1 epoch from the store through main, the reload ----
+    stores = {"npy": (os.path.join(tmp, "npy"),)}
+    run = store_run(torch, ab, co, device, card, stores, tmp, *QUERIES_RUN,
+                    after_exec=lambda h: dict(co.LAUNCHES_QUERY_PATH), hold_reload=True,
+                    via_main=True)
+    n_run = sum(run["launches"]["coattn_fwd"].values()) \
+        + sum(run["launches"]["coattn_bwd_dq"].values())
+    check(run["after"] == {"single": 0, "grid": n_run, "loop": 0},
+          f"P=32 run: query routes {run['after']}, expected {n_run} grid launches")
+    shutil.rmtree(os.path.join(tmp, QUERIES_RUN[0]), ignore_errors=True)
+
+    # ---- gradients through the kernels (dQ) against the plain co-attention ----
+    store_cfg = dict(TRAIN_CFG, **GATED_QUERIES, path_patch=stores["npy"][0], feat_format="npy")
+    trainer = Trainer(training_config(store_cfg, fold=0), device)
+    trainer.batcher.prefetch = 0  # a batch or two taken: none built ahead
+    K = trainer.meta.num_bins
+    learnable = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    check("mil_encoder.Q" in learnable, f"the queries are not learnable: {learnable}")
+    b = queries_batch(torch, trainer.batches(), device, K)
+    with f32_text_tower(torch, trainer.model.prompt_encoder):
+        co.reset_launches()
+        g_kernel = param_grads(torch, trainer.model, trainer.engine, b)
+        check(co.LAUNCHES_QUERY_PATH == {"single": 0, "grid": 2, "loop": 0},
+              f"P=32 gradient: query routes {co.LAUNCHES_QUERY_PATH}")
+        with plain_coattention():
+            dev_dq = grad_devs(g_kernel, param_grads(torch, trainer.model, trainer.engine, b),
+                               learnable)
+    worst = max(dev_dq, key=dev_dq.get)
+    log(f"P=32 gradients, kernels vs plain co-attention, bf16 store batch: "
+        f"{int(b['valid'].sum())} bags, bucket {b['mask'].shape[1]}, text tower in f32: worst "
+        f"{worst} {dev_dq[worst]:.2e} (tol {TOL_GRAD:g}); mil_encoder.Q "
+        f"{dev_dq['mil_encoder.Q']:.2e}")
+    check(dev_dq[worst] <= TOL_GRAD, f"P=32: gradient of {worst} deviates {dev_dq[worst]:.3e}")
+    del trainer, b, g_kernel
+    torch.cuda.empty_cache()
+
+    # ---- the feature projecter: Adam steps from the store, then gradients ----
+    trainer = Trainer(training_config(dict(store_cfg, vlsa_img_encoder_use_feat_proj=True),
+                                      fold=0), device)
+    model, engine = trainer.model, trainer.engine
+    trainer.batcher.prefetch = 0
+    check(model.mil_encoder.use_feat_proj, "the projecter is off")
+    tower0 = {k: v.detach().clone() for k, v in model.prompt_encoder.state_dict().items()}
+    learnable = [n for n, p in model.named_parameters() if p.requires_grad]
+    batches = trainer.batches()
+    co.reset_launches()
+    steps = []
+    for i in range(QUERIES_FEAT_PROJ_STEPS):
+        t = time.perf_counter()
+        batch = {k: v.to(device) for k, v in next(batches).items()}
+        torch.cuda.synchronize()
+        t_mid = time.perf_counter()
+        before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+        torch.cuda.reset_peak_memory_stats()
+        loss, raw = engine.train_step(batch)
+        torch.cuda.synchronize()
+        rec = {"loss": float(loss), "bags": int(batch["valid"].sum()),
+               "bucket": int(batch["mask"].shape[1]), "prep_ms": 1e3 * (t_mid - t),
+               "step_ms": 1e3 * (time.perf_counter() - t_mid),
+               "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        check(bool(np.isfinite(rec["loss"])) and bool(torch.isfinite(raw).all()),
+              f"P=32 feat-proj step {i}: non-finite loss or logits")
+        check(all(torch.equal(v, tower0[k]) for k, v in model.prompt_encoder.state_dict().items()),
+              f"P=32 feat-proj step {i}: the frozen tower changed")
+        still = [n for n, p in model.named_parameters()
+                 if p.requires_grad and torch.equal(p.detach(), before[n])]
+        check(not still, f"P=32 feat-proj step {i}: {still} did not move")
+        steps.append(rec)
+        log(f"P=32 feat-proj step {i} loss {rec['loss']:.4f}  {rec['bags']} bags, bucket "
+            f"{rec['bucket']}: host prep {rec['prep_ms']:.0f} ms + step {rec['step_ms']:.1f} ms, "
+            f"peak device memory {rec['max_memory_gb']:.2f} GB")
+        del batch, before, loss, raw
+    fp_launches = {"fwd": dict(co.LAUNCHES), "bwd": dict(co.LAUNCHES_BWD),
+                   "dx": dict(co.LAUNCHES_DX)}
+    fp_paths = dict(co.LAUNCHES_QUERY_PATH)
+    n = QUERIES_FEAT_PROJ_STEPS
+    check(fp_launches["fwd"] == dict(dict.fromkeys(VARIANTS, 0), bf16=n)
+          and fp_launches["dx"] == {"f32": 0, "bf16": n}
+          and sum(fp_launches["bwd"].values()) == 0
+          and fp_paths == {"single": 0, "grid": n, "loop": n},
+          f"P=32 feat-proj launches {fp_launches}, query routes {fp_paths}")
+    b = queries_batch(torch, batches, device, K)
+    with f32_text_tower(torch, model.prompt_encoder):
+        g_kernel = param_grads(torch, model, engine, b)
+        with plain_full_backward(torch, co):
+            dev_fp = grad_devs(g_kernel, param_grads(torch, model, engine, b), learnable)
+        with plain_coattention():
+            dev_auto = grad_devs(g_kernel, param_grads(torch, model, engine, b), learnable)
+    worst, worst_auto = max(dev_fp, key=dev_fp.get), max(dev_auto, key=dev_auto.get)
+    log(f"P=32 feat-proj gradients, bf16 store batch: {int(b['valid'].sum())} bags, bucket "
+        f"{b['mask'].shape[1]}, text tower in f32: kernels vs plain kernels worst {worst} "
+        f"{dev_fp[worst]:.2e} (tol {TOL_GRAD:g}); vs autograd of the plain pooling worst "
+        f"{worst_auto} {dev_auto[worst_auto]:.2e} (logged: autograd does not round a, g and dl)")
+    check(dev_fp[worst] <= TOL_GRAD, f"P=32 feat-proj: gradient of {worst} deviates "
+                                     f"{dev_fp[worst]:.3e} from the plain kernels'")
+    del trainer, model, engine, b, g_kernel
+    torch.cuda.empty_cache()
+
+    launches = {
+        "fwd": {v: serve_launches[v] + run["launches"]["coattn_fwd"][v] + fp_launches["fwd"][v]
+                for v in VARIANTS},
+        "dq": dict(run["launches"]["coattn_bwd_dq"]), "dx": dict(fp_launches["dx"])}
+    log(f"P=32 paths' launches {launches}")
+    return {"queries": 32, "serving": {"launches": serve_launches, "max_prob_dev": serve_dev},
+            "run": run, "grad_dev_dq": dev_dq, "feat_proj": {
+                "steps": steps, "launches": fp_launches, "grad_dev_plain_kernels": dev_fp,
+                "grad_dev_autograd": dev_auto},
+            "launches": launches}
+
+
 # ---------------------------------------------------------------- phase 4
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -3535,8 +3860,7 @@ def median_ms(torch, fn, runs=25, warmup=3):
 
 
 def bound(B, N, C, P, variant):
-    """Least time for the work on an H100: max(bytes moved / HBM rate,
-    operations / peak rate of the operand type).  Bytes: x, mask, the
+    """Least time for the work on an H100, as `bound_ms` reckons it.  Bytes: x, mask, the
     sidecar rows and q read once; out, m and l written once.  Operations:
     the logit dot and the PV product, 2*P*C each per element, plus the row
     norm (2*C per element) where the kernel computes it."""
@@ -3545,8 +3869,7 @@ def bound(B, N, C, P, variant):
     rows = (1 if storage == "int8" else 0) + (1 if variant.endswith("_inv") else 0)
     nbytes = B * N * C * item + B * N + 4 * B * N * rows + 4 * P * C + 4 * B * P * (C + 2)
     ops = B * N * C * (4 * P + (0 if variant.endswith("_inv") else 2))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, ops, storage)
 
 
 def time_variant(torch, co, variant, B, N, C, P):
@@ -3585,8 +3908,7 @@ def bound_dq(B, N, C, P, variant):
     nbytes = (B * N * C * item + B * N + 4 * B * N * rows + 4 * 2 * B * P * C
               + 4 * 2 * B * P + 4 * P * C + 4 * P * C)
     ops = B * N * C * (6 * P + (0 if variant.endswith("_inv") else 2))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, ops, storage)
 
 
 def time_dq_variant(torch, co, variant, B, N, C, P):
@@ -3617,10 +3939,11 @@ def time_dq_variant(torch, co, variant, B, N, C, P):
     lib_ms = median_ms(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qq, kn, vv, attn_mask=am, scale=SCALE), qq, gg))
     b_ms, b_by = bound_dq(B, N, C, P, variant)
-    plan = co.fwd_plan(x.dtype, B, N, torch.cuda.get_device_properties(0).multi_processor_count, C)
+    plan = co.kernel_plan("coattn_bwd_dq", x.dtype, B, N,
+                          torch.cuda.get_device_properties(0).multi_processor_count, C, P)
     return {"B": B, "N": N, "C": C, "P": P, "ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "blocks": plan["blocks"] * plan["groups"], "L": plan["L"],
+            "blocks": plan["blocks"] * plan["groups"] * co.query_groups(P), "L": plan["L"],
             "fwd_err": fwd_err, "dq_err": dq_err}
 
 
@@ -3631,6 +3954,13 @@ def phase_times(torch, co):
         torch.cuda.empty_cache()
         times["dq_b8"][v] = time_dq_variant(torch, co, v, **SHAPE)
         torch.cuda.empty_cache()
+    for P in QUERY_TIMED:  # the query groups on the grid
+        times[f"fwd_q{P}"], times[f"dq_q{P}"] = {}, {}
+        for v in VARIANTS:
+            times[f"fwd_q{P}"][v] = time_variant(torch, co, v, **dict(SHAPE, P=P))
+            torch.cuda.empty_cache()
+            times[f"dq_q{P}"][v] = time_dq_variant(torch, co, v, **dict(SHAPE, P=P))
+            torch.cuda.empty_cache()
     for v in VARIANTS:
         times["fwd_b64"][v] = time_variant(torch, co, v, **dict(SHAPE, B=64))
         torch.cuda.empty_cache()
@@ -3649,6 +3979,21 @@ def phase_times(torch, co):
                 f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x"
                 f"  kernel/library {t['ms'] / t['library_ms']:.2f}x"
                 + (f"  blocks {t['blocks']} of L={t['L']} tiles" if "blocks" in t else ""))
+    # what bounds each row at SHAPE with the shipped P and at QUERY_BOUND_P
+    turns = {}
+    for v in VARIANTS:
+        for name, fn in (("coattn_fwd", bound), ("coattn_bwd_dq", bound_dq)):
+            turns[f"{name}[{v}]"] = {P: fn(SHAPE["B"], SHAPE["N"], SHAPE["C"], P, v)
+                                     for P in (SHAPE["P"], QUERY_BOUND_P)}
+    for s_ in DX_STORAGES:
+        turns[f"coattn_bwd_dx[{s_}]"] = {P: bound_dx(SHAPE["B"], SHAPE["N"], SHAPE["C"], P, s_)
+                                         for P in (SHAPE["P"], QUERY_BOUND_P)}
+    log(f"bound at B={SHAPE['B']} N={SHAPE['N']} C={SHAPE['C']}, P={SHAPE['P']} -> "
+        f"P={QUERY_BOUND_P}: " + "; ".join(
+            f"{k} {r[SHAPE['P']][0]:.4f} ms ({r[SHAPE['P']][1]}) -> "
+            f"{r[QUERY_BOUND_P][0]:.4f} ms ({r[QUERY_BOUND_P][1]})" for k, r in turns.items()))
+    times["bound_by_P"] = {k: {str(P): {"bound_ms": b, "bound_by": by} for P, (b, by) in r.items()}
+                           for k, r in turns.items()}
     return times
 
 
@@ -3664,10 +4009,8 @@ def bound_abmil(name, B, N, storage, D=512, H=256, precise=False):
     patch plus the w2 dot and the PV sum (2*hid + 2*D); the backward's
     4*D*hid per patch for the weight gradients (the h and dW1 products),
     6*D*hid with dX (vlsa_tpu/ops/abmil.py:307's count); bf16 in precise
-    mode does each of those products twice (W1 or dz as hi + lo).  f32
-    products take the card's faster route to f32 accuracy: the CUDA cores
-    (67 TFLOP/s) or 3 TF32 products each on the tensor cores (495 TFLOP/s),
-    "operations (3xTF32)" when that route bounds."""
+    mode does each of those products twice (W1 or dz as hi + lo); f32 as
+    `bound_ms` reckons it."""
     item = {"f32": 4, "bf16": 2, "int8": 1}[storage]
     parts = 2 if precise else 1
     rows = B * N
@@ -3681,10 +4024,7 @@ def bound_abmil(name, B, N, storage, D=512, H=256, precise=False):
         ops = rows * D * H * (6 if name == "abmil_bwd_dx" else 4) * parts
         if name == "abmil_bwd_dx":
             nbytes += rows * D * item
-    t_bytes, t_ops, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage], "operations"
-    if storage == "f32" and 3 * ops / PEAK_OPS["tf32"] < t_ops:
-        t_ops, by_ops = 3 * ops / PEAK_OPS["tf32"], "operations (3xTF32)"
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else by_ops)
+    return bound_ms(nbytes, ops, storage)
 
 
 def floor_abmil_bf16_bwd(name, B, N, storage="bf16", D=512, H=256, precise=False):
@@ -3882,8 +4222,7 @@ def bound_dx(B, N, C, P, storage):
     item = {"f32": 4, "bf16": 2}[storage]
     nbytes = 2 * B * N * C * item + B * N + 4 * (2 * P * C + 2 * B * P * C + 2 * B * P)
     ops = B * N * C * (10 * P + 6)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, ops, storage)
 
 
 def time_dx(torch, co, storage, B, N, C, P):
@@ -3909,19 +4248,23 @@ def time_dx(torch, co, storage, B, N, C, P):
     lib_ms = median_ms(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qq, kn, vv, attn_mask=am, scale=SCALE), (qq, kn, vv), gg))
     b_ms, b_by = bound_dx(B, N, C, P, storage)
-    plan = co.fwd_plan(x.dtype, B, N, torch.cuda.get_device_properties(0).multi_processor_count, C)
+    plan = co.kernel_plan("coattn_bwd_dx", x.dtype, B, N,
+                          torch.cuda.get_device_properties(0).multi_processor_count, C, P)
     return {"B": B, "N": N, "C": C, "P": P, "ms": k_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "blocks": plan["blocks"] * plan["groups"], "L": plan["L"], "err": err}
 
 
 def phase_dx_times(torch, co):
-    times = {"b8": {}, "train": {}}
+    times = {"b8": {}, "train": {}, **{f"q{P}": {} for P in QUERY_TIMED}}
     for key, storage, shape in (("b8", "f32", SHAPE), ("b8", "bf16", SHAPE),
-                                ("train", "bf16", TRAIN_SHAPE)):
+                                ("train", "bf16", TRAIN_SHAPE),
+                                *((f"q{P}", s_, dict(SHAPE, P=P))
+                                  for P in QUERY_TIMED for s_ in DX_STORAGES)):
         times[key][storage] = t = time_dx(torch, co, storage, **shape)
         torch.cuda.empty_cache()
-        log(f"time coattn_bwd_dx[{storage}] B={t['B']:<3d} N={t['N']:<6d} kernel {t['ms']:.4f} ms"
+        log(f"time coattn_bwd_dx[{storage}] B={t['B']:<3d} N={t['N']:<6d} P={t['P']:<3d} "
+            f"kernel {t['ms']:.4f} ms"
             f"  plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms"
             f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
             f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x"
@@ -3977,6 +4320,7 @@ def main(argv=None) -> int:
         abmil_ptxas_lines = abmil_ptxas(ab)
         errs_flash, flash_ptxas_lines = timed("2d", phase_flash_kernel, torch, fa)
         errs_dx = timed("2e", phase_dx_kernel, torch, co)
+        errs_q = timed("2f", phase_query_kernels, torch, co)
         serving = timed("3", phase_serving, torch, co, device)
         training = timed("3b", phase_training, torch, co, device)
         sa_serving = timed("3c", phase_sa_serving, torch, ab, co, device)
@@ -3994,6 +4338,7 @@ def main(argv=None) -> int:
             zero_shot = timed("3i", phase_zero_shot, torch, ab, co, device, card, stores_tmp)
             interpretation = timed("3j", phase_interpretation, torch, ab, co, device, card,
                                    stores_tmp, kept)
+            queries = timed("3l", phase_queries, torch, ab, co, device, card, stores_tmp)
         finally:
             kept.clear()
             shutil.rmtree(stores_tmp, ignore_errors=True)
@@ -4029,7 +4374,7 @@ def main(argv=None) -> int:
                 "name": f"{name}[{v}]", "route": "cuda", "source": source,
                 "replaces": replaces[v], "launches": launches[v],
                 "max_abs_err": err[v]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"].split()[0],
                 "library_ms": t["library_ms"]})
     for s in DX_STORAGES:
         t = dx_times["b8"][s]
@@ -4037,7 +4382,25 @@ def main(argv=None) -> int:
             "name": f"coattn_bwd_dx[{s}]", "route": "cuda", "source": SOURCE_DX,
             "replaces": REPLACES_DX, "launches": feat_proj["launches"]["dx"][s],
             "max_abs_err": errs_dx[s]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"].split()[0], "library_ms": t["library_ms"]})
+    # rows 1-6 at P=32 (the query groups' routes): launches of phase 3l's
+    # paths, errors of 2f, times of 4 and 4d; the variants those paths do
+    # not run are held and timed here alone ("on_main_path" false)
+    for kind, name, source, replaces, variants in (
+            ("fwd", "coattn_fwd", SOURCE, REPLACES, VARIANTS),
+            ("dq", "coattn_bwd_dq", SOURCE_DQ, REPLACES_DQ, VARIANTS),
+            ("dx", "coattn_bwd_dx", SOURCE_DX, dict.fromkeys(DX_STORAGES, REPLACES_DX),
+             DX_STORAGES)):
+        for v in variants:
+            t = dx_times["q32"][v] if kind == "dx" else times[f"{kind}_q32"][v]
+            err = errs_q[f"dx[{v}] P=32"] if kind == "dx" else errs_q[f"{v} P=32"][kind]
+            kernels.append({
+                "name": f"{name}[{v}] P=32", "route": "cuda", "source": source,
+                "replaces": replaces[v], "launches": queries["launches"][kind][v],
+                "max_abs_err": err["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"].split()[0],
+                "library_ms": t["library_ms"], "queries": 32,
+                "on_main_path": (kind, v) in QUERIES_PATH_KERNELS})
     abmil_launches = {"abmil_fwd": {s: sa_serving["launches"][s] + sa_training["launches"]["fwd"][s]
                                     + run_launches("abmil_fwd", s) for s in ABMIL_STORAGES},
                       "abmil_bwd": {s: sa_training["launches"]["bwd"][s]
@@ -4122,7 +4485,8 @@ def main(argv=None) -> int:
               "feat_proj_training": feat_proj, "dx_times": dx_times,
               "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
               "store_runs": store_runs, "zero_shot": zero_shot,
-              "interpretation": interpretation, "sa_1024": sa_1024, "kernels": kernels,
+              "interpretation": interpretation, "sa_1024": sa_1024, "query_errors": errs_q,
+              "queries": queries, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

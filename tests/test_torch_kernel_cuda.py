@@ -542,6 +542,149 @@ def test_dx_kernel_pipeline_shapes(device, dtype, case):
     assert torch.equal(dq2, dq) and torch.equal(dx2, dx)
 
 
+
+# the kernels at more than 16 queries (ceil(P / 16) query groups of 16 rows,
+# the last zero-padded): (B, N, C, P) -- every P of 17, 32, 33, 64, 128, 256
+# at several widths, C = 8 (one warp, mostly past C), 200 (fewer warps, the
+# last partly past C), 512 and the wide instance at 1024 and 1000, ragged N
+# (no multiple of any tile) with bags crossing the blocks' ranges
+QUERY_PIPELINE = [(2, 1000, 512, 17), (3, 777, 512, 32), (2, 3001, 512, 33),
+                  (2, 1500, 512, 64), (2, 1000, 512, 128), (2, 700, 512, 256),
+                  (3, 700, 8, 33), (2, 130, 8, 256), (2, 1000, 200, 17), (2, 501, 200, 128),
+                  (2, 3000, 1024, 32), (2, 1003, 1024, 64), (2, 300, 1024, 256),
+                  (3, 301, 1000, 33), (2, 257, 512, 128)]
+# f32 above 16 queries is held against the exact function (the plain version
+# in float64) at TOL_F32_FWD and TOL_F32_BWD: there the plain version in f32
+# is itself 2e-6-3.7e-6 from exact on the H100 (its library products take
+# another route for more than 16 rows), more than the kernels.  dq at C = 8
+# keeps the general limits: with 8 channels |q . x^| reaches 1, and split
+# TF32's error on each logit (~2^-21 of it) puts dq past TOL_F32_BWD at any
+# P, P = 1 and 16 included.
+EXACT = torch.float64
+
+
+def _tight_f32_dq(dtype, C) -> bool:
+    return dtype == torch.float32 and C > 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("host_inv", [False, True])
+@pytest.mark.parametrize("case", QUERY_PIPELINE)
+def test_fwd_kernel_many_queries(device, dtype, host_inv, case):
+    """The forward with its query groups on the grid: out within TOL of the
+    plain version (f32 within TOL_F32_FWD of the exact function), the stats
+    as test_fwd_kernel_pipeline_shapes holds them, one "grid" launch."""
+    B, N, C, P = case
+    q, x, mask, xs, xi = _inputs(B, N, C, P, dtype, host_inv, device, seed=8)
+    paths = dict(co.LAUNCHES_QUERY_PATH)
+    out, m, l = co.coattn_fwd(q, x, mask, 30.0, xs, xi)
+    torch.cuda.synchronize()
+    assert co.LAUNCHES_QUERY_PATH == dict(paths, grid=paths["grid"] + 1)
+    ref, m_ref, l_ref = co.coattn_fwd_reference(q, x, mask, 30.0, xs, xi)
+    assert out.shape == (B, P, C)
+    if dtype == torch.float32:
+        exact = co.coattn_fwd_reference(q, x, mask, 30.0, xs, xi, dtype=EXACT)[0]
+        assert _rel(out, exact) <= TOL_F32_FWD
+    else:
+        assert _rel(out, ref) <= TOL[dtype]
+    assert torch.all(out[-1] == 0) and torch.all(m[-1] == -1e30) and torch.all(l[-1] == 1e-30)
+    torch.testing.assert_close(l, l_ref, rtol=1e-3, atol=0)
+    assert float((m - m_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("host_inv", [False, True])
+@pytest.mark.parametrize("case", QUERY_PIPELINE)
+def test_dq_kernel_many_queries(device, dtype, host_inv, case):
+    """dQ with its query groups on the grid: within TOL_DQ of the plain
+    version (f32 within TOL_F32_BWD of the exact function but at C = 8),
+    one "grid" launch, the same bits on a second call."""
+    B, N, C, P = case
+    q, x, mask, xs, xi = _inputs(B, N, C, P, dtype, host_inv, device, seed=9)
+    out, m, l = co.coattn_fwd(q, x, mask, 30.0, xs, xi)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(10)).to(device)
+    paths = dict(co.LAUNCHES_QUERY_PATH)
+    dq = co.coattn_bwd_dq(q, x, mask, 30.0, g, out, m, l, xs, xi)
+    torch.cuda.synchronize()
+    assert co.LAUNCHES_QUERY_PATH == dict(paths, grid=paths["grid"] + 1)
+    ref = co.coattn_bwd_dq_reference(q, x, mask, 30.0, g, out, m, l, xs, xi)
+    assert dq.shape == (P, C) and torch.isfinite(dq).all()
+    assert _rel(dq, ref) <= TOL_DQ[dtype]
+    if _tight_f32_dq(dtype, C):
+        exact = co.coattn_bwd_dq_reference(q, x, mask, 30.0, g, out, m, l, xs, xi, dtype=EXACT)
+        assert _rel(dq, exact) <= TOL_F32_BWD["dq"]
+    assert torch.equal(co.coattn_bwd_dq(q, x, mask, 30.0, g, out, m, l, xs, xi), dq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", QUERY_PIPELINE)
+def test_dx_kernel_many_queries(device, dtype, case):
+    """The looped dX instance: dq within TOL_DX_DQ and dX against the plain
+    version (f32 dX within TOL_F32_BWD of the exact function, dq too but at
+    C = 8; bf16 dX within one bf16 ulp of its largest element), masked rows
+    holding features: dX exactly 0 there and on the empty bag; one "loop"
+    launch; the same bits on a second call."""
+    B, N, C, P = case
+    q, x, mask, gout = _dx_inputs(B, N, C, P, dtype, device, seed=11)
+    out, m, l = co.coattn_fwd(q, x, mask, 30.0)
+    paths = dict(co.LAUNCHES_QUERY_PATH)
+    dq, dx = co.coattn_bwd_dx(q, x, mask, 30.0, gout, out, m, l)
+    torch.cuda.synchronize()
+    assert co.LAUNCHES_QUERY_PATH == dict(paths, loop=paths["loop"] + 1)
+    rdq, rdx = co.coattn_bwd_dx_reference(q, x, mask, 30.0, gout, out, m, l)
+    assert torch.isfinite(dq).all() and torch.isfinite(dx).all()
+    assert _rel(dq, rdq) <= TOL_DX_DQ[dtype]
+    if dtype == torch.float32:
+        edq, edx = co.coattn_bwd_dx_reference(q, x, mask, 30.0, gout, out, m, l, dtype=EXACT)
+        assert _rel(dx, edx) <= TOL_F32_BWD["dx"]
+        if _tight_f32_dq(dtype, C):
+            assert _rel(dq, edq) <= TOL_F32_BWD["dq"]
+    else:
+        assert float((dx.float() - rdx.float()).abs().max()) <= _bf16_ulp_of_max(rdx)
+    assert torch.all(dx[~mask] == 0) and torch.all(dx[-1] == 0)
+    dq2, dx2 = co.coattn_bwd_dx(q, x, mask, 30.0, gout, out, m, l)
+    assert torch.equal(dq2, dq) and torch.equal(dx2, dx)
+
+
+def test_dx_kernel_refuses_queries_past_its_shared_memory(device):
+    """The looped dX instance keeps every row's softmax stats in shared
+    memory: past 8,656 queries of f32 x a block needs more than an H100's
+    227 KB, a ValueError naming it; 8,656 still runs."""
+    q, x, mask, gout = _dx_inputs(2, 40, 512, 8657, torch.float32, device)
+    out, m, l = co.coattn_fwd(q, x, mask, 30.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        co.coattn_bwd_dx(q, x, mask, 30.0, gout, out, m, l)
+    n = 8656
+    dq, dx = co.coattn_bwd_dx(q[:n].contiguous(), x, mask, 30.0, gout[:, :n].contiguous(),
+                              out[:, :n].contiguous(), m[:, :n].contiguous(),
+                              l[:, :n].contiguous())
+    torch.cuda.synchronize()
+    assert dq.shape == (n, 512) and torch.isfinite(dq).all() and torch.isfinite(dx).all()
+
+def test_pool_at_32_gated_queries_routes_through_the_kernels(device):
+    """VLFAN with 32 learned, gated queries (33 parameter rows, P = 32) on
+    the card: one forward and one dQ launch a step on the "grid" route (the
+    projecter's dX launch on the "loop" route), gradients within 1e-3 of the
+    same module on the CPU for f32 features."""
+    from vlsa_tpu_torch.models.mil import VLFAN
+    for use_feat_proj in (False, True):
+        kw = dict(dim_in=512, use_feat_proj=use_feat_proj, query="Parameter", num_query=32,
+                  gated_query=True)
+        cpu = VLFAN(**kw, generator=torch.Generator().manual_seed(0))
+        card = VLFAN(**kw, generator=torch.Generator().manual_seed(0)).to(device)
+        assert card.effective_query().shape == (32, 512)
+        x = torch.randn(3, 700, 512, generator=torch.Generator().manual_seed(1))
+        mask = torch.rand(3, 700, generator=torch.Generator().manual_seed(2)) > 0.2
+        mask[-1] = False
+        cpu(x, mask).square().sum().backward()
+        paths = dict(co.LAUNCHES_QUERY_PATH)
+        card(x.to(device), mask.to(device)).square().sum().backward()
+        assert co.LAUNCHES_QUERY_PATH == dict(
+            paths, grid=paths["grid"] + (1 if use_feat_proj else 2),
+            loop=paths["loop"] + int(use_feat_proj))
+        for (n, pc), (_n, pk) in zip(cpu.named_parameters(), card.named_parameters()):
+            assert _rel(pk.grad.cpu(), pc.grad) <= 1e-3, n
+
 def test_gradient_request_raises(device):
     """q's gradient goes through the dQ kernel; a gradient for x through the
     dX kernel, with q's or without, and never the dQ-only kernel; the

@@ -14,7 +14,8 @@ With `ret_with_attn` VLFAN also returns the prior-by-patch attention
 ops, as vlsa_tpu computes it outside its kernel).  Its query poolings:
 mean, max, weight, and the `attention` and `gated_attention` poolings of
 the P rows, on their explicit paths (plain ops; vlsa_tpu's fused ABMIL
-path needs N >= 256, so its attention pooling of P <= 16 rows adds b2).
+path needs N >= 256, so its attention pooling of the P < 256 query rows
+adds b2).
 
 DeepMIL, the vision-only bag classifier of the SA baseline: attention
 (ABMIL, through `ops.abmil.abmil_pool` and its Hopper kernels; with

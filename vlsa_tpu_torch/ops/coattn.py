@@ -1,6 +1,6 @@
 """Masked co-attention pooling -- the hot op of the VLFAN aggregator.
 
-A bag of N patch features x [B, N, C] is reduced against P <= 16 queries:
+A bag of N patch features x [B, N, C] is reduced against P queries (any P >= 1):
 
     xn = l2norm(x);  A = softmax_N(scale * q @ xn^T);  out = A @ x
 
@@ -22,7 +22,11 @@ rounding: q, the softmax weights, g and the logit cotangent as bf16 hi + lo
 (f32 storage: every operand in split TF32); `coattn_fwd_rounded` models the
 forward's.  Forward and backward share one launch plan (`fwd_plan`): one
 persistent block per SM over flat ranges of tiles, by channel group of 512
-above C=512.
+above C=512.  The kernels take the queries in groups of 16 rows (one mma
+tile; the last group zero-padded): the forward and dQ as the grid's third
+dimension, so the groups' blocks share the wave; the dX kernel above 16
+queries loops over the groups on each staged tile (P is its dX product's
+reduction), on tiles of 32 patches (f32: 16).
 """
 from __future__ import annotations
 
@@ -34,7 +38,12 @@ import torch
 
 from .masked import l2_normalize, masked_softmax
 
-MAX_QUERIES = 16
+# queries a group (csrc/coattn_common.cuh kRows: one mma tile of rows), and
+# the most groups a forward or dQ launch takes (its grid's z: P up to
+# 1,048,560); the dX kernel above one group takes tiles of _DX_LOOP_TILE
+# patches by storage (loop_tile_of, csrc/coattn_bwd.cuh)
+_QUERY_ROWS, _MAX_QUERY_GROUPS = 16, 65535
+_DX_LOOP_TILE = {torch.float32: 16, torch.bfloat16: 32}
 # the kernels' warps each own _FWD_WARP_CH channels, at most _FWD_MAX_WARPS of
 # them (a block's channel group of _FWD_GROUP_CH), and their tiles hold
 # _FWD_TILE patches by storage (kWarpCh, kMaxWarps, tile_of in
@@ -51,17 +60,21 @@ _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8
 # `coattn_bwd_dx` in LAUNCHES_DX, by storage ("f32", "bf16").  The forward's
 # calls also count by instance in LAUNCHES_FWD_PATH, and both backward
 # kernels' in LAUNCHES_BWD_PATH: "group" for C <= 512 (one channel group a
-# block), "wide" for C > 512 (blocks by channel group).
+# block), "wide" for C > 512 (blocks by channel group).  All three kernels'
+# calls count by query route in LAUNCHES_QUERY_PATH: "single" for P <= 16
+# (one query group), "grid" for the forward and dQ above (query groups on
+# the grid), "loop" for dX above (query groups looped on each tile).
 LAUNCHES = {f"{s}{i}": 0 for s in ("f32", "bf16", "int8") for i in ("", "_inv")}
 LAUNCHES_BWD = dict(LAUNCHES)
 LAUNCHES_DX = {"f32": 0, "bf16": 0}
 LAUNCHES_FWD_PATH = {"group": 0, "wide": 0}
 LAUNCHES_BWD_PATH = {"group": 0, "wide": 0}
+LAUNCHES_QUERY_PATH = {"single": 0, "grid": 0, "loop": 0}
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, LAUNCHES_BWD, LAUNCHES_DX, LAUNCHES_FWD_PATH,
-                   LAUNCHES_BWD_PATH):
+                   LAUNCHES_BWD_PATH, LAUNCHES_QUERY_PATH):
         for k in counts:
             counts[k] = 0
 
@@ -78,17 +91,20 @@ def dequantize_feats(x: torch.Tensor, x_scale: Optional[torch.Tensor]) -> torch.
     return x.to(torch.float32) * x_scale[..., None]
 
 
-def _logits_reference(q, x, scale, x_scale):
-    x = dequantize_feats(x, x_scale).to(torch.float32)
+def _logits_reference(q, x, scale, x_scale, dtype=torch.float32):
+    x = x.to(dtype) if x_scale is None else x.to(dtype) * x_scale.to(dtype)[..., None]
     xn = l2_normalize(x, dim=-1)
-    return scale * torch.einsum("pc,bnc->bpn", q.to(torch.float32), xn), x
+    return scale * torch.einsum("pc,bnc->bpn", q.to(dtype), xn), x
 
 
 def coattn_pool_reference(q: torch.Tensor, x: torch.Tensor,
                           mask: Optional[torch.Tensor], scale,
-                          x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: q [P, C], x [B, N, C], mask [B, N] -> out [B, P, C] f32."""
-    logits, xf = _logits_reference(q, x, scale, x_scale)
+                          x_scale: Optional[torch.Tensor] = None,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version: q [P, C], x [B, N, C], mask [B, N] -> out [B, P, C] f32
+    (computed in `dtype`: float64 gives the exact function that the f32
+    kernels are held against, the f32 products' own rounding left out)."""
+    logits, xf = _logits_reference(q, x, scale, x_scale, dtype)
     m = None if mask is None else mask[:, None, :]
     attn = masked_softmax(logits, m, dim=-1)
     return torch.einsum("bpn,bnc->bpc", attn, xf)
@@ -103,31 +119,33 @@ def coattn_attention_reference(q: torch.Tensor, x: torch.Tensor,
     return masked_softmax(logits, m, dim=-1)
 
 
-def _stored_logits(q, x, mask, scale, x_inv):
-    """(xf, inv, logits) as the kernels form them: on the stored values (raw
-    int8 for int8), logits = scale * inv[n] * (q . x[n]), -1e30 where
-    masked; inv = x_inv, else 1/max(|x[n]|, 1e-12)."""
-    xf = x.to(torch.float32)
+def _stored_logits(q, x, mask, scale, x_inv, dtype=torch.float32):
+    """(xf, inv, logits) as the kernels form them, in `dtype`: on the stored
+    values (raw int8 for int8), logits = scale * inv[n] * (q . x[n]), -1e30
+    where masked; inv = x_inv, else 1/max(|x[n]|, 1e-12)."""
+    xf = x.to(dtype)
     if x_inv is None:
         inv = torch.rsqrt(torch.clamp((xf * xf).sum(-1), min=1e-24))
     else:
-        inv = x_inv.to(torch.float32)
-    logits = scale * torch.einsum("pc,bnc->bpn", q.to(torch.float32), xf) * inv[:, None, :]
+        inv = x_inv.to(dtype)
+    logits = scale * torch.einsum("pc,bnc->bpn", q.to(dtype), xf) * inv[:, None, :]
     return xf, inv, torch.where(mask[:, None, :], logits, -1e30)
 
 
 def coattn_fwd_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale,
                          x_scale: Optional[torch.Tensor] = None,
-                         x_inv: Optional[torch.Tensor] = None
+                         x_inv: Optional[torch.Tensor] = None,
+                         dtype: torch.dtype = torch.float32
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of `coattn_fwd`: (out [B, P, C], m [B, P], l [B, P]) f32
-    with the kernel's stats: m the masked max of the logits (-1e30 for an
-    empty bag), l the softmax normaliser clamped below at 1e-30."""
-    xf, _inv, logits = _stored_logits(q, x, mask, scale, x_inv)
+    (or `dtype`, as `coattn_pool_reference`) with the kernel's stats: m the
+    masked max of the logits (-1e30 for an empty bag), l the softmax
+    normaliser clamped below at 1e-30."""
+    xf, _inv, logits = _stored_logits(q, x, mask, scale, x_inv, dtype)
     m = logits.amax(-1)
     p = torch.where(mask[:, None, :], torch.exp(logits - m[..., None]), 0.0)
     l = torch.clamp(p.sum(-1), min=1e-30)
-    w = p if x_scale is None else p * x_scale[:, None, :]
+    w = p if x_scale is None else p * x_scale.to(dtype)[:, None, :]
     return torch.einsum("bpn,bnc->bpc", w, xf) / l[..., None], m, l
 
 
@@ -184,19 +202,21 @@ def coattn_fwd_rounded(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, sca
     return product("bpn,bnc->bpc", *split(w)) / l[..., None], m, l
 
 
-def _weights_and_cotangent(q, x, mask, scale, g, out, m, l, x_scale=None, x_inv=None):
-    """(xf, inv, a, dl_inv) as the backward kernels form them from the
-    output's cotangent g and the forward's (out, m, l): the attention
-    weights a and the logit cotangent with the norm folded in,
+def _weights_and_cotangent(q, x, mask, scale, g, out, m, l, x_scale=None, x_inv=None,
+                           dtype=torch.float32):
+    """(xf, inv, a, dl_inv) as the backward kernels form them, in `dtype`,
+    from the output's cotangent g and the forward's (out, m, l): the
+    attention weights a and the logit cotangent with the norm folded in,
     dl_inv[p, n] = a * (g[p] . x[n] - g[p] . out[p]) * inv[n]."""
-    xf, inv, logits = _stored_logits(q, x, mask, scale, x_inv)
+    xf, inv, logits = _stored_logits(q, x, mask, scale, x_inv, dtype)
+    g, out, m, l = (t.to(dtype) for t in (g, out, m, l))
     valid = mask[:, None, :]
     # a is masked to 0 first: an empty bag has m = -1e30, l = 1e-30, where
     # exp(0) / l = 1e30
     a = torch.where(valid, torch.exp(logits - m[..., None]) / l[..., None], 0.0)
     dA = torch.einsum("bpc,bnc->bpn", g, xf)
     if x_scale is not None:
-        dA = dA * x_scale[:, None, :]
+        dA = dA * x_scale.to(dtype)[:, None, :]
     s_row = (g * out).sum(-1, keepdim=True)
     return xf, inv, a, a * (dA - s_row) * inv[:, None, :]
 
@@ -204,53 +224,67 @@ def _weights_and_cotangent(q, x, mask, scale, g, out, m, l, x_scale=None, x_inv=
 def coattn_bwd_dq_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                             scale, g: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
                             l: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
-                            x_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            x_inv: Optional[torch.Tensor] = None,
+                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of `coattn_bwd_dq` (vlsa_tpu/ops/coattn.py::
-    _coattn_bwd_dq_body in f32): the queries' gradient dq [P, C] f32 from the
-    output's cotangent g [B, P, C], the forward output and its stats."""
+    _coattn_bwd_dq_body in f32): the queries' gradient dq [P, C] f32 (or
+    `dtype`, as `coattn_pool_reference`) from the output's cotangent g
+    [B, P, C], the forward output and its stats."""
     xf, _inv, _a, dl_inv = _weights_and_cotangent(q, x, mask, scale, g, out, m, l,
-                                                  x_scale, x_inv)
+                                                  x_scale, x_inv, dtype)
     return scale * torch.einsum("bpn,bnc->pc", dl_inv, xf)
 
 
 def coattn_bwd_dx_reference(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                             scale, g: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
-                            l: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                            l: torch.Tensor, dtype: torch.dtype = torch.float32
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `coattn_bwd_dx` (vlsa_tpu/ops/coattn.py::
     _coattn_bwd_kernel): (dq [P, C] f32, dX [B, N, C] in x's type) from the
     output's cotangent g [B, P, C] and the forward's (out, m, l), for f32 or
     bf16 x.  For bf16 it rounds where the TPU kernel does: the logit
     cotangent dl and the weights a go into the dX products as bf16 (q
     stays f32, its :386-387), and so does g (:392); dX is rounded once at
-    the end (:395); dq and everything else is f32."""
-    xf, inv, a, dl_inv = _weights_and_cotangent(q, x, mask, scale, g, out, m, l)
+    the end (:395); dq and everything else is f32 (or `dtype`, as
+    `coattn_pool_reference`; dX still in x's type)."""
+    xf, inv, a, dl_inv = _weights_and_cotangent(q, x, mask, scale, g, out, m, l, dtype=dtype)
     dq = scale * torch.einsum("bpn,bnc->pc", dl_inv, xf)
+    g = g.to(dtype)
 
     def stored(t):  # t as the dX products take it: rounded to x's type
-        return t.to(x.dtype).to(torch.float32)
-    dxn_hat = scale * torch.einsum("bpn,pc->bnc", stored(dl_inv), q.to(torch.float32))
+        return t.to(x.dtype).to(dtype)
+    dxn_hat = scale * torch.einsum("bpn,pc->bnc", stored(dl_inv), q.to(dtype))
     proj = (xf * dxn_hat).sum(-1, keepdim=True) * (inv * inv)[..., None]
     dx = torch.einsum("bpn,bpc->bnc", stored(a), stored(g)) + (dxn_hat - xf * proj)
     return dq, dx.to(x.dtype)
 
 
+def query_groups(P: int) -> int:
+    """The kernels' query groups of 16 rows for P queries."""
+    return -(-P // _QUERY_ROWS)
+
+
 @functools.lru_cache(maxsize=256)
-def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, C: int = _FWD_GROUP_CH) -> dict:
+def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, C: int = _FWD_GROUP_CH,
+             qgroups: int = 1, tile: Optional[int] = None) -> dict:
     """The co-attention kernels' launch plan for x of `dtype` and width C:
-    the B * Tb tiles (Tb = ceil(N / tile) a bag, tile = _FWD_TILE[dtype]) are
-    cut into `blocks` flat ranges of L tiles, one persistent block each (one
-    block fills an SM) for each of the `groups` = ceil(C / 512) channel
-    groups, L = ceil(groups * B * Tb / n_sm), so every block but the last of
-    a group takes the same number of tiles in one wave.  A range may cross
-    bags.  The forward's block k writes its partial of bag b to slot
-    k - floor(b * Tb / L) of that bag, and `Smax` is the most slots a bag
-    uses; the backward's block k writes one dq partial, row k of a
-    [blocks, P, C] workspace, summed in block order."""
-    tiles = -(-N // _FWD_TILE[dtype])
+    the B * Tb tiles (Tb = ceil(N / tile) a bag, tile = _FWD_TILE[dtype]
+    unless given) are cut into `blocks` flat ranges of L tiles, one
+    persistent block each (one block fills an SM) for each of the `groups` =
+    ceil(C / 512) channel groups and `qgroups` query groups on the grid (the
+    forward's and dQ's ceil(P / 16), else 1), L = ceil(B * Tb / floor(n_sm /
+    (qgroups * groups))), so every block but the last of a group takes the
+    same number of tiles in one wave (qgroups * groups > n_sm: L = B * Tb,
+    one range, qgroups * groups blocks).  A range may cross bags.  The
+    forward's block k writes its partial of bag b to slot k - floor(b * Tb /
+    L) of that bag, and `Smax` is the most slots a bag uses; the backward's
+    block k writes one dq partial, row k of a [blocks, P, C] workspace,
+    summed in block order."""
+    tiles = -(-N // (tile or _FWD_TILE[dtype]))
     total, groups = B * tiles, -(-C // _FWD_GROUP_CH)
     if total == 0:
         return {"tiles_per_bag": 0, "L": 1, "blocks": 0, "Smax": 0, "groups": groups}
-    L = -(-groups * total // n_sm)
+    L = -(-total // max(1, n_sm // (qgroups * groups)))
     smax = max(((b + 1) * tiles - 1) // L - (b * tiles) // L + 1 for b in range(B))
     return {"tiles_per_bag": tiles, "L": L, "blocks": -(-total // L), "Smax": smax,
             "groups": groups}
@@ -303,10 +337,12 @@ def _check_inputs(q, x, mask, x_scale, x_inv, kernel: str) -> Tuple[int, int, in
     if x.data_ptr() % 16 != 0:
         raise ValueError("x must be 16-byte aligned")
     if q.device != device or q.dtype != torch.float32 or q.dim() != 2 \
-            or q.shape[1] != C or not 1 <= q.shape[0] <= MAX_QUERIES \
-            or not q.is_contiguous():
-        raise ValueError(f"q must be a contiguous f32 [P<={MAX_QUERIES}, {C}] tensor on "
-                         f"{device}, got {q.dtype} {tuple(q.shape)} on {q.device}")
+            or q.shape[1] != C or q.shape[0] < 1 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous f32 [P, {C}] tensor on {device}, P >= 1, "
+                         f"got {q.dtype} {tuple(q.shape)} on {q.device}")
+    if query_groups(q.shape[0]) > _MAX_QUERY_GROUPS:
+        raise ValueError(f"P={q.shape[0]} queries are more than the kernels' grid takes "
+                         f"({_MAX_QUERY_GROUPS} groups of {_QUERY_ROWS})")
     if mask.device != device or mask.dtype != torch.bool \
             or tuple(mask.shape) != (B, N) or not mask.is_contiguous():
         raise ValueError(f"mask must be a contiguous bool [{B}, {N}] tensor on {device}")
@@ -327,15 +363,29 @@ def _check_forward_outputs(g, out, m, l, B, P, C, device) -> None:
                              f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def kernel_plan(name: str, dtype: torch.dtype, B: int, N: int, n_sm: int, C: int,
+                P: int) -> dict:
+    """The launch plan of kernel `name` ("coattn_fwd", "coattn_bwd_dq" or
+    "coattn_bwd_dx") on a card of n_sm SMs: `fwd_plan` with the forward's
+    and dQ's query groups on the grid; the dX kernel above 16 queries on its
+    looped instance's tiles (_DX_LOOP_TILE), no query groups on the grid."""
+    if name == "coattn_bwd_dx":
+        return fwd_plan(dtype, B, N, n_sm, C,
+                        tile=_DX_LOOP_TILE[dtype] if P > _QUERY_ROWS else None)
+    return fwd_plan(dtype, B, N, n_sm, C, query_groups(P))
+
+
 def _plan(lib, name: str, device, dtype, B, N, C, P) -> dict:
-    """`fwd_plan` for one kernel's launch, after checking that its block's
-    shared memory fits the card."""
+    """`kernel_plan` for one kernel's launch, after checking that its
+    block's shared memory fits the card.  Only the looped dX instance's
+    grows with P (it keeps every row's softmax stats: past 8,656 queries
+    of f32 x, 10,032 of bf16, it does not fit an H100's block)."""
     props = torch.cuda.get_device_properties(device)
     smem = getattr(lib, f"{name}_smem_bytes")(P, C, _STORAGE[dtype])
     if not 0 < smem <= props.shared_memory_per_block_optin:
-        raise ValueError(f"C={C}, P={P} needs {smem} bytes of shared memory per block, "
-                         f"the card gives {props.shared_memory_per_block_optin}")
-    return fwd_plan(dtype, B, N, props.multi_processor_count, C)
+        raise ValueError(f"{name} at C={C}, P={P} needs {smem} bytes of shared memory per "
+                         f"block, the card gives {props.shared_memory_per_block_optin}")
+    return kernel_plan(name, dtype, B, N, props.multi_processor_count, C, P)
 
 
 def _ptr(t):
@@ -352,8 +402,9 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the Hopper kernel on CUDA tensors.  Returns (out [B, P, C],
     m [B, P], l [B, P]) f32: the pooled features and the softmax stats
-    (running max and normaliser, l clamped below at 1e-30).  Any C (a
-    multiple of 8): above 512 the kernel's wide instance runs."""
+    (running max and normaliser, l clamped below at 1e-30).  Any P >= 1
+    (query groups of 16 rows on the grid) and any C (a multiple of 8):
+    above 512 the kernel's wide instance runs."""
     B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_fwd")
     device = x.device
     lib = _library("coattn_fwd")
@@ -378,6 +429,7 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
         raise RuntimeError(f"coattn_fwd kernel launch failed: cudaError {err}")
     LAUNCHES[variant_name(x.dtype, x_inv is not None)] += 1
     LAUNCHES_FWD_PATH["wide" if plan["groups"] > 1 else "group"] += 1
+    LAUNCHES_QUERY_PATH["grid" if P > _QUERY_ROWS else "single"] += 1
     return out, m, l
 
 
@@ -388,8 +440,9 @@ def coattn_bwd_dq(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
     """Launch the Hopper dQ kernel on CUDA tensors: the queries' gradient
     dq [P, C] f32 from the output's cotangent g [B, P, C] and the forward's
     (out, m, l) as `coattn_fwd` returns them.  One partial a block of
-    `fwd_plan`, summed in block order: repeated calls give the same bits.
-    Any C (a multiple of 8): above 512 the kernel's wide instance runs."""
+    `kernel_plan`, summed in block order: repeated calls give the same
+    bits.  Any P >= 1 (query groups of 16 rows on the grid) and any C (a
+    multiple of 8): above 512 the kernel's wide instance runs."""
     B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_bwd_dq")
     device = x.device
     _check_forward_outputs(g, out, m, l, B, P, C, device)
@@ -407,6 +460,7 @@ def coattn_bwd_dq(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
         raise RuntimeError(f"coattn_bwd_dq kernel launch failed: cudaError {err}")
     LAUNCHES_BWD[variant_name(x.dtype, x_inv is not None)] += 1
     LAUNCHES_BWD_PATH["wide" if plan["groups"] > 1 else "group"] += 1
+    LAUNCHES_QUERY_PATH["grid" if P > _QUERY_ROWS else "single"] += 1
     return dq
 
 
@@ -417,8 +471,10 @@ def coattn_bwd_dx(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
     f32, dX [B, N, C] in x's type) from the output's cotangent g [B, P, C]
     and the forward's (out, m, l) as `coattn_fwd` returns them.  x is f32 or
     bf16 (int8 features are constants) and its norms are computed in the
-    kernel: there are no sidecars.  The plan and the dq reduction are
-    `coattn_bwd_dq`'s; any C (a multiple of 8)."""
+    kernel: there are no sidecars.  The dq reduction is `coattn_bwd_dq`'s,
+    the plan too up to 16 queries; above, the kernel loops over the query
+    groups on each tile (tiles of 32 patches, f32 16; no query groups on
+    the grid).  Any C (a multiple of 8)."""
     B, N, C, P = _check_inputs(q, x, mask, None, None, "coattn_bwd_dx")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"coattn_bwd_dx takes f32 or bf16 x (int8 features are "
@@ -439,6 +495,7 @@ def coattn_bwd_dx(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
         raise RuntimeError(f"coattn_bwd_dx kernel launch failed: cudaError {err}")
     LAUNCHES_DX[_STORAGE_NAME[x.dtype]] += 1
     LAUNCHES_BWD_PATH["wide" if plan["groups"] > 1 else "group"] += 1
+    LAUNCHES_QUERY_PATH["loop" if P > _QUERY_ROWS else "single"] += 1
     return dq, dx
 
 

@@ -45,7 +45,8 @@ int coattn_bwd_dq(const void* q, const void* x, const void* x_scale, const void*
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const int Tb = (N + tile_of(storage) - 1) / tile_of(storage);
+    const int tile = bwd_tile_of(storage, P, false);
+    const int Tb = (N + tile - 1) / tile;
     const BwdArgs a{static_cast<const float*>(q), x, static_cast<const float*>(x_scale),
                     static_cast<const float*>(x_inv), static_cast<const uint8_t*>(mask), scale,
                     static_cast<const float*>(g), static_cast<const float*>(out),

@@ -41,7 +41,8 @@ int coattn_bwd_dx(const void* q, const void* x, const void* mask, float scale, c
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const int Tb = (N + tile_of(storage) - 1) / tile_of(storage);
+    const int tile = bwd_tile_of(storage, P, true);
+    const int Tb = (N + tile - 1) / tile;
     const BwdArgs a{static_cast<const float*>(q), x, nullptr, nullptr,
                     static_cast<const uint8_t*>(mask), scale, static_cast<const float*>(g),
                     static_cast<const float*>(out), static_cast<const float*>(m),

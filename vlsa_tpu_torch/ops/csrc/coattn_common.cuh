@@ -15,7 +15,9 @@ namespace coattn {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxP = 16;     // queries a launch takes
+// query groups of kRows rows a launch takes: the forward's and dQ's grid z
+// (P up to 65535 * 16)
+constexpr int kMaxQueryGroups = 65535;
 constexpr float kNegInf = -1e30f;
 
 enum Storage { kF32 = 0, kBF16 = 1, kI8 = 2 };
@@ -137,7 +139,9 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const 
 constexpr int kWarpCh = 64;                    // channels a warp owns
 constexpr int kMaxWarps = 8;                   // warps a block
 constexpr int kGroupCh = kWarpCh * kMaxWarps;  // 512: channels a block pools
-constexpr int kRows = 16;                      // query rows of an mma tile: P <= 16, zero-padded
+// query rows of an mma tile: a query group.  P queries are ceil(P / 16)
+// groups, the last zero-padded
+constexpr int kRows = 16;
 constexpr int kPlaneRow = kWarpCh * 2;         // bytes a row of a warp's bf16 plane
 
 template <int ST> struct Store;
@@ -157,6 +161,7 @@ __host__ __device__ constexpr int ld_of(int tile) { return tile + 8; }
 __host__ __device__ constexpr int qsteps_of(int storage) { return storage == kF32 ? 8 : 4; }
 
 __host__ __device__ constexpr int groups_of(int C) { return (C + kGroupCh - 1) / kGroupCh; }
+__host__ __device__ constexpr int query_groups_of(int P) { return (P + kRows - 1) / kRows; }
 __host__ __device__ constexpr int warps_of(int C) {
     return C > kGroupCh ? kMaxWarps : (C + kWarpCh - 1) / kWarpCh;
 }
@@ -176,15 +181,14 @@ __device__ __forceinline__ uint32_t slice_off(int r, int c) {
 __device__ __forceinline__ uint32_t plane_off(int r, int c) { return slice_off<kBF16>(r, c); }
 
 // cp.async of the warp's slice (channels [ch0, ch0 + 64)) of flat tile f
-// into a ring slot; rows past N and channels past C are zero-filled.  Not
-// committed.
-template <int ST>
+// (TT patches a tile) into a ring slot; rows past N and channels past C are
+// zero-filled.  Not committed.
+template <int ST, int TT = tile_of(ST)>
 __device__ __forceinline__ void issue_tile(const void* x, int N, int C, int Tb, int f,
                                            unsigned char* slot, int ch0, int lane) {
     using T = typename Store<ST>::T;
     constexpr int kItem = sizeof(T);
     constexpr int kChunks = kWarpCh * kItem / 16;  // a row: f32 16, bf16 8, int8 4
-    constexpr int TT = tile_of(ST);
     const int b = f / Tb, n0 = (f - b * Tb) * TT;
     const T* xb = static_cast<const T*>(x) + (size_t)b * N * C;
     const bool rows8 = kItem == 1 && (C & 15) != 0;  // int8 rows only 8-byte aligned

@@ -29,7 +29,7 @@
 // plain model of both roundings is ops/coattn.py::coattn_fwd_rounded.
 //
 // What bounds it on an H100: x is read once (B*N*C*itemsize bytes) and every
-// element takes 4*16 operations (P padded to the mma's 16 rows), twice that
+// element takes 4*16 operations a query group of 16 rows, twice that
 // for the bf16 hi + lo split (32 a byte of bf16) and three times for split
 // TF32 at half bf16's rate (48 a byte of f32): far below the ~295 a byte at
 // which the bf16 tensor cores become the limit.  The byte stream is the floor
@@ -87,6 +87,20 @@
 //   writing the channels [512 g, 512 g + 512) of the partials (group 0 also
 //   m and l).  x is read G + 1 times, the last from L2 as a rule.  Any N: the
 //   ragged last tile is masked here.
+// - Queries.  Any P >= 1: the P queries are QG = ceil(P/16) query groups of
+//   16 rows (one mma tile, the last zero-padded: its padded rows get no
+//   softmax row and are never written), and the group is the grid's z
+//   dimension, an outer dimension of the persistent plan: block (range,
+//   channel group, query group) pools the rows [16 z, 16 z + 16) of its
+//   range, with that group's q fragments, and writes those rows of the
+//   partials and the stats.  L = ceil(B*Tb / floor(SMs / (QG * G))) keeps
+//   the QG * G * ranges blocks in one wave, so the QG blocks of a range run
+//   side by side over the same tiles: x is read QG times (QG (G + 1) wide),
+//   all but the first as a rule from L2, against the one pass of the bound.
+//   The merge's partials [B, Smax, P, C] grow with P but Smax shrinks as L
+//   grows: at B=8, N=10240, P=128 (QG = 8, bf16 L = 80 on 132 SMs) a bag
+//   spans at most 2 ranges, 4.2 MB of f32 partials against bf16 x's 84 MB.
+//   P <= 16 is QG = 1, the instance and plan of before.
 #include "coattn_common.cuh"
 
 using namespace coattn;
@@ -232,6 +246,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const Fwd
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
     const int ch0 = warp * kWarpCh;                // within a channel group
+    // the block's query group: rows [q0, q0 + P) of the caller's P
+    const int q0 = (int)blockIdx.z * kRows, P = min(kRows, a.P - q0);
+    const float* qg = a.q + (size_t)q0 * a.C;
     // the wide instance: G channel groups, this block pools group grp; a
     // tile is G logit items and one PV item of the ring
     const int G = WIDE ? (int)gridDim.y : 1, grp = WIDE ? (int)blockIdx.y : 0;
@@ -268,7 +285,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const Fwd
     }
 
     uint32_t qh[qsteps_of(ST)][4], ql[qsteps_of(ST)][4];
-    if constexpr (!WIDE) load_frags<ST>(a.q, a.P, a.C, ch0, lane, qh, ql);
+    if constexpr (!WIDE) load_frags<ST>(qg, P, a.C, ch0, lane, qh, ql);
     for (int i = tid; i < 2 * kRows * kLd; i += blockDim.x) w_hi[i] = __float2bfloat16(0.f);
     if (tid < kRows) {
         m_s[tid] = kNegInf;
@@ -320,7 +337,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const Fwd
                 xh = plane;
             }
             if (logits) {
-                if constexpr (WIDE) load_frags<ST>(a.q, a.P, C, m * kGroupCh + ch0, lane, qh, ql);
+                if constexpr (WIDE) load_frags<ST>(qg, P, C, m * kGroupCh + ch0, lane, qh, ql);
                 slice_logits<ST, HOST_INV>(xh, qh, ql, red_w, m > 0, lane);
             }
         };
@@ -348,8 +365,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const Fwd
             }
             sinv[u] = a.scale * inv;
         }
-        for (int r0 = warp; r0 < a.P; r0 += 2 * nw) {
-            const bool two = r0 + nw < a.P;
+        for (int r0 = warp; r0 < P; r0 += 2 * nw) {
+            const bool two = r0 + nw < P;
             const int r1 = two ? r0 + nw : r0;  // the second row, or r0 again (not written)
             float lg0[kU], lg1[kU];
             float mx0 = kNegInf, mx1 = kNegInf;
@@ -483,23 +500,23 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const Fwd
         const int b = f / a.Tb;
         if (f - b * a.Tb == a.Tb - 1 || i == ntiles - 1) {
             const size_t part = (size_t)b * a.Smax + (blockIdx.x - (b * a.Tb) / a.L);
-            float* dst = a.ws_acc + part * a.P * a.C;
+            float* dst = a.ws_acc + (part * a.P + q0) * a.C;
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
                 const int c = grp * kGroupCh + ch0 + 8 * j + 2 * t;
                 if (c < a.C) {
-                    if (g < a.P) *reinterpret_cast<float2*>(dst + (size_t)g * a.C + c) =
+                    if (g < P) *reinterpret_cast<float2*>(dst + (size_t)g * a.C + c) =
                         make_float2(acc[j][0], acc[j][1]);
-                    if (g + 8 < a.P) *reinterpret_cast<float2*>(dst + (size_t)(g + 8) * a.C + c) =
+                    if (g + 8 < P) *reinterpret_cast<float2*>(dst + (size_t)(g + 8) * a.C + c) =
                         make_float2(acc[j][2], acc[j][3]);
                 }
 #pragma unroll
                 for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
             }
-            if (tid < a.P) {
+            if (tid < P) {
                 if (grp == 0) {
-                    a.ws_m[part * a.P + tid] = m_s[tid];
-                    a.ws_l[part * a.P + tid] = l_s[tid];
+                    a.ws_m[part * a.P + q0 + tid] = m_s[tid];
+                    a.ws_l[part * a.P + q0 + tid] = l_s[tid];
                 }
                 m_s[tid] = kNegInf;
                 l_s[tid] = 0.f;
@@ -581,7 +598,8 @@ cudaError_t launch_stream(const FwdArgs& a, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3((a.total + a.L - 1) / a.L, groups_of(a.C)), 32 * nw, smem, stream>>>(a);
+    kernel<<<dim3((a.total + a.L - 1) / a.L, groups_of(a.C), query_groups_of(a.P)), 32 * nw, smem,
+             stream>>>(a);
     return cudaGetLastError();
 }
 
@@ -605,10 +623,11 @@ size_t coattn_fwd_smem_bytes(int P, int C, int storage) {
     return FwdSmem(warps_of(C), storage).total;
 }
 
-// q [P, C] f32; x [B, N, C] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N]
-// f32 for int8, else null; x_inv [B, N] f32 or null; mask [B, N] bool.  The
-// streaming kernel runs ceil(B*Tb / L) blocks of L tiles (Tb = ceil(N /
-// tile) a bag) for each of the ceil(C / 512) channel groups; workspace ws_m,
+// q [P, C] f32 (any P >= 1); x [B, N, C] (storage: 0 f32, 1 bf16, 2 int8);
+// x_scale [B, N] f32 for int8, else null; x_inv [B, N] f32 or null; mask
+// [B, N] bool.  The streaming kernel runs ceil(B*Tb / L) blocks of L tiles
+// (Tb = ceil(N / tile) a bag) for each of the ceil(C / 512) channel groups
+// and ceil(P / 16) query groups; workspace ws_m,
 // ws_l [B, Smax, P] and ws_acc [B, Smax, P, C] f32, Smax the most blocks a
 // bag's tiles span.  Outputs: out [B, P, C], m and l [B, P] f32.  All on
 // CUDA device `device`; the kernels go to `stream`.  Returns the launches'
@@ -617,7 +636,8 @@ int coattn_fwd(const void* q, const void* x, const void* x_scale, const void* x_
                const void* mask, float scale, int B, int N, int C, int P, int L, int Smax,
                int storage, int device, void* ws_m, void* ws_l, void* ws_acc, void* out,
                void* m_out, void* l_out, void* stream) {
-    if (P < 1 || P > kMaxP || coattn_fwd_smem_bytes(P, C, storage) == 0 || B < 1 || N < 0
+    if (P < 1 || query_groups_of(P) > kMaxQueryGroups || coattn_fwd_smem_bytes(P, C, storage) == 0
+        || B < 1 || N < 0
         || L < 1 || Smax < 0 || (storage == kI8) != (x_scale != nullptr)
         || (storage != kF32 && storage != kBF16 && storage != kI8)) {
         return (int)cudaErrorInvalidValue;
