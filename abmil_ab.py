@@ -9,7 +9,8 @@ on the same card within one call:
 
 - `--kernels abmil` (the default): `chip_smoke.time_abmil` at D=512,
   hid=256 for every storage, at B=8, N=10240 and at the training shape
-  B=32, N=16384;
+  B=32, N=16384, and at the general instances' widths (1024, 256), (768,
+  128) and (1536, 512) at B=8, N=10240;
 - `--kernels coattn`: the forward, dQ and dX kernels at chip_smoke.py
   phase 4's and 4d's shapes -- every forward variant at B=8 and B=64 and
   three at C=1024 (N=10240), every dQ variant at B=8, bf16 and int8_inv dQ
@@ -51,6 +52,11 @@ for B, N in %r:
     for s in ("f32", "bf16", "int8"):
         for name, rec in cs.time_abmil(torch, ab, s, B, N).items():
             out[name + "[" + s + "] B=" + str(B)] = rec["ms"]
+for D, H in %r:
+    for s in ("f32", "bf16", "int8"):
+        for name, rec in cs.time_abmil(torch, ab, s, 8, 10240, D=D, H=H).items():
+            out[name + "[" + s + "] D=" + str(D) + " hid=" + str(H)] = rec["ms"]
+        torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -81,7 +87,10 @@ for kind, v, B, N, C in cases:
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 """
-TURNS = {"abmil": _ABMIL_TURN % (SHAPES,), "coattn": _COATTN_TURN}
+# the general instances' first widths (1024-, 768- and 1536-d features), timed at B=8,
+# N=10240
+GENERAL_WIDTHS = ((1024, 256), (768, 128), (1536, 512))
+TURNS = {"abmil": _ABMIL_TURN % (SHAPES, GENERAL_WIDTHS), "coattn": _COATTN_TURN}
 
 
 def turn(root: str, code: str) -> dict:

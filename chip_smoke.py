@@ -45,12 +45,17 @@ non-zero and prints no result:
      against the exact model of its rounding (`abmil_bwd_rounded`,
      exact=True): dX beyond its rounding to bf16, db1 and dw2 over their
      sums' scale within 2e-5, dW1 within 5e-5 of max|dW1|, limits the
-     single-rounded model must miss in dW1 and dX; beside the int8
+     single-rounded model must miss in dW1 and dX; all of this again at
+     every width the kernels take (`ABMIL_ANY_WIDTHS`: (2560,
+     256), (2560, 512), (4096, 256), (4096, 1024), (1000, 384), (768, 96),
+     (100, 32), (1536, 1024): W1 zero-padded to whole passes and slices,
+     rows of any length and alignment), ragged and precise at (2560, 256)
+     and (1000, 384); beside the int8
      forward's gap it prints the gap to `abmil_fwd_rounded`, the plain model
      of its W1 split; the kernels' ptxas lines (registers, static shared
      memory, spills) and dynamic shared memory go to the record, and an f32
      instance, a bf16 or int8 forward instance, a general forward instance
-     (11) or a backward pass of any storage (20) that spills fails the run,
+     (11) or a backward pass of any storage (24) that spills fails the run,
      as does a forward instance or a backward pass with a stack frame;
   2d. flash kernel: holds both variants of csrc/flash_attn_fwd.cu against
      the plain version at B=64, H=12, hd=64 and L = 785 (CONCH at 448 px),
@@ -150,8 +155,9 @@ non-zero and prints no result:
      full CONCH width, bf16 storage, random weights from the seed) through
      `VLSAHandler(cfg).exec()` for 1 epoch (cut from 10; 2 until phase 3i
      came), then
-     cfg_sa_base_conch.yaml (f32 storage) through `SAHandler` for 1, on the
-     298 training and 75 test patients, save_path in a temporary
+     cfg_sa_base_conch.yaml (f32 storage, bags of N~4096: half
+     the flagship's, for the script's time) through `SAHandler` for 1, on
+     the 298 training and 75 test patients, save_path in a temporary
      directory, every launch counter from 0 just before: each epoch trains
      and evaluates the test split, then the last checkpoint is loaded and
      both splits are evaluated again; the launches must be exactly those of
@@ -252,18 +258,43 @@ non-zero and prints no result:
      batch's gradients are within 2e-3 of CoattnPoolFull on the plain
      kernels; every launch on the query routes (forward and dQ "grid", dX
      "loop"); rows 1-6 at P=32 go to the kernels line with these launches;
+  3n. vlsa_tpu's optimizers and adahessian's switch, while phase 3h's
+     stores are there: every name of the factory (`OPT_NAMES`, lookahead_adam
+     among them) 2 steps of the SA at 2560-256-12 in f32 from its own
+     initial weights, each step one general forward and one backward
+     launched, finite losses and parameters; adahessian 3 steps on the SA and
+     3 on the flagship (phase 3b's batch, the text tower in f32), no kernel
+     launched in a step (`ops.flags.disable_kernels`), the frozen tower
+     untouched, the evaluation forward after them on the kernels; the
+     Hessian diagonal's estimate for a fixed z, card (plain versions under
+     the switch) against the port on the CPU, within 1e-3 of each leaf's
+     largest element or 4x the CPU's own gap at 1e-7 weight noise; the
+     Hessian estimate through the ABMIL kernels
+     (outside the switch) raises;
+     and 1 epoch of the flagship with `opt_name: adahessian` from phase 3h's
+     bf16 .npy store through `vlsa_tpu_torch.main` with 3h's checks (the
+     evaluation passes alone launch); the stores are then removed;
   3k. the SA baseline at 1024-d features: fold 0's 437 slides as bags of
-     N~4096 jittered at D=1024 (buckets up to 16,384) written as a .npy f32 store
-     and converted to .q8npz, as phase 3h; cfg_sa_base_conch.yaml at
-     net_dims 1024-256-12 for one epoch from each (f32, int8 features)
-     through the command line's entry, `vlsa_tpu_torch.main.main(["--config",
-     <the config as YAML>, "--handler", "SA"])`, with 3h's checks (native batches, exact launches,
+     N~4096 jittered at D=1024 (buckets up to 16,384) written as a .npy f32
+     store, as phase 3h; cfg_sa_base_conch.yaml at net_dims 1024-256-12 for
+     one epoch (f32 features; its .q8npz run was cut for the script's time: phase 3m
+     runs int8) through the command line's entry,
+     `vlsa_tpu_torch.main.main(["--config", <the config as YAML>,
+     "--handler", "SA"])`, with 3h's checks (native batches, exact launches,
      every one on the general instances, finite metrics, test predictions
      within 1e-3 of the plain pooling's), the reloaded checkpoint's test
      probabilities bit for bit those of the model in memory, a served
      request of 8 bags within 1e-3 of the plain pooling and a training
      batch's parameter gradients within 2e-3 of the plain path's; the
-     stores are removed at the end;
+     store is removed at the end;
+  3m. the SA baseline at 2560-d features (Virchow, Virchow2): as 3k at
+     net_dims 2560-256-12, bags of N~2048 jittered (cut from 3k's N~4096),
+     a .npy f32 store and its .q8npz conversion, one epoch from each (f32,
+     int8) through `main` with 3k's checks, then one Adam step with
+     `deepmil_use_feat_proj: True` from the f32 store (the general backward
+     with dX at 2560) with its gradients against the plain path; the stores'
+     bytes and each run's host memory peak are printed; the stores are
+     removed at the end;
   4. times: CUDA events, median of 25 runs with the L2 cache flushed
      before each, for each kernel, its plain version and a PyTorch
      yardstick the port never calls (one scaled_dot_product_attention call;
@@ -278,7 +309,8 @@ non-zero and prints no result:
      plain versions with the tolerances above;
   4b. ABMIL times: the same for each ABMIL kernel and its plain version at
      B=8, N=10240 and at the training shape B=32, N=16384, at B=8 also at
-     each other width of phase 2c and for precise bf16 (its plain version
+     each other width of ABMIL_WIDTHS and at (2560, 256) and
+     (1000, 384) (ABMIL_ANY_TIMED), and for precise bf16 (its plain version
      the model of its rounding), beside one cuBLAS
      x @ W1^T in the storage type (`gemm_ms`, a partial yardstick the port
      never calls: no single PyTorch call computes ABMIL pooling, so
@@ -387,6 +419,26 @@ ABMIL_STORAGES = ("f32", "bf16", "int8")
 ABMIL_WIDTHS = ((512, 256), (1024, 256), (768, 128), (1536, 512))
 ABMIL_RAGGED_WIDTHS = ((512, 256), (1024, 256))
 ABMIL_PRECISE_WIDTHS = ((512, 256), (1024, 256))
+# every width the kernels take (W1 zero-padded to whole passes and
+# slices, rows of any length and alignment): Virchow's 2560 with the shipped
+# 256 and CLAM's 512, 4096 at 256 and 1024, and widths that pad hid (384, 96,
+# 32; 1024 at 1536) and D (1000, 100: int8 rows at both and bf16 rows at 100
+# not 16-byte aligned); held in 2c as ABMIL_WIDTHS are, ragged and precise at
+# two of them, and timed in 4b at ABMIL_ANY_TIMED
+ABMIL_ANY_WIDTHS = ((2560, 256), (2560, 512), (4096, 256), (4096, 1024), (1000, 384),
+                    (768, 96), (100, 32), (1536, 1024))
+ABMIL_ANY_RAGGED_WIDTHS = ((2560, 256), (1000, 384))
+ABMIL_ANY_PRECISE_WIDTHS = ((2560, 256), (1000, 384))
+ABMIL_ANY_TIMED = ((2560, 256), (1000, 384))
+# `abmil_bf16_dz_accuracy` at ABMIL_DZ_WIDTHS: bf16 dW1 against an f64
+# model of its rounding, the kernel's pass 2 within TOL_DW1_OWN_DZ of the sum
+# over its own dz, and at most DZ_APART_FACTOR times as many dz entries as
+# the plain version rounded apart from the model's; there the tensor cores'
+# own accumulation over D had put dW1 2.6e-3 from its plain version at
+# (4096, 1024), rounding 5.2 times as many apart
+ABMIL_DZ_WIDTHS = ((4096, 1024), (2560, 512))
+TOL_DW1_OWN_DZ = 5e-4
+DZ_APART_FACTOR = 2
 TOL_ABMIL_MODEL = 2e-5
 TOL_ABMIL_PRECISE_DW1 = 5e-5
 TOL_ABMIL = {"f32": 1e-4, "bf16": 1e-3, "int8": 1e-3}
@@ -555,7 +607,12 @@ LIFECYCLE_RUN = dict(
 LIFECYCLE_VLSA_CFG = dict(TRAIN_CFG, **LIFECYCLE_RUN, evaluator="VL-IF",
                           model_saver_module_filter="prompt_encoder", epochs=1)
 LIFECYCLE_SA_CFG = dict(SA_CFG, **LIFECYCLE_RUN, epochs=1)
-LIFECYCLE_REDUCED = {"vlsa": {"epochs": "10 -> 1"}, "sa": {"epochs": "10 -> 1"}}
+LIFECYCLE_REDUCED = {"vlsa": {"epochs": "10 -> 1"},
+                     "sa": {"epochs": "10 -> 1",
+                            "bag N": "~8192 -> ~4096 (for the script's time: phase "
+                                     "3h's SA runs read N~8192 from the store)"}}
+# phase 3g's SA run draws its synthetic bags at half the flagship's length
+LIFECYCLE_SA_BAGS = "synthetic://N=4096,D=512,seed=7"
 # the metrics each epoch's and the final evaluation must give, finite
 LIFECYCLE_METRICS = ("c_index", "loss", "loss_mle", "IBS", "MAE", "D_calibration", "c_index2",
                      "loss_SurvIFMLE")
@@ -596,11 +653,61 @@ STORE_REDUCED = {"epochs": "10 -> 1"}
 SA1024_BAGS = "synthetic://N=4096,D=1024,seed=7"
 SA1024_SLIDE_BYTES = 4096 * (1024 * 4 + 1024 + 8)
 SA1024_CFG = dict(LIFECYCLE_SA_CFG, net_dims="1024-256-4")
+# cut to its f32 run for the script's time (phase 3m runs int8 on the
+# general instances at 2560-d): the store is not converted
 SA1024_RUNS = (
     ("sa1024_f32_npy", SA1024_CFG, "npy", {}, "f32"),
-    ("sa1024_int8_q8npz", SA1024_CFG, "q8npz", dict(feats_dtype="int8"), "int8"),
 )
+SA1024_REDUCED = {"runs": "f32 .npy and int8 .q8npz -> f32 .npy (phase 3m runs int8)"}
+# phase 3m: the SA baseline at 2560-d features (Virchow and Virchow2 tile
+# embeddings: the 1280-d class token beside the 1280-d mean patch token):
+# cfg_sa_base_conch.yaml with net_dims 2560-256-K (K corrected to fold 0's 12
+# bins), fold 0's 437 slides as bags of N~2048 jittered at D=2560 (cut from
+# phase 3k's N~4096: a 2560-d f32 slide at N~4096 is ~42 MB, the store 18 GB),
+# a .npy f32 store and its .q8npz conversion; one epoch from each through
+# `main`, with phase 3k's checks (the reload bit for bit, a served request and
+# a step's gradients against the plain path), then one Adam step with
+# `deepmil_use_feat_proj: True` from the f32 store (the general backward
+# with dX at 2560, a projecter of 2560 -> 2560) whose gradients are held
+# against the plain path: the general instances of rows 7-10 at 2560, 256
+SA2560_BAGS = "synthetic://N=2048,D=2560,seed=7"
+SA2560_SLIDE_BYTES = 2048 * (2560 * 4 + 2560 + 8)
+SA2560_CFG = dict(LIFECYCLE_SA_CFG, net_dims="2560-256-4")
+SA2560_RUNS = (
+    ("sa2560_f32_npy", SA2560_CFG, "npy", {}, "f32"),
+    ("sa2560_int8_q8npz", SA2560_CFG, "q8npz", dict(feats_dtype="int8"), "int8"),
+)
+SA2560_REDUCED = {"epochs": "10 -> 1",
+                  "bag N": "~4096 (phase 3k's) -> ~2048: a 2560-d f32 slide at N~4096 is "
+                           "~42 MB"}
+# phase 3n: vlsa_tpu's optimizers and adahessian's switch.  Every name of the
+# factory (and lookahead_adam) 2 steps of the SA at 2560-256-12, f32, on the
+# kernels; adahessian 3 steps of the flagship on phase 3b's batch (f32 text
+# tower) and of the SA at 2560, no kernel launched in a step and the
+# evaluation pass after it on the kernels; the Hessian diagonal's estimate,
+# for a fixed z and the same weights in eval mode, card (the plain versions
+# under the switch) against the port on the CPU on OPT_HESSIAN_BAGS bags,
+# within TOL_HESSIAN of each leaf's largest element or HESSIAN_NOISE_FACTOR
+# times the CPU's own gap at f32-rounding weight noise; a double backward
+# through the kernels raises; and 1 epoch of the flagship with opt_name
+# adahessian from phase 3h's bf16 .npy store through `main`
+OPT_NAMES = ("adam", "adamw", "sgd", "nesterov", "momentum", "nadam", "radam", "adadelta",
+             "adafactor", "novograd", "nvnovograd", "rmsprop", "rmsproptf", "adamp", "sgdp",
+             "adahessian", "lookahead_adam")
+OPT_STEPS = 2
+OPT_SA_BAGS = "synthetic://N=2048,D=2560,seed=11"
+OPT_BATCH = 8  # patients a batch of the optimizer steps
+ADAHESSIAN_STEPS = 3
+OPT_HESSIAN_BAGS = 4
+TOL_HESSIAN = 1e-3
+HESSIAN_NOISE_FACTOR = 4
+ADAHESSIAN_RUN = ("vlsa_adahessian_bf16_npy", LIFECYCLE_VLSA_CFG, "npy",
+                  dict(feats_dtype="bfloat16", opt_name="adahessian"), "bf16")
 RSS_SAMPLE_S = 0.05  # the resident set's sampling period within a run
+# the share of the host's memory (MemTotal) a run of phases 3k and 3m may
+# peak at: an f32 epoch of the SA at 2560-d peaked at 70.6 GiB (62 GiB of it
+# page-locked batches) of a 96 GiB host, an open fault (ROADMAP.md §C)
+HOST_RSS_SHARE = 0.8
 # phase 3i: the released CONCH weights and zero-shot.  A CONCH-format
 # checkpoint (a CoCa state dict, the text tower under `text.*`) at the
 # published text tower's full width, random from ZS_SEED, with `visual.*`
@@ -856,6 +963,98 @@ def make_abmil_inputs(torch, B, N, storage, seed=0, device="cuda", D=512, H=256)
     return x.contiguous(), x_scale, mask.contiguous(), w1, b1, w2, g
 
 
+def abmil_bwd_with_dz(torch, ab, x, mask, w1, b1, w2, g, out, m, l):
+    """The bf16 weights-only backward launched as `ab.abmil_bwd` launches it
+    (not counted), its dz workspace kept: (dW1, dz [B, N, hid] bf16, the
+    kernel's own rounding of dz, which its pass 2 sums into dW1)."""
+    B, N, D = x.shape
+    hid = w1.shape[0]
+    index = ab._device_index(x.device)
+    plan = ab.bwd_plan(x.dtype, B, N, ab._n_sm(index), D, hid, False)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dw1, db1, dw2 = torch.empty(hid, D, **f32), torch.empty(hid, **f32), torch.empty(hid, **f32)
+    ds = torch.empty(plan["ds"], dtype=plan["ds_dtype"], device=x.device)
+    ws_dw1 = torch.empty(plan["ws_dw1"], **f32)
+    ws_db1, ws_dw2 = torch.empty(plan["ws_b"], **f32), torch.empty(plan["ws_b"], **f32)
+    w1_ws = torch.empty(plan["w1_bf16"], dtype=torch.bfloat16, device=x.device)
+    p = ab._ptr
+    err = ab._library("abmil_bwd").abmil_bwd(
+        p(x), None, p(mask), p(w1), p(b1), p(w2), p(g), p(out), p(m), p(l), B, N, D, hid,
+        plan["chunk1"], plan["S1"], plan["chunk2"], plan["S2"], 1, 0, 0, index, p(w1_ws), None,
+        p(ds), p(ws_dw1), p(ws_db1), p(ws_dw2), None, p(dw1), p(db1), p(dw2),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err == 0, f"abmil_bwd bf16 at D={D} hid={hid}: cudaError {err}")
+    torch.cuda.synchronize()
+    return dw1, ds[..., :hid]
+
+
+def abmil_bf16_dz_accuracy(torch, ab, D, H):
+    """bf16's dW1 at (D, H) against an f64 model of its rounding
+    (`abmil_bwd_rounded(exact=True)`: dz from the same inputs in f64, then
+    rounded to bf16, the TPU kernel's rounding).  The kernel and its plain
+    version each round some dz entries to the bf16 neighbour of the
+    model's, the more often the less accurate their f32 dz; one such entry
+    of a patch with a large dz moves a whole row of dW1 by a bf16 ulp of its
+    part, which neither max|dW1| nor the Frobenius norm averages out.
+    Holds (a) the kernel's dW1 within TOL_DW1_OWN_DZ of max|dW1| of the f64
+    sum over its own bf16 dz (its pass 2 sums what its pass 1 wrote), and
+    (b) the dz entries it rounds apart from the model at most DZ_APART_FACTOR
+    times the plain version's (its f32 dz as accurate as the plain one's).
+    Logs the max and Frobenius gaps, both counts, and the kernel's entry
+    that moves dW1 most with its share of the kernel's max gap."""
+    x, _xs, mask, w1, b1, w2, g = make_abmil_inputs(torch, **ABMIL_SHAPE, storage="bf16", D=D,
+                                                    H=H)
+    where = f"abmil_bwd bf16 at B=8 N=10240 D={D} hid={H}"
+    out, m, l = ab.abmil_fwd(x, mask, w1, b1, w2)
+    dw1_k, dz_k = abmil_bwd_with_dz(torch, ab, x, mask, w1, b1, w2, g, out, m, l)
+    _dx, dw1_p, _db1, _dw2 = ab.abmil_bwd_reference(x, mask, w1, b1, w2, g, out, m, l,
+                                                    need_dx=False)
+    _dx, dw1_e, _db1, _dw2 = ab.abmil_bwd_rounded(x, mask, w1, b1, w2, g, out, m, l,
+                                                  need_dx=False, exact=True)
+    live = mask[..., None]
+    xd = x.double()
+    dz_k = torch.where(live, dz_k.double(), 0.0)
+    dw1_own = torch.einsum("bnh,bnd->hd", dz_k, xd)
+    gap = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())  # noqa: E731
+    fro = lambda a, b: float((a.double() - b).norm() / b.norm())  # noqa: E731
+    rec = {"kernel_to_plain": gap(dw1_k, dw1_p.double()),
+           "kernel_to_own_dz": gap(dw1_k, dw1_own), "kernel_to_exact": gap(dw1_k, dw1_e),
+           "plain_to_exact": gap(dw1_p, dw1_e), "kernel_to_exact_fro": fro(dw1_k, dw1_e),
+           "plain_to_exact_fro": fro(dw1_p, dw1_e)}
+    del dw1_own, _dx, _db1, _dw2
+    _xf, _h, _a, _ds, dz_f = ab._bwd_terms(x, mask, w1, b1, w2, g, out, m, l, None, False)
+    dz_p = torch.where(live, dz_f.to(torch.bfloat16).double(), 0.0)
+    del _xf, _h, _a, _ds, dz_f
+    exact = [t.double() for t in (w1, b1, w2, g, out, m, l)]
+    _xf, _h, _a, _ds, dz_e = ab._bwd_terms(x, mask, *exact, None, False)
+    del _xf, _h, _a, _ds
+    dz_r = torch.where(live, dz_e.to(torch.float32).to(torch.bfloat16).double(), 0.0)
+    del dz_e
+    diff = dz_k != dz_r
+    rec["dz_apart_kernel"] = int(diff.sum())
+    rec["dz_apart_plain"] = int((dz_p != dz_r).sum())
+    if rec["dz_apart_kernel"]:
+        moved = (dz_k - dz_r).abs() * xd.abs().amax(-1, keepdim=True)
+        _B, N_, H_ = moved.shape
+        b, rest = divmod(int(moved.argmax()), N_ * H_)
+        n, j = divmod(rest, H_)
+        rec.update(worst_entry=[b, n, j],
+                   worst_share=float(moved[b, n, j] / (dw1_k.double() - dw1_e).abs().max()))
+    log(f"{where}: dW1 {rec['kernel_to_plain']:.3e} from its plain version; from the f64 "
+        f"model (max, Frobenius) the kernel {rec['kernel_to_exact']:.3e}, "
+        f"{rec['kernel_to_exact_fro']:.3e}, the plain version {rec['plain_to_exact']:.3e}, "
+        f"{rec['plain_to_exact_fro']:.3e}; dz entries rounded apart from the f64 model's: "
+        f"kernel {rec['dz_apart_kernel']}, plain {rec['dz_apart_plain']} (limit "
+        f"{DZ_APART_FACTOR}x); from the f64 sum over its own dz "
+        f"{rec['kernel_to_own_dz']:.3e} (tol {TOL_DW1_OWN_DZ:g}); {rec}")
+    check(rec["kernel_to_own_dz"] <= TOL_DW1_OWN_DZ,
+          f"{where}: dW1 deviates {rec['kernel_to_own_dz']:.3e} from the sum over its own dz")
+    check(rec["dz_apart_kernel"] <= DZ_APART_FACTOR * rec["dz_apart_plain"],
+          f"{where}: the kernel rounds {rec['dz_apart_kernel']} dz entries apart from the f64 "
+          f"model, the plain version {rec['dz_apart_plain']}")
+    return rec
+
+
 def abmil_fwd_kernel(ab, x, xs, mask, w1, b1, w2):
     if xs is None:
         return ab.abmil_fwd(x, mask, w1, b1, w2)
@@ -1016,22 +1215,24 @@ def ptxas_lines(name: str) -> list:
 def abmil_ptxas(ab) -> dict:
     """ptxas's lines for csrc/abmil_fwd.cu's and csrc/abmil_bwd.cu's kernels
     and every forward's and backward pass's dynamic shared memory at each of
-    ABMIL_WIDTHS; fails if an f32 instance of the resident kind, a forward
-    instance (abmil_fwd_partial<T>, 2; abmil_fwd_general, 11) or a backward
-    pass (abmil_bwd_dz_*, abmil_bwd_dw_*: 2 f32, 3 bf16-operand pass-1
-    instances, 11 general ones, 4 pass-2 ones) spills, if a forward instance
-    or a backward pass keeps a stack frame, or if a block's shared memory
-    exceeds what the card gives."""
+    ABMIL_WIDTHS and ABMIL_ANY_WIDTHS and at the domain's corners; fails if
+    an f32 kernel (5), a forward instance (abmil_fwd_partial<T>, 2;
+    abmil_fwd_general, 7) or a backward pass (abmil_bwd_dz_*,
+    abmil_bwd_dw_*: 2 f32, 3 bf16-operand pass-1 instances, 7 general ones,
+    8 pass-2 ones: 4 storages by x's rows 16-byte aligned or not) spills, if
+    a forward instance or a backward pass keeps a stack frame, or if a
+    block's shared memory exceeds what the card gives."""
     import torch
     report = {name: ptxas_lines(name) for name in ("abmil_fwd", "abmil_bwd")}
     f32 = [r for rs in report.values() for r in rs if "_f32" in r["function"]]
-    check(len(f32) == 4, f"ptxas shows {len(f32)} f32 ABMIL kernels, not 4")
+    check(len(f32) == 5, f"ptxas shows {len(f32)} f32 ABMIL kernels, not 5 (the forward, "
+                         "pass 1 with and without dX, pass 2 for rows 16-byte aligned or not)")
     fwd_q = [r for r in report["abmil_fwd"]
              if "abmil_fwd_partial" in r["function"] and "_f32" not in r["function"]]
     check(len(fwd_q) == 2, f"ptxas shows {len(fwd_q)} bf16 and int8 forward instances, not 2")
     fwd_g = [r for r in report["abmil_fwd"] if "abmil_fwd_general" in r["function"]]
-    check(len(fwd_g) == 11, f"ptxas shows {len(fwd_g)} general forward instances, not 11 "
-                            "(f32, bf16, precise: 3 pass widths; int8: 2)")
+    check(len(fwd_g) == 7, f"ptxas shows {len(fwd_g)} general forward instances, not 7 "
+                           "(f32: 3 pass widths; int8: 2; bf16, precise: 1)")
     passes = [r for r in report["abmil_bwd"] if "abmil_bwd_d" in r["function"]]
     check(len(passes) == 20, f"ptxas shows {len(passes)} ABMIL backward passes, not 20")
     for r in f32 + fwd_q + fwd_g + passes:
@@ -1041,7 +1242,7 @@ def abmil_ptxas(ab) -> dict:
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     fwd, bwd = ab._library("abmil_fwd"), ab._library("abmil_bwd")
     smem = {}
-    for D, H in ABMIL_WIDTHS + ((64, 64), (2048, 512)):
+    for D, H in ABMIL_WIDTHS + ABMIL_ANY_WIDTHS + ((64, 64), (2048, 512), (1, 1), (8192, 1024)):
         for i, s_ in enumerate(ABMIL_STORAGES):
             for precise in ((0, 1) if s_ == "bf16" else (0,)):
                 key = f"{s_}{'_precise' if precise else ''}_D{D}_h{H}"
@@ -1108,10 +1309,11 @@ def coattn_fwd_ptxas(co) -> dict:
 
 
 def phase_abmil_kernels(torch, ab):
-    """Every storage at each of ABMIL_WIDTHS and, ragged, at
-    ABMIL_RAGGED_WIDTHS; precise bf16 at ABMIL_PRECISE_WIDTHS."""
+    """Every storage at each of ABMIL_WIDTHS and ABMIL_ANY_WIDTHS and,
+    ragged, at ABMIL_RAGGED_WIDTHS and ABMIL_ANY_RAGGED_WIDTHS; precise bf16
+    at ABMIL_PRECISE_WIDTHS and ABMIL_ANY_PRECISE_WIDTHS."""
     errs = {}
-    for D, H in ABMIL_WIDTHS:
+    for D, H in ABMIL_WIDTHS + ABMIL_ANY_WIDTHS:
         for s in ABMIL_STORAGES:
             inputs = make_abmil_inputs(torch, **ABMIL_SHAPE, storage=s, D=D, H=H)
             key = s if (D, H) == (512, 256) else f"{s}_D{D}_h{H}"
@@ -1120,7 +1322,7 @@ def phase_abmil_kernels(torch, ab):
             torch.cuda.empty_cache()
     B, N = ABMIL_RAGGED["B"], ABMIL_RAGGED["N"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for D, H in ABMIL_RAGGED_WIDTHS:
+    for D, H in ABMIL_RAGGED_WIDTHS + ABMIL_ANY_RAGGED_WIDTHS:
         for s in ABMIL_STORAGES:
             dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[s]
             plans = {"fwd": ab.fwd_plan(dtype, B, N, n_sm, D, H),
@@ -1135,12 +1337,15 @@ def phase_abmil_kernels(torch, ab):
             errs[key]["chunks"] = chunks
             del inputs, _stats
             torch.cuda.empty_cache()
-    for D, H in ABMIL_PRECISE_WIDTHS:
+    for D, H in ABMIL_PRECISE_WIDTHS + ABMIL_ANY_PRECISE_WIDTHS:
         x, _xs, mask, w1, b1, w2, g = make_abmil_inputs(torch, **ABMIL_SHAPE, storage="bf16",
                                                         D=D, H=H)
         errs[f"bf16_precise_D{D}_h{H}"], _stats = hold_abmil_precise(
             torch, ab, x, mask, w1, b1, w2, g, "at B=8 N=10240")
         del x, mask, w1, b1, w2, g, _stats
+        torch.cuda.empty_cache()
+    for D, H in ABMIL_DZ_WIDTHS:
+        errs[f"bf16_dz_accuracy_D{D}_h{H}"] = abmil_bf16_dz_accuracy(torch, ab, D, H)
         torch.cuda.empty_cache()
     return errs
 
@@ -2505,6 +2710,19 @@ def _proc_status_bytes(key: str) -> Optional[int]:
     return None
 
 
+def host_memory_bytes() -> Optional[int]:
+    """The host's memory (MemTotal of /proc/meminfo) in bytes (None off
+    Linux)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
 class HostMemoryWindow:
     """The host memory of one stretch of the process: the resident set at
     its start and its peak within the stretch (VmRSS read every
@@ -2577,8 +2795,11 @@ def expected_launches(handler, launches, variant) -> dict:
     expected = {name: dict.fromkeys(counts, 0) for name, counts in launches.items()}
     if variant is None:
         return expected
-    expected[fwd][variant] = epochs * (n_train + n_test) + n_train + n_test
-    expected[bwd][variant] = epochs * n_train
+    # adahessian's training steps run the plain versions (the switch): only
+    # the evaluation passes launch
+    steps = 0 if str(cfg.get("opt_name", "")).lower() == "adahessian" else n_train
+    expected[fwd][variant] = epochs * (steps + n_test) + n_train + n_test
+    expected[bwd][variant] = epochs * steps
     if cfg["task"] != "vlsa":  # ABMIL: each call on the instances of the model's width
         import torch
         from vlsa_tpu_torch.ops import abmil as ab
@@ -2739,9 +2960,11 @@ def same_bytes(torch, a: dict, b: dict) -> bool:
         for k in a)
 
 
-def write_stores(tmp, sids, bags=STORE_BAGS, slide_bytes=STORE_SLIDE_BYTES) -> dict:
-    """The .npy store of `sids` (their `bags`, 8 threads) and its .q8npz
-    conversion by the port's CLI: {store: (directory, bytes, s)}."""
+def write_stores(tmp, sids, bags=STORE_BAGS, slide_bytes=STORE_SLIDE_BYTES,
+                 convert=True) -> dict:
+    """The .npy store of `sids` (their `bags`, 8 threads) and, with
+    `convert`, its .q8npz conversion by the port's CLI: {store: (directory,
+    bytes, s)}."""
     from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from vlsa_tpu_torch.data.io import synthetic_bag
@@ -2759,16 +2982,18 @@ def write_stores(tmp, sids, bags=STORE_BAGS, slide_bytes=STORE_SLIDE_BYTES) -> d
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(write, sids))
     npy_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "vlsa_tpu_torch.data.convert", "--src", npy,
-                           "--dst", q8, "--dtype", "int8"], cwd=ROOT, capture_output=True,
-                          text=True)
-    q8_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the store conversion failed:\n{proc.stderr[-3000:]}")
 
     def size(d):
         return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
-    stores = {"npy": (npy, size(npy), npy_s), "q8npz": (q8, size(q8), q8_s)}
+    stores = {"npy": (npy, size(npy), npy_s)}
+    if convert:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "vlsa_tpu_torch.data.convert", "--src",
+                               npy, "--dst", q8, "--dtype", "int8"], cwd=ROOT,
+                              capture_output=True, text=True)
+        q8_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the store conversion failed:\n{proc.stderr[-3000:]}")
+        stores["q8npz"] = (q8, size(q8), q8_s)
     for name, (d, nbytes, sec) in stores.items():
         n = len(os.listdir(d))
         check(n == len(sids), f"the {name} store holds {n} files, not {len(sids)}")
@@ -2953,26 +3178,28 @@ def phase_store_runs(torch, ab, co, device, card, tmp, keep):
             "native_vs_numpy": batches_check, "runs": runs}
 
 
-# ---------------------------------------------------------------- phase 3k
+# ---------------------------------------------------------------- phases 3k and 3m
 
-def sa1024_after(torch, ab, co, device, storage):
-    """After an SA1024_RUNS run: one request of BAGS_PER_REQUEST bags of
-    SA1024_BAGS served by the trained model in the run's storage type
+def sa_wide_after(torch, ab, co, device, storage, bags, net_dims):
+    """After a run of phase 3k or 3m: one request of BAGS_PER_REQUEST bags of
+    `bags` served by the trained model in the run's storage type
     (`InferEngine`, as `python -m vlsa_tpu_torch.runner.serve`), exactly one
     general forward launched, probabilities within 1e-3 of the plain
     pooling's; then one training batch's parameter gradients through the
     kernels against the plain versions (TOL_GRAD; patients censored in the
-    last bin left out of `valid`, as phase 3d)."""
+    last bin left out of `valid`, as phase 3d).  The model's net_dims must
+    be `net_dims`."""
     from vlsa_tpu_torch.runner.engine import InferEngine
     from vlsa_tpu_torch.runner.serve import request_bags
 
     feats_dtype = {"f32": "float32", "int8": "int8"}[storage]
+    what = f"SA {net_dims} {storage}"
 
     def after(handler):
         model = handler.model
         model.eval()
         engine = InferEngine(model, feats_dtype=feats_dtype, precompute_inv=False)
-        batch = engine.prepare(request_bags(SA1024_BAGS, 0, BAGS_PER_REQUEST))
+        batch = engine.prepare(request_bags(bags, 0, BAGS_PER_REQUEST))
         ab.reset_launches()
         co.reset_launches()
         t0 = time.perf_counter()
@@ -2983,14 +3210,14 @@ def sa1024_after(torch, ab, co, device, storage):
         check(dict(ab.LAUNCHES) == dict.fromkeys(ab.LAUNCHES, 0) | {storage: 1}
               and ab.LAUNCHES_ROUTE["general"] == 1 and sum(ab.LAUNCHES_BWD.values()) == 0
               and sum(co.LAUNCHES.values()) == 0,
-              f"SA 1024 served request launches {ab.LAUNCHES}, {ab.LAUNCHES_ROUTE}")
+              f"{what} served request launches {ab.LAUNCHES}, {ab.LAUNCHES_ROUTE}")
         with plain_abmil(), torch.inference_mode():
             plain = engine.forward(batch)
         dev = float((out["probs"] - plain["probs"]).abs().max())
         check(bool(torch.isfinite(out["logits"]).all()) and dev <= TOL_LIFECYCLE_PROBS,
-              f"SA 1024 {storage} request: probabilities {dev:.3e} from the plain pooling's")
-        check(handler.cfg["net_dims"] == "1024-256-12",
-              f"SA 1024: net_dims {handler.cfg['net_dims']}, not 1024-256-12")
+              f"{what} request: probabilities {dev:.3e} from the plain pooling's")
+        check(handler.cfg["net_dims"] == net_dims,
+              f"{what}: net_dims {handler.cfg['net_dims']}, not {net_dims}")
         batcher = handler.trainer.batcher  # the model stays in eval mode: no dropout draws
         b = {k: v.to(device) for k, v in
              batcher.make_batch(range(min(batcher.batch_size, len(batcher.dataset)))).items()}
@@ -3003,11 +3230,11 @@ def sa1024_after(torch, ab, co, device, storage):
         devs = grad_devs(g_kernel, g_plain, [n for n, _p in model.named_parameters()
                                              if n != "sigma.fc2_bias"])
         worst = max(devs, key=devs.get)
-        log(f"SA 1024 {storage}: a request of {BAGS_PER_REQUEST} bags {serve_ms:.1f} ms, "
+        log(f"{what}: a request of {BAGS_PER_REQUEST} bags {serve_ms:.1f} ms, "
             f"probabilities vs plain {dev:.2e}; gradients of a batch of "
             f"{int(b['valid'].sum())} bags (bucket {b['mask'].shape[1]}) vs plain: worst "
             f"{worst} {devs[worst]:.2e} (tol {TOL_GRAD:g})")
-        check(devs[worst] <= TOL_GRAD, f"SA 1024 {storage}: gradient of {worst} deviates "
+        check(devs[worst] <= TOL_GRAD, f"{what}: gradient of {worst} deviates "
                                        f"{devs[worst]:.3e}")
         del g_kernel, g_plain, b
         return {"net_dims": handler.cfg["net_dims"], "serve_ms": serve_ms,
@@ -3015,25 +3242,398 @@ def sa1024_after(torch, ab, co, device, storage):
     return after
 
 
+def sa_wide_runs(torch, ab, co, device, card, tmp, bags, slide_bytes, runs, net_dims,
+                 reduced, after_runs=None) -> dict:
+    """`runs` (as SA1024_RUNS) from the stores of fold 0's slides as `bags`
+    in `tmp` (the .q8npz conversion only where a run reads it), each through
+    `main` with the reload held and `sa_wide_after`'s checks, every launch
+    on the general instances; then `after_runs(stores)`, whose result goes to
+    the record's "after_runs".  The host's peak resident set is in each
+    run's record (store_run logs it)."""
+    _meta, _split, sids = fold0_slides()
+    stores = write_stores(tmp, sids, bags, slide_bytes,
+                          convert=any(spec[2] == "q8npz" for spec in runs))
+    out = {}
+    for spec in runs:
+        run = store_run(torch, ab, co, device, card, stores, tmp, *spec, hold_reload=True,
+                        after_exec=sa_wide_after(torch, ab, co, device, spec[4], bags,
+                                                 net_dims),
+                        via_main=True)
+        check(run["launches"]["abmil_fwd_route"]["general"] > 0,
+              f"{spec[0]}: routes {run['launches']['abmil_fwd_route']}")
+        peak, total = run["host_memory"]["rss_peak_bytes"], host_memory_bytes()
+        if peak is not None and total is not None:
+            log(f"{spec[0]}: the host's resident set peaked at {peak / total:.3f} of its "
+                f"{total / 2**30:.1f} GiB (limit {HOST_RSS_SHARE})")
+            check(peak <= HOST_RSS_SHARE * total,
+                  f"{spec[0]}: the host's resident set peaked at {peak / 2**30:.1f} GiB, "
+                  f"above {HOST_RSS_SHARE} of its {total / 2**30:.1f} GiB")
+        run["reduced"] = dict(run["reduced"], **reduced)
+        out[spec[0]] = run
+    rec = {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
+           "runs": out, "reduced": reduced}
+    if after_runs is not None:
+        rec["after_runs"] = after_runs(stores)
+    return rec
+
+
 def phase_sa_1024(torch, ab, co, device, card):
-    """Phase 3k: SA1024_RUNS from their own stores in a temporary directory,
+    """Phase 3k: SA1024_RUNS from their own store in a temporary directory,
     removed at the end."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sa1024_")
     try:
-        _meta, _split, sids = fold0_slides()
-        stores = write_stores(tmp, sids, SA1024_BAGS, SA1024_SLIDE_BYTES)
-        runs = {}
-        for spec in SA1024_RUNS:
-            run = store_run(torch, ab, co, device, card, stores, tmp, *spec, hold_reload=True,
-                            after_exec=sa1024_after(torch, ab, co, device, spec[4]),
-                            via_main=True)
-            check(run["launches"]["abmil_fwd_route"]["general"] > 0,
-                  f"{spec[0]}: routes {run['launches']['abmil_fwd_route']}")
-            runs[spec[0]] = run
-        return {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
-                "runs": runs}
+        return sa_wide_runs(torch, ab, co, device, card, tmp, SA1024_BAGS, SA1024_SLIDE_BYTES,
+                            SA1024_RUNS, "1024-256-12", SA1024_REDUCED)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sa2560_feat_proj_step(torch, ab, co, device, stores) -> dict:
+    """One Adam step of the SA at 2560-256-12 with `deepmil_use_feat_proj:
+    True` (a 2560 -> 2560 projecter: the pooling's features need a gradient)
+    on a batch of the f32 store, every counter from 0: one general forward
+    and one general backward with dX ("f32_dx"); finite loss, every
+    parameter but fc2's bias moved; then that batch's gradients against the
+    plain path (TOL_GRAD)."""
+    import numpy as np
+    from vlsa_tpu_torch.config import training_config
+    from vlsa_tpu_torch.runner.train import Trainer
+
+    cfg = training_config(dict(SA2560_CFG, deepmil_use_feat_proj=True,
+                               path_patch=stores["npy"][0], feat_format="npy"), fold=0)
+    trainer = Trainer(cfg, device)
+    trainer.batcher.prefetch = 0
+    check(cfg["net_dims"] == "2560-256-12", f"SA 2560 projecter: net_dims {cfg['net_dims']}")
+    b = {k: v.to(device) for k, v in trainer.batcher.make_batch(
+        range(min(trainer.batcher.batch_size, len(trainer.dataset)))).items()}
+    model = trainer.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ab.reset_launches()
+    co.reset_launches()
+    t0 = time.perf_counter()
+    loss, raw = trainer.engine.train_step(b)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {"fwd": dict(ab.LAUNCHES), "bwd": dict(ab.LAUNCHES_BWD),
+                "fwd_route": dict(ab.LAUNCHES_ROUTE), "bwd_route": dict(ab.LAUNCHES_BWD_ROUTE)}
+    check(launches["fwd"] == dict.fromkeys(ab.LAUNCHES, 0) | {"f32": 1}
+          and launches["bwd"] == dict.fromkeys(ab.LAUNCHES_BWD, 0) | {"f32_dx": 1}
+          and launches["fwd_route"]["general"] == 1 and launches["bwd_route"]["general"] == 1,
+          f"SA 2560 projecter step launches {launches}")
+    check(bool(np.isfinite(float(loss))) and bool(torch.isfinite(raw).all()),
+          "SA 2560 projecter step: a non-finite loss or logits")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n]) != (n == "sigma.fc2_bias")]
+    check(not still, f"SA 2560 projecter step: {still} moved or stayed against the rule")
+    K = trainer.meta.num_bins
+    ill = b["valid"] & (b["e"] == 0) & (b["t"] == K - 1)
+    b = dict(b, valid=b["valid"] & ~ill)
+    g_kernel = param_grads(torch, model, trainer.engine, b)
+    with plain_abmil():
+        g_plain = param_grads(torch, model, trainer.engine, b)
+    devs = grad_devs(g_kernel, g_plain, [n for n, _p in model.named_parameters()
+                                         if n != "sigma.fc2_bias"])
+    worst = max(devs, key=devs.get)
+    log(f"SA 2560 projecter step: loss {float(loss):.4f}, {int(b['valid'].sum())} bags, bucket "
+        f"{b['mask'].shape[1]}, step {step_ms:.1f} ms, launches {launches}; gradients vs plain "
+        f"worst {worst} {devs[worst]:.2e} (tol {TOL_GRAD:g})")
+    check(devs[worst] <= TOL_GRAD, f"SA 2560 projecter: gradient of {worst} deviates "
+                                   f"{devs[worst]:.3e}")
+    out = {"loss": float(loss), "bucket": int(b["mask"].shape[1]), "step_ms": step_ms,
+           "launches": launches, "grad_dev": devs}
+    del trainer, model, g_kernel, g_plain, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sa_2560(torch, ab, co, device, card):
+    """Phase 3m: SA2560_RUNS from their own stores in a temporary directory,
+    then the projecter step from the f32 store; the stores removed at the
+    end."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sa2560_")
+    try:
+        return sa_wide_runs(torch, ab, co, device, card, tmp, SA2560_BAGS, SA2560_SLIDE_BYTES,
+                            SA2560_RUNS, "2560-256-12", SA2560_REDUCED,
+                            after_runs=lambda stores: sa2560_feat_proj_step(
+                                torch, ab, co, device, stores))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 3n
+
+def eval_loss(model, objective, batch):
+    """The training objective of `batch` with the model in eval mode (no
+    dropout draw: the card's and the CPU's generators differ), as
+    `TrainEngine.loss` forms it otherwise."""
+    from vlsa_tpu_torch.runner.engine import feats_inputs
+
+    feats, kws = feats_inputs(model, batch)
+    out = model(feats, batch["mask"], **kws)
+    raw = out[0] if isinstance(out, tuple) else out
+    vl = {}
+    if getattr(model, "uses_vl", False):
+        vl = {"logit_scale": model.get_logit_scale(), "query_div_fn": model.query_div_loss}
+    return objective(raw, batch["t"], batch["e"], batch["valid"].to(raw.dtype), **vl)
+
+
+def hessian_card_vs_cpu(torch, model, cpu_model, objective, batch, K, what, seed=0) -> dict:
+    """The Hessian diagonal's estimate (`hutchinson_hessian_diag`) of the
+    eval-mode objective on OPT_HESSIAN_BAGS bags of `batch` (cropped to
+    their longest bag), one z drawn from `seed` for both: on the card inside
+    `disable_kernels()` (the plain versions there: no launch) and by the port
+    on the CPU with `cpu_model` (built on the CPU from the card model's
+    weights; its parameters then take the card model's requires_grad, its
+    buffers the card model's values); each
+    leaf within TOL_HESSIAN of its largest element, or within
+    HESSIAN_NOISE_FACTOR times the gap that a change of the CPU model's
+    trainable weights at the size of f32 rounding (1e-7 relative, two draws)
+    makes on its own there: a second derivative through the flagship's
+    12-layer text tower amplifies f32 rounding far more than the SA's (as
+    phase 3b holds the bf16 tower's gradients against such a floor).
+    Patients censored in
+    the last of the K bins are left out of `valid`, as phase 3b leaves them
+    out of its gradient checks: their SurvIFMLE term is -log of rounding
+    noise, whose derivatives are that noise amplified.  Returns {leaf:
+    gap}."""
+    from vlsa_tpu_torch.ops import abmil as ab
+    from vlsa_tpu_torch.ops import coattn as co
+    from vlsa_tpu_torch.ops.flags import disable_kernels
+    from vlsa_tpu_torch.optim.extra import hutchinson_hessian_diag, rademacher
+
+    n = OPT_HESSIAN_BAGS
+    live = batch["mask"][:n].any(0).nonzero()
+    N = int(live.max()) + 1 if live.numel() else 1
+    sub = {k: (v[:n, :N] if k in ("feats", "mask", "feats_scale", "feats_inv") else v[:n])
+           for k, v in batch.items()}
+    ill = sub["valid"] & (sub["e"] == 0) & (sub["t"] == K - 1)
+    sub["valid"] = sub["valid"] & ~ill
+    names = [nm for nm, p in model.named_parameters() if p.requires_grad]
+    gen = torch.Generator(device=batch["feats"].device).manual_seed(seed)
+    z = [rademacher(p, gen) for nm, p in model.named_parameters() if p.requires_grad]
+
+    def diag(m, b, zs):
+        params = [p for _nm, p in m.named_parameters() if p.requires_grad]
+        with disable_kernels():
+            _g, d = hutchinson_hessian_diag(eval_loss(m, objective, b), params, names, z=zs)
+        return dict(zip(names, d))
+    before = sum(ab.LAUNCHES.values()) + sum(co.LAUNCHES.values())
+    card = diag(model, sub, z)
+    torch.cuda.synchronize()
+    check(sum(ab.LAUNCHES.values()) + sum(co.LAUNCHES.values()) == before,
+          f"{what}: the Hessian estimate under the switch launched a kernel")
+    wants = {nm: p.requires_grad for nm, p in model.named_parameters()}
+    for nm, p in cpu_model.named_parameters():
+        p.requires_grad_(wants[nm])
+    # the buffers too: the query adapter's prompt features, encoded once at
+    # build time by the frozen bf16 tower, differ between the two devices by
+    # bf16 roundings (3.7e-3 of the query on an H100; phase 3i's 2.68e-3)
+    cpu_buffers = dict(cpu_model.named_buffers())
+    with torch.no_grad():
+        for nm, b in model.named_buffers():
+            cpu_buffers[nm].copy_(b.cpu())
+    cpu_model.eval()
+    sub_cpu = {k: v.cpu() for k, v in sub.items()}
+    z_cpu = [t.cpu() for t in z]
+    cpu = diag(cpu_model, sub_cpu, z_cpu)
+
+    def gaps_to_cpu(got):
+        return {nm: float((got[nm].cpu().double() - cpu[nm].double()).abs().max()
+                          / cpu[nm].double().abs().max().clamp_min(1e-300)) for nm in names}
+    gaps = gaps_to_cpu(card)
+    # the CPU's own sensitivity: the estimate again after its trainable
+    # weights move by f32 rounding
+    floor = dict.fromkeys(names, 0.0)
+    weights = {nm: p.detach().clone() for nm, p in cpu_model.named_parameters()
+               if p.requires_grad}
+    for draw in range(2):
+        gen_cpu = torch.Generator().manual_seed(100 + draw)
+        with torch.no_grad():
+            for nm, p in cpu_model.named_parameters():
+                if p.requires_grad:
+                    p.copy_(weights[nm] * (1 + 1e-7 * torch.randn(p.shape, generator=gen_cpu)))
+        for nm, g in gaps_to_cpu(diag(cpu_model, sub_cpu, z_cpu)).items():
+            floor[nm] = max(floor[nm], g)
+    with torch.no_grad():
+        for nm, p in cpu_model.named_parameters():
+            if p.requires_grad:
+                p.copy_(weights[nm])
+    limits = {nm: max(TOL_HESSIAN, HESSIAN_NOISE_FACTOR * floor[nm]) for nm in names}
+    worst = max(gaps, key=lambda nm: gaps[nm] / limits[nm])
+    log(f"{what}: the Hessian diagonal's estimate on {int(sub['valid'].sum())} of {n} bags "
+        f"({int(ill.sum())} censored in the last bin left out; bucket {N}), card on the plain "
+        f"versions vs the port on the CPU | the CPU's own gap at 1e-7 weight noise: "
+        + ", ".join(f"{nm} {gaps[nm]:.2e} | {floor[nm]:.2e}" for nm in names)
+        + f"; worst {worst} against its limit {limits[worst]:.2e}")
+    check(gaps[worst] <= limits[worst], f"{what}: the Hessian estimate of {worst} deviates "
+                                        f"{gaps[worst]:.3e} from the CPU's, above "
+                                        f"{limits[worst]:.3e}")
+    del card, cpu
+    return {"gap": gaps, "noise_floor": floor, "limit": limits}
+
+
+def adahessian_steps(torch, ab, co, model, engine, batch, what, feats_dtype) -> dict:
+    """ADAHESSIAN_STEPS adahessian steps on `batch`, each with every counter
+    from 0: no kernel launched, a finite loss, the learnable parameters
+    moved; then an evaluation forward (`InferEngine`) that launches the
+    model's forward kernel once."""
+    import numpy as np
+    from vlsa_tpu_torch.runner.engine import InferEngine
+
+    steps = []
+    for i in range(ADAHESSIAN_STEPS):
+        before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+        ab.reset_launches()
+        co.reset_launches()
+        t0 = time.perf_counter()
+        loss, raw = engine.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        launched = all_launches(ab, co)
+        check(not any(v for c in launched.values() for v in c.values()),
+              f"{what} adahessian step {i}: kernels launched {launched}")
+        check(bool(np.isfinite(float(loss))) and bool(torch.isfinite(raw).all()),
+              f"{what} adahessian step {i}: a non-finite loss or logits")
+        still = [n for n, p in model.named_parameters() if p.requires_grad
+                 and n != "sigma.fc2_bias" and torch.equal(p.detach(), before[n])]
+        check(not still, f"{what} adahessian step {i}: {still} did not move")
+        steps.append({"loss": float(loss), "step_ms": step_ms,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        log(f"{what} adahessian step {i}: loss {float(loss):.4f}, {step_ms:.1f} ms, no kernel "
+            f"launched")
+    model.eval()
+    infer = InferEngine(model, feats_dtype=feats_dtype, precompute_inv=False)
+    ab.reset_launches()
+    co.reset_launches()
+    out = infer.forward(batch)
+    torch.cuda.synchronize()
+    launched = all_launches(ab, co)
+    n_launched = sum(v for c in launched.values() for v in c.values())
+    check(n_launched == 1 and bool(torch.isfinite(out["probs"]).all()),
+          f"{what}: the evaluation pass after the adahessian steps launched {launched}")
+    log(f"{what}: the evaluation forward after them launched {launched}")
+    return {"steps": steps, "eval_launches": launched}
+
+
+def phase_optimizers(torch, ab, co, device, card, tmp):
+    """Phase 3n: every name of the factory on the SA at 2560 (OPT_STEPS
+    steps on the kernels, launches counted); adahessian on the flagship and
+    the SA (`adahessian_steps`, `hessian_card_vs_cpu`); a double backward
+    through the kernels raises; the flagship's adahessian epoch through
+    `main` from phase 3h's stores in `tmp`."""
+    import numpy as np
+    from vlsa_tpu_torch.config import training_config
+    from vlsa_tpu_torch.optim import create_optimizer
+    from vlsa_tpu_torch.runner import sa
+    from vlsa_tpu_torch.runner import vlsa as vlsa_runner
+    from vlsa_tpu_torch.runner.engine import TrainEngine
+    from vlsa_tpu_torch.runner.train import Trainer
+
+    rec = {}
+    # ---- every optimizer name on the SA at 2560-256-12, f32, on the kernels ----
+    cfg = training_config(dict(SA2560_CFG, path_patch=OPT_SA_BAGS, bp_every_batch=OPT_BATCH),
+                          fold=0)
+    trainer = Trainer(cfg, device)
+    trainer.batcher.prefetch = 0
+    batches = [{k: v.to(device) for k, v in trainer.batcher.make_batch(
+        range(i * OPT_BATCH, (i + 1) * OPT_BATCH)).items()}
+        for i in range(max(OPT_STEPS, ADAHESSIAN_STEPS))]
+    init = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    objective = trainer.engine.objective
+    del trainer
+    runs = {}
+    for name in OPT_NAMES:
+        model = sa.build_model(cfg, device=device, state_dict=init)
+        model.train()
+        opt = create_optimizer(name, cfg["opt_lr"], cfg["opt_weight_decay"], model)
+        engine = TrainEngine(model, opt, objective, needs_hessian=name == "adahessian")
+        hessian = name == "adahessian"
+        if hessian:  # the steps on the plain versions, then the evaluation pass
+            runs[name] = adahessian_steps(torch, ab, co, model, engine, batches[0],
+                                          f"SA 2560 {name}", "float32")
+            runs[name]["hessian_gap"] = hessian_card_vs_cpu(
+                torch, model, sa.build_model(cfg, device="cpu", state_dict=model.state_dict()),
+                objective, batches[0], int(str(cfg["net_dims"]).split("-")[-1]),
+                f"SA 2560 {name}")
+            continue
+        losses, launched = [], {"fwd": 0, "bwd": 0}
+        for i in range(OPT_STEPS):
+            ab.reset_launches()
+            co.reset_launches()
+            loss, raw = engine.train_step(batches[i])
+            torch.cuda.synchronize()
+            check(ab.LAUNCHES == dict.fromkeys(ab.LAUNCHES, 0) | {"f32": 1}
+                  and ab.LAUNCHES_BWD == dict.fromkeys(ab.LAUNCHES_BWD, 0) | {"f32": 1}
+                  and ab.LAUNCHES_ROUTE["general"] == 1 and ab.LAUNCHES_BWD_ROUTE["general"] == 1
+                  and sum(co.LAUNCHES.values()) == 0,
+                  f"SA 2560 {name} step {i}: launches {ab.LAUNCHES}, {ab.LAUNCHES_BWD}, "
+                  f"routes {ab.LAUNCHES_ROUTE}")
+            launched["fwd"] += ab.LAUNCHES["f32"]
+            launched["bwd"] += ab.LAUNCHES_BWD["f32"]
+            losses.append(float(loss))
+            check(bool(np.isfinite(float(loss))) and bool(torch.isfinite(raw).all()),
+                  f"SA 2560 {name} step {i}: a non-finite loss")
+        bad = [n for n, p in model.named_parameters() if not torch.isfinite(p).all()]
+        check(not bad, f"SA 2560 {name}: non-finite parameters {bad}")
+        still = [n for n, p in model.named_parameters() if torch.equal(p.detach(), init[n])]
+        check(still in ([], ["sigma.fc2_bias"]), f"SA 2560 {name}: {still} did not move")
+        runs[name] = {"optimizer": type(opt).__name__, "losses": losses, "launches": launched}
+        log(f"SA 2560 {name} ({type(opt).__name__}): {OPT_STEPS} steps, losses "
+            f"{[round(v, 4) for v in losses]}, launches {launched}")
+        del model, opt, engine
+    rec["sa_optimizers"] = runs
+    rec["sa_launches"] = {k: sum(r["launches"][k] for r in runs.values() if "launches" in r)
+                          for k in ("fwd", "bwd")}
+    # ---- the loud failure: the Hessian estimate through the kernels raises ----
+    from vlsa_tpu_torch.optim.extra import hutchinson_hessian_diag
+    model = sa.build_model(cfg, device=device, state_dict=init)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for p in model.parameters() if p.requires_grad]
+    raised = None
+    try:
+        hutchinson_hessian_diag(eval_loss(model, objective, batches[0]), params, names)
+    except RuntimeError as exc:
+        raised = str(exc)
+    check(raised is not None and "disable_kernels" in raised,
+          f"the Hessian estimate through the ABMIL kernels did not raise ({raised})")
+    raised = raised or ""
+    log(f"the Hessian estimate through the ABMIL kernels outside the switch raises: "
+        f"{raised[:120]}")
+    rec["double_backward_raises"] = raised[:300]
+    del model, params, batches
+    torch.cuda.empty_cache()
+
+    # ---- adahessian on the flagship: phase 3b's batch, the text tower in f32 ----
+    fcfg = training_config(dict(TRAIN_CFG, opt_name="adahessian"), fold=0)
+    trainer = Trainer(fcfg, device)
+    trainer.batcher.prefetch = 0
+    check(trainer.engine.needs_hessian, "the flagship's engine does not take adahessian's step")
+    batch = {k: v.to(device) for k, v in next(trainer.batches()).items()}
+    model, engine = trainer.model, trainer.engine
+    tower = model.prompt_encoder
+    tower0 = {k: v.detach().clone() for k, v in tower.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    cpu_model = None
+    with f32_text_tower(torch, tower):
+        flag = adahessian_steps(torch, ab, co, model, engine, batch, "flagship", "bfloat16")
+        check(all(torch.equal(v, tower0[k]) for k, v in tower.state_dict().items()),
+              "flagship adahessian: the frozen tower changed")
+        cpu_model = vlsa_runner.build_model(fcfg, device="cpu", state_dict=model.state_dict())
+        with f32_text_tower(torch, cpu_model.prompt_encoder):
+            flag["hessian_gap"] = hessian_card_vs_cpu(torch, model, cpu_model, engine.objective,
+                                                      batch, trainer.meta.num_bins, "flagship")
+    del cpu_model
+    flag["bucket"] = int(batch["mask"].shape[1])
+    flag["bags"] = int(batch["valid"].sum())
+    rec["flagship"] = flag
+    del trainer, model, engine, batch
+    torch.cuda.empty_cache()
+
+    # ---- the flagship's adahessian epoch through main, from 3h's bf16 store ----
+    stores = {"npy": (os.path.join(tmp, "npy"),), "q8npz": (os.path.join(tmp, "q8npz"),)}
+    rec["run"] = store_run(torch, ab, co, device, card, stores, tmp, *ADAHESSIAN_RUN,
+                           via_main=True)
+    return rec
 
 
 # ---------------------------------------------------------------- phase 3i
@@ -4095,8 +4695,8 @@ def time_abmil(torch, ab, storage, B, N, D=512, H=256, precise=False):
 
 def phase_abmil_times(torch, ab):
     """Every storage at D=512, hid=256 at B=8, N=10240 and the training
-    shape; at the other ABMIL_WIDTHS at B=8, N=10240; precise bf16 at
-    ABMIL_PRECISE_WIDTHS."""
+    shape; at the other ABMIL_WIDTHS and at ABMIL_ANY_TIMED at B=8,
+    N=10240; precise bf16 at ABMIL_PRECISE_WIDTHS."""
     times = {"b8": {}, "train": {}}
     for key, shape in (("b8", ABMIL_SHAPE), ("train", ABMIL_TRAIN_SHAPE)):
         for s in ABMIL_STORAGES:
@@ -4104,6 +4704,11 @@ def phase_abmil_times(torch, ab):
                 times[key][f"{name}[{s}]"] = rec
             torch.cuda.empty_cache()
     for D, H in ABMIL_WIDTHS[1:]:
+        for s in ABMIL_STORAGES:
+            for name, rec in time_abmil(torch, ab, s, **ABMIL_SHAPE, D=D, H=H).items():
+                times["b8"][f"{name}[{s},D={D},hid={H}]"] = rec
+            torch.cuda.empty_cache()
+    for D, H in ABMIL_ANY_TIMED:
         for s in ABMIL_STORAGES:
             for name, rec in time_abmil(torch, ab, s, **ABMIL_SHAPE, D=D, H=H).items():
                 times["b8"][f"{name}[{s},D={D},hid={H}]"] = rec
@@ -4329,7 +4934,8 @@ def main(argv=None) -> int:
         extraction_512 = timed("3e-512", phase_extraction_512, torch, fa, ab, co, device)
         feat_proj = timed("3f", phase_feat_proj_training, torch, co, device)
         lifecycle_vlsa = timed("3g-VLSA", phase_lifecycle, torch, ab, co, device, "vlsa", card)
-        lifecycle_sa = timed("3g-SA", phase_lifecycle, torch, ab, co, device, "sa", card)
+        lifecycle_sa = timed("3g-SA", lambda: phase_lifecycle(
+            torch, ab, co, device, "sa", card, path_patch=LIFECYCLE_SA_BAGS))
         stores_tmp = tempfile.mkdtemp(prefix="chip_smoke_stores_")
         kept = {}  # phase 3h's flagship model, for phase 3j's reload
         try:
@@ -4339,10 +4945,12 @@ def main(argv=None) -> int:
             interpretation = timed("3j", phase_interpretation, torch, ab, co, device, card,
                                    stores_tmp, kept)
             queries = timed("3l", phase_queries, torch, ab, co, device, card, stores_tmp)
+            optim = timed("3n", phase_optimizers, torch, ab, co, device, card, stores_tmp)
         finally:
             kept.clear()
             shutil.rmtree(stores_tmp, ignore_errors=True)
         sa_1024 = timed("3k", phase_sa_1024, torch, ab, co, device, card)
+        sa_2560 = timed("3m", phase_sa_2560, torch, ab, co, device, card)
         times = timed("4", phase_times, torch, co)
         abmil_times = timed("4b", phase_abmil_times, torch, ab)
         flash_times = timed("4c", phase_flash_times, torch, fa)
@@ -4355,7 +4963,8 @@ def main(argv=None) -> int:
     # the whole runs' launches: phase 3g's, each of phase 3h's, 3i's and 3j's
     runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values()) \
         + list(zero_shot["runs"].values()) + [zero_shot["flagship"]] \
-        + list(interpretation["runs"].values()) + list(sa_1024["runs"].values())
+        + list(interpretation["runs"].values()) + list(sa_1024["runs"].values()) \
+        + list(sa_2560["runs"].values()) + [optim["run"]]
 
     def run_launches(family, variant):
         return sum(r["launches"][family][variant] for r in runs)
@@ -4408,15 +5017,22 @@ def main(argv=None) -> int:
                       "abmil_bwd_dx": {s: sa_training["launches"]["bwd"][f"{s}_dx"]
                                        for s in ("f32", "bf16")}}
     # the D=512, hid=256 instances' launches come from the runs above but
-    # 3k's, the general instances' from 3k's SA runs at 1024-256-12 (its
-    # served requests and gradient checks besides)
-    general = {"abmil_fwd": {s: sum(r["launches"]["abmil_fwd"][s]
-                                    for r in sa_1024["runs"].values()) for s in ("f32", "int8")},
-               "abmil_bwd": {s: sum(r["launches"]["abmil_bwd"][s]
-                                    for r in sa_1024["runs"].values()) for s in ("f32", "int8")}}
+    # 3k's and 3m's; the general instances' at 1024 from 3k's SA run at
+    # 1024-256-12, at 2560 from 3m's runs at 2560-256-12, its projecter step
+    # (the backward with dX) and 3n's optimizer steps (served requests and
+    # gradient checks besides)
+    def wide_launches(runs_):
+        return {fam: {s: sum(r["launches"][fam][s] for r in runs_.values())
+                      for s in ("f32", "int8")} for fam in ("abmil_fwd", "abmil_bwd")}
+    general = wide_launches(sa_1024["runs"])
+    any_width = wide_launches(sa_2560["runs"])
     for fam in ("abmil_fwd", "abmil_bwd"):
         for s in ("f32", "int8"):
-            abmil_launches[fam][s] -= general[fam][s]
+            abmil_launches[fam][s] -= general[fam][s] + any_width[fam][s]
+    any_width["abmil_fwd"]["f32"] += (sa_2560["after_runs"]["launches"]["fwd"]["f32"]
+                                      + optim["sa_launches"]["fwd"])
+    any_width["abmil_bwd"]["f32"] += optim["sa_launches"]["bwd"]
+    any_width["abmil_bwd_dx"] = {"f32": sa_2560["after_runs"]["launches"]["bwd"]["f32_dx"]}
     held = [list(w) for w in ABMIL_WIDTHS]
     for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
                            ("abmil_bwd_dx", ("f32", "bf16"))):
@@ -4455,6 +5071,25 @@ def main(argv=None) -> int:
                 "widths": ([list(w) for w in ABMIL_PRECISE_WIDTHS] if precise
                            else [w for w in held if w != [512, 256]]),
                 "timed_at": [D, H], "on_main_path": on_path})
+    # every width: timed at (2560, 256), launches of 3m and 3n; the
+    # variants those paths do not run are held (2c) and timed (4b) here
+    # alone: "on_main_path" false, their launches 0
+    for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
+                           ("abmil_bwd_dx", ("f32", "bf16"))):
+        fwd = name == "abmil_fwd"
+        D, H = ABMIL_ANY_TIMED[0]
+        for s in storages:
+            t = abmil_times["b8"][f"{name}[{s},D={D},hid={H}]"]
+            n = any_width.get(name, {}).get(s, 0)
+            kernels.append({
+                "name": f"{name}_any[{s}]", "route": "cuda",
+                "source": SOURCE_ABMIL if fwd else SOURCE_ABMIL_BWD,
+                "replaces": (REPLACES_ABMIL if fwd else REPLACES_ABMIL_BWD)[s],
+                "launches": n, "max_abs_err": errs_abmil[f"{s}_D{D}_h{H}"][name]["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"].split()[0], "library_ms": None,
+                "widths": [list(w) for w in ABMIL_ANY_WIDTHS], "timed_at": [D, H],
+                "on_main_path": n > 0})
     # bf16 on the path flash_plan names (the streamed kernel), timed at the
     # extraction shape; its launches those of both extraction runs
     for v in FLASH_VARIANTS:
@@ -4485,7 +5120,8 @@ def main(argv=None) -> int:
               "feat_proj_training": feat_proj, "dx_times": dx_times,
               "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
               "store_runs": store_runs, "zero_shot": zero_shot,
-              "interpretation": interpretation, "sa_1024": sa_1024, "query_errors": errs_q,
+              "interpretation": interpretation, "sa_1024": sa_1024, "sa_2560": sa_2560,
+              "optimizers": optim, "query_errors": errs_q,
               "queries": queries, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:

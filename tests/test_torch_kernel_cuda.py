@@ -14,6 +14,7 @@ import torch
 from vlsa_tpu_torch.ops import abmil as ab
 from vlsa_tpu_torch.ops import coattn as co
 from vlsa_tpu_torch.ops import flash_attn as fa
+from vlsa_tpu_torch.ops import flags
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.int8: 1e-3}
@@ -311,19 +312,55 @@ def test_abmil_precise_mode_matches_its_model(device, monkeypatch, widths):
     assert _rel(dx, want[0]) <= TOL_ABMIL_DX[torch.bfloat16] and torch.all(dx[-1] == 0)
 
 
-@pytest.mark.parametrize("widths", [(96, 256), (2112, 256), (512, 32), (512, 384), (0, 256)])
+# every width the kernels take: Virchow's 2560 with the shipped 256 and
+# CLAM's 512, 4096 at 256 and the largest common bottleneck 1024, widths that
+# pad hid (96, 384, 32, 7) and D (1000, 100, 33, 1), rows that are not
+# 16-byte aligned (bf16 at 100 and 33, int8 at 1000, 100, 33; f32 at 33 and
+# 1), and the domain's corners
+ABMIL_ANY_WIDTHS = [(2560, 256), (2560, 512), (4096, 256), (4096, 1024), (1000, 384), (768, 96),
+                    (100, 32), (1536, 1024), (33, 7), (1, 1), (8192, 64), (1001, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("widths", ABMIL_ANY_WIDTHS)
+@pytest.mark.parametrize("shape", [(3, 129), (2, 70)])
+def test_abmil_any_width_matches_plain(device, dtype, widths, shape):
+    """Every storage's forward and backward (weights only; with dX for f32
+    and bf16) at any D and hid -- W1 padded to whole passes and slices, x's
+    rows not 16-byte aligned -- on the general instances, against the plain
+    versions with the limits of the D=512, hid=256 test; ragged N, an empty
+    bag and a bag of one patch."""
+    test_abmil_general_widths_match_plain(device, dtype, widths, shape)
+
+
+@pytest.mark.parametrize("widths", [(2560, 256), (1000, 384), (100, 32), (33, 7)])
+def test_abmil_any_width_int8_fwd_matches_its_rounding_model(device, widths):
+    """The int8 forward at widths that pad W1 splits it as the TPU does (the
+    padded entries split to 0 and leave s_w alone): within 2e-5 of
+    `abmil_fwd_rounded`."""
+    test_abmil_general_int8_fwd_matches_its_rounding_model(device, widths)
+
+
+@pytest.mark.parametrize("widths", [(2560, 256), (1000, 384), (33, 7)])
+def test_abmil_any_width_precise_mode_matches_its_model(device, monkeypatch, widths):
+    """Precise bf16 at widths that pad, held as at the widths above."""
+    test_abmil_precise_mode_matches_its_model(device, monkeypatch, widths)
+
+
+@pytest.mark.parametrize("widths", [(0, 256), (8193, 256), (512, 0), (512, 1025), (9000, 2000)])
 def test_abmil_refuses_widths_outside_the_domain(device, widths):
     """A width the kernels do not take raises a ValueError that names the
-    domain; nothing launches and nothing falls back to the plain version."""
+    domain and the shared memory that runs out past it; nothing launches and
+    nothing falls back to the plain version."""
     D, H = widths
     x = torch.zeros(2, 70, D, device=device)
     mask = torch.ones(2, 70, dtype=torch.bool, device=device)
     w1, b1, w2 = (torch.zeros(H, D, device=device), torch.zeros(H, device=device),
                   torch.zeros(H, device=device))
     before = dict(ab.LAUNCHES)
-    with pytest.raises(ValueError, match="multiple of 64 in \\[64, 2048\\]"):
+    with pytest.raises(ValueError, match="D in \\[1, 8192\\] and hid in \\[1, 1024\\]"):
         ab.abmil_fwd(x, mask, w1, b1, w2)
-    with pytest.raises(ValueError, match="hid in"):
+    with pytest.raises(ValueError, match="shared memory"):
         ab.abmil_pool(x, mask, w1, b1, w2)
     assert ab.LAUNCHES == before
 
@@ -684,6 +721,78 @@ def test_pool_at_32_gated_queries_routes_through_the_kernels(device):
             loop=paths["loop"] + int(use_feat_proj))
         for (n, pc), (_n, pk) in zip(cpu.named_parameters(), card.named_parameters()):
             assert _rel(pk.grad.cpu(), pc.grad) <= 1e-3, n
+
+def _all_launches():
+    return (sum(ab.LAUNCHES.values()) + sum(ab.LAUNCHES_BWD.values()) + sum(co.LAUNCHES.values())
+            + sum(co.LAUNCHES_BWD.values()) + sum(co.LAUNCHES_DX.values())
+            + sum(fa.LAUNCHES.values()))
+
+
+def _double_backward(out, leaf):
+    """The gradient of sum(d(out^2)/d leaf) with respect to `leaf`: a second
+    backward through whatever `out` went through."""
+    (g,) = torch.autograd.grad(out.square().sum(), leaf, create_graph=True)
+    (h,) = torch.autograd.grad(g.square().sum(), leaf)
+    return h
+
+
+@pytest.mark.parametrize("case", ["abmil_f32", "abmil_bf16_dx", "abmil_int8", "coattn_dq",
+                                  "coattn_dx"])
+def test_double_backward_through_a_kernel_raises(device, case):
+    """The kernels' autograd.Functions are once_differentiable: outside
+    `ops.flags.disable_kernels` a second backward through one raises, and
+    the Hessian estimate (`hutchinson_hessian_diag`) raises, not a silent
+    zero (autograd gives nothing there when unused inputs are allowed)."""
+    from vlsa_tpu_torch.optim.extra import hutchinson_hessian_diag
+    if case.startswith("abmil"):
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[
+            case.split("_")[1]]
+        x, xs, mask, w1, b1, w2, _g = _abmil_inputs(2, 129, dtype, device, seed=3)
+        w1.requires_grad_(True)
+        if case.endswith("_dx"):
+            x = x.detach().requires_grad_(True)
+        out = ab.abmil_pool(x, mask, w1, b1, w2, x_scale=xs)
+        leaf = w1
+    else:
+        q, x, mask, _s, _i = _inputs(2, 64, 64, 4, torch.float32, False, device)
+        q.requires_grad_(True)
+        if case == "coattn_dx":
+            x = x.clone().requires_grad_(True)
+        out = co.coattn_pool(q, x, mask, 30.0)
+        leaf = q
+    with pytest.raises(RuntimeError):
+        _double_backward(out, leaf)
+    with pytest.raises(RuntimeError, match="disable_kernels"):
+        hutchinson_hessian_diag(out.square().sum(), [leaf], ["leaf"])
+
+
+def test_the_switch_takes_the_plain_versions_on_the_card(device):
+    """Inside `ops.flags.disable_kernels()` every kernel entry point takes its
+    plain version on the card: no launch, CUDA results equal to the plain
+    version's, and a second backward that works (the adahessian step's);
+    after the block the kernels launch again."""
+    x, xs, mask, w1, b1, w2, _g = _abmil_inputs(2, 129, torch.float32, device, seed=4)
+    q, xc, maskc, _s, _i = _inputs(2, 64, 64, 4, torch.float32, False, device)
+    qkv = [torch.randn(2, 3, 37, 64, device=device, dtype=torch.bfloat16) for _ in range(3)]
+    before = _all_launches()
+    with flags.disable_kernels():
+        w1g = w1.clone().requires_grad_(True)
+        out = ab.abmil_pool(x, mask, w1g, b1, w2)
+        assert out.is_cuda and torch.equal(out, ab.abmil_fwd_reference(x, mask, w1, b1, w2)[0])
+        assert torch.isfinite(_double_backward(out, w1g)).all()
+        qg = q.clone().requires_grad_(True)
+        outc = co.coattn_pool(qg, xc, maskc, 30.0)
+        assert outc.is_cuda and torch.equal(outc, co.coattn_pool_reference(q, xc, maskc, 30.0))
+        assert torch.isfinite(_double_backward(outc, qg)).all()
+        att = fa.flash_self_attention(*qkv)
+        assert att.is_cuda and torch.equal(att, fa.flash_self_attention_reference(*qkv))
+    assert _all_launches() == before
+    ab.abmil_pool(x, mask, w1, b1, w2)
+    co.coattn_pool(q, xc, maskc, 30.0)
+    fa.flash_self_attention(*qkv)
+    torch.cuda.synchronize()
+    assert _all_launches() == before + 3
+
 
 def test_gradient_request_raises(device):
     """q's gradient goes through the dQ kernel; a gradient for x through the

@@ -26,13 +26,19 @@ the tensor cores: each f32 operand is a TF32 hi plus a TF32 lo, and a product is
 relative against true f32's 2^-24 (as the TPU kernels' own f32 is the MXU's
 multi-pass bf16), held against the true-f32 plain versions on the card.
 
-Widths: the kernels take any D a multiple of 64 in [64, 2048] and hid in
-{64, 128, 256, 512} (`kernel_widths_ok`), as the TPU kernels, which tile only
-N, take any; a CUDA tensor of another width raises.  D=512, hid=256 runs the
-instances that keep x resident ("special"); every other width, and bf16 in
-vlsa_tpu's precise mode (`VLSA_TPU_ABMIL_PRECISE=1`: W1 and dz as bf16 hi +
-lo, `abmil_fwd_rounded` / `abmil_bwd_rounded` with `precise=True` its plain
-model), the general instances, which stream x (`route`).
+Widths: the kernels take any D in [1, 8192] and hid in [1, 1024]
+(`kernel_widths_ok`; Virchow's 2560-d features, odd widths, rows that are
+not 16-byte aligned), as the TPU kernels, which tile only N, take any; past
+that, a block's shared memory (b1, w2 and the backward's column sums of hid
+values, g's D, beside the stages) runs out, and a CUDA tensor raises.
+D=512, hid=256 runs the instances that keep x resident ("special"); every
+other width, and bf16 in vlsa_tpu's precise mode (`VLSA_TPU_ABMIL_PRECISE=1`:
+W1 and dz as bf16 hi + lo, `abmil_fwd_rounded` / `abmil_bwd_rounded` with
+`precise=True` its plain model), the general instances, which stream x and
+take W1 from a workspace zero-padded to hid_p = `gen_hid_pad(hid)` rows of
+ld = `gen_ld(D)` values (a padded column adds tanh(0) * 0 to a logit and
+gets dz = 0; int8's max|W1| is unchanged), in passes of 64, 128 or 256
+columns (csrc/abmil_common.cuh: gen_pass_cols) (`route`).
 """
 from __future__ import annotations
 
@@ -42,8 +48,10 @@ import os
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .coattn import _device_index, _ptr
+from .flags import kernels_disabled
 
 # vlsa_tpu's precise mode (vlsa_tpu/ops/abmil.py:74-80), read once at import:
 # bf16 storage forms x . W1^T against W1 as bf16 hi + lo, and the backward
@@ -53,12 +61,13 @@ from .coattn import _device_index, _ptr
 _PRECISE = os.environ.get("VLSA_TPU_ABMIL_PRECISE", "0") == "1"
 
 D_KERNEL, HID_KERNEL = 512, 256  # the widths of the resident-x instances (kD, kHid)
-# The widths every kernel takes (csrc/abmil_common.cuh: widths_ok): D a
-# multiple of 64 up to kGenMaxD, hid one of these; every width but D_KERNEL,
-# HID_KERNEL (and bf16 in precise mode) runs the general instances.
-_GEN_MAX_D = 2048
-_GEN_HIDS = (64, 128, 256, 512)
+# The widths every kernel takes (csrc/abmil_common.cuh: widths_ok): D in [1,
+# kGenMaxD], hid in [1, kGenMaxHid]; every width but D_KERNEL, HID_KERNEL
+# (and bf16 in precise mode) runs the general instances.
+_GEN_MAX_D = 8192
+_GEN_MAX_HID = 1024
 _GEN_TILE = 64  # patches a tile of the general instances (kGenM)
+_GEN_PAD = 64   # the general instances' W1 rows and row length pad to multiples of this
 # patches a tile of the backward's pass 1, every storage, and of the f32
 # forward (kMF in csrc/abmil_common.cuh)
 _TILE = {torch.float32: 64, torch.bfloat16: 64, torch.int8: 64}
@@ -71,7 +80,8 @@ _AMAX_BLOCKS = 64
 # the backward's weight-gradient pass (csrc/abmil_bwd.cu): a block for each
 # [128, 128] tile of dW1 (kDwM, kDwN; _DW_TILES of them at D=512, hid=256)
 # on each chunk of the B*N patch rows, chunks a multiple of the rows a
-# stage holds (f32 kRowsDw, bf16 and int8 kRowsDwB)
+# stage holds (f32 kRowsDw, bf16 and int8 kRowsDwB); in precise mode a
+# block adds its tensor-core sum into its partial every kDwChain rows
 _DW_M = _DW_N = 128
 _DW_TILES = 8
 _DW_ROWS = {torch.float32: 32, torch.bfloat16: 64, torch.int8: 64}
@@ -98,10 +108,22 @@ def reset_launches() -> None:
 
 
 def kernel_widths_ok(D: int, hid: int) -> bool:
-    """True for the widths the CUDA kernels take: D a multiple of 64 in
-    [64, 2048] (ViT-S 384, CONCH 512, CTransPath 768, UNI and ResNet-50
-    1024, Prov-GigaPath 1536, ...) and hid in {64, 128, 256, 512}."""
-    return D % 64 == 0 and 64 <= D <= _GEN_MAX_D and hid in _GEN_HIDS
+    """True for the widths the CUDA kernels take: D in [1, 8192] (ViT-S 384,
+    CONCH 512, CTransPath 768, UNI 1024, Prov-GigaPath 1536, Virchow 2560,
+    any other) and hid in [1, 1024]."""
+    return 1 <= D <= _GEN_MAX_D and 1 <= hid <= _GEN_MAX_HID
+
+
+def gen_hid_pad(hid: int) -> int:
+    """The general instances' W1 rows: hid rounded up to a multiple of 64
+    (csrc/abmil_common.cuh: gen_hid_pad)."""
+    return -(-hid // _GEN_PAD) * _GEN_PAD
+
+
+def gen_ld(D: int) -> int:
+    """The general instances' W1 row length: D rounded up to a multiple of 64
+    (gen_ld)."""
+    return -(-D // _GEN_PAD) * _GEN_PAD
 
 
 def _precise_for(dtype: torch.dtype, precise: Optional[bool]) -> bool:
@@ -338,9 +360,9 @@ _ARGTYPES = {
     # device; w1_ws, w1_scale, ws_m, ws_l, ws_acc, out, m, l, stream
     "abmil_fwd": [_P] * 6 + [_I] * 9 + [_P] * 9,
     # x, x_scale, mask, w1, b1, w2, g, out, m, l; B, N, D, hid, chunk1, S1,
-    # chunk2, S2, storage, precise, with_dx, device; w1_bf16, w1_i8,
-    # w1_scale, ds, ws_dw1, ws_db1, ws_dw2, dx, dw1, db1, dw2, stream
-    "abmil_bwd": [_P] * 10 + [_I] * 12 + [_P] * 12,
+    # chunk2, S2, storage, precise, with_dx, device; w1_ws, w1_scale, ds,
+    # ws_dw1, ws_db1, ws_dw2, dx, dw1, db1, dw2, stream
+    "abmil_bwd": [_P] * 10 + [_I] * 12 + [_P] * 11,
 }
 # (storage, D, hid, precise) and, for the backward, the pass
 _SMEM_ARGTYPES = {"abmil_fwd": [_I] * 4, "abmil_bwd": [_I] * 5}
@@ -403,14 +425,20 @@ def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, D: int = D_KERNEL,
     on a card of n_sm SMs: its instances ("route", `route`), the chunk of
     patches a block takes (a multiple of "tile"), the blocks S a bag, and
     the workspace shapes the wrapper allocates: W1 for the kernel ("w1_ws",
-    in x's type: bf16 [hid, D] for bf16, hi and lo [2, hid, D] for int8 and
-    for bf16 in precise mode, none for f32) and, for int8, "w1_scale" f32
-    (s_w and the partial maxima of |W1|)."""
+    in x's type, [hid, D] on the resident instances and [hid_p, ld] --
+    `gen_hid_pad`, `gen_ld` -- on the general ones: bf16 its rounding, hi
+    and lo [2, ...] for int8 and for bf16 in precise mode; for f32 none on
+    the resident instances, the padded copy, f32, on the general ones)
+    and, for int8, "w1_scale" f32 (s_w and the partial maxima of |W1|)."""
     rt = route(dtype, D, hid, precise)
     tile = _FWD_TILE[dtype] if rt == "special" else _GEN_TILE
     chunk, S = _split_waves(B, N, tile, n_sm)
     two = dtype == torch.int8 or rt == "precise"
-    w1_ws = None if dtype == torch.float32 else ((2, hid, D) if two else (hid, D))
+    rows, ld = (hid, D) if rt == "special" else (gen_hid_pad(hid), gen_ld(D))
+    if dtype == torch.float32:
+        w1_ws = None if rt == "special" else (rows, ld)
+    else:
+        w1_ws = (2, rows, ld) if two else (rows, ld)
     return {"route": rt, "tile": tile, "chunk": chunk, "S": S, "ws_m": (B, S), "ws_l": (B, S),
             "ws_acc": (B, S, D), "w1_ws": w1_ws,
             "w1_scale": (1 + _AMAX_BLOCKS,) if dtype == torch.int8 else None}
@@ -423,26 +451,32 @@ def bwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, D: int = D_KERNEL,
     each bag (S1 a bag; its block fills an SM), pass 2 over S2 chunks of
     chunk2 of the B*N patch rows, for each of its dw_tiles(D, hid) tiles of
     dW1 (S2 * tiles about one wave: ws_dw1 stays under ~n_sm * 64 KB, 8.7 MB
-    on 132 SMs at any width), and the workspace shapes: "ds" is the dz
+    on 132 SMs, where the tiles fit one wave; past that S2 = 1, ws_dw1 one
+    dW1), and the workspace shapes: "ds" is the dz
     workspace [B, N, hid] of type "ds_dtype" (f32 for f32; bf16 for bf16,
     the TPU kernel's rounding of dz for dW1), for int8 and bf16 in precise
-    mode [2, B, N, hid] bf16 (s dz's or dz's hi and lo); the partials of dW1
+    mode [2, B, N, hid] bf16 (s dz's or dz's hi and lo), hid padded to
+    `gen_hid_pad(hid)` on the general instances; the partials of dW1
     ("ws_dw1") come from pass 2, those of db1 and dw2 ("ws_b", each) from
-    pass 1; W1 for pass 1 is "w1_bf16" (bf16 and the special int8: bf16 hi
-    and lo) or, for int8 at other widths, the forward's int8 split "w1_i8"
-    with its scales "w1_scale"."""
+    pass 1; W1 for pass 1 ([hid, D] on the resident instances, [hid_p, ld]
+    on the general ones) is "w1_bf16" (bf16 and the special int8: bf16 hi
+    and lo), for int8 at other widths the forward's int8 split "w1_i8" with
+    its scales "w1_scale", for f32 its padded copy "w1_f32"."""
     rt = route(dtype, D, hid, precise)
     chunk1, S1 = _split_waves(B, N, _TILE[dtype], n_sm)
     chunk2, S2 = _split_rows(B * N, n_sm, _DW_ROWS[dtype], dw_tiles(D, hid))
     f32, i8 = dtype == torch.float32, dtype == torch.int8
-    gen_i8 = i8 and rt != "special"
+    gen = rt != "special"
+    gen_i8 = i8 and gen
     two = i8 or rt == "precise"
+    rows, ld = (gen_hid_pad(hid), gen_ld(D)) if gen else (hid, D)
     return {"route": rt, "chunk1": chunk1, "S1": S1, "chunk2": chunk2, "S2": S2,
-            "ds": (2, B, N, hid) if two else (B, N, hid),
+            "ds": (2, B, N, rows) if two else (B, N, rows),
             "ds_dtype": torch.float32 if f32 else torch.bfloat16,
             "ws_dw1": (S2, hid, D), "ws_b": (B * S1, hid),
-            "w1_bf16": None if f32 or gen_i8 else (2, hid, D),
-            "w1_i8": (2, hid, D) if gen_i8 else None,
+            "w1_bf16": None if f32 or gen_i8 else (2, rows, ld),
+            "w1_i8": (2, rows, ld) if gen_i8 else None,
+            "w1_f32": (rows, ld) if f32 and gen else None,
             "w1_scale": (1 + _AMAX_BLOCKS,) if gen_i8 else None}
 
 
@@ -467,9 +501,10 @@ def _check_inputs(x, x_scale, mask, w1, b1, w2, kernel: str) -> Tuple[int, int, 
     B, N, D = x.shape
     hid = w1.shape[0] if w1.dim() == 2 else -1
     if not kernel_widths_ok(D, hid):
-        raise ValueError(f"the ABMIL kernels take D a multiple of 64 in [64, {_GEN_MAX_D}] "
-                         f"and hid in {set(_GEN_HIDS)}; got D={D}, hid={hid} "
-                         f"(net_dims {D}-{hid}-K)")
+        raise ValueError(f"the ABMIL kernels take D in [1, {_GEN_MAX_D}] and hid in [1, "
+                         f"{_GEN_MAX_HID}]: a block holds b1, w2 and the backward's column "
+                         f"sums of hid values and g's D in shared memory, which past these "
+                         f"runs out; got D={D}, hid={hid} (net_dims {D}-{hid}-K)")
     _tensor("mask", mask, (B, N), torch.bool, device)
     _tensor("w1", w1, (hid, D), torch.float32, device)
     _tensor("b1", b1, (hid,), torch.float32, device)
@@ -567,13 +602,15 @@ def _bwd(x, x_scale, mask, w1, b1, w2, g, out, m, l, need_dx, kernel):
     ws_dw1 = torch.empty(plan["ws_dw1"], **f32)
     ws_db1, ws_dw2 = torch.empty(plan["ws_b"], **f32), torch.empty(plan["ws_b"], **f32)
     dx = torch.empty_like(x) if need_dx else None
-    w1b = _empty(plan["w1_bf16"], torch.bfloat16, device)
-    w1q = _empty(plan["w1_i8"], torch.int8, device)
+    # the plan names at most one W1 workspace
+    w1_ws = next((_empty(plan[k], t, device) for k, t in (
+        ("w1_bf16", torch.bfloat16), ("w1_i8", torch.int8), ("w1_f32", torch.float32))
+        if plan[k] is not None), None)
     w1s = _empty(plan["w1_scale"], torch.float32, device)
     err = lib.abmil_bwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
                         _ptr(g), _ptr(out), _ptr(m), _ptr(l), B, N, D, hid, chunk1, S1, chunk2,
                         S2, storage, int(precise), int(need_dx), index,
-                        _ptr(w1b), _ptr(w1q), _ptr(w1s), _ptr(ds), _ptr(ws_dw1), _ptr(ws_db1),
+                        _ptr(w1_ws), _ptr(w1s), _ptr(ds), _ptr(ws_dw1), _ptr(ws_db1),
                         _ptr(ws_dw2), _ptr(dx), _ptr(dw1), _ptr(db1), _ptr(dw2),
                         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -610,7 +647,9 @@ class AbmilPool(torch.autograd.Function):
     """ABMIL pooling of f32 or bf16 x on CUDA: the forward kernel, and the
     backward kernel for W1, b1, w2 and, when x needs one, x's gradient (the
     counterpart of vlsa_tpu's `_abmil_pool_tpu` custom VJP, whose backward
-    writes dX always)."""
+    writes dX always).  The backward is a kernel with no derivative of its
+    own: a second backward through it raises (`ops.flags.disable_kernels`
+    takes the plain version, which has one)."""
 
     @staticmethod
     def forward(ctx, x, mask, w1, b1, w2):
@@ -619,6 +658,7 @@ class AbmilPool(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         x, mask, w1, b1, w2, out, m, l = ctx.saved_tensors
         dx, dw1, db1, dw2 = abmil_bwd(x, mask, w1, b1, w2, g.contiguous(), out, m, l,
@@ -637,6 +677,7 @@ class AbmilPoolQ8(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         x, x_scale, mask, w1, b1, w2, out, m, l = ctx.saved_tensors
         dw1, db1, dw2 = abmil_q8_bwd(x, x_scale, mask, w1, b1, w2, g.contiguous(), out, m, l)
@@ -650,19 +691,20 @@ def abmil_pool(x: torch.Tensor, mask: Optional[torch.Tensor], w1: torch.Tensor,
     [B, N]), mask [B, N], w1 [hid, D], b1 [hid], w2 [hid] -> out [B, D] f32.
     b2 cancels in the softmax and is not used.
 
-    CPU tensors take the plain version under ordinary autograd.  CUDA tensors
-    launch the forward kernel, through `AbmilPool` / `AbmilPoolQ8` when a
-    gradient is wanted.  The JAX route takes its kernel only for N >= 256
+    CPU tensors take the plain version under ordinary autograd, as CUDA
+    tensors do, on the card, inside `ops.flags.disable_kernels()`.  Otherwise
+    CUDA tensors launch the forward kernel, through `AbmilPool` /
+    `AbmilPoolQ8` when a gradient is wanted.  The JAX route takes its kernel only for N >= 256
     with a 128-aligned tile (vlsa_tpu/models/layers.py:103-105); these kernels
     take any N, so the CUDA route has no such guard."""
     if x.dtype == torch.int8 and x_scale is None:
         raise ValueError("int8 features need x_scale [B, N]")
     if mask is None:
         mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
-    if x.device.type == "cpu":
-        return abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=x_scale)[0]
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"abmil_pool runs on cpu or cuda, not {x.device}")
+    if x.device.type == "cpu" or kernels_disabled():
+        return abmil_fwd_reference(x, mask, w1, b1, w2, x_scale=x_scale)[0]
     mask, w1, b1, w2 = (t.contiguous() for t in (mask, w1, b1, w2))
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w1, b1, w2))

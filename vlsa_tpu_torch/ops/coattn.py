@@ -35,7 +35,9 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from .flags import kernels_disabled
 from .masked import l2_normalize, masked_softmax
 
 # queries a group (csrc/coattn_common.cuh kRows: one mma tile of rows), and
@@ -503,7 +505,10 @@ class CoattnPoolDQ(torch.autograd.Function):
     """Co-attention pooling with constant patch features on CUDA: the forward
     kernel, and the dQ kernel for the queries' gradient (the counterpart of
     vlsa_tpu's `_coattn_pool_tpu_nodx` / `_nodx_q8` custom VJPs).  x, its
-    sidecars, the mask and the scale (a frozen buffer) get no gradient."""
+    sidecars, the mask and the scale (a frozen buffer) get no gradient.  The
+    backward is a kernel with no derivative of its own: a second backward
+    through it raises (`ops.flags.disable_kernels` takes the plain
+    version)."""
 
     @staticmethod
     def forward(ctx, q, x, mask, scale, x_scale, x_inv):
@@ -513,6 +518,7 @@ class CoattnPoolDQ(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         q, x, mask, x_scale, x_inv, out, m, l = ctx.saved_tensors
         dq = coattn_bwd_dq(q, x, mask, ctx.scale, g.contiguous(), out, m, l,
@@ -525,7 +531,8 @@ class CoattnPoolFull(torch.autograd.Function):
     the forward kernel, and the full-backward kernel for dX and dq (the
     counterpart of vlsa_tpu's `_coattn_pool_tpu` and its VJP
     `_coattn_bwd_rule`).  dq is returned only where q needs it; the mask and
-    the scale (a frozen buffer) get no gradient."""
+    the scale (a frozen buffer) get no gradient.  No double backward, as
+    `CoattnPoolDQ`."""
 
     @staticmethod
     def forward(ctx, q, x, mask, scale):
@@ -535,6 +542,7 @@ class CoattnPoolFull(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         q, x, mask, out, m, l = ctx.saved_tensors
         dq, dx = coattn_bwd_dx(q, x, mask, ctx.scale, g.contiguous(), out, m, l)
@@ -548,8 +556,9 @@ def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
     x [B, N, C] raw patch features, mask [B, N] -> [B, P, C] f32.
 
     CPU tensors take the plain version under ordinary autograd (it ignores
-    `x_inv`: it normalises the rows itself).  CUDA tensors launch the
-    forward kernel; for a gradient, `CoattnPoolFull` (the dX kernel) when x
+    `x_inv`: it normalises the rows itself), as CUDA tensors do, on the
+    card, inside `ops.flags.disable_kernels()`.  Otherwise CUDA tensors
+    launch the forward kernel; for a gradient, `CoattnPoolFull` (the dX kernel) when x
     needs one, whether q does or not (`x_inv` is ignored there, as the JAX
     package ignores it), else `CoattnPoolDQ` (the dQ kernel) when q does.
     Features with a gradient must be f32 or bf16 with no `x_scale`: int8
@@ -563,10 +572,10 @@ def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
                          "cannot back-propagate into a feature projecter")
     if mask is None:
         mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
-    if x.device.type == "cpu":
-        return coattn_pool_reference(q, x, mask, scale, x_scale=x_scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"coattn_pool runs on cpu or cuda, not {x.device}")
+    if x.device.type == "cpu" or kernels_disabled():
+        return coattn_pool_reference(q, x, mask, scale, x_scale=x_scale)
     mask = mask.contiguous()
     if needs_dx:
         return CoattnPoolFull.apply(q.contiguous(), x, mask, float(scale))

@@ -632,9 +632,12 @@ abmil_bwd_dz_f32(const float* __restrict__ x, const uint8_t* __restrict__ mask,
 }
 
 // Pass 2: dW1 = sum_k dz[k]^T x[k] over the K = B * N patch rows of the
-// batch (dz [K, hid] in f32 for f32, else bf16 -- int8: s dz as hi and lo
+// batch (dz [K, ldz], hid of its columns used: ldz = hid, or on the general
+// instances hid_p; in f32 for f32, else bf16 -- int8: s dz as hi and lo
 // planes, bf16's precise mode: dz as hi and lo; x [K, D] in the storage
-// type; dz is 0 on masked rows), one split-K GEMM, any width.  Block (tile,
+// type, a chunk past D zero-filled and rows that are not 16-byte aligned
+// copied a value at a time; dz is 0 on masked rows), one split-K GEMM, any
+// width.  Block (tile,
 // split) owns the dW1 tile [kDwM, kDwN] number `tile` (tiles_of(D) a row of
 // tiles; rows past hid and columns past D masked) over the rows [split *
 // chunk, +chunk) and writes it to ws_dw1[split]; the tiles of one split run
@@ -651,6 +654,12 @@ constexpr int kDwN = 128;                                 // D columns of a dW1 
 constexpr int kDwTiles = (kHid / kDwM) * (kD / kDwN);     // 8 at D = 512, hid = 256
 constexpr int kRowsDw = 32;                               // f32 patch rows a stage (slice_3xtf32's depth)
 constexpr int kRowsDwB = 64;                              // bf16 and int8 patch rows a stage
+// precise mode (bf16 dz hi + lo): a block adds its tensor-core sum into its
+// partial every kDwChain rows and starts the next from zero.  The f32
+// accumulation of a longer chain drifts from the exact sums (of max|dW1|,
+// on an H100: 7.8e-5 at 27,307 rows and D=2560, 4.2e-5 at 10,240 rows and
+// 2.4e-5 at D=1024), where precise mode's dW1 is held within 5e-5.
+constexpr int kDwChain = 8192;
 // 136: f32's k-major fragments hit 32 banks (8t + g), bf16's 8 rows 8 bank groups
 constexpr int kLdDw = 128 + 8;
 template <typename T> struct DwTiling {                   // bf16, int8
@@ -682,11 +691,47 @@ __host__ __device__ constexpr size_t dw_smem_bytes() {
     return DwStage<T, TWO>::smem;
 }
 
-template <typename T, bool TWO>
+// A pass-2 block's acc to its partial dst [hid, D] at tile (m0, n0), or
+// (add) onto what an earlier chain put there: each thread reads back only
+// the values it wrote.
+__device__ __forceinline__ void dw_store(const float (&acc)[kMT][kNT][4], float* dst, int m0,
+                                         int n0, int lane, int warp, int hid, int D, bool add) {
+    const int gq = lane >> 2, tq = lane & 3, wm = warp & 3, wn = warp >> 2;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = m0 + 32 * wm + 16 * mt + 8 * h + gq;
+                const int c = n0 + 64 * wn + 8 * nt + 2 * tq;
+                if (r < hid && c < D) {
+                    float* o = dst + (size_t)r * D + c;
+                    float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+                    if ((D & 1) == 0) {  // c + 1 < D, and o 8-byte aligned
+                        if (add) {
+                            const float2 old = *reinterpret_cast<const float2*>(o);
+                            v0 += old.x;
+                            v1 += old.y;
+                        }
+                        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+                    } else {
+                        o[0] = add ? o[0] + v0 : v0;
+                        if (c + 1 < D) o[1] = add ? o[1] + v1 : v1;
+                    }
+                }
+            }
+}
+
+// AL: x's rows are 16-byte aligned (D * sizeof(T) a multiple of 16), so a
+// 16-byte chunk lies wholly inside or past a row and is copied by cp.async;
+// else copy16 copies a value at a time (an instance of its own, which keeps
+// the aligned loop as lean as the D = 512 one).
+template <typename T, bool TWO, bool AL>
 __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
                                         const typename DwTiling<T>::Op* __restrict__ dz,
                                         const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk,
-                                        int D, int hid, float* __restrict__ ws_dw1) {
+                                        int D, int hid, int ldz, float* __restrict__ ws_dw1) {
     using Op = typename DwTiling<T>::Op;
     using St = DwStage<T, TWO>;
     constexpr bool I8 = sizeof(T) == 1;
@@ -695,16 +740,19 @@ __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
     constexpr int kVec = 16 / sizeof(Op);      // elements of a 16-byte chunk
     extern __shared__ __align__(128) unsigned char smem[];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int gq = lane >> 2, tq = lane & 3, wm = warp & 3, wn = warp >> 2;
+    const int wm = warp & 3, wn = warp >> 2;
     const int tn = dw_tiles_n(D);
     const int m0 = (blockIdx.x / tn) * kDwM, n0 = (blockIdx.x % tn) * kDwN;
     const int split = blockIdx.y;
     const int k_begin = split * chunk;
     const int k_end = min(K, k_begin + chunk);
     const int slices = (k_end - k_begin + kRows - 1) / kRows;
+    constexpr bool kChains = TWO && !I8;  // precise mode: chains of kDwChain rows
+    static_assert(kDwChain % kRows == 0, "a chain ends on a stage");
     auto stage = [&](int s) { return smem + (size_t)(s % kStages) * St::bytes; };
     __nv_bfloat16* xcv = reinterpret_cast<__nv_bfloat16*>(smem + kStages * St::bytes);
 
+    const unsigned char* xbytes = reinterpret_cast<const unsigned char*>(x);
     auto load = [&](int s) {
         unsigned char* st = stage(s);
         Op* zs = reinterpret_cast<Op*>(st);
@@ -714,20 +762,33 @@ __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
         for (int i = tid; i < kRows * (128 / kVec); i += kThreads) {
             const int r = i / (128 / kVec), c = kVec * (i % (128 / kVec));
             const bool okz = k + r < k_end && m0 + c < hid;
-            const size_t zo = (size_t)(k + r) * hid + m0 + c;
+            const size_t zo = (size_t)(k + r) * ldz + m0 + c;
             cp_async16(zs + r * kLdDw + c, okz ? dz + zo : dz, okz);
             if constexpr (TWO) cp_async16(zl + r * kLdDw + c, okz ? dz_lo + zo : dz_lo, okz);
             if constexpr (!I8) {
-                const bool okx = k + r < k_end && n0 + c < D;
-                cp_async16(xs + r * kLdDw + c, okx ? x + (size_t)(k + r) * D + n0 + c : x, okx);
+                if constexpr (AL) {
+                    const bool okx = k + r < k_end && n0 + c < D;
+                    cp_async16(xs + r * kLdDw + c, okx ? x + (size_t)(k + r) * D + n0 + c : x, okx);
+                } else {
+                    const int nb = k + r < k_end ? chunk_bytes(D * (int)sizeof(T),
+                                                               (n0 + c) * (int)sizeof(T))
+                                                 : 0;
+                    copy16<sizeof(T)>(xs + r * kLdDw + c,
+                                      xbytes + ((size_t)(k + r) * D + n0 + c) * sizeof(T), nb);
+                }
             }
         }
         if constexpr (I8) {
             unsigned char* x8 = st + St::x;
             for (int i = tid; i < kRows * (kDwN / 16); i += kThreads) {
                 const int r = i / (kDwN / 16), c = 16 * (i % (kDwN / 16));
-                const bool ok = k + r < k_end && n0 + c < D;
-                cp_async16(x8 + r * kDwN + c, ok ? x + (size_t)(k + r) * D + n0 + c : x, ok);
+                if constexpr (AL) {
+                    const bool ok = k + r < k_end && n0 + c < D;
+                    cp_async16(x8 + r * kDwN + c, ok ? x + (size_t)(k + r) * D + n0 + c : x, ok);
+                } else {
+                    const int nb = k + r < k_end ? chunk_bytes(D, n0 + c) : 0;
+                    copy16<1>(x8 + r * kDwN + c, xbytes + (size_t)(k + r) * D + n0 + c, nb);
+                }
             }
         }
     };
@@ -738,6 +799,8 @@ __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
     }
     float acc[kMT][kNT][4];
     zero_acc(acc);
+    float* dst = ws_dw1 + (size_t)split * hid * D;
+    bool flushed = false;  // an earlier chain's sum is in the partial
     // the ldmatrix.trans row addresses (rows are patches, k): A = dz^T, B = x
     const int ao = ((lane & 7) + 8 * (lane >> 4)) * kLdDw + 32 * wm + 8 * ((lane >> 3) & 1);
     const int bo = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdDw + 64 * wn + 8 * (lane >> 4);
@@ -790,51 +853,48 @@ __device__ __forceinline__ void dw_gemm(const T* __restrict__ x,
                 }
             }
         }
+        if constexpr (kChains) {
+            if ((s + 1) % (kDwChain / kRows) == 0 && s + 1 < slices) {
+                dw_store(acc, dst, m0, n0, lane, warp, hid, D, flushed);
+                flushed = true;
+                zero_acc(acc);
+            }
+        }
     }
     cp_async_wait<0>();
-
-    float* dst = ws_dw1 + (size_t)split * hid * D;
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int r = m0 + 32 * wm + 16 * mt + 8 * h + gq;
-                const int c = n0 + 64 * wn + 8 * nt + 2 * tq;
-                if (r < hid && c < D) {
-                    *reinterpret_cast<float2*>(dst + (size_t)r * D + c) =
-                        make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-                }
-            }
+    dw_store(acc, dst, m0, n0, lane, warp, hid, D, flushed);
 }
 
+template <bool AL>
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ dz, int K, int chunk,
-                 int D, int hid, float* __restrict__ ws_dw1) {
-    dw_gemm<float, false>(x, dz, nullptr, K, chunk, D, hid, ws_dw1);
+                 int D, int hid, int ldz, float* __restrict__ ws_dw1) {
+    dw_gemm<float, false, AL>(x, dz, nullptr, K, chunk, D, hid, ldz, ws_dw1);
 }
 
+template <bool AL>
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_bwd_dw_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dz,
-                  int K, int chunk, int D, int hid, float* __restrict__ ws_dw1) {
-    dw_gemm<__nv_bfloat16, false>(x, dz, nullptr, K, chunk, D, hid, ws_dw1);
+                  int K, int chunk, int D, int hid, int ldz, float* __restrict__ ws_dw1) {
+    dw_gemm<__nv_bfloat16, false, AL>(x, dz, nullptr, K, chunk, D, hid, ldz, ws_dw1);
 }
 
 // bf16's precise mode: dz as hi and lo (vlsa_tpu/ops/abmil.py:250-253)
+template <bool AL>
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_bwd_dw_bf16_split(const __nv_bfloat16* __restrict__ x,
                         const __nv_bfloat16* __restrict__ dz_hi,
                         const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk, int D, int hid,
-                        float* __restrict__ ws_dw1) {
-    dw_gemm<__nv_bfloat16, true>(x, dz_hi, dz_lo, K, chunk, D, hid, ws_dw1);
+                        int ldz, float* __restrict__ ws_dw1) {
+    dw_gemm<__nv_bfloat16, true, AL>(x, dz_hi, dz_lo, K, chunk, D, hid, ldz, ws_dw1);
 }
 
+template <bool AL>
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_bwd_dw_i8(const int8_t* __restrict__ x, const __nv_bfloat16* __restrict__ dz_hi,
                 const __nv_bfloat16* __restrict__ dz_lo, int K, int chunk, int D, int hid,
-                float* __restrict__ ws_dw1) {
-    dw_gemm<int8_t, true>(x, dz_hi, dz_lo, K, chunk, D, hid, ws_dw1);
+                int ldz, float* __restrict__ ws_dw1) {
+    dw_gemm<int8_t, true, AL>(x, dz_hi, dz_lo, K, chunk, D, hid, ldz, ws_dw1);
 }
 
 // Pass 3: dw1 [hid * D] = the sum of the K_w partials ws_dw1, db1 and dw2
@@ -863,7 +923,8 @@ abmil_bwd_reduce(const float* __restrict__ ws_dw1, const float* __restrict__ ws_
 // ------------------------------------------------ any width: the general pass 1
 //
 // Every (D, hid) but 512, 256 and bf16's precise mode (abmil_common.cuh's
-// general instances), one body for every storage.  Per tile of kGenM = 64
+// general instances: W1 [hid_p, ld], zero-padded), one body for every
+// storage.  Per tile of kGenM = 64
 // patches: (a) the logits, pass by pass over hid (gen_h_product, as the
 // general forward forms them, so int8 takes the forward's int8 split of W1
 // and meets its (m, l) exactly); (b) g . x of each row, its x re-read from
@@ -871,8 +932,9 @@ abmil_bwd_reduce(const float* __restrict__ ws_dw1, const float* __restrict__ ws_
 // hid, else formed again), dz = ds w2 (1 - h^2), the column sums of dz and
 // ds h into shared memory (each column and row half owned by one thread:
 // deterministic) and dz through a tile in the stages' space to the
-// workspace: f32 in f32, bf16 rounded to bf16 (the TPU kernel's rounding of
-// dz), precise as bf16 hi + lo (vlsa_tpu/ops/abmil.py:99-111, :250-253),
+// workspace [B, N, hid_p] (the padded columns' dz are 0): f32 in f32, bf16
+// rounded to bf16 (the TPU kernel's rounding of dz), precise as bf16 hi + lo
+// (vlsa_tpu/ops/abmil.py:99-111, :250-253),
 // int8 s dz as bf16 hi + lo; (d) with dX, a g + dz . W1 (precise: dz hi . W1
 // + dz lo . W1, W1 rounded to bf16 once, as vlsa_tpu's _dz_w1_matmul) in
 // blocks of kDxCols columns, dz's and W1's slices of kJG hid rows through
@@ -896,19 +958,39 @@ struct DzSmemG {
     static constexpr int kLdT = G::F32 ? HP + 4 : HP + 8;     // values a dz tile row
     static constexpr size_t kTile = (size_t)kGenM * kLdT * kZ;  // a plane of the tile
     static constexpr size_t w = 0;                            // 2 stages; the dz tile
-    static constexpr size_t cols = round128(2 * kStage > kPlanes * kTile ? 2 * kStage
-                                                                          : kPlanes * kTile);
-    // b1, w2 [kGenMaxHid], g [kGenMaxD]; the column sums [4][kGenMaxHid]
-    static constexpr size_t sums = cols + (2 * (size_t)kGenMaxHid + kGenMaxD) * 4;
-    static constexpr size_t red = sums + 4 * (size_t)kGenMaxHid * 4;   // [4][kGenM]
+    static constexpr size_t red = round128(2 * kStage > kPlanes * kTile ? 2 * kStage
+                                                                        : kPlanes * kTile);
     static constexpr size_t rows = red + 4 * (size_t)kGenM * 4;  // logit, valid, s, g.x, a, ds; g.out
-    static constexpr size_t total = rows + (6 * (size_t)kGenM + 4) * 4;
+    // sized at run time: b1, w2 [hid_p] (zero past hid), the column sums
+    // [4][hid_p], g [D] (zero-filled to a multiple of 4)
+    static constexpr size_t vecs = rows + (6 * (size_t)kGenM + 4) * 4;
+    static constexpr size_t total(int D, int hid_p) {
+        return vecs + (6 * (size_t)hid_p + round4((size_t)D)) * 4;
+    }
 };
+static_assert(DzSmemG<GOp::kBf16P, gen_max_pass(GOp::kBf16P)>::total(kGenMaxD, kGenMaxHid) <=
+                      kSmemOptin &&
+                  DzSmemG<GOp::kF32, gen_max_pass(GOp::kF32)>::total(kGenMaxD, kGenMaxHid) <=
+                      kSmemOptin,
+              "the general pass 1 fits a block at kGenMaxD, kGenMaxHid");
 
-// w1h, w1l: W1 as the h product takes it (gen_h_product; int8's s_w in
-// w1_scale[0]); w1dx: W1 of the dX product (f32: w1; bf16: its bf16
-// rounding).  dz, dz_lo: the workspace's planes [B, N, hid] (f32 or bf16;
-// lo: precise and int8).  Grid (S1, B).
+// This lane's share of g . x over a row of D values (pairs 2 lane + 64 k);
+// at an odd D (ODD) value D and gs[D] are 0.
+template <GOp OP, bool ODD>
+__device__ __forceinline__ float lane_dot_g(const unsigned char* __restrict__ xr,
+                                            const float* gs, int D) {
+    float s = 0.f;
+    for (int c = 2 * (threadIdx.x & 31); c < D; c += 64) {
+        const float2 v = load_pair_at<OP, ODD>(xr, c, D);
+        s = fmaf(gs[c], v.x, fmaf(gs[c + 1], v.y, s));
+    }
+    return s;
+}
+
+// w1h, w1l: W1 as the h product takes it, [hid_p, ld] (gen_h_product;
+// int8's s_w in w1_scale[0]); w1dx: W1 of the dX product (f32: its padded
+// copy; bf16: its bf16 rounding).  dz, dz_lo: the workspace's planes
+// [B, N, hid_p] (f32 or bf16; lo: precise and int8).  Grid (S1, B).
 template <GOp OP, int HP>
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_scale,
@@ -917,8 +999,8 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
                      const void* __restrict__ w1dx, const float* __restrict__ b1,
                      const float* __restrict__ w2, const float* __restrict__ g,
                      const float* __restrict__ out, const float* __restrict__ m,
-                     const float* __restrict__ l, int N, int D, int hid, int chunk, int S,
-                     int with_dx, void* __restrict__ dz, void* __restrict__ dz_lo,
+                     const float* __restrict__ l, int N, int D, int hid, int hid_p, int ld,
+                     int chunk, int S, int with_dx, void* __restrict__ dz, void* __restrict__ dz_lo,
                      float* __restrict__ ws_db1, float* __restrict__ ws_dw2,
                      void* __restrict__ dx) {
     using G = Gen<OP, HP>;
@@ -929,10 +1011,6 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
     extern __shared__ __align__(128) unsigned char smem[];
     unsigned char* stages = smem + L::w;
     Z* tile = reinterpret_cast<Z*>(smem + L::w);
-    float* b1s = reinterpret_cast<float*>(smem + L::cols);
-    float* w2s = b1s + kGenMaxHid;
-    float* gs = w2s + kGenMaxHid;
-    float* sums = reinterpret_cast<float*>(smem + L::sums);  // db1 (wm 0, 1), dw2 (wm 0, 1)
     float* red = reinterpret_cast<float*>(smem + L::red);
     float* logit_s = reinterpret_cast<float*>(smem + L::rows);
     float* valid_s = logit_s + kGenM;
@@ -941,13 +1019,17 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
     float* a_s = gx_s + kGenM;
     float* ds_s = a_s + kGenM;
     float* gout_s = ds_s + kGenM;
+    float* b1s = reinterpret_cast<float*>(smem + L::vecs);
+    float* w2s = b1s + hid_p;
+    float* sums = w2s + hid_p;  // [4][hid_p]: db1 (wm 0, 1), dw2 (wm 0, 1)
+    float* gs = sums + 4 * hid_p;
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gq = lane >> 2, tq = lane & 3, wm = warp & 1, wn = warp >> 1;
     const int split = blockIdx.x, b = blockIdx.y;
     const int n_begin = split * chunk;
     const int n_end = min(N, n_begin + chunk);
-    const int row_bytes = D * G::kItem;
+    const int row_bytes = D * G::kItem, w_bytes = ld * G::kItem;
     const unsigned char* xb = static_cast<const unsigned char*>(x) + (size_t)b * N * row_bytes;
     const unsigned char* wh = static_cast<const unsigned char*>(w1h);
     const unsigned char* wl = static_cast<const unsigned char*>(w1l);
@@ -955,15 +1037,15 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
     const float* gb = g + (size_t)b * D;
     const float m_b = m[b], l_b = l[b];
     const float sw = G::I8 ? *w1_scale : 1.f;
-    const int npass = hid / HP;
+    const int npass = hid_p / HP;
 
-    for (int j = tid; j < hid; j += kThreads) {
-        b1s[j] = b1[j];
-        w2s[j] = w2[j];
+    for (int j = tid; j < hid_p; j += kThreads) {
+        b1s[j] = j < hid ? b1[j] : 0.f;
+        w2s[j] = j < hid ? w2[j] : 0.f;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) sums[q * kGenMaxHid + j] = 0.f;
+        for (int q = 0; q < 4; ++q) sums[q * hid_p + j] = 0.f;
     }
-    for (int k = tid; k < D; k += kThreads) gs[k] = gb[k];
+    for (int k = tid; k < (int)round4((size_t)D); k += kThreads) gs[k] = k < D ? gb[k] : 0.f;
     if (warp == 0) {
         float s = 0.f;
         for (int c = lane; c < D; c += 32) s += gb[c] * out[(size_t)b * D + c];
@@ -982,8 +1064,8 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
         }
         // (a) the logits
 #pragma unroll 1
-        for (int j0 = 0; j0 < hid; j0 += HP) {
-            gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, wh, wl, j0, sw, stages);
+        for (int j0 = 0; j0 < hid_p; j0 += HP) {
+            gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, w_bytes, wh, wl, j0, sw, stages);
             gen_tanh_logit<NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
             __syncthreads();
             if (tid < kGenM) {
@@ -997,10 +1079,8 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
             float s = 0.f;
             if (t0 + r < n_end) {
                 const unsigned char* xr = xb + (size_t)(t0 + r) * row_bytes;
-                for (int c = 2 * lane; c < D; c += 64) {
-                    const float2 v = load_pair<OP>(xr + (size_t)c * G::kItem);
-                    s = fmaf(gs[c], v.x, fmaf(gs[c + 1], v.y, s));
-                }
+                s = (D & 1) ? lane_dot_g<OP, true>(xr, gs, D)
+                            : lane_dot_g<OP, false>(xr, gs, D);
             }
             s = warp_sum(s);
             if (lane == 0) gx_s[r] = G::I8 ? s * sc_s[r] : s;
@@ -1016,9 +1096,10 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
 
         // (c) dz, pass by pass
 #pragma unroll 1
-        for (int j0 = 0; j0 < hid; j0 += HP) {
+        for (int j0 = 0; j0 < hid_p; j0 += HP) {
             if (npass > 1) {
-                gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, wh, wl, j0, sw, stages);
+                gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, w_bytes, wh, wl, j0, sw,
+                                      stages);
                 gen_tanh_logit<NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
             }
 #pragma unroll
@@ -1061,10 +1142,10 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
                     dw1v += __shfl_xor_sync(0xffffffffu, dw1v, o);
                 }
                 if (gq == 0) {  // this thread owns columns j, j + 1 of row half wm
-                    sums[wm * kGenMaxHid + j] += db0;
-                    sums[wm * kGenMaxHid + j + 1] += db1v;
-                    sums[(2 + wm) * kGenMaxHid + j] += dw0;
-                    sums[(2 + wm) * kGenMaxHid + j + 1] += dw1v;
+                    sums[wm * hid_p + j] += db0;
+                    sums[wm * hid_p + j + 1] += db1v;
+                    sums[(2 + wm) * hid_p + j] += dw0;
+                    sums[(2 + wm) * hid_p + j + 1] += dw1v;
                 }
             }
             __syncthreads();  // the tile is whole
@@ -1073,12 +1154,12 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
                 constexpr int kPer = 16 / L::kZ;
 #pragma unroll
                 for (int q = 0; q < kPlanes; ++q) {
-                    Z* dst = static_cast<Z*>(q ? dz_lo : dz) + ((size_t)b * N + t0) * hid + j0;
+                    Z* dst = static_cast<Z*>(q ? dz_lo : dz) + ((size_t)b * N + t0) * hid_p + j0;
                     const Z* src = tile + q * kGenM * L::kLdT;
                     for (int i = tid; i < kGenM * kCh; i += kThreads) {
                         const int r = i / kCh, c = kPer * (i % kCh);
                         if (t0 + r < n_end) {
-                            *reinterpret_cast<uint4*>(dst + (size_t)r * hid + c) =
+                            *reinterpret_cast<uint4*>(dst + (size_t)r * hid_p + c) =
                                 *reinterpret_cast<const uint4*>(src + r * L::kLdT + c);
                         }
                     }
@@ -1106,17 +1187,18 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
                         const int pl = i / (kGenM * kCz), rem = i % (kGenM * kCz);
                         const int r = rem / kCz, c = kPer * (rem % kCz);
                         const bool ok = t0 + r < n_end;
-                        const Z* src = (pl ? z_lo : z_hi) + ((size_t)b * N + t0 + r) * hid + kJG * q + c;
+                        const Z* src =
+                            (pl ? z_lo : z_hi) + ((size_t)b * N + t0 + r) * hid_p + kJG * q + c;
                         cp_async16(zs + pl * kZp + r * kLdZ + c, ok ? src : z_hi, ok);
                     }
                     for (int i = tid; i < kJG * kCw; i += kThreads) {
                         const int j = i / kCw, c = kPer * (i % kCw);
-                        const bool ok = d0 + c < D;
-                        cp_async16(ws + j * kLdW + c, ok ? w1d + (size_t)(kJG * q + j) * D + d0 + c
+                        const bool ok = d0 + c < ld;
+                        cp_async16(ws + j * kLdW + c, ok ? w1d + (size_t)(kJG * q + j) * ld + d0 + c
                                                          : w1d, ok);
                     }
                 };
-                const int nq = hid / kJG;
+                const int nq = hid_p / kJG;
                 const int zo = (32 * wm + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLdZ + 8 * (lane >> 4);
                 const int bo = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdW + 32 * wn + 8 * (lane >> 4);
 #pragma unroll 1
@@ -1174,10 +1256,18 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
                                     const float v0 = fmaf(a, gs[c], dacc[mt][nt][2 * h]);
                                     const float v1 = fmaf(a, gs[c + 1], dacc[mt][nt][2 * h + 1]);
                                     Z* dst = dxb + (size_t)(t0 + r) * D + c;
-                                    if constexpr (G::F32) {
-                                        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+                                    if ((D & 1) == 0) {  // c + 1 < D, dst aligned to the pair
+                                        if constexpr (G::F32) {
+                                            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+                                        } else {
+                                            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+                                        }
+                                    } else if constexpr (G::F32) {
+                                        dst[0] = v0;
+                                        if (c + 1 < D) dst[1] = v1;
                                     } else {
-                                        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+                                        dst[0] = __float2bfloat16_rn(v0);
+                                        if (c + 1 < D) dst[1] = __float2bfloat16_rn(v1);
                                     }
                                 }
                             }
@@ -1189,8 +1279,8 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
     __syncthreads();
     const size_t part = (size_t)b * S + split;
     for (int j = tid; j < hid; j += kThreads) {
-        ws_db1[part * hid + j] = sums[j] + sums[kGenMaxHid + j];
-        ws_dw2[part * hid + j] = sums[2 * kGenMaxHid + j] + sums[3 * kGenMaxHid + j];
+        ws_db1[part * hid + j] = sums[j] + sums[hid_p + j];
+        ws_dw2[part * hid + j] = sums[2 * hid_p + j] + sums[3 * hid_p + j];
     }
 }
 
@@ -1208,12 +1298,14 @@ cudaError_t launch_dz_general_hp(const void* x, const float* x_scale, const uint
                                  bool with_dx, void* dz, void* dz_lo, float* ws_db1,
                                  float* ws_dw2, void* dx, cudaStream_t stream) {
     auto kernel = abmil_bwd_dz_general<OP, HP>;
-    const size_t smem = DzSmemG<OP, HP>::total;
+    const int hid_p = gen_hid_pad(hid);
+    const size_t smem = DzSmemG<OP, HP>::total(D, hid_p);
     cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(S, B), kThreads, smem, stream>>>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1,
-                                                   w2, g, out, m, l, N, D, hid, chunk, S,
-                                                   with_dx ? 1 : 0, dz, dz_lo, ws_db1, ws_dw2, dx);
+                                                   w2, g, out, m, l, N, D, hid, hid_p, gen_ld(D),
+                                                   chunk, S, with_dx ? 1 : 0, dz, dz_lo, ws_db1,
+                                                   ws_dw2, dx);
     return cudaGetLastError();
 }
 
@@ -1225,30 +1317,36 @@ cudaError_t launch_dz_general(int hp, const void* x, const float* x_scale, const
                               int D, int hid, int chunk, int S, bool with_dx, void* dz,
                               void* dz_lo, float* ws_db1, float* ws_dw2, void* dx,
                               cudaStream_t stream) {
-    if (hp == 64) {
-        return launch_dz_general_hp<OP, 64>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1, w2, g,
-                                            out, m, l, B, N, D, hid, chunk, S, with_dx, dz, dz_lo,
-                                            ws_db1, ws_dw2, dx, stream);
-    }
-    if constexpr (OP != GOp::kI8) {
+    // hp is gen_pass_cols': at most gen_max_pass(OP), whose instances alone exist
+    if constexpr (gen_max_pass(OP) >= 256) {
         if (hp == 256) {
             return launch_dz_general_hp<OP, 256>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1,
                                                  w2, g, out, m, l, B, N, D, hid, chunk, S, with_dx,
                                                  dz, dz_lo, ws_db1, ws_dw2, dx, stream);
         }
     }
-    return launch_dz_general_hp<OP, 128>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1, w2, g,
-                                         out, m, l, B, N, D, hid, chunk, S, with_dx, dz, dz_lo,
-                                         ws_db1, ws_dw2, dx, stream);
+    if constexpr (gen_max_pass(OP) >= 128) {
+        if (hp == 128) {
+            return launch_dz_general_hp<OP, 128>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1,
+                                                 w2, g, out, m, l, B, N, D, hid, chunk, S, with_dx,
+                                                 dz, dz_lo, ws_db1, ws_dw2, dx, stream);
+        }
+    }
+    return launch_dz_general_hp<OP, 64>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1, w2, g,
+                                        out, m, l, B, N, D, hid, chunk, S, with_dx, dz, dz_lo,
+                                        ws_db1, ws_dw2, dx, stream);
 }
 
 template <GOp OP>
-size_t dz_general_smem(int hp) {
-    if (hp == 64) return DzSmemG<OP, 64>::total;
-    if constexpr (OP != GOp::kI8) {
-        if (hp == 256) return DzSmemG<OP, 256>::total;
+size_t dz_general_smem(int hp, int D, int hid) {
+    const int hid_p = gen_hid_pad(hid);
+    if constexpr (gen_max_pass(OP) >= 256) {
+        if (hp == 256) return DzSmemG<OP, 256>::total(D, hid_p);
     }
-    return DzSmemG<OP, 128>::total;
+    if constexpr (gen_max_pass(OP) >= 128) {
+        if (hp == 128) return DzSmemG<OP, 128>::total(D, hid_p);
+    }
+    return DzSmemG<OP, 64>::total(D, hid_p);
 }
 
 // bf16 and int8 at D = 512, hid = 256: pass 1 over chunks of chunk1 patches
@@ -1277,14 +1375,14 @@ cudaError_t launch_passes_bf16(const T* x, const float* x_scale, const uint8_t* 
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if constexpr (sizeof(T) == 1) {
         const size_t smem2 = dw_smem_bytes<int8_t, true>();
-        if ((err = set_smem(abmil_bwd_dw_i8, smem2)) != cudaSuccess) return err;
-        abmil_bwd_dw_i8<<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(x, dz, dz_lo, B * N,
-                                                                         chunk2, kD, kHid, ws_dw1);
+        if ((err = set_smem(abmil_bwd_dw_i8<true>, smem2)) != cudaSuccess) return err;
+        abmil_bwd_dw_i8<true><<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(
+            x, dz, dz_lo, B * N, chunk2, kD, kHid, kHid, ws_dw1);
     } else {
         const size_t smem2 = dw_smem_bytes<__nv_bfloat16, false>();
-        if ((err = set_smem(abmil_bwd_dw_bf16, smem2)) != cudaSuccess) return err;
-        abmil_bwd_dw_bf16<<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(x, dz, B * N, chunk2,
-                                                                           kD, kHid, ws_dw1);
+        if ((err = set_smem(abmil_bwd_dw_bf16<true>, smem2)) != cudaSuccess) return err;
+        abmil_bwd_dw_bf16<true><<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(
+            x, dz, B * N, chunk2, kD, kHid, kHid, ws_dw1);
     }
     return cudaGetLastError();
 }
@@ -1311,55 +1409,65 @@ cudaError_t launch_passes_f32(const float* x, const uint8_t* mask, const float* 
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const size_t smem2 = dw_smem_bytes<float, false>();
-    if ((err = set_smem(abmil_bwd_dw_f32, smem2)) != cudaSuccess) return err;
-    abmil_bwd_dw_f32<<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(x, dz, B * N, chunk2, kD,
-                                                                       kHid, ws_dw1);
+    if ((err = set_smem(abmil_bwd_dw_f32<true>, smem2)) != cudaSuccess) return err;
+    abmil_bwd_dw_f32<true><<<dim3(kDwTiles, S2), kThreads, smem2, stream>>>(
+        x, dz, B * N, chunk2, kD, kHid, kHid, ws_dw1);
     return cudaGetLastError();
 }
 
-// Any other width, or bf16's precise mode: W1 for the h product (bf16: its
-// rounding in w1_bf16, precise: hi and lo; int8: the forward's int8 split
-// in w1_i8 and w1_scale), the general pass 1, then pass 2 over the dz
-// planes (f32; bf16; precise and int8 two planes).
+// Any other width, or bf16's precise mode: W1 for the h product in w1_ws,
+// laid out [hid_p, ld] (f32: its padded copy; bf16: its rounding, precise: hi and lo; int8: the forward's
+// int8 split, its scales in w1_scale), the general pass 1, then pass 2 over
+// the dz planes [B, N, hid_p] (f32; bf16; precise and int8 two planes).
 cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* mask,
                            const float* w1, const float* b1, const float* w2, const float* g,
                            const float* out, const float* m, const float* l, int B, int N, int D,
                            int hid, int chunk1, int S1, int chunk2, int S2, int storage,
-                           bool precise, bool with_dx, __nv_bfloat16* w1_bf16, int8_t* w1_i8,
-                           float* w1_scale, void* ds, void* dx, float* ws_dw1, float* ws_db1,
-                           float* ws_dw2, cudaStream_t stream) {
-    const int n = hid * D;
+                           bool precise, bool with_dx, void* w1_ws, float* w1_scale, void* ds,
+                           void* dx, float* ws_dw1, float* ws_db1, float* ws_dw2,
+                           cudaStream_t stream) {
+    const int hid_p = gen_hid_pad(hid), ld = gen_ld(D);
+    const int n = hid_p * ld;
     const int hp = gen_pass_cols(storage, hid);
-    const size_t plane = (size_t)B * N * hid;
+    const size_t plane = (size_t)B * N * hid_p;
     const dim3 grid2(dw_tiles(D, hid), S2);
     cudaError_t err;
     if (storage == kF32) {
-        err = launch_dz_general<GOp::kF32>(hp, x, nullptr, mask, w1, nullptr, nullptr, w1, b1, w2,
+        float* wf = static_cast<float*>(w1_ws);
+        pad_w1<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(w1, wf, hid, D, ld, n);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        err = launch_dz_general<GOp::kF32>(hp, x, nullptr, mask, wf, nullptr, nullptr, wf, b1, w2,
                                            g, out, m, l, B, N, D, hid, chunk1, S1, with_dx, ds,
                                            nullptr, ws_db1, ws_dw2, dx, stream);
         if (err != cudaSuccess) return err;
         const size_t smem2 = dw_smem_bytes<float, false>();
-        if ((err = set_smem(abmil_bwd_dw_f32, smem2)) != cudaSuccess) return err;
-        abmil_bwd_dw_f32<<<grid2, kThreads, smem2, stream>>>(
+        auto k2 = (D % 4 == 0) ? abmil_bwd_dw_f32<true> : abmil_bwd_dw_f32<false>;
+        if ((err = set_smem(k2, smem2)) != cudaSuccess) return err;
+        k2<<<grid2, kThreads, smem2, stream>>>(
             static_cast<const float*>(x), static_cast<const float*>(ds), B * N, chunk2, D, hid,
-            ws_dw1);
+            hid_p, ws_dw1);
         return cudaGetLastError();
     }
     __nv_bfloat16* dzb = static_cast<__nv_bfloat16*>(ds);
     if (storage == kI8) {
-        if ((err = launch_split_w1_i8(w1, n, w1_i8, w1_scale, stream)) != cudaSuccess) return err;
+        int8_t* w1_i8 = static_cast<int8_t*>(w1_ws);
+        err = launch_split_w1_i8(w1, hid, D, hid_p, ld, w1_i8, w1_scale, stream);
+        if (err != cudaSuccess) return err;
         err = launch_dz_general<GOp::kI8>(hp, x, x_scale, mask, w1_i8, w1_i8 + n, w1_scale,
                                           nullptr, b1, w2, g, out, m, l, B, N, D, hid, chunk1, S1,
                                           false, dzb, dzb + plane, ws_db1, ws_dw2, nullptr, stream);
         if (err != cudaSuccess) return err;
         const size_t smem2 = dw_smem_bytes<int8_t, true>();
-        if ((err = set_smem(abmil_bwd_dw_i8, smem2)) != cudaSuccess) return err;
-        abmil_bwd_dw_i8<<<grid2, kThreads, smem2, stream>>>(static_cast<const int8_t*>(x), dzb,
-                                                            dzb + plane, B * N, chunk2, D, hid,
-                                                            ws_dw1);
+        auto k2 = (D % 16 == 0) ? abmil_bwd_dw_i8<true> : abmil_bwd_dw_i8<false>;
+        if ((err = set_smem(k2, smem2)) != cudaSuccess) return err;
+        k2<<<grid2, kThreads, smem2, stream>>>(static_cast<const int8_t*>(x), dzb, dzb + plane,
+                                               B * N, chunk2, D, hid, hid_p, ws_dw1);
         return cudaGetLastError();
     }
-    if ((err = launch_prep_w1(w1, w1_bf16, precise, n, stream)) != cudaSuccess) return err;
+    __nv_bfloat16* w1_bf16 = static_cast<__nv_bfloat16*>(w1_ws);
+    if ((err = launch_prep_w1(w1, w1_bf16, precise, hid, D, hid_p, ld, stream)) != cudaSuccess) {
+        return err;
+    }
     const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
     if (precise) {
         err = launch_dz_general<GOp::kBf16P>(hp, x, nullptr, mask, w1_bf16, w1_bf16 + n, nullptr,
@@ -1368,9 +1476,10 @@ cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* m
                                              stream);
         if (err != cudaSuccess) return err;
         const size_t smem2 = dw_smem_bytes<__nv_bfloat16, true>();
-        if ((err = set_smem(abmil_bwd_dw_bf16_split, smem2)) != cudaSuccess) return err;
-        abmil_bwd_dw_bf16_split<<<grid2, kThreads, smem2, stream>>>(xb, dzb, dzb + plane, B * N,
-                                                                    chunk2, D, hid, ws_dw1);
+        auto k2 = (D % 8 == 0) ? abmil_bwd_dw_bf16_split<true> : abmil_bwd_dw_bf16_split<false>;
+        if ((err = set_smem(k2, smem2)) != cudaSuccess) return err;
+        k2<<<grid2, kThreads, smem2, stream>>>(xb, dzb, dzb + plane, B * N, chunk2, D, hid,
+                                               hid_p, ws_dw1);
         return cudaGetLastError();
     }
     err = launch_dz_general<GOp::kBf16>(hp, x, nullptr, mask, w1_bf16, nullptr, nullptr, w1_bf16,
@@ -1378,8 +1487,9 @@ cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* m
                                         dzb, nullptr, ws_db1, ws_dw2, dx, stream);
     if (err != cudaSuccess) return err;
     const size_t smem2 = dw_smem_bytes<__nv_bfloat16, false>();
-    if ((err = set_smem(abmil_bwd_dw_bf16, smem2)) != cudaSuccess) return err;
-    abmil_bwd_dw_bf16<<<grid2, kThreads, smem2, stream>>>(xb, dzb, B * N, chunk2, D, hid, ws_dw1);
+    auto k2 = (D % 8 == 0) ? abmil_bwd_dw_bf16<true> : abmil_bwd_dw_bf16<false>;
+    if ((err = set_smem(k2, smem2)) != cudaSuccess) return err;
+    k2<<<grid2, kThreads, smem2, stream>>>(xb, dzb, B * N, chunk2, D, hid, hid_p, ws_dw1);
     return cudaGetLastError();
 }
 
@@ -1403,10 +1513,10 @@ size_t abmil_bwd_smem_bytes(int storage, int D, int hid, int precise, int pass) 
     }
     const int hp = gen_pass_cols(storage, hid);
     switch (gen_op(storage, precise != 0)) {
-        case GOp::kF32: return dz_general_smem<GOp::kF32>(hp);
-        case GOp::kBf16: return dz_general_smem<GOp::kBf16>(hp);
-        case GOp::kBf16P: return dz_general_smem<GOp::kBf16P>(hp);
-        default: return dz_general_smem<GOp::kI8>(hp);
+        case GOp::kF32: return dz_general_smem<GOp::kF32>(hp, D, hid);
+        case GOp::kBf16: return dz_general_smem<GOp::kBf16>(hp, D, hid);
+        case GOp::kBf16P: return dz_general_smem<GOp::kBf16P>(hp, D, hid);
+        default: return dz_general_smem<GOp::kI8>(hp, D, hid);
     }
 }
 
@@ -1415,29 +1525,33 @@ size_t abmil_bwd_smem_bytes(int storage, int D, int hid, int precise, int pass) 
 // and out [B, D], m and l [B] f32 (the output's cotangent, the forward
 // output and its stats); precise: bf16's precise mode.  Pass 1 runs S1
 // blocks of chunk1 patches a bag, pass 2 the dW1 tiles on each of S2 chunks
-// of chunk2 of the B * N patch rows.  Workspace: w1_bf16 [2, hid, D] bf16
-// (W1's bf16 hi and, int8 at D = 512, hid = 256 or precise, lo; null for
-// f32 and for int8 at other widths); w1_i8 [2, hid, D] int8 and w1_scale
-// [65] f32 (int8 at other widths: the forward's split; else null); ds the dz
-// workspace, [B, N, hid] f32 (f32) or bf16 (bf16), or [2, B, N, hid] bf16
-// (int8: s dz's hi and lo; precise: dz's); ws_dw1 [S2, hid, D], ws_db1 and
-// ws_dw2 [B * S1, hid] f32.  Outputs: dx [B, N, D] in the storage type
-// when with_dx (f32 and bf16 only; else null), dw1 [hid, D], db1 and dw2
-// [hid] f32.  All on CUDA device `device`; the kernels go to `stream`.
-// Returns the launches' cudaError_t (0 on success).
+// of chunk2 of the B * N patch rows.  Workspace: w1_ws W1 for pass 1 -- at
+// D = 512, hid = 256 [2, hid, D] bf16 (W1's bf16 hi and, int8, lo; null for
+// f32); on the general instances laid out [hid_p, ld] (gen_hid_pad,
+// gen_ld): [2, ...] bf16 for bf16 (its rounding, and in precise mode the
+// residual's), [2, ...] int8 for int8 (the forward's split), f32 [hid_p,
+// ld] for f32 (its padded copy) -- and w1_scale [65] f32
+// (int8 on the general instances: s_w and the partial maxima; else null);
+// ds the dz workspace, [B, N, hid'] f32 (f32) or bf16 (bf16), or [2, B, N,
+// hid'] bf16 (int8: s dz's hi and lo; precise: dz's), hid' = hid_p on the
+// general instances; ws_dw1 [S2, hid, D], ws_db1 and ws_dw2 [B * S1, hid]
+// f32.  Outputs: dx [B, N, D] in the storage type when with_dx (f32 and
+// bf16 only; else null), dw1 [hid, D], db1 and dw2 [hid] f32.  All on CUDA
+// device `device`; the kernels go to `stream`.  Returns the launches'
+// cudaError_t (0 on success).
 int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* w1,
               const void* b1, const void* w2, const void* g, const void* out, const void* m,
               const void* l, int B, int N, int D, int hid, int chunk1, int S1, int chunk2, int S2,
-              int storage, int precise, int with_dx, int device, void* w1_bf16, void* w1_i8,
-              void* w1_scale, void* ds, void* ws_dw1, void* ws_db1, void* ws_dw2, void* dx,
-              void* dw1, void* db1, void* dw2, void* stream) {
+              int storage, int precise, int with_dx, int device, void* w1_ws, void* w1_scale,
+              void* ds, void* ws_dw1, void* ws_db1, void* ws_dw2, void* dx, void* dw1, void* db1,
+              void* dw2, void* stream) {
     const bool is_precise = precise != 0 && storage == kBF16;
     const bool special = special_widths(storage, D, hid, is_precise);
     const bool gen_i8 = storage == kI8 && !special;
+    const bool needs_ws = storage != kF32 || !special;
     if (B < 1 || N < 1 || S1 < 1 || S2 < 1 || chunk1 < 1 || chunk2 < 1 || !widths_ok(D, hid)
         || (storage != kF32 && storage != kBF16 && storage != kI8)
-        || (storage != kF32 && !gen_i8) != (w1_bf16 != nullptr)
-        || gen_i8 != (w1_i8 != nullptr) || gen_i8 != (w1_scale != nullptr)
+        || needs_ws != (w1_ws != nullptr) || gen_i8 != (w1_scale != nullptr)
         || (storage == kI8) != (x_scale != nullptr)
         || (with_dx != 0) != (dx != nullptr) || (with_dx && storage == kI8)) {
         return (int)cudaErrorInvalidValue;
@@ -1454,23 +1568,22 @@ int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* 
     const float* of = static_cast<const float*>(out);
     const float* mf = static_cast<const float*>(m);
     const float* lf = static_cast<const float*>(l);
-    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(w1_bf16);
+    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(w1_ws);
     __nv_bfloat16* dzb = static_cast<__nv_bfloat16*>(ds);
     float* w_dw1 = static_cast<float*>(ws_dw1);
     float* w_db1 = static_cast<float*>(ws_db1);
     float* w_dw2 = static_cast<float*>(ws_dw2);
     if (!special) {
         err = launch_general(x, xs, mk, w1f, b1f, w2f, gf, of, mf, lf, B, N, D, hid, chunk1, S1,
-                             chunk2, S2, storage, is_precise, with_dx != 0, wb,
-                             static_cast<int8_t*>(w1_i8), static_cast<float*>(w1_scale), ds, dx,
-                             w_dw1, w_db1, w_dw2, st);
+                             chunk2, S2, storage, is_precise, with_dx != 0, w1_ws,
+                             static_cast<float*>(w1_scale), ds, dx, w_dw1, w_db1, w_dw2, st);
     } else if (storage == kF32) {
         err = launch_passes_f32(static_cast<const float*>(x), mk, w1f, b1f, w2f, gf, of, mf,
                                 lf, B, N, chunk1, S1, chunk2, S2, with_dx != 0,
                                 static_cast<float*>(ds), static_cast<float*>(dx), w_dw1, w_db1,
                                 w_dw2, st);
     } else {
-        err = launch_prep_w1(w1f, wb, storage == kI8, kHid * kD, st);
+        err = launch_prep_w1(w1f, wb, storage == kI8, kHid, kD, kHid, kD, st);
         if (err != cudaSuccess) return (int)err;
         if (storage == kBF16) {
             err = launch_passes_bf16(static_cast<const __nv_bfloat16*>(x), nullptr, mk, wb,

@@ -15,6 +15,7 @@
 namespace abmil {
 
 using coattn::cp_async16;
+using coattn::cp_async16_n;
 using coattn::cp_async_commit;
 using coattn::cp_async_wait;
 using coattn::kBF16;
@@ -431,25 +432,43 @@ __device__ __forceinline__ void h_product(float (&acc)[MT][kNT][4], const T* __r
     }
 }
 
-// W1 f32 [n] -> its bf16 rounding hi and, when lo is given, the bf16
+// Entry i of W1 laid out [rows][ld] from W1 [hid, D] f32: zero past hid
+// rows and past D columns (the general instances' padded workspaces; at ld =
+// D and rows = hid, W1 itself).
+__device__ __forceinline__ float w1_at(const float* __restrict__ w1, int i, int hid, int D,
+                                       int ld) {
+    const int j = i / ld, k = i - (i / ld) * ld;
+    return j < hid && k < D ? w1[(size_t)j * D + k] : 0.f;
+}
+
+// W1 -> its bf16 rounding hi [n = rows * ld] and, when lo is given, the bf16
 // rounding of the residual w - hi (bf16 and int8 storage).
 __global__ void prep_w1(const float* __restrict__ w1, __nv_bfloat16* __restrict__ hi,
-                        __nv_bfloat16* __restrict__ lo, int n) {
+                        __nv_bfloat16* __restrict__ lo, int hid, int D, int ld, int n) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const float w = w1[i];
+    const float w = w1_at(w1, i, hid, D, ld);
     const __nv_bfloat16 h = __float2bfloat16(w);
     hi[i] = h;
     if (lo != nullptr) lo[i] = __float2bfloat16(w - __bfloat162float(h));
 }
 
-// W1 [n = hid * D] to bf16 in w1_bf16 and, when split, the residual's bf16
-// rounding n entries on.
-inline cudaError_t launch_prep_w1(const float* w1, __nv_bfloat16* w1_bf16, bool split, int n,
-                                  cudaStream_t stream) {
+// W1 [hid, D] to bf16 in w1_bf16 [rows, ld] and, when split, the residual's
+// bf16 rounding rows * ld entries on.
+inline cudaError_t launch_prep_w1(const float* w1, __nv_bfloat16* w1_bf16, bool split, int hid,
+                                  int D, int rows, int ld, cudaStream_t stream) {
+    const int n = rows * ld;
     prep_w1<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        w1, w1_bf16, split ? w1_bf16 + n : nullptr, n);
+        w1, w1_bf16, split ? w1_bf16 + n : nullptr, hid, D, ld, n);
     return cudaGetLastError();
+}
+
+// W1 [hid, D] f32 copied into out [rows, ld], zero-padded (f32 storage on
+// the general instances).
+__global__ void pad_w1(const float* __restrict__ w1, float* __restrict__ out, int hid, int D,
+                       int ld, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = w1_at(w1, i, hid, D, ld);
 }
 
 // ------------------------------------------------ W1's int8 split (int8 storage)
@@ -457,17 +476,15 @@ inline cudaError_t launch_prep_w1(const float* w1, __nv_bfloat16* w1_bf16, bool 
 constexpr int kAmaxBlocks = 64;  // partial maxima of |W1|
 
 // Partial maxima of |W1| [n]: block k of kAmaxBlocks writes the max over its
-// n / kAmaxBlocks entries to part[k].  A max is exact in any order.
+// ceil(n / kAmaxBlocks) entries (fewer or none at the end) to part[k].  A max
+// is exact in any order.
 __global__ void __launch_bounds__(kThreads) w1_absmax(const float* __restrict__ w1, int n,
                                                       float* __restrict__ part) {
-    const int per = n / kAmaxBlocks;
+    const int per = (n + kAmaxBlocks - 1) / kAmaxBlocks;
+    const int begin = blockIdx.x * per, end = min(n, begin + per);
     __shared__ float warp_m[kWarps];
-    const float4* src = reinterpret_cast<const float4*>(w1 + (size_t)blockIdx.x * per);
     float m = 0.f;
-    for (int i = threadIdx.x; i < per / 4; i += kThreads) {
-        const float4 v = src[i];
-        m = fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
-    }
+    for (int i = begin + threadIdx.x; i < end; i += kThreads) m = fmaxf(m, fabsf(w1[i]));
     m = warp_max(m);
     if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x >> 5] = m;
     __syncthreads();
@@ -480,14 +497,16 @@ __global__ void __launch_bounds__(kThreads) w1_absmax(const float* __restrict__ 
 // W1 split into int8 hi and lo as vlsa_tpu/ops/coattn.py::_mm_rows_i8 splits
 // it (and ops/abmil.py::split_w1_i8): s_w = max(max|W1|, 1e-30) * (1/127),
 // v = W1 * (1 / s_w), hi = round(v), lo = round((v - hi) * 254), ties to
-// even, each operation rounded on its own (no fused multiply-add).  Every
-// block takes the max of the partial maxima; block 0 writes s_w to
-// scale[0].  One thread an entry.
+// even, each operation rounded on its own (no fused multiply-add), laid out
+// [rows, ld] with zeros past hid and D (w1_at: their hi and lo are 0, and
+// they leave max|W1| as it is).  Every block takes the max of the partial
+// maxima; block 0 writes s_w to scale[0].  One thread an entry of n.
 __global__ void __launch_bounds__(kThreads) prep_w1_i8(const float* __restrict__ w1,
                                                        const float* __restrict__ part,
                                                        int8_t* __restrict__ hi,
                                                        int8_t* __restrict__ lo,
-                                                       float* __restrict__ scale) {
+                                                       float* __restrict__ scale, int hid, int D,
+                                                       int ld, int n) {
     static_assert(kAmaxBlocks == 64, "two partial maxima a lane");
     __shared__ float inv_s;
     if (threadIdx.x < 32) {
@@ -500,57 +519,73 @@ __global__ void __launch_bounds__(kThreads) prep_w1_i8(const float* __restrict__
     }
     __syncthreads();
     const int i = blockIdx.x * kThreads + threadIdx.x;
-    const float v = __fmul_rn(w1[i], inv_s);
+    if (i >= n) return;
+    const float v = __fmul_rn(w1_at(w1, i, hid, D, ld), inv_s);
     const float h = rintf(v);
     hi[i] = static_cast<int8_t>(h);
     lo[i] = static_cast<int8_t>(rintf(__fmul_rn(__fsub_rn(v, h), 254.f)));
 }
 
-// W1 [n = hid * D] f32 -> hi, lo int8 [n] each (hi, then lo at hi + n) and
-// scale [1 + kAmaxBlocks] f32: s_w, then the partial maxima.  n is a
-// multiple of kThreads and of 4 kAmaxBlocks (hid and D multiples of 64).
-inline cudaError_t launch_split_w1_i8(const float* w1, int n, int8_t* hi, float* scale,
-                                      cudaStream_t stream) {
-    w1_absmax<<<kAmaxBlocks, kThreads, 0, stream>>>(w1, n, scale + 1);
+// W1 [hid, D] f32 -> hi, lo int8 [rows, ld] each (hi, then lo at hi + rows *
+// ld) and scale [1 + kAmaxBlocks] f32: s_w, then the partial maxima.  Any
+// hid and D (the partial maxima and the split cover every entry).
+inline cudaError_t launch_split_w1_i8(const float* w1, int hid, int D, int rows, int ld,
+                                      int8_t* hi, float* scale, cudaStream_t stream) {
+    w1_absmax<<<kAmaxBlocks, kThreads, 0, stream>>>(w1, hid * D, scale + 1);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    prep_w1_i8<<<n / kThreads, kThreads, 0, stream>>>(w1, scale + 1, hi, hi + n, scale);
+    const int n = rows * ld;
+    prep_w1_i8<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(w1, scale + 1, hi, hi + n,
+                                                                        scale, hid, D, ld, n);
     return cudaGetLastError();
 }
 
 // ------------------------------------------------ any width: the general instances
 //
 // The instances above are built for D = 512, hid = 256 (kD, kHid) and keep
-// the x tile resident.  Every other width the pooling takes -- D a multiple
-// of 64 in [64, kGenMaxD], hid in {64, 128, 256, 512}
-// (ops/abmil.py::kernel_widths_ok) -- and bf16's precise mode go to the
-// general instances: tiles of kGenM = 64 patches, x never resident.  The
-// h product streams x's and W1's slices of kSB bytes a row through 2
-// cp.async stages, in passes of HP hid columns (hid = npass HP): the logit
-// is separable over hid, sum_j tanh(h_pre_j + b1_j) w2_j, so each pass
-// folds its columns into the row's logit before the next re-streams the
-// tile's x slices (from L2: the tile was just read).  8 warps, 2 x 4: warp
-// (wm, wn) owns rows [32 wm, +32) and columns [HP/4 wn, +HP/4), NT = HP/32
-// n8 tiles of m16n8 accumulators a thread.  The products (GOp):
+// the x tile resident.  Every other width the pooling takes -- any D in [1,
+// kGenMaxD] and hid in [1, kGenMaxHid] (ops/abmil.py::kernel_widths_ok) --
+// and bf16's precise mode go to the general instances: tiles of kGenM = 64
+// patches, x never resident.  W1 reaches them as a workspace laid out
+// [hid_p, ld] in the product's operand type, zero past hid and D (hid_p =
+// gen_hid_pad(hid), ld = gen_ld(D); f32 at a width that needs no padding
+// reads W1 itself): a padded column j has W1_j = 0, b1_j = 0 and w2_j = 0, so
+// it adds tanh(0) * 0 = 0 to a logit and its dz is 0, and int8's s_w =
+// max|W1| / 127 is that of W1.  The h product streams x's and W1's slices
+// of kSB bytes a row through 2 cp.async stages, in passes of HP hid columns
+// (hid_p = npass HP): the logit is separable over hid, sum_j tanh(h_pre_j +
+// b1_j) w2_j, so each pass folds its columns into the row's logit before the
+// next re-streams the tile's x slices (from L2: the tile was just read).  x's
+// rows (D values, not padded) end in a slice whose tail is zero-filled;
+// rows that are not 16-byte aligned (D * item not a multiple of 16) are
+// copied into the stages by plain loads of one value each (copy16).  8
+// warps, 2 x 4: warp (wm, wn) owns rows [32 wm, +32) and columns [HP/4 wn,
+// +HP/4), NT = HP/32 n8 tiles of m16n8 accumulators a thread.  The products
+// (GOp):
 //   kF32:   split TF32, mma.sync m16n8k8 (slice_3xtf32), slices of 32 columns;
 //   kBf16:  bf16 x by W1 rounded to bf16, mma.sync m16n8k16 by ldmatrix;
 //   kBf16P: precise mode (vlsa_tpu/ops/abmil.py:74-97): W1 as bf16 hi + lo,
 //           two products into one f32 accumulator;
 //   kI8:    raw int8 x by W1's int8 hi and lo (launch_split_w1_i8), mma.sync
-//           m16n8k32 into exact int32 P_hi and P_lo (|P| <= 2048 * 127^2 <
-//           2^31), then h_unit = s_w (P_hi + P_lo / 254), as
+//           m16n8k32 into exact int32 P_hi and P_lo (|P| <= kGenMaxD * 127^2
+//           < 2^31), then h_unit = s_w (P_hi + P_lo / 254), as
 //           ops/abmil.py::abmil_fwd_rounded; slices of 64 bytes, HP <= 128
 //           (two accumulators).
+// The widths are bounded by shared memory: a block holds b1, w2 and (the
+// backward) the column sums [4] of hid_p values and g's D, beside the
+// stages; at kGenMaxD and kGenMaxHid the largest instance (bf16 precise,
+// 256-column passes) takes 225,808 bytes of the card's 232,448
+// (abmil_bwd.cu checks it at compile time).
 constexpr int kGenM = 64;
-constexpr int kGenMaxD = 2048;
-constexpr int kGenMaxHid = 512;
+constexpr int kGenMaxD = 8192;
+constexpr int kGenMaxHid = 1024;
+constexpr int kSmemOptin = 232448;  // an H100 block's dynamic shared memory
 
 enum class GOp { kF32, kBf16, kBf16P, kI8 };
 
 // (D, hid) a width the kernels take (ops/abmil.py::kernel_widths_ok).
 inline bool widths_ok(int D, int hid) {
-    return D % 64 == 0 && D >= 64 && D <= kGenMaxD &&
-           (hid == 64 || hid == 128 || hid == 256 || hid == 512);
+    return D >= 1 && D <= kGenMaxD && hid >= 1 && hid <= kGenMaxHid;
 }
 
 // The D = 512, hid = 256 instances take a call (every storage at that width
@@ -565,10 +600,60 @@ inline GOp gen_op(int storage, bool precise) {
     return precise ? GOp::kBf16P : GOp::kBf16;
 }
 
-// The hid columns a pass of a general instance takes: all of hid up to 256
-// (128 for int8's two accumulators), else passes of that.
+// The general instances' W1 rows (hid padded to a multiple of 64) and row
+// length (D padded to a multiple of 64: every slice of W1 is whole).
+__host__ __device__ inline int gen_hid_pad(int hid) { return (hid + 63) / 64 * 64; }
+__host__ __device__ inline int gen_ld(int D) { return (D + 63) / 64 * 64; }
+
+// The widest pass (hid columns) of a general instance: f32 256; int8 128,
+// for its two accumulators; bf16 and its precise mode 64, as each mma's
+// products are added into the accumulators on their own (gen_h_product), in
+// registers that wider passes do not have.
+__host__ __device__ constexpr int gen_max_pass(GOp op) {
+    return op == GOp::kF32 ? 256 : (op == GOp::kI8 ? 128 : 64);
+}
+
+// The hid columns a pass of a general instance takes: the widest of 256,
+// 128, 64 up to the storage's gen_max_pass that divides hid_p.
 inline int gen_pass_cols(int storage, int hid) {
-    return hid <= 128 ? hid : (storage == kI8 ? 128 : 256);
+    const int hp = gen_hid_pad(hid), widest = gen_max_pass(gen_op(storage, false));
+    if (widest >= 256 && hp % 256 == 0) return 256;
+    return widest >= 128 && hp % 128 == 0 ? 128 : 64;
+}
+
+__host__ __device__ constexpr size_t round4(size_t n) { return (n + 3) / 4 * 4; }
+
+template <GOp OP> __host__ __device__ constexpr int item_of() {
+    return OP == GOp::kF32 ? 4 : (OP == GOp::kI8 ? 1 : 2);
+}
+
+// 16 bytes of a row that is not 16-byte aligned into shared memory: the
+// first nb (0..16) from src by plain loads of one ITEM-byte value each (src
+// aligned to ITEM; nothing read past nb), the rest zero.  (Aligned rows go
+// by cp.async: a chunk then lies wholly inside or past a row.)
+template <int ITEM>
+__device__ __forceinline__ void copy16(void* dst, const unsigned char* src, int nb) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};  // built by shifts: no byte addressing of registers
+#pragma unroll
+    for (int e = 0; e < 16; e += ITEM) {
+        if (e < nb) {
+            uint32_t v;
+            if constexpr (ITEM == 4) {
+                v = *reinterpret_cast<const uint32_t*>(src + e);
+            } else if constexpr (ITEM == 2) {
+                v = *reinterpret_cast<const uint16_t*>(src + e);
+            } else {
+                v = src[e];
+            }
+            w[e / 4] |= v << (8 * (e % 4));
+        }
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The bytes of a 16-byte chunk at byte `off` of a row of row_bytes: 0..16.
+__device__ __forceinline__ int chunk_bytes(int row_bytes, int off) {
+    return min(16, max(0, row_bytes - off));
 }
 
 template <GOp OP, int HP>
@@ -583,7 +668,7 @@ struct Gen {
     static constexpr size_t kX = (size_t)kGenM * kLd;  // the x rows of a stage
     static constexpr size_t kStage = round128(kX + (size_t)kParts * HP * kLd);
     static_assert(HP == 64 || HP == 128 || HP == 256, "a pass's columns");
-    static_assert(!I8 || HP <= 128, "int8 holds two accumulators");
+    static_assert(HP <= gen_max_pass(OP), "a pass at most the op's widest (gen_max_pass)");
 };
 
 // c += a . b on the int8 tensor cores (m16n8k32, s32 accumulation); the
@@ -598,7 +683,8 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two values of a row as floats (f32, bf16 or int8 storage).
+// Two values of a row as floats (f32, bf16 or int8 storage; p aligned to
+// two values).
 template <GOp OP>
 __device__ __forceinline__ float2 load_pair(const unsigned char* p) {
     if constexpr (OP == GOp::kF32) {
@@ -611,13 +697,67 @@ __device__ __forceinline__ float2 load_pair(const unsigned char* p) {
     }
 }
 
+// One value of a row as a float.
+template <GOp OP>
+__device__ __forceinline__ float load_one(const unsigned char* p) {
+    if constexpr (OP == GOp::kF32) {
+        return *reinterpret_cast<const float*>(p);
+    } else if constexpr (OP == GOp::kI8) {
+        return static_cast<float>(*reinterpret_cast<const int8_t*>(p));
+    } else {
+        return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+    }
+}
+
+// Values c and c + 1 (c even, c < D) of a row of D values; at an odd D (ODD)
+// the rows are not aligned to two values, so they come one at a time, and
+// value D (past the row) reads as 0.  The callers' loops take ODD as a
+// template argument, one copy of the loop each, so that the even one stays
+// as lean as before.
+template <GOp OP, bool ODD>
+__device__ __forceinline__ float2 load_pair_at(const unsigned char* row, int c, int D) {
+    constexpr int I = item_of<OP>();
+    if constexpr (!ODD) {
+        return load_pair<OP>(row + (size_t)c * I);
+    } else {
+        return make_float2(load_one<OP>(row + (size_t)c * I),
+                           c + 1 < D ? load_one<OP>(row + (size_t)(c + 1) * I) : 0.f);
+    }
+}
+
+// c += a . b with the 16 products summed from zero and added to c in f32
+// (add.f32, round to nearest), in one asm block so that the add follows its
+// mma and the temporaries die there.
+__device__ __forceinline__ void mma_bf16_add(float c[4], const uint32_t a[4], uint32_t b0,
+                                             uint32_t b1) {
+    asm volatile(
+        "{\n"
+        ".reg .f32 d0, d1, d2, d3, z;\n"
+        "mov.f32 z, 0f00000000;\n"
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{d0, d1, d2, d3}, {%4, %5, %6, %7}, {%8, %9}, {z, z, z, z};\n"
+        "add.f32 %0, %0, d0;\n"
+        "add.f32 %1, %1, d1;\n"
+        "add.f32 %2, %2, d2;\n"
+        "add.f32 %3, %3, d3;\n"
+        "}\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // acc = x[t0, t0 + 64) . W1[j0, j0 + HP)^T of one bag (xb: its rows of
-// row_bytes = D * item), see the note above; sw: int8's s_w.  On entry both
-// stages are free; on return too (a barrier ends it), with acc in registers.
+// row_bytes = D * item; w1h, w1l: W1's planes, rows of w_bytes = ld * item,
+// ld a multiple of 64), see the note above; sw: int8's s_w.  bf16 (and its
+// precise mode): each mma's 16 products start from zero and are added into
+// acc in f32, as the f32 plain version sums: the tensor cores' own
+// accumulation truncates, and one chain over D put the dz of bf16 dW1 3.5-5
+// times as often on the other side of a bf16 rounding as the plain version
+// (chip_smoke.py: abmil_bf16_dw1_witness).  On entry both stages are free;
+// on return too (a barrier ends it), with acc in registers.
 template <GOp OP, int HP>
 __device__ __forceinline__ void gen_h_product(float (&acc)[kMT][HP / 32][4],
                                               const unsigned char* __restrict__ xb, int t0,
-                                              int n_end, int row_bytes,
+                                              int n_end, int row_bytes, int w_bytes,
                                               const unsigned char* __restrict__ w1h,
                                               const unsigned char* __restrict__ w1l, int j0,
                                               float sw, unsigned char* stages) {
@@ -625,18 +765,28 @@ __device__ __forceinline__ void gen_h_product(float (&acc)[kMT][HP / 32][4],
     constexpr int NT = G::NT;
     constexpr int kC = G::kSB / 16;  // 16-byte chunks of a row a slice
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wm = warp & 1, wn = warp >> 1;
-    const int slices = row_bytes / G::kSB;
+    const int slices = (row_bytes + G::kSB - 1) / G::kSB;
+    const bool al = (row_bytes & 15) == 0;
     auto load = [&](int s, unsigned char* st) {
         const int c0 = s * G::kSB;
-        for (int i = threadIdx.x; i < kGenM * kC; i += kThreads) {
-            const int r = i / kC, c = 16 * (i % kC);
-            const bool ok = t0 + r < n_end;
-            cp_async16(st + r * G::kLd + c, ok ? xb + (size_t)(t0 + r) * row_bytes + c0 + c : xb,
-                       ok);
+        if (al) {  // a chunk lies wholly inside or past its row
+            for (int i = threadIdx.x; i < kGenM * kC; i += kThreads) {
+                const int r = i / kC, c = 16 * (i % kC);
+                const bool ok = t0 + r < n_end && c0 + c < row_bytes;
+                cp_async16(st + r * G::kLd + c,
+                           ok ? xb + (size_t)(t0 + r) * row_bytes + c0 + c : xb, ok);
+            }
+        } else {
+            for (int i = threadIdx.x; i < kGenM * kC; i += kThreads) {
+                const int r = i / kC, c = 16 * (i % kC);
+                const int nb = t0 + r < n_end ? chunk_bytes(row_bytes, c0 + c) : 0;
+                copy16<G::kItem>(st + r * G::kLd + c, xb + (size_t)(t0 + r) * row_bytes + c0 + c,
+                                 nb);
+            }
         }
         for (int i = threadIdx.x; i < HP * kC; i += kThreads) {
             const int j = i / kC, c = 16 * (i % kC);
-            const size_t off = (size_t)(j0 + j) * row_bytes + c0 + c;
+            const size_t off = (size_t)(j0 + j) * w_bytes + c0 + c;
             unsigned char* dst = st + G::kX + j * G::kLd + c;
             cp_async16(dst, w1h + off, true);
             if constexpr (G::kParts == 2) cp_async16(dst + HP * G::kLd, w1l + off, true);
@@ -692,8 +842,8 @@ __device__ __forceinline__ void gen_h_product(float (&acc)[kMT][HP / 32][4],
                                     mma_s8(pl[mt][2 * np + 1], a[mt], bw[2], bw[3]);
                                 }
                             } else {
-                                mma_bf16(acc[mt][2 * np], a[mt], bw[0], bw[1]);
-                                mma_bf16(acc[mt][2 * np + 1], a[mt], bw[2], bw[3]);
+                                mma_bf16_add(acc[mt][2 * np], a[mt], bw[0], bw[1]);
+                                mma_bf16_add(acc[mt][2 * np + 1], a[mt], bw[2], bw[3]);
                             }
                         }
                     }

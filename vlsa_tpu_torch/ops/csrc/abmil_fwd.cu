@@ -69,10 +69,11 @@
 //     registers: 8 warps of 32 rows x 64 hid columns, 64 accumulators a
 //     thread; tanh, the w2 dot and the quad and warp sums of the logit run
 //     on the fragments.  209 KB of shared memory: one block per SM.
-//   Both are built for D = 512, hid = 256.  Every other width (D a multiple
-//   of 64 up to 2048, hid in {64, 128, 256, 512}) and bf16 in vlsa_tpu's
+//   Both are built for D = 512, hid = 256.  Every other width (any D up to
+//   kGenMaxD = 8192, any hid up to kGenMaxHid = 1024) and bf16 in vlsa_tpu's
 //   precise mode (W1 as bf16 hi + lo) run abmil_fwd_general: tiles of 64
-//   patches on mma.sync, x streamed (see the note above that kernel).
+//   patches on mma.sync, x streamed, W1 from a workspace padded to whole
+//   passes and slices (see the note above that kernel).
 //
 // Design.  The TPU grid walks N in order and carries (m, l, acc) in VMEM.
 // Hopper runs blocks in parallel, so each bag's patches are split over S
@@ -645,10 +646,11 @@ cudaError_t launch_partial(const void* x, const float* x_scale, const uint8_t* m
     cudaError_t err;
     if constexpr (sizeof(T) == 1) {
         int8_t* hi = static_cast<int8_t*>(w1_ws);
-        err = launch_split_w1_i8(w1, kW, hi, w1_scale, stream);
+        err = launch_split_w1_i8(w1, kHid, kD, kHid, kD, hi, w1_scale, stream);
         w1l = hi + kW;
     } else {
-        err = launch_prep_w1(w1, static_cast<__nv_bfloat16*>(w1_ws), false, kW, stream);
+        err = launch_prep_w1(w1, static_cast<__nv_bfloat16*>(w1_ws), false, kHid, kD, kHid, kD,
+                             stream);
     }
     if (err != cudaSuccess) return err;
     auto kernel = abmil_fwd_partial<T>;
@@ -682,45 +684,95 @@ cudaError_t launch_partial_f32(const float* x, const uint8_t* mask, const float*
 // general instances): tiles of kGenM = 64 patches, the h product in passes
 // of HP hid columns streaming x's and W1's slices (gen_h_product), each
 // pass folding its columns into the rows' logits; then the online softmax,
-// and the PV sum re-reading the tile's rows, L2-hot, by plain loads: each
-// thread holds the channel pairs 2 (tid + 256 i), i < kPvPairs, in
-// registers.  x is read from device memory once, from L2 npass + 1 times.
+// and the PV sum re-reading the tile's rows, L2-hot, by plain loads, in
+// blocks of kPvCols channels: each thread sums the channel pairs 2 (tid +
+// 256 i), i < kPvPairs, of a block in registers and folds them into the
+// block's running sums in shared memory (pv [D], each entry owned by one
+// thread).  x is read from device memory once, from L2 npass + 1 times.
 
-// Shared memory: 2 stages, b1 and w2 [kGenMaxHid], the logits' partials
-// [4][kGenM], then logit, p, valid, s [kGenM] and 4 stats.
+// Shared memory: 2 stages, the logits' partials [4][kGenM], then logit, p,
+// valid, s [kGenM] and 4 stats; then, sized at run time, b1 and w2
+// [hid_p] (zero past hid) and pv [D].
 template <GOp OP, int HP>
 struct FwdSmemG {
     static constexpr size_t w = 0;
-    static constexpr size_t cols = 2 * Gen<OP, HP>::kStage;
-    static constexpr size_t red = cols + 2 * (size_t)kGenMaxHid * 4;
+    static constexpr size_t red = 2 * Gen<OP, HP>::kStage;
     static constexpr size_t rows = red + 4 * (size_t)kGenM * 4;
-    static constexpr size_t total = rows + (4 * (size_t)kGenM + 4) * 4;
+    static constexpr size_t vecs = rows + (4 * (size_t)kGenM + 4) * 4;
+    static constexpr size_t total(int D, int hid_p) {
+        return vecs + (2 * (size_t)hid_p + round4((size_t)D)) * 4;
+    }
 };
+static_assert(FwdSmemG<GOp::kF32, gen_max_pass(GOp::kF32)>::total(kGenMaxD, kGenMaxHid) <=
+                      kSmemOptin &&
+                  FwdSmemG<GOp::kBf16P, gen_max_pass(GOp::kBf16P)>::total(kGenMaxD,
+                                                                          kGenMaxHid) <=
+                      kSmemOptin,
+              "the general forward fits a block at kGenMaxD, kGenMaxHid");
 
-constexpr int kPvPairs = kGenMaxD / (2 * kThreads);  // 4
+constexpr int kPvPairs = 4;
+constexpr int kPvCols = 2 * kThreads * kPvPairs;  // 2048: channels a PV block
+
+// The PV sums of a tile's `rows` rows (x's from xt, weights p_s) folded into
+// this thread's channel pairs of pv_s, a block of kPvCols channels at a
+// time: pv = pv * corr + sum.  ODD: D is odd (load_pair_at).
+template <GOp OP, bool ODD>
+__device__ __forceinline__ void pv_tile(const unsigned char* __restrict__ xt, int rows,
+                                        int row_bytes, int D, const float* p_s, float corr,
+                                        float* pv_s) {
+    const int tid = threadIdx.x;
+#pragma unroll 1
+    for (int c0 = 0; c0 < D; c0 += kPvCols) {
+        float2 sum[kPvPairs];
+#pragma unroll
+        for (int i = 0; i < kPvPairs; ++i) sum[i] = make_float2(0.f, 0.f);
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r) {
+            const float p = p_s[r];
+            const unsigned char* xr = xt + (size_t)r * row_bytes;
+#pragma unroll
+            for (int i = 0; i < kPvPairs; ++i) {
+                const int c = c0 + 2 * (tid + kThreads * i);
+                if (c < D) {
+                    const float2 v = load_pair_at<OP, ODD>(xr, c, D);
+                    sum[i].x = fmaf(p, v.x, sum[i].x);
+                    sum[i].y = fmaf(p, v.y, sum[i].y);
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < kPvPairs; ++i) {
+            const int c = c0 + 2 * (tid + kThreads * i);
+            if (c < D) pv_s[c] = pv_s[c] * corr + sum[i].x;
+            if (c + 1 < D) pv_s[c + 1] = pv_s[c + 1] * corr + sum[i].y;
+        }
+    }
+}
 
 // The partial of block (split, b) at any width.  w1h, w1l: W1 as the product
-// takes it (f32: w1 itself; bf16: its bf16 rounding; precise: bf16 hi and
-// lo; int8: int8 hi and lo, s_w in w1_scale[0]).  Grid (S, B).
+// takes it, [hid_p, ld] (f32: its padded copy; bf16: its bf16
+// rounding; precise: bf16 hi and lo; int8: int8 hi and lo, s_w in
+// w1_scale[0]).  Grid (S, B).
 template <GOp OP, int HP>
 __global__ void __launch_bounds__(kThreads, 1)
 abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
                   const uint8_t* __restrict__ mask, const void* __restrict__ w1h,
                   const void* __restrict__ w1l, const float* __restrict__ w1_scale,
                   const float* __restrict__ b1, const float* __restrict__ w2, int N, int D,
-                  int hid, int chunk, int S, float* __restrict__ ws_m, float* __restrict__ ws_l,
-                  float* __restrict__ ws_acc) {
+                  int hid, int hid_p, int ld, int chunk, int S, float* __restrict__ ws_m,
+                  float* __restrict__ ws_l, float* __restrict__ ws_acc) {
     using G = Gen<OP, HP>;
     using L = FwdSmemG<OP, HP>;
     extern __shared__ __align__(128) unsigned char smem[];
-    float* b1s = reinterpret_cast<float*>(smem + L::cols);
-    float* w2s = b1s + kGenMaxHid;
     float* red = reinterpret_cast<float*>(smem + L::red);
     float* logit_s = reinterpret_cast<float*>(smem + L::rows);
     float* p_s = logit_s + kGenM;
     float* valid_s = p_s + kGenM;
     float* sc_s = valid_s + kGenM;  // int8: the rows' dequant scales
     float* stat_s = sc_s + kGenM;   // m, l, correction
+    float* b1s = reinterpret_cast<float*>(smem + L::vecs);
+    float* w2s = b1s + hid_p;
+    float* pv_s = w2s + hid_p;
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int split = blockIdx.x, b = blockIdx.y;
@@ -733,17 +785,23 @@ abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
     const uint8_t* mb = mask + (size_t)b * N;
     const float sw = G::I8 ? *w1_scale : 1.f;
 
-    for (int j = tid; j < hid; j += kThreads) {
-        b1s[j] = b1[j];
-        w2s[j] = w2[j];
+    for (int j = tid; j < hid_p; j += kThreads) {
+        b1s[j] = j < hid ? b1[j] : 0.f;
+        w2s[j] = j < hid ? w2[j] : 0.f;
+    }
+    // this thread's channels of pv: c, c + 1 for c = c0 + 2 (tid + kThreads i)
+    for (int c0 = 0; c0 < D; c0 += kPvCols) {
+#pragma unroll
+        for (int i = 0; i < kPvPairs; ++i) {
+            const int c = c0 + 2 * (tid + kThreads * i);
+            if (c < D) pv_s[c] = 0.f;
+            if (c + 1 < D) pv_s[c + 1] = 0.f;
+        }
     }
     if (tid == 0) {
         stat_s[0] = kNegInf;
         stat_s[1] = 0.f;
     }
-    float2 pv[kPvPairs];
-#pragma unroll
-    for (int i = 0; i < kPvPairs; ++i) pv[i] = make_float2(0.f, 0.f);
     float acc[kMT][G::NT][4];
 
 #pragma unroll 1
@@ -755,8 +813,9 @@ abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
             logit_s[tid] = 0.f;
         }
 #pragma unroll 1
-        for (int j0 = 0; j0 < hid; j0 += HP) {
-            gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, wh, wl, j0, sw, smem + L::w);
+        for (int j0 = 0; j0 < hid_p; j0 += HP) {
+            gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, ld * G::kItem, wh, wl, j0, sw,
+                                  smem + L::w);
             gen_tanh_logit<G::NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
             __syncthreads();
             if (tid < kGenM) {
@@ -796,31 +855,13 @@ abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
         }
         __syncthreads();
 
-        // PV over the tile's rows, re-read from L2
-        const float corr = stat_s[2];
+        // PV over the tile's rows, re-read from L2, a block of channels at a time
         const int rows = min(kGenM, n_end - t0);
         const unsigned char* xt = xb + (size_t)t0 * row_bytes;
-        float2 sum[kPvPairs];
-#pragma unroll
-        for (int i = 0; i < kPvPairs; ++i) sum[i] = make_float2(0.f, 0.f);
-#pragma unroll 4
-        for (int r = 0; r < rows; ++r) {
-            const float p = p_s[r];
-            const unsigned char* xr = xt + (size_t)r * row_bytes;
-#pragma unroll
-            for (int i = 0; i < kPvPairs; ++i) {
-                const int c = 2 * (tid + kThreads * i);
-                if (c < D) {
-                    const float2 v = load_pair<OP>(xr + (size_t)c * G::kItem);
-                    sum[i].x = fmaf(p, v.x, sum[i].x);
-                    sum[i].y = fmaf(p, v.y, sum[i].y);
-                }
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < kPvPairs; ++i) {
-            pv[i].x = pv[i].x * corr + sum[i].x;
-            pv[i].y = pv[i].y * corr + sum[i].y;
+        if (D & 1) {
+            pv_tile<OP, true>(xt, rows, row_bytes, D, p_s, stat_s[2], pv_s);
+        } else {
+            pv_tile<OP, false>(xt, rows, row_bytes, D, p_s, stat_s[2], pv_s);
         }
     }
     cp_async_wait<0>();
@@ -830,10 +871,13 @@ abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
         ws_m[part] = stat_s[0];
         ws_l[part] = stat_s[1];
     }
+    for (int c0 = 0; c0 < D; c0 += kPvCols) {
 #pragma unroll
-    for (int i = 0; i < kPvPairs; ++i) {
-        const int c = 2 * (tid + kThreads * i);
-        if (c < D) *reinterpret_cast<float2*>(ws_acc + part * D + c) = pv[i];
+        for (int i = 0; i < kPvPairs; ++i) {
+            const int c = c0 + 2 * (tid + kThreads * i);
+            if (c < D) ws_acc[part * D + c] = pv_s[c];
+            if (c + 1 < D) ws_acc[part * D + c + 1] = pv_s[c + 1];
+        }
     }
 }
 
@@ -844,12 +888,14 @@ cudaError_t launch_general_hp(const void* x, const float* x_scale, const uint8_t
                               int chunk, int S, float* ws_m, float* ws_l, float* ws_acc,
                               cudaStream_t stream) {
     auto kernel = abmil_fwd_general<OP, HP>;
-    const size_t smem = FwdSmemG<OP, HP>::total;
+    const int hid_p = gen_hid_pad(hid);
+    const size_t smem = FwdSmemG<OP, HP>::total(D, hid_p);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(S, B), kThreads, smem, stream>>>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2,
-                                                   N, D, hid, chunk, S, ws_m, ws_l, ws_acc);
+                                                   N, D, hid, hid_p, gen_ld(D), chunk, S, ws_m,
+                                                   ws_l, ws_acc);
     return cudaGetLastError();
 }
 
@@ -859,53 +905,67 @@ cudaError_t launch_general_op(int hp, const void* x, const float* x_scale, const
                               const float* b1, const float* w2, int B, int N, int D, int hid,
                               int chunk, int S, float* ws_m, float* ws_l, float* ws_acc,
                               cudaStream_t stream) {
-    if (hp == 64) {
-        return launch_general_hp<OP, 64>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2, B, N, D,
-                                         hid, chunk, S, ws_m, ws_l, ws_acc, stream);
-    }
-    if constexpr (OP != GOp::kI8) {
+    // hp is gen_pass_cols': at most gen_max_pass(OP), whose instances alone exist
+    if constexpr (gen_max_pass(OP) >= 256) {
         if (hp == 256) {
             return launch_general_hp<OP, 256>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2, B, N,
                                               D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
         }
     }
-    return launch_general_hp<OP, 128>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2, B, N, D,
-                                      hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+    if constexpr (gen_max_pass(OP) >= 128) {
+        if (hp == 128) {
+            return launch_general_hp<OP, 128>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2, B, N,
+                                              D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
+        }
+    }
+    return launch_general_hp<OP, 64>(x, x_scale, mask, w1h, w1l, w1_scale, b1, w2, B, N, D, hid,
+                                     chunk, S, ws_m, ws_l, ws_acc, stream);
 }
 
 template <GOp OP>
-size_t general_smem(int hp) {
-    if (hp == 64) return FwdSmemG<OP, 64>::total;
-    if constexpr (OP != GOp::kI8) {
-        if (hp == 256) return FwdSmemG<OP, 256>::total;
+size_t general_smem(int hp, int D, int hid) {
+    const int hid_p = gen_hid_pad(hid);
+    if constexpr (gen_max_pass(OP) >= 256) {
+        if (hp == 256) return FwdSmemG<OP, 256>::total(D, hid_p);
     }
-    return FwdSmemG<OP, 128>::total;
+    if constexpr (gen_max_pass(OP) >= 128) {
+        if (hp == 128) return FwdSmemG<OP, 128>::total(D, hid_p);
+    }
+    return FwdSmemG<OP, 64>::total(D, hid_p);
 }
 
-// W1 for the general instance (bf16: its rounding, precise: hi and lo, in
-// w1_ws; int8: hi and lo in w1_ws, s_w and the partial maxima in
-// w1_scale), then the partials.
+// W1 for the general instance, laid out [hid_p, ld] (bf16: its rounding,
+// precise: hi and lo, in w1_ws; int8: hi and lo in w1_ws, s_w and the
+// partial maxima in w1_scale; f32: its padded copy in w1_ws), then the
+// partials.
 cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* mask,
                            const float* w1, void* w1_ws, float* w1_scale, const float* b1,
                            const float* w2, int B, int N, int D, int hid, int chunk, int S,
                            int storage, bool precise, float* ws_m, float* ws_l, float* ws_acc,
                            cudaStream_t stream) {
-    const int n = hid * D;
+    const int hid_p = gen_hid_pad(hid), ld = gen_ld(D);
+    const int n = hid_p * ld;
     const int hp = gen_pass_cols(storage, hid);
     cudaError_t err = cudaSuccess;
     const GOp op = gen_op(storage, precise);
     if (op == GOp::kI8) {
         int8_t* hi = static_cast<int8_t*>(w1_ws);
-        if ((err = launch_split_w1_i8(w1, n, hi, w1_scale, stream)) != cudaSuccess) return err;
+        err = launch_split_w1_i8(w1, hid, D, hid_p, ld, hi, w1_scale, stream);
+        if (err != cudaSuccess) return err;
         return launch_general_op<GOp::kI8>(hp, x, x_scale, mask, hi, hi + n, w1_scale, b1, w2, B,
                                            N, D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
     }
     if (op == GOp::kF32) {
-        return launch_general_op<GOp::kF32>(hp, x, nullptr, mask, w1, nullptr, nullptr, b1, w2,
+        float* wf = static_cast<float*>(w1_ws);
+        pad_w1<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(w1, wf, hid, D, ld, n);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        return launch_general_op<GOp::kF32>(hp, x, nullptr, mask, wf, nullptr, nullptr, b1, w2,
                                             B, N, D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
     }
     __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(w1_ws);
-    if ((err = launch_prep_w1(w1, wb, precise, n, stream)) != cudaSuccess) return err;
+    if ((err = launch_prep_w1(w1, wb, precise, hid, D, hid_p, ld, stream)) != cudaSuccess) {
+        return err;
+    }
     if (precise) {
         return launch_general_op<GOp::kBf16P>(hp, x, nullptr, mask, wb, wb + n, nullptr, b1, w2,
                                               B, N, D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);
@@ -927,18 +987,21 @@ size_t abmil_fwd_smem_bytes(int storage, int D, int hid, int precise) {
     }
     const int hp = gen_pass_cols(storage, hid);
     switch (gen_op(storage, precise != 0)) {
-        case GOp::kF32: return general_smem<GOp::kF32>(hp);
-        case GOp::kBf16: return general_smem<GOp::kBf16>(hp);
-        case GOp::kBf16P: return general_smem<GOp::kBf16P>(hp);
-        default: return general_smem<GOp::kI8>(hp);
+        case GOp::kF32: return general_smem<GOp::kF32>(hp, D, hid);
+        case GOp::kBf16: return general_smem<GOp::kBf16>(hp, D, hid);
+        case GOp::kBf16P: return general_smem<GOp::kBf16P>(hp, D, hid);
+        default: return general_smem<GOp::kI8>(hp, D, hid);
     }
 }
 
 // x [B, N, D] (storage: 0 f32, 1 bf16, 2 int8); x_scale [B, N] f32 for int8,
 // else null; mask [B, N] bool; w1 [hid, D], b1 and w2 [hid] f32; precise:
 // bf16's precise mode (W1 as bf16 hi + lo).  Workspace: w1_ws W1 for the
-// kernel, null (f32), [hid, D] bf16 (bf16), [2, hid, D] bf16 (bf16 precise,
-// hi and lo) or [2, hid, D] int8 (int8: hi, lo); w1_scale f32 [65] (int8: s_w
+// kernel, laid out [hid_p, ld] on the general instances (gen_hid_pad,
+// gen_ld) and [hid, D] on the D = 512, hid = 256 ones: f32 null there, and
+// on the general instances its padded copy, f32 [hid_p, ld];
+// bf16 its bf16 rounding; bf16 precise [2, ...] bf16 (hi and lo); int8
+// [2, ...] int8 (hi, lo); w1_scale f32 [65] (int8: s_w
 // and 64 partial maxima of |W1|; else null); ws_m and ws_l [B, S], ws_acc
 // [B, S, D] f32.  Outputs: out [B, D], m and l [B] f32.  All on CUDA device
 // `device`; the kernels go to `stream`.  Returns the launches' cudaError_t
@@ -947,8 +1010,10 @@ int abmil_fwd(const void* x, const void* x_scale, const void* mask, const void* 
               const void* b1, const void* w2, int B, int N, int D, int hid, int chunk, int S,
               int storage, int precise, int device, void* w1_ws, void* w1_scale, void* ws_m,
               void* ws_l, void* ws_acc, void* out, void* m_out, void* l_out, void* stream) {
+    const bool special = special_widths(storage, D, hid, precise != 0);
+    const bool needs_ws = storage != kF32 || !special;
     if (B < 1 || N < 1 || S < 1 || chunk < 1 || !widths_ok(D, hid)
-        || (storage != kF32) != (w1_ws != nullptr)
+        || needs_ws != (w1_ws != nullptr)
         || (storage == kI8) != (w1_scale != nullptr)
         || (storage == kI8) != (x_scale != nullptr)) {
         return (int)cudaErrorInvalidValue;
@@ -966,7 +1031,7 @@ int abmil_fwd(const void* x, const void* x_scale, const void* mask, const void* 
     float* wl = static_cast<float*>(ws_l);
     float* wa = static_cast<float*>(ws_acc);
     if (storage != kF32 && storage != kBF16 && storage != kI8) return (int)cudaErrorInvalidValue;
-    if (!special_widths(storage, D, hid, precise != 0)) {
+    if (!special) {
         err = launch_general(x, xs, mk, w1f, w1_ws, wsc, b1f, w2f, B, N, D, hid, chunk, S,
                              storage, precise != 0 && storage == kBF16, wm, wl, wa, st);
     } else if (storage == kF32) {

@@ -31,6 +31,7 @@ import functools
 import torch
 
 from .coattn import _device_index, _ptr
+from .flags import kernels_disabled
 
 HD_KERNEL = 64  # the head dimension the kernels are built for (CONCH, CLIP ViT-B)
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
@@ -180,11 +181,13 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(hd)) v over [B, H, L, hd] -> f32 [B, H, L, hd].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel for
-    every L (the JAX rule "TPU and L >= 256" is a TPU speed heuristic, not
-    semantics) and raise for what it does not take (hd != 64, mixed types)."""
-    if q.device.type == "cpu":
-        return flash_self_attention_reference(q, k, v)
-    if q.device.type != "cuda":
+    CPU tensors take the plain version, as CUDA tensors do, on the card,
+    inside `ops.flags.disable_kernels()`; otherwise CUDA tensors launch the
+    kernel for every L (the JAX rule "TPU and L >= 256" is a TPU speed
+    heuristic, not semantics) and raise for what it does not take (hd != 64,
+    mixed types)."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_self_attention runs on cpu or cuda, not {q.device}")
+    if q.device.type == "cpu" or kernels_disabled():
+        return flash_self_attention_reference(q, k, v)
     return flash_attn_fwd(q, k, v)

@@ -10,8 +10,11 @@
     optimizer state and no update.
 
 The learning rate lives in each optimizer's `param_groups`, where a
-scheduler can change it.  nadam, radam, adadelta, adafactor, novograd,
-rmsprop, adamp, sgdp, adahessian and lookahead are not ported yet.
+scheduler can change it.  Every name of vlsa_tpu's factory is built: the
+rest of them (nadam, radam, adadelta, adafactor, novograd / nvnovograd,
+rmsprop / rmsproptf, adamp, sgdp, adahessian) by `optim.extra`, each
+following vlsa_tpu's optax chain; `lookahead_<name>` wraps any of them but
+adahessian in `extra.Lookahead` (k=6, alpha=0.5).
 """
 from __future__ import annotations
 
@@ -20,7 +23,11 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 from torch import nn
 
-OPTIMIZERS = ("adam", "adamw", "sgd", "nesterov", "momentum")
+from . import extra
+
+OPTIMIZERS = ("adam", "adamw", "sgd", "nesterov", "momentum", "nadam", "radam", "adadelta",
+              "adafactor", "novograd", "nvnovograd", "rmsprop", "rmsproptf", "adamp", "sgdp",
+              "adahessian")
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -55,21 +62,49 @@ def _param_groups(model: nn.Module, weight_decay: float) -> List[dict]:
     return [g for g in groups if g["params"]]
 
 
-def create_optimizer(opt_name: str, lr: float, weight_decay: float, model: nn.Module,
-                     **kws) -> torch.optim.Optimizer:
-    """The optimizer over `model`'s trainable parameters (call
-    `frozen_mask_from_cfg` first to freeze some)."""
-    name = opt_name.lower()
-    if name not in OPTIMIZERS:
-        raise NotImplementedError(f"optimizer {opt_name!r}: this port has {OPTIMIZERS}")
-    wd = weight_decay or 0.0
+def _base_optimizer(name: str, lr: float, groups: List[dict], **kws) -> torch.optim.Optimizer:
     eps = kws.get("opt_eps") or 1e-8
     betas = tuple(kws.get("opt_betas") or (0.9, 0.999))
     momentum = kws.get("momentum") or 0.9
-    groups = _param_groups(model, wd)
     if name == "adam":
         return torch.optim.Adam(groups, lr=lr, betas=betas, eps=eps)
     if name == "adamw":
         return torch.optim.AdamW(groups, lr=lr, betas=betas, eps=eps)
-    return torch.optim.SGD(groups, lr=lr, momentum=momentum,
-                           nesterov=name in ("sgd", "nesterov"))
+    if name in ("sgd", "nesterov", "momentum"):
+        return torch.optim.SGD(groups, lr=lr, momentum=momentum,
+                               nesterov=name in ("sgd", "nesterov"))
+    if name == "nadam":
+        return extra.Nadam(groups, lr, betas=betas, eps=eps)
+    if name == "radam":
+        return extra.RAdam(groups, lr, betas=betas, eps=eps)
+    if name == "adadelta":
+        return extra.Adadelta(groups, lr)
+    if name == "adafactor":
+        return extra.Adafactor(groups, lr)
+    if name in ("novograd", "nvnovograd"):
+        return extra.NovoGrad(groups, lr, betas=betas, eps=eps)
+    if name in ("rmsprop", "rmsproptf"):
+        return extra.RMSprop(groups, lr, eps=eps, momentum=momentum)
+    if name == "adamp":
+        return extra.AdamP(groups, lr, betas=betas, eps=eps)
+    if name == "sgdp":
+        return extra.SGDP(groups, lr, momentum=momentum, eps=eps)
+    return extra.Adahessian(groups, lr, betas=betas, eps=eps)
+
+
+def create_optimizer(opt_name: str, lr: float, weight_decay: float, model: nn.Module,
+                     **kws) -> torch.optim.Optimizer:
+    """The optimizer over `model`'s trainable parameters (call
+    `frozen_mask_from_cfg` first to freeze some): one of OPTIMIZERS, or
+    `lookahead_<one of them>` (adahessian excepted, as in vlsa_tpu)."""
+    name = opt_name.lower()
+    parts = name.split("_")
+    lookahead = len(parts) > 1 and parts[0] == "lookahead"
+    base = "_".join(parts[1:]) if lookahead else name
+    if base not in OPTIMIZERS:
+        raise NotImplementedError(f"optimizer {opt_name!r}: vlsa_tpu's factory has {OPTIMIZERS} "
+                                  "and lookahead_<one of them>")
+    opt = _base_optimizer(base, lr, _param_groups(model, weight_decay or 0.0), **kws)
+    if lookahead:
+        opt = extra.Lookahead(opt)
+    return opt

@@ -30,6 +30,8 @@ from torch import nn
 
 from ..data.quant import Bag, pad_request
 from ..ops.coattn import dequantize_feats
+from ..ops.flags import disable_kernels
+from ..optim.extra import hutchinson_hessian_diag
 
 
 def feats_inputs(model: nn.Module, batch: dict) -> Tuple[torch.Tensor, dict]:
@@ -96,16 +98,35 @@ class TrainEngine:
     into that many micro-batches, one forward and backward each; each
     micro-batch's loss and gradient are weighted by its count of valid bags,
     which reproduces the whole batch's loss and gradient for per-bag-mean
-    objectives, a ragged tail batch included."""
+    objectives, a ragged tail batch included.
+
+    `needs_hessian` (adahessian, vlsa_tpu/runner/engine.py:188-216): each
+    step also estimates the Hessian diagonal (`optim.extra.
+    hutchinson_hessian_diag`, one forward, the gradient with create_graph
+    and H z from it, with z Rademacher from the engine's generator on the
+    device, seeded by `hessian_seed`, or as `train_step` is given it) and
+    hands it to the optimizer's `step(hessian=)`.  The kernels have no
+    second derivative, so that whole step runs inside
+    `ops.flags.disable_kernels()`: the plain versions, on the card; every
+    other call (evaluation, serving) keeps the kernels.  With accum_steps > 1
+    it raises, as vlsa_tpu asserts."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-                 objective: Callable, accum_steps: int = 1):
+                 objective: Callable, accum_steps: int = 1, needs_hessian: bool = False,
+                 hessian_seed: int = 0):
+        if needs_hessian and accum_steps > 1:
+            raise ValueError("adahessian with accum_steps > 1 is not supported (nor in "
+                             "vlsa_tpu)")
         self.model = model
         self.optimizer = optimizer
         self.objective = objective
         self.accum_steps = accum_steps
+        self.needs_hessian = needs_hessian
         self.uses_vl = getattr(model, "uses_vl", False)
         self.device = _device(model)
+        self._hessian_gen = None
+        if needs_hessian:
+            self._hessian_gen = torch.Generator(device=self.device).manual_seed(hessian_seed)
 
     def loss(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """(loss, raw logits [B, K]) of one batch on the device."""
@@ -118,13 +139,43 @@ class TrainEngine:
         loss = self.objective(raw, batch["t"], batch["e"], batch["valid"].to(raw.dtype), **vl)
         return loss, raw
 
-    def train_step(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _trainable(self):
+        """(names, parameters) the optimizer updates, in its groups' order."""
+        names, params = [], []
+        for group in self.optimizer.param_groups:
+            names += group["names"]
+            params += group["params"]
+        return names, params
+
+    def hessian_step(self, batch: dict,
+                     hessian_z: Optional[Sequence[torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The adahessian update on a batch already on the device: gradients
+        and the Hessian diagonal's estimate from one forward on the plain
+        versions (z: `hessian_z`, one tensor a trainable parameter in the
+        optimizer's order, else drawn), then the optimizer's step."""
+        names, params = self._trainable()
+        with disable_kernels():
+            loss, raw = self.loss(batch)
+            grads, diag = hutchinson_hessian_diag(loss, params, names, z=hessian_z,
+                                                  generator=self._hessian_gen)
+        for p, g in zip(params, grads):
+            p.grad = g
+        self.optimizer.step(hessian=dict(zip(params, diag)))
+        return loss.detach(), raw.detach()
+
+    def train_step(self, batch: dict,
+                   hessian_z: Optional[Sequence[torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One update on `batch` (tensors on any device, moved here).
         Returns (loss, raw logits [B, K]), both detached and on the device,
-        with no host synchronisation."""
+        with no host synchronisation.  `hessian_z`: the adahessian step's z
+        (see `hessian_step`)."""
         self.model.train()
         batch = {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
         self.optimizer.zero_grad(set_to_none=True)
+        if self.needs_hessian:
+            return self.hessian_step(batch, hessian_z)
         accum = self.accum_steps
         if accum <= 1:
             loss, raw = self.loss(batch)

@@ -155,8 +155,10 @@ class Trainer:
         if any(p.requires_grad for p in self.model.parameters()):
             self.optimizer = create_optimizer(cfg["opt_name"], cfg["opt_lr"],
                                               cfg.get("opt_weight_decay", 0.0), self.model)
-            self.engine = TrainEngine(self.model, self.optimizer, objective,
-                                      accum_steps=cfg.get("accum_steps", 1))
+            self.engine = TrainEngine(
+                self.model, self.optimizer, objective, accum_steps=cfg.get("accum_steps", 1),
+                needs_hessian=cfg["opt_name"].lower() == "adahessian",
+                hessian_seed=cfg.get("seed") or 0)
 
     def batches(self) -> Iterator[dict]:
         """Training batches, epoch after epoch."""
