@@ -155,8 +155,8 @@ non-zero and prints no result:
      full CONCH width, bf16 storage, random weights from the seed) through
      `VLSAHandler(cfg).exec()` for 1 epoch (cut from 10; 2 until phase 3i
      came), then
-     cfg_sa_base_conch.yaml (f32 storage, bags of N~4096: half
-     the flagship's, for the script's time) through `SAHandler` for 1, on
+     cfg_sa_base_conch.yaml (f32 storage, bags of N~1024, for the script's
+     time) through `SAHandler` for 1, on
      the 298 training and 75 test patients, save_path in a temporary
      directory, every launch counter from 0 just before: each epoch trains
      and evaluates the test split, then the last checkpoint is loaded and
@@ -176,8 +176,9 @@ non-zero and prints no result:
      spent building them (`prefetch: 2`, as shipped), and each evaluation
      pass's time, beside the card's name and power limit;
   3h. the run lifecycle from feature stores: checks the free disk, writes
-     fold 0's 437 slides (the bags of phase 3g) as a .npy f32 store (7.3
-     GB, 8 threads) in a temporary directory and converts it to .q8npz with
+     fold 0's 437 slides (bags of N~8192, the shipped length) as a .npy f32
+     store (7.3 GB, 8 threads) in a temporary directory and converts it to
+     .q8npz with
      `python -m vlsa_tpu_torch.data.convert --dtype int8`, printing sizes
      and seconds; holds one batch of 32 test patients of each store
      (.npy in f32 and bf16, .q8npz in int8 with 1/||x||), built by the native
@@ -273,7 +274,23 @@ non-zero and prints no result:
      (outside the switch) raises;
      and 1 epoch of the flagship with `opt_name: adahessian` from phase 3h's
      bf16 .npy store through `vlsa_tpu_torch.main` with 3h's checks (the
-     evaluation passes alone launch); the stores are then removed;
+     evaluation passes alone launch);
+  3o. the rest of the MIL zoo, while phase 3h's stores are there: cluster
+     files (8 clusters a patient) and each slide's 8-neighbour grid graph
+     written beside the .npy store (one graph also as a stub
+     torch_geometric .pt through `convert --graphs`, the same edges);
+     TransMIL and ILRA (patch bags), DeepAttnMISL (cluster bags) and
+     PatchGCN (graph bags) at net_dims 512-256-12, each 1 epoch through
+     `vlsa_tpu_torch.main` (buckets up to 16,384, longer patients
+     truncated), no kernel launched, finite metrics, the reloaded
+     checkpoint's test probabilities bit for bit, then a served request and
+     a step on 3 bags card against CPU f32 within 2e-3 (loss and each
+     gradient); the epoch's seconds, slides/s, peak device memory and peak
+     resident set, PatchGCN's edges, and PatchGCN's peak device memory in a
+     step on a grid graph and with half its edges sent into 16 nodes (held
+     within 1.05x); then the full-width flagship with
+     TransMIL and ILRA image encoders, a request served and an Adam step
+     from the store; the stores are then removed;
   3k. the SA baseline at 1024-d features: fold 0's 437 slides as bags of
      N~4096 jittered at D=1024 (buckets up to 16,384) written as a .npy f32
      store, as phase 3h; cfg_sa_base_conch.yaml at net_dims 1024-256-12 for
@@ -290,7 +307,10 @@ non-zero and prints no result:
   3m. the SA baseline at 2560-d features (Virchow, Virchow2): as 3k at
      net_dims 2560-256-12, bags of N~2048 jittered (cut from 3k's N~4096),
      a .npy f32 store and its .q8npz conversion, one epoch from each (f32,
-     int8) through `main` with 3k's checks, then one Adam step with
+     int8) through `main` with 3k's checks (3k and 3m also hold the batch
+     pool's page-locked peak to at most prefetch + 2 times the run's
+     largest batch, and print it beside the resident set), then one Adam
+     step with
      `deepmil_use_feat_proj: True` from the f32 store (the general backward
      with dX at 2560) with its gradients against the plain path; the stores'
      bytes and each run's host memory peak are printed; the stores are
@@ -609,10 +629,12 @@ LIFECYCLE_VLSA_CFG = dict(TRAIN_CFG, **LIFECYCLE_RUN, evaluator="VL-IF",
 LIFECYCLE_SA_CFG = dict(SA_CFG, **LIFECYCLE_RUN, epochs=1)
 LIFECYCLE_REDUCED = {"vlsa": {"epochs": "10 -> 1"},
                      "sa": {"epochs": "10 -> 1",
-                            "bag N": "~8192 -> ~4096 (for the script's time: phase "
-                                     "3h's SA runs read N~8192 from the store)"}}
-# phase 3g's SA run draws its synthetic bags at half the flagship's length
-LIFECYCLE_SA_BAGS = "synthetic://N=4096,D=512,seed=7"
+                            "bag N": "~8192 -> ~1024 (for the script's time: ~4096 until "
+                                     "phase 3o came; phase 3h's SA runs read N~8192 from "
+                                     "the store)"}}
+# phase 3g's SA run draws its synthetic bags at an eighth of the flagship's
+# length, which phase 3h's store keeps
+LIFECYCLE_SA_BAGS = "synthetic://N=1024,D=512,seed=7"
 # the metrics each epoch's and the final evaluation must give, finite
 LIFECYCLE_METRICS = ("c_index", "loss", "loss_mle", "IBS", "MAE", "D_calibration", "c_index2",
                      "loss_SurvIFMLE")
@@ -703,6 +725,37 @@ TOL_HESSIAN = 1e-3
 HESSIAN_NOISE_FACTOR = 4
 ADAHESSIAN_RUN = ("vlsa_adahessian_bf16_npy", LIFECYCLE_VLSA_CFG, "npy",
                   dict(feats_dtype="bfloat16", opt_name="adahessian"), "bf16")
+# phase 3o: the rest of the MIL zoo (the paper's SA baselines), each at
+# net_dims 512-256-K (K corrected to fold 0's 12 bins) 1 epoch from phase
+# 3h's .npy store (bags of N~8192, buckets up to 16,384: `max_bucket`, the
+# longer patients truncated, `bag_overflow: truncate`) through `main`:
+# TransMIL and ILRA on patch bags, DeepAttnMISL on cluster bags
+# (ZOO_CLUSTERS clusters a patient), PatchGCN on graph bags (each slide's
+# 8-neighbour grid); no kernel (torch ops, as vlsa_tpu's XLA ops); then a
+# served request and a step on ZOO_CPU_BAGS bags card against CPU f32
+# within TOL_GRAD, each leaf's gradient against max(its largest element,
+# ZOO_GRAD_FLOOR x the model's largest gradient); and the flagship with
+# TransMIL and ILRA encoders served and trained a step
+ZOO_CLUSTERS = 8
+ZOO_NETWORKS = (("TransMIL", "patch", {}), ("ILRA", "patch", {}),
+                ("DeepAttnMISL", "cluster", {"deepmil_num_clusters": ZOO_CLUSTERS}),
+                ("PatchGCN", "graph", {}))
+ZOO_CFG = dict(LIFECYCLE_SA_CFG, net_dims="512-256-4", max_bucket=16384,
+               bag_overflow="truncate")
+ZOO_CPU_BAGS = 3
+ZOO_GRAD_FLOOR = 1e-2
+ZOO_VLSA_ENCODERS = ("TransMIL", "ILRA")
+# PatchGCN's memory against the in-degree: a training step on ZOO_SKEW_BAGS
+# bags of the largest bucket, once on each bag's grid graph and once with
+# the same edges, half of them sent into ZOO_SKEW_HUBS nodes; the edge lists'
+# memory follows E, so the hub graph's peak stays within ZOO_SKEW_RATIO of
+# the grid's
+ZOO_SKEW_BAGS = 8
+ZOO_SKEW_HUBS = 16
+ZOO_SKEW_RATIO = 1.05
+ZOO_REDUCED = {"epochs": "10 -> 1",
+               "bag N": "patients past 16,384 patches (17 of fold 0's 373) truncated to "
+                        "16,384: TransMIL and PatchGCN at a bucket of 131,072 would not fit"}
 RSS_SAMPLE_S = 0.05  # the resident set's sampling period within a run
 # the share of the host's memory (MemTotal) a run of phases 3k and 3m may
 # peak at: an f32 epoch of the SA at 2560-d peaked at 70.6 GiB (62 GiB of it
@@ -2485,7 +2538,9 @@ def phase_feat_proj_training(torch, co, device):
             kernel = "f32" if batch["feats"].dtype == torch.float32 else "bf16"
             exp_fwd[kernel] += 1
             exp_dx[kernel] += 1
-            last_batch[mode] = (host, with_inv)
+            # a copy: the batcher writes the batch's buffer again once the next
+            # batch is asked for
+            last_batch[mode] = ({k: v.clone() for k, v in host.items()}, with_inv)
             rec = {"mode": mode, "kernel": kernel, "loss": float(loss),
                    "bags": int(batch["valid"].sum()), "bucket": int(batch["mask"].shape[1]),
                    "patches": int(batch["mask"].sum()), "prep_ms": 1e3 * (t_mid - t),
@@ -2729,10 +2784,15 @@ class HostMemoryWindow:
     `RSS_SAMPLE_S` by a thread; None off Linux), and torch's page-locked
     pool: the peak bytes of its blocks (active and cached, each a power of
     two), the blocks it asked CUDA for and the seconds that took (None where
-    this torch has no host statistics)."""
+    this torch has no host statistics); and the batches' page-locked pool
+    (`data.pipeline.PINNED_POOL`): its peak bytes, the largest batch built
+    in it, the buffers it allocated and the seconds that took."""
 
     def __init__(self, torch):
         import threading
+        from vlsa_tpu_torch.data.pipeline import PINNED_POOL
+        self.pool = PINNED_POOL
+        self.pool.reset_peak()
         self.start = self.peak = _proc_status_bytes("VmRSS")
         self.done = threading.Event()
         self.sampler = threading.Thread(target=self._sample, daemon=True)
@@ -2755,7 +2815,11 @@ class HostMemoryWindow:
             self.sampler.join()
             self.peak = max(self.peak, _proc_status_bytes("VmRSS") or 0)
         out = {"rss_start_bytes": self.start, "rss_peak_bytes": self.peak,
-               "rss_rise_bytes": None if self.start is None else self.peak - self.start}
+               "rss_rise_bytes": None if self.start is None else self.peak - self.start,
+               "batch_pool_peak_bytes": self.pool.peak_bytes,
+               "batch_pool_largest_batch_bytes": self.pool.largest,
+               "batch_pool_buffers_made": self.pool.buffers_made,
+               "batch_pool_buffers_s": self.pool.buffers_s}
         if self.stats is not None:
             after = self.stats()
             out.update(pinned_peak_bytes=after.get("allocated_bytes.peak"),
@@ -2772,8 +2836,13 @@ def describe_host_memory(m: dict) -> str:
             f"{gib(m['rss_peak_bytes'])} within the run ({gib(m['rss_rise_bytes'])} above "
             f"its start)")
     if "pinned_peak_bytes" in m:
-        text += (f"; page-locked pool peak {gib(m['pinned_peak_bytes'])}, "
-                 f"{m['pinned_blocks_made']} blocks made in {m['pinned_alloc_s']:.2f} s")
+        text += (f"; torch's page-locked blocks peak {gib(m['pinned_peak_bytes'])}, "
+                 f"{m['pinned_blocks_made']} made in {m['pinned_alloc_s']:.2f} s")
+    if "batch_pool_peak_bytes" in m:
+        text += (f"; the batch pool peak {gib(m['batch_pool_peak_bytes'])} (largest batch "
+                 f"{gib(m['batch_pool_largest_batch_bytes'])}), "
+                 f"{m['batch_pool_buffers_made']} buffers made in "
+                 f"{m['batch_pool_buffers_s']:.2f} s")
     return text
 
 
@@ -3268,6 +3337,13 @@ def sa_wide_runs(torch, ab, co, device, card, tmp, bags, slide_bytes, runs, net_
             check(peak <= HOST_RSS_SHARE * total,
                   f"{spec[0]}: the host's resident set peaked at {peak / 2**30:.1f} GiB, "
                   f"above {HOST_RSS_SHARE} of its {total / 2**30:.1f} GiB")
+        hm = run["host_memory"]
+        slots = run["config"].get("prefetch", 2) + 2
+        bound = slots * hm["batch_pool_largest_batch_bytes"]
+        log(f"{spec[0]}: the batch pool peaked at {hm['batch_pool_peak_bytes']} bytes, bound "
+            f"{slots} x the largest batch = {bound}")
+        check(0 < hm["batch_pool_peak_bytes"] <= bound,
+              f"{spec[0]}: the batch pool's {hm['batch_pool_peak_bytes']} bytes pass {bound}")
         run["reduced"] = dict(run["reduced"], **reduced)
         out[spec[0]] = run
     rec = {"stores": {k: {"bytes": v[1], "seconds": v[2]} for k, v in stores.items()},
@@ -3366,10 +3442,10 @@ def eval_loss(model, objective, batch):
     """The training objective of `batch` with the model in eval mode (no
     dropout draw: the card's and the CPU's generators differ), as
     `TrainEngine.loss` forms it otherwise."""
-    from vlsa_tpu_torch.runner.engine import feats_inputs
+    from vlsa_tpu_torch.runner.engine import feats_inputs, model_extras
 
     feats, kws = feats_inputs(model, batch)
-    out = model(feats, batch["mask"], **kws)
+    out = model(feats, batch["mask"], **kws, **model_extras(batch))
     raw = out[0] if isinstance(out, tuple) else out
     vl = {}
     if getattr(model, "uses_vl", False):
@@ -3635,6 +3711,315 @@ def phase_optimizers(torch, ab, co, device, card, tmp):
                            via_main=True)
     return rec
 
+
+
+# ---------------------------------------------------------------- phase 3o
+
+def write_zoo_aux(torch, tmp, npy_dir) -> dict:
+    """Beside phase 3h's .npy store in `tmp` (`npy_dir`): ZOO_CLUSTERS
+    cluster ids a patch for each of fold 0's patients (`clusters/<pid>.npy`)
+    and each slide's 8-neighbour grid graph (`graphs/<sid>.npz`, about 8N
+    edges); one graph also written as a torch_geometric pickle (stub
+    classes) and converted by `python -m vlsa_tpu_torch.data.convert
+    --graphs`, which must give the same edge list."""
+    import numpy as np
+    from vlsa_tpu_torch.data.convert import install_tg_unpickle_stubs
+    from vlsa_tpu_torch.data.io import grid_edge_index, synthetic_cluster_ids
+
+    meta, split, sids = fold0_slides()
+    pids = split["train"] + split["test"]
+    _found, pid2sids, _labels = meta.collect_info_by_pids(pids)
+    cdir, gdir = os.path.join(tmp, "clusters"), os.path.join(tmp, "graphs")
+    os.makedirs(cdir)
+    os.makedirs(gdir)
+    t0 = time.perf_counter()
+    lengths = {sid: np.load(os.path.join(npy_dir, sid + ".npy"), mmap_mode="r").shape[0]
+               for sid in sids}
+    edges = 0
+    for sid, n in lengths.items():
+        ei = grid_edge_index(n)
+        edges += ei.shape[1]
+        np.savez(os.path.join(gdir, sid + ".npz"), edge_index=ei)
+    for pid, ps in pid2sids.items():
+        n = sum(lengths[s] for s in ps)
+        np.save(os.path.join(cdir, f"{pid}.npy"), synthetic_cluster_ids(pid, n, ZOO_CLUSTERS))
+    write_s = time.perf_counter() - t0
+    # one slide's graph as the reference's torch_geometric .pt, through the CLI
+    install_tg_unpickle_stubs()
+    tgd = sys.modules["torch_geometric.data.data"]
+    sid = sids[0]
+    g = tgd.Data.__new__(tgd.Data)
+    g.__dict__.update({"edge_index": torch.from_numpy(grid_edge_index(lengths[sid]))})
+    ptdir, outdir = os.path.join(tmp, "graphs_pt"), os.path.join(tmp, "graphs_converted")
+    os.makedirs(ptdir)
+    torch.save(g, os.path.join(ptdir, sid + ".pt"))
+    proc = subprocess.run([sys.executable, "-m", "vlsa_tpu_torch.data.convert", "--graphs",
+                           "--src", ptdir, "--dst", outdir], cwd=ROOT, capture_output=True,
+                          text=True)
+    check(proc.returncode == 0, f"convert --graphs failed:\n{proc.stderr[-3000:]}")
+    converted = np.load(os.path.join(outdir, sid + ".npz"))["edge_index"]
+    check(np.array_equal(converted, np.load(os.path.join(gdir, sid + ".npz"))["edge_index"]),
+          "convert --graphs wrote another edge list than the slide's graph")
+    nbytes = {d: sum(os.path.getsize(os.path.join(p, f)) for f in os.listdir(p))
+              for d, p in (("clusters", cdir), ("graphs", gdir))}
+    log(f"zoo inputs: {len(pid2sids)} cluster files ({nbytes['clusters']} bytes), {len(sids)} "
+        f"slide graphs ({nbytes['graphs']} bytes, {edges} edges, {edges / sum(lengths.values()):.2f}"
+        f" a patch) written in {write_s:.1f} s; convert --graphs of a stub-tg .pt: the same edges")
+    return {"cluster_dir": cdir, "graph_dir": gdir, "edges": edges, "patches":
+            int(sum(lengths.values())), "bytes": nbytes, "write_s": write_s}
+
+
+def zoo_step_card_vs_cpu(torch, handler, device, what) -> dict:
+    """One training step's loss and parameter gradients on ZOO_CPU_BAGS bags
+    of the run's training set, the trained model on the card against the
+    same weights in f32 on the CPU, Dropout off (the devices' generators
+    differ; patients censored in the last bin left out of `valid`, as phase
+    3d): the loss within TOL_GRAD relative, each leaf's gradient within
+    TOL_GRAD of max(its largest element, ZOO_GRAD_FLOOR x the model's
+    largest gradient) -- a leaf the softmax makes zero (a score's constant
+    shift: the gated readout's fc2 bias, ILRA's key biases) is rounding
+    noise on both."""
+    from vlsa_tpu_torch.runner import sa
+    from vlsa_tpu_torch.runner.train import make_batcher
+
+    cfg = handler.cfg
+    batcher = make_batcher(handler.trainer.dataset, dict(cfg, bp_every_batch=ZOO_CPU_BAGS,
+                                                         prefetch=0), shuffle=False)
+    cpu_batch = batcher.make_batch(range(ZOO_CPU_BAGS))
+    K = handler.data_meta.num_bins
+    ill = cpu_batch["valid"] & (cpu_batch["e"] == 0) & (cpu_batch["t"] == K - 1)
+    cpu_batch = dict(cpu_batch, valid=cpu_batch["valid"] & ~ill)
+    objective = handler.engine.objective
+    out = {}
+    for dev, model in (("card", handler.model),
+                       ("cpu", sa.build_model(cfg, device="cpu", state_dict={
+                           k: v.detach().cpu() for k, v in handler.model.state_dict().items()}))):
+        batch = {k: v.to(dev if dev == "cpu" else device) for k, v in cpu_batch.items()}
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = eval_loss(model, objective, batch)
+        loss.backward()
+        if dev == "card":
+            torch.cuda.synchronize()
+        out[dev] = (float(loss), {n: p.grad.detach().float().cpu()
+                                  for n, p in model.named_parameters() if p.grad is not None},
+                    time.perf_counter() - t0)
+        model.zero_grad(set_to_none=True)
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
+    check(set(g_card) == set(g_cpu) and g_cpu, f"{what}: gradient leaves differ")
+    floor = ZOO_GRAD_FLOOR * max(float(g.abs().max()) for g in g_cpu.values())
+    devs = {n: float((g_card[n] - g_cpu[n]).abs().max() / max(float(g_cpu[n].abs().max()),
+                                                             floor)) for n in g_cpu}
+    worst = max(devs, key=devs.get)
+    loss_dev = abs(l_card - l_cpu) / max(abs(l_cpu), 1e-30)
+    log(f"{what}: a step on {int(cpu_batch['valid'].sum())} bags (bucket "
+        f"{cpu_batch['mask'].shape[1]}), card {s_card:.2f} s against CPU f32 {s_cpu:.2f} s: loss "
+        f"{l_card:.6f} vs {l_cpu:.6f} ({loss_dev:.2e}), worst gradient {worst} {devs[worst]:.2e} "
+        f"(tol {TOL_GRAD:g})")
+    check(loss_dev <= TOL_GRAD and devs[worst] <= TOL_GRAD,
+          f"{what}: card against CPU loss {loss_dev:.3e}, {worst} {devs[worst]:.3e}")
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "loss_dev": loss_dev, "grad_dev": devs,
+            "card_s": s_card, "cpu_s": s_cpu}
+
+
+def zoo_serve(torch, ab, co, handler, bags, what) -> dict:
+    """One request of BAGS_PER_REQUEST bags of `bags` (with the config's
+    synthetic cluster ids or grid graphs) served by the trained model, as
+    `python -m vlsa_tpu_torch.runner.serve` does: probabilities finite and
+    summing to 1, no kernel launched."""
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_aux, request_bags
+
+    engine = InferEngine(handler.model, feats_dtype="float32", precompute_inv=False)
+    req = request_bags(bags, 0, BAGS_PER_REQUEST)
+    launched = all_launches(ab, co)
+    t0 = time.perf_counter()
+    out = engine.predict(req, **request_aux(handler.cfg, 0, req))
+    ms = 1e3 * (time.perf_counter() - t0)
+    probs = out["probs"]
+    check(probs.shape == (BAGS_PER_REQUEST, handler.data_meta.num_bins)
+          and bool((abs(probs.sum(-1) - 1) <= 1e-5).all()),
+          f"{what}: served probabilities {probs.shape}")
+    check(all_launches(ab, co) == launched, f"{what}: the request launched a kernel")
+    log(f"{what}: a request of {BAGS_PER_REQUEST} bags {ms:.1f} ms (host prep included)")
+    return {"serve_ms": ms}
+
+
+def zoo_flagship(torch, ab, co, device, stores, encoder) -> dict:
+    """The full-width flagship (CONCH tower, width 768, 12 layers, bf16) with
+    `vlsa_img_encoder_name` `encoder`: one served request of
+    BAGS_PER_REQUEST bags, one Adam step on a batch of phase 3h's .npy store
+    in bf16 (buckets up to 16,384, as the zoo's runs); no kernel launched,
+    finite outputs, the encoder's parameters moved, the frozen tower not."""
+    import numpy as np
+    from vlsa_tpu_torch.config import serving_config, training_config
+    from vlsa_tpu_torch.models import mil_ext
+    from vlsa_tpu_torch.runner.train import Trainer
+    from vlsa_tpu_torch.runner.vlsa import build_model
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_bags
+
+    enc = dict(vlsa_img_encoder_name=encoder, vlsa_img_encoder_num_cls=512)
+    cfg = serving_config(dict(FLAGSHIP_CFG, **enc))
+    model = build_model(cfg, device=device)
+    check(isinstance(model.mil_encoder, getattr(mil_ext, encoder)),
+          f"flagship {encoder}: the encoder is {type(model.mil_encoder).__name__}")
+    engine = InferEngine(model, feats_dtype="bfloat16", precompute_inv=False)
+    engine.text_precompute()
+    ab.reset_launches()
+    co.reset_launches()
+    bags = request_bags(cfg["path_patch"], 0, BAGS_PER_REQUEST)
+    t0 = time.perf_counter()
+    out = engine.predict(bags)
+    serve_ms = 1e3 * (time.perf_counter() - t0)
+    check(bool(np.isfinite(out["probs"]).all())
+          and np.allclose(out["probs"].sum(-1), 1.0, atol=1e-5),
+          f"flagship {encoder}: served probabilities")
+    del model, engine
+    tcfg = training_config(dict(TRAIN_CFG, **enc, path_patch=stores["npy"][0],
+                                feat_format="npy", max_bucket=ZOO_CFG["max_bucket"],
+                                bag_overflow=ZOO_CFG["bag_overflow"]), fold=0)
+    trainer = Trainer(tcfg, device)
+    trainer.batcher.prefetch = 0
+    batch = trainer.batcher.make_batch(range(trainer.batcher.batch_size))
+    model = trainer.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, raw = trainer.engine.train_step(batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    check(only_launches(all_launches(ab, co)), f"flagship {encoder}: a kernel launched")
+    check(bool(np.isfinite(float(loss))) and bool(torch.isfinite(raw).all()),
+          f"flagship {encoder}: a non-finite loss")
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])}
+    tower = {n for n in before if n.startswith("prompt_encoder.")}
+    check(not (moved & tower) and any(n.startswith("mil_encoder.") for n in moved),
+          f"flagship {encoder}: moved {sorted(moved)[:8]}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"flagship VLSA with {encoder} (CONCH tower 768 x 12, bf16): a request of "
+        f"{BAGS_PER_REQUEST} bags {serve_ms:.1f} ms; an Adam step on {int(batch['valid'].sum())}"
+        f" bags (bucket {batch['mask'].shape[1]}) {step_ms:.1f} ms, loss {float(loss):.4f}, "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    return {"serve_ms": serve_ms, "step_ms": step_ms, "loss": float(loss),
+            "peak_device_bytes": peak}
+
+
+def zoo_skewed_degrees(torch, handler, device, what) -> dict:
+    """Peak device memory of one PatchGCN training step (forward and
+    backward of the objective, eval mode) on ZOO_SKEW_BAGS random bags of
+    ZOO_CFG's largest bucket, with each bag's 8-neighbour grid graph and
+    with the same edges, half of their destinations drawn among
+    ZOO_SKEW_HUBS nodes: {graph: peak bytes above the step's start, the
+    largest in-degree}.  Held: the hub graph's peak within ZOO_SKEW_RATIO
+    of the grid's."""
+    import numpy as np
+    from vlsa_tpu_torch.data.io import grid_edge_index
+
+    B, N = ZOO_SKEW_BAGS, ZOO_CFG["max_bucket"]
+    grid = grid_edge_index(N).astype(np.int32)
+    hubs = grid.copy()
+    half = grid.shape[1] // 2
+    hubs[1, :half] = np.random.default_rng(ZOO_SKEW_HUBS).integers(0, ZOO_SKEW_HUBS, half)
+    g = torch.Generator(device=device).manual_seed(ZOO_SKEW_HUBS)
+    feats = torch.randn(B, N, int(ZOO_CFG["net_dims"].split("-")[0]), generator=g,
+                        device=device)
+    labels = {"mask": torch.ones(B, N, dtype=torch.bool, device=device),
+              "t": torch.arange(B, device=device).float() % 4,
+              "e": torch.ones(B, device=device), "valid": torch.ones(B, dtype=torch.bool,
+                                                                       device=device)}
+    model, objective = handler.model, handler.engine.objective
+    model.eval()
+    out = {}
+    for kind, ei in (("grid", grid), ("hubs", hubs)):
+        batch = dict(labels, feats=feats,
+                     edge_index=torch.from_numpy(ei).to(device)[None].expand(B, -1, -1),
+                     edge_valid=torch.ones(B, ei.shape[1], dtype=torch.bool, device=device))
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        eval_loss(model, objective, batch).backward()
+        torch.cuda.synchronize()
+        out[kind] = {"peak_bytes": torch.cuda.max_memory_allocated() - start,
+                     "max_in_degree": int(np.bincount(ei[1]).max()), "edges": int(ei.shape[1])}
+        model.zero_grad(set_to_none=True)
+        del batch
+    ratio = out["hubs"]["peak_bytes"] / out["grid"]["peak_bytes"]
+    log(f"{what}: a training step on {B} bags of {N} nodes, {grid.shape[1]} edges a bag: peak "
+        f"device memory {out['grid']['peak_bytes'] / 2**30:.2f} GiB on the grid (largest "
+        f"in-degree {out['grid']['max_in_degree']}), {out['hubs']['peak_bytes'] / 2**30:.2f} "
+        f"GiB with half the edges into {ZOO_SKEW_HUBS} nodes (largest in-degree "
+        f"{out['hubs']['max_in_degree']}): {ratio:.3f}x")
+    check(ratio <= ZOO_SKEW_RATIO, f"{what}: skewed in-degrees take {ratio:.3f}x the memory")
+    return dict(out, ratio=ratio)
+
+
+def phase_zoo(torch, ab, co, device, card, tmp):
+    """Phase 3o: TransMIL, ILRA (patch bags from phase 3h's .npy store in
+    `tmp`), DeepAttnMISL (cluster bags) and PatchGCN (graph bags) at
+    net_dims 512-256-12, each 1 epoch through `python -m
+    vlsa_tpu_torch.main --handler SA` with every counter from 0 before (no
+    kernel launched, finite metrics, the reloaded checkpoint's test
+    probabilities bit for bit the in-memory model's), then a served request
+    and a step card against CPU; then the flagship with TransMIL and ILRA
+    encoders served and trained a step."""
+    import numpy as np
+
+    stores = {"npy": (os.path.join(tmp, "npy"),)}
+    aux = write_zoo_aux(torch, tmp, stores["npy"][0])
+    runs = {}
+    for network, mode, changes in ZOO_NETWORKS:
+        name = f"zoo_{network}_{mode}"
+        cfg = dict(ZOO_CFG, **changes, deepmil_network=network, data_mode=mode,
+                   path_cluster=aux["cluster_dir"], path_graph=aux["graph_dir"],
+                   path_patch=stores["npy"][0], feat_format="npy",
+                   save_path=os.path.join(tmp, name))
+        run = exec_handler(torch, ab, co, device, cfg, via_main=True)
+        handler = run["handler"]
+        check(run["launches"] == expected_launches(handler, run["launches"], None),
+              f"{name}: a kernel launched: {run['launches']}")
+        native = mode == "patch"
+        check((run["batches"]["native"] > 0) == native and (run["batches"]["numpy"] > 0) != native,
+              f"{name}: batches by path {run['batches']}")
+        with open(os.path.join(cfg["save_path"], "metrics.jsonl")) as f:
+            evals = [e for e in map(json.loads, f) if e["event"] == "eval"]
+        values = [v for e in evals for k, v in e.items() if k not in ("event", "at", "ts")]
+        check(len(evals) == 4 and values and all(np.isfinite(v) for v in values),
+              f"{name}: {len(evals)} evaluations, a non-finite metric")
+        in_memory, reloaded = run["passes"]["test"][-2], run["passes"]["test"][-1]
+        check(np.array_equal(in_memory["y_hat"], reloaded["y_hat"]),
+              f"{name}: the reloaded checkpoint's test probabilities differ by "
+              f"{np.abs(in_memory['y_hat'] - reloaded['y_hat']).max():.3e}")
+        peak, total = run["host_memory"]["rss_peak_bytes"], host_memory_bytes()
+        check(peak is None or total is None or peak <= HOST_RSS_SHARE * total,
+              f"{name}: the host's resident set peaked at {peak} bytes")
+        log_run_times(name, handler.timings["epochs"], run["eval_passes"], card)
+        log(f"{name}: exec {run['exec_s']:.1f} s, batches {run['batches']}, "
+            f"{describe_host_memory(run['host_memory'])}, peak device memory "
+            f"{run['peak_device_bytes'] / 2**30:.2f} GiB, on {card}; final metrics "
+            f"{run['metrics']}")
+        rec = {"config": {k: v for k, v in cfg.items() if k != "save_path"}, "card": card,
+               "reduced": ZOO_REDUCED, "exec_s": run["exec_s"], "epochs": handler.timings["epochs"],
+               "eval_passes": run["eval_passes"], "batches": run["batches"],
+               "launches": run["launches"], "metrics": run["metrics"],
+               "host_memory": run["host_memory"], "peak_device_bytes": run["peak_device_bytes"],
+               "reload_bit_identical": True}
+        if network == "PatchGCN":
+            rec["edges"] = aux["edges"]
+            rec["skewed_degrees"] = zoo_skewed_degrees(torch, handler, device, name)
+        rec.update(zoo_serve(torch, ab, co, handler, STORE_BAGS, name))
+        rec["card_vs_cpu"] = zoo_step_card_vs_cpu(torch, handler, device, name)
+        runs[name] = rec
+        del handler, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    flagship = {enc: zoo_flagship(torch, ab, co, device, stores, enc)
+                for enc in ZOO_VLSA_ENCODERS}
+    return {"inputs": {k: v for k, v in aux.items() if not k.endswith("_dir")},
+            "runs": runs, "flagship": flagship}
 
 # ---------------------------------------------------------------- phase 3i
 
@@ -4946,6 +5331,7 @@ def main(argv=None) -> int:
                                    stores_tmp, kept)
             queries = timed("3l", phase_queries, torch, ab, co, device, card, stores_tmp)
             optim = timed("3n", phase_optimizers, torch, ab, co, device, card, stores_tmp)
+            zoo = timed("3o", phase_zoo, torch, ab, co, device, card, stores_tmp)
         finally:
             kept.clear()
             shutil.rmtree(stores_tmp, ignore_errors=True)
@@ -5121,7 +5507,7 @@ def main(argv=None) -> int:
               "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
               "store_runs": store_runs, "zero_shot": zero_shot,
               "interpretation": interpretation, "sa_1024": sa_1024, "sa_2560": sa_2560,
-              "optimizers": optim, "query_errors": errs_q,
+              "optimizers": optim, "zoo": zoo, "query_errors": errs_q,
               "queries": queries, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:

@@ -10,6 +10,11 @@ that a drift of the card or the host falls on both sides:
 - the prefetch thread: the flagship from synthetic bags (chip_smoke.py's
   phase 3g), `LIFECYCLE_EPOCHS` epochs a run, with `prefetch: 0` and 2.
 
+The pageable side builds each batch in tensors of its own, outside the
+page-locked batch pool.  `--lane pinned` runs only the page-locked store
+runs, once: the lane to compare two checkouts with, a process each, in
+turns (parent, change, change, parent), this script copied into each.
+
 Every run starts with no page-locked block kept (a run releases them at its
 end) and goes through chip_smoke.py's checks of its path.  Each run's
 epochs (wall, the loop's wait for batches, the producer's build), its
@@ -17,7 +22,7 @@ evaluation passes and its host memory (resident peak and rise; torch's
 page-locked pool: peak bytes, blocks made, seconds making them) are
 printed beside the card's name and power limit, one `RESULT` line a run.
 
-    python3 host_ab.py [--out record.json]
+    python3 host_ab.py [--out record.json] [--lane all|pinned]
 """
 import argparse
 import json
@@ -60,6 +65,8 @@ def result_line(what: str, run: dict) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the record here (JSON)")
+    ap.add_argument("--lane", choices=("all", "pinned"), default="all",
+                    help="pinned: the page-locked store runs only, once")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         cs.log("FAIL: no CUDA device is available")
@@ -77,17 +84,20 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     record = {"card": card, "torch": torch.__version__, "store_epochs": STORE_EPOCHS,
               "lifecycle_epochs": LIFECYCLE_EPOCHS, "pin": [], "prefetch": []}
-    pinned_alloc = pipeline.BagBatcher._alloc
+    # (the pinned lane leaves the batcher as it is: it also runs in checkouts
+    # whose batcher predates the pool)
+    pinned_entries = getattr(pipeline.BagBatcher, "_entries", None)
 
-    def pageable_alloc(self, shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype)
+    def pageable_entries(self, specs, ring):
+        return {name: torch.empty(shape, dtype=dtype) for name, shape, dtype in specs}
     specs = {s[0]: s for s in cs.STORE_RUNS}
     _meta, _split, sids = cs.fold0_slides()
     tmp = tempfile.mkdtemp(prefix="host_ab_")
     try:
-        stores = cs.write_stores(tmp, sids)
-        for turn, pin in enumerate(TURNS):
-            pipeline.BagBatcher._alloc = pinned_alloc if pin else pageable_alloc
+        stores = cs.write_stores(tmp, sids, convert=False)  # the runs read the .npy store
+        for turn, pin in enumerate((True,) if args.lane == "pinned" else TURNS):
+            if args.lane == "all":
+                pipeline.BagBatcher._entries = pinned_entries if pin else pageable_entries
             for key in ("vlsa_bf16_npy", "sa_f32_npy"):
                 name, *rest = specs[key]
                 run = cs.store_run(torch, ab, co, device, card, stores, tmp, f"{name}_t{turn}",
@@ -95,9 +105,10 @@ def main(argv=None) -> int:
                 print(result_line(f"{key} pin={pin} turn={turn}", run), flush=True)
                 record["pin"].append({"key": key, "pin": pin, "turn": turn, **summary(run)})
     finally:
-        pipeline.BagBatcher._alloc = pinned_alloc
+        if args.lane == "all":
+            pipeline.BagBatcher._entries = pinned_entries
         shutil.rmtree(tmp, ignore_errors=True)
-    for turn, prefetch in enumerate(2 if on else 0 for on in TURNS):
+    for turn, prefetch in enumerate(2 if on else 0 for on in TURNS if args.lane == "all"):
         run = cs.phase_lifecycle(torch, ab, co, device, "vlsa", card, epochs=LIFECYCLE_EPOCHS,
                                  prefetch=prefetch)
         pipeline.release_pinned_batches()  # the plain test pass's blocks

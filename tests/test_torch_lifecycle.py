@@ -357,7 +357,7 @@ def test_main_runs_vlsa_and_refuses_clf(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,item", [("vlsa_api", "CLIP", "A.15"),
-                                            ("vlsa_img_encoder_name", "TransMIL", "A.12"),
+                                            ("ckpt_backend", "orbax", "A.6"),
                                             ("mesh", {"data": 4}, "A.17")])
 def test_unported_settings_are_refused(tmp_path, key, value, item):
     _path, cfg = write_small_config(tmp_path, "vlsa", **{key: value})

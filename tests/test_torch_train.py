@@ -184,24 +184,52 @@ def test_five_steps_with_feat_proj_match_jax_train_engine(jax_run_feat_proj):
     _five_steps(jax_run_feat_proj)
 
 
+TOL_ACCUM_F32 = 5e-5  # f32 gradients: summation order, measured at most 1.83e-5
+
+
+def _to_float64(model):
+    """The model in float64 throughout: its parameters, and the text tower's
+    compute type (its products round to that type)."""
+    model.to(torch.float64)
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    return model
+
+
 def _accumulation(jax_run):
     """accum_steps=2 gives the whole batch's loss, logits and gradients on a
-    ragged tail batch (valid counts 2 and 1), to 1e-5 of each leaf's largest
-    gradient (f32 sums in another order; measured at most 3.2e-6)."""
+    ragged tail batch (valid counts 2 and 1, each micro-batch weighted by
+    its count of valid bags, as vlsa_tpu's TrainEngine weights it).
+
+    The loss and logits are held in f32 (rtol 1e-5; f32 sums in another
+    order).  The gradients are held twice, to a share of each leaf's largest
+    gradient: in float64 (model, batch and the tower's products) to 1e-12,
+    where the one-pass and accumulated sums are the same function and
+    summation order reaches ~1e-14 (measured 1.1e-14 without the projecter,
+    3.7e-14 with it); and in f32 to `TOL_ACCUM_F32`, where summation order
+    alone moves them 3.2e-6 to 1.83e-5 depending on the host's BLAS
+    (query_adapter.residual_features)."""
     use_feat_proj, init, _l, _f = jax_run
     batch = _tensors(_batches()[-1])
-    runs = []
-    for accum in (1, 2):
-        model, engine = _port(init, use_feat_proj, accum_steps=accum)
-        loss, raw = engine.train_step(batch)
-        grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
-        runs.append((float(loss), raw, grads))
-    (l1, r1, g1), (l2, r2, g2) = runs
-    np.testing.assert_allclose(l2, l1, rtol=1e-5)
-    torch.testing.assert_close(r2, r1, rtol=1e-5, atol=1e-6)
-    assert set(g1) == set(g2) and "prompt_learner.context_embeds" in g1
-    for n in g1:
-        assert float((g2[n] - g1[n]).abs().max() / g1[n].abs().max()) <= 1e-5, n
+    for dtype in (torch.float32, torch.float64):
+        runs = []
+        for accum in (1, 2):
+            model, engine = _port(init, use_feat_proj, accum_steps=accum)
+            if dtype == torch.float64:
+                _to_float64(model)
+            loss, raw = engine.train_step(dict(batch, feats=batch["feats"].to(dtype)))
+            assert loss.dtype == raw.dtype == dtype
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            runs.append((float(loss), raw, grads))
+        (l1, r1, g1), (l2, r2, g2) = runs
+        np.testing.assert_allclose(l2, l1, rtol=1e-5)
+        torch.testing.assert_close(r2, r1, rtol=1e-5, atol=1e-6)
+        assert set(g1) == set(g2) and "prompt_learner.context_embeds" in g1
+        tol = 1e-12 if dtype == torch.float64 else TOL_ACCUM_F32
+        for n in g1:
+            assert float((g2[n] - g1[n]).abs().max() / g1[n].abs().max()) <= tol, (n, dtype)
 
 
 def test_accumulation_matches_one_pass(jax_run):

@@ -1,15 +1,24 @@
-"""Patient-level bag datasets (counterpart of vlsa_tpu/data/bags.py, `patch`
-mode): each item concatenates the patch features of every slide of a
-patient into one [N, D] bag, with its label (y_t, e).  Stores are read as
+"""Patient-level bag datasets (counterpart of vlsa_tpu/data/bags.py): each
+item concatenates the patch features of every slide of a patient into one
+[N, D] bag, with its label (y_t, e).  Stores are read as
 vlsa_tpu/data/io.py:81-99 reads them; a `.q8npz` store's bags are
 QuantizedBags, which int8 batches take as stored.  `bag_paths` gives the
-batcher's native loader the files of a `.npy` or `.q8npz` bag.  The
-few-shot wrapper draws `num_shot` patients per Kaplan-Meier de-censored
-time bin."""
+batcher's native loader the files of a `.npy` or `.q8npz` bag in `patch`
+mode.  The few-shot wrapper draws `num_shot` patients per Kaplan-Meier
+de-censored time bin.
+
+Two more modes add an array to each item, as vlsa_tpu reads them:
+`cluster` the patient's cluster ids [N] from `{cluster_path}/{pid}.npy`
+(DeepAttnMISL), `graph` its edge list [2, E] from each slide's
+`{graph_path}/{sid}.npz` (PatchGCN).  vlsa_tpu offsets the edges of every
+slide after the first by the patient's whole node count, not by the nodes
+before that slide, so a patient of two or more slides gets edges past its
+last node; that is ported as it is (see models/mil_ext.py for what such an
+edge does, ROADMAP.md §C)."""
 from __future__ import annotations
 
 import os.path as osp
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Union
 
 import numpy as np
 
@@ -46,9 +55,21 @@ def read_patch_data(path: str, key: str = "features") -> np.ndarray:
     raise ValueError(f"unsupported patch store {path}: this port reads .pt, .npy, .q8npz, .h5")
 
 
+DATA_MODES = ("patch", "cluster", "graph")
+
+
 class SurvBagDataset:
     def __init__(self, patient_ids: List[str], patch_path: str, meta_data: MetaSurvData,
-                 read_format: str = "pt"):
+                 read_format: str = "pt", mode: str = "patch",
+                 cluster_path: Optional[str] = None, graph_path: Optional[str] = None):
+        if mode not in DATA_MODES:
+            raise ValueError(f"data_mode must be one of {DATA_MODES}, got {mode!r}")
+        if mode == "cluster" and not cluster_path:
+            raise ValueError("data_mode cluster needs path_cluster")
+        if mode == "graph" and not graph_path:
+            raise ValueError("data_mode graph needs path_graph")
+        self.mode = mode
+        self.cluster_path, self.graph_path = cluster_path, graph_path
         self.read_path = patch_path
         self.read_format = read_format
         self.pids, self.pid2sids, self.pid2label = meta_data.collect_info_by_pids(patient_ids)
@@ -100,18 +121,39 @@ class SurvBagDataset:
 
     def bag_paths(self, index: int) -> Optional[List[str]]:
         """The slide files of bag `index` in order, for the native loader;
-        None for synthetic bags and for stores other than .npy and .q8npz."""
-        if self._synthetic() or self.read_format not in NATIVE_FORMATS:
+        None for synthetic bags, for stores other than .npy and .q8npz, and
+        in cluster and graph mode (the numpy path, as in vlsa_tpu)."""
+        if (self.mode != "patch" or self._synthetic()
+                or self.read_format not in NATIVE_FORMATS):
             return None
         return [self._path(sid) for sid in self.pid2sids[self.pids[index]]]
 
     def bag_label(self, index: int) -> np.ndarray:
         return np.asarray(self.pid2label[self.pids[index]], dtype=np.float32)
 
-    def __getitem__(self, index: int) -> Tuple[Union[np.ndarray, QuantizedBag], np.ndarray]:
+    def __getitem__(self, index: int) -> tuple:
         """(feats [N, D] f32, or a QuantizedBag from a .q8npz store;
-        label [y_t, e] f32)."""
-        return self._load_feats(self.pid2sids[self.pids[index]]), self.bag_label(index)
+        label [y_t, e] f32), and in cluster mode the cluster ids [N], in
+        graph mode the edge list [2, E] int64."""
+        pid = self.pids[index]
+        sids = self.pid2sids[pid]
+        feats, label = self._load_feats(sids), self.bag_label(index)
+        if self.mode == "cluster":
+            cids = np.load(osp.join(self.cluster_path, f"{pid}.npy"))
+            if cids.shape[0] != feats.shape[0]:
+                raise ValueError(f"patient {pid}: {cids.shape[0]} cluster ids for "
+                                 f"{feats.shape[0]} patches")
+            return feats, label, cids
+        if self.mode == "graph":
+            edges, offset = [], 0
+            for sid in sids:
+                ei = np.load(osp.join(self.graph_path, sid + ".npz"))["edge_index"]
+                edges.append(ei.astype(np.int64) + offset)
+                offset = feats.shape[0]  # vlsa_tpu's offset: the whole bag's nodes
+            edge_index = (np.concatenate(edges, axis=1) if edges
+                          else np.zeros((2, 0), np.int64))
+            return feats, label, edge_index
+        return feats, label
 
 
 class FewShotSurvBagDataset:
@@ -123,6 +165,7 @@ class FewShotSurvBagDataset:
 
     def __init__(self, dataset: SurvBagDataset, num_shot: int, seed: int = 0):
         self._dataset = dataset
+        self.mode = dataset.mode
         self.num_shot = num_shot
         self.seed = seed
         self.meta_data = dataset.meta_data
@@ -183,7 +226,8 @@ def prepare_surv_dataset(patient_ids: List[str], cfg: dict, meta_data: MetaSurvD
                          num_shot: int = -1, seed_shot: int = 42,
                          ratio_sampling=None):
     """The bags of `patient_ids` from the config's `path_patch` and
-    `feat_format` (vlsa_tpu/data/bags.py::prepare_surv_dataset): first a
+    `feat_format`, in its `data_mode` with `path_cluster` or `path_graph`
+    (vlsa_tpu/data/bags.py::prepare_surv_dataset): first a
     random subset when `ratio_sampling` is given, then, for `num_shot` > 0,
     the few-shot sample drawn with `seed_shot`."""
     if ratio_sampling is not None:
@@ -191,7 +235,10 @@ def prepare_surv_dataset(patient_ids: List[str], cfg: dict, meta_data: MetaSurvD
         patient_ids, pid_left = sampling_data(patient_ids, ratio_sampling)
         print(f"[dataset] sampled {len(patient_ids)} patients, left {len(pid_left)} patients")
     dataset = SurvBagDataset(patient_ids, cfg["path_patch"], meta_data,
-                             read_format=cfg.get("feat_format", "pt"))
+                             read_format=cfg.get("feat_format", "pt"),
+                             mode=cfg.get("data_mode", "patch"),
+                             cluster_path=cfg.get("path_cluster"),
+                             graph_path=cfg.get("path_graph"))
     if num_shot is not None and num_shot > 0:
         dataset = FewShotSurvBagDataset(dataset, num_shot, seed_shot)
     return dataset

@@ -47,6 +47,30 @@ def synthetic_bag(uid: str, path: str) -> np.ndarray:
     return rng.normal(size=(n, p["D"])).astype(np.float32)
 
 
+def synthetic_cluster_ids(uid: str, n: int, num_clusters: int, seed: int = 0) -> np.ndarray:
+    """Deterministic cluster ids [n] int64 in [0, num_clusters), keyed by
+    (uid, seed): a bag's `cluster` mode file for synthetic cohorts."""
+    h = int(hashlib.sha1(uid.encode()).hexdigest()[:8], 16)
+    return np.random.default_rng(seed * 1000003 + h).integers(0, num_clusters, size=n)
+
+
+def grid_edge_index(n: int) -> np.ndarray:
+    """The 8-neighbour adjacency of n patches laid row by row on a grid
+    ceil(sqrt(n)) wide, both directions of each edge: [2, E] int64, about
+    8n edges (a slide's patch graph for synthetic cohorts)."""
+    w = max(1, int(np.ceil(np.sqrt(n))))
+    idx = np.arange(n)
+    r, c = idx // w, idx % w
+    src, dst = [], []
+    for dr, dc in ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1)):
+        rr, cc = r + dr, c + dc
+        nb = rr * w + cc
+        ok = (rr >= 0) & (cc >= 0) & (cc < w) & (nb < n)
+        src.append(idx[ok])
+        dst.append(nb[ok])
+    return np.stack([np.concatenate(src), np.concatenate(dst)]).astype(np.int64)
+
+
 def load_init_prompt(prompt_path, context_idx=0, rank_idx=0, replace=False):
     """Context template and per-class rank names from a prompt JSON."""
     if prompt_path is None:

@@ -9,7 +9,7 @@ from torch import nn
 
 from ..ops.abmil import abmil_pool
 from ..ops.coattn import dequantize_feats
-from ..ops.masked import masked_softmax
+from ..ops.masked import compute_float, masked_softmax
 
 
 class TorchLinear(nn.Linear):
@@ -137,7 +137,7 @@ class AttentionPooling(nn.Module):
 class GatedAttentionPooling(nn.Module):
     """Gated ABMIL pooling (counterpart of vlsa_tpu/models/layers.py::
     GatedAttentionPooling): x [B, N, D], mask [B, N] ->
-    (pooled [B, D] f32, attention [B, N]), with
+    (pooled [B, D] f32, or float64 for float64 x, attention [B, N]), with
         a_raw = fc2(Dropout(tanh(fc1(x))) * Dropout(sigmoid(score(x))))
     and the attention its masked softmax (a_raw itself with
     `ret_raw_attn`).  Plain ops in f32 on every device: vlsa_tpu has no
@@ -156,7 +156,7 @@ class GatedAttentionPooling(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 ret_raw_attn: bool = False, train: bool = False):
-        x = x.float()
+        x = compute_float(x)
         emb = self.dropout(torch.tanh(self.fc1(x)), train)
         scr = self.dropout(torch.sigmoid(self.score(x)), train)
         a_raw = self.fc2(emb * scr)[..., 0]  # [B, N]

@@ -46,7 +46,8 @@ import torch
 from torch import nn
 
 from ..ops.coattn import coattn_attention_reference, coattn_pool, dequantize_feats
-from ..ops.masked import l2_normalize, masked_max, masked_mean, masked_softmax, masked_topk_mean
+from ..ops.masked import (compute_float, l2_normalize, masked_max, masked_mean, masked_softmax,
+                          masked_topk_mean)
 from .layers import (Adapter, AttentionPooling, FeatProjecter, GatedAttentionPooling,
                      SeededDropout, TorchLinear)
 
@@ -176,7 +177,7 @@ class VLFAN(nn.Module):
                 X = dequantize_feats(X, x_scale).to(torch.bfloat16)
             x_scale = x_inv = None
             in_dtype = X.dtype
-            X = self.feat_proj(X.float())
+            X = self.feat_proj(compute_float(X))
             if in_dtype == torch.bfloat16:
                 X = X.to(torch.bfloat16)
         q_eff = self.effective_query(query)

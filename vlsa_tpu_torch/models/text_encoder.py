@@ -22,12 +22,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.masked import compute_float
+
 NEG_INF = float("-inf")
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x @ w.T with both operands rounded to `dtype`, accumulated in f32."""
-    return x.to(dtype).float() @ w.to(dtype).float().T
+    """x @ w.T with both operands rounded to `dtype`, accumulated in f32 (in
+    float64 for float64)."""
+    return compute_float(x.to(dtype)) @ compute_float(w.to(dtype)).T
 
 
 def _normal(shape, std, generator):
@@ -60,14 +63,14 @@ class TorchMultiheadAttention(nn.Module):
         q, k, v = qkv.split(D, dim=-1)
 
         def heads(t):
-            return t.reshape(K, L, H, hd).transpose(1, 2).to(cdt).float()
+            return compute_float(t.reshape(K, L, H, hd).transpose(1, 2).to(cdt))
 
         q, k, v = heads(q), heads(k), heads(v)
         logits = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
         if attn_mask is not None:
             logits = logits + attn_mask
         attn = torch.softmax(logits, dim=-1)
-        ctx = attn.to(cdt).float() @ v
+        ctx = compute_float(attn.to(cdt)) @ v
         ctx = ctx.transpose(1, 2).reshape(K, L, D)
         return _mm(ctx, self.out_proj_weight, cdt) + self.out_proj_bias
 

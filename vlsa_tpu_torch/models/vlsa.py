@@ -5,8 +5,8 @@
                      prompts precomputed once (frozen CoOp)
     query          = the TaskRes query adapter over frozen prior sentences
     image_features = VLFAN over the patch bag with those queries,
-                     DeepMIL or DSMIL, or FeatMIL (zero-shot: per-patch
-                     features)
+                     DeepMIL, DSMIL, TransMIL or ILRA, or FeatMIL
+                     (zero-shot: per-patch features)
     logits         = logit_scale.exp() * norm(img) @ norm(text)^T
 
 In zero-shot mode (FeatMIL's identity pooling) every patch is scored and
@@ -23,6 +23,7 @@ from torch import nn
 from ..ops.coattn import dequantize_feats
 from ..ops.masked import l2_normalize
 from .mil import DSMIL, VLFAN, DeepMIL, FeatMIL, logit_pooling
+from .mil_ext import ILRA, TransMIL
 from .prompt_learners import PlainPromptLearner, PromptAdapter
 from .text_encoder import TextTower
 
@@ -33,7 +34,7 @@ class VLSA(nn.Module):
     accepts_x_scale = True  # VLFAN takes the int8 scales and host 1/||x|| rows
     uses_vl = True
 
-    def __init__(self, mil_encoder: Union[VLFAN, DeepMIL, DSMIL, FeatMIL],
+    def __init__(self, mil_encoder: Union[VLFAN, DeepMIL, DSMIL, FeatMIL, TransMIL, ILRA],
                  prompt_encoder: Optional[TextTower] = None,
                  prompt_learner: Optional[PlainPromptLearner] = None,
                  prompt_adapter: Optional[PromptAdapter] = None,
@@ -93,15 +94,15 @@ class VLSA(nn.Module):
     def encode_instances(self, X, mask=None, query=None, x_scale=None, x_inv=None,
                          ret_with_attn: bool = False, train: bool = False):
         """The MIL encoder's image features; with `ret_with_attn` (VLFAN,
-        DeepMIL, DSMIL), (features, its attention), and `train` turns its
-        Dropout on."""
+        DeepMIL, DSMIL, TransMIL), (features, its attention), and `train`
+        turns its Dropout on."""
         enc = self.mil_encoder
-        if isinstance(enc, (FeatMIL, DSMIL)) and X.dtype == torch.int8:
+        if isinstance(enc, (FeatMIL, DSMIL, TransMIL, ILRA)) and X.dtype == torch.int8:
             # these take features: int8 dequantized to bf16, no sidecars
             X = dequantize_feats(X, x_scale).to(torch.bfloat16)
         if isinstance(enc, FeatMIL):
             return enc(X, mask)
-        if isinstance(enc, DSMIL):
+        if isinstance(enc, (DSMIL, TransMIL, ILRA)):
             return enc(X, mask, ret_with_attn=ret_with_attn, train=train)
         if isinstance(enc, DeepMIL):
             return enc(X, mask, x_scale=x_scale, ret_with_attn=ret_with_attn, train=train)
@@ -141,7 +142,7 @@ def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     rounded to bf16, its floor eps^2 and its square root rounded to bf16,
     the division in f32 (XLA drops the rounding of the quotient, which then
     only widens again for the f32 product with the text side)."""
-    if x.dtype == torch.float32:
+    if x.dtype in (torch.float32, torch.float64):
         return l2_normalize(x, dim=-1, eps=eps)
     xf = x.float()
     sq = torch.sum(xf * xf, dim=-1, keepdim=True).to(x.dtype)

@@ -25,6 +25,7 @@ from ..config import fetch_kws
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.torch_import import load_torch_state_dict
 from .mil import DSMIL, VLFAN, DeepMIL, FeatMIL
+from .mil_ext import ILRA, TransMIL
 from .precision import cast_frozen_tower_weights
 from .prompt_build import build_prompt_adapter, build_prompt_learner
 from .text_encoder import generate_pseudo_tokens, make_text_tower
@@ -40,7 +41,7 @@ def _prefixed(cfg: dict, prefix: str) -> dict:
 
 
 def build_mil_encoder(image_encoder_cfg: dict, generator: Optional[torch.Generator] = None,
-                      seed: int = 0) -> Union[VLFAN, DeepMIL, DSMIL, FeatMIL]:
+                      seed: int = 0) -> Union[VLFAN, DeepMIL, DSMIL, FeatMIL, TransMIL, ILRA]:
     """The MIL encoder of the image-encoder config; `seed` seeds its
     Dropout."""
     name = image_encoder_cfg["name"]
@@ -65,8 +66,13 @@ def build_mil_encoder(image_encoder_cfg: dict, generator: Optional[torch.Generat
                        keep_ratio=image_encoder_cfg.get("keep_ratio", 0.8))
     if name == "DSMIL":
         return DSMIL(**common, num_cls=image_encoder_cfg.get("num_cls", 2))
-    if name in ("TransMIL", "ILRA"):
-        raise NotImplementedError(f"MIL encoder {name!r} is not ported yet (ROADMAP.md §A.12)")
+    if name == "TransMIL":
+        return TransMIL(dim_in=common["dim_in"], dim_hid=common["dim_hid"],
+                        num_cls=image_encoder_cfg.get("num_cls", 2), generator=generator,
+                        dropout_seed=seed)
+    if name == "ILRA":  # vlsa_tpu builds it with ILRA's defaults
+        return ILRA(dim_in=common["dim_in"], dim_hid=common["dim_hid"],
+                    num_cls=image_encoder_cfg.get("num_cls", 2), generator=generator)
     raise ValueError(f"Got an invalid MIL encoder name: {name}.")
 
 

@@ -553,7 +553,8 @@ def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
                 scale, x_scale: Optional[torch.Tensor] = None,
                 x_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked co-attention pooling: q [P, C] effective queries (normalised),
-    x [B, N, C] raw patch features, mask [B, N] -> [B, P, C] f32.
+    x [B, N, C] raw patch features, mask [B, N] -> [B, P, C] f32 (float64
+    for float64 features on the plain version).
 
     CPU tensors take the plain version under ordinary autograd (it ignores
     `x_inv`: it normalises the rows itself), as CUDA tensors do, on the
@@ -575,7 +576,8 @@ def coattn_pool(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor],
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"coattn_pool runs on cpu or cuda, not {x.device}")
     if x.device.type == "cpu" or kernels_disabled():
-        return coattn_pool_reference(q, x, mask, scale, x_scale=x_scale)
+        return coattn_pool_reference(q, x, mask, scale, x_scale=x_scale,
+                                     dtype=torch.promote_types(x.dtype, torch.float32))
     mask = mask.contiguous()
     if needs_dx:
         return CoattnPoolFull.apply(q.contiguous(), x, mask, float(scale))

@@ -13,6 +13,13 @@ import torch
 NEG_INF = -1e30
 
 
+def compute_float(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, the compute type of every plain path; a float64 tensor stays
+    float64, so a model cast to float64 computes in float64 throughout (the
+    CPU tests hold identities there that f32 rounding would blur)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """x / sqrt(max(sum(x^2), eps^2)): rows of zeros stay zero and get a zero
     gradient, as `torch.nn.functional.normalize` gives them."""

@@ -46,11 +46,11 @@ from ..utils.device import resolve_device
 from ..utils.observability import JsonlLogger, configure_debug, maybe_profile
 from ..utils.seed import seed_everything
 from .ckpt import add_prefix_to_filename, load_checkpoint, merge_state, save_checkpoint
-from .engine import _logits, feats_inputs, make_output_converter
+from .engine import GRAPH_KEYS, _logits, feats_inputs, make_output_converter, model_extras
 from .train import Trainer, make_batcher, make_dataset
 
 # the batch entries an evaluation pass sends to the model
-_MODEL_INPUTS = ("feats", "feats_scale", "feats_inv", "mask")
+_MODEL_INPUTS = ("feats", "feats_scale", "feats_inv", "mask") + GRAPH_KEYS
 
 
 def _refuse_unported(cfg: dict) -> None:
@@ -359,7 +359,8 @@ class BaseHandler:
                     inputs = {k: v.to(self.device, non_blocking=True)
                               for k, v in batch.items() if k in _MODEL_INPUTS}
                     feats, kws = feats_inputs(model, inputs)
-                    raw = _logits(model(feats, inputs["mask"], **kws, **text))
+                    raw = _logits(model(feats, inputs["mask"], **kws, **text,
+                                        **model_extras(inputs)))
                     self._collect(batch, raw, all_raw, all_gt, all_idx)
         finally:
             model.train()

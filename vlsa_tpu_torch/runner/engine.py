@@ -17,7 +17,9 @@ vlsa_tpu's engine hold for both: the storage sidecars
 (`feats_scale`, `feats_inv`) go only to a model that accepts them
 (`accepts_x_scale`), any other sees bf16-dequantized features
 (`feats_inputs`); and the logit scale and the query-diversity term exist
-only for a vision-language model (`uses_vl`).
+only for a vision-language model (`uses_vl`).  A batch's cluster ids or
+edge lists (`data_mode` cluster or graph: `GRAPH_KEYS`) go to the model as
+keyword arguments of those names, in training, evaluation and serving.
 """
 from __future__ import annotations
 
@@ -32,6 +34,14 @@ from ..data.quant import Bag, pad_request
 from ..ops.coattn import dequantize_feats
 from ..ops.flags import disable_kernels
 from ..optim.extra import hutchinson_hessian_diag
+
+
+# the batch entries of cluster and graph bags, passed to the model by name
+GRAPH_KEYS = ("cluster_id", "edge_index", "edge_valid")
+
+
+def model_extras(batch: dict) -> dict:
+    return {k: batch[k] for k in GRAPH_KEYS if k in batch}
 
 
 def feats_inputs(model: nn.Module, batch: dict) -> Tuple[torch.Tensor, dict]:
@@ -131,7 +141,7 @@ class TrainEngine:
     def loss(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """(loss, raw logits [B, K]) of one batch on the device."""
         feats, kws = feats_inputs(self.model, batch)
-        raw = _logits(self.model(feats, batch["mask"], train=True, **kws))
+        raw = _logits(self.model(feats, batch["mask"], train=True, **kws, **model_extras(batch)))
         vl = {}
         if self.uses_vl:
             vl = {"logit_scale": self.model.get_logit_scale(),
@@ -187,14 +197,16 @@ class TrainEngine:
                 raise ValueError(f"a batch of {B} bags does not split into "
                                  f"{accum} micro-batches")
             mb = B // accum
-            w_tot = torch.clamp(batch["valid"].sum().float(), min=1.0)
+            # the weights in f64: an f32 2/3 would round each micro-batch's
+            # share (a float64 model then accumulates exactly)
+            w_tot = torch.clamp(batch["valid"].sum().double(), min=1.0)
             loss, raws = 0.0, []
             for i in range(accum):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                w = micro["valid"].sum().float()
+                w = micro["valid"].sum().double()
                 loss_i, raw_i = self.loss(micro)
                 (loss_i * (w / w_tot)).backward()
-                loss = loss + loss_i.detach() * (w / w_tot)
+                loss = loss + (loss_i.detach() * (w / w_tot)).to(loss_i.dtype)
                 raws.append(raw_i.detach())
             raw = torch.cat(raws)
         self.optimizer.step()
@@ -232,8 +244,26 @@ class InferEngine:
                 self._text = self.model.text_precompute()
         return self._text
 
-    def prepare(self, bags: Sequence[Bag]) -> dict:
-        return pad_request(bags, self.feats_dtype, self.precompute_inv, self.device)
+    def prepare(self, bags: Sequence[Bag], cluster_ids: Optional[Sequence[np.ndarray]] = None,
+                edge_lists: Optional[Sequence[np.ndarray]] = None) -> dict:
+        """The request's padded batch on the device; with `cluster_ids` (one
+        [n_i] array a bag) or `edge_lists` (one [2, E_i] array a bag) also
+        the batch entries the batcher builds from cluster and graph bags."""
+        batch = pad_request(bags, self.feats_dtype, self.precompute_inv, self.device)
+        B, N = batch["mask"].shape
+        if cluster_ids is not None:
+            cid = np.zeros((B, N), np.int32)
+            for j, c in enumerate(cluster_ids):
+                cid[j, :len(c)] = c
+            batch["cluster_id"] = torch.from_numpy(cid).to(self.device)
+        if edge_lists is not None:
+            E = max(1, max(e.shape[1] for e in edge_lists))
+            ei, ev = np.zeros((B, 2, E), np.int32), np.zeros((B, E), np.bool_)
+            for j, e in enumerate(edge_lists):
+                ei[j, :, :e.shape[1]], ev[j, :e.shape[1]] = e, True
+            batch["edge_index"] = torch.from_numpy(ei).to(self.device)
+            batch["edge_valid"] = torch.from_numpy(ev).to(self.device)
+        return batch
 
     def forward(self, batch: dict) -> Dict[str, torch.Tensor]:
         """Device tensors in, device tensors out (no host synchronisation)."""
@@ -243,10 +273,12 @@ class InferEngine:
         if self._text is not None:
             kws["text_features"], kws["query"] = self._text
         with torch.inference_mode():
-            return incidence_outputs(_logits(self.model(feats, batch["mask"], **kws)))
+            return incidence_outputs(_logits(self.model(feats, batch["mask"], **kws,
+                                                        **model_extras(batch))))
 
-    def predict(self, bags: Sequence[Bag]) -> Dict[str, np.ndarray]:
-        """One request: bags as f32 [n_i, D] arrays or QuantizedBags ->
-        {"logits", "probs", "survival"}, each [B, K] f32 on the host."""
-        out = self.forward(self.prepare(bags))
+    def predict(self, bags: Sequence[Bag], **aux) -> Dict[str, np.ndarray]:
+        """One request: bags as f32 [n_i, D] arrays or QuantizedBags (and
+        `prepare`'s cluster_ids or edge_lists) -> {"logits", "probs",
+        "survival"}, each [B, K] f32 on the host."""
+        out = self.forward(self.prepare(bags, **aux))
         return {k: v.float().cpu().numpy() for k, v in out.items()}

@@ -1,14 +1,15 @@
 """The SA handler (counterpart of vlsa_tpu/runner/sa.py) and its rules as
 plain functions: labels, the head's width, the loss/converter pairing and
-the DeepMIL model of a `task: sa` config
+the model of a `task: sa` config
 (configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml).
 """
 from __future__ import annotations
 
+from torch import nn
+
 from ..config import fetch_kws, parse_str_dims
 from ..data.label_converter import MetaSurvData
 from ..eval import load_evaluator
-from ..models.mil import DeepMIL
 from ..models.registry import load_model
 from .base import BaseHandler
 
@@ -66,9 +67,11 @@ def load_meta(cfg: dict, data_split: dict) -> MetaSurvData:
     return meta
 
 
-def build_model(cfg: dict, device=None, state_dict=None) -> DeepMIL:
-    """The config's DeepMIL (`arch: DeepMIL`, the `deepmil_*` keys, `net_dims`)
-    with random weights from its seed, on `device`."""
+def build_model(cfg: dict, device=None, state_dict=None) -> nn.Module:
+    """The config's network of the DeepMIL arch (`arch: DeepMIL`, the
+    `deepmil_*` keys: ABMIL and its kin, DSMIL, TransMIL, ILRA,
+    DeepAttnMISL, PatchGCN; `net_dims`) with random weights from its seed,
+    on `device`."""
     if cfg["arch"] != "DeepMIL":
         raise NotImplementedError(f"arch {cfg['arch']!r}: the SA path builds DeepMIL")
     arch_cfg = fetch_kws(cfg, prefix=cfg["arch"].lower())

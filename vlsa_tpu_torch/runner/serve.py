@@ -6,7 +6,9 @@
 `task: vlsa` serves the config's VLSA: the flagship, or a zero-shot
 config (configs/IFMLE/<cohort>/cfg_zero_shot_conch.yaml with one
 `vlsa_img_encoder_pooling`); `task: sa` the SA baseline's DeepMIL/ABMIL
-(configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml), whose head gets the bin
+(configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml) or another network of the
+zoo (its requests in `data_mode: cluster` carry synthetic cluster ids, in
+`graph` 8-neighbour grid graphs), whose head gets the bin
 count of fold 0's label table, as the SA handler would give it.  The
 weights are random, from the config's seed, but for the text tower of
 `path_clip_model` (a released checkpoint) and a `pretrained` CoOp
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import load_config, serving_config, training_config
-from ..data.io import SYNTHETIC_PREFIX, synthetic_bag
+from ..data.io import SYNTHETIC_PREFIX, grid_edge_index, synthetic_bag, synthetic_cluster_ids
 from ..data.splits import read_file_data_splitting
 from ..ops import abmil, coattn
 from ..utils.device import resolve_device
@@ -59,6 +61,20 @@ def request_bags(path_patch: str, request: int, n_bags: int):
     return [synthetic_bag(f"request{request}_bag{j}", path_patch) for j in range(n_bags)]
 
 
+def request_aux(cfg: dict, request: int, bags) -> dict:
+    """A request's cluster ids (`data_mode: cluster`, `deepmil_num_clusters`
+    of them) or patch graphs (`data_mode: graph`, 8-neighbour grids), made
+    from the bags' names: `InferEngine.predict`'s keyword arguments."""
+    mode = cfg.get("data_mode", "patch")
+    if mode == "cluster":
+        k = cfg.get("deepmil_num_clusters", 8)
+        return {"cluster_ids": [synthetic_cluster_ids(f"request{request}_bag{j}", b.shape[0], k)
+                                for j, b in enumerate(bags)]}
+    if mode == "graph":
+        return {"edge_lists": [grid_edge_index(b.shape[0]) for b in bags]}
+    return {}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", required=True)
@@ -85,7 +101,7 @@ def main(argv=None) -> dict:
     for r in range(args.n_requests):
         bags = request_bags(path_patch, r, args.bags_per_request)
         t = time.perf_counter()
-        out = engine.predict(bags)
+        out = engine.predict(bags, **request_aux(cfg, r, bags))
         times.append(time.perf_counter() - t)
         if not (np.isfinite(out["probs"]).all()
                 and np.allclose(out["probs"].sum(-1), 1.0, atol=1e-5)):

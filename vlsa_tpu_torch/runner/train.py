@@ -8,7 +8,10 @@ handlers' label, model, loss and freezing rules.  `task: vlsa` trains the
 flagship VLSA (the fold's label bins set the rank count; SurvIFMLE +
 SurvEMD); `task: sa` the SA baseline's DeepMIL/ABMIL
 (configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml: the bins set the head's
-width; SurvIFMLE), through `runner.sa`.  The training split's bags (the
+width; SurvIFMLE), or another network of the zoo (`deepmil_network`
+TransMIL, ILRA; DeepAttnMISL with `data_mode: cluster` and
+`path_cluster`, PatchGCN with `data_mode: graph` and `path_graph`),
+through `runner.sa`.  The training split's bags (the
 config's `path_patch`, `synthetic://` included) go through the batcher
 `bp_every_batch` at a time, and each step is one update of the config's
 losses with its optimizer.  The weights are random, from the config's seed.
@@ -124,8 +127,6 @@ class Trainer:
     (`training_config`, or a handler's setup)."""
 
     def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None):
-        if cfg.get("data_mode", "patch") != "patch":
-            raise NotImplementedError("this port trains on patch bags only")
         if cfg["task"] not in ("vlsa", "sa"):
             raise NotImplementedError(f"task {cfg['task']!r}: this port trains vlsa and sa")
         from . import sa  # see build_surv_meta

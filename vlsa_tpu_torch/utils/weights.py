@@ -10,7 +10,13 @@ params)`), so nothing here imports JAX.  Names map as follows:
     <Dense>/kernel [in, out] -> <Linear>.weight [out, in]
     anything else            -> the same path joined by "."
 
-so a DeepMIL tree's `sigma/fc1_kernel` [D, hid] (the ABMIL pooling keeps
+and the MIL zoo's depthwise convolution kernels (PPEG's `proj`, `proj1`,
+`proj2` and Nyström's `res_conv_kernel`) go from vlsa_tpu's HWIO
+(kh, kw, 1, C) to torch's [C, 1, kh, kw] under the same names; ILRA's
+`in_proj` [3d, d], `latent`, `pool_seeds`, TransMIL's `cls_token` and
+GENConv's scalar `t` keep their names and shapes, and BatchedPatchGCN's
+`gcn` scope is a submodule of that name.  So a DeepMIL tree's
+`sigma/fc1_kernel` [D, hid] (the ABMIL pooling keeps
 the tree's names and layouts) becomes `sigma.fc1_kernel`, `g/kernel`
 `g.weight`, `feat_proj/norm/scale` `feat_proj.norm.weight`; the gated
 pooling's `sigma/fc1/kernel` `sigma.fc1.weight`; VLFAN's attention query
@@ -47,10 +53,16 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))  # a writable, contiguous copy
 
 
+# the MIL zoo's convolution kernels, HWIO in vlsa_tpu and OIHW here
+_CONV_KERNELS = ("proj", "proj1", "proj2", "res_conv_kernel")
+
+
 def _torch_name(path: Tuple[str, ...], arr: np.ndarray):
     parts = [("resblocks." + p.split("_", 1)[1]) if p.startswith("resblock_") else p
              for p in path]
-    if parts[-1] == "scale":
+    if parts[-1] in _CONV_KERNELS and arr.ndim == 4:
+        arr = arr.transpose(3, 2, 0, 1)
+    elif parts[-1] == "scale":
         parts[-1] = "weight"
     elif parts[-1] == "kernel":
         parts[-1] = "weight"
@@ -76,7 +88,9 @@ def _jax_path(name: str, arr: np.ndarray):
             parts[-1] = f"resblock_{p}"
         else:
             parts.append(p)
-    if parts[-1] == "weight":
+    if parts[-1] in _CONV_KERNELS and arr.ndim == 4:
+        arr = arr.transpose(2, 3, 1, 0)
+    elif parts[-1] == "weight":
         if arr.ndim == 1:
             parts[-1] = "scale"
         elif arr.ndim == 2:
