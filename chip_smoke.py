@@ -290,10 +290,28 @@ non-zero and prints no result:
      step on a grid graph and with half its edges sent into 16 nodes (held
      within 1.05x); then the full-width flagship with
      TransMIL and ILRA image encoders, a request served and an Adam step
-     from the store; the stores are then removed;
+     from the store;
+  3p. the CLF handler and the CLIP and HF text towers, while phase 3h's
+     stores are there: label tables of fold 0's slides written by the
+     script; DeepMIL/ABMIL 512-256-2 (Binary, CE) 1 epoch through
+     `vlsa_tpu_torch.main --handler CLF` from the .npy f32 store (native
+     batches, the exact f32 ABMIL launches, finite metrics, the reload bit
+     for bit, each metric recomputed from the run's prediction CSVs equal to
+     the reported one), 512-256-3 (Multi-class, LabelSmoothingCrossEntropy)
+     served: the test split's pass (its metrics again from its CSV), and for
+     both a request card against the port on the CPU within 1e-3 and the
+     kernels of a profiled step or request by name and count; the flagship
+     with `vlsa_api` CLIP and HF (a tokenizer directory written by
+     `export_hf_clip_tokenizer` and a seeded CLIP-layout checkpoint,
+     imported tensor for tensor), each a request card against CPU with the
+     tower in f32 (1e-3), then 1 epoch from the bf16 .npy store through
+     `main` with phase 3h's checks and a profiled step; prints each run's
+     epoch seconds, peak device memory and launches, and the launches this
+     phase adds to rows 1, 6, 7 and 8; the stores are then removed;
   3k. the SA baseline at 1024-d features: fold 0's 437 slides as bags of
-     N~4096 jittered at D=1024 (buckets up to 16,384) written as a .npy f32
-     store, as phase 3h; cfg_sa_base_conch.yaml at net_dims 1024-256-12 for
+     N~2048 jittered at D=1024 (a patient's bag up to 17,612 patches)
+     written as a .npy f32 store, as phase 3h; cfg_sa_base_conch.yaml at
+     net_dims 1024-256-12 for
      one epoch (f32 features; its .q8npz run was cut for the script's time: phase 3m
      runs int8) through the command line's entry,
      `vlsa_tpu_torch.main.main(["--config", <the config as YAML>,
@@ -305,7 +323,7 @@ non-zero and prints no result:
      batch's parameter gradients within 2e-3 of the plain path's; the
      store is removed at the end;
   3m. the SA baseline at 2560-d features (Virchow, Virchow2): as 3k at
-     net_dims 2560-256-12, bags of N~2048 jittered (cut from 3k's N~4096),
+     net_dims 2560-256-12, bags of N~1024 jittered (cut from 3k's N~2048),
      a .npy f32 store and its .q8npz conversion, one epoch from each (f32,
      int8) through `main` with 3k's checks (3k and 3m also hold the batch
      pool's page-locked peak to at most prefetch + 2 times the run's
@@ -665,43 +683,44 @@ STORE_RUNS = (
 STORE_REDUCED = {"epochs": "10 -> 1"}
 # phase 3k: the SA baseline at 1024-d features (UNI, ResNet-50 truncated,
 # CLIP-RN50): cfg_sa_base_conch.yaml with net_dims 1024-256-K (K corrected
-# to fold 0's 12 bins), fold 0's 437 slides as bags of N~4096 jittered at
-# D=1024 (a patient's slides together bucket at up to 16,384: an f32 batch
-# of 32 is up to 2.1 GB; N~8192, phase 3h's, buckets at 32,768, 4.3 GB a
-# batch, and took the host's resident set to 70.4 GiB), a .npy f32 store
-# converted to .q8npz as phase 3h's; one epoch from each, with 3h's checks,
+# to fold 0's 12 bins), fold 0's 437 slides as bags of N~2048 jittered at
+# D=1024 (a patient's slides together up to 17,612 patches, one batch at a
+# bucket of 32,768; cut from N~4096 for the script's time), a .npy f32
+# store converted to .q8npz as phase 3h's; one epoch from each, with 3h's checks,
 # the reload bit for bit, one served request and a step's gradients
 # against the plain path: the general ABMIL instances, rows 7-10
-SA1024_BAGS = "synthetic://N=4096,D=1024,seed=7"
-SA1024_SLIDE_BYTES = 4096 * (1024 * 4 + 1024 + 8)
+SA1024_BAGS = "synthetic://N=2048,D=1024,seed=7"
+SA1024_SLIDE_BYTES = 2048 * (1024 * 4 + 1024 + 8)
 SA1024_CFG = dict(LIFECYCLE_SA_CFG, net_dims="1024-256-4")
 # cut to its f32 run for the script's time (phase 3m runs int8 on the
 # general instances at 2560-d): the store is not converted
 SA1024_RUNS = (
     ("sa1024_f32_npy", SA1024_CFG, "npy", {}, "f32"),
 )
-SA1024_REDUCED = {"runs": "f32 .npy and int8 .q8npz -> f32 .npy (phase 3m runs int8)"}
+SA1024_REDUCED = {"runs": "f32 .npy and int8 .q8npz -> f32 .npy (phase 3m runs int8)",
+                  "bag N": "~4096 -> ~2048 for the script's time"}
 # phase 3m: the SA baseline at 2560-d features (Virchow and Virchow2 tile
 # embeddings: the 1280-d class token beside the 1280-d mean patch token):
 # cfg_sa_base_conch.yaml with net_dims 2560-256-K (K corrected to fold 0's 12
-# bins), fold 0's 437 slides as bags of N~2048 jittered at D=2560 (cut from
-# phase 3k's N~4096: a 2560-d f32 slide at N~4096 is ~42 MB, the store 18 GB),
+# bins), fold 0's 437 slides as bags of N~1024 jittered at D=2560 (cut from
+# N~2048 for the script's time; a 2560-d f32 slide at N~4096 is ~42 MB, the
+# store 18 GB),
 # a .npy f32 store and its .q8npz conversion; one epoch from each through
 # `main`, with phase 3k's checks (the reload bit for bit, a served request and
 # a step's gradients against the plain path), then one Adam step with
 # `deepmil_use_feat_proj: True` from the f32 store (the general backward
 # with dX at 2560, a projecter of 2560 -> 2560) whose gradients are held
 # against the plain path: the general instances of rows 7-10 at 2560, 256
-SA2560_BAGS = "synthetic://N=2048,D=2560,seed=7"
-SA2560_SLIDE_BYTES = 2048 * (2560 * 4 + 2560 + 8)
+SA2560_BAGS = "synthetic://N=1024,D=2560,seed=7"
+SA2560_SLIDE_BYTES = 1024 * (2560 * 4 + 2560 + 8)
 SA2560_CFG = dict(LIFECYCLE_SA_CFG, net_dims="2560-256-4")
 SA2560_RUNS = (
     ("sa2560_f32_npy", SA2560_CFG, "npy", {}, "f32"),
     ("sa2560_int8_q8npz", SA2560_CFG, "q8npz", dict(feats_dtype="int8"), "int8"),
 )
 SA2560_REDUCED = {"epochs": "10 -> 1",
-                  "bag N": "~4096 (phase 3k's) -> ~2048: a 2560-d f32 slide at N~4096 is "
-                           "~42 MB"}
+                  "bag N": "~4096 -> ~1024: a 2560-d f32 slide at N~4096 is ~42 MB; "
+                           "~2048 until the script's time needed the cut"}
 # phase 3n: vlsa_tpu's optimizers and adahessian's switch.  Every name of the
 # factory (and lookahead_adam) 2 steps of the SA at 2560-256-12, f32, on the
 # kernels; adahessian 3 steps of the flagship on phase 3b's batch (f32 text
@@ -756,6 +775,35 @@ ZOO_SKEW_RATIO = 1.05
 ZOO_REDUCED = {"epochs": "10 -> 1",
                "bag N": "patients past 16,384 patches (17 of fold 0's 373) truncated to "
                         "16,384: TransMIL and PatchGCN at a bucket of 131,072 would not fit"}
+# phase 3p: the CLF handler (slide classification, runner/clf.py) and VLSA on
+# the CLIP and HF text towers, while phase 3h's stores are there.  CLF: one
+# bag a slide of fold 0 from 3h's .npy f32 store, labels written by the script
+# (drawn a patient from CLF_LABEL_SEED), DeepMIL/ABMIL at 512-256-2 (Binary,
+# CE) 1 epoch through `main --handler CLF`, and at 512-256-3 (Multi-class,
+# LabelSmoothingCrossEntropy) served only: the test split's pass and a
+# request.  VLSA: the flagship config with `vlsa_api` CLIP (the bundled BPE)
+# and HF (a tokenizer directory written by the port's
+# export_hf_clip_tokenizer, a CLIP-layout checkpoint of the tower at its
+# published width, random from CLIP_TEXT_SEED, beside it), each served a
+# request (card against the port on the CPU, the text tower in f32 on both)
+# and trained 1 epoch from 3h's bf16 .npy store through `main`
+CLF_CFG = dict(LIFECYCLE_RUN, task="clf", seed=42, dataset_name="tcga_blca",
+               data_mode="patch", feat_format="npy", arch="DeepMIL", net_dims="512-256-2",
+               net_output_converter="softmax", deepmil_network="ABMIL",
+               deepmil_pooling="attention", deepmil_use_feat_proj=False,
+               deepmil_drop_rate=0.25, loss_type="CE", loss_ce_smoothing=0.1,
+               evaluator="Binary", opt_name="adam", opt_lr=2e-4, opt_weight_decay=1e-5,
+               bp_every_batch=32, epochs=1)
+CLF_MULTI = dict(net_dims="512-256-3", evaluator="Multi-class",
+                 loss_type="LabelSmoothingCrossEntropy",
+                 loss_labelsmoothingcrossentropy_smoothing=0.1)
+CLF_LABEL_SEED = 20
+CLIP_TEXT_SEED = 21
+PROFILE_TRIES = 3  # profiled steps a run, until a trace names every kernel expected
+CLIP_LOGIT_SCALE = 4.5  # near log(100), CLIP's trained scale; exact in f32
+TEXT_APIS = ("CLIP", "HF")
+CLF_REDUCED = {"epochs": "10 -> 1", "labels": "synthetic, drawn a patient",
+               "runs": "Multi-class served only (its pass over the test split and a request)"}
 RSS_SAMPLE_S = 0.05  # the resident set's sampling period within a run
 # the share of the host's memory (MemTotal) a run of phases 3k and 3m may
 # peak at: an f32 epoch of the SA at 2560-d peaked at 70.6 GiB (62 GiB of it
@@ -1790,7 +1838,8 @@ def grad_devs(a: dict, b: dict, leaves) -> dict:
 def profile_step(torch, engine, batch, family="coattn", groups=None):
     """Wall time of one training step under torch.profiler, the device time of
     all its kernels and of the kernels whose name holds `family`, each such
-    kernel by name (None if the profiler shows no device time); with
+    kernel's ms and launches by name (None if the profiler shows no device
+    time); with
     `groups` ({name: regex}), the device time of each group's kernels (the
     first group whose regex a kernel's name matches; "other" the rest)."""
     from torch.autograd import DeviceType
@@ -1808,7 +1857,7 @@ def profile_step(torch, engine, batch, family="coattn", groups=None):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     total_us = 0.0
-    top, by_kernel = [], {}
+    top, by_kernel, counts = [], {}, {}
     by_group = dict.fromkeys([*groups, "other"], 0.0) if groups else {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -1818,6 +1867,7 @@ def profile_step(torch, engine, batch, family="coattn", groups=None):
         if family in evt.key:  # the longest name, past a namespace of the family's name
             name = max(re.findall(rf"{family}\w*", evt.key), key=len)
             by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
+            counts[name] = counts.get(name, 0) + evt.count
         if groups:
             g = next((g for g, rx in groups.items() if re.search(rx, evt.key)), "other")
             by_group[g] += us / 1e3
@@ -1825,10 +1875,10 @@ def profile_step(torch, engine, batch, family="coattn", groups=None):
     top.sort(reverse=True)
     key = f"{family}_ms"
     if total_us == 0:
-        return {"wall_ms": wall_ms, "device_ms": None, key: None, "kernels": {}, "top": [],
-                "groups": {}}
+        return {"wall_ms": wall_ms, "device_ms": None, key: None, "kernels": {}, "counts": {},
+                "top": [], "groups": {}}
     return {"wall_ms": wall_ms, "device_ms": total_us / 1e3, key: sum(by_kernel.values()),
-            "kernels": by_kernel, "groups": by_group,
+            "kernels": by_kernel, "counts": counts, "groups": by_group,
             "top": [{"kernel": k, "ms": us / 1e3} for us, k in top[:8]]}
 
 
@@ -2673,7 +2723,7 @@ def hold_c_index(name, c_kernel, c_plain, gaps, est_gap):
 
 
 def exec_handler(torch, ab, co, device, cfg, before_exec=None, via_main=False) -> dict:
-    """`exec()` of the handler of `cfg` (VLSA or SA, by its task) with every
+    """`exec()` of the handler of `cfg` (VLSA, SA or CLF, by its task) with every
     launch counter and the batcher's batch counts from 0 just before the
     handler is built: the handler, its metrics, the collected predictions of
     each evaluation pass by split, the launches by kernel family and
@@ -2682,10 +2732,11 @@ def exec_handler(torch, ab, co, device, cfg, before_exec=None, via_main=False) -
     at the peak of the build and exec().  `before_exec(handler)` runs
     between the two (it launches no kernel).  With `via_main`, the run goes
     through the command line's entry, `vlsa_tpu_torch.main.main(["--config",
-    <cfg as YAML beside its save path>, "--handler", "SA" or "VLSA"])`, whose
+    <cfg as YAML beside its save path>, "--handler", "SA", "VLSA" or "CLF"])`, whose
     handler class is wrapped for these records."""
     from vlsa_tpu_torch import main as port_main
     from vlsa_tpu_torch.data import pipeline
+    from vlsa_tpu_torch.runner.clf import CLFHandler
     from vlsa_tpu_torch.runner.sa import SAHandler
     from vlsa_tpu_torch.runner.vlsa import VLSAHandler
 
@@ -2700,7 +2751,8 @@ def exec_handler(torch, ab, co, device, cfg, before_exec=None, via_main=False) -
     gc.collect()  # earlier handlers sit in reference cycles: free their tensors first
     torch.cuda.reset_peak_memory_stats()
     start_bytes = torch.cuda.memory_allocated()
-    base = VLSAHandler if cfg["task"] == "vlsa" else SAHandler
+    base, name = {"vlsa": (VLSAHandler, "VLSA"), "sa": (SAHandler, "SA"),
+                  "clf": (CLFHandler, "CLF")}[cfg["task"]]
     made = {}  # the handler, its build's seconds and its exec()'s
 
     class Recorded(base):
@@ -2733,7 +2785,6 @@ def exec_handler(torch, ab, co, device, cfg, before_exec=None, via_main=False) -
         path = cfg["save_path"].rstrip("/") + ".yaml"  # the handler writes its own config.yaml
         with open(path, "w") as f:
             yaml.safe_dump(cfg, f)
-        name = "VLSA" if cfg["task"] == "vlsa" else "SA"
         shipped = port_main.HANDLERS[name]
         port_main.HANDLERS[name] = Recorded
         try:
@@ -2853,11 +2904,10 @@ def expected_launches(handler, launches, variant) -> dict:
     model's kernels (co-attention forward and dQ, or ABMIL forward and
     backward); none of any other.  `variant` None: no kernel at all (a
     model whose pooling is plain ops)."""
-    from vlsa_tpu_torch.runner.train import make_dataset
     cfg = handler.cfg
     epochs = len(handler.timings["epochs"])
     n_train = len(handler.trainer.batcher)
-    test_set = make_dataset(cfg, handler.data_meta, handler.data_split["test"])
+    test_set = handler.prepare_dataset(handler.data_split["test"], "test")
     n_test = -(-len(test_set) // cfg.get("eval_batch_size", cfg["bp_every_batch"]))
     fwd, bwd = (("coattn_fwd", "coattn_bwd_dq") if cfg["task"] == "vlsa"
                 else ("abmil_fwd", "abmil_bwd"))
@@ -4021,6 +4071,356 @@ def phase_zoo(torch, ab, co, device, card, tmp):
     return {"inputs": {k: v for k, v in aux.items() if not k.endswith("_dir")},
             "runs": runs, "flagship": flagship}
 
+# ---------------------------------------------------------------- phase 3p
+
+def write_clf_table(tmp, classes: int) -> str:
+    """A CLF label table of fold 0's slides (patient_id, pathology_id,
+    label): one class a patient, drawn uniformly from CLF_LABEL_SEED."""
+    import csv
+    import numpy as np
+    meta, split, _sids = fold0_slides()
+    rng = np.random.default_rng(CLF_LABEL_SEED + classes)
+    path = os.path.join(tmp, f"clf_labels_{classes}.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["patient_id", "pathology_id", "label"])
+        for pid in split["train"] + split["test"]:
+            label = int(rng.integers(0, classes))
+            for sid in meta.collect_info_by_pids([pid])[1][pid]:
+                w.writerow([pid, sid, label])
+    return path
+
+
+def clf_metrics_from_csv(handler, save_path, what) -> dict:
+    """Each split's metrics recomputed by the port's evaluator from the run's
+    own prediction CSV must equal what the run reported (metrics.jsonl's
+    last evaluation of the split), exactly: the CSV keeps the float32
+    values."""
+    import numpy as np
+    from vlsa_tpu_torch.data.io import read_prediction_clf
+    with open(os.path.join(save_path, "metrics.jsonl")) as f:
+        evals = [e for e in map(json.loads, f) if e["event"] == "eval"]
+    out = {}
+    for split in sorted(handler.uid):
+        prefix = f"lastckpt/train/{split}/pred/"
+        path = os.path.join(save_path, f"clf_train_last_pred_{split}.csv")
+        if not os.path.exists(path):
+            continue
+        reported = [e for e in evals if prefix + "auc" in e][-1]
+        got = handler.evaluator.compute(read_prediction_clf(path), handler.metrics_list)
+        for k, v in got.items():
+            want = reported[prefix + k]
+            check(v == want or (np.isnan(v) and np.isnan(want)),
+                  f"{what} {split}: {k} from the CSV {v!r}, the run reported {want!r}")
+        out[split] = got
+    check(out, f"{what}: no prediction CSV")
+    return out
+
+
+def clf_serve_vs_cpu(torch, ab, co, handler, what) -> dict:
+    """One request of BAGS_PER_REQUEST bags (f32, N~8192) served by the
+    handler's model on the card (one f32 ABMIL forward launched) against the
+    same weights on the CPU (the plain pooling): probabilities within
+    TOL_LIFECYCLE_PROBS, finite, summing to 1."""
+    from vlsa_tpu_torch.runner import sa
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_bags
+
+    bags = request_bags(STORE_BAGS, 0, BAGS_PER_REQUEST)
+    engine = InferEngine(handler.model, feats_dtype="float32", precompute_inv=False)
+    ab.reset_launches()
+    co.reset_launches()
+    t0 = time.perf_counter()
+    card = engine.predict(bags)["probs"]
+    ms = 1e3 * (time.perf_counter() - t0)
+    launched = only_launches(all_launches(ab, co), "abmil_fwd", "f32", 1)
+    check(launched, f"{what}: a request launched {all_launches(ab, co)}, not one f32 ABMIL "
+                    f"forward")
+    cpu_model = sa.build_model(handler.cfg, device="cpu", state_dict={
+        k: v.detach().cpu() for k, v in handler.model.state_dict().items()})
+    cpu = InferEngine(cpu_model, feats_dtype="float32", precompute_inv=False).predict(bags)["probs"]
+    C = int(str(handler.cfg["net_dims"]).split("-")[-1])
+    gap = float(abs(card - cpu).max())
+    check(card.shape == (BAGS_PER_REQUEST, C) and bool((abs(card.sum(-1) - 1) <= 1e-5).all()),
+          f"{what}: served probabilities {card.shape}")
+    check(gap <= TOL_LIFECYCLE_PROBS, f"{what}: served probabilities {gap:.3e} from the CPU's")
+    log(f"{what}: a request of {BAGS_PER_REQUEST} bags {ms:.1f} ms (host prep included), "
+        f"card against CPU max|p| gap {gap:.3e} (tol {TOL_LIFECYCLE_PROBS:g})")
+    return {"serve_ms": ms, "serve_gap_to_cpu": gap}
+
+
+def profiled_kernels(torch, step, batch, family, expect, what) -> dict:
+    """The kernels of one `step(batch)` on the card whose names hold
+    `family`, by name: launches (the profiler's count) and ms.  A trace here
+    can miss kernels (one dropped a step's forward, another recorded no
+    device time at all), so up to PROFILE_TRIES steps are profiled and the
+    first trace that names every prefix of `expect` is kept, else the
+    fullest, marked incomplete: the launch counters, not the profiler,
+    decide the phase."""
+    import types
+    best = {}
+    for _ in range(PROFILE_TRIES):
+        prof = profile_step(torch, types.SimpleNamespace(train_step=step), batch, family=family)
+        got = {k: {"launches": prof["counts"][k], "ms": prof["kernels"][k]}
+               for k in prof["counts"]}
+        if all(any(k.startswith(p) for k in got) for p in expect):
+            log(f"{what}: the profiled kernels {got}")
+            return {"kernels": got, "complete": True}
+        if len(got) >= len(best):
+            best = got
+    log(f"{what}: {PROFILE_TRIES} profiler traces missed some of {list(expect)}; the fullest "
+        f"{best} (the launch counters above decide)")
+    return {"kernels": best, "complete": False}
+
+
+def clf_run(torch, ab, co, device, card, tmp, npy_dir, table) -> dict:
+    """CLF binary: 1 epoch through `main --handler CLF` with every counter from
+    0 before: native batches, the exact ABMIL f32 launches (rows 7 and 8),
+    finite metrics, the reloaded checkpoint's test probabilities bit for bit
+    the in-memory model's, the metrics again from the CSVs; then a request
+    against the CPU and a profiled training step."""
+    import numpy as np
+    name = "clf_binary_f32_npy"
+    cfg = dict(CLF_CFG, path_table=table, path_patch=npy_dir, save_path=os.path.join(tmp, name),
+               data_split_path=os.path.join(ROOT, "assets/data_split/5foldcv/{0}/splits_{2}.csv"))
+    run = exec_handler(torch, ab, co, device, cfg, via_main=True)
+    handler, launches = run["handler"], run["launches"]
+    check(run["batches"]["numpy"] == 0 and run["batches"]["native"] > 0,
+          f"{name}: batches by path {run['batches']}: every batch must be native")
+    expected = expected_launches(handler, launches, "f32")
+    check(launches == expected and launches["abmil_fwd"]["f32"] > 0
+          and launches["abmil_bwd"]["f32"] > 0,
+          f"{name}: launches {launches}, expected {expected}")
+    with open(os.path.join(cfg["save_path"], "metrics.jsonl")) as f:
+        values = [v for e in map(json.loads, f) if e["event"] == "eval"
+                  for k, v in e.items() if k not in ("event", "at", "ts")]
+    check(values and all(np.isfinite(v) for v in values), f"{name}: a non-finite metric")
+    in_memory, reloaded = run["passes"]["test"][-2], run["passes"]["test"][-1]
+    check(np.array_equal(in_memory["y_hat"], reloaded["y_hat"]),
+          f"{name}: the reloaded checkpoint's test probabilities differ by "
+          f"{np.abs(in_memory['y_hat'] - reloaded['y_hat']).max():.3e}")
+    from_csv = clf_metrics_from_csv(handler, cfg["save_path"], name)
+    log_run_times(name, handler.timings["epochs"], run["eval_passes"], card)
+    log(f"{name}: {len(handler.trainer.dataset)} training slides, exec {run['exec_s']:.1f} s, "
+        f"peak device memory {run['peak_device_bytes'] / 2**30:.2f} GiB, launches "
+        f"{ {k: {v: n for v, n in c.items() if n} for k, c in launches.items()} }, on {card}; "
+        f"final metrics {run['metrics']}")
+    rec = {"config": {k: v for k, v in cfg.items() if k != "save_path"}, "card": card,
+           "reduced": CLF_REDUCED, "train_slides": len(handler.trainer.dataset),
+           "exec_s": run["exec_s"], "epochs": handler.timings["epochs"],
+           "eval_passes": run["eval_passes"], "batches": run["batches"], "launches": launches,
+           "metrics": run["metrics"], "metrics_from_csv": from_csv,
+           "peak_device_bytes": run["peak_device_bytes"], "host_memory": run["host_memory"],
+           "reload_bit_identical": True}
+    rec.update(clf_serve_vs_cpu(torch, ab, co, handler, name))
+    batch = handler.trainer.batcher.make_batch(range(handler.cfg["bp_every_batch"]))
+    rec["profiled_step"] = profiled_kernels(torch, handler.engine.train_step, batch, "abmil",
+                                            ("abmil_fwd", "abmil_bwd"), f"{name} training step")
+    del handler, run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def clf_served_only(torch, ab, co, device, card, tmp, npy_dir, table) -> dict:
+    """CLF multi-class, served only: the test split's evaluation pass of the
+    seeded model (counters from 0: only f32 ABMIL forwards, one a batch),
+    its metrics again from its CSV, a request against the CPU, the
+    request's kernels from the profiler."""
+    from vlsa_tpu_torch.runner.clf import CLFHandler
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_bags
+    name = "clf_multi_f32_npy"
+    cfg = dict(CLF_CFG, **CLF_MULTI, path_table=table, path_patch=npy_dir,
+               save_path=os.path.join(tmp, name),
+               data_split_path=os.path.join(ROOT, "assets/data_split/5foldcv/{0}/splits_{2}.csv"))
+    handler = CLFHandler(cfg, device=device)
+    test_set = handler.prepare_dataset(handler.data_split["test"], "test")
+    handler.uid["test"] = test_set.uid
+    torch.cuda.reset_peak_memory_stats()
+    ab.reset_launches()
+    co.reset_launches()
+    t0 = time.perf_counter()
+    metrics = handler._eval_all({"test": test_set}, ckpt_type="last")
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    launches = all_launches(ab, co)
+    n_batches = -(-len(test_set) // cfg["bp_every_batch"])
+    check(only_launches(launches, "abmil_fwd", "f32", n_batches),
+          f"{name}: launches {launches}, expected {n_batches} f32 ABMIL forwards")
+    from_csv = clf_metrics_from_csv(handler, cfg["save_path"], name)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name}: the test pass of {len(test_set)} slides {pass_s:.1f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, launches {launches}, on {card}; metrics {from_csv}")
+    rec = {"config": {k: v for k, v in cfg.items() if k != "save_path"}, "card": card,
+           "reduced": CLF_REDUCED, "test_slides": len(test_set), "pass_s": pass_s,
+           "launches": all_launches(ab, co), "metrics": metrics, "metrics_from_csv": from_csv,
+           "peak_device_bytes": peak}
+    rec.update(clf_serve_vs_cpu(torch, ab, co, handler, name))
+    engine = InferEngine(handler.model, feats_dtype="float32", precompute_inv=False)
+    batch = engine.prepare(request_bags(STORE_BAGS, 1, BAGS_PER_REQUEST))
+    rec["profiled_request"] = profiled_kernels(torch, engine.forward, batch, "abmil",
+                                               ("abmil_fwd",), f"{name} request")
+    del handler, engine, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def write_clip_checkpoint(torch, path) -> dict:
+    """An OpenAI-CLIP-layout checkpoint of the HF api's text tower at its
+    published width (the tower's keys at the top level, no cls_emb; random
+    from CLIP_TEXT_SEED), a `visual.*` decoy and `logit_scale`: its tensors
+    by name."""
+    from vlsa_tpu_torch.models.text_encoder import make_text_tower
+    tower = make_text_tower("HF", generator=torch.Generator().manual_seed(CLIP_TEXT_SEED))
+    state = {conch_name(k)[len("text."):]: v.detach().clone()
+             for k, v in tower.state_dict().items()}
+    state.update({"visual.proj": torch.ones(768, 512),
+                  "logit_scale": torch.tensor(CLIP_LOGIT_SCALE)})
+    torch.save(state, path)
+    return state
+
+
+def text_api_serve(torch, co, device, cfg, what, written=None) -> dict:
+    """The flagship with `cfg`'s text api built on the card (the frozen bf16
+    tower; with `written`, imported from that checkpoint) and on the CPU
+    from its state dict; one bf16 request of BAGS_PER_REQUEST bags on each,
+    the text tower computing in f32 on both (f32_text_tower): one bf16
+    co-attention forward launched, probabilities within TOL_LIFECYCLE_PROBS."""
+    from vlsa_tpu_torch.runner.engine import InferEngine
+    from vlsa_tpu_torch.runner.serve import request_bags
+    from vlsa_tpu_torch.runner.vlsa import build_model
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    build_s = time.perf_counter() - t0
+    tower = model.prompt_encoder
+    check(tower.api == cfg["vlsa_api"] and tower.width == 512 and len(tower.resblocks) == 12
+          and not hasattr(tower, "cls_emb"),
+          f"{what}: tower {tower.api}, width {tower.width}, {len(tower.resblocks)} layers")
+    if written is not None:
+        hold_imported_tower(torch, model, written, what, prefix="",
+                            logit_scale=CLIP_LOGIT_SCALE)
+    cpu = build_model(cfg, device="cpu", state_dict={k: v.detach().cpu()
+                                                     for k, v in model.state_dict().items()})
+    bags = request_bags(cfg["path_patch"], 0, BAGS_PER_REQUEST)
+    probs = {}
+    for dev, m in (("card", model), ("cpu", cpu)):
+        engine = InferEngine(m, feats_dtype="bfloat16", precompute_inv=False)
+        with f32_text_tower(torch, m.prompt_encoder):
+            engine.text_precompute()
+        co.reset_launches()
+        t0 = time.perf_counter()
+        probs[dev] = engine.predict(bags)["probs"]
+        ms = 1e3 * (time.perf_counter() - t0)
+        if dev == "card":
+            serve_ms, launched = ms, dict(co.LAUNCHES)
+    check(launched == dict(dict.fromkeys(launched, 0), bf16=1),
+          f"{what}: a request launched {launched}, not one bf16 co-attention forward")
+    gap = float(abs(probs["card"] - probs["cpu"]).max())
+    check(probs["card"].shape == (BAGS_PER_REQUEST, 12)
+          and bool((abs(probs["card"].sum(-1) - 1) <= 1e-5).all()),
+          f"{what}: served probabilities {probs['card'].shape}")
+    check(gap <= TOL_LIFECYCLE_PROBS, f"{what}: served probabilities {gap:.3e} from the CPU's")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{what}: built in {build_s:.1f} s, text trim {model.text_trim_len}; a request of "
+        f"{BAGS_PER_REQUEST} bags {serve_ms:.1f} ms, card against CPU (f32 tower) max|p| gap "
+        f"{gap:.3e} (tol {TOL_LIFECYCLE_PROBS:g}), peak device memory {peak / 2**30:.2f} GiB, "
+        f"on the card")
+    del model, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "serve_ms": serve_ms, "serve_gap_to_cpu": gap,
+            "peak_device_bytes": peak}
+
+
+def text_api_run(torch, ab, co, device, card, tmp, npy_dir, api, extra) -> dict:
+    """VLSA with `vlsa_api` `api`: a request served against the CPU, then 1
+    epoch from 3h's bf16 .npy store through `main` (native batches, the exact
+    bf16 co-attention launches: rows 1 and 6; finite metrics, C-indices in
+    [0, 1], the reload bit for bit) and a profiled training step."""
+    import numpy as np
+    from vlsa_tpu_torch.config import serving_config
+    name = f"vlsa_{api.lower()}_bf16_npy"
+    written = None
+    if api == "HF":
+        written = write_clip_checkpoint(
+            torch, os.path.join(extra["path_clip_model"], extra["vlsa_txt_encoder_name"],
+                                "pytorch_model.bin"))
+    served = text_api_serve(torch, co, device, serving_config(
+        dict(FLAGSHIP_CFG, vlsa_api=api, **extra)), f"{name} serve", written)
+    cfg = dict(LIFECYCLE_VLSA_CFG, vlsa_api=api, **extra, feats_dtype="bfloat16",
+               path_patch=npy_dir, feat_format="npy", save_path=os.path.join(tmp, name))
+    run = exec_handler(torch, ab, co, device, cfg, via_main=True)
+    handler, launches = run["handler"], run["launches"]
+    check(handler.model.prompt_encoder.api == api, f"{name}: the tower's api")
+    check(run["batches"]["numpy"] == 0 and run["batches"]["native"] > 0,
+          f"{name}: batches by path {run['batches']}: every batch must be native")
+    expected = expected_launches(handler, launches, "bf16")
+    check(launches == expected and launches["coattn_fwd"]["bf16"] > 0
+          and launches["coattn_bwd_dq"]["bf16"] > 0,
+          f"{name}: launches {launches}, expected {expected}")
+    with open(os.path.join(cfg["save_path"], "metrics.jsonl")) as f:
+        evals = [e for e in map(json.loads, f) if e["event"] == "eval"]
+    values = {k: v for e in evals for k, v in e.items() if k not in ("event", "at", "ts")}
+    check(len(evals) == 4 and all(np.isfinite(v) for v in values.values()),
+          f"{name}: {len(evals)} evaluations, a non-finite metric")
+    check(all(0.0 <= v <= 1.0 for k, v in values.items() if k.endswith(("/c_index", "/c_index2"))),
+          f"{name}: a C-index outside [0, 1]")
+    in_memory, reloaded = run["passes"]["test"][-2], run["passes"]["test"][-1]
+    check(np.array_equal(in_memory["y_hat"], reloaded["y_hat"]),
+          f"{name}: the reloaded checkpoint's test probabilities differ by "
+          f"{np.abs(in_memory['y_hat'] - reloaded['y_hat']).max():.3e}")
+    log_run_times(name, handler.timings["epochs"], run["eval_passes"], card)
+    log(f"{name}: exec {run['exec_s']:.1f} s, peak device memory "
+        f"{run['peak_device_bytes'] / 2**30:.2f} GiB, launches "
+        f"{ {k: {v: n for v, n in c.items() if n} for k, c in launches.items()} }, on {card}; "
+        f"final metrics {run['metrics']}")
+    rec = {"config": {k: v for k, v in cfg.items() if k != "save_path"}, "card": card,
+           "reduced": STORE_REDUCED, "served": served, "exec_s": run["exec_s"],
+           "epochs": handler.timings["epochs"], "eval_passes": run["eval_passes"],
+           "batches": run["batches"], "launches": launches, "metrics": run["metrics"],
+           "peak_device_bytes": run["peak_device_bytes"], "host_memory": run["host_memory"],
+           "reload_bit_identical": True}
+    batch = handler.trainer.batcher.make_batch(range(handler.cfg["bp_every_batch"]))
+    rec["profiled_step"] = profiled_kernels(torch, handler.engine.train_step, batch, "coattn",
+                                            ("coattn_fwd", "coattn_bwd"), f"{name} training step")
+    del handler, run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_clf_and_text_apis(torch, ab, co, device, card, tmp):
+    """Phase 3p: the CLF handler (binary 1 epoch, multi-class served) and
+    VLSA on the CLIP and HF text towers, from phase 3h's stores in `tmp`;
+    prints the launches this phase adds to rows 1, 6, 7 and 8."""
+    from vlsa_tpu_torch.models.hf_export import export_hf_clip_tokenizer
+
+    npy_dir = os.path.join(tmp, "npy")
+    out = {"clf_binary": clf_run(torch, ab, co, device, card, tmp, npy_dir,
+                                 write_clf_table(tmp, 2)),
+           "clf_multi": clf_served_only(torch, ab, co, device, card, tmp, npy_dir,
+                                        write_clf_table(tmp, 3))}
+    hf_root = os.path.join(tmp, "hf_clip")
+    export_hf_clip_tokenizer(os.path.join(hf_root, "hf"))
+    for api in TEXT_APIS:
+        extra = (dict(path_clip_model=hf_root, vlsa_txt_encoder_name="hf") if api == "HF"
+                 else {})
+        out[api] = text_api_run(torch, ab, co, device, card, tmp, npy_dir, api, extra)
+    runs = [out["clf_binary"], out["clf_multi"], out["CLIP"], out["HF"]]
+    rows = {"1 coattn_fwd[bf16]": sum(r["launches"]["coattn_fwd"]["bf16"] for r in runs),
+            "6 coattn_bwd_dq[bf16]": sum(r["launches"]["coattn_bwd_dq"]["bf16"] for r in runs),
+            "7 abmil_fwd[f32]": sum(r["launches"]["abmil_fwd"]["f32"] for r in runs),
+            "8 abmil_bwd[f32]": sum(r["launches"]["abmil_bwd"]["f32"] for r in runs)}
+    check(all(n > 0 for n in rows.values()), f"phase 3p: a row never launched: {rows}")
+    log(f"phase 3p launches by row (the runs' main paths): {rows}")
+    out["rows"] = rows
+    return out
+
+
 # ---------------------------------------------------------------- phase 3i
 
 def write_conch_checkpoint(path, torch) -> dict:
@@ -4070,19 +4470,22 @@ def conch_name(name: str) -> str:
     return f"text.transformer.resblocks.{i}.{rest}"
 
 
-def hold_imported_tower(torch, model, written, what) -> None:
+def hold_imported_tower(torch, model, written, what, prefix="text.",
+                        logit_scale=ZS_LOGIT_SCALE) -> None:
     """The model's text tower is the file's, tensor for tensor (bf16 where
     the frozen tower stores its matmul weights so), every file tensor
-    taken; its logit scale starts at the file's."""
+    taken (the tower's keys under `prefix`: CONCH's `text.`, CLIP's none);
+    its logit scale starts at the file's."""
     tower = model.prompt_encoder.state_dict()
-    check(len(tower) == sum(k.startswith("text.") for k in written),
-          f"{what}: {len(tower)} tower tensors, the file has "
-          f"{sum(k.startswith('text.') for k in written)}")
+    keys = [k for k in written if k.startswith(prefix) and not k.startswith("visual.")
+            and k != "logit_scale" and not k.startswith("text_decoder.")]
+    check(len(tower) == len(keys), f"{what}: {len(tower)} tower tensors, the file has "
+                                   f"{len(keys)}")
     for name, t in tower.items():
-        want = written[conch_name(name)].to(t.dtype)
+        want = written[prefix + conch_name(name)[len("text."):]].to(t.dtype)
         check(torch.equal(t.cpu(), want), f"{what}: the tower's {name} is not the file's")
-    check(model.logit_scale.item() == ZS_LOGIT_SCALE,
-          f"{what}: logit scale {model.logit_scale.item()}, the file's is {ZS_LOGIT_SCALE}")
+    check(model.logit_scale.item() == logit_scale,
+          f"{what}: logit scale {model.logit_scale.item()}, the file's is {logit_scale}")
 
 
 def zero_shot_cfg(tmp, ckpt, store, feats_dtype, pooling) -> dict:
@@ -5332,6 +5735,8 @@ def main(argv=None) -> int:
             queries = timed("3l", phase_queries, torch, ab, co, device, card, stores_tmp)
             optim = timed("3n", phase_optimizers, torch, ab, co, device, card, stores_tmp)
             zoo = timed("3o", phase_zoo, torch, ab, co, device, card, stores_tmp)
+            clf_text = timed("3p", phase_clf_and_text_apis, torch, ab, co, device, card,
+                             stores_tmp)
         finally:
             kept.clear()
             shutil.rmtree(stores_tmp, ignore_errors=True)
@@ -5346,11 +5751,13 @@ def main(argv=None) -> int:
         return 1
 
     kernels = []
-    # the whole runs' launches: phase 3g's, each of phase 3h's, 3i's and 3j's
+    # the whole runs' launches: phase 3g's, each of phase 3h's, 3i's, 3j's,
+    # 3k's, 3m's, 3n's and 3p's
     runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values()) \
         + list(zero_shot["runs"].values()) + [zero_shot["flagship"]] \
         + list(interpretation["runs"].values()) + list(sa_1024["runs"].values()) \
-        + list(sa_2560["runs"].values()) + [optim["run"]]
+        + list(sa_2560["runs"].values()) + [optim["run"]] \
+        + [clf_text[k] for k in ("clf_binary", "clf_multi", "CLIP", "HF")]
 
     def run_launches(family, variant):
         return sum(r["launches"][family][variant] for r in runs)
@@ -5507,7 +5914,8 @@ def main(argv=None) -> int:
               "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
               "store_runs": store_runs, "zero_shot": zero_shot,
               "interpretation": interpretation, "sa_1024": sa_1024, "sa_2560": sa_2560,
-              "optimizers": optim, "zoo": zoo, "query_errors": errs_q,
+              "optimizers": optim, "zoo": zoo, "clf_text_apis": clf_text,
+              "query_errors": errs_q,
               "queries": queries, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:

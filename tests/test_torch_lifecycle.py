@@ -349,16 +349,18 @@ def test_main_multi_run_writes_each_grid_run(tmp_path):
 
 
 def test_main_runs_vlsa_and_refuses_clf(tmp_path):
+    """The CLF handler runs `task: clf` configs (tests/test_torch_clf.py); it
+    refuses a VLSA config, as vlsa_tpu's asserts."""
     path, _cfg = write_small_config(tmp_path, "vlsa")
     metrics = port_main.main(["--config", path, "--handler", "VLSA", "--device", "cpu"])
     assert 0.0 <= dict(metrics["test"])["pred_c_index"] <= 1.0
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(ValueError, match="Expected task = `clf`"):
         port_main.main(["--config", path, "--handler", "CLF", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("key,value,item", [("vlsa_api", "CLIP", "A.15"),
-                                            ("ckpt_backend", "orbax", "A.6"),
-                                            ("mesh", {"data": 4}, "A.17")])
+@pytest.mark.parametrize("key,value,item", [("ckpt_backend", "orbax", "A.6"),
+                                            ("mesh", {"data": 4}, "A.17"),
+                                            ("distributed", True, "A.17")])
 def test_unported_settings_are_refused(tmp_path, key, value, item):
     _path, cfg = write_small_config(tmp_path, "vlsa", **{key: value})
     with pytest.raises(NotImplementedError, match=item):

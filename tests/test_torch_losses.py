@@ -138,7 +138,8 @@ def test_registry_matches():
         np.testing.assert_allclose(
             float(tl[name](torch.from_numpy(pred), torch.from_numpy(t), torch.from_numpy(e))),
             float(jl[name](jnp.asarray(pred), jnp.asarray(t), jnp.asarray(e))), rtol=1e-5)
+    assert list(treg.load_loss("clf", loss_type=["CE"])) == ["CE"]  # tests/test_torch_clf.py
     with pytest.raises(NotImplementedError):
-        treg.load_loss("clf", loss_type=["CE"])
+        treg.load_loss("seg", loss_type=["CE"])
     with pytest.raises(ValueError):
         treg.load_loss("sa", loss_type=["NoSuchLoss"])

@@ -1,11 +1,16 @@
 """The port's pure-Python CONCH tokenizer gives the ids of the JAX package's
-transformers-backed one, exactly: raw and full ids, and token counts."""
+transformers-backed one, exactly: raw and full ids, and token counts.  The
+"unicode" texts are tests/test_torch_clip_text.py's, where CLIP's split
+needs the exact Unicode classes; the CONCH split's `re` rewrite gives the
+same ids on them (byte-level BPE marks no word end), and "ΟΔΟΣ" holds the
+normaliser's per-character lowercase (no final sigma)."""
 import json
 import os
 
 import numpy as np
 import pytest
 
+from test_torch_clip_text import OVERFLOW, UNICODE_CASES
 from vlsa_tpu.models.tokenizer import Tokenizer as JaxTokenizer
 from vlsa_tpu_torch.models.tokenizer import Tokenizer
 
@@ -36,8 +41,9 @@ def tokenizers():
     return Tokenizer(), JaxTokenizer(api="CONCH")
 
 
-@pytest.mark.parametrize("texts", [_prototype_texts(), _prompt_texts(), CRAFTED],
-                         ids=["prototypes", "prompts", "crafted"])
+@pytest.mark.parametrize("texts", [_prototype_texts(), _prompt_texts(), CRAFTED,
+                                   UNICODE_CASES + [OVERFLOW]],
+                         ids=["prototypes", "prompts", "crafted", "unicode"])
 def test_ids_match_transformers(tokenizers, texts):
     port, ref = tokenizers
     for raw in (True, False):

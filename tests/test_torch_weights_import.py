@@ -181,9 +181,11 @@ def test_a_tower_of_another_shape_raises(tmp_path, change):
 
 
 def test_only_the_conch_api_is_imported(tmp_path):
+    """Every api of the text towers imports (CLIP and HF:
+    tests/test_torch_clip_text.py); a name that is none of them is refused."""
     write_conch_checkpoint(tmp_path / "m.bin")
-    with pytest.raises(NotImplementedError, match="A.15"):
-        torch_import.import_text_tower_from_checkpoint(str(tmp_path / "m.bin"), api="CLIP")
+    with pytest.raises(ValueError, match="invalid api"):
+        torch_import.import_text_tower_from_checkpoint(str(tmp_path / "m.bin"), api="CoCa")
 
 
 def test_loader_takes_tensors_and_refuses_pickled_code(tmp_path):

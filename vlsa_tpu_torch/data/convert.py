@@ -20,11 +20,13 @@ has one}.  DeepAttnMISL's cluster files (`<pid>.npy`) need no conversion.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.machinery
 import os
 import os.path as osp
 import sys
 import types
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -35,34 +37,39 @@ from .quant import feats_inv_norms, quantize_feats_int8
 SOURCE_FORMATS = (".pt", ".h5", ".npy")
 
 
+def _convert_file(src: str, dst: str, fname: str, dtype: str) -> None:
+    stem = osp.splitext(fname)[0]
+    arr = read_patch_data(osp.join(src, fname))
+    if dtype == "int8":
+        q, scale = quantize_feats_int8(arr.astype(np.float32))
+        # through a file object: np.savez would add ".npz" to the name
+        with open(osp.join(dst, stem + ".q8npz"), "wb") as f:
+            np.savez(f, q=q, scale=scale, inv=feats_inv_norms(q))
+    else:
+        np.save(osp.join(dst, stem + ".npy"),
+                arr.astype(np.float16 if dtype == "f16" else np.float32))
+
+
 def convert_dir(src: str, dst: str, f16: bool = False, verbose: bool = True,
                 dtype: Optional[str] = None) -> int:
     """Convert each slide file of `src` (sorted by name) into `dst`; returns
     the count.  `dtype`: None or 'f32' (.npy f32), 'f16' (.npy f16, also with
-    `f16`), 'int8' (.q8npz)."""
+    `f16`), 'int8' (.q8npz).  The slides are converted by up to 8 threads
+    at once (numpy's reads, casts and writes run outside the interpreter
+    lock)."""
     if dtype not in (None, "f32", "f16", "int8"):
         raise ValueError(f"dtype must be f32, f16 or int8, got {dtype!r}")
+    dtype = "f16" if f16 else (dtype or "f32")
     os.makedirs(dst, exist_ok=True)
-    n = 0
-    for fname in sorted(os.listdir(src)):
-        stem, ext = osp.splitext(fname)
-        if ext not in SOURCE_FORMATS:
-            continue
-        arr = read_patch_data(osp.join(src, fname))
-        if dtype == "int8":
-            q, scale = quantize_feats_int8(arr.astype(np.float32))
-            # through a file object: np.savez would add ".npz" to the name
-            with open(osp.join(dst, stem + ".q8npz"), "wb") as f:
-                np.savez(f, q=q, scale=scale, inv=feats_inv_norms(q))
-        else:
-            np.save(osp.join(dst, stem + ".npy"),
-                    arr.astype(np.float16 if (f16 or dtype == "f16") else np.float32))
-        n += 1
-        if verbose and n % 100 == 0:
-            print(f"[convert] {n} files...")
+    names = [f for f in sorted(os.listdir(src)) if osp.splitext(f)[1] in SOURCE_FORMATS]
+    convert = functools.partial(_convert_file, src, dst, dtype=dtype)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for n, _ in enumerate(pool.map(convert, names), 1):
+            if verbose and n % 100 == 0:
+                print(f"[convert] {n} files...")
     if verbose:
-        print(f"[convert] wrote {n} feature files to {dst}")
-    return n
+        print(f"[convert] wrote {len(names)} feature files to {dst}")
+    return len(names)
 
 
 class _Plain:

@@ -128,3 +128,37 @@ def save_prediction_surv(patient_id, y_true, y_pred, save_path, **kws):
         writer.writerow(header)
         for i, pid in enumerate(patient_id):
             writer.writerow([pid] + [_csv_cell(c[i]) for c in cols])
+
+
+def save_prediction_clf(uids, y_true, y_pred, save_path, binary=True, **kws):
+    """Classification prediction CSV (vlsa_tpu/data/io.py::save_prediction_clf,
+    written with `csv` as `save_prediction_surv` is): columns uids, y and
+    y_hat = P(class 1) for a binary task, else y_hat_0..y_hat_{C-1}."""
+    y_true = np.squeeze(np.asarray(y_true))
+    y_pred = np.asarray(y_pred)
+    assert ((y_pred >= 0.0) & (y_pred <= 1.0)).all(), "Prediction must be probabilities."
+    assert len(uids) == len(y_true) == len(y_pred)
+    if binary:
+        header, cols = ["uids", "y", "y_hat"], [y_pred[:, 1]]
+    else:
+        header = ["uids", "y"] + [f"y_hat_{i}" for i in range(y_pred.shape[-1])]
+        cols = list(y_pred.T)
+    with open(save_path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(header)
+        for i, uid in enumerate(uids):
+            writer.writerow([uid, _csv_cell(y_true[i])] + [_csv_cell(c[i]) for c in cols])
+
+
+def read_prediction_clf(path: str) -> dict:
+    """A CSV of `save_prediction_clf` back as an evaluator's input: {"uid",
+    "y", "y_hat"}, the values as the float32 numbers written (a binary
+    file's y_hat as [1 - P(1), P(1)])."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], rows[1:]
+    vals = np.array([[np.float32(x) for x in r[1:]] for r in body], np.float32)
+    y_hat = vals[:, 1:]
+    if header[2:] == ["y_hat"]:
+        y_hat = np.concatenate([1.0 - y_hat, y_hat], axis=1)
+    return {"uid": [r[0] for r in body], "y": vals[:, 0], "y_hat": y_hat}

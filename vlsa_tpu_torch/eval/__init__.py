@@ -1,7 +1,7 @@
 """The survival evaluator (counterpart of vlsa_tpu/eval): Kaplan-Meier,
 C-index, IPCW Brier and IBS, MAE, D-calibration, Breslow, the SurvivalEVAL
-facade and the task evaluators.  The classification metrics are not ported
-yet (ROADMAP.md §A.11)."""
+facade and the task evaluators, and the classification evaluators
+(clf_metrics: scikit-learn's metrics in numpy)."""
 from .km import KaplanMeier, KaplanMeierArea  # noqa: F401
 from .curves import (  # noqa: F401
     predict_mean_survival_time,
@@ -26,3 +26,4 @@ from .evaluators import (  # noqa: F401
     CoxSurvEvaluator,
     RegSurvEvaluator,
 )
+from .clf_metrics import BinClfEvaluator, MultiClfEvaluator  # noqa: F401

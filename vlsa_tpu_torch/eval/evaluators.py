@@ -1,5 +1,5 @@
-"""Task-level survival evaluators and their registry (counterpart of
-vlsa_tpu/eval/evaluators.py).
+"""Task-level survival evaluators and the registry of every task's
+evaluators (counterpart of vlsa_tpu/eval/evaluators.py).
 
 The NLL evaluator (hazard or incidence outputs: NLL, NLL-IF, VL, VL-IF), the
 Cox evaluator (a Breslow baseline fitted on the training pass) and the
@@ -17,6 +17,7 @@ import torch
 
 from ..losses import surv as _surv_losses
 from .breslow import BreslowEstimator
+from .clf_metrics import BinClfEvaluator, MultiClfEvaluator
 from .concordance import concordance_index
 from .survival_evaluator import SurvivalEvaluator
 
@@ -307,8 +308,7 @@ def load_evaluator(task, *args, **kws):
     """task x name -> evaluator."""
     name = args[0]
     if task == "clf":
-        raise NotImplementedError("the classification evaluators are not ported yet "
-                                  "(ROADMAP.md §A.11, CLF)")
+        return {"Binary": BinClfEvaluator, "Multi-class": MultiClfEvaluator}[name](**kws)
     if task == "sa":
         if name == "Reg":
             return RegSurvEvaluator(**kws)

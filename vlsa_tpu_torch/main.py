@@ -1,6 +1,6 @@
 """The experiment command line (counterpart of main.py):
 
-    python -m vlsa_tpu_torch.main --config <yaml> --handler {SA,VLSA} \\
+    python -m vlsa_tpu_torch.main --config <yaml> --handler {SA,VLSA,CLF} \\
         [--multi_run] [--sleep N] [--device cuda|cpu]
 
 Trains and evaluates one run of a config, or with `--multi_run` every run
@@ -9,8 +9,8 @@ the abbreviated grid values (`-fold_0`, ...), as main.py names them.  A
 config with `test: True` evaluates `test_load_path`'s checkpoint instead, and
 one with `num_shot: 0` (configs/IFMLE/<cohort>/cfg_zero_shot_conch.yaml)
 evaluates zero-shot, over its grid of poolings and folds with `--multi_run`.
-Runs on CUDA unless `--device cpu` is given.  `--handler CLF` is refused:
-classification is not ported yet (ROADMAP.md §A.11).
+`--handler CLF` runs a `task: clf` config (slide classification,
+runner/clf.py).  Runs on CUDA unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -18,11 +18,12 @@ import argparse
 import time
 
 from .config import args_grid, convert_to_abbr, ignore_in_save_path, load_config, print_config
+from .runner.clf import CLFHandler
 from .runner.sa import SAHandler
 from .runner.vlsa import VLSAHandler
 from .utils.device import resolve_device
 
-HANDLERS = {"SA": SAHandler, "VLSA": VLSAHandler}
+HANDLERS = {"SA": SAHandler, "VLSA": VLSAHandler, "CLF": CLFHandler}
 
 
 def get_args(argv=None):
@@ -67,8 +68,6 @@ def multi_run_main(handler, config, sleep=0, device=None):
 
 def main(argv=None):
     cli = get_args(argv)
-    if cli["handler"] == "CLF":
-        raise NotImplementedError("the CLF handler is not ported yet (ROADMAP.md §A.11)")
     device = resolve_device(cli["device"])
     config = load_config(cli["config"])
     print_config(config)

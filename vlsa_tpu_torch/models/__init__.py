@@ -1,2 +1,2 @@
-"""Tokenizer, text tower, prompt learners, VLFAN and the assembled VLSA;
-DeepMIL and its registry; the CONCH visual model."""
+"""Tokenizers (CONCH, CLIP, HF-CLIP), text towers, prompt learners, VLFAN
+and the assembled VLSA; DeepMIL and its registry; the CONCH visual model."""

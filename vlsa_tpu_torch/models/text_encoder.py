@@ -1,10 +1,15 @@
-"""The CONCH text tower, driven by prompt embeddings (counterpart of
-vlsa_tpu/models/text_encoder.py, CONCH api).
+"""The text towers (CLIP, HF-CLIP, CONCH), driven by prompt embeddings or
+token ids (counterpart of vlsa_tpu/models/text_encoder.py):
 
-127 tokens plus an appended <cls> token, a causal mask plus the cls row's
-pad-key mask, ln_final on the pooled cls only, and a 768->512 projection.
+  * CONCH: 127 tokens plus an appended <cls> token, a causal mask plus the
+    cls row's pad-key mask, ln_final on the pooled cls only, a 768->512
+    projection, exact (erf) GELU;
+  * CLIP: a causal mask, ln_final on every token, pooling at the <eot>
+    position (the argmax of the pseudo tokens), QuickGELU x*sigmoid(1.702x);
+  * HF: as CLIP, with the pad keys (pseudo token 0) masked as well.
+
 Parameters keep the torch layout (`in_proj_weight [3D, D]`, weights as
-[out, in]).  GELU is exact (erf) and LayerNorm eps is 1e-5.
+[out, in]); LayerNorm eps is 1e-5.
 
 `compute_dtype=bfloat16` reproduces the JAX package's bf16 mode, whose
 matmuls take bf16 operands and accumulate in f32: the operands are rounded
@@ -75,11 +80,16 @@ class TorchMultiheadAttention(nn.Module):
         return _mm(ctx, self.out_proj_weight, cdt) + self.out_proj_bias
 
 
+def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN transformer block with an exact-GELU MLP."""
+    """Pre-LN transformer block with an exact-GELU MLP (QuickGELU with
+    `quick_gelu`, OpenAI's and HF's CLIP towers)."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
-                 compute_dtype=torch.float32,
+                 compute_dtype=torch.float32, quick_gelu: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         D = width
@@ -87,6 +97,7 @@ class ResidualAttentionBlock(nn.Module):
         fc_std = (2 * D) ** -0.5
         proj_std = (D ** -0.5) * ((2 * 12) ** -0.5)
         self.compute_dtype = compute_dtype
+        self.act = _quick_gelu if quick_gelu else F.gelu
         self.ln_1 = nn.LayerNorm(D, eps=1e-5)
         self.attn = TorchMultiheadAttention(D, heads, compute_dtype, generator)
         self.ln_2 = nn.LayerNorm(D, eps=1e-5)
@@ -99,7 +110,7 @@ class ResidualAttentionBlock(nn.Module):
         cdt = self.compute_dtype
         x = x + self.attn(self.ln_1(x), attn_mask)
         h = self.ln_2(x)
-        hid = F.gelu(_mm(h, self.c_fc_weight, cdt) + self.c_fc_bias)
+        hid = self.act(_mm(h, self.c_fc_weight, cdt) + self.c_fc_bias)
         return x + (_mm(hid, self.c_proj_weight, cdt) + self.c_proj_bias)
 
 
@@ -107,10 +118,22 @@ def causal_mask(L: int, device=None) -> torch.Tensor:
     return torch.triu(torch.full((L, L), NEG_INF, device=device), diagonal=1)
 
 
-def generate_pseudo_tokens(token_ids: np.ndarray, pad_id: int = 0) -> np.ndarray:
-    """CONCH pseudo tokens: 1..sentence_len at real-token positions, 0 at pads."""
+def generate_pseudo_tokens(token_ids: np.ndarray, api: str = "CONCH", pad_id: int = 0,
+                           eos_token_id: Optional[int] = None) -> np.ndarray:
+    """Pseudo tokens: 1..sentence_len at real-token positions, 0 at pads.  The
+    sentence ends at the <eot> id, the largest (CLIP), at `eos_token_id`
+    (HF), or before the first `pad_id` (CONCH)."""
     token_ids = np.asarray(token_ids)
-    idx_eot = (token_ids == pad_id).astype(np.int32).argmax(axis=-1) - 1
+    if api == "CLIP":
+        idx_eot = token_ids.argmax(axis=-1)
+    elif api == "CONCH":
+        idx_eot = (token_ids == pad_id).astype(np.int32).argmax(axis=-1) - 1
+    elif api == "HF":
+        if eos_token_id is None:
+            raise ValueError("the HF api's pseudo tokens need eos_token_id")
+        idx_eot = (token_ids == eos_token_id).astype(np.int32).argmax(axis=-1)
+    else:
+        raise ValueError(f"Got an invalid api ({api}).")
     pseudo = np.zeros_like(token_ids)
     for i in range(token_ids.shape[0]):
         sl = int(idx_eot[i]) + 1
@@ -118,15 +141,21 @@ def generate_pseudo_tokens(token_ids: np.ndarray, pad_id: int = 0) -> np.ndarray
     return pseudo
 
 
+APIS = ("CONCH", "CLIP", "HF")
+
+
 class TextTower(nn.Module):
-    """The CONCH text tower."""
+    """The text tower of `api` (see the module's docstring)."""
 
     def __init__(self, width: int = 768, heads: int = 12, layers: int = 12,
                  context_length: int = 128, vocab_size: int = 32007,
-                 output_dim: int = 512, pad_id: int = 0,
+                 output_dim: int = 512, pad_id: int = 0, api: str = "CONCH",
                  compute_dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if api not in APIS:
+            raise ValueError(f"Got an invalid api ({api}).")
+        self.api = api
         self.width = width
         self.context_length = context_length
         self.pad_id = pad_id
@@ -134,10 +163,11 @@ class TextTower(nn.Module):
         self.token_embedding = nn.Parameter(_normal((vocab_size, width), 0.02, generator))
         self.positional_embedding = nn.Parameter(
             _normal((context_length, width), 0.01, generator))
-        self.cls_emb = nn.Parameter(_normal((width,), 0.01, generator))
+        if api == "CONCH":
+            self.cls_emb = nn.Parameter(_normal((width,), 0.01, generator))
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, compute_dtype=compute_dtype,
-                                   generator=generator)
+                                   quick_gelu=api != "CONCH", generator=generator)
             for _ in range(layers))
         self.ln_final = nn.LayerNorm(width, eps=1e-5)
         self.text_projection = nn.Parameter(
@@ -145,7 +175,8 @@ class TextTower(nn.Module):
 
     @property
     def max_num_tokens(self) -> int:
-        return self.context_length - 1  # the last slot holds <cls>
+        # CONCH's last slot holds <cls>
+        return self.context_length - 1 if self.api == "CONCH" else self.context_length
 
     def _cls_mask(self, pseudo_tokens: torch.Tensor, L: int) -> torch.Tensor:
         """Additive [K, 1, L, L] mask in which only the appended <cls> row
@@ -163,43 +194,69 @@ class TextTower(nn.Module):
     def forward(self, prompts_embedding: Optional[torch.Tensor] = None,
                 prompts_pseudo_tokens: Optional[torch.Tensor] = None,
                 prompts_text: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Embeddings [K, L<=127, D] with pseudo tokens [K, L], or token ids
-        [K, 128] -> pooled text features [K, output_dim]."""
+        """Embeddings [K, L, D] with pseudo tokens [K, L], or token ids
+        (CONCH [K, 128]; CLIP and HF [K, L] with their pseudo tokens, which
+        CLIP can derive) -> pooled text features [K, output_dim].  L is at
+        most `max_num_tokens`."""
         device = self.token_embedding.device
         if prompts_text is not None:
-            if prompts_text.shape[1] != self.max_num_tokens + 1:
-                raise ValueError(f"expected {self.max_num_tokens + 1} token ids per text")
-            prompts_text = prompts_text[:, :-1]  # room for <cls>
+            if self.api == "CONCH":
+                if prompts_text.shape[1] != self.max_num_tokens + 1:
+                    raise ValueError(f"expected {self.max_num_tokens + 1} token ids per text")
+                prompts_text = prompts_text[:, :-1]  # room for <cls>
             if prompts_pseudo_tokens is None:
+                # the HF api raises here, as vlsa_tpu's does: it needs the eos id
                 prompts_pseudo_tokens = torch.as_tensor(generate_pseudo_tokens(
-                    prompts_text.cpu().numpy(), self.pad_id), device=device)
+                    prompts_text.cpu().numpy(), self.api, self.pad_id), device=device)
             x = self.token_embedding[prompts_text.to(device)]
         else:
             if prompts_embedding is None or prompts_pseudo_tokens is None:
                 raise ValueError("pass prompts_text, or prompts_embedding with "
                                  "prompts_pseudo_tokens")
             x = prompts_embedding
+        pseudo = prompts_pseudo_tokens.to(device)
         K, L, _ = x.shape
-        # trimmed prompts (L < 127) are exact: with causal attention the
-        # positions past the last real token cannot reach the cls readout;
-        # the cls token keeps its full-context positional row
+        # trimmed prompts (L < max_num_tokens) are exact: with causal
+        # attention the positions past the last real token cannot reach the
+        # <eot> or <cls> readout; CONCH's cls token keeps its full-context
+        # positional row
         if L > self.max_num_tokens:
             raise ValueError(f"at most {self.max_num_tokens} prompt tokens, got {L}")
         x = x + self.positional_embedding[:L]
-        cls_vec = self.cls_emb + self.positional_embedding[self.context_length - 1]
-        x = torch.cat([x, cls_vec.expand(K, 1, self.width)], dim=1)
-        L += 1
-        attn_mask = causal_mask(L, device)[None, None] + self._cls_mask(
-            prompts_pseudo_tokens.to(device), L)
+        if self.api == "CONCH":
+            cls_vec = self.cls_emb + self.positional_embedding[self.context_length - 1]
+            x = torch.cat([x, cls_vec.expand(K, 1, self.width)], dim=1)
+            L += 1
+            attn_mask = causal_mask(L, device)[None, None] + self._cls_mask(pseudo, L)
+        elif self.api == "HF":
+            pad_mask = torch.where(pseudo > 0, 0.0, NEG_INF)  # [K, L] over the keys
+            attn_mask = causal_mask(L, device)[None, None] + pad_mask[:, None, None, :]
+        else:
+            attn_mask = causal_mask(L, device)
         for blk in self.resblocks:
             x = blk(x, attn_mask)
-        return self.ln_final(x[:, -1]) @ self.text_projection
+        if self.api == "CONCH":
+            pooled = self.ln_final(x[:, -1])
+        else:
+            x = self.ln_final(x)
+            pooled = x[torch.arange(K, device=device), torch.argmax(pseudo, dim=-1)]
+        return pooled @ self.text_projection
 
 
-def make_text_tower(generator: Optional[torch.Generator] = None, **overrides) -> TextTower:
-    """The published CONCH tower (width 768, 12 heads, 12 layers, context
-    128, vocab 32007, output 512), with `overrides` applied."""
-    cfg = dict(width=768, heads=12, layers=12, context_length=128,
-               vocab_size=32007, output_dim=512)
-    cfg.update(overrides)
-    return TextTower(generator=generator, **cfg)
+# the published towers (vlsa_tpu/models/text_encoder.py::make_text_tower)
+TOWER_CONFIGS = {
+    "CONCH": dict(width=768, heads=12, layers=12, context_length=128, vocab_size=32007,
+                  output_dim=512),
+    "CLIP": dict(width=512, heads=8, layers=12, context_length=77, vocab_size=49408,
+                 output_dim=512),
+    "HF": dict(width=512, heads=8, layers=12, context_length=77, vocab_size=49408,
+               output_dim=512),
+}
+
+
+def make_text_tower(api: str = "CONCH", generator: Optional[torch.Generator] = None,
+                    **overrides) -> TextTower:
+    """The published tower of `api`, with `overrides` applied."""
+    if api not in TOWER_CONFIGS:
+        raise ValueError(f"Got an invalid api ({api}).")
+    return TextTower(api=api, generator=generator, **dict(TOWER_CONFIGS[api], **overrides))

@@ -1,7 +1,9 @@
 """VLSA construction (counterpart of vlsa_tpu/models/vlsa_build.py): the
-CONCH text tower, random or imported from a released checkpoint; a CoOp
-prompt learner (plain or rank, optionally warm-started from a
-CoOp-pretrained checkpoint) through the tower, or, with both of its
+text tower of `vlsa_api` (CONCH, CLIP or HF; models/text_encoder.py) with
+its tokenizer (models/tokenizer.py; HF's directory is
+`path_clip_model/<txt_encoder name>`), random or imported from a released
+checkpoint; a CoOp prompt learner (plain or rank, optionally warm-started
+from a CoOp-pretrained checkpoint) through the tower, or, with both of its
 embeddings frozen, its prompts encoded once; or the PromptAdapter over the
 template prompts; VLFAN with TaskRes text queries, or FeatMIL for zero-shot
 scoring.
@@ -80,13 +82,12 @@ def build_vlsa(text_encoder_cfg: dict, image_encoder_cfg: dict, prompt_learner_c
                vlsa_api: str = "CONCH", tower_overrides: Optional[dict] = None,
                seed: int = 0, device=None, state_dict: Optional[dict] = None,
                vl_weights: Optional[dict] = None,
-               pretrained_prompt_learner_cfg: Optional[dict] = None) -> Tuple[VLSA, Tokenizer]:
+               pretrained_prompt_learner_cfg: Optional[dict] = None,
+               path_clip_model: Optional[str] = None) -> Tuple[VLSA, Tokenizer]:
     """Build the VLSA model on `device` (CUDA unless "cpu" is asked for).
     `pretrained_prompt_learner_cfg["ckpt"]`: the CoOp-pretrained checkpoint
-    a `pretrained` CoOp learner starts from."""
-    if vlsa_api != "CONCH":
-        raise NotImplementedError(f"vlsa_api {vlsa_api!r}: this port has CONCH only "
-                                  f"(ROADMAP.md §A.15)")
+    a `pretrained` CoOp learner starts from; `path_clip_model`: the root of
+    the HF api's tokenizer directory."""
     pmt_name = prompt_learner_cfg["name"]
     if pmt_name not in ("CoOp", "Adapter"):
         raise ValueError(f"{pmt_name} is not a valid name of prompt learner.")
@@ -97,8 +98,8 @@ def build_vlsa(text_encoder_cfg: dict, image_encoder_cfg: dict, prompt_learner_c
     overrides = dict(tower_overrides or {})
     dtype = overrides.pop("dtype", None) or text_encoder_cfg.get("dtype") or "float32"
     overrides.pop("scan_layers", None)  # an XLA compile-time layout, same math
-    tower = make_text_tower(generator=generator, compute_dtype=COMPUTE_DTYPES[dtype],
-                            **overrides)
+    tower = make_text_tower(vlsa_api, generator=generator,
+                            compute_dtype=COMPUTE_DTYPES[dtype], **overrides)
     if vl_weights is not None:
         tower.load_state_dict(vl_weights["text_state"], strict=True)
     if state_dict is not None and any(k.startswith(_TOWER) for k in state_dict):
@@ -110,11 +111,14 @@ def build_vlsa(text_encoder_cfg: dict, image_encoder_cfg: dict, prompt_learner_c
             cast_frozen_tower_weights(tower)
     emb_table = tower.token_embedding.detach().float().numpy()
     tower.to(device)
-    tokenizer = Tokenizer()
+    tokenizer = Tokenizer(root=path_clip_model, name=text_encoder_cfg.get("name"),
+                          api=vlsa_api, context_length=tower.context_length)
 
     def encode_texts(token_ids: np.ndarray) -> np.ndarray:
         token_ids = np.asarray(token_ids)
-        pseudo = generate_pseudo_tokens(token_ids[:, :-1], tokenizer.pad_token_id)
+        # CONCH's last column is the <cls> slot
+        body = token_ids[:, :-1] if vlsa_api == "CONCH" else token_ids
+        pseudo = generate_pseudo_tokens(body, vlsa_api, eos_token_id=tokenizer.eos_token_id)
         with torch.inference_mode():
             out = tower(prompts_text=torch.as_tensor(token_ids, device=device),
                         prompts_pseudo_tokens=torch.as_tensor(pseudo, device=device))
@@ -195,4 +199,5 @@ def build_vlsa_from_config(cfg: dict, seed: Optional[int] = None, device=None,
         tower_overrides=cfg.get("_test_tower_overrides"),
         seed=cfg.get("seed", 0) if seed is None else seed, device=device,
         state_dict=state_dict, vl_weights=vl_weights,
-        pretrained_prompt_learner_cfg=pretrained_prompt_learner_cfg)
+        pretrained_prompt_learner_cfg=pretrained_prompt_learner_cfg,
+        path_clip_model=cfg.get("path_clip_model"))

@@ -174,6 +174,15 @@ class BaseHandler:
         """Extra arguments of the evaluator's `compute`."""
         return {}
 
+    def prepare_dataset(self, patient_ids, set_name: str):
+        """The dataset of split `set_name` (the training split's is the
+        trainer's)."""
+        return make_dataset(self.cfg, self.data_meta, patient_ids, train=set_name == "train")
+
+    def _finalize_cltor(self, cltor: dict) -> dict:
+        """A pass's collected arrays as the evaluator takes them."""
+        return cltor
+
     def func_load_lrs(self, cfg):
         if not cfg.get("lrs"):
             print("[setup] learning rate scheduler is disabled.")
@@ -195,11 +204,11 @@ class BaseHandler:
         print(f"[exec] with task = {cfg['task']}, arch = {cfg['arch']}.")
         train_set = self.trainer.dataset
         self.uid["train"] = train_set.uid
-        test_set = make_dataset(cfg, self.data_meta, self.data_split["test"])
+        test_set = self.prepare_dataset(self.data_split["test"], "test")
         self.uid["test"] = test_set.uid
         val_set = None
         if "validation" in self.data_split:
-            val_set = make_dataset(cfg, self.data_meta, self.data_split["validation"])
+            val_set = self.prepare_dataset(self.data_split["validation"], "validation")
             self.uid["validation"] = val_set.uid
 
         run_name = "train"
@@ -229,9 +238,8 @@ class BaseHandler:
     def exec_test(self):
         """Evaluate the split `test_path` with the checkpoint of `test_load_path`."""
         cfg = self.cfg
-        pids = self.data_split[cfg["test_path"]]
         # as vlsa_tpu: the split named "train" is the few-shot sample in a few-shot run
-        test_set = make_dataset(cfg, self.data_meta, pids, train=cfg["test_path"] == "train")
+        test_set = self.prepare_dataset(self.data_split[cfg["test_path"]], cfg["test_path"])
         self.uid["exec-test"] = test_set.uid
         return self._eval_all({"exec-test": test_set},
                               ckpt_type=cfg.get("ckpt_for_eval", "last"), test_mode=True)
@@ -334,8 +342,8 @@ class BaseHandler:
         all_raw = np.concatenate(all_raw)
         all_pred = self.output_converter(torch.from_numpy(all_raw)).numpy()
         uids = [self.uid[loader_name][i] for i in np.concatenate(all_idx)]
-        return {"y": np.concatenate(all_gt), "raw_y_hat": all_raw, "y_hat": all_pred,
-                "uid": uids, "name": loader_name}
+        return self._finalize_cltor({"y": np.concatenate(all_gt), "raw_y_hat": all_raw,
+                                     "y_hat": all_pred, "uid": uids, "name": loader_name})
 
     def test_model(self, dataset, loader_name, ckpt_path=None):
         """An evaluation pass over `dataset` (after loading `ckpt_path`)."""

@@ -9,7 +9,9 @@ config (configs/IFMLE/<cohort>/cfg_zero_shot_conch.yaml with one
 (configs/IFMLE/<cohort>/cfg_sa_base_conch.yaml) or another network of the
 zoo (its requests in `data_mode: cluster` carry synthetic cluster ids, in
 `graph` 8-neighbour grid graphs), whose head gets the bin
-count of fold 0's label table, as the SA handler would give it.  The
+count of fold 0's label table, as the SA handler would give it; `task:
+clf` the same networks with the head of its `net_dims` (the class
+probabilities are the output's `probs`).  The
 weights are random, from the config's seed, but for the text tower of
 `path_clip_model` (a released checkpoint) and a `pretrained` CoOp
 learner's checkpoint, which are loaded when the config names them.
@@ -48,7 +50,7 @@ def make_engine(cfg: dict, device=None) -> InferEngine:
     if cfg.get("net_output_converter", "softmax") != "softmax":
         raise NotImplementedError("this port serves incidence models (softmax output)")
     feats_dtype = cfg.get("feats_dtype", "float32")
-    if cfg.get("task") == "sa":
+    if cfg.get("task") in ("sa", "clf"):
         # DeepMIL's pooling is unnormalised: no 1/||x|| rows
         return InferEngine(sa.build_model(cfg, device=device), feats_dtype=feats_dtype,
                            precompute_inv=False)

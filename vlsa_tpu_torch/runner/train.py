@@ -11,8 +11,10 @@ SurvEMD); `task: sa` the SA baseline's DeepMIL/ABMIL
 width; SurvIFMLE), or another network of the zoo (`deepmil_network`
 TransMIL, ILRA; DeepAttnMISL with `data_mode: cluster` and
 `path_cluster`, PatchGCN with `data_mode: graph` and `path_graph`),
-through `runner.sa`.  The training split's bags (the
-config's `path_patch`, `synthetic://` included) go through the batcher
+through `runner.sa`; `task: clf` the same networks on one labelled bag a
+slide with the classification losses, through `runner.clf`.  The
+training split's bags (the config's `path_patch`, `synthetic://`
+included) go through the batcher
 `bp_every_batch` at a time, and each step is one update of the config's
 losses with its optimizer.  The weights are random, from the config's seed.
 Prints one JSON line per step and a summary line with the kernels' launch
@@ -56,8 +58,9 @@ def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
 
 
 def frozen_paths(cfg: dict) -> List[str]:
-    """The config's freeze flags as parameter name prefixes (none for SA)."""
-    if cfg["task"] == "sa":
+    """The config's freeze flags as parameter name prefixes (none for SA
+    and CLF)."""
+    if cfg["task"] != "vlsa":
         return []
     arch = cfg["arch"].lower()
     paths = []
@@ -115,8 +118,8 @@ def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool,
         seed=cfg["seed"], min_bucket=cfg.get("min_bucket", 256),
         max_bucket=cfg.get("max_bucket"), fixed_bucket=cfg.get("fixed_bucket"),
         feats_dtype=cfg.get("feats_dtype", "float32"),
-        # DeepMIL's pooling is unnormalised: SA needs no 1/||x|| rows
-        precompute_inv=cfg.get("feats_precompute_inv", True) and cfg["task"] != "sa",
+        # DeepMIL's pooling is unnormalised: SA and CLF need no 1/||x|| rows
+        precompute_inv=cfg.get("feats_precompute_inv", True) and cfg["task"] == "vlsa",
         overflow=cfg.get("bag_overflow", "error"), prefetch=cfg.get("prefetch", 2),
         pin_memory=pin_memory)
 
@@ -124,23 +127,31 @@ def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool,
 class Trainer:
     """Data, model, losses, optimizer and engine of one training run, built
     from a config whose placeholders and grid lists are resolved
-    (`training_config`, or a handler's setup)."""
+    (`training_config`, or a handler's setup).
+
+    `data_rng` (seeded by the config's seed) draws what a classification
+    dataset draws: runner.clf's path switch, masking and label corruption."""
 
     def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None):
-        if cfg["task"] not in ("vlsa", "sa"):
-            raise NotImplementedError(f"task {cfg['task']!r}: this port trains vlsa and sa")
-        from . import sa  # see build_surv_meta
+        task = cfg["task"]
+        if task not in ("vlsa", "sa", "clf"):
+            raise NotImplementedError(f"task {task!r}: this port trains vlsa, sa and clf")
+        from . import clf, sa  # see build_surv_meta
         self.cfg = cfg
         self.device = resolve_device(device)
         self.data_split = read_file_data_splitting(cfg["data_split_path"])
-        if cfg["task"] == "sa":
-            self.meta = sa.load_meta(cfg, self.data_split)
+        self.data_rng = np.random.RandomState(cfg["seed"])
+        if task == "clf":
+            self.meta = None
+            self.dataset = clf.make_clf_dataset(cfg, self.data_split["train"], "train",
+                                                self.data_rng)
         else:
-            self.meta = build_surv_meta(cfg, self.data_split)
-        self.dataset = make_dataset(cfg, self.meta, self.data_split["train"], train=True)
+            self.meta = (sa.load_meta(cfg, self.data_split) if task == "sa"
+                         else build_surv_meta(cfg, self.data_split))
+            self.dataset = make_dataset(cfg, self.meta, self.data_split["train"], train=True)
         self.batcher = make_batcher(self.dataset, cfg, shuffle=True,
                                     pin_memory=self.device.type == "cuda")
-        if cfg["task"] == "sa":
+        if task in ("sa", "clf"):
             self.model = sa.build_model(cfg, device=self.device, state_dict=state_dict)
         else:
             from . import vlsa  # runner.vlsa's handler builds on this module too
@@ -148,8 +159,11 @@ class Trainer:
         self.model.train()
         self.frozen = frozen_mask_from_cfg(self.model, frozen_paths(cfg))
         self.loss_fns, self.loss_weights = load_losses(cfg)
-        objective = make_objective(self.loss_fns, self.loss_weights,
-                                   make_output_converter(cfg.get("net_output_converter")))
+        if task == "clf":  # on the raw logits
+            objective = clf.make_clf_objective(self.loss_fns, self.loss_weights)
+        else:
+            objective = make_objective(self.loss_fns, self.loss_weights,
+                                       make_output_converter(cfg.get("net_output_converter")))
         # a model with every parameter frozen (zero-shot) has nothing to
         # optimize: no optimizer and no training engine
         self.optimizer = self.engine = None
@@ -200,7 +214,8 @@ def main(argv=None) -> dict:
         records.append(rec)
         print(json.dumps(rec), flush=True)
     summary = {"device": str(device), "fold": args.fold, "feats_dtype": trainer.batcher.feats_dtype,
-               "num_bins": trainer.meta.num_bins, "train_bags": len(trainer.dataset),
+               "num_bins": trainer.meta.num_bins if trainer.meta is not None else None,
+               "train_bags": len(trainer.dataset),
                "build_s": build_s, "steps": args.steps,
                "median_step_ms": float(np.median([r["step_ms"] for r in records])),
                "coattn_launches": dict(coattn.LAUNCHES),

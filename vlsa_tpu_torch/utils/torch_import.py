@@ -5,9 +5,10 @@ vlsa_tpu/utils/torch_import.py, whose output is a Flax tree).
     one loader of the package (the text tower, the CONCH visual model, CoOp
     warm starts);
   * `import_text_tower_state` / `import_text_tower_from_checkpoint`: the
-    CONCH text tower of a released checkpoint (mahmoodlab/conch
+    text tower of a released checkpoint (mahmoodlab/conch
     `pytorch_model.bin`, a CoCa state dict with the tower under `text.*`,
-    or a CLIP-style one with it at the top level) -> `TextTower`'s names;
+    or an OpenAI-CLIP-style one with it at the top level and no `cls_emb`,
+    the CLIP and HF apis') -> `TextTower`'s names;
   * `import_vlsa_learnable_state`: the reference's learnable-parameter
     training checkpoint (logit scale, CoOp embeddings, VLFAN's adapter,
     TaskRes query residuals, ...) onto a VLSA state dict;
@@ -88,9 +89,8 @@ def import_text_tower_from_checkpoint(path: str, api: str = "CONCH") -> dict:
     key is (CoCa), else at the top level (CLIP); the block count is read
     from the keys; `visual.*`, `text_decoder.*` and every other key are
     ignored."""
-    if api != "CONCH":
-        raise NotImplementedError(f"vlsa_api {api!r}: this package has the CONCH text tower "
-                                  f"only (ROADMAP.md §A.15)")
+    if api not in ("CONCH", "CLIP", "HF"):
+        raise ValueError(f"Got an invalid api ({api}).")
     state = load_torch_state_dict(path)
     prefix = "text." if any(k.startswith("text.") for k in state) else ""
     marker = prefix + "transformer.resblocks."

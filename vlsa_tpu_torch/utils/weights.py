@@ -24,7 +24,8 @@ pooling `query_pool/fc1_kernel` `query_pool.fc1_kernel`; DSMIL's
 `fcc_kernel` [C, C, Dv] and `fcc_bias` keep their names.
 
 Trees of the Adapter and frozen-CoOp paths (no `prompt_encoder`; a
-`prompt_adapter/...` subtree, or neither learner) map the same way.
+`prompt_adapter/...` subtree, or neither learner) map the same way, as do
+the CLIP and HF towers' (no `cls_emb`).
 
 Every leaf maps to exactly one tensor; a duplicate raises.  Loading the
 result with `strict=True` then proves that no tensor was left out.  No leaf
