@@ -135,6 +135,23 @@ non-zero and prints no result:
      12 bf16 flash launches a batch, all on the path of flash_plan(1025),
      the features within 2e-2 of the plain attention's, tiles/s and the
      tower's time per batch;
+  3q. the rest of extraction (run after 3e): `FeatureExtractor` and
+     `extract_to_store` over 3e's tile slides (the same seed) to .npy at
+     448 px, batch 64, bf16, every counter from 0 before each path: CLIP
+     ViT-B/16 (`model_name="clip_vit"`: no kernel launched, finite 512-d
+     features, a float32 extractor's batch within cosine 0.99 of the bf16
+     one) and the w8a8 CONCH trunk (`trunk_quant=True`: exactly 12 bf16
+     flash launches a batch, 72 in all, every one on flash_plan(785)'s
+     path and no other kernel; the features within 2e-2 of the same tower
+     on the plain attention, cosine above 0.99 to the float bf16 tower of
+     3e's weights); `torch._int_mm` exact in int32 at the trunk's largest
+     product, [50240, 3072] x [3072, 768], and the w8a8 linear and the
+     weight quantizer bit for bit the CPU's; CLIP's RN50 (f32, BatchNorm
+     statistics from a seed) on 2 images card against CPU within 1e-4;
+     each tower's ms a batch (CUDA events, median of 10; RN50 at 64
+     images), tiles/s beside 3e's bf16 run, and one profiled w8a8 batch by
+     kernel group (int8 GEMMs apart); row 11's w8a8 launches join the
+     kernels line;
   3f. training with the feature projecter: the flagship trainer with
      `vlsa_img_encoder_use_feat_proj: True` (the patch features then need a
      gradient: the dX kernel) takes Adam steps on TCGA-BLCA fold 0: 1 in
@@ -530,12 +547,30 @@ EXTRACT_TILE_PX = 512
 # ragged last batch (64 + 36)
 EXTRACT_512_TILES = 100
 TOL_FEATS = {"bf16": 2e-2, "f32": 1e-4}  # features, flash kernel vs plain attention
+# phase 3q, the rest of extraction on EXTRACT_TILES: CLIP ViT-B/16 and the
+# w8a8 CONCH trunk at 448 px (batch 64, bf16), CLIP's RN50 at 224 px (f32,
+# OpenAI's build_model widths: layers (3, 4, 6, 3), width 64, 32 heads,
+# output 1024) with its BatchNorm statistics drawn from a seed
+RN50 = dict(layers=(3, 4, 6, 3), width=64, heads=32, output_dim=1024, input_resolution=224)
+RN50_SEED = 50
+RN50_CARD_BATCH = 2
+TOL_RN50 = 1e-4  # RN50's output, the card against the CPU (TF32 off)
+MIN_COSINE = 0.99  # w8a8 against the float tower, and CLIP's bf16 against its f32 batch
+# the int32 exactness check of the trunk's largest int8 product (fc2's
+# [B*L, 3072] x [3072, 768] at B=64, L=785), same-sign operands so the sums
+# pass f32's 2^24
+INT_MM_SHAPE = (64 * 785, 3072, 768)
 # the kernels of a profiled extraction batch and of a feature-projecter step
 # by kind (first match wins); GEMM_KERNELS names cuBLAS's and CUTLASS's GEMMs
 GEMM_KERNELS = r"nvjet|gemm|xmma|cutlass|sm90_"
 PROFILE_GROUPS = {"flash": r"flash_fwd", "gemm": GEMM_KERNELS,
                   "layer_norm": r"layer_norm", "gelu": r"Gelu",
                   "copy_cast": r"copy|index|cat|Cat", "elementwise": r"elementwise"}
+# phase 3q's w8a8 batch: cuBLAS's int8 GEMMs apart from the float ones
+Q8_PROFILE_GROUPS = {"flash": r"flash_fwd", "int8 gemm": r"s8|i8|imma|int8",
+                     "gemm": GEMM_KERNELS, "reduce": r"reduce", "layer_norm": r"layer_norm",
+                     "gelu": r"Gelu", "copy_cast": r"copy|index|cat|Cat",
+                     "elementwise": r"elementwise"}
 FEAT_PROJ_GROUPS = {"coattn": r"coattn", "gemm": GEMM_KERNELS,
                     "layer_norm": r"layer_norm|LayerNorm|GammaBeta",
                     "copy_cast": r"copy|index|cat|Cat", "elementwise": r"elementwise|reduce"}
@@ -2292,6 +2327,17 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def write_tile_slides(src, rng):
+    """EXTRACT_TILES slides of random EXTRACT_TILE_PX u8 tiles as
+    `<src>/slide<i>.npy`; returns slide 0's tiles."""
+    import numpy as np
+    os.makedirs(src)
+    for i, n in enumerate(EXTRACT_TILES):
+        np.save(os.path.join(src, f"slide{i}.npy"), rng.integers(
+            0, 256, size=(n, EXTRACT_TILE_PX, EXTRACT_TILE_PX, 3), dtype=np.uint8))
+    return np.load(os.path.join(src, "slide0.npy"))
+
+
 def phase_extraction(torch, fa, ab, co, device):
     """CONCH feature extraction at full width through the port's entry
     points: two synthetic slides of 512x512 u8 tiles to .npy and .q8npz
@@ -2318,14 +2364,8 @@ def phase_extraction(torch, fa, ab, co, device):
         f"parameters, {layers} layers, image 448, batch 64")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_extract_") as tmp:
         src = os.path.join(tmp, "tiles")
-        os.makedirs(src)
-        rng = np.random.default_rng(0)
-        sids = []
-        for i, n in enumerate(EXTRACT_TILES):
-            sids.append(f"slide{i}")
-            np.save(os.path.join(src, f"slide{i}.npy"), rng.integers(
-                0, 256, size=(n, EXTRACT_TILE_PX, EXTRACT_TILE_PX, 3), dtype=np.uint8))
-        tiles0 = np.load(os.path.join(src, "slide0.npy"))
+        tiles0 = write_tile_slides(src, np.random.default_rng(0))
+        sids = [f"slide{i}" for i in range(len(EXTRACT_TILES))]
         batch = tiles0[:64]
 
         # ---- the main path: every launch counter from 0 ----
@@ -2496,6 +2536,228 @@ def phase_extraction_512(torch, fa, ab, co, device):
         f"{64e3 / tower_ms:.0f} tiles/s")
     return {"L": L, "launches": launches, "path_launches": path_launches, "run": stats,
             "feat_err": feat_err, "tower_ms": tower_ms}
+
+
+# ---------------------------------------------------------------- phase 3q
+
+def cosines(a, b):
+    import numpy as np
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def only_flash_launched(fa, ab, co, flash_bf16):
+    """True when the only kernel launches since the counters' reset are
+    `flash_bf16` bf16 flash launches, all on flash_plan(785)'s path."""
+    plan = fa.flash_plan(785)[0]
+    return (dict(fa.LAUNCHES) == {"f32": 0, "bf16": flash_bf16}
+            and dict(fa.LAUNCHES_PATH) == {p: flash_bf16 if p == plan else 0
+                                           for p in fa.LAUNCHES_PATH}
+            and sum(ab.LAUNCHES.values()) + sum(ab.LAUNCHES_BWD.values())
+            + sum(co.LAUNCHES.values()) + sum(co.LAUNCHES_BWD.values()) == 0)
+
+
+def int_mm_exactness(torch):
+    """torch._int_mm at the trunk's largest int8 product, as the w8a8 linear
+    calls it (w [out, in] transposed), against the exact sums: products of
+    integers below 128 summed in float64 are exact (every partial sum is
+    below 3072 * 127^2 < 2^53)."""
+    M, K, N = INT_MM_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(7)
+    a = torch.randint(64, 128, (M, K), dtype=torch.int8, device="cuda", generator=g)
+    w = torch.randint(64, 128, (N, K), dtype=torch.int8, device="cuda", generator=g)
+    got = torch._int_mm(a, w.T)
+    want = a.double() @ w.double().T
+    exact = bool(torch.equal(got.long(), want.long()))
+    top = float(want.abs().max())
+    del a, w, want
+    log(f"torch._int_mm [{M}, {K}] x [{K}, {N}] (same-sign int8): int32 sums equal to the "
+        f"exact ones {exact}, largest {top:.0f} (2^24 = {2 ** 24})")
+    check(exact and got.dtype == torch.int32 and top > 2 ** 24,
+          f"torch._int_mm is not exact in int32 at {INT_MM_SHAPE}")
+    # the whole w8a8 linear, card against CPU: the same f32 operations and
+    # exact int32 sums give the same bits (fc1's widths, 4096 tokens)
+    from vlsa_tpu_torch.models.precision import quantize_rows
+    from vlsa_tpu_torch.models.vision_tower import int8_dynamic_linear
+    gen = torch.Generator().manual_seed(8)
+    h = torch.randn(4, 1024, 768, generator=gen) * 3.0
+    w = torch.randn(3072, 768, generator=gen)
+    w_q, w_s = quantize_rows(w)
+    w_q_card, w_s_card = quantize_rows(w.to("cuda"))
+    want = int8_dynamic_linear(h, w_q, w_s)
+    got = int8_dynamic_linear(h.to("cuda"), w_q_card, w_s_card).cpu()
+    linear_same = bool(torch.equal(w_q_card.cpu(), w_q) and torch.equal(w_s_card.cpu(), w_s)
+                       and torch.equal(got, want))
+    log(f"the w8a8 linear ([4, 1024, 768] x [3072, 768]) and quantize_rows, card against CPU: "
+        f"bit for bit {linear_same}")
+    check(linear_same, "the w8a8 linear or quantize_rows differs between the card and the CPU")
+    return {"shape": list(INT_MM_SHAPE), "exact": exact, "largest": top,
+            "linear_card_equals_cpu": linear_same}
+
+
+def rn50_card_vs_cpu(torch, device):
+    """CLIP's RN50 (f32) from a seed, BatchNorm statistics drawn too: a
+    batch of RN50_CARD_BATCH on the card against the CPU, and the card's ms
+    a batch of 64."""
+    import numpy as np
+    from vlsa_tpu_torch.models.vision_tower import BatchNorm, CLIPModifiedResNet
+    from vlsa_tpu_torch.utils.device import disable_tf32
+    disable_tf32()
+    gen = torch.Generator().manual_seed(RN50_SEED)
+    model = CLIPModifiedResNet(generator=gen, **RN50).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    images = torch.randn(RN50_CARD_BATCH, 3, 224, 224, generator=gen)
+    with torch.inference_mode():
+        want = model(images)
+        card = model.to(device)
+        got = card(images.to(device)).cpu()
+    err = rel_err(got, want)
+    check(got.shape == (RN50_CARD_BATCH, RN50["output_dim"]) and bool(torch.isfinite(got).all()),
+          f"RN50 output {tuple(got.shape)}")
+    check(err <= TOL_RN50, f"RN50 on the card deviates {err:.3e} from the CPU (tol {TOL_RN50:g})")
+    x = torch.randn(64, 3, 224, 224, device=device)
+
+    def tower():
+        with torch.inference_mode():
+            return card(x)
+    ms = median_ms(torch, tower, runs=10, warmup=2)
+    params = sum(p.numel() for p in model.parameters())
+    log(f"RN50 (CLIP ModifiedResNet, {params} parameters) f32 at 224 px: card vs CPU on "
+        f"{RN50_CARD_BATCH} images {err:.3e} (tol {TOL_RN50:g}); a batch of 64 {ms:.2f} ms "
+        f"(CUDA events, median of 10), {64e3 / ms:.0f} images/s")
+    return {"card_vs_cpu": err, "ms": ms, "parameters": params}
+
+
+def phase_extraction_rest(torch, fa, ab, co, device, conch):
+    """The rest of extraction through the port's entry points (CLIP ViT-B/16
+    and the w8a8 CONCH trunk at 448 px, batch 64, bf16, device
+    preprocessing, EXTRACT_TILES to .npy), then CLIP's RN50 card against
+    CPU; every tower's ms a batch.  `conch`: phase 3e's record (its runs'
+    tiles/s and its tower's ms, for comparison)."""
+    import types
+    import numpy as np
+    from vlsa_tpu_torch.data.bags import read_patch_data
+    from vlsa_tpu_torch.data.extract import FeatureExtractor, extract_to_store
+    from vlsa_tpu_torch.data.transforms_device import build_device_preprocess
+
+    n_batches = sum(-(-n // 64) for n in EXTRACT_TILES)
+    conch_tps = ", ".join(f"{fmt} {r['tiles_per_sec']:.1f}" for fmt, r in conch["runs"].items())
+    out = {"conch_bf16_tiles_per_sec": {fmt: r["tiles_per_sec"]
+                                        for fmt, r in conch["runs"].items()}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_extract_rest_") as tmp:
+        tiles0 = write_tile_slides(os.path.join(tmp, "tiles"), np.random.default_rng(0))
+        batch = tiles0[:64]
+        x = build_device_preprocess((EXTRACT_TILE_PX,) * 2, 448)(
+            torch.from_numpy(batch).to(device))
+
+        def stored(fmt_dir):
+            feats = {}
+            for i, n in enumerate(EXTRACT_TILES):
+                f = read_patch_data(os.path.join(tmp, fmt_dir, f"slide{i}.npy"))
+                check(f.shape == (n, 512) and bool(np.isfinite(f).all()),
+                      f"{fmt_dir} slide{i}: features {f.shape}, finite {np.isfinite(f).all()}")
+                feats[i] = f
+            return feats
+
+        # ---- CLIP ViT-B/16: every counter from 0, no kernel on its path ----
+        clip = FeatureExtractor(model_name="clip_vit", image_size=448, batch_size=64,
+                                compute_dtype="bfloat16", seed=0, device=device)
+        clip32 = FeatureExtractor(model_name="clip_vit", image_size=448, batch_size=64,
+                                  compute_dtype="float32", seed=0, device=device)
+        check(clip.feat_dim == 512 and clip.model.layers == 12 and clip._device_preprocess
+              and tuple(clip.model.positional_embedding.shape) == (785, 768),
+              "the CLIP extractor is not ViT-B/16 at 448 px with device preprocessing")
+        for kernels in (fa, ab, co):
+            kernels.reset_launches()
+        run = extract_to_store(os.path.join(tmp, "tiles"), os.path.join(tmp, "clip"), clip,
+                               fmt="npy", verbose=False)
+        feats32 = clip32.extract(batch)
+        check(only_flash_launched(fa, ab, co, 0), f"CLIP ViT's path launched a kernel: flash "
+                                                  f"{dict(fa.LAUNCHES)}")
+        check(run["slides"] == 2 and run["tiles"] == sum(EXTRACT_TILES), f"CLIP run: {run}")
+        feats = stored("clip")
+        cos = cosines(feats[0][:64], feats32)
+        err = rel_err(torch.from_numpy(feats[0][:64]), torch.from_numpy(feats32))
+        check(cos.min() > MIN_COSINE, f"CLIP bf16 features' cosine to f32 {cos.min():.5f}")
+
+        def clip_tower():
+            with torch.inference_mode():
+                return clip.model(x)
+        clip_ms = median_ms(torch, clip_tower, runs=10, warmup=2)
+        log(f"CLIP ViT-B/16 at 448 px: {sum(EXTRACT_TILES)} tiles to .npy "
+            f"({run['tiles_per_sec']:.1f} tiles/s; 3e's CONCH bf16 runs {conch_tps}), no kernel "
+            f"launched; bf16 vs the f32 batch "
+            f"{err:.3e}, cosine min {cos.min():.6f}; tower, batch 64 bf16 (CUDA events, median "
+            f"of 10): {clip_ms:.2f} ms, {64e3 / clip_ms:.0f} tiles/s")
+        out["clip_vit"] = {"run": run, "bf16_vs_f32": err, "bf16_vs_f32_cos_min": float(cos.min()),
+                           "tower_ms": clip_ms}
+        del clip, clip32, feats32
+
+        # ---- the w8a8 CONCH trunk: 12 bf16 flash launches a batch ----
+        q8 = FeatureExtractor(image_size=448, batch_size=64, compute_dtype="bfloat16", seed=0,
+                              trunk_quant=True, device=device)
+        blk = q8.model.trunk.block_0
+        check(q8.trunk_quant and blk.quantized and blk.fc2_weight.dtype == torch.int8
+              and q8.model.trunk.layers == 12 and q8.feat_dim == 512,
+              "the w8a8 extractor is not CONCH at full width with int8 trunk linears")
+        for kernels in (fa, ab, co):
+            kernels.reset_launches()
+        run = extract_to_store(os.path.join(tmp, "tiles"), os.path.join(tmp, "q8"), q8,
+                               fmt="npy", verbose=False)
+        launches, path_launches = dict(fa.LAUNCHES), dict(fa.LAUNCHES_PATH)
+        expected = 12 * n_batches
+        log(f"w8a8 CONCH at 448 px: {sum(EXTRACT_TILES)} tiles to .npy "
+            f"({run['tiles_per_sec']:.1f} tiles/s; 3e's bf16 runs {conch_tps}); flash launches "
+            f"{launches}, bf16 by path "
+            f"{path_launches}")
+        check(only_flash_launched(fa, ab, co, expected),
+              f"w8a8 path: flash launches {launches} by path {path_launches}, expected "
+              f"{expected} bf16 on {fa.flash_plan(785)[0]} and no other kernel")
+        check(run["slides"] == 2 and run["tiles"] == sum(EXTRACT_TILES), f"w8a8 run: {run}")
+        feats = stored("q8")
+        with plain_flash():
+            plain = q8.extract(tiles0)
+        check(dict(fa.LAUNCHES) == launches, "the plain run launched the flash kernel")
+        feat_err = rel_err(torch.from_numpy(feats[0]), torch.from_numpy(plain))
+        check(feat_err <= TOL_FEATS["bf16"], f"w8a8 features deviate {feat_err:.3e} from the "
+                                             f"plain attention's")
+        flt = FeatureExtractor(image_size=448, batch_size=64, compute_dtype="bfloat16", seed=0,
+                               device=device)
+        cos = cosines(feats[0], flt.extract(tiles0))
+        del flt
+        check(cos.min() > MIN_COSINE, f"w8a8 features' cosine to the float tower {cos.min():.5f}")
+        int_mm = int_mm_exactness(torch)
+
+        def q8_tower():
+            with torch.inference_mode():
+                return q8.model.forward_no_head(x)
+        q8_ms = median_ms(torch, q8_tower, runs=10, warmup=2)
+        prof = profile_step(torch, types.SimpleNamespace(train_step=q8.extract), batch,
+                            family="flash_fwd", groups=Q8_PROFILE_GROUPS)
+        log(f"w8a8 features vs the plain attention (max|a-b| / max|b|) {feat_err:.3e} (tol "
+            f"{TOL_FEATS['bf16']:g}); cosine to the float bf16 tower (3e's weights) min "
+            f"{cos.min():.6f}, mean {cos.mean():.6f}; tower, batch 64 (CUDA events, median of "
+            f"10): {q8_ms:.2f} ms, {64e3 / q8_ms:.0f} tiles/s (3e's bf16 tower "
+            f"{conch['tower_ms']:.2f} ms)")
+        if prof["device_ms"] is None:
+            log("profiled w8a8 batch: the profiler shows no device time")
+        else:
+            log(f"profiled w8a8 batch of 64 tiles: wall {prof['wall_ms']:.1f} ms, kernels "
+                f"{prof['device_ms']:.2f} ms: " + ", ".join(
+                    f"{g} {ms:.2f}" for g, ms in prof["groups"].items()) + f" ms; top {prof['top']}")
+        out["w8a8"] = {"run": run, "launches": launches, "path_launches": path_launches,
+                       "feat_err": feat_err, "cos_min": float(cos.min()),
+                       "cos_mean": float(cos.mean()), "tower_ms": q8_ms, "int_mm": int_mm,
+                       "profiled_batch": prof}
+        del q8
+    out["rn50"] = rn50_card_vs_cpu(torch, device)
+    out["launches"] = out["w8a8"]["launches"]
+    return out
 
 
 # ---------------------------------------------------------------- phase 3f
@@ -5720,6 +5982,8 @@ def main(argv=None) -> int:
         sa_training = timed("3d", phase_sa_training, torch, ab, co, device)
         extraction = timed("3e", phase_extraction, torch, fa, ab, co, device)
         extraction_512 = timed("3e-512", phase_extraction_512, torch, fa, ab, co, device)
+        extraction_rest = timed("3q", phase_extraction_rest, torch, fa, ab, co, device,
+                                extraction)
         feat_proj = timed("3f", phase_feat_proj_training, torch, co, device)
         lifecycle_vlsa = timed("3g-VLSA", phase_lifecycle, torch, ab, co, device, "vlsa", card)
         lifecycle_sa = timed("3g-SA", lambda: phase_lifecycle(
@@ -5884,14 +6148,16 @@ def main(argv=None) -> int:
                 "widths": [list(w) for w in ABMIL_ANY_WIDTHS], "timed_at": [D, H],
                 "on_main_path": n > 0})
     # bf16 on the path flash_plan names (the streamed kernel), timed at the
-    # extraction shape; its launches those of both extraction runs
+    # extraction shape; its launches those of both CONCH extraction runs and
+    # of phase 3q's w8a8 trunk
     for v in FLASH_VARIANTS:
         t = flash_times[f"{v}_{fa.flash_plan(FLASH_SHAPE['L'])[0]}_L{FLASH_SHAPE['L']}"
                         if v == "bf16" else f"{v}_L{FLASH_SHAPE['L']}"]
         kernels.append({
             "name": f"flash_attn_fwd[{v}]", "route": "cuda", "source": SOURCE_FLASH,
             "replaces": REPLACES_FLASH,
-            "launches": extraction["launches"][v] + extraction_512["launches"][v],
+            "launches": (extraction["launches"][v] + extraction_512["launches"][v]
+                         + extraction_rest["launches"][v]),
             "max_abs_err": errs_flash[v][FLASH_SHAPE["L"]]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
@@ -5909,7 +6175,8 @@ def main(argv=None) -> int:
               "flash_shape": FLASH_SHAPE, "flash_errors": errs_flash,
               "flash_ptxas": flash_ptxas_lines,
               "flash_plan": {L: list(fa.flash_plan(L)) for L in FLASH_LENGTHS},
-              "extraction": extraction, "extraction_512": extraction_512, "flash_times": flash_times, "dx_errors": errs_dx,
+              "extraction": extraction, "extraction_512": extraction_512,
+              "extraction_rest": extraction_rest, "flash_times": flash_times, "dx_errors": errs_dx,
               "feat_proj_training": feat_proj, "dx_times": dx_times,
               "lifecycle_vlsa": lifecycle_vlsa, "lifecycle_sa": lifecycle_sa,
               "store_runs": store_runs, "zero_shot": zero_shot,

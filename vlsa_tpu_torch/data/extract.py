@@ -1,14 +1,17 @@
 """Patch -> feature extraction on the card (counterpart of
-vlsa_tpu/data/extract.py): WSI tiles through the CONCH visual model to the
-512-d per-patch feature stores that training and serving read.
+vlsa_tpu/data/extract.py): WSI tiles through a vision tower to the 512-d
+per-patch feature stores that training and serving read.
 
   * preprocessing is the PIL-exact transform stack, on the card
     (`transforms_device.py`: u8 tiles copied, resized by int32 taps) or on
     the host (`transforms.py`, numpy);
-  * the tower is `ConchVisualModel.forward_no_head` (CONCH's MIL feature
-    convention: 512-d, LayerNormed, unprojected) at a fixed batch, the
-    ragged tail zero-padded; its trunk attention runs the hand-written
-    flash kernel (`ops/flash_attn.py`);
+  * the tower, at a fixed batch with the ragged tail zero-padded, is
+    `conch`: `ConchVisualModel.forward_no_head` (CONCH's MIL feature
+    convention: 512-d, LayerNormed, unprojected), its trunk attention on
+    the hand-written flash kernel (`ops/flash_attn.py`), its trunk linears
+    optionally w8a8 (`trunk_quant`: int8 weights, per-token int8
+    activations, s8 x s8 -> s32 products); or `clip_vit`: OpenAI CLIP's
+    ViT image embedding (`CLIPViT`, 512-d for ViT-B/16);
   * a slide's batches are queued on the card back to back and its features
     read back once, so the host prepares batch i+1 while the card runs
     batch i (CUDA's own asynchrony; JAX gets the same from async dispatch);
@@ -31,8 +34,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.precision import cast_vision_tower_weights
-from ..models.vision_tower import ConchVisualModel, as_dtype, load_conch_visual_state
+from ..models.precision import cast_vision_tower_weights, quantize_vision_tower_weights
+from ..models.vision_tower import (CLIPViT, ConchVisualModel, as_dtype, load_clip_vit_state,
+                                   load_conch_visual_state)
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.torch_import import load_torch_state_dict
 from .quant import feats_inv_norms, quantize_feats_int8
@@ -40,7 +44,8 @@ from .transforms import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD, preprocess_batc
 from .transforms_device import build_device_preprocess
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp")
-_TODO = "not ported yet (ROADMAP.md §A.14)"
+_ONE_CARD = ("multi-device extraction splits each batch across cards; the port extracts on "
+             "one card a process (ROADMAP.md §A.17)")
 
 
 def _lazy_import(name: str, what: str):
@@ -122,14 +127,19 @@ def _as_u8_rgb(arr: np.ndarray) -> np.ndarray:
 
 
 class FeatureExtractor:
-    """CONCH `forward_no_head` at a fixed batch over u8 tiles.
+    """A vision tower at a fixed batch over u8 tiles.
 
-    `checkpoint`: a CONCH torch checkpoint (its `visual.*` tensors, through
-    `load_conch_visual_state`); without one, seeded random weights.  bf16
-    compute pre-casts the trunk's matmul weights once (bit-identical).
-    `device_preprocess`: 'auto' (on when the extractor runs on CUDA), True or
-    False; tiles of mixed shapes are preprocessed on the host.  `device`:
-    CUDA unless 'cpu' is asked for.
+    `model_name`: 'conch' (`ConchVisualModel.forward_no_head`) or 'clip_vit'
+    (`CLIPViT`, built at `image_size`).  `checkpoint`: a torch checkpoint
+    (its `visual.*` tensors, through `load_conch_visual_state` or
+    `load_clip_vit_state`, the positional table resized to `image_size`);
+    without one, seeded random weights.  `trunk_quant` (CONCH only): the
+    trunk's linears w8a8, quantized from the f32 weights (the seeded float
+    model, or the imported one).  bf16 compute then stores the remaining
+    matmul weights in bf16 once (bit-identical).  `device_preprocess`:
+    'auto' (on when the extractor runs on CUDA), True or False; tiles of
+    mixed shapes are preprocessed on the host.  `device`: CUDA unless 'cpu'
+    is asked for.  `num_devices` above 1 is refused.
     """
 
     def __init__(self, model_name: str = "conch", checkpoint: Optional[str] = None,
@@ -138,29 +148,51 @@ class FeatureExtractor:
                  num_devices: Optional[int] = None, device_preprocess="auto", seed: int = 0,
                  trunk_quant: bool = False, model_overrides: Optional[dict] = None,
                  device=None):
-        if model_name != "conch":
-            raise NotImplementedError(f"extractor model '{model_name}': {_TODO}")
+        if model_name not in ("conch", "clip_vit"):
+            raise ValueError(f"unknown extractor model '{model_name}'")
+        if model_name == "clip_vit" and trunk_quant:
+            raise ValueError("trunk_quant is only supported for the CONCH trunk "
+                             "(model_name='conch')")
         if num_devices is not None and num_devices > 1:
-            raise NotImplementedError(f"multi-device extraction: {_TODO}")
-        if trunk_quant:
-            raise NotImplementedError(f"the w8a8 trunk (trunk_quant): {_TODO}")
+            raise NotImplementedError(_ONE_CARD)
         self.device = resolve_device(device)
         disable_tf32()
         self.image_size = int(image_size)
         self.batch_size = int(batch_size)
         overrides = dict(model_overrides or {})
-        if residual_dtype is not None:
-            overrides.setdefault("trunk_residual_dtype", residual_dtype)
-        model = ConchVisualModel(image_size=self.image_size, compute_dtype=compute_dtype,
-                                 generator=torch.Generator().manual_seed(seed), **overrides)
-        if checkpoint is not None:
-            model.load_state_dict(load_conch_visual_state(
-                load_torch_state_dict(checkpoint), layers=model.trunk.layers,
-                image_size=self.image_size, patch_size=model.trunk.patch_size), strict=True)
+        generator = torch.Generator().manual_seed(seed)
+        state = load_torch_state_dict(checkpoint) if checkpoint is not None else None
+        if model_name == "clip_vit":
+            model = CLIPViT(input_resolution=self.image_size, compute_dtype=compute_dtype,
+                            generator=generator, **overrides)
+            if state is not None:
+                model.load_state_dict(load_clip_vit_state(
+                    state, layers=model.layers, image_size=self.image_size,
+                    patch_size=model.patch_size), strict=True)
+            forward, self.feat_dim = model.forward, model.output_dim
+        else:
+            if residual_dtype is not None:
+                overrides.setdefault("trunk_residual_dtype", residual_dtype)
+            model = ConchVisualModel(image_size=self.image_size, compute_dtype=compute_dtype,
+                                     generator=generator, **overrides)
+            if state is not None:
+                model.load_state_dict(load_conch_visual_state(
+                    state, layers=model.trunk.layers, image_size=self.image_size,
+                    patch_size=model.trunk.patch_size), strict=True)
+            if trunk_quant:
+                # the int8 grid is fit to the f32 weights, before the bf16 cast
+                quantized = ConchVisualModel(image_size=self.image_size,
+                                             compute_dtype=compute_dtype, trunk_quantized=True,
+                                             generator=generator, **overrides)
+                quantized.load_state_dict(quantize_vision_tower_weights(model.state_dict()),
+                                          strict=True)
+                model = quantized
+            forward, self.feat_dim = model.forward_no_head, model.embed_dim_contrast
+        self.trunk_quant = bool(trunk_quant)
         if as_dtype(compute_dtype) == torch.bfloat16:
             cast_vision_tower_weights(model)
         self.model = model.to(self.device).eval()
-        self.feat_dim = model.embed_dim_contrast
+        self._forward = forward
         if device_preprocess == "auto":
             device_preprocess = self.device.type == "cuda"
         self._device_preprocess = bool(device_preprocess)
@@ -191,12 +223,12 @@ class FeatureExtractor:
 
     def extract_preprocessed(self, x: np.ndarray) -> np.ndarray:
         """f32 [N, 3, S, S] -> f32 [N, feat_dim]."""
-        return self._run_batched(self.model.forward_no_head, x)
+        return self._run_batched(self._forward, x)
 
     def _u8_pipeline(self, in_hw):
         if in_hw not in self._u8_pipelines:
             pre = build_device_preprocess(tuple(in_hw), self.image_size)
-            fwd = self.model.forward_no_head
+            fwd = self._forward
             self._u8_pipelines[in_hw] = lambda u8: fwd(pre(u8))
         return self._u8_pipelines[in_hw]
 

@@ -1,2 +1,3 @@
 """Tokenizers (CONCH, CLIP, HF-CLIP), text towers, prompt learners, VLFAN
-and the assembled VLSA; DeepMIL and its registry; the CONCH visual model."""
+and the assembled VLSA; DeepMIL and its registry; the vision towers (CONCH,
+CLIP's ViT and ModifiedResNet)."""

@@ -1,17 +1,23 @@
-"""Extract patch features from WSI tiles with the CONCH vision tower on the card.
+"""Extract patch features from WSI tiles with a vision tower on the card.
 
     python -m vlsa_tpu_torch.runner.extract --source /data/tiles --out /data/feats \\
         --ckpt /weights/conch/pytorch_model.bin --format q8npz
     python -m vlsa_tpu_torch.runner.extract --synthetic 2 --synthetic_tiles 130 --out /tmp/feats
+    python -m vlsa_tpu_torch.runner.extract --model clip_vit --synthetic 1 --out /tmp/clip
+    python -m vlsa_tpu_torch.runner.extract --trunk_quant --synthetic 1 --out /tmp/w8a8
 
 The counterpart of scripts/extract_features.py for the arguments this port
 supports.  Sources are CLAM-style .h5 tile files, .npy u8 stacks or
 directories of images; the stores (.npy or .q8npz, plus coords .h5) are what
 `python -m vlsa_tpu_torch.runner.train` reads with `feat_format: npy|q8npz`.
 `--synthetic N` makes N slides of `--synthetic_tiles` random u8 tiles of
-`--image_size` pixels in a temporary directory.  Without `--ckpt` the
-weights are random, from `--seed`.  Prints the stats of `extract_to_store`
-as one JSON line, with the flash kernel's launches.  `--device cpu` runs it on the CPU (use a small --image_size and
+`--image_size` pixels in a temporary directory.  `--model` is `conch`
+(CONCH's visual model; `--trunk_quant` makes its trunk's linears w8a8) or
+`clip_vit` (OpenAI CLIP's ViT-B/16 image embedding).  Without `--ckpt` the
+weights are random, from `--seed`.  `--num_devices` above 1 is refused: the
+port extracts on one card a process.  Prints the stats of
+`extract_to_store` as one JSON line, with the model, `trunk_quant` and the
+flash kernel's launches.  `--device cpu` runs it on the CPU (use a small --image_size and
 --batch there).
 """
 from __future__ import annotations
@@ -32,11 +38,17 @@ def get_args(argv=None):
     p.add_argument("--source", default=None,
                    help="slide tile source: dir of .h5/.npy/image-dirs, or one such source")
     p.add_argument("--out", required=True, help="output feature-store dir")
+    p.add_argument("--model", default="conch", choices=["conch", "clip_vit"])
     p.add_argument("--ckpt", default=None,
-                   help="CONCH torch checkpoint (visual.* tensors); random weights if omitted")
+                   help="torch checkpoint (CONCH pytorch_model.bin or a CLIP state dict, visual.* "
+                        "tensors); random weights if omitted")
     p.add_argument("--format", default="npy", choices=["npy", "q8npz"])
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--image_size", type=int, default=448)
+    p.add_argument("--trunk_quant", action="store_true",
+                   help="w8a8 int8 trunk linears (CONCH only)")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="cards to split each batch over; only 1 (the port extracts on one card)")
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--device_preprocess", default="auto", choices=["auto", "0", "1"],
                    help="PIL-exact resize on the card (auto: on for CUDA)")
@@ -66,8 +78,9 @@ def main(argv=None) -> dict:
     if not args.synthetic and args.source is None:
         raise SystemExit("either --source or --synthetic is required")
     extractor = FeatureExtractor(
-        checkpoint=args.ckpt, image_size=args.image_size, batch_size=args.batch,
-        compute_dtype=args.dtype, seed=args.seed, device=args.device,
+        model_name=args.model, checkpoint=args.ckpt, image_size=args.image_size,
+        batch_size=args.batch, compute_dtype=args.dtype, seed=args.seed,
+        trunk_quant=args.trunk_quant, num_devices=args.num_devices, device=args.device,
         device_preprocess=(args.device_preprocess if args.device_preprocess == "auto"
                            else args.device_preprocess == "1"))
     with tempfile.TemporaryDirectory(prefix="vlsa_tiles_") as tmp:
@@ -80,7 +93,7 @@ def main(argv=None) -> dict:
         stats = extract_to_store(source, args.out, extractor, fmt=args.format,
                                  coord_dir=args.coord_dir, resume=args.resume,
                                  prefetch=not args.no_prefetch)
-    stats.update(model="conch", format=args.format, image_size=args.image_size,
+    stats.update(model=args.model, trunk_quant=args.trunk_quant, format=args.format, image_size=args.image_size,
                  feat_dim=extractor.feat_dim, device=str(extractor.device),
                  weights="imported" if args.ckpt else "random-init",
                  flash_launches=dict(flash_attn.LAUNCHES),

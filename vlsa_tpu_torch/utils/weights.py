@@ -25,12 +25,17 @@ pooling `query_pool/fc1_kernel` `query_pool.fc1_kernel`; DSMIL's
 
 Trees of the Adapter and frozen-CoOp paths (no `prompt_encoder`; a
 `prompt_adapter/...` subtree, or neither learner) map the same way, as do
-the CLIP and HF towers' (no `cls_emb`).
+the CLIP and HF towers' (no `cls_emb`), and the vision towers' (CONCH, its
+w8a8 trunk's int8 `<linear>_weight` and f32 `<linear>_weight_scale` as they
+are; CLIPViT, whose 2-D `proj` keeps its name and layout; the
+ModifiedResNet).
 
 Every leaf maps to exactly one tensor; a duplicate raises.  Loading the
-result with `strict=True` then proves that no tensor was left out.  No leaf
-of either tree is itself named "weight", so the way back is unique: a 1-D
-`.weight` was a LayerNorm's `scale`, a 2-D one a Dense `kernel`.
+result with `strict=True` then proves that no tensor was left out.  The one
+leaf of these trees named "weight" is a ModifiedResNet BatchNorm's, beside
+its `running_mean`, so the way back is unique: such a `.weight` keeps its
+name, any other 1-D `.weight` was a LayerNorm's `scale`, a 2-D one a Dense
+`kernel`.
 """
 from __future__ import annotations
 
@@ -82,7 +87,7 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _jax_path(name: str, arr: np.ndarray):
+def _jax_path(name: str, arr: np.ndarray, batch_norms=frozenset()):
     parts = []
     for p in name.split("."):
         if parts and parts[-1] == "resblocks":
@@ -91,7 +96,7 @@ def _jax_path(name: str, arr: np.ndarray):
             parts.append(p)
     if parts[-1] in _CONV_KERNELS and arr.ndim == 4:
         arr = arr.transpose(2, 3, 1, 0)
-    elif parts[-1] == "weight":
+    elif parts[-1] == "weight" and name[:-len("weight")] not in batch_norms:
         if arr.ndim == 1:
             parts[-1] = "scale"
         elif arr.ndim == 2:
@@ -105,11 +110,13 @@ def _jax_path(name: str, arr: np.ndarray):
 def jax_tree_from_state_dict(state_dict: Mapping) -> dict:
     """The inverse of `state_dict_from_jax`: nested dicts of numpy arrays
     under vlsa_tpu's names (bf16 tensors become f32 arrays)."""
+    batch_norms = frozenset(name[:-len("running_mean")] for name in state_dict
+                            if name.split(".")[-1] == "running_mean")
     tree: dict = {}
     for name, tensor in state_dict.items():
         arr = tensor.detach().cpu()
         arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
-        parts, arr = _jax_path(name, arr)
+        parts, arr = _jax_path(name, arr, batch_norms)
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
