@@ -152,6 +152,25 @@ non-zero and prints no result:
      images), tiles/s beside 3e's bf16 run, and one profiled w8a8 batch by
      kernel group (int8 GEMMs apart); row 11's w8a8 launches join the
      kernels line;
+  3r. CoCa captions (after 3q): CONCH's visual model as extraction builds
+     it (448 px, bf16 trunk), the published CONCH text tower and
+     `MultimodalDecoder` (768, 12 heads, 12 layers, context 128, vocabulary
+     32007) in f32 from a seed, TF32 off; 4 of 3e's random tiles through
+     the device preprocess, then, every counter from 0 before, the trunk
+     (exactly 12 streamed bf16 launches of row 11, no other kernel; they
+     join the kernels line) and `coca_generate` on three paths: beam search
+     at its defaults (6 beams, 3 groups), greedy `top_k` 1 with
+     `repetition_penalty` 1.3, `top_p` 0.1 (seed 0), seq_len 30, min_seq_len
+     5; the caption tokens [4, 256, 768] within 2e-2 of the same forward
+     under `ops.flags.disable_kernels()`; every row starting with <sot>,
+     pads only after the first <eos>, the beam's at most 30 wide; each
+     path's final buffers re-scored on the CPU with the same modules (one
+     teacher-forced decode step), the card's logits at the generated
+     positions within 1e-4, and each greedy token the CPU's argmax wherever
+     the CPU's top-2 margin exceeds twice the logit gap (the positions under
+     it counted); prints ms a decode step (CUDA events, beam and sampling
+     rows), the host's ms a step, captions/s a path, one profiled beam step
+     by kernel group and the peak device memory;
   3f. training with the feature projecter: the flagship trainer with
      `vlsa_img_encoder_use_feat_proj: True` (the patch features then need a
      gradient: the dX kernel) takes Adam steps on TCGA-BLCA fold 0: 1 in
@@ -216,6 +235,13 @@ non-zero and prints no result:
      page-locked pool, which the run releases at its end) beside the card's
      name and power limit (every run reads a page cache that writing the
      stores warmed);
+  3s. vlsa_tpu's checkpoint format (after 3h, from its kept flagship bf16
+     .npy run): the filtered state written as vlsa_tpu writes a run's
+     checkpoint (flax's msgpack layout, `pack_flax_msgpack`) into a copy of
+     the run directory; its tensors equal to 3h's torch checkpoint's, the
+     test pass of `test_model(ckpt_path=...)` from each bit for bit, and
+     `load_vlsa_from_run` on both directories giving bit-identical logits;
+     its co-attention launches join the kernels line;
   3i. the released CONCH weights and zero-shot: writes a CONCH-format
      `pytorch_model.bin` beside the stores (the text tower under `text.*`
      at its published width: 12 layers of 768, vocabulary 32007, context
@@ -926,6 +952,30 @@ QUERIES_RUN = ("vlsa_q32_bf16_npy", LIFECYCLE_VLSA_CFG, "npy",
                dict(feats_dtype="bfloat16", **GATED_QUERIES), "bf16")
 QUERIES_FEAT_PROJ_STEPS = 2
 QUERIES_PATH_KERNELS = {("fwd", "bf16"), ("fwd", "int8_inv"), ("dq", "bf16"), ("dx", "bf16")}
+# phase 3r: CoCa captions (ROADMAP §A.16) at CONCH's full width from a seed:
+# the visual model as extraction builds it (448 px, bf16 trunk on row 11),
+# the published CONCH text tower and MultimodalDecoder (768, 12 heads, 12
+# layers, context 128, vocabulary 32007) in f32, TF32 off; CAPTION_TILES of
+# 3e's random 512-px u8 tiles (seed 0) through the device preprocess; each
+# path of CAPTION_PATHS at seq_len 30, min_seq_len 5.  Caption tokens held
+# against the plain attention at TOL_FEATS["bf16"]; every path's final
+# buffers re-scored on the CPU with the same modules (one teacher-forced
+# step), the card's logits at the generated positions within
+# TOL_CAPTION_LOGITS (max|a-b| / max|b|)
+CAPTION_SEED = 22
+CAPTION_TILES = 4
+CAPTION_SEQ_LEN, CAPTION_MIN_SEQ_LEN = 30, 5
+CAPTION_PATHS = {"beam": {},
+                 "greedy": dict(generation_type="top_k", top_k=1, repetition_penalty=1.3),
+                 "top_p": dict(generation_type="top_p", top_p=0.1, seed=0)}
+TOL_CAPTION_LOGITS = 1e-4
+CAPTION_STEP_RUNS = 5
+CAPTION_GROUPS = {"gemm": GEMM_KERNELS, "softmax": r"softmax", "layer_norm": r"layer_norm",
+                  "gelu": r"Gelu", "copy_cast": r"copy|index|cat|Cat",
+                  "elementwise": r"elementwise|reduce"}
+# phase 3s: INTERP_RUN's trained model written as vlsa_tpu writes a run's
+# checkpoint (flax's msgpack layout) into a copy of its run directory
+FLAX_RUN = INTERP_RUN + "_flax"
 
 
 class SmokeFailure(Exception):
@@ -2758,6 +2808,308 @@ def phase_extraction_rest(torch, fa, ab, co, device, conch):
     out["rn50"] = rn50_card_vs_cpu(torch, device)
     out["launches"] = out["w8a8"]["launches"]
     return out
+
+
+# ---------------------------------------------------------------- phase 3r
+
+def caption_checks(name, ids, seq_len, beam):
+    """Every row starts with <sot> = 1; a sampling path's buffer keeps its
+    full width with only pads after the first <eos> (forced at seq_len - 1);
+    the beam's rows are at most seq_len wide, pads only after an <eos>."""
+    import numpy as np
+    check((ids[:, 0] == 1).all(), f"{name}: a caption does not start with <sot>: {ids[:, 0]}")
+    check(ids.shape[1] <= seq_len if beam else ids.shape == (CAPTION_TILES, seq_len),
+          f"{name}: captions of shape {ids.shape}")
+    for row in ids:
+        check(beam or (row == 2).any(), f"{name}: a sampled caption without <eos>: {row}")
+        if (row == 2).any():
+            eos = int(np.argmax(row == 2))
+            check((row[eos + 1:] == 0).all(), f"{name}: tokens after <eos>: {row}")
+
+
+def decided_positions(ids):
+    """(row, position) of the logits that chose each generated token: t - 1
+    for t = 1 up to the row's first <eos>."""
+    import numpy as np
+    out = []
+    for r, row in enumerate(ids):
+        end = int(np.argmax(row == 2)) if (row == 2).any() else len(row) - 1
+        out += [(r, t - 1) for t in range(1, end + 1)]
+    return out
+
+
+def greedy_processed(logits, ids, t):
+    """The greedy path's logits at step t as coca_generate processes them
+    (min length, then the repetition penalty) before its argmax."""
+    from vlsa_tpu_torch.models.generation import min_length_process, repetition_penalty_process
+    out = min_length_process(logits, t, CAPTION_MIN_SEQ_LEN, 2)
+    return repetition_penalty_process(out, ids[:, :t], CAPTION_PATHS["greedy"]["repetition_penalty"])
+
+
+def greedy_against_cpu(ids, card, cpu):
+    """Each greedy token the card chose against the CPU's argmax, wherever the
+    CPU's top-2 margin (processed logits) exceeds twice the processed
+    logits' card-CPU gap; returns (positions held, positions under the
+    margin, the gap)."""
+    import numpy as np
+    held, under, gap = [], 0, 0.0
+    steps = []
+    for t in range(1, ids.shape[1] - 1):  # seq_len - 1 is forced <eos>
+        live = [r for r in range(ids.shape[0]) if not (ids[r, :t] == 2).any()]
+        if not live:
+            break
+        a = greedy_processed(card[:, t - 1], ids, t)[live]
+        b = greedy_processed(cpu[:, t - 1], ids, t)[live]
+        finite = np.isfinite(b)
+        gap = max(gap, float(np.abs(a[finite] - b[finite]).max()))
+        steps.append((t, live, b))
+    for t, live, b in steps:
+        top2 = np.sort(b, axis=-1)[:, -2:]
+        for i, r in enumerate(live):
+            if top2[i, 1] - top2[i, 0] > 2 * gap:
+                held.append((r, t))
+                check(int(ids[r, t]) == int(np.argmax(b[i])),
+                      f"greedy: the card chose {ids[r, t]} at ({r}, {t}), the CPU's argmax is "
+                      f"{int(np.argmax(b[i]))} with a margin {top2[i, 1] - top2[i, 0]:.3e} above "
+                      f"twice the gap {gap:.3e}")
+            else:
+                under += 1
+    return len(held), under, gap
+
+
+def phase_captions(torch, fa, ab, co, device, card):
+    """Phase 3r: CoCa caption generation at CONCH's full width on the card
+    through `coca_generate`, over row 11's kernel in the visual trunk (see
+    CAPTION_PATHS); the checks, the card against the CPU, and the times."""
+    import copy
+    import types
+    import numpy as np
+    from vlsa_tpu_torch.data.extract import FeatureExtractor
+    from vlsa_tpu_torch.data.transforms_device import build_device_preprocess
+    from vlsa_tpu_torch.models.multimodal import MultimodalDecoder, caption_logits, coca_generate
+    from vlsa_tpu_torch.models.text_encoder import make_text_tower
+    from vlsa_tpu_torch.ops.flags import disable_kernels
+
+    t0 = time.perf_counter()
+    visual = FeatureExtractor(image_size=448, batch_size=64, compute_dtype="bfloat16",
+                              seed=CAPTION_SEED, device=device).model  # TF32 off from here
+    gen = torch.Generator().manual_seed(CAPTION_SEED)
+    tower = make_text_tower("CONCH", generator=gen).eval()
+    decoder = MultimodalDecoder(generator=gen).eval()
+    tower_card, decoder_card = copy.deepcopy(tower).to(device), copy.deepcopy(decoder).to(device)
+    build_s = time.perf_counter() - t0
+    n_params = {k: sum(p.numel() for p in m.parameters())
+                for k, m in (("visual", visual), ("text", tower), ("decoder", decoder))}
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the caption decoder")
+    tiles = np.random.default_rng(0).integers(0, 256, size=(CAPTION_TILES, EXTRACT_TILE_PX,
+                                                              EXTRACT_TILE_PX, 3), dtype=np.uint8)
+    x = build_device_preprocess((EXTRACT_TILE_PX,) * 2, 448)(torch.from_numpy(tiles).to(device))
+    gen_kw = dict(seq_len=CAPTION_SEQ_LEN, min_seq_len=CAPTION_MIN_SEQ_LEN)
+
+    # ---- the main path: every launch counter from 0 ----
+    for kernels in (fa, ab, co):
+        kernels.reset_launches()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        _pooled, cap = visual(x)
+    torch.cuda.synchronize()
+    visual_ms = 1e3 * (time.perf_counter() - t)
+    runs = {}
+    for name, kw in CAPTION_PATHS.items():
+        timings = {}
+        t = time.perf_counter()
+        ids = coca_generate(tower_card, decoder_card, cap, timings=timings, **gen_kw, **kw)
+        runs[name] = {"ids": ids, "wall_s": time.perf_counter() - t, **timings}
+    launches, path_launches = dict(fa.LAUNCHES), dict(fa.LAUNCHES_PATH)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {"bf16": 12, "f32": 0} and path_launches.get("streamed") == 12,
+          f"captions: flash launches {launches} by path {path_launches}, expected 12 bf16 "
+          f"streamed (the trunk's 12 layers, once)")
+    check(sum(ab.LAUNCHES.values()) + sum(ab.LAUNCHES_BWD.values()) + sum(co.LAUNCHES.values())
+          + sum(co.LAUNCHES_BWD.values()) == 0, "captions launched an ABMIL or co-attention kernel")
+
+    # ---- the caption tokens against the plain attention, on the card ----
+    check(cap.shape == (CAPTION_TILES, 256, tower.width) and bool(torch.isfinite(cap).all()),
+          f"caption tokens {tuple(cap.shape)}, finite {bool(torch.isfinite(cap).all())}")
+    with disable_kernels(), torch.inference_mode():
+        _pooled, cap_plain = visual(x)
+    check(dict(fa.LAUNCHES) == launches, "the plain trunk launched the flash kernel")
+    cap_err = rel_err(cap.float(), cap_plain.float())
+    check(cap_err <= TOL_FEATS["bf16"], f"caption tokens deviate {cap_err:.3e} from the plain "
+                                        f"attention's (tol {TOL_FEATS['bf16']:g})")
+
+    # ---- every path's final buffers re-scored: the card against the CPU ----
+    cap_cpu = cap.float().cpu()
+    out = {"build_s": build_s, "parameters": n_params, "visual_ms": visual_ms,
+           "launches": launches, "path_launches": path_launches, "peak_device_bytes": peak,
+           "caption_token_err": cap_err, "paths": {}}
+    for name, run in runs.items():
+        ids = run["ids"]
+        caption_checks(name, ids, CAPTION_SEQ_LEN, beam=name == "beam")
+        buf = np.zeros((ids.shape[0], CAPTION_SEQ_LEN), np.int64)
+        buf[:, :ids.shape[1]] = ids
+        t = time.perf_counter()
+        with torch.inference_mode():
+            on_card = caption_logits(tower_card, decoder_card, cap,
+                                     torch.from_numpy(buf).to(device)).cpu().numpy()
+            on_cpu = caption_logits(tower, decoder, cap_cpu, torch.from_numpy(buf)).numpy()
+        rescore_s = time.perf_counter() - t
+        pos = decided_positions(ids)
+        rows, cols = np.array([p[0] for p in pos]), np.array([p[1] for p in pos])
+        a, b = on_card[rows, cols], on_cpu[rows, cols]
+        logit_err = float(np.abs(a - b).max() / np.abs(b).max())
+        check(np.isfinite(a).all() and logit_err <= TOL_CAPTION_LOGITS,
+              f"{name}: step logits card vs CPU {logit_err:.3e} (tol {TOL_CAPTION_LOGITS:g})")
+        steps = run["steps"]
+        rec = {"ids": ids.tolist(), "positions": len(pos), "logit_err": logit_err,
+               "rescore_s": rescore_s, "wall_s": run["wall_s"], "steps": steps,
+               "step_wall_ms": 1e3 * run["step_s"] / steps,
+               "host_ms_per_step": 1e3 * run["host_s"] / steps,
+               "captions_per_s": CAPTION_TILES / run["wall_s"]}
+        if name == "greedy":
+            rec["argmax_held"], rec["argmax_under_margin"], rec["greedy_gap"] = \
+                greedy_against_cpu(ids, on_card, on_cpu)
+        out["paths"][name] = rec
+
+    # ---- the decode step alone (CUDA events) and one profiled beam step ----
+    rng = np.random.default_rng(1)
+    for name, R in (("beam", CAPTION_TILES * 6), ("sampling", CAPTION_TILES)):
+        embs = cap.float().repeat_interleave(R // CAPTION_TILES, dim=0)
+        buf = torch.from_numpy(rng.integers(3, 32007, size=(R, CAPTION_SEQ_LEN))).to(device)
+
+        def step(embs=embs, buf=buf):
+            with torch.inference_mode():
+                return caption_logits(tower_card, decoder_card, embs, buf)
+        out[f"step_ms_{name}"] = median_ms(torch, step, runs=CAPTION_STEP_RUNS, warmup=1)
+        if name == "beam":
+            out["profiled_beam_step"] = profile_step(
+                torch, types.SimpleNamespace(train_step=lambda _b: step()), None,
+                family="gemm", groups=CAPTION_GROUPS)
+    prof = out["profiled_beam_step"]
+    log(f"captions: visual model, CONCH text tower and decoder built in {build_s:.1f} s "
+        f"({n_params} parameters); {CAPTION_TILES} tiles of 448 px through the bf16 trunk "
+        f"{visual_ms:.1f} ms (host clock, first call), flash launches {launches} "
+        f"({path_launches}); caption tokens {tuple(cap.shape)} vs plain attention "
+        f"{cap_err:.3e} (tol {TOL_FEATS['bf16']:g}); peak device memory {peak / 2**30:.2f} GiB")
+    for name, rec in out["paths"].items():
+        extra = (f"; greedy argmax = the CPU's at {rec['argmax_held']} positions, "
+                 f"{rec['argmax_under_margin']} under the margin (2 x {rec['greedy_gap']:.3e})"
+                 if name == "greedy" else "")
+        log(f"captions {name}: {rec['steps']} steps, {rec['wall_s'] * 1e3:.1f} ms for "
+            f"{CAPTION_TILES} captions ({rec['captions_per_s']:.2f} captions/s), a step "
+            f"{rec['step_wall_ms']:.2f} ms with the logits' copy (host clock) and "
+            f"{rec['host_ms_per_step']:.2f} ms of host work; card vs CPU logits "
+            f"{rec['logit_err']:.3e} over {rec['positions']} positions (tol "
+            f"{TOL_CAPTION_LOGITS:g}, CPU re-score {rec['rescore_s']:.1f} s){extra}; first "
+            f"caption {rec['ids'][0]}")
+    log(f"decode step (CUDA events, median of {CAPTION_STEP_RUNS}, L2 flushed): beam rows "
+        f"{CAPTION_TILES * 6} x {CAPTION_SEQ_LEN} {out['step_ms_beam']:.2f} ms, sampling rows "
+        f"{CAPTION_TILES} x {CAPTION_SEQ_LEN} {out['step_ms_sampling']:.2f} ms; profiled beam "
+        + ("step: no device time" if prof["device_ms"] is None else
+           f"step {prof['device_ms']:.2f} ms of kernels: "
+           + ", ".join(f"{g} {ms:.2f}" for g, ms in prof["groups"].items()))
+        + f"; on {card}")
+    del visual, tower, decoder, tower_card, decoder_card, cap, cap_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 3s
+
+def pack_flax_msgpack(tree) -> bytes:
+    """`flax.serialization.msgpack_serialize`'s layout, as vlsa_tpu's
+    runner/ckpt.py writes it: each numpy array as the msgpack extension
+    type 1 holding packb((shape, dtype name, C-order bytes)), everything
+    else as msgpack's own types (arrays here are far under flax's 2**30-byte
+    chunk size)."""
+    import msgpack
+    import numpy as np
+
+    def ext(x):
+        if isinstance(x, np.ndarray):
+            return msgpack.ExtType(1, msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
+                                                    use_bin_type=True))
+        raise TypeError(f"cannot pack {type(x)}")
+    return msgpack.packb(tree, default=ext, strict_types=True)
+
+
+def phase_flax_checkpoint(torch, ab, co, device, card, tmp, keep):
+    """Phase 3s: phase 3h's kept flagship model (INTERP_RUN) written as a
+    vlsa_tpu checkpoint (flax's msgpack layout, the module filter applied)
+    in a copy of its run directory; `test_model` from it and from 3h's torch
+    checkpoint, and `load_vlsa_from_run` on both directories, bit for bit."""
+    import numpy as np
+    from vlsa_tpu_torch.config import load_config
+    from vlsa_tpu_torch.data.pipeline import BagBatcher
+    from vlsa_tpu_torch.interpret import load_vlsa_from_run
+    from vlsa_tpu_torch.runner.ckpt import filter_state, load_checkpoint
+    from vlsa_tpu_torch.runner.train import make_dataset
+    from vlsa_tpu_torch.runner.vlsa import VLSAHandler
+    from vlsa_tpu_torch.utils.weights import jax_tree_from_state_dict
+
+    run_dir, flax_dir = os.path.join(tmp, INTERP_RUN), os.path.join(tmp, FLAX_RUN)
+    torch_ckpt = os.path.join(run_dir, "train_model-last.ckpt")
+    cfg = load_config(os.path.join(run_dir, "config.yaml"))
+    t0 = time.perf_counter()
+    state = filter_state(keep[INTERP_RUN].state_dict(), cfg.get("model_saver_module_filter"))
+    epoch = load_checkpoint(torch_ckpt)["epoch"]
+    os.makedirs(flax_dir)
+    shutil.copy(os.path.join(run_dir, "config.yaml"), flax_dir)
+    flax_ckpt = os.path.join(flax_dir, "train_model-last.ckpt")
+    with open(flax_ckpt, "wb") as f:
+        f.write(pack_flax_msgpack({"epoch": epoch, "model": jax_tree_from_state_dict(state)}))
+    write_s = time.perf_counter() - t0
+    read = {"torch": load_checkpoint(torch_ckpt), "flax": load_checkpoint(flax_ckpt)}
+    check(read["flax"]["epoch"] == epoch and read["flax"]["model"].keys() == state.keys()
+          and all(torch.equal(read["flax"]["model"][k], read["torch"]["model"][k]) for k in state),
+          "the flax checkpoint's tensors differ from the torch checkpoint's")
+
+    # ---- test_model from each checkpoint ----
+    co.reset_launches()
+    ab.reset_launches()
+    handler = VLSAHandler(dict(cfg, save_path=os.path.join(tmp, FLAX_RUN + "_eval")),
+                          device=device)
+    test_set = make_dataset(handler.cfg, handler.data_meta, handler.data_split["test"])
+    handler.uid["test"] = test_set.uid
+    probs = {}
+    for fmt, path in (("torch", torch_ckpt), ("flax", flax_ckpt)):
+        t = time.perf_counter()
+        probs[fmt] = handler.test_model(test_set, "test", ckpt_path=path)["pred"]["y_hat"]
+        probs[fmt + "_s"] = time.perf_counter() - t
+    check(np.array_equal(probs["flax"], probs["torch"]) and np.isfinite(probs["flax"]).all(),
+          f"test probabilities from the flax checkpoint differ from the torch one's by "
+          f"{np.abs(probs['flax'] - probs['torch']).max():.3e}")
+    del handler
+
+    # ---- load_vlsa_from_run on both directories ----
+    models = {fmt: load_vlsa_from_run(d, ckpt_type="last", device=device)
+              for fmt, d in (("torch", run_dir), ("flax", flax_dir))}
+    batch = BagBatcher(test_set, batch_size=INTERP_BATCH,
+                       feats_dtype=cfg.get("feats_dtype", "float32"),
+                       prefetch=0).make_batch(range(INTERP_BATCH))
+    feats, mask = batch["feats"].to(device), batch["mask"].to(device)
+    with torch.inference_mode():
+        logits = {fmt: m(feats, mask)[0] for fmt, m in models.items()}
+    check(torch.equal(logits["flax"], logits["torch"]),
+          "load_vlsa_from_run: the flax run directory's logits differ from the torch one's")
+    launches = dict(co.LAUNCHES)  # the two passes' and the two models' forwards
+    check(sum(launches.values()) > 0 and sum(ab.LAUNCHES.values()) == 0,
+          f"flax checkpoint: co-attention launches {launches}, ABMIL {dict(ab.LAUNCHES)}")
+    size = os.path.getsize(flax_ckpt)
+    log(f"flax checkpoint: {len(state)} tensors of {INTERP_RUN} ({size / 2**20:.1f} MiB, "
+        f"written in {write_s:.2f} s); test_model from it: {len(test_set)} patients' "
+        f"probabilities bit-identical to the torch checkpoint's ({probs['flax_s']:.2f} s vs "
+        f"{probs['torch_s']:.2f} s a pass; co-attention launches {launches}); "
+        f"load_vlsa_from_run on both directories: logits of {INTERP_BATCH} bags bit-identical; "
+        f"on {card}")
+    del models, feats, mask, batch
+    torch.cuda.empty_cache()
+    return {"tensors": len(state), "bytes": size, "write_s": write_s, "epoch": epoch,
+            "test_pass_s": {k: probs[k + "_s"] for k in ("torch", "flax")},
+            "launches": {"coattn_fwd": launches}, "patients": len(test_set)}
 
 
 # ---------------------------------------------------------------- phase 3f
@@ -5984,6 +6336,7 @@ def main(argv=None) -> int:
         extraction_512 = timed("3e-512", phase_extraction_512, torch, fa, ab, co, device)
         extraction_rest = timed("3q", phase_extraction_rest, torch, fa, ab, co, device,
                                 extraction)
+        captions = timed("3r", phase_captions, torch, fa, ab, co, device, card)
         feat_proj = timed("3f", phase_feat_proj_training, torch, co, device)
         lifecycle_vlsa = timed("3g-VLSA", phase_lifecycle, torch, ab, co, device, "vlsa", card)
         lifecycle_sa = timed("3g-SA", lambda: phase_lifecycle(
@@ -5993,6 +6346,8 @@ def main(argv=None) -> int:
         try:
             store_runs = timed("3h", phase_store_runs, torch, ab, co, device, card, stores_tmp,
                                kept)
+            flax_ckpt = timed("3s", phase_flax_checkpoint, torch, ab, co, device, card,
+                              stores_tmp, kept)
             zero_shot = timed("3i", phase_zero_shot, torch, ab, co, device, card, stores_tmp)
             interpretation = timed("3j", phase_interpretation, torch, ab, co, device, card,
                                    stores_tmp, kept)
@@ -6016,7 +6371,7 @@ def main(argv=None) -> int:
 
     kernels = []
     # the whole runs' launches: phase 3g's, each of phase 3h's, 3i's, 3j's,
-    # 3k's, 3m's, 3n's and 3p's
+    # 3k's, 3m's, 3n's and 3p's; 3s's evaluation passes
     runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values()) \
         + list(zero_shot["runs"].values()) + [zero_shot["flagship"]] \
         + list(interpretation["runs"].values()) + list(sa_1024["runs"].values()) \
@@ -6028,6 +6383,7 @@ def main(argv=None) -> int:
     fwd_launches = {v: serving["launches"][v] + training["launches"]["fwd"][v]
                     + feat_proj["launches"]["fwd"][v] + run_launches("coattn_fwd", v)
                     + interpretation["launches"]["coattn_fwd"][v]
+                    + flax_ckpt["launches"]["coattn_fwd"][v]
                     for v in VARIANTS}
     dq_launches = {v: training["launches"]["bwd"][v] + run_launches("coattn_bwd_dq", v)
                    for v in VARIANTS}
@@ -6148,8 +6504,8 @@ def main(argv=None) -> int:
                 "widths": [list(w) for w in ABMIL_ANY_WIDTHS], "timed_at": [D, H],
                 "on_main_path": n > 0})
     # bf16 on the path flash_plan names (the streamed kernel), timed at the
-    # extraction shape; its launches those of both CONCH extraction runs and
-    # of phase 3q's w8a8 trunk
+    # extraction shape; its launches those of both CONCH extraction runs, of
+    # phase 3q's w8a8 trunk and of phase 3r's caption trunk
     for v in FLASH_VARIANTS:
         t = flash_times[f"{v}_{fa.flash_plan(FLASH_SHAPE['L'])[0]}_L{FLASH_SHAPE['L']}"
                         if v == "bf16" else f"{v}_L{FLASH_SHAPE['L']}"]
@@ -6157,7 +6513,7 @@ def main(argv=None) -> int:
             "name": f"flash_attn_fwd[{v}]", "route": "cuda", "source": SOURCE_FLASH,
             "replaces": REPLACES_FLASH,
             "launches": (extraction["launches"][v] + extraction_512["launches"][v]
-                         + extraction_rest["launches"][v]),
+                         + extraction_rest["launches"][v] + captions["launches"][v]),
             "max_abs_err": errs_flash[v][FLASH_SHAPE["L"]]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
@@ -6182,6 +6538,7 @@ def main(argv=None) -> int:
               "store_runs": store_runs, "zero_shot": zero_shot,
               "interpretation": interpretation, "sa_1024": sa_1024, "sa_2560": sa_2560,
               "optimizers": optim, "zoo": zoo, "clf_text_apis": clf_text,
+              "captions": captions, "flax_checkpoint": flax_ckpt,
               "query_errors": errs_q,
               "queries": queries, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}

@@ -120,15 +120,28 @@ def test_prediction_csv_is_pandas_byte_for_byte(tmp_path, kind):
 
 
 def test_weight_bridge_round_trip():
+    """A DeepMIL tree and CoCa's caption decoder (`resblock_<i>` and
+    `cross_<i>` scopes) go to the port's names and back unchanged."""
+    import jax.numpy as jnp
+
     from vlsa_tpu.models import load_model as jax_load_model
+    from vlsa_tpu.models.multimodal import MultimodalDecoder as JaxDecoder
+    from vlsa_tpu_torch.models.multimodal import MultimodalDecoder
+
     _m, params = jax_load_model("DeepMIL", [64, 32, 4], rng=jax.random.PRNGKey(0),
                                 network="ABMIL", pooling="attention", use_feat_proj=True)
-    tree = jax.tree.map(np.asarray, dict(params))
-    back = jax_tree_from_state_dict(state_dict_from_jax(tree))
-    a, b = dict(_flatten(tree)), dict(_flatten(back))
-    assert a.keys() == b.keys()
-    for k in a:
-        np.testing.assert_array_equal(a[k], b[k])
+    dec = dict(width=32, heads=4, layers=2, context_length=24, output_dim=64)
+    decoder = JaxDecoder(**dec).init(jax.random.PRNGKey(1), jnp.zeros((1, 6, 32)),
+                                     jnp.zeros((1, 5, 32)))["params"]
+    for params in (params, decoder):
+        tree = jax.tree.map(np.asarray, dict(params))
+        back = jax_tree_from_state_dict(state_dict_from_jax(tree))
+        a, b = dict(_flatten(tree)), dict(_flatten(back))
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    MultimodalDecoder(**dec).load_state_dict(
+        state_dict_from_jax(jax.tree.map(np.asarray, dict(decoder))), strict=True)
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ from vlsa_tpu.runner import VLSAHandler as JaxVLSAHandler
 from vlsa_tpu.runner.ckpt import load_checkpoint as jax_load_checkpoint
 from vlsa_tpu_torch import main as port_main
 from vlsa_tpu_torch.eval import predict_mean_survival_time
+from vlsa_tpu_torch.interpret import load_vlsa_from_run
 from vlsa_tpu_torch.runner.ckpt import load_checkpoint
 from vlsa_tpu_torch.runner.sa import SAHandler
 from vlsa_tpu_torch.runner.vlsa import VLSAHandler
@@ -121,6 +122,7 @@ def run_pair(kind, tmp_path_factory):
     cfg = lifecycle_cfg(kind, root, table, split, root / "port")
     handler = (VLSAHandler if kind == "vlsa" else SAHandler)(cfg, device="cpu", state_dict=init)
     out["port"] = (handler, handler.exec(), cfg["save_path"])
+    out["init"] = init
     return out
 
 
@@ -306,6 +308,70 @@ def test_exec_test_evaluates_the_saved_run(sa_pair, tmp_path):
         assert got[name] == pytest.approx(v, abs=1e-6), name
     assert os.path.exists(tmp_path / "exec-test" / "sa_test_mode_last_pred_exec-test.csv")
     assert os.path.exists(tmp_path / "exec-test" / "test_mode_metrics-last.txt")
+
+
+def jax_tester(kind, runs, tmp_path):
+    """A port handler in test mode on vlsa_tpu's run directory, built from
+    the runs' initial weights: `exec_test` reads vlsa_tpu's flax msgpack
+    `train_model-last.ckpt` over them.  The flagship's checkpoint leaves out
+    the frozen text tower, which the config's seed rebuilds in each package
+    differently (and from which the TaskRes queries' prior features are
+    computed at build), so the tower comes with the initial weights, as a
+    released tower file would."""
+    cfg = dict(runs["port"][0].cfg, test=True, test_load_path=runs["jax"][2], test_path="test",
+               test_save_path=str(tmp_path / "exec-test"), save_prediction=True)
+    return (VLSAHandler if kind == "vlsa" else SAHandler)(cfg, device="cpu",
+                                                          state_dict=runs["init"])
+
+
+def test_port_evaluates_a_jax_run_directory(pair, tmp_path):
+    """`exec_test` on vlsa_tpu's run directory (`test_model(ckpt_path=<its
+    msgpack checkpoint>)`) gives vlsa_tpu's final test metrics and test
+    predictions within TOL_PRED."""
+    kind, runs = pair
+    tester = jax_tester(kind, runs, tmp_path)
+    got = dict(tester.exec_test()["exec-test"])
+    want = dict(runs["jax"][1]["test"])
+    assert got.keys() == want.keys()
+    for name, v in want.items():
+        assert abs(got[name] - v) <= TOL_PRED, (name, got[name], v)
+    h_got, ids_got, got_pred = read_csv(
+        tmp_path / "exec-test" / f"{kind}_test_mode_last_pred_exec-test.csv")
+    h_want, ids_want, want_pred = read_csv(
+        os.path.join(runs["jax"][2], f"{kind}_train_last_pred_test.csv"))
+    assert h_got == h_want and ids_got == ids_want
+    np.testing.assert_allclose(got_pred, want_pred, rtol=0, atol=TOL_PRED)
+
+
+def test_load_vlsa_from_a_jax_run_directory(vlsa_pair):
+    """`load_vlsa_from_run` rebuilds the model from vlsa_tpu's config.yaml
+    and lays its msgpack checkpoint over it: every saved parameter is
+    vlsa_tpu's final one bit for bit, the filtered tower the seed's."""
+    jax_handler, _metrics, jax_path = vlsa_pair["jax"]
+    model, cfg = load_vlsa_from_run(jax_path, return_cfg=True, device="cpu")
+    assert not model.training and cfg["model_saver_module_filter"] == "prompt_encoder"
+    final = jax_initial_state(jax_handler)
+    got = model.state_dict()
+    saved = [k for k in final if not k.startswith("prompt_encoder.")]
+    assert saved and set(got) == set(final)
+    for k in saved:
+        assert torch.equal(got[k], final[k].to(got[k].dtype)), k
+
+
+def test_resume_refuses_jax_optax_state(pair, tmp_path):
+    """vlsa_tpu's last checkpoint holds optax state, which the port does not
+    map onto a torch optimizer: resuming raises and leaves the model as it
+    was."""
+    kind, runs = pair
+    handler = (VLSAHandler if kind == "vlsa" else SAHandler)(
+        dict(runs["port"][0].cfg, save_path=str(tmp_path / "resume")), device="cpu")
+    handler.last_ckpt_path = os.path.join(runs["jax"][2], "model-last.ckpt")
+    assert "optax_state" in load_checkpoint(os.path.join(runs["jax"][2],
+                                                         "train_model-last.ckpt"))
+    before = {k: v.clone() for k, v in handler.model.state_dict().items()}
+    with pytest.raises(NotImplementedError, match=r"A\.6c"):
+        handler.resume_model("last", "train")
+    assert all(torch.equal(v, before[k]) for k, v in handler.model.state_dict().items())
 
 
 def write_small_config(tmp_path, kind, **overrides):

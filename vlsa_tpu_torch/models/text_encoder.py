@@ -191,13 +191,21 @@ class TextTower(nn.Module):
         mask[:, L - 1, :] = torch.where(cls_row, 0.0, NEG_INF)
         return mask[:, None]
 
+    def embed_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
+        """Token ids [K, L] -> their embeddings [K, L, D]."""
+        return self.token_embedding[token_ids.to(self.token_embedding.device)]
+
     def forward(self, prompts_embedding: Optional[torch.Tensor] = None,
                 prompts_pseudo_tokens: Optional[torch.Tensor] = None,
-                prompts_text: Optional[torch.Tensor] = None) -> torch.Tensor:
+                prompts_text: Optional[torch.Tensor] = None,
+                return_tokens: bool = False):
         """Embeddings [K, L, D] with pseudo tokens [K, L], or token ids
         (CONCH [K, 128]; CLIP and HF [K, L] with their pseudo tokens, which
         CLIP can derive) -> pooled text features [K, output_dim].  L is at
-        most `max_num_tokens`."""
+        most `max_num_tokens`.  With `return_tokens`, (pooled, tokens [K, L,
+        D]): the per-token outputs CoCa's caption decoder reads, CONCH's
+        before ln_final and without the <cls> slot, CLIP's and HF's after
+        ln_final."""
         device = self.token_embedding.device
         if prompts_text is not None:
             if self.api == "CONCH":
@@ -208,7 +216,7 @@ class TextTower(nn.Module):
                 # the HF api raises here, as vlsa_tpu's does: it needs the eos id
                 prompts_pseudo_tokens = torch.as_tensor(generate_pseudo_tokens(
                     prompts_text.cpu().numpy(), self.api, self.pad_id), device=device)
-            x = self.token_embedding[prompts_text.to(device)]
+            x = self.embed_tokens(prompts_text)
         else:
             if prompts_embedding is None or prompts_pseudo_tokens is None:
                 raise ValueError("pass prompts_text, or prompts_embedding with "
@@ -236,11 +244,13 @@ class TextTower(nn.Module):
         for blk in self.resblocks:
             x = blk(x, attn_mask)
         if self.api == "CONCH":
+            tokens = x[:, :-1]
             pooled = self.ln_final(x[:, -1])
         else:
-            x = self.ln_final(x)
+            x = tokens = self.ln_final(x)
             pooled = x[torch.arange(K, device=device), torch.argmax(pseudo, dim=-1)]
-        return pooled @ self.text_projection
+        pooled = pooled @ self.text_projection
+        return (pooled, tokens) if return_tokens else pooled
 
 
 # the published towers (vlsa_tpu/models/text_encoder.py::make_text_tower)

@@ -22,8 +22,10 @@ test split once, `run_name` "zero-shot", and write
 (vlsa_tpu's names) and no checkpoint.  A model with every parameter
 frozen gets no optimizer.  Not ported: wandb (vlsa_tpu leaves it off
 unless VLSA_TPU_DISABLE_WANDB=0; the card's machine has no wandb), `mesh`
-and `distributed` (ROADMAP.md §A.17), and vlsa_tpu's checkpoint formats
-(`ckpt_backend`, §A.6); each raises.
+and `distributed` (ROADMAP.md §A.17), vlsa_tpu's orbax checkpoints
+(`ckpt_backend: orbax`) and resuming from a vlsa_tpu checkpoint that holds
+optax state (§A.6c); each raises.  Checkpoints are written in torch's
+format; vlsa_tpu's msgpack ones are read (runner/ckpt.py).
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ def _refuse_unported(cfg: dict) -> None:
                                       f"(ROADMAP.md §A.17)")
     if cfg.get("ckpt_backend", "msgpack") != "msgpack":
         raise NotImplementedError(f"ckpt_backend {cfg['ckpt_backend']!r}: this port "
-                                  f"writes torch checkpoints only (ROADMAP.md §A.6)")
+                                  f"writes torch checkpoints only (ROADMAP.md §A.6c)")
 
 
 def _fill_paths(cfg: dict) -> None:
@@ -448,6 +450,11 @@ class BaseHandler:
         else:
             raise KeyError(f"Expected best or last for `ckpt_type`, got {ckpt_type}.")
         ckpt = load_checkpoint(path)
+        if "optax_state" in ckpt:
+            raise NotImplementedError(
+                f"{path} is vlsa_tpu's checkpoint with optax state, which this port does not "
+                f"map onto a torch optimizer (ROADMAP.md §A.6c): resuming without its moments "
+                f"would be another run; evaluate it with test_model instead")
         merge_state(self.model, ckpt["model"])
         if "optimizer" in ckpt and self.optimizer is not None:
             self.optimizer.load_state_dict(ckpt["optimizer"])

@@ -1,22 +1,39 @@
 """Checkpoints of a run (counterpart of vlsa_tpu/runner/ckpt.py): best and
 last snapshots, `model_saver_module_filter`, and strict=False loading.
 
-The payload is the one the original PyTorch VLSA saves, `torch.save` of
-{"epoch", "model": the model's state dict, "optimizer": the optimizer's
-state dict}, read back with `torch.load(..., weights_only=True)`.  The
-module filter drops every entry whose top-level module name contains it, as
-vlsa_tpu filters its parameter tree's top-level keys: with the flagship's
-`prompt_encoder` the frozen CONCH text tower is not saved, and a nested
-module whose name happens to contain the filter is.  vlsa_tpu's formats
-(flax msgpack, `ckpt_backend: orbax`) are neither read nor written here.
+The port writes the payload the original PyTorch VLSA saves, `torch.save`
+of {"epoch", "model": the model's state dict, "optimizer": the optimizer's
+state dict}.  The module filter drops every entry whose top-level module
+name contains it, as vlsa_tpu filters its parameter tree's top-level keys:
+with the flagship's `prompt_encoder` the frozen CONCH text tower is not
+saved, and a nested module whose name happens to contain the filter is.
+
+`load_checkpoint` reads that payload and vlsa_tpu's own, told apart by
+content: a torch zip file, or flax's msgpack (`flax.serialization.
+msgpack_serialize` of {"epoch", "model": the parameter tree[, "optimizer":
+optax's state]}, the file vlsa_tpu's runs write under the same names).  A
+flax file's tree comes back as this package's state dict
+(`utils.weights.state_dict_from_jax`), so `test_model`, `resume_model` and
+`interpret.load_vlsa_from_run` take a run directory vlsa_tpu trained.  Its
+optax state is not mapped onto a torch optimizer: `resume_model` refuses
+such a file (ROADMAP.md §A.6c), and vlsa_tpu's orbax backend stays refused
+(`runner/base.py`).
 """
 from __future__ import annotations
 
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
+
+from ..utils.weights import state_dict_from_jax
+
+# flax's msgpack extension type of an array: packb((shape, dtype name,
+# C-order bytes)); vlsa_tpu saves every leaf as an array
+_EXT_NDARRAY = 1
+_CHUNKED = "__msgpack_chunked_array__"
 
 
 def top_module(key: str) -> str:
@@ -42,7 +59,61 @@ def save_checkpoint(path: str, epoch: int, model: nn.Module,
     torch.save(payload, path)
 
 
+def _is_msgpack_map(head: bytes) -> bool:
+    """A msgpack map of at least one entry (fixmap, map16, map32).  A torch
+    zip file starts with "PK", an older torch file (a pickle) with 0x80, an
+    empty fixmap."""
+    return bool(head) and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF))
+
+
+def _flax_leaf(code: int, data: bytes):
+    """An array of flax's msgpack layout: numpy, or for bfloat16 (which numpy
+    has no type for without ml_dtypes) its bits viewed as torch.bfloat16."""
+    import msgpack
+
+    if code != _EXT_NDARRAY:
+        raise ValueError(f"a flax checkpoint leaf of msgpack extension type {code}")
+    shape, dtype, buf = msgpack.unpackb(data, raw=True)
+    if dtype == b"bfloat16":
+        bits = torch.from_numpy(np.frombuffer(buf, np.int16).copy())
+        return bits.view(torch.bfloat16).reshape(tuple(shape))
+    return np.frombuffer(buf, np.dtype(dtype.decode())).reshape(shape).copy()
+
+
+def _unchunk(tree):
+    """flax splits an array over 2**30 bytes into {"__msgpack_chunked_array__",
+    "shape", "chunks"}, tuples as {"0": ..., "1": ...}; join them back."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree.get(_CHUNKED):
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        joined = (torch.cat(chunks) if isinstance(chunks[0], torch.Tensor)
+                  else np.concatenate(chunks))
+        return joined.reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def read_flax_checkpoint(path: str) -> dict:
+    """A checkpoint vlsa_tpu wrote -> {"epoch", "model": this package's state
+    dict[, "optax_state": the optimizer's tree as read]}."""
+    import msgpack
+
+    with open(path, "rb") as f:
+        tree = _unchunk(msgpack.unpackb(f.read(), ext_hook=_flax_leaf, raw=False))
+    out = {"epoch": tree["epoch"], "model": state_dict_from_jax(tree["model"])}
+    if "optimizer" in tree:
+        out["optax_state"] = tree["optimizer"]
+    return out
+
+
 def load_checkpoint(path: str) -> dict:
+    """The port's torch checkpoint, or vlsa_tpu's flax msgpack one (see the
+    module's docstring)."""
+    with open(path, "rb") as f:
+        head = f.read(1)
+    if _is_msgpack_map(head):
+        return read_flax_checkpoint(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

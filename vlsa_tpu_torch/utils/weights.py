@@ -3,7 +3,8 @@ package's state dict (the inverse of vlsa_tpu/utils/torch_import.py), and
 back (`jax_tree_from_state_dict`).
 
 The tree is given as nested dicts of numpy arrays (`jax.tree.map(np.asarray,
-params)`), so nothing here imports JAX.  Names map as follows:
+params)`), so nothing here imports JAX; a leaf may also be a torch tensor
+(`runner/ckpt.py` reads vlsa_tpu's bf16 leaves as such).  Names map as follows:
 
     resblock_<i>             -> resblocks.<i>
     <LayerNorm>/scale        -> <LayerNorm>.weight
@@ -49,14 +50,22 @@ def _flatten(tree, path=()):
     if isinstance(tree, Mapping) or hasattr(tree, "items"):
         for k, v in tree.items():
             yield from _flatten(v, path + (str(k),))
+    elif isinstance(tree, torch.Tensor):  # a leaf numpy cannot hold (bf16 without ml_dtypes)
+        yield path, tree
     else:
         yield path, np.asarray(tree)
 
 
-def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+def _to_tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.contiguous().clone()
     if arr.dtype.name == "bfloat16":  # numpy's bf16 extension type
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+
+
+def _permute(arr, axes):
+    return arr.permute(*axes) if isinstance(arr, torch.Tensor) else arr.transpose(axes)
 
 
 # the MIL zoo's convolution kernels, HWIO in vlsa_tpu and OIHW here
@@ -67,7 +76,7 @@ def _torch_name(path: Tuple[str, ...], arr: np.ndarray):
     parts = [("resblocks." + p.split("_", 1)[1]) if p.startswith("resblock_") else p
              for p in path]
     if parts[-1] in _CONV_KERNELS and arr.ndim == 4:
-        arr = arr.transpose(3, 2, 0, 1)
+        arr = _permute(arr, (3, 2, 0, 1))
     elif parts[-1] == "scale":
         parts[-1] = "weight"
     elif parts[-1] == "kernel":
