@@ -242,6 +242,32 @@ non-zero and prints no result:
      test pass of `test_model(ckpt_path=...)` from each bit for bit, and
      `load_vlsa_from_run` on both directories giving bit-identical logits;
      its co-attention launches join the kernels line;
+  3t. multi-process runs (after 3h): four ranks spawned on the one card,
+     joined with gloo (ranks sharing a card; each collective staged through
+     host memory).  The sequence-parallel pools at B=8, N=10240, C=512, P=12
+     (10% masked, an empty bag) on {data: 2, model: 2} and {data: 1,
+     model: 4}: co-attention f32 and bf16 (rows 1, 6) and bf16 with dX
+     (row 5, the projecter), ABMIL at (512, 256) f32 and bf16 with and
+     without dX (rows 7, 8); each rank's launches on its chunk held against
+     the plain versions at phases 2-2e's limits (the backward with the
+     merged stats), the pool as the models call it (its launches counted),
+     and the merged output and gradients against the single-process kernels
+     on the data rank's whole bags at twice those limits (both sides are
+     within one limit of the same plain function).  Then the flagship
+     (bf16 features, the CONCH tower at full width in bf16, tensor and
+     sequence parallel) and the SA 512-256-12 (f32) on {data: 2, model: 2}:
+     2 steps of 32 bags and an evaluation pass of the test split, every rank
+     with the same losses and metrics; the SA's losses within 1e-4 of the
+     same steps on one rank, the flagship's first step (its loss and every
+     gradient) within twice bf16's own effect on one rank (one rank's step
+     against its step with the tower in f32); the
+     step ms by layout and the collectives' host seconds are printed, not
+     a scaling figure (the ranks time-slice one card).  Last, `python -m
+     vlsa_tpu_torch.main --handler SA` as two processes joined through a
+     `distributed` dict (mesh {data: 2}), each with its own save path: both
+     ranks evaluate rank 0's last checkpoint, which rank 0 alone reads and
+     sends on, print the same final metrics, and only rank 0 writes the
+     run's files.  Its launches join the kernels line;
   3i. the released CONCH weights and zero-shot: writes a CONCH-format
      `pytorch_model.bin` beside the stores (the text tower under `text.*`
      at its published width: 12 layers of 768, vocabulary 32007, context
@@ -347,8 +373,9 @@ non-zero and prints no result:
      with `vlsa_api` CLIP and HF (a tokenizer directory written by
      `export_hf_clip_tokenizer` and a seeded CLIP-layout checkpoint,
      imported tensor for tensor), each a request card against CPU with the
-     tower in f32 (1e-3), then 1 epoch from the bf16 .npy store through
-     `main` with phase 3h's checks and a profiled step; prints each run's
+     tower in f32 (1e-3), then 1 epoch from the bf16 .npy store (its bags
+     truncated to 4,096 patches) through `main` with phase 3h's checks and
+     a profiled step; prints each run's
      epoch seconds, peak device memory and launches, and the launches this
      phase adds to rows 1, 6, 7 and 8; the stores are then removed;
   3k. the SA baseline at 1024-d features: fold 0's 437 slides as bags of
@@ -863,6 +890,10 @@ CLIP_TEXT_SEED = 21
 PROFILE_TRIES = 3  # profiled steps a run, until a trace names every kernel expected
 CLIP_LOGIT_SCALE = 4.5  # near log(100), CLIP's trained scale; exact in f32
 TEXT_APIS = ("CLIP", "HF")
+# the CLIP and HF epochs read 3h's bags truncated to this many patches (3p
+# holds the text towers; 3h the bags' lengths), for the script's time
+TEXT_API_BUCKET = 4096
+TEXT_API_REDUCED = {"epochs": "10 -> 1", "bag N": "3h's bags (N~8192) truncated to 4,096"}
 CLF_REDUCED = {"epochs": "10 -> 1", "labels": "synthetic, drawn a patient",
                "runs": "Multi-class served only (its pass over the test split and a request)"}
 RSS_SAMPLE_S = 0.05  # the resident set's sampling period within a run
@@ -982,12 +1013,25 @@ class SmokeFailure(Exception):
     pass
 
 
+# phase 3t's ranks but rank 0 log nothing (their failures are still gathered)
+QUIET = False
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    if not QUIET:
+        print(f"[chip_smoke] {msg}", flush=True)
+
+
+# phase 3t's ranks gather their failures here instead of raising them: a rank
+# that stopped short of a collective would leave its peers waiting in it
+DEFERRED: Optional[list] = None
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
+        if DEFERRED is not None:
+            DEFERRED.append(msg)
+            return
         raise SmokeFailure(msg)
 
 
@@ -4966,7 +5010,8 @@ def text_api_run(torch, ab, co, device, card, tmp, npy_dir, api, extra) -> dict:
     served = text_api_serve(torch, co, device, serving_config(
         dict(FLAGSHIP_CFG, vlsa_api=api, **extra)), f"{name} serve", written)
     cfg = dict(LIFECYCLE_VLSA_CFG, vlsa_api=api, **extra, feats_dtype="bfloat16",
-               path_patch=npy_dir, feat_format="npy", save_path=os.path.join(tmp, name))
+               path_patch=npy_dir, feat_format="npy", save_path=os.path.join(tmp, name),
+               max_bucket=TEXT_API_BUCKET, bag_overflow="truncate")
     run = exec_handler(torch, ab, co, device, cfg, via_main=True)
     handler, launches = run["handler"], run["launches"]
     check(handler.model.prompt_encoder.api == api, f"{name}: the tower's api")
@@ -4993,7 +5038,7 @@ def text_api_run(torch, ab, co, device, card, tmp, npy_dir, api, extra) -> dict:
         f"{ {k: {v: n for v, n in c.items() if n} for k, c in launches.items()} }, on {card}; "
         f"final metrics {run['metrics']}")
     rec = {"config": {k: v for k, v in cfg.items() if k != "save_path"}, "card": card,
-           "reduced": STORE_REDUCED, "served": served, "exec_s": run["exec_s"],
+           "reduced": TEXT_API_REDUCED, "served": served, "exec_s": run["exec_s"],
            "epochs": handler.timings["epochs"], "eval_passes": run["eval_passes"],
            "batches": run["batches"], "launches": launches, "metrics": run["metrics"],
            "peak_device_bytes": run["peak_device_bytes"], "host_memory": run["host_memory"],
@@ -5839,6 +5884,475 @@ def phase_queries(torch, ab, co, device, card, tmp):
             "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 3t
+
+# phase 3t: multi-process runs on the one card.  Four ranks (spawned, gloo:
+# they share the card, so each collective stages through host memory) on
+# data x model grids; the card time-slices them, so no time here is a scaling
+# figure.  The sequence-parallel pools at SHAPE on {data: 2, model: 2} and
+# {data: 1, model: 4}: (storage, x needs a gradient: the projecter's dX)
+MP_WORLD = 4
+MP_GRIDS = {"model2": (2, 2), "model4": (1, 4)}
+MP_COATTN = (("f32", False), ("bf16", False), ("bf16", True))
+MP_ABMIL = (("f32", False), ("bf16", False), ("f32", True), ("bf16", True))
+# the flagship (bf16, the CONCH tower at full width, tensor and sequence
+# parallel) and the SA 512-256-12 (f32, ABMIL sequence parallel) on
+# {data: 2, model: 2}: MP_STEPS steps of 32 bags and an evaluation pass of
+# the test split, against the same on one rank; bags of N~512 (fold 0's
+# largest patient 4,399 patches: one fixed bucket, as the ranks need, that
+# splits over model=2; cut from N~1024 and 3 steps for the script's time).  The SA's losses are held at TOL_MP_LOSS.  The
+# flagship's bf16 tower sums its tensor-parallel MLP in another order than
+# one rank does, which moves bf16 roundings of the next operands (and of the
+# cotangents) by an ulp, as vlsa_tpu's own bf16 mesh step moves them
+# (tests/test_torch_parallel.py::test_flagship_step_with_a_bf16_tower: there,
+# on the CPU, each package's gap between its grid and one device, in the loss
+# and in every learned leaf's gradient, is no larger than bf16's whole effect,
+# the one-device bf16 step's gap from the f32 tower's; at most 0.83 of it in
+# the port, 0.54 in vlsa_tpu).  Once a flipped rounding has spread, the two
+# runs carry two draws of bf16's noise, which differ by up to sqrt(2) of one
+# draw's distance from the f32 tower.  So the first step's loss and every
+# gradient of it are held within MP_BF16_TP times that effect, measured here
+# (one rank's bf16 step against one rank's with the tower in f32), or within
+# TOL_MP_LOSS where that is larger; 2 leaves room for the spread of a max
+# over a leaf's elements.  The later steps' losses are printed, not held:
+# Adam's first update is near sign(g), so an element whose gradient bf16
+# leaves at noise level steps by the full rate either way, and the runs part
+# by more than bf16 moves the step itself.
+MP_BF16_TP = 2.0
+MP_MESH = {"data": 2, "model": 2}
+MP_STEPS = 2
+MP_BAGS = "synthetic://N=512,D=512,seed=7"
+MP_BUCKET = 4608
+TOL_MP_LOSS = 1e-4  # the SA grid's losses against one rank's (relative)
+# the two-process `distributed` SA run through `python -m vlsa_tpu_torch.main`:
+# one epoch, bags of N~128 (largest patient 1,099; cut from N~512 for the
+# script's time)
+MP_DIST_BAGS = "synthetic://N=128,D=512,seed=7"
+MP_DIST_BUCKET = 1152
+MP_DIST_TIMEOUT_S = 300
+MP_REDUCED = {"epochs": "10 -> 2 steps and one evaluation pass (the two-process run: 1 epoch)",
+              "bag N": "~8192 -> ~512 (two-process run ~128), one fixed bucket"}
+
+
+def phase_tol(family: str, quantity: str, storage: str) -> float:
+    """The limit phases 2-2e hold a kernel's quantity to against its plain
+    version (relative; bf16 co-attention dX by ulps, `hold_ulp`)."""
+    if family == "coattn":
+        if quantity == "out":
+            return TOL_F32_FWD if storage == "f32" else TOL[storage]
+        if quantity == "dq":
+            return TOL_F32_BWD["dq"] if storage == "f32" else TOL_DQ[storage]
+        return TOL_F32_BWD["dx"]  # f32 dX; bf16 by ulps (hold_ulp)
+    if quantity in ("out", "l"):
+        return TOL_ABMIL[storage]
+    return TOL_ABMIL_DX[storage] if quantity == "dX" else TOL_ABMIL_DW[storage]
+
+
+def hold_ulp(what, got, ref, ulps=1) -> dict:
+    """bf16 dX within `ulps` bf16 ulps of its largest element."""
+    ulp = ulps * bf16_ulp_of_max(ref)
+    diff = (got.float() - ref.float()).abs().max().item()
+    log(f"{what}: max|k-p| {diff:.3e}  (tol {ulps} bf16 ulp of the largest, {ulp:.3e})")
+    check(bool(got.isfinite().all()) and diff <= ulp,
+          f"{what}: {diff:.3e} beyond {ulps} bf16 ulp ({ulp:.3e})")
+    return {"max_abs_err": diff, "rel_err": diff / max(ref.float().abs().max().item(), 1e-30)}
+
+
+def hold_sp(what, family, quantity, storage, got, ref, merged):
+    """A rank's launch against its plain version on its chunk at the limit
+    of phases 2-2e, or (`merged`) the merged pool against the single-process
+    kernel on the whole bag at twice it: both are held within that limit of
+    one plain function."""
+    k = 2 if merged else 1
+    if family == "coattn" and quantity == "dX" and storage == "bf16":
+        return hold_ulp(what, got, ref, ulps=k)
+    return hold(what, got.float(), ref.float(), k * phase_tol(family, quantity, storage))
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def launch_counts(ab, co) -> dict:
+    return {"coattn_fwd": dict(co.LAUNCHES), "coattn_bwd_dq": dict(co.LAUNCHES_BWD),
+            "coattn_bwd_dx": dict(co.LAUNCHES_DX), "abmil_fwd": dict(ab.LAUNCHES),
+            "abmil_bwd": dict(ab.LAUNCHES_BWD)}
+
+
+def launch_delta(after: dict, before: dict) -> dict:
+    return {fam: {v: n - before[fam][v] for v, n in c.items()} for fam, c in after.items()}
+
+
+def mp_slices(mesh, B, N):
+    nd, nm = mesh.n_data, mesh.n_model
+    lb, n = B // nd, N // nm
+    return (slice(mesh.data_index * lb, (mesh.data_index + 1) * lb),
+            slice(mesh.model_index * n, (mesh.model_index + 1) * n))
+
+
+def mp_coattn_case(torch, ab, co, mesh, grid, storage, dx, device) -> dict:
+    """One co-attention case on a rank: its forward and backward launches
+    on its chunk against the plain versions (with the merged stats), the
+    pool as VLFAN calls it (its launches counted), and the merged result
+    against the single-process kernels on the data rank's whole bags."""
+    from vlsa_tpu_torch.parallel import coattn_pool_sp
+    from vlsa_tpu_torch.parallel.coattn_sp import merge_partials
+    B, N, C, P = SHAPE["B"], SHAPE["N"], SHAPE["C"], SHAPE["P"]
+    rows, cols = mp_slices(mesh, B, N)
+    where = f"3t {grid} rank {mesh.rank} coattn {storage}{' dX' if dx else ''}"
+    q, x, mask, _s, _i = make_inputs(torch, B, N, C, P, storage, seed=0, device=device,
+                                     keep_masked=dx)
+    g = make_cotangent(torch, B, P, C, device=device)
+    xs, ms, gs = x[rows, cols].contiguous(), mask[rows, cols].contiguous(), g[rows].contiguous()
+    errs = {}
+    out_i, m_i, l_i = co.coattn_fwd(q, xs, ms, SCALE)
+    ref = co.coattn_fwd_reference(q, xs, ms, SCALE)
+    errs["fwd"] = hold_sp(f"{where} fwd", "coattn", "out", storage, out_i, ref[0], False)
+    if not bool(ms[-1].any()):  # the empty bag, as phase 2 holds it
+        check(float(out_i[-1].abs().max()) == 0.0 and bool(torch.all(m_i[-1] == -1e30))
+              and bool(torch.all(l_i[-1] == 1e-30)), f"{where}: the empty bag's (out, m, l)")
+    out_m, m_g, l_g = merge_partials(out_i, m_i, l_i, mesh.model_group)
+    if dx:
+        dq_i, dx_i = co.coattn_bwd_dx(q, xs, ms, SCALE, gs, out_m, m_g, l_g)
+        rdq, rdx = co.coattn_bwd_dx_reference(q, xs, ms, SCALE, gs, out_m, m_g, l_g)
+        errs["dx_dq"] = hold(f"{where} dq", dq_i, rdq, TOL_DX_DQ[storage])
+        errs["dx"] = hold_sp(f"{where} dX", "coattn", "dX", storage, dx_i, rdx, False)
+    else:
+        dq_i = co.coattn_bwd_dq(q, xs, ms, SCALE, gs, out_m, m_g, l_g)
+        rdq = co.coattn_bwd_dq_reference(q, xs, ms, SCALE, gs, out_m, m_g, l_g)
+        errs["dq"] = hold_sp(f"{where} dq", "coattn", "dq", storage, dq_i, rdq, False)
+    del ref
+    before = launch_counts(ab, co)
+    qq, xx = q.clone().requires_grad_(True), xs.clone().requires_grad_(dx)
+    out = coattn_pool_sp(qq, xx, ms, SCALE, mesh)
+    (out * gs).sum().backward()
+    sync(torch, device)
+    launches = launch_delta(launch_counts(ab, co), before)
+    check(torch.equal(out, out_m), f"{where}: the pool merged otherwise than its steps")
+    xw, mw = x[rows].contiguous(), mask[rows].contiguous()
+    ow, mwg, lw = co.coattn_fwd(q, xw, mw, SCALE)
+    errs["merged_out"] = hold_sp(f"{where} merged vs whole out", "coattn", "out", storage, out,
+                                 ow, True)
+    if dx:
+        dqw, dxw = co.coattn_bwd_dx(q, xw, mw, SCALE, gs, ow, mwg, lw)
+        errs["merged_dx"] = hold_sp(f"{where} merged vs whole dX", "coattn", "dX", storage,
+                                    xx.grad, dxw[:, cols], True)
+        errs["merged_dq"] = hold(f"{where} merged vs whole dq", qq.grad, dqw,
+                                 2 * TOL_DX_DQ[storage])
+    else:
+        dqw = co.coattn_bwd_dq(q, xw, mw, SCALE, gs, ow, mwg, lw)
+        errs["merged_dq"] = hold_sp(f"{where} merged vs whole dq", "coattn", "dq", storage,
+                                    qq.grad, dqw, True)
+    return {"errors": errs, "launches": launches}
+
+
+def mp_abmil_case(torch, ab, co, mesh, grid, storage, dx, device) -> dict:
+    """As `mp_coattn_case`, for the ABMIL pool at (512, 256)."""
+    from vlsa_tpu_torch.parallel import abmil_pool_sp
+    from vlsa_tpu_torch.parallel.coattn_sp import merge_partials
+    B, N = SHAPE["B"], SHAPE["N"]
+    rows, cols = mp_slices(mesh, B, N)
+    where = f"3t {grid} rank {mesh.rank} abmil {storage}{' dX' if dx else ''}"
+    x, _xs, mask, w1, b1, w2, g = make_abmil_inputs(torch, B, N, storage, device=device)
+    xs, ms, gs = x[rows, cols].contiguous(), mask[rows, cols].contiguous(), g[rows].contiguous()
+    errs = {}
+    out_i, m_i, l_i = ab.abmil_fwd(xs, ms, w1, b1, w2)
+    ref = ab.abmil_fwd_reference(xs, ms, w1, b1, w2)
+    errs["fwd"] = hold_sp(f"{where} fwd", "abmil", "out", storage, out_i, ref[0], False)
+    hold_sp(f"{where} fwd l", "abmil", "l", storage, l_i, ref[2], False)
+    out_m, m_g, l_g = merge_partials(out_i, m_i, l_i, mesh.model_group)
+    got = ab.abmil_bwd(xs, ms, w1, b1, w2, gs, out_m, m_g, l_g, need_dx=dx)
+    want = ab.abmil_bwd_reference(xs, ms, w1, b1, w2, gs, out_m, m_g, l_g, need_dx=dx)
+    for leaf, a, b in zip(("dX", "dW1", "db1", "dw2"), got, want):
+        if b is not None:
+            errs[leaf] = hold_sp(f"{where} {leaf}", "abmil", leaf, storage, a, b, False)
+    del ref, got, want
+    before = launch_counts(ab, co)
+    params = [t.clone().requires_grad_(True) for t in (w1, b1, w2)]
+    xx = xs.clone().requires_grad_(dx)
+    out = abmil_pool_sp(xx, ms, *params, mesh)
+    (out * gs).sum().backward()
+    sync(torch, device)
+    launches = launch_delta(launch_counts(ab, co), before)
+    check(torch.equal(out, out_m), f"{where}: the pool merged otherwise than its steps")
+    xw, mw = x[rows].contiguous(), mask[rows].contiguous()
+    ow, mwg, lw = ab.abmil_fwd(xw, mw, w1, b1, w2)
+    errs["merged_out"] = hold_sp(f"{where} merged vs whole out", "abmil", "out", storage, out,
+                                 ow, True)
+    whole = ab.abmil_bwd(xw, mw, w1, b1, w2, gs, ow, mwg, lw, need_dx=dx)
+    mine = [xx.grad] + [p.grad for p in params]
+    for leaf, a, b in zip(("dX", "dW1", "db1", "dw2"), mine, whole):
+        if b is not None:
+            b = b[:, cols] if leaf == "dX" else b
+            errs[f"merged_{leaf}"] = hold_sp(f"{where} merged vs whole {leaf}", "abmil", leaf,
+                                             storage, a, b, True)
+    return {"errors": errs, "launches": launches}
+
+
+def mp_cfg(kind: str, root: str, name: str, mesh: bool) -> dict:
+    """The flagship (bf16 features and text tower; "vlsa_f32": the tower
+    in f32) or the SA (f32) run of phase 3g at MP_BAGS in one fixed bucket,
+    evaluated in batches of 32; `mesh`: on MP_MESH."""
+    base = LIFECYCLE_SA_CFG if kind == "sa" else LIFECYCLE_VLSA_CFG
+    cfg = dict(base, save_path=os.path.join(root, name), path_patch=MP_BAGS,
+               fixed_bucket=MP_BUCKET, eval_batch_size=32)
+    if kind == "vlsa_f32":
+        cfg["vlsa_txt_encoder_dtype"] = "float32"
+    if mesh:
+        cfg["mesh"] = dict(MP_MESH)
+    return cfg
+
+
+def mp_steps(torch, ab, co, device, cfg) -> dict:
+    """MP_STEPS training steps of 32 bags and one evaluation pass of the
+    test split through the handler (on a mesh when `cfg` has one): the
+    losses, each step's ms and collective seconds, the evaluation's
+    seconds and metrics, the kernels' launches."""
+    from vlsa_tpu_torch.data.pipeline import release_pinned_batches
+    from vlsa_tpu_torch.parallel.collectives import COLLECTIVES, reset_collectives
+    from vlsa_tpu_torch.runner.sa import SAHandler
+    from vlsa_tpu_torch.runner.train import make_batcher
+    from vlsa_tpu_torch.runner.vlsa import VLSAHandler
+    handler = (VLSAHandler if cfg["task"] == "vlsa" else SAHandler)(dict(cfg), device=device)
+    batches = iter(make_batcher(handler.trainer.dataset, handler.cfg, shuffle=True,
+                                pin_memory=handler.device.type == "cuda",
+                                mesh=handler.trainer.mesh))
+    co.reset_launches()
+    ab.reset_launches()
+    reset_collectives()
+    steps, grads = [], None
+    try:
+        for _ in range(MP_STEPS):
+            batch = next(batches)
+            sync(torch, device)
+            t, c0 = time.perf_counter(), COLLECTIVES["seconds"]
+            loss = float(handler.engine.train_step(batch)[0])
+            sync(torch, device)
+            steps.append({"loss": loss, "ms": 1e3 * (time.perf_counter() - t),
+                          "collective_s": COLLECTIVES["seconds"] - c0})
+            check(math.isfinite(loss), f"{cfg['task']}: a non-finite loss {loss}")
+            if grads is None:  # the first step's gradients, summed over the grid's groups
+                grads = {n: p.grad.detach().float().cpu()
+                         for n, p in handler.model.named_parameters() if p.grad is not None}
+    finally:
+        batches.close()
+    test_set = handler.prepare_dataset(handler.data_split["test"], "test")
+    handler.uid["test"] = test_set.uid
+    t, c0 = time.perf_counter(), COLLECTIVES["seconds"]
+    cltor = handler.test_model(test_set, "test")["pred"]
+    eval_s, eval_coll = time.perf_counter() - t, COLLECTIVES["seconds"] - c0
+    metrics = handler.evaluator.compute(cltor, handler.metrics_list, **handler.eval_kws())
+    launches = launch_counts(ab, co)
+    release_pinned_batches()
+    mesh = handler.mesh
+    return {"losses": [s["loss"] for s in steps], "steps": steps, "grads": grads,
+            "eval_s": eval_s,
+            "eval_collective_s": eval_coll,
+            "metrics": {k: float(v) for k, v in metrics.items()}, "launches": launches,
+            "bags_evaluated": int(len(cltor["uid"])),
+            "layout": "one rank" if mesh is None else f"data={mesh.n_data} model={mesh.n_model}"}
+
+
+def mp_rank(rank: int, world: int, rendezvous: str, root: str, device_type: str = "cuda") -> None:
+    """One rank of phase 3t: every SP pool case on each grid, then the
+    flagship's and the SA's steps on MP_MESH; its record, with the failures
+    it gathered (`DEFERRED`), to <root>/rank<r>.pt."""
+    global DEFERRED, QUIET
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(2)
+    from vlsa_tpu_torch.ops import abmil as ab
+    from vlsa_tpu_torch.ops import coattn as co
+    from vlsa_tpu_torch.parallel import make_mesh
+    from vlsa_tpu_torch.parallel.multihost import init_local_rank, rank_device
+    init_local_rank(rank, world, rendezvous, device_type)
+    device = rank_device(device_type)
+    record = {"rank": rank, "device": str(device), "failures": [], "sp": {}, "runs": {}}
+    DEFERRED, QUIET = record["failures"], rank != 0
+    try:
+        t0 = time.perf_counter()
+        for grid, shape in MP_GRIDS.items():
+            mesh = make_mesh(*shape)
+            for storage, dx in MP_COATTN:
+                record["sp"][f"{grid} coattn {storage}{' dX' if dx else ''}"] = mp_coattn_case(
+                    torch, ab, co, mesh, grid, storage, dx, device)
+            for storage, dx in MP_ABMIL:
+                record["sp"][f"{grid} abmil {storage}{' dX' if dx else ''}"] = mp_abmil_case(
+                    torch, ab, co, mesh, grid, storage, dx, device)
+        record["sp_s"] = time.perf_counter() - t0
+        for kind in ("vlsa", "sa"):
+            t0 = time.perf_counter()
+            record["runs"][kind] = mp_steps(torch, ab, co, device,
+                                            mp_cfg(kind, root, f"{kind}_grid", True))
+            record[f"{kind}_s"] = time.perf_counter() - t0
+        torch.save(record, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def torch_device_type(device) -> str:
+    return str(device).split(":")[0]
+
+
+def mp_distributed_sa(tmp, device) -> dict:
+    """Two processes of `python -m vlsa_tpu_torch.main --handler SA`, joined
+    through a `distributed` dict on mesh {data: 2}, each with its own save
+    path: both finish, evaluate rank 0's last checkpoint (it alone reads it
+    and sends it on), print the same final metrics, and only rank 0 writes
+    the run's files."""
+    import yaml
+    from vlsa_tpu_torch.main import read_metrics
+    from vlsa_tpu_torch.parallel.multihost import coordinator_port
+    port = coordinator_port()
+    procs, saves = [], []
+    t0 = time.perf_counter()
+    for pid in (0, 1):
+        cfg = dict(LIFECYCLE_SA_CFG, save_path=os.path.join(tmp, f"sa_dist{pid}"),
+                   path_patch=MP_DIST_BAGS, fixed_bucket=MP_DIST_BUCKET, mesh={"data": 2},
+                   distributed={"coordinator_address": f"127.0.0.1:{port}",
+                                "num_processes": 2, "process_id": pid})
+        path = os.path.join(tmp, f"sa_dist{pid}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        saves.append(cfg["save_path"])
+        procs.append(subprocess.Popen([sys.executable, "-m", "vlsa_tpu_torch.main", "--config",
+                                       path, "--handler", "SA", "--device",
+                                       torch_device_type(device)], cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"3t distributed SA process {pid} exited {p.returncode}: "
+                                 f"{out[-3000:]}")
+    got = [read_metrics(out) for out in outs]
+    check(all(len(m) == 1 for m in got), f"3t distributed SA: metrics lines {got}")
+    check(got[0] == got[1], f"3t distributed SA: the ranks' metrics differ: {got}")
+    check(os.path.exists(os.path.join(saves[0], "train_model-last.ckpt"))
+          and not os.path.exists(saves[1]), "3t distributed SA: the run's files are not "
+                                            "rank 0's alone")
+    check(all("[lastckpt/train/test/pred]" in out for out in outs),
+          "3t distributed SA: a rank did not evaluate the last checkpoint")
+    metrics = got[0][0]
+    check(all(math.isfinite(v) for m in metrics.values() for v in m.values()),
+          f"3t distributed SA: non-finite metrics {metrics}")
+    log(f"3t distributed SA (2 processes, gloo on one card): {seconds:.1f} s, test "
+        f"c-index {metrics['test']['pred_c_index']:.4f}, the same on both ranks")
+    return {"seconds": seconds, "metrics": metrics, "backend": "gloo" if "(gloo)" in outs[0]
+            else "other"}
+
+
+def rel_gap(a, b) -> float:
+    """max|a - b| / max|b| (a tensor), or |a - b| / |b| (a float)."""
+    if isinstance(a, float):
+        return abs(a - b) / abs(b)
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def mp_bf16_tower(grid, one, one_f32) -> dict:
+    """The flagship's first step on the grid against one rank's, both with
+    the bf16 tower: its loss and each gradient within MP_BF16_TP times
+    bf16's own effect there (one rank's against one rank's with the tower
+    in f32), or within TOL_MP_LOSS where that is larger."""
+    held = {"loss": (grid["losses"][0], one["losses"][0], one_f32["losses"][0])}
+    check(grid["grads"].keys() == one["grads"].keys() == one_f32["grads"].keys(),
+          "3t vlsa: the grid and one rank train other parameters")
+    held.update({n: (grid["grads"][n], one["grads"][n], one_f32["grads"][n])
+                 for n in one["grads"]})
+    out = {}
+    for n, (g, o, f) in held.items():
+        gap, effect = rel_gap(g, o), rel_gap(o, f)
+        out[n] = {"grid_vs_one": gap, "bf16_vs_f32": effect}
+        check(gap <= max(MP_BF16_TP * effect, TOL_MP_LOSS),
+              f"3t vlsa first step {n}: the grid is {gap:.2e} off one rank, bf16's own effect "
+              f"{effect:.2e}")
+    worst = max(out, key=lambda n: out[n]["grid_vs_one"] / max(out[n]["bf16_vs_f32"], 1e-30))
+    log(f"3t vlsa first step, bf16 tower: loss grid vs one rank {out['loss']['grid_vs_one']:.2e} "
+        f"(bf16 vs f32 tower {out['loss']['bf16_vs_f32']:.2e}); {len(out) - 1} gradients, the "
+        f"nearest its limit {worst} {out[worst]['grid_vs_one']:.2e} "
+        f"(bf16 vs f32 {out[worst]['bf16_vs_f32']:.2e})")
+    return out
+
+
+def phase_multiprocess(torch, ab, co, device, card) -> dict:
+    """Phase 3t: four ranks on the card (`mp_rank`), the same runs on one
+    rank here, then the two-process `distributed` SA through the command
+    line.  Fails on any rank's failure, a loss off one rank's by more than
+    TOL_MP_LOSS, or ranks whose metrics differ."""
+    import torch.multiprocessing as mp
+    from vlsa_tpu_torch.parallel.multihost import local_rendezvous
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        t0 = time.perf_counter()
+        try:
+            mp.start_processes(mp_rank, args=(MP_WORLD, local_rendezvous(tmp), tmp, device.type),
+                               nprocs=MP_WORLD, join=True, start_method="spawn")
+        except Exception as exc:  # a rank that died: its traceback
+            raise SmokeFailure(f"3t: a rank failed: {exc}") from exc
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(MP_WORLD)]
+        failures = [f for r in ranks for f in r["failures"]]
+        check(not failures, f"3t: {failures}")
+        single = {kind: mp_steps(torch, ab, co, device, mp_cfg(kind, tmp, f"{kind}_one", False))
+                  for kind in ("vlsa", "vlsa_f32", "sa")}
+        bf16_tower = mp_bf16_tower(ranks[0]["runs"]["vlsa"], single["vlsa"], single["vlsa_f32"])
+        for run in [*single.values(), *(r["runs"][k] for r in ranks for k in r["runs"])]:
+            del run["grads"]  # held above; the record stays JSON
+        for kind in ("vlsa", "sa"):
+            grid = [r["runs"][kind] for r in ranks]
+            for r in grid[1:]:
+                check(r["losses"] == grid[0]["losses"] and r["metrics"] == grid[0]["metrics"],
+                      f"3t {kind}: the ranks disagree: {r['losses']} {grid[0]['losses']}")
+            gaps = [abs(a - b) / abs(b) for a, b in zip(grid[0]["losses"], single[kind]["losses"])]
+            log(f"3t {kind} losses: grid {grid[0]['losses']} one rank {single[kind]['losses']} "
+                f"(gap {max(gaps):.2e}" + (f", tol {TOL_MP_LOSS})" if kind == "sa" else ")"))
+            if kind == "sa":
+                check(max(gaps) <= TOL_MP_LOSS, f"3t sa: the grid's losses are {max(gaps):.2e} "
+                                                f"off one rank's")
+            check(grid[0]["bags_evaluated"] == single[kind]["bags_evaluated"],
+                  f"3t {kind}: {grid[0]['bags_evaluated']} bags evaluated, one rank "
+                  f"{single[kind]['bags_evaluated']}")
+            for layout, run in (("data=2 model=2", grid[0]), ("one rank", single[kind])):
+                coll = sum(s["collective_s"] for s in run["steps"])
+                step_s = sum(s["ms"] for s in run["steps"]) / 1e3
+                log(f"3t {kind} step ms by layout [{layout}]: "
+                    f"{[round(s['ms'], 1) for s in run['steps']]}, collectives "
+                    f"{coll:.3f} s of {step_s:.3f} s ({100 * coll / step_s:.1f}%), evaluation "
+                    f"{run['eval_s']:.2f} s ({run['eval_collective_s']:.3f} s collectives) "
+                    f"[{card}]")
+        dist_sa = mp_distributed_sa(tmp, device)
+        launches = {}
+        for r in ranks:
+            parts = [c["launches"] for c in r["sp"].values()] \
+                + [r["runs"][k]["launches"] for k in ("vlsa", "sa")]
+            for part in parts:
+                for fam, counts in part.items():
+                    for v, n in counts.items():
+                        launches.setdefault(fam, {}).setdefault(v, 0)
+                        launches[fam][v] += n
+        sp_errs = {k: v["errors"] for k, v in ranks[0]["sp"].items()}
+        return {"ranks_s": ranks_s, "ranks": [{k: r[k] for k in ("rank", "device", "sp_s",
+                                                                  "vlsa_s", "sa_s")}
+                                               for r in ranks],
+                "grid": {k: ranks[0]["runs"][k] for k in ("vlsa", "sa")}, "one_rank": single,
+                "bf16_tower": bf16_tower,
+                "sp_errors_rank0": sp_errs, "distributed_sa": dist_sa, "launches": launches,
+                "reduced": MP_REDUCED, "card": card}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- phase 4
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -6346,6 +6860,7 @@ def main(argv=None) -> int:
         try:
             store_runs = timed("3h", phase_store_runs, torch, ab, co, device, card, stores_tmp,
                                kept)
+            multiprocess = timed("3t", phase_multiprocess, torch, ab, co, device, card)
             flax_ckpt = timed("3s", phase_flax_checkpoint, torch, ab, co, device, card,
                               stores_tmp, kept)
             zero_shot = timed("3i", phase_zero_shot, torch, ab, co, device, card, stores_tmp)
@@ -6380,13 +6895,14 @@ def main(argv=None) -> int:
 
     def run_launches(family, variant):
         return sum(r["launches"][family][variant] for r in runs)
+    mp_launches = multiprocess["launches"]  # phase 3t's ranks' pools and runs
     fwd_launches = {v: serving["launches"][v] + training["launches"]["fwd"][v]
                     + feat_proj["launches"]["fwd"][v] + run_launches("coattn_fwd", v)
                     + interpretation["launches"]["coattn_fwd"][v]
-                    + flax_ckpt["launches"]["coattn_fwd"][v]
+                    + flax_ckpt["launches"]["coattn_fwd"][v] + mp_launches["coattn_fwd"][v]
                     for v in VARIANTS}
     dq_launches = {v: training["launches"]["bwd"][v] + run_launches("coattn_bwd_dq", v)
-                   for v in VARIANTS}
+                   + mp_launches["coattn_bwd_dq"][v] for v in VARIANTS}
     for name, source, replaces, err, t_by_variant, launches in (
             ("coattn_fwd", SOURCE, REPLACES, errs, times["fwd_b8"], fwd_launches),
             ("coattn_bwd_dq", SOURCE_DQ, REPLACES_DQ, errs_dq, times["dq_b8"], dq_launches)):
@@ -6402,7 +6918,8 @@ def main(argv=None) -> int:
         t = dx_times["b8"][s]
         kernels.append({
             "name": f"coattn_bwd_dx[{s}]", "route": "cuda", "source": SOURCE_DX,
-            "replaces": REPLACES_DX, "launches": feat_proj["launches"]["dx"][s],
+            "replaces": REPLACES_DX,
+            "launches": feat_proj["launches"]["dx"][s] + mp_launches["coattn_bwd_dx"][s],
             "max_abs_err": errs_dx[s]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"].split()[0], "library_ms": t["library_ms"]})
     # rows 1-6 at P=32 (the query groups' routes): launches of phase 3l's
@@ -6424,10 +6941,13 @@ def main(argv=None) -> int:
                 "library_ms": t["library_ms"], "queries": 32,
                 "on_main_path": (kind, v) in QUERIES_PATH_KERNELS})
     abmil_launches = {"abmil_fwd": {s: sa_serving["launches"][s] + sa_training["launches"]["fwd"][s]
-                                    + run_launches("abmil_fwd", s) for s in ABMIL_STORAGES},
+                                    + run_launches("abmil_fwd", s) + mp_launches["abmil_fwd"][s]
+                                    for s in ABMIL_STORAGES},
                       "abmil_bwd": {s: sa_training["launches"]["bwd"][s]
-                                    + run_launches("abmil_bwd", s) for s in ABMIL_STORAGES},
+                                    + run_launches("abmil_bwd", s) + mp_launches["abmil_bwd"][s]
+                                    for s in ABMIL_STORAGES},
                       "abmil_bwd_dx": {s: sa_training["launches"]["bwd"][f"{s}_dx"]
+                                       + mp_launches["abmil_bwd"][f"{s}_dx"]
                                        for s in ("f32", "bf16")}}
     # the D=512, hid=256 instances' launches come from the runs above but
     # 3k's and 3m's; the general instances' at 1024 from 3k's SA run at
@@ -6538,7 +7058,7 @@ def main(argv=None) -> int:
               "store_runs": store_runs, "zero_shot": zero_shot,
               "interpretation": interpretation, "sa_1024": sa_1024, "sa_2560": sa_2560,
               "optimizers": optim, "zoo": zoo, "clf_text_apis": clf_text,
-              "captions": captions, "flax_checkpoint": flax_ckpt,
+              "captions": captions, "flax_checkpoint": flax_ckpt, "multiprocess": multiprocess,
               "query_errors": errs_q,
               "queries": queries, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}

@@ -167,11 +167,16 @@ def test_checkpoint_matches_jax(tmp_path):
     assert _rel(got, want) <= 1e-5
 
 
-def test_unported_options_raise():
-    """Multi-device extraction stays refused, with its reason (the other
-    options are held in tests/test_torch_extract_models.py)."""
-    with pytest.raises(NotImplementedError, match="one card a process"):
-        FeatureExtractor(device="cpu", num_devices=2)
+def test_unported_options_raise(monkeypatch):
+    """More cards than there are raise vlsa_tpu's ValueError, before any
+    card is touched (the count of cards made 1 here; on the CPU any number
+    of parts runs, tests/test_torch_multiprocess.py)."""
+    import vlsa_tpu_torch.data.extract as extract_mod
+    with monkeypatch.context() as m:
+        m.setattr(extract_mod, "resolve_device", lambda device: torch.device("cuda"))
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+            FeatureExtractor(num_devices=2, batch_size=4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FeatureExtractor(image_size=32, model_overrides=SMALL)

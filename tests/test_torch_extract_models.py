@@ -446,14 +446,20 @@ def test_trunk_quant_quantizes_the_seeded_float_model():
     assert cos.min() > 0.99, cos
 
 
-def test_refusals():
+def test_refusals(monkeypatch):
     with pytest.raises(ValueError, match="only supported for the CONCH trunk"):
         FeatureExtractor(model_name="clip_vit", trunk_quant=True, device="cpu")
     with pytest.raises(ValueError, match="unknown extractor model"):
         FeatureExtractor(model_name="rn50", device="cpu")
-    with pytest.raises(NotImplementedError, match="one card a process"):
-        extract_cli.main(["--synthetic", "1", "--num_devices", "2", "--out", "unused",
-                          "--device", "cpu"])
+    import vlsa_tpu_torch.data.extract as extract_mod
+    with monkeypatch.context() as m:  # one card, before any is touched
+        m.setattr(extract_mod, "resolve_device", lambda device: torch.device("cuda"))
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+            extract_cli.main(["--synthetic", "1", "--num_devices", "2", "--out", "unused"])
+    with pytest.raises(ValueError, match="batch_size 3 not divisible by num_devices 2"):
+        extract_cli.main(["--synthetic", "1", "--num_devices", "2", "--batch", "3",
+                          "--out", "unused", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("args", [["--model", "clip_vit"], ["--trunk_quant"]])

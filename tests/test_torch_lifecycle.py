@@ -26,6 +26,7 @@ import csv
 import functools
 import json
 import os
+import re
 import sys
 
 import jax
@@ -424,12 +425,46 @@ def test_main_runs_vlsa_and_refuses_clf(tmp_path):
         port_main.main(["--config", path, "--handler", "CLF", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("key,value,item", [("ckpt_backend", "orbax", "A.6"),
-                                            ("mesh", {"data": 4}, "A.17"),
-                                            ("distributed", True, "A.17")])
+@pytest.mark.parametrize("key,value,item", [("ckpt_backend", "orbax", "A.6")])
 def test_unported_settings_are_refused(tmp_path, key, value, item):
     _path, cfg = write_small_config(tmp_path, "vlsa", **{key: value})
     with pytest.raises(NotImplementedError, match=item):
+        VLSAHandler(cfg, device="cpu")
+
+
+_BAD_WORLD = {"coordinator_address": "127.0.0.1:1", "num_processes": 3, "process_id": 0}
+
+
+# torchrun's variables for rank 0 of 2 whose coordinator is another host,
+# without the two that say which ranks share this one
+_AUTO_ACROSS_HOSTS = {"RANK": "0", "WORLD_SIZE": "2", "MASTER_ADDR": "10.0.0.2",
+                      "MASTER_PORT": "29500"}
+
+
+@pytest.mark.parametrize("changes,match", [
+    ({"mesh": {"data": 4}}, "needs 4 ranks but the world has 1"),
+    ({"mesh": {"data": 2, "model": 2}}, "needs 4 ranks but the world has 1"),
+    ({"mesh": {"data": 2}, "distributed": _BAD_WORLD},
+     "needs 2 ranks but `distributed` starts 3 processes"),
+    ({"mesh": {"data": 1, "model": 2, "dcn": 2}, "distributed": _BAD_WORLD},
+     "needs 4 ranks but `distributed` starts 3 processes"),
+    ({"distributed": True}, "distributed must be 'auto' or a dict"),
+    ({"mesh": {"data": 2}, "distributed": "auto"}, "needs LOCAL_RANK and LOCAL_WORLD_SIZE")],
+    ids=["mesh-above-world", "mesh-2x2-above-world", "distributed-bad-world",
+         "distributed-dcn-bad-world", "distributed-neither", "auto-layout-unknown"])
+def test_a_mesh_the_world_cannot_hold_is_refused(tmp_path, monkeypatch, changes, match):
+    """A mesh larger than the processes there are, and a `distributed` dict
+    whose process count is not the mesh's D x M, raise ValueError naming
+    both before any process waits for another; so does `distributed: auto`
+    across hosts where the launcher does not say which ranks share a host
+    (multi-process runs are held in tests/test_torch_parallel.py and
+    test_torch_multiprocess.py)."""
+    for key in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in _AUTO_ACROSS_HOSTS.items():
+        monkeypatch.setenv(key, value)
+    _path, cfg = write_small_config(tmp_path, "vlsa", **changes)
+    with pytest.raises(ValueError, match=re.escape(match)):
         VLSAHandler(cfg, device="cpu")
 
 

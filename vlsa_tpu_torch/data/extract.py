@@ -15,6 +15,11 @@ per-patch feature stores that training and serving read.
   * a slide's batches are queued on the card back to back and its features
     read back once, so the host prepares batch i+1 while the card runs
     batch i (CUDA's own asynchrony; JAX gets the same from async dispatch);
+  * `num_devices` N > 1 (vlsa_tpu/data/extract.py:248-260): one process over
+    N devices, a replica of the tower on each; every batch splits in order
+    into N parts of batch/N tiles, one a replica, and the features come back
+    in order.  On the CPU the N replicas are one model run N times, one part
+    after another, as vlsa_tpu's virtual CPU devices;
   * stores are `.npy` (f32) or `.q8npz` (int8 per-patch, `data/quant.py`),
     written atomically, plus an optional CLAM-style coords `.h5` per slide.
 
@@ -25,6 +30,7 @@ only when such a source (or a coords file) is read or written.
 """
 from __future__ import annotations
 
+import copy
 import os
 import os.path as osp
 import re
@@ -44,8 +50,6 @@ from .transforms import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD, preprocess_batc
 from .transforms_device import build_device_preprocess
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp")
-_ONE_CARD = ("multi-device extraction splits each batch across cards; the port extracts on "
-             "one card a process (ROADMAP.md §A.17)")
 
 
 def _lazy_import(name: str, what: str):
@@ -139,7 +143,10 @@ class FeatureExtractor:
     matmul weights in bf16 once (bit-identical).  `device_preprocess`:
     'auto' (on when the extractor runs on CUDA), True or False; tiles of
     mixed shapes are preprocessed on the host.  `device`: CUDA unless 'cpu'
-    is asked for.  `num_devices` above 1 is refused.
+    is asked for.  `num_devices` N > 1: a replica on each of the first N
+    cards (on the CPU, any N: the parts run one after another on one model),
+    each batch split over them in order; ValueError, as vlsa_tpu, where
+    fewer cards are there or the batch does not divide by N.
     """
 
     def __init__(self, model_name: str = "conch", checkpoint: Optional[str] = None,
@@ -153,12 +160,11 @@ class FeatureExtractor:
         if model_name == "clip_vit" and trunk_quant:
             raise ValueError("trunk_quant is only supported for the CONCH trunk "
                              "(model_name='conch')")
-        if num_devices is not None and num_devices > 1:
-            raise NotImplementedError(_ONE_CARD)
         self.device = resolve_device(device)
         disable_tf32()
         self.image_size = int(image_size)
         self.batch_size = int(batch_size)
+        self.devices = self._split_devices(num_devices or 1)
         overrides = dict(model_overrides or {})
         generator = torch.Generator().manual_seed(seed)
         state = load_torch_state_dict(checkpoint) if checkpoint is not None else None
@@ -192,21 +198,39 @@ class FeatureExtractor:
         if as_dtype(compute_dtype) == torch.bfloat16:
             cast_vision_tower_weights(model)
         self.model = model.to(self.device).eval()
-        self._forward = forward
+        name = forward.__name__
+        self.replicas = [self.model] + [
+            copy.deepcopy(self.model).to(d) if d != self.device else self.model
+            for d in self.devices[1:]]
+        self._forwards = [getattr(r, name) for r in self.replicas]
         if device_preprocess == "auto":
             device_preprocess = self.device.type == "cuda"
         self._device_preprocess = bool(device_preprocess)
         self._u8_pipelines = {}  # (H, W) -> u8 batch -> features
 
+    def _split_devices(self, n: int) -> List[torch.device]:
+        if n == 1:
+            return [self.device]
+        devices = [self.device] * n
+        if self.device.type == "cuda":
+            have = torch.cuda.device_count()
+            if have < n:
+                raise ValueError(f"requested {n} devices, have {have}")
+            devices = [torch.device("cuda", i) for i in range(n)]
+        if self.batch_size % n:
+            raise ValueError(f"batch_size {self.batch_size} not divisible by num_devices {n}")
+        return devices
+
     def preprocess(self, tiles) -> np.ndarray:
         """u8 tiles -> f32 [N, 3, S, S] on the host (PIL-exact)."""
         return preprocess_batch(tiles, self.image_size, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD)
 
-    def _run_batched(self, fn, x: np.ndarray) -> np.ndarray:
-        """`fn` over `x` in `batch_size` chunks, the ragged tail zero-padded
-        and sliced off.  The slide is staged once in pinned host memory (on
-        CUDA) and every chunk's copy and forward are queued without waiting;
-        the features are read back once, at the end."""
+    def _run_batched(self, fns, x: np.ndarray) -> np.ndarray:
+        """`fns` (one callable a replica) over `x` in `batch_size` chunks,
+        the ragged tail zero-padded and sliced off, each chunk split in
+        order over the replicas.  The slide is staged once in pinned host
+        memory (on CUDA) and every chunk's copy and forward are queued
+        without waiting; the features are read back once, at the end."""
         N, B = x.shape[0], self.batch_size
         if N == 0:
             return np.zeros((0, self.feat_dim), np.float32)
@@ -216,20 +240,25 @@ class FeatureExtractor:
         host[:N] = torch.from_numpy(np.ascontiguousarray(x))
         host[N:] = 0
         outs = []
+        part = B // len(self.devices)
         with torch.inference_mode():
             for i in range(0, n_pad, B):
-                outs.append(fn(host[i:i + B].to(self.device, non_blocking=True)))
+                for j, (fn, dev) in enumerate(zip(fns, self.devices)):
+                    lo = i + j * part
+                    outs.append(fn(host[lo:lo + part].to(dev, non_blocking=True)))
+            if len(set(self.devices)) > 1:
+                outs = [o.cpu() for o in outs]
             return torch.cat(outs)[:N].float().cpu().numpy()
 
     def extract_preprocessed(self, x: np.ndarray) -> np.ndarray:
         """f32 [N, 3, S, S] -> f32 [N, feat_dim]."""
-        return self._run_batched(self._forward, x)
+        return self._run_batched(self._forwards, x)
 
     def _u8_pipeline(self, in_hw):
         if in_hw not in self._u8_pipelines:
             pre = build_device_preprocess(tuple(in_hw), self.image_size)
-            fwd = self._forward
-            self._u8_pipelines[in_hw] = lambda u8: fwd(pre(u8))
+            self._u8_pipelines[in_hw] = [lambda u8, fwd=fwd: fwd(pre(u8))
+                                         for fwd in self._forwards]
         return self._u8_pipelines[in_hw]
 
     def extract(self, tiles) -> np.ndarray:

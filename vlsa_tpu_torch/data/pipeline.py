@@ -353,18 +353,34 @@ class BagBatcher:
     until the consumer asks for the next batch.  A run on the card sets it,
     and releases the memory at its end (`release_pinned_batches`).  After each pass, `build_s` holds the
     seconds spent building its batches and `producer` the thread that built
-    them (None without prefetch)."""
+    them (None without prefetch).
+
+    `num_shards` > 1 (a multi-process run's data ranks): the batcher builds
+    only the `shard_index`-th contiguous slice of every global batch of
+    `batch_size` bags, `batch_size // num_shards` rows; every rank draws the
+    same order (one seed), so the slices are disjoint, and a rank whose
+    slice of a tail batch is empty gets rows of padding, so that it still
+    joins the step.  As vlsa_tpu/data/pipeline.py:130-142, `batch_size`
+    must divide by `num_shards` and a `fixed_bucket` is required (ranks
+    never exchange bag sizes, so only a fixed one gives them one shape)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  min_bucket: int = 256, max_bucket: Optional[int] = None,
                  fixed_bucket: Optional[int] = None,
                  feats_dtype: str = "float32", overflow: str = "error",
                  precompute_inv: bool = True, prefetch: int = 2, pin_memory: bool = False,
-                 pool: Optional[BatchPool] = None):
+                 pool: Optional[BatchPool] = None, num_shards: int = 1, shard_index: int = 0):
         if feats_dtype not in FEATS_DTYPES:
             raise ValueError(f"feats_dtype must be one of {FEATS_DTYPES}, got {feats_dtype}")
         if overflow not in ("error", "warn", "truncate"):
             raise ValueError(f"invalid overflow policy {overflow!r}")
+        if batch_size % num_shards:
+            raise ValueError(f"batch_size {batch_size} not divisible by num_shards {num_shards}")
+        if num_shards > 1 and fixed_bucket is None:
+            raise ValueError("multi-host loading (num_shards > 1) requires fixed_bucket")
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        self._local_bs = batch_size // num_shards
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -432,8 +448,8 @@ class BagBatcher:
         return specs
 
     def _label_entries(self, indices, labels) -> dict:
-        """The batch's t, e, idx and valid, padded to `batch_size` rows."""
-        B = self.batch_size
+        """The batch's t, e, idx and valid, padded to the shard's rows."""
+        B = self._local_bs
         batch = {"t": torch.zeros(B), "e": torch.zeros(B),
                  "idx": torch.full((B,), -1, dtype=torch.int32),
                  "valid": torch.zeros(B, dtype=torch.bool)}
@@ -444,14 +460,36 @@ class BagBatcher:
         return batch
 
     def make_batch(self, indices, ring: Optional[_Ring] = None) -> dict:
-        """The batch of dataset rows `indices` (at most `batch_size`), built
-        in a buffer of `ring` when given."""
+        """The batch of dataset rows `indices` (at most the shard's rows),
+        built in a buffer of `ring` when given."""
+        if len(indices) == 0:
+            return self._padding_batch(ring)
         batch = self._native_batch(indices, ring)
         if batch is None:
             batch = self._numpy_batch(indices, ring)
             _count_batch("numpy")
         else:
             _count_batch("native")
+        return batch
+
+    def _padding_batch(self, ring: Optional[_Ring] = None) -> dict:
+        """Rows of padding only (a shard's empty slice of a tail batch), at
+        the fixed bucket, with the entries of the dataset's mode."""
+        first = self.dataset[0]
+        B, N, D = self._local_bs, self._target_n(1), first[0].shape[1]
+        specs = self._feats_specs(B, N, D, q8=isinstance(first[0], QuantizedBag)
+                                  and self.feats_dtype == "int8")
+        mode = getattr(self.dataset, "mode", "patch")
+        if mode == "cluster":
+            specs.append(("cluster_id", (B, N), torch.int32))
+        elif mode == "graph":
+            specs += [("edge_index", (B, 2, 1), torch.int32), ("edge_valid", (B, 1), torch.bool)]
+        batch = self._entries(specs, ring)
+        for t in batch.values():
+            t.zero_()
+        if not self.precompute_inv:
+            batch.pop("feats_inv", None)
+        batch.update(self._label_entries([], []))
         return batch
 
     def _numpy_batch(self, indices, ring: Optional[_Ring] = None) -> dict:
@@ -465,7 +503,7 @@ class BagBatcher:
             items = [(f.dequantize(), label) for f, label in items]
             quantized = False
         target_n = self._target_n(max(f.shape[0] for f, _ in items))
-        B, D = self.batch_size, items[0][0].shape[1]
+        B, D = self._local_bs, items[0][0].shape[1]
         specs = self._feats_specs(B, target_n, D)
         if mode == "cluster":
             specs.append(("cluster_id", (B, target_n), torch.int32))
@@ -539,7 +577,7 @@ class BagBatcher:
                 if native is None:
                     return 0
                 sizes, D = self._native_sizes(*native)
-                specs = self._feats_specs(self.batch_size, self._target_n(max(sizes)), D,
+                specs = self._feats_specs(self._local_bs, self._target_n(max(sizes)), D,
                                           q8=native[1])
                 most = max(most, layout_bytes(specs))
         except OSError:
@@ -559,7 +597,7 @@ class BagBatcher:
             target_n = self._target_n(max(sizes))
             for n in sizes:
                 self._count_overflow(n, target_n)
-            nb, B = len(groups), self.batch_size
+            nb, B = len(groups), self._local_bs
             batch = self._entries(self._feats_specs(B, target_n, D, q8=q8), ring)
             feats, mask = batch["feats"], batch["mask"]
             sidecars = {k: batch[k] for k in ("feats_scale", "feats_inv") if k in batch}
@@ -600,8 +638,10 @@ class BagBatcher:
 
     def batch_indices(self) -> Iterator[np.ndarray]:
         order = self._order()
+        lo = self.shard_index * self._local_bs
         for start in range(0, len(order), self.batch_size):
-            yield order[start:start + self.batch_size]
+            chunk = order[start:start + self.batch_size]
+            yield chunk[lo:lo + self._local_bs] if self.num_shards > 1 else chunk
 
     def _timed_batch(self, chunk, ring: Optional[_Ring]) -> dict:
         t = time.perf_counter()

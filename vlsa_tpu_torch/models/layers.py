@@ -10,6 +10,7 @@ from torch import nn
 from ..ops.abmil import abmil_pool
 from ..ops.coattn import dequantize_feats
 from ..ops.masked import compute_float, masked_softmax
+from ..parallel.abmil_sp import abmil_pool_sp
 
 
 class TorchLinear(nn.Linear):
@@ -104,7 +105,11 @@ class AttentionPooling(nn.Module):
     weight bridge maps them one to one and the decay split (ndim != 1)
     decays the same leaves, fc2_kernel included.  Torch's default Linear
     initialisation, U(+-1/sqrt(fan_in)), from `generator`.  fc2_bias cancels
-    in the softmax and gets no gradient."""
+    in the softmax and gets no gradient.
+
+    With `sp_mesh` set (DeepMIL's sequence-parallel route) the pooled path
+    takes the rank's chunk of the patch axis and merges the chunks over the
+    model group (parallel/abmil_sp.py, vlsa_tpu/models/layers.py:97-100)."""
 
     def __init__(self, dim: int, hid_dim: int = 512,
                  generator: Optional[torch.Generator] = None):
@@ -117,10 +122,14 @@ class AttentionPooling(nn.Module):
         self.fc2_kernel = nn.Parameter(torch.empty(hid_dim, 1).uniform_(
             -b_hid, b_hid, generator=generator))
         self.fc2_bias = nn.Parameter(torch.empty(1).uniform_(-b_hid, b_hid, generator=generator))
+        self.sp_mesh = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 x_scale: Optional[torch.Tensor] = None, need_attn: bool = False,
                 ret_raw_attn: bool = True):
+        if not need_attn and self.sp_mesh is not None:
+            return abmil_pool_sp(x, mask, self.fc1_kernel.T, self.fc1_bias,
+                                 self.fc2_kernel[:, 0], self.sp_mesh)
         if not need_attn:
             return abmil_pool(x, mask, self.fc1_kernel.T, self.fc1_bias,
                               self.fc2_kernel[:, 0], self.fc2_bias[0], x_scale=x_scale)

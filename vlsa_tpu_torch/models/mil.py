@@ -31,6 +31,15 @@ Dropout (gated attention, DSMIL's `v` input) runs only with `train=True`,
 its masks from `layers.SeededDropout`, seeded with the module's
 `dropout_seed`.
 
+With `sp_mesh` set (a multi-process run's sequence parallelism,
+runner/base.py::route_seq_parallel), VLFAN's co-attention and DeepMIL's
+ABMIL pooling take the rank's chunk of the patch axis and merge the chunks
+over its model group (parallel/coattn_sp.py, parallel/abmil_sp.py); int8
+features are dequantized to bf16 first and the storage sidecars dropped,
+as vlsa_tpu/models/mil.py:163-174 and :231-238 do.  The attention maps of
+`ret_with_attn` need the whole bag: such a model raises there (interpret a
+run on one process, `interpret.load_vlsa_from_run`).
+
 FeatMIL and `logit_pooling`, the zero-shot (MI-Zero) path: FeatMIL has no
 parameters and returns the per-patch features (or their masked mean or
 max); VLSA scores every patch against the text prototypes and pools the
@@ -48,10 +57,17 @@ from torch import nn
 from ..ops.coattn import coattn_attention_reference, coattn_pool, dequantize_feats
 from ..ops.masked import (compute_float, l2_normalize, masked_max, masked_mean, masked_softmax,
                           masked_topk_mean)
+from ..parallel.coattn_sp import coattn_pool_sp
 from .layers import (Adapter, AttentionPooling, FeatProjecter, GatedAttentionPooling,
                      SeededDropout, TorchLinear)
 
 QUERY_POOLINGS = ("mean", "max", "weight", "attention", "gated_attention")
+
+
+def _whole_bag(sp_mesh, ret_with_attn: bool) -> None:
+    if sp_mesh is not None and ret_with_attn:
+        raise ValueError("ret_with_attn needs the whole bag, and this model pools a chunk of "
+                         "it a rank (sequence parallel): interpret the run on one process")
 
 
 def logit_pooling(logits: torch.Tensor, method: str,
@@ -121,6 +137,7 @@ class VLFAN(nn.Module):
                 torch.empty(1, num_query).normal_(generator=generator))
         if pred_head != "Identity":
             self.visual_adapter = TorchLinear(dim_in, dim_in, generator=generator)
+        self.sp_mesh = None  # parallel.sharding.Mesh when the pool is sequence parallel
 
     def get_query(self, query: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.query == "Parameter":
@@ -170,19 +187,25 @@ class VLFAN(nn.Module):
         """Image features [B, D]; with `ret_with_attn`, (features, A) with
         the attention A [B, P, N], or (features, (A, pooled_ext)) when the
         query pooling returns its own attention."""
-        if self.use_feat_proj:
+        _whole_bag(self.sp_mesh, ret_with_attn)
+        if self.use_feat_proj or self.sp_mesh is not None:
             # the sidecars describe the stored features; the projecter
-            # changes them, so int8 is dequantized to bf16 and they go
+            # changes them and the chunked pool takes none, so int8 is
+            # dequantized to bf16 and they go
             if X.dtype == torch.int8:
                 X = dequantize_feats(X, x_scale).to(torch.bfloat16)
             x_scale = x_inv = None
+        if self.use_feat_proj:
             in_dtype = X.dtype
             X = self.feat_proj(compute_float(X))
             if in_dtype == torch.bfloat16:
                 X = X.to(torch.bfloat16)
         q_eff = self.effective_query(query)
-        out = coattn_pool(q_eff, X, mask, self.coattn_logit_scale,
-                          x_scale=x_scale, x_inv=x_inv)
+        if self.sp_mesh is not None:
+            out = coattn_pool_sp(q_eff, X, mask, self.coattn_logit_scale, self.sp_mesh)
+        else:
+            out = coattn_pool(q_eff, X, mask, self.coattn_logit_scale,
+                              x_scale=x_scale, x_inv=x_inv)
         pooled, pooled_ext = self.forward_query_pooling(out, train=train)
         feats = self.visual_adapter(pooled) if self.pred_head != "Identity" else pooled
         if not ret_with_attn:
@@ -235,13 +258,16 @@ class DeepMIL(nn.Module):
             self.visual_adapter = Adapter(dim_in, dim_reduction, generator=generator)
         else:
             self.g = TorchLinear(dim_in, num_cls, generator=generator)
+        self.sp_mesh = None  # parallel.sharding.Mesh when the pool is sequence parallel
 
     def forward(self, X: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 x_scale: Optional[torch.Tensor] = None,
                 x_inv: Optional[torch.Tensor] = None,
                 ret_with_attn: bool = False, train: bool = False):
         del x_inv  # unnormalised pooling: the 1/||x|| sidecar is unused
-        if X.dtype == torch.int8 and (self.use_feat_proj or self.pooling != "attention"):
+        _whole_bag(self.sp_mesh, ret_with_attn)
+        if X.dtype == torch.int8 and (self.use_feat_proj or self.pooling != "attention"
+                                      or self.sp_mesh is not None):
             X = dequantize_feats(X, x_scale).to(torch.bfloat16)
             x_scale = None
         if self.use_feat_proj:

@@ -11,6 +11,18 @@ token ids (counterpart of vlsa_tpu/models/text_encoder.py):
 Parameters keep the torch layout (`in_proj_weight [3D, D]`, weights as
 [out, in]); LayerNorm eps is 1e-5.
 
+Tensor parallelism (a multi-process run's `mesh` with model > 1,
+parallel/sharding.py::shard_params, vlsa_tpu's `param_shardings`): each
+rank of the model group computes its slice of every block's MLP, the rows
+of `c_fc_weight` and `c_fc_bias` and the columns of `c_proj_weight`; the
+MLP's input passes an identity-forward, all-reduce-backward operator, and
+the partial `c_proj` products an all-reduce forward, identity backward,
+with `c_proj_bias` added once after the sum.  The parameters stay whole on
+every rank, computed with the rank's slice: the gradient of a sliced
+parameter is then nonzero only on its slice, and one sum over the model
+group makes it whole.  That keeps every optimizer exact (also those that
+take norms: adamp, sgdp, lamb, global clipping) and the checkpoints whole.
+
 `compute_dtype=bfloat16` reproduces the JAX package's bf16 mode, whose
 matmuls take bf16 operands and accumulate in f32: the operands are rounded
 to bf16 here and multiplied in f32, which is exact for the products and sums
@@ -20,7 +32,8 @@ in f32 -- so the result matches JAX up to summation order.  (A bf16
 from __future__ import annotations
 
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -28,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import compute_float
+from ..parallel.collectives import copy_to_group, reduce_from_group
 
 NEG_INF = float("-inf")
 
@@ -80,6 +94,15 @@ class TorchMultiheadAttention(nn.Module):
         return _mm(ctx, self.out_proj_weight, cdt) + self.out_proj_bias
 
 
+@dataclass(frozen=True)
+class TensorParallel:
+    """A block's share of its MLP: the model group, this rank's index in it
+    and its size."""
+    group: Any
+    index: int
+    size: int
+
+
 def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
@@ -105,13 +128,22 @@ class ResidualAttentionBlock(nn.Module):
         self.c_fc_bias = nn.Parameter(torch.zeros(mlp))
         self.c_proj_weight = nn.Parameter(_normal((D, mlp), proj_std, generator))
         self.c_proj_bias = nn.Parameter(torch.zeros(D))
+        self.tp: Optional[TensorParallel] = None
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None):
         cdt = self.compute_dtype
         x = x + self.attn(self.ln_1(x), attn_mask)
         h = self.ln_2(x)
-        hid = self.act(_mm(h, self.c_fc_weight, cdt) + self.c_fc_bias)
-        return x + (_mm(hid, self.c_proj_weight, cdt) + self.c_proj_bias)
+        if self.tp is None:
+            hid = self.act(_mm(h, self.c_fc_weight, cdt) + self.c_fc_bias)
+            return x + (_mm(hid, self.c_proj_weight, cdt) + self.c_proj_bias)
+        tp = self.tp
+        n = self.c_fc_weight.shape[0] // tp.size
+        rows = slice(tp.index * n, (tp.index + 1) * n)
+        h = copy_to_group(h, tp.group)
+        hid = self.act(_mm(h, self.c_fc_weight[rows], cdt) + self.c_fc_bias[rows])
+        out = reduce_from_group(_mm(hid, self.c_proj_weight[:, rows], cdt), tp.group)
+        return x + (out + self.c_proj_bias)
 
 
 def causal_mask(L: int, device=None) -> torch.Tensor:

@@ -21,11 +21,27 @@ test split once, `run_name` "zero-shot", and write
 `zero-shot_metrics-best.txt` and `<task>_zero-shot_last_pred_test.csv`
 (vlsa_tpu's names) and no checkpoint.  A model with every parameter
 frozen gets no optimizer.  Not ported: wandb (vlsa_tpu leaves it off
-unless VLSA_TPU_DISABLE_WANDB=0; the card's machine has no wandb), `mesh`
-and `distributed` (ROADMAP.md §A.17), vlsa_tpu's orbax checkpoints
-(`ckpt_backend: orbax`) and resuming from a vlsa_tpu checkpoint that holds
-optax state (§A.6c); each raises.  Checkpoints are written in torch's
-format; vlsa_tpu's msgpack ones are read (runner/ckpt.py).
+unless VLSA_TPU_DISABLE_WANDB=0; the card's machine has no wandb),
+vlsa_tpu's orbax checkpoints (`ckpt_backend: orbax`) and resuming from a
+vlsa_tpu checkpoint that holds optax state (ROADMAP.md §A.6c); each
+raises.  Checkpoints are written in torch's format; vlsa_tpu's msgpack ones
+are read (runner/ckpt.py).
+
+Multi-process runs (vlsa_tpu/runner/base.py:184-262, :398-451): with a
+`mesh` ({data: D, model: M, tensor_parallel, seq_parallel, dcn}) the
+process is one rank of a D x M grid (parallel/sharding.py), joined through
+`distributed` ('auto' or a dict, parallel/multihost.py) or by
+`python -m vlsa_tpu_torch.main`, which starts the ranks of a mesh with no
+`distributed` itself.  Each data rank trains and evaluates its slice of
+every batch; the pooling is routed sequence parallel and the text tower
+tensor parallel (runner/train.py::Trainer); the predictions of every pass
+are gathered over the data group, so every rank computes the same metrics
+and ReduceLROnPlateau and early stopping agree.  Only global rank 0 writes
+the run's files, and only it reads a checkpoint: it sends what it read to
+every rank (`_read_checkpoint`), so the ranks resume at one epoch and
+evaluate one set of weights, whether or not they share its save path or
+its host, and none meets a file rank 0 is still writing.  Every rank
+returns (and `main` prints) the metrics.
 """
 from __future__ import annotations
 
@@ -44,25 +60,43 @@ from ..config_schema import validate_config
 from ..data.io import load_init_text, save_prediction_surv
 from ..data.pipeline import release_pinned_batches
 from ..optim import EarlyStopping, ReduceLROnPlateau
+from ..parallel.collectives import broadcast_object
+from ..parallel.multihost import (collect_global, host_allgather, make_global_batch,
+                                  maybe_initialize_distributed, rank_device)
+from ..parallel.sharding import make_mesh
 from ..utils.device import resolve_device
 from ..utils.observability import JsonlLogger, configure_debug, maybe_profile
 from ..utils.seed import seed_everything
 from .ckpt import add_prefix_to_filename, load_checkpoint, merge_state, save_checkpoint
 from .engine import GRAPH_KEYS, _logits, feats_inputs, make_output_converter, model_extras
-from .train import Trainer, make_batcher, make_dataset
+from .train import Trainer, make_batcher, make_dataset, mesh_parallelism
 
 # the batch entries an evaluation pass sends to the model
 _MODEL_INPUTS = ("feats", "feats_scale", "feats_inv", "mask") + GRAPH_KEYS
 
 
 def _refuse_unported(cfg: dict) -> None:
-    for key in ("mesh", "distributed"):
-        if cfg.get(key):
-            raise NotImplementedError(f"`{key}`: multi-device runs are not ported yet "
-                                      f"(ROADMAP.md §A.17)")
     if cfg.get("ckpt_backend", "msgpack") != "msgpack":
         raise NotImplementedError(f"ckpt_backend {cfg['ckpt_backend']!r}: this port "
                                   f"writes torch checkpoints only (ROADMAP.md §A.6c)")
+
+
+def setup_mesh(cfg: dict, device=None):
+    """The run's rank grid (None without a `mesh` or `distributed`): joins
+    the process group of `distributed` first, before any device is
+    touched, then builds the D x M grid of the config's `mesh` (the world's
+    ranks along `data` without one) and prints vlsa_tpu's `[setup] mesh:`
+    line.  None also for a grid of one rank."""
+    joined = maybe_initialize_distributed(cfg, device)
+    m = cfg.get("mesh")
+    if not m and not joined:
+        return None
+    m = m or {}
+    mesh = make_mesh(n_data=m.get("data"), n_model=m.get("model", 1), dcn_data=m.get("dcn"))
+    tp, sp = mesh_parallelism(cfg, mesh)
+    print(f"[setup] mesh: data={mesh.n_data} model={mesh.n_model} "
+          f"(tensor_parallel={tp}, seq_parallel={sp})")
+    return mesh if mesh.size > 1 else None
 
 
 def _fill_paths(cfg: dict) -> None:
@@ -111,25 +145,28 @@ class BaseHandler:
 
     `device`: CUDA unless "cpu" is given (raises without a card).
     `state_dict`: initial weights in place of the seeded ones (for example a
-    vlsa_tpu parameter tree through utils.weights.state_dict_from_jax)."""
+    vlsa_tpu parameter tree through utils.weights.state_dict_from_jax).  On
+    a mesh the device is the rank's (its card, or the CPU when asked for)."""
 
     def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None):
         validate_config(cfg, cfg.get("task", ""), strict=cfg.get("strict_config", False))
         _refuse_unported(cfg)
-        self.device = resolve_device(device)
+        self.mesh = setup_mesh(cfg, device)
+        self.is_main = self.mesh is None or self.mesh.rank == 0  # writes the run's files
+        self.device = rank_device(resolve_device(device))
         seed_everything(cfg["seed"])
         configure_debug(cfg)
 
         print(f"[setup] dataset name: {cfg['dataset_name']}.")
         if not cfg.get("test", False):
             _fill_paths(cfg)
-            os.makedirs(cfg["save_path"], exist_ok=True)
             base = cfg["save_path"]
         else:
             if "{}" in str(cfg.get("test_load_path", "")):
                 cfg["test_load_path"] = cfg["test_load_path"].format(cfg["data_split_seed"])
-            os.makedirs(cfg["test_save_path"], exist_ok=True)
             base = cfg["test_save_path"]
+        if self.is_main:
+            os.makedirs(base, exist_ok=True)
         load_base = cfg.get("test_load_path", base) if cfg.get("test", False) else base
         self.last_ckpt_path = osp.join(load_base, "model-last.ckpt")
         self.best_ckpt_path = osp.join(load_base, "model-best.ckpt")
@@ -137,11 +174,11 @@ class BaseHandler:
         self.best_metrics_path = osp.join(base, "metrics-best.txt")
         self.config_path = osp.join(base, "print_config.txt")
         self.config_yaml = osp.join(base, "config.yaml")
-        self.jsonl = JsonlLogger(osp.join(base, "metrics.jsonl"))
+        self.jsonl = JsonlLogger(osp.join(base, "metrics.jsonl") if self.is_main else None)
         print(f"[setup] path to save: {base}")
 
         # data, model, losses, optimizer and engine: runner.train's wiring
-        self.trainer = Trainer(cfg, self.device, state_dict=state_dict)
+        self.trainer = Trainer(cfg, self.device, state_dict=state_dict, mesh=self.mesh)
         self.data_split, self.data_meta = self.trainer.data_split, self.trainer.meta
         self.model, self.optimizer = self.trainer.model, self.trainer.optimizer
         self.engine = self.trainer.engine
@@ -159,8 +196,9 @@ class BaseHandler:
         # producer building them, `build_s`) and of each evaluation pass
         self.timings: Dict[str, list] = {"epochs": [], "eval": []}
         self.cfg = cfg
-        print_config(cfg, print_to_path=self.config_path)
-        save_config(cfg, self.config_yaml)
+        if self.is_main:
+            print_config(cfg, print_to_path=self.config_path)
+            save_config(cfg, self.config_yaml)
 
     # ------------------------------------------------------------------ hooks
     def _check_arguments(self, cfg):
@@ -261,14 +299,15 @@ class BaseHandler:
         # a new batcher, as vlsa_tpu makes one: its shuffle is keyed by its own
         # epoch count, so a resumed run's first epoch takes epoch 1's order
         train_batcher = make_batcher(self.trainer.dataset, cfg, shuffle=True,
-                                     pin_memory=self.device.type == "cuda")
+                                     pin_memory=self.device.type == "cuda", mesh=self.mesh)
         n_train = len(train_batcher.dataset)
         last_epoch = -1
         start_epoch = 0
         if cfg.get("auto_resume"):
             # restart from the run's last checkpoint (model, Adam's moments, epoch)
-            if osp.exists(add_prefix_to_filename(self.last_ckpt_path, run_name)):
-                start_epoch = self.resume_model("last", run_name)
+            resumed = self.resume_model("last", run_name, missing_ok=True)
+            if resumed is not None:
+                start_epoch = resumed
                 print(f"[train] auto-resume: continuing from epoch {start_epoch}")
         for epoch in range(start_epoch, epochs):
             last_epoch = epoch + 1
@@ -328,15 +367,22 @@ class BaseHandler:
             if batch is None:
                 break
             _loss, raw = self.engine.train_step(batch)
-            self._collect(batch, raw, all_raw, all_gt, all_idx)
+            self._collect(batch, raw.float().cpu().numpy(), all_raw, all_gt, all_idx)
         return {"pred": self._cltor(all_raw, all_gt, all_idx, "train")}, prep_s
 
-    @staticmethod
-    def _collect(batch, raw, all_raw, all_gt, all_idx) -> None:
-        valid = batch["valid"].numpy()
-        all_raw.append(raw.float().cpu().numpy()[valid])
-        all_gt.append(np.stack([batch["t"].numpy()[valid], batch["e"].numpy()[valid]], 1))
-        all_idx.append(batch["idx"].numpy()[valid])
+    def _collect(self, batch, raw, all_raw, all_gt, all_idx) -> None:
+        """A batch's valid rows.  On a mesh `raw` holds the global batch's
+        rows (`collect_global`) and the labels are gathered over the data
+        group too, in one collective (t, e, idx and valid as f64 columns:
+        exact for f32 times and int32 indices)."""
+        labels = np.stack([batch["t"].numpy(), batch["e"].numpy(), batch["idx"].numpy(),
+                           batch["valid"].numpy()], 1).astype(np.float64)
+        if self.mesh is not None:
+            labels = host_allgather(labels, self.mesh)
+        valid = labels[:, 3] > 0.5
+        all_raw.append(raw[valid])
+        all_gt.append(labels[valid, :2].astype(batch["t"].numpy().dtype))
+        all_idx.append(labels[valid, 2].astype(batch["idx"].numpy().dtype))
 
     def _cltor(self, all_raw, all_gt, all_idx, loader_name) -> dict:
         """The pass's collected arrays; the output converter runs once on all
@@ -350,11 +396,11 @@ class BaseHandler:
     def test_model(self, dataset, loader_name, ckpt_path=None):
         """An evaluation pass over `dataset` (after loading `ckpt_path`)."""
         if ckpt_path is not None:
-            merge_state(self.model, load_checkpoint(ckpt_path)["model"])
+            merge_state(self.model, self._read_checkpoint(ckpt_path)["model"])
         t0 = time.perf_counter()
-        model = self.model
+        model, mesh = self.model, self.mesh
         batcher = make_batcher(dataset, self.cfg, shuffle=False,
-                               pin_memory=self.device.type == "cuda")
+                               pin_memory=self.device.type == "cuda", mesh=mesh)
         all_raw, all_gt, all_idx = [], [], []
         model.eval()
         try:
@@ -366,12 +412,13 @@ class BaseHandler:
                     text_features, query = model.text_precompute()
                     text = {"text_features": text_features, "query": query}
                 for batch in batcher:
-                    inputs = {k: v.to(self.device, non_blocking=True)
-                              for k, v in batch.items() if k in _MODEL_INPUTS}
+                    inputs = make_global_batch(
+                        {k: v for k, v in batch.items() if k in _MODEL_INPUTS}, mesh,
+                        self.device, self.trainer.seq_parallel)
                     feats, kws = feats_inputs(model, inputs)
                     raw = _logits(model(feats, inputs["mask"], **kws, **text,
                                         **model_extras(inputs)))
-                    self._collect(batch, raw, all_raw, all_gt, all_idx)
+                    self._collect(batch, collect_global(raw, mesh), all_raw, all_gt, all_idx)
         finally:
             model.train()
         self.timings["eval"].append({"split": loader_name, "bags": len(dataset),
@@ -398,25 +445,26 @@ class BaseHandler:
             name_group, csv_name = f"lastckpt/{group}", f"{cfg['task']}_{group}_last"
         else:
             raise KeyError(f"Expected best or last for `ckpt_for_eval`, got {ckpt_type}.")
-        if ckpt_path is not None and not osp.exists(ckpt_path):
-            ckpt_path = None
+        # rank 0's file, or the weights in memory where it has none
+        ckpt = self._read_checkpoint(ckpt_path, missing_ok=True)
+        if ckpt is not None:
+            merge_state(self.model, ckpt["model"])
 
         metrics = {}
         for k, ds in evals_loader.items():
             if ds is None:
                 continue
-            cltor = self.test_model(ds, k, ckpt_path=ckpt_path)
-            ckpt_path = None  # load once
+            cltor = self.test_model(ds, k)
             metrics[k] = []
             for k_c, v_c in cltor.items():
                 met_main, met_loss = self._eval_and_print(
                     v_c, name=f"{name_group}/{k}/{k_c}", at_epoch=ckpt_type)
                 metrics[k].append((f"{k_c}_{self.ret_metrics[0]}", met_main))
                 metrics[k].append((f"{k_c}_{self.ret_metrics[1]}", met_loss))
-            if cfg.get("save_prediction"):
+            if cfg.get("save_prediction") and self.is_main:
                 full = osp.join(save_pred_path, f"{csv_name}_pred_{k}.csv")
                 self.save_prediction_results(cltor["pred"], full, type_pred=cfg.get("evaluator"))
-        print_metrics(metrics, print_to_path=print_path)
+        print_metrics(metrics, print_to_path=print_path if self.is_main else None)
         return metrics
 
     def save_prediction_results(self, data_cltor, path_to_save, **kws):
@@ -432,24 +480,48 @@ class BaseHandler:
         return [results[name + "/" + k] for k in self.ret_metrics]
 
     # ------------------------------------------------------------------ ckpt
+    def _read_checkpoint(self, path, missing_ok: bool = False) -> Optional[dict]:
+        """The checkpoint at `path` as global rank 0 reads it, on every rank
+        of a grid (None where `missing_ok` and rank 0 has no such file).
+        The other ranks read no file; rank 0's failure to read one is
+        raised on every rank."""
+        ckpt = None
+        if self.is_main and path is not None and (not missing_ok or osp.exists(path)):
+            try:
+                ckpt = load_checkpoint(path)
+            except Exception as exc:  # sent on, so that no rank waits for this one
+                ckpt = exc
+        ckpt = broadcast_object(ckpt, self.mesh is not None)
+        if isinstance(ckpt, Exception):
+            raise ckpt
+        return ckpt
+
     def _save_model(self, epoch, ckpt_type, run_name):
+        """Rank 0 writes the checkpoint; no other rank reads it
+        (`_read_checkpoint`), so none waits for it."""
+        if not self.is_main:
+            return
         path = self.best_ckpt_path if ckpt_type == "best" else self.last_ckpt_path
         save_checkpoint(add_prefix_to_filename(path, run_name), epoch, self.model,
                         module_filter=self.cfg.get("model_saver_module_filter"),
                         optimizer=(self.optimizer if self.cfg.get("save_optimizer", True)
                                    else None))
 
-    def resume_model(self, ckpt_type: str = "best", run_name: str = "train") -> int:
+    def resume_model(self, ckpt_type: str = "best", run_name: str = "train",
+                     missing_ok: bool = False) -> Optional[int]:
         """The model (strict=False: filtered-out modules keep their values)
-        and, when saved, the optimizer's state from a run checkpoint; returns
-        its epoch."""
+        and, when saved, the optimizer's state from a run checkpoint (rank
+        0's, on every rank of a grid); returns its epoch (None where
+        `missing_ok` and there is no such file)."""
         if ckpt_type == "last":
             path = add_prefix_to_filename(self.last_ckpt_path, run_name)
         elif ckpt_type == "best":
             path = add_prefix_to_filename(self.best_ckpt_path, run_name)
         else:
             raise KeyError(f"Expected best or last for `ckpt_type`, got {ckpt_type}.")
-        ckpt = load_checkpoint(path)
+        ckpt = self._read_checkpoint(path, missing_ok)
+        if ckpt is None:
+            return None
         if "optax_state" in ckpt:
             raise NotImplementedError(
                 f"{path} is vlsa_tpu's checkpoint with optax state, which this port does not "

@@ -17,7 +17,21 @@ vlsa_tpu's engine hold for both: the storage sidecars
 (`feats_scale`, `feats_inv`) go only to a model that accepts them
 (`accepts_x_scale`), any other sees bf16-dequantized features
 (`feats_inputs`); and the logit scale and the query-diversity term exist
-only for a vision-language model (`uses_vl`).  A batch's cluster ids or
+only for a vision-language model (`uses_vl`).
+
+On a mesh of ranks (parallel/sharding.py) a step takes the rank's slice of
+the global batch (`parallel.multihost.make_global_batch`: its bags, and its
+chunk of the patch axis when the pool is sequence parallel).  vlsa_tpu's
+objective is the global batch's, and some losses couple bags (SurvPLE,
+rank_loss, SurvT2I's contrastive term), so every rank gathers the logits
+and labels over its data group and computes the objective on the whole
+batch, divided by D; the gather's backward sums the gradient over the
+group and keeps the rank's rows, and every trainable gradient is summed
+over the data group.  Both the terms reached through the logits and those
+that reach a parameter directly (the logit scale, QueryDiv) then count
+once.  The gradients of the parameters a rank computes from its slice of a
+model group's work (tensor-parallel MLP slices, a projecter before a
+sequence-parallel pool) are summed over the model group first.  A batch's cluster ids or
 edge lists (`data_mode` cluster or graph: `GRAPH_KEYS`) go to the model as
 keyword arguments of those names, in training, evaluation and serving.
 """
@@ -34,6 +48,12 @@ from ..data.quant import Bag, pad_request
 from ..ops.coattn import dequantize_feats
 from ..ops.flags import disable_kernels
 from ..optim.extra import hutchinson_hessian_diag
+from ..parallel.collectives import all_gather, gather_rows, sum_grads_
+from ..parallel.multihost import make_global_batch
+
+# losses whose value couples the bags of a batch: a mesh's micro-batches
+# (accum_steps > 1) would split them otherwise than vlsa_tpu's
+BATCH_COUPLED = ("SurvPLE", "rank_loss", "SurvT2I")
 
 
 # the batch entries of cluster and graph bags, passed to the model by name
@@ -119,14 +139,40 @@ class TrainEngine:
     second derivative, so that whole step runs inside
     `ops.flags.disable_kernels()`: the plain versions, on the card; every
     other call (evaluation, serving) keeps the kernels.  With accum_steps > 1
-    it raises, as vlsa_tpu asserts."""
+    it raises, as vlsa_tpu asserts.
+
+    `mesh` (parallel.sharding.Mesh of more than one rank): the data-parallel
+    objective and gradient sums of the module's docstring; `seq_parallel`
+    slices the patch axis of the batches; `model_partial` names the
+    parameters whose gradients the model group sums.  With `accum_steps` >
+    1 each rank cuts its slice into micro-batches, which gathered are a
+    split of the global batch other than vlsa_tpu's contiguous one: the
+    same function for per-bag losses, another for the `BATCH_COUPLED` ones
+    (`batch_coupled`), which raise there, as adahessian does on a mesh
+    (ROADMAP.md §A.18)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  objective: Callable, accum_steps: int = 1, needs_hessian: bool = False,
-                 hessian_seed: int = 0):
+                 hessian_seed: int = 0, mesh=None, seq_parallel: bool = False,
+                 model_partial: Sequence[str] = (), batch_coupled: bool = False):
         if needs_hessian and accum_steps > 1:
             raise ValueError("adahessian with accum_steps > 1 is not supported (nor in "
                              "vlsa_tpu)")
+        mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if mesh is not None and needs_hessian:
+            raise ValueError(f"adahessian on a mesh of {mesh.size} ranks is not ported "
+                             f"(ROADMAP.md §A.18): its Hessian-vector product would "
+                             f"differentiate through the collectives")
+        if mesh is not None and mesh.n_data > 1 and accum_steps > 1 and batch_coupled:
+            raise ValueError(f"accum_steps {accum_steps} with a batch-coupled loss "
+                             f"({', '.join(BATCH_COUPLED)}) on data={mesh.n_data} ranks "
+                             f"splits the batch otherwise than vlsa_tpu (ROADMAP.md §A.18)")
+        self.mesh = mesh
+        self.seq_parallel = seq_parallel
+        self.n_data = 1 if mesh is None else mesh.n_data
+        self._data_group = None if mesh is None else mesh.data_group
+        named = dict(model.named_parameters())
+        self._model_partial = [named[n] for n in model_partial if named[n].requires_grad]
         self.model = model
         self.optimizer = optimizer
         self.objective = objective
@@ -138,16 +184,37 @@ class TrainEngine:
         if needs_hessian:
             self._hessian_gen = torch.Generator(device=self.device).manual_seed(hessian_seed)
 
+    def labels(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(t, e, valid) of the whole batch: gathered over the data group on
+        a mesh, in one collective."""
+        if self._data_group is None:
+            return batch["t"], batch["e"], batch["valid"]
+        rows = torch.stack([batch["t"].float(), batch["e"].float(),
+                            batch["valid"].float()], 1)
+        t, e, v = all_gather(rows, self._data_group).unbind(1)
+        return t.to(batch["t"].dtype), e.to(batch["e"].dtype), v > 0.5
+
     def loss(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, raw logits [B, K]) of one batch on the device."""
+        """(loss, raw logits [B, K]) of one batch on the device; on a mesh,
+        the global batch's (the logits of every data rank's bags)."""
         feats, kws = feats_inputs(self.model, batch)
         raw = _logits(self.model(feats, batch["mask"], train=True, **kws, **model_extras(batch)))
+        t, e, valid = self.labels(batch)
+        raw = gather_rows(raw, self._data_group)
         vl = {}
         if self.uses_vl:
             vl = {"logit_scale": self.model.get_logit_scale(),
                   "query_div_fn": self.model.query_div_loss}
-        loss = self.objective(raw, batch["t"], batch["e"], batch["valid"].to(raw.dtype), **vl)
+        loss = self.objective(raw, t, e, valid.to(raw.dtype), **vl)
         return loss, raw
+
+    def reduce_grads(self) -> None:
+        """On a mesh: the model-partial gradients summed over the model
+        group, then every trainable gradient over the data group."""
+        if self.mesh is None:
+            return
+        sum_grads_(self._model_partial, self.mesh.model_group)
+        sum_grads_(self._trainable()[1], self._data_group)
 
     def _trainable(self):
         """(names, parameters) the optimizer updates, in its groups' order."""
@@ -179,17 +246,18 @@ class TrainEngine:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One update on `batch` (tensors on any device, moved here).
         Returns (loss, raw logits [B, K]), both detached and on the device,
-        with no host synchronisation.  `hessian_z`: the adahessian step's z
-        (see `hessian_step`)."""
+        with no host synchronisation; on a mesh, the global batch's loss
+        (undivided) and logits.  `hessian_z`: the adahessian step's z (see
+        `hessian_step`)."""
         self.model.train()
-        batch = {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+        batch = make_global_batch(batch, self.mesh, self.device, self.seq_parallel)
         self.optimizer.zero_grad(set_to_none=True)
         if self.needs_hessian:
             return self.hessian_step(batch, hessian_z)
         accum = self.accum_steps
         if accum <= 1:
             loss, raw = self.loss(batch)
-            loss.backward()
+            (loss / self.n_data).backward()
             loss, raw = loss.detach(), raw.detach()
         else:
             B = batch["feats"].shape[0]
@@ -199,16 +267,20 @@ class TrainEngine:
             mb = B // accum
             # the weights in f64: an f32 2/3 would round each micro-batch's
             # share (a float64 model then accumulates exactly)
-            w_tot = torch.clamp(batch["valid"].sum().double(), min=1.0)
+            w_tot = torch.clamp(self.labels(batch)[2].sum().double(), min=1.0)
             loss, raws = 0.0, []
             for i in range(accum):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                w = micro["valid"].sum().double()
+                w = self.labels(micro)[2].sum().double()
                 loss_i, raw_i = self.loss(micro)
-                (loss_i * (w / w_tot)).backward()
+                (loss_i * (w / w_tot) / self.n_data).backward()
                 loss = loss + (loss_i.detach() * (w / w_tot)).to(loss_i.dtype)
                 raws.append(raw_i.detach())
             raw = torch.cat(raws)
+            if self.n_data > 1:  # micro-batch-major to data-rank-major rows
+                raw = raw.reshape(accum, self.n_data, mb, *raw.shape[1:]).transpose(0, 1) \
+                    .reshape(raw.shape)
+        self.reduce_grads()
         self.optimizer.step()
         return loss, raw
 

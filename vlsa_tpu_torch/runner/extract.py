@@ -14,8 +14,9 @@ directories of images; the stores (.npy or .q8npz, plus coords .h5) are what
 `--image_size` pixels in a temporary directory.  `--model` is `conch`
 (CONCH's visual model; `--trunk_quant` makes its trunk's linears w8a8) or
 `clip_vit` (OpenAI CLIP's ViT-B/16 image embedding).  Without `--ckpt` the
-weights are random, from `--seed`.  `--num_devices` above 1 is refused: the
-port extracts on one card a process.  Prints the stats of
+weights are random, from `--seed`.  `--num_devices N` puts a replica on
+each of the first N cards and splits every batch over them in order
+(`FeatureExtractor(num_devices=N)`).  Prints the stats of
 `extract_to_store` as one JSON line, with the model, `trunk_quant` and the
 flash kernel's launches.  `--device cpu` runs it on the CPU (use a small --image_size and
 --batch there).
@@ -48,7 +49,7 @@ def get_args(argv=None):
     p.add_argument("--trunk_quant", action="store_true",
                    help="w8a8 int8 trunk linears (CONCH only)")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="cards to split each batch over; only 1 (the port extracts on one card)")
+                   help="cards to split each batch over (a replica on each)")
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--device_preprocess", default="auto", choices=["auto", "0", "1"],
                    help="PIL-exact resize on the card (auto: on for CUDA)")

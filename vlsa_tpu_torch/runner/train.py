@@ -28,10 +28,11 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import fetch_kws, load_config, training_config
 from ..data.bags import SurvBagDataset, prepare_surv_dataset
@@ -41,8 +42,10 @@ from ..data.splits import read_file_data_splitting
 from ..losses import load_loss
 from ..ops import abmil, coattn
 from ..optim import create_optimizer, frozen_mask_from_cfg
+from ..parallel.multihost import process_shard_info
+from ..parallel.sharding import seed_dropout, shard_params
 from ..utils.device import resolve_device
-from .engine import TrainEngine, make_objective, make_output_converter
+from .engine import BATCH_COUPLED, TrainEngine, make_objective, make_output_converter
 
 
 def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
@@ -104,12 +107,15 @@ def make_dataset(cfg: dict, meta: MetaSurvData, patient_ids,
 
 
 def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool,
-                 pin_memory: bool = False) -> BagBatcher:
+                 pin_memory: bool = False, mesh=None) -> BagBatcher:
     """The config's batcher: `bp_every_batch` bags a batch when training
     (shuffled by the seed and the batcher's own epoch count), an evaluation
     pass's `eval_batch_size` (default `bp_every_batch`) in order; built
     `prefetch` (default 2) batches ahead by a background thread, in
-    page-locked memory with `pin_memory` (for a model on the card)."""
+    page-locked memory with `pin_memory` (for a model on the card).  On a
+    `mesh` the data rank d loads only its slice of every global batch
+    (num_shards D, shard_index d; vlsa_tpu/runner/base.py:253-262)."""
+    shard_index, num_shards = process_shard_info(mesh)
     batch_size = cfg.get("bp_every_batch", 32)
     if not shuffle:
         batch_size = cfg.get("eval_batch_size", batch_size)
@@ -121,7 +127,43 @@ def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool,
         # DeepMIL's pooling is unnormalised: SA and CLF need no 1/||x|| rows
         precompute_inv=cfg.get("feats_precompute_inv", True) and cfg["task"] == "vlsa",
         overflow=cfg.get("bag_overflow", "error"), prefetch=cfg.get("prefetch", 2),
-        pin_memory=pin_memory)
+        pin_memory=pin_memory, num_shards=num_shards, shard_index=shard_index)
+
+
+def mesh_parallelism(cfg: dict, mesh) -> Tuple[bool, bool]:
+    """(tensor_parallel, seq_parallel) of the config's `mesh`: both on by
+    default where the model axis exists (vlsa_tpu/runner/base.py:195-199)."""
+    m = cfg.get("mesh") or {}
+    n_model = 1 if mesh is None else mesh.n_model
+    tp = bool(m.get("tensor_parallel", n_model > 1))
+    sp = bool(m.get("seq_parallel", n_model > 1)) and n_model > 1
+    return tp, sp
+
+
+def route_seq_parallel(model: nn.Module, mesh) -> Tuple[bool, Tuple[str, ...]]:
+    """Bind the mesh into the model's pooling, so that it pools the rank's
+    chunk of the patch axis (vlsa_tpu/runner/base.py:218-235): VLFAN's
+    co-attention (parallel.coattn_sp) or DeepMIL's ABMIL pooling
+    (parallel.abmil_sp), the model itself or its `mil_encoder`.  Returns
+    (routed, the names of the projecter's parameters before the pool, whose
+    gradients the model group sums).  Another model computes the whole bag
+    on every rank of its model group."""
+    from ..models.mil import VLFAN, DeepMIL
+
+    def routable(m):
+        return isinstance(m, VLFAN) or (isinstance(m, DeepMIL) and m.pooling == "attention")
+
+    for prefix, mod in (("", model), ("mil_encoder.", getattr(model, "mil_encoder", None))):
+        if routable(mod):
+            mod.sp_mesh = mesh
+            if isinstance(mod, DeepMIL):
+                mod.sigma.sp_mesh = mesh
+            partial = tuple(f"{prefix}feat_proj.{n}" for n, _ in mod.feat_proj.named_parameters()
+                            ) if mod.use_feat_proj else ()
+            return True, partial
+    print("[setup] seq_parallel: model has no VLFAN/ABMIL attention pooling; every rank of a "
+          "model group computes the whole bag")
+    return False, ()
 
 
 class Trainer:
@@ -130,9 +172,15 @@ class Trainer:
     (`training_config`, or a handler's setup).
 
     `data_rng` (seeded by the config's seed) draws what a classification
-    dataset draws: runner.clf's path switch, masking and label corruption."""
+    dataset draws: runner.clf's path switch, masking and label corruption.
 
-    def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None):
+    `mesh` (parallel.sharding.Mesh): the batcher loads the rank's slice,
+    the pooling is routed sequence parallel and the text tower tensor
+    parallel as the config's `mesh` says (`mesh_parallelism`), Dropout is
+    reseeded by the data index, and the engine sums the gradients over the
+    groups."""
+
+    def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None, mesh=None):
         task = cfg["task"]
         if task not in ("vlsa", "sa", "clf"):
             raise NotImplementedError(f"task {task!r}: this port trains vlsa, sa and clf")
@@ -149,14 +197,26 @@ class Trainer:
             self.meta = (sa.load_meta(cfg, self.data_split) if task == "sa"
                          else build_surv_meta(cfg, self.data_split))
             self.dataset = make_dataset(cfg, self.meta, self.data_split["train"], train=True)
+        self.mesh = mesh
         self.batcher = make_batcher(self.dataset, cfg, shuffle=True,
-                                    pin_memory=self.device.type == "cuda")
+                                    pin_memory=self.device.type == "cuda", mesh=self.mesh)
         if task in ("sa", "clf"):
             self.model = sa.build_model(cfg, device=self.device, state_dict=state_dict)
         else:
             from . import vlsa  # runner.vlsa's handler builds on this module too
             self.model = vlsa.build_model(cfg, device=self.device, state_dict=state_dict)
         self.model.train()
+        self.seq_parallel, model_partial = False, ()
+        if self.mesh is not None:
+            tp, sp = mesh_parallelism(cfg, self.mesh)
+            if sp:
+                self.seq_parallel, model_partial = route_seq_parallel(self.model, self.mesh)
+            fixed = cfg.get("fixed_bucket")
+            if self.seq_parallel and fixed is not None and fixed % self.mesh.n_model:
+                raise ValueError(f"fixed_bucket {fixed} does not split over "
+                                 f"model={self.mesh.n_model}")
+            model_partial += shard_params(self.model, self.mesh, tp)
+            seed_dropout(self.model, self.mesh)
         self.frozen = frozen_mask_from_cfg(self.model, frozen_paths(cfg))
         self.loss_fns, self.loss_weights = load_losses(cfg)
         if task == "clf":  # on the raw logits
@@ -173,7 +233,9 @@ class Trainer:
             self.engine = TrainEngine(
                 self.model, self.optimizer, objective, accum_steps=cfg.get("accum_steps", 1),
                 needs_hessian=cfg["opt_name"].lower() == "adahessian",
-                hessian_seed=cfg.get("seed") or 0)
+                hessian_seed=cfg.get("seed") or 0, mesh=self.mesh,
+                seq_parallel=self.seq_parallel, model_partial=model_partial,
+                batch_coupled=any(n in BATCH_COUPLED for n in self.loss_fns))
 
     def batches(self) -> Iterator[dict]:
         """Training batches, epoch after epoch."""

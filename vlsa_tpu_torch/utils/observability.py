@@ -14,20 +14,26 @@ import torch
 
 
 class JsonlLogger:
-    """Append-only JSONL metrics log."""
+    """Append-only JSONL metrics log (none for a path of None: the ranks of
+    a multi-process run but rank 0)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: Optional[str]):
         self.path = path
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self._fh = open(path, "a", buffering=1)
+        self._fh = None
+        if path is not None:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._fh = open(path, "a", buffering=1)
 
     def log(self, record: dict):
+        if self._fh is None:
+            return
         record = dict(record)
         record.setdefault("ts", time.time())
         self._fh.write(json.dumps(record, default=float) + "\n")
 
     def close(self):
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
 
 
 @contextmanager
