@@ -48,8 +48,8 @@ non-zero and prints no result:
      single-rounded model must miss in dW1 and dX; all of this again at
      every width the kernels take (`ABMIL_ANY_WIDTHS`: (2560,
      256), (2560, 512), (4096, 256), (4096, 1024), (1000, 384), (768, 96),
-     (100, 32), (1536, 1024): W1 zero-padded to whole passes and slices,
-     rows of any length and alignment), ragged and precise at (2560, 256)
+     (100, 32), (1536, 1024), (64, 32): W1 zero-padded to whole passes and
+     slices, rows of any length and alignment), ragged and precise at (2560, 256)
      and (1000, 384); beside the int8
      forward's gap it prints the gap to `abmil_fwd_rounded`, the plain model
      of its W1 split; the kernels' ptxas lines (registers, static shared
@@ -242,6 +242,22 @@ non-zero and prints no result:
      test pass of `test_model(ckpt_path=...)` from each bit for bit, and
      `load_vlsa_from_run` on both directories giving bit-identical logits;
      its co-attention launches join the kernels line;
+  3u. vlsa_tpu's runs resumed (after 3s): the committed checkpoints of
+     vlsa_tpu_torch/assets/checkpoints/ (a DeepMIL/ABMIL 64-32-12 run with
+     Adam's optax state, and a tree of bf16, int8 and f32 leaves) read from
+     vlsa_tpu's msgpack and orbax backends (the orbax directories through
+     the port's own OCDBT, zarr and zstd readers) into bit-identical state
+     dicts and optimizer states, the zstd decoder's MB/s over their frames;
+     the SA run resumed through `auto_resume` for its second epoch (fold 0,
+     bags of N~1024 at D=64; the general ABMIL instances, rows 7-8), finite
+     metrics; then 3h's kept flagship bf16 run with its Adam state packed
+     into optax's tree (`optax_adam_tree`) beside its weights in vlsa_tpu's
+     msgpack layout, resumed for one epoch through `auto_resume` (exec's
+     training loop and its evaluation each epoch; the final passes left out
+     for the script's time) from that file and from the port's own torch
+     checkpoint: every evaluation event (the losses and metrics) and the
+     test probabilities bit-identical (rows 1 and 6);
+     its launches join the kernels line;
   3t. multi-process runs (after 3h): four ranks spawned on the one card,
      joined with gloo (ranks sharing a card; each collective staged through
      host memory).  The sequence-parallel pools at B=8, N=10240, C=512, P=12
@@ -350,7 +366,7 @@ non-zero and prints no result:
      torch_geometric .pt through `convert --graphs`, the same edges);
      TransMIL and ILRA (patch bags), DeepAttnMISL (cluster bags) and
      PatchGCN (graph bags) at net_dims 512-256-12, each 1 epoch through
-     `vlsa_tpu_torch.main` (buckets up to 16,384, longer patients
+     `vlsa_tpu_torch.main` (buckets up to 8,192, longer patients
      truncated), no kernel launched, finite metrics, the reloaded
      checkpoint's test probabilities bit for bit, then a served request and
      a step on 3 bags card against CPU f32 within 2e-3 (loss and each
@@ -529,12 +545,13 @@ ABMIL_RAGGED_WIDTHS = ((512, 256), (1024, 256))
 ABMIL_PRECISE_WIDTHS = ((512, 256), (1024, 256))
 # every width the kernels take (W1 zero-padded to whole passes and
 # slices, rows of any length and alignment): Virchow's 2560 with the shipped
-# 256 and CLAM's 512, 4096 at 256 and 1024, and widths that pad hid (384, 96,
+# 256 and CLAM's 512, 4096 at 256 and 1024, widths that pad hid (384, 96,
 # 32; 1024 at 1536) and D (1000, 100: int8 rows at both and bf16 rows at 100
-# not 16-byte aligned); held in 2c as ABMIL_WIDTHS are, ragged and precise at
+# not 16-byte aligned), and 64-32, the width of phase 3u's resumed SA run
+# (RESUME_SA_DIMS); held in 2c as ABMIL_WIDTHS are, ragged and precise at
 # two of them, and timed in 4b at ABMIL_ANY_TIMED
 ABMIL_ANY_WIDTHS = ((2560, 256), (2560, 512), (4096, 256), (4096, 1024), (1000, 384),
-                    (768, 96), (100, 32), (1536, 1024))
+                    (768, 96), (100, 32), (1536, 1024), (64, 32))
 ABMIL_ANY_RAGGED_WIDTHS = ((2560, 256), (1000, 384))
 ABMIL_ANY_PRECISE_WIDTHS = ((2560, 256), (1000, 384))
 ABMIL_ANY_TIMED = ((2560, 256), (1000, 384))
@@ -834,7 +851,7 @@ ADAHESSIAN_RUN = ("vlsa_adahessian_bf16_npy", LIFECYCLE_VLSA_CFG, "npy",
                   dict(feats_dtype="bfloat16", opt_name="adahessian"), "bf16")
 # phase 3o: the rest of the MIL zoo (the paper's SA baselines), each at
 # net_dims 512-256-K (K corrected to fold 0's 12 bins) 1 epoch from phase
-# 3h's .npy store (bags of N~8192, buckets up to 16,384: `max_bucket`, the
+# 3h's .npy store (bags of N~8192, buckets up to 8,192: `max_bucket`, the
 # longer patients truncated, `bag_overflow: truncate`) through `main`:
 # TransMIL and ILRA on patch bags, DeepAttnMISL on cluster bags
 # (ZOO_CLUSTERS clusters a patient), PatchGCN on graph bags (each slide's
@@ -847,7 +864,7 @@ ZOO_CLUSTERS = 8
 ZOO_NETWORKS = (("TransMIL", "patch", {}), ("ILRA", "patch", {}),
                 ("DeepAttnMISL", "cluster", {"deepmil_num_clusters": ZOO_CLUSTERS}),
                 ("PatchGCN", "graph", {}))
-ZOO_CFG = dict(LIFECYCLE_SA_CFG, net_dims="512-256-4", max_bucket=16384,
+ZOO_CFG = dict(LIFECYCLE_SA_CFG, net_dims="512-256-4", max_bucket=8192,
                bag_overflow="truncate")
 ZOO_CPU_BAGS = 3
 ZOO_GRAD_FLOOR = 1e-2
@@ -861,8 +878,9 @@ ZOO_SKEW_BAGS = 8
 ZOO_SKEW_HUBS = 16
 ZOO_SKEW_RATIO = 1.05
 ZOO_REDUCED = {"epochs": "10 -> 1",
-               "bag N": "patients past 16,384 patches (17 of fold 0's 373) truncated to "
-                        "16,384: TransMIL and PatchGCN at a bucket of 131,072 would not fit"}
+               "bag N": "patients past 8,192 patches truncated to 8,192 (16,384 until the "
+                        "script's time asked for less; TransMIL and PatchGCN at a bucket of "
+                        "131,072 would not fit)"}
 # phase 3p: the CLF handler (slide classification, runner/clf.py) and VLSA on
 # the CLIP and HF text towers, while phase 3h's stores are there.  CLF: one
 # bag a slide of fold 0 from 3h's .npy f32 store, labels written by the script
@@ -1007,6 +1025,19 @@ CAPTION_GROUPS = {"gemm": GEMM_KERNELS, "softmax": r"softmax", "layer_norm": r"l
 # phase 3s: INTERP_RUN's trained model written as vlsa_tpu writes a run's
 # checkpoint (flax's msgpack layout) into a copy of its run directory
 FLAX_RUN = INTERP_RUN + "_flax"
+# phase 3u: resuming vlsa_tpu's runs.  The committed fixtures
+# (tests/test_torch_orbax.py::make_fixtures): a DeepMIL/ABMIL run at
+# RESUME_SA_DIMS with Adam's optax state after 3 steps, saved at epoch 1 in
+# vlsa_tpu's msgpack and orbax backends, and a tree of bf16, int8 and f32
+# leaves in both; the SA run resumed for its second epoch on fold 0 with
+# bags of RESUME_SA_BAGS.  Then INTERP_RUN with its Adam state in optax's
+# tree (RESUMED_RUN), resumed for one epoch beside the same run resumed
+# from the port's torch checkpoint
+RESUME_FIXTURES = os.path.join(ROOT, "vlsa_tpu_torch", "assets", "checkpoints")
+RESUME_SA_DIMS = "64-32-12"
+RESUME_SA_BAGS = "synthetic://N=1024,D=64,seed=7"
+RESUMED_RUN = FLAX_RUN + "_optax"
+ZSTD_REPEATS = 5  # passes over the fixtures' zstd frames, for the decoder's MB/s
 
 
 class SmokeFailure(Exception):
@@ -3156,6 +3187,274 @@ def phase_flax_checkpoint(torch, ab, co, device, card, tmp, keep):
             "launches": {"coattn_fwd": launches}, "patients": len(test_set)}
 
 
+# ---------------------------------------------------------------- phase 3u
+
+def _masked(tree: dict, frozen: dict) -> dict:
+    """`tree` with an empty dict (optax's MaskedNode) at every leaf of
+    `frozen`'s paths."""
+    return {k: ({} if not isinstance(frozen[k], dict) else _masked(v, frozen[k]))
+            if k in frozen else v for k, v in tree.items()}
+
+
+def optax_adam_tree(model, opt_state_dict: dict, weight_decay: float) -> dict:
+    """vlsa_tpu's optimizer tree for `opt_name: adam`, flax's state dict of
+    the state its runner builds (vlsa_tpu/optim/factory.py:108-140:
+    inject_hyperparams over multi_transform's train and frozen labels, the
+    train chain add_decayed_weights (masked; identity without weight decay),
+    scale_by_adam, scale), from the port's torch Adam over `model`: mu and nu
+    in vlsa_tpu's layout over every parameter, an empty dict at each frozen
+    one (requires_grad False), zeros where a trainable parameter never had a
+    gradient (torch keeps no state for it, optax zero moments); optax's one
+    count is the most steps any parameter took, the learning rate each
+    group's as f32."""
+    import numpy as np
+    from vlsa_tpu_torch.utils.weights import jax_tree_from_state_dict
+
+    state = {}
+    for group in opt_state_dict["param_groups"]:
+        for name, i in zip(group["names"], group["params"]):
+            if i in opt_state_dict["state"]:
+                state[name] = opt_state_dict["state"][i]
+    params = dict(model.named_parameters())
+    frozen = jax_tree_from_state_dict({n: p for n, p in params.items() if not p.requires_grad})
+    count = np.asarray(max(int(st["step"]) for st in state.values()), np.int32)
+
+    def moments(key):
+        return _masked(jax_tree_from_state_dict(
+            {n: state[n][key] if n in state else p.detach().float().cpu().zero_()
+             for n, p in params.items()}), frozen)
+    lrs = {group["lr"] for group in opt_state_dict["param_groups"]}
+    if len(lrs) != 1:
+        raise ValueError(f"the groups' learning rates differ: {lrs}")
+    adam = {"count": count, "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")}
+    train = {"0": {"inner_state": {}} if weight_decay else {}, "1": adam, "2": {}}
+    return {"count": count, "hyperparams": {"learning_rate": np.asarray(lrs.pop(), np.float32)},
+            "hyperparams_states": {},
+            "inner_state": {"inner_states": {"train": {"inner_state": train},
+                                             "frozen": {"inner_state": {}}}}}
+
+
+def _flat_tree(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_tree(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _same_leaves(torch, a: dict, b: dict) -> bool:
+    """Two trees of arrays and tensors with the same keys, dtypes and bits."""
+    import numpy as np
+    fa, fb = dict(_flat_tree(a)), dict(_flat_tree(b))
+    if fa.keys() != fb.keys():
+        return False
+    for k, x in fa.items():
+        y = fb[k]
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and x.dtype == y.dtype and torch.equal(x, y)):
+                return False
+        elif not (np.asarray(x).dtype == np.asarray(y).dtype and np.array_equal(x, y)):
+            return False
+    return True
+
+
+def _eval_events(save_path: str) -> list:
+    """The run's metrics.jsonl evaluation events, without their times."""
+    with open(os.path.join(save_path, "metrics.jsonl")) as f:
+        return [{k: v for k, v in e.items() if k != "ts"}
+                for e in map(json.loads, f) if e.get("event") == "eval"]
+
+
+def zstd_throughput() -> dict:
+    """The port's zstd decoder over every chunk of the orbax fixtures,
+    ZSTD_REPEATS passes, on this host (no card needed: `python3 -c "import
+    chip_smoke; print(chip_smoke.zstd_throughput())"`): {frames, bytes a
+    pass, MB/s}."""
+    sys.path.insert(0, ROOT)
+    from vlsa_tpu_torch.runner.orbax import read_ocdbt
+    from vlsa_tpu_torch.utils.zstd import decompress
+
+    frames = []
+    for rel in ("sa_orbax/train_model-last.ckpt.orbax", "mixed_orbax.ckpt.orbax"):
+        frames += [v for v in read_ocdbt(os.path.join(RESUME_FIXTURES, rel)).values()
+                   if v[:4] == b"\x28\xb5\x2f\xfd"]
+    t = time.perf_counter()
+    decoded = sum(len(decompress(f)) for _ in range(ZSTD_REPEATS) for f in frames)
+    return {"frames": len(frames), "bytes": decoded // ZSTD_REPEATS,
+            "mb_s": decoded / (time.perf_counter() - t) / 1e6}
+
+
+def phase_resume(torch, ab, co, device, card, tmp, keep):
+    """Phase 3u: vlsa_tpu's checkpoints resumed.  The committed fixtures read
+    from both backends (the orbax directories through the port's OCDBT, zarr
+    and zstd readers) into the same state dicts and optimizer states; the
+    zstd decoder's MB/s over their frames; the fixture's SA run resumed for
+    its second epoch (the general ABMIL instances, rows 7-8) with finite
+    metrics; then INTERP_RUN's Adam state packed into optax's tree beside
+    its weights in vlsa_tpu's msgpack layout (RESUMED_RUN), and one epoch
+    resumed through `auto_resume` (the training loop of `exec`, with its
+    evaluation of the epoch) from it and from the port's own torch
+    checkpoint of the same run: the same evaluation losses and metrics and
+    test probabilities, bit for bit (rows 1 and 6)."""
+    import importlib.util
+    import numpy as np
+    from vlsa_tpu_torch.config import load_config
+    from vlsa_tpu_torch.optim import create_optimizer
+    from vlsa_tpu_torch.optim.optax_state import load_optax_state
+    from vlsa_tpu_torch.runner.ckpt import filter_state, load_checkpoint
+    from vlsa_tpu_torch.runner.sa import SAHandler, build_model
+    from vlsa_tpu_torch.runner.vlsa import VLSAHandler
+    from vlsa_tpu_torch.utils.weights import jax_tree_from_state_dict
+
+    present = {m: importlib.util.find_spec(m) is not None
+               for m in ("orbax", "tensorstore", "zstandard", "zstd")}
+    log(f"modules on this machine: {present}")
+
+    # ---- the fixtures from both backends ----
+    paths = {("sa", "msgpack"): "sa_msgpack/train_model-last.ckpt",
+             ("sa", "orbax"): "sa_orbax/train_model-last.ckpt",
+             ("mixed", "msgpack"): "mixed_msgpack.ckpt", ("mixed", "orbax"): "mixed_orbax.ckpt"}
+    read, read_s = {}, {}
+    for key, rel in paths.items():
+        t = time.perf_counter()
+        read[key] = load_checkpoint(os.path.join(RESUME_FIXTURES, rel))
+        read_s["/".join(key)] = time.perf_counter() - t
+    for kind in ("sa", "mixed"):
+        a, b = read[(kind, "msgpack")], read[(kind, "orbax")]
+        check(a["epoch"] == b["epoch"] and _same_leaves(torch, a["model"], b["model"])
+              and ("optax_state" in a) == ("optax_state" in b) == (kind == "sa")
+              and (kind != "sa" or _same_leaves(torch, a["optax_state"], b["optax_state"])),
+              f"the {kind} fixture reads differently from its two backends")
+    dtypes = sorted({str(t.dtype) for t in read[("mixed", "orbax")]["model"].values()})
+    check(dtypes == ["torch.bfloat16", "torch.float32", "torch.int8"],
+          f"the mixed fixture's dtypes {dtypes}")
+    sa_cfg = {"arch": "DeepMIL", "net_dims": RESUME_SA_DIMS, "deepmil_network": "ABMIL",
+              "deepmil_pooling": "attention", "deepmil_use_feat_proj": False,
+              "deepmil_drop_rate": 0.0, "seed": 0}
+    model = build_model(sa_cfg, device=device)
+    model.load_state_dict(read[("sa", "msgpack")]["model"], strict=True)
+    opt_states = {}
+    for backend in ("msgpack", "orbax"):
+        opt = create_optimizer("adam", 1e-3, 1e-5, model)
+        load_optax_state(opt, "adam", read[("sa", backend)]["optax_state"])
+        opt_states[backend] = opt.state_dict()
+    a, b = opt_states["msgpack"], opt_states["orbax"]
+    check(a["param_groups"] == b["param_groups"] and a["state"].keys() == b["state"].keys()
+          and len(a["state"]) == len(list(model.parameters()))
+          and all(torch.equal(a["state"][i][k], b["state"][i][k])
+                  for i in a["state"] for k in a["state"][i]),
+          "the SA fixture's optimizer states differ between its backends")
+    del model
+    zstd = zstd_throughput()
+    log(f"fixtures read (s): { {k: round(v, 4) for k, v in read_s.items()} }, both backends "
+        f"bit-identical (state dicts and optimizer states); the zstd decoder: "
+        f"{zstd['frames']} frames, {zstd['bytes']} bytes a pass, {zstd['mb_s']:.2f} MB/s")
+
+    # ---- the fixture's SA run, resumed for its second epoch ----
+    sa_dir = os.path.join(tmp, "resume_sa")
+    shutil.copytree(os.path.join(RESUME_FIXTURES, "sa_msgpack"), sa_dir)
+    ab.reset_launches()
+    co.reset_launches()
+    handler = SAHandler(dict(LIFECYCLE_SA_CFG, net_dims=RESUME_SA_DIMS, path_patch=RESUME_SA_BAGS,
+                             epochs=2, auto_resume=True, save_path=sa_dir), device=device)
+    t = time.perf_counter()
+    sa_metrics = handler.exec()
+    sa_s = time.perf_counter() - t
+    sa_launches = launch_counts(ab, co)
+    values = [v for split in sa_metrics.values() for _k, v in split]
+    check([e["epoch"] for e in handler.timings["epochs"]] == [2]
+          and all(np.isfinite(v) for v in values)
+          and all(g["lr"] == 1e-3 for g in handler.optimizer.param_groups),
+          f"the resumed SA run: epochs {handler.timings['epochs']}, metrics {sa_metrics}")
+    check(sa_launches["abmil_fwd"]["f32"] > 0 and sa_launches["abmil_bwd"]["f32"] > 0
+          and sum(sa_launches["coattn_fwd"].values()) == 0,
+          f"the resumed SA run's launches {sa_launches}")
+    log(f"the fixture's SA run ({RESUME_SA_DIMS}) resumed at epoch 1 for epoch 2 in "
+        f"{sa_s:.2f} s: finite metrics {dict(sa_metrics['test'])}; ABMIL launches fwd "
+        f"{sa_launches['abmil_fwd']}, bwd {sa_launches['abmil_bwd']}")
+    del handler
+
+    # ---- the flagship, resumed from optax's tree and from the torch file ----
+    run_dir = os.path.join(tmp, INTERP_RUN)
+    cfg = load_config(os.path.join(run_dir, "config.yaml"))
+    torch_ckpt = load_checkpoint(os.path.join(run_dir, "train_model-last.ckpt"))
+    dirs = {"optax": os.path.join(tmp, RESUMED_RUN),
+            "torch": os.path.join(tmp, INTERP_RUN + "_resumed")}
+    for d in dirs.values():  # the config alone: metrics.jsonl takes the resumed epoch only
+        os.makedirs(d)
+        shutil.copy(os.path.join(run_dir, "config.yaml"), d)
+    shutil.copy(os.path.join(run_dir, "train_model-last.ckpt"), dirs["torch"])
+    t = time.perf_counter()
+    tree = {"epoch": torch_ckpt["epoch"],
+            "model": jax_tree_from_state_dict(filter_state(
+                torch_ckpt["model"], cfg.get("model_saver_module_filter"))),
+            "optimizer": optax_adam_tree(keep[INTERP_RUN], torch_ckpt["optimizer"],
+                                         cfg.get("opt_weight_decay", 0.0))}
+    optax_ckpt = os.path.join(dirs["optax"], "train_model-last.ckpt")
+    with open(optax_ckpt, "wb") as f:
+        f.write(pack_flax_msgpack(tree))
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    got = load_checkpoint(optax_ckpt)
+    flagship_read_s = time.perf_counter() - t
+    check("optax_state" in got and got["model"].keys() == torch_ckpt["model"].keys(),
+          "the flagship's optax checkpoint")
+    runs = {}
+    for fmt in ("optax", "torch"):
+        ab.reset_launches()
+        co.reset_launches()
+        handler = VLSAHandler(dict(cfg, save_path=dirs[fmt], epochs=torch_ckpt["epoch"] + 1,
+                                   auto_resume=True), device=device)
+        # exec's training loop with its evaluation each epoch (the test split;
+        # fold 0 has no validation split), without its final passes, for the
+        # script's time; each pass's predictions kept
+        test_set = handler.prepare_dataset(handler.data_split["test"], "test")
+        handler.uid.update(train=handler.trainer.dataset.uid, test=test_set.uid)
+        passes, test_model = [], handler.test_model
+
+        def keep_pass(dataset, name, ckpt_path=None, _run=test_model, _out=passes):
+            out = _run(dataset, name, ckpt_path)
+            _out.append((name, out["pred"]["y_hat"]))
+            return out
+        handler.test_model = keep_pass
+        t = time.perf_counter()
+        handler._run_training(handler.cfg["epochs"], "train", val_loaders={"test": test_set},
+                              val_name="validation", save_ckpt=True, run_name="train")
+        seconds = time.perf_counter() - t
+        runs[fmt] = {"launches": launch_counts(ab, co), "seconds": seconds,
+                     "epochs": [e["epoch"] for e in handler.timings["epochs"]],
+                     "events": _eval_events(dirs[fmt]),
+                     "probs": [p for name, p in passes if name == "test"][-1]}
+        del handler, keep_pass
+        torch.cuda.empty_cache()
+    a, b = runs["optax"], runs["torch"]
+    check(a["epochs"] == b["epochs"] == [torch_ckpt["epoch"] + 1],
+          f"the resumed flagship's epochs {a['epochs']}, {b['epochs']}")
+    check(len(a["events"]) >= 2 and a["events"] == b["events"],
+          "the flagship resumed from optax's tree evaluates otherwise than from the torch "
+          "checkpoint")
+    check(np.array_equal(a["probs"], b["probs"]) and np.isfinite(a["probs"]).all(),
+          f"test probabilities resumed from optax's tree differ from the torch checkpoint's "
+          f"by {np.abs(a['probs'] - b['probs']).max():.3e}")
+    for fmt in runs:
+        fwd, dq = runs[fmt]["launches"]["coattn_fwd"], runs[fmt]["launches"]["coattn_bwd_dq"]
+        check(fwd["bf16"] > 0 and dq["bf16"] > 0, f"the flagship resumed from {fmt}: "
+                                                    f"co-attention launches {fwd}, dQ {dq}")
+        del runs[fmt]["probs"]
+    size = os.path.getsize(optax_ckpt)
+    log(f"flagship {INTERP_RUN} with Adam's state in optax's tree ({size / 2**20:.1f} MiB, "
+        f"written in {write_s:.2f} s, read in {flagship_read_s:.2f} s), resumed at epoch "
+        f"{torch_ckpt['epoch']} through auto_resume: {a['seconds']:.2f} s, beside the torch "
+        f"checkpoint's {b['seconds']:.2f} s; every evaluation event, metric and test "
+        f"probability bit-identical; launches fwd {a['launches']['coattn_fwd']}, dQ "
+        f"{a['launches']['coattn_bwd_dq']}; on {card}")
+    return {"modules_present": present, "fixture_read_s": read_s, "zstd": zstd,
+            "sa": {"launches": sa_launches, "seconds": sa_s, "metrics": sa_metrics},
+            "flagship": {"bytes": size, "write_s": write_s, "read_s": flagship_read_s,
+                         "runs": runs}}
+
+
 # ---------------------------------------------------------------- phase 3f
 
 @contextlib.contextmanager
@@ -4557,7 +4856,7 @@ def zoo_flagship(torch, ab, co, device, stores, encoder) -> dict:
     """The full-width flagship (CONCH tower, width 768, 12 layers, bf16) with
     `vlsa_img_encoder_name` `encoder`: one served request of
     BAGS_PER_REQUEST bags, one Adam step on a batch of phase 3h's .npy store
-    in bf16 (buckets up to 16,384, as the zoo's runs); no kernel launched,
+    in bf16 (buckets up to 8,192, as the zoo's runs); no kernel launched,
     finite outputs, the encoder's parameters moved, the frozen tower not."""
     import numpy as np
     from vlsa_tpu_torch.config import serving_config, training_config
@@ -6205,25 +6504,23 @@ def mp_distributed_sa(tmp, device) -> dict:
     import yaml
     from vlsa_tpu_torch.main import read_metrics
     from vlsa_tpu_torch.parallel.multihost import coordinator_port
-    port = coordinator_port()
-    procs, saves = [], []
+    port, held = coordinator_port()
+    procs, saves, outs = [], [], []
     t0 = time.perf_counter()
-    for pid in (0, 1):
-        cfg = dict(LIFECYCLE_SA_CFG, save_path=os.path.join(tmp, f"sa_dist{pid}"),
-                   path_patch=MP_DIST_BAGS, fixed_bucket=MP_DIST_BUCKET, mesh={"data": 2},
-                   distributed={"coordinator_address": f"127.0.0.1:{port}",
-                                "num_processes": 2, "process_id": pid})
-        path = os.path.join(tmp, f"sa_dist{pid}.yaml")
-        with open(path, "w") as f:
-            yaml.safe_dump(cfg, f)
-        saves.append(cfg["save_path"])
-        procs.append(subprocess.Popen([sys.executable, "-m", "vlsa_tpu_torch.main", "--config",
-                                       path, "--handler", "SA", "--device",
-                                       torch_device_type(device)], cwd=ROOT,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True))
-    outs = []
     try:
+        for pid in (0, 1):
+            cfg = dict(LIFECYCLE_SA_CFG, save_path=os.path.join(tmp, f"sa_dist{pid}"),
+                       path_patch=MP_DIST_BAGS, fixed_bucket=MP_DIST_BUCKET, mesh={"data": 2},
+                       distributed={"coordinator_address": f"127.0.0.1:{port}",
+                                    "num_processes": 2, "process_id": pid})
+            path = os.path.join(tmp, f"sa_dist{pid}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            saves.append(cfg["save_path"])
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "vlsa_tpu_torch.main", "--config", path, "--handler",
+                 "SA", "--device", torch_device_type(device)], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for p in procs:
             outs.append(p.communicate(timeout=MP_DIST_TIMEOUT_S)[0])
     finally:
@@ -6231,6 +6528,7 @@ def mp_distributed_sa(tmp, device) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        held.close()
     seconds = time.perf_counter() - t0
     for pid, (p, out) in enumerate(zip(procs, outs)):
         check(p.returncode == 0, f"3t distributed SA process {pid} exited {p.returncode}: "
@@ -6863,6 +7161,7 @@ def main(argv=None) -> int:
             multiprocess = timed("3t", phase_multiprocess, torch, ab, co, device, card)
             flax_ckpt = timed("3s", phase_flax_checkpoint, torch, ab, co, device, card,
                               stores_tmp, kept)
+            resume = timed("3u", phase_resume, torch, ab, co, device, card, stores_tmp, kept)
             zero_shot = timed("3i", phase_zero_shot, torch, ab, co, device, card, stores_tmp)
             interpretation = timed("3j", phase_interpretation, torch, ab, co, device, card,
                                    stores_tmp, kept)
@@ -6886,8 +7185,10 @@ def main(argv=None) -> int:
 
     kernels = []
     # the whole runs' launches: phase 3g's, each of phase 3h's, 3i's, 3j's,
-    # 3k's, 3m's, 3n's and 3p's; 3s's evaluation passes
+    # 3k's, 3m's, 3n's and 3p's, 3u's resumed flagship runs; 3s's evaluation
+    # passes
     runs = [lifecycle_vlsa, lifecycle_sa] + list(store_runs["runs"].values()) \
+        + list(resume["flagship"]["runs"].values()) \
         + list(zero_shot["runs"].values()) + [zero_shot["flagship"]] \
         + list(interpretation["runs"].values()) + list(sa_1024["runs"].values()) \
         + list(sa_2560["runs"].values()) + [optim["run"]] \
@@ -6965,6 +7266,8 @@ def main(argv=None) -> int:
     any_width["abmil_fwd"]["f32"] += (sa_2560["after_runs"]["launches"]["fwd"]["f32"]
                                       + optim["sa_launches"]["fwd"])
     any_width["abmil_bwd"]["f32"] += optim["sa_launches"]["bwd"]
+    for fam in ("abmil_fwd", "abmil_bwd"):  # 3u's resumed SA run at 64-32-12
+        any_width[fam]["f32"] += resume["sa"]["launches"][fam]["f32"]
     any_width["abmil_bwd_dx"] = {"f32": sa_2560["after_runs"]["launches"]["bwd"]["f32_dx"]}
     held = [list(w) for w in ABMIL_WIDTHS]
     for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
@@ -7059,6 +7362,7 @@ def main(argv=None) -> int:
               "interpretation": interpretation, "sa_1024": sa_1024, "sa_2560": sa_2560,
               "optimizers": optim, "zoo": zoo, "clf_text_apis": clf_text,
               "captions": captions, "flax_checkpoint": flax_ckpt, "multiprocess": multiprocess,
+              "resume": resume,
               "query_errors": errs_q,
               "queries": queries, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}

@@ -30,7 +30,6 @@ from vlsa_tpu.models.precision import quantize_vision_tower_weights
 from vlsa_tpu.models.vlsa_build import build_vlsa as jax_build_vlsa
 from vlsa_tpu.runner.ckpt import _filter_tree
 from vlsa_tpu.runner.ckpt import save_checkpoint as jax_save_checkpoint
-from vlsa_tpu_torch.runner.base import _refuse_unported
 from vlsa_tpu_torch.runner.ckpt import load_checkpoint
 from vlsa_tpu_torch.utils.weights import state_dict_from_jax
 
@@ -134,6 +133,21 @@ def test_torch_files_are_still_read_by_torch(tmp_path, zipfile):
     _assert_same_state(got["model"], payload["model"])
 
 
-def test_orbax_backend_is_still_refused():
-    with pytest.raises(NotImplementedError, match=r"orbax.*A\.6c"):
-        _refuse_unported({"ckpt_backend": "orbax"})
+def test_orbax_backend_is_read_as_the_msgpack_one(trees, tmp_path):
+    """vlsa_tpu's orbax backend: `load_checkpoint` finds the `.orbax`
+    directory where vlsa_tpu's does (from the checkpoint's path, or the
+    directory's own) and gives what the msgpack file of the same tree gives
+    (tests/test_torch_orbax.py holds the reader leaf for leaf)."""
+    params = trees["w8a8"]
+    opt_state = optax.adam(1e-3).init(jax.tree.map(jnp.asarray, params))
+    paths = {b: str(tmp_path / f"{b}.ckpt") for b in ("msgpack", "orbax")}
+    for backend, path in paths.items():
+        jax_save_checkpoint(path, 2, params, backend=backend, opt_state=opt_state)
+    assert not os.path.exists(paths["orbax"]) and os.path.isdir(paths["orbax"] + ".orbax")
+    want = load_checkpoint(paths["msgpack"])
+    for path in (paths["orbax"], paths["orbax"] + ".orbax"):
+        got = load_checkpoint(path)
+        assert got["epoch"] == want["epoch"] == 2
+        _assert_same_state(got["model"], want["model"])
+        assert jax.tree_util.tree_structure(got["optax_state"]) == \
+            jax.tree_util.tree_structure(want["optax_state"])

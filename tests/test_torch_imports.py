@@ -1,7 +1,8 @@
 """The port stands alone: no file of vlsa_tpu_torch/, nor chip_smoke.py,
 host_ab.py or abmil_ab.py, imports JAX, Flax, Optax or anything of vlsa_tpu, nor a module that the
 machine with the card lacks (transformers, ml_dtypes, regex, pandas,
-sklearn, wandb); PIL and h5py only when a file needs them."""
+sklearn, wandb, orbax, tensorstore, zstandard); PIL and h5py only when a
+file needs them."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vlsa_tpu", "transformers", "ml_dtypes",
-             "regex", "pandas", "sklearn", "wandb")
+             "regex", "pandas", "sklearn", "wandb", "orbax", "tensorstore", "zstandard")
 
 
 def _port_files():
@@ -64,7 +65,9 @@ def test_extraction_imports_no_pil_or_h5py(module):
 
 
 LIFECYCLE = ("vlsa_tpu_torch.main", "vlsa_tpu_torch.eval", "vlsa_tpu_torch.runner.base",
-             "vlsa_tpu_torch.runner.ckpt", "vlsa_tpu_torch.runner.vlsa",
+             "vlsa_tpu_torch.runner.ckpt", "vlsa_tpu_torch.runner.orbax",
+             "vlsa_tpu_torch.utils.zstd", "vlsa_tpu_torch.optim.optax_state",
+             "vlsa_tpu_torch.runner.vlsa",
              "vlsa_tpu_torch.runner.sa", "vlsa_tpu_torch.optim.schedulers",
              "vlsa_tpu_torch.config_schema", "vlsa_tpu_torch.utils.observability",
              "vlsa_tpu_torch.utils.seed")

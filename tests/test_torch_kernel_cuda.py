@@ -316,9 +316,10 @@ def test_abmil_precise_mode_matches_its_model(device, monkeypatch, widths):
 # CLAM's 512, 4096 at 256 and the largest common bottleneck 1024, widths that
 # pad hid (96, 384, 32, 7) and D (1000, 100, 33, 1), rows that are not
 # 16-byte aligned (bf16 at 100 and 33, int8 at 1000, 100, 33; f32 at 33 and
-# 1), and the domain's corners
+# 1), the domain's corners, and 64-32, the small SA run of the resume fixtures
 ABMIL_ANY_WIDTHS = [(2560, 256), (2560, 512), (4096, 256), (4096, 1024), (1000, 384), (768, 96),
-                    (100, 32), (1536, 1024), (33, 7), (1, 1), (8192, 64), (1001, 1024)]
+                    (100, 32), (1536, 1024), (33, 7), (1, 1), (8192, 64), (1001, 1024),
+                    (64, 32)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])

@@ -27,6 +27,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import sys
 
 import jax
@@ -359,20 +360,49 @@ def test_load_vlsa_from_a_jax_run_directory(vlsa_pair):
         assert torch.equal(got[k], final[k].to(got[k].dtype)), k
 
 
-def test_resume_refuses_jax_optax_state(pair, tmp_path):
-    """vlsa_tpu's last checkpoint holds optax state, which the port does not
-    map onto a torch optimizer: resuming raises and leaves the model as it
-    was."""
+def test_load_vlsa_from_a_jax_orbax_run_directory(vlsa_pair, tmp_path):
+    """The same run directory with its checkpoint in vlsa_tpu's orbax
+    backend (`<name>.ckpt.orbax`, no msgpack file): `load_vlsa_from_run`
+    gives the model the msgpack file gives, bit for bit."""
+    from vlsa_tpu.runner.ckpt import save_checkpoint as jax_save_checkpoint
+    _handler, _metrics, jax_path = vlsa_pair["jax"]
+    run = tmp_path / "orbax_run"
+    run.mkdir()
+    shutil.copy(os.path.join(jax_path, "config.yaml"), run)
+    tree = jax_load_checkpoint(os.path.join(jax_path, "train_model-last.ckpt"))
+    jax_save_checkpoint(str(run / "train_model-last.ckpt"), tree["epoch"], tree["model"],
+                        backend="orbax", opt_state=None)
+    assert not (run / "train_model-last.ckpt").exists()
+    want = load_vlsa_from_run(jax_path, device="cpu").state_dict()
+    got = load_vlsa_from_run(str(run), device="cpu").state_dict()
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_resume_takes_jax_optax_state(pair, tmp_path):
+    """vlsa_tpu's last checkpoint holds optax state: resuming from it puts
+    the checkpoint's weights into the model and Adam's moments, step count
+    and learning rate (halved by ReduceLROnPlateau in both runs) into the
+    torch optimizer, each moment on its parameter in the port's layout."""
     kind, runs = pair
     handler = (VLSAHandler if kind == "vlsa" else SAHandler)(
         dict(runs["port"][0].cfg, save_path=str(tmp_path / "resume")), device="cpu")
     handler.last_ckpt_path = os.path.join(runs["jax"][2], "model-last.ckpt")
-    assert "optax_state" in load_checkpoint(os.path.join(runs["jax"][2],
-                                                         "train_model-last.ckpt"))
-    before = {k: v.clone() for k, v in handler.model.state_dict().items()}
-    with pytest.raises(NotImplementedError, match=r"A\.6c"):
-        handler.resume_model("last", "train")
-    assert all(torch.equal(v, before[k]) for k, v in handler.model.state_dict().items())
+    ckpt = load_checkpoint(os.path.join(runs["jax"][2], "train_model-last.ckpt"))
+    assert handler.resume_model("last", "train") == ckpt["epoch"] == 2
+    got = handler.model.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in ckpt["model"].items())
+    adam = ckpt["optax_state"]["inner_state"]["inner_states"]["train"]["inner_state"]["1"]
+    mu = state_dict_from_jax({k: v for k, v in adam["mu"].items() if v != {}}) \
+        if kind == "sa" else None
+    lr = np.asarray(ckpt["optax_state"]["hyperparams"]["learning_rate"])
+    assert all(np.float32(g["lr"]) == lr for g in handler.optimizer.param_groups)
+    assert lr < runs["port"][0].cfg["opt_lr"]  # the rate both runs halved
+    for group in handler.optimizer.param_groups:
+        for name, p in zip(group["names"], group["params"]):
+            st = handler.optimizer.state[p]
+            assert float(st["step"]) == float(np.asarray(adam["count"])), name
+            if mu is not None:
+                assert torch.equal(st["exp_avg"], mu[name]), name
 
 
 def write_small_config(tmp_path, kind, **overrides):
@@ -425,11 +455,16 @@ def test_main_runs_vlsa_and_refuses_clf(tmp_path):
         port_main.main(["--config", path, "--handler", "CLF", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("key,value,item", [("ckpt_backend", "orbax", "A.6")])
-def test_unported_settings_are_refused(tmp_path, key, value, item):
-    _path, cfg = write_small_config(tmp_path, "vlsa", **{key: value})
-    with pytest.raises(NotImplementedError, match=item):
-        VLSAHandler(cfg, device="cpu")
+@pytest.mark.parametrize("key,value", [("ckpt_backend", "orbax")])
+def test_settings_once_refused_now_run(tmp_path, key, value):
+    """`ckpt_backend: orbax` runs through `python -m vlsa_tpu_torch.main`:
+    the port writes its torch checkpoint under the usual name."""
+    path, cfg = write_small_config(tmp_path, "vlsa", **{key: value})
+    metrics = port_main.main(["--config", path, "--handler", "VLSA", "--device", "cpu"])
+    assert 0.0 <= dict(metrics["test"])["pred_c_index"] <= 1.0
+    saved = torch.load(os.path.join(cfg["save_path"], "train_model-last.ckpt"),
+                       weights_only=True)
+    assert saved["epoch"] == 1 and "optimizer" in saved
 
 
 _BAD_WORLD = {"coordinator_address": "127.0.0.1:1", "num_processes": 3, "process_id": 0}

@@ -25,6 +25,8 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
+import time
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -120,25 +122,109 @@ def _cfg(tmp_path, table, split, name, base=SA_RUN, **changes):
     return str(path), cfg
 
 
+# at most this many processes at once: a grid that starts its own ranks
+# counts its launcher and each rank, and a `distributed` pair goes in one wave
+WAVE_PROCESSES = 6
+WAVE_TIMEOUT = 300  # seconds a wave may take before its processes are killed
+# coordinator ports held from `_pair` until every run has ended (coordinator_port)
+HELD_PORTS = []
+
+
+def _processes(cfg: dict) -> int:
+    mesh = cfg.get("mesh") or {}
+    if cfg.get("distributed") or not mesh:
+        return 1
+    return 1 + mesh.get("data", 1) * mesh.get("model", 1)
+
+
+def _waves(runs: dict) -> list:
+    """The runs in order, in waves of at most WAVE_PROCESSES processes; the
+    two processes of a `distributed` pair in the same wave."""
+    units, pairs = [], {}
+    for name, (_path, cfg) in runs.items():
+        spec = cfg.get("distributed")
+        if spec:
+            key = spec["coordinator_address"]
+            if key not in pairs:
+                pairs[key] = []
+                units.append(pairs[key])
+            pairs[key].append(name)
+        else:
+            units.append([name])
+    waves, size = [[]], 0
+    for unit in units:
+        n = sum(_processes(runs[k][1]) for k in unit)
+        if waves[-1] and size + n > WAVE_PROCESSES:
+            waves.append([])
+            size = 0
+        waves[-1].extend(unit)
+        size += n
+    return waves
+
+
+def _kill(procs: dict) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+    for p in procs.values():
+        p.wait()
+
+
 def _launch(runs: dict, handler: dict) -> dict:
-    """Start every run's `python -m vlsa_tpu_torch.main` at once, wait for
-    all: {name: output}; each must exit 0."""
+    """Every run's `python -m vlsa_tpu_torch.main`, in waves (`_waves`):
+    {name: output}.  Each must exit 0 within its wave's WAVE_TIMEOUT; the
+    wave's processes are polled, and at the first that fails, or at the
+    timeout, every process still running is killed and each failing run is
+    reported with its return code and last lines."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = {k: subprocess.Popen([sys.executable, "-m", "vlsa_tpu_torch.main", "--config", path,
-                                  "--handler", handler.get(k, "SA"), "--device", "cpu"],
-                                 cwd=REPO, env=env, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-             for k, (path, _cfg_) in runs.items()}
-    outs = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
-    for k, p in procs.items():
-        assert p.returncode == 0, (k, outs[k][-4000:])
+    outs = {}
+    try:
+        for wave in _waves(runs):
+            logs = {k: tempfile.TemporaryFile("w+") for k in wave}
+            procs = {}
+            try:
+                for k in wave:
+                    procs[k] = subprocess.Popen(
+                        [sys.executable, "-m", "vlsa_tpu_torch.main", "--config", runs[k][0],
+                         "--handler", handler.get(k, "SA"), "--device", "cpu"], cwd=REPO,
+                        env=env, stdout=logs[k], stderr=subprocess.STDOUT, text=True)
+                deadline = time.monotonic() + WAVE_TIMEOUT
+                while time.monotonic() < deadline:
+                    codes = [p.poll() for p in procs.values()]
+                    if None not in codes or any(c not in (None, 0) for c in codes):
+                        break
+                    time.sleep(0.2)
+                failed = [k for k, p in procs.items() if p.poll() not in (None, 0)]
+                late = [k for k, p in procs.items() if p.poll() is None]
+            finally:
+                _kill(procs)
+                for k, f in logs.items():
+                    f.seek(0)
+                    outs[k] = f.read()
+                    f.close()
+            if failed:
+                pytest.fail(f"runs {failed} failed ({late} were still running and were "
+                            "killed):\n" + _report(procs, outs, failed))
+            if late:
+                pytest.fail(f"runs {late} took more than {WAVE_TIMEOUT} s and were killed:\n"
+                            + _report(procs, outs, late))
+    finally:
+        while HELD_PORTS:
+            HELD_PORTS.pop().close()
     return outs
+
+
+def _report(procs: dict, outs: dict, names: list) -> str:
+    return "\n".join(f"--- {k}: return code {procs[k].returncode}\n{outs.get(k, '')[-3000:]}"
+                     for k in names)
 
 
 def _pair(tmp_path, table, split, name, save_paths=None, **changes):
     """Two `distributed` processes on mesh {data: 2} (each its own save path
-    unless `save_paths` names them)."""
-    port = coordinator_port()
+    unless `save_paths` names them).  The coordinator's port stays held
+    until the runs have ended, so that no other pair is given it."""
+    port, sock = coordinator_port()
+    HELD_PORTS.append(sock)
     return {f"{name}{i}": _cfg(tmp_path, table, split, f"{name}{i}", mesh={"data": 2},
                                distributed={"coordinator_address": f"127.0.0.1:{port}",
                                             "num_processes": 2, "process_id": i},
@@ -155,8 +241,8 @@ RESUME = dict(auto_resume=True, epochs=2)
 
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory):
-    """Every command-line run of (e), started together: the SA as two
-    `distributed` processes and as one; grids that start their own ranks
+    """Every command-line run of (e), in waves of at most WAVE_PROCESSES
+    processes: the SA as two `distributed` processes and as one; grids that start their own ranks
     (SA, VLSA, CLF); the two processes on rank 0's best checkpoint and on
     rank 0's last one (`auto_resume`), and the same runs as one process."""
     from vlsa_tpu_torch.main import run

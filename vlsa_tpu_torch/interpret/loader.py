@@ -5,7 +5,10 @@ The model is rebuilt by `runner.vlsa.build_model` from the `config.yaml`
 the handler saved in the run directory, then its checkpoint
 `<run_name>_model-<ckpt_type>.ckpt` is laid over it with strict=False
 (`runner.ckpt.merge_state`): the frozen text tower, filtered out of the
-checkpoint, keeps its rebuilt weights, as in vlsa_tpu.
+checkpoint, keeps its rebuilt weights, as in vlsa_tpu.  The checkpoint is
+the port's torch file or vlsa_tpu's, msgpack or an orbax directory beside
+that name (`runner.ckpt.load_checkpoint`, as vlsa_tpu/interpret/loader.py:34
+reads it).
 """
 from __future__ import annotations
 

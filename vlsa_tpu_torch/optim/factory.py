@@ -92,15 +92,21 @@ def _base_optimizer(name: str, lr: float, groups: List[dict], **kws) -> torch.op
     return extra.Adahessian(groups, lr, betas=betas, eps=eps)
 
 
+def split_opt_name(opt_name: str) -> Tuple[str, bool]:
+    """(the base optimizer's name, whether `opt_name` is
+    `lookahead_<base>`), lower case."""
+    name = opt_name.lower()
+    parts = name.split("_")
+    lookahead = len(parts) > 1 and parts[0] == "lookahead"
+    return ("_".join(parts[1:]) if lookahead else name), lookahead
+
+
 def create_optimizer(opt_name: str, lr: float, weight_decay: float, model: nn.Module,
                      **kws) -> torch.optim.Optimizer:
     """The optimizer over `model`'s trainable parameters (call
     `frozen_mask_from_cfg` first to freeze some): one of OPTIMIZERS, or
     `lookahead_<one of them>` (adahessian excepted, as in vlsa_tpu)."""
-    name = opt_name.lower()
-    parts = name.split("_")
-    lookahead = len(parts) > 1 and parts[0] == "lookahead"
-    base = "_".join(parts[1:]) if lookahead else name
+    base, lookahead = split_opt_name(opt_name)
     if base not in OPTIMIZERS:
         raise NotImplementedError(f"optimizer {opt_name!r}: vlsa_tpu's factory has {OPTIMIZERS} "
                                   "and lookahead_<one of them>")

@@ -140,18 +140,30 @@ def init_local_rank(rank: int, world: int, rendezvous: str, device=None) -> None
     _init([_place(device)] * world, rank, init_method=rendezvous)
 
 
-def coordinator_port() -> int:
-    """A free port on this host below Linux's ephemeral range (32768 up by
-    default), for a `distributed` dict's coordinator_address: no other
-    process can be handed it by a bind to port 0 or a connect while the
-    ranks start."""
-    for port in random.sample(range(20000, 32000), 200):
-        with socket.socket() as s:
+def coordinator_port() -> Tuple[int, socket.socket]:
+    """(port, socket): a free port on this host below Linux's ephemeral range
+    (32768 up by default), for a `distributed` dict's coordinator_address, no
+    other process being handed it by a bind to port 0 or a connect while the
+    ranks start, and a socket bound to it (SO_REUSEADDR, not listening) that
+    the caller closes once the ranks have ended: until then no other caller
+    of this function takes the port, while rank 0's store (which sets
+    SO_REUSEADDR too) can still bind it.  Drawn from the OS's randomness,
+    not `random`'s global generator, which `seed_everything` seeds: every
+    process seeded alike would draw the same port."""
+    for port in random.SystemRandom().sample(range(20000, 32000), 200):
+        with socket.socket() as s:  # without SO_REUSEADDR: fails where any socket holds it
             try:
                 s.bind(("127.0.0.1", port))
             except OSError:
                 continue
-            return port
+        s = socket.socket()
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            s.close()
+            continue
+        return port, s
     raise RuntimeError("no free port below the ephemeral range")
 
 

@@ -21,11 +21,15 @@ test split once, `run_name` "zero-shot", and write
 `zero-shot_metrics-best.txt` and `<task>_zero-shot_last_pred_test.csv`
 (vlsa_tpu's names) and no checkpoint.  A model with every parameter
 frozen gets no optimizer.  Not ported: wandb (vlsa_tpu leaves it off
-unless VLSA_TPU_DISABLE_WANDB=0; the card's machine has no wandb),
-vlsa_tpu's orbax checkpoints (`ckpt_backend: orbax`) and resuming from a
-vlsa_tpu checkpoint that holds optax state (ROADMAP.md §A.6c); each
-raises.  Checkpoints are written in torch's format; vlsa_tpu's msgpack ones
-are read (runner/ckpt.py).
+unless VLSA_TPU_DISABLE_WANDB=0; the card's machine has no wandb).
+Checkpoints are written in torch's format whatever `ckpt_backend` says;
+vlsa_tpu's msgpack files and orbax directories are read wherever vlsa_tpu
+reads them (runner/ckpt.py).  Resuming from one of them puts its optax
+state into the torch optimizer (optim/optax_state.py): the moments, the
+step counts and the learning rate, which then goes on as vlsa_tpu's does
+(a fresh ReduceLROnPlateau that writes the rate only when it reduces it).
+`auto_resume` looks for the file vlsa_tpu looks for, so it does not find
+an orbax run's `.orbax` directory, as vlsa_tpu does not.
 
 Multi-process runs (vlsa_tpu/runner/base.py:184-262, :398-451): with a
 `mesh` ({data: D, model: M, tensor_parallel, seq_parallel, dcn}) the
@@ -60,6 +64,7 @@ from ..config_schema import validate_config
 from ..data.io import load_init_text, save_prediction_surv
 from ..data.pipeline import release_pinned_batches
 from ..optim import EarlyStopping, ReduceLROnPlateau
+from ..optim.optax_state import load_optax_state
 from ..parallel.collectives import broadcast_object
 from ..parallel.multihost import (collect_global, host_allgather, make_global_batch,
                                   maybe_initialize_distributed, rank_device)
@@ -73,12 +78,6 @@ from .train import Trainer, make_batcher, make_dataset, mesh_parallelism
 
 # the batch entries an evaluation pass sends to the model
 _MODEL_INPUTS = ("feats", "feats_scale", "feats_inv", "mask") + GRAPH_KEYS
-
-
-def _refuse_unported(cfg: dict) -> None:
-    if cfg.get("ckpt_backend", "msgpack") != "msgpack":
-        raise NotImplementedError(f"ckpt_backend {cfg['ckpt_backend']!r}: this port "
-                                  f"writes torch checkpoints only (ROADMAP.md §A.6c)")
 
 
 def setup_mesh(cfg: dict, device=None):
@@ -150,7 +149,6 @@ class BaseHandler:
 
     def __init__(self, cfg: dict, device=None, state_dict: Optional[dict] = None):
         validate_config(cfg, cfg.get("task", ""), strict=cfg.get("strict_config", False))
-        _refuse_unported(cfg)
         self.mesh = setup_mesh(cfg, device)
         self.is_main = self.mesh is None or self.mesh.rank == 0  # writes the run's files
         self.device = rank_device(resolve_device(device))
@@ -510,9 +508,10 @@ class BaseHandler:
     def resume_model(self, ckpt_type: str = "best", run_name: str = "train",
                      missing_ok: bool = False) -> Optional[int]:
         """The model (strict=False: filtered-out modules keep their values)
-        and, when saved, the optimizer's state from a run checkpoint (rank
-        0's, on every rank of a grid); returns its epoch (None where
-        `missing_ok` and there is no such file)."""
+        and, when saved, the optimizer's state (the port's, or vlsa_tpu's
+        optax state) from a run checkpoint (rank 0's, on every rank of a
+        grid); returns its epoch (None where `missing_ok` and there is no
+        such file)."""
         if ckpt_type == "last":
             path = add_prefix_to_filename(self.last_ckpt_path, run_name)
         elif ckpt_type == "best":
@@ -522,14 +521,13 @@ class BaseHandler:
         ckpt = self._read_checkpoint(path, missing_ok)
         if ckpt is None:
             return None
-        if "optax_state" in ckpt:
-            raise NotImplementedError(
-                f"{path} is vlsa_tpu's checkpoint with optax state, which this port does not "
-                f"map onto a torch optimizer (ROADMAP.md §A.6c): resuming without its moments "
-                f"would be another run; evaluate it with test_model instead")
+        if self.optimizer is not None:
+            # first, so that a state that does not fit raises before the model changes
+            if "optax_state" in ckpt:
+                load_optax_state(self.optimizer, self.cfg["opt_name"], ckpt["optax_state"])
+            elif "optimizer" in ckpt:
+                self.optimizer.load_state_dict(ckpt["optimizer"])
         merge_state(self.model, ckpt["model"])
-        if "optimizer" in ckpt and self.optimizer is not None:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
         print(f"[model] resume the network from {ckpt_type}_{run_name} "
               f"at epoch {ckpt['epoch']}...")
         return ckpt["epoch"]

@@ -8,16 +8,19 @@ name contains it, as vlsa_tpu filters its parameter tree's top-level keys:
 with the flagship's `prompt_encoder` the frozen CONCH text tower is not
 saved, and a nested module whose name happens to contain the filter is.
 
-`load_checkpoint` reads that payload and vlsa_tpu's own, told apart by
-content: a torch zip file, or flax's msgpack (`flax.serialization.
-msgpack_serialize` of {"epoch", "model": the parameter tree[, "optimizer":
-optax's state]}, the file vlsa_tpu's runs write under the same names).  A
-flax file's tree comes back as this package's state dict
-(`utils.weights.state_dict_from_jax`), so `test_model`, `resume_model` and
-`interpret.load_vlsa_from_run` take a run directory vlsa_tpu trained.  Its
-optax state is not mapped onto a torch optimizer: `resume_model` refuses
-such a file (ROADMAP.md §A.6c), and vlsa_tpu's orbax backend stays refused
-(`runner/base.py`).
+`load_checkpoint` reads that payload and both of vlsa_tpu's, as vlsa_tpu's
+`load_checkpoint` chooses: an orbax directory at `path + ".orbax"` (or a
+`path` that ends in ".orbax"; `runner/orbax.py` reads it without orbax),
+else a file told apart by content: a torch zip file, or flax's msgpack
+(`flax.serialization.msgpack_serialize` of {"epoch", "model": the parameter
+tree[, "optimizer": optax's state]}).  Either of vlsa_tpu's trees comes
+back through `from_vlsa_tpu`: the parameter tree as this package's state
+dict (`utils.weights.state_dict_from_jax`) and optax's state as
+"optax_state", which `resume_model` puts into the torch optimizer
+(`optim/optax_state.py`).  So `test_model`, `resume_model`, `auto_resume`
+and `interpret.load_vlsa_from_run` take a run directory vlsa_tpu trained,
+with either backend.  The port writes torch files only, whatever
+`ckpt_backend` says.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from torch import nn
 
 from ..utils.weights import state_dict_from_jax
+from .orbax import orbax_dir, read_orbax_checkpoint
 
 # flax's msgpack extension type of an array: packb((shape, dtype name,
 # C-order bytes)); vlsa_tpu saves every leaf as an array
@@ -94,26 +98,33 @@ def _unchunk(tree):
     return {k: _unchunk(v) for k, v in tree.items()}
 
 
-def read_flax_checkpoint(path: str) -> dict:
-    """A checkpoint vlsa_tpu wrote -> {"epoch", "model": this package's state
-    dict[, "optax_state": the optimizer's tree as read]}."""
-    import msgpack
-
-    with open(path, "rb") as f:
-        tree = _unchunk(msgpack.unpackb(f.read(), ext_hook=_flax_leaf, raw=False))
+def from_vlsa_tpu(tree: dict) -> dict:
+    """A checkpoint tree vlsa_tpu saved -> {"epoch", "model": this
+    package's state dict[, "optax_state": the optimizer's tree as read]}."""
     out = {"epoch": tree["epoch"], "model": state_dict_from_jax(tree["model"])}
     if "optimizer" in tree:
         out["optax_state"] = tree["optimizer"]
     return out
 
 
+def read_flax_checkpoint(path: str) -> dict:
+    """The tree of a msgpack checkpoint vlsa_tpu wrote."""
+    import msgpack
+
+    with open(path, "rb") as f:
+        return _unchunk(msgpack.unpackb(f.read(), ext_hook=_flax_leaf, raw=False))
+
+
 def load_checkpoint(path: str) -> dict:
-    """The port's torch checkpoint, or vlsa_tpu's flax msgpack one (see the
-    module's docstring)."""
+    """The port's torch checkpoint, or vlsa_tpu's orbax or msgpack one (see
+    the module's docstring)."""
+    directory = orbax_dir(path)
+    if directory is not None:
+        return from_vlsa_tpu(read_orbax_checkpoint(directory))
     with open(path, "rb") as f:
         head = f.read(1)
     if _is_msgpack_map(head):
-        return read_flax_checkpoint(path)
+        return from_vlsa_tpu(read_flax_checkpoint(path))
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

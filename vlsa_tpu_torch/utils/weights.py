@@ -40,7 +40,7 @@ name, any other 1-D `.weight` was a LayerNorm's `scale`, a 2-D one a Dense
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,17 +72,27 @@ def _permute(arr, axes):
 _CONV_KERNELS = ("proj", "proj1", "proj2", "res_conv_kernel")
 
 
-def _torch_name(path: Tuple[str, ...], arr: np.ndarray):
+def leaf_name(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """A vlsa_tpu leaf's key path and rank -> (this package's name for it,
+    the axes that permute its array into this package's layout; None where
+    the layout is the same).  Optimizer moments of a leaf take the same
+    permutation (optim/optax_state.py)."""
     parts = [("resblocks." + p.split("_", 1)[1]) if p.startswith("resblock_") else p
              for p in path]
-    if parts[-1] in _CONV_KERNELS and arr.ndim == 4:
-        arr = _permute(arr, (3, 2, 0, 1))
+    axes = None
+    if parts[-1] in _CONV_KERNELS and ndim == 4:
+        axes = (3, 2, 0, 1)
     elif parts[-1] == "scale":
         parts[-1] = "weight"
     elif parts[-1] == "kernel":
         parts[-1] = "weight"
-        arr = arr.T
-    return ".".join(parts), arr
+        axes = tuple(reversed(range(ndim)))
+    return ".".join(parts), axes
+
+
+def _torch_name(path: Tuple[str, ...], arr: np.ndarray):
+    name, axes = leaf_name(path, arr.ndim)
+    return name, (arr if axes is None else _permute(arr, axes))
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
