@@ -87,6 +87,21 @@ non-zero and prints no result:
      gap to `coattn_fwd_rounded` printed), the empty bag
      and masked rows as phases 2 and 2e, each call one launch on its query
      route (`LAUNCHES_QUERY_PATH`: "grid", "loop");
+  2g. past the old limits, each route against its plain version at 2c's and
+     2f's tolerances: the ABMIL kernels (every storage and precise bf16,
+     forward and both backwards) at (D, hid) = (10240, 256), (512, 1536)
+     and (9000, 1100), B=2, N=2048, a ragged mask and an empty bag (D past
+     8192 on the "wide" route, `LAUNCHES_ROUTE`: D's vectors in device
+     memory; hid past 1024: b1 and w2 a pass at a time, the backward's
+     column sums in a per-block workspace); the looped dX (f32, bf16) at P
+     = 8,657 and 20,000 (B=2, N=1024, C=512; each query group's stats staged
+     as it comes, the dq partials' blocks capped); the forward and dQ,
+     every variant, at P = 1,048,592 (65,537 query groups, B=1, N=64, C=8:
+     the grid launched a chunk of 65,535 groups at a time, the "chunked"
+     route; f32 dq against the exact function at 2f's f32 dX limit, its
+     largest gap over 8.4 million entries of 8 channels being past 2f's dq
+     limit, beside a product on TF32-rounded operands that must fail it);
+     each storage's and variant's launches counted for the kernels line;
   3. serving: builds the flagship VLSA at the full CONCH width from a seed
      and answers requests of 8 synthetic bags (N~8192 jittered) in every
      storage variant -- 2 in bf16 and 2 in int8 with host 1/||x|| among
@@ -283,7 +298,15 @@ non-zero and prints no result:
      `distributed` dict (mesh {data: 2}), each with its own save path: both
      ranks evaluate rank 0's last checkpoint, which rank 0 alone reads and
      sends on, print the same final metrics, and only rank 0 writes the
-     run's files.  Its launches join the kernels line;
+     run's files.  Then what a mesh ran only on one rank before (ROADMAP.md
+     §A.18), each against one rank's run of the same global steps (the
+     first step's gradients within 2e-3, the losses within 1e-4): one
+     adahessian step of the flagship (its tower in f32) on {data: 2, model:
+     2} with TP and SP and of the SA on {data: 4, model: 1}, every rank
+     and the one rank drawing the same z; 2 steps of the SA's Cox model
+     (SurvPLE) with accum_steps 2 on {4, 1} and {2, 2}, each rank fed its
+     shares of vlsa_tpu's contiguous micro-batches.  Its launches join the
+     kernels line;
   3i. the released CONCH weights and zero-shot: writes a CONCH-format
      `pytorch_model.bin` beside the stores (the text tower under `text.*`
      at its published width: 12 layers of 768, vocabulary 32007, context
@@ -442,7 +465,8 @@ non-zero and prints no result:
      f32-accurate products, the CUDA cores or 3 TF32 tensor-core products;
      beside the bf16 and int8 backward, their design's byte floor (x read
      twice, the bf16 dz workspace -- int8: two planes -- written and read
-     once);
+     once); every storage also on the wide route (2g's) at B=8, N=2048,
+     (10240, 256);
   4c. flash times: at B=64, H=12, bf16 at L = 197 and 785 on the resident
      and the streamed path in turns (resident, streamed, streamed,
      resident), bf16 at L = 1025 (streamed) and f32 at 785, each beside the
@@ -451,11 +475,15 @@ non-zero and prints no result:
      counted) and, for the streamed kernel, its design's floor
      (`floor_flash_streamed`: two sweeps over 64-row and 64-key tiles);
   4d. dX times: both variants of the full backward at B=8, N=10240 (also at
-     P=32 and 64, the looped instance) and bf16
+     P=32 and 64, the looped instance), at B=2, N=1024, P=20,000 (2g's route
+     past 8,656 queries) and bf16
      at the training shape B=32, N=16384, with its block count, beside the
      plain version, the
      gradient of one scaled_dot_product_attention call with respect to q, k
-     and v (library_ms, never called by the port) and the bound (`bound_dx`).
+     and v (library_ms, never called by the port) and the bound (`bound_dx`);
+     then 2g's chunked forward and dQ in bf16 at B=2, N=64, C=8, P=1,048,592
+     as phase 4 times them.  The kernels line lists 2g's routes with
+     "on_main_path" false and their 2g launches as "held_launches".
 
 Each phase's seconds are printed and recorded (`phase_seconds`).  The last
 two lines are the kernels' JSON record and
@@ -986,6 +1014,29 @@ QUERY_COUNTS = (17, 32, 64, 128)
 QUERY_WIDE = dict(B=8, N=10240, C=1024, P=32)
 QUERY_TIMED = (32, 64)
 QUERY_BOUND_P = 128
+# phase 2g: the routes past the old limits.  ABMIL past D = 8192 (the "wide"
+# route: the forward's PV sums and the backward's g in device memory) and
+# past hid = 1024 (more passes, each with its b1 and w2); the looped dX past
+# 8,656 queries (each group's stats staged as it comes, the dq partials'
+# blocks capped); the forward and dQ past 65,535 query groups (launched a
+# chunk of groups at a time).  Phases 4b and 4d time one entry of each
+# (ANY_WIDTH_TIMED_4B, LOOP_TIMED_4D, GRID_TIMED_4D)
+ANY_WIDTHS_2G = ((10240, 256), (512, 1536), (9000, 1100))
+ANY_WIDTH_TIMED_4B = dict(B=8, N=2048, D=10240, H=256)
+LOOP_TIMED_4D = dict(B=2, N=1024, C=512, P=20000)
+GRID_TIMED_4D = dict(B=2, N=64, C=8, P=1_048_576 + 16)  # bag 1 empty (make_inputs)
+GRID_TIMED_VARIANT = "bf16"
+ANY_WIDTH_SHAPE_2G = dict(B=2, N=2048)
+LOOP_QUERIES_2G = (8657, 20000)
+LOOP_SHAPE_2G = dict(B=2, N=1024, C=512)
+GRID_QUERIES_2G = 1_048_576 + 16
+GRID_SHAPE_2G = dict(B=1, N=64, C=8)
+# f32 dq on the chunked route (C = 8, 65,537 groups) against the exact
+# function: 2f's f32 dX limit.  An H100 read 2.78e-6 there, past 2f's dq
+# limit of 2.5e-6: its largest gap over 8.4 million entries, of 8 channels
+# each; a product on operands rounded once to TF32 reads far past this
+# limit, and phase 2g fails if it does not
+TOL_F32_DQ_CHUNKED = TOL_F32_BWD["dx"]
 # phase 3l: the flagship (configs/IFMLE/tcga_blca/cfg_vlsa_conch.yaml) with
 # 32 learned, gated VLFAN queries (33 parameter rows, folded to P = 32 by
 # `effective_query`): served (requests as phase 3's: (feats_dtype, host
@@ -1238,11 +1289,12 @@ def abmil_bwd_with_dz(torch, ab, x, mask, w1, b1, w2, g, out, m, l):
     ws_dw1 = torch.empty(plan["ws_dw1"], **f32)
     ws_db1, ws_dw2 = torch.empty(plan["ws_b"], **f32), torch.empty(plan["ws_b"], **f32)
     w1_ws = torch.empty(plan["w1_bf16"], dtype=torch.bfloat16, device=x.device)
+    ws_sums = ab._empty(plan["ws_sums"], torch.float32, x.device)
     p = ab._ptr
     err = ab._library("abmil_bwd").abmil_bwd(
         p(x), None, p(mask), p(w1), p(b1), p(w2), p(g), p(out), p(m), p(l), B, N, D, hid,
         plan["chunk1"], plan["S1"], plan["chunk2"], plan["S2"], 1, 0, 0, index, p(w1_ws), None,
-        p(ds), p(ws_dw1), p(ws_db1), p(ws_dw2), None, p(dw1), p(db1), p(dw2),
+        p(ds), p(ws_dw1), p(ws_sums), p(ws_db1), p(ws_dw2), None, p(dw1), p(db1), p(dw2),
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err == 0, f"abmil_bwd bf16 at D={D} hid={hid}: cudaError {err}")
     torch.cuda.synchronize()
@@ -1503,7 +1555,8 @@ def abmil_ptxas(ab) -> dict:
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     fwd, bwd = ab._library("abmil_fwd"), ab._library("abmil_bwd")
     smem = {}
-    for D, H in ABMIL_WIDTHS + ABMIL_ANY_WIDTHS + ((64, 64), (2048, 512), (1, 1), (8192, 1024)):
+    for D, H in (ABMIL_WIDTHS + ABMIL_ANY_WIDTHS + ANY_WIDTHS_2G
+                 + ((64, 64), (2048, 512), (1, 1), (8192, 1024), (132104, 8192))):
         for i, s_ in enumerate(ABMIL_STORAGES):
             for precise in ((0, 1) if s_ == "bf16" else (0,)):
                 key = f"{s_}{'_precise' if precise else ''}_D{D}_h{H}"
@@ -1825,6 +1878,117 @@ def phase_query_kernels(torch, co):
             del q, x, mask, g, _dx
         torch.cuda.empty_cache()
     return errs
+
+
+# ---------------------------------------------------------------- phase 2g
+
+def phase_any_width_and_queries(torch, ab, co):
+    """The routes past the old limits, each against its plain version at
+    phase 2c's and 2f's tolerances: ABMIL (every storage and precise bf16,
+    forward and both backwards) at each of ANY_WIDTHS_2G (B=2, N=2048: a
+    ragged mask and an empty bag), "wide" past D = 8192 (`ab.route`); the
+    looped dX (f32, bf16) at LOOP_QUERIES_2G (B=2, N=1024, C=512); the
+    forward and dQ, every variant, at GRID_QUERIES_2G queries (65,537 groups
+    of 16, B=1, N=64, C=8: past one launch's 65,535), each call on the
+    "chunked" query route (f32 against the exact function: the forward at
+    TOL_F32_FWD, dq at TOL_F32_DQ_CHUNKED, beside a TF32-only control that
+    must fail that limit).  Returns the errors and the launches of each
+    route, storage and variant."""
+    exact = dict(dtype=torch.float64)
+    errs, launches = {}, {}
+    before = (dict(ab.LAUNCHES_ROUTE), dict(ab.LAUNCHES_BWD_ROUTE))
+    wide = {"abmil_fwd": dict.fromkeys(ABMIL_STORAGES, 0), "abmil_bwd": dict.fromkeys(
+        ABMIL_STORAGES, 0), "abmil_bwd_dx": dict.fromkeys(DX_STORAGES, 0)}
+    for D, H in ANY_WIDTHS_2G:
+        for s_ in ABMIL_STORAGES:
+            inputs = make_abmil_inputs(torch, **ANY_WIDTH_SHAPE_2G, storage=s_, D=D, H=H)
+            counts = (dict(ab.LAUNCHES), dict(ab.LAUNCHES_BWD))
+            errs[f"{s_}_D{D}_h{H}"], _stats = hold_abmil(torch, ab, *inputs, s_,
+                                                        "at B=2 N=2048")
+            if ab.route(inputs[0].dtype, D, H) == "wide":
+                wide["abmil_fwd"][s_] += ab.LAUNCHES[s_] - counts[0][s_]
+                wide["abmil_bwd"][s_] += ab.LAUNCHES_BWD[s_] - counts[1][s_]
+                if s_ in wide["abmil_bwd_dx"]:
+                    wide["abmil_bwd_dx"][s_] += (ab.LAUNCHES_BWD[f"{s_}_dx"]
+                                                 - counts[1][f"{s_}_dx"])
+            del inputs, _stats
+        x, _xs, mask, w1, b1, w2, g = make_abmil_inputs(torch, **ANY_WIDTH_SHAPE_2G,
+                                                        storage="bf16", D=D, H=H)
+        errs[f"bf16_precise_D{D}_h{H}"], _stats = hold_abmil_precise(
+            torch, ab, x, mask, w1, b1, w2, g, "at B=2 N=2048")
+        del x, mask, w1, b1, w2, g, _stats
+        torch.cuda.empty_cache()
+    launches["abmil"] = {"fwd": count_delta(ab.LAUNCHES_ROUTE, before[0]),
+                         "bwd": count_delta(ab.LAUNCHES_BWD_ROUTE, before[1])}
+    launches["abmil_wide"] = wide
+    check(launches["abmil"]["fwd"]["wide"] > 0 and launches["abmil"]["bwd"]["wide"] > 0,
+          f"no ABMIL call took the wide route: {launches['abmil']}")
+    sh = LOOP_SHAPE_2G
+    paths = dict(co.LAUNCHES_QUERY_PATH)
+    launches["dx"] = {s_: {} for s_ in DX_STORAGES}
+    for P in LOOP_QUERIES_2G:
+        for s_ in DX_STORAGES:
+            q, x, mask, _xs, _xi = make_inputs(torch, sh["B"], sh["N"], sh["C"], P, variant=s_,
+                                               keep_masked=True)
+            g = make_cotangent(torch, sh["B"], P, sh["C"])
+            plan = co.kernel_plan("coattn_bwd_dx", x.dtype, sh["B"], sh["N"], SM_COUNT,
+                                  sh["C"], P)
+            n_dx = co.LAUNCHES_DX[s_]
+            errs[f"dx[{s_}] P={P}"], _dx = hold_dx(
+                torch, co, s_, q, x, mask, g, f"at B={sh['B']} N={sh['N']} P={P}", tight=True,
+                exact=True)
+            launches["dx"][s_][P] = co.LAUNCHES_DX[s_] - n_dx
+            errs[f"dx[{s_}] P={P}"]["blocks"] = plan["blocks"]
+            del q, x, mask, g, _dx
+            torch.cuda.empty_cache()
+    sh, P = GRID_SHAPE_2G, GRID_QUERIES_2G
+    launches["chunked"] = {}
+    for v in VARIANTS:
+        q, x, mask, xs, xi = make_inputs(torch, 2, sh["N"], sh["C"], P, variant=v)
+        x, mask = x[:1].contiguous(), mask[:1].contiguous()  # the bag that is not empty
+        xs = None if xs is None else xs[:1].contiguous()
+        xi = None if xi is None else xi[:1].contiguous()
+        f32 = storage_of(v) == "f32"
+        counts = (co.LAUNCHES[v], co.LAUNCHES_BWD[v])
+        out, m, l = co.coattn_fwd(q, x, mask, SCALE, xs, xi)
+        g = make_cotangent(torch, 1, P, sh["C"])
+        dq = co.coattn_bwd_dq(q, x, mask, SCALE, g, out, m, l, xs, xi)
+        torch.cuda.synchronize()
+        launches["chunked"][v] = {"fwd": co.LAUNCHES[v] - counts[0],
+                                  "dq": co.LAUNCHES_BWD[v] - counts[1]}
+        where = f"{v} B=1 N={sh['N']} C={sh['C']} P={P}" + (" (exact)" if f32 else "")
+        ref = co.coattn_pool_reference(q, x, mask, SCALE, xs, **(exact if f32 else {}))
+        rec = {"fwd": hold(f"kernel {where}", out, ref,
+                           TOL_F32_FWD if f32 else TOL[storage_of(v)])}
+        del ref
+        ref_dq = co.coattn_bwd_dq_reference(q, x, mask, SCALE, g, out, m, l, xs, xi,
+                                            **(exact if f32 else {}))
+        rec["dq"] = hold(f"dq kernel {where}", dq, ref_dq,
+                         TOL_F32_DQ_CHUNKED if f32 else TOL_DQ[storage_of(v)])
+        if f32:
+            # the limit must still tell split TF32 from one TF32 pass: the
+            # same function on operands rounded to TF32, in float64
+            rec["dq"]["plain_f32_rel_err"] = rel_err(co.coattn_bwd_dq_reference(
+                q, x, mask, SCALE, g, out, m, l, xs, xi), ref_dq)
+            rec["dq"]["tf32_control_rel_err"] = rel_err(co.coattn_bwd_dq_reference(
+                tf32_rounded(torch, q), tf32_rounded(torch, x), mask, SCALE,
+                tf32_rounded(torch, g), out, m, l, xs, xi, **exact), ref_dq)
+            log(f"  dq {where}: the plain f32 version {rec['dq']['plain_f32_rel_err']:.3e} "
+                f"from the exact function, a TF32-only product "
+                f"{rec['dq']['tf32_control_rel_err']:.3e} (must exceed {TOL_F32_DQ_CHUNKED:g})")
+            check(rec["dq"]["tf32_control_rel_err"] > TOL_F32_DQ_CHUNKED,
+                  f"dq {where}: a TF32-only product ({rec['dq']['tf32_control_rel_err']:.3e}) "
+                  f"would pass the limit {TOL_F32_DQ_CHUNKED:g}")
+        check(launches["chunked"][v] == {"fwd": 1, "dq": 1},
+              f"{v} P={P}: the kernels' launches {launches['chunked'][v]}, not one each")
+        errs[f"{v} P={P}"] = rec
+        del q, x, mask, xs, xi, out, m, l, g, dq, ref_dq
+        torch.cuda.empty_cache()
+    launches["queries"] = count_delta(co.LAUNCHES_QUERY_PATH, paths)
+    want = {"loop": len(LOOP_QUERIES_2G) * len(DX_STORAGES), "chunked": 2 * len(VARIANTS)}
+    check(all(launches["queries"][k] == n for k, n in want.items()),
+          f"query routes {launches['queries']}, expected {want}")
+    return {"errors": errs, "launches": launches}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2450,6 +2614,14 @@ class OnePatient:
 
 def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def tf32_rounded(torch, t):
+    """f32 `t` rounded to TF32 (10 mantissa bits, to nearest even), as one
+    TF32 tensor-core pass takes its operands."""
+    b = t.float().contiguous().view(torch.int32)
+    b = (b + 0xFFF + ((b >> 13) & 1)) & -0x2000
+    return b.view(torch.float32)
 
 
 def write_tile_slides(src, rng):
@@ -6056,7 +6228,7 @@ def phase_queries(torch, ab, co, device, card, tmp):
     log(f"P=32 served {len(served)} requests: launches {serve_launches}, query routes "
         f"{serve_paths}")
     check(serve_launches == expected and serve_paths == {"single": 0, "grid": len(served),
-                                                         "loop": 0},
+                                                         "chunked": 0, "loop": 0},
           f"P=32 serving launches {serve_launches} {serve_paths}, expected {expected}")
     serve_dev = 0.0
     with plain_coattention():
@@ -6080,7 +6252,7 @@ def phase_queries(torch, ab, co, device, card, tmp):
                     via_main=True)
     n_run = sum(run["launches"]["coattn_fwd"].values()) \
         + sum(run["launches"]["coattn_bwd_dq"].values())
-    check(run["after"] == {"single": 0, "grid": n_run, "loop": 0},
+    check(run["after"] == {"single": 0, "grid": n_run, "chunked": 0, "loop": 0},
           f"P=32 run: query routes {run['after']}, expected {n_run} grid launches")
     shutil.rmtree(os.path.join(tmp, QUERIES_RUN[0]), ignore_errors=True)
 
@@ -6095,7 +6267,7 @@ def phase_queries(torch, ab, co, device, card, tmp):
     with f32_text_tower(torch, trainer.model.prompt_encoder):
         co.reset_launches()
         g_kernel = param_grads(torch, trainer.model, trainer.engine, b)
-        check(co.LAUNCHES_QUERY_PATH == {"single": 0, "grid": 2, "loop": 0},
+        check(co.LAUNCHES_QUERY_PATH == {"single": 0, "grid": 2, "chunked": 0, "loop": 0},
               f"P=32 gradient: query routes {co.LAUNCHES_QUERY_PATH}")
         with plain_coattention():
             dev_dq = grad_devs(g_kernel, param_grads(torch, trainer.model, trainer.engine, b),
@@ -6152,7 +6324,7 @@ def phase_queries(torch, ab, co, device, card, tmp):
     check(fp_launches["fwd"] == dict(dict.fromkeys(VARIANTS, 0), bf16=n)
           and fp_launches["dx"] == {"f32": 0, "bf16": n}
           and sum(fp_launches["bwd"].values()) == 0
-          and fp_paths == {"single": 0, "grid": n, "loop": n},
+          and fp_paths == {"single": 0, "grid": n, "chunked": 0, "loop": n},
           f"P=32 feat-proj launches {fp_launches}, query routes {fp_paths}")
     b = queries_batch(torch, batches, device, K)
     with f32_text_tower(torch, model.prompt_encoder):
@@ -6229,8 +6401,35 @@ TOL_MP_LOSS = 1e-4  # the SA grid's losses against one rank's (relative)
 MP_DIST_BAGS = "synthetic://N=128,D=512,seed=7"
 MP_DIST_BUCKET = 1152
 MP_DIST_TIMEOUT_S = 300
-MP_REDUCED = {"epochs": "10 -> 2 steps and one evaluation pass (the two-process run: 1 epoch)",
+MP_REDUCED = {"epochs": "10 -> 2 steps and one evaluation pass (the two-process run: 1 epoch;"
+                        " the MP_A18_RUNS: 2 steps, no evaluation)",
               "bag N": "~8192 -> ~512 (two-process run ~128), one fixed bucket"}
+# what a mesh ran only on one rank before (ROADMAP.md §A.18), each run
+# held against one rank's run of the same global steps (the first step's
+# gradients and Hessian estimate within TOL_GRAD, the losses within
+# TOL_MP_LOSS): 2 adahessian steps of the flagship (the tower in f32: bf16's
+# rounding flips would blur the check) on {data: 2, model: 2} with TP and
+# SP, and of the SA on {data: 4, model: 1}, every rank and the one rank
+# drawing the same z (the engine's generator, one seed, the optimizer's
+# parameter order; the second loss follows the first update, H z's); and 2
+# steps of the SA's Cox model (SurvPLE, which couples the bags) with
+# accum_steps 2 on {4, 1} and {2, 2}, each rank fed its shares of vlsa_tpu's
+# contiguous micro-batches.  (name, kind, changes, mesh, steps)
+MP_PLE = dict(loss_type="SurvPLE", time_format="origin", evaluator="Cox",
+              net_output_converter=None, net_dims="512-256-1")
+# the leaf a loss is invariant to: the Cox likelihood of a shift of every
+# risk (the output bias) is the same, so that leaf's gradient is f32
+# rounding noise, some 1e-6 of the largest gradient: it is held against the
+# model's largest gradient, at TOL_GRAD, and must stay below MP_SHIFT_NOISE
+# of it
+MP_SHIFT_LEAF = {"SurvPLE": "g.bias"}
+MP_SHIFT_NOISE = 1e-5
+MP_A18_RUNS = (
+    ("vlsa_adahessian", "vlsa_f32", dict(opt_name="adahessian"), {"data": 2, "model": 2}, 2),
+    ("sa_adahessian", "sa", dict(opt_name="adahessian"), {"data": 4, "model": 1}, 2),
+    ("sa_ple_accum_4x1", "sa", dict(MP_PLE, accum_steps=2), {"data": 4, "model": 1}, 2),
+    ("sa_ple_accum_2x2", "sa", dict(MP_PLE, accum_steps=2), {"data": 2, "model": 2}, 2),
+)
 
 
 def phase_tol(family: str, quantity: str, storage: str) -> float:
@@ -6280,7 +6479,11 @@ def launch_counts(ab, co) -> dict:
 
 
 def launch_delta(after: dict, before: dict) -> dict:
-    return {fam: {v: n - before[fam][v] for v, n in c.items()} for fam, c in after.items()}
+    return {fam: count_delta(c, before[fam]) for fam, c in after.items()}
+
+
+def count_delta(after: dict, before: dict) -> dict:
+    return {k: n - before[k] for k, n in after.items()}
 
 
 def mp_slices(mesh, B, N):
@@ -6389,25 +6592,28 @@ def mp_abmil_case(torch, ab, co, mesh, grid, storage, dx, device) -> dict:
     return {"errors": errs, "launches": launches}
 
 
-def mp_cfg(kind: str, root: str, name: str, mesh: bool) -> dict:
+def mp_cfg(kind: str, root: str, name: str, mesh, **changes) -> dict:
     """The flagship (bf16 features and text tower; "vlsa_f32": the tower
     in f32) or the SA (f32) run of phase 3g at MP_BAGS in one fixed bucket,
-    evaluated in batches of 32; `mesh`: on MP_MESH."""
+    evaluated in batches of 32, with `changes`; `mesh`: on MP_MESH (True)
+    or on the grid it gives."""
     base = LIFECYCLE_SA_CFG if kind == "sa" else LIFECYCLE_VLSA_CFG
     cfg = dict(base, save_path=os.path.join(root, name), path_patch=MP_BAGS,
-               fixed_bucket=MP_BUCKET, eval_batch_size=32)
+               fixed_bucket=MP_BUCKET, eval_batch_size=32, **changes)
     if kind == "vlsa_f32":
         cfg["vlsa_txt_encoder_dtype"] = "float32"
     if mesh:
-        cfg["mesh"] = dict(MP_MESH)
+        cfg["mesh"] = dict(MP_MESH if mesh is True else mesh)
     return cfg
 
 
-def mp_steps(torch, ab, co, device, cfg) -> dict:
-    """MP_STEPS training steps of 32 bags and one evaluation pass of the
-    test split through the handler (on a mesh when `cfg` has one): the
-    losses, each step's ms and collective seconds, the evaluation's
-    seconds and metrics, the kernels' launches."""
+def mp_steps(torch, ab, co, device, cfg, n_steps=MP_STEPS, evaluate=True) -> dict:
+    """`n_steps` training steps of 32 bags and (`evaluate`) one evaluation
+    pass of the test split through the handler (on a mesh when `cfg` has
+    one): the losses, each step's ms and collective seconds, the first
+    step's gradients and (adahessian) the Hessian estimate it handed the
+    optimizer, the evaluation's seconds and metrics, the kernels'
+    launches."""
     from vlsa_tpu_torch.data.pipeline import release_pinned_batches
     from vlsa_tpu_torch.parallel.collectives import COLLECTIVES, reset_collectives
     from vlsa_tpu_torch.runner.sa import SAHandler
@@ -6420,9 +6626,18 @@ def mp_steps(torch, ab, co, device, cfg) -> dict:
     co.reset_launches()
     ab.reset_launches()
     reset_collectives()
-    steps, grads = [], None
+    steps, grads, kept = [], None, {}
+    if handler.engine.needs_hessian:  # the first step's Hessian estimate, by name
+        names = {id(p): n for n, p in handler.model.named_parameters()}
+        opt_step = handler.engine.optimizer.step
+
+        def keep_hessian(*args, hessian=None, **kws):
+            kept.setdefault("hessian", {names[id(p)]: h.detach().float().cpu()
+                                        for p, h in hessian.items()})
+            return opt_step(*args, hessian=hessian, **kws)
+        handler.engine.optimizer.step = keep_hessian
     try:
-        for _ in range(MP_STEPS):
+        for _ in range(n_steps):
             batch = next(batches)
             sync(torch, device)
             t, c0 = time.perf_counter(), COLLECTIVES["seconds"]
@@ -6436,21 +6651,22 @@ def mp_steps(torch, ab, co, device, cfg) -> dict:
                          for n, p in handler.model.named_parameters() if p.grad is not None}
     finally:
         batches.close()
-    test_set = handler.prepare_dataset(handler.data_split["test"], "test")
-    handler.uid["test"] = test_set.uid
-    t, c0 = time.perf_counter(), COLLECTIVES["seconds"]
-    cltor = handler.test_model(test_set, "test")["pred"]
-    eval_s, eval_coll = time.perf_counter() - t, COLLECTIVES["seconds"] - c0
-    metrics = handler.evaluator.compute(cltor, handler.metrics_list, **handler.eval_kws())
-    launches = launch_counts(ab, co)
-    release_pinned_batches()
     mesh = handler.mesh
-    return {"losses": [s["loss"] for s in steps], "steps": steps, "grads": grads,
-            "eval_s": eval_s,
-            "eval_collective_s": eval_coll,
-            "metrics": {k: float(v) for k, v in metrics.items()}, "launches": launches,
-            "bags_evaluated": int(len(cltor["uid"])),
-            "layout": "one rank" if mesh is None else f"data={mesh.n_data} model={mesh.n_model}"}
+    out = {"losses": [s["loss"] for s in steps], "steps": steps, "grads": grads,
+           "hessian": kept.get("hessian"),
+           "layout": "one rank" if mesh is None else f"data={mesh.n_data} model={mesh.n_model}"}
+    if evaluate:
+        test_set = handler.prepare_dataset(handler.data_split["test"], "test")
+        handler.uid["test"] = test_set.uid
+        t, c0 = time.perf_counter(), COLLECTIVES["seconds"]
+        cltor = handler.test_model(test_set, "test")["pred"]
+        out.update(eval_s=time.perf_counter() - t, eval_collective_s=COLLECTIVES["seconds"] - c0,
+                   bags_evaluated=int(len(cltor["uid"])))
+        metrics = handler.evaluator.compute(cltor, handler.metrics_list, **handler.eval_kws())
+        out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["launches"] = launch_counts(ab, co)
+    release_pinned_batches()
+    return out
 
 
 def mp_rank(rank: int, world: int, rendezvous: str, root: str, device_type: str = "cuda") -> None:
@@ -6486,6 +6702,12 @@ def mp_rank(rank: int, world: int, rendezvous: str, root: str, device_type: str 
             record["runs"][kind] = mp_steps(torch, ab, co, device,
                                             mp_cfg(kind, root, f"{kind}_grid", True))
             record[f"{kind}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name, kind, changes, grid, n_steps in MP_A18_RUNS:
+            record["runs"][name] = mp_steps(torch, ab, co, device,
+                                            mp_cfg(kind, root, f"{name}_grid", grid, **changes),
+                                            n_steps=n_steps, evaluate=False)
+        record["a18_s"] = time.perf_counter() - t0
         torch.save(record, os.path.join(root, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -6582,6 +6804,70 @@ def mp_bf16_tower(grid, one, one_f32) -> dict:
     return out
 
 
+def mp_a18_held(torch, ab, co, device, tmp, ranks) -> dict:
+    """Each of MP_A18_RUNS on the grid (every rank's losses, first-step
+    gradients and Hessian estimates the same) against one rank's run of the
+    same global steps: the losses within TOL_MP_LOSS, the first step's
+    gradients and (adahessian) Hessian estimate within TOL_GRAD (max|a - b|
+    / max|b|, each parameter; MP_SHIFT_LEAF against the largest
+    gradient)."""
+    held = {}
+    for name, kind, changes, _grid, n_steps in MP_A18_RUNS:
+        grid = [r["runs"][name] for r in ranks]
+        for r in grid[1:]:
+            check(r["losses"] == grid[0]["losses"] and r["grads"].keys() == grid[0]["grads"].keys()
+                  and all(torch.equal(r["grads"][n], grid[0]["grads"][n]) for n in r["grads"]),
+                  f"3t {name}: the ranks disagree")
+        one = mp_steps(torch, ab, co, device, mp_cfg(kind, tmp, f"{name}_one", False, **changes),
+                       n_steps=n_steps, evaluate=False)
+        g, o = grid[0], one
+        check(g["grads"].keys() == o["grads"].keys() and g["grads"],
+              f"3t {name}: the grid and one rank train other parameters")
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], o["losses"]))
+        grad_gaps = {n: rel_gap(g["grads"][n], o["grads"][n]) for n in o["grads"]}
+        shift = MP_SHIFT_LEAF.get(changes.get("loss_type"))
+        if shift is not None:
+            top = max(float(t.abs().max()) for t in o["grads"].values())
+            noise = float(o["grads"][shift].abs().max()) / top
+            grad_gaps[shift] = float((g["grads"][shift] - o["grads"][shift]).abs().max()) / top
+            log(f"3t {name}: {shift}, the shift the loss is invariant to: its gradient "
+                f"{noise:.2e} of the largest (at most {MP_SHIFT_NOISE:g}), held against the "
+                f"largest")
+            check(noise <= MP_SHIFT_NOISE, f"3t {name}: {shift}'s gradient is {noise:.2e} of "
+                                           f"the largest, not rounding noise")
+        worst = max(grad_gaps, key=grad_gaps.get)
+        log(f"3t {name} ({g['layout']}, {n_steps} steps): losses grid {g['losses']} one rank "
+            f"{o['losses']} (gap {loss_gap:.2e}, tol {TOL_MP_LOSS}); first step's gradients: "
+            f"{len(grad_gaps)}, the farthest {worst} {grad_gaps[worst]:.2e} (tol {TOL_GRAD})")
+        check(len(g["losses"]) == n_steps == len(o["losses"]), f"3t {name}: steps")
+        check(loss_gap <= TOL_MP_LOSS, f"3t {name}: the grid's losses are {loss_gap:.2e} off "
+                                       f"one rank's")
+        check(grad_gaps[worst] <= TOL_GRAD, f"3t {name}: gradient {worst} is "
+                                            f"{grad_gaps[worst]:.2e} off one rank's")
+        held[name] = {"losses_grid": g["losses"], "losses_one": o["losses"],
+                      "loss_gap": loss_gap, "grad_gap_max": grad_gaps[worst],
+                      "grad_gap_leaf": worst, "steps_grid": g["steps"], "steps_one": o["steps"],
+                      "layout": g["layout"]}
+        if changes.get("opt_name") == "adahessian":
+            for r in grid[1:]:
+                check(all(torch.equal(r["hessian"][n], grid[0]["hessian"][n])
+                          for n in grid[0]["hessian"]), f"3t {name}: the ranks' Hessian "
+                                                        f"estimates disagree")
+            check(g["hessian"].keys() == o["hessian"].keys()
+                  and any(float(h.abs().max()) > 0 for h in o["hessian"].values()),
+                  f"3t {name}: the grid and one rank estimate other parameters, or only zeros")
+            h_gaps = {n: rel_gap(g["hessian"][n], o["hessian"][n]) for n in o["hessian"]}
+            h_worst = max(h_gaps, key=h_gaps.get)
+            log(f"3t {name}: the first step's Hessian estimates: {len(h_gaps)}, the farthest "
+                f"{h_worst} {h_gaps[h_worst]:.2e} (tol {TOL_GRAD})")
+            check(h_gaps[h_worst] <= TOL_GRAD, f"3t {name}: Hessian estimate {h_worst} is "
+                                               f"{h_gaps[h_worst]:.2e} off one rank's")
+            held[name].update(hessian_gap_max=h_gaps[h_worst], hessian_gap_leaf=h_worst)
+        o.pop("grads")
+        o.pop("hessian")
+    return held
+
+
 def phase_multiprocess(torch, ab, co, device, card) -> dict:
     """Phase 3t: four ranks on the card (`mp_rank`), the same runs on one
     rank here, then the two-process `distributed` SA through the command
@@ -6605,8 +6891,10 @@ def phase_multiprocess(torch, ab, co, device, card) -> dict:
         single = {kind: mp_steps(torch, ab, co, device, mp_cfg(kind, tmp, f"{kind}_one", False))
                   for kind in ("vlsa", "vlsa_f32", "sa")}
         bf16_tower = mp_bf16_tower(ranks[0]["runs"]["vlsa"], single["vlsa"], single["vlsa_f32"])
+        a18 = mp_a18_held(torch, ab, co, device, tmp, ranks)
         for run in [*single.values(), *(r["runs"][k] for r in ranks for k in r["runs"])]:
-            del run["grads"]  # held above; the record stays JSON
+            run.pop("grads", None)  # held above; the record stays JSON
+            run.pop("hessian", None)
         for kind in ("vlsa", "sa"):
             grid = [r["runs"][kind] for r in ranks]
             for r in grid[1:]:
@@ -6633,7 +6921,7 @@ def phase_multiprocess(torch, ab, co, device, card) -> dict:
         launches = {}
         for r in ranks:
             parts = [c["launches"] for c in r["sp"].values()] \
-                + [r["runs"][k]["launches"] for k in ("vlsa", "sa")]
+                + [run["launches"] for run in r["runs"].values()]
             for part in parts:
                 for fam, counts in part.items():
                     for v, n in counts.items():
@@ -6641,10 +6929,10 @@ def phase_multiprocess(torch, ab, co, device, card) -> dict:
                         launches[fam][v] += n
         sp_errs = {k: v["errors"] for k, v in ranks[0]["sp"].items()}
         return {"ranks_s": ranks_s, "ranks": [{k: r[k] for k in ("rank", "device", "sp_s",
-                                                                  "vlsa_s", "sa_s")}
+                                                                  "vlsa_s", "sa_s", "a18_s")}
                                                for r in ranks],
                 "grid": {k: ranks[0]["runs"][k] for k in ("vlsa", "sa")}, "one_rank": single,
-                "bf16_tower": bf16_tower,
+                "bf16_tower": bf16_tower, "a18": a18,
                 "sp_errors_rank0": sp_errs, "distributed_sa": dist_sa, "launches": launches,
                 "reduced": MP_REDUCED, "card": card}
     finally:
@@ -6932,6 +7220,11 @@ def phase_abmil_times(torch, ab):
                                     precise=True).items():
             times["b8"][f"{name}[bf16_precise,D={D},hid={H}]"] = rec
         torch.cuda.empty_cache()
+    times["wide"] = {}  # the wide route (D past 8192), phase 2g's
+    for s in ABMIL_STORAGES:
+        for name, rec in time_abmil(torch, ab, s, **ANY_WIDTH_TIMED_4B).items():
+            times["wide"][f"{name}[{s}]"] = rec
+        torch.cuda.empty_cache()
     for key, recs in times.items():
         for k, t in recs.items():
             gemm = "n/a" if t["gemm_ms"] is None else f"{t['gemm_ms']:.4f} ms"
@@ -7075,11 +7368,16 @@ def time_dx(torch, co, storage, B, N, C, P):
 
 
 def phase_dx_times(torch, co):
-    times = {"b8": {}, "train": {}, **{f"q{P}": {} for P in QUERY_TIMED}}
+    """The dX kernel at SHAPE, TRAIN_SHAPE, QUERY_TIMED and LOOP_TIMED_4D
+    (phase 2g's route past 8,656 queries); then phase 2g's "chunked" forward
+    and dQ (GRID_TIMED_VARIANT at GRID_TIMED_4D), as phase 4 times them."""
+    loop = f"q{LOOP_TIMED_4D['P']}"
+    times = {"b8": {}, "train": {}, **{f"q{P}": {} for P in QUERY_TIMED}, loop: {}}
     for key, storage, shape in (("b8", "f32", SHAPE), ("b8", "bf16", SHAPE),
                                 ("train", "bf16", TRAIN_SHAPE),
                                 *((f"q{P}", s_, dict(SHAPE, P=P))
-                                  for P in QUERY_TIMED for s_ in DX_STORAGES)):
+                                  for P in QUERY_TIMED for s_ in DX_STORAGES),
+                                *((loop, s_, LOOP_TIMED_4D) for s_ in DX_STORAGES)):
         times[key][storage] = t = time_dx(torch, co, storage, **shape)
         torch.cuda.empty_cache()
         log(f"time coattn_bwd_dx[{storage}] B={t['B']:<3d} N={t['N']:<6d} P={t['P']:<3d} "
@@ -7088,6 +7386,14 @@ def phase_dx_times(torch, co):
             f"  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
             f"  kernel/bound {t['ms'] / t['bound_ms']:.1f}x"
             f"  blocks {t['blocks']} of L={t['L']} tiles")
+    v = GRID_TIMED_VARIANT
+    times["chunked"] = {"fwd": time_variant(torch, co, v, **GRID_TIMED_4D),
+                        "dq": time_dq_variant(torch, co, v, **GRID_TIMED_4D)}
+    torch.cuda.empty_cache()
+    for kind, t in times["chunked"].items():
+        log(f"time {kind} chunked B={t['B']} N={t['N']} C={t['C']} P={t['P']} {v} "
+            f"kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library "
+            f"{t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return times
 
 
@@ -7140,6 +7446,7 @@ def main(argv=None) -> int:
         errs_flash, flash_ptxas_lines = timed("2d", phase_flash_kernel, torch, fa)
         errs_dx = timed("2e", phase_dx_kernel, torch, co)
         errs_q = timed("2f", phase_query_kernels, torch, co)
+        any_2g = timed("2g", phase_any_width_and_queries, torch, ab, co)
         serving = timed("3", phase_serving, torch, co, device)
         training = timed("3b", phase_training, torch, co, device)
         sa_serving = timed("3c", phase_sa_serving, torch, ab, co, device)
@@ -7326,6 +7633,47 @@ def main(argv=None) -> int:
                 "bound_by": t["bound_by"].split()[0], "library_ms": None,
                 "widths": [list(w) for w in ABMIL_ANY_WIDTHS], "timed_at": [D, H],
                 "on_main_path": n > 0})
+    # phase 2g's routes past the old limits, which no main path reaches (no
+    # shipped config has D past 8192, hid past 1024 or P past 8,656): held in
+    # 2g (their launches there in "held_launches"), timed in 4b and 4d,
+    # "on_main_path" false, their main-path launches 0
+    held_2g = any_2g["launches"]
+    D, H = ANY_WIDTH_TIMED_4B["D"], ANY_WIDTH_TIMED_4B["H"]
+    for name, storages in (("abmil_fwd", ABMIL_STORAGES), ("abmil_bwd", ABMIL_STORAGES),
+                           ("abmil_bwd_dx", DX_STORAGES)):
+        fwd = name == "abmil_fwd"
+        for s in storages:
+            t = abmil_times["wide"][f"{name}[{s}]"]
+            kernels.append({
+                "name": f"{name}_wide[{s}]", "route": "cuda",
+                "source": SOURCE_ABMIL if fwd else SOURCE_ABMIL_BWD,
+                "replaces": (REPLACES_ABMIL if fwd else REPLACES_ABMIL_BWD)[s], "launches": 0,
+                "max_abs_err": any_2g["errors"][f"{s}_D{D}_h{H}"][name]["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"].split()[0], "library_ms": None,
+                "widths": [list(w) for w in ANY_WIDTHS_2G if w[0] > 8192], "timed_at": [D, H],
+                "on_main_path": False, "held_launches": held_2g["abmil_wide"][name][s]})
+    P = LOOP_TIMED_4D["P"]
+    for s in DX_STORAGES:
+        t = dx_times[f"q{P}"][s]
+        kernels.append({
+            "name": f"coattn_bwd_dx[{s}] P={P}", "route": "cuda", "source": SOURCE_DX,
+            "replaces": REPLACES_DX, "launches": 0,
+            "max_abs_err": any_2g["errors"][f"dx[{s}] P={P}"]["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"].split()[0], "library_ms": t["library_ms"], "queries": P,
+            "on_main_path": False, "held_launches": held_2g["dx"][s][P]})
+    v, P = GRID_TIMED_VARIANT, GRID_TIMED_4D["P"]
+    for kind, name, source, replaces in (("fwd", "coattn_fwd", SOURCE, REPLACES),
+                                         ("dq", "coattn_bwd_dq", SOURCE_DQ, REPLACES_DQ)):
+        t = dx_times["chunked"][kind]
+        kernels.append({
+            "name": f"{name}[{v}] P={P}", "route": "cuda", "source": source,
+            "replaces": replaces[v], "launches": 0,
+            "max_abs_err": any_2g["errors"][f"{v} P={P}"][kind]["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"].split()[0], "library_ms": t["library_ms"], "queries": P,
+            "on_main_path": False, "held_launches": held_2g["chunked"][v][kind]})
     # bf16 on the path flash_plan names (the streamed kernel), timed at the
     # extraction shape; its launches those of both CONCH extraction runs, of
     # phase 3q's w8a8 trunk and of phase 3r's caption trunk
@@ -7363,7 +7711,7 @@ def main(argv=None) -> int:
               "optimizers": optim, "zoo": zoo, "clf_text_apis": clf_text,
               "captions": captions, "flax_checkpoint": flax_ckpt, "multiprocess": multiprocess,
               "resume": resume,
-              "query_errors": errs_q,
+              "query_errors": errs_q, "any_width_and_queries": any_2g,
               "queries": queries, "kernels": kernels,
               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     if args.out:

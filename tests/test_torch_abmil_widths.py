@@ -7,8 +7,10 @@ sources, the refusals outside it, and the launch plans at the new widths.
 Shapes B=3, N=256, a ragged mask and one empty bag, at (D, hid) = (128, 64),
 (192, 128) and (256, 512), and at every width of D in {100, 1000, 2560}
 (2560: Virchow's features) by hid in {32, 96, 384, 1024}, which the kernels
-take since they pad W1 (ANY_WIDTHS); the same numpy inputs go to both
-packages.
+take since they pad W1 (ANY_WIDTHS); and past the kernels' old limits, D =
+8256 > 8192 (their "wide" route) by hid = 1088 > 1024, and hid = 1280 at D
+= 512 (WIDE_WIDTHS), every storage and precise mode; the same numpy inputs
+go to both packages.
 Tolerances (max|a-b| / max|b|), those of tests/test_torch_abmil.py:
   - f32 1e-5: both true f32, the differences are summation order;
   - bf16 1e-4 for out, db1, dw2 (both round W1 to bf16 and accumulate in
@@ -45,7 +47,13 @@ from vlsa_tpu_torch.ops import abmil as pab
 B, N = 3, 256
 WIDTHS = [(128, 64), (192, 128), (256, 512)]
 ANY_WIDTHS = [(D, hid) for D in (100, 1000, 2560) for hid in (32, 96, 384, 1024)]
+WIDE_WIDTHS = [(8256, 1088), (512, 1280)]
 TOL_DW1_BF16 = 5e-4
+# bf16 dW1 past D = 8192: the neighbouring-bf16 dz of TOL_DW1_BF16 come from
+# g . x, which both sides sum over D channels in f32 (vlsa_tpu with g as bf16
+# hi + lo), so more dz sit on the other side of a rounding boundary at
+# D = 8256 (5.5e-4 measured) than at D <= 2560 (at most 2.4e-4)
+TOL_DW1_BF16_WIDE = 1e-3
 CSRC = Path(pab.__file__).parent / "csrc"
 
 
@@ -57,18 +65,20 @@ def interpret():
     ab.INTERPRET = old
 
 
-def _inputs(D, hid, seed=0):
+def _inputs(D, hid, seed=0, batch=B):
+    """x [batch, N, D] and the weights: with batch 3 a full bag, a ragged
+    one and an empty one; with 2 the ragged and the empty one."""
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(B, N, D)).astype(np.float32)
-    mask = np.zeros((B, N), bool)
-    mask[0, :N] = True
-    mask[1, :150] = True
-    mask[1, 40:60] = False
-    x = x * mask[..., None]  # bag 2 is empty
+    x = rng.normal(size=(batch, N, D)).astype(np.float32)
+    mask = np.zeros((batch, N), bool)
+    mask[0, :N] = batch == 3
+    mask[batch - 2, :150] = True
+    mask[batch - 2, 40:60] = False
+    x = x * mask[..., None]  # the last bag is empty
     w1 = (rng.normal(size=(hid, D)) * D ** -0.5).astype(np.float32)
     b1 = (rng.normal(size=hid) * 0.1).astype(np.float32)
     w2 = (rng.normal(size=hid) * hid ** -0.5).astype(np.float32)
-    g = rng.normal(size=(B, D)).astype(np.float32)
+    g = rng.normal(size=(batch, D)).astype(np.float32)
     return x, mask, w1, b1, w2, g
 
 
@@ -136,6 +146,68 @@ def test_int8_plain_version_matches_pallas_at_other_widths(interpret, widths):
     _o, m_r, l_r = pab.abmil_fwd_rounded(*targs, x_scale=_t(s))
     assert np.abs(m_r.numpy()[:2] - np.asarray(stats[:2, 0, 0])).max() <= 2e-6
     assert np.abs(l_r.numpy()[:2] / np.asarray(stats[:2, 0, 1]) - 1).max() <= 2e-6
+
+
+@pytest.mark.parametrize("widths", WIDE_WIDTHS)
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "bf16_precise"])
+def test_plain_versions_match_pallas_past_the_old_limits(interpret, monkeypatch, storage, widths):
+    """Past the kernels' old limits (D = 8256, hid = 1088 and 1280), which
+    vlsa_tpu's kernels, tiling only N, always took: the port's plain
+    versions (those the CUDA kernels are held against on the card, at these
+    widths in chip_smoke.py phase 2g) against the interpret-mode kernels at
+    the tolerances of the other widths: f32 and bf16 as
+    test_plain_versions_match_pallas_at_other_widths, int8 as
+    test_int8_plain_version_matches_pallas_at_other_widths, precise mode's
+    model as test_precise_model_matches_pallas_in_precise_mode (db1 and dw2
+    by their sums' scale)."""
+    D, hid = widths
+    x, mask, w1, b1, w2, g = _inputs(D, hid, seed=5)
+    assert pab.kernel_widths_ok(D, hid)
+    assert pab.route(torch.float32, D, hid) == ("wide" if D > pab._SMEM_D else "general")
+    targs = (_t(mask), _t(w1), _t(b1), _t(w2))
+    if storage == "int8":
+        amax = np.abs(x).max(-1) / 127.0
+        q = np.clip(np.rint(x / np.where(amax > 0, amax, 1.0)[..., None]), -127, 127)
+        q, s = q.astype(np.int8), amax.astype(np.float32)
+        args = (jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2))
+        out_j, stats = ab._abmil_q8_pallas(jnp.asarray(q), jnp.asarray(s), jnp.asarray(mask),
+                                           *args)
+        grads_j = ab._abmil_q8_pallas_bwd(jnp.asarray(q), jnp.asarray(s), jnp.asarray(mask),
+                                          *args, jnp.asarray(g), out_j, stats)
+        out, m, l = pab.abmil_fwd_reference(_t(q), *targs, x_scale=_t(s))
+        assert _rel(out, out_j) <= 1e-3 and torch.all(out[2] == 0)
+        grads = pab.abmil_bwd_reference(_t(q), *targs, _t(g), out, m, l, x_scale=_t(s))[1:]
+        for name, got, want in zip(("dw1", "db1", "dw2"), grads, grads_j):
+            assert _rel(got, want) <= 2e-3, name
+        _o, m_r, l_r = pab.abmil_fwd_rounded(_t(q), *targs, x_scale=_t(s))
+        assert np.abs(m_r.numpy()[:2] - np.asarray(stats[:2, 0, 0])).max() <= 2e-6
+        assert np.abs(l_r.numpy()[:2] / np.asarray(stats[:2, 0, 1]) - 1).max() <= 2e-6
+        return
+    precise = storage == "bf16_precise"
+    monkeypatch.setattr(ab, "_PRECISE", precise)
+    xj = jnp.asarray(x).astype(jnp.float32 if storage == "f32" else jnp.bfloat16)
+    (out_j, m_j, l_j), (dx_j, *grads_j) = _jax_run(xj, mask, w1, b1, w2, g)
+    xt = _t(x).to(torch.float32 if storage == "f32" else torch.bfloat16)
+    if precise:
+        out, m, l = pab.abmil_fwd_rounded(xt, *targs, precise=True)
+        dx, *grads = pab.abmil_bwd_rounded(xt, *targs, _t(g), out, m, l, precise=True)
+        scales = pab.abmil_bwd_sum_scales(xt, *targs, _t(g), out, m, l, precise=True)
+    else:
+        out, m, l = pab.abmil_fwd_reference(xt, *targs)
+        dx, *grads = pab.abmil_bwd_reference(xt, *targs, _t(g), out, m, l)
+    tol = {"f32": 1e-5, "bf16": 1e-4, "bf16_precise": 1e-5}[storage]
+    assert out.shape == (B, D) and _rel(out, out_j) <= tol and torch.all(out[2] == 0)
+    np.testing.assert_allclose(m.numpy()[:2], np.asarray(m_j)[:2], rtol=1e-5)
+    np.testing.assert_allclose(l.numpy()[:2], np.asarray(l_j)[:2], rtol=1e-5)
+    assert _rel(dx.float(), jnp.asarray(dx_j, jnp.float32)) <= (1e-5 if storage == "f32"
+                                                                 else 1e-2)
+    for i, (name, got, want) in enumerate(zip(("dw1", "db1", "dw2"), grads, grads_j)):
+        if precise and name != "dw1":
+            err = float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+            assert err <= 1e-5 * float(scales[i - 1].max()), name
+        else:
+            assert _rel(got, want) <= (TOL_DW1_BF16_WIDE if (storage, name) == ("bf16", "dw1")
+                                       else tol), name
 
 
 @pytest.mark.parametrize("widths", [(64, 32), (192, 128), (256, 512)] + ANY_WIDTHS)
@@ -238,22 +310,40 @@ def _const(src, name):
 
 def test_domain_mirrors_the_kernel_source():
     """`kernel_widths_ok` is the kernels' widths_ok (csrc/abmil_common.cuh):
-    D in [1, kGenMaxD], hid in [1, kGenMaxHid]; the general tile is kGenM;
-    W1's padding (gen_hid_pad, gen_ld) and the pass widths (gen_pass_cols:
-    the widest of 256, 128, 64 dividing the padded hid, up to gen_max_pass:
-    f32 256, int8 128, bf16 and its precise mode 64) are the sources', and
-    the passes the sources instantiate cover them."""
+    any D >= 1 and hid >= 1, and no block's shared memory grows past the
+    card's with them: the general instances hold b1, w2 and the backward's
+    column sums of every column up to kSmemHid (`_SMEM_HID`) padded
+    columns, past that b1 and w2 for one pass (`stage_pass_vecs`, HP
+    values) and the column sums in a per-block workspace (`ws_sums`), and
+    D's vectors up to kSmemD (`_SMEM_D`) channels, past which `route` names
+    the "wide" route; the
+    general tile is kGenM; W1's padding (gen_hid_pad, gen_ld) and the pass
+    widths (gen_pass_cols: the widest of 256, 128, 64 dividing the padded
+    hid, up to gen_max_pass: f32 256, int8 128, bf16 and its precise mode
+    64) are the sources', and the passes the sources instantiate cover
+    them."""
     common = (CSRC / "abmil_common.cuh").read_text()
     fwd = (CSRC / "abmil_fwd.cu").read_text()
     bwd = (CSRC / "abmil_bwd.cu").read_text()
     body = re.search(r"inline bool widths_ok\(int D, int hid\) \{(.*?)\}", common, re.S).group(1)
-    assert "D >= 1 && D <= kGenMaxD && hid >= 1 && hid <= kGenMaxHid" in body
-    assert _const(common, "kGenMaxD") == pab._GEN_MAX_D and _const(common, "kGenM") == pab._GEN_TILE
-    assert _const(common, "kGenMaxHid") == pab._GEN_MAX_HID
-    for D in (0, 1, 63, 64, 100, 2560, 4096, 8192, 8193):
-        for hid in (0, 1, 32, 96, 384, 1024, 1025):
-            want = 1 <= D <= 8192 and 1 <= hid <= 1024
-            assert pab.kernel_widths_ok(D, hid) == want, (D, hid)
+    assert body.strip() == "return D >= 1 && hid >= 1;"
+    assert "kGenMax" not in common + fwd + bwd
+    assert _const(common, "kSmemD") == pab._SMEM_D and _const(common, "kGenM") == pab._GEN_TILE
+    assert _const(common, "kSmemHid") == pab._SMEM_HID
+    assert "return D <= kSmemD;" in common and "return hid_p <= kSmemHid;" in common
+    # the shared memory's sizes: D capped at kSmemD, hid_p's vectors only up
+    # to kSmemHid (else a pass's HP values)
+    assert "static constexpr size_t total(int D, int hid_p) {" in fwd
+    assert "static constexpr size_t total(int D, int hid_p) {" in bwd
+    assert "(hid_in_smem(hid_p) ? hid_p : HP)" in fwd
+    assert "(hid_in_smem(hid_p) ? 6 * (size_t)hid_p : 2 * (size_t)HP)" in bwd
+    assert fwd.count("if (!hid_smem) stage_pass_vecs<HP>(b1, w2, hid, j0, b1s, w2s);") == 1
+    assert bwd.count("if (!hid_smem) stage_pass_vecs<HP>(b1, w2, hid, j0, b1s, w2s);") == 2
+    for D in (0, 1, 63, 64, 100, 2560, 4096, 8192, 8193, 10240, 132104):
+        for hid in (0, 1, 32, 96, 384, 1024, 1025, 1536):
+            assert pab.kernel_widths_ok(D, hid) == (D >= 1 and hid >= 1), (D, hid)
+            if D >= 1 and hid >= 1 and (D, hid) != (512, 256):
+                assert pab.route(torch.float32, D, hid) == ("wide" if D > 8192 else "general")
     assert "return (hid + 63) / 64 * 64;" in common and "return (D + 63) / 64 * 64;" in common
     fwd_hp = {int(h) for h in re.findall(r"launch_general_hp<OP, (\d+)>", fwd)}
     bwd_hp = {int(h) for h in re.findall(r"launch_dz_general_hp<OP, (\d+)>", bwd)}
@@ -265,7 +355,7 @@ def test_domain_mirrors_the_kernel_source():
     assert "return widest >= 128 && hp % 128 == 0 ? 128 : 64;" in cols
     assert "return op == GOp::kF32 ? 256 : (op == GOp::kI8 ? 128 : 64);" in common
     widest = {torch.float32: 256, torch.int8: 128, torch.bfloat16: 64}
-    for hid in range(1, 1025):
+    for hid in range(1, 1601):
         hp = pab.gen_hid_pad(hid)
         assert hp % 64 == 0 and hid <= hp < hid + 64
         for dtype in (torch.float32, torch.bfloat16, torch.int8):
@@ -288,14 +378,21 @@ def _cuda_like(shape, dtype=torch.float32, dim=None):
                                              (512, 1025, None), (9000, 2000, None),
                                              (512, 256, (256,))])
 def test_check_inputs_refuses_widths_outside_the_domain(D, hid, w1_shape):
-    """A CUDA tensor of a width the kernels do not take (D or hid 0 or past
-    the shared memory's limits, or a w1 that is not [hid, D]) raises a
-    ValueError naming the domain and the resource, before anything is
-    launched; a CPU tensor is refused as before (the kernels need a card)."""
+    """A CUDA tensor of a width the kernels do not take (D or hid 0, or a w1
+    that is not [hid, D]) raises a ValueError naming the widths, before
+    anything is launched; the widths past the old shared-memory limits
+    (D 8193 and 9000, hid 1025 and 2000) pass the width check and meet the
+    next argument check; a CPU tensor is refused as before (the kernels need
+    a card)."""
     x = _cuda_like((2, 70, D))
     w1 = _cuda_like(w1_shape or (hid, D))
-    with pytest.raises(ValueError, match=r"D in \[1, 8192\] and hid in \[1, 1024\].*shared memory"):
-        pab._check_inputs(x, None, None, w1, None, None, "abmil_fwd")
+    if D >= 1 and hid >= 1 and w1_shape is None:
+        assert pab.kernel_widths_ok(D, hid)
+        with pytest.raises(AttributeError):  # the width passed; the mask (None) is next
+            pab._check_inputs(x, None, None, w1, None, None, "abmil_fwd")
+    else:
+        with pytest.raises(ValueError, match=r"D >= 1 features and w1 be \[hid >= 1, D\]"):
+            pab._check_inputs(x, None, None, w1, None, None, "abmil_fwd")
     with pytest.raises(ValueError, match="CUDA"):
         pab.abmil_fwd(torch.zeros(2, 70, D), torch.ones(2, 70, dtype=torch.bool),
                       torch.zeros(hid, D), torch.zeros(hid), torch.zeros(hid))
@@ -305,7 +402,8 @@ def test_check_inputs_refuses_widths_outside_the_domain(D, hid, w1_shape):
 
 @pytest.mark.parametrize("widths", [(1024, 256), (768, 128), (1536, 512), (64, 64), (2048, 512),
                                     (512, 128), (2560, 256), (1000, 384), (100, 32), (4096, 1024),
-                                    (33, 7), (8192, 1024)])
+                                    (33, 7), (8192, 1024), (8256, 1088), (512, 1280),
+                                    (10240, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("precise", [False, True])
 def test_plans_at_other_widths(widths, dtype, precise):
@@ -317,7 +415,9 @@ def test_plans_at_other_widths(widths, dtype, precise):
     hi + lo; int8 the forward's int8 split and its scales; f32 the padded
     copy), pass 2's dW1 partials [S2, hid, D] with S2 * dw_tiles about one
     wave of 132 SMs, under 9 MB where the tiles fit a wave (else one
-    chunk), in every storage and mode."""
+    chunk), and past hid_p = 1024 pass 1's column sums [B * S1, 4, hid_p],
+    in every storage and mode; past D = 8192 the "wide" route (the same
+    instances)."""
     D, hid = widths
     n_sm = 132
     bf16p = precise and dtype == torch.bfloat16
@@ -325,7 +425,8 @@ def test_plans_at_other_widths(widths, dtype, precise):
     assert (hp, ld) == (-(-hid // 64) * 64, -(-D // 64) * 64)
     for Bn, Nn in ((8, 10240), (5, 12291), (32, 16384), (1, 5)):
         f = pab.fwd_plan(dtype, Bn, Nn, n_sm, D, hid, precise)
-        assert f["route"] == ("precise" if bf16p else "general") and f["tile"] == 64
+        assert f["route"] == ("precise" if bf16p else "wide" if D > 8192 else "general")
+        assert f["tile"] == 64
         assert f["chunk"] % 64 == 0 and (f["S"] - 1) * f["chunk"] < Nn <= f["S"] * f["chunk"]
         assert f["ws_acc"] == (Bn, f["S"], D)
         assert f["w1_ws"] == {torch.float32: (hp, ld),
@@ -348,6 +449,7 @@ def test_plans_at_other_widths(widths, dtype, precise):
         assert b["w1_i8"] == ((2, hp, ld) if dtype == torch.int8 else None)
         assert b["w1_f32"] == ((hp, ld) if dtype == torch.float32 else None)
         assert b["w1_scale"] == ((65,) if dtype == torch.int8 else None)
+        assert b["ws_sums"] == ((Bn * b["S1"], 4, hp) if hp > pab._SMEM_HID else None)
 
 
 def test_default_width_plans_are_unchanged():
@@ -359,4 +461,5 @@ def test_default_width_plans_are_unchanged():
         b = pab.bwd_plan(dtype, 8, 10240, 132)
         assert b["S2"] == 132 // pab._DW_TILES and b["w1_i8"] is None
         assert b["w1_bf16"] == (None if dtype == torch.float32 else (2, 256, 512))
+        assert b["ws_sums"] is None
     assert pab.fwd_plan(torch.bfloat16, 8, 10240, 132, precise=True)["route"] == "precise"

@@ -394,6 +394,32 @@ def test_vlsa_serves_as_vlsa_tpu(vlsa_pair):
     assert got.shape == (3, 12) and _rel(got.numpy(), want) < 1e-4
 
 
+# the logit scale a CLIP or HF checkpoint brings (`logit_scale` of its file,
+# the log of CLIP's trained 100): chip_smoke.py phase 3p imports it
+IMPORTED_LOGIT_SCALE = 4.5
+
+
+def test_vlsa_serves_as_vlsa_tpu_at_an_imported_logit_scale(vlsa_pair):
+    """Served logits at a checkpoint's logit scale, exp(4.5) = 90, which
+    multiplies any gap of the cosines ~18x over the random tower's initial
+    scale (ROADMAP.md §C): both models built with the scale a checkpoint
+    imports (`logit_scale` in the weights, as `vl_weights` sets it), the
+    logits within test_vlsa_serves_as_vlsa_tpu's 1e-4."""
+    api, jmodel, jparams, sd, port = vlsa_pair
+    jparams = dict(jparams, logit_scale=np.asarray(IMPORTED_LOGIT_SCALE, np.float32))
+    model = port(dict(sd, logit_scale=torch.tensor(IMPORTED_LOGIT_SCALE)))
+    assert float(model.get_logit_scale().detach()) == pytest.approx(np.exp(IMPORTED_LOGIT_SCALE))
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, 200, 512)).astype(np.float32)
+    mask = np.ones((3, 200), bool)
+    mask[1, 120:] = mask[2, 60:] = False
+    x[~mask] = 0.0
+    want, _img, _txt = jmodel.apply({"params": jparams}, jnp.asarray(x), jnp.asarray(mask))
+    with torch.no_grad():
+        got, _img, _txt = model(torch.from_numpy(x), torch.from_numpy(mask))
+    assert got.shape == (3, 12) and _rel(got.numpy(), want) < 1e-4
+
+
 def test_vlsa_training_step_as_vlsa_tpu(vlsa_pair):
     api, jmodel, jparams, sd, port = vlsa_pair
     frozen = jax_frozen_mask(jparams, ["prompt_encoder"])

@@ -251,17 +251,33 @@ def test_looped_dx_groups_sum_to_the_plain_backward(P):
 
 def test_query_plan_mirrors_the_kernel_source():
     """ops/coattn.py's query groups are csrc/'s: kRows rows a group, at most
-    kMaxQueryGroups on a forward or dQ grid, and the looped dX instance's
-    tiles (loop_tile_of)."""
+    kMaxQueryGroups on one launch of a forward or dQ grid, past which both
+    launch a chunk of groups at a time from its first (qz0), so that any P
+    runs ("chunked", `grid_route`); no block's shared memory grows with P
+    (the looped dX instance stages each group's 16 rows of stats, s_row
+    from coattn_srow) and nothing refuses a query count; and the looped dX
+    instance's tiles (loop_tile_of)."""
     csrc = Path(tco.__file__).parent / "csrc"
     common = (csrc / "coattn_common.cuh").read_text()
     bwd = (csrc / "coattn_bwd.cuh").read_text()
+    fwd = (csrc / "coattn_fwd.cu").read_text()
+    dx = (csrc / "coattn_bwd_dx.cu").read_text()
 
     def const(src, name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
     assert const(common, "kRows") == tco._QUERY_ROWS == 16
     assert const(common, "kMaxQueryGroups") == tco._MAX_QUERY_GROUPS
+    chunks = "for (a.qz0 = 0; a.qz0 < qg; a.qz0 += kMaxQueryGroups) {"
+    assert chunks in fwd and chunks in bwd
+    assert "const int q0 = ((int)blockIdx.z + a.qz0) * kRows" in fwd
+    assert "const int qb = LOOP ? 0 : ((int)blockIdx.z + a.qz0) * kRows;" in bwd
+    assert "query_groups_of(P) > kMaxQueryGroups" not in fwd + bwd + dx
+    assert "stat_rows" not in bwd and "total = rows + (size_t)(3 * kRows + 3 * tile) * 4 + tile;" in bwd
+    assert "srow_s[tid] = a.srow[k];" in bwd and "coattn_srow<<<" in bwd
+    assert "loops_groups(P, true) != (ws_srow != nullptr)" in dx
+    assert [tco.grid_route(P) for P in (1, 16, 17, 1_048_560, 1_048_561)] == \
+        ["single", "single", "grid", "grid", "chunked"]
     m = re.search(r"constexpr int loop_tile_of\(int storage\) \{ return storage == kF32 \? (\d+) : (\d+); \}",
                   bwd)
     assert (int(m.group(1)), int(m.group(2))) == (tco._DX_LOOP_TILE[torch.float32],
@@ -303,6 +319,76 @@ def test_query_groups_share_one_wave(P):
             continue
         assert loop["tiles_per_bag"] == -(-Nx // tile)
         assert loop["L"] == -(-Bx * loop["tiles_per_bag"] // n_sm)
+
+
+@pytest.mark.parametrize("C", (8, 16, 512, 1024))
+@pytest.mark.parametrize("P", (12, 32, 8657, 20000, 100_000, 1_048_592))
+def test_dq_workspace_is_capped(P, C):
+    """The backward kernels' dq partials, [blocks, P, C] f32, stay within
+    _DQ_WS_BYTES (or one partial, past it): a large P takes fewer blocks, a
+    query and channel group's ranges still covering every tile once; at
+    the counts the configs and phases run the plan is `fwd_plan`'s as
+    before (the cap lies past them)."""
+    n_sm, Bx, Nx = 132, 8, 10240
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in ("coattn_bwd_dq", "coattn_bwd_dx"):
+            plan = tco.kernel_plan(name, dtype, Bx, Nx, n_sm, C, P)
+            ws = 4 * plan["blocks"] * P * C  # the wrappers' ws_dq [blocks, P, C] f32
+            assert ws <= max(tco._DQ_WS_BYTES, 4 * P * C), (name, plan)
+            total, L = Bx * plan["tiles_per_bag"], plan["L"]
+            assert (plan["blocks"] - 1) * L < total <= plan["blocks"] * L
+            qg = 1 if name == "coattn_bwd_dx" else tco.query_groups(P)
+            uncapped = (tco.fwd_plan(dtype, Bx, Nx, n_sm, C, qg) if name == "coattn_bwd_dq"
+                        else tco.fwd_plan(dtype, Bx, Nx, n_sm, C, tile=tco._DX_LOOP_TILE[dtype]
+                                          if P > 16 else None))
+            if 4 * uncapped["blocks"] * P * C <= tco._DQ_WS_BYTES:
+                assert plan == uncapped
+            else:
+                assert plan["blocks"] == max(1, min(uncapped["blocks"],
+                                                    tco._DQ_WS_BYTES // (4 * P * C)))
+    # the looped dX at the phases' counts and C=512: 60 and 26 blocks of 132
+    for P_, want in ((8657, 60), (20000, 26)):
+        assert tco._DQ_WS_BYTES // (4 * P_ * 512) == want
+
+
+def _past_inputs(storage: str, seed: int = 0):
+    """Inputs past the looped dX instance's old limit: P = 8657 queries, C = 16,
+    B = 2 (a ragged bag and an empty one), N = 128."""
+    rng = np.random.default_rng(seed)
+    P, Bp, Np, Cp = 8657, 2, 128, 16
+    q = rng.normal(size=(P, Cp)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    x = rng.normal(size=(Bp, Np, Cp)).astype(np.float32)
+    mask = rng.random((Bp, Np)) > 0.1
+    mask[-1] = False
+    if storage == "bf16":
+        x = x.astype(ml_dtypes.bfloat16)
+    g = rng.normal(size=(Bp, P, Cp)).astype(np.float32)
+    return q, x, mask, g
+
+
+@pytest.mark.parametrize("storage", ("f32", "bf16"))
+def test_plain_versions_match_pallas_past_8656_queries(storage):
+    """Past 8,656 queries (the looped dX instance's old shared-memory limit)
+    at C = 16: the forward, dQ and dX plain versions -- those the kernels are
+    held against there on the card (chip_smoke.py phase 2g) -- against the
+    interpret-mode Pallas kernels, at the tolerances of
+    test_forward_matches_pallas_kernel and test_dx_matches_pallas_kernel."""
+    q, x, mask, g = _past_inputs(storage)
+    tq, tx, tm, tg = map(_torch, (q, x, mask, g))
+    out, m, l = tco.coattn_fwd_reference(tq, tx, tm, SCALE)
+    assert _rel(out.numpy(), _jax_kernel(q, x, mask, None, None)) < TOL_FWD[storage]
+    assert torch.all(out[-1] == 0)
+    dq = tco.coattn_bwd_dq_reference(tq, tx, tm, SCALE, tg, out, m, l)
+    assert _rel(dq.numpy(), _jax_dq(q, x, mask, None, None, g)) < TOL_DQ[storage]
+    want_dq, want_dx = _jax_grads(q, x, mask, g)
+    dq, dx = tco.coattn_bwd_dx_reference(tq, tx, tm, SCALE, tg, out, m, l)
+    assert _rel(dq.numpy(), want_dq) < TOL_DX_DQ[storage]
+    if storage == "f32":
+        assert _rel(dx.numpy(), want_dx) < 1e-5
+    else:
+        assert np.abs(dx.float().numpy() - want_dx).max() <= _bf16_ulp_of_max(want_dx)
+    assert torch.all(dx[-1] == 0)
 
 
 def _image_cfg(asset_root: str, **changes):

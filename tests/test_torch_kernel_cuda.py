@@ -684,20 +684,37 @@ def test_dx_kernel_many_queries(device, dtype, case):
     assert torch.equal(dq2, dq) and torch.equal(dx2, dx)
 
 
-def test_dx_kernel_refuses_queries_past_its_shared_memory(device):
-    """The looped dX instance keeps every row's softmax stats in shared
-    memory: past 8,656 queries of f32 x a block needs more than an H100's
-    227 KB, a ValueError naming it; 8,656 still runs."""
-    q, x, mask, gout = _dx_inputs(2, 40, 512, 8657, torch.float32, device)
-    out, m, l = co.coattn_fwd(q, x, mask, 30.0)
-    with pytest.raises(ValueError, match="shared memory"):
-        co.coattn_bwd_dx(q, x, mask, 30.0, gout, out, m, l)
-    n = 8656
-    dq, dx = co.coattn_bwd_dx(q[:n].contiguous(), x, mask, 30.0, gout[:, :n].contiguous(),
-                              out[:, :n].contiguous(), m[:, :n].contiguous(),
-                              l[:, :n].contiguous())
-    torch.cuda.synchronize()
-    assert dq.shape == (n, 512) and torch.isfinite(dq).all() and torch.isfinite(dx).all()
+@pytest.mark.parametrize("P", [8657, 20000])
+def test_dx_kernel_refuses_queries_past_its_shared_memory(device, P):
+    """Past its old limit (8,656 queries of f32 x, whose rows' stats no
+    longer fit a block's shared memory) the looped dX instance runs: each
+    query group's stats are staged as it comes, so nothing is refused; at
+    8,657 and 20,000 queries, C = 512, dq within TOL_DX_DQ of the plain
+    version and dX within TOL_F32_BWD of the exact function (f32; bf16 dX
+    within one bf16 ulp), one "loop" launch, with at most
+    _DQ_WS_BYTES of dq partials."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, x, mask, gout = _dx_inputs(2, 300, 512, P, dtype, device, seed=12)
+        out, m, l = co.coattn_fwd(q, x, mask, 30.0)
+        paths = dict(co.LAUNCHES_QUERY_PATH)
+        dq, dx = co.coattn_bwd_dx(q, x, mask, 30.0, gout, out, m, l)
+        torch.cuda.synchronize()
+        assert co.LAUNCHES_QUERY_PATH == dict(paths, loop=paths["loop"] + 1)
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = co.kernel_plan("coattn_bwd_dx", dtype, 2, 300, n_sm, 512, P)
+        assert 4 * plan["blocks"] * P * 512 <= co._DQ_WS_BYTES
+        assert dq.shape == (P, 512) and torch.isfinite(dq).all() and torch.isfinite(dx).all()
+        rdq, rdx = co.coattn_bwd_dx_reference(q, x, mask, 30.0, gout, out, m, l)
+        assert _rel(dq, rdq) <= TOL_DX_DQ[dtype]
+        if dtype == torch.float32:
+            _edq, edx = co.coattn_bwd_dx_reference(q, x, mask, 30.0, gout, out, m, l,
+                                                    dtype=EXACT)
+            assert _rel(dx, edx) <= TOL_F32_BWD["dx"]
+        else:
+            assert float((dx.float() - rdx.float()).abs().max()) <= _bf16_ulp_of_max(rdx)
+        assert torch.all(dx[~mask] == 0) and torch.all(dx[-1] == 0)
+        del q, x, mask, gout, out, m, l, dq, dx, rdq, rdx
+        torch.cuda.empty_cache()
 
 def test_pool_at_32_gated_queries_routes_through_the_kernels(device):
     """VLFAN with 32 learned, gated queries (33 parameter rows, P = 32) on

@@ -21,7 +21,19 @@ module, joined through a file) run, on a data x model grid of {data: 2, model: 2
       the loss, against vlsa_tpu's mesh step and the port's single-process
       step, with the tower in f32 and in bf16 (there beside vlsa_tpu's own
       gap between its mesh and its one device);
-  (d) BagBatcher's per-rank slices against vlsa_tpu's, batch for batch.
+  (d) BagBatcher's per-rank slices against vlsa_tpu's, batch for batch;
+  (e) what a mesh ran only on one device before (ROADMAP.md §A.18): an
+      adahessian step of the SA model on {data: 4, model: 1} and of the
+      tiny flagship on {data: 2, model: 2} with TP and SP (its Hessian
+      estimate through the collectives' own derivatives and the SP pools'
+      plain shard_fn), z drawn from vlsa_tpu's key as
+      tests/test_torch_adahessian.py draws it; and SurvPLE (a loss that
+      couples the bags) with accum_steps 2 on {4, 1} and {2, 2} and 4 on
+      {4, 1} (micro-batches of 2 rows, fewer than the data ranks), each
+      rank fed its shares of vlsa_tpu's contiguous micro-batches
+      (`BagBatcher.micro_rows`), and SurvIFMLE (a loss of each bag) through
+      the same layout; each against vlsa_tpu's TrainEngine (or its
+      Hutchinson estimate) on the same mesh.
 
 The rank workers are module-level functions and import nothing of JAX:
 vlsa_tpu is imported in the test bodies only.
@@ -57,6 +69,19 @@ VL_WEIGHTS = {"SurvIFMLE": 1.0, "SurvEMD": 1.0, "QueryDiv": 0.5}
 LEARNED = ("prompt_learner.context_embeds", "prompt_learner.rank_embeds",
            "query_adapter.residual_features", "mil_encoder.visual_adapter.weight",
            "logit_scale")
+# (e): adahessian's rate and weight decay (tests/test_torch_adahessian.py's),
+# the step's key (its z from fold_in(key, 7), as vlsa_tpu's engine draws it),
+# the flagship estimate's key, and the accumulation cases (grid, accum_steps)
+H_LR, H_WD, H_STEP_KEY, H_VL_KEY = 2e-4, 1e-5, 1, 4
+NOISE_LEAF = "sigma.fc2_bias"  # b2: cancels in the softmax (test_torch_adahessian.py)
+# (grid, accum_steps, ragged batch): at accum_steps 4 the ragged batch's last
+# micro-batch (rows 6, 7) holds only padding, where SurvPLE is NaN in
+# vlsa_tpu as in the port (a Cox likelihood of no bag), so that case takes
+# the full batch
+ACCUM_CASES = [("4x1", 2, True), ("2x2", 2, True), ("4x1", 4, False)]
+# a per-bag loss takes the same micro-batch layout: accum_steps 4 on {4, 1}
+# (mb = 2 < 4 ranks) and 2 on {2, 2} over the ragged batch
+PER_BAG_ACCUM_CASES = [("4x1", 4, False), ("2x2", 2, True)]
 
 
 def flagship_cfgs(asset_root: str):
@@ -158,11 +183,46 @@ def port_pool(pool, dtype, dx, inp, mesh=None):
     return out.detach(), grads
 
 
-def sa_step(init, batch, loss_name, mesh=None):
+class _Rows:
+    """A dataset of n rows, as `BagBatcher.micro_rows` needs one."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+
+def rank_rows(mesh, batch_size, accum=1) -> np.ndarray:
+    """The global batch's rows of the rank's batch: its contiguous slice, or
+    with accum_steps > 1 its shares of the micro-batches as the batcher
+    lays them out (-1 a row of padding)."""
+    from vlsa_tpu_torch.data.pipeline import BagBatcher
+    if accum == 1:
+        lb = batch_size // mesh.n_data
+        return np.arange(mesh.data_index * lb, (mesh.data_index + 1) * lb)
+    return BagBatcher(_Rows(batch_size), batch_size, num_shards=mesh.n_data,
+                      shard_index=mesh.data_index, fixed_bucket=SA_N,
+                      micro_batches=accum).micro_rows()
+
+
+def take_rows(batch: dict, rows) -> dict:
+    """batch's rows `rows`, -1 a row of zeros (not valid)."""
+    rows = np.asarray(rows)
+    out = {k: v[np.maximum(rows, 0)].copy() for k, v in batch.items()}
+    for v in out.values():
+        v[rows < 0] = 0
+    return out
+
+
+def sa_step(init, batch, loss_name, mesh=None, accum=1, hessian_z=None):
     """(loss, logits, state after the step, gradients) of one SGD step of
-    the small DeepMIL/ABMIL on `batch` (the rank's slice on a mesh)."""
+    the small DeepMIL/ABMIL on `batch` (the rank's rows on a mesh, `rank_rows`),
+    `accum` micro-batches; with `hessian_z` ({name: z}) an adahessian step
+    with that z."""
     from vlsa_tpu_torch.losses import load_loss
     from vlsa_tpu_torch.models.registry import load_model
+    from vlsa_tpu_torch.optim import create_optimizer
     from vlsa_tpu_torch.runner.engine import TrainEngine, make_objective, make_output_converter
     from vlsa_tpu_torch.runner.train import route_seq_parallel
     K = 1 if loss_name == "SurvPLE" else SA_K
@@ -176,15 +236,59 @@ def sa_step(init, batch, loss_name, mesh=None):
     objective = make_objective(load_loss("sa", loss_type=[loss_name], **{loss_name: {}}),
                                {loss_name: 1.0},
                                make_output_converter(None if K == 1 else "softmax"))
-    engine = TrainEngine(model, sgd(model, SA_LR), objective, mesh=mesh, seq_parallel=routed,
-                         model_partial=partial, batch_coupled=loss_name == "SurvPLE")
+    hessian = hessian_z is not None
+    opt = (create_optimizer("adahessian", H_LR, H_WD, model) if hessian
+           else sgd(model, SA_LR))
+    engine = TrainEngine(model, opt, objective, mesh=mesh, seq_parallel=routed,
+                         model_partial=partial, accum_steps=accum, needs_hessian=hessian)
     if mesh is not None:
-        lb = SA_B // mesh.n_data
-        batch = {k: v[mesh.data_index * lb:(mesh.data_index + 1) * lb] for k, v in batch.items()}
+        batch = take_rows(batch, rank_rows(mesh, SA_B, accum))
+    z = [hessian_z[n] for n in engine._trainable()[0]] if hessian else None
     loss, raw = engine.train_step({k: torch.from_numpy(np.ascontiguousarray(v))
-                                   for k, v in batch.items()})
+                                   for k, v in batch.items()}, hessian_z=z)
     grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
     return float(loss), raw, model.state_dict(), grads
+
+
+class _KeepHessian(torch.optim.SGD):
+    """SGD at rate 0 that keeps the Hessian estimate its step is handed (the
+    engine's adahessian step calls `step(hessian=)`)."""
+
+    def step(self, closure=None, hessian=None):
+        self.hessian = hessian
+        return super().step(closure)
+
+
+def vl_hessian(init, batch, mesh, hessian_z):
+    """(loss, gradients, Hessian estimates) of the tiny flagship's adahessian
+    step (its f32 tower; on a mesh TP and SP, as `vl_step`), z from
+    `hessian_z` ({name: z})."""
+    from vlsa_tpu_torch.losses import load_loss
+    from vlsa_tpu_torch.models.vlsa_build import build_vlsa
+    from vlsa_tpu_torch.optim import frozen_mask_from_cfg
+    from vlsa_tpu_torch.parallel import shard_params
+    from vlsa_tpu_torch.runner.engine import TrainEngine, make_objective, make_output_converter
+    from vlsa_tpu_torch.runner.train import route_seq_parallel
+    text, image, prompt = flagship_cfgs("vlsa_tpu/assets")
+    model, _tok = build_vlsa(text, image, prompt, tower_overrides=TOWER, device="cpu",
+                             state_dict=init)
+    model.train()
+    frozen_mask_from_cfg(model, ["prompt_encoder"])
+    routed, partial = route_seq_parallel(model, mesh)
+    partial += shard_params(model, mesh, tensor_parallel=True)
+    objective = make_objective(load_loss("vlsa", **VL_LOSSES), VL_WEIGHTS,
+                               make_output_converter("softmax"))
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    opt = _KeepHessian([{"params": [p for _, p in named], "names": [n for n, _ in named]}],
+                       lr=0.0)
+    engine = TrainEngine(model, opt, objective, mesh=mesh, seq_parallel=routed,
+                         model_partial=partial, needs_hessian=True)
+    batch = take_rows(batch, rank_rows(mesh, VL_B))
+    loss, _raw = engine.train_step({k: torch.from_numpy(np.ascontiguousarray(v))
+                                    for k, v in batch.items()},
+                                   hessian_z=[hessian_z[n] for n, _ in named])
+    return (float(loss), {n: p.grad.clone() for n, p in named},
+            {n: opt.hessian[p].clone() for n, p in named})
 
 
 def vl_step(init, batch, mesh=None, tower="f32"):
@@ -212,8 +316,7 @@ def vl_step(init, batch, mesh=None, tower="f32"):
     engine = TrainEngine(model, sgd(model, VL_LR), objective, mesh=mesh, seq_parallel=routed,
                          model_partial=partial)
     if mesh is not None:
-        lb = VL_B // mesh.n_data
-        batch = {k: v[mesh.data_index * lb:(mesh.data_index + 1) * lb] for k, v in batch.items()}
+        batch = take_rows(batch, rank_rows(mesh, VL_B))
     loss, _raw = engine.train_step({k: torch.from_numpy(np.ascontiguousarray(v))
                                     for k, v in batch.items()})
     return float(loss), {n: p.grad.clone() for n, p in model.named_parameters()
@@ -244,6 +347,18 @@ def _rank(rank: int, world: int, rendezvous: str, root: str) -> None:
         for tower in TOWERS:
             out[("vl", "2x2", tower)] = vl_step(given["vl", tower], vl_batch(), meshes["2x2"],
                                                tower)
+        out["sa_hessian", "4x1"] = sa_step(given["sa", "SurvIFMLE"], sa_batch(False),
+                                           "SurvIFMLE", meshes["4x1"],
+                                           hessian_z=given["sa_hessian_z"])
+        out["vl_hessian", "2x2"] = vl_hessian(given["vl", "f32"], vl_batch(), meshes["2x2"],
+                                              given["vl_hessian_z"])
+        for name, accum, ragged in ACCUM_CASES:
+            out["accum", name, accum] = sa_step(given["sa", "SurvPLE"], sa_batch(ragged),
+                                                "SurvPLE", meshes[name], accum=accum)
+        for name, accum, ragged in PER_BAG_ACCUM_CASES:
+            out["accum_per_bag", name, accum] = sa_step(given["sa", "SurvIFMLE"],
+                                                        sa_batch(ragged), "SurvIFMLE",
+                                                        meshes[name], accum=accum)
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -265,14 +380,16 @@ def rel(a, b) -> float:
 
 # ---------------------------------------------------------------- the JAX side
 
-def _jax_sa(loss_name, ragged, mesh_shape):
+def _jax_sa(loss_name, ragged, mesh_shape, accum=1, hessian=False):
     """vlsa_tpu's SA step on its mesh: (initial params as a state dict,
-    loss, logits, state dict after one SGD step)."""
+    loss, logits, state dict after one SGD step), the step over `accum`
+    micro-batches, or with `hessian` one adahessian step."""
     import jax
     import jax.numpy as jnp
     import optax
     from vlsa_tpu.losses import load_loss
     from vlsa_tpu.models import DeepMIL
+    from vlsa_tpu.optim import create_optimizer as jax_create_optimizer
     from vlsa_tpu.parallel import make_mesh
     from vlsa_tpu.runner.base import BaseHandler
     from vlsa_tpu.runner.engine import TrainEngine, make_objective, make_output_converter
@@ -293,13 +410,86 @@ def _jax_sa(loss_name, ragged, mesh_shape):
     mesh = make_mesh(n_data=nd, n_model=nm)
     sp = nm > 1
     m = BaseHandler._route_seq_parallel(model, mesh) if sp else model
-    eng = TrainEngine(m, optax.sgd(SA_LR), objective, uses_vl=False, mesh=mesh,
-                      tensor_parallel=False, seq_parallel=sp)
+    tx = (jax_create_optimizer("adahessian", H_LR, H_WD, params) if hessian
+          else optax.sgd(SA_LR))
+    eng = TrainEngine(m, tx, objective, uses_vl=False, mesh=mesh, tensor_parallel=False,
+                      seq_parallel=sp, accum_steps=accum, needs_hessian=hessian)
     p = eng.shard_params(params)
     o = eng.init_opt_state(p)
     batch = eng.shard_batch({**base, "idx": np.arange(SA_B, dtype=np.int32)})
-    p2, _, loss, raw = eng.train_step()(p, o, batch, jax.random.PRNGKey(1))
+    p2, _, loss, raw = eng.train_step()(p, o, batch, jax.random.PRNGKey(H_STEP_KEY))
     return init, float(loss), np.asarray(raw), state_dict_from_jax(jax.tree.map(np.asarray, p2))
+
+
+def _jax_z(params, rng) -> dict:
+    """z of vlsa_tpu's Hutchinson estimate from `rng`
+    (tests/test_torch_adahessian.py's `_jax_z`), by the port's names."""
+    import jax
+    from test_torch_adahessian import _jax_z as draw
+    from vlsa_tpu_torch.utils.weights import state_dict_from_jax
+    return state_dict_from_jax(jax.tree.map(np.asarray, draw(params, rng)))
+
+
+def _jax_sa_hessian_z() -> dict:
+    """The z vlsa_tpu's adahessian step draws at the SA step's key."""
+    import jax
+    import jax.numpy as jnp
+    from vlsa_tpu.models import DeepMIL
+    from vlsa_tpu_torch.utils.weights import state_dict_from_jax  # noqa: F401
+    base = sa_batch(False)
+    model = DeepMIL(dim_in=SA_D, dim_hid=16, num_cls=SA_K, use_feat_proj=False, drop_rate=0.0,
+                    pooling="attention")
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(base["feats"]),
+                        jnp.asarray(base["mask"]))["params"]
+    return _jax_z(params, jax.random.fold_in(jax.random.PRNGKey(H_STEP_KEY), 7))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vl_hessian():
+    """vlsa_tpu's Hutchinson estimate of the tiny flagship's loss (f32 tower)
+    on {data: 2, model: 2} with TP and SP, as its adahessian step forms it
+    (`disable_pallas`), at key H_VL_KEY: (z by the port's names, the
+    estimates of the learned leaves)."""
+    import jax
+    import jax.numpy as jnp
+    from vlsa_tpu.losses import load_loss
+    from vlsa_tpu.models.vlsa_build import build_vlsa
+    from vlsa_tpu.ops.flags import disable_pallas
+    from vlsa_tpu.optim import frozen_mask_from_cfg
+    from vlsa_tpu.optim.extra import hutchinson_hessian_diag
+    from vlsa_tpu.parallel import make_mesh
+    from vlsa_tpu.runner.base import BaseHandler
+    from vlsa_tpu.runner.engine import TrainEngine, make_objective, make_output_converter
+    from vlsa_tpu_torch.utils.weights import state_dict_from_jax
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    text, image, prompt = flagship_cfgs(os.path.join(repo, "vlsa_tpu", "assets"))
+    jmodel, params, _tok = build_vlsa(
+        vlsa_api="CONCH", text_encoder_cfg=text, image_encoder_cfg=image,
+        prompt_learner_cfg=prompt, rng=jax.random.PRNGKey(0), tower_overrides=TOWER)
+    params = jax.tree.map(np.asarray, dict(params))
+    frozen = frozen_mask_from_cfg(params, ["prompt_encoder"])
+    objective = make_objective(load_loss("vlsa", **VL_LOSSES), VL_WEIGHTS,
+                               make_output_converter("softmax"), uses_vl=True)
+    mesh = make_mesh(n_data=2, n_model=2)
+    m = BaseHandler._route_seq_parallel(jmodel, mesh)
+    eng = TrainEngine(m, None, objective, uses_vl=True, has_query_div=True, frozen=frozen,
+                      mesh=mesh, tensor_parallel=True, seq_parallel=True)
+    p = eng.shard_params(jax.tree.map(jnp.asarray, params))
+    rng = jax.random.PRNGKey(H_VL_KEY)
+    batch = {k: jnp.asarray(v) for k, v in vl_batch().items()}
+
+    def loss_fn(pp):  # vlsa_tpu/runner/engine.py's loss_fn (train=True, dropout key 0)
+        pp = jax.tree.map(lambda v, f: jax.lax.stop_gradient(v) if f else v, pp, frozen)
+        out = m.apply({"params": pp}, batch["feats"], mask=batch["mask"], train=True,
+                      rngs={"dropout": jax.random.PRNGKey(0)})
+        raw = out[0] if isinstance(out, tuple) else out
+        return objective(raw, batch["t"], batch["e"], batch["valid"].astype(raw.dtype),
+                         logit_scale=jnp.exp(pp["logit_scale"]),
+                         query_div_fn=lambda: m.apply({"params": pp}, method=m.query_div_loss))
+    with disable_pallas():
+        diag = jax.jit(lambda pp: hutchinson_hessian_diag(loss_fn, pp, rng))(p)
+    diag = state_dict_from_jax(jax.tree.map(np.asarray, diag))
+    return _jax_z(params, rng), {n: diag[n] for n in LEARNED}
 
 
 @functools.lru_cache(maxsize=None)
@@ -347,6 +537,8 @@ def ranks(tmp_path_factory):
     given = {("sa", name): _jax_sa(name, ragged, None) for name, ragged in SA_CASES}
     for tower in TOWERS:
         given["vl", tower] = _jax_vl(tower)
+    given["sa_hessian_z"] = _jax_sa_hessian_z()
+    given["vl_hessian_z"] = _jax_vl_hessian()[0]
     torch.save({k: v if k[0] != "vl" else v[0] for k, v in given.items()},
                os.path.join(root, "inputs.pt"))
     spawn(_rank, WORLD, root)
@@ -596,20 +788,141 @@ def test_batcher_slices_match_jax(num_shards):
 
 @pytest.mark.parametrize("what", ["adahessian", "accumulation"])
 def test_what_a_mesh_still_refuses(what):
-    """ROADMAP.md §A.18: adahessian on a mesh (its Hessian-vector product
-    would differentiate through the collectives), and micro-batches of a
-    batch-coupled loss over data ranks (they would split the global batch
-    otherwise than vlsa_tpu), raise before any collective."""
+    """A mesh refuses only what vlsa_tpu refuses on one device too
+    (adahessian with accum_steps > 1, its assert): adahessian and
+    accum_steps > 1 each build on a data grid (ROADMAP.md §A.18 is done);
+    a batcher whose batch does not split into its micro-batches raises."""
     from vlsa_tpu_torch.models.registry import load_model
     from vlsa_tpu_torch.parallel import Mesh
     from vlsa_tpu_torch.runner.engine import TrainEngine
     model = load_model("DeepMIL", [SA_D, 16, 1], device="cpu", network="ABMIL",
                        pooling="attention", use_feat_proj=False)
-    kws = ({"needs_hessian": True} if what == "adahessian"
-           else {"accum_steps": 2, "batch_coupled": True})
-    with pytest.raises(ValueError, match="A.18"):
-        TrainEngine(model, sgd(model, 0.1), lambda *a, **k: 0.0, mesh=Mesh(2, 1), **kws)
-    TrainEngine(model, sgd(model, 0.1), lambda *a, **k: 0.0, mesh=Mesh(1, 1), **kws)
+    kws = {"needs_hessian": True} if what == "adahessian" else {"accum_steps": 2}
+    for mesh in (Mesh(2, 1), Mesh(1, 1)):
+        engine = TrainEngine(model, sgd(model, 0.1), lambda *a, **k: 0.0, mesh=mesh, **kws)
+        assert engine.n_data == mesh.n_data
+    with pytest.raises(ValueError, match="accum_steps"):
+        TrainEngine(model, sgd(model, 0.1), lambda *a, **k: 0.0, mesh=Mesh(2, 1),
+                    needs_hessian=True, accum_steps=2)
+    with pytest.raises(ValueError, match="micro-batches"):
+        rank_rows(Mesh(2, 1, rank=0), 6, accum=4)
+
+
+@pytest.mark.parametrize("B_, accum, nd", [(8, 2, 4), (8, 2, 2), (8, 4, 4), (6, 2, 2),
+                                           (12, 4, 2), (8, 1, 4)])
+def test_micro_batch_shares_gather_to_vlsa_tpus_micro_batches(B_, accum, nd):
+    """With accum_steps > 1 the data ranks' k-th
+    shares gathered in rank order are vlsa_tpu's k-th contiguous
+    micro-batch, rows [k mb, (k + 1) mb), padded where a share runs out (mb
+    = 2 < 4 ranks: two ranks' shares all padding); at accum_steps 1 the
+    contiguous slices of before."""
+    from vlsa_tpu_torch.parallel import Mesh
+    ranks_ = [rank_rows(Mesh(nd, 1, rank=d), B_, accum) for d in range(nd)]
+    share = len(ranks_[0]) // accum
+    assert all(len(r) == accum * share for r in ranks_)
+    mb = B_ // accum
+    for k in range(accum):
+        gathered = np.concatenate([r[k * share:(k + 1) * share] for r in ranks_])
+        assert gathered[gathered >= 0].tolist() == list(range(k * mb, (k + 1) * mb))
+    if accum == 1:
+        assert np.concatenate(ranks_).tolist() == list(range(B_))
+
+
+def test_adahessian_step_on_a_mesh_matches_jax(ranks):
+    """One adahessian step of the SA model on {data: 4, model: 1}, every
+    rank with vlsa_tpu's z: every rank ends with the same parameters; loss
+    at rtol 1e-5 and the parameters after the step at rtol 1e-4 / atol 1e-5
+    against vlsa_tpu's adahessian step on the same grid (b2, NOISE_LEAF, as
+    tests/test_torch_adahessian.py holds it: vlsa_tpu's plain pooling gives
+    it a noise estimate and moves it by up to the rate, the port not at
+    all)."""
+    results, given = ranks
+    init = given["sa", "SurvIFMLE"]
+    _i, jloss, _jraw, jstate = _jax_sa("SurvIFMLE", False, MESHES["4x1"], hessian=True)
+    runs = [r["sa_hessian", "4x1"] for r in results]
+    for loss, _raw, state, _g in runs:
+        assert loss == runs[0][0]
+        for k in state:
+            assert torch.equal(state[k], runs[0][2][k]), k
+    loss, _raw, state, _g = runs[0]
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    for k, v in state.items():
+        if k == NOISE_LEAF:
+            assert torch.equal(v, init[k]) and float((jstate[k] - v).abs().max()) <= H_LR
+            continue
+        np.testing.assert_allclose(v.numpy(), jstate[k].numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+        assert not torch.equal(v, init[k]), k
+
+
+def test_flagship_hessian_on_a_mesh_matches_jax(ranks):
+    """The tiny flagship's adahessian step on {data: 2, model: 2}, the tower
+    (f32) tensor parallel and the co-attention sequence parallel on its
+    plain shard_fn: every rank's loss, gradients and Hessian estimate the
+    same; the loss at rtol 1e-5 and each learned leaf's gradient within
+    1e-4 of its largest against vlsa_tpu's mesh step, and its estimate
+    within 1e-4 of its largest against vlsa_tpu's Hutchinson estimate on the
+    same grid with the same z (tests/test_torch_adahessian.py's limit)."""
+    results, given = ranks
+    _init, jloss, jgrads = given["vl", "f32"]
+    _z, jdiag = _jax_vl_hessian()
+    runs = [r["vl_hessian", "2x2"] for r in results]
+    for loss, grads, diag in runs[1:]:
+        assert loss == runs[0][0]
+        for n in grads:
+            assert torch.equal(grads[n], runs[0][1][n]) and torch.equal(diag[n], runs[0][2][n]), n
+    loss, grads, diag = runs[0]
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    for n in LEARNED:
+        assert rel(grads[n], jgrads[n]) <= 1e-4, (n, rel(grads[n], jgrads[n]))
+        w = jdiag[n].double()
+        assert float(w.abs().max()) > 0, n
+        assert float((diag[n].double() - w).abs().max()) <= 1e-4 * float(w.abs().max()), \
+            (n, rel(diag[n], w))
+
+
+def _hold_accumulation(runs, loss_name, grid, accum, ragged) -> None:
+    """Every rank's accumulated SGD step the same; loss at rtol 1e-5, logits
+    and the parameters after the step at rtol 1e-4 / atol 1e-5 against
+    vlsa_tpu's accumulated step on the same grid."""
+    _i, jloss, jraw, jstate = _jax_sa(loss_name, ragged, MESHES[grid], accum=accum)
+    for loss, _raw, state, _g in runs:
+        assert loss == runs[0][0]
+        for k in state:
+            assert torch.equal(state[k], runs[0][2][k]), k
+    loss, raw, state, _g = runs[0]
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    # the engine's logits follow the ranks' rows (data-rank-major); vlsa_tpu's the global order
+    nd = MESHES[grid][0]
+    from vlsa_tpu_torch.parallel import Mesh
+    order = np.concatenate([rank_rows(Mesh(nd, 1, rank=d), SA_B, accum) for d in range(nd)])
+    real = order >= 0
+    np.testing.assert_allclose(raw.numpy()[real], jraw[order[real]], rtol=1e-4, atol=1e-5)
+    for k, v in state.items():
+        np.testing.assert_allclose(v.numpy(), jstate[k].numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("grid,accum,ragged", ACCUM_CASES)
+def test_batch_coupled_accumulation_on_a_mesh_matches_jax(ranks, grid, accum, ragged):
+    """SurvPLE, which couples the bags, on a batch of 8 (ragged: its last
+    three rows padding) with accum_steps micro-batches over the data ranks,
+    each rank fed its shares of vlsa_tpu's contiguous micro-batches, against
+    vlsa_tpu's accumulated step (`_hold_accumulation`)."""
+    results, _given = ranks
+    _hold_accumulation([r["accum", grid, accum] for r in results], "SurvPLE", grid, accum,
+                       ragged)
+
+
+@pytest.mark.parametrize("grid,accum,ragged", PER_BAG_ACCUM_CASES)
+def test_per_bag_accumulation_on_a_mesh_matches_jax(ranks, grid, accum, ragged):
+    """SurvIFMLE, a loss of each bag alone, through the same micro-batch
+    layout (at accum_steps 4 on {4, 1} each rank holds one row of each
+    micro-batch of 2 or padding), against vlsa_tpu's accumulated step
+    (`_hold_accumulation`)."""
+    results, _given = ranks
+    _hold_accumulation([r["accum_per_bag", grid, accum] for r in results], "SurvIFMLE", grid,
+                       accum, ragged)
 
 
 # (host, device type, cards on the host, card asked for) of each rank

@@ -175,3 +175,31 @@ def test_bf16_check_catches_unrounded_probabilities(towers, monkeypatch):
                         _forward_without_prob_rounding)
     blocks, _port_err, _ref_err = _bf16_conch_gaps(params, ids)
     assert max(blocks) >= BF16_BLOCK_TOL, blocks
+
+
+def test_full_width_bf16_prototypes_match_jax():
+    """The full-width CONCH text tower (width 768, 12 heads, 12 layers, as
+    the flagship runs it) in bf16 with its frozen weights stored in bf16,
+    against vlsa_tpu's on the CPU by the rounding-flip rule of this file:
+    each of the 12 blocks within BF16_BLOCK_TOL of vlsa_tpu's fed the same
+    input, and the prototypes' error against vlsa_tpu's f32 tower within
+    BF16_END_TO_END times vlsa_tpu's own bf16 error (measured: blocks up to
+    1.6e-3; 5.3e-3 against vlsa_tpu's 4.8e-3)."""
+    ref = jax_tower("CONCH", name=None)
+    assert (ref.width, ref.heads, ref.layers) == (768, 12, 12)
+    L = ref.max_num_tokens
+    params = ref.init(jax.random.PRNGKey(0), prompts_embedding=jnp.zeros((2, L, ref.width)),
+                      prompts_pseudo_tokens=jnp.zeros((2, L), jnp.int32))["params"]
+    params = jax.tree.map(np.asarray, params)
+    ids = JaxTokenizer(api="CONCH")(TEXTS, return_raw_tokens=False, return_num_tokens=False)
+    emb, pseudo = _trimmed_inputs(params, ids, trim=32)
+    tower = make_text_tower(compute_dtype=torch.bfloat16)
+    tower.load_state_dict(state_dict_from_jax(params), strict=True)
+    tower = cast_frozen_tower_weights(tower.eval())
+    gaps = bf16_gaps(
+        ref, jax_tower("CONCH", name=None, dtype="bfloat16"), params,
+        jax_cast({"prompt_encoder": params})["prompt_encoder"], tower,
+        dict(prompts_embedding=jnp.asarray(emb), prompts_pseudo_tokens=jnp.asarray(pseudo)),
+        dict(prompts_embedding=torch.from_numpy(emb), prompts_pseudo_tokens=torch.from_numpy(pseudo)))
+    assert len(gaps[0]) == 12
+    assert_bf16_tower(gaps)

@@ -330,6 +330,21 @@ def bucket_length(n: int, min_bucket: int = 256, max_bucket: Optional[int] = Non
     return b
 
 
+def _spread_rows(batch: dict, rows) -> None:
+    """Move a batch's first len(rows) rows to the increasing rows `rows`, in
+    place (last first, so no row is overwritten before it moves), and make
+    every other row padding: zeros, idx -1."""
+    n = len(rows)
+    for t in batch.values():
+        for i in range(n - 1, -1, -1):
+            if rows[i] != i:
+                t[rows[i]] = t[i]
+        pad = np.setdiff1d(np.arange(t.shape[0]), rows)
+        t[torch.from_numpy(pad)] = 0
+        if t is batch["idx"]:
+            t[torch.from_numpy(pad)] = -1
+
+
 class BagOverflowError(ValueError):
     """A bag holds more patches than the padding bucket allows."""
 
@@ -362,14 +377,22 @@ class BagBatcher:
     slice of a tail batch is empty gets rows of padding, so that it still
     joins the step.  As vlsa_tpu/data/pipeline.py:130-142, `batch_size`
     must divide by `num_shards` and a `fixed_bucket` is required (ranks
-    never exchange bag sizes, so only a fixed one gives them one shape)."""
+    never exchange bag sizes, so only a fixed one gives them one shape).
+    With `micro_batches` k > 1 (accumulation over data ranks) a
+    rank's batch is instead its shares of the k contiguous micro-batches of
+    mb = `batch_size // k` rows, in micro-batch order: ceil(mb /
+    num_shards) rows of each, micro-batch j's rows [j mb + s i, j mb + s (i
+    + 1)) for shard i and share s, padded where a share or the tail batch
+    runs out, so that the data ranks' j-th shares gathered in rank order
+    are micro-batch j (`micro_rows`)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  min_bucket: int = 256, max_bucket: Optional[int] = None,
                  fixed_bucket: Optional[int] = None,
                  feats_dtype: str = "float32", overflow: str = "error",
                  precompute_inv: bool = True, prefetch: int = 2, pin_memory: bool = False,
-                 pool: Optional[BatchPool] = None, num_shards: int = 1, shard_index: int = 0):
+                 pool: Optional[BatchPool] = None, num_shards: int = 1, shard_index: int = 0,
+                 micro_batches: int = 1):
         if feats_dtype not in FEATS_DTYPES:
             raise ValueError(f"feats_dtype must be one of {FEATS_DTYPES}, got {feats_dtype}")
         if overflow not in ("error", "warn", "truncate"):
@@ -378,9 +401,15 @@ class BagBatcher:
             raise ValueError(f"batch_size {batch_size} not divisible by num_shards {num_shards}")
         if num_shards > 1 and fixed_bucket is None:
             raise ValueError("multi-host loading (num_shards > 1) requires fixed_bucket")
+        if batch_size % micro_batches:
+            raise ValueError(f"batch_size {batch_size} not divisible into {micro_batches} "
+                             f"micro-batches")
         self.num_shards = num_shards
         self.shard_index = shard_index
+        self.micro_batches = micro_batches if num_shards > 1 else 1
         self._local_bs = batch_size // num_shards
+        if self.micro_batches > 1:
+            self._local_bs = self.micro_batches * -(-(batch_size // micro_batches) // num_shards)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -460,8 +489,14 @@ class BagBatcher:
         return batch
 
     def make_batch(self, indices, ring: Optional[_Ring] = None) -> dict:
-        """The batch of dataset rows `indices` (at most the shard's rows),
-        built in a buffer of `ring` when given."""
+        """The batch of dataset rows `indices` (at most the shard's rows; -1
+        a row of padding), built in a buffer of `ring` when given."""
+        indices = np.asarray(indices)
+        if (indices < 0).any():
+            rows = np.flatnonzero(indices >= 0)
+            batch = self.make_batch(indices[rows], ring)
+            _spread_rows(batch, rows)
+            return batch
         if len(indices) == 0:
             return self._padding_batch(ring)
         batch = self._native_batch(indices, ring)
@@ -636,12 +671,25 @@ class BagBatcher:
                 ring.give_back(batch)
             return None
 
+    def micro_rows(self) -> np.ndarray:
+        """The global batch's rows of this shard's batch in order, -1 where
+        a micro-batch share is padded (`micro_batches` > 1)."""
+        k, mb = self.micro_batches, self.batch_size // self.micro_batches
+        share = self._local_bs // k
+        first = self.shard_index * share
+        return np.array([j * mb + c if c < mb else -1 for j in range(k)
+                         for c in range(first, first + share)])
+
     def batch_indices(self) -> Iterator[np.ndarray]:
         order = self._order()
         lo = self.shard_index * self._local_bs
+        rows = self.micro_rows() if self.micro_batches > 1 else None
         for start in range(0, len(order), self.batch_size):
             chunk = order[start:start + self.batch_size]
-            yield chunk[lo:lo + self._local_bs] if self.num_shards > 1 else chunk
+            if rows is not None:
+                yield np.array([chunk[r] if 0 <= r < len(chunk) else -1 for r in rows])
+            else:
+                yield chunk[lo:lo + self._local_bs] if self.num_shards > 1 else chunk
 
     def _timed_batch(self, chunk, ring: Optional[_Ring]) -> dict:
         t = time.perf_counter()

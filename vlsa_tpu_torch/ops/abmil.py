@@ -26,11 +26,17 @@ the tensor cores: each f32 operand is a TF32 hi plus a TF32 lo, and a product is
 relative against true f32's 2^-24 (as the TPU kernels' own f32 is the MXU's
 multi-pass bf16), held against the true-f32 plain versions on the card.
 
-Widths: the kernels take any D in [1, 8192] and hid in [1, 1024]
-(`kernel_widths_ok`; Virchow's 2560-d features, odd widths, rows that are
-not 16-byte aligned), as the TPU kernels, which tile only N, take any; past
-that, a block's shared memory (b1, w2 and the backward's column sums of hid
-values, g's D, beside the stages) runs out, and a CUDA tensor raises.
+Widths: the kernels take any D >= 1 and hid >= 1 (`kernel_widths_ok`;
+Virchow's 2560-d features, odd widths, rows that are not 16-byte aligned,
+D past 8192, hid past 1024), as the TPU kernels, which tile only N, take
+any: a block holds b1, w2 and the backward's column sums of every hid
+column in shared memory up to `_SMEM_HID` padded columns and past that
+only a pass's columns of b1 and w2, the column sums in a per-block
+workspace; D's vectors (the forward's PV sums, the backward's g) stay in
+shared memory up to `_SMEM_D` channels and past that live in device
+memory.  So no block's shared memory grows past the card's with the
+widths, and the widths that fit keep their layout.  int8's products are exact in int32 up to D = 132,104 (D * 128 *
+127 < 2^31), as vlsa_tpu's own int32 product is.
 D=512, hid=256 runs the instances that keep x resident ("special"); every
 other width, and bf16 in vlsa_tpu's precise mode (`VLSA_TPU_ABMIL_PRECISE=1`:
 W1 and dz as bf16 hi + lo, `abmil_fwd_rounded` / `abmil_bwd_rounded` with
@@ -61,11 +67,13 @@ from .flags import kernels_disabled
 _PRECISE = os.environ.get("VLSA_TPU_ABMIL_PRECISE", "0") == "1"
 
 D_KERNEL, HID_KERNEL = 512, 256  # the widths of the resident-x instances (kD, kHid)
-# The widths every kernel takes (csrc/abmil_common.cuh: widths_ok): D in [1,
-# kGenMaxD], hid in [1, kGenMaxHid]; every width but D_KERNEL, HID_KERNEL
-# (and bf16 in precise mode) runs the general instances.
-_GEN_MAX_D = 8192
-_GEN_MAX_HID = 1024
+# Every width but D_KERNEL, HID_KERNEL (and bf16 in precise mode) runs the
+# general instances (csrc/abmil_common.cuh: widths_ok takes any D, hid >= 1);
+# they keep D's vectors in shared memory up to _SMEM_D channels (kSmemD),
+# and b1, w2 and the backward's column sums of every column up to _SMEM_HID
+# padded hid columns (kSmemHid; past that the sums in the plan's ws_sums)
+_SMEM_D = 8192
+_SMEM_HID = 1024
 _GEN_TILE = 64  # patches a tile of the general instances (kGenM)
 _GEN_PAD = 64   # the general instances' W1 rows and row length pad to multiples of this
 # patches a tile of the backward's pass 1, every storage, and of the f32
@@ -93,11 +101,12 @@ _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8
 # `abmil_bwd` / `abmil_q8_bwd` in LAUNCHES_BWD (those, and "f32_dx",
 # "bf16_dx" for a backward that writes dX); and each call again by the
 # instances it ran, in LAUNCHES_ROUTE (forward) and LAUNCHES_BWD_ROUTE:
-# "special" (D=512, hid=256), "general" (any other width) and "precise"
-# (bf16 in precise mode, the general instances).
+# "special" (D=512, hid=256), "general" (any other width), "wide" (D past
+# _SMEM_D, the general instances with D's vectors in device memory) and
+# "precise" (bf16 in precise mode, the general instances).
 LAUNCHES = {s: 0 for s in ("f32", "bf16", "int8")}
 LAUNCHES_BWD = dict(LAUNCHES, f32_dx=0, bf16_dx=0)
-LAUNCHES_ROUTE = {r: 0 for r in ("special", "general", "precise")}
+LAUNCHES_ROUTE = {r: 0 for r in ("special", "general", "wide", "precise")}
 LAUNCHES_BWD_ROUTE = dict(LAUNCHES_ROUTE)
 
 
@@ -108,10 +117,10 @@ def reset_launches() -> None:
 
 
 def kernel_widths_ok(D: int, hid: int) -> bool:
-    """True for the widths the CUDA kernels take: D in [1, 8192] (ViT-S 384,
+    """True for the widths the CUDA kernels take: any D >= 1 (ViT-S 384,
     CONCH 512, CTransPath 768, UNI 1024, Prov-GigaPath 1536, Virchow 2560,
-    any other) and hid in [1, 1024]."""
-    return 1 <= D <= _GEN_MAX_D and 1 <= hid <= _GEN_MAX_HID
+    any other) and hid >= 1."""
+    return D >= 1 and hid >= 1
 
 
 def gen_hid_pad(hid: int) -> int:
@@ -133,10 +142,13 @@ def _precise_for(dtype: torch.dtype, precise: Optional[bool]) -> bool:
 
 def route(dtype: torch.dtype, D: int, hid: int, precise: Optional[bool] = None) -> str:
     """The instances a call runs: "special" (x resident, D=512, hid=256),
-    "precise" (bf16 in precise mode) or "general"."""
+    "precise" (bf16 in precise mode), "general", or "wide" (the general
+    instances past D = _SMEM_D, D's vectors in device memory)."""
     if _precise_for(dtype, precise):
         return "precise"
-    return "special" if (D, hid) == (D_KERNEL, HID_KERNEL) else "general"
+    if (D, hid) == (D_KERNEL, HID_KERNEL):
+        return "special"
+    return "wide" if D > _SMEM_D else "general"
 
 
 def bwd_variant(x_dtype: torch.dtype, with_dx: bool) -> str:
@@ -361,8 +373,8 @@ _ARGTYPES = {
     "abmil_fwd": [_P] * 6 + [_I] * 9 + [_P] * 9,
     # x, x_scale, mask, w1, b1, w2, g, out, m, l; B, N, D, hid, chunk1, S1,
     # chunk2, S2, storage, precise, with_dx, device; w1_ws, w1_scale, ds,
-    # ws_dw1, ws_db1, ws_dw2, dx, dw1, db1, dw2, stream
-    "abmil_bwd": [_P] * 10 + [_I] * 12 + [_P] * 11,
+    # ws_dw1, ws_sums, ws_db1, ws_dw2, dx, dw1, db1, dw2, stream
+    "abmil_bwd": [_P] * 10 + [_I] * 12 + [_P] * 12,
 }
 # (storage, D, hid, precise) and, for the backward, the pass
 _SMEM_ARGTYPES = {"abmil_fwd": [_I] * 4, "abmil_bwd": [_I] * 5}
@@ -461,7 +473,10 @@ def bwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, D: int = D_KERNEL,
     pass 1; W1 for pass 1 ([hid, D] on the resident instances, [hid_p, ld]
     on the general ones) is "w1_bf16" (bf16 and the special int8: bf16 hi
     and lo), for int8 at other widths the forward's int8 split "w1_i8" with
-    its scales "w1_scale", for f32 its padded copy "w1_f32"."""
+    its scales "w1_scale", for f32 its padded copy "w1_f32"; on the general
+    instances past hid_p = `_SMEM_HID` pass 1's per-block column sums of db1
+    and dw2 ("ws_sums", [B * S1, 4, hid_p], two row halves each; below it
+    they stay in shared memory)."""
     rt = route(dtype, D, hid, precise)
     chunk1, S1 = _split_waves(B, N, _TILE[dtype], n_sm)
     chunk2, S2 = _split_rows(B * N, n_sm, _DW_ROWS[dtype], dw_tiles(D, hid))
@@ -477,7 +492,8 @@ def bwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, D: int = D_KERNEL,
             "w1_bf16": None if f32 or gen_i8 else (2, rows, ld),
             "w1_i8": (2, rows, ld) if gen_i8 else None,
             "w1_f32": (rows, ld) if f32 and gen else None,
-            "w1_scale": (1 + _AMAX_BLOCKS,) if gen_i8 else None}
+            "w1_scale": (1 + _AMAX_BLOCKS,) if gen_i8 else None,
+            "ws_sums": (B * S1, 4, rows) if gen and rows > _SMEM_HID else None}
 
 
 def _tensor(name, t, shape, dtype, device):
@@ -501,10 +517,8 @@ def _check_inputs(x, x_scale, mask, w1, b1, w2, kernel: str) -> Tuple[int, int, 
     B, N, D = x.shape
     hid = w1.shape[0] if w1.dim() == 2 else -1
     if not kernel_widths_ok(D, hid):
-        raise ValueError(f"the ABMIL kernels take D in [1, {_GEN_MAX_D}] and hid in [1, "
-                         f"{_GEN_MAX_HID}]: a block holds b1, w2 and the backward's column "
-                         f"sums of hid values and g's D in shared memory, which past these "
-                         f"runs out; got D={D}, hid={hid} (net_dims {D}-{hid}-K)")
+        raise ValueError(f"x must have D >= 1 features and w1 be [hid >= 1, D], got "
+                         f"D={D}, w1 {tuple(w1.shape)}")
     _tensor("mask", mask, (B, N), torch.bool, device)
     _tensor("w1", w1, (hid, D), torch.float32, device)
     _tensor("b1", b1, (hid,), torch.float32, device)
@@ -519,7 +533,9 @@ def _check_inputs(x, x_scale, mask, w1, b1, w2, kernel: str) -> Tuple[int, int, 
 @functools.lru_cache(maxsize=256)
 def _check_smem(lib, name, device_index, *args) -> None:
     """Raises if a block of `name` at `args` needs more shared memory than
-    the card gives (checked once for each)."""
+    the card gives (checked once for each).  A guard: no instance's block
+    grows with the widths past what an H100 gives (the sources check it at
+    compile time)."""
     smem = getattr(lib, f"{name}_smem_bytes")(*args)
     optin = torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
     if smem > optin:
@@ -566,7 +582,7 @@ def _fwd(x, x_scale, mask, w1, b1, w2, kernel):
 def abmil_fwd(x: torch.Tensor, mask: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the Hopper forward on CUDA tensors, f32 or bf16 x [B, N, D],
-    W1 [hid, D] (`kernel_widths_ok`): (out [B, D], m [B], l [B]) f32, the
+    W1 [hid, D], any widths: (out [B, D], m [B], l [B]) f32, the
     pooled features and the softmax stats (running max and normaliser, l
     clamped below at 1e-30).  bf16 follows `_PRECISE`."""
     if x.dtype == torch.int8:
@@ -607,11 +623,12 @@ def _bwd(x, x_scale, mask, w1, b1, w2, g, out, m, l, need_dx, kernel):
         ("w1_bf16", torch.bfloat16), ("w1_i8", torch.int8), ("w1_f32", torch.float32))
         if plan[k] is not None), None)
     w1s = _empty(plan["w1_scale"], torch.float32, device)
+    ws_sums = _empty(plan["ws_sums"], torch.float32, device)
     err = lib.abmil_bwd(_ptr(x), _ptr(x_scale), _ptr(mask), _ptr(w1), _ptr(b1), _ptr(w2),
                         _ptr(g), _ptr(out), _ptr(m), _ptr(l), B, N, D, hid, chunk1, S1, chunk2,
                         S2, storage, int(precise), int(need_dx), index,
-                        _ptr(w1_ws), _ptr(w1s), _ptr(ds), _ptr(ws_dw1), _ptr(ws_db1),
-                        _ptr(ws_dw2), _ptr(dx), _ptr(dw1), _ptr(db1), _ptr(dw2),
+                        _ptr(w1_ws), _ptr(w1s), _ptr(ds), _ptr(ws_dw1), _ptr(ws_sums),
+                        _ptr(ws_db1), _ptr(ws_dw2), _ptr(dx), _ptr(dw1), _ptr(db1), _ptr(dw2),
                         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")

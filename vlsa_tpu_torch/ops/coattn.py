@@ -24,9 +24,13 @@ forward's.  Forward and backward share one launch plan (`fwd_plan`): one
 persistent block per SM over flat ranges of tiles, by channel group of 512
 above C=512.  The kernels take the queries in groups of 16 rows (one mma
 tile; the last group zero-padded): the forward and dQ as the grid's third
-dimension, so the groups' blocks share the wave; the dX kernel above 16
-queries loops over the groups on each staged tile (P is its dX product's
-reduction), on tiles of 32 patches (f32: 16).
+dimension, so the groups' blocks share the wave (past 65,535 groups in
+launches of that many groups each); the dX kernel above 16 queries loops
+over the groups on each staged tile (P is its dX product's reduction), on
+tiles of 32 patches (f32: 16), each group's stats staged with its rows.
+Any P: no block's shared memory grows with it, and the backward's dq
+partials [blocks, P, C] stay within `_DQ_WS_BYTES` (fewer blocks for a
+large P).
 """
 from __future__ import annotations
 
@@ -41,10 +45,13 @@ from .flags import kernels_disabled
 from .masked import l2_normalize, masked_softmax
 
 # queries a group (csrc/coattn_common.cuh kRows: one mma tile of rows), and
-# the most groups a forward or dQ launch takes (its grid's z: P up to
-# 1,048,560); the dX kernel above one group takes tiles of _DX_LOOP_TILE
-# patches by storage (loop_tile_of, csrc/coattn_bwd.cuh)
+# the most groups one launch of the forward or dQ takes (its grid's z; past
+# that the kernels launch a chunk of groups at a time); the dX kernel above
+# one group takes tiles of _DX_LOOP_TILE patches by storage (loop_tile_of,
+# csrc/coattn_bwd.cuh)
 _QUERY_ROWS, _MAX_QUERY_GROUPS = 16, 65535
+# the most bytes of the backward's dq partials, [blocks, P, C] f32 (1 GiB)
+_DQ_WS_BYTES = 1 << 30
 _DX_LOOP_TILE = {torch.float32: 16, torch.bfloat16: 32}
 # the kernels' warps each own _FWD_WARP_CH channels, at most _FWD_MAX_WARPS of
 # them (a block's channel group of _FWD_GROUP_CH), and their tiles hold
@@ -65,13 +72,15 @@ _STORAGE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8
 # block), "wide" for C > 512 (blocks by channel group).  All three kernels'
 # calls count by query route in LAUNCHES_QUERY_PATH: "single" for P <= 16
 # (one query group), "grid" for the forward and dQ above (query groups on
-# the grid), "loop" for dX above (query groups looped on each tile).
+# the grid), "chunked" for them past 65,535 groups (the grid launched a chunk
+# of groups at a time), "loop" for dX above 16 (query groups looped on each
+# tile).
 LAUNCHES = {f"{s}{i}": 0 for s in ("f32", "bf16", "int8") for i in ("", "_inv")}
 LAUNCHES_BWD = dict(LAUNCHES)
 LAUNCHES_DX = {"f32": 0, "bf16": 0}
 LAUNCHES_FWD_PATH = {"group": 0, "wide": 0}
 LAUNCHES_BWD_PATH = {"group": 0, "wide": 0}
-LAUNCHES_QUERY_PATH = {"single": 0, "grid": 0, "loop": 0}
+LAUNCHES_QUERY_PATH = {"single": 0, "grid": 0, "chunked": 0, "loop": 0}
 
 
 def reset_launches() -> None:
@@ -266,6 +275,13 @@ def query_groups(P: int) -> int:
     return -(-P // _QUERY_ROWS)
 
 
+def grid_route(P: int) -> str:
+    """The forward's and dQ's query route for P queries."""
+    if P <= _QUERY_ROWS:
+        return "single"
+    return "chunked" if query_groups(P) > _MAX_QUERY_GROUPS else "grid"
+
+
 @functools.lru_cache(maxsize=256)
 def fwd_plan(dtype: torch.dtype, B: int, N: int, n_sm: int, C: int = _FWD_GROUP_CH,
              qgroups: int = 1, tile: Optional[int] = None) -> dict:
@@ -296,11 +312,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the argument types of each library's entry point `<name>` (csrc/<name>.cu):
 # pointers to q, x, [x_scale, x_inv: not coattn_bwd_dx] and mask, the scale,
 # [the backward kernels: g, out, m, l], B, N, C, P, L, [the forward: Smax],
-# storage and device, then the workspace, output and stream pointers
+# storage and device, then the workspace ([coattn_bwd_dx: ws_dq, ws_srow]),
+# output and stream pointers
 _ARGTYPES = {
     "coattn_fwd": [_P] * 5 + [_F] + [_I] * 8 + [_P] * 7,
     "coattn_bwd_dq": [_P] * 5 + [_F] + [_P] * 4 + [_I] * 7 + [_P] * 3,
-    "coattn_bwd_dx": [_P] * 3 + [_F] + [_P] * 4 + [_I] * 7 + [_P] * 4,
+    "coattn_bwd_dx": [_P] * 3 + [_F] + [_P] * 4 + [_I] * 7 + [_P] * 5,
 }
 
 
@@ -342,9 +359,6 @@ def _check_inputs(q, x, mask, x_scale, x_inv, kernel: str) -> Tuple[int, int, in
             or q.shape[1] != C or q.shape[0] < 1 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous f32 [P, {C}] tensor on {device}, P >= 1, "
                          f"got {q.dtype} {tuple(q.shape)} on {q.device}")
-    if query_groups(q.shape[0]) > _MAX_QUERY_GROUPS:
-        raise ValueError(f"P={q.shape[0]} queries are more than the kernels' grid takes "
-                         f"({_MAX_QUERY_GROUPS} groups of {_QUERY_ROWS})")
     if mask.device != device or mask.dtype != torch.bool \
             or tuple(mask.shape) != (B, N) or not mask.is_contiguous():
         raise ValueError(f"mask must be a contiguous bool [{B}, {N}] tensor on {device}")
@@ -370,18 +384,25 @@ def kernel_plan(name: str, dtype: torch.dtype, B: int, N: int, n_sm: int, C: int
     """The launch plan of kernel `name` ("coattn_fwd", "coattn_bwd_dq" or
     "coattn_bwd_dx") on a card of n_sm SMs: `fwd_plan` with the forward's
     and dQ's query groups on the grid; the dX kernel above 16 queries on its
-    looped instance's tiles (_DX_LOOP_TILE), no query groups on the grid."""
+    looped instance's tiles (_DX_LOOP_TILE), no query groups on the grid.
+    The backward kernels' blocks each write a dq partial [P, C] f32: their
+    plan takes at most max(1, _DQ_WS_BYTES // (4 P C)) blocks a query and
+    channel group (as on a card of that many SMs), which only a large P
+    reaches (the looped dX above ~8,000 queries at C = 512)."""
+    qgroups = 1 if name == "coattn_bwd_dx" else query_groups(P)
+    if name != "coattn_fwd":
+        most = max(1, _DQ_WS_BYTES // (4 * P * C))
+        n_sm = min(n_sm, most * qgroups * -(-C // _FWD_GROUP_CH))
     if name == "coattn_bwd_dx":
         return fwd_plan(dtype, B, N, n_sm, C,
                         tile=_DX_LOOP_TILE[dtype] if P > _QUERY_ROWS else None)
-    return fwd_plan(dtype, B, N, n_sm, C, query_groups(P))
+    return fwd_plan(dtype, B, N, n_sm, C, qgroups)
 
 
 def _plan(lib, name: str, device, dtype, B, N, C, P) -> dict:
     """`kernel_plan` for one kernel's launch, after checking that its
-    block's shared memory fits the card.  Only the looped dX instance's
-    grows with P (it keeps every row's softmax stats: past 8,656 queries
-    of f32 x, 10,032 of bf16, it does not fit an H100's block)."""
+    block's shared memory fits the card (a guard: no instance's grows with
+    P, and every width's fits an H100's block)."""
     props = torch.cuda.get_device_properties(device)
     smem = getattr(lib, f"{name}_smem_bytes")(P, C, _STORAGE[dtype])
     if not 0 < smem <= props.shared_memory_per_block_optin:
@@ -405,8 +426,9 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
     """Launch the Hopper kernel on CUDA tensors.  Returns (out [B, P, C],
     m [B, P], l [B, P]) f32: the pooled features and the softmax stats
     (running max and normaliser, l clamped below at 1e-30).  Any P >= 1
-    (query groups of 16 rows on the grid) and any C (a multiple of 8):
-    above 512 the kernel's wide instance runs."""
+    (query groups of 16 rows on the grid, in launches of at most 65,535
+    groups) and any C (a multiple of 8): above 512 the kernel's wide
+    instance runs."""
     B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_fwd")
     device = x.device
     lib = _library("coattn_fwd")
@@ -431,7 +453,7 @@ def coattn_fwd(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: floa
         raise RuntimeError(f"coattn_fwd kernel launch failed: cudaError {err}")
     LAUNCHES[variant_name(x.dtype, x_inv is not None)] += 1
     LAUNCHES_FWD_PATH["wide" if plan["groups"] > 1 else "group"] += 1
-    LAUNCHES_QUERY_PATH["grid" if P > _QUERY_ROWS else "single"] += 1
+    LAUNCHES_QUERY_PATH[grid_route(P)] += 1
     return out, m, l
 
 
@@ -443,8 +465,9 @@ def coattn_bwd_dq(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
     dq [P, C] f32 from the output's cotangent g [B, P, C] and the forward's
     (out, m, l) as `coattn_fwd` returns them.  One partial a block of
     `kernel_plan`, summed in block order: repeated calls give the same
-    bits.  Any P >= 1 (query groups of 16 rows on the grid) and any C (a
-    multiple of 8): above 512 the kernel's wide instance runs."""
+    bits.  Any P >= 1 (query groups of 16 rows on the grid, in launches of
+    at most 65,535 groups) and any C (a multiple of 8): above 512 the
+    kernel's wide instance runs."""
     B, N, C, P = _check_inputs(q, x, mask, x_scale, x_inv, "coattn_bwd_dq")
     device = x.device
     _check_forward_outputs(g, out, m, l, B, P, C, device)
@@ -462,7 +485,7 @@ def coattn_bwd_dq(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
         raise RuntimeError(f"coattn_bwd_dq kernel launch failed: cudaError {err}")
     LAUNCHES_BWD[variant_name(x.dtype, x_inv is not None)] += 1
     LAUNCHES_BWD_PATH["wide" if plan["groups"] > 1 else "group"] += 1
-    LAUNCHES_QUERY_PATH["grid" if P > _QUERY_ROWS else "single"] += 1
+    LAUNCHES_QUERY_PATH[grid_route(P)] += 1
     return dq
 
 
@@ -476,7 +499,9 @@ def coattn_bwd_dx(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
     kernel: there are no sidecars.  The dq reduction is `coattn_bwd_dq`'s,
     the plan too up to 16 queries; above, the kernel loops over the query
     groups on each tile (tiles of 32 patches, f32 16; no query groups on
-    the grid).  Any C (a multiple of 8)."""
+    the grid), staging each group's stats (s_row = g . out from a small
+    kernel before it, into a [B, P] workspace).  Any P and any C (a
+    multiple of 8)."""
     B, N, C, P = _check_inputs(q, x, mask, None, None, "coattn_bwd_dx")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"coattn_bwd_dx takes f32 or bf16 x (int8 features are "
@@ -489,10 +514,13 @@ def coattn_bwd_dx(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: f
     dq = torch.empty(P, C, dtype=torch.float32, device=device)
     dx = torch.empty_like(x)
     ws_dq = torch.empty(max(plan["blocks"], 1), P, C, dtype=torch.float32, device=device)
+    ws_srow = (torch.empty(B, P, dtype=torch.float32, device=device)
+               if P > _QUERY_ROWS else None)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.coattn_bwd_dx(_ptr(q), _ptr(x), _ptr(mask), float(scale), _ptr(g), _ptr(out),
                             _ptr(m), _ptr(l), B, N, C, P, plan["L"], _STORAGE[x.dtype],
-                            _device_index(device), _ptr(ws_dq), _ptr(dq), _ptr(dx), stream)
+                            _device_index(device), _ptr(ws_dq), _ptr(ws_srow), _ptr(dq),
+                            _ptr(dx), stream)
     if err != 0:
         raise RuntimeError(f"coattn_bwd_dx kernel launch failed: cudaError {err}")
     LAUNCHES_DX[_STORAGE_NAME[x.dtype]] += 1

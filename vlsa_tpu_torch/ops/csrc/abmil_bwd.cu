@@ -85,9 +85,9 @@
 //   pass 3 sums the S2 partials of dW1 and the B * S1 of db1, dw2, in order.
 //
 // The pass-1 instances above are built for D = 512, hid = 256.  Every other
-// width (D a multiple of 64 up to 2048, hid in {64, 128, 256, 512}) and bf16
-// in vlsa_tpu's precise mode run abmil_bwd_dz_general (see the note above
-// it); passes 2 and 3 take the widths at run time for every call.
+// width (any D >= 1, any hid >= 1) and bf16 in vlsa_tpu's precise mode run
+// abmil_bwd_dz_general (see the note above it); passes 2 and 3 take the
+// widths at run time for every call.
 #include <type_traits>
 
 #include "abmil_common.cuh"
@@ -903,18 +903,18 @@ __global__ void __launch_bounds__(kThreads)
 abmil_bwd_reduce(const float* __restrict__ ws_dw1, const float* __restrict__ ws_db1,
                  const float* __restrict__ ws_dw2, int K_w, int K_b, int D, int hid,
                  float* __restrict__ dw1, float* __restrict__ db1, float* __restrict__ dw2) {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    const int kW = hid * D;
+    const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+    const size_t kW = (size_t)hid * D;
     float s = 0.f;
     if (i < kW) {
         for (int k = 0; k < K_w; ++k) s += ws_dw1[(size_t)k * kW + i];
         dw1[i] = s;
     } else if (i < kW + hid) {
-        const int j = i - kW;
+        const int j = (int)(i - kW);
         for (int k = 0; k < K_b; ++k) s += ws_db1[(size_t)k * hid + j];
         db1[j] = s;
     } else if (i < kW + 2 * hid) {
-        const int j = i - kW - hid;
+        const int j = (int)(i - kW - hid);
         for (int k = 0; k < K_b; ++k) s += ws_dw2[(size_t)k * hid + j];
         dw2[j] = s;
     }
@@ -927,23 +927,29 @@ abmil_bwd_reduce(const float* __restrict__ ws_dw1, const float* __restrict__ ws_
 // storage.  Per tile of kGenM = 64
 // patches: (a) the logits, pass by pass over hid (gen_h_product, as the
 // general forward forms them, so int8 takes the forward's int8 split of W1
-// and meets its (m, l) exactly); (b) g . x of each row, its x re-read from
-// L2, and a, ds; (c) pass by pass, h (kept from (a) when one pass holds
-// hid, else formed again), dz = ds w2 (1 - h^2), the column sums of dz and
-// ds h into shared memory (each column and row half owned by one thread:
-// deterministic) and dz through a tile in the stages' space to the
-// workspace [B, N, hid_p] (the padded columns' dz are 0): f32 in f32, bf16
-// rounded to bf16 (the TPU kernel's rounding of dz), precise as bf16 hi + lo
-// (vlsa_tpu/ops/abmil.py:99-111, :250-253),
+// and meets its (m, l) exactly), past hid_p = kSmemHid each pass's b1 and
+// w2 staged at its start;
+// (b) g . x of each row, its x re-read from L2 against g in shared memory
+// (in blocks of kSmemD channels past kSmemD, each lane's sum carried from
+// block to block in one order), and a, ds; (c) pass by pass, h (kept from
+// (a) when one pass holds hid, else formed again), dz = ds w2 (1 - h^2), the
+// column sums of dz and ds h into shared memory, past hid_p = kSmemHid the
+// block's own rows of ws_sums [4][hid_p] in device memory (each column and
+// row half owned by one thread, added tile after tile: deterministic) and dz through a tile in the stages'
+// space to the workspace [B, N, hid_p] (the padded columns' dz are 0): f32
+// in f32, bf16 rounded to bf16 (the TPU kernel's rounding of dz), precise as
+// bf16 hi + lo (vlsa_tpu/ops/abmil.py:99-111, :250-253),
 // int8 s dz as bf16 hi + lo; (d) with dX, a g + dz . W1 (precise: dz hi . W1
 // + dz lo . W1, W1 rounded to bf16 once, as vlsa_tpu's _dz_w1_matmul) in
 // blocks of kDxCols columns, dz's and W1's slices of kJG hid rows through
 // the same 2 stages (dz re-read from L2: this block just wrote it).  dX
 // blocks of 128 columns keep its registers within 255 without spills (256
-// columns, with 256-column passes, spilled 16-440 bytes: PERF.md).
+// columns, with 256-column passes, spilled 16-440 bytes: PERF.md).  No
+// shared-memory size grows with hid past kSmemHid, nor with D past kSmemD.
 constexpr int kJG = 32;        // hid rows a slice of the general dX product
 constexpr int kDxCols = 128;   // dX columns a block of it: 8 warps, 2 x 4, of 32 x 32
 constexpr int kNTx = kDxCols / 32;  // n8 tiles of a warp's dX columns
+constexpr int kRowsW = kGenM / kWarps;  // rows of the tile a warp takes in (b)
 
 template <GOp OP, int HP>
 struct DzSmemG {
@@ -961,28 +967,33 @@ struct DzSmemG {
     static constexpr size_t red = round128(2 * kStage > kPlanes * kTile ? 2 * kStage
                                                                         : kPlanes * kTile);
     static constexpr size_t rows = red + 4 * (size_t)kGenM * 4;  // logit, valid, s, g.x, a, ds; g.out
-    // sized at run time: b1, w2 [hid_p] (zero past hid), the column sums
-    // [4][hid_p], g [D] (zero-filled to a multiple of 4)
+    // sized at run time: b1, w2 [hid_p] (zero past hid) and the column sums
+    // [4][hid_p] where hid_in_smem(hid_p), else b1, w2 [HP] (the pass's
+    // columns); then g [min(D, kSmemD)] (zero-filled to a multiple of 4)
     static constexpr size_t vecs = rows + (6 * (size_t)kGenM + 4) * 4;
+    __host__ __device__ static constexpr size_t g(int hid_p) {
+        return vecs + (hid_in_smem(hid_p) ? 6 * (size_t)hid_p : 2 * (size_t)HP) * 4;
+    }
     static constexpr size_t total(int D, int hid_p) {
-        return vecs + (6 * (size_t)hid_p + round4((size_t)D)) * 4;
+        return g(hid_p) + round4((size_t)(D < kSmemD ? D : kSmemD)) * 4;
     }
 };
-static_assert(DzSmemG<GOp::kBf16P, gen_max_pass(GOp::kBf16P)>::total(kGenMaxD, kGenMaxHid) <=
+static_assert(DzSmemG<GOp::kBf16P, gen_max_pass(GOp::kBf16P)>::total(kSmemD, kSmemHid) <=
                       kSmemOptin &&
-                  DzSmemG<GOp::kF32, gen_max_pass(GOp::kF32)>::total(kGenMaxD, kGenMaxHid) <=
+                  DzSmemG<GOp::kF32, gen_max_pass(GOp::kF32)>::total(kSmemD, kSmemHid) <=
                       kSmemOptin,
-              "the general pass 1 fits a block at kGenMaxD, kGenMaxHid");
+              "the general pass 1 fits a block at every width");
 
-// This lane's share of g . x over a row of D values (pairs 2 lane + 64 k);
-// at an odd D (ODD) value D and gs[D] are 0.
+// This lane's share of g . x over the channels [c0, c1) of a row of D
+// values (pairs 2 lane + 64 k), gs holding g's channels from c0, added to s
+// (c0 a multiple of 64: a lane's pairs continue from block to block); at an
+// odd D (ODD) value D and its g are 0.
 template <GOp OP, bool ODD>
 __device__ __forceinline__ float lane_dot_g(const unsigned char* __restrict__ xr,
-                                            const float* gs, int D) {
-    float s = 0.f;
-    for (int c = 2 * (threadIdx.x & 31); c < D; c += 64) {
+                                            const float* gs, int c0, int c1, int D, float s) {
+    for (int c = c0 + 2 * (threadIdx.x & 31); c < c1; c += 64) {
         const float2 v = load_pair_at<OP, ODD>(xr, c, D);
-        s = fmaf(gs[c], v.x, fmaf(gs[c + 1], v.y, s));
+        s = fmaf(gs[c - c0], v.x, fmaf(gs[c - c0 + 1], v.y, s));
     }
     return s;
 }
@@ -1001,8 +1012,8 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
                      const float* __restrict__ out, const float* __restrict__ m,
                      const float* __restrict__ l, int N, int D, int hid, int hid_p, int ld,
                      int chunk, int S, int with_dx, void* __restrict__ dz, void* __restrict__ dz_lo,
-                     float* __restrict__ ws_db1, float* __restrict__ ws_dw2,
-                     void* __restrict__ dx) {
+                     float* __restrict__ ws_sums, float* __restrict__ ws_db1,
+                     float* __restrict__ ws_dw2, void* __restrict__ dx) {
     using G = Gen<OP, HP>;
     using L = DzSmemG<OP, HP>;
     using Z = typename std::conditional<G::F32, float, __nv_bfloat16>::type;  // dz's, dX's type
@@ -1019,10 +1030,10 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
     float* a_s = gx_s + kGenM;
     float* ds_s = a_s + kGenM;
     float* gout_s = ds_s + kGenM;
+    const bool hid_smem = hid_in_smem(hid_p);  // every column's b1, w2 and sums held
     float* b1s = reinterpret_cast<float*>(smem + L::vecs);
-    float* w2s = b1s + hid_p;
-    float* sums = w2s + hid_p;  // [4][hid_p]: db1 (wm 0, 1), dw2 (wm 0, 1)
-    float* gs = sums + 4 * hid_p;
+    float* w2s = b1s + (hid_smem ? hid_p : HP);
+    float* gs = reinterpret_cast<float*>(smem + L::g(hid_p));
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gq = lane >> 2, tq = lane & 3, wm = warp & 1, wn = warp >> 1;
@@ -1038,14 +1049,24 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
     const float m_b = m[b], l_b = l[b];
     const float sw = G::I8 ? *w1_scale : 1.f;
     const int npass = hid_p / HP;
+    const size_t part = (size_t)b * S + split;
+    // the block's column sums [4][hid_p]: db1 (wm 0, 1), dw2 (wm 0, 1), in
+    // shared memory after w2, else in its rows of ws_sums
+    float* sums = hid_smem ? w2s + hid_p : ws_sums + part * 4 * hid_p;
+    const bool g_smem = d_in_smem(D);  // g stays in gs; else a block of it at a time
 
-    for (int j = tid; j < hid_p; j += kThreads) {
-        b1s[j] = j < hid ? b1[j] : 0.f;
-        w2s[j] = j < hid ? w2[j] : 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sums[q * hid_p + j] = 0.f;
+    if (hid_smem) {
+        for (int j = tid; j < hid_p; j += kThreads) {
+            b1s[j] = j < hid ? b1[j] : 0.f;
+            w2s[j] = j < hid ? w2[j] : 0.f;
+        }
     }
-    for (int k = tid; k < (int)round4((size_t)D); k += kThreads) gs[k] = k < D ? gb[k] : 0.f;
+    for (int j = tid; j < 4 * hid_p; j += kThreads) sums[j] = 0.f;
+    if (g_smem) {
+        for (int k = tid; k < (int)round4((size_t)D); k += kThreads) gs[k] = k < D ? gb[k] : 0.f;
+    }
+    // g's channel c (c < D + 1), from gs or device memory
+    auto g_at = [&](int c) { return g_smem ? gs[c] : (c < D ? gb[c] : 0.f); };
     if (warp == 0) {
         float s = 0.f;
         for (int c = lane; c < D; c += 32) s += gb[c] * out[(size_t)b * D + c];
@@ -1065,24 +1086,43 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
         // (a) the logits
 #pragma unroll 1
         for (int j0 = 0; j0 < hid_p; j0 += HP) {
+            if (!hid_smem) stage_pass_vecs<HP>(b1, w2, hid, j0, b1s, w2s);
             gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, w_bytes, wh, wl, j0, sw, stages);
-            gen_tanh_logit<NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
+            gen_tanh_logit<NT, G::I8>(acc, b1s, w2s, hid_smem ? j0 : 0, sc_s, red);
             __syncthreads();
             if (tid < kGenM) {
                 logit_s[tid] += (red[tid] + red[kGenM + tid]) +
                                 (red[2 * kGenM + tid] + red[3 * kGenM + tid]);
             }
         }
-        // (b) g . x of the warp's rows, then a and ds
+        // (b) g . x of the warp's rows, g a block of kSmemD channels at a
+        // time (one block where D <= kSmemD, staged once), then a and ds
+        float gx[kRowsW];
+#pragma unroll
+        for (int i = 0; i < kRowsW; ++i) gx[i] = 0.f;
 #pragma unroll 1
-        for (int r = warp * (kGenM / kWarps); r < (warp + 1) * (kGenM / kWarps); ++r) {
-            float s = 0.f;
-            if (t0 + r < n_end) {
-                const unsigned char* xr = xb + (size_t)(t0 + r) * row_bytes;
-                s = (D & 1) ? lane_dot_g<OP, true>(xr, gs, D)
-                            : lane_dot_g<OP, false>(xr, gs, D);
+        for (int c0 = 0; c0 < D; c0 += kSmemD) {
+            const int c1 = min(D, c0 + kSmemD);
+            if (!g_smem) {
+                __syncthreads();  // every warp is done with the previous block
+                for (int k = tid; k < (int)round4((size_t)(c1 - c0)); k += kThreads)
+                    gs[k] = c0 + k < D ? gb[c0 + k] : 0.f;
+                __syncthreads();
             }
-            s = warp_sum(s);
+#pragma unroll
+            for (int i = 0; i < kRowsW; ++i) {
+                const int r = warp * kRowsW + i;
+                if (t0 + r < n_end) {
+                    const unsigned char* xr = xb + (size_t)(t0 + r) * row_bytes;
+                    gx[i] = (D & 1) ? lane_dot_g<OP, true>(xr, gs, c0, c1, D, gx[i])
+                                    : lane_dot_g<OP, false>(xr, gs, c0, c1, D, gx[i]);
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < kRowsW; ++i) {
+            const int r = warp * kRowsW + i;
+            const float s = warp_sum(gx[i]);
             if (lane == 0) gx_s[r] = G::I8 ? s * sc_s[r] : s;
         }
         __syncthreads();
@@ -1098,14 +1138,16 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
 #pragma unroll 1
         for (int j0 = 0; j0 < hid_p; j0 += HP) {
             if (npass > 1) {
+                if (!hid_smem) stage_pass_vecs<HP>(b1, w2, hid, j0, b1s, w2s);
                 gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, w_bytes, wh, wl, j0, sw,
                                       stages);
-                gen_tanh_logit<NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
+                gen_tanh_logit<NT, G::I8>(acc, b1s, w2s, hid_smem ? j0 : 0, sc_s, red);
             }
+            const float* w2p = hid_smem ? w2s + j0 : w2s;  // the pass's w2
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
                 const int jl = 8 * NT * wn + 8 * nt + 2 * tq, j = j0 + jl;
-                const float u0 = w2s[j], u1 = w2s[j + 1];
+                const float u0 = w2p[jl], u1 = w2p[jl + 1];
                 float db0 = 0.f, db1v = 0.f, dw0 = 0.f, dw1v = 0.f;
 #pragma unroll
                 for (int mt = 0; mt < kMT; ++mt)
@@ -1253,8 +1295,8 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
                                 const int c = d0 + 32 * wn + 8 * nt + 2 * tq;
                                 if (t0 + r < n_end && c < D) {
                                     const float a = a_s[r];
-                                    const float v0 = fmaf(a, gs[c], dacc[mt][nt][2 * h]);
-                                    const float v1 = fmaf(a, gs[c + 1], dacc[mt][nt][2 * h + 1]);
+                                    const float v0 = fmaf(a, g_at(c), dacc[mt][nt][2 * h]);
+                                    const float v1 = fmaf(a, g_at(c + 1), dacc[mt][nt][2 * h + 1]);
                                     Z* dst = dxb + (size_t)(t0 + r) * D + c;
                                     if ((D & 1) == 0) {  // c + 1 < D, dst aligned to the pair
                                         if constexpr (G::F32) {
@@ -1276,8 +1318,7 @@ abmil_bwd_dz_general(const void* __restrict__ x, const float* __restrict__ x_sca
         }
     }
     cp_async_wait<0>();
-    __syncthreads();
-    const size_t part = (size_t)b * S + split;
+    __syncthreads();  // every thread's column sums are in
     for (int j = tid; j < hid; j += kThreads) {
         ws_db1[part * hid + j] = sums[j] + sums[hid_p + j];
         ws_dw2[part * hid + j] = sums[2 * hid_p + j] + sums[3 * hid_p + j];
@@ -1295,8 +1336,8 @@ cudaError_t launch_dz_general_hp(const void* x, const float* x_scale, const uint
                                  const void* w1dx, const float* b1, const float* w2,
                                  const float* g, const float* out, const float* m,
                                  const float* l, int B, int N, int D, int hid, int chunk, int S,
-                                 bool with_dx, void* dz, void* dz_lo, float* ws_db1,
-                                 float* ws_dw2, void* dx, cudaStream_t stream) {
+                                 bool with_dx, void* dz, void* dz_lo, float* ws_sums,
+                                 float* ws_db1, float* ws_dw2, void* dx, cudaStream_t stream) {
     auto kernel = abmil_bwd_dz_general<OP, HP>;
     const int hid_p = gen_hid_pad(hid);
     const size_t smem = DzSmemG<OP, HP>::total(D, hid_p);
@@ -1304,8 +1345,8 @@ cudaError_t launch_dz_general_hp(const void* x, const float* x_scale, const uint
     if (err != cudaSuccess) return err;
     kernel<<<dim3(S, B), kThreads, smem, stream>>>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1,
                                                    w2, g, out, m, l, N, D, hid, hid_p, gen_ld(D),
-                                                   chunk, S, with_dx ? 1 : 0, dz, dz_lo, ws_db1,
-                                                   ws_dw2, dx);
+                                                   chunk, S, with_dx ? 1 : 0, dz, dz_lo, ws_sums,
+                                                   ws_db1, ws_dw2, dx);
     return cudaGetLastError();
 }
 
@@ -1315,26 +1356,26 @@ cudaError_t launch_dz_general(int hp, const void* x, const float* x_scale, const
                               const void* w1dx, const float* b1, const float* w2, const float* g,
                               const float* out, const float* m, const float* l, int B, int N,
                               int D, int hid, int chunk, int S, bool with_dx, void* dz,
-                              void* dz_lo, float* ws_db1, float* ws_dw2, void* dx,
-                              cudaStream_t stream) {
+                              void* dz_lo, float* ws_sums, float* ws_db1, float* ws_dw2,
+                              void* dx, cudaStream_t stream) {
     // hp is gen_pass_cols': at most gen_max_pass(OP), whose instances alone exist
     if constexpr (gen_max_pass(OP) >= 256) {
         if (hp == 256) {
             return launch_dz_general_hp<OP, 256>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1,
                                                  w2, g, out, m, l, B, N, D, hid, chunk, S, with_dx,
-                                                 dz, dz_lo, ws_db1, ws_dw2, dx, stream);
+                                                 dz, dz_lo, ws_sums, ws_db1, ws_dw2, dx, stream);
         }
     }
     if constexpr (gen_max_pass(OP) >= 128) {
         if (hp == 128) {
             return launch_dz_general_hp<OP, 128>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1,
                                                  w2, g, out, m, l, B, N, D, hid, chunk, S, with_dx,
-                                                 dz, dz_lo, ws_db1, ws_dw2, dx, stream);
+                                                 dz, dz_lo, ws_sums, ws_db1, ws_dw2, dx, stream);
         }
     }
     return launch_dz_general_hp<OP, 64>(x, x_scale, mask, w1h, w1l, w1_scale, w1dx, b1, w2, g,
                                         out, m, l, B, N, D, hid, chunk, S, with_dx, dz, dz_lo,
-                                        ws_db1, ws_dw2, dx, stream);
+                                        ws_sums, ws_db1, ws_dw2, dx, stream);
 }
 
 template <GOp OP>
@@ -1417,28 +1458,30 @@ cudaError_t launch_passes_f32(const float* x, const uint8_t* mask, const float* 
 
 // Any other width, or bf16's precise mode: W1 for the h product in w1_ws,
 // laid out [hid_p, ld] (f32: its padded copy; bf16: its rounding, precise: hi and lo; int8: the forward's
-// int8 split, its scales in w1_scale), the general pass 1, then pass 2 over
-// the dz planes [B, N, hid_p] (f32; bf16; precise and int8 two planes).
+// int8 split, its scales in w1_scale), the general pass 1 (its blocks'
+// column sums in ws_sums [B * S1, 4, hid_p]), then pass 2 over the dz planes
+// [B, N, hid_p] (f32; bf16; precise and int8 two planes).
 cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* mask,
                            const float* w1, const float* b1, const float* w2, const float* g,
                            const float* out, const float* m, const float* l, int B, int N, int D,
                            int hid, int chunk1, int S1, int chunk2, int S2, int storage,
                            bool precise, bool with_dx, void* w1_ws, float* w1_scale, void* ds,
-                           void* dx, float* ws_dw1, float* ws_db1, float* ws_dw2,
-                           cudaStream_t stream) {
+                           void* dx, float* ws_dw1, float* ws_sums, float* ws_db1,
+                           float* ws_dw2, cudaStream_t stream) {
     const int hid_p = gen_hid_pad(hid), ld = gen_ld(D);
-    const int n = hid_p * ld;
+    const size_t n = (size_t)hid_p * ld;
     const int hp = gen_pass_cols(storage, hid);
     const size_t plane = (size_t)B * N * hid_p;
     const dim3 grid2(dw_tiles(D, hid), S2);
     cudaError_t err;
     if (storage == kF32) {
         float* wf = static_cast<float*>(w1_ws);
-        pad_w1<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(w1, wf, hid, D, ld, n);
+        pad_w1<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(w1, wf, hid,
+                                                                                   D, ld, n);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
         err = launch_dz_general<GOp::kF32>(hp, x, nullptr, mask, wf, nullptr, nullptr, wf, b1, w2,
                                            g, out, m, l, B, N, D, hid, chunk1, S1, with_dx, ds,
-                                           nullptr, ws_db1, ws_dw2, dx, stream);
+                                           nullptr, ws_sums, ws_db1, ws_dw2, dx, stream);
         if (err != cudaSuccess) return err;
         const size_t smem2 = dw_smem_bytes<float, false>();
         auto k2 = (D % 4 == 0) ? abmil_bwd_dw_f32<true> : abmil_bwd_dw_f32<false>;
@@ -1455,7 +1498,8 @@ cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* m
         if (err != cudaSuccess) return err;
         err = launch_dz_general<GOp::kI8>(hp, x, x_scale, mask, w1_i8, w1_i8 + n, w1_scale,
                                           nullptr, b1, w2, g, out, m, l, B, N, D, hid, chunk1, S1,
-                                          false, dzb, dzb + plane, ws_db1, ws_dw2, nullptr, stream);
+                                          false, dzb, dzb + plane, ws_sums, ws_db1, ws_dw2,
+                                          nullptr, stream);
         if (err != cudaSuccess) return err;
         const size_t smem2 = dw_smem_bytes<int8_t, true>();
         auto k2 = (D % 16 == 0) ? abmil_bwd_dw_i8<true> : abmil_bwd_dw_i8<false>;
@@ -1472,8 +1516,8 @@ cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* m
     if (precise) {
         err = launch_dz_general<GOp::kBf16P>(hp, x, nullptr, mask, w1_bf16, w1_bf16 + n, nullptr,
                                              w1_bf16, b1, w2, g, out, m, l, B, N, D, hid, chunk1,
-                                             S1, with_dx, dzb, dzb + plane, ws_db1, ws_dw2, dx,
-                                             stream);
+                                             S1, with_dx, dzb, dzb + plane, ws_sums, ws_db1,
+                                             ws_dw2, dx, stream);
         if (err != cudaSuccess) return err;
         const size_t smem2 = dw_smem_bytes<__nv_bfloat16, true>();
         auto k2 = (D % 8 == 0) ? abmil_bwd_dw_bf16_split<true> : abmil_bwd_dw_bf16_split<false>;
@@ -1484,7 +1528,7 @@ cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* m
     }
     err = launch_dz_general<GOp::kBf16>(hp, x, nullptr, mask, w1_bf16, nullptr, nullptr, w1_bf16,
                                         b1, w2, g, out, m, l, B, N, D, hid, chunk1, S1, with_dx,
-                                        dzb, nullptr, ws_db1, ws_dw2, dx, stream);
+                                        dzb, nullptr, ws_sums, ws_db1, ws_dw2, dx, stream);
     if (err != cudaSuccess) return err;
     const size_t smem2 = dw_smem_bytes<__nv_bfloat16, false>();
     auto k2 = (D % 8 == 0) ? abmil_bwd_dw_bf16<true> : abmil_bwd_dw_bf16<false>;
@@ -1535,7 +1579,8 @@ size_t abmil_bwd_smem_bytes(int storage, int D, int hid, int precise, int pass) 
 // ds the dz workspace, [B, N, hid'] f32 (f32) or bf16 (bf16), or [2, B, N,
 // hid'] bf16 (int8: s dz's hi and lo; precise: dz's), hid' = hid_p on the
 // general instances; ws_dw1 [S2, hid, D], ws_db1 and ws_dw2 [B * S1, hid]
-// f32.  Outputs: dx [B, N, D] in the storage type when with_dx (f32 and
+// f32; ws_sums [B * S1, 4, hid'] f32 on the general instances past hid' =
+// kSmemHid (pass 1's column sums), else null.  Outputs: dx [B, N, D] in the storage type when with_dx (f32 and
 // bf16 only; else null), dw1 [hid, D], db1 and dw2 [hid] f32.  All on CUDA
 // device `device`; the kernels go to `stream`.  Returns the launches'
 // cudaError_t (0 on success).
@@ -1543,17 +1588,19 @@ int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* 
               const void* b1, const void* w2, const void* g, const void* out, const void* m,
               const void* l, int B, int N, int D, int hid, int chunk1, int S1, int chunk2, int S2,
               int storage, int precise, int with_dx, int device, void* w1_ws, void* w1_scale,
-              void* ds, void* ws_dw1, void* ws_db1, void* ws_dw2, void* dx, void* dw1, void* db1,
-              void* dw2, void* stream) {
+              void* ds, void* ws_dw1, void* ws_sums, void* ws_db1, void* ws_dw2, void* dx,
+              void* dw1, void* db1, void* dw2, void* stream) {
     const bool is_precise = precise != 0 && storage == kBF16;
     const bool special = special_widths(storage, D, hid, is_precise);
     const bool gen_i8 = storage == kI8 && !special;
     const bool needs_ws = storage != kF32 || !special;
+    const bool sums_ws = !special && !hid_in_smem(gen_hid_pad(hid));
     if (B < 1 || N < 1 || S1 < 1 || S2 < 1 || chunk1 < 1 || chunk2 < 1 || !widths_ok(D, hid)
         || (storage != kF32 && storage != kBF16 && storage != kI8)
         || needs_ws != (w1_ws != nullptr) || gen_i8 != (w1_scale != nullptr)
         || (storage == kI8) != (x_scale != nullptr)
-        || (with_dx != 0) != (dx != nullptr) || (with_dx && storage == kI8)) {
+        || (with_dx != 0) != (dx != nullptr) || (with_dx && storage == kI8)
+        || sums_ws != (ws_sums != nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     cudaError_t err = cudaSetDevice(device);
@@ -1576,7 +1623,8 @@ int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* 
     if (!special) {
         err = launch_general(x, xs, mk, w1f, b1f, w2f, gf, of, mf, lf, B, N, D, hid, chunk1, S1,
                              chunk2, S2, storage, is_precise, with_dx != 0, w1_ws,
-                             static_cast<float*>(w1_scale), ds, dx, w_dw1, w_db1, w_dw2, st);
+                             static_cast<float*>(w1_scale), ds, dx, w_dw1,
+                             static_cast<float*>(ws_sums), w_db1, w_dw2, st);
     } else if (storage == kF32) {
         err = launch_passes_f32(static_cast<const float*>(x), mk, w1f, b1f, w2f, gf, of, mf,
                                 lf, B, N, chunk1, S1, chunk2, S2, with_dx != 0,
@@ -1598,8 +1646,8 @@ int abmil_bwd(const void* x, const void* x_scale, const void* mask, const void* 
         }
     }
     if (err != cudaSuccess) return (int)err;
-    const int total = hid * D + 2 * hid;
-    abmil_bwd_reduce<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+    const size_t total = (size_t)hid * D + 2 * (size_t)hid;
+    abmil_bwd_reduce<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
         w_dw1, w_db1, w_dw2, S2, B * S1, D, hid, static_cast<float*>(dw1),
         static_cast<float*>(db1), static_cast<float*>(dw2));
     return (int)cudaGetLastError();

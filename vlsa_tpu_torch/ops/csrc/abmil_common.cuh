@@ -435,17 +435,17 @@ __device__ __forceinline__ void h_product(float (&acc)[MT][kNT][4], const T* __r
 // Entry i of W1 laid out [rows][ld] from W1 [hid, D] f32: zero past hid
 // rows and past D columns (the general instances' padded workspaces; at ld =
 // D and rows = hid, W1 itself).
-__device__ __forceinline__ float w1_at(const float* __restrict__ w1, int i, int hid, int D,
+__device__ __forceinline__ float w1_at(const float* __restrict__ w1, size_t i, int hid, int D,
                                        int ld) {
-    const int j = i / ld, k = i - (i / ld) * ld;
+    const int j = (int)(i / ld), k = (int)(i - (i / ld) * ld);
     return j < hid && k < D ? w1[(size_t)j * D + k] : 0.f;
 }
 
 // W1 -> its bf16 rounding hi [n = rows * ld] and, when lo is given, the bf16
 // rounding of the residual w - hi (bf16 and int8 storage).
 __global__ void prep_w1(const float* __restrict__ w1, __nv_bfloat16* __restrict__ hi,
-                        __nv_bfloat16* __restrict__ lo, int hid, int D, int ld, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                        __nv_bfloat16* __restrict__ lo, int hid, int D, int ld, size_t n) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float w = w1_at(w1, i, hid, D, ld);
     const __nv_bfloat16 h = __float2bfloat16(w);
@@ -457,8 +457,8 @@ __global__ void prep_w1(const float* __restrict__ w1, __nv_bfloat16* __restrict_
 // bf16 rounding rows * ld entries on.
 inline cudaError_t launch_prep_w1(const float* w1, __nv_bfloat16* w1_bf16, bool split, int hid,
                                   int D, int rows, int ld, cudaStream_t stream) {
-    const int n = rows * ld;
-    prep_w1<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+    const size_t n = (size_t)rows * ld;
+    prep_w1<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
         w1, w1_bf16, split ? w1_bf16 + n : nullptr, hid, D, ld, n);
     return cudaGetLastError();
 }
@@ -466,8 +466,8 @@ inline cudaError_t launch_prep_w1(const float* w1, __nv_bfloat16* w1_bf16, bool 
 // W1 [hid, D] f32 copied into out [rows, ld], zero-padded (f32 storage on
 // the general instances).
 __global__ void pad_w1(const float* __restrict__ w1, float* __restrict__ out, int hid, int D,
-                       int ld, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                       int ld, size_t n) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n) out[i] = w1_at(w1, i, hid, D, ld);
 }
 
@@ -478,13 +478,13 @@ constexpr int kAmaxBlocks = 64;  // partial maxima of |W1|
 // Partial maxima of |W1| [n]: block k of kAmaxBlocks writes the max over its
 // ceil(n / kAmaxBlocks) entries (fewer or none at the end) to part[k].  A max
 // is exact in any order.
-__global__ void __launch_bounds__(kThreads) w1_absmax(const float* __restrict__ w1, int n,
+__global__ void __launch_bounds__(kThreads) w1_absmax(const float* __restrict__ w1, size_t n,
                                                       float* __restrict__ part) {
-    const int per = (n + kAmaxBlocks - 1) / kAmaxBlocks;
-    const int begin = blockIdx.x * per, end = min(n, begin + per);
+    const size_t per = (n + kAmaxBlocks - 1) / kAmaxBlocks;
+    const size_t begin = blockIdx.x * per, end = min(n, begin + per);
     __shared__ float warp_m[kWarps];
     float m = 0.f;
-    for (int i = begin + threadIdx.x; i < end; i += kThreads) m = fmaxf(m, fabsf(w1[i]));
+    for (size_t i = begin + threadIdx.x; i < end; i += kThreads) m = fmaxf(m, fabsf(w1[i]));
     m = warp_max(m);
     if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x >> 5] = m;
     __syncthreads();
@@ -506,7 +506,7 @@ __global__ void __launch_bounds__(kThreads) prep_w1_i8(const float* __restrict__
                                                        int8_t* __restrict__ hi,
                                                        int8_t* __restrict__ lo,
                                                        float* __restrict__ scale, int hid, int D,
-                                                       int ld, int n) {
+                                                       int ld, size_t n) {
     static_assert(kAmaxBlocks == 64, "two partial maxima a lane");
     __shared__ float inv_s;
     if (threadIdx.x < 32) {
@@ -518,7 +518,7 @@ __global__ void __launch_bounds__(kThreads) prep_w1_i8(const float* __restrict__
         }
     }
     __syncthreads();
-    const int i = blockIdx.x * kThreads + threadIdx.x;
+    const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
     if (i >= n) return;
     const float v = __fmul_rn(w1_at(w1, i, hid, D, ld), inv_s);
     const float h = rintf(v);
@@ -531,21 +531,21 @@ __global__ void __launch_bounds__(kThreads) prep_w1_i8(const float* __restrict__
 // hid and D (the partial maxima and the split cover every entry).
 inline cudaError_t launch_split_w1_i8(const float* w1, int hid, int D, int rows, int ld,
                                       int8_t* hi, float* scale, cudaStream_t stream) {
-    w1_absmax<<<kAmaxBlocks, kThreads, 0, stream>>>(w1, hid * D, scale + 1);
+    w1_absmax<<<kAmaxBlocks, kThreads, 0, stream>>>(w1, (size_t)hid * D, scale + 1);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const int n = rows * ld;
-    prep_w1_i8<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(w1, scale + 1, hi, hi + n,
-                                                                        scale, hid, D, ld, n);
+    const size_t n = (size_t)rows * ld;
+    prep_w1_i8<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        w1, scale + 1, hi, hi + n, scale, hid, D, ld, n);
     return cudaGetLastError();
 }
 
 // ------------------------------------------------ any width: the general instances
 //
 // The instances above are built for D = 512, hid = 256 (kD, kHid) and keep
-// the x tile resident.  Every other width the pooling takes -- any D in [1,
-// kGenMaxD] and hid in [1, kGenMaxHid] (ops/abmil.py::kernel_widths_ok) --
-// and bf16's precise mode go to the general instances: tiles of kGenM = 64
+// the x tile resident.  Every other width the pooling takes -- any D >= 1
+// and hid >= 1, as the TPU kernels, which tile only N, take any -- and
+// bf16's precise mode go to the general instances: tiles of kGenM = 64
 // patches, x never resident.  W1 reaches them as a workspace laid out
 // [hid_p, ld] in the product's operand type, zero past hid and D (hid_p =
 // gen_hid_pad(hid), ld = gen_ld(D); f32 at a width that needs no padding
@@ -555,7 +555,14 @@ inline cudaError_t launch_split_w1_i8(const float* w1, int hid, int D, int rows,
 // of kSB bytes a row through 2 cp.async stages, in passes of HP hid columns
 // (hid_p = npass HP): the logit is separable over hid, sum_j tanh(h_pre_j +
 // b1_j) w2_j, so each pass folds its columns into the row's logit before the
-// next re-streams the tile's x slices (from L2: the tile was just read).  x's
+// next re-streams the tile's x slices (from L2: the tile was just read).  A
+// block keeps b1 and w2 of all hid_p columns (and the backward's column
+// sums) in shared memory up to hid_p = kSmemHid, and past that only the
+// pass's HP values of b1 and w2 (loaded at each pass), the column sums in
+// device memory; D's vectors (the forward's PV sums, the backward's g) stay
+// in shared memory up to kSmemD channels and past that are read and written
+// in device memory (L2), each value by one thread.  So no width is refused,
+// and the widths that fit keep their shared-memory layout.  x's
 // rows (D values, not padded) end in a slice whose tail is zero-filled;
 // rows that are not 16-byte aligned (D * item not a multiple of 16) are
 // copied into the stages by plain loads of one value each (copy16).  8
@@ -567,26 +574,27 @@ inline cudaError_t launch_split_w1_i8(const float* w1, int hid, int D, int rows,
 //   kBf16P: precise mode (vlsa_tpu/ops/abmil.py:74-97): W1 as bf16 hi + lo,
 //           two products into one f32 accumulator;
 //   kI8:    raw int8 x by W1's int8 hi and lo (launch_split_w1_i8), mma.sync
-//           m16n8k32 into exact int32 P_hi and P_lo (|P| <= kGenMaxD * 127^2
-//           < 2^31), then h_unit = s_w (P_hi + P_lo / 254), as
-//           ops/abmil.py::abmil_fwd_rounded; slices of 64 bytes, HP <= 128
-//           (two accumulators).
-// The widths are bounded by shared memory: a block holds b1, w2 and (the
-// backward) the column sums [4] of hid_p values and g's D, beside the
-// stages; at kGenMaxD and kGenMaxHid the largest instance (bf16 precise,
-// 256-column passes) takes 225,808 bytes of the card's 232,448
-// (abmil_bwd.cu checks it at compile time).
+//           m16n8k32 into int32 P_hi and P_lo, then h_unit = s_w (P_hi +
+//           P_lo / 254), as ops/abmil.py::abmil_fwd_rounded; slices of 64
+//           bytes, HP <= 128 (two accumulators).  |P| <= D * 128 * 127 is
+//           exact in int32 up to D = 132,104; past that it wraps, as
+//           vlsa_tpu's own int32 product does (vlsa_tpu/ops/coattn.py:214).
 constexpr int kGenM = 64;
-constexpr int kGenMaxD = 8192;
-constexpr int kGenMaxHid = 1024;
+constexpr int kSmemD = 8192;      // the widest D whose vectors a block keeps in shared memory
+constexpr int kSmemHid = 1024;    // the widest hid_p whose vectors a block keeps there
 constexpr int kSmemOptin = 232448;  // an H100 block's dynamic shared memory
 
 enum class GOp { kF32, kBf16, kBf16P, kI8 };
 
-// (D, hid) a width the kernels take (ops/abmil.py::kernel_widths_ok).
-inline bool widths_ok(int D, int hid) {
-    return D >= 1 && D <= kGenMaxD && hid >= 1 && hid <= kGenMaxHid;
-}
+// (D, hid) a width the kernels take (ops/abmil.py::kernel_widths_ok): any.
+inline bool widths_ok(int D, int hid) { return D >= 1 && hid >= 1; }
+
+// D's vectors in shared memory (D <= kSmemD), else in device memory.
+__host__ __device__ constexpr bool d_in_smem(int D) { return D <= kSmemD; }
+
+// b1, w2 (and the backward's column sums) of all hid_p columns in shared
+// memory (hid_p <= kSmemHid), else a pass's b1 and w2 at a time.
+__host__ __device__ constexpr bool hid_in_smem(int hid_p) { return hid_p <= kSmemHid; }
 
 // The D = 512, hid = 256 instances take a call (every storage at that width
 // but bf16 in precise mode); else the general ones.
@@ -868,7 +876,23 @@ __device__ __forceinline__ void gen_h_product(float (&acc)[kMT][HP / 32][4],
 // From gen_h_product's accumulators (pass columns from j0): acc becomes
 // tanh(s_r acc + b1) in place (s_r the row's dequant scale from rs, int8;
 // else 1), and each row's partial logit over the warp's columns goes to
-// red[wn][row] ([4][kGenM]).  b1s, w2s: b1 and w2 [hid] in shared memory.
+// red[wn][row] ([4][kGenM]).  b1s, w2s: b1 and w2 in shared memory, column
+// j0 + j at index j0 + j (all hid_p columns held), or at j (the pass's own
+// slices, passed with j0 = 0).
+// The pass's columns [j0, j0 + HP) of b1 and w2 into b1s, w2s [HP] (zero
+// past hid).  The caller synchronises before they are read, and after the
+// last read of the previous pass's.
+template <int HP>
+__device__ __forceinline__ void stage_pass_vecs(const float* __restrict__ b1,
+                                                const float* __restrict__ w2, int hid, int j0,
+                                                float* b1s, float* w2s) {
+    for (int j = threadIdx.x; j < HP; j += kThreads) {
+        const bool ok = j0 + j < hid;
+        b1s[j] = ok ? b1[j0 + j] : 0.f;
+        w2s[j] = ok ? w2[j0 + j] : 0.f;
+    }
+}
+
 template <int NT, bool SCALED>
 __device__ __forceinline__ void gen_tanh_logit(float (&acc)[kMT][NT][4], const float* b1s,
                                                const float* w2s, int j0, const float* rs,

@@ -69,11 +69,11 @@
 //     registers: 8 warps of 32 rows x 64 hid columns, 64 accumulators a
 //     thread; tanh, the w2 dot and the quad and warp sums of the logit run
 //     on the fragments.  209 KB of shared memory: one block per SM.
-//   Both are built for D = 512, hid = 256.  Every other width (any D up to
-//   kGenMaxD = 8192, any hid up to kGenMaxHid = 1024) and bf16 in vlsa_tpu's
-//   precise mode (W1 as bf16 hi + lo) run abmil_fwd_general: tiles of 64
-//   patches on mma.sync, x streamed, W1 from a workspace padded to whole
-//   passes and slices (see the note above that kernel).
+//   Both are built for D = 512, hid = 256.  Every other width (any D >= 1,
+//   any hid >= 1) and bf16 in vlsa_tpu's precise mode (W1 as bf16 hi + lo)
+//   run abmil_fwd_general: tiles of 64 patches on mma.sync, x streamed, W1
+//   from a workspace padded to whole passes and slices (see the note above
+//   that kernel).
 //
 // Design.  The TPU grid walks N in order and carries (m, l, acc) in VMEM.
 // Hopper runs blocks in parallel, so each bag's patches are split over S
@@ -683,32 +683,39 @@ cudaError_t launch_partial_f32(const float* x, const uint8_t* mask, const float*
 // Every (D, hid) but 512, 256 and bf16's precise mode (abmil_common.cuh's
 // general instances): tiles of kGenM = 64 patches, the h product in passes
 // of HP hid columns streaming x's and W1's slices (gen_h_product), each
-// pass folding its columns into the rows' logits; then the online softmax,
-// and the PV sum re-reading the tile's rows, L2-hot, by plain loads, in
-// blocks of kPvCols channels: each thread sums the channel pairs 2 (tid +
-// 256 i), i < kPvPairs, of a block in registers and folds them into the
-// block's running sums in shared memory (pv [D], each entry owned by one
-// thread).  x is read from device memory once, from L2 npass + 1 times.
+// pass folding its columns into the rows' logits (past hid_p = kSmemHid,
+// b1's and w2's HP values of the pass staged at its start); then the online
+// softmax, and the PV sum
+// re-reading the tile's rows, L2-hot, by plain loads, in blocks of kPvCols
+// channels: each thread sums the channel pairs 2 (tid + 256 i), i <
+// kPvPairs, of a block in registers and folds them into the block's running
+// sums, pv [D], each entry owned by one thread: in shared memory up to
+// kSmemD channels, past that in the block's own row of ws_acc in device
+// memory (its partial's row, written there in place).  x is read from
+// device memory once, from L2 npass + 1 times.
 
 // Shared memory: 2 stages, the logits' partials [4][kGenM], then logit, p,
-// valid, s [kGenM] and 4 stats; then, sized at run time, b1 and w2
-// [hid_p] (zero past hid) and pv [D].
+// valid, s [kGenM] and 4 stats; then, sized at run time, b1 and w2 [hid_p]
+// (zero past hid) where hid_in_smem(hid_p), else [HP] (the pass's columns),
+// and pv [D] where D <= kSmemD.
 template <GOp OP, int HP>
 struct FwdSmemG {
     static constexpr size_t w = 0;
     static constexpr size_t red = 2 * Gen<OP, HP>::kStage;
     static constexpr size_t rows = red + 4 * (size_t)kGenM * 4;
     static constexpr size_t vecs = rows + (4 * (size_t)kGenM + 4) * 4;
+    __host__ __device__ static constexpr size_t pv(int hid_p) {
+        return vecs + 2 * (size_t)(hid_in_smem(hid_p) ? hid_p : HP) * 4;
+    }
     static constexpr size_t total(int D, int hid_p) {
-        return vecs + (2 * (size_t)hid_p + round4((size_t)D)) * 4;
+        return pv(hid_p) + (d_in_smem(D) ? round4((size_t)D) : 0) * 4;
     }
 };
-static_assert(FwdSmemG<GOp::kF32, gen_max_pass(GOp::kF32)>::total(kGenMaxD, kGenMaxHid) <=
+static_assert(FwdSmemG<GOp::kF32, gen_max_pass(GOp::kF32)>::total(kSmemD, kSmemHid) <=
                       kSmemOptin &&
-                  FwdSmemG<GOp::kBf16P, gen_max_pass(GOp::kBf16P)>::total(kGenMaxD,
-                                                                          kGenMaxHid) <=
+                  FwdSmemG<GOp::kBf16P, gen_max_pass(GOp::kBf16P)>::total(kSmemD, kSmemHid) <=
                       kSmemOptin,
-              "the general forward fits a block at kGenMaxD, kGenMaxHid");
+              "the general forward fits a block at every width");
 
 constexpr int kPvPairs = 4;
 constexpr int kPvCols = 2 * kThreads * kPvPairs;  // 2048: channels a PV block
@@ -770,9 +777,9 @@ abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
     float* valid_s = p_s + kGenM;
     float* sc_s = valid_s + kGenM;  // int8: the rows' dequant scales
     float* stat_s = sc_s + kGenM;   // m, l, correction
+    const bool hid_smem = hid_in_smem(hid_p);  // every column's b1 and w2 held
     float* b1s = reinterpret_cast<float*>(smem + L::vecs);
-    float* w2s = b1s + hid_p;
-    float* pv_s = w2s + hid_p;
+    float* w2s = b1s + (hid_smem ? hid_p : HP);
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int split = blockIdx.x, b = blockIdx.y;
@@ -784,11 +791,17 @@ abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
     const unsigned char* wl = static_cast<const unsigned char*>(w1l);
     const uint8_t* mb = mask + (size_t)b * N;
     const float sw = G::I8 ? *w1_scale : 1.f;
+    const size_t part = (size_t)b * S + split;
+    const bool pv_smem = d_in_smem(D);
+    float* pv_s = pv_smem ? reinterpret_cast<float*>(smem + L::pv(hid_p)) : ws_acc + part * D;
 
-    for (int j = tid; j < hid_p; j += kThreads) {
-        b1s[j] = j < hid ? b1[j] : 0.f;
-        w2s[j] = j < hid ? w2[j] : 0.f;
+    if (hid_smem) {
+        for (int j = tid; j < hid_p; j += kThreads) {
+            b1s[j] = j < hid ? b1[j] : 0.f;
+            w2s[j] = j < hid ? w2[j] : 0.f;
+        }
     }
+
     // this thread's channels of pv: c, c + 1 for c = c0 + 2 (tid + kThreads i)
     for (int c0 = 0; c0 < D; c0 += kPvCols) {
 #pragma unroll
@@ -814,9 +827,10 @@ abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
         }
 #pragma unroll 1
         for (int j0 = 0; j0 < hid_p; j0 += HP) {
+            if (!hid_smem) stage_pass_vecs<HP>(b1, w2, hid, j0, b1s, w2s);
             gen_h_product<OP, HP>(acc, xb, t0, n_end, row_bytes, ld * G::kItem, wh, wl, j0, sw,
                                   smem + L::w);
-            gen_tanh_logit<G::NT, G::I8>(acc, b1s, w2s, j0, sc_s, red);
+            gen_tanh_logit<G::NT, G::I8>(acc, b1s, w2s, hid_smem ? j0 : 0, sc_s, red);
             __syncthreads();
             if (tid < kGenM) {
                 logit_s[tid] += (red[tid] + red[kGenM + tid]) +
@@ -866,11 +880,11 @@ abmil_fwd_general(const void* __restrict__ x, const float* __restrict__ x_scale,
     }
     cp_async_wait<0>();
 
-    const size_t part = (size_t)b * S + split;
     if (tid == 0) {
         ws_m[part] = stat_s[0];
         ws_l[part] = stat_s[1];
     }
+    if (!pv_smem) return;  // pv is the partial's row already
     for (int c0 = 0; c0 < D; c0 += kPvCols) {
 #pragma unroll
         for (int i = 0; i < kPvPairs; ++i) {
@@ -944,7 +958,7 @@ cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* m
                            int storage, bool precise, float* ws_m, float* ws_l, float* ws_acc,
                            cudaStream_t stream) {
     const int hid_p = gen_hid_pad(hid), ld = gen_ld(D);
-    const int n = hid_p * ld;
+    const size_t n = (size_t)hid_p * ld;
     const int hp = gen_pass_cols(storage, hid);
     cudaError_t err = cudaSuccess;
     const GOp op = gen_op(storage, precise);
@@ -957,7 +971,8 @@ cudaError_t launch_general(const void* x, const float* x_scale, const uint8_t* m
     }
     if (op == GOp::kF32) {
         float* wf = static_cast<float*>(w1_ws);
-        pad_w1<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(w1, wf, hid, D, ld, n);
+        pad_w1<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(w1, wf, hid,
+                                                                                   D, ld, n);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
         return launch_general_op<GOp::kF32>(hp, x, nullptr, mask, wf, nullptr, nullptr, b1, w2,
                                             B, N, D, hid, chunk, S, ws_m, ws_l, ws_acc, stream);

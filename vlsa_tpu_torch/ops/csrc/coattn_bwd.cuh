@@ -91,8 +91,11 @@
 //   into a per-warp dX [tile, 64] held in registers -- then writes dX - x
 //   coef once.  That dX accumulator is 64 f32 registers a thread at tiles
 //   of 32 patches (bf16); f32's split-TF32 fragments spill at 32, so f32
-//   takes 16 (loop_tile_of).  The stats of every row live in shared memory:
-//   past 8,656 queries of f32 x (10,032 of bf16) a block does not fit.
+//   takes 16 (loop_tile_of).  Each group's stats (m, 1/l and s_row = g .
+//   out, which coattn_srow forms once a call for every row) are staged with
+//   its q rows as the tile walks the groups: 16 rows in shared memory, so
+//   the block does not grow with P.  The dQ kernel past kMaxQueryGroups
+//   groups is launched a chunk of groups at a time (a.qz0, its first).
 //   x is read once a tile (wide: QG (G + 1) times); q and g are re-read
 //   from L2 for each group and tile, and the workspace rows of dq written
 //   and read back, against the one pass of the bound.
@@ -118,16 +121,13 @@ __host__ __device__ constexpr int bwd_tile_of(int storage, int P, bool with_dx) 
 }
 
 // Shared-memory carve-up of a backward block of nw warps for P queries (byte
-// offsets).  The dots' partials hold min(P, 16) rows, one query group; the
-// rows' stats hold the block's query group, or every row of the looped
-// instance.
+// offsets).  The dots' partials hold min(P, 16) rows, one query group, and
+// the rows' stats the 16 of the query group at hand.
 struct BwdSmem {
     size_t ring, conv, red, gs, w, wbytes, rows, total;
-    int stat_rows;
     __host__ __device__ BwdSmem(int nw, int storage, int P, bool with_dx) {
         const int tile = bwd_tile_of(storage, P, with_dx), ld = ld_of(tile);
         const int pr = P < kRows ? P : kRows;
-        stat_rows = loops_groups(P, with_dx) ? query_groups_of(P) * kRows : kRows;
         const size_t slice = (size_t)tile * kWarpCh * storage_itemsize(storage);
         ring = 0;                                                         // [nw][2] slices
         conv = ring + (size_t)nw * kBwdStages * slice;                    // [nw] int8 planes
@@ -138,8 +138,8 @@ struct BwdSmem {
         wbytes = storage == kF32 ? (size_t)(with_dx ? 2 : 1) * kRows * (tile + 4) * 4
                                  : (size_t)(with_dx ? 3 : 2) * kRows * ld * 2;
         rows = w + wbytes;
-        // m, 1/l, s_row [stat_rows]; coef, host inv, dequant scale [tile] f32; valid [tile]
-        total = rows + (size_t)(3 * stat_rows + 3 * tile) * 4 + tile;
+        // m, 1/l, s_row [16]; coef, host inv, dequant scale [tile] f32; valid [tile]
+        total = rows + (size_t)(3 * kRows + 3 * tile) * 4 + tile;
     }
 };
 
@@ -158,6 +158,8 @@ struct BwdArgs {
     int N, C, P, Tb, total, L;
     float* ws_dq;
     void* dx;
+    int qz0;      // the launch's first query group (grid z counts from it)
+    float* srow;  // the looped instance: s_row = g . out [B, P] (coattn_srow)
 };
 
 // The 8x8 b16 matrix of a fragment register, transposed (lane l then holds
@@ -301,6 +303,28 @@ __device__ __forceinline__ void add_rows(float* rows, int C, int P, int c, int g
     }
 }
 
+// s_row = g[b, p] . out[b, p] over the C channels, this warp's sum (lanes 4
+// channels apart, 128 a step), the same on every lane.
+__device__ __forceinline__ float g_dot_out(const BwdArgs& a, int b, int p, int lane) {
+    const size_t row = ((size_t)b * a.P + p) * a.C;
+    float s = 0.f;
+    for (int c = 4 * lane; c < a.C; c += 128) {
+        const float4 gv = *reinterpret_cast<const float4*>(a.g + row + c);
+        const float4 ov = *reinterpret_cast<const float4*>(a.out + row + c);
+        s = fmaf(gv.x, ov.x, fmaf(gv.y, ov.y, fmaf(gv.z, ov.z, fmaf(gv.w, ov.w, s))));
+    }
+    return warp_sum(s);
+}
+
+// a.srow [B, P] of the looped instance: a warp a row, grid (ceil(P / 8), B).
+__global__ void __launch_bounds__(kThreads) coattn_srow(const BwdArgs a) {
+    const int lane = threadIdx.x & 31, p = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    const int b = blockIdx.y;
+    if (p >= a.P) return;
+    const float s = g_dot_out(a, b, p, lane);
+    if (lane == 0) a.srow[(size_t)b * a.P + p] = s;
+}
+
 template <int ST, bool HOST_INV, bool WITH_DX, bool WIDE, bool LOOP>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_bwd_stream(const BwdArgs a) {
     using T = typename Store<ST>::T;
@@ -323,7 +347,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_bwd_stream(const Bwd
     const int ch0 = warp * kWarpCh;                // within a channel group
     // the query rows: the block's query group [qb, qb + NQ) (grid z), or
     // every row in QG groups of 16, looped on each tile (LOOP)
-    const int qb = LOOP ? 0 : (int)blockIdx.z * kRows;
+    const int qb = LOOP ? 0 : ((int)blockIdx.z + a.qz0) * kRows;
     const int NQ = LOOP ? a.P : min(kRows, a.P - qb);
     const int QG = LOOP ? query_groups_of(a.P) : 1;
     // the wide instance: G channel groups, this block's dq and dX channels
@@ -344,9 +368,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_bwd_stream(const Bwd
     float* w_f = reinterpret_cast<float*>(smem + lay.w);
     float* wa_f = w_f + kRows * kLdWF;
     float* m_s = reinterpret_cast<float*>(smem + lay.rows);
-    float* linv_s = m_s + lay.stat_rows;
-    float* srow_s = linv_s + lay.stat_rows;
-    float* coef_s = srow_s + lay.stat_rows;
+    float* linv_s = m_s + kRows;
+    float* srow_s = linv_s + kRows;
+    float* coef_s = srow_s + kRows;
     float* inv_s = coef_s + TT;
     float* sc_s = inv_s + TT;
     uint8_t* valid_s = reinterpret_cast<uint8_t*>(sc_s + TT);
@@ -386,21 +410,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_bwd_stream(const Bwd
         const int f = f0 + i, b = f / Tb, n0 = (f - b * Tb) * TT;
         const float* gbag = a.g + (size_t)b * a.P * C;
         if (i == 0 || n0 == 0) {
-            // the range enters bag b: its stats, s_row = g . out, and g
-            const float* ob = a.out + (size_t)b * a.P * C;
-            for (int r = warp; r < NQ; r += nw) {
-                const int p = qb + r;
-                float s = 0.f;
-                for (int c = 4 * lane; c < C; c += 128) {
-                    const float4 gv = *reinterpret_cast<const float4*>(gbag + (size_t)p * C + c);
-                    const float4 ov = *reinterpret_cast<const float4*>(ob + (size_t)p * C + c);
-                    s = fmaf(gv.x, ov.x, fmaf(gv.y, ov.y, fmaf(gv.z, ov.z, fmaf(gv.w, ov.w, s))));
-                }
-                s = warp_sum(s);
-                if (lane == 0) {
-                    srow_s[r] = s;
-                    m_s[r] = a.m[(size_t)b * a.P + p];
-                    linv_s[r] = 1.f / a.l[(size_t)b * a.P + p];
+            // the range enters bag b: its stats, s_row = g . out, and g (LOOP
+            // stages each query group's stats as it comes)
+            if constexpr (!LOOP) {
+                for (int r = warp; r < NQ; r += nw) {
+                    const int p = qb + r;
+                    const float s = g_dot_out(a, b, p, lane);
+                    if (lane == 0) {
+                        srow_s[r] = s;
+                        m_s[r] = a.m[(size_t)b * a.P + p];
+                        linv_s[r] = 1.f / a.l[(size_t)b * a.P + p];
+                    }
                 }
             }
             if constexpr (!WIDE && !LOOP) {
@@ -431,11 +451,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_bwd_stream(const Bwd
         const unsigned char* xh = nullptr;  // the slice the products read
 #pragma unroll 1
         for (int qi = 0; qi < QG; ++qi) {
-            // query group qi: rows [q0, q0 + P) of the caller's, stats at sr
+            // query group qi: rows [q0, q0 + P) of the caller's
             const int q0 = qb + qi * kRows, P = LOOP ? min(kRows, a.P - q0) : NQ;
-            const int sr = q0 - qb;
             const float* qq = a.q + (size_t)q0 * C;
             const float* gq = gbag + (size_t)q0 * C;
+            if constexpr (LOOP) {
+                // the group's stats (read after the barrier below; the last
+                // group's were read before the barrier after the weights)
+                if (tid < P) {
+                    const size_t k = (size_t)b * a.P + q0 + tid;
+                    m_s[tid] = a.m[k];
+                    linv_s[tid] = 1.f / a.l[k];
+                    srow_s[tid] = a.srow[k];
+                }
+            }
             if constexpr (LOOP && !WIDE) {
                 load_frags<ST>(qq, P, C, ch0, lane, qh, ql);
                 if constexpr (ST == kF32) stage_g(gq, P, C, ch0, lane, gs_w);
@@ -521,8 +550,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_bwd_stream(const Bwd
                                     }
                                 }
                                 // a = 0 for a masked patch, before any product
-                                av = valid ? expf(sinv_n * raw - m_s[sr + r]) * linv_s[sr + r] : 0.f;
-                                dl = av * (da * s_n - srow_s[sr + r]) * inv;
+                                av = valid ? expf(sinv_n * raw - m_s[r]) * linv_s[r] : 0.f;
+                                dl = av * (da * s_n - srow_s[r]) * inv;
                             }
                             if constexpr (ST == kF32) {
                                 w_f[r * kLdWF + n] = dl;
@@ -801,17 +830,33 @@ inline cudaError_t launch_bwd_reduce(const float* ws_dq, int K, int PC, float sc
     return cudaGetLastError();
 }
 
+// The streaming kernel: the looped instance in one launch (grid z 1, after
+// coattn_srow); the others over every query group, grid z = ceil(P / 16),
+// or past kMaxQueryGroups one launch a chunk of that many groups, each from
+// its first group (a.qz0).
 template <int ST, bool HOST_INV, bool WITH_DX, bool WIDE, bool LOOP>
-cudaError_t launch_bwd_stream(const BwdArgs& a, cudaStream_t stream) {
+cudaError_t launch_bwd_stream(BwdArgs a, cudaStream_t stream) {
     auto kernel = coattn_bwd_stream<ST, HOST_INV, WITH_DX, WIDE, LOOP>;
     const int nw = warps_of(a.C);
     const size_t smem = BwdSmem(nw, ST, a.P, WITH_DX).total;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    const int qz = LOOP ? 1 : query_groups_of(a.P);
-    kernel<<<dim3((a.total + a.L - 1) / a.L, groups_of(a.C), qz), 32 * nw, smem, stream>>>(a);
-    return cudaGetLastError();
+    const dim3 grid((a.total + a.L - 1) / a.L, groups_of(a.C), 1);
+    if constexpr (LOOP) {
+        const int B = a.total / a.Tb;
+        coattn_srow<<<dim3((a.P + kWarps - 1) / kWarps, B), kThreads, 0, stream>>>(a);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        kernel<<<grid, 32 * nw, smem, stream>>>(a);
+        return cudaGetLastError();
+    }
+    const int qg = query_groups_of(a.P);
+    for (a.qz0 = 0; a.qz0 < qg; a.qz0 += kMaxQueryGroups) {
+        kernel<<<dim3(grid.x, grid.y, min(kMaxQueryGroups, qg - a.qz0)), 32 * nw, smem,
+                 stream>>>(a);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    return cudaSuccess;
 }
 
 // The backward of one storage: the streaming kernel's instance for the
@@ -844,12 +889,10 @@ cudaError_t run_bwd(const BwdArgs& a, float* dq, cudaStream_t stream) {
 }
 
 // Bytes of dynamic shared memory of a block for P queries and width C (0:
-// not taken; C must be a positive multiple of 8, P >= 1, the dQ kernel's
-// query groups at most kMaxQueryGroups).  The looped dX instance keeps the
-// stats of every row: past 8,656 queries of f32 x (10,032 of bf16) a block
-// needs more than an H100's 227 KB, which the caller refuses.
+// not taken; C must be a positive multiple of 8, P >= 1).  No instance's
+// grows with P: the looped one stages each query group's stats.
 inline size_t bwd_smem_bytes(int P, int C, int storage, bool with_dx) {
-    if (C < 8 || C % 8 != 0 || P < 1 || query_groups_of(P) > kMaxQueryGroups) return 0;
+    if (C < 8 || C % 8 != 0 || P < 1) return 0;
     return BwdSmem(warps_of(C), storage, P, with_dx).total;
 }
 

@@ -31,7 +31,9 @@ size_t coattn_bwd_dq_smem_bytes(int P, int C, int storage) {
 // out [B, P, C] f32 (the output's cotangent and the forward output); m and l
 // [B, P] f32 (the forward's softmax stats).  The kernel runs ceil(B*Tb / L)
 // blocks of L tiles (Tb = ceil(N / tile) a bag) for each of the ceil(C / 512)
-// channel groups; workspace ws_dq [ceil(B*Tb / L), P, C] f32.  Output dq
+// channel groups and ceil(P / 16) query groups (launched in chunks of
+// kMaxQueryGroups groups past that many); workspace ws_dq [ceil(B*Tb / L),
+// P, C] f32.  Output dq
 // [P, C] f32.  All on CUDA device `device`; the kernels go to `stream`.
 // Returns the launches' cudaError_t (0 on success).
 int coattn_bwd_dq(const void* q, const void* x, const void* x_scale, const void* x_inv,
@@ -51,7 +53,7 @@ int coattn_bwd_dq(const void* q, const void* x, const void* x_scale, const void*
                     static_cast<const float*>(x_inv), static_cast<const uint8_t*>(mask), scale,
                     static_cast<const float*>(g), static_cast<const float*>(out),
                     static_cast<const float*>(m), static_cast<const float*>(l),
-                    N, C, P, Tb, B * Tb, L, static_cast<float*>(ws_dq), nullptr};
+                    N, C, P, Tb, B * Tb, L, static_cast<float*>(ws_dq), nullptr, 0, nullptr};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* dqf = static_cast<float*>(dq);
     err = storage == kF32 ? run_bwd<kF32, false>(a, dqf, st)

@@ -27,16 +27,18 @@ size_t coattn_bwd_dx_smem_bytes(int P, int C, int storage) {
 // out [B, P, C] f32 (the output's cotangent and the forward output); m and l
 // [B, P] f32 (the forward's softmax stats).  The kernel runs ceil(B*Tb / L)
 // blocks of L tiles (Tb = ceil(N / tile) a bag) for each of the ceil(C / 512)
-// channel groups; workspace ws_dq [ceil(B*Tb / L), P, C] f32.  Outputs dq
+// channel groups; workspace ws_dq [ceil(B*Tb / L), P, C] f32 and, above 16
+// queries (the looped instance), ws_srow [B, P] f32 (else null).  Outputs dq
 // [P, C] f32 and dx [B, N, C] in x's type, every row written.  All on CUDA
 // device `device`; the kernels go to `stream`.  Returns the launches'
 // cudaError_t (0 on success).
 int coattn_bwd_dx(const void* q, const void* x, const void* mask, float scale, const void* g,
                   const void* out, const void* m, const void* l, int B, int N, int C, int P,
-                  int L, int storage, int device, void* ws_dq, void* dq, void* dx,
-                  void* stream) {
+                  int L, int storage, int device, void* ws_dq, void* ws_srow, void* dq,
+                  void* dx, void* stream) {
     if (coattn_bwd_dx_smem_bytes(P, C, storage) == 0 || B < 1 || N < 0 || L < 1
-        || (storage != kF32 && storage != kBF16)) {
+        || (storage != kF32 && storage != kBF16)
+        || loops_groups(P, true) != (ws_srow != nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     cudaError_t err = cudaSetDevice(device);
@@ -47,7 +49,7 @@ int coattn_bwd_dx(const void* q, const void* x, const void* mask, float scale, c
                     static_cast<const uint8_t*>(mask), scale, static_cast<const float*>(g),
                     static_cast<const float*>(out), static_cast<const float*>(m),
                     static_cast<const float*>(l), N, C, P, Tb, B * Tb, L,
-                    static_cast<float*>(ws_dq), dx};
+                    static_cast<float*>(ws_dq), dx, 0, static_cast<float*>(ws_srow)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* dqf = static_cast<float*>(dq);
     err = storage == kF32 ? run_bwd<kF32, true>(a, dqf, st) : run_bwd<kBF16, true>(a, dqf, st);

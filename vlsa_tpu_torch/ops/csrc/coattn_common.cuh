@@ -15,8 +15,9 @@ namespace coattn {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// query groups of kRows rows a launch takes: the forward's and dQ's grid z
-// (P up to 65535 * 16)
+// query groups of kRows rows a launch takes on the forward's and dQ's grid z:
+// past it the caller launches the groups in chunks of this many, each with
+// its first group's offset (any P)
 constexpr int kMaxQueryGroups = 65535;
 constexpr float kNegInf = -1e30f;
 

@@ -140,6 +140,7 @@ struct FwdArgs {
     float* ws_m;
     float* ws_l;
     float* ws_acc;
+    int qz0;  // the launch's first query group (grid z counts from it)
 };
 
 // The warp's partial logits q . x [16, tile] over its 64 channels of the
@@ -247,7 +248,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) coattn_fwd_stream(const Fwd
     const int g = lane >> 2, t = lane & 3;
     const int ch0 = warp * kWarpCh;                // within a channel group
     // the block's query group: rows [q0, q0 + P) of the caller's P
-    const int q0 = (int)blockIdx.z * kRows, P = min(kRows, a.P - q0);
+    const int q0 = ((int)blockIdx.z + a.qz0) * kRows, P = min(kRows, a.P - q0);
     const float* qg = a.q + (size_t)q0 * a.C;
     // the wide instance: G channel groups, this block pools group grp; a
     // tile is G logit items and one PV item of the ring
@@ -590,17 +591,24 @@ coattn_fwd_merge(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
     }
 }
 
+// The streaming kernel over every query group: one launch of grid z =
+// ceil(P / 16), or past kMaxQueryGroups one launch a chunk of that many
+// groups, each from its first group (a.qz0).
 template <int ST, bool HOST_INV, bool WIDE>
-cudaError_t launch_stream(const FwdArgs& a, cudaStream_t stream) {
+cudaError_t launch_stream(FwdArgs a, cudaStream_t stream) {
     auto kernel = coattn_fwd_stream<ST, HOST_INV, WIDE>;
     const int nw = warps_of(a.C);
     const size_t smem = FwdSmem(nw, ST).total;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3((a.total + a.L - 1) / a.L, groups_of(a.C), query_groups_of(a.P)), 32 * nw, smem,
-             stream>>>(a);
-    return cudaGetLastError();
+    const int qg = query_groups_of(a.P);
+    for (a.qz0 = 0; a.qz0 < qg; a.qz0 += kMaxQueryGroups) {
+        const int qz = min(kMaxQueryGroups, qg - a.qz0);
+        kernel<<<dim3((a.total + a.L - 1) / a.L, groups_of(a.C), qz), 32 * nw, smem, stream>>>(a);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    return cudaSuccess;
 }
 
 template <int ST>
@@ -627,7 +635,8 @@ size_t coattn_fwd_smem_bytes(int P, int C, int storage) {
 // x_scale [B, N] f32 for int8, else null; x_inv [B, N] f32 or null; mask
 // [B, N] bool.  The streaming kernel runs ceil(B*Tb / L) blocks of L tiles
 // (Tb = ceil(N / tile) a bag) for each of the ceil(C / 512) channel groups
-// and ceil(P / 16) query groups; workspace ws_m,
+// and ceil(P / 16) query groups (launched in chunks of kMaxQueryGroups
+// groups past that many); workspace ws_m,
 // ws_l [B, Smax, P] and ws_acc [B, Smax, P, C] f32, Smax the most blocks a
 // bag's tiles span.  Outputs: out [B, P, C], m and l [B, P] f32.  All on
 // CUDA device `device`; the kernels go to `stream`.  Returns the launches'
@@ -636,8 +645,7 @@ int coattn_fwd(const void* q, const void* x, const void* x_scale, const void* x_
                const void* mask, float scale, int B, int N, int C, int P, int L, int Smax,
                int storage, int device, void* ws_m, void* ws_l, void* ws_acc, void* out,
                void* m_out, void* l_out, void* stream) {
-    if (P < 1 || query_groups_of(P) > kMaxQueryGroups || coattn_fwd_smem_bytes(P, C, storage) == 0
-        || B < 1 || N < 0
+    if (P < 1 || coattn_fwd_smem_bytes(P, C, storage) == 0 || B < 1 || N < 0
         || L < 1 || Smax < 0 || (storage == kI8) != (x_scale != nullptr)
         || (storage != kF32 && storage != kBF16 && storage != kI8)) {
         return (int)cudaErrorInvalidValue;
@@ -649,7 +657,7 @@ int coattn_fwd(const void* q, const void* x, const void* x_scale, const void* x_
     const FwdArgs a{static_cast<const float*>(q), x, static_cast<const float*>(x_scale),
                     static_cast<const float*>(x_inv), static_cast<const uint8_t*>(mask), scale,
                     N, C, P, Tb, B * Tb, L, Smax, static_cast<float*>(ws_m),
-                    static_cast<float*>(ws_l), static_cast<float*>(ws_acc)};
+                    static_cast<float*>(ws_l), static_cast<float*>(ws_acc), 0};
     if (a.total > 0) {
         if (Smax < 1) return (int)cudaErrorInvalidValue;
         err = storage == kF32 ? launch_storage<kF32>(a, st)

@@ -43,7 +43,7 @@ product either way round: it needs no view.)
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -364,7 +364,8 @@ def rademacher(p: torch.Tensor, generator: Optional[torch.Generator] = None) -> 
 
 def hutchinson_hessian_diag(loss: torch.Tensor, params: Sequence[torch.Tensor],
                             names: Sequence[str], z: Optional[Sequence[torch.Tensor]] = None,
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            reduce: Optional[Callable[[List[torch.Tensor]], None]] = None):
     """One-sample Hutchinson estimate z * (H z) of the Hessian diagonal of
     `loss` in `params` (vlsa_tpu/optim/extra.py::hutchinson_hessian_diag):
     H z = d(g . z)/dparams from the gradient g taken with create_graph=True,
@@ -372,7 +373,9 @@ def hutchinson_hessian_diag(loss: torch.Tensor, params: Sequence[torch.Tensor],
     `generator`.  A leaf of >= 2 dimensions gets the
     mean of |z * Hz| over vlsa_tpu's axes 1.. (a Dense weight's torch axis
     0).  A parameter the loss does not reach gets a zero gradient and
-    estimate.  -> (gradients, estimates), detached, in `params`' order.  The
+    estimate.  `reduce` (a mesh's sums of a rank's shares, in place) takes
+    the gradients and then the H z before the estimates are formed.  ->
+    (gradients, estimates), detached, in `params`' order.  The
     second derivative runs through every operation of the loss: call it
     inside `ops.flags.disable_kernels()`.  The kernels have none: a gradient
     that went through one raises a RuntimeError here, not a zero estimate."""
@@ -391,11 +394,14 @@ def hutchinson_hessian_diag(loss: torch.Tensor, params: Sequence[torch.Tensor],
                                   grad_outputs=[z[i] for i in live], allow_unused=True)
         for i, h in zip(live, got):
             hz[i] = h
-    out_g: List[torch.Tensor] = []
+    out_g = [torch.zeros_like(p) if g is None else g.detach() for p, g in zip(params, grads)]
+    hz = [torch.zeros_like(p) if h is None else h.detach() for p, h in zip(params, hz)]
+    if reduce is not None:
+        reduce(out_g)
+        reduce(hz)
     out_d: List[torch.Tensor] = []
-    for p, name, g, zi, h in zip(params, names, grads, z, hz):
-        out_g.append(torch.zeros_like(p) if g is None else g.detach())
-        d = torch.zeros_like(p) if h is None else (zi * h).detach()
+    for name, zi, h in zip(names, z, hz):
+        d = zi * h
         if d.dim() >= 2:
             dj = jax_layout(name, d)
             dj = dj.abs().mean(dim=tuple(range(1, dj.dim())), keepdim=True).expand_as(dj)

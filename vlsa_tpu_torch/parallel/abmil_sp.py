@@ -12,10 +12,12 @@ partials, summed over the model group inside the backward, are the whole
 gradients, and dX (when the features need one, behind the projecter) is
 the chunk's rows of the whole one.
 
-On the CPU (and inside `ops.flags.disable_kernels()`) the same Function
-runs the plain versions (`abmil_fwd_reference` and the backward's plain
-version, which for bf16 rounds W1 and dz as the kernel does).  int8
-features are dequantized to bf16 first (vlsa_tpu/models/mil.py:231-238).
+On the CPU the same Function runs the plain versions (`abmil_fwd_reference`
+and the backward's plain version, which for bf16 rounds W1 and dz as the
+kernel does).  Inside `ops.flags.disable_kernels()` the pool is vlsa_tpu's
+`shard_fn` in plain, twice-differentiable operations (`abmil_shard_fn`),
+as parallel/coattn_sp.py's is.  int8 features are dequantized to bf16
+first (vlsa_tpu/models/mil.py:231-238).
 """
 from __future__ import annotations
 
@@ -25,15 +27,29 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops import abmil as ab
-from .collectives import all_reduce
-from .coattn_sp import _kernels, merge_partials
+from ..ops.flags import kernels_disabled
+from ..ops.masked import NEG_INF
+from .collectives import all_reduce, copy_to_group
+from .coattn_sp import merge_partials, merge_plain
 from .sharding import Mesh
+
+
+def abmil_shard_fn(x, mask, w1, b1, w2, group) -> torch.Tensor:
+    """vlsa_tpu/parallel/abmil_sp.py's shard_fn in plain operations, in f32
+    (float64 for float64 features), the replicated weights entering through
+    `copy_to_group`."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    w1, b1, w2 = (copy_to_group(t, group).to(xf.dtype) for t in (w1, b1, w2))
+    logits = torch.where(mask, torch.tanh(xf @ w1.T + b1) @ w2, NEG_INF)
+    m = logits.amax(-1).detach()
+    p = torch.where(mask, torch.exp(logits - m[:, None]), 0.0)
+    return merge_plain(m, p.sum(-1), torch.einsum("bn,bnd->bd", p, xf), group)
 
 
 class AbmilPoolSP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, w1, b1, w2, group):
-        if _kernels(x):
+        if x.is_cuda:
             out, m, l = ab.abmil_fwd(x, mask, w1, b1, w2)
         else:
             with torch.no_grad():
@@ -49,7 +65,7 @@ class AbmilPoolSP(torch.autograd.Function):
         x, mask, w1, b1, w2, out, m, l = ctx.saved_tensors
         g = g.contiguous()
         need_dx = ctx.needs_input_grad[0]
-        if _kernels(x):
+        if x.is_cuda:
             dx, dw1, db1, dw2 = ab.abmil_bwd(x, mask, w1, b1, w2, g, out, m, l, need_dx=need_dx)
         else:
             dx, dw1, db1, dw2 = ab._bwd_plain(x, mask, w1, b1, w2, g, out, m, l, None, need_dx,
@@ -72,5 +88,7 @@ def abmil_pool_sp(x: torch.Tensor, mask: Optional[torch.Tensor], w1: torch.Tenso
                          "dequantize int8 first")
     if mask is None:
         mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+    if kernels_disabled():
+        return abmil_shard_fn(x, mask, w1, b1, w2, mesh.model_group)
     return AbmilPoolSP.apply(x.contiguous(), mask.contiguous(), w1.contiguous(),
                              b1.contiguous(), w2.contiguous(), mesh.model_group)

@@ -20,12 +20,16 @@ is summed over the model group inside the backward, the counterpart of
 shard_map's transpose psum: everything downstream of the pool is the same
 on every rank of the group already.
 
-On the CPU (and on the card inside `ops.flags.disable_kernels()`) the
-same Function runs the plain versions of those kernels
+On the CPU the same Function runs the plain versions of those kernels
 (`coattn_fwd_reference`, `coattn_bwd_dq_reference`,
-`coattn_bwd_dx_reference`).  int8 features are dequantized to bf16 before
-the pool by the model (vlsa_tpu/models/mil.py:167-174), which drops the
-storage sidecars: the route runs the f32 and bf16 variants.
+`coattn_bwd_dx_reference`).  Inside `ops.flags.disable_kernels()` (on the
+card or the CPU) the pool is vlsa_tpu's `shard_fn` instead: plain,
+twice-differentiable operations on the chunk, the max with its gradient
+stopped, the queries entering through `copy_to_group` and the partials
+summed by `reduce_from_group`, so that adahessian's Hessian-vector product
+runs through it.  int8 features are dequantized to bf16 before the pool by
+the model (vlsa_tpu/models/mil.py:167-174), which drops the storage
+sidecars: the route runs the f32 and bf16 variants.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from torch.autograd.function import once_differentiable
 
 from ..ops import coattn as co
 from ..ops.flags import kernels_disabled
-from .collectives import all_reduce
+from ..ops.masked import NEG_INF, l2_normalize
+from .collectives import all_reduce, copy_to_group, reduce_from_group
 from .sharding import Mesh
 
 
@@ -52,8 +57,29 @@ def merge_partials(out: torch.Tensor, m: torch.Tensor, l: torch.Tensor, group):
     return flat[:n].view_as(acc) / torch.clamp(l_g, min=1e-30)[..., None], m_g, l_g
 
 
-def _kernels(x: torch.Tensor) -> bool:
-    return x.is_cuda and not kernels_disabled()
+def merge_plain(m: torch.Tensor, l: torch.Tensor, pv: torch.Tensor, group) -> torch.Tensor:
+    """vlsa_tpu's combine of a chunk's partials (m [B, ...] without a
+    gradient, l [B, ...], the unnormalised pv [B, ..., C]) as differentiable
+    operations: out = sum_i pv_i e^{m_i - m} / max(sum_i l_i e^{m_i - m},
+    1e-30), the sums in one `reduce_from_group`."""
+    corr = torch.exp(m - all_reduce(m, group, "max"))
+    acc = pv * corr[..., None]
+    n = acc.numel()
+    flat = reduce_from_group(torch.cat([acc.reshape(-1), (l * corr).reshape(-1)]), group)
+    return flat[:n].view_as(acc) / torch.clamp(flat[n:].view_as(l), min=1e-30)[..., None]
+
+
+def coattn_shard_fn(q, x, mask, scale, group) -> torch.Tensor:
+    """vlsa_tpu/parallel/coattn_sp.py's shard_fn in plain operations (its
+    _local_partials, then the combine): norms and logits in f32 (float64
+    for float64 features)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    q = copy_to_group(q, group)
+    logits = scale * torch.einsum("pc,bnc->bpn", q.to(xf.dtype), l2_normalize(xf, dim=-1))
+    logits = torch.where(mask[:, None, :], logits, NEG_INF)
+    m = logits.amax(-1).detach()
+    p = torch.where(mask[:, None, :], torch.exp(logits - m[..., None]), 0.0)
+    return merge_plain(m, p.sum(-1), torch.einsum("bpn,bnc->bpc", p, xf), group)
 
 
 class CoattnPoolSP(torch.autograd.Function):
@@ -62,7 +88,7 @@ class CoattnPoolSP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, x, mask, scale, group):
-        if _kernels(x):
+        if x.is_cuda:
             out, m, l = co.coattn_fwd(q, x, mask, scale)
         else:
             out, m, l = co.coattn_fwd_reference(
@@ -79,7 +105,7 @@ class CoattnPoolSP(torch.autograd.Function):
         g = g.contiguous()
         need_dx = ctx.needs_input_grad[1]
         dx = None
-        if _kernels(x):
+        if x.is_cuda:
             if need_dx:
                 dq, dx = co.coattn_bwd_dx(q, x, mask, ctx.scale, g, out, m, l)
             else:
@@ -102,11 +128,15 @@ def coattn_pool_sp(q: torch.Tensor, x: torch.Tensor, mask: Optional[torch.Tensor
     and mask [B, n] the rank's chunk of the patch axis -> the whole bag's
     pooled features [B, P, C] f32, the same on every rank of the model
     group.  x is f32 or bf16 (int8 dequantized by the caller); it gets a
-    gradient (its chunk's) when it requires one."""
+    gradient (its chunk's) when it requires one.  Inside
+    `ops.flags.disable_kernels()` it is `coattn_shard_fn`, which has a
+    second derivative."""
     if x.dtype == torch.int8:
         raise ValueError("the sequence-parallel pool takes f32 or bf16 features: "
                          "dequantize int8 first")
     if mask is None:
         mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+    if kernels_disabled():
+        return coattn_shard_fn(q, x, mask, float(scale), mesh.model_group)
     return CoattnPoolSP.apply(q.contiguous(), x.contiguous(), mask.contiguous(), float(scale),
                               mesh.model_group)

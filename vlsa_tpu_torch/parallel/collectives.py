@@ -9,10 +9,16 @@ vlsa_tpu, where XLA inserts them from the shardings).
   reduced or gathered there, copied back.  Compute stays on the card.
 * Autograd-aware operators: `copy_to_group` (identity forward, sum of the
   gradient over the group backward), `reduce_from_group` (sum forward,
-  identity backward), the pair that wraps a tensor-parallel MLP, and
-  `gather_rows` (rows of every rank concatenated in rank order; backward:
-  the gradient summed over the group, the rank's own rows kept), for an
-  objective every rank computes on the whole batch.
+  identity backward), the pair that wraps a tensor-parallel MLP and merges
+  a sequence-parallel pool's plain chunks (every rank of the group then
+  computes the same downstream), and `gather_rows` (rows of every rank
+  concatenated in rank order; backward: the gradient summed over the
+  group, the rank's own rows kept), for an objective every rank computes on
+  the whole batch.  Each backward is built from these operators (copy's of
+  reduce_from_group, reduce's of copy_to_group, the gather's of a sum over
+  the group that sums backward too, `sum_over_group`), so a gradient taken
+  with create_graph=True has a second derivative through them (adahessian's
+  Hessian-vector product on a mesh).
 * `broadcast_object`: global rank 0's Python object on every rank (a
   checkpoint rank 0 read, so that every rank holds the same weights).
 
@@ -92,18 +98,24 @@ def broadcast_object(obj, world: bool):
     return box[0]
 
 
+def sum_tensors_(tensors, group) -> None:
+    """Sum `tensors` over `group` in place, in one collective (a flat buffer
+    of every tensor, in order); None entries are skipped."""
+    tensors = [t for t in tensors if t is not None]
+    if group is None or not tensors:
+        return
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), group)
+    offset = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[offset:offset + n].view_as(t))
+        offset += n
+
+
 def sum_grads_(params, group) -> None:
     """Sum the gradients of `params` over `group` in place, in one
-    collective (a flat buffer of every gradient, in order)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if group is None or not grads:
-        return
-    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
-    offset = 0
-    for g in grads:
-        n = g.numel()
-        g.copy_(flat[offset:offset + n].view_as(g))
-        offset += n
+    collective."""
+    sum_tensors_([p.grad for p in params], group)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -114,17 +126,29 @@ class _CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.group), None
+        return reduce_from_group(g, ctx.group), None
 
 
 class _ReduceFromGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
+        ctx.group = group
         return all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return copy_to_group(g, ctx.group), None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over_group(g, ctx.group), None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -136,7 +160,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = all_reduce(g, ctx.group)
+        g = sum_over_group(g, ctx.group)
         lo = ctx.index * ctx.rows
         return g[lo:lo + ctx.rows], None
 
@@ -149,6 +173,13 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """Summed over `group` forward; identity backward."""
     return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Summed over `group` forward and backward: the sum as a function of
+    every rank's input, whose ranks may each take another cotangent (the
+    gather's backward, where each rank keeps its own rows)."""
+    return x if group is None else _SumOverGroup.apply(x, group)
 
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:

@@ -19,7 +19,7 @@ vlsa_tpu's engine hold for both: the storage sidecars
 (`feats_inputs`); and the logit scale and the query-diversity term exist
 only for a vision-language model (`uses_vl`).
 
-On a mesh of ranks (parallel/sharding.py) a step takes the rank's slice of
+On a mesh of ranks (parallel/sharding.py) a step takes the rank's share of
 the global batch (`parallel.multihost.make_global_batch`: its bags, and its
 chunk of the patch axis when the pool is sequence parallel).  vlsa_tpu's
 objective is the global batch's, and some losses couple bags (SurvPLE,
@@ -48,13 +48,8 @@ from ..data.quant import Bag, pad_request
 from ..ops.coattn import dequantize_feats
 from ..ops.flags import disable_kernels
 from ..optim.extra import hutchinson_hessian_diag
-from ..parallel.collectives import all_gather, gather_rows, sum_grads_
+from ..parallel.collectives import all_gather, gather_rows, sum_tensors_
 from ..parallel.multihost import make_global_batch
-
-# losses whose value couples the bags of a batch: a mesh's micro-batches
-# (accum_steps > 1) would split them otherwise than vlsa_tpu's
-BATCH_COUPLED = ("SurvPLE", "rank_loss", "SurvT2I")
-
 
 # the batch entries of cluster and graph bags, passed to the model by name
 GRAPH_KEYS = ("cluster_id", "edge_index", "edge_valid")
@@ -139,34 +134,31 @@ class TrainEngine:
     second derivative, so that whole step runs inside
     `ops.flags.disable_kernels()`: the plain versions, on the card; every
     other call (evaluation, serving) keeps the kernels.  With accum_steps > 1
-    it raises, as vlsa_tpu asserts.
+    it raises, as vlsa_tpu asserts.  On a mesh every rank draws the same z
+    (one seed, the optimizer's parameter order), and H z is summed as the
+    gradients are (`reduce_grads`): the collectives' backwards have
+    derivatives of their own (parallel/collectives.py), and the
+    sequence-parallel pools take vlsa_tpu's plain shard_fn there.
 
     `mesh` (parallel.sharding.Mesh of more than one rank): the data-parallel
     objective and gradient sums of the module's docstring; `seq_parallel`
     slices the patch axis of the batches; `model_partial` names the
     parameters whose gradients the model group sums.  With `accum_steps` >
-    1 each rank cuts its slice into micro-batches, which gathered are a
-    split of the global batch other than vlsa_tpu's contiguous one: the
-    same function for per-bag losses, another for the `BATCH_COUPLED` ones
-    (`batch_coupled`), which raise there, as adahessian does on a mesh
-    (ROADMAP.md §A.18)."""
+    1 micro-batch k is each rank's k-th share of the batch, its rows
+    gathered over the data group: the training batcher lays out a rank's
+    batch as its shares of vlsa_tpu's contiguous micro-batches, rows [k mb,
+    (k + 1) mb) of the global batch, mb = B / accum_steps
+    (runner/train.py::make_batcher), so that a loss that couples the bags
+    sees vlsa_tpu's micro-batches."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  objective: Callable, accum_steps: int = 1, needs_hessian: bool = False,
                  hessian_seed: int = 0, mesh=None, seq_parallel: bool = False,
-                 model_partial: Sequence[str] = (), batch_coupled: bool = False):
+                 model_partial: Sequence[str] = ()):
         if needs_hessian and accum_steps > 1:
             raise ValueError("adahessian with accum_steps > 1 is not supported (nor in "
                              "vlsa_tpu)")
         mesh = mesh if mesh is not None and mesh.size > 1 else None
-        if mesh is not None and needs_hessian:
-            raise ValueError(f"adahessian on a mesh of {mesh.size} ranks is not ported "
-                             f"(ROADMAP.md §A.18): its Hessian-vector product would "
-                             f"differentiate through the collectives")
-        if mesh is not None and mesh.n_data > 1 and accum_steps > 1 and batch_coupled:
-            raise ValueError(f"accum_steps {accum_steps} with a batch-coupled loss "
-                             f"({', '.join(BATCH_COUPLED)}) on data={mesh.n_data} ranks "
-                             f"splits the batch otherwise than vlsa_tpu (ROADMAP.md §A.18)")
         self.mesh = mesh
         self.seq_parallel = seq_parallel
         self.n_data = 1 if mesh is None else mesh.n_data
@@ -211,10 +203,18 @@ class TrainEngine:
     def reduce_grads(self) -> None:
         """On a mesh: the model-partial gradients summed over the model
         group, then every trainable gradient over the data group."""
+        params = self._trainable()[1]
+        self._reduce(params, [p.grad for p in params])
+
+    def _reduce(self, params, tensors) -> None:
+        """`reduce_grads`'s sums of `tensors`, one a parameter of `params`
+        (gradients, or Hessian-vector products), in place."""
         if self.mesh is None:
             return
-        sum_grads_(self._model_partial, self.mesh.model_group)
-        sum_grads_(self._trainable()[1], self._data_group)
+        partial = {id(p) for p in self._model_partial}
+        sum_tensors_([t for p, t in zip(params, tensors) if id(p) in partial],
+                     self.mesh.model_group)
+        sum_tensors_(tensors, self._data_group)
 
     def _trainable(self):
         """(names, parameters) the optimizer updates, in its groups' order."""
@@ -230,12 +230,15 @@ class TrainEngine:
         """The adahessian update on a batch already on the device: gradients
         and the Hessian diagonal's estimate from one forward on the plain
         versions (z: `hessian_z`, one tensor a trainable parameter in the
-        optimizer's order, else drawn), then the optimizer's step."""
+        optimizer's order, else drawn), on a mesh of the rank's objective
+        share (the loss / D) and summed as `reduce_grads` sums, then the
+        optimizer's step."""
         names, params = self._trainable()
         with disable_kernels():
             loss, raw = self.loss(batch)
-            grads, diag = hutchinson_hessian_diag(loss, params, names, z=hessian_z,
-                                                  generator=self._hessian_gen)
+            grads, diag = hutchinson_hessian_diag(
+                loss / self.n_data, params, names, z=hessian_z, generator=self._hessian_gen,
+                reduce=lambda ts: self._reduce(params, ts))
         for p, g in zip(params, grads):
             p.grad = g
         self.optimizer.step(hessian=dict(zip(params, diag)))
@@ -277,7 +280,7 @@ class TrainEngine:
                 loss = loss + (loss_i.detach() * (w / w_tot)).to(loss_i.dtype)
                 raws.append(raw_i.detach())
             raw = torch.cat(raws)
-            if self.n_data > 1:  # micro-batch-major to data-rank-major rows
+            if self.n_data > 1:  # micro-batch-major to data-rank-major (the batches') rows
                 raw = raw.reshape(accum, self.n_data, mb, *raw.shape[1:]).transpose(0, 1) \
                     .reshape(raw.shape)
         self.reduce_grads()

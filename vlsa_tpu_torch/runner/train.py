@@ -45,7 +45,7 @@ from ..optim import create_optimizer, frozen_mask_from_cfg
 from ..parallel.multihost import process_shard_info
 from ..parallel.sharding import seed_dropout, shard_params
 from ..utils.device import resolve_device
-from .engine import BATCH_COUPLED, TrainEngine, make_objective, make_output_converter
+from .engine import TrainEngine, make_objective, make_output_converter
 
 
 def build_surv_meta(cfg: dict, data_split: dict) -> MetaSurvData:
@@ -114,11 +114,17 @@ def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool,
     `prefetch` (default 2) batches ahead by a background thread, in
     page-locked memory with `pin_memory` (for a model on the card).  On a
     `mesh` the data rank d loads only its slice of every global batch
-    (num_shards D, shard_index d; vlsa_tpu/runner/base.py:253-262)."""
+    (num_shards D, shard_index d; vlsa_tpu/runner/base.py:253-262); a
+    training batcher with `accum_steps` > 1 loads its shares of the global
+    batch's micro-batches instead (`micro_batches`), so that the gathered
+    micro-batches are vlsa_tpu's contiguous ones."""
     shard_index, num_shards = process_shard_info(mesh)
     batch_size = cfg.get("bp_every_batch", 32)
+    micro = 1
     if not shuffle:
         batch_size = cfg.get("eval_batch_size", batch_size)
+    elif num_shards > 1:
+        micro = cfg.get("accum_steps", 1)
     return BagBatcher(
         dataset, batch_size=batch_size, shuffle=shuffle,
         seed=cfg["seed"], min_bucket=cfg.get("min_bucket", 256),
@@ -127,7 +133,8 @@ def make_batcher(dataset: SurvBagDataset, cfg: dict, shuffle: bool,
         # DeepMIL's pooling is unnormalised: SA and CLF need no 1/||x|| rows
         precompute_inv=cfg.get("feats_precompute_inv", True) and cfg["task"] == "vlsa",
         overflow=cfg.get("bag_overflow", "error"), prefetch=cfg.get("prefetch", 2),
-        pin_memory=pin_memory, num_shards=num_shards, shard_index=shard_index)
+        pin_memory=pin_memory, num_shards=num_shards, shard_index=shard_index,
+        micro_batches=micro)
 
 
 def mesh_parallelism(cfg: dict, mesh) -> Tuple[bool, bool]:
@@ -234,8 +241,7 @@ class Trainer:
                 self.model, self.optimizer, objective, accum_steps=cfg.get("accum_steps", 1),
                 needs_hessian=cfg["opt_name"].lower() == "adahessian",
                 hessian_seed=cfg.get("seed") or 0, mesh=self.mesh,
-                seq_parallel=self.seq_parallel, model_partial=model_partial,
-                batch_coupled=any(n in BATCH_COUPLED for n in self.loss_fns))
+                seq_parallel=self.seq_parallel, model_partial=model_partial)
 
     def batches(self) -> Iterator[dict]:
         """Training batches, epoch after epoch."""
